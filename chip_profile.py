@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where the time of one headline DQMC sweep pair goes, on one NVIDIA GPU.
+
+    python3 chip_profile.py
+
+Runs the port's headline configuration (chip_smoke.py's: 8x8 attractive
+Hubbard, beta=10, M=100, safe_mult=10, 256 chains, float32) and prints
+
+  pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
+           (use_kernels=False) then kernel path again, synchronised wall
+  layer    synchronised wall ms per call of sweep_slice, wrap_up,
+           extend_left and calculate_greens at the path's shapes
+  device   torch.profiler over two kernel-path sweep pairs: device time per
+           kernel name (device events only, so no time is counted twice),
+           the device busy share of the profiled span, and the device time
+           per sweep pair against the unprofiled wall time per sweep pair
+
+with nvidia-smi's name, power limit, SM clock and power draw before and
+after. Needs CUDA; builds the kernels like chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import subprocess
+import sys
+
+import chip_smoke as smoke
+from chip_smoke import timed
+
+PAIRS = 5
+
+
+def smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
+        return 1
+    smoke.import_port()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from montecarlo_tpu_torch import DQMC
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.ops.linalg import calculate_greens
+
+    print("smi", smi(), flush=True)
+    sim = DQMC(smoke.headline_model(), beta=smoke.BETA, delta_tau=smoke.DTAU,
+               safe_mult=smoke.SAFE_MULT, n_chains=smoke.CHAINS,
+               dtype=torch.float32, seed=0, device=smoke.DEVICE)
+    ctx, consts = sim.ctx, sim.consts
+    holder = {"st": sim.state}
+
+    def pair(c=ctx):
+        holder["st"] = core.sweep_pair(c, consts, holder["st"],
+                                       generator=sim.generator)[0]
+
+    rate = lambda t: smoke.CHAINS / t
+    t_k = timed(pair, PAIRS)                       # the SM clock ramps up here
+    t_p = timed(lambda: pair(dataclasses.replace(ctx, use_kernels=False)), 1)
+    t_k2 = timed(pair, PAIRS)
+    for name, t in (("kernel path", t_k), ("plain path", t_p),
+                    ("kernel path again", t_k2)):
+        print(f"[pair] {name}: {t * 1e3:.2f} ms per sweep pair = "
+              f"{rate(t):.1f} chain-sweeps/s", flush=True)
+
+    st = holder["st"]
+    conf = st["conf"]
+    sig = conf[:, :, 5].contiguous()
+    u = torch.rand(smoke.CHAINS, ctx.N, device=smoke.DEVICE)
+    G = st["G"]
+    S = [tuple(st[k][:, j] for k in ("S_U", "S_D", "S_T"))
+         for j in (1, ctx.n_seg)]
+    layer = {
+        "sweep_slice": timed(lambda: core.sweep_slice(ctx, G, sig, u), 50),
+        "wrap_up": timed(lambda: core.wrap_up(ctx, consts, sig, G), 50),
+        "extend_left": timed(lambda: core.extend_left(ctx, consts, conf, 1,
+                                                     *S[0]), 20),
+        "calculate_greens": timed(lambda: calculate_greens(*S[0], *S[1]), 20),
+    }
+    print("[layer] wall ms per call: " + ", ".join(
+        f"{k} {v * 1e3:.4f}" for k, v in layer.items()))
+    slices = 2 * ctx.M * (layer["sweep_slice"] + layer["wrap_up"])
+    bounds = 2 * ctx.n_seg * (layer["extend_left"] + layer["calculate_greens"])
+    print(f"[layer] per sweep pair: {2 * ctx.M} x (sweep_slice + wrap) = "
+          f"{slices * 1e3:.1f} ms; {2 * ctx.n_seg} x (extend + greens) = "
+          f"{bounds * 1e3:.1f} ms", flush=True)
+
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            pair()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise SystemExit("chip_profile: the profiler recorded no device events")
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        per_name[e.name][0] += e.time_range.elapsed_us()
+        per_name[e.name][1] += 1
+    total_us = sum(v[0] for v in per_name.values())
+    span_us = (max(e.time_range.end for e in dev)
+               - min(e.time_range.start for e in dev))
+    print(f"[device] {n_prof} sweep pairs: device time {total_us / 1e3:.2f} ms "
+          f"in {len(dev)} device events over a span of {span_us / 1e3:.2f} ms "
+          f"(busy share {total_us / span_us:.3f} under the profiler)")
+    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"[device] {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    per_pair = total_us / 1e3 / n_prof
+    print(f"[device] per sweep pair: device {per_pair:.2f} ms against "
+          f"{t_k2 * 1e3:.2f} ms unprofiled wall: busy share "
+          f"{per_pair / (t_k2 * 1e3):.3f}, idle share "
+          f"{1 - per_pair / (t_k2 * 1e3):.3f}")
+    print("smi", smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""montecarlo_tpu_torch — the PyTorch/CUDA port of montecarlo_tpu.
+
+The same determinant quantum Monte Carlo engine as ``montecarlo_tpu``,
+written in PyTorch for one NVIDIA Hopper GPU: simulation state is a dict of
+tensors with a leading ``chains`` axis (natively batched, no ``vmap``), the
+imaginary-time loop is a Python loop, and the three hot kernels of the DQMC
+sweep (sequential Metropolis site sweep, fused Householder UDT, fused UDT +
+triangular solve) are hand-written CUDA C++ under ``csrc/``, built with nvcc
+at first use. Every kernel has a plain PyTorch version beside it, which is
+what runs on the CPU.
+
+This package never imports JAX. The module layout mirrors ``montecarlo_tpu``.
+"""
+
+from .dqmc import DQMC, DQMCParameters
+from .models import HubbardModel, HubbardModelAttractive, HubbardModelRepulsive
+
+__version__ = "0.1.0"
+
+__all__ = ["DQMC", "DQMCParameters", "HubbardModel", "HubbardModelAttractive",
+           "HubbardModelRepulsive"]

@@ -1,0 +1,402 @@
+"""DQMC propagation core: UDT-stabilized sweeps over batched tensors.
+
+Counterpart of montecarlo_tpu/dqmc/core.py. Where the JAX engine is written
+per chain and vmapped, every function here takes tensors with a leading
+chain axis C: G (C, F, N, N), HS field conf (C, N, M) int8, stacks
+(C, n_el, F, N, N). Slice and segment loops are Python loops.
+
+Index conventions (0-based, as in the JAX package):
+  B_l = e^{-dtau*T} e^{-dtau*V(sigma_l)}        effective slice matrix
+  G_eff(l) = [I + B_{l-1}...B_0 · B_{M-1}...B_l]^{-1}
+        — the Green's function used to update slice l
+  stack S[j], j = 0..n_seg:
+    after an up sweep: S[j] = UDT(B_{j*sm-1}...B_0)   (left products)
+    after a down sweep: S[j] = UDT(B_{j*sm}^†...B_{M-1}^†) for j < n_seg
+        (right products; S[n_seg] holds the identity)
+
+Ported: the rank-1 path with the QR stabilization (stab_method="qr") for
+real hopping. g_refresh, delayed (rank-k) updates, checkerboard, the other
+stabilization methods and complex hopping raise NotImplementedError naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops import qr as _qr
+from ..ops.linalg import calculate_greens, permute_rows, udt_dirty
+from ..ops.site_sweep import MAX_N, site_sweep, site_sweep_plain
+from ..ops.site_sweep import kernel_supports as site_sweep_supports
+from ..utils.host import real_dtype, resolve_device
+
+
+@dataclass(frozen=True)
+class DQMCContext:
+    """Static data of a DQMC session."""
+
+    N: int            # sites
+    M: int            # time slices
+    sm: int           # safe_mult
+    F: int            # flavor blocks
+    lamb: float       # Hirsch lambda
+    det_power: int    # detratio = prod_f(r_f) ** det_power (2 for F=1, 1 for F=2)
+    use_boson: bool   # include exp(-dE_boson) in the Metropolis weight
+    dtype: torch.dtype
+    signs: tuple      # flavor signs of the HS coupling
+    device: torch.device
+    check_propagation_error: bool = True
+    # G and the per-slice hot path (wraps, site sweeps) run in update_dtype;
+    # the UDT stacks and stabilized recomputations stay in dtype
+    update_dtype: torch.dtype = None
+    prop_err_threshold: float = 1e-7
+    # hand-written kernels (K1-K3) on CUDA, their plain versions on CPU;
+    # False runs site_sweep_plain and the library QR/solve on any device
+    use_kernels: bool = True
+
+    @property
+    def udtype(self):
+        return self.update_dtype if self.update_dtype is not None else self.dtype
+
+    @property
+    def rdtype(self):
+        return real_dtype(self.dtype)
+
+    @property
+    def urdtype(self):
+        return real_dtype(self.udtype)
+
+    @property
+    def n_seg(self):
+        return self.M // self.sm
+
+    @property
+    def n_el(self):
+        return self.n_seg + 1
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to montecarlo_tpu_torch yet (ROADMAP {item})")
+
+
+def make_context(model, params, dtype=torch.float64, update_dtype=None,
+                 device="cuda", use_kernels: bool = True,
+                 stab_method: str = "qr", delay: int = None,
+                 checkerboard: bool = False,
+                 check_propagation_error: bool = None,
+                 g_refresh: bool = False) -> Tuple[DQMCContext, dict]:
+    """Build the static context and the hopping-matrix exponentials.
+
+    Returns (ctx, consts) with consts on ``device``:
+      eT2, eT2inv: exp(∓ dtau T); eThalf, eThalfinv: exp(∓ dtau/2 T);
+      hopping: T; eT2_u, eT2inv_u: exp(∓ dtau T) in the update dtype.
+    The exponentials are computed in numpy through eigh exactly as the JAX
+    package computes them, so the constants are bit-identical to the JAX
+    package's.
+
+    Also turns TF32 off for float32 matmuls process-wide
+    (torch.backends.cuda.matmul.allow_tf32 = False, float32 matmul precision
+    "highest"): reduced-precision passes bias the Markov chain through wrap
+    drift (the JAX reference measured occupation 0.44-0.49 against an exact
+    0.5).
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    device = resolve_device(device)
+    T = np.asarray(model.hopping_matrix())
+    N = len(model.lattice)
+    if np.iscomplexobj(T):
+        raise _not_ported("complex hopping (Peierls phases)",
+                          "Queue 1 item 12, kernels K8-K10")
+    if g_refresh:
+        raise _not_ported("g_refresh", "Queue 1 item 9")
+    if checkerboard:
+        raise _not_ported("checkerboard", "Queue 1 item 14")
+    if stab_method != "qr":
+        raise _not_ported(f"stab_method={stab_method!r}", "Queue 1 item 3")
+    if delay is None:
+        # the JAX package's auto rule: delayed rank-32 updates from N = 256
+        delay = 32 if N >= 256 else 0
+    if delay > 1:
+        raise _not_ported(f"delayed updates (delay={delay}, auto at N >= 256)",
+                          "Queue 1 item 11, kernel K6")
+    udtype = dtype if update_dtype is None else update_dtype
+    if device.type == "cuda" and use_kernels:
+        if dtype != torch.float32 or udtype != torch.float32:
+            raise _not_ported("CUDA kernels for float64 (use_kernels=False "
+                              "runs the plain path)", "Queue 1 item 13, K11")
+        if not site_sweep_supports(N, model.nflavors):
+            raise _not_ported(f"the site sweep for N={N} > {MAX_N}",
+                              "Queue 2 K6")
+        if not _qr.kernel_supports(N):
+            raise _not_ported(f"the float32 UDT for N={N} (kernels take "
+                              "8 | N <= 64)", "Queue 2 K4/K7")
+
+    dtau = params.delta_tau
+    w, V = np.linalg.eigh(T)
+    expm = lambda c: (V * np.exp(c * w)[None, :]) @ V.conj().T
+    mk = lambda a, dt: torch.as_tensor(a).to(device=device, dtype=dt)
+    eT2, eT2inv = expm(-dtau), expm(dtau)
+    consts = {
+        "eT2": mk(eT2, dtype),
+        "eT2inv": mk(eT2inv, dtype),
+        "eThalf": mk(expm(-0.5 * dtau), dtype),
+        "eThalfinv": mk(expm(0.5 * dtau), dtype),
+        "hopping": mk(T, dtype),
+        "eT2_u": mk(eT2, udtype),
+        "eT2inv_u": mk(eT2inv, udtype),
+    }
+    cpe = (params.check_propagation_error
+           if check_propagation_error is None else check_propagation_error)
+    mixed = update_dtype is not None and update_dtype != dtype
+    ctx = DQMCContext(
+        N=N, M=params.slices, sm=params.safe_mult, F=model.nflavors,
+        lamb=model.lamb(dtau), det_power=2 // model.nflavors,
+        use_boson=model.use_boson_weight, dtype=dtype,
+        signs=tuple(model.flavor_signs), device=device,
+        check_propagation_error=bool(cpe), update_dtype=update_dtype,
+        # mixed mode: window-end drift ~cond(window)*eps_f32 is expected;
+        # count only catastrophic excursions
+        prop_err_threshold=1.0 if mixed else 1e-7,
+        use_kernels=bool(use_kernels),
+    )
+    return ctx, consts
+
+
+# ---------------------------------------------------------------------------
+# slice matrix multiplications
+# ---------------------------------------------------------------------------
+
+def eV_diag(ctx, sigma_l, power=1.0, dtype=None):
+    """diag of exp(-power*dtau*V(l)) as (C, F, N); sigma_l: (C, N) int8.
+    lamb*sign is ±lamb exactly, so each factor is exp(±(power*lamb)*sigma)
+    rounded once, as in the JAX package."""
+    s = sigma_l.to(real_dtype(dtype or ctx.dtype))
+    return torch.stack([torch.exp(s * (power * ctx.lamb * sg))
+                        for sg in ctx.signs], dim=-2)
+
+
+def mult_B_left(ctx, consts, sigma_l, M):
+    """M ← B_l M = eT2 · diag(eV) · M   (M: (C, F, N, N))."""
+    return consts["eT2"] @ (eV_diag(ctx, sigma_l)[..., :, None] * M)
+
+
+def mult_B_dagger_left(ctx, consts, sigma_l, M):
+    """M ← B_l^† M = diag(eV) · eT2^T · M."""
+    return eV_diag(ctx, sigma_l)[..., :, None] * (consts["eT2"].mT @ M)
+
+
+def wrap_up(ctx, consts, sigma_l, G):
+    """G_eff(l) → G_eff(l+1) = B_l G B_l^{-1}, in the update dtype."""
+    G = consts["eT2_u"] @ (eV_diag(ctx, sigma_l, dtype=ctx.udtype)[..., :, None] * G)
+    eVinv = eV_diag(ctx, sigma_l, -1.0, dtype=ctx.udtype)
+    return (G * eVinv[..., None, :]) @ consts["eT2inv_u"]
+
+
+def wrap_down(ctx, consts, sigma_l, G):
+    """G_eff(l+1) → G_eff(l) = B_l^{-1} G B_l, in the update dtype."""
+    eVinv = eV_diag(ctx, sigma_l, -1.0, dtype=ctx.udtype)
+    G = eVinv[..., :, None] * (consts["eT2inv_u"] @ G)
+    eV = eV_diag(ctx, sigma_l, dtype=ctx.udtype)
+    return (G @ consts["eT2_u"]) * eV[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# UDT segment accumulation
+# ---------------------------------------------------------------------------
+
+def _identity_udt(ctx, C):
+    I = torch.eye(ctx.N, dtype=ctx.dtype, device=ctx.device).expand(
+        C, ctx.F, ctx.N, ctx.N)
+    D = torch.ones(C, ctx.F, ctx.N, dtype=ctx.rdtype, device=ctx.device)
+    return I, D, I
+
+
+def _restabilize(ctx, curr, D, T):
+    u, d, r, piv = udt_dirty(curr * D[..., None, :], ctx.use_kernels)
+    return u, d, r @ permute_rows(T, piv)
+
+
+def extend_left(ctx, consts, conf, j, U, D, T):
+    """(U,D,T) = UDT(B_{j*sm-1}...B_0) → UDT(B_{(j+1)*sm-1}...B_0), applying
+    the slices of segment j left to right. conf: (C, N, M)."""
+    curr = U
+    for s in range(ctx.sm):
+        curr = mult_B_left(ctx, consts, conf[:, :, j * ctx.sm + s], curr)
+    return _restabilize(ctx, curr, D, T)
+
+
+def extend_right(ctx, consts, conf, j, U, D, T):
+    """(U,D,T) = UDT(B_{(j+1)*sm}^†...B_{M-1}^†) → UDT(B_{j*sm}^†...B_{M-1}^†)."""
+    curr = U
+    for s in reversed(range(ctx.sm)):
+        curr = mult_B_dagger_left(ctx, consts, conf[:, :, j * ctx.sm + s], curr)
+    return _restabilize(ctx, curr, D, T)
+
+
+# ---------------------------------------------------------------------------
+# local updates
+# ---------------------------------------------------------------------------
+
+def sweep_slice(ctx, G, sigma, u):
+    """Sequential Metropolis over all sites of one time slice with rank-1
+    Green's updates, for every chain. G: (C, F, N, N) in the update dtype,
+    sigma: (C, N) int8, u: (C, N) uniforms. Returns new
+    (G, sigma, acc (C,), nneg (C,)); the inputs are not modified."""
+    fn = site_sweep if ctx.use_kernels else site_sweep_plain
+    return fn(G, sigma.contiguous(), u.contiguous(), lamb=ctx.lamb,
+              signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson)
+
+
+# ---------------------------------------------------------------------------
+# stack construction and the full sweep pair
+# ---------------------------------------------------------------------------
+
+# exceedance edges for the propagation-drift histogram
+PROP_ERR_EDGES = (1e-6, 1e-3, 1e-1, 1e1)
+
+# per-chain counters, reset when DQMC drains them to host integers
+COUNTER_KEYS = ("prop", "acc", "neg_prob", "prop_err_max", "prop_err_count",
+                "prop_err_sum", "prop_err_n", "prop_err_hist")
+
+
+def init_state(ctx, consts, conf):
+    """Build the initial stack and G_eff(M) from a configuration conf
+    (C, N, M) int8. Returns the state dict (all tensors with a leading chain
+    axis)."""
+    C = conf.shape[0]
+    n_el = ctx.n_el
+    S_U = torch.zeros(C, n_el, ctx.F, ctx.N, ctx.N, dtype=ctx.dtype,
+                      device=ctx.device)
+    S_D = torch.zeros(C, n_el, ctx.F, ctx.N, dtype=ctx.rdtype, device=ctx.device)
+    S_T = torch.zeros_like(S_U)
+    U, D, T = iU, iD, iT = _identity_udt(ctx, C)
+    for j in range(ctx.n_seg):
+        S_U[:, j], S_D[:, j], S_T[:, j] = U, D, T
+        U, D, T = extend_left(ctx, consts, conf, j, U, D, T)
+    S_U[:, ctx.n_seg], S_D[:, ctx.n_seg], S_T[:, ctx.n_seg] = U, D, T
+    # a valid G_eff(M) from the fresh stack makes the drift check at the
+    # first turnaround meaningful
+    G0 = calculate_greens(U, D, T, iU, iD, iT, ctx.use_kernels)
+    kw = dict(device=ctx.device)
+    return {
+        "conf": conf,
+        "S_U": S_U, "S_D": S_D, "S_T": S_T,
+        "G": G0.to(ctx.udtype),
+        "prop": torch.zeros(C, dtype=torch.int64, **kw),
+        "acc": torch.zeros(C, dtype=torch.int64, **kw),
+        "neg_prob": torch.zeros(C, dtype=torch.int64, **kw),
+        "prop_err_max": torch.zeros(C, dtype=ctx.rdtype, **kw),
+        "prop_err_count": torch.zeros(C, dtype=torch.int64, **kw),
+        # window-end drift distribution: sum/n give the mean, the histogram
+        # counts exceedances over PROP_ERR_EDGES
+        "prop_err_sum": torch.zeros(C, dtype=ctx.rdtype, **kw),
+        "prop_err_n": torch.zeros(C, dtype=torch.int64, **kw),
+        "prop_err_hist": torch.zeros(C, len(PROP_ERR_EDGES), dtype=torch.int64,
+                                     **kw),
+    }
+
+
+def _track_prop_err(ctx, perr, G, G_re):
+    """Fold one window-end drift max|G - G_re| per chain into the drift
+    statistics (G in the update dtype against G_re in dtype, as in JAX)."""
+    diff = (G - G_re).abs().amax(dim=(-3, -2, -1))
+    perr["prop_err_max"] = torch.maximum(perr["prop_err_max"], diff)
+    perr["prop_err_count"] = perr["prop_err_count"] + (diff > ctx.prop_err_threshold)
+    perr["prop_err_sum"] = perr["prop_err_sum"] + diff.to(perr["prop_err_sum"].dtype)
+    perr["prop_err_n"] = perr["prop_err_n"] + 1
+    perr["prop_err_hist"] = perr["prop_err_hist"] + torch.stack(
+        [diff > e for e in PROP_ERR_EDGES], dim=-1)
+
+
+def sweep_pair(ctx, consts, state, u=None, generator=None):
+    """One full [down sweep; up sweep] pass over imaginary time, updating every
+    site of every slice twice, for every chain.
+
+    u: (C, 2M, N) uniforms in the update dtype, one row per slice visit in
+    visit order (down sweep l = M-1..0, then up sweep l = 0..M-1) — the order
+    in which the JAX package splits its per-chain key. Drawn from
+    ``generator`` when not given.
+
+    Returns (state, G_meas, conf_meas): the new state (the input state is not
+    modified) and the effective G and HS field at the measurement point
+    (after the slice-0 site updates of the up sweep)."""
+    C = state["conf"].shape[0]
+    M, N, sm, n_seg = ctx.M, ctx.N, ctx.sm, ctx.n_seg
+    if u is None:
+        u = torch.rand((C, 2 * M, N), generator=generator, device=ctx.device,
+                       dtype=ctx.urdtype)
+    u = u.transpose(0, 1).contiguous()         # (2M, C, N): one row per visit
+    conf = state["conf"].clone()
+    S_U, S_D, S_T = (state[k].clone() for k in ("S_U", "S_D", "S_T"))
+    G = state["G"]
+    acc, nneg = state["acc"], state["neg_prob"]
+    perr = {k: state[k] for k in COUNTER_KEYS if k.startswith("prop_err")}
+    visit = 0
+
+    def sweep(G, l):
+        nonlocal acc, nneg, visit
+        G, sigma, a, n = sweep_slice(ctx, G, conf[:, :, l], u[visit])
+        conf[:, :, l] = sigma
+        acc, nneg, visit = acc + a, nneg + n, visit + 1
+        return G
+
+    def recompute(G, lU, lD, lT, rU, rD, rT):
+        G_re = calculate_greens(lU, lD, lT, rU, rD, rT, ctx.use_kernels)
+        if ctx.check_propagation_error:
+            _track_prop_err(ctx, perr, G, G_re)
+        return G_re.to(ctx.udtype)
+
+    # ---- down sweep. Entering segment j: the left product is read from slot
+    # j+1, then the right-product carry, extended by the just-swept segment
+    # j+1, is stored into the same slot (j = n_seg-1 starts from identity).
+    rU, rD, rT = iU, iD, iT = _identity_udt(ctx, C)
+    for j in range(n_seg - 1, -1, -1):
+        if j != n_seg - 1:
+            rU, rD, rT = extend_right(ctx, consts, conf, j + 1, rU, rD, rT)
+        G = recompute(G, S_U[:, j + 1], S_D[:, j + 1], S_T[:, j + 1],
+                      rU, rD, rT)                       # G_eff((j+1)*sm)
+        S_U[:, j + 1], S_D[:, j + 1], S_T[:, j + 1] = rU, rD, rT
+        for l in range(j * sm + sm - 1, j * sm - 1, -1):
+            G = wrap_down(ctx, consts, conf[:, :, l], G)   # pre-update sigma
+            G = sweep(G, l)
+    rU, rD, rT = extend_right(ctx, consts, conf, 0, rU, rD, rT)
+    S_U[:, 0], S_D[:, 0], S_T[:, 0] = rU, rD, rT
+
+    # ---- up sweep; segment 0 is peeled: it holds the measurement point
+    G = calculate_greens(iU, iD, iT, rU, rD, rT,
+                         ctx.use_kernels).to(ctx.udtype)   # G_eff(0)
+    S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
+    G = sweep(G, 0)
+    G_meas, conf_meas = G, conf.clone()
+    G = wrap_up(ctx, consts, conf[:, :, 0], G)             # updated sigma
+    for l in range(1, sm):
+        G = sweep(G, l)
+        G = wrap_up(ctx, consts, conf[:, :, l], G)
+    lU, lD, lT = extend_left(ctx, consts, conf, 0, iU, iD, iT)
+    for j in range(1, n_seg):
+        G = recompute(G, lU, lD, lT, S_U[:, j], S_D[:, j], S_T[:, j])
+        S_U[:, j], S_D[:, j], S_T[:, j] = lU, lD, lT
+        for l in range(j * sm, j * sm + sm):
+            G = sweep(G, l)
+            G = wrap_up(ctx, consts, conf[:, :, l], G)
+        lU, lD, lT = extend_left(ctx, consts, conf, j, lU, lD, lT)
+    S_U[:, n_seg], S_D[:, n_seg], S_T[:, n_seg] = lU, lD, lT
+
+    new = dict(state)
+    new.update(perr)
+    new.update(conf=conf, S_U=S_U, S_D=S_D, S_T=S_T, G=G, acc=acc,
+               neg_prob=nneg, prop=state["prop"] + 2 * M * N)
+    return new, G_meas, conf_meas
+
+
+def unwrap_greens(ctx, consts, G_eff):
+    """Effective → physical equal-time Green's function
+    G = e^{+dtau T/2} G_eff e^{-dtau T/2}."""
+    return consts["eThalfinv"] @ G_eff @ consts["eThalf"]

@@ -1,0 +1,207 @@
+"""DQMC simulation driver (counterpart of montecarlo_tpu/dqmc/dqmc.py).
+
+A Python loop over sweep pairs (core.sweep_pair, batched over chains) with
+equal-time measurements pushed into device-side binners; the per-chain
+device counters are drained into host integers after every chunk of sweeps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from . import core
+from .parameters import DQMCParameters
+from ..measurements.core import MeasurementRegistry
+from ..utils.host import resolve_device
+
+
+@dataclass
+class MagnitudeStats:
+    """Max and count of a monitored quantity (the JAX package's
+    MagnitudeStats, of which the ported paths fill max and count)."""
+
+    max: float = 0.0
+    count: int = 0
+
+
+@dataclass
+class DQMCAnalysis:
+    acc_rate: float = 0.0
+    prop_local: int = 0
+    acc_local: int = 0
+    sweep_duration: float = 0.0
+    negative_probability: MagnitudeStats = dataclasses.field(default_factory=MagnitudeStats)
+    propagation_error: MagnitudeStats = dataclasses.field(default_factory=MagnitudeStats)
+    # window-end drift distribution (see core.PROP_ERR_EDGES)
+    prop_err_sum: float = 0.0
+    prop_err_n: int = 0
+    prop_err_hist: list = dataclasses.field(
+        default_factory=lambda: [0] * len(core.PROP_ERR_EDGES))
+
+    @property
+    def prop_err_mean(self):
+        return self.prop_err_sum / max(1, self.prop_err_n)
+
+
+class DQMC:
+    """Determinant quantum Monte Carlo over a batch of independent chains.
+
+    use_kernels=True (the default) runs the hand-written CUDA kernels on a
+    CUDA device and their plain PyTorch versions on the CPU; False runs the
+    plain site sweep and the library QR/solve on either device. device
+    defaults to "cuda" and raises when CUDA is absent (pass device="cpu")."""
+
+    def __init__(self, model, n_chains: int = 16, seed: int = 0,
+                 dtype=torch.float64, update_dtype=None,
+                 use_kernels: bool = True, device="cuda",
+                 stab_method: str = "qr", delay: int = None,
+                 checkerboard: bool = False, g_refresh: bool = False,
+                 measurements: str | Dict = "default",
+                 thermalization_measurements: Optional[Dict] = None,
+                 recorder=None, recording_rate: int = None,
+                 last_sweep: int = 0, **params):
+        if recorder is not None or recording_rate is not None:
+            raise NotImplementedError(
+                "configuration recorders are not ported to montecarlo_tpu_torch "
+                "yet (ROADMAP Queue 1 item 17)")
+        self.device = resolve_device(device)
+        self.model = model
+        self.parameters = self.p = DQMCParameters(**params)
+        self.analysis = self.a = DQMCAnalysis()
+        self.n_chains = int(n_chains)
+        self.last_sweep = int(last_sweep)
+        self.ctx, self.consts = core.make_context(
+            model, self.parameters, dtype, update_dtype=update_dtype,
+            device=self.device, use_kernels=use_kernels,
+            stab_method=stab_method, delay=delay, checkerboard=checkerboard,
+            g_refresh=g_refresh)
+        # one generator drives the initial configuration and every sweep's
+        # uniforms: the same seed gives the same run
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        conf = model.rand_conf(self.generator, self.n_chains,
+                               self.parameters.slices, self.device)
+        self.state = core.init_state(self.ctx, self.consts, conf)
+
+        self.measurements = MeasurementRegistry()
+        self.thermalization_measurements = MeasurementRegistry()
+        if measurements == "default":
+            measurements = self.default_measurements()
+        for k, m in measurements.items():
+            self.measurements.add(k, m, self.n_chains, self.device)
+        for k, m in (thermalization_measurements or {}).items():
+            self.thermalization_measurements.add(k, m, self.n_chains, self.device)
+
+    def default_measurements(self):
+        from ..measurements import dqmc_measurements as dm
+        return {"occ": dm.occupation(self, self.model),
+                "greens": dm.greens_measurement(self, self.model)}
+
+    @property
+    def conf(self):
+        return self.state["conf"]
+
+    def __repr__(self):
+        p = self.parameters
+        return (f"DQMC simulation of {self.model!r} (beta={p.beta}, "
+                f"dtau={p.delta_tau}, M={p.slices}, {self.n_chains} chains)")
+
+    # ------------------------------------------------------------------- run
+    def run(self, sweeps: int = None, thermalization: int = None,
+            verbose: bool = True, safe_before: float = None,
+            safe_every: float = None, filename: str = None,
+            chunk: int = 16) -> bool:
+        """Run thermalization + measurement sweeps. One sweep = one full
+        [down; up] pass over imaginary time (2*slices*N site updates per
+        chain). Measurements are taken every measure_rate sweeps (sweeps
+        counted from 1); counters are drained every ``chunk`` sweeps."""
+        if safe_before is not None or safe_every is not None or filename:
+            raise NotImplementedError(
+                "checkpointing is not ported to montecarlo_tpu_torch yet "
+                "(ROADMAP Queue 1 item 17)")
+        p = self.parameters
+        sweeps = sweeps if sweeps is not None else p.sweeps
+        thermalization = (thermalization if thermalization is not None
+                          else p.thermalization)
+        total = sweeps + thermalization
+        i = self.last_sweep
+        while i < total:
+            in_th = i < thermalization
+            registry = (self.thermalization_measurements if in_th
+                        else self.measurements)
+            limit = thermalization if in_th else total
+            n = min(chunk, limit - i)
+            t0 = time.perf_counter()
+            for sweep_idx in range(i + 1, i + n + 1):
+                self.state, G_meas, conf_meas = core.sweep_pair(
+                    self.ctx, self.consts, self.state, generator=self.generator)
+                if registry.measurements and sweep_idx % p.measure_rate == 0:
+                    self._measure_all(registry, G_meas, conf_meas)
+            self._drain_counters()      # reads device values: synchronizes
+            dur = time.perf_counter() - t0
+            self.analysis.sweep_duration = dur / n
+            i += n
+            self.last_sweep = i
+            if verbose and (i % p.print_rate < chunk):
+                print(f"[DQMC] sweep {i}/{total}  "
+                      f"acc={self.analysis.acc_rate:.3f}  "
+                      f"({dur / n * 1e3:.1f} ms/sweep)  "
+                      f"prop_err_max={self.analysis.propagation_error.max:.2e}")
+        if verbose and not p.silent:
+            self._report_errors()
+        return True
+
+    def _measure_all(self, registry, G_meas, conf_meas):
+        """Push every equal-time measurement of a stage, from the physical G
+        at the measurement point."""
+        G_phys = core.unwrap_greens(self.ctx, self.consts, G_meas)
+        for k, m in registry.measurements.items():
+            m.push(registry.states[k], m.measure_fn(greens=G_phys, conf=conf_meas))
+
+    def _drain_counters(self):
+        """Accumulate the per-chain device counters into host Python ints and
+        reset them."""
+        st = self.state
+        host = {k: st[k].cpu() for k in core.COUNTER_KEYS}
+        a = self.analysis
+        a.prop_local += int(host["prop"].sum())
+        a.acc_local += int(host["acc"].sum())
+        a.acc_rate = a.acc_local / max(1, a.prop_local)
+        a.negative_probability.count += int(host["neg_prob"].sum())
+        a.propagation_error.max = max(a.propagation_error.max,
+                                      float(host["prop_err_max"].max()))
+        a.propagation_error.count += int(host["prop_err_count"].sum())
+        a.prop_err_sum += float(host["prop_err_sum"].sum())
+        a.prop_err_n += int(host["prop_err_n"].sum())
+        a.prop_err_hist = [x + int(y) for x, y in
+                           zip(a.prop_err_hist, host["prop_err_hist"].sum(0))]
+        self.state = {**st, **{k: torch.zeros_like(st[k])
+                               for k in core.COUNTER_KEYS}}
+
+    def _report_errors(self):
+        a = self.analysis
+        if a.negative_probability.count > 0:
+            print(f"[DQMC] {a.negative_probability.count} negative "
+                  "probabilities (sign problem?)")
+        if a.propagation_error.count > 0:
+            print(f"[DQMC] {a.propagation_error.count} propagation "
+                  f"instabilities > {self.ctx.prop_err_threshold:g} "
+                  f"(max {a.propagation_error.max:.2e})")
+
+    def replay(self, configurations=None, verbose: bool = False):
+        """Measurements over recorded configurations (the JAX package's
+        DQMC.replay)."""
+        raise NotImplementedError(
+            "replay is not ported to montecarlo_tpu_torch yet "
+            "(ROADMAP Queue 1 item 17)")
+
+    # ------------------------------------------------------------ observables
+    def observables(self, stage: str = "ME"):
+        registry = (self.measurements if stage == "ME"
+                    else self.thermalization_measurements)
+        return registry.observables(context=self)

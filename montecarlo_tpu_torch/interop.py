@@ -1,0 +1,41 @@
+"""Carry constants and chain state between montecarlo_tpu and this package.
+
+numpy in, torch out (and back); nothing here imports JAX. The JAX side
+converts its arrays with ``numpy.asarray`` before calling these.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dqmc.core import COUNTER_KEYS
+
+_STATE_KEYS = ("conf", "S_U", "S_D", "S_T", "G") + COUNTER_KEYS
+_INT_KEYS = ("prop", "acc", "neg_prob", "prop_err_count", "prop_err_n",
+             "prop_err_hist")
+
+
+def consts_from_numpy(consts, device="cpu"):
+    """make_context's constants dict from numpy arrays (same keys)."""
+    return {k: torch.as_tensor(np.array(v)).to(device) for k, v in consts.items()}
+
+
+def state_from_numpy(state_np, device="cpu"):
+    """The port's state dict from a chain-batched montecarlo_tpu state (the
+    vmapped init_state / sweep_pair output as numpy arrays: conf (C, N, M),
+    stacks (C, n_el, F, N, N), G (C, F, N, N), per-chain counters). The JAX
+    RNG key and the local-stats magnitude fields are dropped; counters become
+    int64."""
+    out = {}
+    for k in _STATE_KEYS:
+        t = torch.as_tensor(np.array(state_np[k]))
+        if k in _INT_KEYS:
+            t = t.to(torch.int64)
+        out[k] = t.to(device)
+    return out
+
+
+def state_to_numpy(state):
+    """numpy copy of a port state dict (the inverse of state_from_numpy)."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}

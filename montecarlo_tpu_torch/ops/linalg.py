@@ -1,0 +1,128 @@
+"""Stabilized dense linear algebra for DQMC, over the trailing two axes of
+batched tensors (counterpart of montecarlo_tpu/ops/linalg.py, real dtypes).
+
+UDT decomposition A = U·diag(D)·T with U orthogonal and D positive, column
+pivoting realized as a one-shot column-norm sort before an unpivoted QR, in
+the "dirty T" form: ``udt_dirty`` returns the triangular factor R and the
+pivot so that triangular solves stay cheap.
+
+Two paths, chosen by ``use_kernels``:
+  * kernel path (True): the QR runs in the fused kernels of ops/qr.py — K2
+    inside ``udt_dirty``, K3 (QR + triangular solve) inside
+    ``calculate_greens`` — whose flushed-mode rule is R_jj = +floor;
+  * library path (False): ``torch.linalg.qr`` + the udt_dirty postscale and
+    ``torch.linalg.solve_triangular``, with the unfused flushed-mode rule
+    |diag| < 0.5 → 1. Both rules give flushed modes a unit diagonal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .qr import F32_FLOOR, udt_qr, udt_qr_solve
+
+
+def argsort_desc(v):
+    """Permutation sorting v descending along the last axis, ties to the
+    lower index first (a stable sort of -v)."""
+    return torch.sort(-v, dim=-1, stable=True).indices
+
+
+def invert_permutation(piv):
+    """ipiv[..., piv[..., j]] = j."""
+    idx = torch.arange(piv.shape[-1], device=piv.device).expand_as(piv)
+    return torch.empty_like(piv).scatter_(-1, piv, idx)
+
+
+def permute_rows(T, piv):
+    """T[..., piv, :]. scatter_columns(R, piv) @ T == R @ permute_rows(T, piv)
+    lets the UDT T-factor update skip the inverse permutation."""
+    return torch.take_along_dim(T, piv[..., :, None], dim=-2)
+
+
+def scatter_columns(R, piv):
+    """Given M and piv with A[..., :, piv] = M, return A."""
+    return torch.take_along_dim(R, invert_permutation(piv)[..., None, :], dim=-1)
+
+
+def _gather_columns(A, piv):
+    return torch.take_along_dim(A, piv[..., None, :], dim=-1)
+
+
+def _prescale_pivot(A):
+    """(Ap, mx, piv): A scaled by the power of two mx that brings its largest
+    entry to ~2^50, with columns sorted by descending norm. Power-of-two
+    scaling is exact, so the graded column structure is untouched; the
+    headroom keeps squared norms from overflowing and small columns from
+    flushing (DQMC products span tens of decades)."""
+    mx = A.abs().amax(dim=(-2, -1), keepdim=True)
+    mx = mx.clamp_min(torch.finfo(A.dtype).tiny)
+    mx = torch.exp2(torch.ceil(torch.log2(mx)) - 50.0)
+    As = A / mx
+    piv = argsort_desc((As * As).sum(-2).sqrt())
+    return _gather_columns(As, piv), mx, piv
+
+
+def udt_dirty(A, use_kernels=True):
+    """A = U · diag(D) · T with T = R[:, inv_piv] (T·P = R upper triangular).
+
+    Returns (U, D, R, piv): U (..., n, n) orthogonal, D (..., n) positive,
+    R (..., n, n) upper triangular with unit-magnitude diagonal, piv (..., n)
+    with A[..., :, piv] = U D R."""
+    Ap, mx, piv = _prescale_pivot(A)
+    shape, n = A.shape, A.shape[-1]
+    if use_kernels:
+        Q, Rs, d = udt_qr(Ap.reshape(-1, n, n), mx.reshape(-1))
+        return Q.reshape(shape), d.reshape(shape[:-1]), Rs.reshape(shape), piv
+    Q, R = torch.linalg.qr(Ap)
+    d = torch.diagonal(R, dim1=-2, dim2=-1).abs()
+    floor = F32_FLOOR if d.dtype == torch.float32 else torch.finfo(d.dtype).tiny
+    d = d.clamp_min(floor)
+    Rs = R / d[..., :, None]
+    # flushed modes have an all-zero R row: force the unit diagonal so the
+    # triangular solves stay finite
+    diag = torch.diagonal(Rs, dim1=-2, dim2=-1)
+    fixed = torch.where(diag.abs() < 0.5, torch.ones_like(diag), diag)
+    Rs = Rs + torch.diag_embed(fixed - diag)
+    return Q, d * mx[..., 0], Rs, piv
+
+
+def rdiv_dirty(A, R, piv):
+    """A · T^{-1} where T = scatter_columns(R, piv): A[..., :, piv] @ R^{-1}."""
+    return torch.linalg.solve_triangular(R, _gather_columns(A, piv),
+                                         upper=True, left=False)
+
+
+def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True):
+    """G = [I + Ul·diag(Dl)·Tl · Tr^T·diag(Dr)·Ur^T]^{-1}, range-safe.
+
+    With Dlp = max(Dl, 1), Dlm = min(Dl, 1) (likewise Dr):
+      G = Ur·Drp^{-1}·M^{-1}·Dlp^{-1}·Ul^T,
+      M = Dlp^{-1}·(Ul^T Ur)·Drp^{-1} + Dlm·(Tl Tr^T)·Drm,
+    where every factor of M is bounded by ~1, so all intermediates stay
+    within ~e^{beta·W}. One interior UDT of M; on the kernel path its QR and
+    the triangular solve run fused in kernel K3."""
+    Dlp, Dlm = Dl.clamp_min(1.0), Dl.clamp_max(1.0)
+    Drp, Drm = Dr.clamp_min(1.0), Dr.clamp_max(1.0)
+    X = Tl @ Tr.mT
+    M = (Ul.mT @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
+    M = M + (Dlm[..., :, None] * X) * Drm[..., None, :]
+    Zpre = Ur / Drp[..., None, :]
+    if use_kernels:
+        u, Z = _fused_greens_solve(M, Zpre)
+    else:
+        u, d, r, piv = udt_dirty(M, use_kernels=False)
+        Z = rdiv_dirty(Zpre, r, piv) / d[..., None, :]
+    W = u.mT / Dlp[..., None, :]
+    return Z @ (W @ Ul.mT)
+
+
+def _fused_greens_solve(M, Zpre):
+    """(u, Z) with M·P = u·diag(d)·Rs and Z = (Zpre·P)·Rs^{-1}/d, through
+    kernel K3 — udt_dirty(M) followed by rdiv_dirty(Zpre, Rs, piv)/d."""
+    Mp, mx, piv = _prescale_pivot(M)
+    Zp = _gather_columns(Zpre, piv)
+    shape, n = M.shape, M.shape[-1]
+    Q, X = udt_qr_solve(Mp.reshape(-1, n, n), Zp.reshape(-1, n, n),
+                        mx.reshape(-1))
+    return Q.reshape(shape), X.reshape(shape)

@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of one headline DQMC sweep pair goes, on one NVIDIA GPU.
+"""Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [headline] [l16]
 
-Runs the port's headline configuration (chip_smoke.py's: 8x8 attractive
-Hubbard, beta=10, M=100, safe_mult=10, 256 chains, float32) and prints
+Runs each named configuration of chip_smoke.py (default: headline):
+
+  headline  8x8 attractive Hubbard, beta=10, M=100, safe_mult=10, 256
+            chains, float32, rank-1 updates (kernels K1-K3)
+  l16       16x16 (N=256), the same model and run settings, 64 chains,
+            delayed updates in blocks of 32 (kernels K6 and K7)
+
+and prints for each
 
   pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
-           (use_kernels=False) then kernel path again, synchronised wall
+           (use_kernels=False; headline only: the plain path's per-site
+           launches take tens of seconds per sweep pair at 16x16) then
+           kernel path again, synchronised wall
   layer    synchronised wall ms per call of sweep_slice, wrap_up,
            extend_left and calculate_greens at the path's shapes
   device   torch.profiler over two kernel-path sweep pairs: device time per
@@ -30,6 +38,9 @@ import chip_smoke as smoke
 from chip_smoke import timed
 
 PAIRS = 5
+# name: (L, chains, time the plain path)
+CONFIGS = {"headline": (smoke.L, smoke.CHAINS, True),
+           "l16": (smoke.L16, smoke.L16_CHAINS, False)}
 
 
 def smi():
@@ -39,22 +50,20 @@ def smi():
         timeout=60).stdout.strip()
 
 
-def main():
+def profile_config(name):
     import torch
-    if not torch.cuda.is_available():
-        print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
-        return 1
-    smoke.import_port()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from montecarlo_tpu_torch import DQMC
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.ops.linalg import calculate_greens
 
-    print("smi", smi(), flush=True)
-    sim = DQMC(smoke.headline_model(), beta=smoke.BETA, delta_tau=smoke.DTAU,
-               safe_mult=smoke.SAFE_MULT, n_chains=smoke.CHAINS,
-               dtype=torch.float32, seed=0, device=smoke.DEVICE)
+    L, chains, plain = CONFIGS[name]
+    print(f"== {name}: {L}x{L}, {chains} chains", flush=True)
+    sim = DQMC(smoke.headline_model(L=L), beta=smoke.BETA,
+               delta_tau=smoke.DTAU, safe_mult=smoke.SAFE_MULT,
+               n_chains=chains, dtype=torch.float32, seed=0,
+               device=smoke.DEVICE)
     ctx, consts = sim.ctx, sim.consts
     holder = {"st": sim.state}
 
@@ -62,19 +71,22 @@ def main():
         holder["st"] = core.sweep_pair(c, consts, holder["st"],
                                        generator=sim.generator)[0]
 
-    rate = lambda t: smoke.CHAINS / t
+    rate = lambda t: chains / t
     t_k = timed(pair, PAIRS)                       # the SM clock ramps up here
-    t_p = timed(lambda: pair(dataclasses.replace(ctx, use_kernels=False)), 1)
+    rows = [("kernel path", t_k)]
+    if plain:
+        rows.append(("plain path", timed(
+            lambda: pair(dataclasses.replace(ctx, use_kernels=False)), 1)))
     t_k2 = timed(pair, PAIRS)
-    for name, t in (("kernel path", t_k), ("plain path", t_p),
-                    ("kernel path again", t_k2)):
-        print(f"[pair] {name}: {t * 1e3:.2f} ms per sweep pair = "
+    rows.append(("kernel path again", t_k2))
+    for label, t in rows:
+        print(f"[pair] {label}: {t * 1e3:.2f} ms per sweep pair = "
               f"{rate(t):.1f} chain-sweeps/s", flush=True)
 
     st = holder["st"]
     conf = st["conf"]
     sig = conf[:, :, 5].contiguous()
-    u = torch.rand(smoke.CHAINS, ctx.N, device=smoke.DEVICE)
+    u = torch.rand(chains, ctx.N, device=smoke.DEVICE)
     G = st["G"]
     S = [tuple(st[k][:, j] for k in ("S_U", "S_D", "S_T"))
          for j in (1, ctx.n_seg)]
@@ -112,16 +124,34 @@ def main():
     print(f"[device] {n_prof} sweep pairs: device time {total_us / 1e3:.2f} ms "
           f"in {len(dev)} device events over a span of {span_us / 1e3:.2f} ms "
           f"(busy share {total_us / span_us:.3f} under the profiler)")
-    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:20]:
-        print(f"[device] {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    for kname, (us, n) in sorted(per_name.items(),
+                                 key=lambda kv: -kv[1][0])[:20]:
+        print(f"[device] {us / 1e3:9.3f} ms {n:6d}x  {kname[:90]}")
     per_pair = total_us / 1e3 / n_prof
     print(f"[device] per sweep pair: device {per_pair:.2f} ms against "
           f"{t_k2 * 1e3:.2f} ms unprofiled wall: busy share "
           f"{per_pair / (t_k2 * 1e3):.3f}, idle share "
           f"{1 - per_pair / (t_k2 * 1e3):.3f}")
     print("smi", smi(), flush=True)
+
+
+def main(argv):
+    import torch
+    names = argv or ["headline"]
+    unknown = [n for n in names if n not in CONFIGS]
+    if unknown:
+        print(f"chip_profile: unknown configuration {unknown}; choose from "
+              f"{sorted(CONFIGS)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
+        return 1
+    smoke.import_port()
+    print("smi", smi(), flush=True)
+    for name in names:
+        profile_config(name)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,13 +9,16 @@ failure and prints no result line then):
   1. device   require CUDA; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from csrc/ (nvcc, sm_90a)
   3. parity   each kernel against its plain PyTorch version on the card, at
-              the shapes of the headline simulation, with both times
+              the shapes of the two simulations below, with both times
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
+  4b. l16     the same at 16x16 (N=256, 64 chains, delayed updates in
+              blocks of 32: kernels K6 and K7)
   5. paths    one sweep_pair on the kernel path and on the plain path
               (use_kernels=False) from the same state and uniforms, at
-              the slice's safe_mult=10 and at safe_mult=1
+              the slice's safe_mult=10 and at safe_mult=1; at 16x16 the
+              first slice visit of each path
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -38,7 +41,11 @@ ROOT = Path(__file__).resolve().parent
 L, U, MU, BETA, DTAU, SAFE_MULT, CHAINS = 8, 4.0, 0.0, 10.0, 0.1, 10, 256
 THERM, SWEEPS = 2, 4
 K1_F2_CHAINS = 128
+# the large-lattice configuration (bench.py's bench_dqmc(lattice_L=16,
+# chains=64)): N=256, delay auto = 32
+L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
+OCC_TOL = 0.02           # |mean occupation - 0.5| at mu = 0
 MIN_CONF_AGREE = 0.9
 DEVICE = "cuda"
 
@@ -49,6 +56,10 @@ KERNEL_INFO = {
                "montecarlo_tpu/ops/pallas_qr.py:334"),
     "udt_qr_solve": ("montecarlo_tpu_torch/csrc/udt_qr.cu",
                      "montecarlo_tpu/ops/pallas_qr.py:395"),
+    "site_sweep_delayed": ("montecarlo_tpu_torch/csrc/site_sweep_delayed.cu",
+                           "montecarlo_tpu/ops/pallas_site_sweep.py:545"),
+    "qr_blocked": ("montecarlo_tpu_torch/csrc/qr_blocked.cu",
+                   "montecarlo_tpu/ops/pallas_qr.py:889"),
 }
 
 
@@ -102,7 +113,7 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s ({lib._name})")
 
 
-def headline_model(repulsive=False):
+def headline_model(repulsive=False, L=L):
     from montecarlo_tpu_torch import (HubbardModelAttractive,
                                       HubbardModelRepulsive)
     if repulsive:
@@ -138,10 +149,29 @@ def graded(gen, B, N, decades=16.0):
     return core * grade[:, None, :]
 
 
+def check_sweep(name, out_k, out_p, shape, relative):
+    """Decisions identical, G within TOL_G (times max|G| when relative);
+    returns max|dG|."""
+    import torch
+    torch.cuda.synchronize()
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    gmax = out_p[0].abs().max().item()
+    same = [torch.equal(a.to(b.dtype), b) for a, b in
+            zip(out_k[1:], out_p[1:])]
+    acc = out_k[2].sum().item() / (shape[0] * shape[-1])
+    log(f"[parity] {name} {shape}: sigma/acc/nneg equal {same}, max|dG| "
+        f"{err:.3e} (max|G| {gmax:.3g}), acceptance {acc:.3f}")
+    if not all(same) or not err <= TOL_G * (gmax if relative else 1.0):
+        raise AssertionError(f"{name} kernel disagrees with plain at {shape}")
+    return err
+
+
 def phase_parity():
     """Each kernel against its plain version on the same card inputs."""
     import torch
-    from montecarlo_tpu_torch.ops import qr, site_sweep as ss
+    from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
+    from montecarlo_tpu_torch.ops import site_sweep as ss
+    from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
     from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
     results = {}
 
@@ -155,18 +185,9 @@ def phase_parity():
         u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
         kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
                   use_boson=ctx.use_boson)
-        out_k = ss.site_sweep(G, sigma, u, **kw)
-        out_p = ss.site_sweep_plain(G, sigma, u, **kw)
-        torch.cuda.synchronize()
-        err = (out_k[0] - out_p[0]).abs().max().item()
-        same = [torch.equal(a.to(b.dtype), b) for a, b in
-                zip(out_k[1:], out_p[1:])]
-        acc = out_k[2].sum().item() / (chains * ctx.N)
-        log(f"[parity] site_sweep {tuple(G.shape)}: sigma/acc/nneg equal "
-            f"{same}, max|dG| {err:.3e}, acceptance {acc:.3f}")
-        if not all(same) or not err <= TOL_G:
-            raise AssertionError(f"site_sweep kernel disagrees with plain at "
-                                 f"{tuple(G.shape)}")
+        err = check_sweep("site_sweep", ss.site_sweep(G, sigma, u, **kw),
+                          ss.site_sweep_plain(G, sigma, u, **kw),
+                          tuple(G.shape), relative=False)
         if not repulsive:
             results["site_sweep"] = dict(
                 max_abs_err=err,
@@ -211,61 +232,118 @@ def phase_parity():
         max_abs_err=max(eq, ex),
         ms=1e3 * timed(lambda: qr.udt_qr_solve(Ap, Z, mx), 50),
         plain_ms=1e3 * timed(lambda: qr.udt_qr_solve_plain(Ap, Z, mx), 5))
+
+    # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
+    # at dk = 1, on real 16x16 Green's functions (plain-path init_state)
+    errs = []
+    for repulsive, chains in ((False, L16_CHAINS), (True, L16_F2_CHAINS)):
+        model = headline_model(repulsive, L16)
+        ctx, _, state, gen = real_state(model, chains, 5, use_kernels=False)
+        G = state["G"]
+        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+        u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+                  use_boson=ctx.use_boson)
+        dks = (max(ctx.delay, 1), 1)[:1 if repulsive else 2]
+        for dk in dks:
+            errs.append(check_sweep(
+                f"site_sweep_delayed dk={dk}",
+                ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw),
+                ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw),
+                tuple(G.shape), relative=True))
+        if not repulsive:
+            kw["dk"] = dks[0]
+            results["site_sweep_delayed"] = dict(
+                ms=1e3 * timed(lambda: ssd.site_sweep_delayed(
+                    G, sigma, u, **kw), 20),
+                plain_ms=1e3 * timed(lambda: ssd.site_sweep_delayed_plain(
+                    G, sigma, u, **kw), 3))
+    results["site_sweep_delayed"]["max_abs_err"] = max(errs)
+
+    # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
+    B, N = L16_CHAINS, L16 * L16
+    Ap, _, _ = _prescale_pivot(graded(gen, B, N))
+    Ap = Ap.contiguous()
+    Qk, Rk = qb.qr_blocked(Ap)
+    Qp, Rp = qb.qr_blocked_plain(Ap)
+    torch.cuda.synchronize()
+    eq = (Qk - Qp).abs().max().item()
+    er = (Rk - Rp).abs().max().item()
+    rmax = Rp.abs().max().item()
+    log(f"[parity] qr_blocked ({B}, {N}, {N}): max|dQ| {eq:.3e}, max|dR| "
+        f"{er:.3e} (max|R| {rmax:.3g}), R lower zero "
+        f"{bool((torch.tril(Rk, -1) == 0).all())}")
+    if not (eq <= TOL_QR * Qp.abs().max().item() and er <= TOL_QR * rmax
+            and bool((torch.tril(Rk, -1) == 0).all())):
+        raise AssertionError("qr_blocked kernel disagrees with plain")
+    results["qr_blocked"] = dict(
+        max_abs_err=max(eq, er),
+        ms=1e3 * timed(lambda: qb.qr_blocked(Ap), 20),
+        plain_ms=1e3 * timed(lambda: qb.qr_blocked_plain(Ap), 3))
     for name, r in results.items():
         log(f"[parity] {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms per call")
     return results
 
 
-def phase_slice():
-    """The headline simulation through DQMC(...).run(), with launch counts."""
+def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice"):
+    """A simulation through DQMC(...).run(), with launch counts: the
+    headline (8x8: K1-K3) or the 16x16 one (K6, K7)."""
     import torch
     from montecarlo_tpu_torch import DQMC
     from montecarlo_tpu_torch.ops import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
-    sim = DQMC(headline_model(), beta=BETA, delta_tau=DTAU,
-               safe_mult=SAFE_MULT, n_chains=CHAINS, dtype=torch.float32,
+    sim = DQMC(headline_model(L=L), beta=BETA, delta_tau=DTAU,
+               safe_mult=SAFE_MULT, n_chains=chains, dtype=torch.float32,
                measure_rate=1, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(thermalization=THERM, sweeps=SWEEPS, verbose=False)
+    sim.run(thermalization=therm, sweeps=sweeps, verbose=False)
     torch.cuda.synchronize()
     dur = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in KERNELS.items()}
 
     ctx = sim.ctx
-    n_pairs = THERM + SWEEPS
-    expected = {"site_sweep": 2 * ctx.M * n_pairs,
-                "udt_qr": 2 * ctx.n_seg * n_pairs + ctx.n_seg,
-                "udt_qr_solve": 2 * ctx.n_seg * n_pairs + 1}
-    log(f"[slice] launches {launches}, expected {expected}")
+    n_pairs = therm + sweeps
+    expected = dict.fromkeys(KERNELS, 0)
+    if ctx.N <= 128:
+        expected.update(site_sweep=2 * ctx.M * n_pairs,
+                        udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
+                        udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
+    else:   # every extend and every Green's recomputation runs one K7
+        expected.update(site_sweep_delayed=2 * ctx.M * n_pairs,
+                        qr_blocked=4 * ctx.n_seg * n_pairs + ctx.n_seg + 1)
+    log(f"[{tag}] launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError("kernel launch counts differ from the path's")
     if not bool(torch.isfinite(sim.state["G"]).all()):
         raise AssertionError("G has non-finite entries")
     acc = sim.analysis.acc_rate
     occ = float(sim.observables()["occ"]["occ"].mean.mean())
-    rate = CHAINS * n_pairs / dur
-    log(f"[slice] {L}x{L} beta={BETA} M={ctx.M} {CHAINS} chains f32: "
-        f"{n_pairs} sweeps in {dur:.3f} s = {rate:.1f} chain-sweeps/s; "
-        f"acceptance {acc:.4f}; occ {occ:.5f}; prop_err_max "
-        f"{sim.analysis.propagation_error.max:.3e}, mean "
+    rate = chains * n_pairs / dur
+    log(f"[{tag}] {L}x{L} beta={BETA} M={ctx.M} delay={ctx.delay} {chains} "
+        f"chains f32: {n_pairs} sweeps in {dur:.3f} s = {rate:.1f} "
+        f"chain-sweeps/s; acceptance {acc:.4f}; occ {occ:.5f}; "
+        f"prop_err_max {sim.analysis.propagation_error.max:.3e}, mean "
         f"{sim.analysis.prop_err_mean:.3e}")
+    drift = (sim.analysis.propagation_error.max, sim.analysis.prop_err_mean)
+    if not all(map(math.isfinite, drift)):
+        raise AssertionError(f"propagation drift max/mean {drift} not finite")
     if not 0.05 < acc < 0.95:
         raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
-    if not abs(occ - 0.5) <= 0.02:
-        raise AssertionError(f"occupation {occ} not within 0.5 +- 0.02")
+    if not abs(occ - 0.5) <= OCC_TOL:
+        raise AssertionError(f"occupation {occ} not within 0.5 +- {OCC_TOL}")
     return sim, launches, rate
 
 
-def compare_paths(ctx_k, consts, state, seed):
-    """The kernel path against the plain path (use_kernels=False:
-    site_sweep_plain, torch.linalg.qr and solve_triangular) from the same
-    state and the same uniforms: the decisions of the first slice visit
-    (l = M-1, taken from the boundary's freshly recomputed G before any wrap
-    has amplified the two paths' rounding differences) and those of one
-    whole sweep pair."""
+def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
+    """The kernel path against the plain path (use_kernels=False: the plain
+    site sweeps, torch.linalg.qr and solve_triangular) from the same state
+    and the same uniforms: the decisions of the first slice visit (l = M-1,
+    taken from the boundary's freshly recomputed G before any wrap has
+    amplified the two paths' rounding differences) and, with whole_pair,
+    those of one whole sweep pair."""
     import dataclasses
     import torch
     from montecarlo_tpu_torch.dqmc import core
@@ -284,9 +362,15 @@ def compare_paths(ctx_k, consts, state, seed):
                              ctx.use_kernels)
         G = core.wrap_down(ctx, consts, sigma, G)
         first.append(core.sweep_slice(ctx, G, sigma, u[:, 0])[1])
-        whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
-    sk, sp = whole
+        if whole_pair:
+            whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
     share_first = (first[0] == first[1]).all(1).float().mean().item()
+    if not whole_pair:
+        log(f"[paths] {int(math.sqrt(N))}x{int(math.sqrt(N))} "
+            f"safe_mult={ctx_k.sm} delay={ctx_k.delay}: first slice visit "
+            f"agrees in {share_first:.4f} of {C} chains")
+        return share_first, None
+    sk, sp = whole
     same = (sk["conf"] == sp["conf"]).flatten(1).all(1)
     dG = (sk["G"] - sp["G"]).abs().flatten(1).amax(1)
     drift = {name: (s["prop_err_max"].max().item(),
@@ -301,7 +385,7 @@ def compare_paths(ctx_k, consts, state, seed):
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim):
+def phase_paths(sim, sim16):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -326,6 +410,14 @@ def phase_paths(sim):
     if not whole >= MIN_CONF_AGREE:
         raise AssertionError(f"kernel and plain paths agree in only "
                              f"{whole:.3f} of the chains at safe_mult=1")
+    # 16x16: K7 Green's function + K6 against torch.linalg.qr +
+    # sweep_slice_delayed
+    first, _ = compare_paths(sim16.ctx, sim16.consts, sim16.state, 5,
+                             whole_pair=False)
+    if not first >= MIN_CONF_AGREE:
+        raise AssertionError(f"kernel and plain paths agree on the first "
+                             f"16x16 slice visit in only {first:.3f} of the "
+                             "chains")
 
 
 def main():
@@ -339,7 +431,10 @@ def main():
     phase_build()
     parity = phase_parity()
     sim, launches, _ = phase_slice()
-    phase_paths(sim)
+    sim16, launches16, _ = phase_slice(L16, L16_CHAINS, L16_THERM,
+                                       L16_SWEEPS, tag="l16")
+    launches = {k: launches[k] + launches16[k] for k in launches}
+    phase_paths(sim, sim16)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

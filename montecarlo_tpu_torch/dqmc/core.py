@@ -14,10 +14,10 @@ Index conventions (0-based, as in the JAX package):
     after a down sweep: S[j] = UDT(B_{j*sm}^†...B_{M-1}^†) for j < n_seg
         (right products; S[n_seg] holds the identity)
 
-Ported: the rank-1 path with the QR stabilization (stab_method="qr") for
-real hopping. g_refresh, delayed (rank-k) updates, checkerboard, the other
-stabilization methods and complex hopping raise NotImplementedError naming
-their ROADMAP item.
+Ported: the rank-1 and the delayed rank-k site sweeps with the QR
+stabilization (stab_method="qr") for real hopping. g_refresh, checkerboard,
+the other stabilization methods and complex hopping raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from ..ops import qr as _qr
+from ..ops import qr_blocked as _qr_blocked
+from ..ops import site_sweep_delayed as _ssd
 from ..ops.linalg import calculate_greens, permute_rows, udt_dirty
 from ..ops.site_sweep import MAX_N, site_sweep, site_sweep_plain
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
@@ -54,9 +56,13 @@ class DQMCContext:
     # the UDT stacks and stabilized recomputations stay in dtype
     update_dtype: torch.dtype = None
     prop_err_threshold: float = 1e-7
-    # hand-written kernels (K1-K3) on CUDA, their plain versions on CPU;
-    # False runs site_sweep_plain and the library QR/solve on any device
+    # hand-written kernels on CUDA (K1-K3 for N <= 128, K6 and K7 beyond),
+    # their plain versions on CPU; False runs the plain site sweeps and the
+    # library QR/solve on any device
     use_kernels: bool = True
+    # delayed-update block width K (0 = rank-1): the plain path's rank-K
+    # sweep, and the site block of K6
+    delay: int = 0
 
     @property
     def udtype(self):
@@ -119,23 +125,10 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         raise _not_ported("checkerboard", "Queue 1 item 14")
     if stab_method != "qr":
         raise _not_ported(f"stab_method={stab_method!r}", "Queue 1 item 3")
-    if delay is None:
-        # the JAX package's auto rule: delayed rank-32 updates from N = 256
-        delay = 32 if N >= 256 else 0
-    if delay > 1:
-        raise _not_ported(f"delayed updates (delay={delay}, auto at N >= 256)",
-                          "Queue 1 item 11, kernel K6")
+    delay = _delay(N, delay)
     udtype = dtype if update_dtype is None else update_dtype
     if device.type == "cuda" and use_kernels:
-        if dtype != torch.float32 or udtype != torch.float32:
-            raise _not_ported("CUDA kernels for float64 (use_kernels=False "
-                              "runs the plain path)", "Queue 1 item 13, K11")
-        if not site_sweep_supports(N, model.nflavors):
-            raise _not_ported(f"the site sweep for N={N} > {MAX_N}",
-                              "Queue 2 K6")
-        if not _qr.kernel_supports(N):
-            raise _not_ported(f"the float32 UDT for N={N} (kernels take "
-                              "8 | N <= 64)", "Queue 2 K4/K7")
+        _check_cuda_kernels(N, model.nflavors, delay, dtype, udtype)
 
     dtau = params.delta_tau
     w, V = np.linalg.eigh(T)
@@ -163,9 +156,39 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         # mixed mode: window-end drift ~cond(window)*eps_f32 is expected;
         # count only catastrophic excursions
         prop_err_threshold=1.0 if mixed else 1e-7,
-        use_kernels=bool(use_kernels),
+        use_kernels=bool(use_kernels), delay=delay,
     )
     return ctx, consts
+
+
+def _delay(N, delay):
+    """The JAX package's delay rule: auto (None) is rank-32 from N = 256 and
+    rank-1 below; the block is clamped down to the largest divisor of N, and
+    a block of 1 is rank-1 (0)."""
+    if delay is None:
+        delay = 32 if N >= 256 else 0
+    k = max(0, int(delay))
+    while k > 1 and N % k:
+        k -= 1
+    return 0 if k <= 1 else k
+
+
+def _check_cuda_kernels(N, F, delay, dtype, udtype):
+    """Raise unless a kernel takes every shape of a CUDA session: the site
+    sweep (K1 for N <= 128, K6 beyond) and the float32 QR (K2/K3 for
+    8 | N <= 64, K7 for 8 | N > 128)."""
+    if dtype != torch.float32 or udtype != torch.float32:
+        raise _not_ported("CUDA kernels for float64 (use_kernels=False "
+                          "runs the plain path)", "Queue 1 item 13, K11")
+    if not (site_sweep_supports(N, F) if N <= MAX_N
+            else _ssd.kernel_supports(N, F, max(delay, 1))):
+        raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
+                          f"(K1 takes N <= {MAX_N}, K6 4 | N beyond with its "
+                          "slabs in shared memory, both F <= 2)", "Queue 2 K6")
+    if not (_qr.kernel_supports(N) or _qr_blocked.kernel_supports(N)):
+        raise _not_ported(f"the float32 UDT for N={N} (kernels take 8 | N <= "
+                          "64 (K2/K3) and 8 | N > 128 (K7); 64 < N <= 128 "
+                          "needs Queue 2 K4)", "Queue 2 K4")
 
 
 # ---------------------------------------------------------------------------
@@ -244,14 +267,66 @@ def extend_right(ctx, consts, conf, j, U, D, T):
 # ---------------------------------------------------------------------------
 
 def sweep_slice(ctx, G, sigma, u):
-    """Sequential Metropolis over all sites of one time slice with rank-1
-    Green's updates, for every chain. G: (C, F, N, N) in the update dtype,
-    sigma: (C, N) int8, u: (C, N) uniforms. Returns new
-    (G, sigma, acc (C,), nneg (C,)); the inputs are not modified."""
-    fn = site_sweep if ctx.use_kernels else site_sweep_plain
-    return fn(G, sigma.contiguous(), u.contiguous(), lamb=ctx.lamb,
-              signs=ctx.signs, det_power=ctx.det_power,
+    """Sequential Metropolis over all sites of one time slice, for every
+    chain. G: (C, F, N, N) in the update dtype, sigma: (C, N) int8, u: (C, N)
+    uniforms. Returns new (G, sigma, acc (C,), nneg (C,)); the inputs are not
+    modified.
+
+    Dispatch as in the JAX engine: the kernel path runs K1 (rank-1) for
+    N <= 128 and K6 (delayed, blocks of max(delay, 1) sites) beyond; the
+    plain path runs ``sweep_slice_delayed`` when delay > 1, else the rank-1
+    plain loop."""
+    sigma, u = sigma.contiguous(), u.contiguous()
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
+    if ctx.use_kernels:
+        if ctx.N <= MAX_N:
+            return site_sweep(G, sigma, u, **kw)
+        return _ssd.site_sweep_delayed(G, sigma, u, dk=max(ctx.delay, 1), **kw)
+    if ctx.delay > 1:
+        return sweep_slice_delayed(ctx, G, sigma, u)
+    return site_sweep_plain(G, sigma, u, **kw)
+
+
+def sweep_slice_delayed(ctx, G, sigma, u):
+    """Delayed (rank-K) plain sweep, K = ctx.delay: the Markov chain of the
+    rank-1 sweep, with accepted flips accumulated as skinny factors
+    A (C, F, N, K) and B (C, F, K, N), G_curr = G - A·B, and folded into G
+    with one batched product per block of K sites (port of the JAX
+    package's XLA ``sweep_slice_delayed``; delta is expm1 as there). Same
+    arguments and results as ``sweep_slice``; K | N."""
+    C, F, N, _ = G.shape
+    K = ctx.delay
+    signs = torch.tensor(ctx.signs, dtype=G.dtype, device=G.device)
+    sigma = sigma.clone()
+    acc = torch.zeros(C, dtype=torch.int32, device=G.device)
+    nneg = torch.zeros(C, dtype=torch.int32, device=G.device)
+    for b in range(N // K):
+        A = G.new_zeros(C, F, N, K)
+        B = G.new_zeros(C, F, K, N)
+        for j in range(K):
+            i = b * K + j
+            dEb = sigma[:, i].to(G.dtype) * (-2.0 * ctx.lamb)      # (C,)
+            delta = torch.expm1(signs * dEb[:, None])              # (C, F)
+            Arow, Bcol = A[:, :, i, :], B[:, :, :, i]              # (C, F, K)
+            gii = G[:, :, i, i] - (Arow * Bcol).sum(-1)
+            r = 1.0 + delta * (1.0 - gii)
+            detratio = torch.prod(r, dim=-1) ** ctx.det_power
+            w = torch.exp(-dEb) if ctx.use_boson else 1.0
+            accept = u[:, i] < w * detratio
+            x = delta / r
+            row = G[:, :, i, :] - (Arow[:, :, None, :] @ B)[:, :, 0, :]
+            col = G[:, :, :, i] - (A @ Bcol[..., None])[..., 0]
+            coef = torch.where(accept[:, None], x, 0.0)
+            IG = -col
+            IG[:, :, i] += 1.0
+            A[:, :, :, j] = coef[..., None] * IG
+            B[:, :, j, :] = row
+            sigma[:, i] = torch.where(accept, -sigma[:, i], sigma[:, i])
+            acc += accept
+            nneg += detratio < 0
+        G = G - A @ B
+    return G, sigma, acc, nneg
 
 
 # ---------------------------------------------------------------------------

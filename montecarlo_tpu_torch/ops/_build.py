@@ -1,13 +1,15 @@
 """nvcc build and ctypes loader for the CUDA kernels in ``csrc/``.
 
 Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (``sm_90a``) into
-ONE shared library with a plain C interface, loaded with ctypes. The build
-runs at first use, never at import (importing the package must work on a
-machine without nvcc or CUDA), into ``montecarlo_tpu_torch/_build/`` (listed
-in .gitignore). The library's file name carries a hash of the sources and
-the command line, so an edited kernel is rebuilt and a stale library is never
-loaded. A plain C interface keeps the build to seconds; a source that
-includes PyTorch's headers would take minutes.
+an object file, all of them at once in parallel processes, and the objects
+are linked into ONE shared library with a plain C interface, loaded with
+ctypes. The build runs at first use, never at import (importing the package
+must work on a machine without nvcc or CUDA), into
+``montecarlo_tpu_torch/_build/`` (listed in .gitignore). The library's file
+name carries a hash of the sources and the command lines, so an edited
+kernel is rebuilt and a stale library is never loaded. A plain C interface
+keeps the build to seconds; a source that includes PyTorch's headers would
+take minutes.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# dynamic shared memory one block may use on Hopper (sm_90), in bytes
+SMEM_PER_BLOCK = 232448
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported launchers; every launcher returns the
@@ -39,6 +44,12 @@ SIGNATURES = {
     "udt_qr_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # A, Z, mx, Q, X, B, N, stream
     "udt_qr_solve_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch, C, F, N, DK,
+    # lamb, sign0, sign1, det_power, use_boson, stream
+    "site_sweep_delayed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _F, _F, _I, _I, _P),
+    # A, Q, R, work, B, N, stream
+    "qr_blocked_f32": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -64,8 +75,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, output: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources())]
+def compile_command(nvcc: str, source: Path, output: Path) -> list:
+    """nvcc for one source file into one object file."""
+    return [nvcc, *NVCC_FLAGS, "-c", str(source), "-o", str(output)]
+
+
+def link_command(nvcc: str, objects, output: Path) -> list:
+    """nvcc linking the object files into the shared library."""
+    return [nvcc, "-shared", "-o", str(output), *map(str, objects)]
 
 
 def library_path() -> Path:
@@ -76,26 +93,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmctorch_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every nvcc process; raise with the first failure's output."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out, err)
+    if failed is not None:
+        cmd, code, out, err = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these exact sources exists.
-    Writes to a temporary name and renames, so concurrent builds never
-    load a half-written file."""
+    """Compile the kernels unless a library for these exact sources exists:
+    one nvcc process per source, all started together, then one link.
+    Builds in a fresh temporary directory and renames the library into
+    place, so concurrent builds never load a half-written file."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(find_nvcc(), Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = []
+        for src, obj in zip(sources(), objs):
+            cmd = compile_command(nvcc, src, obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        _run(procs)
+        out = Path(tmp) / lib.name
+        cmd = link_command(nvcc, objs, out)
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(out, lib)
     return lib
 
 

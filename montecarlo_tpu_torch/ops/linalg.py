@@ -7,12 +7,17 @@ the "dirty T" form: ``udt_dirty`` returns the triangular factor R and the
 pivot so that triangular solves stay cheap.
 
 Two paths, chosen by ``use_kernels``:
-  * kernel path (True): the QR runs in the fused kernels of ops/qr.py — K2
-    inside ``udt_dirty``, K3 (QR + triangular solve) inside
-    ``calculate_greens`` — whose flushed-mode rule is R_jj = +floor;
+  * kernel path (True), routed by N as the JAX package routes it:
+    - N <= 128: the fused kernels of ops/qr.py — K2 inside ``udt_dirty``,
+      K3 (QR + triangular solve) inside ``calculate_greens`` — whose
+      flushed-mode rule is R_jj = +floor;
+    - N > 128: the blocked QR K7 (ops/qr_blocked.py) followed by the
+      unfused udt_dirty postscale, and ``calculate_greens`` as udt_dirty
+      followed by ``rdiv_dirty``;
   * library path (False): ``torch.linalg.qr`` + the udt_dirty postscale and
-    ``torch.linalg.solve_triangular``, with the unfused flushed-mode rule
-    |diag| < 0.5 → 1. Both rules give flushed modes a unit diagonal.
+    ``torch.linalg.solve_triangular``.
+The unfused postscale's flushed-mode rule is |diag| < 0.5 → 1; both rules
+give flushed modes a unit diagonal.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from .qr import F32_FLOOR, udt_qr, udt_qr_solve
+from .qr_blocked import MIN_N as BLOCKED_MIN_N
+from .qr_blocked import qr_blocked
 
 
 def argsort_desc(v):
@@ -71,10 +78,21 @@ def udt_dirty(A, use_kernels=True):
     with A[..., :, piv] = U D R."""
     Ap, mx, piv = _prescale_pivot(A)
     shape, n = A.shape, A.shape[-1]
-    if use_kernels:
+    if use_kernels and n < BLOCKED_MIN_N:
         Q, Rs, d = udt_qr(Ap.reshape(-1, n, n), mx.reshape(-1))
         return Q.reshape(shape), d.reshape(shape[:-1]), Rs.reshape(shape), piv
-    Q, R = torch.linalg.qr(Ap)
+    if use_kernels:
+        Q, R = qr_blocked(Ap.reshape(-1, n, n))
+        Q, R = Q.reshape(shape), R.reshape(shape)
+    else:
+        Q, R = torch.linalg.qr(Ap)
+    d, Rs = _postscale(R)
+    return Q, d * mx[..., 0], Rs, piv
+
+
+def _postscale(R):
+    """(d, Rs): d = |R_jj| floored (2^-70 in float32, finfo.tiny in
+    float64), Rs = R / d with the unit diagonal forced on flushed modes."""
     d = torch.diagonal(R, dim1=-2, dim2=-1).abs()
     floor = F32_FLOOR if d.dtype == torch.float32 else torch.finfo(d.dtype).tiny
     d = d.clamp_min(floor)
@@ -83,8 +101,7 @@ def udt_dirty(A, use_kernels=True):
     # triangular solves stay finite
     diag = torch.diagonal(Rs, dim1=-2, dim2=-1)
     fixed = torch.where(diag.abs() < 0.5, torch.ones_like(diag), diag)
-    Rs = Rs + torch.diag_embed(fixed - diag)
-    return Q, d * mx[..., 0], Rs, piv
+    return d, Rs + torch.diag_embed(fixed - diag)
 
 
 def rdiv_dirty(A, R, piv):
@@ -101,17 +118,18 @@ def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True):
       M = Dlp^{-1}·(Ul^T Ur)·Drp^{-1} + Dlm·(Tl Tr^T)·Drm,
     where every factor of M is bounded by ~1, so all intermediates stay
     within ~e^{beta·W}. One interior UDT of M; on the kernel path its QR and
-    the triangular solve run fused in kernel K3."""
+    the triangular solve run fused in kernel K3 for N <= 128, and its QR in
+    K7 for N > 128."""
     Dlp, Dlm = Dl.clamp_min(1.0), Dl.clamp_max(1.0)
     Drp, Drm = Dr.clamp_min(1.0), Dr.clamp_max(1.0)
     X = Tl @ Tr.mT
     M = (Ul.mT @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
     M = M + (Dlm[..., :, None] * X) * Drm[..., None, :]
     Zpre = Ur / Drp[..., None, :]
-    if use_kernels:
+    if use_kernels and M.shape[-1] < BLOCKED_MIN_N:
         u, Z = _fused_greens_solve(M, Zpre)
     else:
-        u, d, r, piv = udt_dirty(M, use_kernels=False)
+        u, d, r, piv = udt_dirty(M, use_kernels)
         Z = rdiv_dirty(Zpre, r, piv) / d[..., None, :]
     W = u.mT / Dlp[..., None, :]
     return Z @ (W @ Ul.mT)

@@ -16,8 +16,9 @@ import torch
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch.dqmc import core
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
-from montecarlo_tpu_torch.ops import qr
+from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
 from montecarlo_tpu_torch.ops import site_sweep as ss
+from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
 from torch_port_inputs import LAMB, MODELS, graded, sweep_inputs
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +56,55 @@ def test_site_sweep_kernel_matches_plain(cuda, model, N):
         assert torch.equal(a, b.to(a.dtype))
     assert 0 < out_k[2].sum().item() < 16 * N
     assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("model,N,dk", [
+    ("attractive", 256, 32), ("repulsive", 256, 32), ("attractive", 144, 24),
+    ("attractive", 144, 1), ("repulsive", 136, 8)])
+def test_site_sweep_delayed_kernel_matches_plain(cuda, model, N, dk):
+    """Decisions identical; G equal to 1e-5 of its largest entry (the kernel
+    rounds every decision, slab and fold operation as the plain version
+    does and folds in the same order, so it is bit-equal in practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in sweep_inputs(N + dk, 8, F, N))
+    n0 = ssd.site_sweep_delayed.launches
+    out_k = ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw)
+    assert ssd.site_sweep_delayed.launches == n0 + 1
+    out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < out_k[2].sum().item() < 8 * N
+    _close(out_k[0], out_p[0], 1e-5)
+
+
+@pytest.mark.parametrize("N", [136, 144, 256])
+def test_qr_blocked_kernel_matches_plain(cuda, N):
+    """Q and R within 1e-5 of their largest entries on graded, prescaled,
+    pivoted input (the kernel sums in another order than the plain
+    version's library products); R exactly upper triangular."""
+    Ap, _ = (t.to(cuda) for t in graded(N, 16, N))
+    n0 = qb.qr_blocked.launches
+    Qk, Rk = qb.qr_blocked(Ap)
+    assert qb.qr_blocked.launches == n0 + 1
+    Qp, Rp = qb.qr_blocked_plain(Ap)
+    _close(Qk, Qp, 1e-5)
+    _close(Rk, Rp, 1e-5)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+
+
+def test_qr_blocked_kernel_zero_and_subnormal_columns(cuda):
+    """A zero column gets tau = 0 and R_jj = 0; a subnormal v.v gets tau = 0,
+    not inf."""
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, 136, decades=2.0))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
+    Q, R = qb.qr_blocked(Ap)
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
+    _close(Q, qb.qr_blocked_plain(Ap)[0], 1e-5)
 
 
 @pytest.mark.parametrize("N", [8, 16, 40, 64])
@@ -105,15 +155,28 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         qr.udt_qr(torch.zeros(2, 16, 16, device=cuda).mT,
                   torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="dk=24"):
+        ssd.site_sweep_delayed(torch.zeros(2, 1, 256, 256, device=cuda),
+                               torch.ones(2, 256, device=cuda, dtype=torch.int8),
+                               torch.zeros(2, 256, device=cuda), dk=24,
+                               lamb=LAMB, **MODELS["attractive"])
+    with pytest.raises(ValueError, match="N=128"):
+        qb.qr_blocked(torch.zeros(2, 128, 128, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        qb.qr_blocked(torch.zeros(2, 136, 136, device=cuda,
+                                  dtype=torch.float64))
 
 
 def test_cuda_session_rejects_shapes_without_kernels(cuda):
     params = DQMCParameters(beta=1.0)
     model = lambda L: tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
     f32 = dict(dtype=torch.float32, device="cuda")
-    for L in (12, 3):       # N=144 > 128 (site sweep); N=9, not 8 | N (UDT)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for L in (10, 3):       # 64 < N=100 <= 128 (K4); N=9, not 8 | N (UDT)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*K4"):
             core.make_context(model(L), params, **f32)
+    for L in (12, 16):      # K6 and K7: N=144 rank-1 blocks, N=256 delay 32
+        ctx, _ = core.make_context(model(L), params, **f32)
+        assert ctx.use_kernels and ctx.delay == (32 if L == 16 else 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         core.make_context(model(4), params, device="cuda")   # float64
     ctx, _ = core.make_context(model(4), params, device="cuda",
@@ -121,15 +184,17 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     assert ctx.device.type == "cuda" and not ctx.use_kernels
 
 
-def test_sweep_pair_kernel_path_matches_cpu(cuda):
-    """One float32 sweep pair at 4x4 on the card's kernel path and on the
-    CPU's plain versions, from the same state and uniforms."""
-    model = tmc.HubbardModelAttractive(dims=2, L=4, U=4.0)
+@pytest.mark.parametrize("L,delay", [(4, None), (12, 24)])
+def test_sweep_pair_kernel_path_matches_cpu(cuda, L, delay):
+    """One float32 sweep pair on the card's kernel path and on the CPU's
+    plain versions, from the same state and uniforms: at 4x4 (K1-K3) and at
+    12x12 (N = 144: K6 in blocks of 24 and K7)."""
+    model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
     params = DQMCParameters(beta=2.0, safe_mult=5)
     out = {}
     for dev in ("cpu", "cuda"):
         ctx, consts = core.make_context(model, params, dtype=torch.float32,
-                                        device=dev)
+                                        device=dev, delay=delay)
         conf = model.rand_conf(torch.Generator().manual_seed(0), 8,
                                params.slices, "cpu").to(dev)
         u = torch.rand(8, 2 * ctx.M, ctx.N,

@@ -51,16 +51,17 @@ def _models(L=4, repulsive=False):
             tmc.HubbardModelAttractive(dims=2, L=L, U=4.0, mu=0.0))
 
 
-def _contexts(beta, sm, dtype, L=4, use_pallas=False, use_kernels=True):
-    jm, tm = _models(L)
+def _contexts(beta, sm, dtype, L=4, use_pallas=False, use_kernels=True,
+              delay=None, repulsive=False):
+    jm, tm = _models(L, repulsive)
     jctx, jconsts = jcore.make_context(
         jm, JParams(beta=beta, safe_mult=sm),
         dtype={"f64": jnp.float64, "f32": jnp.float32}[dtype],
-        use_pallas=use_pallas)
+        use_pallas=use_pallas, delay=delay)
     tctx, tconsts = tcore.make_context(
         tm, TParams(beta=beta, safe_mult=sm),
         dtype={"f64": torch.float64, "f32": torch.float32}[dtype],
-        device="cpu", use_kernels=use_kernels)
+        device="cpu", use_kernels=use_kernels, delay=delay)
     return (jctx, jconsts), (tctx, tconsts)
 
 
@@ -199,8 +200,8 @@ def test_make_context_pins_full_float32_matmuls():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(g_refresh=True), dict(checkerboard=True), dict(delay=8),
-    dict(stab_method="qr_colscaled"), dict(L=16), dict(peierls=True)])
+    dict(g_refresh=True), dict(checkerboard=True),
+    dict(stab_method="qr_colscaled"), dict(peierls=True)])
 def test_make_context_rejects_unported_options(kw):
     kw = dict(kw)
     L = kw.pop("L", 2)

@@ -1,5 +1,5 @@
-"""Kernels K1-K3 of the PyTorch/CUDA port (montecarlo_tpu_torch) against the
-Pallas kernels they replace.
+"""Kernels K1-K3, K6 and K7 of the PyTorch/CUDA port (montecarlo_tpu_torch)
+against the Pallas kernels they replace.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the Pallas
 kernels run in interpret mode, as the JAX package's own tests run them. The
@@ -21,8 +21,9 @@ import torch
 
 from montecarlo_tpu.ops import pallas_qr
 from montecarlo_tpu.ops import pallas_site_sweep as pss
-from montecarlo_tpu_torch.ops import KERNELS, _build, qr
+from montecarlo_tpu_torch.ops import KERNELS, _build, qr, qr_blocked as qb
 from montecarlo_tpu_torch.ops import site_sweep as ss
+from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
 from torch_port_inputs import LAMB, MODELS, graded as _graded
 from torch_port_inputs import sweep_inputs as _sweep_inputs
 
@@ -70,6 +71,76 @@ def test_site_sweep_kernel_shapes():
     assert ss.kernel_supports(64, 1) and ss.kernel_supports(128, 2)
     assert not ss.kernel_supports(129, 1)
     assert not ss.kernel_supports(64, 3)
+
+
+# ---------------------------------------------------------------------------
+# K6: delayed site-major sweep
+# ---------------------------------------------------------------------------
+
+def _sweep_args(model, N, seed):
+    kw = dict(lamb=LAMB, **MODELS[model])
+    G, sigma, u = _sweep_inputs(seed, 3, len(kw["signs"]), N)
+    jx = (jnp.asarray(G), jnp.asarray(sigma, jnp.int32), jnp.asarray(u))
+    return kw, jx, tuple(map(torch.from_numpy, (G, sigma, u)))
+
+
+def _same_sweep(out_t, out_j, N):
+    """Decisions identical and G within 1e-5. The Pallas kernels run under
+    XLA's CPU compiler, which may fuse a product and a difference into one
+    FMA where the port rounds twice, so G differs at the 1e-6 level (the
+    JAX package holds its delayed kernel to 1e-4 against its per-site one)."""
+    Gt, st, at, nt = out_t
+    Gj, sj, aj, nj = out_j
+    assert st.dtype == torch.int8
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert 0 < at.sum() < 3 * N
+    assert np.max(np.abs(Gt.numpy() - np.asarray(Gj))) <= 1e-5
+
+
+@pytest.mark.parametrize("mxu", [True, False])
+@pytest.mark.parametrize("model", ["attractive", "repulsive"])
+def test_site_sweep_delayed_matches_pallas(model, mxu):
+    """dk = 4 against _site_sweep_sitemajor_delayed with its fold as per-chain
+    dots (mxu=True) or as rank-1 updates (mxu=False)."""
+    kw, jx, tx = _sweep_args(model, 16, 40 + mxu)
+    out_j = pss._site_sweep_sitemajor_delayed(*jx, force_cb=8, force_dk=4,
+                                               force_mxu=mxu, **kw)
+    _same_sweep(ssd.site_sweep_delayed(*tx, dk=4, **kw), out_j, 16)
+
+
+@pytest.mark.parametrize("model", ["attractive", "repulsive"])
+def test_site_sweep_delayed_dk1_matches_pallas_per_site(model):
+    """dk = 1 is the per-site site-major kernel _site_sweep_sitemajor."""
+    kw, jx, tx = _sweep_args(model, 16, 44)
+    out_j = pss._site_sweep_sitemajor(*jx, force_cb=8, _force_scratch=True,
+                                      **kw)
+    _same_sweep(ssd.site_sweep_delayed(*tx, dk=1, **kw), out_j, 16)
+
+
+def test_site_sweep_delayed_matches_rank1_plain():
+    """Every block width gives K1's Markov chain: decisions identical to
+    site_sweep_plain, G to rounding; the inputs are left as they were."""
+    kw = dict(lamb=LAMB, **MODELS["repulsive"])
+    G, sigma, u = map(torch.from_numpy, _sweep_inputs(45, 3, 2, 24))
+    G0, s0 = G.clone(), sigma.clone()
+    ref = ss.site_sweep_plain(G, sigma, u, **kw)
+    for dk in (1, 3, 8, 24):
+        out = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
+        for a, b in zip(out[1:], ref[1:]):
+            assert torch.equal(a, b), dk
+        assert (out[0] - ref[0]).abs().max().item() <= 1e-5
+    assert torch.equal(G, G0) and torch.equal(sigma, s0)
+
+
+def test_site_sweep_delayed_kernel_shapes():
+    assert ssd.kernel_supports(256, 1, 32) and ssd.kernel_supports(256, 2, 32)
+    assert ssd.kernel_supports(144, 1, 1) and ssd.kernel_supports(144, 2, 24)
+    assert not ssd.kernel_supports(128, 1, 32)      # K1's range
+    assert not ssd.kernel_supports(256, 1, 24)      # dk does not divide N
+    assert not ssd.kernel_supports(256, 3, 32)
+    assert not ssd.kernel_supports(1024, 2, 32)     # slabs past shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +228,79 @@ def test_udt_kernel_shapes():
 
 
 # ---------------------------------------------------------------------------
+# K7: blocked compact-WY QR
+# ---------------------------------------------------------------------------
+
+def _qr_pair(A):
+    """(Q, R) of the port's plain version and of qr_lanes_mxu on A."""
+    Qj, Rj = pallas_qr.qr_lanes_mxu()(jnp.asarray(A))
+    Qt, Rt = qb.qr_blocked(torch.from_numpy(A))
+    return (Qt.numpy(), Rt.numpy()), (np.asarray(Qj), np.asarray(Rj))
+
+
+def _same_qr(out_t, out_j, A):
+    """Q within 2e-5 and R within 2e-4 of the largest |R| (the JAX package's
+    bounds between its QR kernels, tests/test_pallas_qr.py, relative here
+    because graded columns put R's entries far above 1); R exactly upper
+    triangular; Q R = A to float32 rounding."""
+    (Qt, Rt), (Qj, Rj) = out_t, out_j
+    assert np.max(np.abs(Qt - Qj)) <= 2e-5
+    assert np.max(np.abs(Rt - Rj)) <= 2e-4 * max(1.0, np.max(np.abs(Rj)))
+    assert np.array_equal(np.tril(Rt, -1), np.zeros_like(Rt))
+    rec = Qt.astype(np.float64) @ Rt.astype(np.float64)
+    assert np.max(np.abs(rec - A)) <= 1e-5 * np.max(np.abs(A))
+
+
+@pytest.mark.parametrize("graded", [False, True])
+def test_qr_blocked_matches_pallas(graded):
+    """(5, 32, 32) random and (4, 32, 32) graded over +-12 e-folds, as
+    tests/test_pallas_qr.py::test_qr_mxu_* draw them."""
+    rng = np.random.default_rng(50 + graded)
+    A = rng.normal(size=(4 if graded else 5, 32, 32))
+    if graded:
+        A = A * np.exp(np.linspace(12.0, -12.0, 32))[None, None, :]
+    A = A.astype(np.float32)
+    _same_qr(*_qr_pair(A), A)
+
+
+def test_qr_blocked_matches_pallas_t_merge(monkeypatch):
+    """The Pallas kernel's merged-T path (two KB0 = 8 base panels in one
+    KB = 16 panel, as test_qr_mxu_recursive_t_merge runs it) at N = 16."""
+    monkeypatch.setattr(pallas_qr, "MXU_QR_KB", 16)
+    monkeypatch.setattr(pallas_qr, "MXU_QR_KB0", 8)
+    A = np.random.default_rng(52).normal(size=(3, 16, 16)).astype(np.float32)
+    _same_qr(*_qr_pair(A), A)
+
+
+def test_qr_blocked_zero_tails_match_pallas():
+    """Upper-triangular columns and an all-zero column: tau = 0 where v.v is
+    zero, the TPU kernel's sign on a zero tail, exact zero fill."""
+    rng = np.random.default_rng(53)
+    A = np.triu(rng.normal(size=(2, 16, 16))).astype(np.float32)
+    A[:, :, 5] = 0.0
+    (Qt, Rt), (Qj, Rj) = _qr_pair(A)
+    _same_qr((Qt, Rt), (Qj, Rj), A)
+    assert np.all(np.isfinite(Qt)) and np.all(Rt[:, 5, 5] == 0.0)
+
+
+def test_qr_blocked_subnormal_reflector_stays_finite():
+    """A column whose remaining tail has a subnormal v.v: tau = 0 (the TPU's
+    flush-to-zero result) instead of 2 / v.v = inf and a NaN matrix."""
+    A = torch.eye(16) * 2.0 ** 40
+    A[:, 1] = 3e-21                              # v.v ~ 1e-40 at column 1
+    Q, R = qb.qr_blocked(A[None])
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    assert torch.equal(torch.tril(R, -1), torch.zeros_like(R))
+
+
+def test_qr_blocked_kernel_shapes():
+    assert [n for n in range(120, 177) if qb.kernel_supports(n)] == \
+        [136, 144, 152, 160, 168, 176]
+    assert qb.kernel_supports(256) and qb.kernel_supports(512)
+    assert [qb.panel_width(n) for n in (256, 144, 136, 20)] == [32, 16, 8, 8]
+
+
+# ---------------------------------------------------------------------------
 # wrappers: a tensor off the CPU never runs the plain version
 # ---------------------------------------------------------------------------
 
@@ -174,6 +318,13 @@ def test_wrappers_raise_off_cpu_without_kernel():
         qr.udt_qr(A, torch.empty(2, **m))
     with pytest.raises(ValueError, match="no kernel for device"):
         qr.udt_qr_solve(A, A, torch.empty(2, **m))
+    G = torch.empty(2, 1, 136, 136, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ssd.site_sweep_delayed(G, torch.empty(2, 136, dtype=torch.int8, **m),
+                               torch.empty(2, 136, **m), dk=8, lamb=LAMB,
+                               **MODELS["attractive"])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qb.qr_blocked(torch.empty(2, 136, 136, **m))
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -182,14 +333,24 @@ def test_wrappers_raise_off_cpu_without_kernel():
 # ---------------------------------------------------------------------------
 
 def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
+    """One nvcc per source (-c, sm_90a, -O3, -fPIC), then one link of the
+    objects into the shared library under the ignored build directory."""
     out = _build.library_path()
-    cmd = _build.nvcc_command("nvcc", out)
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
+    assert [p.name for p in _build.sources()] == [
+        "qr_blocked.cu", "site_sweep.cu", "site_sweep_delayed.cu", "udt_qr.cu"]
+    for src in _build.sources():
+        cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
+        assert cmd[0] == "nvcc" and str(src) in cmd
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-O3", "-c", "-fPIC"} <= set(cmd)
+    objs = [tmp_path / "a.o", tmp_path / "b.o"]
+    cmd = _build.link_command("nvcc", objs, out)
+    assert cmd[0] == "nvcc" and "-shared" in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
-    assert [p.name for p in _build.sources()] == ["site_sweep.cu", "udt_qr.cu"]
-    assert all(str(p) in cmd for p in _build.sources())
+    assert all(str(o) in cmd for o in objs)
+    assert set(_build.SIGNATURES) == {
+        "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
+        "site_sweep_delayed_f32", "qr_blocked_f32"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -77,8 +77,9 @@ def _sign_normalized(U, R):
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
-@pytest.mark.parametrize("shape", [(3, 16, 16), (2, 2, 24, 24)])
+@pytest.mark.parametrize("shape", [(3, 16, 16), (2, 2, 24, 24), (2, 136, 136)])
 def test_udt_dirty_matches_jax_f64(use_kernels, shape):
+    """N = 136 > 128 takes the blocked QR (K7) on the kernel path."""
     A = _graded(sum(shape), shape)
     Uj, Dj, Rj, pj = jl.udt_dirty(jnp.asarray(A))
     Ut, Dt, Rt, pt = tl.udt_dirty(torch.from_numpy(A), use_kernels)
@@ -145,6 +146,18 @@ def test_calculate_greens_matches_jax_f64(use_kernels, decades):
             (Ur * Dr[:, None, :]) @ Tr, -1, -2)
         Gd = np.linalg.inv(np.eye(N) + P)
         assert _rel(Gt.numpy(), Gd) <= 1e-8
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_calculate_greens_large_n_matches_jax_f64(use_kernels):
+    """N = 136: udt_dirty through K7 (kernel path) or LAPACK, then the
+    triangular solve, against the JAX package."""
+    rng = np.random.default_rng(11)
+    l, r = _rand_udt(rng, 2, 136, 10.0), _rand_udt(rng, 2, 136, 10.0)
+    Gj = jl.calculate_greens(*map(jnp.asarray, l + r))
+    Gt = tl.calculate_greens(*map(torch.from_numpy, l + r),
+                             use_kernels=use_kernels)
+    assert _rel(Gt.numpy(), Gj) <= TOL
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [headline] [l16]
+    python3 chip_profile.py [headline] [l16] [complex]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -9,6 +9,8 @@ Runs each named configuration of chip_smoke.py (default: headline):
             chains, float32, rank-1 updates (kernels K1-K3)
   l16       16x16 (N=256), the same model and run settings, 64 chains,
             delayed updates in blocks of 32 (kernels K6 and K7)
+  complex   the headline model with pure-gauge Peierls phases, safe_mult=5,
+            256 chains, complex64 (kernels K8 and K10)
 
 and prints for each
 
@@ -38,9 +40,12 @@ import chip_smoke as smoke
 from chip_smoke import timed
 
 PAIRS = 5
-# name: (L, chains, time the plain path)
-CONFIGS = {"headline": (smoke.L, smoke.CHAINS, True),
-           "l16": (smoke.L16, smoke.L16_CHAINS, False)}
+# name: (model, safe_mult, chains, time the plain path)
+CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
+                        True),
+           "l16": (lambda: smoke.headline_model(L=smoke.L16), smoke.SAFE_MULT,
+                   smoke.L16_CHAINS, False),
+           "complex": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS, True)}
 
 
 def smi():
@@ -58,12 +63,12 @@ def profile_config(name):
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.ops.linalg import calculate_greens
 
-    L, chains, plain = CONFIGS[name]
-    print(f"== {name}: {L}x{L}, {chains} chains", flush=True)
-    sim = DQMC(smoke.headline_model(L=L), beta=smoke.BETA,
-               delta_tau=smoke.DTAU, safe_mult=smoke.SAFE_MULT,
-               n_chains=chains, dtype=torch.float32, seed=0,
-               device=smoke.DEVICE)
+    model, safe_mult, chains, plain = CONFIGS[name]
+    sim = DQMC(model(), beta=smoke.BETA, delta_tau=smoke.DTAU,
+               safe_mult=safe_mult, n_chains=chains, dtype=torch.float32,
+               seed=0, device=smoke.DEVICE)
+    print(f"== {name}: N={sim.ctx.N}, {chains} chains, safe_mult={safe_mult}, "
+          f"{str(sim.ctx.dtype)[6:]}", flush=True)
     ctx, consts = sim.ctx, sim.consts
     holder = {"st": sim.state}
 

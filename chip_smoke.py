@@ -9,21 +9,41 @@ failure and prints no result line then):
   1. device   require CUDA; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from csrc/ (nvcc, sm_90a)
   3. parity   each kernel against its plain PyTorch version on the card, at
-              the shapes of the two simulations below, with both times
+              the shapes of the simulations below, with both times, the
+              time of one library call computing the same function where
+              there is one, and the kernel's bound
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
   4b. l16     the same at 16x16 (N=256, 64 chains, delayed updates in
               blocks of 32: kernels K6 and K7)
+  4c. complex the same at the complex configuration: 8x8 with pure-gauge
+              Peierls phases, safe_mult=5, complex64 (kernels K8 and K10);
+              the average weight phase <s> must stay 1
   5. paths    one sweep_pair on the kernel path and on the plain path
               (use_kernels=False) from the same state and uniforms, at
               the slice's safe_mult=10 and at safe_mult=1; at 16x16 the
-              first slice visit of each path
+              first slice visit of each path; complex: the first slice
+              visit at safe_mult=5 and the whole pair at safe_mult=1
+  5b. phase   a second witness for the complex run's phase statistics: one
+              sweep pair from its final configuration with the same
+              uniforms on the kernel path, the plain path and the plain
+              path in complex128, each with its imaginary-probability
+              count, max |Im det|, drift and <s>
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is nvidia-smi's, and before that a {"kernels": [...]}
 line with each kernel's launches, error and times.
+
+A kernel's bound (bound_ms) is the least time the card could take for its
+work: the larger of the bytes it must move (each input read once, each
+output written once) over the HBM rate and the least FP32 operations that
+compute its function on these inputs (for the site sweeps: the rank-1
+updates of the accepted sites of this run; for the QRs: Householder with Q
+accumulated backward) over the FP32 rate outside the tensor cores, the
+published peaks
+of one H100 SXM (NVIDIA's data sheet: 3.35 TB/s, 67 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -44,10 +64,23 @@ K1_F2_CHAINS = 128
 # the large-lattice configuration (bench.py's bench_dqmc(lattice_L=16,
 # chains=64)): N=256, delay auto = 32
 L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
+# the complex configuration (bench.py's complex row, its CPLX_SM = 5, and
+# benchmarks/complex_bench.py): the headline model with pure-gauge Peierls
+# phases theta_ij = phi_i - phi_j, phi from default_rng(0) on [0, 2 pi)
+CPLX_SM, CPLX_THERM, CPLX_SWEEPS = 5, 1, 2
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
 OCC_TOL = 0.02           # |mean occupation - 0.5| at mu = 0
+# |<s> - 1|: a pure gauge keeps every weight real. complex128 reads ~1e-13
+# on the card; both complex64 paths read float32 rounding, up to 1.4e-4 at
+# this configuration, so 1e-3 leaves a factor of 7 for rounding and catches
+# a kernel that biases the phases beyond it
+PHASE_TOL = 1e-3
+IMAG_SHARE_RATIO = 1.5   # kernel / plain imaginary-probability share
 MIN_CONF_AGREE = 0.9
+MIN_CONF_AGREE_CX_FIRST = 0.95
 DEVICE = "cuda"
+# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 KERNEL_INFO = {
     "site_sweep": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
@@ -60,6 +93,10 @@ KERNEL_INFO = {
                            "montecarlo_tpu/ops/pallas_site_sweep.py:545"),
     "qr_blocked": ("montecarlo_tpu_torch/csrc/qr_blocked.cu",
                    "montecarlo_tpu/ops/pallas_qr.py:889"),
+    "site_sweep_cx": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
+                      "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
+    "qr_cx": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
+              "montecarlo_tpu/ops/pallas_qr.py:706"),
 }
 
 
@@ -92,6 +129,43 @@ def timed(fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
+def bound(nbytes, flops):
+    """bound_ms and bound_by of work that moves nbytes and does flops FP32
+    operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def householder_flops(N, complex_=False):
+    """FP32 operations of the least work of a column-by-column Householder
+    QR with Q formed (LAPACK's geqrf, then ungqr accumulating Q backward):
+    per column j the tail norm, the dot and update of the N-j-1 trailing
+    columns over N-j rows, and the dot and update of Q's N-j trailing
+    columns over its N-j trailing rows. A complex multiply-add is 8 real
+    operations, a real one 2."""
+    ma = 8 if complex_ else 2
+    return sum((2 if complex_ else 1) * 2 * (N - j - 1)
+               + 2 * ma * (N - j) * (N - j - 1) + 2 * ma * (N - j) ** 2
+               for j in range(N))
+
+
+def sweep_bound(C, F, N, n_acc, complex_=False):
+    """The bound of a site sweep over (C, F, N, N): G read and written once,
+    sigma in and out, u, and the per-chain counts (K1, K6) or the per-site
+    accept flags and complex detratios (K8); n_acc accepted sites each
+    update G (2 operations per element, 8 complex), the work of the
+    sequential rank-1 sweep (the delayed sweep computes the same function,
+    so its slab work is not counted)."""
+    el = 8 if complex_ else 4
+    nbytes = 2 * C * F * N * N * el + C * N * (1 + 1 + 4) + (
+        C * N * (1 + el) if complex_ else 2 * C * 4)
+    per_acc = F * ((8 * N * N + 7 * N + 8) if complex_
+                   else (2 * N * N + 2 * N))
+    per_site = (7 * F + 8) if complex_ else (5 * F + 4)
+    return bound(nbytes, n_acc * per_acc + C * N * per_site)
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -121,12 +195,26 @@ def headline_model(repulsive=False, L=L):
     return HubbardModelAttractive(dims=2, L=L, U=U, mu=MU)
 
 
-def real_state(model, chains, seed, use_kernels):
-    """A float32 chain state of the headline configuration on the card."""
+def complex_model(repulsive=False):
+    """The complex configuration's model: 8x8 with pure-gauge Peierls phases
+    drawn as benchmarks/complex_bench.py draws them."""
+    import numpy as np
+    from montecarlo_tpu_torch import (HubbardModelAttractive,
+                                      HubbardModelRepulsive)
+    phi = np.random.default_rng(0).uniform(0.0, 2 * np.pi, L * L)
+    theta = phi[:, None] - phi[None, :]
+    if repulsive:
+        return HubbardModelRepulsive(dims=2, L=L, U=U, peierls=theta)
+    return HubbardModelAttractive(dims=2, L=L, U=U, mu=MU, peierls=theta)
+
+
+def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT):
+    """A float32 (complex64 for complex hopping) chain state at beta=10 on
+    the card."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
-    params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=SAFE_MULT)
+    params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=safe_mult)
     ctx, consts = core.make_context(model, params, dtype=torch.float32,
                                     device=DEVICE, use_kernels=use_kernels)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -134,16 +222,17 @@ def real_state(model, chains, seed, use_kernels):
     return ctx, consts, core.init_state(ctx, consts, conf), gen
 
 
-def graded(gen, B, N, decades=16.0):
+def graded(gen, B, N, decades=16.0, dtype=None):
     """Columns scaled over 2*decades e-folds, as tests/test_pallas_qr.py::
-    _graded scales them, of a well-conditioned core I + 0.3 randn / sqrt(N).
-    A plain Gaussian core at N=64 has condition numbers up to ~1e4 over 256
-    draws, which turns any float32 rounding-order difference into ~1e-3 in
-    d (plain float32 against plain float64 on such input: 1.9e-3 on the CPU),
-    so the bounds would measure the input instead of the kernel."""
+    _graded scales them, of a well-conditioned core I + 0.3 randn / sqrt(N)
+    (complex randn for a complex dtype). A plain Gaussian core at N=64 has
+    condition numbers up to ~1e4 over 256 draws, which turns any float32
+    rounding-order difference into ~1e-3 in d (plain float32 against plain
+    float64 on such input: 1.9e-3 on the CPU), so the bounds would measure
+    the input instead of the kernel."""
     import torch
     core = (torch.eye(N, device=DEVICE) + 0.3 / math.sqrt(N) * torch.randn(
-        B, N, N, generator=gen, device=DEVICE))
+        B, N, N, generator=gen, device=DEVICE, dtype=dtype))
     grade = torch.exp((torch.rand(B, N, generator=gen, device=DEVICE) * 2 - 1)
                       * decades)
     return core * grade[:, None, :]
@@ -159,41 +248,82 @@ def check_sweep(name, out_k, out_p, shape, relative):
     same = [torch.equal(a.to(b.dtype), b) for a, b in
             zip(out_k[1:], out_p[1:])]
     acc = out_k[2].sum().item() / (shape[0] * shape[-1])
-    log(f"[parity] {name} {shape}: sigma/acc/nneg equal {same}, max|dG| "
+    log(f"[parity] {name} {shape}: decisions (sigma, acc/accept, nneg/det) "
+        f"equal {same}, max|dG| "
         f"{err:.3e} (max|G| {gmax:.3g}), acceptance {acc:.3f}")
     if not all(same) or not err <= TOL_G * (gmax if relative else 1.0):
         raise AssertionError(f"{name} kernel disagrees with plain at {shape}")
     return err
 
 
+def qr_parity(name, kernel, plain, Ap, library=None, normalize=None):
+    """Q and R of kernel(Ap) against plain(Ap) within TOL_QR of their largest
+    entries (after normalize, where given), R exactly upper triangular;
+    returns the result dict with the kernel's, the plain version's and the
+    library call's times."""
+    import torch
+    outs_k, outs_p = kernel(Ap), plain(Ap)
+    torch.cuda.synchronize()
+    if normalize is not None:
+        raw = (outs_k[0] - outs_p[0]).abs().max().item()
+        log(f"[parity] {name}: raw max|dQ| {raw:.3e} before the "
+            "normalization")
+        outs_k, outs_p = normalize(*outs_k), normalize(*outs_p)
+    eq = (outs_k[0] - outs_p[0]).abs().max().item()
+    er = (outs_k[1] - outs_p[1]).abs().max().item()
+    rmax = outs_p[1].abs().max().item()
+    upper = bool((torch.tril(outs_k[1], -1) == 0).all())
+    log(f"[parity] {name} {tuple(Ap.shape)} {str(Ap.dtype)[6:]}: max|dQ| "
+        f"{eq:.3e}, max|dR| {er:.3e} (max|R| {rmax:.3g}), R lower zero "
+        f"{upper}")
+    if not (eq <= TOL_QR * outs_p[0].abs().max().item() and er <= TOL_QR * rmax
+            and upper):
+        raise AssertionError(f"{name} kernel disagrees with plain")
+    return dict(max_abs_err=max(eq, er),
+                ms=1e3 * timed(lambda: kernel(Ap), 20),
+                plain_ms=1e3 * timed(lambda: plain(Ap), 3),
+                library_ms=(1e3 * timed(lambda: library(Ap), 20)
+                            if library else None))
+
+
 def phase_parity():
     """Each kernel against its plain version on the same card inputs."""
     import torch
-    from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
+    from montecarlo_tpu_torch.ops import qr, qr_blocked as qb, qr_cx as qcx
     from montecarlo_tpu_torch.ops import site_sweep as ss
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
     from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
     results = {}
 
     # ---- K1 at (256, 1, 64, 64) and (128, 2, 64, 64), on real Green's
-    # functions (plain-path init_state) and the sweeps' uniform draws
-    for repulsive, chains in ((False, CHAINS), (True, K1_F2_CHAINS)):
-        model = headline_model(repulsive)
-        ctx, _, state, gen = real_state(model, chains, 1, use_kernels=False)
-        G = state["G"]
-        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-        u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
-        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                  use_boson=ctx.use_boson)
-        err = check_sweep("site_sweep", ss.site_sweep(G, sigma, u, **kw),
-                          ss.site_sweep_plain(G, sigma, u, **kw),
-                          tuple(G.shape), relative=False)
-        if not repulsive:
-            results["site_sweep"] = dict(
-                max_abs_err=err,
-                ms=1e3 * timed(lambda: ss.site_sweep(G, sigma, u, **kw), 50),
-                plain_ms=1e3 * timed(
-                    lambda: ss.site_sweep_plain(G, sigma, u, **kw), 5))
+    # functions (plain-path init_state) and the sweeps' uniform draws; K8 at
+    # the same shapes in complex64, on the complex configuration's
+    for kname, fn, plain, mk, sm in (
+            ("site_sweep", ss.site_sweep, ss.site_sweep_plain,
+             headline_model, SAFE_MULT),
+            ("site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
+             complex_model, CPLX_SM)):
+        cx = kname == "site_sweep_cx"
+        for repulsive, chains in ((False, CHAINS), (True, K1_F2_CHAINS)):
+            ctx, _, state, gen = real_state(mk(repulsive), chains, 1,
+                                            use_kernels=False, safe_mult=sm)
+            G = state["G"]
+            sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+            u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+            kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+                      use_boson=ctx.use_boson)
+            out_k = fn(G, sigma, u, **kw)
+            err = check_sweep(kname, out_k, plain(G, sigma, u, **kw),
+                              tuple(G.shape), relative=False)
+            if not repulsive:
+                results[kname] = dict(
+                    max_abs_err=err,
+                    ms=1e3 * timed(lambda: fn(G, sigma, u, **kw), 50),
+                    plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 5),
+                    library_ms=None,
+                    **sweep_bound(chains, ctx.F, ctx.N,
+                                  out_k[2].sum().item(), complex_=cx))
 
     # ---- K2, K3 at (256, 64, 64) on graded, prescaled, pivoted input
     gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -216,7 +346,10 @@ def phase_parity():
     results["udt_qr"] = dict(
         max_abs_err=max(eq, er),
         ms=1e3 * timed(lambda: qr.udt_qr(Ap, mx), 50),
-        plain_ms=1e3 * timed(lambda: qr.udt_qr_plain(Ap, mx), 5))
+        plain_ms=1e3 * timed(lambda: qr.udt_qr_plain(Ap, mx), 5),
+        library_ms=1e3 * timed(lambda: torch.linalg.qr(Ap), 20),
+        **bound(B * (3 * N * N * 4 + 4 + N * 4),
+                B * (householder_flops(N) + N * N)))
 
     Qk, Xk = qr.udt_qr_solve(Ap, Z, mx)
     Qp, Xp = qr.udt_qr_solve_plain(Ap, Z, mx)
@@ -228,10 +361,43 @@ def phase_parity():
         f"max|dX| {ex:.3e} (max|X| {xmax:.3g})")
     if not (eq <= TOL_QR * Qp.abs().max().item() and ex <= TOL_QR * xmax):
         raise AssertionError("udt_qr_solve kernel disagrees with plain")
+    solve_flops = sum(2 * N + 2 * N * (N - j - 1) for j in range(N))
     results["udt_qr_solve"] = dict(
         max_abs_err=max(eq, ex),
         ms=1e3 * timed(lambda: qr.udt_qr_solve(Ap, Z, mx), 50),
-        plain_ms=1e3 * timed(lambda: qr.udt_qr_solve_plain(Ap, Z, mx), 5))
+        plain_ms=1e3 * timed(lambda: qr.udt_qr_solve_plain(Ap, Z, mx), 5),
+        library_ms=None,
+        **bound(B * (4 * N * N * 4 + 4),
+                B * (householder_flops(N) + solve_flops)))
+
+    # ---- K10 at (256, 64, 64) complex64 on graded, prescaled, pivoted
+    # input, phase-normalized (qr_cx.phase_normalized: rounding turns the
+    # phase of a small alpha), then with zero and subnormal columns
+    Apc, _, _ = _prescale_pivot(graded(gen, B, N, dtype=torch.complex64))
+    Apc = Apc.contiguous()
+    results["qr_cx"] = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_plain, Apc,
+                                 library=torch.linalg.qr,
+                                 normalize=qcx.phase_normalized)
+    results["qr_cx"].update(bound(3 * B * N * N * 8,
+                                  B * householder_flops(N, complex_=True)))
+    Az = Apc.clone()
+    Az[:, :, -4:] = 0.0
+    Az[:, :, 1] = Az[:, :, 1] * 1e-35
+    # the Q columns of (near-)zero R_jj are not determined by the input, so
+    # the factorization is held to A = QR and Q^H Q = I, not to the plain
+    # version's Q
+    Qz, Rz = qcx.qr_cx(Az)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(Qz).all()) and bool(torch.isfinite(Rz).all())
+    zero = bool((Rz[:, -4:, -4:] == 0).all())
+    Qd, Rd = Qz.to(torch.complex128), Rz.to(torch.complex128)
+    rec = ((Qd @ Rd - Az).abs().max() / Az.abs().max()).item()
+    orth = (Qd.mH @ Qd - torch.eye(N, device=DEVICE)).abs().max().item()
+    log(f"[parity] qr_cx zero and subnormal columns: finite {finite}, zero "
+        f"R block {zero}, max|QR - A|/max|A| {rec:.3e}, max|Q^H Q - I| "
+        f"{orth:.3e}")
+    if not (finite and zero and rec <= TOL_QR and orth <= TOL_QR):
+        raise AssertionError("qr_cx fails on zero or subnormal columns")
 
     # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
     # at dk = 1, on real 16x16 Green's functions (plain-path init_state)
@@ -246,57 +412,56 @@ def phase_parity():
                   use_boson=ctx.use_boson)
         dks = (max(ctx.delay, 1), 1)[:1 if repulsive else 2]
         for dk in dks:
+            out_k = ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw)
             errs.append(check_sweep(
-                f"site_sweep_delayed dk={dk}",
-                ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw),
+                f"site_sweep_delayed dk={dk}", out_k,
                 ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw),
                 tuple(G.shape), relative=True))
+            if not repulsive and dk == dks[0]:
+                n_acc = out_k[2].sum().item()
         if not repulsive:
             kw["dk"] = dks[0]
             results["site_sweep_delayed"] = dict(
                 ms=1e3 * timed(lambda: ssd.site_sweep_delayed(
                     G, sigma, u, **kw), 20),
                 plain_ms=1e3 * timed(lambda: ssd.site_sweep_delayed_plain(
-                    G, sigma, u, **kw), 3))
+                    G, sigma, u, **kw), 3),
+                library_ms=None,
+                **sweep_bound(chains, ctx.F, ctx.N, n_acc))
     results["site_sweep_delayed"]["max_abs_err"] = max(errs)
 
     # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
     B, N = L16_CHAINS, L16 * L16
     Ap, _, _ = _prescale_pivot(graded(gen, B, N))
     Ap = Ap.contiguous()
-    Qk, Rk = qb.qr_blocked(Ap)
-    Qp, Rp = qb.qr_blocked_plain(Ap)
-    torch.cuda.synchronize()
-    eq = (Qk - Qp).abs().max().item()
-    er = (Rk - Rp).abs().max().item()
-    rmax = Rp.abs().max().item()
-    log(f"[parity] qr_blocked ({B}, {N}, {N}): max|dQ| {eq:.3e}, max|dR| "
-        f"{er:.3e} (max|R| {rmax:.3g}), R lower zero "
-        f"{bool((torch.tril(Rk, -1) == 0).all())}")
-    if not (eq <= TOL_QR * Qp.abs().max().item() and er <= TOL_QR * rmax
-            and bool((torch.tril(Rk, -1) == 0).all())):
-        raise AssertionError("qr_blocked kernel disagrees with plain")
-    results["qr_blocked"] = dict(
-        max_abs_err=max(eq, er),
-        ms=1e3 * timed(lambda: qb.qr_blocked(Ap), 20),
-        plain_ms=1e3 * timed(lambda: qb.qr_blocked_plain(Ap), 3))
+    results["qr_blocked"] = qr_parity("qr_blocked", qb.qr_blocked,
+                                      qb.qr_blocked_plain, Ap,
+                                      library=torch.linalg.qr)
+    results["qr_blocked"].update(bound(3 * B * N * N * 4,
+                                       B * householder_flops(N)))
     for name, r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"[parity] {name}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms per call")
+            f"{r['plain_ms']:.4f} ms per call, library call {lib}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
 
 
-def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice"):
+def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
+                complex_=False):
     """A simulation through DQMC(...).run(), with launch counts: the
-    headline (8x8: K1-K3) or the 16x16 one (K6, K7)."""
+    headline (8x8: K1-K3), the 16x16 one (K6, K7) or the complex one (8x8
+    with pure-gauge Peierls phases at safe_mult=5: K8, K10)."""
     import torch
     from montecarlo_tpu_torch import DQMC
     from montecarlo_tpu_torch.ops import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
-    sim = DQMC(headline_model(L=L), beta=BETA, delta_tau=DTAU,
-               safe_mult=SAFE_MULT, n_chains=chains, dtype=torch.float32,
-               measure_rate=1, seed=0, device=DEVICE)
+    sim = DQMC(complex_model() if complex_ else headline_model(L=L),
+               beta=BETA, delta_tau=DTAU,
+               safe_mult=CPLX_SM if complex_ else SAFE_MULT, n_chains=chains,
+               dtype=torch.float32, measure_rate=1, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run(thermalization=therm, sweeps=sweeps, verbose=False)
@@ -307,7 +472,10 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice"):
     ctx = sim.ctx
     n_pairs = therm + sweeps
     expected = dict.fromkeys(KERNELS, 0)
-    if ctx.N <= 128:
+    if ctx.is_complex:   # every extend and Green's recomputation runs one K10
+        expected.update(site_sweep_cx=2 * ctx.M * n_pairs,
+                        qr_cx=4 * ctx.n_seg * n_pairs + ctx.n_seg + 1)
+    elif ctx.N <= 128:
         expected.update(site_sweep=2 * ctx.M * n_pairs,
                         udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
                         udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
@@ -322,8 +490,9 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice"):
     acc = sim.analysis.acc_rate
     occ = float(sim.observables()["occ"]["occ"].mean.mean())
     rate = chains * n_pairs / dur
-    log(f"[{tag}] {L}x{L} beta={BETA} M={ctx.M} delay={ctx.delay} {chains} "
-        f"chains f32: {n_pairs} sweeps in {dur:.3f} s = {rate:.1f} "
+    log(f"[{tag}] {L}x{L} beta={BETA} M={ctx.M} safe_mult={ctx.sm} delay="
+        f"{ctx.delay} {chains} chains {str(ctx.dtype)[6:]}: {n_pairs} sweeps "
+        f"in {dur:.3f} s = {rate:.1f} "
         f"chain-sweeps/s; acceptance {acc:.4f}; occ {occ:.5f}; "
         f"prop_err_max {sim.analysis.propagation_error.max:.3e}, mean "
         f"{sim.analysis.prop_err_mean:.3e}")
@@ -334,6 +503,17 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice"):
         raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
     if not abs(occ - 0.5) <= OCC_TOL:
         raise AssertionError(f"occupation {occ} not within 0.5 +- {OCC_TOL}")
+    if ctx.is_complex:
+        sign = complex(sim.observables()["sign"]["sign"].mean)
+        a = sim.analysis
+        log(f"[{tag}] <s> = {sign.real:.7f}{sign.imag:+.3e}i (sign "
+            f"observable), {a.avg_phase.real:.7f}{a.avg_phase.imag:+.3e}i "
+            f"(running phase at the end); imaginary probabilities "
+            f"{a.imaginary_probability.count} (|Im det| > 1e-6) of "
+            f"{a.prop_local}, max |Im det| {a.imaginary_probability.max:.3e}")
+        if not (abs(sign - 1) < PHASE_TOL and abs(a.avg_phase - 1) < PHASE_TOL):
+            raise AssertionError(f"average phase {sign} (sign), {a.avg_phase} "
+                                 f"(running) not within 1 +- {PHASE_TOL}")
     return sim, launches, rate
 
 
@@ -352,8 +532,8 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     C, F, N, n = state["conf"].shape[0], ctx_k.F, ctx_k.N, ctx_k.n_seg
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     u = torch.rand(C, 2 * ctx_k.M, N, generator=gen, device=DEVICE)
-    eye = torch.eye(N, device=DEVICE).expand(C, F, N, N)
-    ones = torch.ones(C, F, N, device=DEVICE)
+    eye = torch.eye(N, device=DEVICE, dtype=ctx_k.dtype).expand(C, F, N, N)
+    ones = torch.ones(C, F, N, device=DEVICE, dtype=ctx_k.rdtype)
     sigma = state["conf"][:, :, -1]
     first, whole = [], []
     for ctx in (ctx_k, ctx_p):
@@ -365,10 +545,11 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
         if whole_pair:
             whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
     share_first = (first[0] == first[1]).all(1).float().mean().item()
+    tag = (f"{int(math.sqrt(N))}x{int(math.sqrt(N))} {str(ctx_k.dtype)[6:]} "
+           f"safe_mult={ctx_k.sm}")
     if not whole_pair:
-        log(f"[paths] {int(math.sqrt(N))}x{int(math.sqrt(N))} "
-            f"safe_mult={ctx_k.sm} delay={ctx_k.delay}: first slice visit "
-            f"agrees in {share_first:.4f} of {C} chains")
+        log(f"[paths] {tag} delay={ctx_k.delay}: first slice visit agrees in "
+            f"{share_first:.4f} of {C} chains")
         return share_first, None
     sk, sp = whole
     same = (sk["conf"] == sp["conf"]).flatten(1).all(1)
@@ -376,7 +557,7 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     drift = {name: (s["prop_err_max"].max().item(),
                     (s["prop_err_sum"].sum() / s["prop_err_n"].sum()).item())
              for name, s in (("kernel", sk), ("plain", sp))}
-    log(f"[paths] safe_mult={ctx_k.sm}: first slice visit agrees in "
+    log(f"[paths] {tag}: first slice visit agrees in "
         f"{share_first:.4f} of {C} chains, the whole sweep pair in "
         f"{same.float().mean().item():.4f}; median max|dG| after it "
         f"{dG.median().item():.3e}; drift max/mean kernel "
@@ -385,7 +566,7 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim, sim16):
+def phase_paths(sim, sim16, simcx):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -418,6 +599,79 @@ def phase_paths(sim, sim16):
         raise AssertionError(f"kernel and plain paths agree on the first "
                              f"16x16 slice visit in only {first:.3f} of the "
                              "chains")
+    # complex: K10 Green's function + K8 against torch.linalg.qr + the plain
+    # complex sweep, at the configuration's safe_mult=5 and at safe_mult=1
+    first, _ = compare_paths(simcx.ctx, simcx.consts, simcx.state, 6,
+                             whole_pair=False)
+    if not first >= MIN_CONF_AGREE_CX_FIRST:
+        raise AssertionError(f"kernel and plain paths agree on the first "
+                             f"complex slice visit in only {first:.3f} of "
+                             "the chains")
+    ctx1, consts1 = core.make_context(complex_model(), params,
+                                      dtype=torch.float32, device=DEVICE)
+    state1 = core.init_state(ctx1, consts1, simcx.state["conf"])
+    _, whole = compare_paths(ctx1, consts1, state1, 7)
+    if not whole >= MIN_CONF_AGREE:
+        raise AssertionError(f"kernel and plain paths agree in only "
+                             f"{whole:.3f} of the complex chains at "
+                             "safe_mult=1")
+
+
+def phase_witness(simcx):
+    """One complex sweep pair at safe_mult=5 from the complex run's final
+    configuration, with the same uniforms, on the kernel path (K8, K10), the
+    plain path (use_kernels=False) and the plain path in complex128, each
+    from its own fresh init_state. A pure gauge keeps every weight real, so
+    in complex128 no proposal may count as an imaginary probability and the
+    running phase must stay 1 to 1e-9: what the complex64 paths read there
+    is float32 rounding, which both must read alike."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
+    conf = simcx.state["conf"]
+    C, N, M = conf.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    u = torch.rand(C, 2 * M, N, generator=gen, device=DEVICE)
+    params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=CPLX_SM)
+    out = {}
+    for name, dtype, use_kernels in (
+            ("kernel complex64", torch.float32, True),
+            ("plain complex64", torch.float32, False),
+            ("plain complex128", torch.float64, False)):
+        ctx, consts = core.make_context(complex_model(), params, dtype=dtype,
+                                        device=DEVICE, use_kernels=use_kernels)
+        s, _, _ = core.sweep_pair(ctx, consts, core.init_state(ctx, consts,
+                                                               conf),
+                                  u=u.to(ctx.urdtype))
+        n_imag = s["ls_imag_count"].sum().item()
+        r = dict(share=n_imag / (C * 2 * M * N),
+                 imag_max=(10 ** s["ls_imag_max"].max().item()
+                           if n_imag else 0.0),
+                 drift_max=s["prop_err_max"].max().item(),
+                 drift_mean=(s["prop_err_sum"].sum()
+                             / s["prop_err_n"].sum()).item(),
+                 s_dev=abs(complex(s["phase_meas"].mean().item()) - 1),
+                 chain_dev=(s["ls_phase"] - 1).abs().max().item(),
+                 acc=s["acc"].sum().item() / (C * 2 * M * N))
+        out[name] = r
+        log(f"[phase] {name}: imaginary probabilities {n_imag} of "
+            f"{C * 2 * M * N} proposals ({r['share']:.4f}), max |Im det| "
+            f"{r['imag_max']:.3e}; drift max/mean {r['drift_max']:.3e}/"
+            f"{r['drift_mean']:.3e}; |<s> - 1| {r['s_dev']:.3e} over "
+            f"{C} chains, max over chains |phase - 1| {r['chain_dev']:.3e}; "
+            f"acceptance {r['acc']:.4f}")
+    k, p, d = (out[n] for n in ("kernel complex64", "plain complex64",
+                                "plain complex128"))
+    if not (d["share"] == 0 and d["s_dev"] < 1e-9 and d["chain_dev"] < 1e-9):
+        raise AssertionError("complex128 plain path reads a non-real weight "
+                             "for a pure gauge")
+    if not (k["s_dev"] < PHASE_TOL and p["s_dev"] < PHASE_TOL):
+        raise AssertionError(f"<s> off 1 by {k['s_dev']} (kernel), "
+                             f"{p['s_dev']} (plain), bound {PHASE_TOL}")
+    if not k["share"] <= IMAG_SHARE_RATIO * p["share"]:
+        raise AssertionError(f"kernel path's imaginary-probability share "
+                             f"{k['share']} above {IMAG_SHARE_RATIO} times "
+                             f"the plain path's {p['share']}")
 
 
 def main():
@@ -433,8 +687,12 @@ def main():
     sim, launches, _ = phase_slice()
     sim16, launches16, _ = phase_slice(L16, L16_CHAINS, L16_THERM,
                                        L16_SWEEPS, tag="l16")
-    launches = {k: launches[k] + launches16[k] for k in launches}
-    phase_paths(sim, sim16)
+    simcx, launchescx, _ = phase_slice(therm=CPLX_THERM, sweeps=CPLX_SWEEPS,
+                                       tag="complex", complex_=True)
+    launches = {k: launches[k] + launches16[k] + launchescx[k]
+                for k in launches}
+    phase_paths(sim, sim16, simcx)
+    phase_witness(simcx)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

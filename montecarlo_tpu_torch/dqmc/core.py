@@ -15,9 +15,11 @@ Index conventions (0-based, as in the JAX package):
         (right products; S[n_seg] holds the identity)
 
 Ported: the rank-1 and the delayed rank-k site sweeps with the QR
-stabilization (stab_method="qr") for real hopping. g_refresh, checkerboard,
-the other stabilization methods and complex hopping raise
-NotImplementedError naming their ROADMAP item.
+stabilization (stab_method="qr") for real hopping, and the rank-1 sweep for
+complex hopping (Peierls phases) with its phase-problem statistics: the
+imaginary-weight monitor and the running weight phase. g_refresh,
+checkerboard, the other stabilization methods and complex delayed updates
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,8 +32,11 @@ import torch
 
 from ..ops import qr as _qr
 from ..ops import qr_blocked as _qr_blocked
+from ..ops import qr_cx as _qr_cx
+from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
-from ..ops.linalg import calculate_greens, permute_rows, udt_dirty
+from ..ops.linalg import (calculate_greens, permute_rows, scatter_columns,
+                          udt_dirty)
 from ..ops.site_sweep import MAX_N, site_sweep, site_sweep_plain
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
 from ..utils.host import real_dtype, resolve_device
@@ -69,6 +74,10 @@ class DQMCContext:
         return self.update_dtype if self.update_dtype is not None else self.dtype
 
     @property
+    def is_complex(self):
+        return self.dtype.is_complex
+
+    @property
     def rdtype(self):
         return real_dtype(self.dtype)
 
@@ -90,6 +99,10 @@ def _not_ported(what, item):
         f"{what} is not ported to montecarlo_tpu_torch yet (ROADMAP {item})")
 
 
+# complex hopping promotes the session dtypes
+_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
 def make_context(model, params, dtype=torch.float64, update_dtype=None,
                  device="cuda", use_kernels: bool = True,
                  stab_method: str = "qr", delay: int = None,
@@ -97,6 +110,10 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
                  check_propagation_error: bool = None,
                  g_refresh: bool = False) -> Tuple[DQMCContext, dict]:
     """Build the static context and the hopping-matrix exponentials.
+
+    Complex hopping (Peierls phases) promotes the session to complex:
+    float32 to complex64 and float64 to complex128 (dtype and update_dtype);
+    the D factors, uniforms and drift statistics stay real (ctx.rdtype).
 
     Returns (ctx, consts) with consts on ``device``:
       eT2, eT2inv: exp(∓ dtau T); eThalf, eThalfinv: exp(∓ dtau/2 T);
@@ -117,8 +134,9 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
     T = np.asarray(model.hopping_matrix())
     N = len(model.lattice)
     if np.iscomplexobj(T):
-        raise _not_ported("complex hopping (Peierls phases)",
-                          "Queue 1 item 12, kernels K8-K10")
+        dtype = _COMPLEX.get(dtype, dtype)
+        if update_dtype is not None:
+            update_dtype = _COMPLEX.get(update_dtype, update_dtype)
     if g_refresh:
         raise _not_ported("g_refresh", "Queue 1 item 9")
     if checkerboard:
@@ -126,6 +144,9 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
     if stab_method != "qr":
         raise _not_ported(f"stab_method={stab_method!r}", "Queue 1 item 3")
     delay = _delay(N, delay)
+    if dtype.is_complex and delay > 1:
+        raise _not_ported(f"complex delayed updates (delay={delay}, N={N})",
+                          "Queue 2 K9")
     udtype = dtype if update_dtype is None else update_dtype
     if device.type == "cuda" and use_kernels:
         _check_cuda_kernels(N, model.nflavors, delay, dtype, udtype)
@@ -176,7 +197,18 @@ def _delay(N, delay):
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
     """Raise unless a kernel takes every shape of a CUDA session: the site
     sweep (K1 for N <= 128, K6 beyond) and the float32 QR (K2/K3 for
-    8 | N <= 64, K7 for 8 | N > 128)."""
+    8 | N <= 64, K7 for 8 | N > 128); for complex64 sessions K8 and K10
+    (8 | N <= 64, F <= 2)."""
+    if dtype.is_complex or udtype.is_complex:
+        if dtype != torch.complex64 or udtype != torch.complex64:
+            raise _not_ported("CUDA kernels for complex128 (use_kernels=False "
+                              "runs the plain path)", "Queue 1 item 12")
+        if not (_sscx.kernel_supports(N, F) and _qr_cx.kernel_supports(N)):
+            raise _not_ported(
+                f"the complex64 kernels for N={N}, F={F} (K8 and K10 take "
+                "8 | N <= 64, F <= 2; beyond needs the wide K10 and, past "
+                "N = 128, K9)", "Queue 2 K9, K10")
+        return
     if dtype != torch.float32 or udtype != torch.float32:
         raise _not_ported("CUDA kernels for float64 (use_kernels=False "
                           "runs the plain path)", "Queue 1 item 13, K11")
@@ -210,8 +242,8 @@ def mult_B_left(ctx, consts, sigma_l, M):
 
 
 def mult_B_dagger_left(ctx, consts, sigma_l, M):
-    """M ← B_l^† M = diag(eV) · eT2^T · M."""
-    return eV_diag(ctx, sigma_l)[..., :, None] * (consts["eT2"].mT @ M)
+    """M ← B_l^† M = diag(eV) · eT2^† · M (eV real)."""
+    return eV_diag(ctx, sigma_l)[..., :, None] * (consts["eT2"].mH @ M)
 
 
 def wrap_up(ctx, consts, sigma_l, G):
@@ -270,15 +302,22 @@ def sweep_slice(ctx, G, sigma, u):
     """Sequential Metropolis over all sites of one time slice, for every
     chain. G: (C, F, N, N) in the update dtype, sigma: (C, N) int8, u: (C, N)
     uniforms. Returns new (G, sigma, acc (C,), nneg (C,)); the inputs are not
-    modified.
+    modified. Complex sessions return (G, sigma, accept (C, N), det (C, N))
+    instead: every site's accept flag and complex detratio, for
+    ``_track_detratio_batch``.
 
     Dispatch as in the JAX engine: the kernel path runs K1 (rank-1) for
-    N <= 128 and K6 (delayed, blocks of max(delay, 1) sites) beyond; the
-    plain path runs ``sweep_slice_delayed`` when delay > 1, else the rank-1
-    plain loop."""
+    N <= 128 and K6 (delayed, blocks of max(delay, 1) sites) beyond, and K8
+    for complex G; the plain path runs ``sweep_slice_delayed`` when
+    delay > 1, else the plain version of the rank-1 kernel (K1's, or K8's
+    for complex G)."""
     sigma, u = sigma.contiguous(), u.contiguous()
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
+    if G.is_complex():
+        if ctx.use_kernels:
+            return _sscx.site_sweep_cx(G, sigma, u, **kw)
+        return _sscx.site_sweep_cx_plain(G, sigma, u, **kw)
     if ctx.use_kernels:
         if ctx.N <= MAX_N:
             return site_sweep(G, sigma, u, **kw)
@@ -339,12 +378,123 @@ PROP_ERR_EDGES = (1e-6, 1e-3, 1e-1, 1e1)
 # per-chain counters, reset when DQMC drains them to host integers
 COUNTER_KEYS = ("prop", "acc", "neg_prob", "prop_err_max", "prop_err_count",
                 "prop_err_sum", "prop_err_n", "prop_err_hist")
+# complex sessions add the phase-problem statistics, reset on drain as well:
+# magnitudes of negative Re(detratio) and of |Im(detratio)| above
+# IMAG_PROB_THRESHOLD as log10 (min, max, sum), and the count of the latter
+CX_COUNTER_KEYS = ("ls_neg_min", "ls_neg_max", "ls_neg_sum", "ls_imag_count",
+                   "ls_imag_min", "ls_imag_max", "ls_imag_sum")
+# ... and the running configuration-weight phase ls_phase with its snapshot
+# phase_meas at the measurement point, which the drain leaves alone
+
+# an imaginary detratio part above this counts as an imaginary probability
+# (the JAX package's monitor, after the reference's)
+IMAG_PROB_THRESHOLD = 1e-6
+
+
+def counter_keys(ctx):
+    return COUNTER_KEYS + (CX_COUNTER_KEYS if ctx.is_complex else ())
+
+
+def fresh_counters(ctx, C):
+    """Every counter of ``counter_keys(ctx)`` at its empty value, per chain:
+    zero, and +inf / -inf for the log-magnitude minima / maxima."""
+    kw = dict(device=ctx.device)
+    ints = lambda *shape: torch.zeros(C, *shape, dtype=torch.int64, **kw)
+    real = lambda v=0.0: torch.full((C,), v, dtype=ctx.rdtype, **kw)
+    out = {"prop": ints(), "acc": ints(), "neg_prob": ints(),
+           "prop_err_max": real(), "prop_err_count": ints(),
+           # window-end drift distribution: sum/n give the mean, the
+           # histogram counts exceedances over PROP_ERR_EDGES
+           "prop_err_sum": real(), "prop_err_n": ints(),
+           "prop_err_hist": ints(len(PROP_ERR_EDGES))}
+    if ctx.is_complex:
+        inf = float("inf")
+        out.update(ls_neg_min=real(inf), ls_neg_max=real(-inf),
+                   ls_neg_sum=real(), ls_imag_count=ints(),
+                   ls_imag_min=real(inf), ls_imag_max=real(-inf),
+                   ls_imag_sum=real())
+    return out
+
+
+def _track_detratio_batch(ls, det, accept):
+    """Fold one slice's proposals of every chain into the statistics: det
+    (C, N) complex detratios, accept (C, N) bool. Counts accepted and
+    negative-weight (Re det < 0) proposals, the log10-magnitude statistics of
+    the negative weights and of the imaginary parts above
+    IMAG_PROB_THRESHOLD, and multiplies the running weight phase ls_phase by
+    the phase det/|det| of every accepted flip (the boson factor is real
+    positive). Every statistic is order-independent, so this equals the
+    sequential per-proposal bookkeeping of the JAX package up to rounding.
+    Returns the updated entries."""
+    neg = det.real < 0
+    bad = det.imag.abs() > IMAG_PROB_THRESHOLD
+    out = {"acc": ls["acc"] + accept.sum(-1),
+           "neg_prob": ls["neg_prob"] + neg.sum(-1),
+           "ls_imag_count": ls["ls_imag_count"] + bad.sum(-1)}
+    for prefix, value, mask in (("ls_neg", det.real, neg),
+                                ("ls_imag", det.imag, bad)):
+        rd = ls[prefix + "_sum"].dtype
+        lv = torch.log10(value.abs().clamp_min(1e-38)).to(rd)
+        inf = torch.full_like(lv, float("inf"))
+        out[prefix + "_min"] = torch.minimum(
+            ls[prefix + "_min"], torch.where(mask, lv, inf).amin(-1))
+        out[prefix + "_max"] = torch.maximum(
+            ls[prefix + "_max"], torch.where(mask, lv, -inf).amax(-1))
+        out[prefix + "_sum"] = ls[prefix + "_sum"] + torch.where(
+            mask, lv, 0.0).sum(-1)
+    phase = ls["ls_phase"]
+    det = det.to(phase.dtype)
+    ph = det / det.abs().clamp_min(1e-38)
+    out["ls_phase"] = _normalize_phase(
+        phase * torch.prod(torch.where(accept, ph, 1.0), dim=-1))
+    return out
+
+
+def _normalize_phase(phase):
+    return phase / phase.abs().clamp_min(1e-30)
+
+
+def udt_weight_phase(ctx, U, D, T):
+    """Phase of the fermionic configuration weight prod_f det(I + B_f)^p per
+    chain, from the UDT factors (C, F, ...) of the full slice product
+    B = B_{M-1}...B_0. Range-safe: I + UDT = U·Dp·(Dp⁻¹U† + Dm·T) with
+    Dp = max(D, 1), Dm = min(D, 1), so det(I + UDT) = det(U)·det(Dp)·
+    det(Dp⁻¹U† + Dm·T) with det(Dp) real positive; only the signs (unit
+    phases) of the two determinants are used. Real sessions return 1.
+    (C,) in ctx.dtype."""
+    if not ctx.is_complex:
+        return torch.ones(U.shape[0], dtype=ctx.dtype, device=U.device)
+    Dp, Dm = D.clamp_min(1.0), D.clamp_max(1.0)
+    Mmid = U.mH / Dp[..., :, None] + Dm[..., :, None] * T
+    s = torch.linalg.slogdet(U).sign * torch.linalg.slogdet(Mmid).sign
+    p = torch.prod(s, dim=-1)
+    ph = p
+    for _ in range(ctx.det_power - 1):
+        ph = ph * p
+    return _normalize_phase(ph).to(ctx.dtype)
+
+
+def phase_from_conf(ctx, consts, conf):
+    """The configuration-weight phase recomputed from the HS field conf
+    (C, N, M) alone: UDT(B_{M-1}...B_0) restabilized every safe_mult slices,
+    then ``udt_weight_phase``. The running chain tracks the same phase
+    incrementally (``_track_detratio_batch``)."""
+    U, D, T = _identity_udt(ctx, conf.shape[0])
+    curr = U
+    for l in range(ctx.M):
+        curr = mult_B_left(ctx, consts, conf[:, :, l], curr)
+        if (l + 1) % ctx.sm == 0 or l == ctx.M - 1:
+            u, d, r, piv = udt_dirty(curr * D[..., None, :], ctx.use_kernels)
+            T = scatter_columns(r, piv) @ T
+            U, D, curr = u, d, u
+    return udt_weight_phase(ctx, U, D, T)
 
 
 def init_state(ctx, consts, conf):
     """Build the initial stack and G_eff(M) from a configuration conf
     (C, N, M) int8. Returns the state dict (all tensors with a leading chain
-    axis)."""
+    axis); complex sessions start the running weight phase (and its
+    measurement snapshot) from ``udt_weight_phase`` of the full product."""
     C = conf.shape[0]
     n_el = ctx.n_el
     S_U = torch.zeros(C, n_el, ctx.F, ctx.N, ctx.N, dtype=ctx.dtype,
@@ -359,23 +509,12 @@ def init_state(ctx, consts, conf):
     # a valid G_eff(M) from the fresh stack makes the drift check at the
     # first turnaround meaningful
     G0 = calculate_greens(U, D, T, iU, iD, iT, ctx.use_kernels)
-    kw = dict(device=ctx.device)
-    return {
-        "conf": conf,
-        "S_U": S_U, "S_D": S_D, "S_T": S_T,
-        "G": G0.to(ctx.udtype),
-        "prop": torch.zeros(C, dtype=torch.int64, **kw),
-        "acc": torch.zeros(C, dtype=torch.int64, **kw),
-        "neg_prob": torch.zeros(C, dtype=torch.int64, **kw),
-        "prop_err_max": torch.zeros(C, dtype=ctx.rdtype, **kw),
-        "prop_err_count": torch.zeros(C, dtype=torch.int64, **kw),
-        # window-end drift distribution: sum/n give the mean, the histogram
-        # counts exceedances over PROP_ERR_EDGES
-        "prop_err_sum": torch.zeros(C, dtype=ctx.rdtype, **kw),
-        "prop_err_n": torch.zeros(C, dtype=torch.int64, **kw),
-        "prop_err_hist": torch.zeros(C, len(PROP_ERR_EDGES), dtype=torch.int64,
-                                     **kw),
-    }
+    state = {"conf": conf, "S_U": S_U, "S_D": S_D, "S_T": S_T,
+             "G": G0.to(ctx.udtype), **fresh_counters(ctx, C)}
+    if ctx.is_complex:
+        phase = udt_weight_phase(ctx, U, D, T)
+        state.update(ls_phase=phase, phase_meas=phase)
+    return state
 
 
 def _track_prop_err(ctx, perr, G, G_re):
@@ -401,7 +540,8 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
 
     Returns (state, G_meas, conf_meas): the new state (the input state is not
     modified) and the effective G and HS field at the measurement point
-    (after the slice-0 site updates of the up sweep)."""
+    (after the slice-0 site updates of the up sweep). Complex sessions keep
+    the running weight phase at that point in state["phase_meas"]."""
     C = state["conf"].shape[0]
     M, N, sm, n_seg = ctx.M, ctx.N, ctx.sm, ctx.n_seg
     if u is None:
@@ -411,15 +551,20 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
     conf = state["conf"].clone()
     S_U, S_D, S_T = (state[k].clone() for k in ("S_U", "S_D", "S_T"))
     G = state["G"]
-    acc, nneg = state["acc"], state["neg_prob"]
+    # Metropolis statistics: acc, neg_prob and, complex, the phase problem's
+    ls = {k: state[k] for k in ("acc", "neg_prob") + (
+        CX_COUNTER_KEYS + ("ls_phase",) if ctx.is_complex else ())}
     perr = {k: state[k] for k in COUNTER_KEYS if k.startswith("prop_err")}
     visit = 0
 
     def sweep(G, l):
-        nonlocal acc, nneg, visit
-        G, sigma, a, n = sweep_slice(ctx, G, conf[:, :, l], u[visit])
-        conf[:, :, l] = sigma
-        acc, nneg, visit = acc + a, nneg + n, visit + 1
+        nonlocal visit
+        G, conf[:, :, l], a, b = sweep_slice(ctx, G, conf[:, :, l], u[visit])
+        if ctx.is_complex:          # a, b: per-site accept flags and det
+            ls.update(_track_detratio_batch(ls, b, a))
+        else:                       # a, b: accepted and negative counts
+            ls["acc"], ls["neg_prob"] = ls["acc"] + a, ls["neg_prob"] + b
+        visit += 1
         return G
 
     def recompute(G, lU, lD, lT, rU, rD, rT):
@@ -449,7 +594,7 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
                          ctx.use_kernels).to(ctx.udtype)   # G_eff(0)
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
     G = sweep(G, 0)
-    G_meas, conf_meas = G, conf.clone()
+    G_meas, conf_meas, phase_meas = G, conf.clone(), ls.get("ls_phase")
     G = wrap_up(ctx, consts, conf[:, :, 0], G)             # updated sigma
     for l in range(1, sm):
         G = sweep(G, l)
@@ -466,8 +611,11 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
 
     new = dict(state)
     new.update(perr)
-    new.update(conf=conf, S_U=S_U, S_D=S_D, S_T=S_T, G=G, acc=acc,
-               neg_prob=nneg, prop=state["prop"] + 2 * M * N)
+    new.update(ls)
+    new.update(conf=conf, S_U=S_U, S_D=S_D, S_T=S_T, G=G,
+               prop=state["prop"] + 2 * M * N)
+    if ctx.is_complex:
+        new["phase_meas"] = phase_meas
     return new, G_meas, conf_meas
 
 

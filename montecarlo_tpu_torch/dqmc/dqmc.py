@@ -8,6 +8,7 @@ device counters are drained into host integers after every chunk of sweeps.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -22,11 +23,29 @@ from ..utils.host import resolve_device
 
 @dataclass
 class MagnitudeStats:
-    """Max and count of a monitored quantity (the JAX package's
-    MagnitudeStats, of which the ported paths fill max and count)."""
+    """Min/max/geometric-mean/count of a monitored quantity (the JAX
+    package's MagnitudeStats): min and max linear, the sum in the log10
+    domain. Real sessions fill only max (drift) and count; complex sessions
+    fill all four for the negative and the imaginary weights."""
 
+    min: float = math.inf
     max: float = 0.0
+    log_sum: float = 0.0
     count: int = 0
+
+    @property
+    def mean(self):
+        return 10.0 ** (self.log_sum / self.count) if self.count else 0.0
+
+    def absorb_device(self, log_min, log_max, log_sum, count):
+        """Fold in per-chain device reductions of log10 magnitudes (min, max,
+        sum) and a count; no events leave the statistics as they were."""
+        if int(count) == 0:
+            return
+        self.min = min(self.min, 10.0 ** float(log_min))
+        self.max = max(self.max, 10.0 ** float(log_max))
+        self.log_sum += float(log_sum)
+        self.count += int(count)
 
 
 @dataclass
@@ -36,7 +55,13 @@ class DQMCAnalysis:
     acc_local: int = 0
     sweep_duration: float = 0.0
     negative_probability: MagnitudeStats = dataclasses.field(default_factory=MagnitudeStats)
+    # complex sessions: |Im(detratio)| > core.IMAG_PROB_THRESHOLD events
+    imaginary_probability: MagnitudeStats = dataclasses.field(default_factory=MagnitudeStats)
     propagation_error: MagnitudeStats = dataclasses.field(default_factory=MagnitudeStats)
+    # mean configuration-weight phase over chains at the last drain, the
+    # average sign: |avg_phase| << 1 means the phase problem is biasing the
+    # Re-projected estimators (complex sessions; 1 otherwise)
+    avg_phase: complex = 1.0 + 0.0j
     # window-end drift distribution (see core.PROP_ERR_EDGES)
     prop_err_sum: float = 0.0
     prop_err_n: int = 0
@@ -99,8 +124,13 @@ class DQMC:
 
     def default_measurements(self):
         from ..measurements import dqmc_measurements as dm
-        return {"occ": dm.occupation(self, self.model),
-                "greens": dm.greens_measurement(self, self.model)}
+        out = {"occ": dm.occupation(self, self.model),
+               "greens": dm.greens_measurement(self, self.model)}
+        if self.ctx.is_complex:
+            # its mean away from 1 is the sign that the phase problem biases
+            # the Re-projected estimators
+            out["sign"] = dm.sign_measurement(self, self.model)
+        return out
 
     @property
     def conf(self):
@@ -160,19 +190,33 @@ class DQMC:
         """Push every equal-time measurement of a stage, from the physical G
         at the measurement point."""
         G_phys = core.unwrap_greens(self.ctx, self.consts, G_meas)
+        phase = self.state.get("phase_meas")
         for k, m in registry.measurements.items():
-            m.push(registry.states[k], m.measure_fn(greens=G_phys, conf=conf_meas))
+            m.push(registry.states[k],
+                   m.measure_fn(greens=G_phys, conf=conf_meas, phase=phase))
 
     def _drain_counters(self):
         """Accumulate the per-chain device counters into host Python ints and
-        reset them."""
+        reset them; complex sessions also fold in the phase-problem
+        statistics and read the average weight phase (the running phase
+        itself is not reset)."""
         st = self.state
-        host = {k: st[k].cpu() for k in core.COUNTER_KEYS}
+        host = {k: st[k].cpu() for k in core.counter_keys(self.ctx)}
         a = self.analysis
         a.prop_local += int(host["prop"].sum())
         a.acc_local += int(host["acc"].sum())
         a.acc_rate = a.acc_local / max(1, a.prop_local)
-        a.negative_probability.count += int(host["neg_prob"].sum())
+        neg = int(host["neg_prob"].sum())
+        if self.ctx.is_complex:
+            a.negative_probability.absorb_device(
+                host["ls_neg_min"].min(), host["ls_neg_max"].max(),
+                host["ls_neg_sum"].sum(), neg)
+            a.imaginary_probability.absorb_device(
+                host["ls_imag_min"].min(), host["ls_imag_max"].max(),
+                host["ls_imag_sum"].sum(), host["ls_imag_count"].sum())
+            a.avg_phase = complex(st["ls_phase"].mean().item())
+        else:
+            a.negative_probability.count += neg
         a.propagation_error.max = max(a.propagation_error.max,
                                       float(host["prop_err_max"].max()))
         a.propagation_error.count += int(host["prop_err_count"].sum())
@@ -180,14 +224,24 @@ class DQMC:
         a.prop_err_n += int(host["prop_err_n"].sum())
         a.prop_err_hist = [x + int(y) for x, y in
                            zip(a.prop_err_hist, host["prop_err_hist"].sum(0))]
-        self.state = {**st, **{k: torch.zeros_like(st[k])
-                               for k in core.COUNTER_KEYS}}
+        self.state = {**st, **core.fresh_counters(self.ctx, self.n_chains)}
 
     def _report_errors(self):
         a = self.analysis
         if a.negative_probability.count > 0:
             print(f"[DQMC] {a.negative_probability.count} negative "
                   "probabilities (sign problem?)")
+        if a.imaginary_probability.count > 0:
+            im = a.imaginary_probability
+            print(f"[DQMC] {im.count} imaginary probabilities (|Im detratio| "
+                  f"> {core.IMAG_PROB_THRESHOLD:g}: phase problem!) |Im|: min "
+                  f"{im.min:.2e} / geo-mean {im.mean:.2e} / max {im.max:.2e}")
+        if self.ctx.is_complex:
+            ph = a.avg_phase
+            print(f"[DQMC] average weight phase <s> = {ph.real:+.4f}"
+                  f"{ph.imag:+.4f}i (|<s>| = {abs(ph):.4f}; values far from 1 "
+                  "mean Re-projected estimators are biased, see the 'sign' "
+                  "observable)")
         if a.propagation_error.count > 0:
             print(f"[DQMC] {a.propagation_error.count} propagation "
                   f"instabilities > {self.ctx.prop_err_threshold:g} "

@@ -9,11 +9,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dqmc.core import COUNTER_KEYS
+from .dqmc.core import COUNTER_KEYS, CX_COUNTER_KEYS
 
 _STATE_KEYS = ("conf", "S_U", "S_D", "S_T", "G") + COUNTER_KEYS
+# a complex session's phase-problem statistics and weight phase
+_CX_KEYS = CX_COUNTER_KEYS + ("ls_phase", "phase_meas")
 _INT_KEYS = ("prop", "acc", "neg_prob", "prop_err_count", "prop_err_n",
-             "prop_err_hist")
+             "prop_err_hist", "ls_imag_count")
 
 
 def consts_from_numpy(consts, device="cpu"):
@@ -24,11 +26,13 @@ def consts_from_numpy(consts, device="cpu"):
 def state_from_numpy(state_np, device="cpu"):
     """The port's state dict from a chain-batched montecarlo_tpu state (the
     vmapped init_state / sweep_pair output as numpy arrays: conf (C, N, M),
-    stacks (C, n_el, F, N, N), G (C, F, N, N), per-chain counters). The JAX
-    RNG key and the local-stats magnitude fields are dropped; counters become
-    int64."""
+    stacks (C, n_el, F, N, N), G (C, F, N, N), per-chain counters; complex
+    sessions also the phase-problem statistics and the weight phase). The
+    JAX RNG key and a real session's local-stats magnitude fields are
+    dropped; counters become int64."""
+    keys = _STATE_KEYS + (_CX_KEYS if "ls_phase" in state_np else ())
     out = {}
-    for k in _STATE_KEYS:
+    for k in keys:
         t = torch.as_tensor(np.array(state_np[k]))
         if k in _INT_KEYS:
             t = t.to(torch.int64)

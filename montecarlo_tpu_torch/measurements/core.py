@@ -1,8 +1,9 @@
 """Generic measurement engine (counterpart of
 montecarlo_tpu/measurements/core.py).
 
-A measurement is a named bundle of a ``measure_fn(greens=..., conf=...) ->
-{obs_name: (C, *obs_shape) tensor}``, one LogBinner state per observable
+A measurement is a named bundle of a ``measure_fn(greens=..., conf=...,
+phase=...) -> {obs_name: (C, *obs_shape) tensor}``, one LogBinner state per
+observable
 (batched over chains) and an optional ``finish_fn`` deriving observables from
 the binner statistics at the end of a run. Only equal-time measurements
 (``kind="equal"``) are ported.
@@ -24,9 +25,11 @@ class Measurement:
     """One measurement: a kernel plus per-observable logarithmic binners.
 
     obs_shapes maps observable name -> per-chain shape (without the chain
-    axis); measure_fn(greens=G_phys (C, F, N, N), conf=(C, N, M)) returns
+    axis); measure_fn(greens=G_phys (C, F, N, N), conf=(C, N, M),
+    phase=(C,) complex weight phase of a complex session, else None) returns
     {name: tensor of shape (C, *obs_shape)}. finish_fn(stats, context) ->
-    {name: value} may derive additional observables."""
+    {name: value} may derive additional observables. dtype is the binners'
+    accumulator type: float64, or complex128 for complex values."""
 
     name: str
     obs_shapes: Dict[str, Tuple[int, ...]]

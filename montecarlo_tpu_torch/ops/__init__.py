@@ -1,13 +1,17 @@
 """Dense linear algebra (plain PyTorch) and the hand-written CUDA kernels of
 the DQMC sweep: site_sweep (K1), udt_qr (K2), udt_qr_solve (K3) for N <= 128,
-site_sweep_delayed (K6) and qr_blocked (K7) for N > 128."""
+site_sweep_delayed (K6) and qr_blocked (K7) for N > 128, and for complex
+hopping site_sweep_cx (K8) and qr_cx (K10)."""
 
-from . import qr, qr_blocked, site_sweep, site_sweep_delayed
+from . import qr, qr_blocked, qr_cx, site_sweep, site_sweep_cx, site_sweep_delayed
 
 # the kernel wrappers, each with its plain-integer launch count `.launches`
 KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "udt_qr_solve": qr.udt_qr_solve,
            "site_sweep_delayed": site_sweep_delayed.site_sweep_delayed,
-           "qr_blocked": qr_blocked.qr_blocked}
+           "qr_blocked": qr_blocked.qr_blocked,
+           "site_sweep_cx": site_sweep_cx.site_sweep_cx,
+           "qr_cx": qr_cx.qr_cx}
 
-__all__ = ["KERNELS", "qr", "qr_blocked", "site_sweep", "site_sweep_delayed"]
+__all__ = ["KERNELS", "qr", "qr_blocked", "qr_cx", "site_sweep",
+           "site_sweep_cx", "site_sweep_delayed"]

@@ -50,6 +50,12 @@ SIGNATURES = {
                                _I, _F, _F, _F, _I, _I, _P),
     # A, Q, R, work, B, N, stream
     "qr_blocked_f32": (_P, _P, _P, _P, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, F, N,
+    # lamb, sign0, sign1, det_power, use_boson, stream
+    "site_sweep_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _F, _F, _I, _I, _P),
+    # A, Q, R, B, N, stream
+    "qr_cx_c64": (_P, _P, _P, _I, _I, _P),
 }
 
 

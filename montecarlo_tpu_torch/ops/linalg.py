@@ -1,7 +1,7 @@
 """Stabilized dense linear algebra for DQMC, over the trailing two axes of
-batched tensors (counterpart of montecarlo_tpu/ops/linalg.py, real dtypes).
+batched tensors (counterpart of montecarlo_tpu/ops/linalg.py).
 
-UDT decomposition A = U·diag(D)·T with U orthogonal and D positive, column
+UDT decomposition A = U·diag(D)·T with U unitary and D positive, column
 pivoting realized as a one-shot column-norm sort before an unpivoted QR, in
 the "dirty T" form: ``udt_dirty`` returns the triangular factor R and the
 pivot so that triangular solves stay cheap.
@@ -14,10 +14,15 @@ Two paths, chosen by ``use_kernels``:
     - N > 128: the blocked QR K7 (ops/qr_blocked.py) followed by the
       unfused udt_dirty postscale, and ``calculate_greens`` as udt_dirty
       followed by ``rdiv_dirty``;
+    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py)
+      followed by the unfused postscale, and ``calculate_greens`` as
+      udt_dirty followed by ``rdiv_dirty``, at every N (the JAX package
+      has no fused complex solve);
   * library path (False): ``torch.linalg.qr`` + the udt_dirty postscale and
     ``torch.linalg.solve_triangular``.
 The unfused postscale's flushed-mode rule is |diag| < 0.5 → 1; both rules
-give flushed modes a unit diagonal.
+give flushed modes a unit diagonal. For complex A, D = |R_jj| and the phase
+of R_jj stays in Rs's unit-magnitude diagonal.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from .qr import F32_FLOOR, udt_qr, udt_qr_solve
 from .qr_blocked import MIN_N as BLOCKED_MIN_N
 from .qr_blocked import qr_blocked
+from .qr_cx import qr_cx
 
 
 def argsort_desc(v):
@@ -63,21 +69,26 @@ def _prescale_pivot(A):
     headroom keeps squared norms from overflowing and small columns from
     flushing (DQMC products span tens of decades)."""
     mx = A.abs().amax(dim=(-2, -1), keepdim=True)
-    mx = mx.clamp_min(torch.finfo(A.dtype).tiny)
+    mx = mx.clamp_min(torch.finfo(mx.dtype).tiny)
     mx = torch.exp2(torch.ceil(torch.log2(mx)) - 50.0)
     As = A / mx
-    piv = argsort_desc((As * As).sum(-2).sqrt())
+    sq = (As.real * As.real + As.imag * As.imag) if As.is_complex() else As * As
+    piv = argsort_desc(sq.sum(-2).sqrt())
     return _gather_columns(As, piv), mx, piv
 
 
 def udt_dirty(A, use_kernels=True):
     """A = U · diag(D) · T with T = R[:, inv_piv] (T·P = R upper triangular).
 
-    Returns (U, D, R, piv): U (..., n, n) orthogonal, D (..., n) positive,
+    Returns (U, D, R, piv): U (..., n, n) unitary, D (..., n) positive,
     R (..., n, n) upper triangular with unit-magnitude diagonal, piv (..., n)
     with A[..., :, piv] = U D R."""
     Ap, mx, piv = _prescale_pivot(A)
     shape, n = A.shape, A.shape[-1]
+    if use_kernels and A.is_complex():
+        Q, R = qr_cx(Ap.reshape(-1, n, n))
+        d, Rs = _postscale(R.reshape(shape))
+        return Q.reshape(shape), d * mx[..., 0], Rs, piv
     if use_kernels and n < BLOCKED_MIN_N:
         Q, Rs, d = udt_qr(Ap.reshape(-1, n, n), mx.reshape(-1))
         return Q.reshape(shape), d.reshape(shape[:-1]), Rs.reshape(shape), piv
@@ -85,14 +96,33 @@ def udt_dirty(A, use_kernels=True):
         Q, R = qr_blocked(Ap.reshape(-1, n, n))
         Q, R = Q.reshape(shape), R.reshape(shape)
     else:
-        Q, R = torch.linalg.qr(Ap)
+        Q, R = _library_qr(Ap)
     d, Rs = _postscale(R)
     return Q, d * mx[..., 0], Rs, piv
 
 
+def _library_qr(A):
+    """torch.linalg.qr(A). Complex columns are first scaled to a largest
+    entry of ~1 by exact powers of two, folded back into R's columns:
+    Householder QR is equivariant under such scalings (each reflector comes
+    from its own column, each update acts on one column), so the factors are
+    those of A. cuSOLVER's complex64 QR returns non-finite factors on a CUDA
+    device when some columns lie ~30 decades below the largest (measured on
+    an H100; its float32 QR and LAPACK's do not), which the graded DQMC
+    products reach at beta = 10."""
+    if not A.is_complex():
+        return torch.linalg.qr(A)
+    top = A.abs().amax(dim=-2, keepdim=True)
+    top = top.clamp_min(torch.finfo(top.dtype).tiny)
+    s = torch.exp2(torch.ceil(torch.log2(top)))
+    Q, R = torch.linalg.qr(A / s)
+    return Q, R * s
+
+
 def _postscale(R):
-    """(d, Rs): d = |R_jj| floored (2^-70 in float32, finfo.tiny in
-    float64), Rs = R / d with the unit diagonal forced on flushed modes."""
+    """(d, Rs): d = |R_jj| floored (2^-70 in float32 and complex64,
+    finfo.tiny in float64 and complex128), Rs = R / d with the unit diagonal
+    forced on flushed modes."""
     d = torch.diagonal(R, dim1=-2, dim2=-1).abs()
     floor = F32_FLOOR if d.dtype == torch.float32 else torch.finfo(d.dtype).tiny
     d = d.clamp_min(floor)
@@ -111,28 +141,28 @@ def rdiv_dirty(A, R, piv):
 
 
 def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True):
-    """G = [I + Ul·diag(Dl)·Tl · Tr^T·diag(Dr)·Ur^T]^{-1}, range-safe.
+    """G = [I + Ul·diag(Dl)·Tl · Tr^H·diag(Dr)·Ur^H]^{-1}, range-safe.
 
     With Dlp = max(Dl, 1), Dlm = min(Dl, 1) (likewise Dr):
-      G = Ur·Drp^{-1}·M^{-1}·Dlp^{-1}·Ul^T,
-      M = Dlp^{-1}·(Ul^T Ur)·Drp^{-1} + Dlm·(Tl Tr^T)·Drm,
+      G = Ur·Drp^{-1}·M^{-1}·Dlp^{-1}·Ul^H,
+      M = Dlp^{-1}·(Ul^H Ur)·Drp^{-1} + Dlm·(Tl Tr^H)·Drm,
     where every factor of M is bounded by ~1, so all intermediates stay
     within ~e^{beta·W}. One interior UDT of M; on the kernel path its QR and
-    the triangular solve run fused in kernel K3 for N <= 128, and its QR in
-    K7 for N > 128."""
+    the triangular solve run fused in kernel K3 for real N <= 128, and its
+    QR in K7 for N > 128 or in K10 for complex M."""
     Dlp, Dlm = Dl.clamp_min(1.0), Dl.clamp_max(1.0)
     Drp, Drm = Dr.clamp_min(1.0), Dr.clamp_max(1.0)
-    X = Tl @ Tr.mT
-    M = (Ul.mT @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
+    X = Tl @ Tr.mH
+    M = (Ul.mH @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
     M = M + (Dlm[..., :, None] * X) * Drm[..., None, :]
     Zpre = Ur / Drp[..., None, :]
-    if use_kernels and M.shape[-1] < BLOCKED_MIN_N:
+    if use_kernels and M.shape[-1] < BLOCKED_MIN_N and not M.is_complex():
         u, Z = _fused_greens_solve(M, Zpre)
     else:
         u, d, r, piv = udt_dirty(M, use_kernels)
         Z = rdiv_dirty(Zpre, r, piv) / d[..., None, :]
-    W = u.mT / Dlp[..., None, :]
-    return Z @ (W @ Ul.mT)
+    W = u.mH / Dlp[..., None, :]
+    return Z @ (W @ Ul.mH)
 
 
 def _fused_greens_solve(M, Zpre):

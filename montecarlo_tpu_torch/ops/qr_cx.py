@@ -1,0 +1,118 @@
+"""Complex Householder QR (kernel K10).
+
+``qr_cx`` launches the CUDA kernel ``csrc/qr_cx.cu`` on CUDA tensors and
+runs ``qr_cx_plain`` (plain PyTorch, same algorithm) on CPU tensors. It
+replaces the Pallas kernel ``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel_cx``
+(reached through ``_qr_batched_cx`` / ``qr_lanes_cx`` / ``maybe_qr``).
+
+A = Q R of the prescaled, column-pivoted A (B, N, N), column by column with
+the zgeqrf reflector up to the phase of the diagonal (``udt_dirty`` keeps
+|R_jj| as D and the phase in its unit-magnitude Rs diagonal):
+  alpha = x_j, phase = alpha/|alpha| (1 if alpha = 0),
+  v = x on the tail, v_j = alpha + phase·||x||, tau = 2/(v^H v) (real),
+  H = I - tau v v^H, R_jj = -phase·||x||, exact zeros below the diagonal.
+A zero tail still reflects (v_j = 2 alpha), where LAPACK leaves the column
+as it is; both factorizations are valid and differ by a unit phase per
+column of Q and row of R.
+
+A reflector whose v^H v is below the smallest normal number (finfo.tiny)
+gets tau = 0, as a zero column does. The TPU kernel sets tau = 2/v^H v for
+any v^H v > 0 and relies on the TPU flushing subnormals to zero; on CUDA and
+the CPU 2/v^H v overflows to inf and fills the matrix with NaN (the trap of
+K2, K3 and K7, ops/qr.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def kernel_supports(N: int) -> bool:
+    """Shapes the CUDA kernel takes: 8 | N <= 64 (A and Q of one matrix,
+    complex64, stay in shared memory)."""
+    return N % 8 == 0 and 8 <= N <= 64
+
+
+def qr_cx_plain(A):
+    """Plain PyTorch complex Householder QR of A (B, N, N), complex64 or
+    complex128: returns (Q, R)."""
+    B, N, _ = A.shape
+    tiny = torch.finfo(A.real.dtype).tiny
+    R = A.clone()
+    Q = torch.eye(N, dtype=A.dtype, device=A.device).expand(B, N, N).clone()
+    for j in range(N):
+        alpha = R[:, j, j]
+        tail = R[:, j + 1:, j]
+        sigma = (tail.real * tail.real + tail.imag * tail.imag).sum(-1)
+        amag2 = alpha.real * alpha.real + alpha.imag * alpha.imag
+        normx = torch.sqrt(amag2 + sigma)
+        amag = torch.sqrt(amag2)
+        safe = amag > 0
+        den = torch.where(safe, amag, 1.0)
+        ph = torch.complex(torch.where(safe, alpha.real / den, 1.0),
+                           torch.where(safe, alpha.imag / den, 0.0))
+        vj = torch.complex(alpha.real + ph.real * normx,
+                           alpha.imag + ph.imag * normx)
+        v = torch.cat([vj[:, None], tail], dim=1)              # rows j..N-1
+        vtv = sigma + vj.real * vj.real + vj.imag * vj.imag
+        tau = torch.where(vtv >= tiny, 2.0 / vtv, 0.0).to(A.dtype)
+        # trailing columns: A[:, c] -= (tau·(v^H A[:, c]))·v for c > j
+        w = torch.einsum("brc,br->bc", R[:, j:, j + 1:], v.conj())
+        R[:, j:, j + 1:] -= (tau[:, None] * w)[:, None, :] * v[:, :, None]
+        R[:, j + 1:, j] = 0.0
+        R[:, j, j] = -(ph * normx)
+        # Q <- Q·H
+        qw = torch.einsum("brk,bk->br", Q[:, :, j:], v)
+        Q[:, :, j:] -= (tau[:, None] * qw)[:, :, None] * v.conj()[:, None, :]
+    return Q, R
+
+
+def phase_normalized(Q, R):
+    """(Q·S, S^H·R) with S = diag(R_jj / |R_jj|) (1 where R_jj = 0): the
+    factors with a real non-negative diagonal, free of the phase choice.
+    The phase of R_jj follows that of alpha, which rounding moves by about
+    eps·||x||/|alpha| when |alpha| << ||x||, so two float32 factorizations
+    agree in these factors, not always in their raw ones (plain complex64
+    against complex128 on (32, 64, 64) graded input, on the CPU: Q to
+    2.3e-5 raw and to 8.9e-7 phase-normalized)."""
+    d = torch.diagonal(R, dim1=-2, dim2=-1)
+    mag = d.abs()
+    ph = torch.where(mag > 0, d / torch.where(mag > 0, mag, 1.0), 1.0)
+    return Q * ph[..., None, :], R * ph.conj()[..., :, None]
+
+
+def qr_cx(A):
+    """Complex Householder QR (kernel K10) of A (B, N, N): the CUDA kernel
+    for a CUDA tensor (complex64, 8 | N <= 64, contiguous), ``qr_cx_plain``
+    for a CPU tensor. Returns (Q, R)."""
+    if A.device.type == "cpu":
+        return qr_cx_plain(A)
+    B, N = _check(A)
+    Q, R = torch.empty_like(A), torch.empty_like(A)
+    with torch.cuda.device(A.device):
+        code = _build.load().qr_cx_c64(
+            A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, N,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("qr_cx", code)
+    qr_cx.launches += 1
+    return Q, R
+
+
+qr_cx.launches = 0
+
+
+def _check(A):
+    if A.device.type != "cuda":
+        raise ValueError(f"qr_cx: no kernel for device {A.device}")
+    if A.dtype != torch.complex64:
+        raise ValueError("qr_cx: the CUDA kernel takes complex64")
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"qr_cx: A must be (B, N, N), got {tuple(A.shape)}")
+    B, N, _ = A.shape
+    if not kernel_supports(N):
+        raise ValueError(f"qr_cx: no CUDA kernel for N={N} (8 | N <= 64)")
+    if not A.is_contiguous():
+        raise ValueError("qr_cx: A must be contiguous")
+    return B, N

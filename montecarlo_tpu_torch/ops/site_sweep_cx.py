@@ -1,0 +1,150 @@
+"""Sequential Metropolis site sweep over one time slice for a complex
+Green's function (kernel K8: complex hopping, e.g. Peierls phases).
+
+``site_sweep_cx`` launches the CUDA kernel ``csrc/site_sweep_cx.cu`` on CUDA
+tensors; on CPU tensors it runs ``site_sweep_cx_plain``, the plain PyTorch
+version of the same algorithm with the same op order. It replaces the Pallas
+kernel ``montecarlo_tpu/ops/pallas_site_sweep.py::_cx_kernel`` (reached
+through ``_site_sweep_batched_cx``).
+
+Per chain and site i in order (sigma_i = ±1, f over flavor blocks; delta
+real, r and det complex):
+  delta_f = exp(sign_f * dEb) - 1,  dEb = -2 * lamb * sigma_i
+  r_f     = 1 + delta_f * (1 - G_f[i, i])
+  det     = (prod_f r_f) ** det_power,   det_power in {1, 2}
+  accept  = u_i < exp(-dEb)**use_boson * Re(det)
+  on accept: G_f -= x_f * (e_i - G_f[:, i]) ⊗ G_f[i, :], flip sigma_i,
+             with x_f = delta_f * conj(r_f) / |r_f|^2
+The weight is the real part, as in the JAX package; each site's accept
+flag and det are returned for the phase-problem statistics
+(``dqmc.core._track_detratio_batch``). The complex arithmetic is written
+out on the real and imaginary planes in the Pallas kernel's op order, never
+through torch's complex division, which rounds differently.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .site_sweep import MAX_N
+
+
+def smem_bytes(N: int, F: int) -> int:
+    """Shared memory of one block: G as two float32 planes with rows padded
+    to N+1, plus the staged row and y of both planes."""
+    return (2 * F * N * (N + 1) + 4 * F * N) * 4
+
+
+def kernel_supports(N: int, F: int) -> bool:
+    """Shapes the CUDA kernel takes: G of one chain stays in shared memory
+    for the whole sweep (N <= 128 at F = 1, N <= 119 at F = 2)."""
+    return (1 <= N <= MAX_N and F in (1, 2)
+            and smem_bytes(N, F) <= _build.SMEM_PER_BLOCK)
+
+
+def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """Plain PyTorch complex site sweep, batched over chains (any N, complex64
+    or complex128 G).
+
+    G: (C, F, N, N) complex, sigma: (C, N) int8 ±1, u: (C, N) uniforms in
+    G's real dtype. Returns new (G, sigma, accept (C, N) bool, det (C, N)
+    complex); the inputs are not modified."""
+    C, F, N, _ = G.shape
+    Gr, Gi = G.real.clone(), G.imag.clone()
+    sigma = sigma.clone()
+    accept_all = torch.zeros(C, N, dtype=torch.bool, device=G.device)
+    det_r, det_i = Gr.new_zeros(C, N), Gr.new_zeros(C, N)
+    for i in range(N):
+        s = sigma[:, i].to(Gr.dtype)
+        dEb = s * (-2.0 * lamb)
+        deltas, rs, pr, pi = [], [], None, None
+        for f, sg in enumerate(signs):
+            delta = torch.exp(dEb * sg) - 1.0
+            rr = 1.0 + delta * (1.0 - Gr[:, f, i, i])
+            ri = -(delta * Gi[:, f, i, i])
+            deltas.append(delta)
+            rs.append((rr, ri))
+            if pr is None:
+                pr, pi = rr, ri
+            else:
+                pr, pi = pr * rr - pi * ri, pr * ri + pi * rr
+        dre, dim = pr, pi
+        if det_power == 2:
+            dre, dim = pr * pr - pi * pi, 2.0 * pr * pi
+        w = torch.exp(-dEb) if use_boson else 1.0
+        accept = u[:, i] < w * dre
+        det_r[:, i], det_i[:, i] = dre, dim
+        accept_all[:, i] = accept
+        onehot = torch.zeros(N, dtype=Gr.dtype, device=G.device)
+        onehot[i] = 1.0
+        for f in range(F):
+            rr, ri = rs[f]
+            inv = 1.0 / (rr * rr + ri * ri)
+            xr = torch.where(accept, deltas[f] * rr * inv, 0.0)[:, None]
+            xi = torch.where(accept, -(deltas[f] * ri * inv), 0.0)[:, None]
+            row_r = Gr[:, f, i, None, :].clone()
+            row_i = Gi[:, f, i, None, :].clone()
+            igr = onehot - Gr[:, f, :, i]
+            igi = -Gi[:, f, :, i]
+            yr = (xr * igr - xi * igi)[:, :, None]
+            yi = (xr * igi + xi * igr)[:, :, None]
+            Gr[:, f] -= yr * row_r - yi * row_i
+            Gi[:, f] -= yr * row_i + yi * row_r
+        sigma[:, i] = torch.where(accept, -sigma[:, i], sigma[:, i])
+    return (torch.complex(Gr, Gi), sigma, accept_all,
+            torch.complex(det_r, det_i))
+
+
+def site_sweep_cx(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """Complex site sweep of one time slice for every chain: the CUDA kernel
+    for a CUDA tensor, ``site_sweep_cx_plain`` for a CPU tensor. Same
+    arguments and results as ``site_sweep_cx_plain``; on CUDA, G must be
+    complex64 (C, F, N, N) within ``kernel_supports``, sigma int8 (C, N) and
+    u float32 (C, N), all contiguous on one device."""
+    kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
+    if G.device.type == "cpu":
+        return site_sweep_cx_plain(G, sigma, u, **kw)
+    C, F, N = _check(G, sigma, u, signs, det_power)
+    G_out = torch.empty_like(G)
+    sigma_out = torch.empty_like(sigma)
+    accept = torch.empty(C, N, dtype=torch.bool, device=G.device)
+    det = torch.empty(C, N, dtype=G.dtype, device=G.device)
+    with torch.cuda.device(G.device):
+        code = _build.load().site_sweep_cx_c64(
+            G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
+            sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
+            det.data_ptr(), C, F, N, float(lamb), float(signs[0]),
+            float(signs[-1]), int(det_power), int(bool(use_boson)),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("site_sweep_cx", code)
+    site_sweep_cx.launches += 1
+    return G_out, sigma_out, accept, det
+
+
+site_sweep_cx.launches = 0
+
+
+def _check(G, sigma, u, signs, det_power):
+    if G.device.type != "cuda":
+        raise ValueError(f"site_sweep_cx: no kernel for device {G.device}")
+    if G.dtype != torch.complex64 or u.dtype != torch.float32:
+        raise ValueError("site_sweep_cx: the CUDA kernel takes complex64 G "
+                         "and float32 u")
+    if sigma.dtype != torch.int8:
+        raise ValueError("site_sweep_cx: sigma must be int8")
+    if G.dim() != 4 or G.shape[2] != G.shape[3]:
+        raise ValueError(f"site_sweep_cx: G must be (C, F, N, N), got "
+                         f"{tuple(G.shape)}")
+    C, F, N, _ = G.shape
+    if not kernel_supports(N, F) or len(signs) != F or det_power not in (1, 2):
+        raise ValueError(f"site_sweep_cx: no CUDA kernel for N={N}, F={F} "
+                         f"(G of one chain in shared memory: N <= {MAX_N} at "
+                         "F = 1, N <= 119 at F = 2; det_power 1 or 2)")
+    if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
+        raise ValueError("site_sweep_cx: sigma and u must be (C, N)")
+    for t in (G, sigma, u):
+        if t.device != G.device or not t.is_contiguous():
+            raise ValueError("site_sweep_cx: tensors must be contiguous on one "
+                             "device")
+    return C, F, N

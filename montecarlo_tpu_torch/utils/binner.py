@@ -3,10 +3,12 @@
 Level k holds means of 2^k consecutive samples. Every chain of a batch pushes
 at the same time, so the per-level sample counts and carry flags are shared by
 the batch and live on the host; the running sums, sums of squares and carry
-values are float64 tensors on the device, of shape (D, C, *obs_shape)
-(level axis first). A push touches only the levels its carry reaches — two on
-average — with the same cascade as the JAX binner: a level holding a pending
-value emits the mean of the pair to the level above.
+values are float64 (complex128 for complex observables) tensors on the
+device, of shape (D, C, *obs_shape) (level axis first); sums of squares
+are of |x|^2 and real, as in the JAX binner. A push touches only the levels
+its carry reaches — two on average — with the same cascade as the JAX
+binner: a level holding a pending value emits the mean of the pair to the
+level above.
 
 mean / var / std_error / tau are computed on the host from the final state.
 """
@@ -18,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .host import real_dtype
+
 DEFAULT_DEPTH = 32
 
 
@@ -28,7 +32,7 @@ class LogBinner:
       count        (D,) int64 numpy   samples pushed into each level
       has_pending  (D,) bool numpy
       total        (D, C, *shape)     running sum per level
-      sumsq        (D, C, *shape)     running sum of x^2 per level
+      sumsq        (D, C, *shape)     running sum of |x|^2 per level (real)
       pending      (D, C, *shape)     carry slot per level
     """
 
@@ -40,11 +44,12 @@ class LogBinner:
 
     def empty_state(self, n_chains: int, device):
         D = self.depth
-        z = lambda: torch.zeros((D, n_chains) + self.shape, dtype=self.dtype,
-                                device=device)
+        z = lambda dt: torch.zeros((D, n_chains) + self.shape, dtype=dt,
+                                   device=device)
         return {"count": np.zeros(D, np.int64),
                 "has_pending": np.zeros(D, bool),
-                "total": z(), "sumsq": z(), "pending": z()}
+                "total": z(self.dtype), "sumsq": z(real_dtype(self.dtype)),
+                "pending": z(self.dtype)}
 
     def push(self, state, value):
         """Push one sample per chain, value (C, *shape). Updates the state in
@@ -53,7 +58,8 @@ class LogBinner:
         for k in range(self.depth):
             state["count"][k] += 1
             state["total"][k] += val
-            state["sumsq"][k] += val * val
+            state["sumsq"][k] += (val.abs().square() if val.is_complex()
+                                  else val * val)
             if not state["has_pending"][k]:
                 state["pending"][k] = val
                 state["has_pending"][k] = True

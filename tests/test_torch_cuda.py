@@ -17,9 +17,12 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch.dqmc import core
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
 from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
+from montecarlo_tpu_torch.ops import qr_cx as qcx
 from montecarlo_tpu_torch.ops import site_sweep as ss
+from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
-from torch_port_inputs import LAMB, MODELS, graded, sweep_inputs
+from torch_port_inputs import (LAMB, MODELS, cx_sweep_inputs, flux_theta,
+                               graded, sweep_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +141,56 @@ def test_udt_kernel_flushed_and_subnormal_columns(cuda):
     _close(Q, qr.udt_qr_plain(Ap, mx)[0], 1e-5)
 
 
+@pytest.mark.parametrize("model,N", [("attractive", 64), ("repulsive", 64),
+                                     ("attractive", 128), ("attractive", 20)])
+def test_site_sweep_cx_kernel_matches_plain(cuda, model, N):
+    """Complex64 K8: sigma, accept and det identical; G equal to 1e-5 (the
+    kernel rounds every operation as the plain version does, so it is
+    bit-equal in practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in cx_sweep_inputs(N, 16, F, N))
+    n0 = sscx.site_sweep_cx.launches
+    out_k = sscx.site_sweep_cx(G, sigma, u, **kw)
+    assert sscx.site_sweep_cx.launches == n0 + 1
+    out_p = sscx.site_sweep_cx_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b)
+    assert 0 < out_k[2].sum().item() < 16 * N
+    assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("N", [8, 16, 40, 64])
+def test_qr_cx_kernel_matches_plain(cuda, N):
+    """Complex64 K10 on graded, prescaled, pivoted input: the
+    phase-normalized Q and R within 1e-5 of their largest entries (the raw
+    ones differ where rounding turns the phase of a small alpha, see
+    qr_cx.phase_normalized); R exactly upper triangular."""
+    Ap, _ = (t.to(cuda) for t in graded(N, 32, N, complex_=True))
+    n0 = qcx.qr_cx.launches
+    Qk, Rk = qcx.qr_cx(Ap)
+    assert qcx.qr_cx.launches == n0 + 1
+    Qp, Rp = qcx.qr_cx_plain(Ap)
+    for a, b in zip(qcx.phase_normalized(Qk, Rk), qcx.phase_normalized(Qp, Rp)):
+        _close(a, b, 1e-5)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+
+
+def test_qr_cx_kernel_zero_and_subnormal_columns(cuda):
+    """A zero column gets tau = 0 and R_jj = 0; a subnormal v^H v gets
+    tau = 0, not inf."""
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, 16, decades=2.0, complex_=True))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
+    Q, R = qcx.qr_cx(Ap)
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
+    _close(qcx.phase_normalized(Q, R)[0],
+           qcx.phase_normalized(*qcx.qr_cx_plain(Ap))[0], 1e-5)
+
+
 def test_wrappers_check_inputs(cuda):
     G = torch.zeros(2, 1, 16, 16, device=cuda, dtype=torch.float64)
     s = torch.ones(2, 16, device=cuda, dtype=torch.int8)
@@ -165,6 +218,20 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="float32"):
         qb.qr_blocked(torch.zeros(2, 136, 136, device=cuda,
                                   dtype=torch.float64))
+    c64 = dict(device=cuda, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="complex64"):
+        sscx.site_sweep_cx(torch.zeros(2, 1, 16, 16, device=cuda,
+                                       dtype=torch.complex128), s, u,
+                           lamb=LAMB, **MODELS["attractive"])
+    with pytest.raises(ValueError, match="N=128, F=2"):
+        sscx.site_sweep_cx(torch.zeros(2, 2, 128, 128, **c64),
+                           torch.ones(2, 128, device=cuda, dtype=torch.int8),
+                           torch.zeros(2, 128, device=cuda), lamb=LAMB,
+                           **MODELS["repulsive"])
+    with pytest.raises(ValueError, match="N=72"):
+        qcx.qr_cx(torch.zeros(2, 72, 72, **c64))
+    with pytest.raises(ValueError, match="complex64"):
+        qcx.qr_cx(torch.zeros(2, 16, 16, device=cuda))
 
 
 def test_cuda_session_rejects_shapes_without_kernels(cuda):
@@ -182,6 +249,17 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     ctx, _ = core.make_context(model(4), params, device="cuda",
                                use_kernels=False)
     assert ctx.device.type == "cuda" and not ctx.use_kernels
+    # complex hopping: K8 + K10 in complex64 at 8 | N <= 64
+    cx = lambda L: tmc.HubbardModelAttractive(
+        dims=2, L=L, U=4.0, peierls=flux_theta(L * L))
+    ctx, _ = core.make_context(cx(8), params, **f32)
+    assert ctx.dtype == torch.complex64 and ctx.use_kernels
+    with pytest.raises(NotImplementedError, match="ROADMAP.*K9, K10"):
+        core.make_context(cx(10), params, **f32)
+    with pytest.raises(NotImplementedError, match="complex128"):
+        core.make_context(cx(4), params, device="cuda")
+    ctx, _ = core.make_context(cx(4), params, device="cuda", use_kernels=False)
+    assert ctx.dtype == torch.complex128
 
 
 @pytest.mark.parametrize("L,delay", [(4, None), (12, 24)])
@@ -205,3 +283,30 @@ def test_sweep_pair_kernel_path_matches_cpu(cuda, L, delay):
     assert same.float().mean().item() >= 0.9
     dG = (out["cpu"]["G"] - out["cuda"]["G"].cpu()).abs().flatten(1).amax(1)
     assert dG[same].max().item() <= 1e-3
+
+
+def test_complex_sweep_pair_kernel_path_matches_cpu(cuda):
+    """One complex64 sweep pair on a flux pattern, on the card's kernel path
+    (K8, K10) and on the CPU's plain versions, from the same state and
+    uniforms: the same decisions in >= 0.9 of the chains, G and the running
+    weight phase close where they agree."""
+    model = tmc.HubbardModelAttractive(dims=2, L=4, U=4.0,
+                                       peierls=flux_theta(16))
+    params = DQMCParameters(beta=2.0, safe_mult=5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx, consts = core.make_context(model, params, dtype=torch.float32,
+                                        device=dev)
+        conf = model.rand_conf(torch.Generator().manual_seed(0), 8,
+                               params.slices, "cpu").to(dev)
+        u = torch.rand(8, 2 * ctx.M, ctx.N,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+        state = core.init_state(ctx, consts, conf)
+        out[dev] = {k: v.cpu() for k, v in
+                    core.sweep_pair(ctx, consts, state, u=u)[0].items()}
+    same = (out["cpu"]["conf"] == out["cuda"]["conf"]).flatten(1).all(1)
+    assert same.float().mean().item() >= 0.9
+    dG = (out["cpu"]["G"] - out["cuda"]["G"]).abs().flatten(1).amax(1)
+    assert dG[same].max().item() <= 1e-3
+    dph = (out["cpu"]["ls_phase"] - out["cuda"]["ls_phase"]).abs()
+    assert dph[same].max().item() <= 1e-3

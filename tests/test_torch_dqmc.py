@@ -201,18 +201,30 @@ def test_make_context_pins_full_float32_matmuls():
 
 @pytest.mark.parametrize("kw", [
     dict(g_refresh=True), dict(checkerboard=True),
-    dict(stab_method="qr_colscaled"), dict(peierls=True)])
+    dict(stab_method="qr_colscaled")])
 def test_make_context_rejects_unported_options(kw):
     kw = dict(kw)
     L = kw.pop("L", 2)
-    if kw.pop("peierls", False):
-        theta = np.zeros((L * L, L * L))
-        theta[0, 1], theta[1, 0] = 0.3, -0.3
-        model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0, peierls=theta)
-    else:
-        model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
+    model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcore.make_context(model, TParams(beta=1.0), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("N,F,dtype,item", [
+    (64, 1, torch.complex64, None), (64, 2, torch.complex64, None),
+    (16, 1, torch.complex64, None),
+    (100, 1, torch.complex64, "K9, K10"), (128, 1, torch.complex64, "K9, K10"),
+    (256, 1, torch.complex64, "K9, K10"), (12, 1, torch.complex64, "K9, K10"),
+    (64, 1, torch.complex128, "item 12"), (16, 2, torch.complex128, "item 12")])
+def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
+    """A complex CUDA session runs K8 + K10 at 8 | N <= 64, F <= 2 in
+    complex64; complex N > 64 waits for the wide K10 and K9, complex128 for
+    the plain path (use_kernels=False)."""
+    if item is None:
+        tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
 
 
 def test_cuda_session_without_cuda_raises():

@@ -1,5 +1,6 @@
 """Kernels K1-K3, K6 and K7 of the PyTorch/CUDA port (montecarlo_tpu_torch)
-against the Pallas kernels they replace.
+against the Pallas kernels they replace (the complex kernels K8 and K10 are
+held in test_torch_complex.py), the wrappers' device rule and the build.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the Pallas
 kernels run in interpret mode, as the JAX package's own tests run them. The
@@ -22,7 +23,9 @@ import torch
 from montecarlo_tpu.ops import pallas_qr
 from montecarlo_tpu.ops import pallas_site_sweep as pss
 from montecarlo_tpu_torch.ops import KERNELS, _build, qr, qr_blocked as qb
+from montecarlo_tpu_torch.ops import qr_cx as qcx
 from montecarlo_tpu_torch.ops import site_sweep as ss
+from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
 from torch_port_inputs import LAMB, MODELS, graded as _graded
 from torch_port_inputs import sweep_inputs as _sweep_inputs
@@ -325,6 +328,16 @@ def test_wrappers_raise_off_cpu_without_kernel():
                                **MODELS["attractive"])
     with pytest.raises(ValueError, match="no kernel for device"):
         qb.qr_blocked(torch.empty(2, 136, 136, **m))
+    G = torch.empty(2, 1, 16, 16, dtype=torch.complex64, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        sscx.site_sweep_cx(G, torch.empty(2, 16, dtype=torch.int8, **m),
+                           torch.empty(2, 16, **m), lamb=LAMB,
+                           **MODELS["attractive"])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qcx.qr_cx(torch.empty(2, 16, 16, dtype=torch.complex64, **m))
+    assert set(KERNELS) == {"site_sweep", "udt_qr", "udt_qr_solve",
+                            "site_sweep_delayed", "qr_blocked",
+                            "site_sweep_cx", "qr_cx"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -337,7 +350,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     objects into the shared library under the ignored build directory."""
     out = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "qr_blocked.cu", "site_sweep.cu", "site_sweep_delayed.cu", "udt_qr.cu"]
+        "qr_blocked.cu", "qr_cx.cu", "site_sweep.cu", "site_sweep_cx.cu",
+        "site_sweep_delayed.cu", "udt_qr.cu"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -350,7 +364,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     assert all(str(o) in cmd for o in objs)
     assert set(_build.SIGNATURES) == {
         "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
-        "site_sweep_delayed_f32", "qr_blocked_f32"}
+        "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
+        "qr_cx_c64"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -26,15 +26,36 @@ def sweep_inputs(seed, C, F, N):
     return G, sigma, u
 
 
-def graded(seed, B, N, decades=16.0):
-    """(Ap, mx): float32 matrices whose columns are scaled over 2*decades
-    e-folds (as tests/test_pallas_qr.py::_graded scales them), with the
-    well-conditioned core I + 0.3 randn / sqrt(N), prescaled and pivoted as
+def cx_sweep_inputs(seed, C, F, N):
+    """(G, sigma, u) like sweep_inputs, with G complex64: an imaginary part
+    of the size of the off-diagonal noise added."""
+    G, sigma, u = sweep_inputs(seed, C, F, N)
+    im = np.random.default_rng(seed + 1000).normal(size=G.shape)
+    im = im * (0.8 / np.sqrt(N))
+    return (G + 1j * im).astype(np.complex64), sigma, u
+
+
+def flux_theta(N, seed=1, amp=0.6):
+    """Random antisymmetric Peierls phases (N, N): flux through the
+    plaquettes, which no gauge removes."""
+    a = np.random.default_rng(seed).uniform(-amp, amp, (N, N))
+    return a - a.T
+
+
+def graded(seed, B, N, decades=16.0, complex_=False):
+    """(Ap, mx): float32 (complex64 with complex_) matrices whose columns
+    are scaled over 2*decades e-folds (as tests/test_pallas_qr.py::_graded
+    scales them), with the well-conditioned core I + 0.3 randn / sqrt(N)
+    (complex randn of the same size), prescaled and pivoted as
     udt_dirty does before its QR. A Gaussian core's condition number would
     turn float32 rounding-order differences into errors far above the kernel
     bounds (chip_smoke.py::graded gives the numbers)."""
     rng = np.random.default_rng(seed)
-    A = (np.eye(N) + 0.3 / np.sqrt(N) * rng.normal(size=(B, N, N))) * np.exp(
+    noise = rng.normal(size=(B, N, N))
+    if complex_:        # the same size in both parts
+        noise = (noise + 1j * rng.normal(size=(B, N, N))) / np.sqrt(2)
+    A = (np.eye(N) + 0.3 / np.sqrt(N) * noise) * np.exp(
         rng.uniform(-decades, decades, size=(B, 1, N)))
-    Ap, mx, _ = _prescale_pivot(torch.from_numpy(A.astype(np.float32)))
+    A = A.astype(np.complex64 if complex_ else np.float32)
+    Ap, mx, _ = _prescale_pivot(torch.from_numpy(A))
     return Ap.contiguous(), mx.reshape(-1).contiguous()

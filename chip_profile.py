@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [headline] [l16] [complex]
+    python3 chip_profile.py [headline] [l16] [complex] [f64]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -11,6 +11,8 @@ Runs each named configuration of chip_smoke.py (default: headline):
             delayed updates in blocks of 32 (kernels K6 and K7)
   complex   the headline model with pure-gauge Peierls phases, safe_mult=5,
             256 chains, complex64 (kernels K8 and K10)
+  f64       the headline model in strict float64 (DQMC's default dtype),
+            128 chains (kernels K1 in float64 and K11)
 
 and prints for each
 
@@ -40,12 +42,17 @@ import chip_smoke as smoke
 from chip_smoke import timed
 
 PAIRS = 5
-# name: (model, safe_mult, chains, time the plain path)
+F32 = {"dtype": "float32"}
+# name: (model, safe_mult, chains, time the plain path, DQMC's dtype
+# keywords: {} for its default, float64)
 CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
-                        True),
+                        True, F32),
            "l16": (lambda: smoke.headline_model(L=smoke.L16), smoke.SAFE_MULT,
-                   smoke.L16_CHAINS, False),
-           "complex": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS, True)}
+                   smoke.L16_CHAINS, False, F32),
+           "complex": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS, True,
+                       F32),
+           "f64": (smoke.headline_model, smoke.SAFE_MULT, smoke.F64_CHAINS,
+                   True, {})}
 
 
 def smi():
@@ -63,10 +70,11 @@ def profile_config(name):
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.ops.linalg import calculate_greens
 
-    model, safe_mult, chains, plain = CONFIGS[name]
+    model, safe_mult, chains, plain, session = CONFIGS[name]
+    session = {k: getattr(torch, v) for k, v in session.items()}
     sim = DQMC(model(), beta=smoke.BETA, delta_tau=smoke.DTAU,
-               safe_mult=safe_mult, n_chains=chains, dtype=torch.float32,
-               seed=0, device=smoke.DEVICE)
+               safe_mult=safe_mult, n_chains=chains, seed=0,
+               device=smoke.DEVICE, **session)
     print(f"== {name}: N={sim.ctx.N}, {chains} chains, safe_mult={safe_mult}, "
           f"{str(sim.ctx.dtype)[6:]}", flush=True)
     ctx, consts = sim.ctx, sim.consts
@@ -91,7 +99,7 @@ def profile_config(name):
     st = holder["st"]
     conf = st["conf"]
     sig = conf[:, :, 5].contiguous()
-    u = torch.rand(chains, ctx.N, device=smoke.DEVICE)
+    u = torch.rand(chains, ctx.N, device=smoke.DEVICE, dtype=ctx.urdtype)
     G = st["G"]
     S = [tuple(st[k][:, j] for k in ("S_U", "S_D", "S_T"))
          for j in (1, ctx.n_seg)]
@@ -100,7 +108,8 @@ def profile_config(name):
         "wrap_up": timed(lambda: core.wrap_up(ctx, consts, sig, G), 50),
         "extend_left": timed(lambda: core.extend_left(ctx, consts, conf, 1,
                                                      *S[0]), 20),
-        "calculate_greens": timed(lambda: calculate_greens(*S[0], *S[1]), 20),
+        "calculate_greens": timed(lambda: calculate_greens(
+            *S[0], *S[1], ctx.use_kernels, ctx.greens_udt_fn), 20),
     }
     print("[layer] wall ms per call: " + ", ".join(
         f"{k} {v * 1e3:.4f}" for k, v in layer.items()))

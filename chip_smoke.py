@@ -20,11 +20,18 @@ failure and prints no result line then):
   4c. complex the same at the complex configuration: 8x8 with pure-gauge
               Peierls phases, safe_mult=5, complex64 (kernels K8 and K10);
               the average weight phase <s> must stay 1
+  4d. f64     the headline model in strict float64 (DQMC's default dtype),
+              128 chains (bench.py's f64 row): K1 in float64 and K11; the
+              window-end drift must stay below bench.py's 1e-6
+  4e. mixed   the same with float32 updates over float64 stacks (K1, K11)
+  4f. colscaled the headline with stab_method="qr_colscaled" (K1, K4)
   5. paths    one sweep_pair on the kernel path and on the plain path
               (use_kernels=False) from the same state and uniforms, at
               the slice's safe_mult=10 and at safe_mult=1; at 16x16 the
               first slice visit of each path; complex: the first slice
-              visit at safe_mult=5 and the whole pair at safe_mult=1
+              visit at safe_mult=5 and the whole pair at safe_mult=1;
+              f64: the whole pair at safe_mult=10; colscaled as the
+              headline
   5b. phase   a second witness for the complex run's phase statistics: one
               sweep pair from its final configuration with the same
               uniforms on the kernel path, the plain path and the plain
@@ -41,9 +48,9 @@ work: the larger of the bytes it must move (each input read once, each
 output written once) over the HBM rate and the least FP32 operations that
 compute its function on these inputs (for the site sweeps: the rank-1
 updates of the accepted sites of this run; for the QRs: Householder with Q
-accumulated backward) over the FP32 rate outside the tensor cores, the
-published peaks
-of one H100 SXM (NVIDIA's data sheet: 3.35 TB/s, 67 TFLOP/s).
+accumulated backward) over the FP32 (FP64 for the float64 kernels) rate
+outside the tensor cores, the published peaks of one H100 SXM (NVIDIA's
+data sheet: 3.35 TB/s, 67 TFLOP/s FP32, 34 TFLOP/s FP64).
 """
 
 from __future__ import annotations
@@ -68,7 +75,21 @@ L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
 # benchmarks/complex_bench.py): the headline model with pure-gauge Peierls
 # phases theta_ij = phi_i - phi_j, phi from default_rng(0) on [0, 2 pi)
 CPLX_SM, CPLX_THERM, CPLX_SWEEPS = 5, 1, 2
+# the strict-float64 configuration (bench.py's f64 row: bench_dqmc(dtype=
+# "float64", chains=128)), its mixed-precision variant, and the headline
+# with the column-scaled stabilization; 1 + 2 sweeps each
+F64_CHAINS, X_THERM, X_SWEEPS = 128, 1, 2
+K1_F64_F2_CHAINS = 64
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
+# float64 kernels against their plain versions (K11: tests/test_pallas_qr.py's
+# strict-f64 contract for Q^T Q - I)
+TOL_G64, TOL_QR64, TOL_ORTH64 = 1e-13, 1e-12, 1e-13
+# bench.py's f64 criterion: max window-end drift (reference alarm 1e-7 per
+# stabilization, stack.jl:530-550)
+F64_DRIFT_MAX = 1e-6
+# float64 rounding does not grow to O(1) within a window: the two paths
+# keep the same Markov chain over a whole sweep pair
+MIN_CONF_AGREE_F64 = 0.99
 OCC_TOL = 0.02           # |mean occupation - 0.5| at mu = 0
 # |<s> - 1|: a pure gauge keeps every weight real. complex128 reads ~1e-13
 # on the card; both complex64 paths read float32 rounding, up to 1.4e-4 at
@@ -79,8 +100,9 @@ IMAG_SHARE_RATIO = 1.5   # kernel / plain imaginary-probability share
 MIN_CONF_AGREE = 0.9
 MIN_CONF_AGREE_CX_FIRST = 0.95
 DEVICE = "cuda"
-# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 and FP64
+# FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, FP64_FLOP_PER_S = 3.35e12, 67e12, 34e12
 
 KERNEL_INFO = {
     "site_sweep": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
@@ -97,6 +119,13 @@ KERNEL_INFO = {
                       "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
     "qr_cx": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
               "montecarlo_tpu/ops/pallas_qr.py:706"),
+    "qr_f32": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+               "montecarlo_tpu/ops/pallas_qr.py:52"),
+    "qr_f64": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+               "montecarlo_tpu/ops/pallas_qr.py:1389"),
+    # no TPU kernel: the JAX package's float64 XLA site loop
+    "site_sweep_f64": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
+                       "montecarlo_tpu/dqmc/core.py:560"),
 }
 
 
@@ -129,10 +158,11 @@ def timed(fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, fp64=False):
     """bound_ms and bound_by of work that moves nbytes and does flops FP32
-    operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    (fp64: FP64) operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (FP64_FLOP_PER_S if fp64 else FP32_FLOP_PER_S)
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -150,20 +180,20 @@ def householder_flops(N, complex_=False):
                for j in range(N))
 
 
-def sweep_bound(C, F, N, n_acc, complex_=False):
+def sweep_bound(C, F, N, n_acc, complex_=False, fp64=False):
     """The bound of a site sweep over (C, F, N, N): G read and written once,
     sigma in and out, u, and the per-chain counts (K1, K6) or the per-site
     accept flags and complex detratios (K8); n_acc accepted sites each
     update G (2 operations per element, 8 complex), the work of the
     sequential rank-1 sweep (the delayed sweep computes the same function,
-    so its slab work is not counted)."""
-    el = 8 if complex_ else 4
-    nbytes = 2 * C * F * N * N * el + C * N * (1 + 1 + 4) + (
+    so its slab work is not counted). fp64: G and u in float64."""
+    el = 8 if complex_ or fp64 else 4
+    nbytes = 2 * C * F * N * N * el + C * N * (1 + 1 + (8 if fp64 else 4)) + (
         C * N * (1 + el) if complex_ else 2 * C * 4)
     per_acc = F * ((8 * N * N + 7 * N + 8) if complex_
                    else (2 * N * N + 2 * N))
     per_site = (7 * F + 8) if complex_ else (5 * F + 4)
-    return bound(nbytes, n_acc * per_acc + C * N * per_site)
+    return bound(nbytes, n_acc * per_acc + C * N * per_site, fp64)
 
 
 def phase_device():
@@ -208,15 +238,18 @@ def complex_model(repulsive=False):
     return HubbardModelAttractive(dims=2, L=L, U=U, mu=MU, peierls=theta)
 
 
-def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT):
-    """A float32 (complex64 for complex hopping) chain state at beta=10 on
-    the card."""
+def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT,
+               **session):
+    """A chain state at beta=10 on the card: float32 (complex64 for complex
+    hopping) unless session (make_context's dtype, update_dtype,
+    stab_method) says otherwise."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=safe_mult)
-    ctx, consts = core.make_context(model, params, dtype=torch.float32,
-                                    device=DEVICE, use_kernels=use_kernels)
+    session = {"dtype": torch.float32, **session}
+    ctx, consts = core.make_context(model, params, device=DEVICE,
+                                    use_kernels=use_kernels, **session)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     conf = model.rand_conf(gen, chains, params.slices, DEVICE)
     return ctx, consts, core.init_state(ctx, consts, conf), gen
@@ -238,8 +271,8 @@ def graded(gen, B, N, decades=16.0, dtype=None):
     return core * grade[:, None, :]
 
 
-def check_sweep(name, out_k, out_p, shape, relative):
-    """Decisions identical, G within TOL_G (times max|G| when relative);
+def check_sweep(name, out_k, out_p, shape, relative, tol=TOL_G):
+    """Decisions identical, G within tol (times max|G| when relative);
     returns max|dG|."""
     import torch
     torch.cuda.synchronize()
@@ -251,13 +284,14 @@ def check_sweep(name, out_k, out_p, shape, relative):
     log(f"[parity] {name} {shape}: decisions (sigma, acc/accept, nneg/det) "
         f"equal {same}, max|dG| "
         f"{err:.3e} (max|G| {gmax:.3g}), acceptance {acc:.3f}")
-    if not all(same) or not err <= TOL_G * (gmax if relative else 1.0):
+    if not all(same) or not err <= tol * (gmax if relative else 1.0):
         raise AssertionError(f"{name} kernel disagrees with plain at {shape}")
     return err
 
 
-def qr_parity(name, kernel, plain, Ap, library=None, normalize=None):
-    """Q and R of kernel(Ap) against plain(Ap) within TOL_QR of their largest
+def qr_parity(name, kernel, plain, Ap, library=None, normalize=None,
+              tol=TOL_QR):
+    """Q and R of kernel(Ap) against plain(Ap) within tol of their largest
     entries (after normalize, where given), R exactly upper triangular;
     returns the result dict with the kernel's, the plain version's and the
     library call's times."""
@@ -276,7 +310,7 @@ def qr_parity(name, kernel, plain, Ap, library=None, normalize=None):
     log(f"[parity] {name} {tuple(Ap.shape)} {str(Ap.dtype)[6:]}: max|dQ| "
         f"{eq:.3e}, max|dR| {er:.3e} (max|R| {rmax:.3g}), R lower zero "
         f"{upper}")
-    if not (eq <= TOL_QR * outs_p[0].abs().max().item() and er <= TOL_QR * rmax
+    if not (eq <= tol * outs_p[0].abs().max().item() and er <= tol * rmax
             and upper):
         raise AssertionError(f"{name} kernel disagrees with plain")
     return dict(max_abs_err=max(eq, er),
@@ -286,10 +320,37 @@ def qr_parity(name, kernel, plain, Ap, library=None, normalize=None):
                             if library else None))
 
 
+def degenerate_columns(name, fn, Ap, scale, tol_rec, tol_orth):
+    """fn on Ap with its last four columns zero and column 1 scaled by
+    scale (a subnormal v.v): finite, an exactly zero R block, A = QR and
+    Q^H Q = I. The Q columns of (near-)zero R_jj are not determined by the
+    input, so the factorization is held to these, not to the plain
+    version's Q."""
+    import torch
+    Az = Ap.clone()
+    Az[:, :, -4:] = 0.0
+    Az[:, :, 1] = Az[:, :, 1] * scale
+    Qz, Rz = fn(Az)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(Qz).all()) and bool(torch.isfinite(Rz).all())
+    zero = bool((Rz[:, -4:, -4:] == 0).all())
+    wide = torch.complex128 if Az.is_complex() else torch.float64
+    Qd, Rd, Ad = Qz.to(wide), Rz.to(wide), Az.to(wide)
+    rec = ((Qd @ Rd - Ad).abs().max() / Ad.abs().max()).item()
+    eye = torch.eye(Az.shape[-1], device=DEVICE, dtype=wide)
+    orth = (Qd.mH @ Qd - eye).abs().max().item()
+    log(f"[parity] {name} zero and subnormal columns: finite {finite}, zero "
+        f"R block {zero}, max|QR - A|/max|A| {rec:.3e}, max|Q^H Q - I| "
+        f"{orth:.3e}")
+    if not (finite and zero and rec <= tol_rec and orth <= tol_orth):
+        raise AssertionError(f"{name} fails on zero or subnormal columns")
+
+
 def phase_parity():
     """Each kernel against its plain version on the same card inputs."""
     import torch
     from montecarlo_tpu_torch.ops import qr, qr_blocked as qb, qr_cx as qcx
+    from montecarlo_tpu_torch.ops import qr_householder as qh
     from montecarlo_tpu_torch.ops import site_sweep as ss
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -380,24 +441,72 @@ def phase_parity():
                                  normalize=qcx.phase_normalized)
     results["qr_cx"].update(bound(3 * B * N * N * 8,
                                   B * householder_flops(N, complex_=True)))
-    Az = Apc.clone()
-    Az[:, :, -4:] = 0.0
-    Az[:, :, 1] = Az[:, :, 1] * 1e-35
-    # the Q columns of (near-)zero R_jj are not determined by the input, so
-    # the factorization is held to A = QR and Q^H Q = I, not to the plain
-    # version's Q
-    Qz, Rz = qcx.qr_cx(Az)
-    torch.cuda.synchronize()
-    finite = bool(torch.isfinite(Qz).all()) and bool(torch.isfinite(Rz).all())
-    zero = bool((Rz[:, -4:, -4:] == 0).all())
-    Qd, Rd = Qz.to(torch.complex128), Rz.to(torch.complex128)
-    rec = ((Qd @ Rd - Az).abs().max() / Az.abs().max()).item()
-    orth = (Qd.mH @ Qd - torch.eye(N, device=DEVICE)).abs().max().item()
-    log(f"[parity] qr_cx zero and subnormal columns: finite {finite}, zero "
-        f"R block {zero}, max|QR - A|/max|A| {rec:.3e}, max|Q^H Q - I| "
-        f"{orth:.3e}")
-    if not (finite and zero and rec <= TOL_QR and orth <= TOL_QR):
-        raise AssertionError("qr_cx fails on zero or subnormal columns")
+    degenerate_columns("qr_cx", qcx.qr_cx, Apc, 1e-35, TOL_QR, TOL_QR)
+
+    # ---- K4 at (256, 64, 64), the colscaled run's shape, and at
+    # (64, 128, 128), the widest it takes; K11 at (128, 64, 64) float64, the
+    # f64 run's shape; each on graded, prescaled, pivoted input, then with
+    # zero and subnormal columns
+    for b, n in ((B, N), (L16_CHAINS, 2 * N)):
+        Ap, _, _ = _prescale_pivot(graded(gen, b, n))
+        r = qr_parity("qr_f32", qh.qr_f32, qh.householder_qr_plain,
+                      Ap.contiguous(), library=torch.linalg.qr)
+        r.update(bound(3 * b * n * n * 4, b * householder_flops(n)))
+        log(f"[parity] qr_f32 ({b}, {n}, {n}): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library call "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+        if "qr_f32" in results:       # the kernels line keeps the N=64 row
+            results["qr_f32"]["max_abs_err"] = max(
+                results["qr_f32"]["max_abs_err"], r["max_abs_err"])
+        else:
+            results["qr_f32"] = r
+    degenerate_columns("qr_f32", qh.qr_f32, Ap.contiguous(), 1e-35, TOL_QR,
+                       TOL_QR)
+    B64 = F64_CHAINS
+    Ap, _, _ = _prescale_pivot(graded(gen, B64, N, dtype=torch.float64))
+    Ap = Ap.contiguous()
+    results["qr_f64"] = qr_parity("qr_f64", qh.qr_f64,
+                                  qh.householder_qr_plain, Ap,
+                                  library=torch.linalg.qr, tol=TOL_QR64)
+    results["qr_f64"].update(bound(3 * B64 * N * N * 8,
+                                   B64 * householder_flops(N), fp64=True))
+    Qk, _ = qh.qr_f64(Ap)
+    orth = (Qk.mT @ Qk - torch.eye(N, device=DEVICE,
+                                   dtype=torch.float64)).abs().max().item()
+    log(f"[parity] qr_f64 max|Q^T Q - I| {orth:.3e}")
+    if not orth <= TOL_ORTH64:
+        raise AssertionError("qr_f64 kernel's Q is not orthogonal")
+    # 1e-175 puts v.v of column 1 among the float64 subnormals
+    degenerate_columns("qr_f64", qh.qr_f64, Ap, 1e-175, TOL_QR64, TOL_ORTH64)
+
+    # ---- K1 in float64 at (128, 1, 64, 64) and (64, 2, 64, 64), on real
+    # float64 Green's functions (plain-path init_state)
+    errs = []
+    for repulsive, chains in ((False, F64_CHAINS), (True, K1_F64_F2_CHAINS)):
+        ctx, _, state, gen64 = real_state(headline_model(repulsive), chains,
+                                          9, use_kernels=False,
+                                          dtype=torch.float64)
+        G = state["G"]
+        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+        u = torch.rand(chains, ctx.N, generator=gen64, device=DEVICE,
+                       dtype=torch.float64)
+        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+                  use_boson=ctx.use_boson)
+        out_k = ss.site_sweep_f64(G, sigma, u, **kw)
+        errs.append(check_sweep("site_sweep_f64", out_k,
+                                ss.site_sweep_plain(G, sigma, u, **kw),
+                                tuple(G.shape), relative=False, tol=TOL_G64))
+        if not repulsive:
+            results["site_sweep_f64"] = dict(
+                ms=1e3 * timed(lambda: ss.site_sweep_f64(G, sigma, u, **kw),
+                               50),
+                plain_ms=1e3 * timed(lambda: ss.site_sweep_plain(
+                    G, sigma, u, **kw), 5),
+                library_ms=None,
+                **sweep_bound(chains, ctx.F, ctx.N, out_k[2].sum().item(),
+                              fp64=True))
+    results["site_sweep_f64"]["max_abs_err"] = max(errs)
 
     # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
     # at dk = 1, on real 16x16 Green's functions (plain-path init_state)
@@ -449,19 +558,23 @@ def phase_parity():
 
 
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
-                complex_=False):
+                complex_=False, session=None):
     """A simulation through DQMC(...).run(), with launch counts: the
-    headline (8x8: K1-K3), the 16x16 one (K6, K7) or the complex one (8x8
-    with pure-gauge Peierls phases at safe_mult=5: K8, K10)."""
+    headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
+    with pure-gauge Peierls phases at safe_mult=5: K8, K10), or with
+    session (DQMC's dtype, update_dtype and stab_method; None: float32) the
+    f64 (DQMC's defaults: K1 in float64, K11), mixed (K1, K11) and
+    colscaled (K1, K4) ones."""
     import torch
     from montecarlo_tpu_torch import DQMC
     from montecarlo_tpu_torch.ops import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
+    session = dict(dtype=torch.float32) if session is None else session
     sim = DQMC(complex_model() if complex_ else headline_model(L=L),
                beta=BETA, delta_tau=DTAU,
                safe_mult=CPLX_SM if complex_ else SAFE_MULT, n_chains=chains,
-               dtype=torch.float32, measure_rate=1, seed=0, device=DEVICE)
+               measure_rate=1, seed=0, device=DEVICE, **session)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run(thermalization=therm, sweeps=sweeps, verbose=False)
@@ -472,16 +585,23 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     ctx = sim.ctx
     n_pairs = therm + sweeps
     expected = dict.fromkeys(KERNELS, 0)
-    if ctx.is_complex:   # every extend and Green's recomputation runs one K10
-        expected.update(site_sweep_cx=2 * ctx.M * n_pairs,
-                        qr_cx=4 * ctx.n_seg * n_pairs + ctx.n_seg + 1)
+    # every extend and Green's recomputation runs one unfused QR
+    n_qr = 4 * ctx.n_seg * n_pairs + ctx.n_seg + 1
+    if ctx.is_complex:
+        expected.update(site_sweep_cx=2 * ctx.M * n_pairs, qr_cx=n_qr)
+    elif ctx.dtype == torch.float64:
+        sweep = ("site_sweep_f64" if ctx.udtype == torch.float64
+                 else "site_sweep")
+        expected.update({sweep: 2 * ctx.M * n_pairs, "qr_f64": n_qr})
+    elif ctx.stab_method == "qr_colscaled":
+        expected.update(site_sweep=2 * ctx.M * n_pairs, qr_f32=n_qr)
     elif ctx.N <= 128:
         expected.update(site_sweep=2 * ctx.M * n_pairs,
                         udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
                         udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
-    else:   # every extend and every Green's recomputation runs one K7
+    else:
         expected.update(site_sweep_delayed=2 * ctx.M * n_pairs,
-                        qr_blocked=4 * ctx.n_seg * n_pairs + ctx.n_seg + 1)
+                        qr_blocked=n_qr)
     log(f"[{tag}] launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError("kernel launch counts differ from the path's")
@@ -491,7 +611,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     occ = float(sim.observables()["occ"]["occ"].mean.mean())
     rate = chains * n_pairs / dur
     log(f"[{tag}] {L}x{L} beta={BETA} M={ctx.M} safe_mult={ctx.sm} delay="
-        f"{ctx.delay} {chains} chains {str(ctx.dtype)[6:]}: {n_pairs} sweeps "
+        f"{ctx.delay} {chains} chains {str(ctx.dtype)[6:]} updates "
+        f"{str(ctx.udtype)[6:]} stab {ctx.stab_method}: {n_pairs} sweeps "
         f"in {dur:.3f} s = {rate:.1f} "
         f"chain-sweeps/s; acceptance {acc:.4f}; occ {occ:.5f}; "
         f"prop_err_max {sim.analysis.propagation_error.max:.3e}, mean "
@@ -499,6 +620,9 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     drift = (sim.analysis.propagation_error.max, sim.analysis.prop_err_mean)
     if not all(map(math.isfinite, drift)):
         raise AssertionError(f"propagation drift max/mean {drift} not finite")
+    if ctx.udtype == torch.float64 and not drift[0] < F64_DRIFT_MAX:
+        raise AssertionError(f"float64 drift max {drift[0]} not below "
+                             f"bench.py's {F64_DRIFT_MAX}")
     if not 0.05 < acc < 0.95:
         raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
     if not abs(occ - 0.5) <= OCC_TOL:
@@ -531,7 +655,8 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     ctx_p = dataclasses.replace(ctx_k, use_kernels=False)
     C, F, N, n = state["conf"].shape[0], ctx_k.F, ctx_k.N, ctx_k.n_seg
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    u = torch.rand(C, 2 * ctx_k.M, N, generator=gen, device=DEVICE)
+    u = torch.rand(C, 2 * ctx_k.M, N, generator=gen, device=DEVICE,
+                   dtype=ctx_k.urdtype)
     eye = torch.eye(N, device=DEVICE, dtype=ctx_k.dtype).expand(C, F, N, N)
     ones = torch.ones(C, F, N, device=DEVICE, dtype=ctx_k.rdtype)
     sigma = state["conf"][:, :, -1]
@@ -539,14 +664,14 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     for ctx in (ctx_k, ctx_p):
         G = calculate_greens(state["S_U"][:, n], state["S_D"][:, n],
                              state["S_T"][:, n], eye, ones, eye,
-                             ctx.use_kernels)
-        G = core.wrap_down(ctx, consts, sigma, G)
+                             ctx.use_kernels, ctx.greens_udt_fn)
+        G = core.wrap_down(ctx, consts, sigma, G.to(ctx.udtype))
         first.append(core.sweep_slice(ctx, G, sigma, u[:, 0])[1])
         if whole_pair:
             whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
     share_first = (first[0] == first[1]).all(1).float().mean().item()
     tag = (f"{int(math.sqrt(N))}x{int(math.sqrt(N))} {str(ctx_k.dtype)[6:]} "
-           f"safe_mult={ctx_k.sm}")
+           f"{ctx_k.stab_method} safe_mult={ctx_k.sm}")
     if not whole_pair:
         log(f"[paths] {tag} delay={ctx_k.delay}: first slice visit agrees in "
             f"{share_first:.4f} of {C} chains")
@@ -566,7 +691,7 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim, sim16, simcx):
+def phase_paths(sim, sim16, simcx, sim64, simcs):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -575,22 +700,34 @@ def phase_paths(sim, sim16, simcx):
     float32 paths whose QRs round differently part ways within the first
     window. There the decisions of the first slice visit are held to the
     bound; the whole sweep pair is held to it at safe_mult=1, where G is
-    recomputed from the stack at every slice."""
+    recomputed from the stack at every slice. The column-scaled headline
+    (K4) is held the same way. In float64 rounding stays far below O(1), so
+    the whole pair is held at the configuration's safe_mult=10."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
-    first, _ = compare_paths(sim.ctx, sim.consts, sim.state, 3)
-    if not first >= MIN_CONF_AGREE:
-        raise AssertionError(f"kernel and plain paths agree on the first "
-                             f"slice visit in only {first:.3f} of the chains")
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=1)
-    ctx1, consts1 = core.make_context(headline_model(), params,
-                                      dtype=torch.float32, device=DEVICE)
-    state1 = core.init_state(ctx1, consts1, sim.state["conf"])
-    _, whole = compare_paths(ctx1, consts1, state1, 4)
-    if not whole >= MIN_CONF_AGREE:
-        raise AssertionError(f"kernel and plain paths agree in only "
-                             f"{whole:.3f} of the chains at safe_mult=1")
+    for s, stab, seed in ((sim, "qr", 3), (simcs, "qr_colscaled", 10)):
+        first, _ = compare_paths(s.ctx, s.consts, s.state, seed)
+        if not first >= MIN_CONF_AGREE:
+            raise AssertionError(f"kernel and plain paths ({stab}) agree on "
+                                 f"the first slice visit in only "
+                                 f"{first:.3f} of the chains")
+        ctx1, consts1 = core.make_context(headline_model(), params,
+                                          dtype=torch.float32, device=DEVICE,
+                                          stab_method=stab)
+        state1 = core.init_state(ctx1, consts1, s.state["conf"])
+        _, whole = compare_paths(ctx1, consts1, state1, seed + 1)
+        if not whole >= MIN_CONF_AGREE:
+            raise AssertionError(f"kernel and plain paths ({stab}) agree in "
+                                 f"only {whole:.3f} of the chains at "
+                                 "safe_mult=1")
+    # f64: K1 in float64 + K11 against site_sweep_plain + torch.linalg.qr
+    _, whole = compare_paths(sim64.ctx, sim64.consts, sim64.state, 11)
+    if not whole >= MIN_CONF_AGREE_F64:
+        raise AssertionError(f"float64 kernel and plain paths agree in only "
+                             f"{whole:.3f} of the chains at safe_mult="
+                             f"{SAFE_MULT}")
     # 16x16: K7 Green's function + K6 against torch.linalg.qr +
     # sweep_slice_delayed
     first, _ = compare_paths(sim16.ctx, sim16.consts, sim16.state, 5,
@@ -689,9 +826,19 @@ def main():
                                        L16_SWEEPS, tag="l16")
     simcx, launchescx, _ = phase_slice(therm=CPLX_THERM, sweeps=CPLX_SWEEPS,
                                        tag="complex", complex_=True)
-    launches = {k: launches[k] + launches16[k] + launchescx[k]
-                for k in launches}
-    phase_paths(sim, sim16, simcx)
+    # the f64 run takes DQMC's default dtype, float64
+    sim64, launches64, _ = phase_slice(chains=F64_CHAINS, therm=X_THERM,
+                                       sweeps=X_SWEEPS, tag="f64", session={})
+    _, launchesmx, _ = phase_slice(
+        chains=F64_CHAINS, therm=X_THERM, sweeps=X_SWEEPS, tag="mixed",
+        session=dict(update_dtype=torch.float32))
+    simcs, launchescs, _ = phase_slice(
+        therm=X_THERM, sweeps=X_SWEEPS, tag="colscaled",
+        session=dict(dtype=torch.float32, stab_method="qr_colscaled"))
+    runs = (launches, launches16, launchescx, launches64, launchesmx,
+            launchescs)
+    launches = {k: sum(r[k] for r in runs) for k in launches}
+    phase_paths(sim, sim16, simcx, sim64, simcs)
     phase_witness(simcx)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])

@@ -15,11 +15,12 @@ Index conventions (0-based, as in the JAX package):
         (right products; S[n_seg] holds the identity)
 
 Ported: the rank-1 and the delayed rank-k site sweeps with the QR
-stabilization (stab_method="qr") for real hopping, and the rank-1 sweep for
-complex hopping (Peierls phases) with its phase-problem statistics: the
+stabilizations (stab_method "qr" and "qr_colscaled") for real hopping in
+float32, float64 and mixed precision, and the rank-1 sweep for complex
+hopping (Peierls phases) with its phase-problem statistics: the
 imaginary-weight monitor and the running weight phase. g_refresh,
-checkerboard, the other stabilization methods and complex delayed updates
-raise NotImplementedError naming their ROADMAP item.
+checkerboard and complex delayed updates raise NotImplementedError naming
+their ROADMAP item; the retired stab_method "cholqr" raises as well.
 """
 
 from __future__ import annotations
@@ -30,14 +31,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops import qr as _qr
 from ..ops import qr_blocked as _qr_blocked
 from ..ops import qr_cx as _qr_cx
+from ..ops import qr_householder as _qrh
 from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
 from ..ops.linalg import (calculate_greens, permute_rows, scatter_columns,
-                          udt_dirty)
-from ..ops.site_sweep import MAX_N, site_sweep, site_sweep_plain
+                          udt_dirty, udt_dirty_colscaled)
+from ..ops.site_sweep import (MAX_N, site_sweep, site_sweep_f64,
+                              site_sweep_plain)
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
 from ..utils.host import real_dtype, resolve_device
 
@@ -61,13 +63,22 @@ class DQMCContext:
     # the UDT stacks and stabilized recomputations stay in dtype
     update_dtype: torch.dtype = None
     prop_err_threshold: float = 1e-7
-    # hand-written kernels on CUDA (K1-K3 for N <= 128, K6 and K7 beyond),
-    # their plain versions on CPU; False runs the plain site sweeps and the
-    # library QR/solve on any device
+    # hand-written kernels on CUDA (K1-K4 and K11 for N <= 128, K6 and K7
+    # beyond, K8 and K10 for complex), their plain versions on CPU; False
+    # runs the plain site sweeps and the library QR/solve on any device
     use_kernels: bool = True
     # delayed-update block width K (0 = rank-1): the plain path's rank-K
     # sweep, and the site block of K6
     delay: int = 0
+    # "qr" (udt_dirty: one power-of-two prescale per product) or
+    # "qr_colscaled" (udt_dirty_colscaled: every column normalized)
+    stab_method: str = "qr"
+
+    @property
+    def greens_udt_fn(self):
+        """The UDT of every stabilization and Green's recomputation."""
+        return (udt_dirty_colscaled if self.stab_method == "qr_colscaled"
+                else udt_dirty)
 
     @property
     def udtype(self):
@@ -141,8 +152,13 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         raise _not_ported("g_refresh", "Queue 1 item 9")
     if checkerboard:
         raise _not_ported("checkerboard", "Queue 1 item 14")
-    if stab_method != "qr":
-        raise _not_ported(f"stab_method={stab_method!r}", "Queue 1 item 3")
+    if stab_method == "cholqr":
+        raise NotImplementedError(
+            "stab_method='cholqr' was retired in the JAX package for drift "
+            "blow-ups and is not ported (ROADMAP, Deliberately not ported)")
+    if stab_method not in ("qr", "qr_colscaled"):
+        raise ValueError(f"unknown stab_method {stab_method!r} (use 'qr' or "
+                         "'qr_colscaled')")
     delay = _delay(N, delay)
     if dtype.is_complex and delay > 1:
         raise _not_ported(f"complex delayed updates (delay={delay}, N={N})",
@@ -177,7 +193,7 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         # mixed mode: window-end drift ~cond(window)*eps_f32 is expected;
         # count only catastrophic excursions
         prop_err_threshold=1.0 if mixed else 1e-7,
-        use_kernels=bool(use_kernels), delay=delay,
+        use_kernels=bool(use_kernels), delay=delay, stab_method=stab_method,
     )
     return ctx, consts
 
@@ -195,10 +211,12 @@ def _delay(N, delay):
 
 
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
-    """Raise unless a kernel takes every shape of a CUDA session: the site
-    sweep (K1 for N <= 128, K6 beyond) and the float32 QR (K2/K3 for
-    8 | N <= 64, K7 for 8 | N > 128); for complex64 sessions K8 and K10
-    (8 | N <= 64, F <= 2)."""
+    """Raise unless a kernel takes every shape of a CUDA session, for either
+    stabilization. Real sessions: the site sweep (K1 in the update dtype for
+    N <= 128, K6 beyond in float32) and the QR of the stack dtype: float32
+    K2/K3 and K4 for 8 | N <= 128 and K7 for 8 | N > 128, float64 K11 for
+    8 | N <= 64 (float64 stacks with float32 or float64 updates). Complex64
+    sessions: K8 and K10 (8 | N <= 64, F <= 2)."""
     if dtype.is_complex or udtype.is_complex:
         if dtype != torch.complex64 or udtype != torch.complex64:
             raise _not_ported("CUDA kernels for complex128 (use_kernels=False "
@@ -209,18 +227,23 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
                 "8 | N <= 64, F <= 2; beyond needs the wide K10 and, past "
                 "N = 128, K9)", "Queue 2 K9, K10")
         return
-    if dtype != torch.float32 or udtype != torch.float32:
-        raise _not_ported("CUDA kernels for float64 (use_kernels=False "
-                          "runs the plain path)", "Queue 1 item 13, K11")
-    if not (site_sweep_supports(N, F) if N <= MAX_N
+    f64 = dtype == torch.float64
+    if f64 and not _qrh.kernel_supports(N, torch.float64):
+        raise _not_ported(
+            f"the float64 QR for N={N} (K11 takes 8 | N <= 64; beyond, the "
+            "JAX package runs XLA's float64 QR)", "Queue 1 item 13")
+    if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
             else _ssd.kernel_supports(N, F, max(delay, 1))):
         raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
                           f"(K1 takes N <= {MAX_N}, K6 4 | N beyond with its "
                           "slabs in shared memory, both F <= 2)", "Queue 2 K6")
-    if not (_qr.kernel_supports(N) or _qr_blocked.kernel_supports(N)):
-        raise _not_ported(f"the float32 UDT for N={N} (kernels take 8 | N <= "
-                          "64 (K2/K3) and 8 | N > 128 (K7); 64 < N <= 128 "
-                          "needs Queue 2 K4)", "Queue 2 K4")
+    if f64:
+        return
+    if not (_qrh.kernel_supports(N) or _qr_blocked.kernel_supports(N)):
+        raise _not_ported(
+            f"the float32 QR for N={N} (K2/K3 and K4 take 8 | N <= 128, K7 "
+            "8 | N > 128; for other N the JAX package runs XLA's QR)",
+            "Queue 1 item 3")
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +296,7 @@ def _identity_udt(ctx, C):
 
 
 def _restabilize(ctx, curr, D, T):
-    u, d, r, piv = udt_dirty(curr * D[..., None, :], ctx.use_kernels)
+    u, d, r, piv = ctx.greens_udt_fn(curr * D[..., None, :], ctx.use_kernels)
     return u, d, r @ permute_rows(T, piv)
 
 
@@ -306,11 +329,11 @@ def sweep_slice(ctx, G, sigma, u):
     instead: every site's accept flag and complex detratio, for
     ``_track_detratio_batch``.
 
-    Dispatch as in the JAX engine: the kernel path runs K1 (rank-1) for
-    N <= 128 and K6 (delayed, blocks of max(delay, 1) sites) beyond, and K8
-    for complex G; the plain path runs ``sweep_slice_delayed`` when
-    delay > 1, else the plain version of the rank-1 kernel (K1's, or K8's
-    for complex G)."""
+    Dispatch as in the JAX engine: the kernel path runs K1 (rank-1, float32
+    or float64 as G) for N <= 128 and K6 (delayed, blocks of max(delay, 1)
+    sites) beyond, and K8 for complex G; the plain path runs
+    ``sweep_slice_delayed`` when delay > 1, else the plain version of the
+    rank-1 kernel (K1's, or K8's for complex G)."""
     sigma, u = sigma.contiguous(), u.contiguous()
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
@@ -320,7 +343,8 @@ def sweep_slice(ctx, G, sigma, u):
         return _sscx.site_sweep_cx_plain(G, sigma, u, **kw)
     if ctx.use_kernels:
         if ctx.N <= MAX_N:
-            return site_sweep(G, sigma, u, **kw)
+            fn = site_sweep_f64 if G.dtype == torch.float64 else site_sweep
+            return fn(G, sigma, u, **kw)
         return _ssd.site_sweep_delayed(G, sigma, u, dk=max(ctx.delay, 1), **kw)
     if ctx.delay > 1:
         return sweep_slice_delayed(ctx, G, sigma, u)
@@ -508,7 +532,8 @@ def init_state(ctx, consts, conf):
     S_U[:, ctx.n_seg], S_D[:, ctx.n_seg], S_T[:, ctx.n_seg] = U, D, T
     # a valid G_eff(M) from the fresh stack makes the drift check at the
     # first turnaround meaningful
-    G0 = calculate_greens(U, D, T, iU, iD, iT, ctx.use_kernels)
+    G0 = calculate_greens(U, D, T, iU, iD, iT, ctx.use_kernels,
+                          ctx.greens_udt_fn)
     state = {"conf": conf, "S_U": S_U, "S_D": S_D, "S_T": S_T,
              "G": G0.to(ctx.udtype), **fresh_counters(ctx, C)}
     if ctx.is_complex:
@@ -568,7 +593,8 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
         return G
 
     def recompute(G, lU, lD, lT, rU, rD, rT):
-        G_re = calculate_greens(lU, lD, lT, rU, rD, rT, ctx.use_kernels)
+        G_re = calculate_greens(lU, lD, lT, rU, rD, rT, ctx.use_kernels,
+                                ctx.greens_udt_fn)
         if ctx.check_propagation_error:
             _track_prop_err(ctx, perr, G, G_re)
         return G_re.to(ctx.udtype)
@@ -590,8 +616,8 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = rU, rD, rT
 
     # ---- up sweep; segment 0 is peeled: it holds the measurement point
-    G = calculate_greens(iU, iD, iT, rU, rD, rT,
-                         ctx.use_kernels).to(ctx.udtype)   # G_eff(0)
+    G = calculate_greens(iU, iD, iT, rU, rD, rT, ctx.use_kernels,
+                         ctx.greens_udt_fn).to(ctx.udtype)   # G_eff(0)
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
     G = sweep(G, 0)
     G_meas, conf_meas, phase_meas = G, conf.clone(), ls.get("ls_phase")
@@ -621,5 +647,7 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
 
 def unwrap_greens(ctx, consts, G_eff):
     """Effective → physical equal-time Green's function
-    G = e^{+dtau T/2} G_eff e^{-dtau T/2}."""
+    G = e^{+dtau T/2} G_eff e^{-dtau T/2}, in the session dtype (a mixed
+    session's float32 G_eff is promoted, as jnp promotes it)."""
+    G_eff = G_eff.to(consts["eThalf"].dtype)
     return consts["eThalfinv"] @ G_eff @ consts["eThalf"]

@@ -32,7 +32,7 @@ SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signatures of the exported launchers; every launcher returns the
 # cudaGetLastError() code of its launch (0 = success)
 SIGNATURES = {
@@ -40,6 +40,11 @@ SIGNATURES = {
     # lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _F, _F, _F, _I, _I, _P),
+    "site_sweep_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _D, _D, _D, _I, _I, _P),
+    # A, Q, R, B, N, stream
+    "qr_f32": (_P, _P, _P, _I, _I, _P),
+    "qr_f64": (_P, _P, _P, _I, _I, _P),
     # A, mx, Q, Rs, d, B, N, stream
     "udt_qr_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # A, Z, mx, Q, X, B, N, stream

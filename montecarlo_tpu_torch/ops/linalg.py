@@ -4,20 +4,23 @@ batched tensors (counterpart of montecarlo_tpu/ops/linalg.py).
 UDT decomposition A = U·diag(D)·T with U unitary and D positive, column
 pivoting realized as a one-shot column-norm sort before an unpivoted QR, in
 the "dirty T" form: ``udt_dirty`` returns the triangular factor R and the
-pivot so that triangular solves stay cheap.
+pivot so that triangular solves stay cheap. ``udt_dirty_colscaled`` is the
+per-column-scaled variant of stab_method="qr_colscaled".
 
 Two paths, chosen by ``use_kernels``:
-  * kernel path (True), routed by N as the JAX package routes it:
-    - N <= 128: the fused kernels of ops/qr.py — K2 inside ``udt_dirty``,
-      K3 (QR + triangular solve) inside ``calculate_greens`` — whose
-      flushed-mode rule is R_jj = +floor;
-    - N > 128: the blocked QR K7 (ops/qr_blocked.py) followed by the
-      unfused udt_dirty postscale, and ``calculate_greens`` as udt_dirty
-      followed by ``rdiv_dirty``;
-    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py)
-      followed by the unfused postscale, and ``calculate_greens`` as
-      udt_dirty followed by ``rdiv_dirty``, at every N (the JAX package
-      has no fused complex solve);
+  * kernel path (True), routed by dtype and N as the JAX package routes it:
+    - float32, N <= 64: the fused kernels of ops/qr.py — K2 inside
+      ``udt_dirty``, K3 (QR + triangular solve) inside ``calculate_greens``
+      — whose flushed-mode rule is R_jj = +floor;
+    - float32 at 64 < N <= 128, and float32 inside ``udt_dirty_colscaled``:
+      the unfused QR K4 (ops/qr_householder.py);
+    - float64 at N <= 128: the float64 QR K11 (ops/qr_householder.py);
+    - N > 128: the blocked QR K7 (ops/qr_blocked.py);
+    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py);
+    every unfused QR is followed by the unfused udt_dirty postscale, and
+    ``calculate_greens`` by ``rdiv_dirty`` (the JAX package has no fused
+    solve for them). The CUDA kernels take 8 | N (K11: N <= 64); on the CPU
+    each route runs its kernel's plain version at any N;
   * library path (False): ``torch.linalg.qr`` + the udt_dirty postscale and
     ``torch.linalg.solve_triangular``.
 The unfused postscale's flushed-mode rule is |diag| < 0.5 → 1; both rules
@@ -33,6 +36,10 @@ from .qr import F32_FLOOR, udt_qr, udt_qr_solve
 from .qr_blocked import MIN_N as BLOCKED_MIN_N
 from .qr_blocked import qr_blocked
 from .qr_cx import qr_cx
+from .qr_householder import qr_f32, qr_f64
+
+# the fused K2/K3 take float32 up to this N
+FUSED_MAX_N = 64
 
 
 def argsort_desc(v):
@@ -62,6 +69,11 @@ def _gather_columns(A, piv):
     return torch.take_along_dim(A, piv[..., None, :], dim=-1)
 
 
+def _column_norms(A):
+    sq = (A.real * A.real + A.imag * A.imag) if A.is_complex() else A * A
+    return sq.sum(-2).sqrt()
+
+
 def _prescale_pivot(A):
     """(Ap, mx, piv): A scaled by the power of two mx that brings its largest
     entry to ~2^50, with columns sorted by descending norm. Power-of-two
@@ -72,9 +84,14 @@ def _prescale_pivot(A):
     mx = mx.clamp_min(torch.finfo(mx.dtype).tiny)
     mx = torch.exp2(torch.ceil(torch.log2(mx)) - 50.0)
     As = A / mx
-    sq = (As.real * As.real + As.imag * As.imag) if As.is_complex() else As * As
-    piv = argsort_desc(sq.sum(-2).sqrt())
+    piv = argsort_desc(_column_norms(As))
     return _gather_columns(As, piv), mx, piv
+
+
+def _fused(A, use_kernels):
+    """True where the fused kernels K2/K3 take A: real float32, N <= 64."""
+    return (use_kernels and A.dtype == torch.float32
+            and A.shape[-1] <= FUSED_MAX_N)
 
 
 def udt_dirty(A, use_kernels=True):
@@ -85,20 +102,52 @@ def udt_dirty(A, use_kernels=True):
     with A[..., :, piv] = U D R."""
     Ap, mx, piv = _prescale_pivot(A)
     shape, n = A.shape, A.shape[-1]
-    if use_kernels and A.is_complex():
-        Q, R = qr_cx(Ap.reshape(-1, n, n))
-        d, Rs = _postscale(R.reshape(shape))
-        return Q.reshape(shape), d * mx[..., 0], Rs, piv
-    if use_kernels and n < BLOCKED_MIN_N:
+    if _fused(A, use_kernels):
         Q, Rs, d = udt_qr(Ap.reshape(-1, n, n), mx.reshape(-1))
         return Q.reshape(shape), d.reshape(shape[:-1]), Rs.reshape(shape), piv
-    if use_kernels:
-        Q, R = qr_blocked(Ap.reshape(-1, n, n))
-        Q, R = Q.reshape(shape), R.reshape(shape)
-    else:
-        Q, R = _library_qr(Ap)
+    Q, R = _qr(Ap, use_kernels)
     d, Rs = _postscale(R)
     return Q, d * mx[..., 0], Rs, piv
+
+
+def udt_dirty_colscaled(A, use_kernels=True):
+    """Per-column-scaled udt_dirty (stab_method="qr_colscaled"): every column
+    is normalized before the QR, so no column can overflow or flush to zero
+    whatever beta. The scales s fold into D (d = |R_jj|·s_j) and into T
+    (ratios s_j / s_i on the upper triangle, bounded by the descending
+    pivot order). Same results as ``udt_dirty``; the QR goes through
+    ``_qr`` (K4 in float32 on the kernel path)."""
+    tiny = torch.finfo(A.real.dtype).tiny
+    m = A.abs().amax(dim=-2).clamp_min(tiny)
+    s = (m * _column_norms(A / m[..., None, :])).clamp_min(tiny)
+    piv = argsort_desc(s)
+    sp = torch.take_along_dim(s, piv, dim=-1)
+    Q, R = _qr(_gather_columns(A, piv) / sp[..., None, :], use_kernels)
+    dhat = torch.diagonal(R, dim1=-2, dim2=-1).abs()
+    dhat = dhat.clamp_min(torch.finfo(dhat.dtype).eps ** 2)
+    n = R.shape[-1]
+    upper = torch.ones(n, n, dtype=torch.bool, device=A.device).triu()
+    ratio = torch.where(upper, sp[..., None, :], 0.0) / sp[..., :, None]
+    return Q, dhat * sp, (R / dhat[..., :, None]) * ratio, piv
+
+
+def _qr(A, use_kernels):
+    """(Q, R) of A (..., n, n) without floor or postscale: on the kernel path
+    K10 (complex), K7 (n > 128), K11 (float64) or K4 (float32), else the
+    library QR."""
+    if not use_kernels:
+        return _library_qr(A)
+    shape, n = A.shape, A.shape[-1]
+    if A.is_complex():
+        qr = qr_cx
+    elif n >= BLOCKED_MIN_N:
+        qr = qr_blocked
+    elif A.dtype == torch.float64:
+        qr = qr_f64
+    else:
+        qr = qr_f32
+    Q, R = qr(A.reshape(-1, n, n))
+    return Q.reshape(shape), R.reshape(shape)
 
 
 def _library_qr(A):
@@ -140,26 +189,29 @@ def rdiv_dirty(A, R, piv):
                                          upper=True, left=False)
 
 
-def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True):
+def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True,
+                     udt_fn=None):
     """G = [I + Ul·diag(Dl)·Tl · Tr^H·diag(Dr)·Ur^H]^{-1}, range-safe.
 
     With Dlp = max(Dl, 1), Dlm = min(Dl, 1) (likewise Dr):
       G = Ur·Drp^{-1}·M^{-1}·Dlp^{-1}·Ul^H,
       M = Dlp^{-1}·(Ul^H Ur)·Drp^{-1} + Dlm·(Tl Tr^H)·Drm,
     where every factor of M is bounded by ~1, so all intermediates stay
-    within ~e^{beta·W}. One interior UDT of M; on the kernel path its QR and
-    the triangular solve run fused in kernel K3 for real N <= 128, and its
-    QR in K7 for N > 128 or in K10 for complex M."""
+    within ~e^{beta·W}. One interior UDT of M by udt_fn (``udt_dirty`` when
+    None; ``udt_dirty_colscaled`` for stab_method="qr_colscaled"): for
+    ``udt_dirty`` in float32 at N <= 64 on the kernel path its QR and the
+    triangular solve run fused in kernel K3, otherwise udt_fn is followed by
+    ``rdiv_dirty``."""
     Dlp, Dlm = Dl.clamp_min(1.0), Dl.clamp_max(1.0)
     Drp, Drm = Dr.clamp_min(1.0), Dr.clamp_max(1.0)
     X = Tl @ Tr.mH
     M = (Ul.mH @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
     M = M + (Dlm[..., :, None] * X) * Drm[..., None, :]
     Zpre = Ur / Drp[..., None, :]
-    if use_kernels and M.shape[-1] < BLOCKED_MIN_N and not M.is_complex():
+    if udt_fn in (None, udt_dirty) and _fused(M, use_kernels):
         u, Z = _fused_greens_solve(M, Zpre)
     else:
-        u, d, r, piv = udt_dirty(M, use_kernels)
+        u, d, r, piv = (udt_fn or udt_dirty)(M, use_kernels)
         Z = rdiv_dirty(Zpre, r, piv) / d[..., None, :]
     W = u.mH / Dlp[..., None, :]
     return Z @ (W @ Ul.mH)

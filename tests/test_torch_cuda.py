@@ -18,6 +18,7 @@ from montecarlo_tpu_torch.dqmc import core
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
 from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
 from montecarlo_tpu_torch.ops import qr_cx as qcx
+from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -191,6 +192,69 @@ def test_qr_cx_kernel_zero_and_subnormal_columns(cuda):
            qcx.phase_normalized(*qcx.qr_cx_plain(Ap))[0], 1e-5)
 
 
+@pytest.mark.parametrize("model,N", [("attractive", 64), ("repulsive", 64),
+                                     ("attractive", 128), ("attractive", 20)])
+def test_site_sweep_f64_kernel_matches_plain(cuda, model, N):
+    """K1 in float64: decisions identical; G within 1e-13 (every operation a
+    __d*_rn intrinsic in the plain version's order, so bit-equal in
+    practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = sweep_inputs(N + 7, 16, F, N)
+    G, u = (torch.from_numpy(x.astype(np.float64)).to(cuda) for x in (G, u))
+    sigma = torch.from_numpy(sigma).to(cuda)
+    n0, n1 = ss.site_sweep_f64.launches, ss.site_sweep.launches
+    out_k = ss.site_sweep_f64(G, sigma, u, **kw)
+    assert (ss.site_sweep_f64.launches, ss.site_sweep.launches) == (n0 + 1, n1)
+    out_p = ss.site_sweep_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < out_k[2].sum().item() < 16 * N
+    assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-13
+
+
+@pytest.mark.parametrize("dtype,N", [("f32", 8), ("f32", 64), ("f32", 72),
+                                     ("f32", 128), ("f64", 8), ("f64", 40),
+                                     ("f64", 64)])
+def test_qr_householder_kernel_matches_plain(cuda, dtype, N):
+    """K4 (float32) and K11 (float64) on graded, prescaled, pivoted input: Q
+    and R within 1e-5 (float32) or 1e-12 (float64) of their largest entries
+    (the kernels sum in another order than the plain version); R exactly
+    upper triangular; K11's Q orthogonal to 1e-13."""
+    f64 = dtype == "f64"
+    fn, tol = (qh.qr_f64, 1e-12) if f64 else (qh.qr_f32, 1e-5)
+    Ap, _ = (t.to(cuda) for t in graded(N, 32, N, float64=f64))
+    n0 = fn.launches
+    Qk, Rk = fn(Ap)
+    assert fn.launches == n0 + 1
+    Qp, Rp = qh.householder_qr_plain(Ap)
+    _close(Qk, Qp, tol)
+    _close(Rk, Rp, tol)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+    if f64:
+        eye = torch.eye(N, dtype=Qk.dtype, device=cuda)
+        assert (Qk.mT @ Qk - eye).abs().max().item() < 1e-13
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_qr_householder_kernel_zero_and_subnormal_columns(cuda, dtype):
+    """Zero columns get H = I and R_jj = 0; a float32 subnormal v.v gets
+    tau = 0, not inf, and a float64 subnormal ||x||^2 H = I: finite, and Q
+    stays orthogonal."""
+    f64 = dtype == "f64"
+    fn = qh.qr_f64 if f64 else qh.qr_f32
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, 16, decades=2.0, float64=f64))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * (1e-175 if f64 else 1e-35)
+    Q, R = fn(Ap)
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    eye = torch.eye(16, dtype=Q.dtype, device=cuda)
+    assert (Q.mT @ Q - eye).abs().max().item() < (1e-13 if f64 else 1e-5)
+    assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
+    _close(Q, qh.householder_qr_plain(Ap)[0], 1e-12 if f64 else 1e-5)
+
+
 def test_wrappers_check_inputs(cuda):
     G = torch.zeros(2, 1, 16, 16, device=cuda, dtype=torch.float64)
     s = torch.ones(2, 16, device=cuda, dtype=torch.int8)
@@ -232,20 +296,43 @@ def test_wrappers_check_inputs(cuda):
         qcx.qr_cx(torch.zeros(2, 72, 72, **c64))
     with pytest.raises(ValueError, match="complex64"):
         qcx.qr_cx(torch.zeros(2, 16, 16, device=cuda))
+    f64 = dict(device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="N=136"):
+        qh.qr_f32(torch.zeros(2, 136, 136, device=cuda))
+    with pytest.raises(ValueError, match="N=72"):
+        qh.qr_f64(torch.zeros(2, 72, 72, **f64))
+    with pytest.raises(ValueError, match="float64"):
+        qh.qr_f64(torch.zeros(2, 16, 16, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        qh.qr_f32(torch.zeros(2, 16, 16, **f64))
+    with pytest.raises(ValueError, match="float64"):
+        ss.site_sweep_f64(torch.zeros(2, 1, 16, 16, device=cuda), s, u,
+                          lamb=LAMB, **MODELS["attractive"])
+    with pytest.raises(ValueError, match="N=128, F=2"):
+        ss.site_sweep_f64(torch.zeros(2, 2, 128, 128, **f64),
+                          torch.ones(2, 128, device=cuda, dtype=torch.int8),
+                          torch.zeros(2, 128, **f64), lamb=LAMB,
+                          **MODELS["repulsive"])
 
 
 def test_cuda_session_rejects_shapes_without_kernels(cuda):
     params = DQMCParameters(beta=1.0)
     model = lambda L: tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
     f32 = dict(dtype=torch.float32, device="cuda")
-    for L in (10, 3):       # 64 < N=100 <= 128 (K4); N=9, not 8 | N (UDT)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*K4"):
+    for L in (10, 3):       # N=100 and N=9: 8 does not divide N
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
             core.make_context(model(L), params, **f32)
     for L in (12, 16):      # K6 and K7: N=144 rank-1 blocks, N=256 delay 32
         ctx, _ = core.make_context(model(L), params, **f32)
         assert ctx.use_kernels and ctx.delay == (32 if L == 16 else 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.make_context(model(4), params, device="cuda")   # float64
+    # float64 (the default dtype) and mixed: K11 with K1 in float64 or
+    # float32 at 8 | N <= 64; float64 beyond N = 64 raises
+    for kw in (dict(), dict(update_dtype=torch.float32),
+               dict(stab_method="qr_colscaled")):
+        ctx, _ = core.make_context(model(4), params, device="cuda", **kw)
+        assert ctx.use_kernels and ctx.dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        core.make_context(model(9), params, device="cuda")    # N=81
     ctx, _ = core.make_context(model(4), params, device="cuda",
                                use_kernels=False)
     assert ctx.device.type == "cuda" and not ctx.use_kernels
@@ -283,6 +370,28 @@ def test_sweep_pair_kernel_path_matches_cpu(cuda, L, delay):
     assert same.float().mean().item() >= 0.9
     dG = (out["cpu"]["G"] - out["cuda"]["G"].cpu()).abs().flatten(1).amax(1)
     assert dG[same].max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("stab_method", ["qr", "qr_colscaled"])
+def test_f64_sweep_pair_kernel_path_matches_cpu(cuda, stab_method):
+    """One float64 sweep pair (the default dtype: K1 in float64 and K11) on
+    the card's kernel path and on the CPU's plain versions, from the same
+    state and uniforms: float64 rounding does not grow to O(1), so every
+    chain decides the same and G agrees to 1e-8."""
+    model = tmc.HubbardModelAttractive(dims=2, L=4, U=4.0)
+    params = DQMCParameters(beta=2.0, safe_mult=5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx, consts = core.make_context(model, params, device=dev,
+                                        stab_method=stab_method)
+        conf = model.rand_conf(torch.Generator().manual_seed(0), 8,
+                               params.slices, "cpu").to(dev)
+        u = torch.rand(8, 2 * ctx.M, ctx.N, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+        state = core.init_state(ctx, consts, conf)
+        out[dev] = core.sweep_pair(ctx, consts, state, u=u)[0]
+    assert torch.equal(out["cpu"]["conf"], out["cuda"]["conf"].cpu())
+    assert (out["cpu"]["G"] - out["cuda"]["G"].cpu()).abs().max().item() <= 1e-8
 
 
 def test_complex_sweep_pair_kernel_path_matches_cpu(cuda):

@@ -200,8 +200,7 @@ def test_make_context_pins_full_float32_matmuls():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(g_refresh=True), dict(checkerboard=True),
-    dict(stab_method="qr_colscaled")])
+    dict(g_refresh=True), dict(checkerboard=True), dict(stab_method="cholqr")])
 def test_make_context_rejects_unported_options(kw):
     kw = dict(kw)
     L = kw.pop("L", 2)

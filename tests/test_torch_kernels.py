@@ -24,6 +24,7 @@ from montecarlo_tpu.ops import pallas_qr
 from montecarlo_tpu.ops import pallas_site_sweep as pss
 from montecarlo_tpu_torch.ops import KERNELS, _build, qr, qr_blocked as qb
 from montecarlo_tpu_torch.ops import qr_cx as qcx
+from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -74,6 +75,10 @@ def test_site_sweep_kernel_shapes():
     assert ss.kernel_supports(64, 1) and ss.kernel_supports(128, 2)
     assert not ss.kernel_supports(129, 1)
     assert not ss.kernel_supports(64, 3)
+    f64 = torch.float64       # G of one chain in shared memory, twice as wide
+    assert ss.kernel_supports(128, 1, f64) and ss.kernel_supports(64, 2, f64)
+    assert ss.kernel_supports(119, 2, f64)
+    assert not ss.kernel_supports(120, 2, f64)
 
 
 # ---------------------------------------------------------------------------
@@ -335,9 +340,19 @@ def test_wrappers_raise_off_cpu_without_kernel():
                            **MODELS["attractive"])
     with pytest.raises(ValueError, match="no kernel for device"):
         qcx.qr_cx(torch.empty(2, 16, 16, dtype=torch.complex64, **m))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qh.qr_f32(torch.empty(2, 16, 16, **m))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qh.qr_f64(torch.empty(2, 16, 16, dtype=torch.float64, **m))
+    G = torch.empty(2, 1, 16, 16, dtype=torch.float64, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ss.site_sweep_f64(G, torch.empty(2, 16, dtype=torch.int8, **m),
+                          torch.empty(2, 16, dtype=torch.float64, **m),
+                          lamb=LAMB, **MODELS["attractive"])
     assert set(KERNELS) == {"site_sweep", "udt_qr", "udt_qr_solve",
                             "site_sweep_delayed", "qr_blocked",
-                            "site_sweep_cx", "qr_cx"}
+                            "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
+                            "site_sweep_f64"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -350,8 +365,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     objects into the shared library under the ignored build directory."""
     out = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "qr_blocked.cu", "qr_cx.cu", "site_sweep.cu", "site_sweep_cx.cu",
-        "site_sweep_delayed.cu", "udt_qr.cu"]
+        "qr_blocked.cu", "qr_cx.cu", "qr_householder.cu", "site_sweep.cu",
+        "site_sweep_cx.cu", "site_sweep_delayed.cu", "udt_qr.cu"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -365,7 +380,7 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     assert set(_build.SIGNATURES) == {
         "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
         "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
-        "qr_cx_c64"}
+        "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -42,20 +42,21 @@ def flux_theta(N, seed=1, amp=0.6):
     return a - a.T
 
 
-def graded(seed, B, N, decades=16.0, complex_=False):
-    """(Ap, mx): float32 (complex64 with complex_) matrices whose columns
-    are scaled over 2*decades e-folds (as tests/test_pallas_qr.py::_graded
-    scales them), with the well-conditioned core I + 0.3 randn / sqrt(N)
-    (complex randn of the same size), prescaled and pivoted as
-    udt_dirty does before its QR. A Gaussian core's condition number would
-    turn float32 rounding-order differences into errors far above the kernel
-    bounds (chip_smoke.py::graded gives the numbers)."""
+def graded(seed, B, N, decades=16.0, complex_=False, float64=False):
+    """(Ap, mx): float32 (complex64 with complex_, float64 with float64)
+    matrices whose columns are scaled over 2*decades e-folds (as
+    tests/test_pallas_qr.py::_graded scales them), with the well-conditioned
+    core I + 0.3 randn / sqrt(N) (complex randn of the same size), prescaled
+    and pivoted as udt_dirty does before its QR. A Gaussian core's condition
+    number would turn float32 rounding-order differences into errors far
+    above the kernel bounds (chip_smoke.py::graded gives the numbers)."""
     rng = np.random.default_rng(seed)
     noise = rng.normal(size=(B, N, N))
     if complex_:        # the same size in both parts
         noise = (noise + 1j * rng.normal(size=(B, N, N))) / np.sqrt(2)
     A = (np.eye(N) + 0.3 / np.sqrt(N) * noise) * np.exp(
         rng.uniform(-decades, decades, size=(B, 1, N)))
-    A = A.astype(np.complex64 if complex_ else np.float32)
+    A = A.astype(np.complex64 if complex_ else
+                 np.float64 if float64 else np.float32)
     Ap, mx, _ = _prescale_pivot(torch.from_numpy(A))
     return Ap.contiguous(), mx.reshape(-1).contiguous()

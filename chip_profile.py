@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [headline] [l16] [complex] [f64]
+    python3 chip_profile.py [headline] [l16] [complex] [f64] [repulsive]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -13,12 +13,14 @@ Runs each named configuration of chip_smoke.py (default: headline):
             256 chains, complex64 (kernels K8 and K10)
   f64       the headline model in strict float64 (DQMC's default dtype),
             128 chains (kernels K1 in float64 and K11)
+  repulsive the repulsive model (F=2) at the headline's settings, 256
+            chains, float32 (kernels K5, K2 and K3)
 
 and prints for each
 
   pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
-           (use_kernels=False; headline only: the plain path's per-site
-           launches take tens of seconds per sweep pair at 16x16) then
+           (use_kernels=False; not at 16x16, where the plain path's
+           per-site launches take tens of seconds per sweep pair) then
            kernel path again, synchronised wall
   layer    synchronised wall ms per call of sweep_slice, wrap_up,
            extend_left and calculate_greens at the path's shapes
@@ -52,7 +54,9 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
            "complex": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS, True,
                        F32),
            "f64": (smoke.headline_model, smoke.SAFE_MULT, smoke.F64_CHAINS,
-                   True, {})}
+                   True, {}),
+           "repulsive": (lambda: smoke.headline_model(repulsive=True),
+                         smoke.SAFE_MULT, smoke.CHAINS, True, F32)}
 
 
 def smi():

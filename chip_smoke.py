@@ -11,7 +11,8 @@ failure and prints no result line then):
   3. parity   each kernel against its plain PyTorch version on the card, at
               the shapes of the simulations below, with both times, the
               time of one library call computing the same function where
-              there is one, and the kernel's bound
+              there is one, and the kernel's bound; K5 also against K1 on
+              the same inputs, bit for bit, with both times in turns
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -25,13 +26,18 @@ failure and prints no result line then):
               window-end drift must stay below bench.py's 1e-6
   4e. mixed   the same with float32 updates over float64 stacks (K1, K11)
   4f. colscaled the headline with stab_method="qr_colscaled" (K1, K4)
+  4g. repulsive the repulsive model at the headline's settings (bench.py's
+              repulsive row: 8x8, U=4, beta=10, 256 chains, float32): K5,
+              K2, K3; measures the z spin correlations and magnetization,
+              and holds each flavor's occupation to 0.5, the mean m_z to 0
+              and the local moment above its U=0 value of 0.5
   5. paths    one sweep_pair on the kernel path and on the plain path
               (use_kernels=False) from the same state and uniforms, at
               the slice's safe_mult=10 and at safe_mult=1; at 16x16 the
               first slice visit of each path; complex: the first slice
               visit at safe_mult=5 and the whole pair at safe_mult=1;
               f64: the whole pair at safe_mult=10; colscaled as the
-              headline
+              headline, and so the repulsive run
   5b. phase   a second witness for the complex run's phase statistics: one
               sweep pair from its final configuration with the same
               uniforms on the kernel path, the plain path and the plain
@@ -68,6 +74,12 @@ ROOT = Path(__file__).resolve().parent
 L, U, MU, BETA, DTAU, SAFE_MULT, CHAINS = 8, 4.0, 0.0, 10.0, 0.1, 10, 256
 THERM, SWEEPS = 2, 4
 K1_F2_CHAINS = 128
+# the repulsive configuration (bench.py's repulsive row, bench_dqmc(
+# repulsive=True)): the headline's settings, 1 + 2 sweeps
+REP_THERM, REP_SWEEPS = 1, 2
+# |mean m_z| at half filling (spin symmetry), and the local moment's U=0
+# value at half filling, which any U > 0 raises
+MZ_TOL, MOMENT_U0 = 0.02, 0.5
 # the large-lattice configuration (bench.py's bench_dqmc(lattice_L=16,
 # chains=64)): N=256, delay auto = 32
 L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
@@ -126,6 +138,8 @@ KERNEL_INFO = {
     # no TPU kernel: the JAX package's float64 XLA site loop
     "site_sweep_f64": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
                        "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_pair": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
+                        "montecarlo_tpu/ops/pallas_site_sweep.py:341"),
 }
 
 
@@ -386,6 +400,50 @@ def phase_parity():
                     **sweep_bound(chains, ctx.F, ctx.N,
                                   out_k[2].sum().item(), complex_=cx))
 
+    # ---- K5 at (256, 2, 64, 64), the repulsive run's shape, and at
+    # (256, 1, 64, 64), on real Green's functions (plain-path init_state),
+    # against its plain version and against K1 on the same inputs, bit for
+    # bit; K5's and K1's times in turns on the F=2 inputs
+    for repulsive in (True, False):
+        ctx, _, state, gen = real_state(headline_model(repulsive), CHAINS, 12,
+                                        use_kernels=False)
+        G = state["G"]
+        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+        u = torch.rand(CHAINS, ctx.N, generator=gen, device=DEVICE)
+        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+                  use_boson=ctx.use_boson)
+        out_k = ss.site_sweep_pair(G, sigma, u, **kw)
+        shape = tuple(G.shape)
+        err = check_sweep("site_sweep_pair", out_k,
+                          ss.site_sweep_pair_plain(G, sigma, u, **kw), shape,
+                          relative=False, tol=0.0)
+        err = max(err, check_sweep("site_sweep_pair vs K1", out_k,
+                                   ss.site_sweep(G, sigma, u, **kw), shape,
+                                   relative=False, tol=0.0))
+        flips = (out_k[1] != sigma).reshape(CHAINS, -1, 2)
+        counts = [int(((flips[..., 0] == a) & (flips[..., 1] == b)).sum())
+                  for a, b in ((False, False), (True, False), (False, True),
+                               (True, True))]
+        log(f"[parity] site_sweep_pair {shape}: site pairs with neither, "
+            f"only the first, only the second, both accepted: {counts}")
+        if not repulsive:
+            continue
+        pair = lambda: ss.site_sweep_pair(G, sigma, u, **kw)
+        k1 = lambda: ss.site_sweep(G, sigma, u, **kw)
+        t_pair, t_k1 = [], []
+        for _ in range(2):
+            t_pair.append(1e3 * timed(pair, 50))
+            t_k1.append(1e3 * timed(k1, 50))
+        log(f"[parity] site_sweep_pair {shape}: K5 {t_pair[0]:.4f}, "
+            f"{t_pair[1]:.4f} ms; K1 on the same inputs {t_k1[0]:.4f}, "
+            f"{t_k1[1]:.4f} ms (in turns)")
+        results["site_sweep_pair"] = dict(
+            max_abs_err=err, ms=min(t_pair),
+            plain_ms=1e3 * timed(lambda: ss.site_sweep_pair_plain(
+                G, sigma, u, **kw), 5),
+            library_ms=None,
+            **sweep_bound(CHAINS, ctx.F, ctx.N, out_k[2].sum().item()))
+
     # ---- K2, K3 at (256, 64, 64) on graded, prescaled, pivoted input
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     B, N = CHAINS, L * L
@@ -557,24 +615,47 @@ def phase_parity():
     return results
 
 
+def sweep_kernel(ctx):
+    """The site-sweep kernel a session's main path launches: K8 for complex
+    G, K6 past N = 128, K1 in float64 for float64 updates, K5 for float32
+    updates with F >= 2 at even N, else K1."""
+    import torch
+    if ctx.is_complex:
+        return "site_sweep_cx"
+    if ctx.N > 128:
+        return "site_sweep_delayed"
+    if ctx.udtype == torch.float64:
+        return "site_sweep_f64"
+    if ctx.F >= 2 and ctx.N % 2 == 0:
+        return "site_sweep_pair"
+    return "site_sweep"
+
+
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
-                complex_=False, session=None):
+                complex_=False, session=None, repulsive=False):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
-    with pure-gauge Peierls phases at safe_mult=5: K8, K10), or with
-    session (DQMC's dtype, update_dtype and stab_method; None: float32) the
-    f64 (DQMC's defaults: K1 in float64, K11), mixed (K1, K11) and
-    colscaled (K1, K4) ones."""
+    with pure-gauge Peierls phases at safe_mult=5: K8, K10), with session
+    (DQMC's dtype, update_dtype and stab_method; None: float32) the f64
+    (DQMC's defaults: K1 in float64, K11), mixed (K1, K11) and colscaled
+    (K1, K4) ones, or the repulsive one (K5, K2, K3), which also measures
+    the z spin correlations and magnetization and is held to its anchors
+    (``repulsive_anchors``)."""
     import torch
-    from montecarlo_tpu_torch import DQMC
+    from montecarlo_tpu_torch import (DQMC, magnetization,
+                                      spin_density_correlation)
     from montecarlo_tpu_torch.ops import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
     session = dict(dtype=torch.float32) if session is None else session
-    sim = DQMC(complex_model() if complex_ else headline_model(L=L),
-               beta=BETA, delta_tau=DTAU,
+    model = (complex_model() if complex_
+             else headline_model(repulsive=repulsive, L=L))
+    sim = DQMC(model, beta=BETA, delta_tau=DTAU,
                safe_mult=CPLX_SM if complex_ else SAFE_MULT, n_chains=chains,
                measure_rate=1, seed=0, device=DEVICE, **session)
+    if repulsive:
+        sim["sdc_z"] = spin_density_correlation(sim, model, "z")
+        sim["m_z"] = magnetization(sim, model, "z")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run(thermalization=therm, sweeps=sweeps, verbose=False)
@@ -585,23 +666,22 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     ctx = sim.ctx
     n_pairs = therm + sweeps
     expected = dict.fromkeys(KERNELS, 0)
-    # every extend and Green's recomputation runs one unfused QR
+    # one site sweep per slice visit; every extend and Green's recomputation
+    # runs one unfused QR (or, fused, one K2 per extend and one K3 per
+    # recomputation)
+    expected[sweep_kernel(ctx)] = 2 * ctx.M * n_pairs
     n_qr = 4 * ctx.n_seg * n_pairs + ctx.n_seg + 1
     if ctx.is_complex:
-        expected.update(site_sweep_cx=2 * ctx.M * n_pairs, qr_cx=n_qr)
+        expected.update(qr_cx=n_qr)
     elif ctx.dtype == torch.float64:
-        sweep = ("site_sweep_f64" if ctx.udtype == torch.float64
-                 else "site_sweep")
-        expected.update({sweep: 2 * ctx.M * n_pairs, "qr_f64": n_qr})
+        expected.update(qr_f64=n_qr)
     elif ctx.stab_method == "qr_colscaled":
-        expected.update(site_sweep=2 * ctx.M * n_pairs, qr_f32=n_qr)
+        expected.update(qr_f32=n_qr)
     elif ctx.N <= 128:
-        expected.update(site_sweep=2 * ctx.M * n_pairs,
-                        udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
+        expected.update(udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
                         udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
     else:
-        expected.update(site_sweep_delayed=2 * ctx.M * n_pairs,
-                        qr_blocked=n_qr)
+        expected.update(qr_blocked=n_qr)
     log(f"[{tag}] launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError("kernel launch counts differ from the path's")
@@ -627,6 +707,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
         raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
     if not abs(occ - 0.5) <= OCC_TOL:
         raise AssertionError(f"occupation {occ} not within 0.5 +- {OCC_TOL}")
+    if repulsive:
+        repulsive_anchors(sim, tag)
     if ctx.is_complex:
         sign = complex(sim.observables()["sign"]["sign"].mean)
         a = sim.analysis
@@ -639,6 +721,38 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
             raise AssertionError(f"average phase {sign} (sign), {a.avg_phase} "
                                  f"(running) not within 1 +- {PHASE_TOL}")
     return sim, launches, rate
+
+
+def repulsive_anchors(sim, tag):
+    """The repulsive run's physics at half filling: each flavor's
+    occupation 0.5, the mean z magnetization 0 (spin symmetry), the local
+    moment (the distance-0 bin of the z spin correlation, <(n_up -
+    n_dn)^2>) above its U=0 value 0.5. The nearest-neighbor z correlation
+    and the negative-detratio count are printed, not held: three sweeps
+    need not show antiferromagnetic order, and at half filling the exact
+    detratio is >= 0."""
+    import numpy as np
+    obs = sim.observables()
+    occ_f = np.mean(obs["occ"]["occ"].mean, axis=-1)          # (F,)
+    mz = float(np.mean(obs["m_z"]["m_z"].mean))
+    sdc = obs["sdc_z"]["sdc_z"].mean                           # (n_dirs,)
+    dirs = sim.model.lattice.directions
+    nn = np.isclose(np.linalg.norm(dirs, axis=-1), 1.0)
+    moment, sdc_nn = float(sdc[0]), float(np.mean(sdc[nn]))
+    log(f"[{tag}] occupation per flavor {occ_f.round(5).tolist()}; mean m_z "
+        f"{mz:.3e}; local moment <m_z^2> {moment:.5f} (U=0: {MOMENT_U0}); "
+        f"nearest-neighbor z spin correlation {sdc_nn:.5f} (mean of "
+        f"{int(nn.sum())} bins); negative detratios "
+        f"{sim.analysis.negative_probability.count} of "
+        f"{sim.analysis.prop_local}")
+    if not np.all(np.abs(occ_f - 0.5) <= OCC_TOL):
+        raise AssertionError(f"flavor occupations {occ_f} not within "
+                             f"0.5 +- {OCC_TOL}")
+    if not abs(mz) <= MZ_TOL:
+        raise AssertionError(f"mean m_z {mz} not within 0 +- {MZ_TOL}")
+    if not moment > MOMENT_U0:
+        raise AssertionError(f"local moment {moment} not above its U=0 "
+                             f"value {MOMENT_U0}")
 
 
 def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
@@ -670,8 +784,8 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
         if whole_pair:
             whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
     share_first = (first[0] == first[1]).all(1).float().mean().item()
-    tag = (f"{int(math.sqrt(N))}x{int(math.sqrt(N))} {str(ctx_k.dtype)[6:]} "
-           f"{ctx_k.stab_method} safe_mult={ctx_k.sm}")
+    tag = (f"{int(math.sqrt(N))}x{int(math.sqrt(N))} F={F} "
+           f"{str(ctx_k.dtype)[6:]} {ctx_k.stab_method} safe_mult={ctx_k.sm}")
     if not whole_pair:
         log(f"[paths] {tag} delay={ctx_k.delay}: first slice visit agrees in "
             f"{share_first:.4f} of {C} chains")
@@ -682,16 +796,19 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     drift = {name: (s["prop_err_max"].max().item(),
                     (s["prop_err_sum"].sum() / s["prop_err_n"].sum()).item())
              for name, s in (("kernel", sk), ("plain", sp))}
+    neg = [int((s["neg_prob"] - state["neg_prob"]).sum()) for s in whole]
     log(f"[paths] {tag}: first slice visit agrees in "
         f"{share_first:.4f} of {C} chains, the whole sweep pair in "
         f"{same.float().mean().item():.4f}; median max|dG| after it "
         f"{dG.median().item():.3e}; drift max/mean kernel "
         f"{drift['kernel'][0]:.3e}/{drift['kernel'][1]:.3e}, plain "
-        f"{drift['plain'][0]:.3e}/{drift['plain'][1]:.3e}")
+        f"{drift['plain'][0]:.3e}/{drift['plain'][1]:.3e}; negative "
+        f"detratios kernel {neg[0]}, plain {neg[1]} of "
+        f"{C * 2 * ctx_k.M * N}")
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim, sim16, simcx, sim64, simcs):
+def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -707,21 +824,23 @@ def phase_paths(sim, sim16, simcx, sim64, simcs):
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=1)
-    for s, stab, seed in ((sim, "qr", 3), (simcs, "qr_colscaled", 10)):
+    for s, stab, seed in ((sim, "qr", 3), (simcs, "qr_colscaled", 10),
+                          (simrep, "qr", 12)):
+        repulsive = s.ctx.F == 2
         first, _ = compare_paths(s.ctx, s.consts, s.state, seed)
         if not first >= MIN_CONF_AGREE:
-            raise AssertionError(f"kernel and plain paths ({stab}) agree on "
-                                 f"the first slice visit in only "
-                                 f"{first:.3f} of the chains")
-        ctx1, consts1 = core.make_context(headline_model(), params,
+            raise AssertionError(f"kernel and plain paths ({stab}, F="
+                                 f"{s.ctx.F}) agree on the first slice "
+                                 f"visit in only {first:.3f} of the chains")
+        ctx1, consts1 = core.make_context(headline_model(repulsive), params,
                                           dtype=torch.float32, device=DEVICE,
                                           stab_method=stab)
         state1 = core.init_state(ctx1, consts1, s.state["conf"])
         _, whole = compare_paths(ctx1, consts1, state1, seed + 1)
         if not whole >= MIN_CONF_AGREE:
-            raise AssertionError(f"kernel and plain paths ({stab}) agree in "
-                                 f"only {whole:.3f} of the chains at "
-                                 "safe_mult=1")
+            raise AssertionError(f"kernel and plain paths ({stab}, F="
+                                 f"{s.ctx.F}) agree in only {whole:.3f} of "
+                                 "the chains at safe_mult=1")
     # f64: K1 in float64 + K11 against site_sweep_plain + torch.linalg.qr
     _, whole = compare_paths(sim64.ctx, sim64.consts, sim64.state, 11)
     if not whole >= MIN_CONF_AGREE_F64:
@@ -835,10 +954,12 @@ def main():
     simcs, launchescs, _ = phase_slice(
         therm=X_THERM, sweeps=X_SWEEPS, tag="colscaled",
         session=dict(dtype=torch.float32, stab_method="qr_colscaled"))
+    simrep, launchesrep, _ = phase_slice(therm=REP_THERM, sweeps=REP_SWEEPS,
+                                         tag="repulsive", repulsive=True)
     runs = (launches, launches16, launchescx, launches64, launchesmx,
-            launchescs)
+            launchescs, launchesrep)
     launches = {k: sum(r[k] for r in runs) for k in launches}
-    phase_paths(sim, sim16, simcx, sim64, simcs)
+    phase_paths(sim, sim16, simcx, sim64, simcs, simrep)
     phase_witness(simcx)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])

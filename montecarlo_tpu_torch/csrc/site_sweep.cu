@@ -33,6 +33,23 @@
 //
 // The TPU kernel's chain-on-lanes layout, one-hot contractions and
 // grid-as-site-loop are Mosaic workarounds and are not carried over.
+//
+// The delay-2 paired-site instance (site_sweep_pair_f32, kernel K5)
+// replaces montecarlo_tpu/ops/pallas_site_sweep.py::_batched_kernel_pair,
+// which the JAX package runs for every float32 session with F >= 2 and even
+// N <= 128. Its plain PyTorch version is
+// montecarlo_tpu_torch/ops/site_sweep.py::site_sweep_pair_plain. It computes
+// K1's Markov chain two sites (i, j = i+1) at a time: site i is decided from
+// the current G; site j's row, column and diagonal are corrected exactly from
+// site i's rank-1 terms (row'_j = row_j - xIG_i[j]*row_i, col'_j = col_j -
+// xIG_i*row_i[j]) and site j is decided from them; both updates then land in
+// one read-modify-write pass, G <- (G - xIG_i (x) row_i) - xIG_j (x) row'_j.
+// Same bound as K1 (shared-memory RMW traffic and barriers inside one
+// block); the pairing halves what an accepted pair costs: one staging pass,
+// one RMW pass and two barriers instead of two of each. Every thread decides
+// both sites from the shared values before anything is written (G[i,i],
+// G[j,i], G[i,j], G[j,j] are four scalars per flavor), and every operation
+// is K1's _rn operation in K1's order, so K5 is bit-equal to K1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,6 +170,157 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
   }
 }
 
+// Metropolis decision of one site from the flavors' diagonal entries g[f]
+// (the current G_f[s, s]), in K1's op order: returns accept and sets the
+// rank-1 coefficients x[f] = delta_f / r_f and the detratio det.
+template <int F>
+__device__ __forceinline__ bool decide_site(int8_t s8, float u_s,
+                                            const float (&g)[F],
+                                            float neg2lamb, float sign0,
+                                            float sign1, int det_power,
+                                            int use_boson, float (&x)[F],
+                                            float& det) {
+  const float dEb = mul_rn(neg2lamb, (float)s8);
+  float rprod = 1.f;
+  for (int f = 0; f < F; ++f) {
+    const float sg = f == 0 ? sign0 : sign1;
+    const float delta = sub_rn(expf(mul_rn(sg, dEb)), 1.f);
+    const float r = add_rn(1.f, mul_rn(delta, sub_rn(1.f, g[f])));
+    x[f] = div_rn(delta, r);
+    rprod = f == 0 ? r : mul_rn(rprod, r);
+  }
+  det = rprod;
+  for (int k = 1; k < det_power; ++k) det = mul_rn(det, rprod);
+  const float w = use_boson ? expf(-dEb) : 1.f;
+  return u_s < mul_rn(w, det);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+site_sweep_pair_kernel(const float* __restrict__ G_in,
+                       float* __restrict__ G_out,
+                       const int8_t* __restrict__ sigma_in,
+                       int8_t* __restrict__ sigma_out,
+                       const float* __restrict__ u, int* __restrict__ acc_out,
+                       int* __restrict__ nneg_out, int N, float lamb,
+                       float sign0, float sign1, int det_power,
+                       int use_boson) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LD = N + 1;
+  float* Gs = reinterpret_cast<float*>(smem_raw);  // [f][a][b], as K1
+  float* rows_i = Gs + F * N * LD;  // [f][b]: G_f[i, b]
+  float* cols_i = rows_i + F * N;   // [f][a]: xIG_i = x_i (e_i - G_f[:, i])
+  float* rows_j = cols_i + F * N;   // [f][b]: row'_j
+  float* cols_j = rows_j + F * N;   // [f][a]: xIG_j = x_j (e_j - col'_j)
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int tx = tid % N, ty = tid / N, rstep = blockDim.x / N;
+  const bool active = ty < rstep;
+  const size_t base = (size_t)c * F * N * N;
+
+  if (active) {
+    for (int f = 0; f < F; ++f)
+      for (int a = ty; a < N; a += rstep)
+        Gs[(f * N + a) * LD + tx] = G_in[base + (size_t)(f * N + a) * N + tx];
+  }
+  __syncthreads();
+
+  const float neg2lamb = mul_rn(-2.f, lamb);
+  int acc = 0, nneg = 0;
+  for (int i = 0; i < N; i += 2) {
+    const int j = i + 1;
+    const int8_t si = sigma_in[c * N + i], sj = sigma_in[c * N + j];
+    // ---- site i from the current G
+    float g[F], xi[F], xj[F], det_i, det_j;
+    for (int f = 0; f < F; ++f) g[f] = Gs[(f * N + i) * LD + i];
+    const bool acc_i = decide_site<F>(si, u[c * N + i], g, neg2lamb, sign0,
+                                      sign1, det_power, use_boson, xi, det_i);
+    // ---- site j from its diagonal corrected by site i's rank-1 terms:
+    // cj = xIG_i[j] (e_i[j] = 0), ri = row_i[j]
+    float cj[F], ri[F];
+    for (int f = 0; f < F; ++f) {
+      cj[f] = mul_rn(xi[f], sub_rn(0.f, Gs[(f * N + j) * LD + i]));
+      ri[f] = Gs[(f * N + i) * LD + j];
+      const float gjj = Gs[(f * N + j) * LD + j];
+      g[f] = acc_i ? sub_rn(gjj, mul_rn(cj[f], ri[f])) : gjj;
+    }
+    const bool acc_j = decide_site<F>(sj, u[c * N + j], g, neg2lamb, sign0,
+                                      sign1, det_power, use_boson, xj, det_j);
+    if (tid == 0) {
+      acc += acc_i + acc_j;
+      nneg += (det_i < 0.f) + (det_j < 0.f);
+      sigma_out[c * N + i] = acc_i ? (int8_t)(-si) : si;
+      sigma_out[c * N + j] = acc_j ? (int8_t)(-sj) : sj;
+    }
+    if (!acc_i && !acc_j) continue;  // block-uniform, as in K1
+    // ---- stage both rank-1 terms from the pre-update G (one pass)
+    for (int e = tid; e < F * N; e += blockDim.x) {
+      const int f = e / N, a = e - f * N;
+      // constant indices keep the per-flavor scalars in registers
+      const float x_i = f == 0 ? xi[0] : xi[F - 1];
+      const float x_j = f == 0 ? xj[0] : xj[F - 1];
+      const float c_j = f == 0 ? cj[0] : cj[F - 1];
+      const float r_i = f == 0 ? ri[0] : ri[F - 1];
+      const float gi = Gs[(f * N + i) * LD + a];  // row_i[a]
+      const float ci = mul_rn(x_i, sub_rn(a == i ? 1.f : 0.f,
+                                          Gs[(f * N + a) * LD + i]));
+      rows_i[e] = gi;
+      cols_i[e] = ci;
+      if (acc_j) {
+        float rj = Gs[(f * N + j) * LD + a];  // row_j[a]
+        float colj = Gs[(f * N + a) * LD + j];  // col_j[a]
+        if (acc_i) {
+          rj = sub_rn(rj, mul_rn(c_j, gi));
+          colj = sub_rn(colj, mul_rn(ci, r_i));
+        }
+        rows_j[e] = rj;
+        cols_j[e] = mul_rn(x_j, sub_rn(a == j ? 1.f : 0.f, colj));
+      }
+    }
+    __syncthreads();
+    // ---- both updates in one read-modify-write pass
+    if (active) {
+      for (int f = 0; f < F; ++f) {
+        const float rbi = rows_i[f * N + tx], rbj = rows_j[f * N + tx];
+        for (int a = ty; a < N; a += rstep) {
+          float* gp = &Gs[(f * N + a) * LD + tx];
+          float v = *gp;
+          if (acc_i) v = sub_rn(v, mul_rn(cols_i[f * N + a], rbi));
+          if (acc_j) v = sub_rn(v, mul_rn(cols_j[f * N + a], rbj));
+          *gp = v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    for (int f = 0; f < F; ++f)
+      for (int a = ty; a < N; a += rstep)
+        G_out[base + (size_t)(f * N + a) * N + tx] = Gs[(f * N + a) * LD + tx];
+  }
+  if (tid == 0) {
+    acc_out[c] = acc;
+    nneg_out[c] = nneg;
+  }
+}
+
+template <int F>
+int launch_pair(const float* G_in, float* G_out, const int8_t* sigma_in,
+                int8_t* sigma_out, const float* u, int* acc, int* nneg, int C,
+                int N, float lamb, float sign0, float sign1, int det_power,
+                int use_boson, cudaStream_t stream) {
+  const size_t smem = (size_t)(F * N * (N + 1) + 4 * F * N) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_pair_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  site_sweep_pair_kernel<F><<<C, kThreads, smem, stream>>>(
+      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, N, lamb, sign0, sign1,
+      det_power, use_boson);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int F>
 int launch(const T* G_in, T* G_out, const int8_t* sigma_in,
            int8_t* sigma_out, const T* u, int* acc, int* nneg, int C,
@@ -198,6 +366,25 @@ extern "C" int site_sweep_f32(const float* G_in, float* G_out,
                               void* stream) {
   return dispatch<float>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, F,
                          N, lamb, sign0, sign1, det_power, use_boson, stream);
+}
+
+// K5: even N <= 128, F in {1,2}, float32.
+extern "C" int site_sweep_pair_f32(const float* G_in, float* G_out,
+                                   const int8_t* sigma_in, int8_t* sigma_out,
+                                   const float* u, int* acc, int* nneg, int C,
+                                   int F, int N, float lamb, float sign0,
+                                   float sign1, int det_power, int use_boson,
+                                   void* stream) {
+  if (C == 0) return 0;
+  if (N < 2 || N > 128 || N % 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F == 1)
+    return launch_pair<1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C,
+                          N, lamb, sign0, sign1, det_power, use_boson, st);
+  if (F == 2)
+    return launch_pair<2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C,
+                          N, lamb, sign0, sign1, det_power, use_boson, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int site_sweep_f64(const double* G_in, double* G_out,

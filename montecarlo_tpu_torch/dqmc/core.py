@@ -14,7 +14,8 @@ Index conventions (0-based, as in the JAX package):
     after a down sweep: S[j] = UDT(B_{j*sm}^†...B_{M-1}^†) for j < n_seg
         (right products; S[n_seg] holds the identity)
 
-Ported: the rank-1 and the delayed rank-k site sweeps with the QR
+Ported: the rank-1 site sweep (sequential, and for F >= 2 in float32 at
+even N two sites at a time), the delayed rank-k site sweep, with the QR
 stabilizations (stab_method "qr" and "qr_colscaled") for real hopping in
 float32, float64 and mixed precision, and the rank-1 sweep for complex
 hopping (Peierls phases) with its phase-problem statistics: the
@@ -38,7 +39,8 @@ from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
 from ..ops.linalg import (calculate_greens, permute_rows, scatter_columns,
                           udt_dirty, udt_dirty_colscaled)
-from ..ops.site_sweep import (MAX_N, site_sweep, site_sweep_f64,
+from ..ops.site_sweep import (MAX_N, pair_supports, site_sweep,
+                              site_sweep_f64, site_sweep_pair,
                               site_sweep_plain)
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
 from ..utils.host import real_dtype, resolve_device
@@ -63,7 +65,7 @@ class DQMCContext:
     # the UDT stacks and stabilized recomputations stay in dtype
     update_dtype: torch.dtype = None
     prop_err_threshold: float = 1e-7
-    # hand-written kernels on CUDA (K1-K4 and K11 for N <= 128, K6 and K7
+    # hand-written kernels on CUDA (K1-K5 and K11 for N <= 128, K6 and K7
     # beyond, K8 and K10 for complex), their plain versions on CPU; False
     # runs the plain site sweeps and the library QR/solve on any device
     use_kernels: bool = True
@@ -212,11 +214,13 @@ def _delay(N, delay):
 
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
     """Raise unless a kernel takes every shape of a CUDA session, for either
-    stabilization. Real sessions: the site sweep (K1 in the update dtype for
-    N <= 128, K6 beyond in float32) and the QR of the stack dtype: float32
-    K2/K3 and K4 for 8 | N <= 128 and K7 for 8 | N > 128, float64 K11 for
-    8 | N <= 64 (float64 stacks with float32 or float64 updates). Complex64
-    sessions: K8 and K10 (8 | N <= 64, F <= 2)."""
+    stabilization. Real sessions: the site sweep (N <= 128: K5 for float32
+    updates with F = 2 at even N, else K1 in the update dtype; K6 beyond in
+    float32; K5 takes every shape K1 takes at even N) and the QR of the
+    stack dtype: float32 K2/K3 and K4 for 8 | N <= 128 and K7 for
+    8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with float32 or
+    float64 updates). Complex64 sessions: K8 and K10 (8 | N <= 64,
+    F <= 2)."""
     if dtype.is_complex or udtype.is_complex:
         if dtype != torch.complex64 or udtype != torch.complex64:
             raise _not_ported("CUDA kernels for complex128 (use_kernels=False "
@@ -329,9 +333,10 @@ def sweep_slice(ctx, G, sigma, u):
     instead: every site's accept flag and complex detratio, for
     ``_track_detratio_batch``.
 
-    Dispatch as in the JAX engine: the kernel path runs K1 (rank-1, float32
-    or float64 as G) for N <= 128 and K6 (delayed, blocks of max(delay, 1)
-    sites) beyond, and K8 for complex G; the plain path runs
+    Dispatch as in the JAX engine: the kernel path runs, for N <= 128, K5
+    (two sites at a time) for float32 G with F >= 2 at even N and K1
+    (rank-1, float32 or float64 as G) otherwise; K6 (delayed, blocks of
+    max(delay, 1) sites) beyond, and K8 for complex G; the plain path runs
     ``sweep_slice_delayed`` when delay > 1, else the plain version of the
     rank-1 kernel (K1's, or K8's for complex G)."""
     sigma, u = sigma.contiguous(), u.contiguous()
@@ -343,7 +348,12 @@ def sweep_slice(ctx, G, sigma, u):
         return _sscx.site_sweep_cx_plain(G, sigma, u, **kw)
     if ctx.use_kernels:
         if ctx.N <= MAX_N:
-            fn = site_sweep_f64 if G.dtype == torch.float64 else site_sweep
+            if G.dtype == torch.float64:
+                fn = site_sweep_f64
+            elif ctx.F >= 2 and pair_supports(ctx.N, ctx.F, G.dtype):
+                fn = site_sweep_pair
+            else:
+                fn = site_sweep
             return fn(G, sigma, u, **kw)
         return _ssd.site_sweep_delayed(G, sigma, u, dk=max(ctx.delay, 1), **kw)
     if ctx.delay > 1:

@@ -136,6 +136,26 @@ class DQMC:
     def conf(self):
         return self.state["conf"]
 
+    def reset(self):
+        """Rebuild every measurement's binners, empty, and restart the sweep
+        count; the chain state is kept."""
+        for registry in (self.measurements, self.thermalization_measurements):
+            for k, meas in registry.measurements.items():
+                registry.states[k] = meas.bind(self.n_chains, self.device)
+        self.last_sweep = 0
+        return self
+
+    def __setitem__(self, key, measurement):
+        """sim[key] = measurement: add a measurement (empty binners)."""
+        self.measurements.add(key, measurement, self.n_chains, self.device)
+
+    def __delitem__(self, key):
+        self.measurements.remove(key)
+
+    def __getitem__(self, key):
+        """The observable results of measurement ``key``."""
+        return self.measurements[key]
+
     def __repr__(self):
         p = self.parameters
         return (f"DQMC simulation of {self.model!r} (beta={p.beta}, "

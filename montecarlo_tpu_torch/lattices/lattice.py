@@ -1,14 +1,17 @@
 """Bravais lattices with a basis (numpy only).
 
 Counterpart of montecarlo_tpu/lattices/lattice.py, restricted to what the
-DQMC engine reads: site count, bonds and the neighbor table. Site numbering
-and bond order are the JAX package's, so hopping matrices agree bit for bit.
+DQMC engine and its equal-time measurements read: site count, bonds, the
+neighbor table, and the binning of site pairs by their minimal periodic
+displacement. Site numbering, bond order and direction bins are the JAX
+package's, so hopping matrices and binned observables agree bit for bit.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
+from functools import cached_property
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +39,7 @@ class Lattice:
     Attributes (all host numpy):
       n_sites         total number of sites N
       positions       (N, dim) cartesian positions
+      cell_vectors    (dim, dim) periodicity vectors L_i * a_i
       neighbor_table  (N, z_max) int32 directed neighbors, -1 padded
       bonds           (n_bonds, 3) int32 (src, trg, type), each undirected
                       bond once
@@ -64,6 +68,7 @@ class Lattice:
         for ci, c in enumerate(self._cells):
             for b in range(nb):
                 self.positions[nb * ci + b] = c @ A + uc.basis[b]
+        self.cell_vectors = (np.array(self.shape)[:, None] * A).astype(float)
 
         self._build_bonds()
         self._build_neighbor_table()
@@ -111,3 +116,95 @@ class Lattice:
         if not directed:
             return und
         return np.concatenate([und, und[:, ::-1]], axis=0)
+
+    def lattice_vectors(self) -> np.ndarray:
+        return self.cell_vectors
+
+    # ------------------------------------------------------ direction binning
+    @cached_property
+    def _pair_binning(self):
+        return _bin_pairs_by_distance(self.positions, self.cell_vectors)
+
+    @property
+    def pair_dir(self) -> np.ndarray:
+        """(N, N) int32: pair_dir[src, trg] = direction-bin index of the
+        minimal periodic displacement pos[src] - pos[trg], bins sorted by
+        directed norm, bin 0 = onsite."""
+        return self._pair_binning[0]
+
+    @property
+    def directions(self) -> np.ndarray:
+        """(n_dirs, dim) displacement vector of each direction bin."""
+        return self._pair_binning[1]
+
+    @property
+    def n_dirs(self) -> int:
+        return self._pair_binning[1].shape[0]
+
+    def target_by_direction(self, K: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(N, K) int32 table trg[src, k] = the site at direction k from src,
+        and its (N, K) validity mask (a direction with no target from src is
+        masked; a periodic Bravais lattice with a basis has at most one)."""
+        pd = self.pair_dir
+        N = self.n_sites
+        trg = -np.ones((N, K), dtype=np.int32)
+        for src in range(N):
+            for t in range(N):
+                d = pd[src, t]
+                if d < K:
+                    trg[src, d] = t
+        return trg, trg >= 0
+
+
+def _directed_norm(v: np.ndarray, eps: float = 1e-6) -> float:
+    """norm + eps * polar angle: a unique sort key for 2D directions."""
+    l = np.linalg.norm(v)
+    if v.shape[0] == 2 and l > eps:
+        ang = np.arccos(np.clip(v[0] / l, -1.0, 1.0))
+        if v[1] < 0:
+            ang = 2 * np.pi - ang
+        return l + eps * ang
+    return l
+
+
+def _bin_pairs_by_distance(positions: np.ndarray, cell_vectors: np.ndarray,
+                           eps: float = 1e-6):
+    """(pair_dir, directions): every (src, trg) pair binned by its minimal
+    periodic displacement pos[src] - pos[trg] (the wrap of least directed
+    norm), the bins sorted by directed norm."""
+    N, dim = positions.shape
+    shifts = _generate_combinations(cell_vectors)
+    disp = positions[:, None, :] - positions[None, :, :]            # (N,N,dim)
+    cand = disp[:, :, None, :] + shifts[None, None, :, :]          # (N,N,S,dim)
+    norms = np.linalg.norm(cand, axis=-1)
+    if dim == 2:
+        l = norms
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ang = np.arccos(np.clip(
+                cand[..., 0] / np.where(l > eps, l, 1.0), -1, 1))
+        ang = np.where(cand[..., 1] < 0, 2 * np.pi - ang, ang)
+        key = np.where(l > eps, l + eps * ang, l)
+    else:
+        key = norms
+    best = np.argmin(key + 1e-12 * np.arange(len(shifts)), axis=-1)
+    md = np.take_along_axis(cand, best[:, :, None, None], axis=2)[:, :, 0, :]
+    # unique directions within eps, quantized
+    q = np.round(md / eps).astype(np.int64)
+    uniq, inv = np.unique(q.reshape(-1, dim), axis=0, return_inverse=True)
+    uniq_vecs = uniq * eps
+    keys = np.array([_directed_norm(v, eps) for v in uniq_vecs])
+    order = np.argsort(keys, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    pair_dir = rank[inv].reshape(N, N).astype(np.int32)
+    dirs = uniq_vecs[order]
+    dirs[np.abs(dirs) < eps / 2] = 0.0          # snap near-zero to zero
+    return pair_dir, dirs
+
+
+def _generate_combinations(vs: np.ndarray) -> np.ndarray:
+    """All {-1, 0, +1} integer combinations of the periodicity vectors."""
+    out = [np.zeros(vs.shape[1])]
+    for v in vs:
+        out = [e - v for e in out] + out + [e + v for e in out]
+    return np.stack(out, axis=0)

@@ -117,6 +117,10 @@ class MeasurementRegistry:
         self.measurements[key] = meas
         self.states[key] = meas.bind(n_chains, device)
 
+    def remove(self, key: str):
+        self.measurements.pop(key, None)
+        self.states.pop(key, None)
+
     def __getitem__(self, key) -> Dict[str, ObservableResult]:
         meas = self.measurements[key]
         states = self.states[key]

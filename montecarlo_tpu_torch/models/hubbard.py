@@ -92,6 +92,15 @@ class _HubbardBase(Model):
         """Hirsch lambda = acosh(exp(U*dtau/2))."""
         return math.acosh(math.exp(0.5 * self.U * float(delta_tau)))
 
+    def energy_boson(self, conf, delta_tau: float) -> torch.Tensor:
+        """Bosonic (HS-field) energy per chain, (C,) float64, of a field
+        conf (C, N, M): lambda * sum(sigma) with the bosonic weight, zero
+        without it (repulsive)."""
+        if not self.use_boson_weight:
+            return torch.zeros(conf.shape[0], dtype=torch.float64,
+                               device=conf.device)
+        return self.lamb(delta_tau) * conf.sum(dim=(1, 2)).to(torch.float64)
+
     def __repr__(self):
         return (f"{type(self).__name__}({len(self.lattice)} sites, t={self.t}, "
                 f"U={self.U}, mu={self.mu})")

@@ -42,6 +42,8 @@ SIGNATURES = {
                        _F, _F, _F, _I, _I, _P),
     "site_sweep_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _D, _D, _D, _I, _I, _P),
+    "site_sweep_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _F, _F, _F, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_f32": (_P, _P, _P, _I, _I, _P),
     "qr_f64": (_P, _P, _P, _I, _I, _P),

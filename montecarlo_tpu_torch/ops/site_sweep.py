@@ -1,15 +1,17 @@
-"""Sequential Metropolis site sweep over one time slice (kernel K1), in
-float32 and in float64.
+"""Sequential Metropolis site sweep over one time slice: kernel K1 in float32
+and in float64, and its delay-2 paired-site form, kernel K5.
 
-``site_sweep`` (float32) and ``site_sweep_f64`` launch the CUDA kernels of
-``csrc/site_sweep.cu`` on CUDA tensors; on CPU tensors they run
-``site_sweep_plain``, the plain PyTorch version of the same algorithm with
-the same op order. ``site_sweep`` replaces the Pallas kernel
+``site_sweep`` (float32), ``site_sweep_f64`` and ``site_sweep_pair``
+(float32) launch the CUDA kernels of ``csrc/site_sweep.cu`` on CUDA tensors;
+on CPU tensors they run ``site_sweep_plain`` (K1) or ``site_sweep_pair_plain``
+(K5), the plain PyTorch versions of the same algorithms with the same op
+order. ``site_sweep`` replaces the Pallas kernel
 ``montecarlo_tpu/ops/pallas_site_sweep.py::_batched_kernel`` (col_read mode,
-reached through ``_site_sweep_batched``); ``site_sweep_f64`` replaces the XLA
-site loop the JAX package runs for float64 updates
-(``montecarlo_tpu/dqmc/core.py::sweep_slice``), which has no Pallas kernel
-because Mosaic is float32-only.
+reached through ``_site_sweep_batched``); ``site_sweep_pair`` replaces
+``_batched_kernel_pair`` of the same file, which the JAX package takes for
+F >= 2 at even N; ``site_sweep_f64`` replaces the XLA site loop the JAX
+package runs for float64 updates (``montecarlo_tpu/dqmc/core.py::
+sweep_slice``), which has no Pallas kernel because Mosaic is float32-only.
 
 Per chain and site i in order (sigma_i = ±1, f over flavor blocks):
   delta_f = exp(sign_f * dEb) - 1,  dEb = -2 * lamb * sigma_i
@@ -19,7 +21,8 @@ Per chain and site i in order (sigma_i = ±1, f over flavor blocks):
   on accept: G_f -= (delta_f / r_f) * (e_i - G_f[:, i]) ⊗ G_f[i, :], flip sigma_i
 and the accepted and negative-detratio proposals are counted per chain.
 delta is exp(x) - 1 as in the Pallas kernel (the JAX XLA loop uses expm1;
-the two differ at the last bit of delta only).
+the two differ at the last bit of delta only). K5 computes the same chain
+(bit for bit) two sites at a time: see ``site_sweep_pair_plain``.
 """
 
 from __future__ import annotations
@@ -29,19 +32,54 @@ import torch
 from . import _build
 
 MAX_N = 128
-# the C entry point and the element type of each wrapper
-_ENTRY = {"site_sweep": ("site_sweep_f32", torch.float32),
-          "site_sweep_f64": ("site_sweep_f64", torch.float64)}
 
 
 def kernel_supports(N: int, F: int, dtype=torch.float32) -> bool:
-    """Shapes the CUDA kernels take: G of one chain (F*N*(N+1) elements and
+    """Shapes the K1 kernels take: G of one chain (F*N*(N+1) elements and
     two staging vectors) stays in shared memory for the whole sweep, with
     N <= 128 and F <= 2: every such shape in float32; in float64 N <= 128
     at F = 1 and N <= 119 at F = 2."""
     el = torch.finfo(dtype).bits // 8
     return (1 <= N <= MAX_N and F in (1, 2)
             and (F * N * (N + 1) + 2 * F * N) * el <= _build.SMEM_PER_BLOCK)
+
+
+def pair_supports(N: int, F: int, dtype=torch.float32) -> bool:
+    """Shapes K5 takes: float32, even N <= 128, F <= 2, with G of one chain
+    and four staging vectors ((F*N*(N+1) + 4*F*N) floats, 136,192 bytes at
+    F = 2, N = 128) in shared memory."""
+    return (dtype == torch.float32 and 2 <= N <= MAX_N and N % 2 == 0
+            and F in (1, 2)
+            and (F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK)
+
+
+def _decide(diag, s, u_i, *, lamb, signs, det_power, use_boson):
+    """Metropolis decision of one site for every chain from the flavors'
+    current diagonal entries diag[f] (C,), the site's field s (C,) in G's
+    dtype and its uniforms u_i (C,). Returns (accept, detratio, x) with
+    x[f] = delta_f / r_f where accepted, else 0."""
+    dEb = s * (-2.0 * lamb)
+    deltas, rs, rprod = [], [], None
+    for f, sg in enumerate(signs):
+        delta = torch.exp(dEb * sg) - 1.0
+        r = 1.0 + delta * (1.0 - diag[f])
+        deltas.append(delta)
+        rs.append(r)
+        rprod = r if rprod is None else rprod * r
+    detratio = rprod
+    for _ in range(det_power - 1):
+        detratio = detratio * rprod
+    w = torch.exp(-dEb) if use_boson else 1.0
+    accept = u_i < w * detratio
+    x = [torch.where(accept, d / r, 0.0) for d, r in zip(deltas, rs)]
+    return accept, detratio, x
+
+
+def _xig(x, col, i):
+    """x (e_i - col) for every chain: x (C,), col (C, N)."""
+    ig = -col
+    ig[:, i] += 1.0
+    return x[:, None] * ig
 
 
 def site_sweep_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
@@ -51,36 +89,64 @@ def site_sweep_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
     Returns new (G, sigma, acc (C,) int32, nneg (C,) int32); the inputs are
     not modified."""
     C, F, N, _ = G.shape
+    kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
     G = G.clone()
     sigma = sigma.clone()
     acc = torch.zeros(C, dtype=torch.int32, device=G.device)
     nneg = torch.zeros(C, dtype=torch.int32, device=G.device)
     for i in range(N):
-        s = sigma[:, i].to(G.dtype)
-        dEb = s * (-2.0 * lamb)
-        deltas, rs, rprod = [], [], None
-        for f, sg in enumerate(signs):
-            delta = torch.exp(dEb * sg) - 1.0
-            r = 1.0 + delta * (1.0 - G[:, f, i, i])
-            deltas.append(delta)
-            rs.append(r)
-            rprod = r if rprod is None else rprod * r
-        detratio = rprod
-        for _ in range(det_power - 1):
-            detratio = detratio * rprod
-        w = torch.exp(-dEb) if use_boson else 1.0
-        accept = u[:, i] < w * detratio
+        accept, detratio, x = _decide([G[:, f, i, i] for f in range(F)],
+                                      sigma[:, i].to(G.dtype), u[:, i], **kw)
         rows = [G[:, f, i, :].clone() for f in range(F)]
         cols = [G[:, f, :, i].clone() for f in range(F)]
         for f in range(F):
-            x = torch.where(accept, deltas[f] / rs[f], 0.0)
-            ig = -cols[f]
-            ig[:, i] += 1.0
-            xig = x[:, None] * ig
+            xig = _xig(x[f], cols[f], i)
             G[:, f] -= xig[:, :, None] * rows[f][:, None, :]
         sigma[:, i] = torch.where(accept, -sigma[:, i], sigma[:, i])
         acc += accept
         nneg += detratio < 0
+    return G, sigma, acc, nneg
+
+
+def site_sweep_pair_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """Plain PyTorch version of K5, the delay-2 paired-site sweep (even N,
+    any float type); same arguments and results as ``site_sweep_plain``, and
+    bit-equal to it.
+
+    Per pair of sites (i, j = i+1): site i is decided from the current G;
+    site j's row, column and diagonal are corrected from site i's rank-1
+    terms exactly as the sequential update would change them,
+      row'_j = G[j, :] - xIG_i[j] * row_i,  col'_j = G[:, j] - xIG_i * row_i[j],
+    site j is decided from them, and both updates are applied together:
+      G <- (G - xIG_i ⊗ row_i) - xIG_j ⊗ row'_j."""
+    C, F, N, _ = G.shape
+    if N % 2:
+        raise ValueError(f"site_sweep_pair: N={N} is odd")
+    kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
+    G = G.clone()
+    sigma = sigma.clone()
+    acc = torch.zeros(C, dtype=torch.int32, device=G.device)
+    nneg = torch.zeros(C, dtype=torch.int32, device=G.device)
+    for i in range(0, N, 2):
+        j = i + 1
+        acc_i, det_i, x_i = _decide([G[:, f, i, i] for f in range(F)],
+                                    sigma[:, i].to(G.dtype), u[:, i], **kw)
+        rows_i = [G[:, f, i, :].clone() for f in range(F)]
+        xig_i = [_xig(x_i[f], G[:, f, :, i], i) for f in range(F)]
+        rows_j = [G[:, f, j, :] - xig_i[f][:, j, None] * rows_i[f]
+                  for f in range(F)]
+        cols_j = [G[:, f, :, j] - xig_i[f] * rows_i[f][:, j, None]
+                  for f in range(F)]
+        acc_j, det_j, x_j = _decide([rows_j[f][:, j] for f in range(F)],
+                                    sigma[:, j].to(G.dtype), u[:, j], **kw)
+        for f in range(F):
+            xig_j = _xig(x_j[f], cols_j[f], j)
+            G[:, f] -= xig_i[f][:, :, None] * rows_i[f][:, None, :]
+            G[:, f] -= xig_j[:, :, None] * rows_j[f][:, None, :]
+        for idx, accept, detratio in ((i, acc_i, det_i), (j, acc_j, det_j)):
+            sigma[:, idx] = torch.where(accept, -sigma[:, idx], sigma[:, idx])
+            acc += accept
+            nneg += detratio < 0
     return G, sigma, acc, nneg
 
 
@@ -102,18 +168,40 @@ def site_sweep_f64(G, sigma, u, *, lamb, signs, det_power, use_boson):
                   signs=signs, det_power=det_power, use_boson=use_boson)
 
 
+def site_sweep_pair(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """``site_sweep`` two sites at a time: K5 for a CUDA tensor (G and u
+    float32, ``pair_supports(N, F)``: even N), ``site_sweep_pair_plain``
+    for a CPU tensor. Bit-equal to ``site_sweep``."""
+    return _sweep("site_sweep_pair", site_sweep_pair, G, sigma, u, lamb=lamb,
+                  signs=signs, det_power=det_power, use_boson=use_boson)
+
+
 site_sweep.launches = 0
 site_sweep_f64.launches = 0
+site_sweep_pair.launches = 0
+
+# per wrapper: the C entry point, its element type, the shapes it takes and
+# what they are, and the plain version a CPU tensor runs
+_ENTRY = {
+    "site_sweep": ("site_sweep_f32", torch.float32, kernel_supports,
+                   f"N <= {MAX_N}, F in (1, 2), G of one chain in shared "
+                   "memory", site_sweep_plain),
+    "site_sweep_f64": ("site_sweep_f64", torch.float64, kernel_supports,
+                       f"N <= {MAX_N}, F in (1, 2), G of one chain in shared "
+                       "memory", site_sweep_plain),
+    "site_sweep_pair": ("site_sweep_pair_f32", torch.float32, pair_supports,
+                        f"even N <= {MAX_N}, F in (1, 2)",
+                        site_sweep_pair_plain)}
 
 
 def _sweep(name, fn, G, sigma, u, **kw):
     """Launch the kernel of wrapper fn (entry point and dtype from _ENTRY)
-    on a CUDA tensor, or run the plain version on a CPU one."""
+    on a CUDA tensor, or run its plain version on a CPU one."""
+    entry, dtype, supports, limits, plain = _ENTRY[name]
     if G.device.type == "cpu":
-        return site_sweep_plain(G, sigma, u, **kw)
-    entry, dtype = _ENTRY[name]
+        return plain(G, sigma, u, **kw)
     signs = kw["signs"]
-    C, F, N = _check(name, dtype, G, sigma, u, signs)
+    C, F, N = _check(name, dtype, supports, limits, G, sigma, u, signs)
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     acc = torch.empty(C, dtype=torch.int32, device=G.device)
@@ -131,7 +219,7 @@ def _sweep(name, fn, G, sigma, u, **kw):
     return G_out, sigma_out, acc, nneg
 
 
-def _check(name, dtype, G, sigma, u, signs):
+def _check(name, dtype, supports, limits, G, sigma, u, signs):
     if G.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {G.device}")
     if G.dtype != dtype or u.dtype != dtype:
@@ -143,10 +231,9 @@ def _check(name, dtype, G, sigma, u, signs):
         raise ValueError(f"{name}: G must be (C, F, N, N), got "
                          f"{tuple(G.shape)}")
     C, F, N, _ = G.shape
-    if not kernel_supports(N, F, dtype) or len(signs) != F:
+    if not supports(N, F, dtype) or len(signs) != F:
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F} "
-                         f"(N <= {MAX_N}, F in (1, 2), G of one chain in "
-                         "shared memory)")
+                         f"({limits})")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
         raise ValueError(f"{name}: sigma and u must be (C, N)")
     for t in (G, sigma, u):

@@ -22,8 +22,9 @@ from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
-from torch_port_inputs import (LAMB, MODELS, cx_sweep_inputs, flux_theta,
-                               graded, sweep_inputs)
+from torch_port_inputs import (LAMB, MODELS, accept_patterns,
+                               cx_sweep_inputs, flux_theta, graded,
+                               pair_inputs, sweep_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +61,48 @@ def test_site_sweep_kernel_matches_plain(cuda, model, N):
         assert torch.equal(a, b.to(a.dtype))
     assert 0 < out_k[2].sum().item() < 16 * N
     assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("model,N", [("attractive", 16), ("repulsive", 16),
+                                     ("attractive", 64), ("repulsive", 64),
+                                     ("attractive", 128), ("repulsive", 128)])
+def test_site_sweep_pair_kernel_matches_plain_and_k1(cuda, model, N):
+    """K5 against its plain version and against K1 on the same inputs:
+    sigma, acc, nneg and G bit-equal (every operation is K1's _rn operation
+    in K1's order); every accept pattern of a pair occurs."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in pair_inputs(N + 80, 8, F, N))
+    n5, n1 = ss.site_sweep_pair.launches, ss.site_sweep.launches
+    out_k = ss.site_sweep_pair(G, sigma, u, **kw)
+    assert ss.site_sweep_pair.launches == n5 + 1
+    out_1 = ss.site_sweep(G, sigma, u, **kw)
+    assert ss.site_sweep.launches == n1 + 1
+    out_p = ss.site_sweep_pair_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(out_k, out_p, out_1):
+        assert torch.equal(a, b.to(a.dtype)) and torch.equal(a, c)
+    assert accept_patterns(sigma.cpu(), out_k[1].cpu()) == {
+        (False, False), (False, True), (True, False), (True, True)}
+
+
+def test_repulsive_session_launches_k5(cuda):
+    """A float32 or mixed repulsive session at even N runs its site sweeps
+    through K5 and never through K1."""
+    model = tmc.HubbardModelRepulsive(dims=2, L=4, U=4.0)
+    params = DQMCParameters(beta=1.0, safe_mult=5)
+    for kw in (dict(dtype=torch.float32),
+               dict(dtype=torch.float64, update_dtype=torch.float32)):
+        ctx, consts = core.make_context(model, params, device="cuda", **kw)
+        conf = model.rand_conf(torch.Generator(device="cuda").manual_seed(0),
+                               4, params.slices)
+        state = core.init_state(ctx, consts, conf)
+        n5, n1 = ss.site_sweep_pair.launches, ss.site_sweep.launches
+        core.sweep_pair(ctx, consts, state,
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+        assert ss.site_sweep_pair.launches - n5 == 2 * ctx.M
+        assert ss.site_sweep.launches == n1
 
 
 @pytest.mark.parametrize("model,N,dk", [
@@ -313,6 +356,18 @@ def test_wrappers_check_inputs(cuda):
                           torch.ones(2, 128, device=cuda, dtype=torch.int8),
                           torch.zeros(2, 128, **f64), lamb=LAMB,
                           **MODELS["repulsive"])
+    rep = dict(lamb=LAMB, **MODELS["repulsive"])
+    s2 = torch.ones(2, 15, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="N=15, F=2.*even N"):
+        ss.site_sweep_pair(torch.zeros(2, 2, 15, 15, device=cuda), s2,
+                           torch.zeros(2, 15, device=cuda), **rep)
+    G2 = torch.zeros(2, 2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ss.site_sweep_pair(G2.double(), s, u.double(), **rep)
+    with pytest.raises(ValueError, match="one device"):
+        ss.site_sweep_pair(G2, s.cpu(), u, **rep)
+    with pytest.raises(ValueError, match="one device"):
+        ss.site_sweep_pair(G2, s, u.cpu(), **rep)
 
 
 def test_cuda_session_rejects_shapes_without_kernels(cuda):

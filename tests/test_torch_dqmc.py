@@ -11,6 +11,7 @@ test rebuilds those draws and hands them to the port in visit order.
 import math
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +34,12 @@ from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters as TParams
 from montecarlo_tpu_torch.lattices.library import choose_lattice as t_lattice
 from montecarlo_tpu_torch.measurements import Measurement
 from montecarlo_tpu_torch.measurements import dqmc_measurements as tdm
+from montecarlo_tpu_torch.ops.site_sweep import site_sweep_plain
 from montecarlo_tpu_torch.utils.binner import LogBinner as TBinner
+from torch_port_inputs import sweep_inputs
 
 STACK_KEYS = ("S_U", "S_D", "S_T")
+F32, F64 = torch.float32, torch.float64
 
 
 def _rel(a, b):
@@ -328,21 +332,44 @@ def test_sweep_pair_matches_jax_f64(use_kernels):
     _assert_stacks_close(st, sj, 1e-9)
 
 
-def test_sweep_pair_matches_jax_pallas_f32(monkeypatch):
+def _spy_site_sweeps(monkeypatch):
+    """Count the calls of each site-sweep wrapper sweep_slice dispatches to."""
+    calls = dict.fromkeys(("site_sweep", "site_sweep_f64", "site_sweep_pair",
+                           "site_sweep_plain"), 0)
+    for name in calls:
+        fn = getattr(tcore, name)
+
+        def spy(*a, _f=fn, _n=name, **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(tcore, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("model", ["attractive", "repulsive"])
+def test_sweep_pair_matches_jax_pallas_f32(monkeypatch, model):
     """float32 with the TPU kernels on the JAX side (Pallas site sweep and
-    fused UDT kernels in interpret mode) against the port's kernel path
-    (their plain versions on the CPU): identical decisions, G within 1e-4."""
+    fused UDT kernels in interpret mode; the repulsive model's F = 2 takes
+    the pair kernel _batched_kernel_pair) against the port's kernel path
+    (their plain versions on the CPU: K5's for the repulsive model):
+    identical decisions, G within 1e-4."""
     monkeypatch.setattr(pallas_qr, "ENABLED", True)
+    repulsive = model == "repulsive"
     (jctx, jconsts), (tctx, tconsts) = _contexts(1.0, 5, "f32",
-                                                 use_pallas=True)
+                                                 use_pallas=True,
+                                                 repulsive=repulsive)
     assert jctx.use_pallas
     C = 4
     _, s0 = _jax_init(jctx, jconsts, C, 13)
     u = _jax_uniforms(s0["key"], 2 * jctx.M, jctx.N, jnp.float32)
     sj, Gmj, _ = jcore.jitted_vmapped("sweep_pair", jctx, jconsts)(s0)
+    calls = _spy_site_sweeps(monkeypatch)
     st, Gmt, _ = tcore.sweep_pair(tctx, tconsts,
                                   interop.state_from_numpy(_np(s0)),
                                   u=torch.from_numpy(u))
+    visits = 2 * jctx.M
+    assert calls["site_sweep_pair" if repulsive else "site_sweep"] == visits
+    assert sum(calls.values()) == visits
     sj = _np(sj)
     for k in ("conf", "acc", "neg_prob"):
         np.testing.assert_array_equal(st[k].numpy(), sj[k], err_msg=k)
@@ -373,6 +400,35 @@ def test_sweep_pair_matches_jax_mixed_precision():
         np.testing.assert_array_equal(st[k].numpy(), sj[k], err_msg=k)
     assert np.max(np.abs(st["G"].numpy() - sj["G"])) <= 1e-4
     _assert_stacks_close(interop.state_to_numpy(st), sj, 1e-6)
+
+
+@pytest.mark.parametrize("L,repulsive,dtype,udtype,use_kernels,route", [
+    (4, True, F32, None, True, "site_sweep_pair"),     # F = 2, even N: K5
+    (4, True, F64, F32, True, "site_sweep_pair"),      # mixed: K5
+    (3, True, F32, None, True, "site_sweep"),          # odd N = 9: K1
+    (4, False, F32, None, True, "site_sweep"),         # F = 1: K1
+    (4, True, F64, None, True, "site_sweep_f64"),      # float64: K1-f64
+    (4, True, F32, None, False, "site_sweep_plain")])  # the plain path
+def test_sweep_slice_routes(monkeypatch, L, repulsive, dtype, udtype,
+                            use_kernels, route):
+    """sweep_slice's kernel for each kind of real session at N <= 128, as
+    the JAX package routes it: the pair kernel K5 for float32 updates with
+    F >= 2 at even N, K1 in the update dtype otherwise (float64 updates stay
+    unpaired, as the JAX package's float64 XLA loop)."""
+    tm = _models(L, repulsive)[1]
+    ctx, _ = tcore.make_context(tm, TParams(beta=1.0, safe_mult=5),
+                                dtype=dtype, update_dtype=udtype,
+                                device="cpu", use_kernels=use_kernels)
+    calls = _spy_site_sweeps(monkeypatch)
+    G, sigma, u = (torch.from_numpy(x) for x in sweep_inputs(
+        L, 2, tm.nflavors, ctx.N))
+    G, u = G.to(ctx.udtype), u.to(ctx.udtype)
+    out = tcore.sweep_slice(ctx, G, sigma, u)
+    assert calls == {k: int(k == route) for k in calls}
+    ref = site_sweep_plain(G, sigma, u, lamb=ctx.lamb, signs=ctx.signs,
+                           det_power=ctx.det_power, use_boson=ctx.use_boson)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 def test_sweep_pair_draws_uniforms_in_visit_order():
@@ -414,11 +470,25 @@ def test_binner_matches_jax():
     assert st["total"].dtype == torch.float64
 
 
-def test_measurement_shapes_match_jax():
-    jm, tm = _models(4, repulsive=True)
-    for jf, tf in ((jdm.occupation, tdm.occupation),
-                   (jdm.greens_measurement, tdm.greens_measurement)):
-        assert tf(None, tm).obs_shapes == jf(None, jm).obs_shapes
+@pytest.mark.parametrize("repulsive", [False, True])
+def test_measurement_shapes_match_jax(repulsive):
+    """Every ported factory has the JAX factory's name, observables and
+    per-chain shapes."""
+    jm, tm = _models(4, repulsive=repulsive)
+    mc = SimpleNamespace(parameters=SimpleNamespace(delta_tau=0.1))
+    pairs = [(getattr(jdm, n), getattr(tdm, n)) for n in (
+        "occupation", "greens_measurement", "sign_measurement",
+        "boson_energy_measurement", "charge_density_correlation",
+        "charge_density", "pairing_correlation", "pairing")]
+    pairs += [(lambda *a, _f=jdm.pairing_correlation: _f(*a, K=4),
+               lambda *a, _f=tdm.pairing_correlation: _f(*a, K=4))]
+    for d in ("x", "y", "z"):
+        for n in ("spin_density_correlation", "spin_density", "magnetization"):
+            pairs.append((lambda *a, _f=getattr(jdm, n), _d=d: _f(*a, _d),
+                          lambda *a, _f=getattr(tdm, n), _d=d: _f(*a, _d)))
+    for jf, tf in pairs:
+        mj, mt = jf(mc, jm), tf(mc, tm)
+        assert (mt.name, mt.obs_shapes) == (mj.name, mj.obs_shapes)
 
 
 def test_unported_entry_points_raise():
@@ -434,6 +504,26 @@ def test_unported_entry_points_raise():
         sim.run(sweeps=1, thermalization=0, filename="x.jld2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.replay()
+
+
+def test_dqmc_item_access_and_reset():
+    """sim[key] = measurement adds one with empty binners, sim[key] reads
+    its observables, del sim[key] drops it; reset() empties every binner and
+    restarts the sweep count, keeping the chain state."""
+    sim = tmc.DQMC(_models(2, repulsive=True)[1], beta=1.0, n_chains=2,
+                   device="cpu", measure_rate=1, safe_mult=5)
+    sim["sdc_z"] = tdm.spin_density_correlation(sim, sim.model, "z")
+    sim.run(thermalization=1, sweeps=2, verbose=False)
+    assert set(sim["sdc_z"]) == {"sdc_z"} and set(sim["occ"]) == {"occ"}
+    assert sim["sdc_z"]["sdc_z"].count == sim["occ"]["occ"].count == 2
+    del sim["greens"]
+    assert set(sim.observables()) == {"occ", "sdc_z"}
+    conf = sim.conf.clone()
+    assert sim.reset() is sim and sim.last_sweep == 0
+    assert sim["sdc_z"]["sdc_z"].count == sim["occ"]["occ"].count == 0
+    assert torch.equal(sim.conf, conf)
+    sim.run(thermalization=0, sweeps=1, verbose=False)
+    assert sim["sdc_z"]["sdc_z"].count == 1 and sim.last_sweep == 1
 
 
 def _run(seed, **kw):

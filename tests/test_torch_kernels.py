@@ -1,4 +1,4 @@
-"""Kernels K1-K3, K6 and K7 of the PyTorch/CUDA port (montecarlo_tpu_torch)
+"""Kernels K1-K3 and K5-K7 of the PyTorch/CUDA port (montecarlo_tpu_torch)
 against the Pallas kernels they replace (the complex kernels K8 and K10 are
 held in test_torch_complex.py), the wrappers' device rule and the build.
 
@@ -28,7 +28,8 @@ from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
-from torch_port_inputs import LAMB, MODELS, graded as _graded
+from torch_port_inputs import LAMB, MODELS, accept_patterns, pair_inputs
+from torch_port_inputs import graded as _graded
 from torch_port_inputs import sweep_inputs as _sweep_inputs
 
 
@@ -79,6 +80,64 @@ def test_site_sweep_kernel_shapes():
     assert ss.kernel_supports(128, 1, f64) and ss.kernel_supports(64, 2, f64)
     assert ss.kernel_supports(119, 2, f64)
     assert not ss.kernel_supports(120, 2, f64)
+
+
+# ---------------------------------------------------------------------------
+# K5: delay-2 paired-site sweep
+# ---------------------------------------------------------------------------
+
+ALL_PATTERNS = {(False, False), (False, True), (True, False), (True, True)}
+
+
+@pytest.mark.parametrize("model", ["attractive", "repulsive"])
+def test_site_sweep_pair_matches_pallas(model):
+    """K5's plain version against the Pallas pair kernel
+    (_batched_kernel_pair) in interpret mode at N = 16: decisions exact, G
+    within 1e-5; every accept pattern of a pair occurs."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F, N = len(kw["signs"]), 16
+    G, sigma, u = pair_inputs(60 + F, 8, F, N)
+    Gj, sj, aj, nj = pss._site_sweep_batched(
+        jnp.asarray(G), jnp.asarray(sigma, jnp.int32), jnp.asarray(u),
+        _force_colread=True, _force_pair=True, **kw)
+    Gt, st, at, nt = ss.site_sweep_pair(
+        *map(torch.from_numpy, (G, sigma, u)), **kw)
+    assert st.dtype == torch.int8
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert accept_patterns(sigma, st) == ALL_PATTERNS
+    assert np.max(np.abs(Gt.numpy() - np.asarray(Gj))) <= 1e-5
+
+
+@pytest.mark.parametrize("model,N", [("attractive", 16), ("repulsive", 16),
+                                     ("repulsive", 24)])
+def test_site_sweep_pair_plain_bit_equal_sequential(model, N):
+    """The pair's corrected row, column and diagonal are the very values the
+    sequential sweep reads after its site-i update, so K5's plain version
+    equals K1's bit for bit; the inputs are left as they were."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    G, sigma, u = map(torch.from_numpy, pair_inputs(N + 70, 8, len(kw["signs"]),
+                                                    N))
+    G0, s0 = G.clone(), sigma.clone()
+    pair = ss.site_sweep_pair_plain(G, sigma, u, **kw)
+    seq = ss.site_sweep_plain(G, sigma, u, **kw)
+    for a, b in zip(pair, seq):
+        assert torch.equal(a, b)
+    assert accept_patterns(sigma, pair[1]) == ALL_PATTERNS
+    assert torch.equal(G, G0) and torch.equal(sigma, s0)
+    with pytest.raises(ValueError, match="odd"):
+        ss.site_sweep_pair_plain(G[:, :, :15, :15], sigma[:, :15], u[:, :15],
+                                 **kw)
+
+
+def test_site_sweep_pair_kernel_shapes():
+    assert ss.pair_supports(64, 2) and ss.pair_supports(128, 2)
+    assert ss.pair_supports(2, 1) and ss.pair_supports(20, 1)
+    assert not ss.pair_supports(63, 2)              # odd N stays on K1
+    assert not ss.pair_supports(130, 2)             # K6's range
+    assert not ss.pair_supports(64, 3)
+    assert not ss.pair_supports(64, 2, torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +408,15 @@ def test_wrappers_raise_off_cpu_without_kernel():
         ss.site_sweep_f64(G, torch.empty(2, 16, dtype=torch.int8, **m),
                           torch.empty(2, 16, dtype=torch.float64, **m),
                           lamb=LAMB, **MODELS["attractive"])
+    G = torch.empty(2, 2, 16, 16, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ss.site_sweep_pair(G, torch.empty(2, 16, dtype=torch.int8, **m),
+                           torch.empty(2, 16, **m), lamb=LAMB,
+                           **MODELS["repulsive"])
     assert set(KERNELS) == {"site_sweep", "udt_qr", "udt_qr_solve",
                             "site_sweep_delayed", "qr_blocked",
                             "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
-                            "site_sweep_f64"}
+                            "site_sweep_f64", "site_sweep_pair"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -380,7 +444,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     assert set(_build.SIGNATURES) == {
         "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
         "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
-        "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64"}
+        "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64",
+        "site_sweep_pair_f32"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -26,6 +26,24 @@ def sweep_inputs(seed, C, F, N):
     return G, sigma, u
 
 
+def pair_inputs(seed, C, F, N):
+    """(G, sigma, u) like sweep_inputs, with each diagonal entry of G moved
+    by up to +-0.45 and the uniforms raised to the power 0.02 (pushed toward
+    1): a few sites in ten are rejected, so that with 8 chains every accept
+    pattern of a site pair (neither, the first, the second, both) occurs."""
+    G, sigma, u = sweep_inputs(seed, C, F, N)
+    d = np.random.default_rng(seed + 500).uniform(-0.45, 0.45, (C, F, N))
+    G = (G + d[..., None] * np.eye(N)).astype(np.float32)
+    return G, sigma, (u ** 0.02).astype(np.float32)
+
+
+def accept_patterns(sigma_in, sigma_out):
+    """The set of (first accepted, second accepted) over the site pairs
+    (i, i+1), i even, of every chain: numpy arrays or CPU tensors (C, N)."""
+    flips = np.asarray(sigma_in) != np.asarray(sigma_out)
+    return {(bool(a), bool(b)) for a, b in flips.reshape(-1, 2)}
+
+
 def cx_sweep_inputs(seed, C, F, N):
     """(G, sigma, u) like sweep_inputs, with G complex64: an imaginary part
     of the size of the off-diagonal noise added."""

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Time the kernels of two checkouts of the port in turns, on one NVIDIA GPU.
+
+    python3 chip_ab.py PARENT CHANGE
+
+PARENT and CHANGE are directories that each hold a checkout of the repo (for
+example the parent commit unpacked with ``git archive`` into a git-ignored
+directory, and ``.``). For each in the order PARENT, CHANGE, CHANGE, PARENT,
+a child process imports montecarlo_tpu_torch from that checkout (building
+its kernels there) and prints the median synchronised time per call of
+each case in CASES; the turns cancel a drift of the card's clock between
+the first run and the last. Prints nvidia-smi's name and power limit, one
+JSON line per run and a summary per case. Needs CUDA.
+
+  qr_cx (256, 64, 64)  the complex QR K10 on 256 complex64 matrices,
+                       random normal columns graded over 8 decades
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+BATCHES, CALLS = 7, 50
+
+
+def _qr_cx_64():
+    import torch
+    from montecarlo_tpu_torch.ops import qr_cx as qcx
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, N = 256, 64
+    A = torch.randn(B, N, N, generator=gen, device="cuda",
+                    dtype=torch.complex64)
+    A = A * torch.logspace(0, -8, N, device="cuda")[None, None, :]
+    return lambda: qcx.qr_cx(A)
+
+
+CASES = {"qr_cx (256, 64, 64)": _qr_cx_64}
+
+
+def child(root):
+    """Import the port from root and time every case there."""
+    import torch
+    sys.path.insert(0, str(root))
+    import montecarlo_tpu_torch
+    where = Path(montecarlo_tpu_torch.__file__).resolve()
+    if root.resolve() not in where.parents:
+        raise SystemExit(f"chip_ab: imported {where}, not from {root}")
+    for name, make in CASES.items():
+        fn = make()
+        for _ in range(3):                  # build, load and warm up
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(BATCHES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CALLS):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / CALLS)
+        print(json.dumps({"root": str(root), "case": name,
+                          "ms": statistics.median(times), "batches": times}),
+              flush=True)
+
+
+def main(argv):
+    if len(argv) == 2 and argv[0] == "--child":
+        child(Path(argv[1]))
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: needs one NVIDIA GPU", file=sys.stderr)
+        return 1
+    parent, change = (Path(a).resolve() for a in argv)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    runs = []
+    for tag, root in (("parent", parent), ("change", change),
+                      ("change", change), ("parent", parent)):
+        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+                             capture_output=True, text=True, check=True,
+                             timeout=900, cwd=root)
+        print(out.stdout, end="", flush=True)
+        runs += [(tag, json.loads(line)) for line in out.stdout.splitlines()]
+    for name in CASES:
+        ms = {t: [r["ms"] for tt, r in runs if tt == t and r["case"] == name]
+              for t in ("parent", "change")}
+        print(f"[ab] {name}: parent {ms['parent']} ms, change {ms['change']} "
+              f"ms per call (order parent, change, change, parent)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

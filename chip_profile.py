@@ -2,6 +2,7 @@
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [headline] [l16] [complex] [f64] [repulsive]
+                            [complex16] [chain128]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -15,19 +16,26 @@ Runs each named configuration of chip_smoke.py (default: headline):
             128 chains (kernels K1 in float64 and K11)
   repulsive the repulsive model (F=2) at the headline's settings, 256
             chains, float32 (kernels K5, K2 and K3)
+  complex16 the complex configuration at 16x16 (N=256), 64 chains, delay 32
+            (kernel K9 and the library complex QR)
+  chain128  a 128-site chain with pure-gauge Peierls phases, the complex
+            settings, 256 chains (kernels K8 and K10 at N=128)
 
 and prints for each
 
   pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
-           (use_kernels=False; not at 16x16, where the plain path's
-           per-site launches take tens of seconds per sweep pair) then
-           kernel path again, synchronised wall
+           (use_kernels=False; not at 16x16 or on the chain, where the plain
+           path's per-site launches take tens of seconds per sweep pair)
+           then kernel path again, synchronised wall (two pairs each past
+           N = 128, five below)
   layer    synchronised wall ms per call of sweep_slice, wrap_up,
            extend_left and calculate_greens at the path's shapes
   device   torch.profiler over two kernel-path sweep pairs: device time per
            kernel name (device events only, so no time is counted twice),
            the device busy share of the profiled span, and the device time
-           per sweep pair against the unprofiled wall time per sweep pair
+           per sweep pair against the unprofiled wall time per sweep pair,
+           and the shares of the device time of K8, K9, K10 and the library
+           complex QR (cuSOLVER's kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
 after. Needs CUDA; builds the kernels like chip_smoke.py.
@@ -44,6 +52,11 @@ import chip_smoke as smoke
 from chip_smoke import timed
 
 PAIRS = 5
+# device-time shares printed for every configuration: kernel name fragments
+SHARES = {"K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
+          "K10": ("qr_cx_kernel",),
+          "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
+                                 "cusolver")}
 F32 = {"dtype": "float32"}
 # name: (model, safe_mult, chains, time the plain path, DQMC's dtype
 # keywords: {} for its default, float64)
@@ -56,7 +69,11 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
            "f64": (smoke.headline_model, smoke.SAFE_MULT, smoke.F64_CHAINS,
                    True, {}),
            "repulsive": (lambda: smoke.headline_model(repulsive=True),
-                         smoke.SAFE_MULT, smoke.CHAINS, True, F32)}
+                         smoke.SAFE_MULT, smoke.CHAINS, True, F32),
+           "complex16": (lambda: smoke.complex_model(L=smoke.L16),
+                         smoke.CPLX_SM, smoke.L16_CHAINS, False, F32),
+           "chain128": (lambda: smoke.complex_model(L=smoke.CHAIN_L, dims=1),
+                        smoke.CPLX_SM, smoke.CHAINS, False, F32)}
 
 
 def smi():
@@ -89,12 +106,13 @@ def profile_config(name):
                                        generator=sim.generator)[0]
 
     rate = lambda t: chains / t
-    t_k = timed(pair, PAIRS)                       # the SM clock ramps up here
+    pairs = PAIRS if ctx.N <= 128 else 2
+    t_k = timed(pair, pairs)                       # the SM clock ramps up here
     rows = [("kernel path", t_k)]
     if plain:
         rows.append(("plain path", timed(
             lambda: pair(dataclasses.replace(ctx, use_kernels=False)), 1)))
-    t_k2 = timed(pair, PAIRS)
+    t_k2 = timed(pair, pairs)
     rows.append(("kernel path again", t_k2))
     for label, t in rows:
         print(f"[pair] {label}: {t * 1e3:.2f} ms per sweep pair = "
@@ -145,6 +163,11 @@ def profile_config(name):
     for kname, (us, n) in sorted(per_name.items(),
                                  key=lambda kv: -kv[1][0])[:20]:
         print(f"[device] {us / 1e3:9.3f} ms {n:6d}x  {kname[:90]}")
+    shares = {label: sum(us for k, (us, _) in per_name.items()
+                         if any(f in k.lower() for f in frags)) / total_us
+              for label, frags in SHARES.items()}
+    print("[device] shares of the device time: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in shares.items()))
     per_pair = total_us / 1e3 / n_prof
     print(f"[device] per sweep pair: device {per_pair:.2f} ms against "
           f"{t_k2 * 1e3:.2f} ms unprofiled wall: busy share "

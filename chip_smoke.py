@@ -31,18 +31,33 @@ failure and prints no result line then):
               K2, K3; measures the z spin correlations and magnetization,
               and holds each flavor's occupation to 0.5, the mean m_z to 0
               and the local moment above its U=0 value of 0.5
-  5. paths    one sweep_pair on the kernel path and on the plain path
-              (use_kernels=False) from the same state and uniforms, at
-              the slice's safe_mult=10 and at safe_mult=1; at 16x16 the
-              first slice visit of each path; complex: the first slice
-              visit at safe_mult=5 and the whole pair at safe_mult=1;
-              f64: the whole pair at safe_mult=10; colscaled as the
-              headline, and so the repulsive run
-  5b. phase   a second witness for the complex run's phase statistics: one
-              sweep pair from its final configuration with the same
-              uniforms on the kernel path, the plain path and the plain
-              path in complex128, each with its imaginary-probability
-              count, max |Im det|, drift and <s>
+  4h. complex16 the complex configuration at 16x16 (N=256, 64 chains,
+              delay auto = 32): K9 and the library QR, as the JAX package
+              runs XLA's QR past N = 128; <s> within PHASE_TOL_CX16 of 1
+  4i. chain128 a 128-site periodic chain with pure-gauge Peierls phases
+              (twisted-boundary rings), the complex row's settings, 256
+              chains: K8 at N = 128 and the wide K10
+  5. paths    the kernel path against the plain path (use_kernels=False)
+              from the same state and uniforms: the headline's first slice
+              visit at its safe_mult=10 and one whole sweep_pair at
+              safe_mult=1 (on the first 64 chains, as every safe_mult=1
+              comparison); colscaled as the headline, and so the
+              repulsive run, whose whole pair at safe_mult=10 prints the
+              plain path's negative detratios; at 16x16 the first slice
+              visit; complex: the first visit at safe_mult=5 and the whole
+              pair at safe_mult=1; f64: the whole pair at safe_mult=10;
+              complex16: the first visit at safe_mult=5; chain128: the
+              first visit at safe_mult=5 and the whole pair at
+              safe_mult=1
+  5b. phase   a second witness for the phase statistics of the complex and
+              the complex16 runs (complex16: its first 16 chains): one sweep
+              pair from each run's final configuration with the same
+              uniforms on the kernel path, the kernel path over complex128
+              stacks, the plain path and the plain path in complex128, each
+              with its imaginary-probability count, max |Im det|, drift and
+              <s>
+
+Each phase ends with a [time] line: the seconds since the script started.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -87,6 +102,15 @@ L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
 # benchmarks/complex_bench.py): the headline model with pure-gauge Peierls
 # phases theta_ij = phi_i - phi_j, phi from default_rng(0) on [0, 2 pi)
 CPLX_SM, CPLX_THERM, CPLX_SWEEPS = 5, 1, 2
+# ... at 16x16 with 64 chains (complex16), and on a 128-site chain with 256
+# chains (chain128)
+CHAIN_L = 128
+# every safe_mult=1 path comparison (phase 5) runs on the first 64 chains:
+# its plain path recomputes G from the stack at each slice, and the library
+# QR's time grows with the chains
+SM1_PATH_CHAINS = 64
+# the complex16 phase witness (5b) on the run's first chains
+CX16_WITNESS_CHAINS = 16
 # the strict-float64 configuration (bench.py's f64 row: bench_dqmc(dtype=
 # "float64", chains=128)), its mixed-precision variant, and the headline
 # with the column-scaled stabilization; 1 + 2 sweeps each
@@ -96,6 +120,9 @@ TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
 # float64 kernels against their plain versions (K11: tests/test_pallas_qr.py's
 # strict-f64 contract for Q^T Q - I)
 TOL_G64, TOL_QR64, TOL_ORTH64 = 1e-13, 1e-12, 1e-13
+# K1-f64's negative-weight log-magnitudes against its plain version's: the
+# same float64 operations in the same order, log10 from two libraries
+TOL_NEG64 = 1e-12
 # bench.py's f64 criterion: max window-end drift (reference alarm 1e-7 per
 # stabilization, stack.jl:530-550)
 F64_DRIFT_MAX = 1e-6
@@ -108,6 +135,15 @@ OCC_TOL = 0.02           # |mean occupation - 0.5| at mu = 0
 # this configuration, so 1e-3 leaves a factor of 7 for rounding and catches
 # a kernel that biases the phases beyond it
 PHASE_TOL = 1e-3
+# ... at 16x16 (complex16): float32 rounding of G at N = 256 reaches |Im det|
+# of O(10) (84% of proposals above 1e-6), and the running phase of three
+# sweeps drifted by 8.2e-3 on an H100 80GB HBM3 (the sign observable by
+# 1.7e-3), which the plain complex64 path reproduces and complex128 does
+# not. Phase 5b traces it to the complex64 stabilization: with complex128
+# stacks under the same K9 and complex64 wraps, one pair's mean per-chain
+# phase error falls from 1.5e-2 to 5.3e-4. 2e-2 catches a kernel that
+# biases the phases beyond that
+PHASE_TOL_CX16 = 2e-2
 IMAG_SHARE_RATIO = 1.5   # kernel / plain imaginary-probability share
 MIN_CONF_AGREE = 0.9
 MIN_CONF_AGREE_CX_FIRST = 0.95
@@ -140,6 +176,9 @@ KERNEL_INFO = {
                        "montecarlo_tpu/dqmc/core.py:560"),
     "site_sweep_pair": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
                         "montecarlo_tpu/ops/pallas_site_sweep.py:341"),
+    "site_sweep_delayed_cx": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
+        "montecarlo_tpu/ops/pallas_site_sweep.py:1413"),
 }
 
 
@@ -239,17 +278,18 @@ def headline_model(repulsive=False, L=L):
     return HubbardModelAttractive(dims=2, L=L, U=U, mu=MU)
 
 
-def complex_model(repulsive=False):
-    """The complex configuration's model: 8x8 with pure-gauge Peierls phases
-    drawn as benchmarks/complex_bench.py draws them."""
+def complex_model(repulsive=False, L=L, dims=2):
+    """The complex configuration's model: 8x8 (or L^dims sites: 16x16, the
+    128-site chain) with pure-gauge Peierls phases drawn as
+    benchmarks/complex_bench.py draws them."""
     import numpy as np
     from montecarlo_tpu_torch import (HubbardModelAttractive,
                                       HubbardModelRepulsive)
-    phi = np.random.default_rng(0).uniform(0.0, 2 * np.pi, L * L)
+    phi = np.random.default_rng(0).uniform(0.0, 2 * np.pi, L ** dims)
     theta = phi[:, None] - phi[None, :]
     if repulsive:
-        return HubbardModelRepulsive(dims=2, L=L, U=U, peierls=theta)
-    return HubbardModelAttractive(dims=2, L=L, U=U, mu=MU, peierls=theta)
+        return HubbardModelRepulsive(dims=dims, L=L, U=U, peierls=theta)
+    return HubbardModelAttractive(dims=dims, L=L, U=U, mu=MU, peierls=theta)
 
 
 def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT,
@@ -286,14 +326,14 @@ def graded(gen, B, N, decades=16.0, dtype=None):
 
 
 def check_sweep(name, out_k, out_p, shape, relative, tol=TOL_G):
-    """Decisions identical, G within tol (times max|G| when relative);
-    returns max|dG|."""
+    """Decisions (the second to fourth results) identical, G within tol
+    (times max|G| when relative); returns max|dG|."""
     import torch
     torch.cuda.synchronize()
     err = (out_k[0] - out_p[0]).abs().max().item()
     gmax = out_p[0].abs().max().item()
     same = [torch.equal(a.to(b.dtype), b) for a, b in
-            zip(out_k[1:], out_p[1:])]
+            zip(out_k[1:4], out_p[1:4])]
     acc = out_k[2].sum().item() / (shape[0] * shape[-1])
     log(f"[parity] {name} {shape}: decisions (sigma, acc/accept, nneg/det) "
         f"equal {same}, max|dG| "
@@ -368,7 +408,8 @@ def phase_parity():
     from montecarlo_tpu_torch.ops import site_sweep as ss
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
-    from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+    from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    from montecarlo_tpu_torch.ops.linalg import _library_qr, _prescale_pivot
     results = {}
 
     # ---- K1 at (256, 1, 64, 64) and (128, 2, 64, 64), on real Green's
@@ -494,12 +535,37 @@ def phase_parity():
     # phase of a small alpha), then with zero and subnormal columns
     Apc, _, _ = _prescale_pivot(graded(gen, B, N, dtype=torch.complex64))
     Apc = Apc.contiguous()
-    results["qr_cx"] = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_plain, Apc,
-                                 library=torch.linalg.qr,
+    results["qr_cx"] = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_backward_plain,
+                                 Apc, library=torch.linalg.qr,
                                  normalize=qcx.phase_normalized)
     results["qr_cx"].update(bound(3 * B * N * N * 8,
                                   B * householder_flops(N, complex_=True)))
     degenerate_columns("qr_cx", qcx.qr_cx, Apc, 1e-35, TOL_QR, TOL_QR)
+    # ... and at (256, 128, 128), the chain128 run's shape; the kernels line
+    # keeps the N=64 row's times and the larger error
+    nw = 2 * N
+    Apw, _, _ = _prescale_pivot(graded(gen, B, nw, dtype=torch.complex64))
+    r = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_backward_plain,
+                  Apw.contiguous(), library=torch.linalg.qr,
+                  normalize=qcx.phase_normalized)
+    r.update(bound(3 * B * nw * nw * 8,
+                   B * householder_flops(nw, complex_=True)))
+    log(f"[parity] qr_cx ({B}, {nw}, {nw}): kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library call {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    results["qr_cx"]["max_abs_err"] = max(results["qr_cx"]["max_abs_err"],
+                                          r["max_abs_err"])
+    degenerate_columns("qr_cx", qcx.qr_cx, Apw.contiguous(), 1e-35, TOL_QR,
+                       TOL_QR)
+    # the library complex QR at (64, 256, 256), which the complex16 run
+    # calls past N = 128 as the JAX package calls XLA's
+    A16, _, _ = _prescale_pivot(graded(gen, L16_CHAINS, L16 * L16,
+                                       dtype=torch.complex64))
+    Q16, R16 = _library_qr(A16)
+    if not (torch.isfinite(Q16).all() and torch.isfinite(R16).all()):
+        raise AssertionError("the library complex QR is not finite")
+    log(f"[parity] library complex QR ({L16_CHAINS}, {L16 * L16}, "
+        f"{L16 * L16}): {1e3 * timed(lambda: _library_qr(A16), 5):.4f} ms")
 
     # ---- K4 at (256, 64, 64), the colscaled run's shape, and at
     # (64, 128, 128), the widest it takes; K11 at (128, 64, 64) float64, the
@@ -565,6 +631,34 @@ def phase_parity():
                 **sweep_bound(chains, ctx.F, ctx.N, out_k[2].sum().item(),
                               fp64=True))
     results["site_sweep_f64"]["max_abs_err"] = max(errs)
+    # ... and its negative-weight magnitudes against its plain version's, on
+    # F=2 inputs with random G whose diagonal leaves [0, 1] (r_up r_dn < 0
+    # happens there; the Green's functions of a half-filled run give none)
+    genn = torch.Generator(device=DEVICE).manual_seed(14)
+    C, Nn = K1_F64_F2_CHAINS, L * L
+    f64 = dict(device=DEVICE, dtype=torch.float64)
+    Gn = 0.5 * torch.eye(Nn, **f64) + 0.8 / math.sqrt(Nn) * torch.randn(
+        C, 2, Nn, Nn, generator=genn, **f64) + torch.diag_embed(
+            0.8 * torch.randn(C, 2, Nn, generator=genn, **f64))
+    sn = (2 * torch.randint(0, 2, (C, Nn), generator=genn, device=DEVICE)
+          - 1).to(torch.int8)
+    un = torch.rand(C, Nn, generator=genn, **f64)
+    kwn = dict(lamb=ctx.lamb, signs=(1.0, -1.0), det_power=1,
+               use_boson=False)
+    out_k = ss.site_sweep_f64(Gn, sn, un, **kwn)
+    out_p = ss.site_sweep_plain(Gn, sn, un, **kwn)
+    check_sweep("site_sweep_f64 on random G", out_k, out_p,
+                tuple(Gn.shape), relative=False, tol=TOL_G64)
+    has = out_p[3] > 0
+    dneg = ((out_k[4][has] - out_p[4][has]).abs().max().item()
+            if has.any() else math.inf)
+    log(f"[parity] site_sweep_f64 negative detratios {int(out_p[3].sum())} "
+        f"in {int(has.sum())} of {C} chains; log10 magnitudes (min, max, "
+        f"sum) max|d| {dneg:.3e} against the plain version")
+    if not (dneg <= TOL_NEG64
+            and torch.equal(out_k[4][~has], out_p[4][~has])):
+        raise AssertionError("site_sweep_f64's negative-weight magnitudes "
+                             "disagree with the plain version's")
 
     # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
     # at dk = 1, on real 16x16 Green's functions (plain-path init_state)
@@ -597,6 +691,35 @@ def phase_parity():
                 **sweep_bound(chains, ctx.F, ctx.N, n_acc))
     results["site_sweep_delayed"]["max_abs_err"] = max(errs)
 
+    # ---- K9 at (64, 1, 256, 256) complex64 with dk = 32, on the complex16
+    # configuration's Green's functions (plain-path init_state), against its
+    # plain version and, decisions and det, K8's plain rank-1 sweep
+    ctx, _, state, gen = real_state(complex_model(L=L16), L16_CHAINS, 13,
+                                    use_kernels=False, safe_mult=CPLX_SM)
+    G = state["G"]
+    sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+    u = torch.rand(L16_CHAINS, ctx.N, generator=gen, device=DEVICE)
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson, dk=max(ctx.delay, 1))
+    out_k = ssdcx.site_sweep_delayed_cx(G, sigma, u, **kw)
+    shape = tuple(G.shape)
+    err = check_sweep(f"site_sweep_delayed_cx dk={kw['dk']}", out_k,
+                      ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, **kw),
+                      shape, relative=True)
+    kw8 = {k: v for k, v in kw.items() if k != "dk"}
+    err = max(err, check_sweep("site_sweep_delayed_cx vs K8 plain", out_k,
+                               sscx.site_sweep_cx_plain(G, sigma, u, **kw8),
+                               shape, relative=True))
+    results["site_sweep_delayed_cx"] = dict(
+        max_abs_err=err,
+        ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx(G, sigma, u,
+                                                           **kw), 20),
+        plain_ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx_plain(
+            G, sigma, u, **kw), 3),
+        library_ms=None,
+        **sweep_bound(L16_CHAINS, ctx.F, ctx.N, out_k[2].sum().item(),
+                      complex_=True))
+
     # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
     B, N = L16_CHAINS, L16 * L16
     Ap, _, _ = _prescale_pivot(graded(gen, B, N))
@@ -617,11 +740,11 @@ def phase_parity():
 
 def sweep_kernel(ctx):
     """The site-sweep kernel a session's main path launches: K8 for complex
-    G, K6 past N = 128, K1 in float64 for float64 updates, K5 for float32
-    updates with F >= 2 at even N, else K1."""
+    G (K9 past N = 128), K6 past N = 128, K1 in float64 for float64
+    updates, K5 for float32 updates with F >= 2 at even N, else K1."""
     import torch
     if ctx.is_complex:
-        return "site_sweep_cx"
+        return "site_sweep_cx" if ctx.N <= 128 else "site_sweep_delayed_cx"
     if ctx.N > 128:
         return "site_sweep_delayed"
     if ctx.udtype == torch.float64:
@@ -632,10 +755,13 @@ def sweep_kernel(ctx):
 
 
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
-                complex_=False, session=None, repulsive=False):
+                complex_=False, session=None, repulsive=False, dims=2,
+                phase_tol=PHASE_TOL):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
-    with pure-gauge Peierls phases at safe_mult=5: K8, K10), with session
+    with pure-gauge Peierls phases at safe_mult=5: K8, K10; at 16x16: K9
+    and the library QR; on the 128-site chain, dims=1: K8, K10), with
+    session
     (DQMC's dtype, update_dtype and stab_method; None: float32) the f64
     (DQMC's defaults: K1 in float64, K11), mixed (K1, K11) and colscaled
     (K1, K4) ones, or the repulsive one (K5, K2, K3), which also measures
@@ -648,7 +774,7 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     for fn in KERNELS.values():
         fn.launches = 0
     session = dict(dtype=torch.float32) if session is None else session
-    model = (complex_model() if complex_
+    model = (complex_model(L=L, dims=dims) if complex_
              else headline_model(repulsive=repulsive, L=L))
     sim = DQMC(model, beta=BETA, delta_tau=DTAU,
                safe_mult=CPLX_SM if complex_ else SAFE_MULT, n_chains=chains,
@@ -671,8 +797,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     # recomputation)
     expected[sweep_kernel(ctx)] = 2 * ctx.M * n_pairs
     n_qr = 4 * ctx.n_seg * n_pairs + ctx.n_seg + 1
-    if ctx.is_complex:
-        expected.update(qr_cx=n_qr)
+    if ctx.is_complex:       # past N = 128 the library QR, as the JAX package
+        expected.update(qr_cx=n_qr if ctx.N <= 128 else 0)
     elif ctx.dtype == torch.float64:
         expected.update(qr_f64=n_qr)
     elif ctx.stab_method == "qr_colscaled":
@@ -690,7 +816,7 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     acc = sim.analysis.acc_rate
     occ = float(sim.observables()["occ"]["occ"].mean.mean())
     rate = chains * n_pairs / dur
-    log(f"[{tag}] {L}x{L} beta={BETA} M={ctx.M} safe_mult={ctx.sm} delay="
+    log(f"[{tag}] N={ctx.N} beta={BETA} M={ctx.M} safe_mult={ctx.sm} delay="
         f"{ctx.delay} {chains} chains {str(ctx.dtype)[6:]} updates "
         f"{str(ctx.udtype)[6:]} stab {ctx.stab_method}: {n_pairs} sweeps "
         f"in {dur:.3f} s = {rate:.1f} "
@@ -717,9 +843,10 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
             f"(running phase at the end); imaginary probabilities "
             f"{a.imaginary_probability.count} (|Im det| > 1e-6) of "
             f"{a.prop_local}, max |Im det| {a.imaginary_probability.max:.3e}")
-        if not (abs(sign - 1) < PHASE_TOL and abs(a.avg_phase - 1) < PHASE_TOL):
+        if not (abs(sign - 1) < phase_tol
+                and abs(a.avg_phase - 1) < phase_tol):
             raise AssertionError(f"average phase {sign} (sign), {a.avg_phase} "
-                                 f"(running) not within 1 +- {PHASE_TOL}")
+                                 f"(running) not within 1 +- {phase_tol}")
     return sim, launches, rate
 
 
@@ -774,8 +901,9 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     eye = torch.eye(N, device=DEVICE, dtype=ctx_k.dtype).expand(C, F, N, N)
     ones = torch.ones(C, F, N, device=DEVICE, dtype=ctx_k.rdtype)
     sigma = state["conf"][:, :, -1]
-    first, whole = [], []
+    first, whole, secs = [], [], []
     for ctx in (ctx_k, ctx_p):
+        t0 = time.perf_counter()
         G = calculate_greens(state["S_U"][:, n], state["S_D"][:, n],
                              state["S_T"][:, n], eye, ones, eye,
                              ctx.use_kernels, ctx.greens_udt_fn)
@@ -783,9 +911,12 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
         first.append(core.sweep_slice(ctx, G, sigma, u[:, 0])[1])
         if whole_pair:
             whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
     share_first = (first[0] == first[1]).all(1).float().mean().item()
-    tag = (f"{int(math.sqrt(N))}x{int(math.sqrt(N))} F={F} "
-           f"{str(ctx_k.dtype)[6:]} {ctx_k.stab_method} safe_mult={ctx_k.sm}")
+    tag = (f"N={N} F={F} {str(ctx_k.dtype)[6:]} {ctx_k.stab_method} "
+           f"safe_mult={ctx_k.sm} ({secs[0]:.1f} s kernel path, "
+           f"{secs[1]:.1f} s plain path)")
     if not whole_pair:
         log(f"[paths] {tag} delay={ctx_k.delay}: first slice visit agrees in "
             f"{share_first:.4f} of {C} chains")
@@ -797,6 +928,12 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
                     (s["prop_err_sum"].sum() / s["prop_err_n"].sum()).item())
              for name, s in (("kernel", sk), ("plain", sp))}
     neg = [int((s["neg_prob"] - state["neg_prob"]).sum()) for s in whole]
+    # |detratio| of the negative ones, where the path records it (the plain
+    # path does; the float32 kernels count them only)
+    mags = ["not recorded" if not math.isfinite(s["ls_neg_max"].max().item())
+            else (f"{10 ** s['ls_neg_min'].min().item():.3e}.."
+                  f"{10 ** s['ls_neg_max'].max().item():.3e}")
+            for s in whole]
     log(f"[paths] {tag}: first slice visit agrees in "
         f"{share_first:.4f} of {C} chains, the whole sweep pair in "
         f"{same.float().mean().item():.4f}; median max|dG| after it "
@@ -804,11 +941,11 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
         f"{drift['kernel'][0]:.3e}/{drift['kernel'][1]:.3e}, plain "
         f"{drift['plain'][0]:.3e}/{drift['plain'][1]:.3e}; negative "
         f"detratios kernel {neg[0]}, plain {neg[1]} of "
-        f"{C * 2 * ctx_k.M * N}")
+        f"{C * 2 * ctx_k.M * N}, |det| kernel {mags[0]}, plain {mags[1]}")
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
+def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -817,9 +954,10 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
     float32 paths whose QRs round differently part ways within the first
     window. There the decisions of the first slice visit are held to the
     bound; the whole sweep pair is held to it at safe_mult=1, where G is
-    recomputed from the stack at every slice. The column-scaled headline
-    (K4) is held the same way. In float64 rounding stays far below O(1), so
-    the whole pair is held at the configuration's safe_mult=10."""
+    recomputed from the stack at every slice (on the first SM1_PATH_CHAINS
+    chains). The column-scaled headline (K4) is held the same way. In
+    float64 rounding stays far below O(1), so the whole pair is held at the
+    configuration's safe_mult=10."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
@@ -827,7 +965,9 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
     for s, stab, seed in ((sim, "qr", 3), (simcs, "qr_colscaled", 10),
                           (simrep, "qr", 12)):
         repulsive = s.ctx.F == 2
-        first, _ = compare_paths(s.ctx, s.consts, s.state, seed)
+        # the repulsive pair prints the plain path's negative detratios
+        first, _ = compare_paths(s.ctx, s.consts, s.state, seed,
+                                 whole_pair=repulsive)
         if not first >= MIN_CONF_AGREE:
             raise AssertionError(f"kernel and plain paths ({stab}, F="
                                  f"{s.ctx.F}) agree on the first slice "
@@ -835,7 +975,8 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
         ctx1, consts1 = core.make_context(headline_model(repulsive), params,
                                           dtype=torch.float32, device=DEVICE,
                                           stab_method=stab)
-        state1 = core.init_state(ctx1, consts1, s.state["conf"])
+        state1 = core.init_state(ctx1, consts1,
+                                 s.state["conf"][:SM1_PATH_CHAINS])
         _, whole = compare_paths(ctx1, consts1, state1, seed + 1)
         if not whole >= MIN_CONF_AGREE:
             raise AssertionError(f"kernel and plain paths ({stab}, F="
@@ -865,37 +1006,68 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep):
                              "the chains")
     ctx1, consts1 = core.make_context(complex_model(), params,
                                       dtype=torch.float32, device=DEVICE)
-    state1 = core.init_state(ctx1, consts1, simcx.state["conf"])
+    state1 = core.init_state(ctx1, consts1,
+                             simcx.state["conf"][:SM1_PATH_CHAINS])
     _, whole = compare_paths(ctx1, consts1, state1, 7)
     if not whole >= MIN_CONF_AGREE:
         raise AssertionError(f"kernel and plain paths agree in only "
                              f"{whole:.3f} of the complex chains at "
                              "safe_mult=1")
+    # complex16: K9 + the library QR against the plain complex rank-k sweep;
+    # chain128: K8 at N = 128 + the wide K10 against the plain path, the
+    # whole pair at safe_mult=1
+    for s, seed in ((simcx16, 13), (simch, 15)):
+        first, _ = compare_paths(s.ctx, s.consts, s.state, seed,
+                                 whole_pair=False)
+        if not first >= MIN_CONF_AGREE_CX_FIRST:
+            raise AssertionError(f"kernel and plain paths agree on the first "
+                                 f"complex N={s.ctx.N} slice visit in only "
+                                 f"{first:.3f} of the chains")
+    ctx1, consts1 = core.make_context(complex_model(L=CHAIN_L, dims=1),
+                                      params, dtype=torch.float32,
+                                      device=DEVICE)
+    state1 = core.init_state(ctx1, consts1,
+                             simch.state["conf"][:SM1_PATH_CHAINS])
+    _, whole = compare_paths(ctx1, consts1, state1, 16)
+    if not whole >= MIN_CONF_AGREE:
+        raise AssertionError(f"kernel and plain paths agree in only "
+                             f"{whole:.3f} of the chain128 chains at "
+                             "safe_mult=1")
 
 
-def phase_witness(simcx):
-    """One complex sweep pair at safe_mult=5 from the complex run's final
-    configuration, with the same uniforms, on the kernel path (K8, K10), the
-    plain path (use_kernels=False) and the plain path in complex128, each
-    from its own fresh init_state. A pure gauge keeps every weight real, so
-    in complex128 no proposal may count as an imaginary probability and the
-    running phase must stay 1 to 1e-9: what the complex64 paths read there
-    is float32 rounding, which both must read alike."""
+def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
+    """One complex sweep pair at safe_mult=5 from a complex run's final
+    configuration (its first chains, where given; the complex run: K8, K10;
+    complex16: K9, the library QR), with the same uniforms, on the kernel
+    path, the kernel path with complex128 stacks (the site sweep kernel and
+    the wraps in complex64, the QR and the Green's recomputation in
+    complex128), the plain path (use_kernels=False) and the plain path in
+    complex128, each from its own fresh init_state. A pure gauge keeps
+    every weight real, so in complex128 no proposal may count as an
+    imaginary probability and the running phase must stay 1 to 1e-9: what
+    the complex64 paths read there is float32 rounding, which the kernel
+    and the plain path must read alike. The complex128 stacks tell the
+    rounding of the stabilization (QR, recomputation) from that of the
+    updates (site sweep, wraps)."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
-    conf = simcx.state["conf"]
+    conf = simcx.state["conf"][:chains]
     C, N, M = conf.shape
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     u = torch.rand(C, 2 * M, N, generator=gen, device=DEVICE)
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=CPLX_SM)
+    f32, f64 = torch.float32, torch.float64
     out = {}
-    for name, dtype, use_kernels in (
-            ("kernel complex64", torch.float32, True),
-            ("plain complex64", torch.float32, False),
-            ("plain complex128", torch.float64, False)):
-        ctx, consts = core.make_context(complex_model(), params, dtype=dtype,
-                                        device=DEVICE, use_kernels=use_kernels)
+    for name, session, use_kernels in (
+            ("kernel complex64", dict(dtype=f32), True),
+            ("kernel complex64 over complex128 stacks",
+             dict(dtype=f64, update_dtype=f32), True),
+            ("plain complex64", dict(dtype=f32), False),
+            ("plain complex128", dict(dtype=f64), False)):
+        t0 = time.perf_counter()
+        ctx, consts = core.make_context(model, params, device=DEVICE,
+                                        use_kernels=use_kernels, **session)
         s, _, _ = core.sweep_pair(ctx, consts, core.init_state(ctx, consts,
                                                                conf),
                                   u=u.to(ctx.urdtype))
@@ -908,22 +1080,27 @@ def phase_witness(simcx):
                              / s["prop_err_n"].sum()).item(),
                  s_dev=abs(complex(s["phase_meas"].mean().item()) - 1),
                  chain_dev=(s["ls_phase"] - 1).abs().max().item(),
+                 chain_mean=(s["ls_phase"] - 1).abs().mean().item(),
                  acc=s["acc"].sum().item() / (C * 2 * M * N))
         out[name] = r
-        log(f"[phase] {name}: imaginary probabilities {n_imag} of "
+        torch.cuda.synchronize()
+        log(f"[phase] N={N} {name} ({time.perf_counter() - t0:.1f} s): "
+            f"imaginary probabilities {n_imag} of "
             f"{C * 2 * M * N} proposals ({r['share']:.4f}), max |Im det| "
             f"{r['imag_max']:.3e}; drift max/mean {r['drift_max']:.3e}/"
             f"{r['drift_mean']:.3e}; |<s> - 1| {r['s_dev']:.3e} over "
-            f"{C} chains, max over chains |phase - 1| {r['chain_dev']:.3e}; "
-            f"acceptance {r['acc']:.4f}")
-    k, p, d = (out[n] for n in ("kernel complex64", "plain complex64",
-                                "plain complex128"))
+            f"{C} chains, |phase - 1| max {r['chain_dev']:.3e}, mean "
+            f"{r['chain_mean']:.3e} over chains; acceptance {r['acc']:.4f}")
+    k, x, p, d = (out[n] for n in (
+        "kernel complex64", "kernel complex64 over complex128 stacks",
+        "plain complex64", "plain complex128"))
     if not (d["share"] == 0 and d["s_dev"] < 1e-9 and d["chain_dev"] < 1e-9):
         raise AssertionError("complex128 plain path reads a non-real weight "
                              "for a pure gauge")
-    if not (k["s_dev"] < PHASE_TOL and p["s_dev"] < PHASE_TOL):
+    if not all(r["s_dev"] < phase_tol for r in (k, x, p)):
         raise AssertionError(f"<s> off 1 by {k['s_dev']} (kernel), "
-                             f"{p['s_dev']} (plain), bound {PHASE_TOL}")
+                             f"{x['s_dev']} (kernel over complex128 stacks), "
+                             f"{p['s_dev']} (plain), bound {phase_tol}")
     if not k["share"] <= IMAG_SHARE_RATIO * p["share"]:
         raise AssertionError(f"kernel path's imaginary-probability share "
                              f"{k['share']} above {IMAG_SHARE_RATIO} times "
@@ -937,9 +1114,14 @@ def main():
               "NVIDIA GPU", file=sys.stderr)
         return 1
     import_port()
+    t0 = time.perf_counter()
+    mark = lambda tag: log(f"[time] {tag} done at "
+                           f"{time.perf_counter() - t0:.1f} s")
     smi = phase_device()
     phase_build()
+    mark("build")
     parity = phase_parity()
+    mark("parity")
     sim, launches, _ = phase_slice()
     sim16, launches16, _ = phase_slice(L16, L16_CHAINS, L16_THERM,
                                        L16_SWEEPS, tag="l16")
@@ -956,11 +1138,23 @@ def main():
         session=dict(dtype=torch.float32, stab_method="qr_colscaled"))
     simrep, launchesrep, _ = phase_slice(therm=REP_THERM, sweeps=REP_SWEEPS,
                                          tag="repulsive", repulsive=True)
+    simcx16, launchescx16, _ = phase_slice(
+        L16, L16_CHAINS, CPLX_THERM, CPLX_SWEEPS, tag="complex16",
+        complex_=True, phase_tol=PHASE_TOL_CX16)
+    simch, launchesch, _ = phase_slice(
+        CHAIN_L, CHAINS, CPLX_THERM, CPLX_SWEEPS, tag="chain128",
+        complex_=True, dims=1)
+    mark("runs")
     runs = (launches, launches16, launchescx, launches64, launchesmx,
-            launchescs, launchesrep)
+            launchescs, launchesrep, launchescx16, launchesch)
     launches = {k: sum(r[k] for r in runs) for k in launches}
-    phase_paths(sim, sim16, simcx, sim64, simcs, simrep)
-    phase_witness(simcx)
+    phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch)
+    mark("paths")
+    phase_witness(simcx, complex_model())
+    mark("witness complex")
+    phase_witness(simcx16, complex_model(L=L16), PHASE_TOL_CX16,
+                  CX16_WITNESS_CHAINS)
+    mark("witness complex16")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

@@ -31,6 +31,12 @@
 // operations. float64 doubles the shared memory: F*N*(N+1)*8 bytes must fit
 // one block's 227 KB, so N <= 128 at F = 1 and N <= 119 at F = 2.
 //
+// Given a neg_out pointer (the float64 entry point), thread 0 also records
+// how large the chain's negative detratios were, as the XLA loop's
+// _push_mag does: the min, max and sum of log10(max(|det|, 1e-38)) over
+// them, in site order, into neg_out[3c .. 3c+2]. The float32 entry passes
+// NULL: the Pallas kernels it replaces count the negative detratios alone.
+//
 // The TPU kernel's chain-on-lanes layout, one-hot contractions and
 // grid-as-site-loop are Mosaic workarounds and are not carried over.
 //
@@ -52,6 +58,7 @@
 // is K1's _rn operation in K1's order, so K5 is bit-equal to K1.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -85,6 +92,8 @@ __device__ __forceinline__ double div_rn(double a, double b) {
 }
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float log10_(float x) { return log10f(x); }
+__device__ __forceinline__ double log10_(double x) { return log10(x); }
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -92,8 +101,8 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
                   const int8_t* __restrict__ sigma_in,
                   int8_t* __restrict__ sigma_out, const T* __restrict__ u,
                   int* __restrict__ acc_out, int* __restrict__ nneg_out,
-                  int N, T lamb, T sign0, T sign1, int det_power,
-                  int use_boson) {
+                  T* __restrict__ neg_out, int N, T lamb, T sign0, T sign1,
+                  int det_power, int use_boson) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int LD = N + 1;
   T* Gs = reinterpret_cast<T*>(smem_raw);  // [f][a][b] at (f*N + a)*LD + b
@@ -115,6 +124,8 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
 
   const T neg2lamb = mul_rn(T(-2), lamb);
   int acc = 0, nneg = 0;
+  // log10 |det| over the negative detratios: min, max, sum (thread 0)
+  T neg_min = T(INFINITY), neg_max = T(-INFINITY), neg_sum = T(0);
   for (int i = 0; i < N; ++i) {
     const int8_t s8 = sigma_in[c * N + i];
     const T dEb = mul_rn(neg2lamb, (T)s8);
@@ -135,6 +146,12 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
       acc += accept;
       nneg += det < T(0);
       sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
+      if (neg_out != nullptr && det < T(0)) {
+        const T lv = log10_(fmax(fabs(det), T(1e-38)));
+        neg_min = fmin(neg_min, lv);
+        neg_max = fmax(neg_max, lv);
+        neg_sum = add_rn(neg_sum, lv);
+      }
     }
     if (!accept) continue;  // block-uniform: every thread decided the same
     for (int e = tid; e < F * N; e += blockDim.x) {
@@ -167,6 +184,11 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
   if (tid == 0) {
     acc_out[c] = acc;
     nneg_out[c] = nneg;
+    if (neg_out != nullptr) {
+      neg_out[3 * c] = neg_min;
+      neg_out[3 * c + 1] = neg_max;
+      neg_out[3 * c + 2] = neg_sum;
+    }
   }
 }
 
@@ -323,34 +345,34 @@ int launch_pair(const float* G_in, float* G_out, const int8_t* sigma_in,
 
 template <typename T, int F>
 int launch(const T* G_in, T* G_out, const int8_t* sigma_in,
-           int8_t* sigma_out, const T* u, int* acc, int* nneg, int C,
-           int N, T lamb, T sign0, T sign1, int det_power, int use_boson,
-           cudaStream_t stream) {
+           int8_t* sigma_out, const T* u, int* acc, int* nneg, T* neg,
+           int C, int N, T lamb, T sign0, T sign1, int det_power,
+           int use_boson, cudaStream_t stream) {
   const size_t smem = (size_t)(F * N * (N + 1) + 2 * F * N) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       site_sweep_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   site_sweep_kernel<T, F><<<C, kThreads, smem, stream>>>(
-      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, N, lamb, sign0, sign1,
-      det_power, use_boson);
+      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, N, lamb, sign0,
+      sign1, det_power, use_boson);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const T* G_in, T* G_out, const int8_t* sigma_in,
-             int8_t* sigma_out, const T* u, int* acc, int* nneg, int C, int F,
-             int N, T lamb, T sign0, T sign1, int det_power, int use_boson,
-             void* stream) {
+             int8_t* sigma_out, const T* u, int* acc, int* nneg, T* neg, int C,
+             int F, int N, T lamb, T sign0, T sign1, int det_power,
+             int use_boson, void* stream) {
   if (C == 0) return 0;
   if (N < 1 || N > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (F == 1)
-    return launch<T, 1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, N,
-                        lamb, sign0, sign1, det_power, use_boson, st);
+    return launch<T, 1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
+                        C, N, lamb, sign0, sign1, det_power, use_boson, st);
   if (F == 2)
-    return launch<T, 2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, N,
-                        lamb, sign0, sign1, det_power, use_boson, st);
+    return launch<T, 2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
+                        C, N, lamb, sign0, sign1, det_power, use_boson, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -364,8 +386,9 @@ extern "C" int site_sweep_f32(const float* G_in, float* G_out,
                               int F, int N, float lamb, float sign0,
                               float sign1, int det_power, int use_boson,
                               void* stream) {
-  return dispatch<float>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, F,
-                         N, lamb, sign0, sign1, det_power, use_boson, stream);
+  return dispatch<float>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
+                         nullptr, C, F, N, lamb, sign0, sign1, det_power,
+                         use_boson, stream);
 }
 
 // K5: even N <= 128, F in {1,2}, float32.
@@ -387,13 +410,14 @@ extern "C" int site_sweep_pair_f32(const float* G_in, float* G_out,
   return (int)cudaErrorInvalidValue;
 }
 
+// neg: (C, 3) float64 negative-weight statistics.
 extern "C" int site_sweep_f64(const double* G_in, double* G_out,
                               const int8_t* sigma_in, int8_t* sigma_out,
-                              const double* u, int* acc, int* nneg, int C,
-                              int F, int N, double lamb, double sign0,
-                              double sign1, int det_power, int use_boson,
-                              void* stream) {
-  return dispatch<double>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C,
-                          F, N, lamb, sign0, sign1, det_power, use_boson,
+                              const double* u, int* acc, int* nneg,
+                              double* neg, int C, int F, int N, double lamb,
+                              double sign0, double sign1, int det_power,
+                              int use_boson, void* stream) {
+  return dispatch<double>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
+                          C, F, N, lamb, sign0, sign1, det_power, use_boson,
                           stream);
 }

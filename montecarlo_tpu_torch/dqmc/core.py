@@ -17,11 +17,12 @@ Index conventions (0-based, as in the JAX package):
 Ported: the rank-1 site sweep (sequential, and for F >= 2 in float32 at
 even N two sites at a time), the delayed rank-k site sweep, with the QR
 stabilizations (stab_method "qr" and "qr_colscaled") for real hopping in
-float32, float64 and mixed precision, and the rank-1 sweep for complex
-hopping (Peierls phases) with its phase-problem statistics: the
-imaginary-weight monitor and the running weight phase. g_refresh,
-checkerboard and complex delayed updates raise NotImplementedError naming
-their ROADMAP item; the retired stab_method "cholqr" raises as well.
+float32, float64 and mixed precision, and the rank-1 and delayed sweeps for
+complex hopping (Peierls phases) with their phase-problem statistics: the
+imaginary-weight monitor and the running weight phase. Every session
+records how large its negative weights were where the JAX package does.
+g_refresh and checkerboard raise NotImplementedError naming their ROADMAP
+item; the retired stab_method "cholqr" raises as well.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from ..ops import qr_cx as _qr_cx
 from ..ops import qr_householder as _qrh
 from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
-from ..ops.linalg import (calculate_greens, permute_rows, scatter_columns,
-                          udt_dirty, udt_dirty_colscaled)
-from ..ops.site_sweep import (MAX_N, pair_supports, site_sweep,
-                              site_sweep_f64, site_sweep_pair,
+from ..ops import site_sweep_delayed_cx as _ssdcx
+from ..ops.linalg import (CX_QR_MAX_N, calculate_greens, permute_rows,
+                          scatter_columns, udt_dirty, udt_dirty_colscaled)
+from ..ops.site_sweep import (MAX_N, empty_neg, neg_push, pair_supports,
+                              site_sweep, site_sweep_f64, site_sweep_pair,
                               site_sweep_plain)
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
 from ..utils.host import real_dtype, resolve_device
@@ -66,11 +68,12 @@ class DQMCContext:
     update_dtype: torch.dtype = None
     prop_err_threshold: float = 1e-7
     # hand-written kernels on CUDA (K1-K5 and K11 for N <= 128, K6 and K7
-    # beyond, K8 and K10 for complex), their plain versions on CPU; False
-    # runs the plain site sweeps and the library QR/solve on any device
+    # beyond; complex: K8 and K10 for N <= 128, K9 beyond), their plain
+    # versions on CPU; False runs the plain site sweeps and the library
+    # QR/solve on any device
     use_kernels: bool = True
     # delayed-update block width K (0 = rank-1): the plain path's rank-K
-    # sweep, and the site block of K6
+    # sweep, and the site block of K6 and K9
     delay: int = 0
     # "qr" (udt_dirty: one power-of-two prescale per product) or
     # "qr_colscaled" (udt_dirty_colscaled: every column normalized)
@@ -151,9 +154,9 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         if update_dtype is not None:
             update_dtype = _COMPLEX.get(update_dtype, update_dtype)
     if g_refresh:
-        raise _not_ported("g_refresh", "Queue 1 item 9")
+        raise _not_ported("g_refresh", "Queue 1 item 5")
     if checkerboard:
-        raise _not_ported("checkerboard", "Queue 1 item 14")
+        raise _not_ported("checkerboard", "Queue 1 item 6")
     if stab_method == "cholqr":
         raise NotImplementedError(
             "stab_method='cholqr' was retired in the JAX package for drift "
@@ -162,9 +165,6 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         raise ValueError(f"unknown stab_method {stab_method!r} (use 'qr' or "
                          "'qr_colscaled')")
     delay = _delay(N, delay)
-    if dtype.is_complex and delay > 1:
-        raise _not_ported(f"complex delayed updates (delay={delay}, N={N})",
-                          "Queue 2 K9")
     udtype = dtype if update_dtype is None else update_dtype
     if device.type == "cuda" and use_kernels:
         _check_cuda_kernels(N, model.nflavors, delay, dtype, udtype)
@@ -219,23 +219,34 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     float32; K5 takes every shape K1 takes at even N) and the QR of the
     stack dtype: float32 K2/K3 and K4 for 8 | N <= 128 and K7 for
     8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with float32 or
-    float64 updates). Complex64 sessions: K8 and K10 (8 | N <= 64,
-    F <= 2)."""
+    float64 updates). Complex64 updates at 8 | N: K8 up to N = 128 (G of
+    one chain in shared memory: F = 2 to N = 119), K9 in blocks of
+    max(delay, 1) sites beyond (its slabs in shared memory: not F = 2 at
+    N = 256, delay 32); the QR of complex64 stacks is K10 up to N = 128 and
+    the library QR beyond, that of complex128 stacks the library QR, as in
+    the JAX package (XLA's QR where no Pallas kernel takes the shape)."""
     if dtype.is_complex or udtype.is_complex:
-        if dtype != torch.complex64 or udtype != torch.complex64:
-            raise _not_ported("CUDA kernels for complex128 (use_kernels=False "
-                              "runs the plain path)", "Queue 1 item 12")
-        if not (_sscx.kernel_supports(N, F) and _qr_cx.kernel_supports(N)):
+        if udtype != torch.complex64:
+            raise _not_ported("CUDA kernels for complex128 updates "
+                              "(use_kernels=False runs the plain path)",
+                              "Queue 1 item 4")
+        dk = max(delay, 1)
+        qr_ok = dtype == torch.complex128 or _qr_cx.kernel_supports(N)
+        if not (N % 8 == 0 and (
+                _sscx.kernel_supports(N, F) and qr_ok
+                if N <= CX_QR_MAX_N else _ssdcx.kernel_supports(N, F, dk))):
             raise _not_ported(
-                f"the complex64 kernels for N={N}, F={F} (K8 and K10 take "
-                "8 | N <= 64, F <= 2; beyond needs the wide K10 and, past "
-                "N = 128, K9)", "Queue 2 K9, K10")
+                f"the complex64 kernels for N={N}, F={F}, delay={delay} (K8 "
+                "and K10 take 8 | N <= 128 with G of one chain in shared "
+                "memory, K9 8 | N beyond with its slabs in shared memory; "
+                "elsewhere the JAX package runs XLA's loop or QR)",
+                "Queue 1 item 4")
         return
     f64 = dtype == torch.float64
     if f64 and not _qrh.kernel_supports(N, torch.float64):
         raise _not_ported(
             f"the float64 QR for N={N} (K11 takes 8 | N <= 64; beyond, the "
-            "JAX package runs XLA's float64 QR)", "Queue 1 item 13")
+            "JAX package runs XLA's float64 QR)", "Queue 1 item 4")
     if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
             else _ssd.kernel_supports(N, F, max(delay, 1))):
         raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
@@ -247,7 +258,7 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
         raise _not_ported(
             f"the float32 QR for N={N} (K2/K3 and K4 take 8 | N <= 128, K7 "
             "8 | N > 128; for other N the JAX package runs XLA's QR)",
-            "Queue 1 item 3")
+            "Queue 1 item 4")
 
 
 # ---------------------------------------------------------------------------
@@ -328,34 +339,43 @@ def extend_right(ctx, consts, conf, j, U, D, T):
 def sweep_slice(ctx, G, sigma, u):
     """Sequential Metropolis over all sites of one time slice, for every
     chain. G: (C, F, N, N) in the update dtype, sigma: (C, N) int8, u: (C, N)
-    uniforms. Returns new (G, sigma, acc (C,), nneg (C,)); the inputs are not
-    modified. Complex sessions return (G, sigma, accept (C, N), det (C, N))
-    instead: every site's accept flag and complex detratio, for
-    ``_track_detratio_batch``.
+    uniforms. Returns new (G, sigma, acc (C,), nneg (C,), neg) on every
+    route; the inputs are not modified. neg is the per-chain (C, 3) min, max
+    and sum of log10|detratio| over the negative proposals
+    (``site_sweep.neg_push``) where the route records them, None where it
+    keeps the count alone (K1 and K5 in float32, K6: the Pallas kernels'
+    rule). Complex sessions return (G, sigma, accept (C, N), det (C, N),
+    None) instead: every site's accept flag and complex detratio, for
+    ``_track_detratio_batch``, which folds the statistics itself.
 
     Dispatch as in the JAX engine: the kernel path runs, for N <= 128, K5
     (two sites at a time) for float32 G with F >= 2 at even N and K1
-    (rank-1, float32 or float64 as G) otherwise; K6 (delayed, blocks of
-    max(delay, 1) sites) beyond, and K8 for complex G; the plain path runs
-    ``sweep_slice_delayed`` when delay > 1, else the plain version of the
-    rank-1 kernel (K1's, or K8's for complex G)."""
+    (rank-1, float32 or float64 as G) otherwise, and K8 for complex G;
+    beyond, K6 (delayed, blocks of max(delay, 1) sites) and K9 (its
+    complex instance); the plain path runs ``sweep_slice_delayed`` when
+    delay > 1, else the plain version of the rank-1 kernel (K1's, or K8's
+    for complex G)."""
     sigma, u = sigma.contiguous(), u.contiguous()
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
+    dk = max(ctx.delay, 1)
     if G.is_complex():
         if ctx.use_kernels:
-            return _sscx.site_sweep_cx(G, sigma, u, **kw)
-        return _sscx.site_sweep_cx_plain(G, sigma, u, **kw)
+            if ctx.N <= MAX_N:
+                return (*_sscx.site_sweep_cx(G, sigma, u, **kw), None)
+            return (*_ssdcx.site_sweep_delayed_cx(G, sigma, u, dk=dk, **kw),
+                    None)
+        if ctx.delay > 1:
+            return sweep_slice_delayed(ctx, G, sigma, u)
+        return (*_sscx.site_sweep_cx_plain(G, sigma, u, **kw), None)
     if ctx.use_kernels:
-        if ctx.N <= MAX_N:
-            if G.dtype == torch.float64:
-                fn = site_sweep_f64
-            elif ctx.F >= 2 and pair_supports(ctx.N, ctx.F, G.dtype):
-                fn = site_sweep_pair
-            else:
-                fn = site_sweep
-            return fn(G, sigma, u, **kw)
-        return _ssd.site_sweep_delayed(G, sigma, u, dk=max(ctx.delay, 1), **kw)
+        if ctx.N > MAX_N:
+            return (*_ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw), None)
+        if G.dtype == torch.float64:
+            return site_sweep_f64(G, sigma, u, **kw)
+        if ctx.F >= 2 and pair_supports(ctx.N, ctx.F, G.dtype):
+            return (*site_sweep_pair(G, sigma, u, **kw), None)
+        return (*site_sweep(G, sigma, u, **kw), None)
     if ctx.delay > 1:
         return sweep_slice_delayed(ctx, G, sigma, u)
     return site_sweep_plain(G, sigma, u, **kw)
@@ -366,27 +386,37 @@ def sweep_slice_delayed(ctx, G, sigma, u):
     rank-1 sweep, with accepted flips accumulated as skinny factors
     A (C, F, N, K) and B (C, F, K, N), G_curr = G - A·B, and folded into G
     with one batched product per block of K sites (port of the JAX
-    package's XLA ``sweep_slice_delayed``; delta is expm1 as there). Same
-    arguments and results as ``sweep_slice``; K | N."""
+    package's XLA ``sweep_slice_delayed``; delta is expm1 as there, and a
+    complex G decides on Re(detratio)). Same arguments and results as
+    ``sweep_slice`` (real G: the negative-weight statistics included,
+    complex G: None in their place); K | N."""
     C, F, N, _ = G.shape
     K = ctx.delay
-    signs = torch.tensor(ctx.signs, dtype=G.dtype, device=G.device)
+    cx = G.is_complex()
+    rd = real_dtype(G.dtype)
+    signs = torch.tensor(ctx.signs, dtype=rd, device=G.device)
     sigma = sigma.clone()
     acc = torch.zeros(C, dtype=torch.int32, device=G.device)
     nneg = torch.zeros(C, dtype=torch.int32, device=G.device)
+    neg = empty_neg(C, rd, G.device)
+    accept_all = torch.zeros(C, N, dtype=torch.bool, device=G.device)
+    det_all = G.new_zeros(C, N)
     for b in range(N // K):
         A = G.new_zeros(C, F, N, K)
         B = G.new_zeros(C, F, K, N)
         for j in range(K):
             i = b * K + j
-            dEb = sigma[:, i].to(G.dtype) * (-2.0 * ctx.lamb)      # (C,)
+            dEb = sigma[:, i].to(rd) * (-2.0 * ctx.lamb)           # (C,)
             delta = torch.expm1(signs * dEb[:, None])              # (C, F)
             Arow, Bcol = A[:, :, i, :], B[:, :, :, i]              # (C, F, K)
             gii = G[:, :, i, i] - (Arow * Bcol).sum(-1)
             r = 1.0 + delta * (1.0 - gii)
-            detratio = torch.prod(r, dim=-1) ** ctx.det_power
+            rprod = torch.prod(r, dim=-1)
+            detratio = rprod
+            for _ in range(ctx.det_power - 1):
+                detratio = detratio * rprod
             w = torch.exp(-dEb) if ctx.use_boson else 1.0
-            accept = u[:, i] < w * detratio
+            accept = u[:, i] < w * (detratio.real if cx else detratio)
             x = delta / r
             row = G[:, :, i, :] - (Arow[:, :, None, :] @ B)[:, :, 0, :]
             col = G[:, :, :, i] - (A @ Bcol[..., None])[..., 0]
@@ -396,10 +426,16 @@ def sweep_slice_delayed(ctx, G, sigma, u):
             A[:, :, :, j] = coef[..., None] * IG
             B[:, :, j, :] = row
             sigma[:, i] = torch.where(accept, -sigma[:, i], sigma[:, i])
-            acc += accept
-            nneg += detratio < 0
+            if cx:
+                accept_all[:, i], det_all[:, i] = accept, detratio
+            else:
+                acc += accept
+                nneg += detratio < 0
+                neg = neg_push(neg, detratio)
         G = G - A @ B
-    return G, sigma, acc, nneg
+    if cx:
+        return G, sigma, accept_all, det_all, None
+    return G, sigma, acc, nneg, neg
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +445,17 @@ def sweep_slice_delayed(ctx, G, sigma, u):
 # exceedance edges for the propagation-drift histogram
 PROP_ERR_EDGES = (1e-6, 1e-3, 1e-1, 1e1)
 
+# the magnitudes of the negative weights (Re(detratio) < 0) as log10: min,
+# max and sum per chain (where the site sweep records them, sweep_slice)
+NEG_KEYS = ("ls_neg_min", "ls_neg_max", "ls_neg_sum")
 # per-chain counters, reset when DQMC drains them to host integers
 COUNTER_KEYS = ("prop", "acc", "neg_prob", "prop_err_max", "prop_err_count",
-                "prop_err_sum", "prop_err_n", "prop_err_hist")
+                "prop_err_sum", "prop_err_n", "prop_err_hist") + NEG_KEYS
 # complex sessions add the phase-problem statistics, reset on drain as well:
-# magnitudes of negative Re(detratio) and of |Im(detratio)| above
-# IMAG_PROB_THRESHOLD as log10 (min, max, sum), and the count of the latter
-CX_COUNTER_KEYS = ("ls_neg_min", "ls_neg_max", "ls_neg_sum", "ls_imag_count",
-                   "ls_imag_min", "ls_imag_max", "ls_imag_sum")
+# the count of |Im(detratio)| above IMAG_PROB_THRESHOLD and its magnitudes
+# as log10 (min, max, sum)
+CX_COUNTER_KEYS = ("ls_imag_count", "ls_imag_min", "ls_imag_max",
+                   "ls_imag_sum")
 # ... and the running configuration-weight phase ls_phase with its snapshot
 # phase_meas at the measurement point, which the drain leaves alone
 
@@ -435,19 +474,31 @@ def fresh_counters(ctx, C):
     kw = dict(device=ctx.device)
     ints = lambda *shape: torch.zeros(C, *shape, dtype=torch.int64, **kw)
     real = lambda v=0.0: torch.full((C,), v, dtype=ctx.rdtype, **kw)
+    inf = float("inf")
     out = {"prop": ints(), "acc": ints(), "neg_prob": ints(),
            "prop_err_max": real(), "prop_err_count": ints(),
            # window-end drift distribution: sum/n give the mean, the
            # histogram counts exceedances over PROP_ERR_EDGES
            "prop_err_sum": real(), "prop_err_n": ints(),
-           "prop_err_hist": ints(len(PROP_ERR_EDGES))}
+           "prop_err_hist": ints(len(PROP_ERR_EDGES)),
+           "ls_neg_min": real(inf), "ls_neg_max": real(-inf),
+           "ls_neg_sum": real()}
     if ctx.is_complex:
-        inf = float("inf")
-        out.update(ls_neg_min=real(inf), ls_neg_max=real(-inf),
-                   ls_neg_sum=real(), ls_imag_count=ints(),
-                   ls_imag_min=real(inf), ls_imag_max=real(-inf),
-                   ls_imag_sum=real())
+        out.update(ls_imag_count=ints(), ls_imag_min=real(inf),
+                   ls_imag_max=real(-inf), ls_imag_sum=real())
     return out
+
+
+def _track_negative(ls, neg):
+    """Fold one slice's per-chain negative-weight statistics neg (C, 3)
+    (min, max, sum of log10|detratio|; sweep_slice) into ls_neg_*; nothing
+    where the route records none (neg None)."""
+    if neg is None:
+        return {}
+    neg = neg.to(ls["ls_neg_sum"].dtype)
+    return {"ls_neg_min": torch.minimum(ls["ls_neg_min"], neg[:, 0]),
+            "ls_neg_max": torch.maximum(ls["ls_neg_max"], neg[:, 1]),
+            "ls_neg_sum": ls["ls_neg_sum"] + neg[:, 2]}
 
 
 def _track_detratio_batch(ls, det, accept):
@@ -586,19 +637,22 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
     conf = state["conf"].clone()
     S_U, S_D, S_T = (state[k].clone() for k in ("S_U", "S_D", "S_T"))
     G = state["G"]
-    # Metropolis statistics: acc, neg_prob and, complex, the phase problem's
-    ls = {k: state[k] for k in ("acc", "neg_prob") + (
+    # Metropolis statistics: acc, neg_prob, the negative weights'
+    # magnitudes and, complex, the phase problem's
+    ls = {k: state[k] for k in ("acc", "neg_prob") + NEG_KEYS + (
         CX_COUNTER_KEYS + ("ls_phase",) if ctx.is_complex else ())}
     perr = {k: state[k] for k in COUNTER_KEYS if k.startswith("prop_err")}
     visit = 0
 
     def sweep(G, l):
         nonlocal visit
-        G, conf[:, :, l], a, b = sweep_slice(ctx, G, conf[:, :, l], u[visit])
+        G, conf[:, :, l], a, b, neg = sweep_slice(ctx, G, conf[:, :, l],
+                                                  u[visit])
         if ctx.is_complex:          # a, b: per-site accept flags and det
             ls.update(_track_detratio_batch(ls, b, a))
         else:                       # a, b: accepted and negative counts
             ls["acc"], ls["neg_prob"] = ls["acc"] + a, ls["neg_prob"] + b
+            ls.update(_track_negative(ls, neg))
         visit += 1
         return G
 

@@ -25,8 +25,9 @@ from ..utils.host import resolve_device
 class MagnitudeStats:
     """Min/max/geometric-mean/count of a monitored quantity (the JAX
     package's MagnitudeStats): min and max linear, the sum in the log10
-    domain. Real sessions fill only max (drift) and count; complex sessions
-    fill all four for the negative and the imaginary weights."""
+    domain. The drift fills max and count; the negative and the imaginary
+    weights fill all four, the negative ones only count where the site
+    sweep keeps the count alone (float32 kernels)."""
 
     min: float = math.inf
     max: float = 0.0
@@ -39,11 +40,15 @@ class MagnitudeStats:
 
     def absorb_device(self, log_min, log_max, log_sum, count):
         """Fold in per-chain device reductions of log10 magnitudes (min, max,
-        sum) and a count; no events leave the statistics as they were."""
+        sum) and a count; no events leave the statistics as they were, and
+        non-finite extrema (no magnitudes recorded) leave min and max."""
         if int(count) == 0:
             return
-        self.min = min(self.min, 10.0 ** float(log_min))
-        self.max = max(self.max, 10.0 ** float(log_max))
+        lm, lx = float(log_min), float(log_max)
+        if math.isfinite(lm):
+            self.min = min(self.min, 10.0 ** lm)
+        if math.isfinite(lx):
+            self.max = max(self.max, 10.0 ** lx)
         self.log_sum += float(log_sum)
         self.count += int(count)
 
@@ -93,7 +98,7 @@ class DQMC:
         if recorder is not None or recording_rate is not None:
             raise NotImplementedError(
                 "configuration recorders are not ported to montecarlo_tpu_torch "
-                "yet (ROADMAP Queue 1 item 17)")
+                "yet (ROADMAP Queue 1 item 8)")
         self.device = resolve_device(device)
         self.model = model
         self.parameters = self.p = DQMCParameters(**params)
@@ -173,7 +178,7 @@ class DQMC:
         if safe_before is not None or safe_every is not None or filename:
             raise NotImplementedError(
                 "checkpointing is not ported to montecarlo_tpu_torch yet "
-                "(ROADMAP Queue 1 item 17)")
+                "(ROADMAP Queue 1 item 8)")
         p = self.parameters
         sweeps = sweeps if sweeps is not None else p.sweeps
         thermalization = (thermalization if thermalization is not None
@@ -217,26 +222,23 @@ class DQMC:
 
     def _drain_counters(self):
         """Accumulate the per-chain device counters into host Python ints and
-        reset them; complex sessions also fold in the phase-problem
-        statistics and read the average weight phase (the running phase
-        itself is not reset)."""
+        reset them, with the negative weights' magnitudes; complex sessions
+        also fold in the phase-problem statistics and read the average
+        weight phase (the running phase itself is not reset)."""
         st = self.state
         host = {k: st[k].cpu() for k in core.counter_keys(self.ctx)}
         a = self.analysis
         a.prop_local += int(host["prop"].sum())
         a.acc_local += int(host["acc"].sum())
         a.acc_rate = a.acc_local / max(1, a.prop_local)
-        neg = int(host["neg_prob"].sum())
+        a.negative_probability.absorb_device(
+            host["ls_neg_min"].min(), host["ls_neg_max"].max(),
+            host["ls_neg_sum"].sum(), host["neg_prob"].sum())
         if self.ctx.is_complex:
-            a.negative_probability.absorb_device(
-                host["ls_neg_min"].min(), host["ls_neg_max"].max(),
-                host["ls_neg_sum"].sum(), neg)
             a.imaginary_probability.absorb_device(
                 host["ls_imag_min"].min(), host["ls_imag_max"].max(),
                 host["ls_imag_sum"].sum(), host["ls_imag_count"].sum())
             a.avg_phase = complex(st["ls_phase"].mean().item())
-        else:
-            a.negative_probability.count += neg
         a.propagation_error.max = max(a.propagation_error.max,
                                       float(host["prop_err_max"].max()))
         a.propagation_error.count += int(host["prop_err_count"].sum())
@@ -249,8 +251,10 @@ class DQMC:
     def _report_errors(self):
         a = self.analysis
         if a.negative_probability.count > 0:
-            print(f"[DQMC] {a.negative_probability.count} negative "
-                  "probabilities (sign problem?)")
+            n = a.negative_probability
+            print(f"[DQMC] {n.count} negative probabilities (sign problem?) "
+                  f"|p|: min {n.min:.2e} / geo-mean {n.mean:.2e} / "
+                  f"max {n.max:.2e}")
         if a.imaginary_probability.count > 0:
             im = a.imaginary_probability
             print(f"[DQMC] {im.count} imaginary probabilities (|Im detratio| "
@@ -272,7 +276,7 @@ class DQMC:
         DQMC.replay)."""
         raise NotImplementedError(
             "replay is not ported to montecarlo_tpu_torch yet "
-            "(ROADMAP Queue 1 item 17)")
+            "(ROADMAP Queue 1 item 8)")
 
     # ------------------------------------------------------------ observables
     def observables(self, stage: str = "ME"):

@@ -28,8 +28,7 @@ def state_from_numpy(state_np, device="cpu"):
     vmapped init_state / sweep_pair output as numpy arrays: conf (C, N, M),
     stacks (C, n_el, F, N, N), G (C, F, N, N), per-chain counters; complex
     sessions also the phase-problem statistics and the weight phase). The
-    JAX RNG key and a real session's local-stats magnitude fields are
-    dropped; counters become int64."""
+    JAX RNG key is dropped; counters become int64."""
     keys = _STATE_KEYS + (_CX_KEYS if "ls_phase" in state_np else ())
     out = {}
     for k in keys:

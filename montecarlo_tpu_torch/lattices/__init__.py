@@ -1,4 +1,4 @@
 from .lattice import Lattice, UnitCell
-from .library import SquareLattice, choose_lattice
+from .library import Chain, SquareLattice, choose_lattice
 
-__all__ = ["Lattice", "UnitCell", "SquareLattice", "choose_lattice"]
+__all__ = ["Chain", "Lattice", "UnitCell", "SquareLattice", "choose_lattice"]

@@ -43,7 +43,7 @@ class Measurement:
         if self.kind != "equal":
             raise NotImplementedError(
                 f"measurements of kind {self.kind!r} are not ported to "
-                "montecarlo_tpu_torch yet (ROADMAP Queue 1 item 7)")
+                "montecarlo_tpu_torch yet (ROADMAP Queue 1 item 1)")
 
     def bind(self, n_chains: int, device):
         """Create the binners and their empty states for a chain batch."""

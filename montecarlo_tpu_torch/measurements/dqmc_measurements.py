@@ -2,7 +2,7 @@
 montecarlo_tpu/measurements/dqmc_measurements.py): the Green's function,
 occupation, sign, HS-field energy, and the charge, spin and pairing
 correlations binned by distance. The time-displaced measurements
-(susceptibilities, ``greens_at``) are ROADMAP Queue 1 item 7 and raise.
+(susceptibilities, ``greens_at``) are ROADMAP Queue 1 item 1 and raise.
 
 Green's functions carry a chain and a flavor-block axis: (C, F, N, N).
 G[:, up] = G[:, 0], G[:, down] = G[:, F-1]: the attractive model (F = 1)
@@ -29,7 +29,7 @@ class Greens:
 
 class GreensAt:
     """Marker factory: the measurement needs G(k, l) (time-displaced, not
-    ported: ROADMAP Queue 1 item 7)."""
+    ported: ROADMAP Queue 1 item 1)."""
 
     def __init__(self, k, l):
         self.kl = (int(k), int(l))
@@ -37,13 +37,13 @@ class GreensAt:
 
 class CombinedGreensIterator:
     """Marker: the measurement integrates over (G(0,l), G(l,0), G(l,l))
-    (susceptibilities, not ported: ROADMAP Queue 1 item 7)."""
+    (susceptibilities, not ported: ROADMAP Queue 1 item 1)."""
 
 
 def _time_displaced(what):
     return NotImplementedError(
         f"{what} (time-displaced) is not ported to montecarlo_tpu_torch yet "
-        "(ROADMAP Queue 1 item 7)")
+        "(ROADMAP Queue 1 item 1)")
 
 
 def _session_eltype(mc):

@@ -36,8 +36,8 @@ class _HubbardBase(Model):
                  t: float = 1.0, U: float = 1.0, mu: float = 0.0,
                  peierls=None):
         """peierls: optional (N, N) real antisymmetric phase matrix; the
-        hopping then becomes complex, which make_context rejects until the
-        complex path is ported (ROADMAP Queue 1 item 12)."""
+        hopping then becomes complex, and make_context promotes the session
+        to complex64 or complex128."""
         if l is None:
             if L is None:
                 raise ValueError("need l=lattice or L (+dims)")

@@ -3,10 +3,11 @@ the DQMC sweep: site_sweep (K1), its float64 instance site_sweep_f64 and its
 delay-2 paired-site form site_sweep_pair (K5), udt_qr (K2), udt_qr_solve
 (K3), the unfused Householder QR qr_f32 (K4) and qr_f64 (K11),
 site_sweep_delayed (K6) and qr_blocked (K7) for N > 128, and for complex
-hopping site_sweep_cx (K8) and qr_cx (K10)."""
+hopping site_sweep_cx (K8) and qr_cx (K10) for N <= 128 and
+site_sweep_delayed_cx (K9) beyond."""
 
 from . import (qr, qr_blocked, qr_cx, qr_householder, site_sweep,
-               site_sweep_cx, site_sweep_delayed)
+               site_sweep_cx, site_sweep_delayed, site_sweep_delayed_cx)
 
 # the kernel wrappers, each with its plain-integer launch count `.launches`
 KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
@@ -18,7 +19,9 @@ KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "qr_f32": qr_householder.qr_f32,
            "qr_f64": qr_householder.qr_f64,
            "site_sweep_f64": site_sweep.site_sweep_f64,
-           "site_sweep_pair": site_sweep.site_sweep_pair}
+           "site_sweep_pair": site_sweep.site_sweep_pair,
+           "site_sweep_delayed_cx": site_sweep_delayed_cx.site_sweep_delayed_cx}
 
 __all__ = ["KERNELS", "qr", "qr_blocked", "qr_cx", "qr_householder",
-           "site_sweep", "site_sweep_cx", "site_sweep_delayed"]
+           "site_sweep", "site_sweep_cx", "site_sweep_delayed",
+           "site_sweep_delayed_cx"]

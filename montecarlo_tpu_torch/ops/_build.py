@@ -40,7 +40,8 @@ SIGNATURES = {
     # lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _F, _F, _F, _I, _I, _P),
-    "site_sweep_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # ... with the negative-weight statistics (C, 3) after nneg
+    "site_sweep_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _D, _D, _D, _I, _I, _P),
     "site_sweep_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _F, _F, _F, _I, _I, _P),
@@ -63,6 +64,10 @@ SIGNATURES = {
                           _F, _F, _F, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_cx_c64": (_P, _P, _P, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N, DK,
+    # lamb, sign0, sign1, det_power, use_boson, stream
+    "site_sweep_delayed_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _F, _F, _F, _I, _I, _P),
 }
 
 

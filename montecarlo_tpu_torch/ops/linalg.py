@@ -16,7 +16,9 @@ Two paths, chosen by ``use_kernels``:
       the unfused QR K4 (ops/qr_householder.py);
     - float64 at N <= 128: the float64 QR K11 (ops/qr_householder.py);
     - N > 128: the blocked QR K7 (ops/qr_blocked.py);
-    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py);
+    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py) for
+      complex64 at N <= 128 and, as in the JAX package
+      (pallas_qr.maybe_qr), the library QR beyond and for complex128;
     every unfused QR is followed by the unfused udt_dirty postscale, and
     ``calculate_greens`` by ``rdiv_dirty`` (the JAX package has no fused
     solve for them). The CUDA kernels take 8 | N (K11: N <= 64); on the CPU
@@ -40,6 +42,8 @@ from .qr_householder import qr_f32, qr_f64
 
 # the fused K2/K3 take float32 up to this N
 FUSED_MAX_N = 64
+# K10 takes complex up to this N; the JAX package runs XLA's QR beyond
+CX_QR_MAX_N = 128
 
 
 def argsort_desc(v):
@@ -133,11 +137,13 @@ def udt_dirty_colscaled(A, use_kernels=True):
 
 def _qr(A, use_kernels):
     """(Q, R) of A (..., n, n) without floor or postscale: on the kernel path
-    K10 (complex), K7 (n > 128), K11 (float64) or K4 (float32), else the
-    library QR."""
-    if not use_kernels:
-        return _library_qr(A)
+    K10 (complex64, n <= 128), K7 (n > 128), K11 (float64) or K4 (float32),
+    else the library QR (and for complex64 past n = 128 and complex128, as
+    the JAX package)."""
     shape, n = A.shape, A.shape[-1]
+    if not use_kernels or (A.is_complex() and (
+            n > CX_QR_MAX_N or A.dtype != torch.complex64)):
+        return _library_qr(A)
     if A.is_complex():
         qr = qr_cx
     elif n >= BLOCKED_MIN_N:

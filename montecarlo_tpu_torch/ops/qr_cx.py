@@ -1,9 +1,14 @@
-"""Complex Householder QR (kernel K10).
+"""Complex Householder QR (kernel K10), 8 | N <= 128.
 
 ``qr_cx`` launches the CUDA kernel ``csrc/qr_cx.cu`` on CUDA tensors and
-runs ``qr_cx_plain`` (plain PyTorch, same algorithm) on CPU tensors. It
-replaces the Pallas kernel ``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel_cx``
-(reached through ``_qr_batched_cx`` / ``qr_lanes_cx`` / ``maybe_qr``).
+runs its plain PyTorch version ``qr_cx_backward_plain`` (the same
+algorithm) on CPU tensors: Q is formed backward from the stored reflectors
+after R, since A and Q of one matrix at N = 128 do not fit one block's
+shared memory together. It replaces the Pallas kernel
+``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel_cx`` (reached through
+``_qr_batched_cx`` / ``qr_lanes_cx`` / ``maybe_qr``), which accumulates Q
+forward in the column steps; ``qr_cx_plain`` is that forward form, which
+the tests hold the backward one against.
 
 A = Q R of the prescaled, column-pivoted A (B, N, N), column by column with
 the zgeqrf reflector up to the phase of the diagonal (``udt_dirty`` keeps
@@ -28,20 +33,22 @@ import torch
 
 from . import _build
 
+MAX_N = 128
+
 
 def kernel_supports(N: int) -> bool:
-    """Shapes the CUDA kernel takes: 8 | N <= 64 (A and Q of one matrix,
-    complex64, stay in shared memory)."""
-    return N % 8 == 0 and 8 <= N <= 64
+    """Shapes the CUDA kernel takes: 8 | N <= 128 (A, then Q in its place,
+    and the packed reflectors of one complex64 matrix in shared memory)."""
+    return N % 8 == 0 and 8 <= N <= MAX_N
 
 
-def qr_cx_plain(A):
-    """Plain PyTorch complex Householder QR of A (B, N, N), complex64 or
-    complex128: returns (Q, R)."""
+def _reflectors(A):
+    """Householder factorization of A (B, N, N) column by column: returns R
+    and the reflectors [(v_j (B, N - j), tau_j (B,))], v_j over rows j.."""
     B, N, _ = A.shape
     tiny = torch.finfo(A.real.dtype).tiny
     R = A.clone()
-    Q = torch.eye(N, dtype=A.dtype, device=A.device).expand(B, N, N).clone()
+    refl = []
     for j in range(N):
         alpha = R[:, j, j]
         tail = R[:, j + 1:, j]
@@ -63,9 +70,38 @@ def qr_cx_plain(A):
         R[:, j:, j + 1:] -= (tau[:, None] * w)[:, None, :] * v[:, :, None]
         R[:, j + 1:, j] = 0.0
         R[:, j, j] = -(ph * normx)
-        # Q <- Q·H
+        refl.append((v, tau))
+    return R, refl
+
+
+def _eye(A):
+    B, N, _ = A.shape
+    return torch.eye(N, dtype=A.dtype, device=A.device).expand(B, N, N).clone()
+
+
+def qr_cx_plain(A):
+    """Plain PyTorch complex Householder QR of A (B, N, N), complex64 or
+    complex128, with Q accumulated forward, Q <- Q·H_j, as the TPU kernel
+    does: returns (Q, R). The reference the tests hold K10 and its plain
+    version against, phase-normalized."""
+    R, refl = _reflectors(A)
+    Q = _eye(A)
+    for j, (v, tau) in enumerate(refl):
         qw = torch.einsum("brk,bk->br", Q[:, :, j:], v)
         Q[:, :, j:] -= (tau[:, None] * qw)[:, :, None] * v.conj()[:, None, :]
+    return Q, R
+
+
+def qr_cx_backward_plain(A):
+    """``qr_cx_plain`` with Q formed backward after the factorization,
+    Q = H_0 (H_1 (... (H_{N-1} I))), step j changing only Q[j:, j:] (K10's
+    algorithm): the same Q up to rounding. Returns (Q, R)."""
+    R, refl = _reflectors(A)
+    Q = _eye(A)
+    for j in reversed(range(A.shape[-1])):
+        v, tau = refl[j]
+        w = torch.einsum("brc,br->bc", Q[:, j:, j:], v.conj())
+        Q[:, j:, j:] -= (tau[:, None] * w)[:, None, :] * v[:, :, None]
     return Q, R
 
 
@@ -85,10 +121,10 @@ def phase_normalized(Q, R):
 
 def qr_cx(A):
     """Complex Householder QR (kernel K10) of A (B, N, N): the CUDA kernel
-    for a CUDA tensor (complex64, 8 | N <= 64, contiguous), ``qr_cx_plain``
-    for a CPU tensor. Returns (Q, R)."""
+    for a CUDA tensor (complex64, 8 | N <= 128, contiguous),
+    ``qr_cx_backward_plain`` for a CPU tensor. Returns (Q, R)."""
     if A.device.type == "cpu":
-        return qr_cx_plain(A)
+        return qr_cx_backward_plain(A)
     B, N = _check(A)
     Q, R = torch.empty_like(A), torch.empty_like(A)
     with torch.cuda.device(A.device):
@@ -112,7 +148,8 @@ def _check(A):
         raise ValueError(f"qr_cx: A must be (B, N, N), got {tuple(A.shape)}")
     B, N, _ = A.shape
     if not kernel_supports(N):
-        raise ValueError(f"qr_cx: no CUDA kernel for N={N} (8 | N <= 64)")
+        raise ValueError(f"qr_cx: no CUDA kernel for N={N} (8 | N <= "
+                         f"{MAX_N})")
     if not A.is_contiguous():
         raise ValueError("qr_cx: A must be contiguous")
     return B, N

@@ -19,7 +19,12 @@ Per chain and site i in order (sigma_i = ±1, f over flavor blocks):
   detratio = (prod_f r_f) ** det_power
   accept  = u_i < exp(-dEb)**use_boson * detratio
   on accept: G_f -= (delta_f / r_f) * (e_i - G_f[:, i]) ⊗ G_f[i, :], flip sigma_i
-and the accepted and negative-detratio proposals are counted per chain.
+and the accepted and negative-detratio proposals are counted per chain. The
+plain version and K1 in float64 also return how large the negative
+detratios were, per chain: the min, max and sum of log10|detratio| over
+them (``neg_push``), as the JAX package's XLA loop records them
+(``_push_mag``); the float32 kernels keep the count alone, as the Pallas
+kernels do.
 delta is exp(x) - 1 as in the Pallas kernel (the JAX XLA loop uses expm1;
 the two differ at the last bit of delta only). K5 computes the same chain
 (bit for bit) two sites at a time: see ``site_sweep_pair_plain``.
@@ -75,6 +80,24 @@ def _decide(diag, s, u_i, *, lamb, signs, det_power, use_boson):
     return accept, detratio, x
 
 
+def empty_neg(C, dtype, device):
+    """Negative-weight statistics (C, 3) of no proposal: min +inf, max
+    -inf, sum 0."""
+    return torch.tensor([float("inf"), float("-inf"), 0.0], dtype=dtype,
+                        device=device).repeat(C, 1)
+
+
+def neg_push(neg, detratio):
+    """Fold one site's detratios (C,) into the per-chain statistics neg
+    (C, 3): min, max and sum of log10|detratio| over the negative ones, with
+    |detratio| floored at 1e-38 (the JAX package's _push_mag)."""
+    lv = torch.log10(detratio.abs().clamp_min(1e-38))
+    m = detratio < 0
+    return torch.stack([torch.where(m, torch.minimum(neg[:, 0], lv), neg[:, 0]),
+                        torch.where(m, torch.maximum(neg[:, 1], lv), neg[:, 1]),
+                        neg[:, 2] + torch.where(m, lv, 0.0)], dim=1)
+
+
 def _xig(x, col, i):
     """x (e_i - col) for every chain: x (C,), col (C, N)."""
     ig = -col
@@ -86,14 +109,16 @@ def site_sweep_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """Plain PyTorch site sweep, batched over chains (any N, any float type).
 
     G: (C, F, N, N), sigma: (C, N) int8 ±1, u: (C, N) uniforms in G's dtype.
-    Returns new (G, sigma, acc (C,) int32, nneg (C,) int32); the inputs are
-    not modified."""
+    Returns new (G, sigma, acc (C,) int32, nneg (C,) int32, neg (C, 3)):
+    neg holds the negative-weight statistics in G's dtype (``neg_push``);
+    the inputs are not modified."""
     C, F, N, _ = G.shape
     kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
     G = G.clone()
     sigma = sigma.clone()
     acc = torch.zeros(C, dtype=torch.int32, device=G.device)
     nneg = torch.zeros(C, dtype=torch.int32, device=G.device)
+    neg = empty_neg(C, G.dtype, G.device)
     for i in range(N):
         accept, detratio, x = _decide([G[:, f, i, i] for f in range(F)],
                                       sigma[:, i].to(G.dtype), u[:, i], **kw)
@@ -105,13 +130,14 @@ def site_sweep_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
         sigma[:, i] = torch.where(accept, -sigma[:, i], sigma[:, i])
         acc += accept
         nneg += detratio < 0
-    return G, sigma, acc, nneg
+        neg = neg_push(neg, detratio)
+    return G, sigma, acc, nneg, neg
 
 
 def site_sweep_pair_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """Plain PyTorch version of K5, the delay-2 paired-site sweep (even N,
-    any float type); same arguments and results as ``site_sweep_plain``, and
-    bit-equal to it.
+    any float type); same arguments as ``site_sweep_plain``, and its first
+    four results, bit-equal to them.
 
     Per pair of sites (i, j = i+1): site i is decided from the current G;
     site j's row, column and diagonal are corrected from site i's rank-1
@@ -153,7 +179,8 @@ def site_sweep_pair_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
 def site_sweep(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """Site sweep of one time slice for every chain: the float32 CUDA kernel
     for a CUDA tensor, ``site_sweep_plain`` for a CPU tensor. Same arguments
-    and results as ``site_sweep_plain``; on CUDA, G must be float32
+    and results as ``site_sweep_plain`` without the negative-weight
+    statistics (the first four); on CUDA, G must be float32
     (C, F, N, N) with ``kernel_supports(N, F)``, sigma int8 (C, N) and u
     float32 (C, N), all contiguous on one device."""
     return _sweep("site_sweep", site_sweep, G, sigma, u, lamb=lamb,
@@ -163,7 +190,9 @@ def site_sweep(G, sigma, u, *, lamb, signs, det_power, use_boson):
 def site_sweep_f64(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """``site_sweep`` in float64: the float64 CUDA kernel for a CUDA tensor
     (G and u float64, ``kernel_supports(N, F, torch.float64)``),
-    ``site_sweep_plain`` for a CPU tensor."""
+    ``site_sweep_plain`` for a CPU tensor. Both also return the
+    negative-weight statistics (C, 3) float64: the same five results as
+    ``site_sweep_plain``."""
     return _sweep("site_sweep_f64", site_sweep_f64, G, sigma, u, lamb=lamb,
                   signs=signs, det_power=det_power, use_boson=use_boson)
 
@@ -196,27 +225,33 @@ _ENTRY = {
 
 def _sweep(name, fn, G, sigma, u, **kw):
     """Launch the kernel of wrapper fn (entry point and dtype from _ENTRY)
-    on a CUDA tensor, or run its plain version on a CPU one."""
+    on a CUDA tensor, or run its plain version on a CPU one. The float64
+    wrapper returns the negative-weight statistics as a fifth result, the
+    float32 ones four results."""
     entry, dtype, supports, limits, plain = _ENTRY[name]
+    f64 = dtype == torch.float64
     if G.device.type == "cpu":
-        return plain(G, sigma, u, **kw)
+        return plain(G, sigma, u, **kw)[:5 if f64 else 4]
     signs = kw["signs"]
     C, F, N = _check(name, dtype, supports, limits, G, sigma, u, signs)
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     acc = torch.empty(C, dtype=torch.int32, device=G.device)
     nneg = torch.empty(C, dtype=torch.int32, device=G.device)
+    # K1 in float64 writes the statistics
+    neg = torch.empty(C, 3, dtype=dtype, device=G.device) if f64 else None
+    extra = (neg.data_ptr(),) if f64 else ()
     with torch.cuda.device(G.device):
         code = getattr(_build.load(), entry)(
             G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), acc.data_ptr(),
-            nneg.data_ptr(), C, F, N, float(kw["lamb"]), float(signs[0]),
-            float(signs[-1]), int(kw["det_power"]),
+            nneg.data_ptr(), *extra, C, F, N, float(kw["lamb"]),
+            float(signs[0]), float(signs[-1]), int(kw["det_power"]),
             int(bool(kw["use_boson"])),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, code)
     fn.launches += 1
-    return G_out, sigma_out, acc, nneg
+    return (G_out, sigma_out, acc, nneg) + ((neg,) if f64 else ())
 
 
 def _check(name, dtype, supports, limits, G, sigma, u, signs):

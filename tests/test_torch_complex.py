@@ -117,9 +117,23 @@ def test_make_context_promotes_update_dtype():
 
 
 def test_complex_delayed_updates_raise():
+    """Complex delayed updates build and run (they raised before K9 and the
+    complex plain rank-k sweep were ported): delay 4 takes the rank-1
+    Markov chain on the plain path, two sweeps on a flux pattern."""
     _, tm = _models(flux_theta(16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9"):
-        tcore.make_context(tm, TParams(beta=1.0), device="cpu", delay=4)
+    out = []
+    for delay in (4, 0):
+        sim = tmc.DQMC(tm, beta=1.0, n_chains=3, seed=2, device="cpu",
+                       use_kernels=False, delay=delay, safe_mult=5,
+                       measurements={})
+        assert sim.ctx.delay == delay and sim.ctx.is_complex
+        sim.run(thermalization=0, sweeps=2, verbose=False)
+        out.append(sim)
+    assert torch.equal(out[0].conf, out[1].conf)
+    assert out[0].analysis.acc_local == out[1].analysis.acc_local > 0
+    assert (out[0].analysis.imaginary_probability.count
+            == out[1].analysis.imaginary_probability.count > 0)
+    assert (out[0].state["G"] - out[1].state["G"]).abs().max().item() <= 1e-9
 
 
 def test_slice_matrices_match_jax_complex():
@@ -190,7 +204,7 @@ def test_site_sweep_cx_plain_is_gauge_rotated_k1():
     Lam = torch.from_numpy(np.diag(np.exp(1j * phi)))
     Gc = Lam @ G.to(torch.complex128) @ Lam.mH
     G0, s0 = Gc.clone(), sigma.clone()
-    Gk, sk, acck, _ = ss.site_sweep_plain(G, sigma, u, **kw)
+    Gk, sk, acck, _, _ = ss.site_sweep_plain(G, sigma, u, **kw)
     Gx, sx, acc, det = sscx.site_sweep_cx_plain(Gc, sigma, u, **kw)
     assert torch.equal(sx, sk) and torch.equal(acc.sum(-1).int(), acck)
     assert det.imag.abs().max().item() <= 1e-14
@@ -263,8 +277,8 @@ def test_qr_cx_subnormal_reflector_stays_finite():
 
 
 def test_qr_cx_kernel_shapes():
-    assert [n for n in range(1, 129) if qcx.kernel_supports(n)] == \
-        [8, 16, 24, 32, 40, 48, 56, 64]
+    assert [n for n in range(1, 300) if qcx.kernel_supports(n)] == \
+        list(range(8, 129, 8))
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
 from torch_port_inputs import (LAMB, MODELS, accept_patterns,
                                cx_sweep_inputs, flux_theta, graded,
                                pair_inputs, sweep_inputs)
@@ -209,16 +210,18 @@ def test_site_sweep_cx_kernel_matches_plain(cuda, model, N):
 @pytest.mark.parametrize("N", [8, 16, 40, 64])
 def test_qr_cx_kernel_matches_plain(cuda, N):
     """Complex64 K10 on graded, prescaled, pivoted input: the
-    phase-normalized Q and R within 1e-5 of their largest entries (the raw
-    ones differ where rounding turns the phase of a small alpha, see
+    phase-normalized Q and R within 1e-5 of their largest entries against
+    its plain version and against the forward accumulation (the raw ones
+    differ where rounding turns the phase of a small alpha, see
     qr_cx.phase_normalized); R exactly upper triangular."""
     Ap, _ = (t.to(cuda) for t in graded(N, 32, N, complex_=True))
     n0 = qcx.qr_cx.launches
     Qk, Rk = qcx.qr_cx(Ap)
     assert qcx.qr_cx.launches == n0 + 1
-    Qp, Rp = qcx.qr_cx_plain(Ap)
-    for a, b in zip(qcx.phase_normalized(Qk, Rk), qcx.phase_normalized(Qp, Rp)):
-        _close(a, b, 1e-5)
+    ref = qcx.phase_normalized(Qk, Rk)
+    for plain in (qcx.qr_cx_backward_plain, qcx.qr_cx_plain):
+        for a, b in zip(ref, qcx.phase_normalized(*plain(Ap))):
+            _close(a, b, 1e-5)
     assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
 
 
@@ -232,7 +235,88 @@ def test_qr_cx_kernel_zero_and_subnormal_columns(cuda):
     assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
     assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
     _close(qcx.phase_normalized(Q, R)[0],
-           qcx.phase_normalized(*qcx.qr_cx_plain(Ap))[0], 1e-5)
+           qcx.phase_normalized(*qcx.qr_cx_backward_plain(Ap))[0], 1e-5)
+
+
+@pytest.mark.parametrize("model,N,dk", [
+    ("attractive", 256, 1), ("attractive", 256, 8), ("attractive", 256, 32),
+    ("attractive", 144, 1), ("attractive", 144, 8), ("attractive", 144, 16),
+    ("repulsive", 144, 8)])
+def test_site_sweep_delayed_cx_kernel_matches_plain(cuda, model, N, dk):
+    """Complex64 K9: sigma, accept and det identical to its plain version's
+    and to K8's plain rank-1 sweep on the same inputs (the same Markov
+    chain, every value K8's operation in K8's order); G within 1e-5 of its
+    largest entry (bit-equal in practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in cx_sweep_inputs(N + dk, 8, F, N))
+    n0 = ssdcx.site_sweep_delayed_cx.launches
+    out_k = ssdcx.site_sweep_delayed_cx(G, sigma, u, dk=dk, **kw)
+    assert ssdcx.site_sweep_delayed_cx.launches == n0 + 1
+    out_p = ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, dk=dk, **kw)
+    out_8 = sscx.site_sweep_cx_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(out_k[1:], out_p[1:], out_8[1:]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert 0 < out_k[2].sum().item() < 8 * N
+    _close(out_k[0], out_p[0], 1e-5)
+    _close(out_k[0], out_8[0], 1e-5)
+
+
+@pytest.mark.parametrize("N", [72, 96, 128])
+def test_qr_cx_wide_kernel_matches_plain(cuda, N):
+    """Complex64 K10 past N = 64 (Q formed backward from the packed
+    reflectors, as at every N) on graded, prescaled, pivoted input: the phase-normalized Q
+    and R within 1e-5 of their largest entries against its plain version
+    and against the forward accumulation; R exactly upper triangular."""
+    Ap, _ = (t.to(cuda) for t in graded(N, 32, N, complex_=True))
+    n0 = qcx.qr_cx.launches
+    Qk, Rk = qcx.qr_cx(Ap)
+    assert qcx.qr_cx.launches == n0 + 1
+    ref = qcx.phase_normalized(Qk, Rk)
+    for plain in (qcx.qr_cx_backward_plain, qcx.qr_cx_plain):
+        for a, b in zip(ref, qcx.phase_normalized(*plain(Ap))):
+            _close(a, b, 1e-5)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+
+
+@pytest.mark.parametrize("N", [72, 96, 128])
+def test_qr_cx_wide_kernel_zero_and_subnormal_columns(cuda, N):
+    """Past N = 64 as below it: a zero column gets tau = 0 and R_jj = 0, a
+    subnormal v^H v tau = 0; the factors stay finite, QR = A and Q is
+    unitary to 1e-5."""
+    Ap, _ = (t.to(cuda) for t in graded(N + 5, 4, N, decades=2.0,
+                                        complex_=True))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
+    Q, R = qcx.qr_cx(Ap)
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
+    wide = torch.complex128
+    Qd, Rd, Ad = Q.to(wide), R.to(wide), Ap.to(wide)
+    _close(Qd @ Rd, Ad, 1e-5)
+    eye = torch.eye(N, dtype=wide, device=cuda)
+    assert (Qd.mH @ Qd - eye).abs().max().item() <= 1e-5
+
+
+def test_site_sweep_f64_negative_magnitudes_match_plain(cuda):
+    """K1 in float64 on repulsive (F = 2) inputs with random G, where
+    r_up r_dn < 0 happens: the per-chain min, max and sum of log10|det| over
+    the negative detratios agree with its plain version's to 1e-12; the
+    counts are equal."""
+    kw = dict(lamb=LAMB, **MODELS["repulsive"])
+    G, sigma, u = sweep_inputs(41, 16, 2, 64)
+    G, u = (torch.from_numpy(x.astype(np.float64)).to(cuda) for x in (G, u))
+    sigma = torch.from_numpy(sigma).to(cuda)
+    out_k = ss.site_sweep_f64(G, sigma, u, **kw)
+    out_p = ss.site_sweep_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k[3], out_p[3]) and out_k[3].sum().item() > 0
+    has = out_p[3] > 0
+    assert torch.equal(torch.isfinite(out_k[4][:, 0]), has)
+    assert (out_k[4][has] - out_p[4][has]).abs().max().item() <= 1e-12
+    assert torch.equal(out_k[4][~has], out_p[4][~has])
 
 
 @pytest.mark.parametrize("model,N", [("attractive", 64), ("repulsive", 64),
@@ -251,7 +335,7 @@ def test_site_sweep_f64_kernel_matches_plain(cuda, model, N):
     assert (ss.site_sweep_f64.launches, ss.site_sweep.launches) == (n0 + 1, n1)
     out_p = ss.site_sweep_plain(G, sigma, u, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(out_k[1:], out_p[1:]):
+    for a, b in zip(out_k[1:4], out_p[1:4]):
         assert torch.equal(a, b.to(a.dtype))
     assert 0 < out_k[2].sum().item() < 16 * N
     assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-13
@@ -335,8 +419,14 @@ def test_wrappers_check_inputs(cuda):
                            torch.ones(2, 128, device=cuda, dtype=torch.int8),
                            torch.zeros(2, 128, device=cuda), lamb=LAMB,
                            **MODELS["repulsive"])
-    with pytest.raises(ValueError, match="N=72"):
-        qcx.qr_cx(torch.zeros(2, 72, 72, **c64))
+    with pytest.raises(ValueError, match="N=136"):
+        qcx.qr_cx(torch.zeros(2, 136, 136, **c64))
+    with pytest.raises(ValueError, match="N=256, F=2, dk=32"):
+        ssdcx.site_sweep_delayed_cx(
+            torch.zeros(2, 2, 256, 256, **c64),
+            torch.ones(2, 256, device=cuda, dtype=torch.int8),
+            torch.zeros(2, 256, device=cuda), dk=32, lamb=LAMB,
+            **MODELS["repulsive"])
     with pytest.raises(ValueError, match="complex64"):
         qcx.qr_cx(torch.zeros(2, 16, 16, device=cuda))
     f64 = dict(device=cuda, dtype=torch.float64)
@@ -375,7 +465,7 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     model = lambda L: tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
     f32 = dict(dtype=torch.float32, device="cuda")
     for L in (10, 3):       # N=100 and N=9: 8 does not divide N
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
             core.make_context(model(L), params, **f32)
     for L in (12, 16):      # K6 and K7: N=144 rank-1 blocks, N=256 delay 32
         ctx, _ = core.make_context(model(L), params, **f32)
@@ -386,20 +476,26 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
                dict(stab_method="qr_colscaled")):
         ctx, _ = core.make_context(model(4), params, device="cuda", **kw)
         assert ctx.use_kernels and ctx.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
         core.make_context(model(9), params, device="cuda")    # N=81
     ctx, _ = core.make_context(model(4), params, device="cuda",
                                use_kernels=False)
     assert ctx.device.type == "cuda" and not ctx.use_kernels
-    # complex hopping: K8 + K10 in complex64 at 8 | N <= 64
-    cx = lambda L: tmc.HubbardModelAttractive(
-        dims=2, L=L, U=4.0, peierls=flux_theta(L * L))
-    ctx, _ = core.make_context(cx(8), params, **f32)
-    assert ctx.dtype == torch.complex64 and ctx.use_kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9, K10"):
+    # complex hopping in complex64 at 8 | N: K8 + K10 to N = 128 (the
+    # 128-site chain), K9 + the library QR beyond (16x16, delay 32)
+    cx = lambda L, dims=2: tmc.HubbardModelAttractive(
+        dims=dims, L=L, U=4.0, peierls=flux_theta(L ** dims))
+    for m in (cx(8), cx(128, dims=1), cx(16)):
+        ctx, _ = core.make_context(m, params, **f32)
+        assert ctx.dtype == torch.complex64 and ctx.use_kernels
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
         core.make_context(cx(10), params, **f32)
     with pytest.raises(NotImplementedError, match="complex128"):
         core.make_context(cx(4), params, device="cuda")
+    # complex128 stacks over complex64 updates: K9 and the library QR
+    ctx, _ = core.make_context(cx(16), params, device="cuda",
+                               update_dtype=torch.float32)
+    assert (ctx.dtype, ctx.udtype) == (torch.complex128, torch.complex64)
     ctx, _ = core.make_context(cx(4), params, device="cuda", use_kernels=False)
     assert ctx.dtype == torch.complex128
 
@@ -474,3 +570,25 @@ def test_complex_sweep_pair_kernel_path_matches_cpu(cuda):
     assert dG[same].max().item() <= 1e-3
     dph = (out["cpu"]["ls_phase"] - out["cuda"]["ls_phase"]).abs()
     assert dph[same].max().item() <= 1e-3
+
+
+def test_complex_large_session_launches_k9(cuda):
+    """A complex64 session past N = 128 runs every site sweep through K9
+    (12x12: N = 144, rank-1 blocks) and its QRs through the library (as the
+    JAX package runs XLA's QR there): no K8, no K10."""
+    model = tmc.HubbardModelAttractive(dims=2, L=12, U=4.0,
+                                       peierls=flux_theta(144))
+    params = DQMCParameters(beta=0.5, safe_mult=5)
+    ctx, consts = core.make_context(model, params, dtype=torch.float32,
+                                    device="cuda")
+    conf = model.rand_conf(torch.Generator(device="cuda").manual_seed(0), 4,
+                           params.slices)
+    state = core.init_state(ctx, consts, conf)
+    n = (ssdcx.site_sweep_delayed_cx.launches, sscx.site_sweep_cx.launches,
+         qcx.qr_cx.launches)
+    out = core.sweep_pair(ctx, consts, state,
+                          generator=torch.Generator(device="cuda").manual_seed(1))[0]
+    assert (ssdcx.site_sweep_delayed_cx.launches - n[0],
+            sscx.site_sweep_cx.launches - n[1],
+            qcx.qr_cx.launches - n[2]) == (2 * ctx.M, 0, 0)
+    assert bool(torch.isfinite(out["G"]).all())

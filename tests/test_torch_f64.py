@@ -16,6 +16,7 @@ identical decisions, G and stacks within 1e-9, as the port's other float64
 sweep-pair tests.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import torch
 
 import montecarlo_tpu as jmc
 from montecarlo_tpu.dqmc import core as jcore
+from montecarlo_tpu.dqmc.dqmc import MagnitudeStats as JMagnitudeStats
 from montecarlo_tpu.dqmc.parameters import DQMCParameters as JParams
 from montecarlo_tpu.ops import linalg as jl
 from montecarlo_tpu.ops import pallas_qr
@@ -33,11 +35,12 @@ from montecarlo_tpu_torch.dqmc import core as tcore
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters as TParams
 from montecarlo_tpu_torch.ops import linalg as tl
 from montecarlo_tpu_torch.ops import qr_householder as qh
+from montecarlo_tpu_torch.ops import site_sweep as ss
 from test_torch_dqmc import (_assert_stacks_close, _jax_init, _jax_uniforms,
                              _np, _rel)
 from test_torch_linalg import _graded as _graded_np
 from test_torch_linalg import _rand_udt, _sign_normalized
-from torch_port_inputs import graded
+from torch_port_inputs import LAMB, MODELS, graded, sweep_inputs
 
 
 def _close(a, b, tol):
@@ -248,12 +251,12 @@ F32, F64 = torch.float32, torch.float64
     (64, 1, F32, F32, None),      # float32 (both stabilizations): K1 + K2-K4
     (72, 1, F32, F32, None),      # 64 < N <= 128: K1 + K4
     (128, 2, F32, F32, None),
-    (72, 1, F64, F64, "item 13"),     # float64 beyond N = 64: XLA's QR in JAX
-    (256, 1, F64, F64, "item 13"),
-    (12, 1, F64, F64, "item 13"),     # 8 does not divide N
+    (72, 1, F64, F64, "item 4"),     # float64 beyond N = 64: XLA's QR in JAX
+    (256, 1, F64, F64, "item 4"),
+    (12, 1, F64, F64, "item 4"),     # 8 does not divide N
     (64, 1, F32, F64, None),      # float64 updates over float32 stacks
-    (100, 1, F32, F32, "item 3"),     # 8 does not divide N: XLA's QR in JAX
-    (9, 2, F32, F32, "item 3"),
+    (100, 1, F32, F32, "item 4"),     # 8 does not divide N: XLA's QR in JAX
+    (9, 2, F32, F32, "item 4"),
     (64, 3, F64, F64, "K6")])         # no site sweep for F = 3
 def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
     if item is None:
@@ -300,6 +303,8 @@ def _pair(dtype, stab_method, repulsive=False, use_pallas=False, seed=15):
 def _same_decisions(st, sj):
     for k in ("conf", "acc", "neg_prob", "prop_err_n"):
         np.testing.assert_array_equal(st[k], sj[k], err_msg=k)
+    for k in tcore.NEG_KEYS:
+        np.testing.assert_allclose(st[k], sj[k], rtol=1e-12, err_msg=k)
     assert 0 < st["acc"].sum() < 2 * 10 * 16 * 4
 
 
@@ -358,3 +363,60 @@ def test_dqmc_default_dtype_is_float64_on_the_kernel_route():
     sim.run(thermalization=1, sweeps=2, verbose=False)
     assert sim.analysis.propagation_error.max < 1e-9
     assert abs(float(sim.observables()["occ"]["occ"].mean.mean()) - 0.5) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# the magnitudes of negative weights in real sessions
+# ---------------------------------------------------------------------------
+
+def test_negative_magnitudes_match_jax():
+    """float64 F = 2 repulsive-sign inputs with random G, where r_up r_dn < 0
+    happens: the JAX package's XLA site loop records log10|detratio| of
+    every negative proposal (min, max, sum per chain). The port records the
+    same on every float64 route: the plain sweep, K1-f64 (its plain version
+    here) and sweep_slice on the kernel and the plain path; the counts are
+    identical and the magnitudes within 1e-12. A session's drain then reads
+    the JAX package's negative_probability min, geo-mean and max (its real
+    sessions read min inf, max 0 and mean 0 before the port recorded
+    them)."""
+    C, N = 6, 16
+    jm, tm = _models(True)
+    jctx, _ = jcore.make_context(jm, JParams(beta=1.0, safe_mult=5),
+                                 dtype=jnp.float64)
+    G, sigma, u = sweep_inputs(170, C, 2, N)
+    G, u = G.astype(np.float64), u.astype(np.float64)
+
+    def jax_sweep(G, s, u):
+        return jcore.sweep_slice(jctx, G, s, u, jcore.init_local_stats(jctx))
+
+    _, _, lj = jax.jit(jax.vmap(jax_sweep))(
+        jnp.asarray(G), jnp.asarray(sigma), jnp.asarray(u))
+    lj = {k: np.asarray(v) for k, v in lj.items()}
+    assert lj["nneg"].sum() > 0 and np.isfinite(lj["neg_min"]).sum() > 0
+    Gt, st, ut = (torch.from_numpy(x) for x in (G, sigma, u))
+    kw = dict(lamb=jctx.lamb, **MODELS["repulsive"])
+    routes = [ss.site_sweep_plain(Gt, st, ut, **kw),
+              ss.site_sweep_f64(Gt, st, ut, **kw)]
+    for use_kernels in (True, False):
+        tctx, _ = tcore.make_context(tm, TParams(beta=1.0, safe_mult=5),
+                                     device="cpu", use_kernels=use_kernels)
+        routes.append(tcore.sweep_slice(tctx, Gt, st, ut))
+    for out in routes:
+        np.testing.assert_array_equal(out[3].numpy(), lj["nneg"])
+        neg = out[4].numpy()
+        for i, k in enumerate(("neg_min", "neg_max", "neg_sum")):
+            np.testing.assert_allclose(neg[:, i], lj[k], rtol=1e-12,
+                                       atol=1e-12, err_msg=k)
+    sim = tmc.DQMC(tm, beta=1.0, safe_mult=5, n_chains=C, device="cpu",
+                   measurements={})
+    sim.state.update(neg_prob=routes[-1][3].to(torch.int64),
+                     **tcore._track_negative(sim.state, routes[-1][4]))
+    sim._drain_counters()
+    ref = JMagnitudeStats()
+    ref.absorb_device(np.min(lj["neg_min"]), np.max(lj["neg_max"]),
+                      np.sum(lj["neg_sum"]), np.sum(lj["nneg"]))
+    got = sim.analysis.negative_probability
+    assert got.count == ref.count > 0
+    for f in ("min", "max", "mean"):
+        np.testing.assert_allclose(getattr(got, f), getattr(ref, f),
+                                   rtol=1e-12, err_msg=f)

@@ -28,6 +28,7 @@ from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
 from torch_port_inputs import LAMB, MODELS, accept_patterns, pair_inputs
 from torch_port_inputs import graded as _graded
 from torch_port_inputs import sweep_inputs as _sweep_inputs
@@ -413,10 +414,16 @@ def test_wrappers_raise_off_cpu_without_kernel():
         ss.site_sweep_pair(G, torch.empty(2, 16, dtype=torch.int8, **m),
                            torch.empty(2, 16, **m), lamb=LAMB,
                            **MODELS["repulsive"])
+    G = torch.empty(2, 1, 136, 136, dtype=torch.complex64, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ssdcx.site_sweep_delayed_cx(
+            G, torch.empty(2, 136, dtype=torch.int8, **m),
+            torch.empty(2, 136, **m), dk=8, lamb=LAMB, **MODELS["attractive"])
     assert set(KERNELS) == {"site_sweep", "udt_qr", "udt_qr_solve",
                             "site_sweep_delayed", "qr_blocked",
                             "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
-                            "site_sweep_f64", "site_sweep_pair"}
+                            "site_sweep_f64", "site_sweep_pair",
+                            "site_sweep_delayed_cx"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -430,7 +437,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     out = _build.library_path()
     assert [p.name for p in _build.sources()] == [
         "qr_blocked.cu", "qr_cx.cu", "qr_householder.cu", "site_sweep.cu",
-        "site_sweep_cx.cu", "site_sweep_delayed.cu", "udt_qr.cu"]
+        "site_sweep_cx.cu", "site_sweep_delayed.cu",
+        "site_sweep_delayed_cx.cu", "udt_qr.cu"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -445,7 +453,7 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
         "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
         "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64",
-        "site_sweep_pair_f32"}
+        "site_sweep_pair_f32", "site_sweep_delayed_cx_c64"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -39,15 +39,15 @@ def test_cuda_kernel_routes():
     """Which shapes a float32 CUDA kernel session takes (checked without a
     card): K1 + K2/K3 for 8 | N <= 64, K1 + K4 for 64 < N <= 128 with 8 | N,
     K6 + K7 for 8 | N > 128 at F <= 2; no kernel where 8 does not divide N
-    (N = 100, 9, 132: the JAX package runs XLA's QR there, Queue 1 item 3)
+    (N = 100, 9, 132: the JAX package runs XLA's QR there, Queue 1 item 4)
     or for float64 beyond N = 64."""
     ok = lambda *a: tcore._check_cuda_kernels(*a, torch.float32,
                                               torch.float32)
     for N, F, delay in ((64, 1, 0), (16, 2, 0), (144, 1, 0), (144, 2, 24),
                         (256, 1, 32), (256, 2, 32), (72, 1, 0), (128, 2, 0)):
         ok(N, F, delay)
-    for N, F, delay, item in ((100, 1, 0, "item 3"), (9, 1, 0, "item 3"),
-                              (132, 1, 0, "item 3"), (256, 3, 32, "K6"),
+    for N, F, delay, item in ((100, 1, 0, "item 4"), (9, 1, 0, "item 4"),
+                              (132, 1, 0, "item 4"), (256, 3, 32, "K6"),
                               (1024, 2, 32, "K6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             ok(N, F, delay)
@@ -59,7 +59,8 @@ def test_cuda_kernel_routes():
 def test_sweep_slice_delayed_matches_jax_f64(repulsive):
     """The plain rank-k sweep against the JAX package's XLA one (vmapped),
     in float64 on the same G, sigma and uniforms: decisions identical, G to
-    1e-12."""
+    1e-12, the negative weights' log-magnitudes (min, max, sum per chain)
+    to 1e-12."""
     (jctx, _), (tctx, _) = _contexts(1.0, 5, "f64", use_kernels=False,
                                      delay=8, repulsive=repulsive)
     assert jctx.delay == tctx.delay == 8
@@ -69,16 +70,19 @@ def test_sweep_slice_delayed_matches_jax_f64(repulsive):
     def jax_sweep(G, s, u):
         G, s, ls = jcore.sweep_slice_delayed(jctx, G, s, u,
                                              jcore.init_local_stats(jctx))
-        return G, s, ls["acc"], ls["nneg"]
+        return G, s, ls["acc"], ls["nneg"], jnp.stack(
+            [ls["neg_min"], ls["neg_max"], ls["neg_sum"]], -1)
 
-    Gj, sj, aj, nj = jax.jit(jax.vmap(jax_sweep))(
+    Gj, sj, aj, nj, negj = jax.jit(jax.vmap(jax_sweep))(
         jnp.asarray(G), jnp.asarray(sigma), jnp.asarray(u))
-    Gt, st, at, nt = tcore.sweep_slice(tctx, torch.from_numpy(G),
-                                       torch.from_numpy(sigma),
-                                       torch.from_numpy(u))
+    Gt, st, at, nt, negt = tcore.sweep_slice(tctx, torch.from_numpy(G),
+                                             torch.from_numpy(sigma),
+                                             torch.from_numpy(u))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
     np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    np.testing.assert_allclose(negt.numpy(), np.asarray(negj), rtol=1e-12,
+                               atol=1e-12)
     assert 0 < at.sum() < 3 * tctx.N
     assert np.max(np.abs(Gt.numpy() - np.asarray(Gj))) <= 1e-12
 

@@ -188,14 +188,14 @@ def test_pairing_masks_missing_targets():
 
 def test_time_displaced_dispatch_raises():
     tm = _models(2, True)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         tdm.charge_density(None, tm, greens_iterator=tdm.CombinedGreensIterator)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         tdm.spin_density(None, tm, "z",
                          greens_iterator=tdm.CombinedGreensIterator)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         tdm.pairing(None, tm, greens_iterator=tdm.GreensAt(1, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
         tdm.greens_measurement(None, tm, greens_at=(1, 0))
     assert tdm.GreensAt(2, 1).kl == (2, 1)
 

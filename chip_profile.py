@@ -2,7 +2,8 @@
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [headline] [l16] [complex] [f64] [repulsive]
-                            [complex16] [chain128]
+                            [complex16] [chain128] [colscaled] [fusewrap]
+                            [colscaled_wy]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -20,6 +21,15 @@ Runs each named configuration of chip_smoke.py (default: headline):
             (kernel K9 and the library complex QR)
   chain128  a 128-site chain with pure-gauge Peierls phases, the complex
             settings, 256 chains (kernels K8 and K10 at N=128)
+  colscaled the headline with stab_method="qr_colscaled" (kernels K1, K4)
+  fusewrap  the headline with fuse_wrap=True (K13: every slice visit but
+            the measurement point's in one launch with its wrap; K1, K2,
+            K3)
+  colscaled_wy  colscaled with qr_wy=True (K1; K14 with Q assembled
+            outside in place of K4)
+
+Compare a mode with its base configuration in one call (headline fusewrap,
+colscaled colscaled_wy): two calls may land on two cards.
 
 and prints for each
 
@@ -28,14 +38,16 @@ and prints for each
            path's per-site launches take tens of seconds per sweep pair)
            then kernel path again, synchronised wall (two pairs each past
            N = 128, five below)
-  layer    synchronised wall ms per call of sweep_slice, wrap_up,
-           extend_left and calculate_greens at the path's shapes
+  layer    synchronised wall ms per call of sweep_slice, wrap_up, one
+           slice visit as the sweep pair runs it (visit_slice: the sweep and
+           wrap_up, or K13), extend_left and calculate_greens at the path's
+           shapes
   device   torch.profiler over two kernel-path sweep pairs: device time per
            kernel name (device events only, so no time is counted twice),
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
-           and the shares of the device time of K8, K9, K10 and the library
-           complex QR (cuSOLVER's kernels)
+           and the shares of the device time of K1, K4, K8, K9, K10, K13,
+           K14, the GEMMs and the library complex QR (cuSOLVER's kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
 after. Needs CUDA; builds the kernels like chip_smoke.py.
@@ -53,13 +65,18 @@ from chip_smoke import timed
 
 PAIRS = 5
 # device-time shares printed for every configuration: kernel name fragments
-SHARES = {"K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
+SHARES = {"K1": ("site_sweep_kernel<float",),
+          "K13": ("site_sweep_wrap_kernel",),
+          "K4": ("qr_kernel<float, false>",), "K14": ("qr_kernel<float, true>",),
+          "GEMMs": ("gemm",),
+          "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
           "K10": ("qr_cx_kernel",),
           "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
                                  "cusolver")}
 F32 = {"dtype": "float32"}
-# name: (model, safe_mult, chains, time the plain path, DQMC's dtype
-# keywords: {} for its default, float64)
+CS = {**F32, "stab_method": "qr_colscaled"}
+# name: (model, safe_mult, chains, time the plain path, DQMC's keywords:
+# dtypes by name ({} for the default, float64), the modes)
 CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                         True, F32),
            "l16": (lambda: smoke.headline_model(L=smoke.L16), smoke.SAFE_MULT,
@@ -73,7 +90,13 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
            "complex16": (lambda: smoke.complex_model(L=smoke.L16),
                          smoke.CPLX_SM, smoke.L16_CHAINS, False, F32),
            "chain128": (lambda: smoke.complex_model(L=smoke.CHAIN_L, dims=1),
-                        smoke.CPLX_SM, smoke.CHAINS, False, F32)}
+                        smoke.CPLX_SM, smoke.CHAINS, False, F32),
+           "colscaled": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
+                         True, CS),
+           "fusewrap": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
+                        True, {**F32, "fuse_wrap": True}),
+           "colscaled_wy": (smoke.headline_model, smoke.SAFE_MULT,
+                            smoke.CHAINS, True, {**CS, "qr_wy": True})}
 
 
 def smi():
@@ -92,12 +115,14 @@ def profile_config(name):
     from montecarlo_tpu_torch.ops.linalg import calculate_greens
 
     model, safe_mult, chains, plain, session = CONFIGS[name]
-    session = {k: getattr(torch, v) for k, v in session.items()}
+    session = {k: getattr(torch, v) if k.endswith("dtype") else v
+               for k, v in session.items()}
     sim = DQMC(model(), beta=smoke.BETA, delta_tau=smoke.DTAU,
                safe_mult=safe_mult, n_chains=chains, seed=0,
                device=smoke.DEVICE, **session)
     print(f"== {name}: N={sim.ctx.N}, {chains} chains, safe_mult={safe_mult}, "
-          f"{str(sim.ctx.dtype)[6:]}", flush=True)
+          f"{str(sim.ctx.dtype)[6:]}, stab {sim.ctx.stab_method}"
+          f"{smoke.ab_modes(sim.ctx)}", flush=True)
     ctx, consts = sim.ctx, sim.consts
     holder = {"st": sim.state}
 
@@ -128,6 +153,8 @@ def profile_config(name):
     layer = {
         "sweep_slice": timed(lambda: core.sweep_slice(ctx, G, sig, u), 50),
         "wrap_up": timed(lambda: core.wrap_up(ctx, consts, sig, G), 50),
+        "visit_slice": timed(lambda: core.visit_slice(ctx, consts, G, sig, u,
+                                                      1), 50),
         "extend_left": timed(lambda: core.extend_left(ctx, consts, conf, 1,
                                                      *S[0]), 20),
         "calculate_greens": timed(lambda: calculate_greens(
@@ -135,9 +162,9 @@ def profile_config(name):
     }
     print("[layer] wall ms per call: " + ", ".join(
         f"{k} {v * 1e3:.4f}" for k, v in layer.items()))
-    slices = 2 * ctx.M * (layer["sweep_slice"] + layer["wrap_up"])
+    slices = 2 * ctx.M * layer["visit_slice"]
     bounds = 2 * ctx.n_seg * (layer["extend_left"] + layer["calculate_greens"])
-    print(f"[layer] per sweep pair: {2 * ctx.M} x (sweep_slice + wrap) = "
+    print(f"[layer] per sweep pair: {2 * ctx.M} x visit_slice = "
           f"{slices * 1e3:.1f} ms; {2 * ctx.n_seg} x (extend + greens) = "
           f"{bounds * 1e3:.1f} ms", flush=True)
 

@@ -12,7 +12,12 @@ failure and prints no result line then):
               the shapes of the simulations below, with both times, the
               time of one library call computing the same function where
               there is one, and the kernel's bound; K5 also against K1 on
-              the same inputs, bit for bit, with both times in turns
+              the same inputs, bit for bit, with both times in turns; K13
+              (the site sweep with the wrap fused in) in both directions,
+              its up direction's decisions also against K1's, bit for bit,
+              beside the unfused visit's time (K1 and the separate wrap);
+              K14 (the QR emitting V and tau) with max|Q^T Q - I| of its
+              WY-assembled Q and of K4's; K12 (one chain)
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -37,11 +42,21 @@ failure and prints no result line then):
   4i. chain128 a 128-site periodic chain with pure-gauge Peierls phases
               (twisted-boundary rings), the complex row's settings, 256
               chains: K8 at N = 128 and the wide K10
+  4j. fusewrap the headline with fuse_wrap=True: K13 on every slice visit
+              but the measurement point's (K1 and the separate wrap), K2,
+              K3
+  4k. colscaled_wy the colscaled run with qr_wy=True: K1 and K14 (with Q
+              assembled outside), no K4
+  4l. single  the headline with one chain (1 + 1 sweeps): K12 on every
+              slice visit, K2, K3; its occupation is printed, not held (one
+              chain's few sweeps need not average to 0.5)
   5. paths    the kernel path against the plain path (use_kernels=False)
               from the same state and uniforms: the headline's first slice
               visit at its safe_mult=10 and one whole sweep_pair at
               safe_mult=1 (on the first 64 chains, as every safe_mult=1
-              comparison); colscaled as the headline, and so the
+              comparison); colscaled, fusewrap and colscaled_wy as the
+              headline (the kernel path's first visit is K13's for
+              fusewrap), and so the
               repulsive run, whose whole pair at safe_mult=10 prints the
               plain path's negative detratios; at 16x16 the first slice
               visit; complex: the first visit at safe_mult=5 and the whole
@@ -76,6 +91,7 @@ data sheet: 3.35 TB/s, 67 TFLOP/s FP32, 34 TFLOP/s FP64).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -111,6 +127,9 @@ CHAIN_L = 128
 SM1_PATH_CHAINS = 64
 # the complex16 phase witness (5b) on the run's first chains
 CX16_WITNESS_CHAINS = 16
+# K14's tau against its plain version's, entry by entry: float32 sums in
+# another order, over columns graded across 32 e-folds
+TOL_TAU = 1e-4
 # the strict-float64 configuration (bench.py's f64 row: bench_dqmc(dtype=
 # "float64", chains=128)), its mixed-precision variant, and the headline
 # with the column-scaled stabilization; 1 + 2 sweeps each
@@ -179,6 +198,14 @@ KERNEL_INFO = {
     "site_sweep_delayed_cx": (
         "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
         "montecarlo_tpu/ops/pallas_site_sweep.py:1413"),
+    # _batched_kernel's wrap_dir branch (its MXU wrap: :160)
+    "site_sweep_wrap": ("montecarlo_tpu_torch/csrc/site_sweep_wrap.cu",
+                        "montecarlo_tpu/ops/pallas_site_sweep.py:227"),
+    "qr_vtau": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+                "montecarlo_tpu/ops/pallas_qr.py:203"),
+    # K1's launch for one chain
+    "site_sweep_single": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
+                          "montecarlo_tpu/ops/pallas_site_sweep.py:51"),
 }
 
 
@@ -220,33 +247,46 @@ def bound(nbytes, flops, fp64=False):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def householder_flops(N, complex_=False):
+def householder_flops(N, complex_=False, with_q=True):
     """FP32 operations of the least work of a column-by-column Householder
     QR with Q formed (LAPACK's geqrf, then ungqr accumulating Q backward):
     per column j the tail norm, the dot and update of the N-j-1 trailing
-    columns over N-j rows, and the dot and update of Q's N-j trailing
-    columns over its N-j trailing rows. A complex multiply-add is 8 real
-    operations, a real one 2."""
+    columns over N-j rows, and (with_q) the dot and update of Q's N-j
+    trailing columns over its N-j trailing rows. A complex multiply-add is
+    8 real operations, a real one 2."""
     ma = 8 if complex_ else 2
     return sum((2 if complex_ else 1) * 2 * (N - j - 1)
-               + 2 * ma * (N - j) * (N - j - 1) + 2 * ma * (N - j) ** 2
+               + 2 * ma * (N - j) * (N - j - 1)
+               + (2 * ma * (N - j) ** 2 if with_q else 0)
                for j in range(N))
 
 
-def sweep_bound(C, F, N, n_acc, complex_=False, fp64=False):
+def sweep_bound(C, F, N, n_acc, complex_=False, fp64=False, wrap=False):
     """The bound of a site sweep over (C, F, N, N): G read and written once,
     sigma in and out, u, and the per-chain counts (K1, K6) or the per-site
     accept flags and complex detratios (K8); n_acc accepted sites each
     update G (2 operations per element, 8 complex), the work of the
     sequential rank-1 sweep (the delayed sweep computes the same function,
-    so its slab work is not counted). fp64: G and u in float64."""
+    so its slab work is not counted). fp64: G and u in float64. wrap (K13):
+    the two (N, N) wrap operands read once, and the wrap's two products,
+    4 N^3 operations per flavor block."""
     el = 8 if complex_ or fp64 else 4
     nbytes = 2 * C * F * N * N * el + C * N * (1 + 1 + (8 if fp64 else 4)) + (
         C * N * (1 + el) if complex_ else 2 * C * 4)
     per_acc = F * ((8 * N * N + 7 * N + 8) if complex_
                    else (2 * N * N + 2 * N))
     per_site = (7 * F + 8) if complex_ else (5 * F + 4)
-    return bound(nbytes, n_acc * per_acc + C * N * per_site, fp64)
+    ops = n_acc * per_acc + C * N * per_site
+    if wrap:
+        nbytes += 2 * N * N * el
+        ops += C * F * 4 * N ** 3
+    return bound(nbytes, ops, fp64)
+
+
+def ab_modes(ctx):
+    """The A/B modes a session runs, each with a leading space: " fuse_wrap",
+    " qr_wy", both or none."""
+    return "".join(f" {m}" for m in ("fuse_wrap", "qr_wy") if getattr(ctx, m))
 
 
 def phase_device():
@@ -485,6 +525,80 @@ def phase_parity():
             library_ms=None,
             **sweep_bound(CHAINS, ctx.F, ctx.N, out_k[2].sum().item()))
 
+    # ---- K13 at (256, 1, 64, 64), the fusewrap run's shape, and at
+    # (128, 2, 64, 64), in both directions, on real Green's functions
+    # (plain-path init_state) with the session's wrap operands; the up
+    # direction's decisions also against K1's on the same inputs, bit for
+    # bit; K13's times in turns with the unfused visit's (K1 and the
+    # separate wrap_up / wrap_down); then K12 on the first chain
+    from montecarlo_tpu_torch.dqmc import core
+    for repulsive, chains in ((False, CHAINS), (True, K1_F2_CHAINS)):
+        ctx, consts, state, gen = real_state(headline_model(repulsive),
+                                             chains, 15, use_kernels=False)
+        G = state["G"]
+        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+        u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+                  use_boson=ctx.use_boson)
+        shape = tuple(G.shape)
+        ops = {1: (consts["eT2_u"], consts["eT2inv_u"]),
+               -1: (consts["eT2inv_u"], consts["eT2_u"])}
+        errs, fused = [], {}
+        for d, (Ml, Mr) in ops.items():
+            fused[d] = (lambda Ml=Ml, Mr=Mr, d=d: ss.site_sweep_wrap(
+                G, sigma, u, Ml, Mr, wrap_dir=d, **kw))
+            out_k = fused[d]()
+            errs.append(check_sweep(
+                f"site_sweep_wrap dir={d:+d}", out_k,
+                ss.site_sweep_wrap_plain(G, sigma, u, Ml, Mr, wrap_dir=d,
+                                         **kw), shape, relative=True))
+            if d > 0:
+                out_1 = ss.site_sweep(G, sigma, u, **kw)
+                same = all(torch.equal(a, b)
+                           for a, b in zip(out_k[1:], out_1[1:]))
+                log(f"[parity] site_sweep_wrap dir=+1 {shape}: sigma, acc, "
+                    f"nneg bit-equal to K1's {same}")
+                if not same:
+                    raise AssertionError("K13's up decisions differ from K1's")
+                n_acc = out_k[2].sum().item()
+        if repulsive:
+            continue
+        ctx_k = dataclasses.replace(ctx, use_kernels=True)   # K1, unfused
+        unfused = {d: (lambda d=d: core.visit_slice(ctx_k, consts, G, sigma,
+                                                    u, d)) for d in (1, -1)}
+        t = {k: [] for k in ("k+", "k-", "u+", "u-")}
+        for _ in range(2):
+            t["k+"].append(1e3 * timed(fused[1], 50))
+            t["u+"].append(1e3 * timed(unfused[1], 50))
+            t["k-"].append(1e3 * timed(fused[-1], 50))
+            t["u-"].append(1e3 * timed(unfused[-1], 50))
+        log(f"[parity] site_sweep_wrap {shape}: K13 up {t['k+'][0]:.4f}, "
+            f"{t['k+'][1]:.4f} ms, down {t['k-'][0]:.4f}, {t['k-'][1]:.4f} "
+            f"ms; the unfused visit (K1 + wrap_up) {t['u+'][0]:.4f}, "
+            f"{t['u+'][1]:.4f} ms, (wrap_down + K1) {t['u-'][0]:.4f}, "
+            f"{t['u-'][1]:.4f} ms (in turns)")
+        results["site_sweep_wrap"] = dict(
+            max_abs_err=max(errs),
+            ms=(min(t["k+"]) + min(t["k-"])) / 2,
+            plain_ms=1e3 * timed(lambda: ss.site_sweep_wrap_plain(
+                G, sigma, u, *ops[1], wrap_dir=1, **kw), 5),
+            library_ms=None,
+            **sweep_bound(chains, ctx.F, ctx.N, n_acc, wrap=True))
+        G1, s1, u1 = G[0], sigma[0], u[0]
+        out_k = ss.site_sweep_single(G1, s1, u1, **kw)
+        err = check_sweep("site_sweep_single", [x[None] for x in out_k],
+                          ss.site_sweep_plain(G1[None], s1[None], u1[None],
+                                              **kw), (1,) + shape[1:],
+                          relative=False)
+        results["site_sweep_single"] = dict(
+            max_abs_err=err,
+            ms=1e3 * timed(lambda: ss.site_sweep_single(G1, s1, u1, **kw),
+                           50),
+            plain_ms=1e3 * timed(lambda: ss.site_sweep_plain(
+                G1[None], s1[None], u1[None], **kw), 5),
+            library_ms=None,
+            **sweep_bound(1, ctx.F, ctx.N, out_k[2].item()))
+
     # ---- K2, K3 at (256, 64, 64) on graded, prescaled, pivoted input
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     B, N = CHAINS, L * L
@@ -587,6 +701,53 @@ def phase_parity():
             results["qr_f32"] = r
     degenerate_columns("qr_f32", qh.qr_f32, Ap.contiguous(), 1e-35, TOL_QR,
                        TOL_QR)
+    # ---- K14 at (256, 64, 64), the colscaled_wy run's shape, and at
+    # (256, 128, 128), the widest it takes: V, tau and R against its plain
+    # version, max|Q^T Q - I| of Q assembled from them and of K4's Q; the
+    # times of qr_wy (K14 with the assembly) and of K4 beside; then with
+    # zero and subnormal columns
+    for n in (N, 2 * N):
+        Ap, _, _ = _prescale_pivot(graded(gen, B, n))
+        Ap = Ap.contiguous()
+        Vk, tk, Rk = qh.qr_vtau(Ap)
+        Vp, tp, Rp = qh.householder_qr_vtau_plain(Ap)
+        torch.cuda.synchronize()
+        ev = (Vk - Vp).abs().max().item()
+        er = (Rk - Rp).abs().max().item()
+        et = ((tk - tp).abs() / tp.abs().clamp_min(1e-38)).max().item()
+        upper = bool((torch.tril(Rk, -1) == 0).all()
+                     and (torch.triu(Vk, 1) == 0).all())
+        eye = torch.eye(n, device=DEVICE)
+        orth = {name: (Q.mT @ Q - eye).abs().max().item() for name, Q in (
+            ("K14 + assembly", qh.qr_wy(Ap)[0]), ("K4", qh.qr_f32(Ap)[0]))}
+        log(f"[parity] qr_vtau ({B}, {n}, {n}): max|dV| {ev:.3e} (max|V| "
+            f"{Vp.abs().max().item():.3g}), max|dR| {er:.3e} (max|R| "
+            f"{Rp.abs().max().item():.3g}), max rel dtau {et:.3e}, V and R "
+            f"triangular {upper}; max|Q^T Q - I| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in orth.items()))
+        if not (ev <= TOL_QR * Vp.abs().max().item()
+                and er <= TOL_QR * Rp.abs().max().item() and et <= TOL_TAU
+                and upper and max(orth.values()) <= TOL_QR):
+            raise AssertionError("qr_vtau kernel disagrees with plain")
+        r = dict(max_abs_err=max(ev, er),
+                 ms=1e3 * timed(lambda: qh.qr_vtau(Ap), 20),
+                 plain_ms=1e3 * timed(
+                     lambda: qh.householder_qr_vtau_plain(Ap), 3),
+                 library_ms=1e3 * timed(lambda: torch.linalg.qr(Ap), 20),
+                 **bound(3 * B * n * n * 4 + B * n * 4,
+                         B * householder_flops(n, with_q=False)))
+        log(f"[parity] qr_vtau ({B}, {n}, {n}): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library call "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); qr_wy (K14 + assembly) "
+            f"{1e3 * timed(lambda: qh.qr_wy(Ap), 20):.4f} ms, K4 "
+            f"{1e3 * timed(lambda: qh.qr_f32(Ap), 20):.4f} ms")
+        if "qr_vtau" in results:     # the kernels line keeps the N=64 row
+            results["qr_vtau"]["max_abs_err"] = max(
+                results["qr_vtau"]["max_abs_err"], r["max_abs_err"])
+        else:
+            results["qr_vtau"] = r
+        degenerate_columns("qr_vtau", qh.qr_wy, Ap, 1e-35, TOL_QR, TOL_QR)
     B64 = F64_CHAINS
     Ap, _, _ = _prescale_pivot(graded(gen, B64, N, dtype=torch.float64))
     Ap = Ap.contiguous()
@@ -738,10 +899,11 @@ def phase_parity():
     return results
 
 
-def sweep_kernel(ctx):
-    """The site-sweep kernel a session's main path launches: K8 for complex
-    G (K9 past N = 128), K6 past N = 128, K1 in float64 for float64
-    updates, K5 for float32 updates with F >= 2 at even N, else K1."""
+def sweep_kernel(ctx, chains):
+    """The site-sweep kernel a session's main path launches (besides K13
+    under fuse_wrap): K8 for complex G (K9 past N = 128), K6 past N = 128,
+    K1 in float64 for float64 updates, K5 for float32 updates with F >= 2
+    at even N, else K1 (K12 for one chain)."""
     import torch
     if ctx.is_complex:
         return "site_sweep_cx" if ctx.N <= 128 else "site_sweep_delayed_cx"
@@ -751,22 +913,24 @@ def sweep_kernel(ctx):
         return "site_sweep_f64"
     if ctx.F >= 2 and ctx.N % 2 == 0:
         return "site_sweep_pair"
-    return "site_sweep"
+    return "site_sweep_single" if chains == 1 else "site_sweep"
 
 
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                 complex_=False, session=None, repulsive=False, dims=2,
-                phase_tol=PHASE_TOL):
+                phase_tol=PHASE_TOL, hold_occ=True):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
     with pure-gauge Peierls phases at safe_mult=5: K8, K10; at 16x16: K9
     and the library QR; on the 128-site chain, dims=1: K8, K10), with
     session
-    (DQMC's dtype, update_dtype and stab_method; None: float32) the f64
-    (DQMC's defaults: K1 in float64, K11), mixed (K1, K11) and colscaled
-    (K1, K4) ones, or the repulsive one (K5, K2, K3), which also measures
-    the z spin correlations and magnetization and is held to its anchors
-    (``repulsive_anchors``)."""
+    (DQMC's dtype, update_dtype, stab_method, fuse_wrap and qr_wy; None:
+    float32) the f64 (DQMC's defaults: K1 in float64, K11), mixed (K1,
+    K11), colscaled (K1, K4), fusewrap (K13, K1, K2, K3) and colscaled_wy
+    (K1, K14) ones, the one-chain one (K12, K2, K3; hold_occ False: its
+    occupation is printed, not held), or the repulsive one (K5, K2, K3),
+    which also measures the z spin correlations and magnetization and is
+    held to its anchors (``repulsive_anchors``)."""
     import torch
     from montecarlo_tpu_torch import (DQMC, magnetization,
                                       spin_density_correlation)
@@ -792,17 +956,22 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     ctx = sim.ctx
     n_pairs = therm + sweeps
     expected = dict.fromkeys(KERNELS, 0)
-    # one site sweep per slice visit; every extend and Green's recomputation
+    # one site sweep per slice visit (under fuse_wrap K13 for every visit
+    # but the measurement point's); every extend and Green's recomputation
     # runs one unfused QR (or, fused, one K2 per extend and one K3 per
     # recomputation)
-    expected[sweep_kernel(ctx)] = 2 * ctx.M * n_pairs
+    if ctx.fuse_wrap:
+        expected["site_sweep_wrap"] = (2 * ctx.M - 1) * n_pairs
+        expected[sweep_kernel(ctx, chains)] = n_pairs
+    else:
+        expected[sweep_kernel(ctx, chains)] = 2 * ctx.M * n_pairs
     n_qr = 4 * ctx.n_seg * n_pairs + ctx.n_seg + 1
     if ctx.is_complex:       # past N = 128 the library QR, as the JAX package
         expected.update(qr_cx=n_qr if ctx.N <= 128 else 0)
     elif ctx.dtype == torch.float64:
         expected.update(qr_f64=n_qr)
     elif ctx.stab_method == "qr_colscaled":
-        expected.update(qr_f32=n_qr)
+        expected["qr_vtau" if ctx.qr_wy else "qr_f32"] = n_qr
     elif ctx.N <= 128:
         expected.update(udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
                         udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
@@ -818,7 +987,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     rate = chains * n_pairs / dur
     log(f"[{tag}] N={ctx.N} beta={BETA} M={ctx.M} safe_mult={ctx.sm} delay="
         f"{ctx.delay} {chains} chains {str(ctx.dtype)[6:]} updates "
-        f"{str(ctx.udtype)[6:]} stab {ctx.stab_method}: {n_pairs} sweeps "
+        f"{str(ctx.udtype)[6:]} stab {ctx.stab_method}{ab_modes(ctx)}: "
+        f"{n_pairs} sweeps "
         f"in {dur:.3f} s = {rate:.1f} "
         f"chain-sweeps/s; acceptance {acc:.4f}; occ {occ:.5f}; "
         f"prop_err_max {sim.analysis.propagation_error.max:.3e}, mean "
@@ -831,7 +1001,7 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                              f"bench.py's {F64_DRIFT_MAX}")
     if not 0.05 < acc < 0.95:
         raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
-    if not abs(occ - 0.5) <= OCC_TOL:
+    if hold_occ and not abs(occ - 0.5) <= OCC_TOL:
         raise AssertionError(f"occupation {occ} not within 0.5 +- {OCC_TOL}")
     if repulsive:
         repulsive_anchors(sim, tag)
@@ -887,8 +1057,8 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     site sweeps, torch.linalg.qr and solve_triangular) from the same state
     and the same uniforms: the decisions of the first slice visit (l = M-1,
     taken from the boundary's freshly recomputed G before any wrap has
-    amplified the two paths' rounding differences) and, with whole_pair,
-    those of one whole sweep pair."""
+    amplified the two paths' rounding differences; K13's fused visit under
+    fuse_wrap) and, with whole_pair, those of one whole sweep pair."""
     import dataclasses
     import torch
     from montecarlo_tpu_torch.dqmc import core
@@ -907,14 +1077,15 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
         G = calculate_greens(state["S_U"][:, n], state["S_D"][:, n],
                              state["S_T"][:, n], eye, ones, eye,
                              ctx.use_kernels, ctx.greens_udt_fn)
-        G = core.wrap_down(ctx, consts, sigma, G.to(ctx.udtype))
-        first.append(core.sweep_slice(ctx, G, sigma, u[:, 0])[1])
+        first.append(core.visit_slice(ctx, consts, G.to(ctx.udtype), sigma,
+                                      u[:, 0], -1)[1])
         if whole_pair:
             whole.append(core.sweep_pair(ctx, consts, state, u=u)[0])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     share_first = (first[0] == first[1]).all(1).float().mean().item()
-    tag = (f"N={N} F={F} {str(ctx_k.dtype)[6:]} {ctx_k.stab_method} "
+    tag = (f"N={N} F={F} {str(ctx_k.dtype)[6:]} {ctx_k.stab_method}"
+           f"{ab_modes(ctx_k)} "
            f"safe_mult={ctx_k.sm} ({secs[0]:.1f} s kernel path, "
            f"{secs[1]:.1f} s plain path)")
     if not whole_pair:
@@ -945,7 +1116,8 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     return share_first, same.float().mean().item()
 
 
-def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch):
+def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
+                simfw, simwy):
     """The kernel path against the plain path.
 
     At the slice's safe_mult=10 in float32, each 10-slice window of wraps
@@ -955,7 +1127,9 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch):
     window. There the decisions of the first slice visit are held to the
     bound; the whole sweep pair is held to it at safe_mult=1, where G is
     recomputed from the stack at every slice (on the first SM1_PATH_CHAINS
-    chains). The column-scaled headline (K4) is held the same way. In
+    chains). The column-scaled headline (K4), the fused-wrap one (K13) and
+    the column-scaled one with the (V, tau) QR (K14) are held the same way.
+    In
     float64 rounding stays far below O(1), so the whole pair is held at the
     configuration's safe_mult=10."""
     import torch
@@ -963,25 +1137,28 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch):
     from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=1)
     for s, stab, seed in ((sim, "qr", 3), (simcs, "qr_colscaled", 10),
-                          (simrep, "qr", 12)):
+                          (simrep, "qr", 12), (simfw, "qr", 17),
+                          (simwy, "qr_colscaled", 19)):
         repulsive = s.ctx.F == 2
+        modes = dict(fuse_wrap=s.ctx.fuse_wrap, qr_wy=s.ctx.qr_wy)
         # the repulsive pair prints the plain path's negative detratios
         first, _ = compare_paths(s.ctx, s.consts, s.state, seed,
                                  whole_pair=repulsive)
         if not first >= MIN_CONF_AGREE:
             raise AssertionError(f"kernel and plain paths ({stab}, F="
-                                 f"{s.ctx.F}) agree on the first slice "
-                                 f"visit in only {first:.3f} of the chains")
+                                 f"{s.ctx.F}, {modes}) agree on the first "
+                                 f"slice visit in only {first:.3f} of the "
+                                 "chains")
         ctx1, consts1 = core.make_context(headline_model(repulsive), params,
                                           dtype=torch.float32, device=DEVICE,
-                                          stab_method=stab)
+                                          stab_method=stab, **modes)
         state1 = core.init_state(ctx1, consts1,
                                  s.state["conf"][:SM1_PATH_CHAINS])
         _, whole = compare_paths(ctx1, consts1, state1, seed + 1)
         if not whole >= MIN_CONF_AGREE:
             raise AssertionError(f"kernel and plain paths ({stab}, F="
-                                 f"{s.ctx.F}) agree in only {whole:.3f} of "
-                                 "the chains at safe_mult=1")
+                                 f"{s.ctx.F}, {modes}) agree in only "
+                                 f"{whole:.3f} of the chains at safe_mult=1")
     # f64: K1 in float64 + K11 against site_sweep_plain + torch.linalg.qr
     _, whole = compare_paths(sim64.ctx, sim64.consts, sim64.state, 11)
     if not whole >= MIN_CONF_AGREE_F64:
@@ -1144,11 +1321,22 @@ def main():
     simch, launchesch, _ = phase_slice(
         CHAIN_L, CHAINS, CPLX_THERM, CPLX_SWEEPS, tag="chain128",
         complex_=True, dims=1)
+    simfw, launchesfw, _ = phase_slice(
+        therm=X_THERM, sweeps=X_SWEEPS, tag="fusewrap",
+        session=dict(dtype=torch.float32, fuse_wrap=True))
+    simwy, launcheswy, _ = phase_slice(
+        therm=X_THERM, sweeps=X_SWEEPS, tag="colscaled_wy",
+        session=dict(dtype=torch.float32, stab_method="qr_colscaled",
+                     qr_wy=True))
+    _, launches1, _ = phase_slice(chains=1, therm=1, sweeps=1, tag="single",
+                                  hold_occ=False)
     mark("runs")
     runs = (launches, launches16, launchescx, launches64, launchesmx,
-            launchescs, launchesrep, launchescx16, launchesch)
+            launchescs, launchesrep, launchescx16, launchesch, launchesfw,
+            launcheswy, launches1)
     launches = {k: sum(r[k] for r in runs) for k in launches}
-    phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch)
+    phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
+                simfw, simwy)
     mark("paths")
     phase_witness(simcx, complex_model())
     mark("witness complex")

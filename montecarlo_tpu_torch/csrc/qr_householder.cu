@@ -31,6 +31,19 @@
 // Trailing columns: a -= (tau (v.a)) v; Q <- Q H:
 // Q[r, :] -= (tau (Q[r, :].v)) v.
 //
+// K14 (qr_vtau_f32) is K4 with the Q accumulation dropped: it emits the
+// reflectors instead, V (B, N, N) with column j = v_j (zeros above row j)
+// and tau (B, N), and R. It replaces montecarlo_tpu/ops/pallas_qr.py::
+// _qr_kernel_vtau and its KB=8 panel variant ::_blocked_kernel_vtau (reached
+// through _qr_batched_vtau / qr_lanes_wy / maybe_qr under MC_TPU_QR_WY=1);
+// the caller assembles Q = I - V T V^T outside (ops/qr_householder.py::
+// wy_assemble_q). Where v.v is below FLT_MIN the reflector is H = I (tau =
+// 0) but v need not be 0; V's column is written as 0 there, so that the
+// assembly drops it exactly, as the TPU's flushed v does. Its plain version
+// is ops/qr_householder.py::householder_qr_vtau_plain. Its bound is K4's
+// without the Q half of the column steps: still barrier latency inside the
+// block.
+//
 // What bounds it: each of the N column steps is O(N^2) shared-memory work
 // (the reflector applied to the trailing columns and to Q) separated by
 // barriers; at N = 64 the factorization is ~0.7 MFLOP per matrix (FP32 or
@@ -102,14 +115,17 @@ struct Reflector<double> {  // K11: LAPACK-normalized, v_j = 1
   }
 };
 
-template <typename T>
+// VTAU (K14): the Q loop is skipped; Q_out receives V instead of Q (column
+// j = v_j, zeros above row j, all zeros where tau_j = 0) and tau_out the
+// tau_j. Otherwise tau_out is unused.
+template <typename T, bool VTAU>
 __global__ void __launch_bounds__(kThreads)
 qr_kernel(const T* __restrict__ A, T* __restrict__ Q_out,
-          T* __restrict__ R_out, int N) {
+          T* __restrict__ R_out, T* __restrict__ tau_out, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);  // A -> R, [r][c] at r*LD + c
   const int LD = N + 1;
-  T* Qs = As + N * LD;                     // Q, [r][c]
+  T* Qs = As + N * LD;                     // Q (VTAU: V), [r][c]
   T* v = Qs + N * LD;                      // reflector (rows >= j)
   T* red = v + N;                          // tail norm^2 of the current column
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -119,7 +135,7 @@ qr_kernel(const T* __restrict__ A, T* __restrict__ Q_out,
   for (int e = tid; e < N * N; e += blockDim.x) {
     const int r = e / N, c = e - r * N;
     As[r * LD + c] = A[base + e];
-    Qs[r * LD + c] = r == c ? T(1) : T(0);
+    Qs[r * LD + c] = r == c && !VTAU ? T(1) : T(0);
   }
   __syncthreads();
 
@@ -147,11 +163,17 @@ qr_kernel(const T* __restrict__ A, T* __restrict__ Q_out,
       const T tw = h.tau * warp_sum(part);
       for (int r = j + lane; r < N; r += 32) As[r * LD + c] -= tw * v[r];
     }
-    for (int r = warp; r < N; r += nwarps) {
-      T part = 0;
-      for (int k = j + lane; k < N; k += 32) part += Qs[r * LD + k] * v[k];
-      const T tw = h.tau * warp_sum(part);
-      for (int k = j + lane; k < N; k += 32) Qs[r * LD + k] -= tw * v[k];
+    if (VTAU) {
+      for (int r = j + tid; r < N; r += blockDim.x)
+        Qs[r * LD + j] = h.tau != T(0) ? v[r] : T(0);
+      if (tid == 0) tau_out[(size_t)b * N + j] = h.tau;
+    } else {
+      for (int r = warp; r < N; r += nwarps) {
+        T part = 0;
+        for (int k = j + lane; k < N; k += 32) part += Qs[r * LD + k] * v[k];
+        const T tw = h.tau * warp_sum(part);
+        for (int k = j + lane; k < N; k += 32) Qs[r * LD + k] -= tw * v[k];
+      }
     }
     for (int r = j + tid; r < N; r += blockDim.x)
       As[r * LD + j] = r == j ? h.rjj : T(0);
@@ -165,16 +187,17 @@ qr_kernel(const T* __restrict__ A, T* __restrict__ Q_out,
   }
 }
 
-template <typename T>
-int launch(const T* A, T* Q, T* R, int B, int N, int max_n,
+template <typename T, bool VTAU = false>
+int launch(const T* A, T* Q, T* R, T* tau, int B, int N, int max_n,
            cudaStream_t stream) {
   if (B == 0) return 0;
   if (N < 8 || N > max_n || N % 8) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(2 * N * (N + 1) + N + 1) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      qr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      qr_kernel<T, VTAU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  qr_kernel<T><<<B, kThreads, smem, stream>>>(A, Q, R, N);
+  qr_kernel<T, VTAU><<<B, kThreads, smem, stream>>>(A, Q, R, tau, N);
   return (int)cudaGetLastError();
 }
 
@@ -184,11 +207,18 @@ int launch(const T* A, T* Q, T* R, int B, int N, int max_n,
 // row-major. K4: float32, 8 | N <= 128.
 extern "C" int qr_f32(const float* A, float* Q, float* R, int B, int N,
                       void* stream) {
-  return launch<float>(A, Q, R, B, N, 128, (cudaStream_t)stream);
+  return launch<float>(A, Q, R, nullptr, B, N, 128, (cudaStream_t)stream);
 }
 
 // K11: float64, 8 | N <= 64.
 extern "C" int qr_f64(const double* A, double* Q, double* R, int B, int N,
                       void* stream) {
-  return launch<double>(A, Q, R, B, N, 64, (cudaStream_t)stream);
+  return launch<double>(A, Q, R, nullptr, B, N, 64, (cudaStream_t)stream);
+}
+
+// K14: K4 without the Q accumulation; V (B, N, N) row-major, tau (B, N).
+// float32, 8 | N <= 128.
+extern "C" int qr_vtau_f32(const float* A, float* V, float* tau, float* R,
+                           int B, int N, void* stream) {
+  return launch<float, true>(A, V, R, tau, B, N, 128, (cudaStream_t)stream);
 }

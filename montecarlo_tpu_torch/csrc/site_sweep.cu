@@ -38,7 +38,9 @@
 // NULL: the Pallas kernels it replaces count the negative detratios alone.
 //
 // The TPU kernel's chain-on-lanes layout, one-hot contractions and
-// grid-as-site-loop are Mosaic workarounds and are not carried over.
+// grid-as-site-loop are Mosaic workarounds and are not carried over. The
+// load, the site loop and the store live in site_sweep_loop.cuh, which K13
+// (site_sweep_wrap.cu) shares.
 //
 // The delay-2 paired-site instance (site_sweep_pair_f32, kernel K5)
 // replaces montecarlo_tpu/ops/pallas_site_sweep.py::_batched_kernel_pair,
@@ -57,43 +59,9 @@
 // G[j,i], G[i,j], G[j,j] are four scalars per flavor), and every operation
 // is K1's _rn operation in K1's order, so K5 is bit-equal to K1.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "site_sweep_loop.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// separately rounded operations of each element type
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ double div_rn(double a, double b) {
-  return __ddiv_rn(a, b);
-}
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
-__device__ __forceinline__ float log10_(float x) { return log10f(x); }
-__device__ __forceinline__ double log10_(double x) { return log10(x); }
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -109,79 +77,19 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
   T* rows = Gs + F * N * LD;               // [f][b]: G_f[i, b]
   T* cols = rows + F * N;      // [f][a]: x_f * (e_i - G_f[:, i])[a]
   const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid % N, ty = tid / N, rstep = blockDim.x / N;
-  const bool active = ty < rstep;
   const size_t base = (size_t)c * F * N * N;
-  const T one = 1;
 
-  if (active) {
-    for (int f = 0; f < F; ++f)
-      for (int a = ty; a < N; a += rstep)
-        Gs[(f * N + a) * LD + tx] = G_in[base + (size_t)(f * N + a) * N + tx];
-  }
+  load_g<T, F>(G_in + base, Gs, N);
   __syncthreads();
-
-  const T neg2lamb = mul_rn(T(-2), lamb);
   int acc = 0, nneg = 0;
   // log10 |det| over the negative detratios: min, max, sum (thread 0)
   T neg_min = T(INFINITY), neg_max = T(-INFINITY), neg_sum = T(0);
-  for (int i = 0; i < N; ++i) {
-    const int8_t s8 = sigma_in[c * N + i];
-    const T dEb = mul_rn(neg2lamb, (T)s8);
-    T delta[F], r[F];
-    T rprod = one;
-    for (int f = 0; f < F; ++f) {
-      const T sg = f == 0 ? sign0 : sign1;
-      delta[f] = sub_rn(exp_(mul_rn(sg, dEb)), one);
-      const T gii = Gs[(f * N + i) * LD + i];
-      r[f] = add_rn(one, mul_rn(delta[f], sub_rn(one, gii)));
-      rprod = f == 0 ? r[f] : mul_rn(rprod, r[f]);
-    }
-    T det = rprod;
-    for (int k = 1; k < det_power; ++k) det = mul_rn(det, rprod);
-    const T w = use_boson ? exp_(-dEb) : one;
-    const bool accept = u[c * N + i] < mul_rn(w, det);
-    if (tid == 0) {
-      acc += accept;
-      nneg += det < T(0);
-      sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
-      if (neg_out != nullptr && det < T(0)) {
-        const T lv = log10_(fmax(fabs(det), T(1e-38)));
-        neg_min = fmin(neg_min, lv);
-        neg_max = fmax(neg_max, lv);
-        neg_sum = add_rn(neg_sum, lv);
-      }
-    }
-    if (!accept) continue;  // block-uniform: every thread decided the same
-    for (int e = tid; e < F * N; e += blockDim.x) {
-      const int f = e / N, a = e - f * N;
-      // constant indices keep delta/r in registers
-      const T x = f == 0 ? div_rn(delta[0], r[0])
-                         : div_rn(delta[F - 1], r[F - 1]);
-      rows[e] = Gs[(f * N + i) * LD + a];
-      const T ig = sub_rn(a == i ? one : T(0), Gs[(f * N + a) * LD + i]);
-      cols[e] = mul_rn(x, ig);
-    }
-    __syncthreads();
-    if (active) {
-      for (int f = 0; f < F; ++f) {
-        const T rb = rows[f * N + tx];
-        for (int a = ty; a < N; a += rstep) {
-          T* g = &Gs[(f * N + a) * LD + tx];
-          *g = sub_rn(*g, mul_rn(cols[f * N + a], rb));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    for (int f = 0; f < F; ++f)
-      for (int a = ty; a < N; a += rstep)
-        G_out[base + (size_t)(f * N + a) * N + tx] = Gs[(f * N + a) * LD + tx];
-  }
-  if (tid == 0) {
+  sweep_sites<T, F>(Gs, rows, cols, N, sigma_in + c * N, sigma_out + c * N,
+                    u + c * N, lamb, sign0, sign1, det_power, use_boson,
+                    neg_out != nullptr, acc, nneg, neg_min, neg_max, neg_sum);
+  __syncthreads();
+  store_g<T, F>(Gs, G_out + base, N);
+  if (threadIdx.x == 0) {
     acc_out[c] = acc;
     nneg_out[c] = nneg;
     if (neg_out != nullptr) {

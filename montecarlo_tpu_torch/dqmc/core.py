@@ -21,12 +21,18 @@ float32, float64 and mixed precision, and the rank-1 and delayed sweeps for
 complex hopping (Peierls phases) with their phase-problem statistics: the
 imaginary-weight monitor and the running weight phase. Every session
 records how large its negative weights were where the JAX package does.
+Two A/B modes of the JAX package come as make_context keywords:
+fuse_wrap (MC_TPU_FUSE_WRAP=1: the slice's wrap fused into the site sweep,
+kernel K13) and qr_wy (MC_TPU_QR_WY=1: the float32 QR emitting its
+reflectors, kernel K14, with Q assembled outside); each raises where its
+kernel takes no part of the session.
 g_refresh and checkerboard raise NotImplementedError naming their ROADMAP
 item; the retired stab_method "cholqr" raises as well.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -39,11 +45,13 @@ from ..ops import qr_householder as _qrh
 from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
 from ..ops import site_sweep_delayed_cx as _ssdcx
-from ..ops.linalg import (CX_QR_MAX_N, calculate_greens, permute_rows,
-                          scatter_columns, udt_dirty, udt_dirty_colscaled)
+from ..ops.linalg import (CX_QR_MAX_N, FUSED_MAX_N, calculate_greens,
+                          permute_rows, scatter_columns, udt_dirty,
+                          udt_dirty_colscaled)
 from ..ops.site_sweep import (MAX_N, empty_neg, neg_push, pair_supports,
                               site_sweep, site_sweep_f64, site_sweep_pair,
-                              site_sweep_plain)
+                              site_sweep_plain, site_sweep_single,
+                              site_sweep_wrap)
 from ..ops.site_sweep import kernel_supports as site_sweep_supports
 from ..utils.host import real_dtype, resolve_device
 
@@ -78,12 +86,18 @@ class DQMCContext:
     # "qr" (udt_dirty: one power-of-two prescale per product) or
     # "qr_colscaled" (udt_dirty_colscaled: every column normalized)
     stab_method: str = "qr"
+    # the slice's wrap fused into the site sweep (K13) on the kernel path
+    fuse_wrap: bool = False
+    # the float32 QR of K4's route as K14 + the WY assembly of Q, on the
+    # kernel path
+    qr_wy: bool = False
 
     @property
     def greens_udt_fn(self):
         """The UDT of every stabilization and Green's recomputation."""
-        return (udt_dirty_colscaled if self.stab_method == "qr_colscaled"
-                else udt_dirty)
+        fn = (udt_dirty_colscaled if self.stab_method == "qr_colscaled"
+              else udt_dirty)
+        return functools.partial(fn, qr_wy=True) if self.qr_wy else fn
 
     @property
     def udtype(self):
@@ -124,8 +138,15 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
                  stab_method: str = "qr", delay: int = None,
                  checkerboard: bool = False,
                  check_propagation_error: bool = None,
-                 g_refresh: bool = False) -> Tuple[DQMCContext, dict]:
+                 g_refresh: bool = False, fuse_wrap: bool = False,
+                 qr_wy: bool = False) -> Tuple[DQMCContext, dict]:
     """Build the static context and the hopping-matrix exponentials.
+
+    fuse_wrap and qr_wy are the JAX package's MC_TPU_FUSE_WRAP and
+    MC_TPU_QR_WY A/B modes (``_ab_modes`` says where they apply; elsewhere
+    they raise ValueError). Both act on the kernel path only: with
+    use_kernels=False the session runs the plain unfused path, as the JAX
+    package's with use_pallas=False.
 
     Complex hopping (Peierls phases) promotes the session to complex:
     float32 to complex64 and float64 to complex128 (dtype and update_dtype);
@@ -166,6 +187,7 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
                          "'qr_colscaled')")
     delay = _delay(N, delay)
     udtype = dtype if update_dtype is None else update_dtype
+    _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy)
     if device.type == "cuda" and use_kernels:
         _check_cuda_kernels(N, model.nflavors, delay, dtype, udtype)
 
@@ -196,6 +218,7 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         # count only catastrophic excursions
         prop_err_threshold=1.0 if mixed else 1e-7,
         use_kernels=bool(use_kernels), delay=delay, stab_method=stab_method,
+        fuse_wrap=bool(fuse_wrap), qr_wy=bool(qr_wy),
     )
     return ctx, consts
 
@@ -210,6 +233,30 @@ def _delay(N, delay):
     while k > 1 and N % k:
         k -= 1
     return 0 if k <= 1 else k
+
+
+def _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy):
+    """Raise ValueError where an A/B mode would not engage. fuse_wrap: the
+    JAX package's rule (core.py::_fuse_wrap_enabled): real hopping, float32
+    updates, N <= 128 and delay <= 1 (where K13 takes G of one chain in
+    shared memory). qr_wy: a float32 QR on K4's route, i.e. real float32
+    stacks at N <= 128 that the fused K2/K3 do not take (stab_method
+    "qr_colscaled", or N > 64)."""
+    if fuse_wrap and (dtype.is_complex or udtype != torch.float32
+                      or N > MAX_N or delay > 1):
+        raise ValueError(
+            f"fuse_wrap=True needs real hopping, float32 updates, N <= "
+            f"{MAX_N} and delay <= 1 (K13's rule, the JAX package's "
+            f"MC_TPU_FUSE_WRAP); this session has {str(udtype)[6:]} "
+            f"updates, N={N}, delay={delay}")
+    if qr_wy and (dtype != torch.float32 or N > MAX_N or (
+            stab_method == "qr" and N <= FUSED_MAX_N)):
+        raise ValueError(
+            f"qr_wy=True needs a float32 QR on K4's route: real float32 "
+            f"stacks at N <= {MAX_N}, with stab_method='qr_colscaled' or "
+            f"N > {FUSED_MAX_N} (the fused K2/K3 take N <= {FUSED_MAX_N}); "
+            f"this session has {str(dtype)[6:]} stacks, N={N}, "
+            f"stab_method={stab_method!r}")
 
 
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
@@ -350,7 +397,8 @@ def sweep_slice(ctx, G, sigma, u):
 
     Dispatch as in the JAX engine: the kernel path runs, for N <= 128, K5
     (two sites at a time) for float32 G with F >= 2 at even N and K1
-    (rank-1, float32 or float64 as G) otherwise, and K8 for complex G;
+    (rank-1, float32 or float64 as G) otherwise (for one float32 chain
+    through its one-chain entry K12), and K8 for complex G;
     beyond, K6 (delayed, blocks of max(delay, 1) sites) and K9 (its
     complex instance); the plain path runs ``sweep_slice_delayed`` when
     delay > 1, else the plain version of the rank-1 kernel (K1's, or K8's
@@ -375,10 +423,53 @@ def sweep_slice(ctx, G, sigma, u):
             return site_sweep_f64(G, sigma, u, **kw)
         if ctx.F >= 2 and pair_supports(ctx.N, ctx.F, G.dtype):
             return (*site_sweep_pair(G, sigma, u, **kw), None)
+        if G.shape[0] == 1:
+            out = site_sweep_single(G[0], sigma[0], u[0], **kw)
+            return (*(x[None] for x in out), None)
         return (*site_sweep(G, sigma, u, **kw), None)
     if ctx.delay > 1:
         return sweep_slice_delayed(ctx, G, sigma, u)
     return site_sweep_plain(G, sigma, u, **kw)
+
+
+def _fuse_wrap_enabled(ctx):
+    """The slice visits run K13 (the JAX package's MC_TPU_FUSE_WRAP=1 on its
+    Pallas path): fuse_wrap on the kernel path; make_context has checked the
+    session against the rule (``_ab_modes``)."""
+    return ctx.fuse_wrap and ctx.use_kernels
+
+
+def _sweep_slice_fused_wrap(ctx, consts, G, sigma, u, direction):
+    """``sweep_slice`` and the slice's wrap in one launch of K13: the wrap
+    down before the sweep with the pre-update sigma (direction -1) or the
+    wrap up after it with the post-update sigma (+1). Same results as
+    ``sweep_slice`` (neg None: K13 counts the negative detratios only, as
+    K1)."""
+    if direction > 0:
+        Ml, Mr = consts["eT2_u"], consts["eT2inv_u"]
+    else:
+        Ml, Mr = consts["eT2inv_u"], consts["eT2_u"]
+    out = site_sweep_wrap(G, sigma.contiguous(), u.contiguous(), Ml, Mr,
+                          lamb=ctx.lamb, signs=ctx.signs,
+                          det_power=ctx.det_power, use_boson=ctx.use_boson,
+                          wrap_dir=direction)
+    return (*out, None)
+
+
+def visit_slice(ctx, consts, G, sigma, u, direction):
+    """One slice visit of a sweep: the wrap down before the site sweep with
+    the pre-update sigma (direction -1), or the site sweep and then the
+    wrap up with the post-update sigma (+1); in one launch of K13 where
+    ``_fuse_wrap_enabled``. Returns ``sweep_slice``'s five results, G
+    wrapped."""
+    if _fuse_wrap_enabled(ctx):
+        return _sweep_slice_fused_wrap(ctx, consts, G, sigma, u, direction)
+    if direction < 0:
+        G = wrap_down(ctx, consts, sigma, G)
+    G, sigma, a, b, neg = sweep_slice(ctx, G, sigma, u)
+    if direction > 0:
+        G = wrap_up(ctx, consts, sigma, G)
+    return G, sigma, a, b, neg
 
 
 def sweep_slice_delayed(ctx, G, sigma, u):
@@ -644,10 +735,16 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
     perr = {k: state[k] for k in COUNTER_KEYS if k.startswith("prop_err")}
     visit = 0
 
-    def sweep(G, l):
+    def sweep(G, l, direction=0):
+        """Visit slice l: its site sweep alone (direction 0) or with its
+        wrap (``visit_slice``)."""
         nonlocal visit
-        G, conf[:, :, l], a, b, neg = sweep_slice(ctx, G, conf[:, :, l],
-                                                  u[visit])
+        if direction:
+            G, conf[:, :, l], a, b, neg = visit_slice(
+                ctx, consts, G, conf[:, :, l], u[visit], direction)
+        else:
+            G, conf[:, :, l], a, b, neg = sweep_slice(ctx, G, conf[:, :, l],
+                                                      u[visit])
         if ctx.is_complex:          # a, b: per-site accept flags and det
             ls.update(_track_detratio_batch(ls, b, a))
         else:                       # a, b: accepted and negative counts
@@ -674,12 +771,12 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
                       rU, rD, rT)                       # G_eff((j+1)*sm)
         S_U[:, j + 1], S_D[:, j + 1], S_T[:, j + 1] = rU, rD, rT
         for l in range(j * sm + sm - 1, j * sm - 1, -1):
-            G = wrap_down(ctx, consts, conf[:, :, l], G)   # pre-update sigma
-            G = sweep(G, l)
+            G = sweep(G, l, -1)          # wrap down with the pre-update sigma
     rU, rD, rT = extend_right(ctx, consts, conf, 0, rU, rD, rT)
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = rU, rD, rT
 
-    # ---- up sweep; segment 0 is peeled: it holds the measurement point
+    # ---- up sweep; segment 0 is peeled: it holds the measurement point,
+    # so slice 0's wrap stays unfused (as in the JAX package)
     G = calculate_greens(iU, iD, iT, rU, rD, rT, ctx.use_kernels,
                          ctx.greens_udt_fn).to(ctx.udtype)   # G_eff(0)
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
@@ -687,15 +784,13 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
     G_meas, conf_meas, phase_meas = G, conf.clone(), ls.get("ls_phase")
     G = wrap_up(ctx, consts, conf[:, :, 0], G)             # updated sigma
     for l in range(1, sm):
-        G = sweep(G, l)
-        G = wrap_up(ctx, consts, conf[:, :, l], G)
+        G = sweep(G, l, +1)              # wrap up with the updated sigma
     lU, lD, lT = extend_left(ctx, consts, conf, 0, iU, iD, iT)
     for j in range(1, n_seg):
         G = recompute(G, lU, lD, lT, S_U[:, j], S_D[:, j], S_T[:, j])
         S_U[:, j], S_D[:, j], S_T[:, j] = lU, lD, lT
         for l in range(j * sm, j * sm + sm):
-            G = sweep(G, l)
-            G = wrap_up(ctx, consts, conf[:, :, l], G)
+            G = sweep(G, l, +1)
         lU, lD, lT = extend_left(ctx, consts, conf, j, lU, lD, lT)
     S_U[:, n_seg], S_D[:, n_seg], S_T[:, n_seg] = lU, lD, lT
 

@@ -84,13 +84,16 @@ class DQMC:
     use_kernels=True (the default) runs the hand-written CUDA kernels on a
     CUDA device and their plain PyTorch versions on the CPU; False runs the
     plain site sweep and the library QR/solve on either device. device
-    defaults to "cuda" and raises when CUDA is absent (pass device="cpu")."""
+    defaults to "cuda" and raises when CUDA is absent (pass device="cpu").
+    fuse_wrap and qr_wy are the JAX package's MC_TPU_FUSE_WRAP and
+    MC_TPU_QR_WY A/B modes on the kernel path (core.make_context)."""
 
     def __init__(self, model, n_chains: int = 16, seed: int = 0,
                  dtype=torch.float64, update_dtype=None,
                  use_kernels: bool = True, device="cuda",
                  stab_method: str = "qr", delay: int = None,
                  checkerboard: bool = False, g_refresh: bool = False,
+                 fuse_wrap: bool = False, qr_wy: bool = False,
                  measurements: str | Dict = "default",
                  thermalization_measurements: Optional[Dict] = None,
                  recorder=None, recording_rate: int = None,
@@ -109,7 +112,7 @@ class DQMC:
             model, self.parameters, dtype, update_dtype=update_dtype,
             device=self.device, use_kernels=use_kernels,
             stab_method=stab_method, delay=delay, checkerboard=checkerboard,
-            g_refresh=g_refresh)
+            g_refresh=g_refresh, fuse_wrap=fuse_wrap, qr_wy=qr_wy)
         # one generator drives the initial configuration and every sweep's
         # uniforms: the same seed gives the same run
         self.generator = torch.Generator(device=self.device)

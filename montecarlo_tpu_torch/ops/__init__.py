@@ -1,10 +1,12 @@
 """Dense linear algebra (plain PyTorch) and the hand-written CUDA kernels of
-the DQMC sweep: site_sweep (K1), its float64 instance site_sweep_f64 and its
-delay-2 paired-site form site_sweep_pair (K5), udt_qr (K2), udt_qr_solve
-(K3), the unfused Householder QR qr_f32 (K4) and qr_f64 (K11),
-site_sweep_delayed (K6) and qr_blocked (K7) for N > 128, and for complex
-hopping site_sweep_cx (K8) and qr_cx (K10) for N <= 128 and
-site_sweep_delayed_cx (K9) beyond."""
+the DQMC sweep: site_sweep (K1), its float64 instance site_sweep_f64, its
+delay-2 paired-site form site_sweep_pair (K5), its one-chain entry
+site_sweep_single (K12) and its form with the slice's wrap fused in
+site_sweep_wrap (K13), udt_qr (K2), udt_qr_solve (K3), the unfused
+Householder QR qr_f32 (K4) and qr_f64 (K11) and the one emitting its
+reflectors qr_vtau (K14), site_sweep_delayed (K6) and qr_blocked (K7) for
+N > 128, and for complex hopping site_sweep_cx (K8) and qr_cx (K10) for
+N <= 128 and site_sweep_delayed_cx (K9) beyond."""
 
 from . import (qr, qr_blocked, qr_cx, qr_householder, site_sweep,
                site_sweep_cx, site_sweep_delayed, site_sweep_delayed_cx)
@@ -20,7 +22,10 @@ KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "qr_f64": qr_householder.qr_f64,
            "site_sweep_f64": site_sweep.site_sweep_f64,
            "site_sweep_pair": site_sweep.site_sweep_pair,
-           "site_sweep_delayed_cx": site_sweep_delayed_cx.site_sweep_delayed_cx}
+           "site_sweep_delayed_cx": site_sweep_delayed_cx.site_sweep_delayed_cx,
+           "site_sweep_wrap": site_sweep.site_sweep_wrap,
+           "qr_vtau": qr_householder.qr_vtau,
+           "site_sweep_single": site_sweep.site_sweep_single}
 
 __all__ = ["KERNELS", "qr", "qr_blocked", "qr_cx", "qr_householder",
            "site_sweep", "site_sweep_cx", "site_sweep_delayed",

@@ -1,15 +1,15 @@
 """nvcc build and ctypes loader for the CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (``sm_90a``) into
-an object file, all of them at once in parallel processes, and the objects
-are linked into ONE shared library with a plain C interface, loaded with
-ctypes. The build runs at first use, never at import (importing the package
-must work on a machine without nvcc or CUDA), into
-``montecarlo_tpu_torch/_build/`` (listed in .gitignore). The library's file
-name carries a hash of the sources and the command lines, so an edited
-kernel is rebuilt and a stale library is never loaded. A plain C interface
-keeps the build to seconds; a source that includes PyTorch's headers would
-take minutes.
+Every ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
+compiled with nvcc for Hopper (``sm_90a``) into an object file, all of them
+at once in parallel processes, and the objects are linked into ONE shared
+library with a plain C interface, loaded with ctypes. The build runs at
+first use, never at import (importing the package must work on a machine
+without nvcc or CUDA), into ``montecarlo_tpu_torch/_build/`` (listed in
+.gitignore). The library's file name carries a hash of the sources, the
+headers and the command lines, so an edited kernel is rebuilt and a stale
+library is never loaded. A plain C interface keeps the build to seconds; a
+source that includes PyTorch's headers would take minutes.
 """
 
 from __future__ import annotations
@@ -45,9 +45,15 @@ SIGNATURES = {
                        _D, _D, _D, _I, _I, _P),
     "site_sweep_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _F, _F, _F, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, Ml, Mr, C, F, N,
+    # lamb, sign0, sign1, det_power, use_boson, wrap_dir, stream
+    "site_sweep_wrap_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _F, _F, _F, _I, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_f32": (_P, _P, _P, _I, _I, _P),
     "qr_f64": (_P, _P, _P, _I, _I, _P),
+    # A, V, tau, R, B, N, stream
+    "qr_vtau_f32": (_P, _P, _P, _P, _I, _I, _P),
     # A, mx, Q, Rs, d, B, N, stream
     "udt_qr_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # A, Z, mx, Q, X, B, N, stream
@@ -103,9 +109,13 @@ def link_command(nvcc: str, objects, output: Path) -> list:
     return [nvcc, "-shared", "-o", str(output), *map(str, objects)]
 
 
+def headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmctorch_{h.hexdigest()[:16]}.so"

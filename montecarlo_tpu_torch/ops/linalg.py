@@ -13,7 +13,9 @@ Two paths, chosen by ``use_kernels``:
       ``udt_dirty``, K3 (QR + triangular solve) inside ``calculate_greens``
       — whose flushed-mode rule is R_jj = +floor;
     - float32 at 64 < N <= 128, and float32 inside ``udt_dirty_colscaled``:
-      the unfused QR K4 (ops/qr_householder.py);
+      the unfused QR K4 (ops/qr_householder.py), or with ``qr_wy`` K14
+      (the reflectors V and tau) and Q assembled outside in WY form, the
+      JAX package's MC_TPU_QR_WY route;
     - float64 at N <= 128: the float64 QR K11 (ops/qr_householder.py);
     - N > 128: the blocked QR K7 (ops/qr_blocked.py);
     - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py) for
@@ -38,7 +40,7 @@ from .qr import F32_FLOOR, udt_qr, udt_qr_solve
 from .qr_blocked import MIN_N as BLOCKED_MIN_N
 from .qr_blocked import qr_blocked
 from .qr_cx import qr_cx
-from .qr_householder import qr_f32, qr_f64
+from .qr_householder import qr_f32, qr_f64, qr_wy as _qr_wy
 
 # the fused K2/K3 take float32 up to this N
 FUSED_MAX_N = 64
@@ -98,35 +100,38 @@ def _fused(A, use_kernels):
             and A.shape[-1] <= FUSED_MAX_N)
 
 
-def udt_dirty(A, use_kernels=True):
+def udt_dirty(A, use_kernels=True, qr_wy=False):
     """A = U · diag(D) · T with T = R[:, inv_piv] (T·P = R upper triangular).
 
     Returns (U, D, R, piv): U (..., n, n) unitary, D (..., n) positive,
     R (..., n, n) upper triangular with unit-magnitude diagonal, piv (..., n)
-    with A[..., :, piv] = U D R."""
+    with A[..., :, piv] = U D R. qr_wy takes K14 + the WY assembly in K4's
+    place (``_qr``); the fused K2 keeps float32 N <= 64, as in the JAX
+    package."""
     Ap, mx, piv = _prescale_pivot(A)
     shape, n = A.shape, A.shape[-1]
     if _fused(A, use_kernels):
         Q, Rs, d = udt_qr(Ap.reshape(-1, n, n), mx.reshape(-1))
         return Q.reshape(shape), d.reshape(shape[:-1]), Rs.reshape(shape), piv
-    Q, R = _qr(Ap, use_kernels)
+    Q, R = _qr(Ap, use_kernels, qr_wy)
     d, Rs = _postscale(R)
     return Q, d * mx[..., 0], Rs, piv
 
 
-def udt_dirty_colscaled(A, use_kernels=True):
+def udt_dirty_colscaled(A, use_kernels=True, qr_wy=False):
     """Per-column-scaled udt_dirty (stab_method="qr_colscaled"): every column
     is normalized before the QR, so no column can overflow or flush to zero
     whatever beta. The scales s fold into D (d = |R_jj|·s_j) and into T
     (ratios s_j / s_i on the upper triangle, bounded by the descending
     pivot order). Same results as ``udt_dirty``; the QR goes through
-    ``_qr`` (K4 in float32 on the kernel path)."""
+    ``_qr`` (K4 in float32 on the kernel path, K14 with qr_wy)."""
     tiny = torch.finfo(A.real.dtype).tiny
     m = A.abs().amax(dim=-2).clamp_min(tiny)
     s = (m * _column_norms(A / m[..., None, :])).clamp_min(tiny)
     piv = argsort_desc(s)
     sp = torch.take_along_dim(s, piv, dim=-1)
-    Q, R = _qr(_gather_columns(A, piv) / sp[..., None, :], use_kernels)
+    Q, R = _qr(_gather_columns(A, piv) / sp[..., None, :], use_kernels,
+               qr_wy)
     dhat = torch.diagonal(R, dim1=-2, dim2=-1).abs()
     dhat = dhat.clamp_min(torch.finfo(dhat.dtype).eps ** 2)
     n = R.shape[-1]
@@ -135,11 +140,11 @@ def udt_dirty_colscaled(A, use_kernels=True):
     return Q, dhat * sp, (R / dhat[..., :, None]) * ratio, piv
 
 
-def _qr(A, use_kernels):
+def _qr(A, use_kernels, qr_wy=False):
     """(Q, R) of A (..., n, n) without floor or postscale: on the kernel path
-    K10 (complex64, n <= 128), K7 (n > 128), K11 (float64) or K4 (float32),
-    else the library QR (and for complex64 past n = 128 and complex128, as
-    the JAX package)."""
+    K10 (complex64, n <= 128), K7 (n > 128), K11 (float64) or K4 (float32;
+    with qr_wy K14 and the WY assembly of Q), else the library QR (and for
+    complex64 past n = 128 and complex128, as the JAX package)."""
     shape, n = A.shape, A.shape[-1]
     if not use_kernels or (A.is_complex() and (
             n > CX_QR_MAX_N or A.dtype != torch.complex64)):
@@ -151,7 +156,7 @@ def _qr(A, use_kernels):
     elif A.dtype == torch.float64:
         qr = qr_f64
     else:
-        qr = qr_f32
+        qr = _qr_wy if qr_wy else qr_f32
     Q, R = qr(A.reshape(-1, n, n))
     return Q.reshape(shape), R.reshape(shape)
 

@@ -1,4 +1,5 @@
-"""Unfused Householder QR: kernel K4 in float32, kernel K11 in float64.
+"""Unfused Householder QR: kernel K4 in float32, kernel K11 in float64, and
+K14, K4 emitting its reflectors (V, tau) in place of Q.
 
 ``qr_f32`` and ``qr_f64`` launch the CUDA kernels of
 ``csrc/qr_householder.cu`` on CUDA tensors and run ``householder_qr_plain``
@@ -21,6 +22,14 @@ reflector H = I - tau v vᵀ is the one of the TPU kernel of each dtype:
                  v_j = alpha + s·||x||, tau = v_j / (s·||x||), and H = I
                  where ||x||² is below finfo.tiny.
 Both rules on small columns stand for the TPU's flush of subnormals to zero.
+
+``qr_vtau`` (K14) runs K4's column steps without accumulating Q and returns
+(V, tau, R), column j of V being v_j (zeros above row j, and all zeros
+where tau_j = 0: v need not vanish below finfo.tiny, and the TPU's flushed v
+does); ``qr_wy`` assembles Q = I - V T V^T from them outside the kernel
+(``wy_assemble_q``). They replace ``pallas_qr.py::_qr_kernel_vtau`` and
+``::_blocked_kernel_vtau`` (reached through ``_qr_batched_vtau`` /
+``qr_lanes_wy`` / ``maybe_qr`` under MC_TPU_QR_WY=1) and ``_wy_assemble_q``.
 In float32 the TPU kernel computes 2 / v·v for any v·v > 0; CUDA and the
 CPU keep subnormals, and 2 / v·v would overflow to inf (the trap of K2, K3,
 K7 and K10). In float64 the TPU kernel takes H = I where ||x||² = 0; a
@@ -47,14 +56,18 @@ def kernel_supports(N: int, dtype=torch.float32) -> bool:
     return N % 8 == 0 and 8 <= N <= MAX_N.get(dtype, 0)
 
 
-def householder_qr_plain(A):
-    """Plain PyTorch Householder QR of A (B, N, N), float32 (K4's reflector)
-    or float64 (K11's): returns (Q, R). Any N."""
+def _householder(A, with_q):
+    """Column-by-column Householder QR of A (B, N, N), float32 (K4's
+    reflector) or float64 (K11's). Returns (Q or None, R, V, tau): V holds
+    the reflectors as columns (zero where tau = 0), tau (B, N)."""
     B, N, _ = A.shape
     normalized = A.dtype == torch.float64
     tiny = torch.finfo(A.dtype).tiny
     R = A.clone()
-    Q = torch.eye(N, dtype=A.dtype, device=A.device).expand(B, N, N).clone()
+    V = torch.zeros_like(A)
+    taus = []
+    Q = (torch.eye(N, dtype=A.dtype, device=A.device).expand(B, N, N).clone()
+         if with_q else None)
     for j in range(N):
         alpha = R[:, j, j]
         tail = R[:, j + 1:, j]
@@ -78,10 +91,42 @@ def householder_qr_plain(A):
         R[:, j:, j + 1:] -= (tau[:, None] * w)[:, None, :] * v[:, :, None]
         R[:, j + 1:, j] = 0.0
         R[:, j, j] = -s * normx
-        # Q <- Q·H
-        qw = torch.einsum("brk,bk->br", Q[:, :, j:], v)
-        Q[:, :, j:] -= (tau[:, None] * qw)[:, :, None] * v[:, None, :]
+        V[:, j:, j] = torch.where(tau[:, None] != 0, v, 0.0)
+        taus.append(tau)
+        if with_q:      # Q <- Q·H
+            qw = torch.einsum("brk,bk->br", Q[:, :, j:], v)
+            Q[:, :, j:] -= (tau[:, None] * qw)[:, :, None] * v[:, None, :]
+    return Q, R, V, torch.stack(taus, dim=-1)
+
+
+def householder_qr_plain(A):
+    """Plain PyTorch Householder QR of A (B, N, N), float32 (K4's reflector)
+    or float64 (K11's): returns (Q, R). Any N."""
+    Q, R, _, _ = _householder(A, with_q=True)
     return Q, R
+
+
+def householder_qr_vtau_plain(A):
+    """Plain PyTorch version of K14: K4's column steps on A (B, N, N)
+    float32 without Q; returns (V, tau, R). Any N."""
+    _, R, V, tau = _householder(A, with_q=False)
+    return V, tau, R
+
+
+def wy_assemble_q(V, tau):
+    """Q = H_0···H_{N-1} = I − V·T·Vᵀ from the reflectors V (..., N, N) and
+    tau (..., N), with one batched triangular solve through the inverse-T
+    identity T⁻¹ = striu(VᵀV) + diag(1/τ) (pallas_qr.py::_wy_assemble_q).
+    Columns with τ = 0 have v = 0 and drop out exactly: their row of T⁻¹ is
+    e_jᵀ. Two matmuls and the solve run in full float32 (make_context turns
+    TF32 off)."""
+    N = V.shape[-1]
+    Vt = V.mT
+    eye = torch.eye(N, dtype=V.dtype, device=V.device)
+    tau_safe = torch.where(tau > 0, tau, 1.0)
+    S = torch.triu(Vt @ V, 1) + (1.0 / tau_safe)[..., :, None] * eye
+    X = torch.linalg.solve_triangular(S, Vt, upper=True)        # X = T·Vᵀ
+    return eye - V @ X
 
 
 def _launch(name, fn, A):
@@ -115,10 +160,38 @@ def qr_f64(A):
     return _launch("qr_f64", qr_f64, A)
 
 
+def qr_vtau(A):
+    """Householder QR emitting the reflectors (kernel K14) of A (B, N, N):
+    the CUDA kernel for a CUDA tensor (float32, 8 | N <= 128, contiguous),
+    ``householder_qr_vtau_plain`` for a CPU tensor. Returns (V, tau, R)."""
+    if A.device.type == "cpu":
+        return householder_qr_vtau_plain(A)
+    B, N = _check("qr_vtau", A)
+    V, R = torch.empty_like(A), torch.empty_like(A)
+    tau = torch.empty(B, N, dtype=A.dtype, device=A.device)
+    with torch.cuda.device(A.device):
+        code = _build.load().qr_vtau_f32(
+            A.data_ptr(), V.data_ptr(), tau.data_ptr(), R.data_ptr(), B, N,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("qr_vtau", code)
+    qr_vtau.launches += 1
+    return V, tau, R
+
+
+def qr_wy(A):
+    """(Q, R) of A (B, N, N) float32 through K14 (``qr_vtau``) and the WY
+    assembly of Q outside the kernel (``wy_assemble_q``): the JAX package's
+    qr_lanes_wy."""
+    V, tau, R = qr_vtau(A)
+    return wy_assemble_q(V, tau), R
+
+
 qr_f32.launches = 0
 qr_f64.launches = 0
+qr_vtau.launches = 0
 
-_DTYPES = {"qr_f32": torch.float32, "qr_f64": torch.float64}
+_DTYPES = {"qr_f32": torch.float32, "qr_f64": torch.float64,
+           "qr_vtau": torch.float32}
 
 
 def _check(name, A):

@@ -1,5 +1,6 @@
 """Sequential Metropolis site sweep over one time slice: kernel K1 in float32
-and in float64, and its delay-2 paired-site form, kernel K5.
+and in float64, its delay-2 paired-site form, kernel K5, its one-chain entry,
+kernel K12, and K1 with the slice's wrap fused in, kernel K13.
 
 ``site_sweep`` (float32), ``site_sweep_f64`` and ``site_sweep_pair``
 (float32) launch the CUDA kernels of ``csrc/site_sweep.cu`` on CUDA tensors;
@@ -28,6 +29,15 @@ kernels do.
 delta is exp(x) - 1 as in the Pallas kernel (the JAX XLA loop uses expm1;
 the two differ at the last bit of delta only). K5 computes the same chain
 (bit for bit) two sites at a time: see ``site_sweep_pair_plain``.
+
+``site_sweep_single`` (K12) is K1's launch for ONE chain, with the JAX
+signature of ``pallas_site_sweep.py::site_sweep_pallas`` (G (F, N, N), sigma
+(N,) of any integer dtype): the Pallas kernel it replaces, ``_kernel``, runs
+K1's algorithm one grid step per site for one chain, and K1 is one block per
+chain already. ``site_sweep_wrap`` (K13) runs K1's sweep and the slice's
+wrap in one launch (``csrc/site_sweep_wrap.cu``; its plain version
+``site_sweep_wrap_plain``), replacing ``_batched_kernel`` with wrap_dir = ±1
+(``get_fused_site_sweep_wrap``, MC_TPU_FUSE_WRAP=1 in the JAX package).
 """
 
 from __future__ import annotations
@@ -56,6 +66,16 @@ def pair_supports(N: int, F: int, dtype=torch.float32) -> bool:
     return (dtype == torch.float32 and 2 <= N <= MAX_N and N % 2 == 0
             and F in (1, 2)
             and (F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK)
+
+
+def wrap_supports(N: int, F: int, dtype=torch.float32) -> bool:
+    """Shapes K13 takes: float32, N <= 128, F <= 2, with K1's shared memory
+    plus the wrap's N x (N+1) middle term and the updated sigma
+    ((F*N*(N+1) + 2*F*N + N*(N+1)) floats and N bytes, 200,320 bytes at
+    F = 2, N = 128)."""
+    return (dtype == torch.float32 and 1 <= N <= MAX_N and F in (1, 2)
+            and (F * N * (N + 1) + 2 * F * N + N * (N + 1)) * 4 + N
+            <= _build.SMEM_PER_BLOCK)
 
 
 def _decide(diag, s, u_i, *, lamb, signs, det_power, use_boson):
@@ -176,6 +196,49 @@ def site_sweep_pair_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
     return G, sigma, acc, nneg
 
 
+def wrap_plain(G, sigma, Ml, Mr, *, lamb, signs, wrap_dir):
+    """K13's wrap of G (C, F, N, N) with the field sigma (C, N), in K13's
+    association and rounding: with ev = exp(lamb·sg·sigma) and evinv =
+    exp(-lamb·sg·sigma) per flavor,
+      wrap_dir = +1:  G <- Ml · ((ev ⊙_row G ⊙_col evinv) · Mr),
+      wrap_dir = -1:  G <- evinv ⊙_row (Ml · (G · Mr)) ⊙_col ev.
+    lamb·sg is ±lamb exactly, so each factor is exp(±lamb·sigma) rounded
+    once, as the TPU kernel's exp(float32(power·lamb·sg)·sigma)."""
+    s = sigma.to(G.dtype)
+    out = []
+    for f, sg in enumerate(signs):
+        ev = torch.exp(s * (lamb * sg))
+        evinv = torch.exp(s * (-lamb * sg))
+        g = G[:, f]
+        if wrap_dir > 0:
+            g = (g * ev[:, :, None]) * evinv[:, None, :]
+        g = Ml @ (g @ Mr)
+        if wrap_dir < 0:
+            g = (g * evinv[:, :, None]) * ev[:, None, :]
+        out.append(g)
+    return torch.stack(out, dim=1)
+
+
+def site_sweep_wrap_plain(G, sigma, u, Ml, Mr, *, lamb, signs, det_power,
+                          use_boson, wrap_dir):
+    """Plain PyTorch version of K13 (any N, any float type): the wrap
+    (``wrap_plain``) before the sweep with the pre-update sigma (wrap_dir =
+    -1) or after it with the post-update sigma (+1) around
+    ``site_sweep_plain``. Ml, Mr (N, N): (exp(-dtau T), exp(+dtau T)) for
+    +1, (exp(+dtau T), exp(-dtau T)) for -1. Returns (G, sigma, acc, nneg)."""
+    if wrap_dir not in (1, -1):
+        raise ValueError(f"wrap_dir must be +1 or -1, got {wrap_dir!r}")
+    wkw = dict(lamb=lamb, signs=signs, wrap_dir=wrap_dir)
+    if wrap_dir < 0:
+        G = wrap_plain(G, sigma, Ml, Mr, **wkw)
+    G, sigma, acc, nneg, _ = site_sweep_plain(
+        G, sigma, u, lamb=lamb, signs=signs, det_power=det_power,
+        use_boson=use_boson)
+    if wrap_dir > 0:
+        G = wrap_plain(G, sigma, Ml, Mr, **wkw)
+    return G, sigma, acc, nneg
+
+
 def site_sweep(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """Site sweep of one time slice for every chain: the float32 CUDA kernel
     for a CUDA tensor, ``site_sweep_plain`` for a CPU tensor. Same arguments
@@ -205,9 +268,48 @@ def site_sweep_pair(G, sigma, u, *, lamb, signs, det_power, use_boson):
                   signs=signs, det_power=det_power, use_boson=use_boson)
 
 
+def site_sweep_single(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """The site sweep of ONE chain (kernel K12, the JAX package's
+    site_sweep_pallas): G (F, N, N), sigma (N,) ±1 of any integer dtype, u
+    (N,). K1's launch at C = 1 for a CUDA tensor (float32,
+    ``kernel_supports(N, F)``), ``site_sweep_plain`` for a CPU tensor.
+    Returns (G, sigma in sigma's dtype, acc, nneg), acc and nneg 0-d int32."""
+    out = _sweep("site_sweep_single", site_sweep_single, G[None],
+                 sigma.to(torch.int8)[None], u[None], lamb=lamb, signs=signs,
+                 det_power=det_power, use_boson=use_boson)
+    return out[0][0], out[1][0].to(sigma.dtype), out[2][0], out[3][0]
+
+
+def site_sweep_wrap(G, sigma, u, Ml, Mr, *, lamb, signs, det_power,
+                    use_boson, wrap_dir):
+    """The site sweep with the slice's wrap fused in (kernel K13): the CUDA
+    kernel for a CUDA tensor, ``site_sweep_wrap_plain`` for a CPU tensor.
+    Same arguments and results; on CUDA, G float32 (C, F, N, N) with
+    ``wrap_supports(N, F)``, sigma int8 (C, N), u float32 (C, N), Ml and Mr
+    float32 (N, N), all contiguous on one device."""
+    kw = dict(lamb=lamb, signs=signs, det_power=det_power,
+              use_boson=use_boson)
+    if G.device.type == "cpu":
+        return site_sweep_wrap_plain(G, sigma, u, Ml, Mr, wrap_dir=wrap_dir,
+                                     **kw)
+    if wrap_dir not in (1, -1):
+        raise ValueError(f"wrap_dir must be +1 or -1, got {wrap_dir!r}")
+    N = G.shape[-1]
+    for M in (Ml, Mr):
+        if (M.dtype != torch.float32 or tuple(M.shape) != (N, N)
+                or M.device != G.device or not M.is_contiguous()):
+            raise ValueError("site_sweep_wrap: Ml and Mr must be contiguous "
+                             f"float32 ({N}, {N}) on G's device")
+    return _sweep("site_sweep_wrap", site_sweep_wrap, G, sigma, u,
+                  ptrs=(Ml.data_ptr(), Mr.data_ptr()), ints=(int(wrap_dir),),
+                  **kw)
+
+
 site_sweep.launches = 0
 site_sweep_f64.launches = 0
 site_sweep_pair.launches = 0
+site_sweep_single.launches = 0
+site_sweep_wrap.launches = 0
 
 # per wrapper: the C entry point, its element type, the shapes it takes and
 # what they are, and the plain version a CPU tensor runs
@@ -220,14 +322,22 @@ _ENTRY = {
                        "memory", site_sweep_plain),
     "site_sweep_pair": ("site_sweep_pair_f32", torch.float32, pair_supports,
                         f"even N <= {MAX_N}, F in (1, 2)",
-                        site_sweep_pair_plain)}
+                        site_sweep_pair_plain),
+    "site_sweep_single": ("site_sweep_f32", torch.float32, kernel_supports,
+                          f"N <= {MAX_N}, F in (1, 2), G of one chain in "
+                          "shared memory", site_sweep_plain),
+    "site_sweep_wrap": ("site_sweep_wrap_f32", torch.float32, wrap_supports,
+                        f"N <= {MAX_N}, F in (1, 2), G of one chain and the "
+                        "wrap's middle term in shared memory",
+                        site_sweep_wrap_plain)}
 
 
-def _sweep(name, fn, G, sigma, u, **kw):
+def _sweep(name, fn, G, sigma, u, ptrs=(), ints=(), **kw):
     """Launch the kernel of wrapper fn (entry point and dtype from _ENTRY)
     on a CUDA tensor, or run its plain version on a CPU one. The float64
     wrapper returns the negative-weight statistics as a fifth result, the
-    float32 ones four results."""
+    float32 ones four results. ptrs (after nneg) and ints (after use_boson)
+    are K13's wrap operands and direction."""
     entry, dtype, supports, limits, plain = _ENTRY[name]
     f64 = dtype == torch.float64
     if G.device.type == "cpu":
@@ -240,14 +350,14 @@ def _sweep(name, fn, G, sigma, u, **kw):
     nneg = torch.empty(C, dtype=torch.int32, device=G.device)
     # K1 in float64 writes the statistics
     neg = torch.empty(C, 3, dtype=dtype, device=G.device) if f64 else None
-    extra = (neg.data_ptr(),) if f64 else ()
+    extra = (neg.data_ptr(),) if f64 else ptrs
     with torch.cuda.device(G.device):
         code = getattr(_build.load(), entry)(
             G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), acc.data_ptr(),
             nneg.data_ptr(), *extra, C, F, N, float(kw["lamb"]),
             float(signs[0]), float(signs[-1]), int(kw["det_power"]),
-            int(bool(kw["use_boson"])),
+            int(bool(kw["use_boson"])), *ints,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, code)
     fn.launches += 1

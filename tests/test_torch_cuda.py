@@ -592,3 +592,173 @@ def test_complex_large_session_launches_k9(cuda):
             sscx.site_sweep_cx.launches - n[1],
             qcx.qr_cx.launches - n[2]) == (2 * ctx.M, 0, 0)
     assert bool(torch.isfinite(out["G"]).all())
+
+
+def _wrap_operands(F, N):
+    """(ctx, consts) of a float32 session on the card whose hopping gives
+    K13's wrap operands at N: the 8x8 square lattice at N = 64, the
+    128-site chain at N = 128; repulsive (F = 2) or attractive (F = 1)."""
+    cls = tmc.HubbardModelRepulsive if F == 2 else tmc.HubbardModelAttractive
+    dims, L = (2, 8) if N == 64 else (1, N)
+    return core.make_context(cls(dims=dims, L=L, U=4.0),
+                             DQMCParameters(beta=1.0), dtype=torch.float32,
+                             device="cuda")
+
+
+@pytest.mark.parametrize("F,N", [(1, 64), (2, 64), (1, 128), (2, 128)])
+@pytest.mark.parametrize("direction", [1, -1])
+def test_site_sweep_wrap_kernel_matches_plain(cuda, F, N, direction):
+    """K13 against its plain version on the same card inputs: sigma, acc and
+    nneg equal, G within 1e-5 of its largest entry (the wrap's FMAs sum in
+    another order than cuBLAS's products). Up: the decisions come from K1's
+    site loop on the input G, so they are K1's, bit for bit."""
+    ctx, consts = _wrap_operands(F, N)
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson)
+    Ml, Mr = ((consts["eT2_u"], consts["eT2inv_u"]) if direction > 0
+              else (consts["eT2inv_u"], consts["eT2_u"]))
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in sweep_inputs(N + F + direction, 16, F, N))
+    n0 = ss.site_sweep_wrap.launches
+    out_k = ss.site_sweep_wrap(G, sigma, u, Ml, Mr, wrap_dir=direction, **kw)
+    assert ss.site_sweep_wrap.launches == n0 + 1
+    out_p = ss.site_sweep_wrap_plain(G, sigma, u, Ml, Mr, wrap_dir=direction,
+                                     **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < out_k[2].sum().item() < 16 * N
+    _close(out_k[0], out_p[0], 1e-5)
+    if direction > 0:
+        for a, b in zip(out_k[1:], ss.site_sweep(G, sigma, u, **kw)[1:]):
+            assert torch.equal(a, b)
+
+
+def test_site_sweep_single_kernel_matches_plain(cuda):
+    """K12 (K1's launch for one chain) against the plain version: the JAX
+    signature's shapes, decisions equal, G within 1e-5."""
+    kw = dict(lamb=LAMB, **MODELS["attractive"])
+    G, sigma, u = (torch.from_numpy(x[0]).to(cuda)
+                   for x in sweep_inputs(64, 1, 1, 64))
+    n0, n1 = ss.site_sweep_single.launches, ss.site_sweep.launches
+    Gk, sk, ak, nk = ss.site_sweep_single(G, sigma.int(), u, **kw)
+    assert (ss.site_sweep_single.launches, ss.site_sweep.launches) == (
+        n0 + 1, n1)
+    Gp, sp, ap, np_, _ = ss.site_sweep_plain(G[None], sigma[None], u[None],
+                                             **kw)
+    torch.cuda.synchronize()
+    assert sk.dtype == torch.int32 and ak.shape == ()
+    assert torch.equal(sk, sp[0].int()) and int(ak) == int(ap[0]) > 0
+    assert int(nk) == int(np_[0])
+    assert (Gk - Gp[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("N", [8, 64, 72, 128])
+def test_qr_vtau_kernel_matches_plain(cuda, N):
+    """K14 on graded, prescaled, pivoted input against its plain version: V
+    and R within 1e-5 of their largest entries, tau within 1e-4 of each
+    entry (the kernel sums in another order); V zero above its diagonal, R
+    below; Q = I - V T V^T (qr_wy) orthogonal to 1e-5, as K4's Q."""
+    Ap, _ = (t.to(cuda) for t in graded(N + 3, 32, N))
+    n0, n4 = qh.qr_vtau.launches, qh.qr_f32.launches
+    Vk, tk, Rk = qh.qr_vtau(Ap)
+    assert (qh.qr_vtau.launches, qh.qr_f32.launches) == (n0 + 1, n4)
+    Vp, tp, Rp = qh.householder_qr_vtau_plain(Ap)
+    _close(Vk, Vp, 1e-5)
+    _close(Rk, Rp, 1e-5)
+    assert ((tk - tp).abs() <= 1e-4 * tp.abs()).all()
+    assert torch.equal(torch.triu(Vk, 1), torch.zeros_like(Vk))
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+    Q, _ = qh.qr_wy(Ap)
+    eye = torch.eye(N, device=cuda)
+    assert (Q.mT @ Q - eye).abs().max().item() <= 1e-5
+    _close(Q, qh.householder_qr_plain(Ap)[0], 1e-5)
+
+
+def test_qr_vtau_kernel_zero_and_subnormal_columns(cuda):
+    """Zero columns and a subnormal v.v: tau = 0 and V's column 0, R's
+    block zero; the assembled Q finite and orthogonal."""
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, 16, decades=2.0))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
+    V, tau, R = qh.qr_vtau(Ap)
+    torch.cuda.synchronize()
+    assert torch.equal(tau[:, -4:], torch.zeros_like(tau[:, -4:]))
+    assert bool(((tau != 0) | (V.abs().amax(-2) == 0)).all())
+    assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
+    Q, _ = qh.qr_wy(Ap)
+    assert bool(torch.isfinite(Q).all())
+    eye = torch.eye(16, device=cuda)
+    assert (Q.mT @ Q - eye).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("repulsive", [False, True])
+def test_fuse_wrap_session_launches_k13(cuda, repulsive):
+    """A float32 session with fuse_wrap=True visits 2M - 1 slices of a
+    sweep pair through K13 (at F = 2 too: wrap fusion turns K5 off, as in
+    the JAX package) and the measurement point's through K1 (K5 at F = 2)
+    and the separate wrap; the same decisions as the unfused session from
+    the same state and uniforms in >= 0.9 of the chains."""
+    cls = tmc.HubbardModelRepulsive if repulsive else tmc.HubbardModelAttractive
+    model = cls(dims=2, L=4, U=4.0)
+    params = DQMCParameters(beta=2.0, safe_mult=5)
+    out = []
+    for fuse in (False, True):
+        ctx, consts = core.make_context(model, params, dtype=torch.float32,
+                                        device="cuda", fuse_wrap=fuse)
+        conf = model.rand_conf(torch.Generator().manual_seed(0), 8,
+                               params.slices, "cpu").to(cuda)
+        u = torch.rand(8, 2 * ctx.M, ctx.N,
+                       generator=torch.Generator().manual_seed(1)).to(cuda)
+        state = core.init_state(ctx, consts, conf)
+        k1 = ss.site_sweep_pair if repulsive else ss.site_sweep
+        n = (ss.site_sweep_wrap.launches, k1.launches)
+        out.append(core.sweep_pair(ctx, consts, state, u=u)[0])
+        if fuse:
+            assert (ss.site_sweep_wrap.launches - n[0],
+                    k1.launches - n[1]) == (2 * ctx.M - 1, 1)
+    same = (out[0]["conf"] == out[1]["conf"]).flatten(1).all(1)
+    assert same.float().mean().item() >= 0.9
+
+
+def test_qr_wy_session_launches_k14(cuda):
+    """A float32 qr_colscaled session with qr_wy=True runs every QR through
+    K14 and none through K4."""
+    model = tmc.HubbardModelAttractive(dims=2, L=4, U=4.0)
+    params = DQMCParameters(beta=2.0, safe_mult=5)
+    ctx, consts = core.make_context(model, params, dtype=torch.float32,
+                                    device="cuda", stab_method="qr_colscaled",
+                                    qr_wy=True)
+    conf = model.rand_conf(torch.Generator(device="cuda").manual_seed(0), 4,
+                           params.slices)
+    n = (qh.qr_vtau.launches, qh.qr_f32.launches)
+    state = core.init_state(ctx, consts, conf)
+    out = core.sweep_pair(ctx, consts, state,
+                          generator=torch.Generator(device="cuda").manual_seed(1))[0]
+    assert (qh.qr_vtau.launches - n[0], qh.qr_f32.launches - n[1]) == (
+        5 * ctx.n_seg + 1, 0)
+    assert bool(torch.isfinite(out["G"]).all())
+
+
+def test_new_wrappers_check_inputs(cuda):
+    kw = dict(lamb=LAMB, **MODELS["attractive"])
+    G = torch.zeros(2, 1, 16, 16, device=cuda)
+    s = torch.ones(2, 16, device=cuda, dtype=torch.int8)
+    u = torch.zeros(2, 16, device=cuda)
+    M = torch.eye(16, device=cuda)
+    with pytest.raises(ValueError, match="Ml and Mr"):
+        ss.site_sweep_wrap(G, s, u, M.double(), M, wrap_dir=1, **kw)
+    with pytest.raises(ValueError, match="Ml and Mr"):
+        ss.site_sweep_wrap(G, s, u, M[:8, :8], M, wrap_dir=1, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        ss.site_sweep_wrap(G.double(), s, u.double(), M, M, wrap_dir=1, **kw)
+    with pytest.raises(ValueError, match="wrap_dir"):
+        ss.site_sweep_wrap(G, s, u, M, M, wrap_dir=2, **kw)
+    with pytest.raises(ValueError, match="N=136"):
+        qh.qr_vtau(torch.zeros(2, 136, 136, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        qh.qr_vtau(torch.zeros(2, 16, 16, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="N=129"):
+        ss.site_sweep_single(torch.zeros(1, 129, 129, device=cuda),
+                             torch.ones(129, device=cuda, dtype=torch.int8),
+                             torch.zeros(129, device=cuda), **kw)

@@ -423,7 +423,8 @@ def test_wrappers_raise_off_cpu_without_kernel():
                             "site_sweep_delayed", "qr_blocked",
                             "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
                             "site_sweep_f64", "site_sweep_pair",
-                            "site_sweep_delayed_cx"}
+                            "site_sweep_delayed_cx", "site_sweep_wrap",
+                            "qr_vtau", "site_sweep_single"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -438,7 +439,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     assert [p.name for p in _build.sources()] == [
         "qr_blocked.cu", "qr_cx.cu", "qr_householder.cu", "site_sweep.cu",
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
-        "site_sweep_delayed_cx.cu", "udt_qr.cu"]
+        "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
+    assert [p.name for p in _build.headers()] == ["site_sweep_loop.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -453,7 +455,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_f32", "udt_qr_f32", "udt_qr_solve_f32",
         "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
         "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64",
-        "site_sweep_pair_f32", "site_sweep_delayed_cx_c64"}
+        "site_sweep_pair_f32", "site_sweep_delayed_cx_c64",
+        "site_sweep_wrap_f32", "qr_vtau_f32"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

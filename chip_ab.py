@@ -14,6 +14,11 @@ JSON line per run and a summary per case. Needs CUDA.
 
   qr_cx (256, 64, 64)  the complex QR K10 on 256 complex64 matrices,
                        random normal columns graded over 8 decades
+  site_sweep_delayed (64, 1, 256, 256)     K6 and K9 on chip_smoke.py's
+  site_sweep_delayed_cx (64, 1, 256, 256)  inputs (the 16x16 and complex16
+                       configurations' Green's functions, dk = 32), made by
+                       this checkout's chip_smoke.py from each checkout's
+                       port
 """
 
 from __future__ import annotations
@@ -38,7 +43,31 @@ def _qr_cx_64():
     return lambda: qcx.qr_cx(A)
 
 
-CASES = {"qr_cx (256, 64, 64)": _qr_cx_64}
+def _smoke():
+    """chip_smoke.py of this checkout (the directory of this script), whose
+    helpers drive whichever port was imported first."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_ab", Path(__file__).resolve().parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _delayed(complex_):
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+        from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+        G, sigma, u, kw, _, _ = _smoke().delayed_inputs(complex_=complex_)
+        fn = (ssdcx.site_sweep_delayed_cx if complex_
+              else ssd.site_sweep_delayed)
+        return lambda: fn(G, sigma, u, **kw)
+    return make
+
+
+CASES = {"qr_cx (256, 64, 64)": _qr_cx_64,
+         "site_sweep_delayed (64, 1, 256, 256)": _delayed(False),
+         "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True)}
 
 
 def child(root):

@@ -31,6 +31,17 @@ Runs each named configuration of chip_smoke.py (default: headline):
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
+    python3 chip_profile.py stamps
+
+instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
+into a build directory of their own and prints where one launch of K6 and
+of K9 at chip_smoke.py's shapes (64 chains of 16x16 real and complex
+Green's functions, dk = 32) spends its SM clock cycles, in the layout
+cluster_plan picks: the mean over the launch's blocks of each phase that
+the kernel stamps, its share, and its microseconds at the SM clock
+nvidia-smi reads after the launch, beside the launch's mean synchronised
+time.
+
 and prints for each
 
   pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
@@ -46,8 +57,9 @@ and prints for each
            kernel name (device events only, so no time is counted twice),
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
-           and the shares of the device time of K1, K4, K8, K9, K10, K13,
-           K14, the GEMMs and the library complex QR (cuSOLVER's kernels)
+           and the shares of the device time of K1, K4, K6, K8, K9, K10,
+           K13, K14, the GEMMs and the library complex QR (cuSOLVER's
+           kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
 after. Needs CUDA; builds the kernels like chip_smoke.py.
@@ -69,6 +81,7 @@ SHARES = {"K1": ("site_sweep_kernel<float",),
           "K13": ("site_sweep_wrap_kernel",),
           "K4": ("qr_kernel<float, false>",), "K14": ("qr_kernel<float, true>",),
           "GEMMs": ("gemm",),
+          "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
           "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
           "K10": ("qr_cx_kernel",),
           "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
@@ -203,8 +216,58 @@ def profile_config(name):
     print("smi", smi(), flush=True)
 
 
+def stamps():
+    import numpy as np
+    import torch
+    from montecarlo_tpu_torch.ops import _build
+    from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+    from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    _build.use_defines("-DMC_PHASE_STAMPS")
+    for label, mod, readout, cx in (
+            ("K6", ssd, "site_sweep_delayed_f32", False),
+            ("K9", ssdcx, "site_sweep_delayed_cx_c64", True)):
+        G, sigma, u, kw, ctx, _ = smoke.delayed_inputs(complex_=cx)
+        C, F, N, _ = G.shape
+        dk = kw["dk"]
+        cs = mod.cluster_plan(N, F, dk)
+        call = lambda: mod.launch(G, sigma, u, cs, **kw)
+        ms = 1e3 * timed(call, 20)
+        n_acc = int(call()[2].sum())
+        blocks = C * cs
+        rows = np.zeros((blocks, 8), dtype=np.int64)
+        code = getattr(_build.load(), readout + "_stamps")(
+            rows.ctypes.data, blocks, torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(readout + "_stamps", code)
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        total = rows.sum(axis=1)
+        print(f"== stamps {label} {tuple(G.shape)} {str(G.dtype)[6:]} "
+              f"dk={dk}: {ms:.4f} ms per launch (stamped build), {n_acc} of "
+              f"{C * N} sites accepted, {blocks} blocks "
+              f"({mod.layout(N, F, dk, cs)}), SM clock {mhz:.0f} MHz; cycles "
+              f"per block mean {total.mean():.0f}, max {total.max()} = "
+              f"{total.max() / mhz:.1f} us", flush=True)
+        for p, name in enumerate(mod.PHASES["slab" if cs == 1 else
+                                            "cluster"]):
+            c = rows[:, p]
+            print(f"[stamps] {label} phase {p} {name}: mean {c.mean():.0f} "
+                  f"cycles ({c.mean() / total.mean():.3f} of the block), "
+                  f"{c.mean() / mhz:.1f} us; min {c.min()}, max {c.max()}")
+    print("smi", smi(), flush=True)
+
+
 def main(argv):
     import torch
+    if argv == ["stamps"]:
+        if not torch.cuda.is_available():
+            print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
+            return 1
+        smoke.import_port()
+        print("smi", smi(), flush=True)
+        stamps()
+        return 0
     names = argv or ["headline"]
     unknown = [n for n in names if n not in CONFIGS]
     if unknown:

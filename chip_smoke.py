@@ -17,7 +17,11 @@ failure and prints no result line then):
               its up direction's decisions also against K1's, bit for bit,
               beside the unfused visit's time (K1 and the separate wrap);
               K14 (the QR emitting V and tau) with max|Q^T Q - I| of its
-              WY-assembled Q and of K4's; K12 (one chain)
+              WY-assembled Q and of K4's; K12 (one chain); K6 and K9 also
+              at WAVE_CHAINS chains (more than one wave of clusters), each
+              case printing the layout cluster_plan gave it, and every
+              layout of theirs that fits timed and held against the
+              plan's ([layouts] lines)
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -114,6 +118,10 @@ MZ_TOL, MOMENT_U0 = 0.02, 0.5
 # the large-lattice configuration (bench.py's bench_dqmc(lattice_L=16,
 # chains=64)): N=256, delay auto = 32
 L16, L16_CHAINS, L16_F2_CHAINS, L16_THERM, L16_SWEEPS = 16, 64, 32, 1, 2
+# K6 and K9 are also held against their plain versions at this many chains
+# of the 16x16 configurations: 320 blocks at CS = 2, more than one wave of
+# clusters on the H100's 132 SMs
+WAVE_CHAINS = 160
 # the complex configuration (bench.py's complex row, its CPLX_SM = 5, and
 # benchmarks/complex_bench.py): the headline model with pure-gauge Peierls
 # phases theta_ij = phi_i - phi_j, phi from default_rng(0) on [0, 2 pi)
@@ -347,6 +355,37 @@ def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT,
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     conf = model.rand_conf(gen, chains, params.slices, DEVICE)
     return ctx, consts, core.init_state(ctx, consts, conf), gen
+
+
+def delayed_inputs(complex_=False, repulsive=False, chains=None):
+    """Inputs of K6 (complex_: K9) at a 16x16 configuration (chains:
+    L16_CHAINS by default): G of a plain-path init_state at beta=10, the
+    last slice's sigma and fresh uniforms. Returns (G, sigma, u, the
+    sweep's keywords with dk = the session's delay, ctx, the generator)."""
+    import torch
+    chains = chains or L16_CHAINS
+    if complex_:
+        ctx, _, state, gen = real_state(complex_model(repulsive, L16), chains,
+                                        13, use_kernels=False,
+                                        safe_mult=CPLX_SM)
+    else:
+        ctx, _, state, gen = real_state(headline_model(repulsive, L16),
+                                        chains, 5, use_kernels=False)
+    sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+    u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson, dk=max(ctx.delay, 1))
+    return state["G"], sigma, u, kw, ctx, gen
+
+
+def more_chains(G, sigma, gen):
+    """(G, sigma, u) of WAVE_CHAINS chains from a run's: its chains' G and
+    sigma repeated in turn, with fresh uniforms, so that each copy decides
+    otherwise."""
+    import torch
+    idx = torch.arange(WAVE_CHAINS, device=G.device) % G.shape[0]
+    u = torch.rand(WAVE_CHAINS, G.shape[-1], generator=gen, device=DEVICE)
+    return G[idx].contiguous(), sigma[idx].contiguous(), u
 
 
 def graded(gen, B, N, decades=16.0, dtype=None):
@@ -821,65 +860,8 @@ def phase_parity():
         raise AssertionError("site_sweep_f64's negative-weight magnitudes "
                              "disagree with the plain version's")
 
-    # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
-    # at dk = 1, on real 16x16 Green's functions (plain-path init_state)
-    errs = []
-    for repulsive, chains in ((False, L16_CHAINS), (True, L16_F2_CHAINS)):
-        model = headline_model(repulsive, L16)
-        ctx, _, state, gen = real_state(model, chains, 5, use_kernels=False)
-        G = state["G"]
-        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-        u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
-        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                  use_boson=ctx.use_boson)
-        dks = (max(ctx.delay, 1), 1)[:1 if repulsive else 2]
-        for dk in dks:
-            out_k = ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw)
-            errs.append(check_sweep(
-                f"site_sweep_delayed dk={dk}", out_k,
-                ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw),
-                tuple(G.shape), relative=True))
-            if not repulsive and dk == dks[0]:
-                n_acc = out_k[2].sum().item()
-        if not repulsive:
-            kw["dk"] = dks[0]
-            results["site_sweep_delayed"] = dict(
-                ms=1e3 * timed(lambda: ssd.site_sweep_delayed(
-                    G, sigma, u, **kw), 20),
-                plain_ms=1e3 * timed(lambda: ssd.site_sweep_delayed_plain(
-                    G, sigma, u, **kw), 3),
-                library_ms=None,
-                **sweep_bound(chains, ctx.F, ctx.N, n_acc))
-    results["site_sweep_delayed"]["max_abs_err"] = max(errs)
-
-    # ---- K9 at (64, 1, 256, 256) complex64 with dk = 32, on the complex16
-    # configuration's Green's functions (plain-path init_state), against its
-    # plain version and, decisions and det, K8's plain rank-1 sweep
-    ctx, _, state, gen = real_state(complex_model(L=L16), L16_CHAINS, 13,
-                                    use_kernels=False, safe_mult=CPLX_SM)
-    G = state["G"]
-    sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-    u = torch.rand(L16_CHAINS, ctx.N, generator=gen, device=DEVICE)
-    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-              use_boson=ctx.use_boson, dk=max(ctx.delay, 1))
-    out_k = ssdcx.site_sweep_delayed_cx(G, sigma, u, **kw)
-    shape = tuple(G.shape)
-    err = check_sweep(f"site_sweep_delayed_cx dk={kw['dk']}", out_k,
-                      ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, **kw),
-                      shape, relative=True)
-    kw8 = {k: v for k, v in kw.items() if k != "dk"}
-    err = max(err, check_sweep("site_sweep_delayed_cx vs K8 plain", out_k,
-                               sscx.site_sweep_cx_plain(G, sigma, u, **kw8),
-                               shape, relative=True))
-    results["site_sweep_delayed_cx"] = dict(
-        max_abs_err=err,
-        ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx(G, sigma, u,
-                                                           **kw), 20),
-        plain_ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx_plain(
-            G, sigma, u, **kw), 3),
-        library_ms=None,
-        **sweep_bound(L16_CHAINS, ctx.F, ctx.N, out_k[2].sum().item(),
-                      complex_=True))
+    parity_delayed(results)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
 
     # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
     B, N = L16_CHAINS, L16 * L16
@@ -897,6 +879,117 @@ def phase_parity():
             f"{r['plain_ms']:.4f} ms per call, library call {lib}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
+
+
+def parity_delayed(results):
+    """K6 and K9 against their plain versions (K9 also against K8's plain
+    sweep) at the 16x16 configurations' shapes and at WAVE_CHAINS chains,
+    each in the layout cluster_plan picks; their times and bounds into
+    results."""
+    import torch
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+    from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+    from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    # ---- K6 at (64, 1, 256, 256) and (32, 2, 256, 256) with dk = 32, and
+    # at dk = 1, on real 16x16 Green's functions (plain-path init_state), and
+    # at 160 chains (more than one wave of clusters); each in the layout
+    # cluster_plan picks
+    errs = []
+    for repulsive, chains in ((False, L16_CHAINS), (True, L16_F2_CHAINS)):
+        G, sigma, u, kw, ctx, gen = delayed_inputs(repulsive=repulsive,
+                                                   chains=chains)
+        dks = (kw.pop("dk"), 1)[:1 if repulsive else 2]
+        for dk in dks:
+            out_k = ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw)
+            errs.append(check_sweep(
+                f"site_sweep_delayed dk={dk} [{ssd.layout(ctx.N, ctx.F, dk)}]",
+                out_k, ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw),
+                tuple(G.shape), relative=True))
+            if not repulsive and dk == dks[0]:
+                n_acc = out_k[2].sum().item()
+        if not repulsive:
+            kw["dk"] = dks[0]
+            wave = more_chains(G, sigma, gen)
+            errs.append(check_sweep(
+                f"site_sweep_delayed dk={dks[0]} at {WAVE_CHAINS} chains "
+                f"[{ssd.layout(ctx.N, ctx.F, dks[0])}]",
+                ssd.site_sweep_delayed(*wave, **kw),
+                ssd.site_sweep_delayed_plain(*wave, **kw),
+                tuple(wave[0].shape), relative=True))
+            results["site_sweep_delayed"] = dict(
+                ms=1e3 * timed(lambda: ssd.site_sweep_delayed(
+                    G, sigma, u, **kw), 20),
+                plain_ms=1e3 * timed(lambda: ssd.site_sweep_delayed_plain(
+                    G, sigma, u, **kw), 3),
+                library_ms=None,
+                **sweep_bound(chains, ctx.F, ctx.N, n_acc))
+            errs.append(time_layouts(ssd, G, sigma, u, kw))
+    results["site_sweep_delayed"]["max_abs_err"] = max(errs)
+
+    # ---- K9 at (64, 1, 256, 256) complex64 with dk = 32, on the complex16
+    # configuration's Green's functions (plain-path init_state), against its
+    # plain version and, decisions and det, K8's plain rank-1 sweep; and at
+    # 160 chains
+    G, sigma, u, kw, ctx, gen = delayed_inputs(complex_=True)
+    out_k = ssdcx.site_sweep_delayed_cx(G, sigma, u, **kw)
+    shape = tuple(G.shape)
+    where = ssdcx.layout(ctx.N, ctx.F, kw["dk"])
+    err = check_sweep(f"site_sweep_delayed_cx dk={kw['dk']} [{where}]", out_k,
+                      ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, **kw),
+                      shape, relative=True)
+    kw8 = {k: v for k, v in kw.items() if k != "dk"}
+    err = max(err, check_sweep("site_sweep_delayed_cx vs K8 plain", out_k,
+                               sscx.site_sweep_cx_plain(G, sigma, u, **kw8),
+                               shape, relative=True))
+    wave = more_chains(G, sigma, gen)
+    err = max(err, check_sweep(
+        f"site_sweep_delayed_cx dk={kw['dk']} at {WAVE_CHAINS} chains "
+        f"[{where}]", ssdcx.site_sweep_delayed_cx(*wave, **kw),
+        ssdcx.site_sweep_delayed_cx_plain(*wave, **kw), tuple(wave[0].shape),
+        relative=True))
+    results["site_sweep_delayed_cx"] = dict(
+        max_abs_err=err,
+        ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx(G, sigma, u,
+                                                           **kw), 20),
+        plain_ms=1e3 * timed(lambda: ssdcx.site_sweep_delayed_cx_plain(
+            G, sigma, u, **kw), 3),
+        library_ms=None,
+        **sweep_bound(shape[0], ctx.F, ctx.N, out_k[2].sum().item(),
+                      complex_=True))
+    for dk in (kw["dk"], kw["dk"] // 2):
+        err = max(err, time_layouts(ssdcx, G, sigma, u, {**kw, "dk": dk}))
+    results["site_sweep_delayed_cx"]["max_abs_err"] = err
+
+
+def time_layouts(mod, G, sigma, u, kw):
+    """Every layout of K6 or K9 (mod) that fits this shape, held against the
+    layout cluster_plan picks (decisions identical, G within TOL_G of its
+    largest entry) and timed; returns the largest max|dG|."""
+    import torch
+    C, F, N, _ = G.shape
+    dk = kw["dk"]
+    plan = mod.cluster_plan(N, F, dk)
+    ref = mod.launch(G, sigma, u, plan, **kw)
+    worst, times = 0.0, []
+    for cs in (*mod.CLUSTER_SIZES, 1):
+        if not mod.fits(N, F, dk, cs):
+            continue
+        out = mod.launch(G, sigma, u, cs, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out[1:], ref[1:])):
+            raise AssertionError(f"{mod.__name__}: {cs} blocks per chain "
+                                 f"decide otherwise than {plan}")
+        worst = max(worst, (out[0] - ref[0]).abs().max().item())
+        at_once = (f", {mod.max_clusters(F, N, dk, cs)} clusters at once"
+                   if cs > 1 else "")
+        ms = 1e3 * timed(lambda: mod.launch(G, sigma, u, cs, **kw), 20)
+        times.append(f"CS={cs} {ms:.4f} ms{at_once}")
+    name = mod.__name__.rsplit(".", 1)[-1]
+    log(f"[layouts] {name} {tuple(G.shape)} dk={dk}, cluster_plan CS={plan}: "
+        + "; ".join(times) + f"; max|dG| against the plan's {worst:.3e}")
+    if worst > TOL_G * ref[0].abs().max().item():
+        raise AssertionError(f"{name}: the layouts' G disagree")
+    return worst
 
 
 def sweep_kernel(ctx, chains):

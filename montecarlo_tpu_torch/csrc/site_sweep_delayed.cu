@@ -7,45 +7,81 @@
 // version with the same op order is
 // montecarlo_tpu_torch/ops/site_sweep_delayed.py::site_sweep_delayed_plain.
 //
-// What bounds it: at N = 256 one flavor of G is 256 KB, more than the 227 KB
-// of shared memory a block may use, so G cannot stay in shared memory as in
-// K1 (csrc/site_sweep.cu) and every pass over it goes to L2 (64 chains of
-// F = 1 hold 16 MB, resident in the 50 MB L2). A rank-1 sweep would pass
-// over G once per accepted site; this kernel passes over it once per block
-// of DK sites, so per chain and slice it moves about 2 * (N / DK) * F * N^2
-// floats (4 MB at N = 256, DK = 32, F = 1) and does up to 2 * N^2 * N FP32
-// operations for the fold, less in proportion to the rejected sites. The
-// N sequential decisions and their barriers set the floor underneath.
+// The function: the sites are taken in blocks of DK. Each decision is K1's
+// (csrc/site_sweep.cu), read from G as updated by the block's earlier
+// accepted sites; an accepted site i contributes a (x) b with
+// a = x (e_i - G[:, i]) and b = G[i, :], both read BEFORE its own update,
+// and G -= a_0 (x) b_0, G -= a_1 (x) b_1, ... in slot order once per block,
+// each product rounded and then subtracted.
 //
-// Design: one block of 512 threads per chain; one block per chain leaves
-// 68 of the H100's 132 SMs idle at 64 chains, which this first version
-// accepts. For the block of sites i0..i0+DK-1 the row slab G[i0:i0+DK, :]
-// and the column slab G[:, i0:i0+DK] (rows of N+1 floats, so that loading
-// it from G's rows is free of bank conflicts) sit in shared memory and are
-// kept exactly updated through the DK decisions, which read G_ii from the
-// row slab. An accepted site stages a = x * (e_i - G[:, i]) and b = G[i, :]
-// -- both read BEFORE the update -- folds a (x) b into both slabs, and
-// stores a and b in a global scratch buffer: at F = 2, N = 256, DK = 32 the
-// slabs alone take 128 KB, which leaves no room for the DK vectors of a and
-// b in shared memory. A rejected site costs no barrier and no fold. After
-// the block, each flavor's accepted a, b are loaded into the (now free) slab
-// memory and G -= a_k (x) b_k is applied in slot order, each product rounded
-// and then subtracted, over 4x4 register tiles with float4 loads: FP32 in
-// the kernel, no tensor cores, no cuBLAS. G is read from G_in by the first
-// block's fold and lives in G_out from then on.
+// What bounds it: the N sequential decisions of a chain and, behind them,
+// up to 2 * N^2 * N FP32 operations of the folds per chain (less in
+// proportion to the rejected sites); G (256 KB per flavor at N = 256) has to
+// be read and written once.
+//
+// Design (site_sweep_delayed_cluster, CS = 2 or 4): one thread-block cluster of
+// CS blocks per chain, which fills 128 of the H100's 132 SMs at 64 chains and
+// CS = 2; the cluster barrier is what lets the blocks of a chain wait for each
+// other (a cluster's blocks run at the same time). Block q owns rows [q N/CS,
+// (q+1) N/CS) of every flavor block of G, which lives in G_out (64 chains of
+// 16x16 hold 16 MB, resident in the 50 MB L2). Per block of DK sites:
+//  1. every block reads the DK x DK diagonal block D0 = G[i0:i0+DK, i0:i0+DK];
+//  2. one warp of every block runs the DK decisions: the current entries of the
+//     diagonal block are D0's less the accepted slots' updates, replayed in
+//     slot order (lane s keeps G[i0+s][i0+s] current; an accepted site's column
+//     and row are replayed by the lanes), so every block of the cluster reaches
+//     the same decisions from the same values, no decision is exchanged, and a
+//     rejected site costs no barrier;
+//  3. each block forms b_k over all N columns (from rows i_k) and a_k over its
+//     own rows (from columns i_k) for the accepted slots k, replaying the
+//     earlier slots' updates in slot order, kChunk slots at a time in
+//     registers;
+//  4. after a cluster barrier (every block has read the rows of this block of
+//     sites) each block folds its own rows, G -= a_k (x) b_k in slot order,
+//     over 4x4 register tiles; a second barrier publishes them.
+// So a block of DK sites costs two cluster barriers, none when it accepts
+// nothing, where the one-block layout took two block barriers and a pass over 2
+// DK N slab entries per accepted site. Shapes whose vectors and tables do not
+// fit run site_sweep_delayed_slab (CS = 1), that one-block layout: the row slab
+// G[i0:i0+DK, :] and the column slab G[:, i0:i0+DK] (rows of N+1 floats)
+// exactly updated in shared memory through the DK decisions, each accepted a
+// and b staged in a global scratch buffer, G folded in G_out once per block.
+// ops/site_sweep_delayed.py::cluster_plan picks the layout from the shape;
+// smem_bytes there and cluster_smem_floats here agree. Keeping each block's
+// rows of G in its shared memory instead (read once, written once) measured
+// slower on an H100: the fold is bound by FP32 issue either way, and reading
+// the owners' rows over distributed shared memory cost more than reading them
+// from L2 (PERF.md, PR 9).
 //
 // Every decision, slab and fold value uses the _rn intrinsics, which nvcc
-// never contracts into FMAs, so the kernel rounds as the plain version's
-// separate PyTorch operations do. G is not symmetric: the column slab is
-// read from G itself (the TPU kernel's transposed copy of G and its chain-on-
-// sublane layout are Mosaic workarounds and are not carried over).
+// never contracts into FMAs, so both layouts round as the plain version's
+// separate PyTorch operations do: replaying an update chain element by
+// element performs the same operations in the same order as updating a
+// slab, so the kernel is bit-equal to its plain version. No tensor cores
+// (their FP32 input is TF32). G is not symmetric: columns are read from G
+// itself (the TPU kernel's transposed copy of G and its chain-on-sublane
+// layout are Mosaic workarounds and are not carried over).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "phase_clock.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+
+#ifdef MC_PHASE_STAMPS
+// site_sweep_delayed_slab's phases: 0 slab load, 1 decisions, 2 staging and
+// slab update, 3 fold; site_sweep_delayed_cluster's: 0 setup and copy,
+// 1 cluster barriers, 2 diagonal block, 3 decisions, 4 a and b vectors,
+// 5 fold
+__device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
+#endif
 
 __device__ __forceinline__ void fold4(float4& g, float a, const float4& b) {
   g.x = __fsub_rn(g.x, __fmul_rn(a, b.x));
@@ -56,7 +92,7 @@ __device__ __forceinline__ void fold4(float4& g, float a, const float4& b) {
 
 template <int F>
 __global__ void __launch_bounds__(kThreads)
-site_sweep_delayed_kernel(const float* __restrict__ G_in,
+site_sweep_delayed_slab(const float* __restrict__ G_in,
                           float* __restrict__ G_out,
                           const int8_t* __restrict__ sigma_in,
                           int8_t* __restrict__ sigma_out,
@@ -77,6 +113,8 @@ site_sweep_delayed_kernel(const float* __restrict__ G_in,
   float* Bg = scratch + ((size_t)C + c) * F * DK * N;  // [f][k][n]
   float* Gc = G_out + gbase;
 
+  phase_clock::Clock clk;
+  if (tid == 0) clk.start();
   const float neg2lamb = -2.f * lamb;
   int acc = 0, nneg = 0;
   for (int i0 = 0; i0 < N; i0 += DK) {
@@ -90,6 +128,7 @@ site_sweep_delayed_kernel(const float* __restrict__ G_in,
       Cs[(f * DK + cs) * LDC + cr] = src[(size_t)(f * N + cr) * N + i0 + cs];
     }
     __syncthreads();
+    if (tid == 0) clk.lap(0);
 
     int k = 0;  // accepted sites of this block (the same in every thread)
     for (int t = 0; t < DK; ++t) {
@@ -114,6 +153,7 @@ site_sweep_delayed_kernel(const float* __restrict__ G_in,
         nneg += det < 0.f;
         sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
       }
+      if (tid == 0) clk.lap(1);
       if (!accept) continue;  // block-uniform: every thread decided the same
       for (int e = tid; e < F * N; e += nth) {
         const int f = e / N, n = e - f * N;
@@ -139,6 +179,7 @@ site_sweep_delayed_kernel(const float* __restrict__ G_in,
         *cv = __fsub_rn(*cv, __fmul_rn(bf[i0 + s], af[n]));
       }
       __syncthreads();
+      if (tid == 0) clk.lap(2);
     }
 
     // block fold G -= sum_k a_k (x) b_k, in slot order; the first block also
@@ -177,50 +218,454 @@ site_sweep_delayed_kernel(const float* __restrict__ G_in,
       }
     }
     __syncthreads();
+    if (tid == 0) clk.lap(3);
   }
 
   if (tid == 0) {
     acc_out[c] = acc;
     nneg_out[c] = nneg;
   }
+#ifdef MC_PHASE_STAMPS
+  if (tid == 0) clk.store(g_stamps, c);
+#endif
+}
+
+// Slots of the a and b replays handled together in registers
+constexpr int kChunk = 8;
+
+// Row length of the staged tables AbT and BbT: the slots of one site in a
+// row, padded to float4 loads and offset by 4 floats per row, so that a
+// warp's float4 loads of 8 rows fall in distinct banks
+__host__ __device__ inline int staged_ld(int DK) {
+  return (DK + 3) / 4 * 4 + 4;
+}
+
+// Shared memory of site_sweep_delayed_cluster in floats: b [f][k][n],
+// a [f][k][r], the staged a and b of the block's sites by site, AbT
+// [f][s][k] = a_k[i0+s] and BbT [f][s][k] = b_k[i0+s], their entries at
+// the slots' sites A2 [f][k'][k] = a_k'[i_k] and B2 [f][k'][k] =
+// b_k'[i_k], the diagonal block at the block's start D0 [f][s][s'] (rows of
+// DK+1), its current diagonal [f][s], x [f][k], u [i], delta [f][i] and
+// the boson weight [i] of flipping each site, the slots' sites and their
+// count (ints) and sigma [i] (int8). ops/site_sweep_delayed.py::smem_bytes
+// mirrors it.
+__host__ __device__ inline size_t cluster_smem_floats(int F, int CS, int N,
+                                                      int DK) {
+  const size_t RQ = N / CS;
+  return (size_t)F * DK * N + F * DK * RQ +
+         2 * (size_t)F * DK * staged_ld(DK) + 2 * (size_t)F * DK * DK +
+         (size_t)F * DK * (DK + 1) + 2 * F * DK + (F + 2) * N + DK + 4 +
+         (N + 3) / 4;
+}
+
+// v - a[0] b[0] - a[1] b[1] - ... - a[k-1] b[k-1], each product rounded and
+// then subtracted, in that order (a, b 16-byte aligned)
+__device__ __forceinline__ float replay(float v, const float* a,
+                                        const float* b, int k) {
+  int kp = 0;
+#pragma unroll 4
+  for (; kp + 4 <= k; kp += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + kp);
+    const float4 y = *reinterpret_cast<const float4*>(b + kp);
+    v = __fsub_rn(v, __fmul_rn(x.x, y.x));
+    v = __fsub_rn(v, __fmul_rn(x.y, y.y));
+    v = __fsub_rn(v, __fmul_rn(x.z, y.z));
+    v = __fsub_rn(v, __fmul_rn(x.w, y.w));
+  }
+  for (; kp < k; ++kp) v = __fsub_rn(v, __fmul_rn(a[kp], b[kp]));
+  return v;
+}
+
+// v[j] -= coef[j] * fin for the j < n of one chunk, in registers
+__device__ __forceinline__ void chunk_sub(float (&v)[kChunk],
+                                          const float* coef, float fin) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    v[j] = __fsub_rn(v[j], __fmul_rn(coef[j], fin));
+}
+
+template <int F, int CS>
+__global__ void __launch_bounds__(kThreads)
+site_sweep_delayed_cluster(const float* __restrict__ G_in, float* G_out,
+               const int8_t* __restrict__ sigma_in,
+               int8_t* __restrict__ sigma_out, const float* __restrict__ u,
+               int* __restrict__ acc_out, int* __restrict__ nneg_out, int N,
+               int DK, float lamb, float sign0, float sign1, int det_power,
+               int use_boson) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / CS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int RQ = N / CS, r0 = rank * RQ, LDD = DK + 1, DD = DK * DK;
+  const int LDT = staged_ld(DK);
+  const size_t NN = (size_t)N * N, gbase = (size_t)c * F * NN;
+  float* Bv = smem;                            // [f][k][n]
+  float* Av = Bv + F * DK * N;                 // [f][k][r], r local
+  float* AbT = Av + F * DK * RQ;               // [f][s][k]
+  float* BbT = AbT + F * DK * LDT;             // [f][s][k]
+  float* A2 = BbT + F * DK * LDT;              // [f][k'][k]
+  float* B2 = A2 + F * DD;                     // [f][k'][k]
+  float* D0 = B2 + F * DD;                     // [f][s][s']
+  float* dg = D0 + F * DK * LDD;               // [f][s]: G[i0+s][i0+s]
+  float* xs = dg + F * DK;                     // [f][k]
+  float* us = xs + F * DK;                     // [i]
+  float* dl = us + N;                          // [f][i]
+  float* wg = dl + F * N;                      // [i]
+  int* ts = reinterpret_cast<int*>(wg + N);    // [k]: the slot's t
+  int* kcount = ts + DK;
+  int8_t* ss = reinterpret_cast<int8_t*>(kcount + 4);  // [i]
+
+  // row r of flavor f of this chain's G, in G_out
+  auto row = [&](int f, int r) -> float* {
+    return G_out + gbase + f * NN + (size_t)r * N;
+  };
+
+  phase_clock::Clock clk;
+  if (tid == 0) clk.start();
+  // each site's flip terms, which depend on its own sigma only (a site is
+  // decided once per slice): delta_f = exp(sign_f dEb) - 1, w = exp(-dEb)
+  const float neg2lamb = -2.f * lamb;
+  for (int i = tid; i < N; i += nth) {
+    const int8_t s8 = sigma_in[(size_t)c * N + i];
+    const float dEb = __fmul_rn(neg2lamb, (float)s8);
+    us[i] = u[(size_t)c * N + i];
+    ss[i] = s8;
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      dl[f * N + i] =
+          __fsub_rn(expf(__fmul_rn(f == 0 ? sign0 : sign1, dEb)), 1.f);
+    wg[i] = use_boson ? expf(-dEb) : 1.f;
+  }
+  for (int f = 0; f < F; ++f) {  // G_in's own rows into G_out
+    const float4* src = reinterpret_cast<const float4*>(
+        G_in + gbase + f * NN + (size_t)r0 * N);
+    float4* dst = reinterpret_cast<float4*>(row(f, r0));
+    for (int e = tid; e < RQ * N / 4; e += nth) dst[e] = src[e];
+  }
+  if (tid == 0) clk.lap(0);
+  cluster.sync();
+  if (tid == 0) clk.lap(1);
+
+  int acc = 0, nneg = 0;  // the counts, kept by thread 0 of rank 0
+  for (int i0 = 0; i0 < N; i0 += DK) {
+    // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK]
+    for (int f = 0; f < F; ++f)
+      for (int s = warp; s < DK; s += kWarps) {
+        const float* src = row(f, i0 + s) + i0;
+        for (int s2 = lane; s2 < DK; s2 += 32)
+          D0[(f * DK + s) * LDD + s2] = src[s2];
+      }
+    __syncthreads();
+    if (tid == 0) clk.lap(2);
+
+    // 2. the DK decisions, by warp 0. Before site t, with k slots accepted,
+    // the block's current entries are D0's less the slots' updates in slot
+    // order, G[i0+s][i0+s'] = D0[s][s'] - sum a_k'[i0+s] b_k'[i0+s']: lane s
+    // keeps the diagonal entry G[i0+s][i0+s] current, and on acceptance
+    // replays G[i0+s][i] and G[i][i0+s] to stage the slot's a and b.
+    if (warp == 0) {
+      for (int f = 0; f < F; ++f)
+        for (int s = lane; s < DK; s += 32)
+          dg[f * DK + s] = D0[(f * DK + s) * LDD + s];
+      __syncwarp();
+      int k = 0;  // accepted slots (the same in every lane)
+      for (int t = 0; t < DK; ++t) {
+        const int i = i0 + t;
+        const int8_t s8 = ss[i];
+        float delta[F], r[F];
+        float rprod = 1.f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          delta[f] = dl[f * N + i];
+          const float gii = dg[f * DK + t];
+          r[f] = __fadd_rn(1.f, __fmul_rn(delta[f], __fsub_rn(1.f, gii)));
+          rprod = f == 0 ? r[f] : __fmul_rn(rprod, r[f]);
+        }
+        float det = rprod;
+        for (int p = 1; p < det_power; ++p) det = __fmul_rn(det, rprod);
+        const bool accept = us[i] < __fmul_rn(wg[i], det);
+        if (rank == 0 && lane == 0) {
+          acc += accept;
+          nneg += det < 0.f;
+          sigma_out[(size_t)c * N + i] = accept ? (int8_t)(-s8) : s8;
+        }
+        if (!accept) continue;  // warp-uniform
+        // stage a[i0+s] = x (delta_st - G[i0+s][i]), b[i0+s] = G[i][i0+s]
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float x = __fdiv_rn(delta[f], r[f]);
+          const int ft = (f * DK + t) * LDT;
+          for (int s = lane; s < DK; s += 32) {
+            const int fs = (f * DK + s) * LDT;
+            const float cv = replay(D0[(f * DK + s) * LDD + t], AbT + fs,
+                                    BbT + ft, k);
+            const float rv = replay(D0[(f * DK + t) * LDD + s], AbT + ft,
+                                    BbT + fs, k);
+            const float a = __fmul_rn(x, __fsub_rn(s == t ? 1.f : 0.f, cv));
+            AbT[fs + k] = a;
+            BbT[fs + k] = rv;
+            Bv[(size_t)(f * DK + k) * N + i0 + s] = rv;
+            dg[f * DK + s] = __fsub_rn(dg[f * DK + s], __fmul_rn(a, rv));
+          }
+          if (lane == 0) xs[f * DK + k] = x;
+        }
+        if (lane == 0) ts[k] = t;
+        ++k;
+        __syncwarp();
+      }
+      if (lane == 0) *kcount = k;
+    }
+    __syncthreads();
+    const int K = *kcount;
+    // the staged values at the slots' sites: A2[k'][k] = a_k'[i_k],
+    // B2[k'][k] = b_k'[i_k]
+    for (int f = 0; f < F; ++f)
+      for (int e = tid; e < K * K; e += nth) {
+        const int kp = e / K, k = e - kp * K;
+        A2[f * DD + kp * DK + k] = AbT[(f * DK + ts[k]) * LDT + kp];
+        B2[f * DD + kp * DK + k] = BbT[(f * DK + ts[k]) * LDT + kp];
+      }
+    __syncthreads();
+    if (tid == 0) clk.lap(3);
+    if (K == 0) continue;  // cluster-uniform: nothing to fold
+
+    // 3. replay the slots: items [0, F N) form b_k[n] = G[i_k][n] - sum
+    // a_k'[i_k] b_k'[n] for the columns outside the block (the decisions
+    // staged those), items [F N, F N + F RQ) a_k[r] = x_k (delta_{r i_k} -
+    // (G[r][i_k] - sum b_k'[i_k] a_k'[r])) for the own rows. Each value
+    // takes its subtractions in slot order, as the slab updates apply
+    // them; kChunk slots at a time in registers.
+    for (int item = tid; item < F * (N + RQ); item += nth) {
+      const bool is_b = item < F * N;
+      const int e = is_b ? item : item - F * N;
+      const int f = is_b ? (F == 2 && e >= N) : (F == 2 && e >= RQ);
+      const int j0 = e - f * (is_b ? N : RQ);  // column n, or local row
+      if (is_b && (unsigned)(j0 - i0) < (unsigned)DK) continue;
+      const float* coef = (is_b ? A2 : B2) + f * DD;
+      float* out = is_b ? Bv + (size_t)f * DK * N + j0 : Av + f * DK * RQ + j0;
+      const size_t ostride = is_b ? N : RQ;
+      const float* g = is_b ? nullptr : row(f, r0 + j0);
+      for (int c0 = 0; c0 < K; c0 += kChunk) {
+        float v[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const int k = c0 + j < K ? c0 + j : K - 1;
+          v[j] = is_b ? row(f, i0 + ts[k])[j0] : g[i0 + ts[k]];
+        }
+#pragma unroll 4
+        for (int kp = 0; kp < c0; ++kp)
+          chunk_sub(v, coef + kp * DK + c0, out[kp * ostride]);
+#pragma unroll
+        for (int jp = 0; jp < kChunk; ++jp) {
+          if (c0 + jp < K) {
+            if (!is_b) {  // a_k = x_k (delta_{r i_k} - v_k)
+              const int k = c0 + jp;
+              v[jp] = __fmul_rn(xs[f * DK + k],
+                                __fsub_rn(r0 + j0 == i0 + ts[k] ? 1.f : 0.f,
+                                          v[jp]));
+            }
+            const float* cf = coef + (c0 + jp) * DK + c0;
+#pragma unroll
+            for (int j = jp + 1; j < kChunk; ++j)
+              v[j] = __fsub_rn(v[j], __fmul_rn(cf[j], v[jp]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (c0 + j < K) out[(c0 + j) * ostride] = v[j];
+      }
+    }
+    __syncthreads();
+    if (tid == 0) clk.lap(4);
+    cluster.sync();  // every block has read the rows of this block
+    if (tid == 0) clk.lap(1);
+
+    // 4. fold the own rows: G -= a_k (x) b_k in slot order
+    // (each thread loads its next tile before folding this one)
+    const int NT = N / 4, tiles = (RQ / 4) * NT;
+    for (int f = 0; f < F; ++f) {
+      auto tile = [&](int e) {
+        return row(f, r0 + 4 * (e / NT)) + 4 * (e % NT);
+      };
+      float4 next[4];
+      if (tid < tiles)
+        for (int q = 0; q < 4; ++q)
+          next[q] = *reinterpret_cast<const float4*>(tile(tid) + (size_t)q * N);
+      for (int e = tid; e < tiles; e += nth) {
+        const int rt = e / NT, ct = e - rt * NT;
+        float* g0 = row(f, r0 + 4 * rt) + 4 * ct;
+        float4 g[4];
+        for (int q = 0; q < 4; ++q) g[q] = next[q];
+        if (e + nth < tiles)
+          for (int q = 0; q < 4; ++q)
+            next[q] = *reinterpret_cast<const float4*>(tile(e + nth) +
+                                                       (size_t)q * N);
+        const float* a = Av + f * DK * RQ + 4 * rt;
+        const float* b = Bv + (size_t)f * DK * N + 4 * ct;
+        for (int p = 0; p < K; ++p) {
+          const float4 av = *reinterpret_cast<const float4*>(a + p * RQ);
+          const float4 bv = *reinterpret_cast<const float4*>(b + (size_t)p * N);
+          fold4(g[0], av.x, bv);
+          fold4(g[1], av.y, bv);
+          fold4(g[2], av.z, bv);
+          fold4(g[3], av.w, bv);
+        }
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float4*>(g0 + (size_t)q * N) = g[q];
+      }
+    }
+    if (tid == 0) clk.lap(5);
+    cluster.sync();  // the folded rows, before the next diagonal block
+    if (tid == 0) clk.lap(1);
+  }
+
+  if (rank == 0 && tid == 0) {
+    acc_out[c] = acc;
+    nneg_out[c] = nneg;
+  }
+  if (tid == 0) clk.lap(0);
+#ifdef MC_PHASE_STAMPS
+  if (tid == 0) clk.store(g_stamps, blockIdx.x);
+#endif
 }
 
 template <int F>
-int launch(const float* G_in, float* G_out, const int8_t* sigma_in,
-           int8_t* sigma_out, const float* u, int* acc, int* nneg,
-           float* scratch, int C, int N, int DK, float lamb, float sign0,
-           float sign1, int det_power, int use_boson, cudaStream_t stream) {
+int launch_slab(const float* G_in, float* G_out, const int8_t* sigma_in,
+                int8_t* sigma_out, const float* u, int* acc, int* nneg,
+                float* scratch, int C, int N, int DK, float lamb, float sign0,
+                float sign1, int det_power, int use_boson,
+                cudaStream_t stream) {
   const size_t smem =
       (size_t)(F * DK * N + F * DK * (N + 1) + 2 * F * N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_delayed_kernel<F>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      site_sweep_delayed_slab<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  site_sweep_delayed_kernel<F><<<C, kThreads, smem, stream>>>(
+  site_sweep_delayed_slab<F><<<C, kThreads, smem, stream>>>(
       G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch, C, N, DK, lamb,
       sign0, sign1, det_power, use_boson);
   return (int)cudaGetLastError();
 }
 
+// The launch configuration of site_sweep_delayed_cluster<F, CS> for C
+// chains, with its shared memory allowed; returns the cudaError_t of that
+// setting.
+template <int F, int CS>
+int cluster_config(int C, int N, int DK, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const size_t smem = cluster_smem_floats(F, CS, N, DK) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_delayed_cluster<F, CS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C * CS);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CS;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+template <int F, int CS>
+int launch_cluster(const float* G_in, float* G_out, const int8_t* sigma_in,
+                   int8_t* sigma_out, const float* u, int* acc, int* nneg,
+                   int C, int N, int DK, float lamb, float sign0, float sign1,
+                   int det_power, int use_boson, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = cluster_config<F, CS>(C, N, DK, stream, &cfg, &attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cluster<F, CS>, G_in,
+                                G_out, sigma_in, sigma_out, u, acc, nneg, N,
+                                DK, lamb, sign0, sign1, det_power, use_boson);
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <int F, int CS>
+int max_clusters(int N, int DK, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = cluster_config<F, CS>(1, N, DK, 0, &cfg, &attr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (void*)site_sweep_delayed_cluster<F, CS>, &cfg);
+}
+
+// The layouts that ops/site_sweep_delayed.py::cluster_plan can pick
+#define MC_K6_LAYOUTS(X) X(1, 2) X(1, 4) X(2, 2) X(2, 4)
+
+bool valid_cluster(int N, int DK, int CS) {
+  return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && DK >= 1 && N % DK == 0;
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). 4 | N, DK | N,
-// F in {1, 2}; scratch holds 2 * C * F * DK * N floats.
+// F in {1, 2}. CS = 1: site_sweep_delayed_slab, scratch holds
+// 2 * C * F * DK * N floats; CS = 2 or 4 (4 CS | N):
+// site_sweep_delayed_cluster, scratch unused.
 extern "C" int site_sweep_delayed_f32(const float* G_in, float* G_out,
                                       const int8_t* sigma_in,
                                       int8_t* sigma_out, const float* u,
                                       int* acc, int* nneg, float* scratch,
-                                      int C, int F, int N, int DK, float lamb,
-                                      float sign0, float sign1, int det_power,
-                                      int use_boson, void* stream) {
+                                      int C, int F, int N, int DK, int CS,
+                                      float lamb, float sign0, float sign1,
+                                      int det_power, int use_boson,
+                                      void* stream) {
   if (C == 0) return 0;
   if (N < 4 || N % 4 || DK < 1 || N % DK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (F == 1)
-    return launch<1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch,
-                     C, N, DK, lamb, sign0, sign1, det_power, use_boson, st);
-  if (F == 2)
-    return launch<2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch,
-                     C, N, DK, lamb, sign0, sign1, det_power, use_boson, st);
+  if (CS == 1) {
+    if (F == 1)
+      return launch_slab<1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
+                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
+                            use_boson, st);
+    if (F == 2)
+      return launch_slab<2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
+                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
+                            use_boson, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
+#define MC_K6_LAUNCH(f, cs)                                               \
+  if (F == f && CS == cs)                                                   \
+    return launch_cluster<f, cs>(G_in, G_out, sigma_in, sigma_out, u, acc,  \
+                                 nneg, C, N, DK, lamb, sign0, sign1,         \
+                                 det_power, use_boson, st);
+  MC_K6_LAYOUTS(MC_K6_LAUNCH)
+#undef MC_K6_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// The most clusters of the layout (CS > 1) that the card runs at once, into
+// *out; returns the cudaError_t of the query.
+extern "C" int site_sweep_delayed_f32_max_clusters(int F, int N, int DK,
+                                                   int CS, int* out) {
+  *out = 0;
+  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
+#define MC_K6_QUERY(f, cs) \
+  if (F == f && CS == cs) return max_clusters<f, cs>(N, DK, out);
+  MC_K6_LAYOUTS(MC_K6_QUERY)
+#undef MC_K6_QUERY
+  return (int)cudaErrorInvalidValue;
+}
+
+// Phase stamps of the last launch's first n_blocks blocks (kPhases cycle
+// sums each) into dst on the host: a build with -DMC_PHASE_STAMPS only.
+extern "C" int site_sweep_delayed_f32_stamps(void* dst, int n_blocks,
+                                             void* stream) {
+#ifdef MC_PHASE_STAMPS
+  return phase_clock::copy_rows(g_stamps, dst, n_blocks, stream);
+#else
+  (void)dst, (void)n_blocks, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -13,49 +13,62 @@
 // complex, accept = u_i < exp(-dEb)^use_boson * Re(det); every site's
 // accept flag and det go out for the caller's phase-problem statistics; on
 // accept G_f -= y_f (x) G_f[i, :] with y_f = x_f (e_i - G_f[:, i]),
-// x_f = delta_f conj(r_f) / |r_f|^2.
+// x_f = delta_f conj(r_f) / |r_f|^2, applied once per block of DK sites in
+// slot order.
 //
-// What bounds it: at N = 256 one chain's G is 512 KB of complex64, more than
-// the 227 KB of shared memory a block may use, so G cannot stay in shared
-// memory as in K8, and every pass over it goes to L2 (64 chains of F = 1
-// hold 32 MB, resident in the 50 MB L2). A rank-1 sweep would pass over G
-// once per accepted site; this kernel passes over it once per block of DK
-// sites: per chain and slice about 2 * (N / DK) * F * N^2 complex values
-// (8 MB at N = 256, DK = 32, F = 1) and up to 8 * N^2 * N FP32 operations
-// for the fold, less in proportion to the rejected sites. The N sequential
-// decisions and their barriers set the floor underneath.
+// What bounds it: the N sequential decisions of a chain and, behind them,
+// up to 8 * N^2 * N FP32 operations of the folds per chain (less in
+// proportion to the rejected sites); G (512 KB per flavor at N = 256) has to
+// be read and written once.
 //
-// Design: K6's (csrc/site_sweep_delayed.cu) on two float32 planes. One block
-// of 512 threads per chain (one block per chain leaves 68 of the H100's 132
-// SMs idle at 64 chains, which this first version accepts). For the block of
-// sites i0..i0+DK-1 the row slab G[i0:i0+DK, :] and the column slab
-// G[:, i0:i0+DK] (rows of N+1 floats) sit in shared memory as re and im
-// planes, 2 * (DK*N + DK*(N+1)) * 4 B = 131 KB at N = 256, DK = 32, F = 1,
-// and stay exactly updated through the DK decisions, which read G_ii from the
-// row slab. An accepted site stages y = x (e_i - G[:, i]) and b = G[i, :] --
-// both read BEFORE the update -- folds y (x) b into both slabs, and stores y
-// and b in a global scratch buffer (the slabs leave no room for DK of them).
-// A rejected site costs no barrier and no fold. After the block, each
-// flavor's accepted y, b are loaded into the (now free) slab memory and
-// G -= y_k (x) b_k is applied in slot order, each complex product rounded
-// and then subtracted, over register tiles of 4 rows x 2 complex columns
-// with float4 loads: FP32 in the kernel, no tensor cores, no cuBLAS. G is
-// read from G_in by the first block's fold and lives in G_out from then on.
+// Design: K6's (csrc/site_sweep_delayed.cu) on two float32 planes. In
+// site_sweep_delayed_cx_cluster one thread-block cluster of CS = 2 or 4 blocks
+// per chain holds G in G_out, block q owning rows [q N/CS, (q+1) N/CS). Per
+// block of DK sites every block reads the diagonal block of G at the block's
+// start, one warp of every block runs the DK decisions on it, replaying the
+// accepted slots' updates in slot order -- the same decisions in every block,
+// so none is exchanged -- each block replays the slots to form y_k over its own
+// rows and b_k = G[i_k, :] over all columns, and after a cluster barrier folds
+// its own rows, G -= y_k (x) b_k in slot order, over register tiles of 4 rows x
+// 2 complex columns; a second barrier publishes them. Shapes whose vectors and
+// tables do not fit run site_sweep_delayed_cx_slab (CS = 1), the one-block
+// layout: the row slab G[i0:i0+DK, :] and the column slab G[:, i0:i0+DK] (rows
+// of N+1 floats) as re and im planes exactly updated through the DK decisions,
+// the accepted y and b staged in a global scratch buffer, G folded in G_out
+// once per block. ops/site_sweep_delayed_cx.py::cluster_plan picks the layout
+// from the shape; smem_bytes there and cluster_smem_floats here agree. A
+// cluster of 4 blocks holding G in their shared memory (complex64 F = 1 at N =
+// 256 does not fit 2) took twice the time of 2 blocks with G in G_out on an
+// H100: 30 such clusters run at once against 66 (PERF.md, PR 9).
 //
 // Every value uses the _rn intrinsics, which nvcc never contracts into FMAs,
 // in K8's op order (a complex product re = ar*br - ai*bi, im = ar*bi +
 // ai*br, then subtracted), so the kernel rounds as the plain version's
-// separate PyTorch operations do, and the slabs and G hold exactly the
-// values K8's rank-1 sweep would. The TPU kernel's chains-on-sublanes
+// separate PyTorch operations do, and G holds exactly the values K8's
+// rank-1 sweep would. No tensor cores. The TPU kernel's chains-on-sublanes
 // layout and its transposed copies of G are Mosaic workarounds and are not
-// carried over: the column slab is read from G itself.
+// carried over: columns are read from G itself.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "phase_clock.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+
+#ifdef MC_PHASE_STAMPS
+// site_sweep_delayed_cx_slab's phases: 0 slab load, 1 decisions, 2 staging
+// and slab update, 3 fold; site_sweep_delayed_cx_cluster's: 0 setup and
+// copy, 1 cluster barriers, 2 diagonal block, 3 decisions, 4 y and b
+// vectors, 5 fold
+__device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
+#endif
 
 // g -= a * b on the (re, im) planes, in K8's order
 __device__ __forceinline__ void cfold(float& gr, float& gi, float ar, float ai,
@@ -66,7 +79,7 @@ __device__ __forceinline__ void cfold(float& gr, float& gi, float ar, float ai,
 
 template <int F>
 __global__ void __launch_bounds__(kThreads)
-site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
+site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
                              float2* __restrict__ G_out,
                              const int8_t* __restrict__ sigma_in,
                              int8_t* __restrict__ sigma_out,
@@ -97,6 +110,8 @@ site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
   float* Abi = Abr + plane;
   float2* Gc = G_out + gbase;
 
+  phase_clock::Clock clk;
+  if (tid == 0) clk.start();
   const float neg2lamb = -2.f * lamb;
   for (int i0 = 0; i0 < N; i0 += DK) {
     const float2* src = i0 == 0 ? G_in + gbase : Gc;  // G before this block
@@ -113,6 +128,7 @@ site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
       Ci[(f * DK + cs) * LDC + cr] = h.y;
     }
     __syncthreads();
+    if (tid == 0) clk.lap(0);
 
     int k = 0;  // accepted sites of this block (the same in every thread)
     for (int t = 0; t < DK; ++t) {
@@ -152,6 +168,7 @@ site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
         det_out[c * N + i] = make_float2(dre, dim);
         sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
       }
+      if (tid == 0) clk.lap(1);
       if (!accept) continue;  // block-uniform: every thread decided the same
       for (int e = tid; e < F * N; e += nth) {
         const int f = e / N, n = e - f * N;
@@ -195,6 +212,7 @@ site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
               bi_s[fo + i0 + s]);
       }
       __syncthreads();
+      if (tid == 0) clk.lap(2);
     }
 
     // block fold G -= sum_k y_k (x) b_k, in slot order; the first block also
@@ -247,41 +265,482 @@ site_sweep_delayed_cx_kernel(const float2* __restrict__ G_in,
       }
     }
     __syncthreads();
+    if (tid == 0) clk.lap(3);
   }
+#ifdef MC_PHASE_STAMPS
+  if (tid == 0) clk.store(g_stamps, c);
+#endif
+}
+
+// Slots of the y and b replays handled together in registers
+constexpr int kChunk = 8;
+
+// Row length of the staged tables: the slots of one site in a row, padded
+// to float4 loads and offset by 4 floats per row, so that a warp's float4
+// loads of 8 rows fall in distinct banks
+__host__ __device__ inline int staged_ld(int DK) {
+  return (DK + 3) / 4 * 4 + 4;
+}
+
+// Shared memory of site_sweep_delayed_cx_cluster in floats: re and im planes
+// of b
+// [f][k][n], y [f][k][r], the staged y
+// and b of the block's sites by site, YT [f][s][k] = y_k[i0+s] and BT
+// [f][s][k] = b_k[i0+s], their entries at the slots' sites Y2 [f][k'][k] =
+// y_k'[i_k] and B2 [f][k'][k] = b_k'[i_k], the diagonal block at the
+// block's start D0 [f][s][s'] (rows of DK+1), its current diagonal [f][s]
+// and x [f][k]; u [i], delta
+// [f][i] and the boson weight [i] of flipping each site, the slots' sites
+// and their count (ints) and sigma [i] (int8).
+// ops/site_sweep_delayed_cx.py::smem_bytes mirrors it.
+__host__ __device__ inline size_t cluster_smem_floats(int F, int CS, int N,
+                                                      int DK) {
+  const size_t RQ = N / CS;
+  return 2 * (size_t)F * DK * N +
+         2 * F * DK * RQ + 4 * (size_t)F * DK * staged_ld(DK) +
+         4 * (size_t)F * DK * DK + 2 * (size_t)F * DK * (DK + 1) + 4 * F * DK +
+         (F + 2) * N + DK + 4 + (N + 3) / 4;
+}
+
+// v -= a[0] b[0], v -= a[1] b[1], ... in that order for kp < k, each
+// complex product in K8's order (a, b: 16-byte aligned re and im planes)
+__device__ __forceinline__ void creplay(float& vr, float& vi, const float* ar,
+                                        const float* ai, const float* br,
+                                        const float* bi, int k) {
+  int kp = 0;
+#pragma unroll 2
+  for (; kp + 4 <= k; kp += 4) {
+    const float4 xr = *reinterpret_cast<const float4*>(ar + kp);
+    const float4 xi = *reinterpret_cast<const float4*>(ai + kp);
+    const float4 yr = *reinterpret_cast<const float4*>(br + kp);
+    const float4 yi = *reinterpret_cast<const float4*>(bi + kp);
+    cfold(vr, vi, xr.x, xi.x, yr.x, yi.x);
+    cfold(vr, vi, xr.y, xi.y, yr.y, yi.y);
+    cfold(vr, vi, xr.z, xi.z, yr.z, yi.z);
+    cfold(vr, vi, xr.w, xi.w, yr.w, yi.w);
+  }
+  for (; kp < k; ++kp) cfold(vr, vi, ar[kp], ai[kp], br[kp], bi[kp]);
+}
+
+template <int F, int CS>
+__global__ void __launch_bounds__(kThreads)
+site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
+               const int8_t* __restrict__ sigma_in,
+               int8_t* __restrict__ sigma_out, const float* __restrict__ u,
+               uint8_t* __restrict__ accept_out, float2* __restrict__ det_out,
+               int N, int DK, float lamb, float sign0, float sign1,
+               int det_power, int use_boson) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / CS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int RQ = N / CS, r0 = rank * RQ, LDD = DK + 1, DD = DK * DK;
+  const int LDT = staged_ld(DK), TP = F * DK * LDT;  // a table's plane
+  const size_t NN = (size_t)N * N, gbase = (size_t)c * F * NN;
+  float* Br = smem;                               // [f][k][n]
+  float* Bi = Br + F * DK * N;
+  float* Ar = Bi + F * DK * N;                    // [f][k][r], r local
+  float* Ai = Ar + F * DK * RQ;
+  float* YT = Ai + F * DK * RQ;                   // [f][s][k], re then im
+  float* BT = YT + 2 * TP;                        // [f][s][k], re then im
+  float* Y2r = BT + 2 * TP;                       // [f][k'][k]
+  float* Y2i = Y2r + F * DD;
+  float* B2r = Y2i + F * DD;                      // [f][k'][k]
+  float* B2i = B2r + F * DD;
+  float* D0r = B2i + F * DD;                      // [f][s][s']
+  float* D0i = D0r + F * DK * LDD;
+  float* dgr = D0i + F * DK * LDD;                // [f][s]: G[i0+s][i0+s]
+  float* dgi = dgr + F * DK;
+  float* Xr = dgi + F * DK;                       // [f][k]
+  float* Xi = Xr + F * DK;
+  float* us = Xi + F * DK;                        // [i]
+  float* dl = us + N;                             // [f][i]
+  float* wg = dl + F * N;                         // [i]
+  int* ts = reinterpret_cast<int*>(wg + N);       // [k]: the slot's t
+  int* kcount = ts + DK;
+  int8_t* ss = reinterpret_cast<int8_t*>(kcount + 4);  // [i]
+
+  // row r of flavor f of this chain's G, in G_out
+  auto row = [&](int f, int r) -> float2* {
+    return G_out + gbase + f * NN + (size_t)r * N;
+  };
+
+  phase_clock::Clock clk;
+  if (tid == 0) clk.start();
+  // each site's flip terms, which depend on its own sigma only (a site is
+  // decided once per slice): delta_f = exp(sign_f dEb) - 1, w = exp(-dEb)
+  const float neg2lamb = -2.f * lamb;
+  for (int i = tid; i < N; i += nth) {
+    const int8_t s8 = sigma_in[(size_t)c * N + i];
+    const float dEb = __fmul_rn(neg2lamb, (float)s8);
+    us[i] = u[(size_t)c * N + i];
+    ss[i] = s8;
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      dl[f * N + i] =
+          __fsub_rn(expf(__fmul_rn(f == 0 ? sign0 : sign1, dEb)), 1.f);
+    wg[i] = use_boson ? expf(-dEb) : 1.f;
+  }
+  for (int f = 0; f < F; ++f) {  // G_in's own rows into G_out
+    const float4* src = reinterpret_cast<const float4*>(
+        G_in + gbase + f * NN + (size_t)r0 * N);
+    float4* dst = reinterpret_cast<float4*>(row(f, r0));
+    for (int e = tid; e < RQ * N / 2; e += nth) dst[e] = src[e];
+  }
+  if (tid == 0) clk.lap(0);
+  cluster.sync();
+  if (tid == 0) clk.lap(1);
+
+  for (int i0 = 0; i0 < N; i0 += DK) {
+    // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK]
+    for (int f = 0; f < F; ++f)
+      for (int s = warp; s < DK; s += kWarps) {
+        const float2* src = row(f, i0 + s) + i0;
+        for (int s2 = lane; s2 < DK; s2 += 32) {
+          const float2 g = src[s2];
+          D0r[(f * DK + s) * LDD + s2] = g.x;
+          D0i[(f * DK + s) * LDD + s2] = g.y;
+        }
+      }
+    __syncthreads();
+    if (tid == 0) clk.lap(2);
+
+    // 2. the DK decisions, by warp 0. Before site t, with k slots accepted,
+    // the block's current entries are D0's less the slots' updates in slot
+    // order, G[i0+s][i0+s'] = D0[s][s'] - sum y_k'[i0+s] b_k'[i0+s']: lane s
+    // keeps the diagonal entry G[i0+s][i0+s] current, and on acceptance
+    // replays G[i0+s][i] and G[i][i0+s] to stage the slot's y and b.
+    if (warp == 0) {
+      for (int f = 0; f < F; ++f)
+        for (int s = lane; s < DK; s += 32) {
+          dgr[f * DK + s] = D0r[(f * DK + s) * LDD + s];
+          dgi[f * DK + s] = D0i[(f * DK + s) * LDD + s];
+        }
+      __syncwarp();
+      int k = 0;  // accepted slots (the same in every lane)
+      for (int t = 0; t < DK; ++t) {
+        const int i = i0 + t;
+        const int8_t s8 = ss[i];
+        float delta[F], rr[F], ri[F];
+        float pr = 0.f, pi = 0.f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          delta[f] = dl[f * N + i];
+          const float gr = dgr[f * DK + t], gi = dgi[f * DK + t];
+          rr[f] = __fadd_rn(1.f, __fmul_rn(delta[f], __fsub_rn(1.f, gr)));
+          ri[f] = -__fmul_rn(delta[f], gi);
+          if (f == 0) {
+            pr = rr[0];
+            pi = ri[0];
+          } else {
+            const float npr =
+                __fsub_rn(__fmul_rn(pr, rr[f]), __fmul_rn(pi, ri[f]));
+            const float npi =
+                __fadd_rn(__fmul_rn(pr, ri[f]), __fmul_rn(pi, rr[f]));
+            pr = npr;
+            pi = npi;
+          }
+        }
+        float dre = pr, dim = pi;
+        if (det_power == 2) {
+          dre = __fsub_rn(__fmul_rn(pr, pr), __fmul_rn(pi, pi));
+          dim = __fmul_rn(__fmul_rn(2.f, pr), pi);
+        }
+        const bool accept = us[i] < __fmul_rn(wg[i], dre);
+        if (rank == 0 && lane == 0) {
+          const size_t o = (size_t)c * N + i;
+          accept_out[o] = accept;
+          det_out[o] = make_float2(dre, dim);
+          sigma_out[o] = accept ? (int8_t)(-s8) : s8;
+        }
+        if (!accept) continue;  // warp-uniform
+        // stage y[i0+s] = x (delta_st - G[i0+s][i]), b[i0+s] = G[i][i0+s]
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float inv = __fdiv_rn(
+              1.f, __fadd_rn(__fmul_rn(rr[f], rr[f]), __fmul_rn(ri[f], ri[f])));
+          const float xr = __fmul_rn(__fmul_rn(delta[f], rr[f]), inv);
+          const float xi = -__fmul_rn(__fmul_rn(delta[f], ri[f]), inv);
+          const int ft = (f * DK + t) * LDT;
+          for (int s = lane; s < DK; s += 32) {
+            const int fs = (f * DK + s) * LDT;
+            const int dc = (f * DK + s) * LDD + t, dr = (f * DK + t) * LDD + s;
+            float cvr = D0r[dc], cvi = D0i[dc], rvr = D0r[dr], rvi = D0i[dr];
+            creplay(cvr, cvi, YT + fs, YT + TP + fs, BT + ft, BT + TP + ft, k);
+            creplay(rvr, rvi, YT + ft, YT + TP + ft, BT + fs, BT + TP + fs, k);
+            const float igr = __fsub_rn(s == t ? 1.f : 0.f, cvr);
+            const float igi = -cvi;
+            const float yr = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
+            const float yi = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
+            YT[fs + k] = yr;
+            YT[TP + fs + k] = yi;
+            BT[fs + k] = rvr;
+            BT[TP + fs + k] = rvi;
+            cfold(dgr[f * DK + s], dgi[f * DK + s], yr, yi, rvr, rvi);
+            const size_t b = (size_t)(f * DK + k) * N + i0 + s;
+            Br[b] = rvr;
+            Bi[b] = rvi;
+          }
+          if (lane == 0) {
+            Xr[f * DK + k] = xr;
+            Xi[f * DK + k] = xi;
+          }
+        }
+        if (lane == 0) ts[k] = t;
+        ++k;
+        __syncwarp();
+      }
+      if (lane == 0) *kcount = k;
+    }
+    __syncthreads();
+    const int K = *kcount;
+    // the staged values at the slots' sites: Y2[k'][k] = y_k'[i_k],
+    // B2[k'][k] = b_k'[i_k]
+    for (int f = 0; f < F; ++f)
+      for (int e = tid; e < K * K; e += nth) {
+        const int kp = e / K, k = e - kp * K;
+        const int o = f * DD + kp * DK + k;
+        const int st = (f * DK + ts[k]) * LDT + kp;
+        Y2r[o] = YT[st];
+        Y2i[o] = YT[TP + st];
+        B2r[o] = BT[st];
+        B2i[o] = BT[TP + st];
+      }
+    __syncthreads();
+    if (tid == 0) clk.lap(3);
+    if (K == 0) continue;  // cluster-uniform: nothing to fold
+
+    // 3. replay the slots: items [0, F N) form b_k[n] = G[i_k][n] - sum
+    // y_k'[i_k] b_k'[n] outside the block's columns (the decisions staged
+    // those), items [F N, F N + F RQ) y_k over the own rows from G[r][i_k] -
+    // sum y_k'[r] b_k'[i_k]. Each value takes its subtractions in slot
+    // order, as the slab updates apply them; kChunk slots at a time in
+    // registers.
+    for (int item = tid; item < F * (N + RQ); item += nth) {
+      const bool is_b = item < F * N;
+      const int e = is_b ? item : item - F * N;
+      const int f = is_b ? (F == 2 && e >= N) : (F == 2 && e >= RQ);
+      const int j0 = e - f * (is_b ? N : RQ);  // column n, or local row
+      if (is_b && (unsigned)(j0 - i0) < (unsigned)DK) continue;
+      const float* cfr = (is_b ? Y2r : B2r) + f * DD;
+      const float* cfi = (is_b ? Y2i : B2i) + f * DD;
+      const size_t ob = is_b ? (size_t)f * DK * N + j0
+                             : (size_t)f * DK * RQ + j0;
+      float* outr = (is_b ? Br : Ar) + ob;
+      float* outi = (is_b ? Bi : Ai) + ob;
+      const size_t ostride = is_b ? N : RQ;
+      const float2* g = is_b ? nullptr : row(f, r0 + j0);
+      for (int c0 = 0; c0 < K; c0 += kChunk) {
+        float vr[kChunk], vi[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const int k = c0 + j < K ? c0 + j : K - 1;
+          const float2 h = is_b ? row(f, i0 + ts[k])[j0] : g[i0 + ts[k]];
+          vr[j] = h.x;
+          vi[j] = h.y;
+        }
+        // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
+#pragma unroll 4
+        for (int kp = 0; kp < c0; ++kp) {
+          const float fr = outr[kp * ostride], fi = outi[kp * ostride];
+          const float* cr = cfr + kp * DK + c0;
+          const float* ci = cfi + kp * DK + c0;
+#pragma unroll
+          for (int j = 0; j < kChunk; ++j) {
+            if (is_b)
+              cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
+            else
+              cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
+          }
+        }
+#pragma unroll
+        for (int jp = 0; jp < kChunk; ++jp) {
+          if (c0 + jp < K) {
+            if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
+              const int k = c0 + jp;
+              const float xr = Xr[f * DK + k], xi = Xi[f * DK + k];
+              const float igr = __fsub_rn(
+                  r0 + j0 == i0 + ts[k] ? 1.f : 0.f, vr[jp]);
+              const float igi = -vi[jp];
+              vr[jp] = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
+              vi[jp] = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
+            }
+            const float* cr = cfr + (c0 + jp) * DK + c0;
+            const float* ci = cfi + (c0 + jp) * DK + c0;
+#pragma unroll
+            for (int j = jp + 1; j < kChunk; ++j) {
+              if (is_b)
+                cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+              else
+                cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (c0 + j < K) {
+            outr[(c0 + j) * ostride] = vr[j];
+            outi[(c0 + j) * ostride] = vi[j];
+          }
+      }
+    }
+    __syncthreads();
+    if (tid == 0) clk.lap(4);
+    cluster.sync();  // every block has read the rows of this block
+    if (tid == 0) clk.lap(1);
+
+    // 4. fold the own rows: G -= y_k (x) b_k in slot order, tiles of 4
+    // rows x 2 complex columns
+    // (each thread loads its next tile before folding this one)
+    const int NC = N / 2, tiles = (RQ / 4) * NC;
+    for (int f = 0; f < F; ++f) {
+      auto tile = [&](int e) {
+        return row(f, r0 + 4 * (e / NC)) + 2 * (e % NC);
+      };
+      float4 next[4];
+      if (tid < tiles)
+        for (int q = 0; q < 4; ++q)
+          next[q] = *reinterpret_cast<const float4*>(tile(tid) + (size_t)q * N);
+      for (int e = tid; e < tiles; e += nth) {
+        const int rt = e / NC, ct = e - rt * NC;
+        float2* g0 = row(f, r0 + 4 * rt) + 2 * ct;
+        // g[q] = (re, im) of G[4rt+q][2ct] and of G[4rt+q][2ct+1]
+        float4 g[4];
+        for (int q = 0; q < 4; ++q) g[q] = next[q];
+        if (e + nth < tiles)
+          for (int q = 0; q < 4; ++q)
+            next[q] = *reinterpret_cast<const float4*>(tile(e + nth) +
+                                                       (size_t)q * N);
+        const size_t ao = (size_t)f * DK * RQ + 4 * rt;
+        const size_t bo = (size_t)f * DK * N + 2 * ct;
+        for (int p = 0; p < K; ++p) {
+          const float4 ar = *reinterpret_cast<const float4*>(Ar + ao + p * RQ);
+          const float4 ai = *reinterpret_cast<const float4*>(Ai + ao + p * RQ);
+          const float2 br =
+              *reinterpret_cast<const float2*>(Br + bo + (size_t)p * N);
+          const float2 bi =
+              *reinterpret_cast<const float2*>(Bi + bo + (size_t)p * N);
+          const float yr[4] = {ar.x, ar.y, ar.z, ar.w};
+          const float yi[4] = {ai.x, ai.y, ai.z, ai.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
+            cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+          }
+        }
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float4*>(g0 + (size_t)q * N) = g[q];
+      }
+    }
+    if (tid == 0) clk.lap(5);
+    cluster.sync();  // the folded rows, before the next diagonal block
+    if (tid == 0) clk.lap(1);
+  }
+
+  if (tid == 0) clk.lap(0);
+#ifdef MC_PHASE_STAMPS
+  if (tid == 0) clk.store(g_stamps, blockIdx.x);
+#endif
 }
 
 template <int F>
-int launch(const float2* G_in, float2* G_out, const int8_t* sigma_in,
-           int8_t* sigma_out, const float* u, uint8_t* accept, float2* det,
-           float* scratch, int C, int N, int DK, float lamb, float sign0,
-           float sign1, int det_power, int use_boson, cudaStream_t stream) {
+int launch_slab(const float2* G_in, float2* G_out, const int8_t* sigma_in,
+                int8_t* sigma_out, const float* u, uint8_t* accept,
+                float2* det, float* scratch, int C, int N, int DK, float lamb,
+                float sign0, float sign1, int det_power, int use_boson,
+                cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * F * DK * N + 2 * F * DK * (N + 1) + 4 * F * N) *
       sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_delayed_cx_kernel<F>,
+      site_sweep_delayed_cx_slab<F>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  site_sweep_delayed_cx_kernel<F><<<C, kThreads, smem, stream>>>(
+  site_sweep_delayed_cx_slab<F><<<C, kThreads, smem, stream>>>(
       G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, N, DK,
       lamb, sign0, sign1, det_power, use_boson);
   return (int)cudaGetLastError();
+}
+
+// The launch configuration of site_sweep_delayed_cx_cluster<F, CS> for C
+// chains, with its shared memory allowed; returns the cudaError_t of that
+// setting.
+template <int F, int CS>
+int cluster_config(int C, int N, int DK, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const size_t smem = cluster_smem_floats(F, CS, N, DK) * sizeof(float);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_delayed_cx_cluster<F, CS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C * CS);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CS;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+template <int F, int CS>
+int launch_cluster(const float2* G_in, float2* G_out, const int8_t* sigma_in,
+                   int8_t* sigma_out, const float* u, uint8_t* accept,
+                   float2* det, int C, int N, int DK, float lamb, float sign0,
+                   float sign1, int det_power, int use_boson,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = cluster_config<F, CS>(C, N, DK, stream, &cfg, &attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cx_cluster<F, CS>,
+                                G_in, G_out, sigma_in, sigma_out, u, accept,
+                                det, N, DK, lamb, sign0, sign1, det_power,
+                                use_boson);
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <int F, int CS>
+int max_clusters(int N, int DK, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = cluster_config<F, CS>(1, N, DK, 0, &cfg, &attr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (void*)site_sweep_delayed_cx_cluster<F, CS>, &cfg);
+}
+
+// The layouts that ops/site_sweep_delayed_cx.py::cluster_plan can pick
+#define MC_K9_LAYOUTS(X) X(1, 2) X(1, 4) X(2, 2) X(2, 4)
+
+bool valid_cluster(int N, int DK, int CS) {
+  return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && DK >= 1 && N % DK == 0;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). G is complex64
 // (interleaved re, im), accept one byte per site, det complex64 (C, N).
-// 8 | N, DK | N, F in {1, 2}; scratch holds 4 * C * F * DK * N floats.
+// 8 | N, DK | N, F in {1, 2}, det_power 1 or 2. CS = 1:
+// site_sweep_delayed_cx_slab, scratch holds 4 * C * F * DK * N floats;
+// CS = 2 or 4 (4 CS | N): site_sweep_delayed_cx_cluster, scratch unused.
 extern "C" int site_sweep_delayed_cx_c64(const void* G_in, void* G_out,
                                          const int8_t* sigma_in,
                                          int8_t* sigma_out, const float* u,
                                          uint8_t* accept, void* det,
                                          float* scratch, int C, int F, int N,
-                                         int DK, float lamb, float sign0,
-                                         float sign1, int det_power,
-                                         int use_boson, void* stream) {
+                                         int DK, int CS, float lamb,
+                                         float sign0, float sign1,
+                                         int det_power, int use_boson,
+                                         void* stream) {
   if (C == 0) return 0;
   if (N < 8 || N % 8 || DK < 1 || N % DK || det_power < 1 || det_power > 2)
     return (int)cudaErrorInvalidValue;
@@ -289,11 +748,49 @@ extern "C" int site_sweep_delayed_cx_c64(const void* G_in, void* G_out,
   const float2* gi = (const float2*)G_in;
   float2* go = (float2*)G_out;
   float2* dt = (float2*)det;
-  if (F == 1)
-    return launch<1>(gi, go, sigma_in, sigma_out, u, accept, dt, scratch, C,
-                     N, DK, lamb, sign0, sign1, det_power, use_boson, st);
-  if (F == 2)
-    return launch<2>(gi, go, sigma_in, sigma_out, u, accept, dt, scratch, C,
-                     N, DK, lamb, sign0, sign1, det_power, use_boson, st);
+  if (CS == 1) {
+    if (F == 1)
+      return launch_slab<1>(gi, go, sigma_in, sigma_out, u, accept, dt,
+                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
+                            use_boson, st);
+    if (F == 2)
+      return launch_slab<2>(gi, go, sigma_in, sigma_out, u, accept, dt,
+                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
+                            use_boson, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
+#define MC_K9_LAUNCH(f, cs)                                              \
+  if (F == f && CS == cs)                                                  \
+    return launch_cluster<f, cs>(gi, go, sigma_in, sigma_out, u, accept,   \
+                                 dt, C, N, DK, lamb, sign0, sign1,          \
+                                 det_power, use_boson, st);
+  MC_K9_LAYOUTS(MC_K9_LAUNCH)
+#undef MC_K9_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// The most clusters of the layout (CS > 1) that the card runs at once, into
+// *out; returns the cudaError_t of the query.
+extern "C" int site_sweep_delayed_cx_c64_max_clusters(int F, int N, int DK,
+                                                      int CS, int* out) {
+  *out = 0;
+  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
+#define MC_K9_QUERY(f, cs) \
+  if (F == f && CS == cs) return max_clusters<f, cs>(N, DK, out);
+  MC_K9_LAYOUTS(MC_K9_QUERY)
+#undef MC_K9_QUERY
+  return (int)cudaErrorInvalidValue;
+}
+
+// Phase stamps of the last launch's first n_blocks blocks (kPhases cycle
+// sums each) into dst on the host: a build with -DMC_PHASE_STAMPS only.
+extern "C" int site_sweep_delayed_cx_c64_stamps(void* dst, int n_blocks,
+                                                void* stream) {
+#ifdef MC_PHASE_STAMPS
+  return phase_clock::copy_rows(g_stamps, dst, n_blocks, stream);
+#else
+  (void)dst, (void)n_blocks, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -268,7 +268,7 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with float32 or
     float64 updates). Complex64 updates at 8 | N: K8 up to N = 128 (G of
     one chain in shared memory: F = 2 to N = 119), K9 in blocks of
-    max(delay, 1) sites beyond (its slabs in shared memory: not F = 2 at
+    max(delay, 1) sites beyond (its buffers in shared memory: not F = 2 at
     N = 256, delay 32); the QR of complex64 stacks is K10 up to N = 128 and
     the library QR beyond, that of complex128 stacks the library QR, as in
     the JAX package (XLA's QR where no Pallas kernel takes the shape)."""
@@ -285,7 +285,7 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
             raise _not_ported(
                 f"the complex64 kernels for N={N}, F={F}, delay={delay} (K8 "
                 "and K10 take 8 | N <= 128 with G of one chain in shared "
-                "memory, K9 8 | N beyond with its slabs in shared memory; "
+                "memory, K9 8 | N beyond with its buffers in shared memory; "
                 "elsewhere the JAX package runs XLA's loop or QR)",
                 "Queue 1 item 4")
         return
@@ -298,7 +298,7 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
             else _ssd.kernel_supports(N, F, max(delay, 1))):
         raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
                           f"(K1 takes N <= {MAX_N}, K6 4 | N beyond with its "
-                          "slabs in shared memory, both F <= 2)", "Queue 2 K6")
+                          "buffers in shared memory, both F <= 2)", "Queue 2 K6")
     if f64:
         return
     if not (_qrh.kernel_supports(N) or _qr_blocked.kernel_supports(N)):

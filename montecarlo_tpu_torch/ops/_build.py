@@ -8,8 +8,11 @@ first use, never at import (importing the package must work on a machine
 without nvcc or CUDA), into ``montecarlo_tpu_torch/_build/`` (listed in
 .gitignore). The library's file name carries a hash of the sources, the
 headers and the command lines, so an edited kernel is rebuilt and a stale
-library is never loaded. A plain C interface keeps the build to seconds; a
-source that includes PyTorch's headers would take minutes.
+library is never loaded. ``use_defines`` switches the process to a build
+with extra preprocessor flags (chip_profile.py's phase stamps,
+``-DMC_PHASE_STAMPS``) in a directory of its own. A plain C interface keeps
+the build to seconds; a source that includes PyTorch's headers would take
+minutes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ SMEM_PER_BLOCK = 232448
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# extra -D flags of this process's build (empty: the kernels as they ship)
+DEFINES: tuple = ()
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signatures of the exported launchers; every launcher returns the
@@ -59,9 +64,11 @@ SIGNATURES = {
     # A, Z, mx, Q, X, B, N, stream
     "udt_qr_solve_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch, C, F, N, DK,
-    # lamb, sign0, sign1, det_power, use_boson, stream
+    # CS, lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_delayed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _F, _F, _F, _I, _I, _P),
+                               _I, _I, _F, _F, _F, _I, _I, _P),
+    # F, N, DK, CS, out (int*): the cluster layout's occupancy
+    "site_sweep_delayed_f32_max_clusters": (_I, _I, _I, _I, _P),
     # A, Q, R, work, B, N, stream
     "qr_blocked_f32": (_P, _P, _P, _P, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, F, N,
@@ -71,9 +78,13 @@ SIGNATURES = {
     # A, Q, R, B, N, stream
     "qr_cx_c64": (_P, _P, _P, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N, DK,
-    # lamb, sign0, sign1, det_power, use_boson, stream
+    # CS, lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_delayed_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _F, _F, _F, _I, _I, _P),
+                                  _I, _I, _F, _F, _F, _I, _I, _P),
+    "site_sweep_delayed_cx_c64_max_clusters": (_I, _I, _I, _I, _P),
+    # dst (host), n_blocks, stream: the phase stamps of the last launch
+    "site_sweep_delayed_f32_stamps": (_P, _I, _P),
+    "site_sweep_delayed_cx_c64_stamps": (_P, _I, _P),
 }
 
 
@@ -101,7 +112,7 @@ def find_nvcc() -> str:
 
 def compile_command(nvcc: str, source: Path, output: Path) -> list:
     """nvcc for one source file into one object file."""
-    return [nvcc, *NVCC_FLAGS, "-c", str(source), "-o", str(output)]
+    return [nvcc, *NVCC_FLAGS, *DEFINES, "-c", str(source), "-o", str(output)]
 
 
 def link_command(nvcc: str, objects, output: Path) -> list:
@@ -113,12 +124,24 @@ def headers():
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 
+def build_dir() -> Path:
+    return BUILD_DIR / "defines" if DEFINES else BUILD_DIR
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + DEFINES).encode())
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libmctorch_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libmctorch_{h.hexdigest()[:16]}.so"
+
+
+def use_defines(*defines: str):
+    """Build and load the kernels with these extra -D flags from now on in
+    this process (no flags: the kernels as they ship)."""
+    global DEFINES
+    DEFINES = tuple(defines)
+    load.cache_clear()
 
 
 def _run(procs):
@@ -141,9 +164,9 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
         procs = []
         for src, obj in zip(sources(), objs):

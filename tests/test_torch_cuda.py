@@ -128,6 +128,40 @@ def test_site_sweep_delayed_kernel_matches_plain(cuda, model, N, dk):
     _close(out_k[0], out_p[0], 1e-5)
 
 
+# (chains, model, N, dk, blocks per chain): None runs cluster_plan's
+# layout; 160 chains at CS = 2 are 320 blocks, more than one wave of
+# clusters
+DELAYED_LAYOUTS = [
+    (160, "attractive", 256, 32, None), (1, "attractive", 256, 32, None),
+    (8, "attractive", 256, 32, 4), (8, "attractive", 256, 32, 1),
+    (8, "repulsive", 256, 32, None), (8, "repulsive", 256, 32, 4),
+    (8, "repulsive", 136, 8, None), (8, "attractive", 144, 16, None),
+    (8, "attractive", 256, 1, None), (8, "attractive", 256, 64, None)]
+
+
+@pytest.mark.parametrize("chains,model,N,dk,cs", DELAYED_LAYOUTS)
+def test_site_sweep_delayed_layouts_match_plain(cuda, chains, model, N, dk,
+                                               cs):
+    """K6 in each layout cluster_plan can pick (and at chain counts of one
+    and of more than one wave of clusters): decisions identical to the plain
+    version's, G within 1e-5 of its largest entry (bit-equal in practice);
+    the wrapper takes cluster_plan's layout."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in sweep_inputs(N + dk + chains, chains, F, N))
+    n0 = ssd.site_sweep_delayed.launches
+    out_k = (ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw) if cs is None
+             else ssd.launch(G, sigma, u, cs, dk=dk, **kw))
+    assert ssd.site_sweep_delayed.launches == n0 + 1
+    out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < out_k[2].sum().item() < chains * N
+    _close(out_k[0], out_p[0], 1e-5)
+
+
 @pytest.mark.parametrize("N", [136, 144, 256])
 def test_qr_blocked_kernel_matches_plain(cuda, N):
     """Q and R within 1e-5 of their largest entries on graded, prescaled,
@@ -262,6 +296,36 @@ def test_site_sweep_delayed_cx_kernel_matches_plain(cuda, model, N, dk):
     assert 0 < out_k[2].sum().item() < 8 * N
     _close(out_k[0], out_p[0], 1e-5)
     _close(out_k[0], out_8[0], 1e-5)
+
+
+CX_DELAYED_LAYOUTS = [
+    (160, "attractive", 256, 32, None), (1, "attractive", 256, 32, None),
+    (8, "attractive", 256, 32, 4), (8, "attractive", 256, 32, 1),
+    (8, "attractive", 144, 16, 4), (8, "repulsive", 256, 16, None),
+    (8, "repulsive", 256, 16, 1), (8, "repulsive", 136, 8, None),
+    (8, "repulsive", 144, 24, None)]
+
+
+@pytest.mark.parametrize("chains,model,N,dk,cs", CX_DELAYED_LAYOUTS)
+def test_site_sweep_delayed_cx_layouts_match_plain(cuda, chains, model, N, dk,
+                                                  cs):
+    """Complex64 K9 in each layout cluster_plan can pick (and at one chain
+    and more than one wave of clusters): sigma, accept and det identical to
+    its plain version's, G within 1e-5 of its largest entry."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in cx_sweep_inputs(N + dk + chains, chains, F, N))
+    n0 = ssdcx.site_sweep_delayed_cx.launches
+    out_k = (ssdcx.site_sweep_delayed_cx(G, sigma, u, dk=dk, **kw)
+             if cs is None else ssdcx.launch(G, sigma, u, cs, dk=dk, **kw))
+    assert ssdcx.site_sweep_delayed_cx.launches == n0 + 1
+    out_p = ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, dk=dk, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b)
+    assert 0 < out_k[2].sum().item() < chains * N
+    _close(out_k[0], out_p[0], 1e-5)
 
 
 @pytest.mark.parametrize("N", [72, 96, 128])

@@ -211,6 +211,57 @@ def test_site_sweep_delayed_kernel_shapes():
     assert not ssd.kernel_supports(1024, 2, 32)     # slabs past shared memory
 
 
+# cluster_plan's blocks per chain for the shapes the configurations and
+# tests run, per kernel and flavor count; None where the kernel takes no
+# layout
+CLUSTER_PLANS = {
+    # (N, dk):  K6 F=1, K6 F=2, K9 F=1, K9 F=2
+    (256, 32): (2, 2, 2, None),
+    (256, 16): (2, 2, 2, 2),
+    (256, 8): (2, 2, 2, 2),
+    (256, 1): (2, 2, 2, 2),
+    (144, 24): (2, 2, 2, 2),
+    (144, 16): (2, 2, 2, 2),
+    (144, 8): (2, 2, 2, 2),
+    (144, 1): (2, 2, 2, 2),
+    (136, 8): (2, 2, 2, 2),
+    (136, 1): (2, 2, 2, 2),
+}
+
+
+@pytest.mark.parametrize("N,dk", sorted(CLUSTER_PLANS))
+@pytest.mark.parametrize("kernel,F", [("K6", 1), ("K6", 2), ("K9", 1),
+                                      ("K9", 2)])
+def test_cluster_plan_layouts(kernel, F, N, dk):
+    """K6's and K9's layout at each shape, and its block's shared memory
+    within the card's: a cluster of two blocks per chain, each folding N/2
+    rows; complex64 F = 2 at N = 256 past dk = 16 fits no layout."""
+    mod = ssd if kernel == "K6" else ssdcx
+    want = CLUSTER_PLANS[N, dk][2 * (kernel == "K9") + F - 1]
+    assert mod.kernel_supports(N, F, dk) == (want is not None)
+    if want is None:
+        assert not mod.fits(N, F, dk, 1)
+        return
+    cs = mod.cluster_plan(N, F, dk)
+    assert cs == want
+    assert mod.fits(N, F, dk, cs)
+    assert mod.smem_bytes(N, F, dk, cs) <= _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K9"])
+def test_cluster_plan_takes_every_slab_shape(kernel):
+    """kernel_supports takes every shape the one-block slab layout takes,
+    and every layout it picks fits the card's shared memory."""
+    mod, q = (ssd, 4) if kernel == "K6" else (ssdcx, 8)
+    for N in range(mod.MIN_N, 521):
+        for F in (1, 2):
+            for dk in (d for d in range(1, N + 1) if N % d == 0):
+                slab = N % q == 0 and mod.fits(N, F, dk, 1)
+                assert mod.kernel_supports(N, F, dk) >= slab, (N, F, dk)
+                if mod.kernel_supports(N, F, dk):
+                    assert mod.fits(N, F, dk, mod.cluster_plan(N, F, dk))
+
+
 # ---------------------------------------------------------------------------
 # K2 / K3: fused UDT and fused UDT + solve
 # ---------------------------------------------------------------------------
@@ -440,7 +491,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "qr_blocked.cu", "qr_cx.cu", "qr_householder.cu", "site_sweep.cu",
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
-    assert [p.name for p in _build.headers()] == ["site_sweep_loop.cuh"]
+    assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
+                                                  "site_sweep_loop.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -456,7 +508,10 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_f32", "qr_blocked_f32", "site_sweep_cx_c64",
         "qr_cx_c64", "qr_f32", "qr_f64", "site_sweep_f64",
         "site_sweep_pair_f32", "site_sweep_delayed_cx_c64",
-        "site_sweep_wrap_f32", "qr_vtau_f32"}
+        "site_sweep_wrap_f32", "qr_vtau_f32",
+        "site_sweep_delayed_f32_max_clusters",
+        "site_sweep_delayed_cx_c64_max_clusters",
+        "site_sweep_delayed_f32_stamps", "site_sweep_delayed_cx_c64_stamps"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -12,8 +12,10 @@ each case in CASES; the turns cancel a drift of the card's clock between
 the first run and the last. Prints nvidia-smi's name and power limit, one
 JSON line per run and a summary per case. Needs CUDA.
 
-  qr_cx (256, 64, 64)  the complex QR K10 on 256 complex64 matrices,
-                       random normal columns graded over 8 decades
+  qr_cx (256, 64, 64)    the complex QR K10 on 256 complex64 matrices,
+  qr_cx (256, 128, 128)  random normal columns graded over 8 decades
+  qr_blocked (64, 256, 256)  the blocked QR K7 on 64 float32 matrices of
+                       the same kind
   site_sweep_delayed (64, 1, 256, 256)     K6 and K9 on chip_smoke.py's
   site_sweep_delayed_cx (64, 1, 256, 256)  inputs (the 16x16 and complex16
                        configurations' Green's functions, dk = 32), made by
@@ -32,15 +34,18 @@ from pathlib import Path
 BATCHES, CALLS = 7, 50
 
 
-def _qr_cx_64():
-    import torch
-    from montecarlo_tpu_torch.ops import qr_cx as qcx
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    B, N = 256, 64
-    A = torch.randn(B, N, N, generator=gen, device="cuda",
-                    dtype=torch.complex64)
-    A = A * torch.logspace(0, -8, N, device="cuda")[None, None, :]
-    return lambda: qcx.qr_cx(A)
+def _qr(B, N, complex_):
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import qr_blocked as qb
+        from montecarlo_tpu_torch.ops import qr_cx as qcx
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        A = torch.randn(B, N, N, generator=gen, device="cuda",
+                        dtype=torch.complex64 if complex_ else torch.float32)
+        A = A * torch.logspace(0, -8, N, device="cuda")[None, None, :]
+        fn = qcx.qr_cx if complex_ else qb.qr_blocked
+        return lambda: fn(A)
+    return make
 
 
 def _smoke():
@@ -65,7 +70,9 @@ def _delayed(complex_):
     return make
 
 
-CASES = {"qr_cx (256, 64, 64)": _qr_cx_64,
+CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
+         "qr_cx (256, 128, 128)": _qr(256, 128, True),
+         "qr_blocked (64, 256, 256)": _qr(64, 256, False),
          "site_sweep_delayed (64, 1, 256, 256)": _delayed(False),
          "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True)}
 

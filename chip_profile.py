@@ -34,13 +34,14 @@ colscaled colscaled_wy): two calls may land on two cards.
     python3 chip_profile.py stamps
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
-into a build directory of their own and prints where one launch of K6 and
-of K9 at chip_smoke.py's shapes (64 chains of 16x16 real and complex
-Green's functions, dk = 32) spends its SM clock cycles, in the layout
-cluster_plan picks: the mean over the launch's blocks of each phase that
-the kernel stamps, its share, and its microseconds at the SM clock
-nvidia-smi reads after the launch, beside the launch's mean synchronised
-time.
+into a build directory of their own and prints where one launch spends its
+SM clock cycles at chip_smoke.py's shapes: K6 and K9 (64 chains of 16x16
+real and complex Green's functions, dk = 32, in the layout cluster_plan
+picks), K10 at (256, 64, 64) and (256, 128, 128) complex64 and K7 at
+(64, 256, 256) float32 (graded, prescaled, pivoted input): the mean over
+the launch's blocks of each phase that the kernel stamps, its share, and
+its microseconds at the SM clock nvidia-smi reads after the launch, beside
+the launch's mean synchronised time.
 
 and prints for each
 
@@ -57,8 +58,8 @@ and prints for each
            kernel name (device events only, so no time is counted twice),
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
-           and the shares of the device time of K1, K4, K6, K8, K9, K10,
-           K13, K14, the GEMMs and the library complex QR (cuSOLVER's
+           and the shares of the device time of K1, K4, K6, K7, K8, K9,
+           K10, K13, K14, the GEMMs and the library complex QR (cuSOLVER's
            kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
@@ -83,7 +84,7 @@ SHARES = {"K1": ("site_sweep_kernel<float",),
           "GEMMs": ("gemm",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
           "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
-          "K10": ("qr_cx_kernel",),
+          "K10": ("qr_cx_kernel",), "K7": ("qr_blocked_kernel",),
           "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
                                  "cusolver")}
 F32 = {"dtype": "float32"}
@@ -216,10 +217,48 @@ def profile_config(name):
     print("smi", smi(), flush=True)
 
 
-def stamps():
+def _stamp_rows(readout, blocks):
+    """The phase stamps of the last launch's first blocks blocks."""
     import numpy as np
     import torch
     from montecarlo_tpu_torch.ops import _build
+    rows = np.zeros((blocks, 8), dtype=np.int64)
+    code = getattr(_build.load(), readout + "_stamps")(
+        rows.ctypes.data, blocks, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(readout + "_stamps", code)
+    return rows
+
+
+def _print_stamps(head, label, rows, names, ms):
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.split()[0])
+    total = rows.sum(axis=1)
+    print(f"== stamps {head}: {ms:.4f} ms per launch (stamped build), "
+          f"SM clock {mhz:.0f} MHz; cycles per block mean {total.mean():.0f}, "
+          f"max {total.max()} = {total.max() / mhz:.1f} us", flush=True)
+    for p, name in enumerate(names):
+        c = rows[:, p]
+        print(f"[stamps] {label} phase {p} {name}: mean {c.mean():.0f} "
+              f"cycles ({c.mean() / total.mean():.3f} of the block), "
+              f"{c.mean() / mhz:.1f} us; min {c.min()}, max {c.max()}")
+
+
+def qr_input(B, N, complex_):
+    """chip_smoke.py's QR input: graded, prescaled, pivoted columns."""
+    import torch
+    from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(13)
+    A = smoke.graded(gen, B, N, dtype=torch.complex64 if complex_ else None)
+    return _prescale_pivot(A)[0].contiguous()
+
+
+def stamps():
+    import torch
+    from montecarlo_tpu_torch.ops import _build
+    from montecarlo_tpu_torch.ops import qr_blocked as qb
+    from montecarlo_tpu_torch.ops import qr_cx as qcx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
     from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
     _build.use_defines("-DMC_PHASE_STAMPS")
@@ -233,28 +272,25 @@ def stamps():
         call = lambda: mod.launch(G, sigma, u, cs, **kw)
         ms = 1e3 * timed(call, 20)
         n_acc = int(call()[2].sum())
-        blocks = C * cs
-        rows = np.zeros((blocks, 8), dtype=np.int64)
-        code = getattr(_build.load(), readout + "_stamps")(
-            rows.ctypes.data, blocks, torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(readout + "_stamps", code)
-        mhz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.sm",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True, check=True, timeout=60).stdout.split()[0])
-        total = rows.sum(axis=1)
-        print(f"== stamps {label} {tuple(G.shape)} {str(G.dtype)[6:]} "
-              f"dk={dk}: {ms:.4f} ms per launch (stamped build), {n_acc} of "
-              f"{C * N} sites accepted, {blocks} blocks "
-              f"({mod.layout(N, F, dk, cs)}), SM clock {mhz:.0f} MHz; cycles "
-              f"per block mean {total.mean():.0f}, max {total.max()} = "
-              f"{total.max() / mhz:.1f} us", flush=True)
-        for p, name in enumerate(mod.PHASES["slab" if cs == 1 else
-                                            "cluster"]):
-            c = rows[:, p]
-            print(f"[stamps] {label} phase {p} {name}: mean {c.mean():.0f} "
-                  f"cycles ({c.mean() / total.mean():.3f} of the block), "
-                  f"{c.mean() / mhz:.1f} us; min {c.min()}, max {c.max()}")
+        rows = _stamp_rows(readout, C * cs)
+        _print_stamps(f"{label} {tuple(G.shape)} {str(G.dtype)[6:]} dk={dk}, "
+                      f"{n_acc} of {C * N} sites accepted, {C * cs} blocks "
+                      f"({mod.layout(N, F, dk, cs)})", label, rows,
+                      mod.PHASES["slab" if cs == 1 else "cluster"], ms)
+    for label, mod, fn, readout, shape, cx in (
+            ("K10", qcx, qcx.qr_cx, "qr_cx_c64", (256, 64), True),
+            ("K10", qcx, qcx.qr_cx, "qr_cx_c64", (256, 128), True),
+            ("K7", qb, qb.qr_blocked, "qr_blocked_f32",
+             (smoke.L16_CHAINS, smoke.L16 * smoke.L16), False)):
+        B, N = shape
+        A = qr_input(B, N, cx)
+        ms = 1e3 * timed(lambda: fn(A), 20)
+        fn(A)
+        # K10 runs one block per matrix, K7 a cluster of cluster_plan's
+        blocks = B * (1 if cx else qb.cluster_plan(N, B))
+        rows = _stamp_rows(readout, blocks)
+        _print_stamps(f"{label} ({B}, {N}, {N}) {str(A.dtype)[6:]}, {blocks} "
+                      f"blocks", label, rows, mod.PHASES, ms)
     print("smi", smi(), flush=True)
 
 

@@ -194,6 +194,9 @@ KERNEL_INFO = {
                       "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
     "qr_cx": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
               "montecarlo_tpu/ops/pallas_qr.py:706"),
+    # K10 at N = 128 (chain128), a row of its own
+    "qr_cx_128": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
+                  "montecarlo_tpu/ops/pallas_qr.py:706"),
     "qr_f32": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
                "montecarlo_tpu/ops/pallas_qr.py:52"),
     "qr_f64": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
@@ -683,33 +686,22 @@ def phase_parity():
         **bound(B * (4 * N * N * 4 + 4),
                 B * (householder_flops(N) + solve_flops)))
 
-    # ---- K10 at (256, 64, 64) complex64 on graded, prescaled, pivoted
-    # input, phase-normalized (qr_cx.phase_normalized: rounding turns the
-    # phase of a small alpha), then with zero and subnormal columns
-    Apc, _, _ = _prescale_pivot(graded(gen, B, N, dtype=torch.complex64))
-    Apc = Apc.contiguous()
-    results["qr_cx"] = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_backward_plain,
-                                 Apc, library=torch.linalg.qr,
-                                 normalize=qcx.phase_normalized)
-    results["qr_cx"].update(bound(3 * B * N * N * 8,
-                                  B * householder_flops(N, complex_=True)))
-    degenerate_columns("qr_cx", qcx.qr_cx, Apc, 1e-35, TOL_QR, TOL_QR)
-    # ... and at (256, 128, 128), the chain128 run's shape; the kernels line
-    # keeps the N=64 row's times and the larger error
-    nw = 2 * N
-    Apw, _, _ = _prescale_pivot(graded(gen, B, nw, dtype=torch.complex64))
-    r = qr_parity("qr_cx", qcx.qr_cx, qcx.qr_cx_backward_plain,
-                  Apw.contiguous(), library=torch.linalg.qr,
-                  normalize=qcx.phase_normalized)
-    r.update(bound(3 * B * nw * nw * 8,
-                   B * householder_flops(nw, complex_=True)))
-    log(f"[parity] qr_cx ({B}, {nw}, {nw}): kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, library call {r['library_ms']:.4f} ms, "
-        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    results["qr_cx"]["max_abs_err"] = max(results["qr_cx"]["max_abs_err"],
-                                          r["max_abs_err"])
-    degenerate_columns("qr_cx", qcx.qr_cx, Apw.contiguous(), 1e-35, TOL_QR,
-                       TOL_QR)
+    # ---- K10 at (256, 64, 64), the complex run's shape, and (256, 128,
+    # 128), the chain128 run's (its own row of the kernels line), complex64
+    # on graded, prescaled, pivoted input, against its plain version (the
+    # same panels) phase-normalized (qr_cx.phase_normalized: rounding turns
+    # the phase of a small alpha), then with zero and subnormal columns
+    for name, n in (("qr_cx", N), ("qr_cx_128", 2 * N)):
+        Apc, _, _ = _prescale_pivot(graded(gen, B, n, dtype=torch.complex64))
+        Apc = Apc.contiguous()
+        results[name] = qr_parity(f"qr_cx N={n}", qcx.qr_cx,
+                                  qcx.qr_cx_blocked_plain, Apc,
+                                  library=torch.linalg.qr,
+                                  normalize=qcx.phase_normalized)
+        results[name].update(bound(3 * B * n * n * 8,
+                                   B * householder_flops(n, complex_=True)))
+        degenerate_columns(f"qr_cx N={n}", qcx.qr_cx, Apc, 1e-35, TOL_QR,
+                           TOL_QR)
     # the library complex QR at (64, 256, 256), which the complex16 run
     # calls past N = 128 as the JAX package calls XLA's
     A16, _, _ = _prescale_pivot(graded(gen, L16_CHAINS, L16 * L16,
@@ -872,6 +864,7 @@ def phase_parity():
                                       library=torch.linalg.qr)
     results["qr_blocked"].update(bound(3 * B * N * N * 4,
                                        B * householder_flops(N)))
+    degenerate_columns("qr_blocked", qb.qr_blocked, Ap, 1e-35, TOL_QR, TOL_QR)
     for name, r in results.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1428,6 +1421,9 @@ def main():
             launchescs, launchesrep, launchescx16, launchesch, launchesfw,
             launcheswy, launches1)
     launches = {k: sum(r[k] for r in runs) for k in launches}
+    # qr_cx's launches by shape: the chain128 run's at N = 128
+    launches["qr_cx_128"] = launchesch["qr_cx"]
+    launches["qr_cx"] -= launchesch["qr_cx"]
     phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
                 simfw, simwy)
     mark("paths")

@@ -1,14 +1,18 @@
 """Complex Householder QR (kernel K10), 8 | N <= 128.
 
 ``qr_cx`` launches the CUDA kernel ``csrc/qr_cx.cu`` on CUDA tensors and
-runs its plain PyTorch version ``qr_cx_backward_plain`` (the same
-algorithm) on CPU tensors: Q is formed backward from the stored reflectors
-after R, since A and Q of one matrix at N = 128 do not fit one block's
-shared memory together. It replaces the Pallas kernel
+runs its plain PyTorch version ``qr_cx_blocked_plain`` (the same algorithm
+and blocking) on CPU tensors: a blocked compact-WY factorization in panels
+of ``PANEL`` columns, the trailing columns updated once per panel,
+A <- (I - V T V^H)^H A, and Q formed backward by panels after R,
+Q[j0:, j0:] <- (I - V T V^H) Q[j0:, j0:] (the algorithm of
+``ops/qr_blocked.py::blocked_householder``, which K7 runs in real
+arithmetic). It replaces the Pallas kernel
 ``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel_cx`` (reached through
 ``_qr_batched_cx`` / ``qr_lanes_cx`` / ``maybe_qr``), which accumulates Q
-forward in the column steps; ``qr_cx_plain`` is that forward form, which
-the tests hold the backward one against.
+forward in the column steps; ``qr_cx_plain`` is that forward form and
+``qr_cx_backward_plain`` the unblocked one with Q formed backward, which
+the tests hold the blocked one against.
 
 A = Q R of the prescaled, column-pivoted A (B, N, N), column by column with
 the zgeqrf reflector up to the phase of the diagonal (``udt_dirty`` keeps
@@ -32,46 +36,34 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .qr_blocked import _reflect_panel, blocked_householder
 
 MAX_N = 128
+# the phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py)
+PHASES = ("load", "panel column steps", "V, Gram and T", "trailing update",
+          "store R", "form Q", "store Q")
+
+
+# KB, the panel width of the kernel and of its plain version: wider panels
+# gather more reflectors into the WY form of Q, which rounds more (see
+# csrc/qr_cx.cu). The kernel is built for this width (kPanel) and refuses
+# another.
+PANEL = 8
 
 
 def kernel_supports(N: int) -> bool:
     """Shapes the CUDA kernel takes: 8 | N <= 128 (A, then Q in its place,
-    and the packed reflectors of one complex64 matrix in shared memory)."""
+    one panel's V, every panel's T and W of one complex64 matrix in shared
+    memory)."""
     return N % 8 == 0 and 8 <= N <= MAX_N
 
 
 def _reflectors(A):
     """Householder factorization of A (B, N, N) column by column: returns R
     and the reflectors [(v_j (B, N - j), tau_j (B,))], v_j over rows j.."""
-    B, N, _ = A.shape
-    tiny = torch.finfo(A.real.dtype).tiny
     R = A.clone()
-    refl = []
-    for j in range(N):
-        alpha = R[:, j, j]
-        tail = R[:, j + 1:, j]
-        sigma = (tail.real * tail.real + tail.imag * tail.imag).sum(-1)
-        amag2 = alpha.real * alpha.real + alpha.imag * alpha.imag
-        normx = torch.sqrt(amag2 + sigma)
-        amag = torch.sqrt(amag2)
-        safe = amag > 0
-        den = torch.where(safe, amag, 1.0)
-        ph = torch.complex(torch.where(safe, alpha.real / den, 1.0),
-                           torch.where(safe, alpha.imag / den, 0.0))
-        vj = torch.complex(alpha.real + ph.real * normx,
-                           alpha.imag + ph.imag * normx)
-        v = torch.cat([vj[:, None], tail], dim=1)              # rows j..N-1
-        vtv = sigma + vj.real * vj.real + vj.imag * vj.imag
-        tau = torch.where(vtv >= tiny, 2.0 / vtv, 0.0).to(A.dtype)
-        # trailing columns: A[:, c] -= (tau·(v^H A[:, c]))·v for c > j
-        w = torch.einsum("brc,br->bc", R[:, j:, j + 1:], v.conj())
-        R[:, j:, j + 1:] -= (tau[:, None] * w)[:, None, :] * v[:, :, None]
-        R[:, j + 1:, j] = 0.0
-        R[:, j, j] = -(ph * normx)
-        refl.append((v, tau))
-    return R, refl
+    V, tau = _reflect_panel(R, torch.finfo(A.real.dtype).tiny)
+    return R, [(V[:, j:, j], tau[:, j]) for j in range(A.shape[-1])]
 
 
 def _eye(A):
@@ -105,6 +97,15 @@ def qr_cx_backward_plain(A):
     return Q, R
 
 
+def qr_cx_blocked_plain(A):
+    """K10's algorithm in plain PyTorch: the blocked compact-WY QR of A
+    (B, N, N) in panels of ``PANEL`` columns, Q formed backward
+    by panels. Returns (Q, R); the same factors as ``qr_cx_plain`` up to
+    rounding."""
+    Q, R, _ = blocked_householder(A, PANEL)
+    return Q, R
+
+
 def phase_normalized(Q, R):
     """(Q·S, S^H·R) with S = diag(R_jj / |R_jj|) (1 where R_jj = 0): the
     factors with a real non-negative diagonal, free of the phase choice.
@@ -122,14 +123,14 @@ def phase_normalized(Q, R):
 def qr_cx(A):
     """Complex Householder QR (kernel K10) of A (B, N, N): the CUDA kernel
     for a CUDA tensor (complex64, 8 | N <= 128, contiguous),
-    ``qr_cx_backward_plain`` for a CPU tensor. Returns (Q, R)."""
+    ``qr_cx_blocked_plain`` for a CPU tensor. Returns (Q, R)."""
     if A.device.type == "cpu":
-        return qr_cx_backward_plain(A)
+        return qr_cx_blocked_plain(A)
     B, N = _check(A)
     Q, R = torch.empty_like(A), torch.empty_like(A)
     with torch.cuda.device(A.device):
         code = _build.load().qr_cx_c64(
-            A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, N,
+            A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, N, PANEL,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("qr_cx", code)
     qr_cx.launches += 1

@@ -276,9 +276,81 @@ def test_qr_cx_subnormal_reflector_stays_finite():
     assert torch.equal(torch.tril(R, -1), torch.zeros_like(R))
 
 
+def _cx_qr_input_n(kind, N, seed=72):
+    rng = np.random.default_rng(seed + N)
+    A = rng.normal(size=(3, N, N)) + 1j * rng.normal(size=(3, N, N))
+    if kind == "graded":
+        A = A * np.exp(np.linspace(12.0, -12.0, N))[None, None, :]
+    if kind == "zero_tail":
+        A = np.triu(A)
+        A[:, :, N // 2 + 3] = 0.0
+    return A.astype(np.complex64)
+
+
+@pytest.mark.parametrize("N", [8, 32, 64])
+@pytest.mark.parametrize("kind", ["random", "graded", "zero_tail"])
+def test_qr_cx_blocked_plain_matches_pallas(kind, N):
+    """K10's plain version, the blocked compact-WY QR (panels of 8: one,
+    four and eight panels), against the Pallas kernel: Q and R within 1e-5
+    of their largest entries, as test_qr_cx_matches_pallas holds them, but
+    phase-normalized: past N = 16 rounding turns the phase of small alphas
+    (the unblocked port's raw Q differs from the kernel's by 1.1e-5 of its
+    largest entry on the random N = 64 input, 1.9e-6 normalized); R exactly
+    upper triangular; QR = A and Q^H Q = I."""
+    A = _cx_qr_input_n(kind, N)
+    Qj, Rj = pallas_qr._qr_batched_cx(jnp.asarray(A))
+    Qt, Rt = qcx.qr_cx_blocked_plain(torch.from_numpy(A))
+    for a, b in zip(_phase_normalized(Qt.numpy(), Rt.numpy()),
+                    _phase_normalized(Qj, Rj)):
+        assert np.max(np.abs(a - b)) <= 1e-5 * np.max(np.abs(b))
+    assert torch.equal(torch.tril(Rt, -1), torch.zeros_like(Rt))
+    Qd, Rd = Qt.to(torch.complex128), Rt.to(torch.complex128)
+    assert np.max(np.abs((Qd @ Rd).numpy() - A)) <= 1e-5 * np.max(np.abs(A))
+    assert (Qd.mH @ Qd - torch.eye(N)).abs().max().item() <= 1e-5
+    if kind == "zero_tail":
+        c = N // 2 + 3
+        assert np.all(Rt.numpy()[:, c, c] == 0.0)
+
+
+@pytest.mark.parametrize("N", [16, 48])
+def test_qr_cx_blocked_plain_subnormal_reflector_stays_finite(N):
+    """The blocked plain version, a subnormal v^H v in the second panel:
+    tau = 0, finite factors, QR = A."""
+    A = torch.eye(N, dtype=torch.complex64) * 2.0 ** 40
+    A[:, N - 5] = 2e-21 + 2e-21j
+    A[N - 5, N - 5] = 0.0
+    Q, R = qcx.qr_cx_blocked_plain(A[None])
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
+    assert torch.equal(torch.tril(R, -1), torch.zeros_like(R))
+    rec = Q.to(torch.complex128) @ R.to(torch.complex128)
+    assert (rec[0] - A).abs().max().item() <= 1e-5 * 2.0 ** 40
+
+
+def test_qr_cx_blocked_plain_matches_unblocked():
+    """complex128: the blocked version against the unblocked one with Q
+    formed backward (K10's algorithm before the panels), phase-normalized,
+    at N = 40 (five panels of 8)."""
+    rng = np.random.default_rng(73)
+    A = torch.from_numpy(rng.normal(size=(2, 40, 40))
+                         + 1j * rng.normal(size=(2, 40, 40)))
+    for a, b in zip(qcx.phase_normalized(*qcx.qr_cx_blocked_plain(A)),
+                    qcx.phase_normalized(*qcx.qr_cx_backward_plain(A))):
+        assert _rel(a, b) <= 1e-12
+
+
 def test_qr_cx_kernel_shapes():
     assert [n for n in range(1, 300) if qcx.kernel_supports(n)] == \
         list(range(8, 129, 8))
+
+
+def test_qr_cx_panel_width_is_the_kernels():
+    """The plain version's panel width is the one csrc/qr_cx.cu is built
+    for (the kernel refuses another, which the wrapper passes it)."""
+    import re
+    from pathlib import Path
+    src = (Path(qcx.__file__).parents[1] / "csrc" / "qr_cx.cu").read_text()
+    assert re.findall(r"constexpr int kPanel = (\d+);", src) == \
+        [str(qcx.PANEL)]
 
 
 # ---------------------------------------------------------------------------

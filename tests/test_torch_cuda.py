@@ -364,6 +364,67 @@ def test_qr_cx_wide_kernel_zero_and_subnormal_columns(cuda, N):
     assert (Qd.mH @ Qd - eye).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("N", [8, 64, 120, 128])
+def test_qr_cx_kernel_matches_blocked_plain(cuda, N):
+    """The blocked K10 with 256 threads (N <= 64: one panel of 8, eight
+    panels) and 512 (N = 120, 128) against its plain version with the same
+    panels: the phase-normalized Q and R within 1e-5
+    of their largest entries; R exactly upper triangular, QR = A and
+    Q^H Q = I to 1e-5."""
+    Ap, _ = (t.to(cuda) for t in graded(N + 1, 24, N, complex_=True))
+    Qk, Rk = qcx.qr_cx(Ap)
+    for a, b in zip(qcx.phase_normalized(Qk, Rk),
+                    qcx.phase_normalized(*qcx.qr_cx_blocked_plain(Ap))):
+        _close(a, b, 1e-5)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+    wide = torch.complex128
+    Qd, Rd, Ad = Qk.to(wide), Rk.to(wide), Ap.to(wide)
+    _close(Qd @ Rd, Ad, 1e-5)
+    eye = torch.eye(N, dtype=wide, device=cuda)
+    assert (Qd.mH @ Qd - eye).abs().max().item() <= 1e-5
+
+
+def test_qr_cx_refuses_another_panel_width(cuda):
+    """qr_cx_c64 runs only at the panel width of qr_cx.PANEL, which its
+    plain version uses: another width is refused, and nothing is written."""
+    from montecarlo_tpu_torch.ops import _build
+    A = torch.eye(64, dtype=torch.complex64, device=cuda)[None].contiguous()
+    Q, R = torch.zeros_like(A), torch.zeros_like(A)
+    for kb in (2 * qcx.PANEL, qcx.PANEL // 2):
+        code = _build.load().qr_cx_c64(
+            A.data_ptr(), Q.data_ptr(), R.data_ptr(), 1, 64, kb,
+            torch.cuda.current_stream().cuda_stream)
+        assert code != 0
+    torch.cuda.synchronize()
+    assert not Q.any() and not R.any()
+
+
+@pytest.mark.parametrize("B,N", [(16, 256), (64, 256), (80, 256), (8, 136),
+                                 (70, 136), (4, 264), (4, 512), (2, 1424)])
+def test_qr_blocked_layouts_match_plain(cuda, B, N):
+    """K7 in both cluster sizes (1 and 2 blocks per matrix) against its
+    plain version and the forward-Q reference, Q and R within 1e-5 of their
+    largest entries, R exactly upper triangular; cluster_plan's choice runs
+    through qr_blocked and counts one launch. Past 256 rows a panel keeps
+    its columns in shared memory (N = 264, 512, 1424: the first panels);
+    N = 1424 stages chunks of 4 columns in one buffer."""
+    Ap, _ = (t.to(cuda) for t in graded(B + N, B, N))
+    cs = qb.cluster_plan(N, B)
+    assert cs == (2 if B <= 66 else 1)
+    n0 = qb.qr_blocked.launches
+    Qk, Rk = qb.qr_blocked(Ap)
+    assert qb.qr_blocked.launches == n0 + 1
+    Qp, Rp = qb.qr_blocked_plain(Ap)
+    Qf, _ = qb.qr_blocked_forward_plain(Ap)
+    for other in (1, 2):
+        Qo, Ro = qb.launch(Ap, other)
+        _close(Qo, Qp, 1e-5)
+        _close(Ro, Rp, 1e-5)
+        assert torch.equal(torch.tril(Ro, -1), torch.zeros_like(Ro))
+    _close(Qk, Qf, 1e-5)
+    _close(Rk, Rp, 1e-5)
+
+
 def test_site_sweep_f64_negative_magnitudes_match_plain(cuda):
     """K1 in float64 on repulsive (F = 2) inputs with random G, where
     r_up r_dn < 0 happens: the per-chain min, max and sum of log10|det| over

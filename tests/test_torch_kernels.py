@@ -412,11 +412,62 @@ def test_qr_blocked_subnormal_reflector_stays_finite():
     assert torch.equal(torch.tril(R, -1), torch.zeros_like(R))
 
 
+@pytest.mark.parametrize("graded", [False, True])
+def test_qr_blocked_two_panels_match_pallas(graded):
+    """(3, 64, 64): two of K7's 32-column panels (one of the Pallas
+    kernel's 64), random and graded over +-12 e-folds, as
+    test_qr_blocked_matches_pallas holds them."""
+    rng = np.random.default_rng(54 + graded)
+    A = rng.normal(size=(3, 64, 64))
+    if graded:
+        A = A * np.exp(np.linspace(12.0, -12.0, 64))[None, None, :]
+    A = A.astype(np.float32)
+    _same_qr(*_qr_pair(A), A)
+
+
+@pytest.mark.parametrize("N", [20, 136, 144])
+def test_qr_blocked_backward_q_matches_forward(N):
+    """float64: Q formed backward by panels (K7) against Q accumulated
+    forward over all rows (the TPU kernel's order), and R identical; at
+    panels of 8 with a narrower last one (N = 20), 8 and 16."""
+    A = torch.from_numpy(np.random.default_rng(56).normal(size=(2, N, N)))
+    Qb, Rb = qb.qr_blocked_plain(A)
+    Qf, Rf = qb.qr_blocked_forward_plain(A)
+    assert (Qb - Qf).abs().max().item() <= 1e-13
+    assert torch.equal(Rb, Rf)
+    assert (Qb.mT @ Qb - torch.eye(N, dtype=A.dtype)).abs().max().item() \
+        <= 1e-13
+
+
+def test_qr_blocked_cluster_plan():
+    """CS from the batch: two blocks per matrix while 2 B fits the H100's
+    132 SMs (l16's 64 matrices: 128 SMs), else one; the chunk width from
+    the shared memory left beside the panel, 4 columns in one buffer where
+    two buffers of 8 do not fit."""
+    assert [qb.cluster_plan(256, b) for b in (1, 33, 34, 64, 66, 67, 256)] \
+        == [2, 2, 2, 2, 2, 1, 1]
+    assert [qb.chunk_width(n) for n in (136, 144, 256, 512, 880, 1424,
+                                        2744)] == [8, 16, 32, 32, 16, 4, 4]
+    assert all(qb.smem_bytes(n) <= 232448
+               for n in (136, 256, 512, 880, 1424, 2744))
+
+
 def test_qr_blocked_kernel_shapes():
+    """The shapes K7 takes: N > 128 with 8 | N, and every N that its
+    earlier layout (the panel, its V, T, VᵀV and a 32 x 33 tile in shared
+    memory) took, up to N = 3544."""
     assert [n for n in range(120, 177) if qb.kernel_supports(n)] == \
         [136, 144, 152, 160, 168, 176]
     assert qb.kernel_supports(256) and qb.kernel_supports(512)
     assert [qb.panel_width(n) for n in (256, 144, 136, 20)] == [32, 16, 8, 8]
+
+    def earlier(n):
+        kb = qb.panel_width(n)
+        return (n > 128 and n % 8 == 0 and 4 * (2 * kb * n + 2 * kb * kb
+                                                + kb + 1 + 32 * 33) <= 232448)
+    taken = [n for n in range(129, 4097) if earlier(n)]
+    assert taken[-1] == 3544
+    assert all(qb.kernel_supports(n) for n in taken)
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +562,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_wrap_f32", "qr_vtau_f32",
         "site_sweep_delayed_f32_max_clusters",
         "site_sweep_delayed_cx_c64_max_clusters",
-        "site_sweep_delayed_f32_stamps", "site_sweep_delayed_cx_c64_stamps"}
+        "site_sweep_delayed_f32_stamps", "site_sweep_delayed_cx_c64_stamps",
+        "qr_cx_c64_stamps", "qr_blocked_f32_stamps"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

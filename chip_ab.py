@@ -8,8 +8,10 @@ example the parent commit unpacked with ``git archive`` into a git-ignored
 directory, and ``.``). For each in the order PARENT, CHANGE, CHANGE, PARENT,
 a child process imports montecarlo_tpu_torch from that checkout (building
 its kernels there) and prints the median synchronised time per call of
-each case in CASES; the turns cancel a drift of the card's clock between
-the first run and the last. Prints nvidia-smi's name and power limit, one
+each case in CASES, and its device time per call under torch.profiler (the
+kernels alone, where the host's launches are slower than the card); the
+turns cancel a drift of the card's clock between the first run and the
+last. Prints nvidia-smi's name and power limit, one
 JSON line per run and a summary per case. Needs CUDA.
 
   qr_cx (256, 64, 64)    the complex QR K10 on 256 complex64 matrices,
@@ -21,6 +23,9 @@ JSON line per run and a summary per case. Needs CUDA.
                        configurations' Green's functions, dk = 32), made by
                        this checkout's chip_smoke.py from each checkout's
                        port
+  site_sweep (256, 1, 64, 64)       K1 on the headline's inputs, K8 on the
+  site_sweep_cx (256, 1, 64, 64)    complex configuration's and on
+  site_sweep_cx (256, 1, 128, 128)  chain128's, made the same way
 """
 
 from __future__ import annotations
@@ -59,6 +64,16 @@ def _smoke():
     return mod
 
 
+def _sweep(complex_, **where):
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep as ss
+        from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+        G, sigma, u, kw, _ = _smoke().sweep_inputs(complex_, **where)
+        fn = sscx.site_sweep_cx if complex_ else ss.site_sweep
+        return lambda: fn(G, sigma, u, **kw)
+    return make
+
+
 def _delayed(complex_):
     def make():
         from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -74,7 +89,10 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "qr_cx (256, 128, 128)": _qr(256, 128, True),
          "qr_blocked (64, 256, 256)": _qr(64, 256, False),
          "site_sweep_delayed (64, 1, 256, 256)": _delayed(False),
-         "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True)}
+         "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True),
+         "site_sweep (256, 1, 64, 64)": _sweep(False),
+         "site_sweep_cx (256, 1, 64, 64)": _sweep(True),
+         "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1)}
 
 
 def child(root):
@@ -100,8 +118,11 @@ def child(root):
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / CALLS)
+        # device time per call: the kernels' own time, without the host's
+        # between launches (None where the profiler saw no device event)
         print(json.dumps({"root": str(root), "case": name,
-                          "ms": statistics.median(times), "batches": times}),
+                          "ms": statistics.median(times), "batches": times,
+                          "device_ms": _smoke().device_ms(fn, CALLS)}),
               flush=True)
 
 
@@ -130,10 +151,14 @@ def main(argv):
         print(out.stdout, end="", flush=True)
         runs += [(tag, json.loads(line)) for line in out.stdout.splitlines()]
     for name in CASES:
-        ms = {t: [r["ms"] for tt, r in runs if tt == t and r["case"] == name]
-              for t in ("parent", "change")}
-        print(f"[ab] {name}: parent {ms['parent']} ms, change {ms['change']} "
-              f"ms per call (order parent, change, change, parent)")
+        for key, what in (("ms", "per call"),
+                          ("device_ms", "device per call")):
+            ms = {t: [r[key] for tt, r in runs
+                      if tt == t and r["case"] == name]
+                  for t in ("parent", "change")}
+            print(f"[ab] {name}: parent {ms['parent']} ms, change "
+                  f"{ms['change']} ms {what} (order parent, change, change, "
+                  "parent)")
     return 0
 
 

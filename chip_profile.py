@@ -31,19 +31,29 @@ Runs each named configuration of chip_smoke.py (default: headline):
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
-    python3 chip_profile.py stamps
+    python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
-into a build directory of their own and prints where one launch spends its
-SM clock cycles at chip_smoke.py's shapes: K6 and K9 (64 chains of 16x16
-real and complex Green's functions, dk = 32, in the layout cluster_plan
-picks), K10 at (256, 64, 64) and (256, 128, 128) complex64 and K7 at
-(64, 256, 256) float32 (graded, prescaled, pivoted input): the mean over
+into a build directory of their own and prints where one launch of each
+named kernel (default: all) spends its SM clock cycles at chip_smoke.py's
+shapes: K1 at (256, 1, 64, 64) on the headline's inputs, K8 at (256, 1,
+64, 64) on the complex configuration's and at (256, 1, 128, 128) on
+chain128's, K6 and K9 (64 chains of 16x16 real and complex Green's
+functions, dk = 32, in the layout cluster_plan picks), K10 at (256, 64,
+64) and (256, 128, 128) complex64 and K7 at (64, 256, 256) float32
+(graded, prescaled, pivoted input): the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
 
-and prints for each
+    python3 chip_profile.py ptxas [SOURCE ...]
+
+compiles the named csrc/ sources (default: site_sweep.cu and
+site_sweep_cx.cu) as the build does, with -Xptxas -v, and prints what
+ptxas reports for each kernel: registers, spill stores and loads, stack
+frame and shared memory.
+
+The configurations' runs print for each
 
   pair     ms per sweep pair and chain-sweeps/s, kernel path then plain path
            (use_kernels=False; not at 16x16 or on the chain, where the plain
@@ -77,13 +87,15 @@ import chip_smoke as smoke
 from chip_smoke import timed
 
 PAIRS = 5
+# the kernels that `stamps` times
+STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7")
 # device-time shares printed for every configuration: kernel name fragments
-SHARES = {"K1": ("site_sweep_kernel<float",),
+SHARES = {"K1": ("site_sweep_tiled_f32",),
           "K13": ("site_sweep_wrap_kernel",),
           "K4": ("qr_kernel<float, false>",), "K14": ("qr_kernel<float, true>",),
           "GEMMs": ("gemm",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
-          "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_cx_kernel",),
+          "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_tiled_cx",),
           "K10": ("qr_cx_kernel",), "K7": ("qr_blocked_kernel",),
           "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
                                  "cusolver")}
@@ -254,17 +266,38 @@ def qr_input(B, N, complex_):
     return _prescale_pivot(A)[0].contiguous()
 
 
-def stamps():
-    import torch
+def stamps(which):
     from montecarlo_tpu_torch.ops import _build
     from montecarlo_tpu_torch.ops import qr_blocked as qb
     from montecarlo_tpu_torch.ops import qr_cx as qcx
+    from montecarlo_tpu_torch.ops import site_sweep as ss
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
     from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
     _build.use_defines("-DMC_PHASE_STAMPS")
+    # K1 on the headline's inputs, K8 on the complex configuration's and on
+    # chain128's: one block per chain
+    for label, mod, fn, readout, cx, where in (
+            ("K1", ss, ss.site_sweep, "site_sweep_f32", False, {}),
+            ("K8", sscx, sscx.site_sweep_cx, "site_sweep_cx_c64", True, {}),
+            ("K8", sscx, sscx.site_sweep_cx, "site_sweep_cx_c64", True,
+             dict(L=smoke.CHAIN_L, dims=1))):
+        if label not in which:
+            continue
+        G, sigma, u, kw, _ = smoke.sweep_inputs(cx, **where)
+        C, F, N, _ = G.shape
+        call = lambda: fn(G, sigma, u, **kw)
+        ms = 1e3 * timed(call, 20)
+        n_acc = int(call()[2].sum())
+        _print_stamps(f"{label} {tuple(G.shape)} {str(G.dtype)[6:]}, {n_acc} "
+                      f"of {C * N} sites accepted, {C} blocks "
+                      f"({mod.layout(N, F)})", label,
+                      _stamp_rows(readout, C), mod.PHASES, ms)
     for label, mod, readout, cx in (
             ("K6", ssd, "site_sweep_delayed_f32", False),
             ("K9", ssdcx, "site_sweep_delayed_cx_c64", True)):
+        if label not in which:
+            continue
         G, sigma, u, kw, ctx, _ = smoke.delayed_inputs(complex_=cx)
         C, F, N, _ = G.shape
         dk = kw["dk"]
@@ -282,6 +315,8 @@ def stamps():
             ("K10", qcx, qcx.qr_cx, "qr_cx_c64", (256, 128), True),
             ("K7", qb, qb.qr_blocked, "qr_blocked_f32",
              (smoke.L16_CHAINS, smoke.L16 * smoke.L16), False)):
+        if label not in which:
+            continue
         B, N = shape
         A = qr_input(B, N, cx)
         ms = 1e3 * timed(lambda: fn(A), 20)
@@ -294,15 +329,60 @@ def stamps():
     print("smi", smi(), flush=True)
 
 
+def _demangle(name):
+    """name demangled by c++filt where the machine has it."""
+    import shutil
+    if shutil.which("c++filt") is None:
+        return name
+    return subprocess.run(["c++filt", name], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def ptxas(names):
+    """nvcc -Xptxas -v on csrc/ sources, as _build compiles them; prints the
+    resource lines ptxas reports per kernel."""
+    import tempfile
+    from pathlib import Path
+    from montecarlo_tpu_torch.ops import _build
+    nvcc = _build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names or ("site_sweep.cu", "site_sweep_cx.cu"):
+            cmd = _build.compile_command(nvcc, _build.CSRC_DIR / name,
+                                         Path(tmp) / "k.o")
+            out = subprocess.run(cmd[:1] + ["-Xptxas", "-v"] + cmd[1:],
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode != 0:
+                print(out.stdout + out.stderr, file=sys.stderr)
+                raise SystemExit(f"chip_profile: nvcc failed on {name}")
+            kernel = None
+            for line in out.stderr.splitlines():
+                if "Compiling entry function" in line:
+                    kernel = _demangle(line.split("'")[1])
+                elif kernel and ("registers" in line or "stack frame" in line
+                                 or "spill" in line):
+                    print(f"[ptxas] {name} {kernel}: "
+                          f"{line.split('ptxas info    :')[-1].strip()}")
+
+
 def main(argv):
     import torch
-    if argv == ["stamps"]:
+    if argv[:1] == ["ptxas"]:
+        smoke.import_port()
+        ptxas(argv[1:])
+        return 0
+    if argv[:1] == ["stamps"]:
+        which = argv[1:] or STAMPED
+        unknown = [k for k in which if k not in STAMPED]
+        if unknown:
+            print(f"chip_profile: no stamps for {unknown}; choose from "
+                  f"{STAMPED}", file=sys.stderr)
+            return 2
         if not torch.cuda.is_available():
             print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
             return 1
         smoke.import_port()
         print("smi", smi(), flush=True)
-        stamps()
+        stamps(which)
         return 0
     names = argv or ["headline"]
     unknown = [n for n in names if n not in CONFIGS]

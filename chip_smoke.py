@@ -11,7 +11,9 @@ failure and prints no result line then):
   3. parity   each kernel against its plain PyTorch version on the card, at
               the shapes of the simulations below, with both times, the
               time of one library call computing the same function where
-              there is one, and the kernel's bound; K5 also against K1 on
+              there is one, and the kernel's bound; K1 (float32) and K8 bit
+              for bit, K8 also at chain128's N = 128 (a row of its own in
+              the kernels line); K5 also against K1 on
               the same inputs, bit for bit, with both times in turns; K13
               (the site sweep with the wrap fused in) in both directions,
               its up direction's decisions also against K1's, bit for bit,
@@ -192,6 +194,9 @@ KERNEL_INFO = {
                    "montecarlo_tpu/ops/pallas_qr.py:889"),
     "site_sweep_cx": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
                       "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
+    # K8 at N = 128 (chain128), a row of its own
+    "site_sweep_cx_128": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
+                          "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
     "qr_cx": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
               "montecarlo_tpu/ops/pallas_qr.py:706"),
     # K10 at N = 128 (chain128), a row of its own
@@ -247,6 +252,32 @@ def timed(fn, reps):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps
+
+
+def device_ms(fn, reps=20, tries=3):
+    """Mean device time per call of fn() in ms: the device events of reps
+    calls under torch.profiler, summed (no host time between launches);
+    None where the profiler recorded no device event in tries attempts (it
+    now and then returns an empty trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    return None
+
+
+def ms_text(ms):
+    """A time in ms for a log line, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes, flops, fp64=False):
@@ -358,6 +389,26 @@ def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT,
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     conf = model.rand_conf(gen, chains, params.slices, DEVICE)
     return ctx, consts, core.init_state(ctx, consts, conf), gen
+
+
+def sweep_inputs(complex_=False, repulsive=False, chains=CHAINS, L=L,
+                 dims=2):
+    """Inputs of K1 (complex_: K8) at the headline's (complex_: the complex
+    configuration's; L=CHAIN_L, dims=1: chain128's) model: G of a
+    plain-path init_state at beta=10, the last slice's sigma and fresh
+    uniforms. Returns (G, sigma, u, the sweep's keywords, ctx)."""
+    import torch
+    if complex_:
+        model, sm = complex_model(repulsive, L, dims), CPLX_SM
+    else:
+        model, sm = headline_model(repulsive, L), SAFE_MULT
+    ctx, _, state, gen = real_state(model, chains, 1, use_kernels=False,
+                                    safe_mult=sm)
+    sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+    u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson)
+    return state["G"], sigma, u, kw, ctx
 
 
 def delayed_inputs(complex_=False, repulsive=False, chains=None):
@@ -496,32 +547,36 @@ def phase_parity():
 
     # ---- K1 at (256, 1, 64, 64) and (128, 2, 64, 64), on real Green's
     # functions (plain-path init_state) and the sweeps' uniform draws; K8 at
-    # the same shapes in complex64, on the complex configuration's
-    for kname, fn, plain, mk, sm in (
-            ("site_sweep", ss.site_sweep, ss.site_sweep_plain,
-             headline_model, SAFE_MULT),
+    # the same shapes in complex64, on the complex configuration's, and at
+    # (256, 1, 128, 128), on chain128's (a row of its own in the kernels
+    # line); all bit for bit
+    for kname, fn, plain, cx, repulsive, chains, where in (
+            ("site_sweep", ss.site_sweep, ss.site_sweep_plain, False, False,
+             CHAINS, {}),
+            ("site_sweep", ss.site_sweep, ss.site_sweep_plain, False, True,
+             K1_F2_CHAINS, {}),
             ("site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
-             complex_model, CPLX_SM)):
-        cx = kname == "site_sweep_cx"
-        for repulsive, chains in ((False, CHAINS), (True, K1_F2_CHAINS)):
-            ctx, _, state, gen = real_state(mk(repulsive), chains, 1,
-                                            use_kernels=False, safe_mult=sm)
-            G = state["G"]
-            sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-            u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
-            kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                      use_boson=ctx.use_boson)
-            out_k = fn(G, sigma, u, **kw)
-            err = check_sweep(kname, out_k, plain(G, sigma, u, **kw),
-                              tuple(G.shape), relative=False)
-            if not repulsive:
-                results[kname] = dict(
-                    max_abs_err=err,
-                    ms=1e3 * timed(lambda: fn(G, sigma, u, **kw), 50),
-                    plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 5),
-                    library_ms=None,
-                    **sweep_bound(chains, ctx.F, ctx.N,
-                                  out_k[2].sum().item(), complex_=cx))
+             True, False, CHAINS, {}),
+            ("site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
+             True, True, K1_F2_CHAINS, {}),
+            ("site_sweep_cx_128", sscx.site_sweep_cx,
+             sscx.site_sweep_cx_plain, True, False, CHAINS,
+             dict(L=CHAIN_L, dims=1))):
+        G, sigma, u, kw, ctx = sweep_inputs(cx, repulsive, chains, **where)
+        out_k = fn(G, sigma, u, **kw)
+        err = check_sweep(kname, out_k, plain(G, sigma, u, **kw),
+                          tuple(G.shape), relative=False, tol=0.0)
+        if not repulsive:
+            results[kname] = dict(
+                max_abs_err=err,
+                ms=1e3 * timed(lambda: fn(G, sigma, u, **kw), 50),
+                plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 5),
+                library_ms=None,
+                **sweep_bound(chains, ctx.F, ctx.N, out_k[2].sum().item(),
+                              complex_=cx))
+            dev = device_ms(lambda: fn(G, sigma, u, **kw))
+            if dev is not None:
+                results[kname]["device_ms"] = dev
 
     # ---- K5 at (256, 2, 64, 64), the repulsive run's shape, and at
     # (256, 1, 64, 64), on real Green's functions (plain-path init_state),
@@ -631,7 +686,7 @@ def phase_parity():
         err = check_sweep("site_sweep_single", [x[None] for x in out_k],
                           ss.site_sweep_plain(G1[None], s1[None], u1[None],
                                               **kw), (1,) + shape[1:],
-                          relative=False)
+                          relative=False, tol=0.0)
         results["site_sweep_single"] = dict(
             max_abs_err=err,
             ms=1e3 * timed(lambda: ss.site_sweep_single(G1, s1, u1, **kw),
@@ -868,7 +923,9 @@ def phase_parity():
     for name, r in results.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"[parity] {name}: kernel {r['ms']:.4f} ms, plain "
+        dev = (f" ({ms_text(r['device_ms'])} device)" if "device_ms" in r
+               else "")
+        log(f"[parity] {name}: kernel {r['ms']:.4f} ms{dev}, plain "
             f"{r['plain_ms']:.4f} ms per call, library call {lib}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
@@ -1421,9 +1478,11 @@ def main():
             launchescs, launchesrep, launchescx16, launchesch, launchesfw,
             launcheswy, launches1)
     launches = {k: sum(r[k] for r in runs) for k in launches}
-    # qr_cx's launches by shape: the chain128 run's at N = 128
-    launches["qr_cx_128"] = launchesch["qr_cx"]
-    launches["qr_cx"] -= launchesch["qr_cx"]
+    # qr_cx's and site_sweep_cx's launches by shape: the chain128 run's at
+    # N = 128
+    for k in ("qr_cx", "site_sweep_cx"):
+        launches[f"{k}_128"] = launchesch[k]
+        launches[k] -= launchesch[k]
     phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
                 simfw, simwy)
     mark("paths")

@@ -3,33 +3,41 @@
 //
 // The float32 instance (site_sweep_f32) replaces
 // montecarlo_tpu/ops/pallas_site_sweep.py::_batched_kernel in col_read mode
-// (reached through _site_sweep_batched / get_fused_site_sweep). The float64
-// instance (site_sweep_f64) replaces the XLA site loop the JAX package runs
-// for float64 updates (montecarlo_tpu/dqmc/core.py::sweep_slice, the
+// (reached through _site_sweep_batched / get_fused_site_sweep); at one chain
+// it is also K12 (site_sweep_pallas's _kernel). The float64 instance
+// (site_sweep_f64) replaces the XLA site loop the JAX package runs for
+// float64 updates (montecarlo_tpu/dqmc/core.py::sweep_slice, the
 // lax.fori_loop over sites): Mosaic is float32-only, so there is no TPU
 // kernel for it. The plain PyTorch version with the same op order, for
 // both, is montecarlo_tpu_torch/ops/site_sweep.py::site_sweep_plain.
 //
 // What bounds it: the N decisions of a chain are sequential, and each
-// accepted one is an O(F*N^2) rank-1 read-modify-write of G. At the DQMC
-// sizes (F*N*N = 4096 elements) that is a few thousand shared-memory FMAs
-// and two barriers per site, so the kernel is bound by shared-memory
-// bandwidth and barrier latency inside one block, not by device memory or
-// FLOPs; with one block per chain, 128-256 chains give one or two blocks per
-// SM.
+// accepted one is an O(F*N^2) rank-1 update of G: at the DQMC sizes
+// (F*N*N = 4096 elements) a few thousand FP32 operations per site, spread
+// over one block. The kernel is bound by the latency of the site chain
+// (decision, update, hand-over of the next row and column, barrier), not by
+// device memory or FLOPs.
 //
-// Design: one thread block per chain; G of the chain (F x N x N) lives in
-// dynamic shared memory for the whole site loop, so device memory is
-// touched once to load G and once to store it. Rows are padded to N+1
-// elements so the column read G[:, i] is free of bank conflicts. Every
-// thread computes the accept decision itself from the same shared values (no
-// broadcast barrier); only accepted sites stage row i and the scaled column
-// x*(e_i - G[:, i]) -- both read BEFORE the update overwrites them -- and
-// apply the rank-1 update. All arithmetic uses the _rn intrinsics (__f*_rn
-// in float32, __d*_rn in float64), which nvcc never fuses into FMAs, so
-// every value matches the plain PyTorch version's separately rounded
-// operations. float64 doubles the shared memory: F*N*(N+1)*8 bytes must fit
-// one block's 227 KB, so N <= 128 at F = 1 and N <= 119 at F = 2.
+// float32 design (site_sweep_tiled_f32, the loop in site_sweep_tiled.cuh):
+// one block per chain with G spread over the block's registers, each
+// thread a tile of it; only row i and column i go through shared memory,
+// published by their owners into a double buffer, so a site costs one
+// block barrier; sigma and u in shared memory; 256 threads per chain.
+//
+// float64 design (site_sweep_kernel<double>, the loop in
+// site_sweep_loop.cuh, which K13 shares): one block per chain; G of the
+// chain (F x N x N) lives in dynamic shared memory for the whole site loop,
+// rows padded to N+1 elements so the column read G[:, i] is free of bank
+// conflicts. Every thread computes the accept decision itself from the same
+// shared values (no broadcast barrier); only accepted sites stage row i and
+// the scaled column x*(e_i - G[:, i]) -- both read BEFORE the update
+// overwrites them -- and apply the rank-1 update, two barriers per
+// accepted site. float64 doubles the shared memory: F*N*(N+1)*8 bytes must
+// fit one block's 227 KB, so N <= 128 at F = 1 and N <= 119 at F = 2.
+//
+// All arithmetic uses the _rn intrinsics (__f*_rn in float32, __d*_rn in
+// float64), which nvcc never fuses into FMAs, so every value matches the
+// plain PyTorch version's separately rounded operations.
 //
 // Given a neg_out pointer (the float64 entry point), thread 0 also records
 // how large the chain's negative detratios were, as the XLA loop's
@@ -38,9 +46,7 @@
 // NULL: the Pallas kernels it replaces count the negative detratios alone.
 //
 // The TPU kernel's chain-on-lanes layout, one-hot contractions and
-// grid-as-site-loop are Mosaic workarounds and are not carried over. The
-// load, the site loop and the store live in site_sweep_loop.cuh, which K13
-// (site_sweep_wrap.cu) shares.
+// grid-as-site-loop are Mosaic workarounds and are not carried over.
 //
 // The delay-2 paired-site instance (site_sweep_pair_f32, kernel K5)
 // replaces montecarlo_tpu/ops/pallas_site_sweep.py::_batched_kernel_pair,
@@ -52,16 +58,64 @@
 // site i's rank-1 terms (row'_j = row_j - xIG_i[j]*row_i, col'_j = col_j -
 // xIG_i*row_i[j]) and site j is decided from them; both updates then land in
 // one read-modify-write pass, G <- (G - xIG_i (x) row_i) - xIG_j (x) row'_j.
-// Same bound as K1 (shared-memory RMW traffic and barriers inside one
-// block); the pairing halves what an accepted pair costs: one staging pass,
-// one RMW pass and two barriers instead of two of each. Every thread decides
+// Same bound as the one-block shared-memory loop of K1 in float64
+// (shared-memory RMW traffic and barriers inside one block); the pairing
+// halves what an accepted pair costs: one staging pass, one RMW pass and
+// two barriers instead of two of each. Every thread decides
 // both sites from the shared values before anything is written (G[i,i],
-// G[j,i], G[i,j], G[j,j] are four scalars per flavor), and every operation
-// is K1's _rn operation in K1's order, so K5 is bit-equal to K1.
+// G[j,i], G[i,j], G[j,j] are four scalars per flavor) with K1's
+// tiled::Decision, and every operation is K1's _rn operation in K1's
+// order, so K5 is bit-equal to K1.
 
 #include "site_sweep_loop.cuh"
+#include "site_sweep_tiled.cuh"
 
 namespace {
+
+#ifdef MC_PHASE_STAMPS
+// site_sweep_tiled_f32's phases (thread 0 of each block), as
+// tiled::sweep_chain laps them
+__device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
+#endif
+
+// K1 in float32: one block of Gm::NT threads per chain
+template <int F, class Gm>
+__global__ void __launch_bounds__(Gm::NT)
+site_sweep_tiled_f32(const float* __restrict__ G_in, float* __restrict__ G_out,
+                     const int8_t* __restrict__ sigma_in,
+                     int8_t* __restrict__ sigma_out,
+                     const float* __restrict__ u, int* __restrict__ acc_out,
+                     int* __restrict__ nneg_out, int N, float lamb,
+                     float sign0, float sign1, int det_power, int use_boson) {
+  extern __shared__ __align__(16) float smem_tiled[];
+  const int c = blockIdx.x;
+  const size_t base = (size_t)c * F * N * N;
+  phase_clock::Clock clk;
+  tiled::sweep_chain<false, F, F, Gm>(
+      smem_tiled, G_in + base, G_out + base, sigma_in + (size_t)c * N,
+      sigma_out + (size_t)c * N, u + (size_t)c * N, acc_out + c,
+      nneg_out + c, nullptr, nullptr, N, lamb, sign0, sign1, det_power,
+      use_boson, clk);
+#ifdef MC_PHASE_STAMPS
+  if (threadIdx.x == 0) clk.store(g_stamps, c);
+#endif
+}
+
+template <int F, class Gm>
+int launch_tiled(const float* G_in, float* G_out, const int8_t* sigma_in,
+                 int8_t* sigma_out, const float* u, int* acc, int* nneg,
+                 int C, int N, float lamb, float sign0, float sign1,
+                 int det_power, int use_boson, cudaStream_t stream) {
+  constexpr int smem = tiled::smem_bytes<false, F, F, Gm::NP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_tiled_f32<F, Gm>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  site_sweep_tiled_f32<F, Gm><<<C, Gm::NT, smem, stream>>>(
+      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, N, lamb, sign0, sign1,
+      det_power, use_boson);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -100,31 +154,6 @@ site_sweep_kernel(const T* __restrict__ G_in, T* __restrict__ G_out,
   }
 }
 
-// Metropolis decision of one site from the flavors' diagonal entries g[f]
-// (the current G_f[s, s]), in K1's op order: returns accept and sets the
-// rank-1 coefficients x[f] = delta_f / r_f and the detratio det.
-template <int F>
-__device__ __forceinline__ bool decide_site(int8_t s8, float u_s,
-                                            const float (&g)[F],
-                                            float neg2lamb, float sign0,
-                                            float sign1, int det_power,
-                                            int use_boson, float (&x)[F],
-                                            float& det) {
-  const float dEb = mul_rn(neg2lamb, (float)s8);
-  float rprod = 1.f;
-  for (int f = 0; f < F; ++f) {
-    const float sg = f == 0 ? sign0 : sign1;
-    const float delta = sub_rn(expf(mul_rn(sg, dEb)), 1.f);
-    const float r = add_rn(1.f, mul_rn(delta, sub_rn(1.f, g[f])));
-    x[f] = div_rn(delta, r);
-    rprod = f == 0 ? r : mul_rn(rprod, r);
-  }
-  det = rprod;
-  for (int k = 1; k < det_power; ++k) det = mul_rn(det, rprod);
-  const float w = use_boson ? expf(-dEb) : 1.f;
-  return u_s < mul_rn(w, det);
-}
-
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 site_sweep_pair_kernel(const float* __restrict__ G_in,
@@ -155,30 +184,30 @@ site_sweep_pair_kernel(const float* __restrict__ G_in,
   }
   __syncthreads();
 
-  const float neg2lamb = mul_rn(-2.f, lamb);
+  // K1's decision in float32 (site_sweep_tiled.cuh): x_f = delta_f / r_f
+  // and the detratio in its op order
+  const tiled::Decision<false, F> decide(lamb, sign0, sign1, use_boson);
   int acc = 0, nneg = 0;
   for (int i = 0; i < N; i += 2) {
     const int j = i + 1;
     const int8_t si = sigma_in[c * N + i], sj = sigma_in[c * N + j];
     // ---- site i from the current G
-    float g[F], xi[F], xj[F], det_i, det_j;
-    for (int f = 0; f < F; ++f) g[f] = Gs[(f * N + i) * LD + i];
-    const bool acc_i = decide_site<F>(si, u[c * N + i], g, neg2lamb, sign0,
-                                      sign1, det_power, use_boson, xi, det_i);
+    float g[F][1], xi[F][1], xj[F][1], det_i[1], det_j[1];
+    for (int f = 0; f < F; ++f) g[f][0] = Gs[(f * N + i) * LD + i];
+    const bool acc_i = decide(g, si, u[c * N + i], det_power, xi, det_i);
     // ---- site j from its diagonal corrected by site i's rank-1 terms:
     // cj = xIG_i[j] (e_i[j] = 0), ri = row_i[j]
     float cj[F], ri[F];
     for (int f = 0; f < F; ++f) {
-      cj[f] = mul_rn(xi[f], sub_rn(0.f, Gs[(f * N + j) * LD + i]));
+      cj[f] = mul_rn(xi[f][0], sub_rn(0.f, Gs[(f * N + j) * LD + i]));
       ri[f] = Gs[(f * N + i) * LD + j];
       const float gjj = Gs[(f * N + j) * LD + j];
-      g[f] = acc_i ? sub_rn(gjj, mul_rn(cj[f], ri[f])) : gjj;
+      g[f][0] = acc_i ? sub_rn(gjj, mul_rn(cj[f], ri[f])) : gjj;
     }
-    const bool acc_j = decide_site<F>(sj, u[c * N + j], g, neg2lamb, sign0,
-                                      sign1, det_power, use_boson, xj, det_j);
+    const bool acc_j = decide(g, sj, u[c * N + j], det_power, xj, det_j);
     if (tid == 0) {
       acc += acc_i + acc_j;
-      nneg += (det_i < 0.f) + (det_j < 0.f);
+      nneg += (det_i[0] < 0.f) + (det_j[0] < 0.f);
       sigma_out[c * N + i] = acc_i ? (int8_t)(-si) : si;
       sigma_out[c * N + j] = acc_j ? (int8_t)(-sj) : sj;
     }
@@ -187,8 +216,8 @@ site_sweep_pair_kernel(const float* __restrict__ G_in,
     for (int e = tid; e < F * N; e += blockDim.x) {
       const int f = e / N, a = e - f * N;
       // constant indices keep the per-flavor scalars in registers
-      const float x_i = f == 0 ? xi[0] : xi[F - 1];
-      const float x_j = f == 0 ? xj[0] : xj[F - 1];
+      const float x_i = f == 0 ? xi[0][0] : xi[F - 1][0];
+      const float x_j = f == 0 ? xj[0][0] : xj[F - 1][0];
       const float c_j = f == 0 ? cj[0] : cj[F - 1];
       const float r_i = f == 0 ? ri[0] : ri[F - 1];
       const float gi = Gs[(f * N + i) * LD + a];  // row_i[a]
@@ -286,17 +315,26 @@ int dispatch(const T* G_in, T* G_out, const int8_t* sigma_in,
 
 }  // namespace
 
-// Return the cudaError_t of the launch (0 = success). N <= 128, F in {1,2};
-// a float64 G that does not fit one block's shared memory fails the launch.
+// Return the cudaError_t of the launch (0 = success). N <= 128, F in {1,2}.
 extern "C" int site_sweep_f32(const float* G_in, float* G_out,
                               const int8_t* sigma_in, int8_t* sigma_out,
                               const float* u, int* acc, int* nneg, int C,
                               int F, int N, float lamb, float sign0,
                               float sign1, int det_power, int use_boson,
                               void* stream) {
-  return dispatch<float>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
-                         nullptr, C, F, N, lamb, sign0, sign1, det_power,
-                         use_boson, stream);
+  if (C == 0) return 0;
+  if (N < 1 || N > 128 || F < 1 || F > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return tiled::with_layout(N, [&](auto gm) {
+    using Gm = decltype(gm);
+    if (F == 1)
+      return launch_tiled<1, Gm>(
+          G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, N, lamb, sign0,
+          sign1, det_power, use_boson, st);
+    return launch_tiled<2, Gm>(
+        G_in, G_out, sigma_in, sigma_out, u, acc, nneg, C, N, lamb, sign0,
+        sign1, det_power, use_boson, st);
+  });
 }
 
 // K5: even N <= 128, F in {1,2}, float32.
@@ -328,4 +366,16 @@ extern "C" int site_sweep_f64(const double* G_in, double* G_out,
   return dispatch<double>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
                           C, F, N, lamb, sign0, sign1, det_power, use_boson,
                           stream);
+}
+
+// Phase stamps of the last float32 K1 launch's first n_blocks blocks
+// (kPhases cycle sums each) into dst on the host: a build with
+// -DMC_PHASE_STAMPS only.
+extern "C" int site_sweep_f32_stamps(void* dst, int n_blocks, void* stream) {
+#ifdef MC_PHASE_STAMPS
+  return phase_clock::copy_rows(g_stamps, dst, n_blocks, stream);
+#else
+  (void)dst, (void)n_blocks, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -17,156 +17,76 @@
 // folds them into the phase-problem statistics (imaginary weights, the
 // running weight phase), which is why this kernel does not count them.
 //
-// What bounds it: as for K1 (csrc/site_sweep.cu), the N decisions of a chain
-// are sequential and each accepted one is an O(F*N^2) read-modify-write of
-// G, now of two planes and 8 FP32 operations per element. At N = 64 that is
-// a few thousand shared-memory operations and two barriers per accepted
-// site: shared-memory bandwidth and barrier latency inside one block, not
-// device memory or FLOPs.
+// What bounds it: the N decisions of a chain are sequential and each
+// accepted one updates G_f, 8 FP32 operations per complex element (no FMA:
+// the plain version rounds each product). At N = 64 that is the latency of
+// the site chain; at N = 128, 131,072 operations per accepted site and
+// chain, the SM's FP32 issue rate (128 per cycle): about 1,000 cycles per
+// site with one chain per SM.
 //
-// Design: K1's. One 256-thread block per chain; G of the chain as two
-// float32 planes (re, im), rows padded to N+1 floats so the column read
-// G[:, i] is free of bank conflicts, in dynamic shared memory for the whole
-// site loop (32 KB at N = 64, F = 1; 128 KB at N = 128, F = 1; N = 128 at
-// F = 2 would need 256 KB and is refused). Device memory is touched once to
-// load G and once to store it. Every thread computes the decision itself
-// from the same shared values; only accepted sites stage row i and y (both
-// read before the update overwrites them) and apply the update. The complex
-// arithmetic is written out on the two planes in the plain version's order
-// with _rn intrinsics, which nvcc never fuses into FMAs, so the kernel
-// rounds every value as the plain PyTorch version does.
+// Design: K1's float32 loop (site_sweep_tiled.cuh) on two float32 planes:
+// one block per chain, G spread over the block's registers, only row i and
+// column i staged in shared memory, one block barrier per site, sigma and u
+// in shared memory; the accept flags and det of the sites gather in shared
+// memory and go out after the loop. G of 256 chains at N = 128 (32 MB) fits
+// neither the card's register files (33 MB, with nothing else in them) nor
+// its shared memory (29 MB), so at N = 128 the chains run in two waves of
+// one block per SM; at F = 2 past N = 64 flavor 1 lives in shared memory,
+// private to each thread. 256 threads per chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phase_clock.cuh"
+#include "site_sweep_tiled.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+#ifdef MC_PHASE_STAMPS
+// site_sweep_tiled_cx's phases (thread 0 of each block), as
+// tiled::sweep_chain laps them
+__device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
+#endif
 
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-site_sweep_cx_kernel(const float2* __restrict__ G_in,
-                     float2* __restrict__ G_out,
-                     const int8_t* __restrict__ sigma_in,
-                     int8_t* __restrict__ sigma_out,
-                     const float* __restrict__ u,
-                     uint8_t* __restrict__ accept_out,
-                     float2* __restrict__ det_out, int N, float lamb,
-                     float sign0, float sign1, int det_power, int use_boson) {
-  extern __shared__ float smem[];
-  const int LD = N + 1;
-  float* Gr = smem;                   // Re G_f[a, b] at (f*N + a)*LD + b
-  float* Gi = Gr + F * N * LD;        // Im G_f[a, b]
-  float* rows_r = Gi + F * N * LD;    // [f][b]: G_f[i, b]
-  float* rows_i = rows_r + F * N;
-  float* ys_r = rows_i + F * N;       // [f][a]: y_f[a]
-  float* ys_i = ys_r + F * N;
+template <int F, class Gm>
+__global__ void __launch_bounds__(Gm::NT)
+site_sweep_tiled_cx(const float2* __restrict__ G_in,
+                    float2* __restrict__ G_out,
+                    const int8_t* __restrict__ sigma_in,
+                    int8_t* __restrict__ sigma_out,
+                    const float* __restrict__ u,
+                    uint8_t* __restrict__ accept_out,
+                    float2* __restrict__ det_out, int N, float lamb,
+                    float sign0, float sign1, int det_power, int use_boson) {
+  constexpr int FR = tiled::flavors_in_registers<true, F, Gm::NP>();
+  extern __shared__ __align__(16) float smem_tiled[];
   const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid % N, ty = tid / N, rstep = blockDim.x / N;
-  const bool active = ty < rstep;
   const size_t base = (size_t)c * F * N * N;
-
-  if (active) {
-    for (int f = 0; f < F; ++f)
-      for (int a = ty; a < N; a += rstep) {
-        const float2 g = G_in[base + (size_t)(f * N + a) * N + tx];
-        Gr[(f * N + a) * LD + tx] = g.x;
-        Gi[(f * N + a) * LD + tx] = g.y;
-      }
-  }
-  __syncthreads();
-
-  const float neg2lamb = -2.f * lamb;
-  for (int i = 0; i < N; ++i) {
-    const int8_t s8 = sigma_in[c * N + i];
-    const float dEb = __fmul_rn(neg2lamb, (float)s8);
-    float delta[F], rr[F], ri[F];
-    float pr = 0.f, pi = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float sg = f == 0 ? sign0 : sign1;
-      delta[f] = __fsub_rn(expf(__fmul_rn(sg, dEb)), 1.f);
-      const float gr = Gr[(f * N + i) * LD + i];
-      const float gi = Gi[(f * N + i) * LD + i];
-      rr[f] = __fadd_rn(1.f, __fmul_rn(delta[f], __fsub_rn(1.f, gr)));
-      ri[f] = -__fmul_rn(delta[f], gi);
-      if (f == 0) {
-        pr = rr[0];
-        pi = ri[0];
-      } else {
-        const float npr = __fsub_rn(__fmul_rn(pr, rr[f]), __fmul_rn(pi, ri[f]));
-        const float npi = __fadd_rn(__fmul_rn(pr, ri[f]), __fmul_rn(pi, rr[f]));
-        pr = npr;
-        pi = npi;
-      }
-    }
-    float dre = pr, dim = pi;
-    if (det_power == 2) {
-      dre = __fsub_rn(__fmul_rn(pr, pr), __fmul_rn(pi, pi));
-      dim = __fmul_rn(__fmul_rn(2.f, pr), pi);
-    }
-    const float w = use_boson ? expf(-dEb) : 1.f;
-    const bool accept = u[c * N + i] < __fmul_rn(w, dre);
-    if (tid == 0) {
-      accept_out[c * N + i] = accept;
-      det_out[c * N + i] = make_float2(dre, dim);
-      sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
-    }
-    if (!accept) continue;  // block-uniform: every thread decided the same
-    for (int e = tid; e < F * N; e += blockDim.x) {
-      const int f = e / N, a = e - f * N;
-      // constant indices keep delta/r in registers
-      const float d = f == 0 ? delta[0] : delta[F - 1];
-      const float r_re = f == 0 ? rr[0] : rr[F - 1];
-      const float r_im = f == 0 ? ri[0] : ri[F - 1];
-      const float inv = __fdiv_rn(
-          1.f, __fadd_rn(__fmul_rn(r_re, r_re), __fmul_rn(r_im, r_im)));
-      const float xr = __fmul_rn(__fmul_rn(d, r_re), inv);
-      const float xi = -__fmul_rn(__fmul_rn(d, r_im), inv);
-      rows_r[e] = Gr[(f * N + i) * LD + a];
-      rows_i[e] = Gi[(f * N + i) * LD + a];
-      const float igr = __fsub_rn(a == i ? 1.f : 0.f, Gr[(f * N + a) * LD + i]);
-      const float igi = -Gi[(f * N + a) * LD + i];
-      ys_r[e] = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
-      ys_i[e] = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
-    }
-    __syncthreads();
-    if (active) {
-      for (int f = 0; f < F; ++f) {
-        const float br = rows_r[f * N + tx], bi = rows_i[f * N + tx];
-        for (int a = ty; a < N; a += rstep) {
-          const float yr = ys_r[f * N + a], yi = ys_i[f * N + a];
-          float* gr = &Gr[(f * N + a) * LD + tx];
-          float* gi = &Gi[(f * N + a) * LD + tx];
-          *gr = __fsub_rn(*gr, __fsub_rn(__fmul_rn(yr, br), __fmul_rn(yi, bi)));
-          *gi = __fsub_rn(*gi, __fadd_rn(__fmul_rn(yr, bi), __fmul_rn(yi, br)));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    for (int f = 0; f < F; ++f)
-      for (int a = ty; a < N; a += rstep)
-        G_out[base + (size_t)(f * N + a) * N + tx] = make_float2(
-            Gr[(f * N + a) * LD + tx], Gi[(f * N + a) * LD + tx]);
-  }
+  phase_clock::Clock clk;
+  tiled::sweep_chain<true, F, FR, Gm>(
+      smem_tiled, reinterpret_cast<const float*>(G_in + base),
+      reinterpret_cast<float*>(G_out + base), sigma_in + (size_t)c * N,
+      sigma_out + (size_t)c * N, u + (size_t)c * N, nullptr, nullptr,
+      accept_out + (size_t)c * N,
+      reinterpret_cast<float*>(det_out + (size_t)c * N), N, lamb, sign0,
+      sign1, det_power, use_boson, clk);
+#ifdef MC_PHASE_STAMPS
+  if (threadIdx.x == 0) clk.store(g_stamps, c);
+#endif
 }
 
-template <int F>
+template <int F, class Gm>
 int launch(const float2* G_in, float2* G_out, const int8_t* sigma_in,
            int8_t* sigma_out, const float* u, uint8_t* accept, float2* det,
            int C, int N, float lamb, float sign0, float sign1, int det_power,
            int use_boson, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * F * N * (N + 1) + 4 * F * N) * sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  constexpr int smem = tiled::smem_bytes<
+      true, F, tiled::flavors_in_registers<true, F, Gm::NP>(), Gm::NP>();
   cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_cx_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      site_sweep_tiled_cx<F, Gm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  site_sweep_cx_kernel<F><<<C, kThreads, smem, stream>>>(
+  site_sweep_tiled_cx<F, Gm><<<C, Gm::NT, smem, stream>>>(
       G_in, G_out, sigma_in, sigma_out, u, accept, det, N, lamb, sign0,
       sign1, det_power, use_boson);
   return (int)cudaGetLastError();
@@ -176,7 +96,7 @@ int launch(const float2* G_in, float2* G_out, const int8_t* sigma_in,
 
 // Returns the cudaError_t of the launch (0 = success). G is complex64
 // (interleaved re, im), accept one byte per site, det complex64 (C, N).
-// N <= 128, F in {1, 2}, G of one chain within the shared memory of a block.
+// N <= 128, F in {1, 2}, det_power in {1, 2}.
 extern "C" int site_sweep_cx_c64(const void* G_in, void* G_out,
                                  const int8_t* sigma_in, int8_t* sigma_out,
                                  const float* u, uint8_t* accept, void* det,
@@ -184,17 +104,29 @@ extern "C" int site_sweep_cx_c64(const void* G_in, void* G_out,
                                  float sign1, int det_power, int use_boson,
                                  void* stream) {
   if (C == 0) return 0;
-  if (N < 1 || N > 128 || det_power < 1 || det_power > 2)
+  if (N < 1 || N > 128 || F < 1 || F > 2 || det_power < 1 || det_power > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const float2* gi = (const float2*)G_in;
-  float2* go = (float2*)G_out;
-  float2* dt = (float2*)det;
-  if (F == 1)
-    return launch<1>(gi, go, sigma_in, sigma_out, u, accept, dt, C, N, lamb,
-                     sign0, sign1, det_power, use_boson, st);
-  if (F == 2)
-    return launch<2>(gi, go, sigma_in, sigma_out, u, accept, dt, C, N, lamb,
-                     sign0, sign1, det_power, use_boson, st);
-  return (int)cudaErrorInvalidValue;
+  return tiled::with_layout(N, [&](auto gm) {
+    using Gm = decltype(gm);
+    if (F == 1)
+      return launch<1, Gm>(
+          (const float2*)G_in, (float2*)G_out, sigma_in, sigma_out, u, accept,
+          (float2*)det, C, N, lamb, sign0, sign1, det_power, use_boson, st);
+    return launch<2, Gm>(
+        (const float2*)G_in, (float2*)G_out, sigma_in, sigma_out, u, accept,
+        (float2*)det, C, N, lamb, sign0, sign1, det_power, use_boson, st);
+  });
+}
+
+// Phase stamps of the last launch's first n_blocks blocks (kPhases cycle sums
+// each) into dst on the host: a build with -DMC_PHASE_STAMPS only.
+extern "C" int site_sweep_cx_c64_stamps(void* dst, int n_blocks,
+                                        void* stream) {
+#ifdef MC_PHASE_STAMPS
+  return phase_clock::copy_rows(g_stamps, dst, n_blocks, stream);
+#else
+  (void)dst, (void)n_blocks, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -298,7 +298,8 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
             else _ssd.kernel_supports(N, F, max(delay, 1))):
         raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
                           f"(K1 takes N <= {MAX_N}, K6 4 | N beyond with its "
-                          "buffers in shared memory, both F <= 2)", "Queue 2 K6")
+                          "buffers in shared memory, both F <= 2)",
+                          "Queue 1 item 4")
     if f64:
         return
     if not (_qrh.kernel_supports(N) or _qr_blocked.kernel_supports(N)):

@@ -87,6 +87,8 @@ SIGNATURES = {
     "site_sweep_delayed_cx_c64_stamps": (_P, _I, _P),
     "qr_cx_c64_stamps": (_P, _I, _P),
     "qr_blocked_f32_stamps": (_P, _I, _P),
+    "site_sweep_f32_stamps": (_P, _I, _P),
+    "site_sweep_cx_c64_stamps": (_P, _I, _P),
 }
 
 

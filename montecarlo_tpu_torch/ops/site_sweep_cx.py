@@ -1,7 +1,8 @@
 """Sequential Metropolis site sweep over one time slice for a complex
 Green's function (kernel K8: complex hopping, e.g. Peierls phases).
 
-``site_sweep_cx`` launches the CUDA kernel ``csrc/site_sweep_cx.cu`` on CUDA
+``site_sweep_cx`` launches the CUDA kernel ``csrc/site_sweep_cx.cu`` (its
+loop in ``csrc/site_sweep_tiled.cuh``, shared with K1 in float32) on CUDA
 tensors; on CPU tensors it runs ``site_sweep_cx_plain``, the plain PyTorch
 version of the same algorithm with the same op order. It replaces the Pallas
 kernel ``montecarlo_tpu/ops/pallas_site_sweep.py::_cx_kernel`` (reached
@@ -27,20 +28,25 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .site_sweep import MAX_N
+from .site_sweep import MAX_N, PHASES, tiled_smem_bytes
+from .site_sweep import layout as _layout
 
-
-def smem_bytes(N: int, F: int) -> int:
-    """Shared memory of one block: G as two float32 planes with rows padded
-    to N+1, plus the staged row and y of both planes."""
-    return (2 * F * N * (N + 1) + 4 * F * N) * 4
+# F = 2 stops here: the layout with flavor 1 in shared memory would take
+# N = 128, but the complex sessions' route table keeps the shapes it had
+MAX_N_F2 = 119
 
 
 def kernel_supports(N: int, F: int) -> bool:
-    """Shapes the CUDA kernel takes: G of one chain stays in shared memory
-    for the whole sweep (N <= 128 at F = 1, N <= 119 at F = 2)."""
-    return (1 <= N <= MAX_N and F in (1, 2)
-            and smem_bytes(N, F) <= _build.SMEM_PER_BLOCK)
+    """Shapes the CUDA kernel takes: N <= 128 at F = 1, N <= 119 at F = 2
+    (``MAX_N_F2``), G of one chain over the block's registers (flavor 1 in
+    shared memory at F = 2 past N = 64)."""
+    return (1 <= N <= (MAX_N if F == 1 else MAX_N_F2) and F in (1, 2)
+            and tiled_smem_bytes(N, F, True) <= _build.SMEM_PER_BLOCK)
+
+
+def layout(N: int, F: int) -> str:
+    """K8's layout at this shape, in words."""
+    return _layout(N, F, complex_=True)
 
 
 def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
@@ -98,10 +104,10 @@ def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
 
 def site_sweep_cx(G, sigma, u, *, lamb, signs, det_power, use_boson):
     """Complex site sweep of one time slice for every chain: the CUDA kernel
-    for a CUDA tensor, ``site_sweep_cx_plain`` for a CPU tensor. Same
-    arguments and results as ``site_sweep_cx_plain``; on CUDA, G must be
-    complex64 (C, F, N, N) within ``kernel_supports``, sigma int8 (C, N) and
-    u float32 (C, N), all contiguous on one device."""
+    for a CUDA tensor, ``site_sweep_cx_plain`` for a CPU tensor. Same arguments and results as
+    ``site_sweep_cx_plain``; on CUDA, G must be complex64 (C, F, N, N)
+    within ``kernel_supports``, sigma int8 (C, N) and u float32 (C, N), all
+    contiguous on one device."""
     kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
     if G.device.type == "cpu":
         return site_sweep_cx_plain(G, sigma, u, **kw)
@@ -139,8 +145,8 @@ def _check(G, sigma, u, signs, det_power):
     C, F, N, _ = G.shape
     if not kernel_supports(N, F) or len(signs) != F or det_power not in (1, 2):
         raise ValueError(f"site_sweep_cx: no CUDA kernel for N={N}, F={F} "
-                         f"(G of one chain in shared memory: N <= {MAX_N} at "
-                         "F = 1, N <= 119 at F = 2; det_power 1 or 2)")
+                         f"(N <= {MAX_N} at F = 1, N <= {MAX_N_F2} at F = 2; "
+                         "det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
         raise ValueError("site_sweep_cx: sigma and u must be (C, N)")
     for t in (G, sigma, u):

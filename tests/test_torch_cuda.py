@@ -887,3 +887,83 @@ def test_new_wrappers_check_inputs(cuda):
         ss.site_sweep_single(torch.zeros(1, 129, 129, device=cuda),
                              torch.ones(129, device=cuda, dtype=torch.int8),
                              torch.zeros(129, device=cuda), **kw)
+
+
+# ---------------------------------------------------------------------------
+# K1 in float32 and K8 on the tiled layout (csrc/site_sweep_tiled.cuh): bit
+# for bit against their plain versions
+# ---------------------------------------------------------------------------
+
+def _equal_outputs(out_k, out_p):
+    """Every result of a kernel equal to its plain version's, bit for bit."""
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inputs", ["sweep", "pair"])
+@pytest.mark.parametrize("C,F,N", [(256, 1, 64), (128, 1, 64), (3, 2, 128),
+                                   (5, 1, 100), (7, 2, 9)])
+def test_site_sweep_tiled_bit_equal(cuda, C, F, N, inputs):
+    """K1 in float32 at its plan's layout: G, sigma, acc and nneg equal to
+    the plain version's (tolerance 0.0), on inputs with few rejections
+    (sweep: at (3, 2, 128, 128) none) and with a few in ten (pair)."""
+    kw = dict(lamb=LAMB, **MODELS["attractive" if F == 1 else "repulsive"])
+    make = sweep_inputs if inputs == "sweep" else pair_inputs
+    G, sigma, u = (torch.from_numpy(x).to(cuda) for x in make(C + N, C, F, N))
+    n0 = ss.site_sweep.launches
+    out_k = ss.site_sweep(G, sigma, u, **kw)
+    assert ss.site_sweep.launches == n0 + 1
+    _equal_outputs(out_k, ss.site_sweep_plain(G, sigma, u, **kw)[:4])
+    n_acc = out_k[2].sum().item()
+    assert 0 < n_acc and (inputs == "sweep" or n_acc < C * N)
+
+
+@pytest.mark.parametrize("N", [64, 100])
+def test_site_sweep_single_tiled_bit_equal(cuda, N):
+    """K12 (K1 at C = 1, in the plan's layout for one chain) bit for bit."""
+    kw = dict(lamb=LAMB, **MODELS["attractive"])
+    G, sigma, u = (torch.from_numpy(x[0]).to(cuda)
+                   for x in pair_inputs(N, 1, 1, N))
+    n0 = ss.site_sweep_single.launches
+    out_k = ss.site_sweep_single(G, sigma, u, **kw)
+    assert ss.site_sweep_single.launches == n0 + 1
+    out_p = ss.site_sweep_plain(G[None], sigma[None], u[None], **kw)
+    _equal_outputs(out_k, [x[0] for x in out_p[:4]])
+
+
+@pytest.mark.parametrize("det_power,use_boson", [(1, False), (1, True),
+                                                 (2, False), (2, True)])
+@pytest.mark.parametrize("C,F,N", [(256, 1, 64), (256, 1, 128), (3, 2, 119),
+                                   (5, 1, 100), (7, 2, 9)])
+def test_site_sweep_cx_tiled_bit_equal(cuda, C, F, N, det_power, use_boson):
+    """K8 at its plan's layout: G, sigma, the accept flags and the complex
+    detratios equal to the plain version's (tolerance 0.0)."""
+    kw = dict(lamb=LAMB, signs=(1.0,) if F == 1 else (1.0, -1.0),
+              det_power=det_power, use_boson=use_boson)
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in cx_sweep_inputs(C + N, C, F, N))
+    n0 = sscx.site_sweep_cx.launches
+    out_k = sscx.site_sweep_cx(G, sigma, u, **kw)
+    assert sscx.site_sweep_cx.launches == n0 + 1
+    _equal_outputs(out_k, sscx.site_sweep_cx_plain(G, sigma, u, **kw))
+    assert 0 < out_k[2].sum().item() < C * N
+
+
+@pytest.mark.parametrize("cx,F,N", [
+    (False, 1, 64), (False, 2, 64), (False, 1, 128), (False, 2, 128),
+    (False, 2, 30), (False, 1, 77), (True, 1, 64), (True, 2, 64),
+    (True, 1, 128), (True, 2, 119), (True, 1, 17), (True, 2, 72)])
+def test_site_sweep_tiled_shapes_bit_equal(cuda, cx, F, N):
+    """K1 in float32 (cx: K8) at padded and unpadded N of each of its three
+    layouts, bit for bit against the plain version."""
+    kw = dict(lamb=LAMB, **MODELS["attractive" if F == 1 else "repulsive"])
+    make = cx_sweep_inputs if cx else pair_inputs
+    G, sigma, u = (torch.from_numpy(x).to(cuda) for x in make(N, 5, F, N))
+    if cx:
+        out_k = sscx.site_sweep_cx(G, sigma, u, **kw)
+        out_p = sscx.site_sweep_cx_plain(G, sigma, u, **kw)
+    else:
+        out_k = ss.site_sweep(G, sigma, u, **kw)
+        out_p = ss.site_sweep_plain(G, sigma, u, **kw)[:4]
+    _equal_outputs(out_k, out_p)

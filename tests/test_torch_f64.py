@@ -257,7 +257,8 @@ F32, F64 = torch.float32, torch.float64
     (64, 1, F32, F64, None),      # float64 updates over float32 stacks
     (100, 1, F32, F32, "item 4"),     # 8 does not divide N: XLA's QR in JAX
     (9, 2, F32, F32, "item 4"),
-    (64, 3, F64, F64, "K6")])         # no site sweep for F = 3
+    (130, 1, F32, F32, "item 4"),     # 4 does not divide N past 128: no K6
+    (64, 3, F64, F64, "item 4")])     # no site sweep for F = 3
 def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, udtype)

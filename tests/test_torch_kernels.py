@@ -83,6 +83,52 @@ def test_site_sweep_kernel_shapes():
     assert not ss.kernel_supports(120, 2, f64)
 
 
+@pytest.mark.parametrize("F", [1, 2])
+def test_tiled_kernels_take_every_earlier_shape(F):
+    """K1 in float32 and K8 take every (N, F) that G of one chain in shared
+    memory took before the tiled layout (K1: F*N*(N+1) + 2*F*N floats, K8:
+    two planes and four staging vectors within one block's shared memory),
+    with the layout the wrappers launch built and its shared memory within
+    one block's."""
+    for N in range(1, 129):
+        k1 = (F * N * (N + 1) + 2 * F * N) * 4 <= _build.SMEM_PER_BLOCK
+        k8 = (2 * F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK
+        assert ss.kernel_supports(N, F) >= k1, N
+        assert sscx.kernel_supports(N, F) >= k8, N
+        for cx in (False, True):
+            assert ss.tiled_smem_bytes(N, F, cx) <= _build.SMEM_PER_BLOCK
+            assert f"{ss.THREADS} threads" in ss.layout(N, F, cx)
+    assert ss.kernel_supports(128, 2) and sscx.kernel_supports(119, 2)
+
+
+def _tiled_geoms():
+    """The layouts csrc/site_sweep_tiled.cuh launches: (TR, TC, RT, CT) of
+    each Geom in its with_layout, in the order of NP."""
+    import re
+    src = (_build.CSRC_DIR / "site_sweep_tiled.cuh").read_text()
+    body = src[src.index("int with_layout("):]
+    body = body[:body.index("\n}\n")]
+    return [tuple(map(int, m)) for m in re.findall(
+        r"Geom<(\d+), (\d+), (\d+), (\d+)>", body)]
+
+
+def test_tiled_layouts_cover_g_once():
+    """The kernels' layout at each padded N (32, 64, 128) has THREADS
+    threads, and its threads' rows and columns (Geom::row, Geom::col:
+    chunks of up to 4 consecutive indices) cover 0..NP-1 once each."""
+    geoms = _tiled_geoms()
+    assert [tr * rt for tr, _, rt, _ in geoms] == [
+        ss.padded(n) for n in (32, 64, 128)]
+    for tr, tc, rt, ct in geoms:
+        np_, nt = tr * rt, tr * tc
+        assert nt == ss.THREADS and tc * ct == np_
+        for t, per, n in ((tr, rt, "rows"), (tc, ct, "cols")):
+            w = min(per, 4)
+            idx = sorted((k // w) * (t * w) + th * w + k % w
+                         for th in range(t) for k in range(per))
+            assert idx == list(range(np_)), (np_, nt, n)
+
+
 # ---------------------------------------------------------------------------
 # K5: delay-2 paired-site sweep
 # ---------------------------------------------------------------------------
@@ -543,7 +589,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
     assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
-                                                  "site_sweep_loop.cuh"]
+                                                  "site_sweep_loop.cuh",
+                                                  "site_sweep_tiled.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -563,7 +610,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_f32_max_clusters",
         "site_sweep_delayed_cx_c64_max_clusters",
         "site_sweep_delayed_f32_stamps", "site_sweep_delayed_cx_c64_stamps",
-        "qr_cx_c64_stamps", "qr_blocked_f32_stamps"}
+        "qr_cx_c64_stamps", "qr_blocked_f32_stamps",
+        "site_sweep_f32_stamps", "site_sweep_cx_c64_stamps"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -47,8 +47,8 @@ def test_cuda_kernel_routes():
                         (256, 1, 32), (256, 2, 32), (72, 1, 0), (128, 2, 0)):
         ok(N, F, delay)
     for N, F, delay, item in ((100, 1, 0, "item 4"), (9, 1, 0, "item 4"),
-                              (132, 1, 0, "item 4"), (256, 3, 32, "K6"),
-                              (1024, 2, 32, "K6")):
+                              (132, 1, 0, "item 4"), (256, 3, 32, "item 4"),
+                              (1024, 2, 32, "item 4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             ok(N, F, delay)
     with pytest.raises(NotImplementedError, match="float64"):

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the kernels of two checkouts of the port in turns, on one NVIDIA GPU.
 
-    python3 chip_ab.py PARENT CHANGE
+    python3 chip_ab.py PARENT CHANGE [CASE ...]
 
 PARENT and CHANGE are directories that each hold a checkout of the repo (for
 example the parent commit unpacked with ``git archive`` into a git-ignored
 directory, and ``.``). For each in the order PARENT, CHANGE, CHANGE, PARENT,
 a child process imports montecarlo_tpu_torch from that checkout (building
 its kernels there) and prints the median synchronised time per call of
-each case in CASES, and its device time per call under torch.profiler (the
+each case in CASES (or those whose names start with one of the CASE
+arguments), and its device time per call under torch.profiler (the
 kernels alone, where the host's launches are slower than the card); the
 turns cancel a drift of the card's clock between the first run and the
 last. Prints nvidia-smi's name and power limit, one
@@ -26,6 +27,11 @@ JSON line per run and a summary per case. Needs CUDA.
   site_sweep (256, 1, 64, 64)       K1 on the headline's inputs, K8 on the
   site_sweep_cx (256, 1, 64, 64)    complex configuration's and on
   site_sweep_cx (256, 1, 128, 128)  chain128's, made the same way
+  udt_qr (256, 64, 64)        the fused UDT K2 and K3 at the headline's
+  udt_qr_solve (256, 64, 64)  shape and at the repulsive model's (B = 512:
+  udt_qr (512, 64, 64)        two flavors), on chip_smoke.py's graded,
+  udt_qr_solve (512, 64, 64)  prescaled, pivoted float32 matrices (K3's
+                       right-hand side random normal)
 """
 
 from __future__ import annotations
@@ -85,6 +91,23 @@ def _delayed(complex_):
     return make
 
 
+def _udt(B, solve):
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import qr
+        from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+        smoke = _smoke()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        N = smoke.L * smoke.L
+        Ap, mx, _ = _prescale_pivot(smoke.graded(gen, B, N))
+        Ap, mx = Ap.contiguous(), mx.reshape(-1).contiguous()
+        if not solve:
+            return lambda: qr.udt_qr(Ap, mx)
+        Z = torch.randn(B, N, N, generator=gen, device="cuda")
+        return lambda: qr.udt_qr_solve(Ap, Z, mx)
+    return make
+
+
 CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "qr_cx (256, 128, 128)": _qr(256, 128, True),
          "qr_blocked (64, 256, 256)": _qr(64, 256, False),
@@ -92,18 +115,29 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True),
          "site_sweep (256, 1, 64, 64)": _sweep(False),
          "site_sweep_cx (256, 1, 64, 64)": _sweep(True),
-         "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1)}
+         "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1),
+         "udt_qr (256, 64, 64)": _udt(256, False),
+         "udt_qr_solve (256, 64, 64)": _udt(256, True),
+         "udt_qr (512, 64, 64)": _udt(512, False),
+         "udt_qr_solve (512, 64, 64)": _udt(512, True)}
 
 
-def child(root):
-    """Import the port from root and time every case there."""
+def selected(prefixes):
+    """The names of CASES that start with one of prefixes (all without)."""
+    return [n for n in CASES
+            if not prefixes or any(n.startswith(p) for p in prefixes)]
+
+
+def child(root, prefixes):
+    """Import the port from root and time the selected cases there."""
     import torch
     sys.path.insert(0, str(root))
     import montecarlo_tpu_torch
     where = Path(montecarlo_tpu_torch.__file__).resolve()
     if root.resolve() not in where.parents:
         raise SystemExit(f"chip_ab: imported {where}, not from {root}")
-    for name, make in CASES.items():
+    for name in selected(prefixes):
+        make = CASES[name]
         fn = make()
         for _ in range(3):                  # build, load and warm up
             fn()
@@ -127,17 +161,17 @@ def child(root):
 
 
 def main(argv):
-    if len(argv) == 2 and argv[0] == "--child":
-        child(Path(argv[1]))
+    if len(argv) >= 2 and argv[0] == "--child":
+        child(Path(argv[1]), argv[2:])
         return 0
-    if len(argv) != 2:
+    if len(argv) < 2 or not selected(argv[2:]):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_ab: needs one NVIDIA GPU", file=sys.stderr)
         return 1
-    parent, change = (Path(a).resolve() for a in argv)
+    parent, change = (Path(a).resolve() for a in argv[:2])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
@@ -145,12 +179,13 @@ def main(argv):
     runs = []
     for tag, root in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
-        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+        out = subprocess.run([sys.executable, __file__, "--child", str(root),
+                              *argv[2:]],
                              capture_output=True, text=True, check=True,
                              timeout=900, cwd=root)
         print(out.stdout, end="", flush=True)
         runs += [(tag, json.loads(line)) for line in out.stdout.splitlines()]
-    for name in CASES:
+    for name in selected(argv[2:]):
         for key, what in (("ms", "per call"),
                           ("device_ms", "device per call")):
             ms = {t: [r[key] for tt, r in runs

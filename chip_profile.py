@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [headline] [l16] [complex] [f64] [repulsive]
                             [complex16] [chain128] [colscaled] [fusewrap]
-                            [colscaled_wy]
+                            [colscaled_wy] [single]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -27,11 +27,12 @@ Runs each named configuration of chip_smoke.py (default: headline):
             K3)
   colscaled_wy  colscaled with qr_wy=True (K1; K14 with Q assembled
             outside in place of K4)
+  single    the headline with one chain (K12, K2, K3)
 
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
-    python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7]
+    python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -40,8 +41,9 @@ shapes: K1 at (256, 1, 64, 64) on the headline's inputs, K8 at (256, 1,
 64, 64) on the complex configuration's and at (256, 1, 128, 128) on
 chain128's, K6 and K9 (64 chains of 16x16 real and complex Green's
 functions, dk = 32, in the layout cluster_plan picks), K10 at (256, 64,
-64) and (256, 128, 128) complex64 and K7 at (64, 256, 256) float32
-(graded, prescaled, pivoted input): the mean over
+64) and (256, 128, 128) complex64, K7 at (64, 256, 256) float32 and K2
+and K3 at (256, 64, 64) float32 (graded, prescaled, pivoted input; K3's
+right-hand side random normal): the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -68,9 +70,9 @@ The configurations' runs print for each
            kernel name (device events only, so no time is counted twice),
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
-           and the shares of the device time of K1, K4, K6, K7, K8, K9,
-           K10, K13, K14, the GEMMs and the library complex QR (cuSOLVER's
-           kernels)
+           and the shares of the device time of K1, K2, K3, K4, K6, K7,
+           K8, K9, K10, K13, K14, the GEMMs and the library complex QR
+           (cuSOLVER's kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
 after. Needs CUDA; builds the kernels like chip_smoke.py.
@@ -88,10 +90,11 @@ from chip_smoke import timed
 
 PAIRS = 5
 # the kernels that `stamps` times
-STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7")
+STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
           "K13": ("site_sweep_wrap_kernel",),
+          "K2": ("udt_kernel<false",), "K3": ("udt_kernel<true",),
           "K4": ("qr_kernel<float, false>",), "K14": ("qr_kernel<float, true>",),
           "GEMMs": ("gemm",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
@@ -122,7 +125,8 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
            "fusewrap": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                         True, {**F32, "fuse_wrap": True}),
            "colscaled_wy": (smoke.headline_model, smoke.SAFE_MULT,
-                            smoke.CHAINS, True, {**CS, "qr_wy": True})}
+                            smoke.CHAINS, True, {**CS, "qr_wy": True}),
+           "single": (smoke.headline_model, smoke.SAFE_MULT, 1, True, F32)}
 
 
 def smi():
@@ -258,16 +262,19 @@ def _print_stamps(head, label, rows, names, ms):
 
 
 def qr_input(B, N, complex_):
-    """chip_smoke.py's QR input: graded, prescaled, pivoted columns."""
+    """chip_smoke.py's QR input: graded, prescaled, pivoted columns, and
+    their power-of-two prescale mx (B,)."""
     import torch
     from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
     gen = torch.Generator(device=smoke.DEVICE).manual_seed(13)
     A = smoke.graded(gen, B, N, dtype=torch.complex64 if complex_ else None)
-    return _prescale_pivot(A)[0].contiguous()
+    Ap, mx, _ = _prescale_pivot(A)
+    return Ap.contiguous(), mx.reshape(-1).contiguous()
 
 
 def stamps(which):
-    from montecarlo_tpu_torch.ops import _build
+    import torch
+    from montecarlo_tpu_torch.ops import _build, qr
     from montecarlo_tpu_torch.ops import qr_blocked as qb
     from montecarlo_tpu_torch.ops import qr_cx as qcx
     from montecarlo_tpu_torch.ops import site_sweep as ss
@@ -318,7 +325,7 @@ def stamps(which):
         if label not in which:
             continue
         B, N = shape
-        A = qr_input(B, N, cx)
+        A, _ = qr_input(B, N, cx)
         ms = 1e3 * timed(lambda: fn(A), 20)
         fn(A)
         # K10 runs one block per matrix, K7 a cluster of cluster_plan's
@@ -326,6 +333,20 @@ def stamps(which):
         rows = _stamp_rows(readout, blocks)
         _print_stamps(f"{label} ({B}, {N}, {N}) {str(A.dtype)[6:]}, {blocks} "
                       f"blocks", label, rows, mod.PHASES, ms)
+    # K2 and K3 at the headline's shape: one block per matrix
+    B, N = smoke.CHAINS, smoke.L * smoke.L
+    A, mx = qr_input(B, N, False)
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(14)
+    Z = torch.randn(B, N, N, generator=gen, device=smoke.DEVICE)
+    for label, fn, readout in (
+            ("K2", lambda: qr.udt_qr(A, mx), "udt_qr_f32"),
+            ("K3", lambda: qr.udt_qr_solve(A, Z, mx), "udt_qr_solve_f32")):
+        if label not in which:
+            continue
+        ms = 1e3 * timed(fn, 20)
+        fn()
+        _print_stamps(f"{label} ({B}, {N}, {N}) float32, {B} blocks", label,
+                      _stamp_rows(readout, B), qr.PHASES, ms)
     print("smi", smi(), flush=True)
 
 

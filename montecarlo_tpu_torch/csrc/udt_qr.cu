@@ -20,138 +20,360 @@
 // -ftz) and 2 / v.v would overflow to inf (seen on float32 operands at
 // beta = 10).
 //
-// What bounds it: each of the N column steps is O(N^2) shared-memory work
-// (the reflector applied to the trailing columns and to Q) separated by
-// barriers; at N = 64 the whole factorization is ~0.5 MFLOP per matrix, so
-// the kernel is bound by barrier latency and shared-memory bandwidth inside
-// one block, not by FLOPs or device memory (A is read once, Q/Rs/X written
-// once). With one block per matrix, 256 matrices give ~2 blocks per SM.
+// Layout. One block of N / 8 warps per matrix, 8 | N <= 64. Lane cs + 8 rg
+// of warp w holds column c = 8 w + cs of A, of Q^T and (K3) of X in
+// registers for the whole factorization: rows 4 (rg + 4 m) + e (row group
+// rg < 4, chunk m < NP / 16, e < 4; rows padded to NP, a multiple of 16,
+// hold zeros and stay zero). Q is accumulated as Q^T <- H_j Q^T, the plain
+// version's Q <- Q H_j stored transposed, so the reflector's update of A
+// and of Q is one column operation on one register layout. A column's dot
+// with v is a lane's own sum over its rows plus two shuffles across the row
+// groups: ~5 shuffles per warp and column step, where lanes mapped to rows
+// need a butterfly over the warp's columns (~40; shuffles are issued at
+// one warp instruction per SM clock, so those bounded the step).
 //
-// Design: one 256-thread block per matrix; A (becoming R), Q (and X for
-// K3) stay in dynamic shared memory for all N steps, with rows padded to
-// N+1 floats so column reads are free of bank conflicts. Per column: one
-// warp reduces the tail norm; each warp then owns whole trailing columns
-// (dot with v and update, reduced with warp shuffles, no barrier between
-// them) and whole rows of Q; the reflector's own column is finalized in
-// the same phase. The TPU kernels' transposed chain-on-lanes layout and
-// grid-as-column-loop are Mosaic workarounds and are not carried over.
+// One block barrier per column. Reflector j sits in a double buffer in
+// shared memory (v with zeros above row j, tau; K3: X's column j), which
+// lanes read as float4 chunks of their rows. After the barrier that
+// publishes it, every warp applies H_j to its columns c > j of A (K3: folds
+// R[j, c] x_j into its accumulators, R[j, c] shuffled from the lane that
+// holds row j); the warp that owns column j+1 then builds reflector j+1
+// from it (tail norm with its own shuffles) and publishes it (K3: with
+// x_{j+1} = (Z[:, j+1] / mx - acc) * (1 / R_jj), where the plain version
+// divides: one rounding more) into the other buffer before its update of
+// Q^T. The one barrier at the end of step j publishes reflector
+// j+1 and keeps its writers off the buffer of step j until all have read
+// it. A, Z, Rs and X are row-major, so they go through shared memory once,
+// in coalesced copies; Q rows go out from registers as float4 chunks. Z is
+// staged (times 1/mx, exact) at load, off the column loop's critical path.
+// Register arrays are indexed with compile-time indices only: the column
+// loop runs in chunks of 16 steps (template recursion over m) with the
+// step's row in the chunk unrolled, so the lane of row j is a runtime
+// choice among four and the register holding it a compile-time one.
+//
+// What bounds it: ~0.5 MFLOP per matrix in all and device memory touched
+// once (A and Z in, Q and Rs or X out), so neither FLOPs nor bytes. Per
+// column step each lane does 2 (K3: 3) FMAs per row it holds (16 at N =
+// 64) and ~5 shuffles, every warp reads reflector j from shared memory
+// (four float4 per lane: the same 64 floats for the eight lanes of a row
+// group, 16 wavefronts per warp; K3 reads x_j too), and the owner of the
+// next column runs a chain of its update, the tail norm, a square root and
+// a division before the barrier. At two blocks per SM that is ~1,200 SM
+// cycles per column for K2 and ~1,500 for K3 (PERF.md), most of it in the
+// update of A right after the barrier, where all warps read reflector j
+// at once and the owner's chain waits behind them. The TPU kernels'
+// transposed chain-on-lanes layout and grid-as-column-loop are Mosaic
+// workarounds and are not carried over.
 
 #include <cfloat>
 
 #include <cuda_runtime.h>
 
+#include "phase_clock.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kFloor = 0x1p-70f;
+constexpr int kMaxThreads = 256;  // N = 64: eight warps
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+#ifdef MC_PHASE_STAMPS
+// phases (lane 0 of the last warp, whose columns stay live longest): 0 load
+// and the first reflector, 1 read of reflector j and the update of A (K3:
+// and the fold), 2 the next reflector (the owner warp only), 3 the update
+// of Q^T, 4 the barrier, 5 store. K2 and K3 each into an array of their
+// own.
+__device__ long long g_stamps_qr[phase_clock::kMaxBlocks * phase_clock::kPhases];
+__device__ long long g_stamps_solve[phase_clock::kMaxBlocks *
+                                    phase_clock::kPhases];
+#endif
+
+// Block geometry of one N: N / 8 warps of 8 column lanes x 4 row groups;
+// NM chunks of 4 rows per lane, rows padded to NP.
+template <int N>
+struct Geom {
+  static constexpr int NW = N / 8, NT = 32 * NW;
+  static constexpr int NP = (N + 15) / 16 * 16, NM = NP / 16, LD = N + 1;
+  __device__ static __forceinline__ int row(int rg, int m, int e) {
+    return 4 * (rg + 4 * m) + e;
+  }
+};
+
+// A lane's column of A (becoming R), of Q^T and (K3) of X
+template <bool SOLVE, int N>
+struct Regs {
+  static constexpr int NM = Geom<N>::NM, MX = SOLVE ? NM : 1;
+  float a[NM][4];
+  float q[NM][4];
+  float x[MX][4];  // K3: the accumulators of X, then X
+};
+
+// Shared memory of one block: the double-buffered reflector and (K3) X
+// column, tau, d, the staging matrix (A in, Rs or X out) and K3's Z / mx.
+template <bool SOLVE, int N>
+struct Smem {
+  static constexpr int NP = Geom<N>::NP, LD = Geom<N>::LD;
+  alignas(16) float v[2][NP];
+  alignas(16) float xcol[2][SOLVE ? NP : 4];
+  float tau[2];
+  float d[N];
+  float stage[N * LD];
+  float zs[SOLVE ? N * LD : 1];
+};
+
+// The lane's rows of a vector in shared memory, as float4 chunks
+template <int NM>
+__device__ __forceinline__ void ld_rows(const float* vec, int rg,
+                                        float (&o)[NM][4]) {
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const float4 t = *reinterpret_cast<const float4*>(vec + 4 * (rg + 4 * m));
+    o[m][0] = t.x, o[m][1] = t.y, o[m][2] = t.z, o[m][3] = t.w;
+  }
 }
 
-template <bool SOLVE>
-__global__ void __launch_bounds__(kThreads)
+// The lane's part of a column's dot with the staged rows
+template <int NM>
+__device__ __forceinline__ float dot_rows(const float (&a)[NM][4],
+                                          const float (&b)[NM][4]) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] += a[m][e] * b[m][e];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// Sum over the four row groups of a column (lanes cs + 8 rg)
+__device__ __forceinline__ float group_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 8);
+  return x + __shfl_xor_sync(kFull, x, 16);
+}
+
+// Reflector of column jj from its tail below row jj, in the warp that owns
+// it (every lane computes it for its own column; the four lanes of column
+// jj keep it). an is the lane's entry at row jj, which lane cs + 8 rgj
+// holds. Published into buffer nb: v (zero above row jj), tau, and K3's X
+// column jj, final; the column is finalized as R (exact zeros below the
+// diagonal, floored diagonal) and d_jj recorded.
+template <bool SOLVE, int N>
+__device__ __forceinline__ void reflect(Regs<SOLVE, N>& g,
+                                        Smem<SOLVE, N>& sm, int jj, float an,
+                                        int rgj, int nb, int lane) {
+  using Gm = Geom<N>;
+  constexpr int NM = Gm::NM, LD = Gm::LD;
+  const int cs = lane & 7, rg = lane >> 3;
+  float part = 0.f;
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (Gm::row(rg, m, e) > jj) part += g.a[m][e] * g.a[m][e];
+  const float sigma = group_sum(part);
+  const float alpha = __shfl_sync(kFull, an, cs + 8 * rgj);
+  if (cs != (jj & 7)) return;
+  const float normx = sqrtf(alpha * alpha + sigma);
+  const float s = alpha >= 0.f ? 1.f : -1.f;
+  const float vj = alpha + s * normx;
+  const float vtv = sigma + vj * vj;
+  const float tau = vtv >= FLT_MIN ? 2.f / vtv : 0.f;
+  const float rjj = -s * normx;
+  const float absr = fabsf(rjj);
+  const float rjj_eff = absr < kFloor ? kFloor : rjj;
+  const float inv = 1.f / rjj_eff;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    float t[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = Gm::row(rg, m, e);
+      t[e] = r == jj ? vj : (r > jj ? g.a[m][e] : 0.f);
+      g.a[m][e] = r == jj ? rjj_eff : (r > jj ? 0.f : g.a[m][e]);
+    }
+    *reinterpret_cast<float4*>(sm.v[nb] + 4 * (rg + 4 * m)) =
+        make_float4(t[0], t[1], t[2], t[3]);
+    if constexpr (SOLVE) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = Gm::row(rg, m, e);
+        t[e] = r < N ? (sm.zs[r * LD + jj] - g.x[m][e]) * inv : 0.f;
+        g.x[m][e] = t[e];
+      }
+      *reinterpret_cast<float4*>(sm.xcol[nb] + 4 * (rg + 4 * m)) =
+          make_float4(t[0], t[1], t[2], t[3]);
+    }
+  }
+  if (rg == 0) {
+    sm.tau[nb] = tau;
+    sm.d[jj] = fmaxf(absr, kFloor);
+  }
+}
+
+// Column step j = 16 M + 4 rj + E: row j is entry (M, E) of the lanes of
+// row group rj; row j+1 is entry (M, E + 1), or (M, 0) of row group rj + 1,
+// or (M + 1, 0) of row group 0.
+template <bool SOLVE, int N, int M, int E>
+__device__ __forceinline__ void column_step(Regs<SOLVE, N>& g,
+                                            Smem<SOLVE, N>& sm, int rj,
+                                            int lane, int w, bool t0,
+                                            phase_clock::Clock& clk) {
+  using Gm = Geom<N>;
+  constexpr int NM = Gm::NM, M1 = M + 1 < NM ? M + 1 : M;
+  const int cs = lane & 7, rg = lane >> 3, c = 8 * w + cs;
+  const int j = 4 * (rj + 4 * M) + E, cb = j & 1, jn = j + 1;
+  float vv[NM][4];
+  ld_rows<NM>(sm.v[cb], rg, vv);
+  const float tau = sm.tau[cb];
+
+  // H_j on the columns c > j of A (a warp whose columns are all final
+  // skips it)
+  if (8 * w + 7 > j) {
+    const float p = group_sum(dot_rows<NM>(g.a, vv));  // every lane
+    const float ta = c > j ? tau * p : 0.f;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g.a[m][e] -= ta * vv[m][e];
+    if constexpr (SOLVE) {
+      // fold R[j, c] x_j into X's accumulator of column c
+      float xj[NM][4];
+      ld_rows<NM>(sm.xcol[cb], rg, xj);
+      const float r = __shfl_sync(kFull, g.a[M][E], cs + 8 * rj);
+      const float f = c > j ? r : 0.f;
+#pragma unroll
+      for (int m = 0; m < NM; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) g.x[m][e] += f * xj[m][e];
+    }
+  }
+  if (t0) clk.lap(1);
+
+  // the owner of column j+1 publishes reflector j+1 before its update of
+  // Q^T
+  if (jn < N && w == (jn >> 3)) {
+    if constexpr (E < 3) {
+      reflect<SOLVE, N>(g, sm, jn, g.a[M][E + 1], rj, cb ^ 1, lane);
+    } else {
+      reflect<SOLVE, N>(g, sm, jn, rj < 3 ? g.a[M][0] : g.a[M1][0],
+                        (rj + 1) & 3, cb ^ 1, lane);
+    }
+  }
+  if (t0) clk.lap(2);
+
+  const float tq = tau * group_sum(dot_rows<NM>(g.q, vv));
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g.q[m][e] -= tq * vv[m][e];
+  if (t0) clk.lap(3);
+  if (jn < N) __syncthreads();
+  if (t0) clk.lap(4);
+}
+
+// Column steps of rows 16 M .. 16 M + 15 (those below N), then the next
+// chunk of rows
+template <bool SOLVE, int N, int M>
+__device__ __forceinline__ void column_steps(Regs<SOLVE, N>& g,
+                                             Smem<SOLVE, N>& sm, int lane,
+                                             int w, bool t0,
+                                             phase_clock::Clock& clk) {
+  // N is a multiple of 8: every step of a row group or none
+  for (int rj = 0; rj < 4 && 4 * (rj + 4 * M) < N; ++rj) {
+    column_step<SOLVE, N, M, 0>(g, sm, rj, lane, w, t0, clk);
+    column_step<SOLVE, N, M, 1>(g, sm, rj, lane, w, t0, clk);
+    column_step<SOLVE, N, M, 2>(g, sm, rj, lane, w, t0, clk);
+    column_step<SOLVE, N, M, 3>(g, sm, rj, lane, w, t0, clk);
+  }
+  if constexpr (M + 1 < Geom<N>::NM)
+    column_steps<SOLVE, N, M + 1>(g, sm, lane, w, t0, clk);
+}
+
+template <bool SOLVE, int N>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 udt_kernel(const float* __restrict__ A, const float* __restrict__ Z,
            const float* __restrict__ mx, float* __restrict__ Q_out,
            float* __restrict__ Rs_out, float* __restrict__ d_out,
-           float* __restrict__ X_out, int N) {
-  extern __shared__ float smem[];
-  const int LD = N + 1;
-  float* As = smem;           // A -> R, [r][c] at r*LD + c
-  float* Qs = As + N * LD;    // Q, [r][c]
-  float* v = Qs + N * LD;     // reflector (rows >= j); K3 reuses it for X[:, j]
-  float* dsub = v + N;        // floored |R_jj| (prescaled domain)
-  float* red = dsub + N;      // tail norm^2 of the current column
-  float* Xs = red + 1;        // K3 only: X, [r][c]
+           float* __restrict__ X_out) {
+  using Gm = Geom<N>;
+  constexpr int NM = Gm::NM, NT = Gm::NT, LD = Gm::LD;
+  __shared__ Smem<SOLVE, N> sm;
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int lane = tid & 31, w = tid >> 5, cs = lane & 7, rg = lane >> 3;
+  const int c = 8 * w + cs;
+  const bool t0 = tid == NT - 32;
   const size_t base = (size_t)b * N * N;
   const float mxb = mx[b];
   const float invmx = 1.f / mxb;
+  phase_clock::Clock clk;
+  if (t0) clk.start();
 
-  for (int e = tid; e < N * N; e += blockDim.x) {
-    const int r = e / N, c = e - r * N;
-    As[r * LD + c] = A[base + e];
-    Qs[r * LD + c] = r == c ? 1.f : 0.f;
-    if (SOLVE) Xs[r * LD + c] = 0.f;
+  // coalesced loads into padded rows (4 | N: a float4 stays in one row)
+  for (int e = 4 * tid; e < N * N; e += 4 * NT) {
+    const int r = e / N, o = r * LD + e - r * N;
+    const float4 t = *reinterpret_cast<const float4*>(A + base + e);
+    sm.stage[o] = t.x, sm.stage[o + 1] = t.y;
+    sm.stage[o + 2] = t.z, sm.stage[o + 3] = t.w;
+    if constexpr (SOLVE) {
+      const float4 z = *reinterpret_cast<const float4*>(Z + base + e);
+      sm.zs[o] = z.x * invmx, sm.zs[o + 1] = z.y * invmx;
+      sm.zs[o + 2] = z.z * invmx, sm.zs[o + 3] = z.w * invmx;
+    }
   }
   __syncthreads();
+  Regs<SOLVE, N> g;
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = Gm::row(rg, m, e);
+      g.a[m][e] = r < N ? sm.stage[r * LD + c] : 0.f;
+      g.q[m][e] = r == c ? 1.f : 0.f;
+      g.x[m % Regs<SOLVE, N>::MX][e] = 0.f;
+    }
+  if (w == 0) reflect<SOLVE, N>(g, sm, 0, g.a[0][0], 0, 0, lane);
+  __syncthreads();
+  if (t0) clk.lap(0);
 
-  for (int j = 0; j < N; ++j) {
-    if (warp == 0) {
-      float part = 0.f;
-      for (int r = j + 1 + lane; r < N; r += 32) {
-        const float x = As[r * LD + j];
-        part += x * x;
-      }
-      part = warp_sum(part);
-      if (lane == 0) red[0] = part;
-    }
-    __syncthreads();
-    const float alpha = As[j * LD + j];
-    const float sigma = red[0];
-    const float normx = sqrtf(alpha * alpha + sigma);
-    const float s = alpha >= 0.f ? 1.f : -1.f;
-    const float vj = alpha + s * normx;
-    const float vtv = sigma + vj * vj;
-    const float tau = vtv >= FLT_MIN ? 2.f / vtv : 0.f;
-    for (int r = j + tid; r < N; r += blockDim.x)
-      v[r] = r == j ? vj : As[r * LD + j];
-    __syncthreads();
+  column_steps<SOLVE, N, 0>(g, sm, lane, w, t0, clk);
 
-    // H = I - tau v v^T applied to the trailing columns c > j (columns < j
-    // have zero tails, column j is finalized below) and accumulated into Q
-    for (int c = j + 1 + warp; c < N; c += nwarps) {
-      float part = 0.f;
-      for (int r = j + lane; r < N; r += 32) part += As[r * LD + c] * v[r];
-      const float tw = tau * warp_sum(part);
-      for (int r = j + lane; r < N; r += 32) As[r * LD + c] -= tw * v[r];
-    }
-    for (int r = warp; r < N; r += nwarps) {
-      float part = 0.f;
-      for (int k = j + lane; k < N; k += 32) part += Qs[r * LD + k] * v[k];
-      const float tw = tau * warp_sum(part);
-      for (int k = j + lane; k < N; k += 32) Qs[r * LD + k] -= tw * v[k];
-    }
-    const float rjj = -s * normx;
-    const float absr = fabsf(rjj);
-    const float rjj_eff = absr < kFloor ? kFloor : rjj;
-    for (int r = j + tid; r < N; r += blockDim.x)
-      As[r * LD + j] = r == j ? rjj_eff : 0.f;
-    if (!SOLVE && tid == 0) {
-      const float dj = fmaxf(absr, kFloor);
-      dsub[j] = dj;
-      d_out[(size_t)b * N + j] = dj * mxb;
-    }
-    __syncthreads();
-
-    if (SOLVE) {
-      // X R = Z / mx, column j: X[:, j] = (Z[:, j] / mx - ACC_j) / R_jj
-      for (int r = tid; r < N; r += blockDim.x)
-        v[r] = (Z[base + (size_t)r * N + j] * invmx - Xs[r * LD + j]) / rjj_eff;
-      __syncthreads();
-      const int w = N - j;
-      for (int e = tid; e < N * w; e += blockDim.x) {
-        const int r = e / w, c = j + (e - r * w);
-        if (c == j)
-          Xs[r * LD + j] = v[r];
-        else
-          Xs[r * LD + c] += As[j * LD + c] * v[r];
-      }
-      __syncthreads();
-    }
+  // Q[c, r] = Q^T[r, c]: each lane writes its chunks of row c of Q
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const int r = Gm::row(rg, m, 0);
+    if (r < N)
+      *reinterpret_cast<float4*>(Q_out + base + (size_t)c * N + r) =
+          make_float4(g.q[m][0], g.q[m][1], g.q[m][2], g.q[m][3]);
   }
-
-  for (int e = tid; e < N * N; e += blockDim.x) {
-    const int r = e / N, c = e - r * N;
-    Q_out[base + e] = Qs[r * LD + c];
-    if (SOLVE)
-      X_out[base + e] = Xs[r * LD + c];
-    else
-      Rs_out[base + e] = As[r * LD + c] / dsub[r];
+  __syncthreads();  // every d_j written
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = Gm::row(rg, m, e);
+      if (r < N)
+        sm.stage[r * LD + c] = SOLVE ? g.x[m % Regs<SOLVE, N>::MX][e]
+                                     : g.a[m][e] / sm.d[r];
+    }
+  if (!SOLVE && tid < N) d_out[(size_t)b * N + tid] = sm.d[tid] * mxb;
+  __syncthreads();
+  float* out = SOLVE ? X_out : Rs_out;
+  for (int e = 4 * tid; e < N * N; e += 4 * NT) {
+    const int r = e / N, o = r * LD + e - r * N;
+    *reinterpret_cast<float4*>(out + base + e) =
+        make_float4(sm.stage[o], sm.stage[o + 1], sm.stage[o + 2],
+                    sm.stage[o + 3]);
   }
+  if (t0) clk.lap(5);
+#ifdef MC_PHASE_STAMPS
+  if (t0) clk.store(SOLVE ? g_stamps_solve : g_stamps_qr, b);
+#endif
+}
+
+template <bool SOLVE, int N>
+int launch_n(const float* A, const float* Z, const float* mx, float* Q,
+             float* Rs, float* d, float* X, int B, cudaStream_t stream) {
+  udt_kernel<SOLVE, N><<<B, Geom<N>::NT, 0, stream>>>(A, Z, mx, Q, Rs, d, X);
+  return (int)cudaGetLastError();
 }
 
 template <bool SOLVE>
@@ -159,14 +381,30 @@ int launch(const float* A, const float* Z, const float* mx, float* Q,
            float* Rs, float* d, float* X, int B, int N, cudaStream_t stream) {
   if (B == 0) return 0;
   if (N < 8 || N > 64 || N % 8) return (int)cudaErrorInvalidValue;
-  const int mats = SOLVE ? 3 : 2;
-  const size_t smem = (size_t)(mats * N * (N + 1) + 2 * N + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      udt_kernel<SOLVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  udt_kernel<SOLVE><<<B, kThreads, smem, stream>>>(A, Z, mx, Q, Rs, d, X, N);
-  return (int)cudaGetLastError();
+  switch (N) {
+    case 8: return launch_n<SOLVE, 8>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 16: return launch_n<SOLVE, 16>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 24: return launch_n<SOLVE, 24>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 32: return launch_n<SOLVE, 32>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 40: return launch_n<SOLVE, 40>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 48: return launch_n<SOLVE, 48>(A, Z, mx, Q, Rs, d, X, B, stream);
+    case 56: return launch_n<SOLVE, 56>(A, Z, mx, Q, Rs, d, X, B, stream);
+    default: return launch_n<SOLVE, 64>(A, Z, mx, Q, Rs, d, X, B, stream);
+  }
+}
+
+// Phase stamps of the last launch of K2 or K3, its first n_blocks blocks
+// (kPhases cycle sums each), into dst on the host: a build with
+// -DMC_PHASE_STAMPS only.
+template <bool SOLVE>
+int copy_stamps(void* dst, int n_blocks, void* stream) {
+#ifdef MC_PHASE_STAMPS
+  return SOLVE ? phase_clock::copy_rows(g_stamps_solve, dst, n_blocks, stream)
+               : phase_clock::copy_rows(g_stamps_qr, dst, n_blocks, stream);
+#else
+  (void)dst, (void)n_blocks, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 }  // namespace
@@ -183,4 +421,13 @@ extern "C" int udt_qr_solve_f32(const float* A, const float* Z,
                                 int N, void* stream) {
   return launch<true>(A, Z, mx, Q, nullptr, nullptr, X, B, N,
                       (cudaStream_t)stream);
+}
+
+extern "C" int udt_qr_f32_stamps(void* dst, int n_blocks, void* stream) {
+  return copy_stamps<false>(dst, n_blocks, stream);
+}
+
+extern "C" int udt_qr_solve_f32_stamps(void* dst, int n_blocks,
+                                       void* stream) {
+  return copy_stamps<true>(dst, n_blocks, stream);
 }

@@ -89,6 +89,8 @@ SIGNATURES = {
     "qr_blocked_f32_stamps": (_P, _I, _P),
     "site_sweep_f32_stamps": (_P, _I, _P),
     "site_sweep_cx_c64_stamps": (_P, _I, _P),
+    "udt_qr_f32_stamps": (_P, _I, _P),
+    "udt_qr_solve_f32_stamps": (_P, _I, _P),
 }
 
 

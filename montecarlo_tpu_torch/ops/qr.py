@@ -38,11 +38,16 @@ import torch
 from . import _build
 
 F32_FLOOR = 2.0 ** -70
+# the phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py)
+# (lane 0 of each block's last warp, whose columns stay live longest)
+PHASES = ("load and first reflector", "update of A (K3: and the fold)",
+          "next reflector (owner warp)", "update of Q", "barrier", "store")
 
 
 def kernel_supports(N: int) -> bool:
     """Shapes the CUDA kernels take: float32 with 8 | N <= 64 (A, Q and X of
-    one matrix stay in shared memory, as the TPU kernels' eligibility)."""
+    one matrix stay in the registers of one block of 8 warps, N / 8 columns
+    per warp; the TPU kernels' eligibility)."""
     return N % 8 == 0 and 8 <= N <= 64
 
 

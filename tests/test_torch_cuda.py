@@ -189,10 +189,13 @@ def test_qr_blocked_kernel_zero_and_subnormal_columns(cuda):
     _close(Q, qb.qr_blocked_plain(Ap)[0], 1e-5)
 
 
-@pytest.mark.parametrize("N", [8, 16, 40, 64])
-def test_udt_kernels_match_plain(cuda, N):
-    Ap, mx = (t.to(cuda) for t in graded(N, 32, N))
-    Z = torch.randn(32, N, N, device=cuda)
+@pytest.mark.parametrize("B", [1, 32, 256, 512])
+@pytest.mark.parametrize("N", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_udt_kernels_match_plain(cuda, N, B):
+    """K2 and K3 at every N they take, one matrix to the repulsive model's
+    512, columns graded over 16 decades (chip_smoke.py's range)."""
+    Ap, mx = (t.to(cuda) for t in graded(N, B, N, decades=16.0))
+    Z = torch.randn(B, N, N, device=cuda)
     n2, n3 = qr.udt_qr.launches, qr.udt_qr_solve.launches
     Qk, Rk, dk = qr.udt_qr(Ap, mx)
     Qp, Rp, dp = qr.udt_qr_plain(Ap, mx)
@@ -205,6 +208,23 @@ def test_udt_kernels_match_plain(cuda, N):
     _close(Qk, Qp, 1e-5)
     _close(Xk, Xp, 1e-5)
     assert (qr.udt_qr.launches, qr.udt_qr_solve.launches) == (n2 + 1, n3 + 1)
+
+
+@pytest.mark.parametrize("decades", [2.0, 8.0])
+def test_udt_kernels_match_plain_mild_grading(cuda, decades):
+    """K2 and K3 on columns graded over fewer decades, at the headline's
+    (256, 64, 64): the dots of the trailing columns do not vanish."""
+    Ap, mx = (t.to(cuda) for t in graded(7, 256, 64, decades=decades))
+    Z = torch.randn(256, 64, 64, device=cuda)
+    Qk, Rk, dk = qr.udt_qr(Ap, mx)
+    Qp, Rp, dp = qr.udt_qr_plain(Ap, mx)
+    _close(Qk, Qp, 1e-5)
+    _close(Rk, Rp, 1e-5)
+    np.testing.assert_allclose(dk.cpu().numpy(), dp.cpu().numpy(), rtol=1e-5)
+    Qk, Xk = qr.udt_qr_solve(Ap, Z, mx)
+    Qp, Xp = qr.udt_qr_solve_plain(Ap, Z, mx)
+    _close(Qk, Qp, 1e-5)
+    _close(Xk, Xp, 1e-5)
 
 
 def test_udt_kernel_flushed_and_subnormal_columns(cuda):

@@ -611,7 +611,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_cx_c64_max_clusters",
         "site_sweep_delayed_f32_stamps", "site_sweep_delayed_cx_c64_stamps",
         "qr_cx_c64_stamps", "qr_blocked_f32_stamps",
-        "site_sweep_f32_stamps", "site_sweep_cx_c64_stamps"}
+        "site_sweep_f32_stamps", "site_sweep_cx_c64_stamps",
+        "udt_qr_f32_stamps", "udt_qr_solve_f32_stamps"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -13,7 +13,9 @@ arguments), and its device time per call under torch.profiler (the
 kernels alone, where the host's launches are slower than the card); the
 turns cancel a drift of the card's clock between the first run and the
 last. Prints nvidia-smi's name and power limit, one
-JSON line per run and a summary per case. Needs CUDA.
+JSON line per run and a summary per case, with whether the change's
+outputs are bit-equal to the parent's on the same inputs (and their
+largest difference). Needs CUDA.
 
   qr_cx (256, 64, 64)    the complex QR K10 on 256 complex64 matrices,
   qr_cx (256, 128, 128)  random normal columns graded over 8 decades
@@ -32,6 +34,13 @@ JSON line per run and a summary per case. Needs CUDA.
   udt_qr (512, 64, 64)        two flavors), on chip_smoke.py's graded,
   udt_qr_solve (512, 64, 64)  prescaled, pivoted float32 matrices (K3's
                        right-hand side random normal)
+  qr_f64 (128, 64, 64)  the float64 QR K11 at the f64 run's shape, on
+                       chip_smoke.py's graded, prescaled, pivoted float64
+                       matrices
+  site_sweep_wrap up (256, 1, 64, 64)    K13 in each direction on the
+  site_sweep_wrap down (256, 1, 64, 64)  headline's inputs with the
+                       session's wrap operands (chip_smoke.py's
+                       wrap_inputs)
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 BATCHES, CALLS = 7, 50
@@ -108,6 +118,25 @@ def _udt(B, solve):
     return make
 
 
+def _qr64():
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import qr_householder as qh
+        A = _smoke().qr64_input(torch.Generator(device="cuda").manual_seed(2))
+        return lambda: qh.qr_f64(A)
+    return make
+
+
+def _wrap(direction):
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep as ss
+        G, sigma, u, kw, ops, _, _ = _smoke().wrap_inputs()
+        Ml, Mr = ops[direction]
+        return lambda: ss.site_sweep_wrap(G, sigma, u, Ml, Mr,
+                                          wrap_dir=direction, **kw)
+    return make
+
+
 CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "qr_cx (256, 128, 128)": _qr(256, 128, True),
          "qr_blocked (64, 256, 256)": _qr(64, 256, False),
@@ -119,7 +148,10 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "udt_qr (256, 64, 64)": _udt(256, False),
          "udt_qr_solve (256, 64, 64)": _udt(256, True),
          "udt_qr (512, 64, 64)": _udt(512, False),
-         "udt_qr_solve (512, 64, 64)": _udt(512, True)}
+         "udt_qr_solve (512, 64, 64)": _udt(512, True),
+         "qr_f64 (128, 64, 64)": _qr64(),
+         "site_sweep_wrap up (256, 1, 64, 64)": _wrap(1),
+         "site_sweep_wrap down (256, 1, 64, 64)": _wrap(-1)}
 
 
 def selected(prefixes):
@@ -128,14 +160,29 @@ def selected(prefixes):
             if not prefixes or any(n.startswith(p) for p in prefixes)]
 
 
-def child(root, prefixes):
-    """Import the port from root and time the selected cases there."""
+def compare_outputs(a, b):
+    """(bit-equal, max|a - b| over the floating-point outputs) of two lists
+    of output tensors of one case."""
+    import torch
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    diff = max((float((x.double() - y.double()).abs().max())
+                for x, y in zip(a, b)
+                if x.is_floating_point() and x.shape == y.shape
+                and x.numel()), default=0.0)
+    return same, diff
+
+
+def child(root, save, prefixes):
+    """Import the port from root, time the selected cases there and save
+    each case's outputs (a list of CPU tensors) to the file save."""
     import torch
     sys.path.insert(0, str(root))
     import montecarlo_tpu_torch
     where = Path(montecarlo_tpu_torch.__file__).resolve()
     if root.resolve() not in where.parents:
         raise SystemExit(f"chip_ab: imported {where}, not from {root}")
+    outputs = {}
     for name in selected(prefixes):
         make = CASES[name]
         fn = make()
@@ -158,11 +205,13 @@ def child(root, prefixes):
                           "ms": statistics.median(times), "batches": times,
                           "device_ms": _smoke().device_ms(fn, CALLS)}),
               flush=True)
+        outputs[name] = [t.cpu() for t in fn()]
+    torch.save(outputs, save)
 
 
 def main(argv):
-    if len(argv) >= 2 and argv[0] == "--child":
-        child(Path(argv[1]), argv[2:])
+    if len(argv) >= 3 and argv[0] == "--child":
+        child(Path(argv[1]), argv[2], argv[3:])
         return 0
     if len(argv) < 2 or not selected(argv[2:]):
         print(__doc__, file=sys.stderr)
@@ -176,15 +225,22 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
-    runs = []
-    for tag, root in (("parent", parent), ("change", change),
-                      ("change", change), ("parent", parent)):
-        out = subprocess.run([sys.executable, __file__, "--child", str(root),
-                              *argv[2:]],
-                             capture_output=True, text=True, check=True,
-                             timeout=900, cwd=root)
-        print(out.stdout, end="", flush=True)
-        runs += [(tag, json.loads(line)) for line in out.stdout.splitlines()]
+    runs, saved = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (tag, root) in enumerate((("parent", parent),
+                                         ("change", change),
+                                         ("change", change),
+                                         ("parent", parent))):
+            save = str(Path(tmp) / f"{i}.pt")
+            saved.setdefault(tag, save)
+            out = subprocess.run([sys.executable, __file__, "--child",
+                                  str(root), save, *argv[2:]],
+                                 capture_output=True, text=True, check=True,
+                                 timeout=900, cwd=root)
+            print(out.stdout, end="", flush=True)
+            runs += [(tag, json.loads(line))
+                     for line in out.stdout.splitlines()]
+        outs = {t: torch.load(f) for t, f in saved.items()}
     for name in selected(argv[2:]):
         for key, what in (("ms", "per call"),
                           ("device_ms", "device per call")):
@@ -194,6 +250,10 @@ def main(argv):
             print(f"[ab] {name}: parent {ms['parent']} ms, change "
                   f"{ms['change']} ms {what} (order parent, change, change, "
                   "parent)")
+        same, diff = compare_outputs(outs["parent"][name],
+                                     outs["change"][name])
+        print(f"[ab] {name}: outputs bit-equal to the parent's {same}, "
+              f"max|d| {diff:.3e}")
     return 0
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one DQMC sweep pair goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [headline] [l16] [complex] [f64] [repulsive]
-                            [complex16] [chain128] [colscaled] [fusewrap]
-                            [colscaled_wy] [single]
+    python3 chip_profile.py [headline] [l16] [complex] [f64] [mixed]
+                            [repulsive] [complex16] [chain128] [colscaled]
+                            [fusewrap] [colscaled_wy] [single]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -15,6 +15,7 @@ Runs each named configuration of chip_smoke.py (default: headline):
             256 chains, complex64 (kernels K8 and K10)
   f64       the headline model in strict float64 (DQMC's default dtype),
             128 chains (kernels K1 in float64 and K11)
+  mixed     f64 with float32 updates over the float64 stacks (K1, K11)
   repulsive the repulsive model (F=2) at the headline's settings, 256
             chains, float32 (kernels K5, K2 and K3)
   complex16 the complex configuration at 16x16 (N=256), 64 chains, delay 32
@@ -33,6 +34,7 @@ Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
     python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
+                                   [K11] [K13]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -41,9 +43,11 @@ shapes: K1 at (256, 1, 64, 64) on the headline's inputs, K8 at (256, 1,
 64, 64) on the complex configuration's and at (256, 1, 128, 128) on
 chain128's, K6 and K9 (64 chains of 16x16 real and complex Green's
 functions, dk = 32, in the layout cluster_plan picks), K10 at (256, 64,
-64) and (256, 128, 128) complex64, K7 at (64, 256, 256) float32 and K2
+64) and (256, 128, 128) complex64, K7 at (64, 256, 256) float32, K2
 and K3 at (256, 64, 64) float32 (graded, prescaled, pivoted input; K3's
-right-hand side random normal): the mean over
+right-hand side random normal), K11 at (128, 64, 64) float64 on the same
+kind of input and K13 at (256, 1, 64, 64) in each direction on the
+headline's inputs with the session's wrap operands: the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -71,7 +75,7 @@ The configurations' runs print for each
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
            and the shares of the device time of K1, K2, K3, K4, K6, K7,
-           K8, K9, K10, K13, K14, the GEMMs and the library complex QR
+           K8, K9, K10, K11, K13, K14, the GEMMs and the library complex QR
            (cuSOLVER's kernels)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
@@ -90,12 +94,16 @@ from chip_smoke import timed
 
 PAIRS = 5
 # the kernels that `stamps` times
-STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3")
+STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
           "K13": ("site_sweep_wrap_kernel",),
           "K2": ("udt_kernel<false",), "K3": ("udt_kernel<true",),
-          "K4": ("qr_kernel<float, false>",), "K14": ("qr_kernel<float, true>",),
+          # K4, K14 and K11 under their former names too (one templated
+          # qr_kernel<T, VTAU>), for A/B runs against older checkouts
+          "K4": ("qr_kernel<false>", "qr_kernel<float, false>"),
+          "K14": ("qr_kernel<true>", "qr_kernel<float, true>"),
+          "K11": ("qr_f64_kernel", "qr_kernel<double"),
           "GEMMs": ("gemm",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
           "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_tiled_cx",),
@@ -114,6 +122,8 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                        F32),
            "f64": (smoke.headline_model, smoke.SAFE_MULT, smoke.F64_CHAINS,
                    True, {}),
+           "mixed": (smoke.headline_model, smoke.SAFE_MULT, smoke.F64_CHAINS,
+                     True, {"update_dtype": "float32"}),
            "repulsive": (lambda: smoke.headline_model(repulsive=True),
                          smoke.SAFE_MULT, smoke.CHAINS, True, F32),
            "complex16": (lambda: smoke.complex_model(L=smoke.L16),
@@ -277,6 +287,7 @@ def stamps(which):
     from montecarlo_tpu_torch.ops import _build, qr
     from montecarlo_tpu_torch.ops import qr_blocked as qb
     from montecarlo_tpu_torch.ops import qr_cx as qcx
+    from montecarlo_tpu_torch.ops import qr_householder as qh
     from montecarlo_tpu_torch.ops import site_sweep as ss
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -347,6 +358,29 @@ def stamps(which):
         fn()
         _print_stamps(f"{label} ({B}, {N}, {N}) float32, {B} blocks", label,
                       _stamp_rows(readout, B), qr.PHASES, ms)
+    if "K11" in which:
+        # the f64 run's shape and input: one block per matrix
+        A64 = smoke.qr64_input(torch.Generator(device=smoke.DEVICE)
+                               .manual_seed(13))
+        B64 = A64.shape[0]
+        ms = 1e3 * timed(lambda: qh.qr_f64(A64), 20)
+        qh.qr_f64(A64)
+        _print_stamps(f"K11 {tuple(A64.shape)} float64, {B64} blocks", "K11",
+                      _stamp_rows("qr_f64", B64), qh.PHASES_F64, ms)
+    if "K13" in which:
+        # the fusewrap run's shape, each direction: one block per chain
+        G, sigma, u, kw, ops, _, _ = smoke.wrap_inputs()
+        C = G.shape[0]
+        for d, (Ml, Mr) in ops.items():
+            call = lambda: ss.site_sweep_wrap(G, sigma, u, Ml, Mr,
+                                              wrap_dir=d, **kw)
+            ms = 1e3 * timed(call, 20)
+            n_acc = int(call()[2].sum())
+            _print_stamps(f"K13 dir={d:+d} {tuple(G.shape)} float32, {n_acc} "
+                          f"of {C * G.shape[-1]} sites accepted, {C} blocks",
+                          f"K13 dir={d:+d}", _stamp_rows("site_sweep_wrap_f32",
+                                                         C),
+                          ss.WRAP_PHASES, ms)
     print("smi", smi(), flush=True)
 
 

@@ -18,6 +18,8 @@ failure and prints no result line then):
               (the site sweep with the wrap fused in) in both directions,
               its up direction's decisions also against K1's, bit for bit,
               beside the unfused visit's time (K1 and the separate wrap);
+              K11 and K13 also REPEATS launches more, each bit-equal to
+              the first (a race check);
               K14 (the QR emitting V and tau) with max|Q^T Q - I| of its
               WY-assembled Q and of K4's; K12 (one chain); K6 and K9 also
               at WAVE_CHAINS chains (more than one wave of clusters), each
@@ -146,6 +148,9 @@ TOL_TAU = 1e-4
 F64_CHAINS, X_THERM, X_SWEEPS = 128, 1, 2
 K1_F64_F2_CHAINS = 64
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
+# repeated launches of K11 and K13, held bit-equal to the first (a race
+# check: the card's sanitizers refuse the device)
+REPEATS = 50
 # float64 kernels against their plain versions (K11: tests/test_pallas_qr.py's
 # strict-f64 contract for Q^T Q - I)
 TOL_G64, TOL_QR64, TOL_ORTH64 = 1e-13, 1e-12, 1e-13
@@ -204,7 +209,7 @@ KERNEL_INFO = {
                   "montecarlo_tpu/ops/pallas_qr.py:706"),
     "qr_f32": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
                "montecarlo_tpu/ops/pallas_qr.py:52"),
-    "qr_f64": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+    "qr_f64": ("montecarlo_tpu_torch/csrc/qr_f64.cu",
                "montecarlo_tpu/ops/pallas_qr.py:1389"),
     # no TPU kernel: the JAX package's float64 XLA site loop
     "site_sweep_f64": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
@@ -411,6 +416,33 @@ def sweep_inputs(complex_=False, repulsive=False, chains=CHAINS, L=L,
     return state["G"], sigma, u, kw, ctx
 
 
+def wrap_inputs(repulsive=False, chains=CHAINS):
+    """Inputs of K13 at the headline's model (repulsive: F = 2): G of a
+    plain-path init_state at beta=10, the last slice's sigma, fresh
+    uniforms and the session's wrap operands per direction, {+1: (Ml, Mr),
+    -1: (Ml, Mr)}. Returns (G, sigma, u, the sweep's keywords, the
+    operands, ctx, consts)."""
+    import torch
+    ctx, consts, state, gen = real_state(headline_model(repulsive), chains,
+                                         15, use_kernels=False)
+    sigma = state["conf"][:, :, ctx.M - 1].contiguous()
+    u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+    kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
+              use_boson=ctx.use_boson)
+    ops = {1: (consts["eT2_u"], consts["eT2inv_u"]),
+           -1: (consts["eT2inv_u"], consts["eT2_u"])}
+    return state["G"], sigma, u, kw, ops, ctx, consts
+
+
+def qr64_input(gen, B=F64_CHAINS, N=L * L):
+    """K11's input at the f64 run's shape: graded, prescaled, pivoted
+    float64 matrices (B, N, N), contiguous."""
+    import torch
+    from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+    Ap, _, _ = _prescale_pivot(graded(gen, B, N, dtype=torch.float64))
+    return Ap.contiguous()
+
+
 def delayed_inputs(complex_=False, repulsive=False, chains=None):
     """Inputs of K6 (complex_: K9) at a 16x16 configuration (chains:
     L16_CHAINS by default): G of a plain-path init_state at beta=10, the
@@ -505,6 +537,19 @@ def qr_parity(name, kernel, plain, Ap, library=None, normalize=None,
                 plain_ms=1e3 * timed(lambda: plain(Ap), 3),
                 library_ms=(1e3 * timed(lambda: library(Ap), 20)
                             if library else None))
+
+
+def repeats_equal(name, fn, reps=REPEATS):
+    """fn() reps more times, every output bit-equal to the first call's: a
+    race between a kernel's threads (a buffer read while another warp
+    rewrites it) would show as a difference from run to run."""
+    import torch
+    first = fn()
+    same = all(all(torch.equal(a, b) for a, b in zip(first, fn()))
+               for _ in range(reps))
+    log(f"[parity] {name}: {reps} repeats bit-equal to the first {same}")
+    if not same:
+        raise AssertionError(f"{name} differs from run to run")
 
 
 def degenerate_columns(name, fn, Ap, scale, tol_rec, tol_orth):
@@ -630,16 +675,8 @@ def phase_parity():
     # separate wrap_up / wrap_down); then K12 on the first chain
     from montecarlo_tpu_torch.dqmc import core
     for repulsive, chains in ((False, CHAINS), (True, K1_F2_CHAINS)):
-        ctx, consts, state, gen = real_state(headline_model(repulsive),
-                                             chains, 15, use_kernels=False)
-        G = state["G"]
-        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-        u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
-        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                  use_boson=ctx.use_boson)
+        G, sigma, u, kw, ops, ctx, consts = wrap_inputs(repulsive, chains)
         shape = tuple(G.shape)
-        ops = {1: (consts["eT2_u"], consts["eT2inv_u"]),
-               -1: (consts["eT2inv_u"], consts["eT2_u"])}
         errs, fused = [], {}
         for d, (Ml, Mr) in ops.items():
             fused[d] = (lambda Ml=Ml, Mr=Mr, d=d: ss.site_sweep_wrap(
@@ -649,6 +686,7 @@ def phase_parity():
                 f"site_sweep_wrap dir={d:+d}", out_k,
                 ss.site_sweep_wrap_plain(G, sigma, u, Ml, Mr, wrap_dir=d,
                                          **kw), shape, relative=True))
+            repeats_equal(f"site_sweep_wrap dir={d:+d} {shape}", fused[d])
             if d > 0:
                 out_1 = ss.site_sweep(G, sigma, u, **kw)
                 same = all(torch.equal(a, b)
@@ -835,8 +873,7 @@ def phase_parity():
             results["qr_vtau"] = r
         degenerate_columns("qr_vtau", qh.qr_wy, Ap, 1e-35, TOL_QR, TOL_QR)
     B64 = F64_CHAINS
-    Ap, _, _ = _prescale_pivot(graded(gen, B64, N, dtype=torch.float64))
-    Ap = Ap.contiguous()
+    Ap = qr64_input(gen, B64, N)
     results["qr_f64"] = qr_parity("qr_f64", qh.qr_f64,
                                   qh.householder_qr_plain, Ap,
                                   library=torch.linalg.qr, tol=TOL_QR64)
@@ -848,6 +885,7 @@ def phase_parity():
     log(f"[parity] qr_f64 max|Q^T Q - I| {orth:.3e}")
     if not orth <= TOL_ORTH64:
         raise AssertionError("qr_f64 kernel's Q is not orthogonal")
+    repeats_equal(f"qr_f64 {tuple(Ap.shape)}", lambda: qh.qr_f64(Ap))
     # 1e-175 puts v.v of column 1 among the float64 subnormals
     degenerate_columns("qr_f64", qh.qr_f64, Ap, 1e-175, TOL_QR64, TOL_ORTH64)
 

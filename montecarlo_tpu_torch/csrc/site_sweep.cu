@@ -25,7 +25,7 @@
 // block barrier; sigma and u in shared memory; 256 threads per chain.
 //
 // float64 design (site_sweep_kernel<double>, the loop in
-// site_sweep_loop.cuh, which K13 shares): one block per chain; G of the
+// site_sweep_loop.cuh): one block per chain; G of the
 // chain (F x N x N) lives in dynamic shared memory for the whole site loop,
 // rows padded to N+1 elements so the column read G[:, i] is free of bank
 // conflicts. Every thread computes the accept decision itself from the same

@@ -1,7 +1,9 @@
-// K1's Metropolis site loop, shared by the kernels that run it: K1 itself
-// (site_sweep.cu) and K13, the site sweep with the slice's wrap fused in
-// (site_sweep_wrap.cu). One thread block per chain; G of the chain
-// (F x N x N) lives in dynamic shared memory, rows padded to N+1 elements.
+// The first design of K1's Metropolis site loop, which K1 in float64
+// (site_sweep.cu's site_sweep_kernel<double>) alone still runs; K1 in
+// float32, K8 and K13 run site_sweep_tiled.cuh, and K5 (site_sweep.cu)
+// borrows the rounding helpers below. One thread block per chain; G of the
+// chain (F x N x N) lives in dynamic shared memory, rows padded to N+1
+// elements.
 // Every operation is an _rn intrinsic (__f*_rn in float32, __d*_rn in
 // float64), which nvcc never fuses into FMAs, so every value matches the
 // plain PyTorch version's separately rounded operations

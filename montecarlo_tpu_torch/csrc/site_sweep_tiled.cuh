@@ -1,6 +1,7 @@
 // The one-block-per-chain Metropolis site loop of K1 (float32,
-// site_sweep.cu) and K8 (complex64, site_sweep_cx.cu), with G of the chain
-// spread over the block's registers.
+// site_sweep.cu), K8 (complex64, site_sweep_cx.cu) and K13 (K1 with the
+// slice's wrap fused in, site_sweep_wrap.cu), with G of the chain spread
+// over the block's registers.
 //
 // Layout. The block's NT = TR x TC threads cover G_f (N x N, padded to
 // NP x NP, NP = TR*RT = TC*CT) in tiles: thread (ty, tx) = (tid / TC,
@@ -37,6 +38,9 @@
 // Register arrays are indexed only with compile-time indices (the tile
 // loops are unrolled; the owner of row or column i+1 is found by unrolled
 // compare-and-select), so they stay in registers.
+//
+// A wrap (K13) gets the thread tiles of G before the loop and after it,
+// with sigma in and out in shared memory: sweep_chain's Wrap argument.
 
 #pragma once
 
@@ -304,21 +308,36 @@ struct Decision {
   }
 };
 
+// No wrap around the site loop (K1, K8). A wrap's before(g, sigma, clk)
+// runs on the tiles of G after the load, with sigma_in in shared memory (no
+// barrier yet after its writes), and after(g, sigma, clk) after the site
+// loop with the updated sigma; each is called by every thread.
+struct NoWrap {
+  template <class TileT>
+  __device__ __forceinline__ void before(TileT&, const int8_t*,
+                                         phase_clock::Clock&) const {}
+  template <class TileT>
+  __device__ __forceinline__ void after(TileT&, const int8_t*,
+                                        phase_clock::Clock&) const {}
+};
+
 // The site loop of one chain, run by a block of Gm::NT threads. G_in and
 // G_out point at the chain's F x N x N elements (float32; complex64 as
 // interleaved (re, im) pairs), sigma_in, sigma_out and u at its N entries.
 // Real (K1): acc_out and nneg_out at its counts of accepted and
 // negative-detratio proposals. Complex (K8): accept_out and det_out at its
 // N accept flags and complex detratios. Thread 0 laps clk: 0 load,
-// 1 decision, 2 update, 3 publish, 4 barrier, 5 store.
-template <bool CX, int F, int FR, class Gm>
+// 1 decision, 2 update, 3 publish, 4 barrier, 5 store (a wrap: 6 and 7).
+// wrap (K13) runs before or after the loop.
+template <bool CX, int F, int FR, class Gm, class Wrap = NoWrap>
 __device__ __forceinline__ void sweep_chain(
     float* smem, const float* __restrict__ G_in, float* __restrict__ G_out,
     const int8_t* __restrict__ sigma_in, int8_t* __restrict__ sigma_out,
     const float* __restrict__ u, int* __restrict__ acc_out,
     int* __restrict__ nneg_out, uint8_t* __restrict__ accept_out,
     float* __restrict__ det_out, int N, float lamb, float sign0, float sign1,
-    int det_power, int use_boson, phase_clock::Clock& clk) {
+    int det_power, int use_boson, phase_clock::Clock& clk,
+    const Wrap& wrap = Wrap{}) {
   constexpr int NV = CX ? 2 : 1;
   constexpr int NP = Gm::NP, NT = Gm::NT, RT = Gm::RT, CT = Gm::CT;
   constexpr int WR = Gm::WR, WC = Gm::WC;
@@ -369,6 +388,7 @@ __device__ __forceinline__ void sweep_chain(
     sig_s[a] = sigma_in[a];
     u_s[a] = u[a];
   }
+  wrap.before(g, sig_s, clk);
   publish<NV, F, FR, Gm>(g, stage(0), 0, ty, tx);
   const Decision<CX, F> decide(lamb, sign0, sign1, use_boson);
   int acc = 0, nneg = 0;  // thread 0's counts
@@ -469,6 +489,7 @@ __device__ __forceinline__ void sweep_chain(
     __syncthreads();
     if (tid == 0) clk.lap(4);
   }
+  wrap.after(g, sig_o, clk);
 
 #pragma unroll
   for (int f = 0; f < F; ++f)

@@ -91,6 +91,8 @@ SIGNATURES = {
     "site_sweep_cx_c64_stamps": (_P, _I, _P),
     "udt_qr_f32_stamps": (_P, _I, _P),
     "udt_qr_solve_f32_stamps": (_P, _I, _P),
+    "qr_f64_stamps": (_P, _I, _P),
+    "site_sweep_wrap_f32_stamps": (_P, _I, _P),
 }
 
 

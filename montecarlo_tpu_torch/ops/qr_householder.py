@@ -2,7 +2,8 @@
 K14, K4 emitting its reflectors (V, tau) in place of Q.
 
 ``qr_f32`` and ``qr_f64`` launch the CUDA kernels of
-``csrc/qr_householder.cu`` on CUDA tensors and run ``householder_qr_plain``
+``csrc/qr_householder.cu`` (K4, K14) and ``csrc/qr_f64.cu`` (K11) on CUDA
+tensors and run ``householder_qr_plain``
 (plain PyTorch, the same algorithm and op order) on CPU tensors. They replace
 the Pallas kernels ``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel`` and its
 KB=8 panel variant ``::_blocked_kernel`` (K4, reached through
@@ -46,8 +47,13 @@ import torch
 
 from . import _build
 
-# largest N of each kernel: A and Q of one matrix stay in shared memory
+# largest N of each kernel: K4's A and Q of one matrix stay in shared
+# memory, K11's in the registers of one block
 MAX_N = {torch.float32: 128, torch.float64: 64}
+# K11's phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py;
+# lane 0 of each block's last warp)
+PHASES_F64 = ("load and first reflector", "update of A",
+              "next reflector (owner warp)", "update of Q", "barrier", "store")
 
 
 def kernel_supports(N: int, dtype=torch.float32) -> bool:

@@ -51,6 +51,9 @@ MAX_N = 128
 # site_sweep_tiled.cuh) that a build with -DMC_PHASE_STAMPS times
 # (chip_profile.py)
 PHASES = ("load", "decision", "update", "publish", "barrier", "store")
+# ... and of K13 (csrc/site_sweep_wrap.cu): K1's and its wrap's two
+WRAP_PHASES = PHASES + ("wrap: diagonals, staging and Z = M Mr",
+                        "wrap: Ml Z")
 # the threads per chain of K1 in float32 and K8 at every shape (csrc/
 # site_sweep_tiled.cuh::with_layout): the fastest of 128 to 1024 wherever
 # they were timed (PERF.md)
@@ -117,14 +120,21 @@ def pair_supports(N: int, F: int, dtype=torch.float32) -> bool:
             and (F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK)
 
 
+def wrap_smem_bytes(N: int, F: int) -> int:
+    """Shared memory of one block of K13, as csrc/site_sweep_wrap.cu::
+    wrap_smem_bytes counts it: K1's (``tiled_smem_bytes``, rounded up to
+    16 bytes), then the wrap's two NP x (NP + 4) float matrices (X: M^T,
+    then Z; W: Mr, then Ml^T)."""
+    NP = padded(N)
+    return -(-tiled_smem_bytes(N, F) // 16) * 16 + 2 * NP * (NP + 4) * 4
+
+
 def wrap_supports(N: int, F: int, dtype=torch.float32) -> bool:
-    """Shapes K13 takes: float32, N <= 128, F <= 2, with K1's shared memory
-    plus the wrap's N x (N+1) middle term and the updated sigma
-    ((F*N*(N+1) + 2*F*N + N*(N+1)) floats and N bytes, 200,320 bytes at
-    F = 2, N = 128)."""
+    """Shapes K13 takes: float32, N <= 128, F <= 2 (G in registers as in
+    K1, and ``wrap_smem_bytes``, 140,032 bytes at F = 2, N = 128, within a
+    block's shared memory)."""
     return (dtype == torch.float32 and 1 <= N <= MAX_N and F in (1, 2)
-            and (F * N * (N + 1) + 2 * F * N + N * (N + 1)) * 4 + N
-            <= _build.SMEM_PER_BLOCK)
+            and wrap_smem_bytes(N, F) <= _build.SMEM_PER_BLOCK)
 
 
 def _decide(diag, s, u_i, *, lamb, signs, det_power, use_boson):
@@ -374,9 +384,7 @@ _ENTRY = {
     "site_sweep_single": ("site_sweep_f32", torch.float32, kernel_supports,
                           f"N <= {MAX_N}, F in (1, 2)", site_sweep_plain),
     "site_sweep_wrap": ("site_sweep_wrap_f32", torch.float32, wrap_supports,
-                        f"N <= {MAX_N}, F in (1, 2), G of one chain and the "
-                        "wrap's middle term in shared memory",
-                        site_sweep_wrap_plain)}
+                        f"N <= {MAX_N}, F in (1, 2)", site_sweep_wrap_plain)}
 
 
 def _sweep(name, fn, G, sigma, u, ptrs=(), ints=(), **kw):

@@ -487,13 +487,14 @@ def test_site_sweep_f64_kernel_matches_plain(cuda, model, N):
 
 
 @pytest.mark.parametrize("dtype,N", [("f32", 8), ("f32", 64), ("f32", 72),
-                                     ("f32", 128), ("f64", 8), ("f64", 40),
-                                     ("f64", 64)])
+                                     ("f32", 128)] + [
+    ("f64", n) for n in range(8, 65, 8)])
 def test_qr_householder_kernel_matches_plain(cuda, dtype, N):
-    """K4 (float32) and K11 (float64) on graded, prescaled, pivoted input: Q
-    and R within 1e-5 (float32) or 1e-12 (float64) of their largest entries
-    (the kernels sum in another order than the plain version); R exactly
-    upper triangular; K11's Q orthogonal to 1e-13."""
+    """K4 (float32) and K11 (float64, at every 8 | N <= 64 it takes) on
+    graded, prescaled, pivoted input: Q and R within 1e-5 (float32) or
+    1e-12 (float64) of their largest entries (the kernels sum in another
+    order than the plain version); R exactly upper triangular; K11's Q
+    orthogonal to 1e-13."""
     f64 = dtype == "f64"
     fn, tol = (qh.qr_f64, 1e-12) if f64 else (qh.qr_f32, 1e-5)
     Ap, _ = (t.to(cuda) for t in graded(N, 32, N, float64=f64))
@@ -509,19 +510,19 @@ def test_qr_householder_kernel_matches_plain(cuda, dtype, N):
         assert (Qk.mT @ Qk - eye).abs().max().item() < 1e-13
 
 
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_qr_householder_kernel_zero_and_subnormal_columns(cuda, dtype):
+@pytest.mark.parametrize("dtype,N", [("f32", 16), ("f64", 16), ("f64", 64)])
+def test_qr_householder_kernel_zero_and_subnormal_columns(cuda, dtype, N):
     """Zero columns get H = I and R_jj = 0; a float32 subnormal v.v gets
     tau = 0, not inf, and a float64 subnormal ||x||^2 H = I: finite, and Q
-    stays orthogonal."""
+    stays orthogonal (K11 also at the f64 run's N = 64)."""
     f64 = dtype == "f64"
     fn = qh.qr_f64 if f64 else qh.qr_f32
-    Ap, _ = (t.to(cuda) for t in graded(5, 4, 16, decades=2.0, float64=f64))
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, N, decades=2.0, float64=f64))
     Ap[:, :, -4:] = 0.0
     Ap[:, :, 1] = Ap[:, :, 1] * (1e-175 if f64 else 1e-35)
     Q, R = fn(Ap)
     assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(R).all())
-    eye = torch.eye(16, dtype=Q.dtype, device=cuda)
+    eye = torch.eye(N, dtype=Q.dtype, device=cuda)
     assert (Q.mT @ Q - eye).abs().max().item() < (1e-13 if f64 else 1e-5)
     assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
     _close(Q, qh.householder_qr_plain(Ap)[0], 1e-12 if f64 else 1e-5)
@@ -741,22 +742,28 @@ def test_complex_large_session_launches_k9(cuda):
 
 def _wrap_operands(F, N):
     """(ctx, consts) of a float32 session on the card whose hopping gives
-    K13's wrap operands at N: the 8x8 square lattice at N = 64, the
-    128-site chain at N = 128; repulsive (F = 2) or attractive (F = 1)."""
+    K13's wrap operands at N: the square lattice where N is a square (8x8
+    at N = 64), else the N-site chain (N = 128); repulsive (F = 2) or
+    attractive (F = 1)."""
     cls = tmc.HubbardModelRepulsive if F == 2 else tmc.HubbardModelAttractive
-    dims, L = (2, 8) if N == 64 else (1, N)
+    side = int(round(N ** 0.5))
+    dims, L = (2, side) if side * side == N else (1, N)
+    # the plain path's context: a session with kernels refuses 8 ∤ N
     return core.make_context(cls(dims=dims, L=L, U=4.0),
                              DQMCParameters(beta=1.0), dtype=torch.float32,
-                             device="cuda")
+                             device="cuda", use_kernels=False)
 
 
-@pytest.mark.parametrize("F,N", [(1, 64), (2, 64), (1, 128), (2, 128)])
+@pytest.mark.parametrize("N", [16, 36, 64, 100, 128])
+@pytest.mark.parametrize("F", [1, 2])
 @pytest.mark.parametrize("direction", [1, -1])
 def test_site_sweep_wrap_kernel_matches_plain(cuda, F, N, direction):
-    """K13 against its plain version on the same card inputs: sigma, acc and
-    nneg equal, G within 1e-5 of its largest entry (the wrap's FMAs sum in
-    another order than cuBLAS's products). Up: the decisions come from K1's
-    site loop on the input G, so they are K1's, bit for bit."""
+    """K13 against its plain version on the same card inputs, at N on each
+    of the tiled layouts (padded to 32, 64 and 128; 36 and 100 with padded
+    rows): sigma, acc and nneg equal, G within 1e-5 of its largest entry
+    (the wrap's FMAs sum in another order than cuBLAS's products). Up: the
+    decisions come from K1's site loop on the input G, so they are K1's,
+    bit for bit."""
     ctx, consts = _wrap_operands(F, N)
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)

@@ -1,7 +1,8 @@
-"""The chip scripts' bookkeeping for the fused UDT kernels K2 and K3, on the
-CPU: chip_ab.py's case selection, chip_profile.py's stamps, device shares
-and configurations, and the phases the stamped build of csrc/udt_qr.cu
-reports. No card is needed: nothing here launches a kernel."""
+"""The chip scripts' bookkeeping for the redesigned kernels K2, K3, K11 and
+K13, on the CPU: chip_ab.py's case selection, chip_profile.py's stamps,
+device shares and configurations, and the phases the stamped builds of
+csrc/udt_qr.cu, csrc/qr_f64.cu and csrc/site_sweep_wrap.cu report. No card
+is needed: nothing here launches a kernel."""
 
 import re
 import sys
@@ -61,3 +62,75 @@ def test_udt_stamp_phases_fit_the_phase_clock():
 def test_chip_profile_single_runs_one_chain():
     model, safe_mult, chains, plain, session = chip_profile.CONFIGS["single"]
     assert chains == 1 and plain and session == {"dtype": "float32"}
+
+
+def test_chip_ab_times_k11_and_k13_at_their_runs_shapes():
+    """K11 at the f64 run's shape and K13 at the fusewrap run's, each
+    direction: the cases the parent and the change are timed on."""
+    assert chip_ab.selected(["qr_f64", "site_sweep_wrap"]) == [
+        "qr_f64 (128, 64, 64)", "site_sweep_wrap up (256, 1, 64, 64)",
+        "site_sweep_wrap down (256, 1, 64, 64)"]
+
+
+@pytest.mark.parametrize("label,name", [
+    ("K4", "void (anonymous namespace)::qr_kernel<false>(float const*, "
+           "float*, float*, float*, int)"),
+    ("K14", "void (anonymous namespace)::qr_kernel<true>(float const*, "
+            "float*, float*, float*, int)"),
+    ("K11", "void (anonymous namespace)::qr_f64_kernel<64, 4>(double const*, "
+            "double*, double*)"),
+    ("K13", "void (anonymous namespace)::site_sweep_wrap_kernel<1, 1, "
+            "tiled::Geom<16, 16, 4, 4> >(float const*, float*, signed char "
+            "const*, signed char*, float const*, int*, int*, float const*, "
+            "float const*, int, float, float, float, int, int)")])
+def test_chip_profile_names_the_householder_kernels(label, name):
+    """Shared under the kernel name the profiler reports, by one label only
+    (K4's and K14's qr_kernel<VTAU> apart from K11's qr_f64_kernel); K11
+    and K13 are stamped."""
+    assert label in chip_profile.STAMPED or label in ("K4", "K14")
+    assert [k for k, frags in chip_profile.SHARES.items()
+            if any(f in name.lower() for f in frags)] == [label]
+
+
+@pytest.mark.parametrize("source,phases", [
+    ("qr_f64.cu", "qr_householder.PHASES_F64"),
+    ("site_sweep_wrap.cu", "site_sweep.WRAP_PHASES")])
+def test_k11_k13_stamp_phases_fit_the_phase_clock(source, phases):
+    """The stamped build of each kernel laps phases 0..len(PHASES)-1 (K13:
+    K1's loop's laps and its wrap's), within kPhases."""
+    from montecarlo_tpu_torch.ops import qr_householder, site_sweep
+    names = {"qr_householder": qr_householder, "site_sweep": site_sweep}
+    mod, attr = phases.split(".")
+    phases = getattr(names[mod], attr)
+    csrc = ROOT / "montecarlo_tpu_torch/csrc"
+    src = (csrc / source).read_text()
+    if source == "site_sweep_wrap.cu":
+        src += (csrc / "site_sweep_tiled.cuh").read_text()
+    header = (csrc / "phase_clock.cuh").read_text()
+    k_phases = int(re.search(r"kPhases = (\d+);", header).group(1))
+    laps = {int(p) for p in re.findall(r"clk\.lap\((\d+)\)", src)}
+    assert laps == set(range(len(phases)))
+    assert len(phases) <= k_phases
+
+
+def test_chip_profile_mixed_runs_float32_updates_over_float64():
+    """mixed: the f64 run's model, safe_mult and chains, float64 stacks
+    (DQMC's default dtype) under float32 updates (K1 and K11)."""
+    f64 = chip_profile.CONFIGS["f64"]
+    mixed = chip_profile.CONFIGS["mixed"]
+    assert mixed[:4] == f64[:4] and f64[4] == {}
+    assert mixed[4] == {"update_dtype": "float32"}
+
+
+def test_chip_ab_compares_outputs_bit_for_bit():
+    """chip_ab's parent-and-change output check: equal lists are bit-equal
+    with no difference; a changed float entry reads its difference; a
+    dtype change is not bit-equal."""
+    import torch
+    a = [torch.tensor([1.0, 2.0], dtype=torch.float64),
+         torch.tensor([1, -1], dtype=torch.int8)]
+    assert chip_ab.compare_outputs(a, [t.clone() for t in a]) == (True, 0.0)
+    b = [torch.tensor([1.0, 2.5], dtype=torch.float64), a[1].clone()]
+    assert chip_ab.compare_outputs(a, b) == (False, 0.5)
+    c = [a[0].float(), a[1]]
+    assert chip_ab.compare_outputs(a, c)[0] is False

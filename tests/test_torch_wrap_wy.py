@@ -461,6 +461,18 @@ def test_new_wrappers_raise_off_cpu_without_kernel():
         qh.qr_vtau(torch.empty(2, 16, 16, **m))
 
 
+@pytest.mark.parametrize("F", [1, 2])
+def test_wrap_supports_every_shape_k13_took(F):
+    """The shapes of K13's first design (G of one chain and its wrap's
+    middle term in shared memory: every N <= 128 at F = 1 and 2) are all
+    still taken on the tiled layout, within a block's shared memory."""
+    assert [n for n in range(1, 200) if ss.wrap_supports(n, F)] == \
+        list(range(1, 129))
+    assert max(ss.wrap_smem_bytes(n, F) for n in range(1, 129)) == \
+        ss.wrap_smem_bytes(128, F) <= 232448
+    assert ss.wrap_smem_bytes(64, 1) == (1408 + 2 * 64 * 68 * 4)
+
+
 def test_kernel_shapes_of_k13():
     assert ss.wrap_supports(64, 1) and ss.wrap_supports(128, 2)
     assert not ss.wrap_supports(129, 1) and not ss.wrap_supports(64, 3)

@@ -41,6 +41,17 @@ largest difference). Needs CUDA.
   site_sweep_wrap down (256, 1, 64, 64)  headline's inputs with the
                        session's wrap operands (chip_smoke.py's
                        wrap_inputs)
+  site_sweep_f64 (128, 1, 64, 64)  K1 in float64 at the f64 run's shape
+  site_sweep_f64 (64, 2, 64, 64)   and at F = 2 (chip_smoke.py's
+                       f64_sweep_inputs)
+  site_sweep_pair (256, 2, 64, 64)          K5 at the repulsive run's shape
+  site_sweep_pair (256, 1, 64, 64)          and at F = 1, and K1 on the
+  site_sweep on K5's inputs (256, 2, 64, 64)  same inputs (chip_smoke.py's
+  site_sweep on K5's inputs (256, 1, 64, 64)  pair_sweep_inputs)
+
+The prefix site_sweep selects every site-sweep case; site_sweep_f64,
+site_sweep_pair and "site_sweep on" select those of K1-f64, K5 and K1
+beside K5.
 """
 
 from __future__ import annotations
@@ -86,6 +97,24 @@ def _sweep(complex_, **where):
         from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
         G, sigma, u, kw, _ = _smoke().sweep_inputs(complex_, **where)
         fn = sscx.site_sweep_cx if complex_ else ss.site_sweep
+        return lambda: fn(G, sigma, u, **kw)
+    return make
+
+
+def _f64_sweep(repulsive, chains):
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep as ss
+        G, sigma, u, kw, _ = _smoke().f64_sweep_inputs(repulsive, chains)
+        return lambda: ss.site_sweep_f64(G, sigma, u, **kw)
+    return make
+
+
+def _pair_sweep(repulsive, pair):
+    """K5 (pair) or K1 on K5's inputs."""
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep as ss
+        G, sigma, u, kw, _ = _smoke().pair_sweep_inputs(repulsive)
+        fn = ss.site_sweep_pair if pair else ss.site_sweep
         return lambda: fn(G, sigma, u, **kw)
     return make
 
@@ -151,7 +180,15 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "udt_qr_solve (512, 64, 64)": _udt(512, True),
          "qr_f64 (128, 64, 64)": _qr64(),
          "site_sweep_wrap up (256, 1, 64, 64)": _wrap(1),
-         "site_sweep_wrap down (256, 1, 64, 64)": _wrap(-1)}
+         "site_sweep_wrap down (256, 1, 64, 64)": _wrap(-1),
+         "site_sweep_f64 (128, 1, 64, 64)": _f64_sweep(False, 128),
+         "site_sweep_f64 (64, 2, 64, 64)": _f64_sweep(True, 64),
+         "site_sweep_pair (256, 2, 64, 64)": _pair_sweep(True, True),
+         "site_sweep_pair (256, 1, 64, 64)": _pair_sweep(False, True),
+         "site_sweep on K5's inputs (256, 2, 64, 64)": _pair_sweep(True,
+                                                                   False),
+         "site_sweep on K5's inputs (256, 1, 64, 64)": _pair_sweep(False,
+                                                                   False)}
 
 
 def selected(prefixes):

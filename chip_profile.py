@@ -34,7 +34,7 @@ Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
     python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
-                                   [K11] [K13]
+                                   [K11] [K13] [K1-f64] [K5]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -47,7 +47,10 @@ functions, dk = 32, in the layout cluster_plan picks), K10 at (256, 64,
 and K3 at (256, 64, 64) float32 (graded, prescaled, pivoted input; K3's
 right-hand side random normal), K11 at (128, 64, 64) float64 on the same
 kind of input and K13 at (256, 1, 64, 64) in each direction on the
-headline's inputs with the session's wrap operands: the mean over
+headline's inputs with the session's wrap operands, K1 in float64 at
+(128, 1, 64, 64) on the f64 configuration's inputs and K5 at (256, 2, 64,
+64) on the repulsive configuration's (and K1 in float32 on the same
+inputs beside it): the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -94,9 +97,14 @@ from chip_smoke import timed
 
 PAIRS = 5
 # the kernels that `stamps` times
-STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13")
+STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13",
+           "K1-f64", "K5")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
+          # K1-f64 and K5 under their former names too, for A/B runs
+          # against older checkouts
+          "K1-f64": ("site_sweep_tiled_f64", "site_sweep_kernel<double"),
+          "K5": ("site_sweep_pair",),
           "K13": ("site_sweep_wrap_kernel",),
           "K2": ("udt_kernel<false",), "K3": ("udt_kernel<true",),
           # K4, K14 and K11 under their former names too (one templated
@@ -367,6 +375,25 @@ def stamps(which):
         qh.qr_f64(A64)
         _print_stamps(f"K11 {tuple(A64.shape)} float64, {B64} blocks", "K11",
                       _stamp_rows("qr_f64", B64), qh.PHASES_F64, ms)
+    # K1 in float64 at the f64 run's shape and inputs, K5 at the repulsive
+    # run's (K1 in float32 beside it on the same inputs): one block per
+    # chain; every kernel of csrc/site_sweep.cu stamps into the rows that
+    # site_sweep_f32_stamps reads
+    for label, head, fn, make in (
+            ("K1-f64", "K1-f64", ss.site_sweep_f64, smoke.f64_sweep_inputs),
+            ("K5", "K5", ss.site_sweep_pair, smoke.pair_sweep_inputs),
+            ("K5", "K1 on K5's inputs", ss.site_sweep,
+             smoke.pair_sweep_inputs)):
+        if label not in which:
+            continue
+        G, sigma, u, kw, _ = make()
+        C, N = G.shape[0], G.shape[-1]
+        call = lambda: fn(G, sigma, u, **kw)
+        ms = 1e3 * timed(call, 20)
+        n_acc = int(call()[2].sum())
+        _print_stamps(f"{head} {tuple(G.shape)} {str(G.dtype)[6:]}, {n_acc} "
+                      f"of {C * N} sites accepted, {C} blocks", head,
+                      _stamp_rows("site_sweep_f32", C), ss.PHASES, ms)
     if "K13" in which:
         # the fusewrap run's shape, each direction: one block per chain
         G, sigma, u, kw, ops, _, _ = smoke.wrap_inputs()

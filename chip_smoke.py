@@ -14,12 +14,13 @@ failure and prints no result line then):
               there is one, and the kernel's bound; K1 (float32) and K8 bit
               for bit, K8 also at chain128's N = 128 (a row of its own in
               the kernels line); K5 also against K1 on
-              the same inputs, bit for bit, with both times in turns; K13
+              the same inputs, bit for bit, with both times (wall and
+              device) in turns; K13
               (the site sweep with the wrap fused in) in both directions,
               its up direction's decisions also against K1's, bit for bit,
               beside the unfused visit's time (K1 and the separate wrap);
-              K11 and K13 also REPEATS launches more, each bit-equal to
-              the first (a race check);
+              K11, K13, K5 and K1 in float64 also REPEATS launches more,
+              each bit-equal to the first (a race check);
               K14 (the QR emitting V and tau) with max|Q^T Q - I| of its
               WY-assembled Q and of K4's; K12 (one chain); K6 and K9 also
               at WAVE_CHAINS chains (more than one wave of clusters), each
@@ -148,8 +149,8 @@ TOL_TAU = 1e-4
 F64_CHAINS, X_THERM, X_SWEEPS = 128, 1, 2
 K1_F64_F2_CHAINS = 64
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
-# repeated launches of K11 and K13, held bit-equal to the first (a race
-# check: the card's sanitizers refuse the device)
+# repeated launches of K11, K13, K5 and K1 in float64, held bit-equal to
+# the first (a race check: the card's sanitizers refuse the device)
 REPEATS = 50
 # float64 kernels against their plain versions (K11: tests/test_pallas_qr.py's
 # strict-f64 contract for Q^T Q - I)
@@ -396,24 +397,45 @@ def real_state(model, chains, seed, use_kernels, safe_mult=SAFE_MULT,
     return ctx, consts, core.init_state(ctx, consts, conf), gen
 
 
-def sweep_inputs(complex_=False, repulsive=False, chains=CHAINS, L=L,
-                 dims=2):
-    """Inputs of K1 (complex_: K8) at the headline's (complex_: the complex
-    configuration's; L=CHAIN_L, dims=1: chain128's) model: G of a
+def slice_inputs(model, chains, seed, safe_mult=SAFE_MULT, **session):
+    """A site sweep's inputs at model (real_state's session): G of a
     plain-path init_state at beta=10, the last slice's sigma and fresh
-    uniforms. Returns (G, sigma, u, the sweep's keywords, ctx)."""
+    uniforms in the update dtype. Returns (G, sigma, u, the sweep's
+    keywords, ctx)."""
     import torch
-    if complex_:
-        model, sm = complex_model(repulsive, L, dims), CPLX_SM
-    else:
-        model, sm = headline_model(repulsive, L), SAFE_MULT
-    ctx, _, state, gen = real_state(model, chains, 1, use_kernels=False,
-                                    safe_mult=sm)
+    ctx, _, state, gen = real_state(model, chains, seed, use_kernels=False,
+                                    safe_mult=safe_mult, **session)
     sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-    u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE)
+    u = torch.rand(chains, ctx.N, generator=gen, device=DEVICE,
+                   dtype=ctx.urdtype)
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
     return state["G"], sigma, u, kw, ctx
+
+
+def sweep_inputs(complex_=False, repulsive=False, chains=CHAINS, L=L,
+                 dims=2):
+    """Inputs of K1 (complex_: K8) at the headline's (complex_: the complex
+    configuration's; L=CHAIN_L, dims=1: chain128's) model
+    (``slice_inputs``)."""
+    if complex_:
+        return slice_inputs(complex_model(repulsive, L, dims), chains, 1,
+                            safe_mult=CPLX_SM)
+    return slice_inputs(headline_model(repulsive, L), chains, 1)
+
+
+def pair_sweep_inputs(repulsive=True, chains=CHAINS):
+    """Inputs of K5 (and of K1 beside it) at the headline's model
+    (repulsive: the repulsive run's, F = 2; ``slice_inputs``)."""
+    return slice_inputs(headline_model(repulsive), chains, 12)
+
+
+def f64_sweep_inputs(repulsive=False, chains=F64_CHAINS):
+    """Inputs of K1 in float64 at the f64 run's model (repulsive: F = 2;
+    ``slice_inputs``)."""
+    import torch
+    return slice_inputs(headline_model(repulsive), chains, 9,
+                        dtype=torch.float64)
 
 
 def wrap_inputs(repulsive=False, chains=CHAINS):
@@ -626,23 +648,20 @@ def phase_parity():
     # ---- K5 at (256, 2, 64, 64), the repulsive run's shape, and at
     # (256, 1, 64, 64), on real Green's functions (plain-path init_state),
     # against its plain version and against K1 on the same inputs, bit for
-    # bit; K5's and K1's times in turns on the F=2 inputs
+    # bit, and REPEATS launches more, each bit-equal to the first; K5's and
+    # K1's times (wall, then device) in turns on the F=2 inputs
     for repulsive in (True, False):
-        ctx, _, state, gen = real_state(headline_model(repulsive), CHAINS, 12,
-                                        use_kernels=False)
-        G = state["G"]
-        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-        u = torch.rand(CHAINS, ctx.N, generator=gen, device=DEVICE)
-        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                  use_boson=ctx.use_boson)
-        out_k = ss.site_sweep_pair(G, sigma, u, **kw)
+        G, sigma, u, kw, ctx = pair_sweep_inputs(repulsive)
+        pair = lambda: ss.site_sweep_pair(G, sigma, u, **kw)
+        k1 = lambda: ss.site_sweep(G, sigma, u, **kw)
+        out_k = pair()
         shape = tuple(G.shape)
         err = check_sweep("site_sweep_pair", out_k,
                           ss.site_sweep_pair_plain(G, sigma, u, **kw), shape,
                           relative=False, tol=0.0)
-        err = max(err, check_sweep("site_sweep_pair vs K1", out_k,
-                                   ss.site_sweep(G, sigma, u, **kw), shape,
-                                   relative=False, tol=0.0))
+        err = max(err, check_sweep("site_sweep_pair vs K1", out_k, k1(),
+                                   shape, relative=False, tol=0.0))
+        repeats_equal(f"site_sweep_pair {shape}", pair)
         flips = (out_k[1] != sigma).reshape(CHAINS, -1, 2)
         counts = [int(((flips[..., 0] == a) & (flips[..., 1] == b)).sum())
                   for a, b in ((False, False), (True, False), (False, True),
@@ -651,21 +670,26 @@ def phase_parity():
             f"only the first, only the second, both accepted: {counts}")
         if not repulsive:
             continue
-        pair = lambda: ss.site_sweep_pair(G, sigma, u, **kw)
-        k1 = lambda: ss.site_sweep(G, sigma, u, **kw)
-        t_pair, t_k1 = [], []
+        t_pair, t_k1, d_pair, d_k1 = [], [], [], []
         for _ in range(2):
             t_pair.append(1e3 * timed(pair, 50))
             t_k1.append(1e3 * timed(k1, 50))
+        for _ in range(2):
+            d_pair.append(device_ms(pair))
+            d_k1.append(device_ms(k1))
         log(f"[parity] site_sweep_pair {shape}: K5 {t_pair[0]:.4f}, "
             f"{t_pair[1]:.4f} ms; K1 on the same inputs {t_k1[0]:.4f}, "
-            f"{t_k1[1]:.4f} ms (in turns)")
+            f"{t_k1[1]:.4f} ms (in turns); device K5 "
+            f"{', '.join(map(ms_text, d_pair))}, K1 "
+            f"{', '.join(map(ms_text, d_k1))} (in turns)")
         results["site_sweep_pair"] = dict(
             max_abs_err=err, ms=min(t_pair),
             plain_ms=1e3 * timed(lambda: ss.site_sweep_pair_plain(
                 G, sigma, u, **kw), 5),
             library_ms=None,
             **sweep_bound(CHAINS, ctx.F, ctx.N, out_k[2].sum().item()))
+        if d_pair[0] is not None:
+            results["site_sweep_pair"]["device_ms"] = d_pair[0]
 
     # ---- K13 at (256, 1, 64, 64), the fusewrap run's shape, and at
     # (128, 2, 64, 64), in both directions, on real Green's functions
@@ -890,31 +914,28 @@ def phase_parity():
     degenerate_columns("qr_f64", qh.qr_f64, Ap, 1e-175, TOL_QR64, TOL_ORTH64)
 
     # ---- K1 in float64 at (128, 1, 64, 64) and (64, 2, 64, 64), on real
-    # float64 Green's functions (plain-path init_state)
+    # float64 Green's functions (plain-path init_state), and REPEATS
+    # launches more, each bit-equal to the first
     errs = []
     for repulsive, chains in ((False, F64_CHAINS), (True, K1_F64_F2_CHAINS)):
-        ctx, _, state, gen64 = real_state(headline_model(repulsive), chains,
-                                          9, use_kernels=False,
-                                          dtype=torch.float64)
-        G = state["G"]
-        sigma = state["conf"][:, :, ctx.M - 1].contiguous()
-        u = torch.rand(chains, ctx.N, generator=gen64, device=DEVICE,
-                       dtype=torch.float64)
-        kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
-                  use_boson=ctx.use_boson)
-        out_k = ss.site_sweep_f64(G, sigma, u, **kw)
+        G, sigma, u, kw, ctx = f64_sweep_inputs(repulsive, chains)
+        k64 = lambda: ss.site_sweep_f64(G, sigma, u, **kw)
+        out_k = k64()
         errs.append(check_sweep("site_sweep_f64", out_k,
                                 ss.site_sweep_plain(G, sigma, u, **kw),
                                 tuple(G.shape), relative=False, tol=TOL_G64))
+        repeats_equal(f"site_sweep_f64 {tuple(G.shape)}", k64)
         if not repulsive:
             results["site_sweep_f64"] = dict(
-                ms=1e3 * timed(lambda: ss.site_sweep_f64(G, sigma, u, **kw),
-                               50),
+                ms=1e3 * timed(k64, 50),
                 plain_ms=1e3 * timed(lambda: ss.site_sweep_plain(
                     G, sigma, u, **kw), 5),
                 library_ms=None,
                 **sweep_bound(chains, ctx.F, ctx.N, out_k[2].sum().item(),
                               fp64=True))
+            dev = device_ms(k64)
+            if dev is not None:
+                results["site_sweep_f64"]["device_ms"] = dev
     results["site_sweep_f64"]["max_abs_err"] = max(errs)
     # ... and its negative-weight magnitudes against its plain version's, on
     # F=2 inputs with random G whose diagonal leaves [0, 1] (r_up r_dn < 0

@@ -68,8 +68,8 @@ site_sweep_tiled_cx(const float2* __restrict__ G_in,
       reinterpret_cast<float*>(G_out + base), sigma_in + (size_t)c * N,
       sigma_out + (size_t)c * N, u + (size_t)c * N, nullptr, nullptr,
       accept_out + (size_t)c * N,
-      reinterpret_cast<float*>(det_out + (size_t)c * N), N, lamb, sign0,
-      sign1, det_power, use_boson, clk);
+      reinterpret_cast<float*>(det_out + (size_t)c * N), nullptr, N, lamb,
+      sign0, sign1, det_power, use_boson, clk);
 #ifdef MC_PHASE_STAMPS
   if (threadIdx.x == 0) clk.store(g_stamps, c);
 #endif

@@ -1,42 +1,53 @@
-// The one-block-per-chain Metropolis site loop of K1 (float32,
-// site_sweep.cu), K8 (complex64, site_sweep_cx.cu) and K13 (K1 with the
-// slice's wrap fused in, site_sweep_wrap.cu), with G of the chain spread
-// over the block's registers.
+// The one-block-per-chain Metropolis site loops of K1 (float32 and float64,
+// site_sweep.cu), K5 (K1 two sites at a time, site_sweep.cu), K8
+// (complex64, site_sweep_cx.cu) and K13 (K1 with the slice's wrap fused
+// in, site_sweep_wrap.cu), with G of the chain spread over the block's
+// registers.
 //
 // Layout. The block's NT = TR x TC threads cover G_f (N x N, padded to
 // NP x NP, NP = TR*RT = TC*CT) in tiles: thread (ty, tx) = (tid / TC,
 // tid % TC) owns the RT rows row(ty, k) and the CT columns col(tx, j), in
-// chunks of up to 4 consecutive indices (float4 reads and writes of the
-// staged vectors without bank conflicts, vector loads and stores of G).
-// Its RT x CT elements of each flavor f < FR live in registers; the flavors
-// FR..F-1 (the complex F = 2 layout past NP = 64, whose G does not fit a
-// register file) live in shared memory private to the thread, element e at
-// priv[e*NT + tid], so consecutive threads touch consecutive words. Padded
-// rows and columns start at 0 and are never written back.
+// chunks of up to 16 bytes of consecutive indices (4 floats or 2 doubles:
+// vector reads and writes of the staged vectors without bank conflicts,
+// vector loads and stores of G). Its RT x CT elements of each flavor
+// f < FR live in registers; the flavors FR..F-1 (F = 2 past NP = 64 in
+// complex64 and in float64, whose G does not fit a register file) live in
+// shared memory private to the thread, element e at priv[e*NT + tid], so
+// consecutive threads touch consecutive words. Padded rows and columns
+// start at 0 and are never written back.
 //
-// One block barrier per site. Only row i and column i of every flavor go
-// through shared memory, staged in a double buffer: the owners of row i+1
-// and column i+1 publish them into the other buffer right after their own
-// update of site i (after no update, when site i was rejected: G did not
-// change), and one barrier later every thread takes site i+1's decision
-// from the staged row, which holds G_f[i+1, i+1], and reads the staged
-// values of its own rows and columns for the update. Buffer i&1 is read at
-// site i while buffer (i+1)&1 is written; the barrier at the end of site i
-// keeps site i+1's writers off buffer i&1 until every thread has read it.
-// The decision stays block-uniform: every thread computes it from the same
-// staged values, in the same operations, so no flag is broadcast. sigma and
-// u are read once into shared memory, and what the loop records per site
-// (the flipped sigma; complex: the accept flag and det) goes to shared
-// memory and out after the loop: nothing leaves the SM inside it. exp of
-// the two field values' weights is taken once per launch.
+// One block barrier per site (sweep_chain). Only row i and column i of
+// every flavor go through shared memory, staged in a double buffer: the
+// owners of row i+1 and column i+1 publish them into the other buffer right
+// after their own update of site i (after no update, when site i was
+// rejected: G did not change), and one barrier later every thread takes
+// site i+1's decision from the staged row, which holds G_f[i+1, i+1], and
+// reads the staged values of its own rows and columns for the update.
+// Buffer i&1 is read at site i while buffer (i+1)&1 is written; the barrier
+// at the end of site i keeps site i+1's writers off buffer i&1 until every
+// thread has read it. The decision stays block-uniform: every thread
+// computes it from the same staged values, in the same operations, so no
+// flag is broadcast. sigma and u are read once into shared memory, and what
+// the loop records per site (the flipped sigma; complex: the accept flag
+// and det) goes to shared memory and out after the loop: nothing leaves the
+// SM inside it. exp of the two field values' weights is taken once per
+// launch.
 //
-// Rounding. Every operation is a separately rounded __f*_rn intrinsic, in
-// the order of the plain PyTorch versions (ops/site_sweep.py::
-// site_sweep_plain, ops/site_sweep_cx.py::site_sweep_cx_plain), which nvcc
-// never contracts into an FMA: the kernels are bit-equal to them.
+// One block barrier per pair of sites (sweep_chain_pair, K5): a staging
+// buffer holds rows and columns i and j = i+1, published together after
+// the previous pair's update; every thread decides site i from G[i,i],
+// corrects G[j,j] with site i's rank-1 terms (G[j,i], G[i,j]) and decides
+// site j, corrects row j and column j at its own columns and rows, and
+// applies both rank-1 terms to its tile in one pass.
+//
+// Rounding. Every operation is a separately rounded _rn intrinsic (__f*_rn
+// in float32, __d*_rn in float64), in the order of the plain PyTorch
+// versions (ops/site_sweep.py::site_sweep_plain and site_sweep_pair_plain,
+// ops/site_sweep_cx.py::site_sweep_cx_plain), which nvcc never contracts
+// into an FMA: the kernels are bit-equal to them.
 //
 // Register arrays are indexed only with compile-time indices (the tile
-// loops are unrolled; the owner of row or column i+1 is found by unrolled
+// loops are unrolled; the owner of row or column n is found by unrolled
 // compare-and-select), so they stay in registers.
 //
 // A wrap (K13) gets the thread tiles of G before the loop and after it,
@@ -48,18 +59,52 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "phase_clock.cuh"
 
 namespace tiled {
 
+// separately rounded operations of each element type
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float log10_(float x) { return log10f(x); }
+__device__ __forceinline__ double log10_(double x) { return log10(x); }
+
 // A block of TR x TC threads, each owning RT rows and CT columns of the
-// NP x NP padded G (NP = TR*RT = TC*CT).
-template <int TR_, int TC_, int RT_, int CT_>
+// NP x NP padded G of element type T (NP = TR*RT = TC*CT).
+template <int TR_, int TC_, int RT_, int CT_, class T_ = float>
 struct Geom {
+  using T = T_;
   static constexpr int TR = TR_, TC = TC_, RT = RT_, CT = CT_;
   static constexpr int NT = TR * TC, NP = TR * RT;
-  // chunk widths: consecutive indices a thread owns
-  static constexpr int WR = RT < 4 ? RT : 4, WC = CT < 4 ? CT : 4;
+  // chunk widths: consecutive indices a thread owns, 16 bytes at most
+  static constexpr int VW = 16 / (int)sizeof(T);
+  static constexpr int WR = RT < VW ? RT : VW, WC = CT < VW ? CT : VW;
   static_assert(TC * CT == NP && RT % WR == 0 && CT % WC == 0,
                 "a square padded G in whole chunks");
   __device__ static __forceinline__ int row(int ty, int k) {
@@ -70,76 +115,94 @@ struct Geom {
   }
 };
 
-// Calls fn(Gm{}) with the layout of N: a block of 256 threads (16 x 16)
-// per chain, each thread a tile of (NP/16) x (NP/16) elements of G padded
-// to NP = 32, 64 or 128 (ops/site_sweep.py::padded). 256 threads per chain
-// was the fastest of 128 to 1024 at every shape timed (PERF.md).
-template <class Fn>
+// Calls fn(Gm{}) with the layout of N for elements of type T: a block of
+// 256 threads (16 x 16) per chain, each thread a tile of (NP/16) x (NP/16)
+// elements of G padded to NP = 32, 64 or 128 (ops/site_sweep.py::padded).
+// 256 threads per chain was the fastest of 128 to 1024 at every shape timed
+// (PERF.md).
+template <class T = float, class Fn>
 int with_layout(int N, Fn&& fn) {
-  if (N <= 32) return fn(Geom<16, 16, 2, 2>{});
-  if (N <= 64) return fn(Geom<16, 16, 4, 4>{});
-  return fn(Geom<16, 16, 8, 8>{});
+  if (N <= 32) return fn(Geom<16, 16, 2, 2, T>{});
+  if (N <= 64) return fn(Geom<16, 16, 4, 4, T>{});
+  return fn(Geom<16, 16, 8, 8, T>{});
 }
 
-// Flavors in registers: all but one for complex F = 2 past NP = 64, whose
-// G (256 KB at NP = 128) does not fit a register file
-template <bool CX, int F, int NP>
+// Flavors in registers: all but one where the tiles of every flavor would
+// take a thread more than 128 registers of with_layout's 256 threads
+// (complex64 and float64 at F = 2 past NP = 64: 256 KB of G at NP = 128,
+// as large as a register file)
+template <bool CX, int F, int NP, class T = float>
 __host__ __device__ constexpr int flavors_in_registers() {
-  return CX && F == 2 && NP > 64 ? 1 : F;
+  return F * (CX ? 2 : 1) * (int)(sizeof(T) / 4) * (NP * NP / 256) > 128
+             ? 1
+             : F;
 }
 
 // Shared memory of one block, in bytes: the staging double buffer (row and
-// column of every flavor and plane), u, the complex det per site, the
-// thread-private flavors FR..F-1, and sigma in and out (complex: the accept
-// flags). ops/site_sweep.py::tiled_smem_bytes mirrors it.
-template <bool CX, int F, int FR, int NP>
+// column of every flavor and plane, for S sites: K5 stages two), u, the
+// complex det per site, the thread-private flavors FR..F-1 (all of them
+// elements of T), and sigma in and out (complex: the accept flags).
+// ops/site_sweep.py::tiled_smem_bytes mirrors it.
+template <bool CX, int F, int FR, int NP, class T = float, int S = 1>
 __host__ __device__ constexpr int smem_bytes() {
   constexpr int NV = CX ? 2 : 1;
-  return 4 * (2 * 2 * NV * F * NP + NP + (CX ? 2 * NP : 0) +
-              (F - FR) * NV * NP * NP) +
+  return (int)sizeof(T) * (2 * 2 * S * NV * F * NP + NP + (CX ? 2 * NP : 0) +
+                           (F - FR) * NV * NP * NP) +
          NP * (CX ? 3 : 2);
 }
 
-template <int W>
-__device__ __forceinline__ void ld_vec(const float* p, float* v) {
-  if constexpr (W == 4) {
+// W consecutive elements of type T (W * sizeof(T) = 8 or 16 bytes, or one
+// element) with one vector access
+template <int W, class T>
+__device__ __forceinline__ void ld_vec(const T* p, T* v) {
+  if constexpr (sizeof(T) == 4 && W == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (W == 2) {
+  } else if constexpr (sizeof(T) == 4 && W == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x, v[1] = t.y;
+  } else if constexpr (sizeof(T) == 8 && W == 2) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    v[0] = t.x, v[1] = t.y;
   } else {
+    static_assert(W == 1, "a chunk of at most 16 bytes");
     v[0] = p[0];
   }
 }
 
-template <int W>
-__device__ __forceinline__ void st_vec(float* p, const float* v) {
-  if constexpr (W == 4) {
+template <int W, class T>
+__device__ __forceinline__ void st_vec(T* p, const T* v) {
+  if constexpr (sizeof(T) == 4 && W == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (W == 2) {
+  } else if constexpr (sizeof(T) == 4 && W == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else if constexpr (sizeof(T) == 8 && W == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   } else {
+    static_assert(W == 1, "a chunk of at most 16 bytes");
     p[0] = v[0];
   }
 }
 
-// W consecutive floats (W = 1, 2, 4 or 8) with vector accesses
-template <int W>
-__device__ __forceinline__ void ld_span(const float* p, float* v) {
-  if constexpr (W == 8) {
-    ld_vec<4>(p, v);
-    ld_vec<4>(p + 4, v + 4);
+// W consecutive elements (complex: interleaved planes, up to 32 bytes) with
+// vector accesses of 16 bytes
+template <int W, class T>
+__device__ __forceinline__ void ld_span(const T* p, T* v) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if constexpr (W > V) {
+    ld_vec<V>(p, v);
+    ld_span<W - V>(p + V, v + V);
   } else {
     ld_vec<W>(p, v);
   }
 }
 
-template <int W>
-__device__ __forceinline__ void st_span(float* p, const float* v) {
-  if constexpr (W == 8) {
-    st_vec<4>(p, v);
-    st_vec<4>(p + 4, v + 4);
+template <int W, class T>
+__device__ __forceinline__ void st_span(T* p, const T* v) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if constexpr (W > V) {
+    st_vec<V>(p, v);
+    st_span<W - V>(p + V, v + V);
   } else {
     st_vec<W>(p, v);
   }
@@ -149,36 +212,38 @@ __device__ __forceinline__ void st_span(float* p, const float* v) {
 // flavor f at tile position (k, j).
 template <int NV, int F, int FR, class Gm>
 struct Tile {
-  float r[FR][NV][Gm::RT][Gm::CT];
-  float* s;  // the thread's first private element of flavors FR..F-1
-  __device__ __forceinline__ float& at(int f, int v, int k, int j) {
+  using T = typename Gm::T;
+  T r[FR][NV][Gm::RT][Gm::CT];
+  T* s;  // the thread's first private element of flavors FR..F-1
+  __device__ __forceinline__ T& at(int f, int v, int k, int j) {
     if (f < FR) return r[f][v][k][j];
     return s[((((f - FR) * NV + v) * Gm::RT + k) * Gm::CT + j) * Gm::NT];
   }
 };
 
-// One buffer of the staging double buffer: row i of plane v and flavor f
-// at row(v, f), column i at col(v, f), NP floats each.
-template <int NV, int F, int NP>
+// One buffer of the staging double buffer: row n of plane v and flavor f
+// at row(v, f, s), column n at col(v, f, s), NP elements each, for each of
+// S sites s (K5: 0 site i, 1 site j).
+template <class T, int NV, int F, int NP, int S = 1>
 struct Stage {
-  static constexpr int FLOATS = 2 * NV * F * NP;
-  float* vec;
-  __device__ __forceinline__ float* row(int v, int f) const {
-    return vec + (2 * v * F + f) * NP;
+  static constexpr int SIZE = 2 * S * NV * F * NP;  // elements
+  T* vec;
+  __device__ __forceinline__ T* row(int v, int f, int s = 0) const {
+    return vec + (2 * (s * NV + v) * F + f) * NP;
   }
-  __device__ __forceinline__ float* col(int v, int f) const {
-    return vec + ((2 * v + 1) * F + f) * NP;
+  __device__ __forceinline__ T* col(int v, int f, int s = 0) const {
+    return vec + ((2 * (s * NV + v) + 1) * F + f) * NP;
   }
 };
 
-// The owners of row n and column n of every flavor write them into the
-// staging buffer st. A thread finds whether it owns row n from its ty alone
-// (column n: its tx), and which of its rows that is by unrolled
+// The owners of row n and column n of every flavor write them into site
+// s of the staging buffer st. A thread finds whether it owns row n from its
+// ty alone (column n: its tx), and which of its rows that is by unrolled
 // compare-and-select.
-template <int NV, int F, int FR, class Gm>
-__device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g,
-                                        const Stage<NV, F, Gm::NP>& st, int n,
-                                        int ty, int tx) {
+template <int NV, int F, int FR, class Gm, class St>
+__device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g, const St& st,
+                                        int n, int ty, int tx, int s = 0) {
+  using T = typename Gm::T;
   constexpr int RT = Gm::RT, CT = Gm::CT;
   constexpr int WR = Gm::WR, WC = Gm::WC;
   constexpr int SR = Gm::TR * WR, SC = Gm::TC * WC;  // rows, columns a chunk
@@ -194,10 +259,10 @@ __device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g,
           for (int v = 0; v < NV; ++v)
 #pragma unroll
             for (int j0 = 0; j0 < CT; j0 += WC) {
-              float t[WC];
+              T t[WC];
 #pragma unroll
               for (int w = 0; w < WC; ++w) t[w] = g.at(f, v, k, j0 + w);
-              st_vec<WC>(st.row(v, f) + Gm::col(tx, j0), t);
+              st_vec<WC>(st.row(v, f, s) + Gm::col(tx, j0), t);
             }
       }
   }
@@ -213,61 +278,131 @@ __device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g,
           for (int v = 0; v < NV; ++v)
 #pragma unroll
             for (int k0 = 0; k0 < RT; k0 += WR) {
-              float t[WR];
+              T t[WR];
 #pragma unroll
               for (int w = 0; w < WR; ++w) t[w] = g.at(f, v, k0 + w, j);
-              st_vec<WR>(st.col(v, f) + Gm::row(ty, k0), t);
+              st_vec<WR>(st.col(v, f, s) + Gm::row(ty, k0), t);
             }
       }
   }
 }
 
+// The thread's tiles of G (F x N x N at G_in, NV interleaved planes) into
+// g, padded rows and columns 0; whole: N keeps every chunk whole and
+// aligned, so chunks move with vector loads
+template <int NV, int F, int FR, class Gm>
+__device__ __forceinline__ void load_tile(Tile<NV, F, FR, Gm>& g,
+                                          const typename Gm::T* __restrict__
+                                              G_in,
+                                          int N, bool whole, int ty, int tx) {
+  using T = typename Gm::T;
+  constexpr int RT = Gm::RT, CT = Gm::CT, WC = Gm::WC;
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+#pragma unroll
+      for (int j0 = 0; j0 < CT; j0 += WC) {
+        const int a = Gm::row(ty, k), b = Gm::col(tx, j0);
+        T t[NV * WC];
+        if (a < N && b < N && whole) {
+          ld_span<NV * WC>(G_in + NV * ((size_t)(f * N + a) * N + b), t);
+        } else {
+#pragma unroll
+          for (int w = 0; w < WC; ++w)
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              t[NV * w + v] =
+                  a < N && b + w < N
+                      ? G_in[NV * ((size_t)(f * N + a) * N + b + w) + v]
+                      : T(0);
+        }
+#pragma unroll
+        for (int w = 0; w < WC; ++w)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) g.at(f, v, k, j0 + w) = t[NV * w + v];
+      }
+}
+
+// The thread's tiles of g out to G_out, padded rows and columns left out
+template <int NV, int F, int FR, class Gm>
+__device__ __forceinline__ void store_tile(Tile<NV, F, FR, Gm>& g,
+                                           typename Gm::T* __restrict__ G_out,
+                                           int N, bool whole, int ty, int tx) {
+  using T = typename Gm::T;
+  constexpr int RT = Gm::RT, CT = Gm::CT, WC = Gm::WC;
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+#pragma unroll
+      for (int j0 = 0; j0 < CT; j0 += WC) {
+        const int a = Gm::row(ty, k), b = Gm::col(tx, j0);
+        T t[NV * WC];
+#pragma unroll
+        for (int w = 0; w < WC; ++w)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) t[NV * w + v] = g.at(f, v, k, j0 + w);
+        if (a < N && b < N && whole) {
+          st_span<NV * WC>(G_out + NV * ((size_t)(f * N + a) * N + b), t);
+        } else if (a < N) {
+#pragma unroll
+          for (int w = 0; w < WC; ++w)
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              if (b + w < N)
+                G_out[NV * ((size_t)(f * N + a) * N + b + w) + v] =
+                    t[NV * w + v];
+        }
+      }
+}
+
 // The Metropolis decision of a site from the flavors' current diagonal
-// entries g[f][v] (v: planes), in the plain versions' operations; K5
-// (site_sweep.cu) takes its two sites' decisions from it too.
-template <bool CX, int F>
+// entries g[f][v] (v: planes), in the plain versions' operations.
+template <bool CX, int F, class T = float>
 struct Decision {
   static constexpr int NV = CX ? 2 : 1;
-  float dp[F], dm[F], wp, wm;  // per field value: delta_f, boson weight
+  T dp[F], dm[F], wp, wm;  // per field value: delta_f, boson weight
 
   // delta_f = exp(sign_f dEb) - 1 and exp(-dEb), dEb = -2 lamb sigma, for
-  // sigma = +1 (p) and -1 (m), as the plain versions compute them
-  __device__ __forceinline__ Decision(float lamb, float sign0, float sign1,
+  // sigma = +1 (p) and -1 (m), as the plain versions compute them per site:
+  // sign_f dEb is +-2 lamb exactly, so each value is the plain version's
+  __device__ __forceinline__ Decision(T lamb, T sign0, T sign1,
                                       int use_boson) {
-    const float neg2lamb = __fmul_rn(-2.f, lamb);
-    const float ep = __fmul_rn(neg2lamb, 1.f), em = __fmul_rn(neg2lamb, -1.f);
+    const T one = 1;
+    const T neg2lamb = mul_rn(T(-2), lamb);
+    const T ep = mul_rn(neg2lamb, one), em = mul_rn(neg2lamb, -one);
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      const float sg = f == 0 ? sign0 : sign1;
-      dp[f] = __fsub_rn(expf(__fmul_rn(sg, ep)), 1.f);
-      dm[f] = __fsub_rn(expf(__fmul_rn(sg, em)), 1.f);
+      const T sg = f == 0 ? sign0 : sign1;
+      dp[f] = sub_rn(exp_(mul_rn(sg, ep)), one);
+      dm[f] = sub_rn(exp_(mul_rn(sg, em)), one);
     }
-    wp = use_boson ? expf(-ep) : 1.f;
-    wm = use_boson ? expf(-em) : 1.f;
+    wp = use_boson ? exp_(-ep) : one;
+    wm = use_boson ? exp_(-em) : one;
   }
 
   // accept; sets x (x_f; complex: its real and imaginary parts) and the
   // detratio (complex: its real and imaginary parts)
-  __device__ __forceinline__ bool operator()(const float (&g)[F][NV],
-                                             int8_t s8, float u_i,
-                                             int det_power, float (&x)[F][NV],
-                                             float (&det)[NV]) const {
+  __device__ __forceinline__ bool operator()(const T (&g)[F][NV], int8_t s8,
+                                             T u_i, int det_power,
+                                             T (&x)[F][NV],
+                                             T (&det)[NV]) const {
+    const T one = 1;
     const bool up = s8 > 0;
     if constexpr (CX) {
-      float rr[F], ri[F], pr = 0.f, pi = 0.f;
+      T rr[F], ri[F], pr = 0, pi = 0;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        const float d = up ? dp[f] : dm[f];
-        rr[f] = __fadd_rn(1.f, __fmul_rn(d, __fsub_rn(1.f, g[f][0])));
-        ri[f] = -__fmul_rn(d, g[f][1]);
+        const T d = up ? dp[f] : dm[f];
+        rr[f] = add_rn(one, mul_rn(d, sub_rn(one, g[f][0])));
+        ri[f] = -mul_rn(d, g[f][1]);
         if (f == 0) {
           pr = rr[0];
           pi = ri[0];
         } else {
-          const float npr =
-              __fsub_rn(__fmul_rn(pr, rr[f]), __fmul_rn(pi, ri[f]));
-          const float npi =
-              __fadd_rn(__fmul_rn(pr, ri[f]), __fmul_rn(pi, rr[f]));
+          const T npr = sub_rn(mul_rn(pr, rr[f]), mul_rn(pi, ri[f]));
+          const T npi = add_rn(mul_rn(pr, ri[f]), mul_rn(pi, rr[f]));
           pr = npr;
           pi = npi;
         }
@@ -275,35 +410,35 @@ struct Decision {
       det[0] = pr;
       det[1] = pi;
       if (det_power == 2) {
-        det[0] = __fsub_rn(__fmul_rn(pr, pr), __fmul_rn(pi, pi));
-        det[1] = __fmul_rn(__fmul_rn(2.f, pr), pi);
+        det[0] = sub_rn(mul_rn(pr, pr), mul_rn(pi, pi));
+        det[1] = mul_rn(mul_rn(T(2), pr), pi);
       }
       // x = delta conj(r) / |r|^2
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        const float d = up ? dp[f] : dm[f];
-        const float inv = __fdiv_rn(
-            1.f, __fadd_rn(__fmul_rn(rr[f], rr[f]), __fmul_rn(ri[f], ri[f])));
-        x[f][0] = __fmul_rn(__fmul_rn(d, rr[f]), inv);
-        x[f][1] = -__fmul_rn(__fmul_rn(d, ri[f]), inv);
+        const T d = up ? dp[f] : dm[f];
+        const T inv = div_rn(
+            one, add_rn(mul_rn(rr[f], rr[f]), mul_rn(ri[f], ri[f])));
+        x[f][0] = mul_rn(mul_rn(d, rr[f]), inv);
+        x[f][1] = -mul_rn(mul_rn(d, ri[f]), inv);
       }
-      return u_i < __fmul_rn(up ? wp : wm, det[0]);
+      return u_i < mul_rn(up ? wp : wm, det[0]);
     } else {
-      float rprod = 1.f;
+      T rprod = one;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        const float d = up ? dp[f] : dm[f];
-        const float r = __fadd_rn(1.f, __fmul_rn(d, __fsub_rn(1.f, g[f][0])));
-        rprod = f == 0 ? r : __fmul_rn(rprod, r);
-        x[f][0] = __fdiv_rn(d, r);  // x = delta / r
+        const T d = up ? dp[f] : dm[f];
+        const T r = add_rn(one, mul_rn(d, sub_rn(one, g[f][0])));
+        rprod = f == 0 ? r : mul_rn(rprod, r);
+        x[f][0] = div_rn(d, r);  // x = delta / r
       }
       if (det_power == 2) {
-        det[0] = __fmul_rn(rprod, rprod);
+        det[0] = mul_rn(rprod, rprod);
       } else {
         det[0] = rprod;
-        for (int k = 1; k < det_power; ++k) det[0] = __fmul_rn(det[0], rprod);
+        for (int k = 1; k < det_power; ++k) det[0] = mul_rn(det[0], rprod);
       }
-      return u_i < __fmul_rn(up ? wp : wm, det[0]);
+      return u_i < mul_rn(up ? wp : wm, det[0]);
     }
   }
 };
@@ -322,35 +457,40 @@ struct NoWrap {
 };
 
 // The site loop of one chain, run by a block of Gm::NT threads. G_in and
-// G_out point at the chain's F x N x N elements (float32; complex64 as
-// interleaved (re, im) pairs), sigma_in, sigma_out and u at its N entries.
-// Real (K1): acc_out and nneg_out at its counts of accepted and
-// negative-detratio proposals. Complex (K8): accept_out and det_out at its
-// N accept flags and complex detratios. Thread 0 laps clk: 0 load,
+// G_out point at the chain's F x N x N elements of Gm::T (complex64 as
+// interleaved (re, im) float pairs), sigma_in, sigma_out and u at its N
+// entries. Real (K1): acc_out and nneg_out at its counts of accepted and
+// negative-detratio proposals; given neg_out (K1 in float64), thread 0
+// also folds log10(max(|det|, 1e-38)) of the negative detratios, in site
+// order, into their min, max and sum at neg_out[0..2], as the JAX package's
+// XLA loop does (_push_mag). Complex (K8): accept_out and det_out at its N
+// accept flags and complex detratios. Thread 0 laps clk: 0 load,
 // 1 decision, 2 update, 3 publish, 4 barrier, 5 store (a wrap: 6 and 7).
 // wrap (K13) runs before or after the loop.
 template <bool CX, int F, int FR, class Gm, class Wrap = NoWrap>
 __device__ __forceinline__ void sweep_chain(
-    float* smem, const float* __restrict__ G_in, float* __restrict__ G_out,
-    const int8_t* __restrict__ sigma_in, int8_t* __restrict__ sigma_out,
-    const float* __restrict__ u, int* __restrict__ acc_out,
-    int* __restrict__ nneg_out, uint8_t* __restrict__ accept_out,
-    float* __restrict__ det_out, int N, float lamb, float sign0, float sign1,
-    int det_power, int use_boson, phase_clock::Clock& clk,
-    const Wrap& wrap = Wrap{}) {
+    typename Gm::T* smem, const typename Gm::T* __restrict__ G_in,
+    typename Gm::T* __restrict__ G_out, const int8_t* __restrict__ sigma_in,
+    int8_t* __restrict__ sigma_out, const typename Gm::T* __restrict__ u,
+    int* __restrict__ acc_out, int* __restrict__ nneg_out,
+    uint8_t* __restrict__ accept_out, typename Gm::T* __restrict__ det_out,
+    typename Gm::T* __restrict__ neg_out, int N, typename Gm::T lamb,
+    typename Gm::T sign0, typename Gm::T sign1, int det_power,
+    int use_boson, phase_clock::Clock& clk, const Wrap& wrap = Wrap{}) {
+  using T = typename Gm::T;
   constexpr int NV = CX ? 2 : 1;
   constexpr int NP = Gm::NP, NT = Gm::NT, RT = Gm::RT, CT = Gm::CT;
   constexpr int WR = Gm::WR, WC = Gm::WC;
-  using St = Stage<NV, F, NP>;
+  using St = Stage<T, NV, F, NP>;
   static_assert(FR >= 1 && FR <= F, "layout");
   const int tid = threadIdx.x, ty = tid / Gm::TC, tx = tid % Gm::TC;
-  float* u_s = smem + 2 * St::FLOATS;
-  float* det_s = u_s + NP;  // complex: (re, im) per site
-  float* priv = det_s + (CX ? 2 * NP : 0);
+  T* u_s = smem + 2 * St::SIZE;
+  T* det_s = u_s + NP;  // complex: (re, im) per site
+  T* priv = det_s + (CX ? 2 * NP : 0);
   int8_t* sig_s = reinterpret_cast<int8_t*>(priv + (F - FR) * NV * NP * NP);
   int8_t* sig_o = sig_s + NP;
   uint8_t* acc_s = reinterpret_cast<uint8_t*>(sig_o + NP);
-  auto stage = [&](int i) { return St{smem + (i & 1) * St::FLOATS}; };
+  auto stage = [&](int i) { return St{smem + (i & 1) * St::SIZE}; };
   // chunks of G move with vector accesses where N keeps them whole and
   // aligned
   const bool whole = N % WC == 0 && (uintptr_t)G_in % 16 == 0 &&
@@ -359,39 +499,17 @@ __device__ __forceinline__ void sweep_chain(
   if (tid == 0) clk.start();
   Tile<NV, F, FR, Gm> g;
   g.s = priv + tid;
-#pragma unroll
-  for (int f = 0; f < F; ++f)
-#pragma unroll
-    for (int k = 0; k < RT; ++k)
-#pragma unroll
-      for (int j0 = 0; j0 < CT; j0 += WC) {
-        const int a = Gm::row(ty, k), b = Gm::col(tx, j0);
-        float t[NV * WC];
-        if (a < N && b < N && whole) {
-          ld_span<NV * WC>(G_in + NV * ((size_t)(f * N + a) * N + b), t);
-        } else {
-#pragma unroll
-          for (int w = 0; w < WC; ++w)
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              t[NV * w + v] =
-                  a < N && b + w < N
-                      ? G_in[NV * ((size_t)(f * N + a) * N + b + w) + v]
-                      : 0.f;
-        }
-#pragma unroll
-        for (int w = 0; w < WC; ++w)
-#pragma unroll
-          for (int v = 0; v < NV; ++v) g.at(f, v, k, j0 + w) = t[NV * w + v];
-      }
+  load_tile(g, G_in, N, whole, ty, tx);
   for (int a = tid; a < N; a += NT) {
     sig_s[a] = sigma_in[a];
     u_s[a] = u[a];
   }
   wrap.before(g, sig_s, clk);
-  publish<NV, F, FR, Gm>(g, stage(0), 0, ty, tx);
-  const Decision<CX, F> decide(lamb, sign0, sign1, use_boson);
+  publish(g, stage(0), 0, ty, tx);
+  const Decision<CX, F, T> decide(lamb, sign0, sign1, use_boson);
   int acc = 0, nneg = 0;  // thread 0's counts
+  // thread 0's negative-detratio magnitudes (neg_out): min, max, sum
+  T neg_min = T(INFINITY), neg_max = T(-INFINITY), neg_sum = T(0);
   if (tid == 0) clk.lap(0);
   __syncthreads();
   if (tid == 0) clk.lap(4);
@@ -402,7 +520,7 @@ __device__ __forceinline__ void sweep_chain(
     // before the decision, which they do not depend on, for the flavors in
     // registers; in the update for the others, which have no registers to
     // spare
-    float cv[F][NV][RT], rv[F][NV][CT];
+    T cv[F][NV][RT], rv[F][NV][CT];
     auto load_staged = [&](int f) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
@@ -418,7 +536,7 @@ __device__ __forceinline__ void sweep_chain(
     for (int f = 0; f < FR; ++f) load_staged(f);
     // site i from G_f[i, i] in the staged row: the same decision in every
     // thread
-    float gii[F][NV], x[F][NV], det[NV];
+    T gii[F][NV], x[F][NV], det[NV];
 #pragma unroll
     for (int f = 0; f < F; ++f)
 #pragma unroll
@@ -433,88 +551,69 @@ __device__ __forceinline__ void sweep_chain(
         det_s[2 * i + 1] = det[1];
       } else {
         acc += accept;
-        nneg += det[0] < 0.f;
+        nneg += det[0] < T(0);
+        if (neg_out != nullptr && det[0] < T(0)) {
+          const T lv = log10_(fmax(fabs(det[0]), T(1e-38)));
+          neg_min = fmin(neg_min, lv);
+          neg_max = fmax(neg_max, lv);
+          neg_sum = add_rn(neg_sum, lv);
+        }
       }
       clk.lap(1);
     }
 
     if (accept) {  // block-uniform: every thread decided the same
+      const T one = 1, zero = 0;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
         if (f >= FR) load_staged(f);
         if constexpr (CX) {
           // y = x (e_i - G[:, i]) at the rows
-          const float xr = x[f][0], xi = x[f][1];
-          float yr[RT], yi[RT];
+          const T xr = x[f][0], xi = x[f][1];
+          T yr[RT], yi[RT];
 #pragma unroll
           for (int k = 0; k < RT; ++k) {
-            const float igr =
-                __fsub_rn(Gm::row(ty, k) == i ? 1.f : 0.f, cv[f][0][k]);
-            const float igi = -cv[f][1][k];
-            yr[k] = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
-            yi[k] = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
+            const T igr = sub_rn(Gm::row(ty, k) == i ? one : zero,
+                                 cv[f][0][k]);
+            const T igi = -cv[f][1][k];
+            yr[k] = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+            yi[k] = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
           }
 #pragma unroll
           for (int k = 0; k < RT; ++k)
 #pragma unroll
             for (int j = 0; j < CT; ++j) {
-              const float br = rv[f][0][j], bi = rv[f][1][j];
-              float& gr = g.at(f, 0, k, j);
-              float& gi = g.at(f, 1, k, j);
-              gr = __fsub_rn(
-                  gr, __fsub_rn(__fmul_rn(yr[k], br), __fmul_rn(yi[k], bi)));
-              gi = __fsub_rn(
-                  gi, __fadd_rn(__fmul_rn(yr[k], bi), __fmul_rn(yi[k], br)));
+              const T br = rv[f][0][j], bi = rv[f][1][j];
+              T& gr = g.at(f, 0, k, j);
+              T& gi = g.at(f, 1, k, j);
+              gr = sub_rn(gr, sub_rn(mul_rn(yr[k], br), mul_rn(yi[k], bi)));
+              gi = sub_rn(gi, add_rn(mul_rn(yr[k], bi), mul_rn(yi[k], br)));
             }
         } else {
-          float y[RT];
+          T y[RT];
 #pragma unroll
           for (int k = 0; k < RT; ++k)
-            y[k] = __fmul_rn(x[f][0],
-                             __fsub_rn(Gm::row(ty, k) == i ? 1.f : 0.f,
-                                       cv[f][0][k]));
+            y[k] = mul_rn(x[f][0], sub_rn(Gm::row(ty, k) == i ? one : zero,
+                                          cv[f][0][k]));
 #pragma unroll
           for (int k = 0; k < RT; ++k)
 #pragma unroll
             for (int j = 0; j < CT; ++j) {
-              float& e = g.at(f, 0, k, j);
-              e = __fsub_rn(e, __fmul_rn(y[k], rv[f][0][j]));
+              T& e = g.at(f, 0, k, j);
+              e = sub_rn(e, mul_rn(y[k], rv[f][0][j]));
             }
         }
       }
     }
     if (tid == 0) clk.lap(2);
-    if (i + 1 < N) publish<NV, F, FR, Gm>(g, stage(i + 1), i + 1, ty, tx);
+    if (i + 1 < N) publish(g, stage(i + 1), i + 1, ty, tx);
     if (tid == 0) clk.lap(3);
     __syncthreads();
     if (tid == 0) clk.lap(4);
   }
   wrap.after(g, sig_o, clk);
 
-#pragma unroll
-  for (int f = 0; f < F; ++f)
-#pragma unroll
-    for (int k = 0; k < RT; ++k)
-#pragma unroll
-      for (int j0 = 0; j0 < CT; j0 += WC) {
-        const int a = Gm::row(ty, k), b = Gm::col(tx, j0);
-        float t[NV * WC];
-#pragma unroll
-        for (int w = 0; w < WC; ++w)
-#pragma unroll
-          for (int v = 0; v < NV; ++v) t[NV * w + v] = g.at(f, v, k, j0 + w);
-        if (a < N && b < N && whole) {
-          st_span<NV * WC>(G_out + NV * ((size_t)(f * N + a) * N + b), t);
-        } else if (a < N) {
-#pragma unroll
-          for (int w = 0; w < WC; ++w)
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              if (b + w < N)
-                G_out[NV * ((size_t)(f * N + a) * N + b + w) + v] =
-                    t[NV * w + v];
-        }
-      }
+  store_tile(g, G_out, N, whole, ty, tx);
   for (int a = tid; a < N; a += NT) {
     sigma_out[a] = sig_o[a];
     if constexpr (CX) {
@@ -527,7 +626,171 @@ __device__ __forceinline__ void sweep_chain(
     if (tid == 0) {
       *acc_out = acc;
       *nneg_out = nneg;
+      if (neg_out != nullptr) {
+        neg_out[0] = neg_min;
+        neg_out[1] = neg_max;
+        neg_out[2] = neg_sum;
+      }
     }
+  }
+  if (tid == 0) clk.lap(5);
+}
+
+// K5's loop: the real site loop of one chain (every flavor in registers),
+// two sites (i, j = i+1) per round and one block barrier per pair; even N.
+// Arguments and laps as sweep_chain's (no neg_out). Per pair, in the plain
+// version's operations (ops/site_sweep.py::site_sweep_pair_plain): site i
+// from G[i,i]; site j from G[j,j] - xIG_i[j] G[i,j], xIG_i[j] =
+// x_i (0 - G[j,i]); then row'_j = row_j - xIG_i[j] row_i and col'_j =
+// col_j - xIG_i G[i,j] at the thread's columns and rows (where site i was
+// accepted), and G <- (G - xIG_i (x) row_i) - xIG_j (x) row'_j.
+template <int F, class Gm>
+__device__ __forceinline__ void sweep_chain_pair(
+    typename Gm::T* smem, const typename Gm::T* __restrict__ G_in,
+    typename Gm::T* __restrict__ G_out, const int8_t* __restrict__ sigma_in,
+    int8_t* __restrict__ sigma_out, const typename Gm::T* __restrict__ u,
+    int* __restrict__ acc_out, int* __restrict__ nneg_out, int N,
+    typename Gm::T lamb, typename Gm::T sign0, typename Gm::T sign1,
+    int det_power, int use_boson, phase_clock::Clock& clk) {
+  using T = typename Gm::T;
+  constexpr int NP = Gm::NP, NT = Gm::NT, RT = Gm::RT, CT = Gm::CT;
+  constexpr int WR = Gm::WR, WC = Gm::WC;
+  using St = Stage<T, 1, F, NP, 2>;
+  // the staged vectors of every flavor read before the decisions where
+  // they fit beside G (not at F = 2, NP = 128: 64 more registers beside
+  // G's 128); else each flavor's in its update
+  constexpr bool kEarly = 2 * F * (RT + CT) <= 32;
+  const int tid = threadIdx.x, ty = tid / Gm::TC, tx = tid % Gm::TC;
+  T* u_s = smem + 2 * St::SIZE;
+  int8_t* sig_s = reinterpret_cast<int8_t*>(u_s + NP);
+  int8_t* sig_o = sig_s + NP;
+  auto stage = [&](int p) { return St{smem + (p & 1) * St::SIZE}; };
+  const bool whole = N % WC == 0 && (uintptr_t)G_in % 16 == 0 &&
+                     (uintptr_t)G_out % 16 == 0;
+
+  if (tid == 0) clk.start();
+  Tile<1, F, F, Gm> g;
+  g.s = nullptr;  // no flavor in shared memory
+  load_tile(g, G_in, N, whole, ty, tx);
+  for (int a = tid; a < N; a += NT) {
+    sig_s[a] = sigma_in[a];
+    u_s[a] = u[a];
+  }
+  publish(g, stage(0), 0, ty, tx, 0);
+  publish(g, stage(0), 1, ty, tx, 1);
+  const Decision<false, F, T> decide(lamb, sign0, sign1, use_boson);
+  int acc = 0, nneg = 0;  // thread 0's counts
+  if (tid == 0) clk.lap(0);
+  __syncthreads();
+  if (tid == 0) clk.lap(4);
+
+  for (int i = 0; i < N; i += 2) {
+    const int j = i + 1;
+    const St sb = stage(i >> 1);
+    // columns i, j at the thread's rows, rows i, j at its columns
+    T cvi[F][RT], cvj[F][RT], rvi[F][CT], rvj[F][CT];
+    auto load_staged = [&](int f) {
+#pragma unroll
+      for (int k0 = 0; k0 < RT; k0 += WR) {
+        ld_vec<WR>(sb.col(0, f, 0) + Gm::row(ty, k0), &cvi[f][k0]);
+        ld_vec<WR>(sb.col(0, f, 1) + Gm::row(ty, k0), &cvj[f][k0]);
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < CT; j0 += WC) {
+        ld_vec<WC>(sb.row(0, f, 0) + Gm::col(tx, j0), &rvi[f][j0]);
+        ld_vec<WC>(sb.row(0, f, 1) + Gm::col(tx, j0), &rvj[f][j0]);
+      }
+    };
+    if constexpr (kEarly) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) load_staged(f);
+    }
+    // both decisions from four staged scalars per flavor, the same in every
+    // thread: cj = xIG_i[j], ri = G[i, j]
+    T gd[F][1], xi[F][1], xj[F][1], det_i[1], det_j[1], cj[F], ri[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) gd[f][0] = sb.row(0, f, 0)[i];
+    const int8_t si = sig_s[i], sj = sig_s[j];
+    const bool acc_i = decide(gd, si, u_s[i], det_power, xi, det_i);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      cj[f] = mul_rn(xi[f][0], sub_rn(T(0), sb.col(0, f, 0)[j]));
+      ri[f] = sb.row(0, f, 0)[j];
+      const T gjj = sb.row(0, f, 1)[j];
+      gd[f][0] = acc_i ? sub_rn(gjj, mul_rn(cj[f], ri[f])) : gjj;
+    }
+    const bool acc_j = decide(gd, sj, u_s[j], det_power, xj, det_j);
+    if (tid == 0) {
+      sig_o[i] = acc_i ? (int8_t)(-si) : si;
+      sig_o[j] = acc_j ? (int8_t)(-sj) : sj;
+      acc += acc_i + acc_j;
+      nneg += (det_i[0] < T(0)) + (det_j[0] < T(0));
+      clk.lap(1);
+    }
+
+    // both rank-1 terms in one pass over the tile, AI and AJ: whether
+    // sites i and j were accepted (block-uniform)
+    auto update = [&](auto ai, auto aj) {
+      constexpr bool AI = decltype(ai)::value, AJ = decltype(aj)::value;
+      const T one = 1, zero = 0;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        if constexpr (!kEarly) {
+          // keeps the next flavor's loads below this one's update
+          if (f > 0) __syncwarp();
+          load_staged(f);
+        }
+        // yi = xIG_i, yj = xIG_j at the thread's rows, rj = row'_j at its
+        // columns
+        T yi[RT], yj[RT], rj[CT];
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          yi[k] = mul_rn(xi[f][0], sub_rn(Gm::row(ty, k) == i ? one : zero,
+                                          cvi[f][k]));
+        if constexpr (AJ) {
+#pragma unroll
+          for (int c = 0; c < CT; ++c)
+            rj[c] = AI ? sub_rn(rvj[f][c], mul_rn(cj[f], rvi[f][c]))
+                       : rvj[f][c];
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            const T colj =
+                AI ? sub_rn(cvj[f][k], mul_rn(yi[k], ri[f])) : cvj[f][k];
+            yj[k] = mul_rn(xj[f][0],
+                           sub_rn(Gm::row(ty, k) == j ? one : zero, colj));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+#pragma unroll
+          for (int c = 0; c < CT; ++c) {
+            T& e = g.at(f, 0, k, c);
+            if constexpr (AI) e = sub_rn(e, mul_rn(yi[k], rvi[f][c]));
+            if constexpr (AJ) e = sub_rn(e, mul_rn(yj[k], rj[c]));
+          }
+      }
+    };
+    if (acc_i && acc_j)
+      update(std::true_type{}, std::true_type{});
+    else if (acc_i)
+      update(std::true_type{}, std::false_type{});
+    else if (acc_j)
+      update(std::false_type{}, std::true_type{});
+    if (tid == 0) clk.lap(2);
+    if (i + 2 < N) {
+      publish(g, stage((i >> 1) + 1), i + 2, ty, tx, 0);
+      publish(g, stage((i >> 1) + 1), i + 3, ty, tx, 1);
+    }
+    if (tid == 0) clk.lap(3);
+    __syncthreads();
+    if (tid == 0) clk.lap(4);
+  }
+
+  store_tile(g, G_out, N, whole, ty, tx);
+  for (int a = tid; a < N; a += NT) sigma_out[a] = sig_o[a];
+  if (tid == 0) {
+    *acc_out = acc;
+    *nneg_out = nneg;
   }
   if (tid == 0) clk.lap(5);
 }

@@ -238,8 +238,8 @@ site_sweep_wrap_kernel(const float* __restrict__ G_in,
   tiled::sweep_chain<false, F, F, Gm>(
       smem_wrap, G_in + base, G_out + base, sigma_in + (size_t)c * N,
       sigma_out + (size_t)c * N, u + (size_t)c * N, acc_out + c,
-      nneg_out + c, nullptr, nullptr, N, lamb, sign0, sign1, det_power,
-      use_boson, clk, wrap);
+      nneg_out + c, nullptr, nullptr, nullptr, N, lamb, sign0, sign1,
+      det_power, use_boson, clk, wrap);
 #ifdef MC_PHASE_STAMPS
   if (threadIdx.x == 0) clk.store(g_stamps, c);
 #endif

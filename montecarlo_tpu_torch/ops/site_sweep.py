@@ -47,14 +47,14 @@ import torch
 from . import _build
 
 MAX_N = 128
-# the phases of K1 in float32 and K8 (tiled::sweep_chain, csrc/
-# site_sweep_tiled.cuh) that a build with -DMC_PHASE_STAMPS times
-# (chip_profile.py)
+# the phases of K1 (float32 and float64), K5 and K8 (tiled::sweep_chain and
+# sweep_chain_pair, csrc/site_sweep_tiled.cuh) that a build with
+# -DMC_PHASE_STAMPS times (chip_profile.py)
 PHASES = ("load", "decision", "update", "publish", "barrier", "store")
 # ... and of K13 (csrc/site_sweep_wrap.cu): K1's and its wrap's two
 WRAP_PHASES = PHASES + ("wrap: diagonals, staging and Z = M Mr",
                         "wrap: Ml Z")
-# the threads per chain of K1 in float32 and K8 at every shape (csrc/
+# the threads per chain of K1, K5 and K8 at every shape (csrc/
 # site_sweep_tiled.cuh::with_layout): the fastest of 128 to 1024 wherever
 # they were timed (PERF.md)
 THREADS = 256
@@ -66,58 +66,62 @@ def padded(N: int) -> int:
     return 32 if N <= 32 else 64 if N <= 64 else 128
 
 
-def _flavors_in_registers(N: int, F: int, complex_: bool) -> int:
-    """Flavors of G in registers: all but flavor 1 for complex F = 2 past
-    NP = 64 (csrc/site_sweep_tiled.cuh::flavors_in_registers)."""
-    return 1 if complex_ and F == 2 and padded(N) > 64 else F
+def _flavors_in_registers(N: int, F: int, complex_: bool,
+                          dtype=torch.float32) -> int:
+    """Flavors of G in registers: all but flavor 1 where every flavor's
+    tiles would take a thread more than 128 registers (complex64 and
+    float64 at F = 2 past NP = 64; csrc/site_sweep_tiled.cuh::
+    flavors_in_registers)."""
+    words = (F * (2 if complex_ else 1) * (dtype.itemsize // 4)
+             * (padded(N) ** 2 // THREADS))
+    return 1 if words > 128 else F
 
 
-def tiled_smem_bytes(N: int, F: int, complex_: bool = False) -> int:
-    """Shared memory of one block of K1 in float32 (complex_: K8), as
+def tiled_smem_bytes(N: int, F: int, complex_: bool = False,
+                     dtype=torch.float32, sites: int = 1) -> int:
+    """Shared memory of one block of K1 (complex_: K8; sites=2: K5), as
     csrc/site_sweep_tiled.cuh::smem_bytes counts it: the staging double
-    buffer of row and column per flavor and plane, u, the complex det per
-    site, the flavors kept in shared memory (complex F = 2 past NP = 64:
-    flavor 1, NP x NP x 2 floats), sigma in and out and the complex accept
+    buffer of row and column per flavor, plane and staged site, u, the
+    complex det per site, the flavors kept in shared memory (complex64 and
+    float64 F = 2 past NP = 64: flavor 1, NP x NP elements per plane), all
+    of them elements of dtype, then sigma in and out and the complex accept
     flags."""
-    NP, nv = padded(N), 2 if complex_ else 1
-    fr = _flavors_in_registers(N, F, complex_)
-    return (4 * (4 * nv * F * NP + NP + (2 * NP if complex_ else 0)
-                 + (F - fr) * nv * NP * NP) + NP * (3 if complex_ else 2))
+    NP, nv, el = padded(N), 2 if complex_ else 1, dtype.itemsize
+    fr = _flavors_in_registers(N, F, complex_, dtype)
+    return (el * (4 * sites * nv * F * NP + NP + (2 * NP if complex_ else 0)
+                  + (F - fr) * nv * NP * NP) + NP * (3 if complex_ else 2))
 
 
-def layout(N: int, F: int, complex_: bool = False) -> str:
-    """K1's float32 (complex_: K8's) layout at this shape, in words."""
+def layout(N: int, F: int, complex_: bool = False,
+           dtype=torch.float32) -> str:
+    """K1's (complex_: K8's) layout at this shape, in words."""
     NP, threads = padded(N), THREADS
     where = ("flavor 0 in registers, flavor 1 in shared memory"
-             if _flavors_in_registers(N, F, complex_) < F
+             if _flavors_in_registers(N, F, complex_, dtype) < F
              else "G in registers")
     return (f"one block of {threads} threads per chain, "
             f"{NP * NP // threads} elements of each {NP} x {NP} flavor per "
-            f"thread, {where}, {tiled_smem_bytes(N, F, complex_)} bytes of "
-            "shared memory")
+            f"thread, {where}, {tiled_smem_bytes(N, F, complex_, dtype)} "
+            "bytes of shared memory")
 
 
 def kernel_supports(N: int, F: int, dtype=torch.float32) -> bool:
-    """Shapes the K1 kernels take, N <= 128 and F <= 2: every such shape in
-    float32 (G in registers, csrc/site_sweep_tiled.cuh); in float64, where
-    G of one chain (F*N*(N+1) elements and two staging vectors) stays in
-    shared memory for the whole sweep, N <= 128 at F = 1 and N <= 119 at
-    F = 2."""
-    if not (1 <= N <= MAX_N and F in (1, 2)):
-        return False
-    if dtype == torch.float32:
-        return tiled_smem_bytes(N, F) <= _build.SMEM_PER_BLOCK
-    el = torch.finfo(dtype).bits // 8
-    return (F * N * (N + 1) + 2 * F * N) * el <= _build.SMEM_PER_BLOCK
+    """Shapes the K1 kernels take, float32 or float64: every N <= 128 at
+    F <= 2 (G over the registers, csrc/site_sweep_tiled.cuh; float64 F = 2
+    past N = 64 with flavor 1 in shared memory, 140,544 bytes at
+    N = 128)."""
+    return (1 <= N <= MAX_N and F in (1, 2)
+            and dtype in (torch.float32, torch.float64)
+            and tiled_smem_bytes(N, F, dtype=dtype) <= _build.SMEM_PER_BLOCK)
 
 
 def pair_supports(N: int, F: int, dtype=torch.float32) -> bool:
-    """Shapes K5 takes: float32, even N <= 128, F <= 2, with G of one chain
-    and four staging vectors ((F*N*(N+1) + 4*F*N) floats, 136,192 bytes at
-    F = 2, N = 128) in shared memory."""
+    """Shapes K5 takes: float32, even N <= 128, F <= 2 (G over the
+    registers as in K1, rows and columns of two sites staged:
+    ``tiled_smem_bytes(N, F, sites=2)``, 8,960 bytes at F = 2, N = 128)."""
     return (dtype == torch.float32 and 2 <= N <= MAX_N and N % 2 == 0
             and F in (1, 2)
-            and (F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK)
+            and tiled_smem_bytes(N, F, sites=2) <= _build.SMEM_PER_BLOCK)
 
 
 def wrap_smem_bytes(N: int, F: int) -> int:
@@ -376,8 +380,7 @@ _ENTRY = {
     "site_sweep": ("site_sweep_f32", torch.float32, kernel_supports,
                    f"N <= {MAX_N}, F in (1, 2)", site_sweep_plain),
     "site_sweep_f64": ("site_sweep_f64", torch.float64, kernel_supports,
-                       f"N <= {MAX_N}, F in (1, 2), G of one chain in shared "
-                       "memory", site_sweep_plain),
+                       f"N <= {MAX_N}, F in (1, 2)", site_sweep_plain),
     "site_sweep_pair": ("site_sweep_pair_f32", torch.float32, pair_supports,
                         f"even N <= {MAX_N}, F in (1, 2)",
                         site_sweep_pair_plain),

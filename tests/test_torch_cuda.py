@@ -88,6 +88,25 @@ def test_site_sweep_pair_kernel_matches_plain_and_k1(cuda, model, N):
         (False, False), (False, True), (True, False), (True, True)}
 
 
+@pytest.mark.parametrize("F,N", [(1, 128), (2, 128), (2, 64)])
+def test_site_sweep_pair_and_f64_repeat_bit_equal(cuda, F, N):
+    """K5 and K1 in float64 relaunched on the same inputs give outputs
+    bit-equal to their first launch (a race between the block's threads
+    over the staging buffers would show as a difference)."""
+    model = "attractive" if F == 1 else "repulsive"
+    kw = dict(lamb=LAMB, **MODELS[model])
+    G, sigma, u = (torch.from_numpy(x).to(cuda)
+                   for x in pair_inputs(N + 30, 16, F, N))
+    G64, u64 = G.double(), u.double()
+    first = ss.site_sweep_pair(G, sigma, u, **kw)
+    first64 = ss.site_sweep_f64(G64, sigma, u64, **kw)
+    for _ in range(10):
+        for a, b in zip(first, ss.site_sweep_pair(G, sigma, u, **kw)):
+            assert torch.equal(a, b)
+        for a, b in zip(first64, ss.site_sweep_f64(G64, sigma, u64, **kw)):
+            assert torch.equal(a, b)
+
+
 def test_repulsive_session_launches_k5(cuda):
     """A float32 or mixed repulsive session at even N runs its site sweeps
     through K5 and never through K1."""
@@ -465,11 +484,14 @@ def test_site_sweep_f64_negative_magnitudes_match_plain(cuda):
 
 
 @pytest.mark.parametrize("model,N", [("attractive", 64), ("repulsive", 64),
-                                     ("attractive", 128), ("attractive", 20)])
+                                     ("attractive", 128), ("attractive", 20),
+                                     ("repulsive", 119), ("repulsive", 128),
+                                     ("repulsive", 20)])
 def test_site_sweep_f64_kernel_matches_plain(cuda, model, N):
     """K1 in float64: decisions identical; G within 1e-13 (every operation a
     __d*_rn intrinsic in the plain version's order, so bit-equal in
-    practice)."""
+    practice); at F = 2 past N = 64 with flavor 1 in shared memory, and
+    with padded N (20: NP = 32)."""
     kw = dict(lamb=LAMB, **MODELS[model])
     F = len(kw["signs"])
     G, sigma, u = sweep_inputs(N + 7, 16, F, N)
@@ -587,10 +609,10 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="float64"):
         ss.site_sweep_f64(torch.zeros(2, 1, 16, 16, device=cuda), s, u,
                           lamb=LAMB, **MODELS["attractive"])
-    with pytest.raises(ValueError, match="N=128, F=2"):
-        ss.site_sweep_f64(torch.zeros(2, 2, 128, 128, **f64),
-                          torch.ones(2, 128, device=cuda, dtype=torch.int8),
-                          torch.zeros(2, 128, **f64), lamb=LAMB,
+    with pytest.raises(ValueError, match="N=129, F=2"):
+        ss.site_sweep_f64(torch.zeros(2, 2, 129, 129, **f64),
+                          torch.ones(2, 129, device=cuda, dtype=torch.int8),
+                          torch.zeros(2, 129, **f64), lamb=LAMB,
                           **MODELS["repulsive"])
     rep = dict(lamb=LAMB, **MODELS["repulsive"])
     s2 = torch.ones(2, 15, device=cuda, dtype=torch.int8)

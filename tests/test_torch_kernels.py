@@ -77,28 +77,60 @@ def test_site_sweep_kernel_shapes():
     assert ss.kernel_supports(64, 1) and ss.kernel_supports(128, 2)
     assert not ss.kernel_supports(129, 1)
     assert not ss.kernel_supports(64, 3)
-    f64 = torch.float64       # G of one chain in shared memory, twice as wide
+    f64 = torch.float64       # tiles of doubles; F = 2 past N = 64: flavor
     assert ss.kernel_supports(128, 1, f64) and ss.kernel_supports(64, 2, f64)
-    assert ss.kernel_supports(119, 2, f64)
-    assert not ss.kernel_supports(120, 2, f64)
+    assert ss.kernel_supports(119, 2, f64)    # 1 in shared memory
+    assert ss.kernel_supports(120, 2, f64) and ss.kernel_supports(128, 2, f64)
+    assert not ss.kernel_supports(129, 1, f64)
+    assert not ss.kernel_supports(64, 1, torch.float16)
 
 
 @pytest.mark.parametrize("F", [1, 2])
 def test_tiled_kernels_take_every_earlier_shape(F):
-    """K1 in float32 and K8 take every (N, F) that G of one chain in shared
-    memory took before the tiled layout (K1: F*N*(N+1) + 2*F*N floats, K8:
-    two planes and four staging vectors within one block's shared memory),
-    with the layout the wrappers launch built and its shared memory within
-    one block's."""
+    """K1 (float32 and float64), K5 and K8 take every (N, F) that G of one
+    chain in shared memory took before the tiled layout (K1: F*N*(N+1) +
+    2*F*N elements, K5: F*N*(N+1) + 4*F*N floats, K8: two planes and four
+    staging vectors within one block's shared memory), with the layout the
+    wrappers launch built and its shared memory within one block's."""
+    f64 = torch.float64
     for N in range(1, 129):
         k1 = (F * N * (N + 1) + 2 * F * N) * 4 <= _build.SMEM_PER_BLOCK
+        k1_64 = (F * N * (N + 1) + 2 * F * N) * 8 <= _build.SMEM_PER_BLOCK
+        k5 = (N % 2 == 0 and N >= 2 and (F * N * (N + 1) + 4 * F * N) * 4
+              <= _build.SMEM_PER_BLOCK)
         k8 = (2 * F * N * (N + 1) + 4 * F * N) * 4 <= _build.SMEM_PER_BLOCK
         assert ss.kernel_supports(N, F) >= k1, N
+        assert ss.kernel_supports(N, F, f64) >= k1_64, N
+        assert ss.pair_supports(N, F) >= k5, N
         assert sscx.kernel_supports(N, F) >= k8, N
         for cx in (False, True):
             assert ss.tiled_smem_bytes(N, F, cx) <= _build.SMEM_PER_BLOCK
             assert f"{ss.THREADS} threads" in ss.layout(N, F, cx)
+        assert ss.tiled_smem_bytes(N, F, dtype=f64) <= _build.SMEM_PER_BLOCK
+        assert f"{ss.THREADS} threads" in ss.layout(N, F, dtype=f64)
+        assert ss.tiled_smem_bytes(N, F, sites=2) <= _build.SMEM_PER_BLOCK
     assert ss.kernel_supports(128, 2) and sscx.kernel_supports(119, 2)
+    assert ss.kernel_supports(128, F, f64) and ss.pair_supports(128, F)
+
+
+# hand-counted shared memory of one block (csrc/site_sweep_tiled.cuh::
+# smem_bytes): K1 in float64 stages row and column per flavor in two
+# buffers (4 F NP doubles), u (NP doubles), at F = 2, NP = 128 flavor 1
+# (NP^2 doubles), and sigma in and out (2 NP bytes); K5 stages rows and
+# columns i and j (8 F NP floats), u (NP floats) and sigma in and out
+@pytest.mark.parametrize("N,F,f64_bytes,pair_bytes", [
+    (64, 1, 8 * (4 * 64 + 64) + 2 * 64, 4 * (8 * 64 + 64) + 2 * 64),
+    (128, 1, 8 * (4 * 128 + 128) + 2 * 128, 4 * (8 * 128 + 128) + 2 * 128),
+    (64, 2, 8 * (8 * 64 + 64) + 2 * 64, 4 * (16 * 64 + 64) + 2 * 64),
+    (128, 2, 8 * (8 * 128 + 128 + 128 * 128) + 2 * 128,
+     4 * (16 * 128 + 128) + 2 * 128)])
+def test_tiled_smem_mirror_hand_counted(N, F, f64_bytes, pair_bytes):
+    assert ss.tiled_smem_bytes(N, F, dtype=torch.float64) == f64_bytes
+    assert ss.tiled_smem_bytes(N, F, sites=2) == pair_bytes
+    in_smem = "flavor 1 in shared memory" in ss.layout(N, F,
+                                                       dtype=torch.float64)
+    assert in_smem == (N == 128 and F == 2)
+    assert "G in registers" in ss.layout(N, F)
 
 
 def _tiled_geoms():
@@ -109,24 +141,26 @@ def _tiled_geoms():
     body = src[src.index("int with_layout("):]
     body = body[:body.index("\n}\n")]
     return [tuple(map(int, m)) for m in re.findall(
-        r"Geom<(\d+), (\d+), (\d+), (\d+)>", body)]
+        r"Geom<(\d+), (\d+), (\d+), (\d+)(?:, T)?>", body)]
 
 
 def test_tiled_layouts_cover_g_once():
     """The kernels' layout at each padded N (32, 64, 128) has THREADS
     threads, and its threads' rows and columns (Geom::row, Geom::col:
-    chunks of up to 4 consecutive indices) cover 0..NP-1 once each."""
+    chunks of up to 16 bytes of consecutive indices, 4 floats or 2
+    doubles) cover 0..NP-1 once each."""
     geoms = _tiled_geoms()
     assert [tr * rt for tr, _, rt, _ in geoms] == [
         ss.padded(n) for n in (32, 64, 128)]
     for tr, tc, rt, ct in geoms:
         np_, nt = tr * rt, tr * tc
         assert nt == ss.THREADS and tc * ct == np_
-        for t, per, n in ((tr, rt, "rows"), (tc, ct, "cols")):
-            w = min(per, 4)
-            idx = sorted((k // w) * (t * w) + th * w + k % w
-                         for th in range(t) for k in range(per))
-            assert idx == list(range(np_)), (np_, nt, n)
+        for vw in (4, 2):
+            for t, per, n in ((tr, rt, "rows"), (tc, ct, "cols")):
+                w = min(per, vw)
+                idx = sorted((k // w) * (t * w) + th * w + k % w
+                             for th in range(t) for k in range(per))
+                assert idx == list(range(np_)), (np_, nt, n, vw)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +219,106 @@ def test_site_sweep_pair_kernel_shapes():
     assert not ss.pair_supports(130, 2)             # K6's range
     assert not ss.pair_supports(64, 3)
     assert not ss.pair_supports(64, 2, torch.float64)
+
+
+def _tiled_mirror(G, sigma, u, *, lamb, signs, det_power, use_boson, pair):
+    """CPU mirror of csrc/site_sweep_tiled.cuh's operations in their order,
+    for real G of any float dtype, batched over chains: tiled::Decision's
+    per-launch table (delta_f and the boson weight per field value, from
+    -2 lamb in G's dtype), then sweep_chain's update per site or, with
+    pair, sweep_chain_pair's corrections and its one pass of both rank-1
+    terms per site pair. Returns (G, sigma, acc, nneg)."""
+    dt = G.dtype
+    C, F, N, _ = G.shape
+    one, zero = torch.tensor(1.0, dtype=dt), torch.tensor(0.0, dtype=dt)
+    neg2lamb = torch.tensor(-2.0, dtype=dt) * torch.tensor(lamb, dtype=dt)
+    ep, em = neg2lamb * one, neg2lamb * -one
+    sgs = [torch.tensor(sg, dtype=dt) for sg in signs]
+    dp = [torch.exp(sg * ep) - one for sg in sgs]
+    dm = [torch.exp(sg * em) - one for sg in sgs]
+    wp, wm = (torch.exp(-ep), torch.exp(-em)) if use_boson else (one, one)
+
+    def decide(diag, s, u_i):
+        up = s > 0
+        rprod, xs = None, []
+        for f in range(F):
+            d = torch.where(up, dp[f], dm[f])
+            r = one + d * (one - diag[f])
+            rprod = r if f == 0 else rprod * r
+            xs.append(d / r)
+        det = rprod
+        for _ in range(det_power - 1):
+            det = det * rprod
+        return u_i < torch.where(up, wp, wm) * det, det, xs
+
+    G, sigma = G.clone(), sigma.clone()
+    acc = torch.zeros(C, dtype=torch.int32)
+    nneg = torch.zeros(C, dtype=torch.int32)
+    rows = torch.arange(N)
+    keep = lambda a, new, old: torch.where(a[:, None, None], new, old)
+    for i in range(0, N, 2 if pair else 1):
+        j = i + 1
+        e_i = torch.where(rows == i, one, zero)
+        a_i, det_i, xi = decide([G[:, f, i, i] for f in range(F)],
+                                sigma[:, i], u[:, i])
+        sites = [(i, a_i, det_i)]
+        if pair:
+            e_j = torch.where(rows == j, one, zero)
+            cj = [xi[f] * (zero - G[:, f, j, i]) for f in range(F)]
+            ri = [G[:, f, i, j] for f in range(F)]
+            gd = [torch.where(a_i, G[:, f, j, j] - cj[f] * ri[f],
+                              G[:, f, j, j]) for f in range(F)]
+            a_j, det_j, xj = decide(gd, sigma[:, j], u[:, j])
+            sites.append((j, a_j, det_j))
+        for f in range(F):
+            cvi, rvi = G[:, f, :, i].clone(), G[:, f, i, :].clone()
+            yi = xi[f][:, None] * (e_i - cvi)
+            g = keep(a_i, G[:, f] - yi[:, :, None] * rvi[:, None, :], G[:, f])
+            if pair:
+                cvj, rvj = G[:, f, :, j].clone(), G[:, f, j, :].clone()
+                rj = torch.where(a_i[:, None], rvj - cj[f][:, None] * rvi, rvj)
+                colj = torch.where(a_i[:, None], cvj - yi * ri[f][:, None],
+                                   cvj)
+                yj = xj[f][:, None] * (e_j - colj)
+                g = keep(a_j, g - yj[:, :, None] * rj[:, None, :], g)
+            G[:, f] = g
+        for n, a, det in sites:
+            sigma[:, n] = torch.where(a, -sigma[:, n], sigma[:, n])
+            acc += a
+            nneg += det < 0
+    return G, sigma, acc, nneg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", ["attractive", "repulsive"])
+def test_tiled_op_order_equals_plain(model, dtype):
+    """The tiled loops' decision table (exp once per launch for sigma = +1
+    and -1) gives the plain versions' per-site exp(sign_f dEb) - 1 and
+    exp(-dEb) bit for bit, since sign_f dEb is +-2 lamb exactly; and K1's
+    (float32, float64) and K5's operations in their kernels' order equal
+    site_sweep_plain and site_sweep_pair_plain bit for bit, G included,
+    with every accept pattern of a site pair."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F, N = len(kw["signs"]), 16
+    G, sigma, u = (torch.from_numpy(x) for x in pair_inputs(N + 90, 8, F, N))
+    G, u = G.to(dtype), u.to(dtype)
+    for lamb in (LAMB, 0.3, 1.7):
+        neg2lamb = torch.tensor(-2.0, dtype=dtype) * torch.tensor(lamb,
+                                                                  dtype=dtype)
+        for s in (1, -1):
+            dEb = torch.tensor([float(s)], dtype=dtype) * (-2.0 * lamb)
+            for sg in (1.0, -1.0):
+                table = torch.exp(torch.tensor(sg, dtype=dtype)
+                                  * (neg2lamb * float(s))) - 1.0
+                assert torch.equal(table.reshape(1),
+                                   torch.exp(dEb * sg) - 1.0)
+    for pair, plain in ((False, ss.site_sweep_plain),
+                        (True, ss.site_sweep_pair_plain)):
+        out = _tiled_mirror(G, sigma, u, pair=pair, **kw)
+        ref = plain(G, sigma, u, **kw)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b.to(a.dtype)), pair
+    assert accept_patterns(sigma, out[1]) == ALL_PATTERNS
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +724,6 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
     assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
-                                                  "site_sweep_loop.cuh",
                                                   "site_sweep_tiled.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")

@@ -134,3 +134,69 @@ def test_chip_ab_compares_outputs_bit_for_bit():
     assert chip_ab.compare_outputs(a, b) == (False, 0.5)
     c = [a[0].float(), a[1]]
     assert chip_ab.compare_outputs(a, c)[0] is False
+
+
+def test_chip_ab_times_k1_f64_and_k5_beside_k1():
+    """K1 in float64 at the f64 run's shape and at F = 2, K5 at the
+    repulsive run's shape and at F = 1, and K1 on K5's inputs: each group
+    selected by its own prefix; the prefix site_sweep takes them all."""
+    f64 = ["site_sweep_f64 (128, 1, 64, 64)", "site_sweep_f64 (64, 2, 64, 64)"]
+    pair = ["site_sweep_pair (256, 2, 64, 64)",
+            "site_sweep_pair (256, 1, 64, 64)"]
+    k1 = ["site_sweep on K5's inputs (256, 2, 64, 64)",
+          "site_sweep on K5's inputs (256, 1, 64, 64)"]
+    assert chip_ab.selected(["site_sweep_f64"]) == f64
+    assert chip_ab.selected(["site_sweep_pair"]) == pair
+    assert chip_ab.selected(["site_sweep on"]) == k1
+    assert set(f64 + pair + k1) <= set(chip_ab.selected(["site_sweep"]))
+
+
+@pytest.mark.parametrize("label,name", [
+    ("K1-f64", "void (anonymous namespace)::site_sweep_tiled_f64<1, "
+               "tiled::Geom<16, 16, 4, 4, double> >(double const*, double*, "
+               "signed char const*, signed char*, double const*, int*, int*, "
+               "double*, int, double, double, double, int, int)"),
+    ("K1-f64", "void (anonymous namespace)::site_sweep_kernel<double, 1>("
+               "double const*, double*, signed char const*, signed char*, "
+               "double const*, int*, int*, double*, int, double, double, "
+               "double, int, int)"),
+    ("K5", "void (anonymous namespace)::site_sweep_pair_tiled<2, "
+           "tiled::Geom<16, 16, 4, 4, float> >(float const*, float*, signed "
+           "char const*, signed char*, float const*, int*, int*, int, float, "
+           "float, float, int, int)"),
+    ("K5", "void (anonymous namespace)::site_sweep_pair_kernel<2>(float "
+           "const*, float*, signed char const*, signed char*, float const*, "
+           "int*, int*, int, float, float, float, int, int)"),
+    ("K1", "void (anonymous namespace)::site_sweep_tiled_f32<2, "
+           "tiled::Geom<16, 16, 4, 4, float> >(float const*, float*, signed "
+           "char const*, signed char*, float const*, int*, int*, int, float, "
+           "float, float, int, int)")])
+def test_chip_profile_names_k1_f64_and_k5(label, name):
+    """K1-f64 and K5 are stamped, and shared under one label each, under
+    their kernels' names and their former ones (A/B runs against the
+    parent), apart from K1 in float32."""
+    assert label in chip_profile.STAMPED
+    assert [k for k, frags in chip_profile.SHARES.items()
+            if any(f in name.lower() for f in frags)] == [label]
+
+
+def test_k1_f64_k5_stamp_phases_fit_the_phase_clock():
+    """csrc/site_sweep.cu's kernels (K1 in float32 and float64, K5) run the
+    loops of csrc/site_sweep_tiled.cuh, which lap phases 0..len(PHASES)-1,
+    within kPhases, read by the file's one readout."""
+    from montecarlo_tpu_torch.ops import _build, site_sweep
+    csrc = ROOT / "montecarlo_tpu_torch/csrc"
+    src = (csrc / "site_sweep.cu").read_text()
+    loops = (csrc / "site_sweep_tiled.cuh").read_text()
+    header = (csrc / "phase_clock.cuh").read_text()
+    k_phases = int(re.search(r"kPhases = (\d+);", header).group(1))
+    for loop in ("sweep_chain(", "sweep_chain_pair("):
+        body = loops[loops.index(loop):]
+        body = body[:body.index("\n}\n")]
+        laps = {int(p) for p in re.findall(r"clk\.lap\((\d+)\)", body)}
+        assert laps == set(range(len(site_sweep.PHASES))), loop
+    assert len(site_sweep.PHASES) <= k_phases
+    assert src.count("clk.store(g_stamps, c)") == 3   # K1, K1-f64, K5
+    assert 'extern "C" int site_sweep_f32_stamps(' in src
+    assert "site_sweep_f32_stamps" in _build.SIGNATURES
+    assert "site_sweep_loop" not in src

@@ -37,6 +37,11 @@ largest difference). Needs CUDA.
   qr_f64 (128, 64, 64)  the float64 QR K11 at the f64 run's shape, on
                        chip_smoke.py's graded, prescaled, pivoted float64
                        matrices
+  qr_f32 (256, 64, 64)     the float32 QR K4 at the colscaled run's shape
+  qr_f32 (64, 128, 128)    and at N = 128, and K14 (V, tau and R) at the
+  qr_vtau (256, 64, 64)    colscaled_wy run's shape and at N = 128, on
+  qr_vtau (256, 128, 128)  chip_smoke.py's graded, prescaled, pivoted
+                       float32 matrices
   site_sweep_wrap up (256, 1, 64, 64)    K13 in each direction on the
   site_sweep_wrap down (256, 1, 64, 64)  headline's inputs with the
                        session's wrap operands (chip_smoke.py's
@@ -156,6 +161,21 @@ def _qr64():
     return make
 
 
+def _qr32(B, N, vtau):
+    """K4 (vtau: K14) on chip_smoke.py's graded, prescaled, pivoted float32
+    matrices."""
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import qr_householder as qh
+        from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        Ap, _, _ = _prescale_pivot(_smoke().graded(gen, B, N))
+        Ap = Ap.contiguous()
+        fn = qh.qr_vtau if vtau else qh.qr_f32
+        return lambda: fn(Ap)
+    return make
+
+
 def _wrap(direction):
     def make():
         from montecarlo_tpu_torch.ops import site_sweep as ss
@@ -179,6 +199,10 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "udt_qr (512, 64, 64)": _udt(512, False),
          "udt_qr_solve (512, 64, 64)": _udt(512, True),
          "qr_f64 (128, 64, 64)": _qr64(),
+         "qr_f32 (256, 64, 64)": _qr32(256, 64, False),
+         "qr_f32 (64, 128, 128)": _qr32(64, 128, False),
+         "qr_vtau (256, 64, 64)": _qr32(256, 64, True),
+         "qr_vtau (256, 128, 128)": _qr32(256, 128, True),
          "site_sweep_wrap up (256, 1, 64, 64)": _wrap(1),
          "site_sweep_wrap down (256, 1, 64, 64)": _wrap(-1),
          "site_sweep_f64 (128, 1, 64, 64)": _f64_sweep(False, 128),

@@ -34,7 +34,7 @@ Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
 
     python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
-                                   [K11] [K13] [K1-f64] [K5]
+                                   [K11] [K13] [K1-f64] [K5] [K4] [K14]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -50,7 +50,9 @@ kind of input and K13 at (256, 1, 64, 64) in each direction on the
 headline's inputs with the session's wrap operands, K1 in float64 at
 (128, 1, 64, 64) on the f64 configuration's inputs and K5 at (256, 2, 64,
 64) on the repulsive configuration's (and K1 in float32 on the same
-inputs beside it): the mean over
+inputs beside it), K4 at (256, 64, 64) and (64, 128, 128) and K14 at
+(256, 64, 64) and (256, 128, 128) on graded, prescaled, pivoted float32
+matrices: the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -98,7 +100,7 @@ from chip_smoke import timed
 PAIRS = 5
 # the kernels that `stamps` times
 STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13",
-           "K1-f64", "K5")
+           "K1-f64", "K5", "K4", "K14")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
           # K1-f64 and K5 under their former names too, for A/B runs
@@ -107,10 +109,13 @@ SHARES = {"K1": ("site_sweep_tiled_f32",),
           "K5": ("site_sweep_pair",),
           "K13": ("site_sweep_wrap_kernel",),
           "K2": ("udt_kernel<false",), "K3": ("udt_kernel<true",),
-          # K4, K14 and K11 under their former names too (one templated
-          # qr_kernel<T, VTAU>), for A/B runs against older checkouts
-          "K4": ("qr_kernel<false>", "qr_kernel<float, false>"),
-          "K14": ("qr_kernel<true>", "qr_kernel<float, true>"),
+          # K4, K14 and K11 under their former names too (the shared-memory
+          # qr_kernel<VTAU>, before it qr_kernel<T, VTAU>), for A/B runs
+          # against older checkouts
+          "K4": ("qr_f32_kernel<false", "qr_kernel<false>",
+                 "qr_kernel<float, false>"),
+          "K14": ("qr_f32_kernel<true", "qr_kernel<true>",
+                  "qr_kernel<float, true>"),
           "K11": ("qr_f64_kernel", "qr_kernel<double"),
           "GEMMs": ("gemm",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
@@ -366,6 +371,19 @@ def stamps(which):
         fn()
         _print_stamps(f"{label} ({B}, {N}, {N}) float32, {B} blocks", label,
                       _stamp_rows(readout, B), qr.PHASES, ms)
+    # K4 at the colscaled run's shape and at (64, 128, 128), K14 at the
+    # colscaled_wy run's and at (256, 128, 128), on graded, prescaled,
+    # pivoted float32 input: one block per matrix
+    for label, fn, shapes in (("K4", qh.qr_f32, ((256, 64), (64, 128))),
+                              ("K14", qh.qr_vtau, ((256, 64), (256, 128)))):
+        if label not in which:
+            continue
+        for B, N in shapes:
+            A, _ = qr_input(B, N, False)
+            ms = 1e3 * timed(lambda: fn(A), 20)
+            fn(A)
+            _print_stamps(f"{label} ({B}, {N}, {N}) float32, {B} blocks",
+                          label, _stamp_rows("qr_f32", B), qr.PHASES, ms)
     if "K11" in which:
         # the f64 run's shape and input: one block per matrix
         A64 = smoke.qr64_input(torch.Generator(device=smoke.DEVICE)

@@ -19,8 +19,9 @@ failure and prints no result line then):
               (the site sweep with the wrap fused in) in both directions,
               its up direction's decisions also against K1's, bit for bit,
               beside the unfused visit's time (K1 and the separate wrap);
-              K11, K13, K5 and K1 in float64 also REPEATS launches more,
-              each bit-equal to the first (a race check);
+              K11, K13, K5, K1 in float64, K4 and K14 (at N = 64 and 128)
+              also REPEATS launches more, each bit-equal to the first (a
+              race check);
               K14 (the QR emitting V and tau) with max|Q^T Q - I| of its
               WY-assembled Q and of K4's; K12 (one chain); K6 and K9 also
               at WAVE_CHAINS chains (more than one wave of clusters), each
@@ -149,8 +150,9 @@ TOL_TAU = 1e-4
 F64_CHAINS, X_THERM, X_SWEEPS = 128, 1, 2
 K1_F64_F2_CHAINS = 64
 TOL_G, TOL_QR, TOL_D = 1e-5, 1e-5, 1e-5
-# repeated launches of K11, K13, K5 and K1 in float64, held bit-equal to
-# the first (a race check: the card's sanitizers refuse the device)
+# repeated launches of K11, K13, K5, K1 in float64, K4 and K14, held
+# bit-equal to the first (a race check: the card's sanitizers refuse the
+# device)
 REPEATS = 50
 # float64 kernels against their plain versions (K11: tests/test_pallas_qr.py's
 # strict-f64 contract for Q^T Q - I)
@@ -208,7 +210,7 @@ KERNEL_INFO = {
     # K10 at N = 128 (chain128), a row of its own
     "qr_cx_128": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
                   "montecarlo_tpu/ops/pallas_qr.py:706"),
-    "qr_f32": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+    "qr_f32": ("montecarlo_tpu_torch/csrc/udt_qr.cu",
                "montecarlo_tpu/ops/pallas_qr.py:52"),
     "qr_f64": ("montecarlo_tpu_torch/csrc/qr_f64.cu",
                "montecarlo_tpu/ops/pallas_qr.py:1389"),
@@ -223,7 +225,7 @@ KERNEL_INFO = {
     # _batched_kernel's wrap_dir branch (its MXU wrap: :160)
     "site_sweep_wrap": ("montecarlo_tpu_torch/csrc/site_sweep_wrap.cu",
                         "montecarlo_tpu/ops/pallas_site_sweep.py:227"),
-    "qr_vtau": ("montecarlo_tpu_torch/csrc/qr_householder.cu",
+    "qr_vtau": ("montecarlo_tpu_torch/csrc/udt_qr.cu",
                 "montecarlo_tpu/ops/pallas_qr.py:203"),
     # K1's launch for one chain
     "site_sweep_single": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
@@ -831,12 +833,15 @@ def phase_parity():
 
     # ---- K4 at (256, 64, 64), the colscaled run's shape, and at
     # (64, 128, 128), the widest it takes; K11 at (128, 64, 64) float64, the
-    # f64 run's shape; each on graded, prescaled, pivoted input, then with
-    # zero and subnormal columns
+    # f64 run's shape; each on graded, prescaled, pivoted input (K4 also
+    # REPEATS launches more, each bit-equal to the first), then with zero
+    # and subnormal columns
     for b, n in ((B, N), (L16_CHAINS, 2 * N)):
         Ap, _, _ = _prescale_pivot(graded(gen, b, n))
-        r = qr_parity("qr_f32", qh.qr_f32, qh.householder_qr_plain,
-                      Ap.contiguous(), library=torch.linalg.qr)
+        Ap = Ap.contiguous()
+        r = qr_parity("qr_f32", qh.qr_f32, qh.householder_qr_plain, Ap,
+                      library=torch.linalg.qr)
+        repeats_equal(f"qr_f32 {tuple(Ap.shape)}", lambda: qh.qr_f32(Ap))
         r.update(bound(3 * b * n * n * 4, b * householder_flops(n)))
         log(f"[parity] qr_f32 ({b}, {n}, {n}): kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library call "
@@ -847,16 +852,17 @@ def phase_parity():
                 results["qr_f32"]["max_abs_err"], r["max_abs_err"])
         else:
             results["qr_f32"] = r
-    degenerate_columns("qr_f32", qh.qr_f32, Ap.contiguous(), 1e-35, TOL_QR,
-                       TOL_QR)
+    degenerate_columns("qr_f32", qh.qr_f32, Ap, 1e-35, TOL_QR, TOL_QR)
     # ---- K14 at (256, 64, 64), the colscaled_wy run's shape, and at
     # (256, 128, 128), the widest it takes: V, tau and R against its plain
     # version, max|Q^T Q - I| of Q assembled from them and of K4's Q; the
-    # times of qr_wy (K14 with the assembly) and of K4 beside; then with
-    # zero and subnormal columns
+    # times of qr_wy (K14 with the assembly) and of K4 beside; REPEATS
+    # launches more, each bit-equal to the first; then with zero and
+    # subnormal columns
     for n in (N, 2 * N):
         Ap, _, _ = _prescale_pivot(graded(gen, B, n))
         Ap = Ap.contiguous()
+        repeats_equal(f"qr_vtau {tuple(Ap.shape)}", lambda: qh.qr_vtau(Ap))
         Vk, tk, Rk = qh.qr_vtau(Ap)
         Vp, tp, Rp = qh.householder_qr_vtau_plain(Ap)
         torch.cuda.synchronize()

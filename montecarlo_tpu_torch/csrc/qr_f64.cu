@@ -3,7 +3,7 @@
 // Replaces montecarlo_tpu/ops/pallas_qr.py::_qr_df_kernel (reached through
 // _qr_df_batched / qr_lanes_df / maybe_qr for float64). The plain PyTorch
 // version with the same algorithm is montecarlo_tpu_torch/ops/
-// qr_householder.py::householder_qr_plain, which K4 (csrc/qr_householder.cu)
+// qr_householder.py::householder_qr_plain, which K4 (csrc/udt_qr.cu)
 // shares.
 //
 // Input: A (B, N, N) float64 row-major, prescaled and column-pivoted by the

@@ -92,6 +92,7 @@ SIGNATURES = {
     "udt_qr_f32_stamps": (_P, _I, _P),
     "udt_qr_solve_f32_stamps": (_P, _I, _P),
     "qr_f64_stamps": (_P, _I, _P),
+    "qr_f32_stamps": (_P, _I, _P),
     "site_sweep_wrap_f32_stamps": (_P, _I, _P),
 }
 

@@ -39,9 +39,11 @@ from . import _build
 
 F32_FLOOR = 2.0 ** -70
 # the phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py)
-# (lane 0 of each block's last warp, whose columns stay live longest)
+# (lane 0 of each block's last warp, whose columns stay live longest) in
+# the column loop of K2, K3, K4 and K14 (csrc/udt_qr.cu)
 PHASES = ("load and first reflector", "update of A (K3: and the fold)",
-          "next reflector (owner warp)", "update of Q", "barrier", "store")
+          "next reflector (owner warp)", "update of Q (K14: none)", "barrier",
+          "store")
 
 
 def kernel_supports(N: int) -> bool:

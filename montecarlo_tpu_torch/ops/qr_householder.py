@@ -1,8 +1,8 @@
 """Unfused Householder QR: kernel K4 in float32, kernel K11 in float64, and
 K14, K4 emitting its reflectors (V, tau) in place of Q.
 
-``qr_f32`` and ``qr_f64`` launch the CUDA kernels of
-``csrc/qr_householder.cu`` (K4, K14) and ``csrc/qr_f64.cu`` (K11) on CUDA
+``qr_f32`` and ``qr_f64`` launch the CUDA kernels of ``csrc/udt_qr.cu``
+(K4, K14: the column loop of K2 and K3) and ``csrc/qr_f64.cu`` (K11) on CUDA
 tensors and run ``householder_qr_plain``
 (plain PyTorch, the same algorithm and op order) on CPU tensors. They replace
 the Pallas kernels ``montecarlo_tpu/ops/pallas_qr.py::_qr_kernel`` and its
@@ -47,8 +47,8 @@ import torch
 
 from . import _build
 
-# largest N of each kernel: K4's A and Q of one matrix stay in shared
-# memory, K11's in the registers of one block
+# largest N of each kernel: the columns of A and Qᵀ of one matrix stay in
+# the registers of one block of N / 8 warps (K4: up to 16 warps, K11: 8)
 MAX_N = {torch.float32: 128, torch.float64: 64}
 # K11's phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py;
 # lane 0 of each block's last warp)

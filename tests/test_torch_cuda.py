@@ -508,11 +508,11 @@ def test_site_sweep_f64_kernel_matches_plain(cuda, model, N):
     assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-13
 
 
-@pytest.mark.parametrize("dtype,N", [("f32", 8), ("f32", 64), ("f32", 72),
-                                     ("f32", 128)] + [
+@pytest.mark.parametrize("dtype,N", [("f32", n) for n in range(8, 129, 8)] + [
     ("f64", n) for n in range(8, 65, 8)])
 def test_qr_householder_kernel_matches_plain(cuda, dtype, N):
-    """K4 (float32) and K11 (float64, at every 8 | N <= 64 it takes) on
+    """K4 (float32, at every 8 | N <= 128) and K11 (float64, at every
+    8 | N <= 64): each N is an instantiation of its own. On
     graded, prescaled, pivoted input: Q and R within 1e-5 (float32) or
     1e-12 (float64) of their largest entries (the kernels sum in another
     order than the plain version); R exactly upper triangular; K11's Q
@@ -532,11 +532,13 @@ def test_qr_householder_kernel_matches_plain(cuda, dtype, N):
         assert (Qk.mT @ Qk - eye).abs().max().item() < 1e-13
 
 
-@pytest.mark.parametrize("dtype,N", [("f32", 16), ("f64", 16), ("f64", 64)])
+@pytest.mark.parametrize("dtype,N", [("f32", 16), ("f32", 128), ("f64", 16),
+                                     ("f64", 64)])
 def test_qr_householder_kernel_zero_and_subnormal_columns(cuda, dtype, N):
     """Zero columns get H = I and R_jj = 0; a float32 subnormal v.v gets
     tau = 0, not inf, and a float64 subnormal ||x||^2 H = I: finite, and Q
-    stays orthogonal (K11 also at the f64 run's N = 64)."""
+    stays orthogonal (K4 also at its widest N = 128, in 16 warps; K11 at
+    the f64 run's N = 64)."""
     f64 = dtype == "f64"
     fn = qh.qr_f64 if f64 else qh.qr_f32
     Ap, _ = (t.to(cuda) for t in graded(5, 4, N, decades=2.0, float64=f64))
@@ -827,9 +829,10 @@ def test_site_sweep_single_kernel_matches_plain(cuda):
     assert (Gk - Gp[0]).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("N", [8, 64, 72, 128])
+@pytest.mark.parametrize("N", range(8, 129, 8))
 def test_qr_vtau_kernel_matches_plain(cuda, N):
-    """K14 on graded, prescaled, pivoted input against its plain version: V
+    """K14 at every 8 | N <= 128 (each N an instantiation of its own) on
+    graded, prescaled, pivoted input against its plain version: V
     and R within 1e-5 of their largest entries, tau within 1e-4 of each
     entry (the kernel sums in another order); V zero above its diagonal, R
     below; Q = I - V T V^T (qr_wy) orthogonal to 1e-5, as K4's Q."""
@@ -849,10 +852,12 @@ def test_qr_vtau_kernel_matches_plain(cuda, N):
     _close(Q, qh.householder_qr_plain(Ap)[0], 1e-5)
 
 
-def test_qr_vtau_kernel_zero_and_subnormal_columns(cuda):
+@pytest.mark.parametrize("N", [16, 128])
+def test_qr_vtau_kernel_zero_and_subnormal_columns(cuda, N):
     """Zero columns and a subnormal v.v: tau = 0 and V's column 0, R's
-    block zero; the assembled Q finite and orthogonal."""
-    Ap, _ = (t.to(cuda) for t in graded(5, 4, 16, decades=2.0))
+    block zero; the assembled Q finite and orthogonal (also at the widest
+    N = 128)."""
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, N, decades=2.0))
     Ap[:, :, -4:] = 0.0
     Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
     V, tau, R = qh.qr_vtau(Ap)
@@ -862,7 +867,7 @@ def test_qr_vtau_kernel_zero_and_subnormal_columns(cuda):
     assert torch.equal(R[:, -4:, -4:], torch.zeros_like(R[:, -4:, -4:]))
     Q, _ = qh.qr_wy(Ap)
     assert bool(torch.isfinite(Q).all())
-    eye = torch.eye(16, device=cuda)
+    eye = torch.eye(N, device=cuda)
     assert (Q.mT @ Q - eye).abs().max().item() < 1e-5
 
 

@@ -1,8 +1,9 @@
-"""The chip scripts' bookkeeping for the redesigned kernels K2, K3, K11 and
-K13, on the CPU: chip_ab.py's case selection, chip_profile.py's stamps,
-device shares and configurations, and the phases the stamped builds of
-csrc/udt_qr.cu, csrc/qr_f64.cu and csrc/site_sweep_wrap.cu report. No card
-is needed: nothing here launches a kernel."""
+"""The chip scripts' bookkeeping for the redesigned kernels K2, K3, K4, K14,
+K11, K13, K1-f64 and K5, on the CPU: chip_ab.py's case selection,
+chip_profile.py's stamps, device shares and configurations, and the phases
+the stamped builds of csrc/udt_qr.cu, csrc/qr_f64.cu and
+csrc/site_sweep_wrap.cu report. No card is needed: nothing here launches a
+kernel."""
 
 import re
 import sys
@@ -73,6 +74,10 @@ def test_chip_ab_times_k11_and_k13_at_their_runs_shapes():
 
 
 @pytest.mark.parametrize("label,name", [
+    ("K4", "void (anonymous namespace)::qr_f32_kernel<false, 64>(float "
+           "const*, float*, float*, float*)"),
+    ("K14", "void (anonymous namespace)::qr_f32_kernel<true, 128>(float "
+            "const*, float*, float*, float*)"),
     ("K4", "void (anonymous namespace)::qr_kernel<false>(float const*, "
            "float*, float*, float*, int)"),
     ("K14", "void (anonymous namespace)::qr_kernel<true>(float const*, "
@@ -85,9 +90,10 @@ def test_chip_ab_times_k11_and_k13_at_their_runs_shapes():
             "float const*, int, float, float, float, int, int)")])
 def test_chip_profile_names_the_householder_kernels(label, name):
     """Shared under the kernel name the profiler reports, by one label only
-    (K4's and K14's qr_kernel<VTAU> apart from K11's qr_f64_kernel); K11
-    and K13 are stamped."""
-    assert label in chip_profile.STAMPED or label in ("K4", "K14")
+    (K4's and K14's qr_f32_kernel<VTAU, N>, and their former
+    qr_kernel<VTAU> for A/B runs against older checkouts, apart from K11's
+    qr_f64_kernel and K2's and K3's udt_kernel); each is stamped."""
+    assert label in chip_profile.STAMPED
     assert [k for k, frags in chip_profile.SHARES.items()
             if any(f in name.lower() for f in frags)] == [label]
 
@@ -200,3 +206,31 @@ def test_k1_f64_k5_stamp_phases_fit_the_phase_clock():
     assert 'extern "C" int site_sweep_f32_stamps(' in src
     assert "site_sweep_f32_stamps" in _build.SIGNATURES
     assert "site_sweep_loop" not in src
+
+
+def test_chip_ab_times_k4_and_k14_at_their_runs_shapes():
+    """K4 at the colscaled run's shape and at N = 128, K14 at the
+    colscaled_wy run's and at N = 128: each kernel selected by its own
+    prefix, apart from K11's qr_f64."""
+    k4 = ["qr_f32 (256, 64, 64)", "qr_f32 (64, 128, 128)"]
+    k14 = ["qr_vtau (256, 64, 64)", "qr_vtau (256, 128, 128)"]
+    assert chip_ab.selected(["qr_f32"]) == k4
+    assert chip_ab.selected(["qr_vtau"]) == k14
+    assert chip_ab.selected(["qr_f"]) == ["qr_f64 (128, 64, 64)"] + k4
+
+
+@pytest.mark.parametrize("label", ["K4", "K14"])
+def test_k4_k14_are_stamped_on_the_udt_loop(label):
+    """K4 and K14 run csrc/udt_qr.cu's column loop (the shared-memory
+    qr_householder.cu is gone), whose laps test_udt_stamp_phases_fit_the_
+    phase_clock holds to ops/qr.py's PHASES: stamped, read by
+    qr_f32_stamps, launched through their C entry points."""
+    from montecarlo_tpu_torch.ops import _build
+    assert label in chip_profile.STAMPED
+    csrc = ROOT / "montecarlo_tpu_torch/csrc"
+    assert not (csrc / "qr_householder.cu").exists()
+    src = (csrc / "udt_qr.cu").read_text()
+    assert 'extern "C" int qr_f32_stamps(' in src
+    assert "qr_f32_stamps" in _build.SIGNATURES
+    for entry in ('extern "C" int qr_f32(', 'extern "C" int qr_vtau_f32('):
+        assert entry in src

@@ -82,6 +82,27 @@ failure and prints no result line then):
               with its imaginary-probability count, max |Im det|, drift and
               <s>
 
+  6. timedisp the time-displaced path at the headline's width (8x8,
+              beta=10, float32): (a) one combined_greens_apply on the
+              kernel path and on the plain path from the headline run's
+              final field (its first 64 chains) at safe_mult 10 and 1,
+              every G(0,l), G(l,0), G(l,l) and the CDS, PS, SDSz and CCS
+              accumulators held together, and K2 on every matrix the
+              iteration hands udt_dirty against its plain version; (b)
+              combined_accuracy on the kernel path at both safe_mults, and
+              greens_kl at tests/test_ed_time_displaced.py's (k, l) pairs in
+              float32 on the kernel path against float64 on the plain path;
+              (c) DQMC.run() with CDS, PS, SDS x/y/z, CCS and two greens_at
+              (256 chains, 1 + 2 sweeps, measure_rate 1): every observable
+              finite, CDS at the largest distance positive, K2's and K3's
+              launches in each measurement pass equal to the schedule's, and
+              the pass's wall and device ms per measured sweep beside the
+              sweep pair's; (d) validation.pooled_run over seeds (123, 321)
+              at 8 chains each (2 + 2 sweeps): 16 rows per observable, and
+              compare_pools of the pool with itself passes (the statistical
+              gate is `python3 -m montecarlo_tpu_torch.validation
+              headline`, not a smoke phase)
+
 Each phase ends with a [time] line: the seconds since the script started.
 
 The last line of standard output is
@@ -184,6 +205,39 @@ PHASE_TOL_CX16 = 2e-2
 IMAG_SHARE_RATIO = 1.5   # kernel / plain imaginary-probability share
 MIN_CONF_AGREE = 0.9
 MIN_CONF_AGREE_CX_FIRST = 0.95
+# phase 6 (timedisp): the iterator's kernel and plain paths and its
+# accuracy on the headline run's first chains; greens_kl at the (k, l)
+# pairs of tests/test_ed_time_displaced.py; a headline-width run with the
+# susceptibilities and two greens_at (1 + 2 sweeps); the gate's pooled run
+# (seeds (123, 321), 8 chains each, 2 + 2 sweeps)
+TD_CHAINS = 64
+TD_KL_PAIRS = ((1, 0), (7, 3), (5, 5), (2, 7), (1, 3), (10, 0))
+TD_GREENS_AT = ((50, 0), (20, 70))
+TD_THERM, TD_SWEEPS = 1, 2
+GATE_SEEDS, GATE_CHAINS, GATE_THERM, GATE_SWEEPS = (123, 321), 8, 2, 2
+# The float32 iterator at beta = 10 is accurate to O(1) at safe_mult=10:
+# against the float64 plain path from the same field, the median over 64
+# chains of each chain's max |G - G64| over l was 1.42 on the kernel path
+# and 11.7 on the plain path (G0l the worst; 0.047 and 0.51 at
+# safe_mult=1), the JAX package's float32 iterator reads the same on the
+# CPU (combined_accuracy 186 and 0.28 on two random fields, float64
+# 2.7e-8), so the two float32 paths are held against float64, not against
+# each other: the kernel path's per-chain median error over the plain
+# path's, for each of G0l, Gl0, Gll (every l) and each accumulator,
+# measured 0.09-1.6 (Gll at safe_mult=1: 4.44e-4 against 2.72e-4; my chip
+# runs, NVIDIA H100 80GB HBM3, 700 W)
+TOL_TD_RATIO = 4.0
+# combined_accuracy (max|iterator - greens_kl|) per chain on the kernel
+# path, median over chains, by safe_mult: measured 1.13 (max 55.2) and
+# 0.047 (max 1.16); the plain path 11.7 and 0.51, float64 0 to 2.2e-5
+TOL_TD_ACC = {10: 10.0, 1: 0.5}
+# greens_kl in float32 on the kernel path against float64 on the plain
+# path, max|d| over max|float64|: measured up to 2.0e-3 (G(5, 5))
+TOL_TD_KL = 1e-2
+# K2 on the matrices the iterator hands udt_dirty: reconstruction
+# max|Q diag(d) R - A| / max|A| and max|Q^T Q - I|, measured 8.1e-7 and
+# 1.7e-6 (its plain version 1.0e-6 and 2.0e-6)
+TOL_TD_REC = 1e-5
 DEVICE = "cuda"
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 and FP64
 # FLOP/s outside the tensor cores
@@ -1492,6 +1546,300 @@ def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
                              f"the plain path's {p['share']}")
 
 
+def td_measurements(ctx, model):
+    """CDS, PS (K = 4), SDSz and CCS (K = 4): the step functions the
+    iterator comparison accumulates."""
+    from types import SimpleNamespace
+    from montecarlo_tpu_torch.measurements import dqmc_measurements as dm
+    mc = SimpleNamespace(ctx=ctx)
+    return {"CDS": dm.charge_density_susceptibility(mc, model),
+            "PS": dm.pairing_susceptibility(mc, model, K=4),
+            "SDSz": dm.spin_density_susceptibility(mc, model, "z"),
+            "CCS": dm.current_current_susceptibility(mc, model, K=4)}
+
+
+def td_iterate(ctx, consts, conf, model, udt_inputs=None):
+    """One combined_greens_apply over conf from the path's own G00
+    (greens_from_scratch) with td_measurements' step functions: (every
+    (G0l, Gl0, Gll) stacked (M, 3, C, F, N, N), the accumulators, seconds).
+    udt_inputs: a list that collects every matrix the iteration hands
+    udt_dirty."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc import unequal_time as ut
+    meas = td_measurements(ctx, model)
+    G00 = core.greens_from_scratch(ctx, consts, conf, 0)
+    G00p = core.unwrap_greens(ctx, consts, G00)
+    hist = []
+
+    def step(acc, G0l, Gl0, Gll):
+        hist.append(torch.stack([G0l, Gl0, Gll]))
+        out = {}
+        for k, m in meas.items():
+            c = m.measure_fn(G00=G00p, G0l=G0l, Gl0=Gl0, Gll=Gll)
+            out[k] = {n: acc[k][n] + c[n] for n in c}
+        return out
+
+    acc0 = {k: {n: torch.zeros((conf.shape[0],) + s, dtype=ctx.dtype,
+                               device=DEVICE)
+                for n, s in m.combined_acc_shapes.items()}
+            for k, m in meas.items()}
+    udt = core.udt
+    if udt_inputs is not None:
+        def record(ctx_, A):
+            udt_inputs.append(A)
+            return udt(ctx_, A)
+        core.udt = record
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = ut.combined_greens_apply(ctx, consts, conf, G00, acc0, step)
+        torch.cuda.synchronize()
+    finally:
+        core.udt = udt
+    return torch.stack(hist), acc, time.perf_counter() - t0
+
+
+def rel_err(a, b):
+    """max|a - b| / max|b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def chain_err(a, b, chain_dim=0, relative=False):
+    """Per-chain max|a - b| (relative: over the chain's max|b|), the chain
+    axis of a and b at chain_dim."""
+    a, b = a.movedim(chain_dim, 0).double(), b.movedim(chain_dim, 0).double()
+    e = (a - b).abs().flatten(1).amax(1)
+    return e / b.abs().flatten(1).amax(1) if relative else e
+
+
+def td_paths(conf, sm):
+    """(a) and (b) at safe_mult sm: the iterator on the kernel path and on
+    the plain path in float32, each against the float64 plain path from the
+    same field, every G (0,l), G(l,0), G(l,l) and accumulator (per-chain
+    errors, medians over chains); K2 on the matrices the kernel path's
+    iteration hands udt_dirty (reconstruction and orthogonality); and
+    combined_accuracy on the kernel path."""
+    import dataclasses
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc import unequal_time as ut
+    from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
+    from montecarlo_tpu_torch.ops import qr
+    from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+    model = headline_model()
+    params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=sm)
+    ctx_k, consts = core.make_context(model, params, dtype=torch.float32,
+                                      device=DEVICE)
+    ctx_p = dataclasses.replace(ctx_k, use_kernels=False)
+    ctx_64, consts_64 = core.make_context(model, params, dtype=torch.float64,
+                                          device=DEVICE, use_kernels=False)
+    inputs = []
+    hk, ak, tk = td_iterate(ctx_k, consts, conf, model, inputs)
+    hp, ap, tp = td_iterate(ctx_p, consts, conf, model)
+    h64, a64, t64 = td_iterate(ctx_64, consts_64, conf, model)
+    med = lambda e: e.median().item()
+    errs = {}                             # name: (kernel, plain) medians
+    for i, name in enumerate(("G0l", "Gl0", "Gll")):
+        errs[name] = (med(chain_err(hk[:, i], h64[:, i], 1)),
+                      med(chain_err(hp[:, i], h64[:, i], 1)))
+    direct = med(chain_err(hk.flatten(0, 1), hp.flatten(0, 1), 1))
+    del hk, hp, h64
+    for k in ak:
+        for n in ak[k]:
+            errs[k] = (med(chain_err(ak[k][n], a64[k][n], relative=True)),
+                       med(chain_err(ap[k][n], a64[k][n], relative=True)))
+    rec = orth = 0.0
+    for A in inputs:
+        n = A.shape[-1]
+        Ap, mx, _ = _prescale_pivot(A.reshape(-1, n, n))
+        Ap, mx = Ap.contiguous(), mx.reshape(-1).contiguous()
+        Q, R, d = qr.udt_qr(Ap, mx)
+        scale = Ap.abs().amax((-2, -1))
+        rec = max(rec, ((Q @ ((d / mx[:, None])[..., None] * R) - Ap).abs()
+                        .amax((-2, -1)) / scale).max().item())
+        orth = max(orth, (Q.mT @ Q - torch.eye(n, device=DEVICE)).abs()
+                   .max().item())
+    t0 = time.perf_counter()
+    acc = ut.combined_accuracy(ctx_k, consts, conf,
+                               core.greens_from_scratch(ctx_k, consts, conf,
+                                                        0))
+    t_acc = time.perf_counter() - t0
+    acc_med, acc_max = acc.median().item(), acc.max().item()
+    ratios = {k: e[0] / max(e[1], 1e-30) for k, e in errs.items()}
+    log(f"[timedisp] safe_mult={sm}, {conf.shape[0]} chains, per-chain "
+        f"errors against the float64 plain path, median over chains, kernel "
+        f"/ plain path (G: max over l = 1..{ctx_k.M}; accumulators: "
+        f"relative): " + ", ".join(
+            f"{k} {e[0]:.3e} / {e[1]:.3e}" for k, e in errs.items())
+        + f"; worst ratio {max(ratios.values()):.3f} (bound "
+        f"{TOL_TD_RATIO:g}); kernel vs plain G directly {direct:.3e} "
+        f"({tk:.1f} s kernel path, {tp:.1f} s plain, {t64:.1f} s float64); "
+        f"K2 on the iteration's {len(inputs)} udt_dirty inputs: "
+        f"reconstruction {rec:.3e}, orthogonality {orth:.3e} (bound "
+        f"{TOL_TD_REC:g}); combined_accuracy median {acc_med:.3e}, max "
+        f"{acc_max:.3e} (bound on the median {TOL_TD_ACC[sm]:g}, "
+        f"{t_acc:.1f} s)")
+    if not max(ratios.values()) <= TOL_TD_RATIO:
+        raise AssertionError(f"the float32 kernel path is less accurate than "
+                             f"the plain path at safe_mult={sm}: {ratios}")
+    if not (rec <= TOL_TD_REC and orth <= TOL_TD_REC):
+        raise AssertionError(f"K2 on the iterator's matrices: reconstruction "
+                             f"{rec:.3e}, orthogonality {orth:.3e}")
+    if not acc_med <= TOL_TD_ACC[sm]:
+        raise AssertionError(f"combined_accuracy median {acc_med:.3e} above "
+                             f"{TOL_TD_ACC[sm]} at safe_mult={sm}")
+
+
+def td_greens_kl(conf):
+    """(b) greens_kl at TD_KL_PAIRS: float32 on the kernel path against
+    float64 on the plain path."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc import unequal_time as ut
+    from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
+    model = headline_model()
+    params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=SAFE_MULT)
+    ctx_k, consts_k = core.make_context(model, params, dtype=torch.float32,
+                                        device=DEVICE)
+    ctx_p, consts_p = core.make_context(model, params, dtype=torch.float64,
+                                        device=DEVICE, use_kernels=False)
+    errs = {kl: rel_err(ut.greens_kl(ctx_k, consts_k, conf, *kl).double(),
+                        ut.greens_kl(ctx_p, consts_p, conf, *kl))
+            for kl in TD_KL_PAIRS}
+    log("[timedisp] greens_kl float32 kernel path vs float64 plain path, "
+        "max|d|/max|float64|: " + ", ".join(
+            f"G{kl} {e:.3e}" for kl, e in errs.items())
+        + f" (bound {TOL_TD_KL:g})")
+    if not max(errs.values()) <= TOL_TD_KL:
+        raise AssertionError("greens_kl float32 kernel path off float64")
+
+
+def td_run():
+    """(c) DQMC.run() at the headline's width with CDS, PS, SDS x/y/z, CCS
+    and two greens_at: finite observables, CDS at the largest distance
+    positive, and K2's and K3's launches inside each measurement pass equal
+    to the schedule's; the measurement pass's wall and device ms per
+    measured sweep beside the sweep pair's. Returns the run's launches."""
+    import numpy as np
+    import torch
+    import montecarlo_tpu_torch as mt
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc import unequal_time as ut
+    from montecarlo_tpu_torch.ops import KERNELS
+    model = headline_model()
+    sim = mt.DQMC(model, beta=BETA, delta_tau=DTAU, safe_mult=SAFE_MULT,
+                  n_chains=CHAINS, measure_rate=1, seed=4, device=DEVICE,
+                  dtype=torch.float32)
+    sim["CDS"] = mt.charge_density_susceptibility(sim, model)
+    for d in ("x", "y", "z"):
+        sim[f"SDS{d}"] = mt.spin_density_susceptibility(sim, model, d)
+    sim["PS"] = mt.pairing_susceptibility(sim, model, K=4)
+    sim["CCS"] = mt.current_current_susceptibility(sim, model, K=4)
+    for i, kl in enumerate(TD_GREENS_AT):
+        sim[f"UTG{i}"] = mt.greens_measurement(sim, model, greens_at=kl)
+    names = ("udt_qr", "udt_qr_solve")
+    passes, measure_all = [], sim._measure_all
+
+    def counted(*args):
+        before = [KERNELS[k].launches for k in names]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        measure_all(*args)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0, [
+            KERNELS[k].launches - b for k, b in zip(names, before)]))
+
+    sim._measure_all = counted
+    for fn in KERNELS.values():
+        fn.launches = 0
+    sim.run(thermalization=TD_THERM, sweeps=TD_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    ctx = sim.ctx
+    n_udt, n_greens = ut.combined_udt_launches(ctx)
+    n_udt += sum(ut.greens_kl_udts(ctx, *kl) for kl in TD_GREENS_AT)
+    counts = [c for _, c in passes]
+    log(f"[timedisp] run {CHAINS} chains, {TD_THERM} + {TD_SWEEPS} sweeps: "
+        f"launches {launches}; K2, K3 per measurement pass {counts}, "
+        f"schedule {[n_udt, n_greens]}")
+    if not (len(passes) == TD_SWEEPS
+            and all(c == [n_udt, n_greens] for c in counts)):
+        raise AssertionError("K2/K3 launches of the measurement pass differ "
+                             "from the schedule's")
+    obs = sim.observables()
+    bad = [f"{k}/{n}" for k, r in obs.items() for n, x in r.items()
+           if not np.isfinite(np.asarray(x.mean)).all()]
+    if bad:
+        raise AssertionError(f"non-finite observables {bad}")
+    cds = np.asarray(obs["CDS"]["cds"].mean)
+    dirs = np.linalg.norm(model.lattice.directions, axis=-1)
+    far = float(cds[np.argmax(dirs)])
+    log(f"[timedisp] CDS {np.round(cds, 5).tolist()}; at the largest "
+        f"distance {far:.6f} (> 0); PS[0] {np.round(np.asarray(obs['PS']['ps'].mean)[0], 5).tolist()}; "
+        f"SDSz[0] {float(np.asarray(obs['SDSz']['sds_z'].mean)[0]):.5f}, "
+        f"CCS[0] {np.round(np.asarray(obs['CCS']['ccs'].mean)[0], 5).tolist()}")
+    if not far > 0:
+        raise AssertionError(f"CDS at the largest distance {far} not > 0")
+    # one more measurement pass and one sweep pair, wall and device
+    state = sim.state
+    G = core.greens_from_scratch(ctx, sim.consts, state["conf"], 0)
+    conf = state["conf"]
+    meas = lambda: measure_all(sim.measurements, G, conf)
+    pair = lambda: core.sweep_pair(ctx, sim.consts, state,
+                                   generator=sim.generator)
+    wall_m, dev_m = 1e3 * timed(meas, 1), device_ms(meas, reps=1)
+    wall_p, dev_p = 1e3 * timed(pair, 2), device_ms(pair, reps=2)
+    log(f"[timedisp] measurement pass per measured sweep ({CHAINS} chains, "
+        f"CDS + SDS x/y/z + PS + CCS + 2 greens_at): wall "
+        f"{wall_m:.1f} ms, device {ms_text(dev_m)} (in the run: "
+        + ", ".join(f"{1e3 * w:.1f}" for w, _ in passes)
+        + f" ms); sweep pair: wall {wall_p:.1f} ms, device "
+        f"{ms_text(dev_p)}")
+    return launches
+
+
+def td_gate():
+    """(d) the gate's machinery: pooled_run with GATE_SEEDS at GATE_CHAINS
+    chains each on the card, every default observable, and compare_pools
+    of the pool with itself."""
+    import numpy as np
+    from montecarlo_tpu_torch import validation as v
+    t0 = time.perf_counter()
+    pool = v.pooled_run(safe_mult=SAFE_MULT, device=DEVICE,
+                        n_chains=GATE_CHAINS, seeds=GATE_SEEDS,
+                        thermalization=GATE_THERM, sweeps=GATE_SWEEPS,
+                        measure_rate=1)
+    rows = {k: x.shape for k, x in pool.items() if not k.startswith("_")}
+    ok, zs, _ = v.compare_pools(pool, pool)
+    log(f"[timedisp] pooled_run seeds {GATE_SEEDS} x {GATE_CHAINS} chains, "
+        f"{GATE_THERM} + {GATE_SWEEPS} sweeps ({time.perf_counter() - t0:.1f}"
+        f" s): {rows}; acceptance {pool['_acc'][0]:.4f}; compare_pools with "
+        f"itself ok={ok}, max z {max(zs.values()):.3g}")
+    n = len(GATE_SEEDS) * GATE_CHAINS
+    if not (set(rows) >= {f"{k}/{n_}" for k, n_ in (
+            ("occ", "occ"), ("greens", "greens"), ("CDC", "cdc"),
+            ("PC", "pc"), ("SDCz", "sdc_z"), ("CDS", "cds"), ("PS", "ps"))}
+            and all(r[0] == n for r in rows.values()) and ok):
+        raise AssertionError("pooled_run's rows or compare_pools are off")
+    bad = [k for k, x in pool.items()
+           if not k.startswith("_") and not np.isfinite(x).all()]
+    if bad:
+        raise AssertionError(f"non-finite pooled observables {bad}")
+
+
+def phase_timedisp(sim):
+    """Phase 6: the time-displaced path at the headline's width, from the
+    headline run's final state (sim, phase 4)."""
+    conf = sim.state["conf"][:TD_CHAINS]
+    for sm in (SAFE_MULT, 1):
+        td_paths(conf, sm)
+    td_greens_kl(conf)
+    launches = td_run()
+    td_gate()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1556,6 +1904,10 @@ def main():
     phase_witness(simcx16, complex_model(L=L16), PHASE_TOL_CX16,
                   CX16_WITNESS_CHAINS)
     mark("witness complex16")
+    launchestd = phase_timedisp(sim)
+    for k in launches:
+        launches[k] += launchestd.get(k, 0)
+    mark("timedisp")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

@@ -25,7 +25,10 @@ Two A/B modes of the JAX package come as make_context keywords:
 fuse_wrap (MC_TPU_FUSE_WRAP=1: the slice's wrap fused into the site sweep,
 kernel K13) and qr_wy (MC_TPU_QR_WY=1: the float32 QR emitting its
 reflectors, kernel K14, with Q assembled outside); each raises where its
-kernel takes no part of the session.
+kernel takes no part of the session. The slice multiplies from either
+side (B, B^{-1}, B^†, B^{-†}), ``udt_of_product`` and
+``greens_from_scratch`` serve the time-displaced path
+(``unequal_time.py``).
 g_refresh and checkerboard raise NotImplementedError naming their ROADMAP
 item; the retired stab_method "cholqr" raises as well.
 """
@@ -264,10 +267,11 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     stabilization. Real sessions: the site sweep (N <= 128: K5 for float32
     updates with F = 2 at even N, else K1 in the update dtype; K6 beyond in
     float32; K5 takes every shape K1 takes at even N) and the QR of the
-    stack dtype: float32 K2/K3 and K4 for 8 | N <= 128 and K7 for
-    8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with float32 or
-    float64 updates). Complex64 updates at 8 | N: K8 up to N = 128 (G of
-    one chain in shared memory: F = 2 to N = 119), K9 in blocks of
+    stack dtype: float32 K2/K3 for 8 | N <= 64, K4 for 8 | N <= 128 and K7
+    for 8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with
+    float32 or float64 updates). Complex64 updates at 8 | N: K8 up to
+    N = 128 (G of one chain over the block's registers, flavor 1 in shared
+    memory at F = 2 past N = 64, so F = 2 stops at N = 119), K9 in blocks of
     max(delay, 1) sites beyond (its buffers in shared memory: not F = 2 at
     N = 256, delay 32); the QR of complex64 stacks is K10 up to N = 128 and
     the library QR beyond, that of complex128 stacks the library QR, as in
@@ -284,9 +288,11 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
                 if N <= CX_QR_MAX_N else _ssdcx.kernel_supports(N, F, dk))):
             raise _not_ported(
                 f"the complex64 kernels for N={N}, F={F}, delay={delay} (K8 "
-                "and K10 take 8 | N <= 128 with G of one chain in shared "
-                "memory, K9 8 | N beyond with its buffers in shared memory; "
-                "elsewhere the JAX package runs XLA's loop or QR)",
+                "and K10 take 8 | N <= 128, K8 with G of one chain over the "
+                "block's registers and flavor 1 in shared memory at F = 2 "
+                "past N = 64, so F = 2 stops at N = 119; K9 8 | N beyond "
+                "with its buffers in shared memory; elsewhere the JAX "
+                "package runs XLA's loop or QR)",
                 "Queue 1 item 4")
         return
     f64 = dtype == torch.float64
@@ -304,8 +310,9 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
         return
     if not (_qrh.kernel_supports(N) or _qr_blocked.kernel_supports(N)):
         raise _not_ported(
-            f"the float32 QR for N={N} (K2/K3 and K4 take 8 | N <= 128, K7 "
-            "8 | N > 128; for other N the JAX package runs XLA's QR)",
+            f"the float32 QR for N={N} (K2/K3 take 8 | N <= 64, K4 "
+            "8 | N <= 128, K7 8 | N > 128; for other N the JAX package runs "
+            "XLA's QR)",
             "Queue 1 item 4")
 
 
@@ -327,9 +334,34 @@ def mult_B_left(ctx, consts, sigma_l, M):
     return consts["eT2"] @ (eV_diag(ctx, sigma_l)[..., :, None] * M)
 
 
+def mult_B_right(ctx, consts, sigma_l, M):
+    """M ← M B_l = (M eT2) · diag(eV)."""
+    return (M @ consts["eT2"]) * eV_diag(ctx, sigma_l)[..., None, :]
+
+
+def mult_B_inv_left(ctx, consts, sigma_l, M):
+    """M ← B_l^{-1} M = diag(eV)^{-1} · eT2inv · M."""
+    return eV_diag(ctx, sigma_l, -1.0)[..., :, None] * (consts["eT2inv"] @ M)
+
+
+def mult_B_inv_right(ctx, consts, sigma_l, M):
+    """M ← M B_l^{-1} = (M · diag(eV)^{-1}) · eT2inv."""
+    return (M * eV_diag(ctx, sigma_l, -1.0)[..., None, :]) @ consts["eT2inv"]
+
+
 def mult_B_dagger_left(ctx, consts, sigma_l, M):
     """M ← B_l^† M = diag(eV) · eT2^† · M (eV real)."""
     return eV_diag(ctx, sigma_l)[..., :, None] * (consts["eT2"].mH @ M)
+
+
+def mult_B_dagger_right(ctx, consts, sigma_l, M):
+    """M ← M B_l^† = (M · diag(eV)) · eT2^†."""
+    return (M * eV_diag(ctx, sigma_l)[..., None, :]) @ consts["eT2"].mH
+
+
+def mult_B_invdag_right(ctx, consts, sigma_l, M):
+    """M ← M B_l^{-†} = (M · eT2inv^†) · diag(eV)^{-1}."""
+    return (M @ consts["eT2inv"].mH) * eV_diag(ctx, sigma_l, -1.0)[..., None, :]
 
 
 def wrap_up(ctx, consts, sigma_l, G):
@@ -356,6 +388,28 @@ def _identity_udt(ctx, C):
         C, ctx.F, ctx.N, ctx.N)
     D = torch.ones(C, ctx.F, ctx.N, dtype=ctx.rdtype, device=ctx.device)
     return I, D, I
+
+
+def udt(ctx, A):
+    """``udt_dirty`` of A on the session's route (kernels, qr_wy): the UDT of
+    every product that is not a stack extension."""
+    return udt_dirty(A, ctx.use_kernels, ctx.qr_wy)
+
+
+def udt_of_product(ctx, consts, conf, slices, mult):
+    """UDT of the product mult(slices[-1]) ∘ ... ∘ mult(slices[0]) applied to
+    the identity, for every chain, re-decomposed every safe_mult slices and
+    after the last (the identity for no slices). mult is one of the
+    mult_B_*_left functions; conf (C, N, M)."""
+    U, D, T = _identity_udt(ctx, conf.shape[0])
+    curr = U
+    for count, l in enumerate(slices, 1):
+        curr = mult(ctx, consts, conf[:, :, l], curr)
+        if count % ctx.sm == 0 or count == len(slices):
+            u, d, r, piv = udt(ctx, curr * D[..., None, :])
+            T = scatter_columns(r, piv) @ T
+            U, D, curr = u, d, u
+    return U, D, T
 
 
 def _restabilize(ctx, curr, D, T):
@@ -656,15 +710,20 @@ def phase_from_conf(ctx, consts, conf):
     (C, N, M) alone: UDT(B_{M-1}...B_0) restabilized every safe_mult slices,
     then ``udt_weight_phase``. The running chain tracks the same phase
     incrementally (``_track_detratio_batch``)."""
-    U, D, T = _identity_udt(ctx, conf.shape[0])
-    curr = U
-    for l in range(ctx.M):
-        curr = mult_B_left(ctx, consts, conf[:, :, l], curr)
-        if (l + 1) % ctx.sm == 0 or l == ctx.M - 1:
-            u, d, r, piv = udt_dirty(curr * D[..., None, :], ctx.use_kernels)
-            T = scatter_columns(r, piv) @ T
-            U, D, curr = u, d, u
+    U, D, T = udt_of_product(ctx, consts, conf, range(ctx.M), mult_B_left)
     return udt_weight_phase(ctx, U, D, T)
+
+
+def greens_from_scratch(ctx, consts, conf, slice_idx: int):
+    """G_eff(slice_idx) (C, F, N, N) recomputed from the HS field conf
+    (C, N, M) alone, for 0 <= slice_idx <= M: the left product
+    B_{slice_idx-1}...B_0 and the right product B_{slice_idx}^†...B_{M-1}^†,
+    each decomposed every safe_mult slices, then ``calculate_greens``."""
+    left = udt_of_product(ctx, consts, conf, range(slice_idx), mult_B_left)
+    right = udt_of_product(ctx, consts, conf,
+                           range(ctx.M - 1, slice_idx - 1, -1),
+                           mult_B_dagger_left)
+    return calculate_greens(*left, *right, ctx.use_kernels, ctx.greens_udt_fn)
 
 
 def init_state(ctx, consts, conf):

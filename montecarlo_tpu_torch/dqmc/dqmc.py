@@ -1,8 +1,11 @@
 """DQMC simulation driver (counterpart of montecarlo_tpu/dqmc/dqmc.py).
 
 A Python loop over sweep pairs (core.sweep_pair, batched over chains) with
-equal-time measurements pushed into device-side binners; the per-chain
-device counters are drained into host integers after every chunk of sweeps.
+measurements pushed into device-side binners: equal-time ones from the G at
+the measurement point, time-displaced ones from ``unequal_time.greens_kl``
+(``greens_at``) and from one pass of the combined iterator over all chains
+(``combined``, the susceptibilities). The per-chain device counters are
+drained into host integers after every chunk of sweeps.
 """
 
 from __future__ import annotations
@@ -11,11 +14,12 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from . import core
+from . import unequal_time as ut
 from .parameters import DQMCParameters
 from ..measurements.core import MeasurementRegistry
 from ..utils.host import resolve_device
@@ -86,9 +90,16 @@ class DQMC:
     plain site sweep and the library QR/solve on either device. device
     defaults to "cuda" and raises when CUDA is absent (pass device="cpu").
     fuse_wrap and qr_wy are the JAX package's MC_TPU_FUSE_WRAP and
-    MC_TPU_QR_WY A/B modes on the kernel path (core.make_context)."""
+    MC_TPU_QR_WY A/B modes on the kernel path (core.make_context).
 
-    def __init__(self, model, n_chains: int = 16, seed: int = 0,
+    seed may be a sequence: each seed's own generator draws the initial
+    configuration and every sweep's uniforms of its block of n_chains
+    chains, the blocks concatenated on the chain axis (chains
+    i*n_chains..(i+1)*n_chains-1 are seed[i]'s, as len(seed) separate
+    sessions would run them) and n_chains multiplied by len(seed)."""
+
+    def __init__(self, model, n_chains: int = 16,
+                 seed: Union[int, Sequence[int]] = 0,
                  dtype=torch.float64, update_dtype=None,
                  use_kernels: bool = True, device="cuda",
                  stab_method: str = "qr", delay: int = None,
@@ -113,12 +124,16 @@ class DQMC:
             device=self.device, use_kernels=use_kernels,
             stab_method=stab_method, delay=delay, checkerboard=checkerboard,
             g_refresh=g_refresh, fuse_wrap=fuse_wrap, qr_wy=qr_wy)
-        # one generator drives the initial configuration and every sweep's
-        # uniforms: the same seed gives the same run
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
-        conf = model.rand_conf(self.generator, self.n_chains,
-                               self.parameters.slices, self.device)
+        # one generator per seed drives its block's initial configuration
+        # and every sweep's uniforms: the same seeds give the same run
+        seeds = tuple(seed) if isinstance(seed, (tuple, list)) else (seed,)
+        self.generators = [torch.Generator(device=self.device).manual_seed(
+            int(s)) for s in seeds]
+        self.generator = self.generators[0]
+        conf = torch.cat([model.rand_conf(g, self.n_chains,
+                                          self.parameters.slices, self.device)
+                          for g in self.generators])
+        self.n_chains *= len(seeds)
         self.state = core.init_state(self.ctx, self.consts, conf)
 
         self.measurements = MeasurementRegistry()
@@ -197,7 +212,7 @@ class DQMC:
             t0 = time.perf_counter()
             for sweep_idx in range(i + 1, i + n + 1):
                 self.state, G_meas, conf_meas = core.sweep_pair(
-                    self.ctx, self.consts, self.state, generator=self.generator)
+                    self.ctx, self.consts, self.state, u=self._uniforms())
                 if registry.measurements and sweep_idx % p.measure_rate == 0:
                     self._measure_all(registry, G_meas, conf_meas)
             self._drain_counters()      # reads device values: synchronizes
@@ -214,14 +229,77 @@ class DQMC:
             self._report_errors()
         return True
 
+    def _uniforms(self):
+        """One sweep pair's uniforms (C, 2M, N): each seed's generator draws
+        its block's."""
+        C = self.n_chains // len(self.generators)
+        shape = (C, 2 * self.ctx.M, self.ctx.N)
+        return torch.cat([torch.rand(shape, generator=g, device=self.device,
+                                     dtype=self.ctx.urdtype)
+                          for g in self.generators])
+
     def _measure_all(self, registry, G_meas, conf_meas):
-        """Push every equal-time measurement of a stage, from the physical G
-        at the measurement point."""
-        G_phys = core.unwrap_greens(self.ctx, self.consts, G_meas)
+        """Push every measurement of a stage, grouped by the Green's
+        functions it needs so that each is computed once: the equal-time
+        ones from the physical G at the measurement point, each distinct
+        G(k, l) of the ``greens_at`` ones from ``ut.greens_kl``, and the
+        ``combined`` ones from one pass of the combined iterator."""
+        ctx, consts = self.ctx, self.consts
+        items = registry.measurements.items()
+        G_phys = core.unwrap_greens(ctx, consts, G_meas)
         phase = self.state.get("phase_meas")
-        for k, m in registry.measurements.items():
-            m.push(registry.states[k],
-                   m.measure_fn(greens=G_phys, conf=conf_meas, phase=phase))
+        for k, m in items:
+            if m.kind == "equal":
+                m.push(registry.states[k], m.measure_fn(
+                    greens=G_phys, conf=conf_meas, phase=phase))
+        utgs = {}
+        for k, m in items:
+            if m.kind == "greens_at":
+                if m.greens_at not in utgs:
+                    utgs[m.greens_at] = core.unwrap_greens(
+                        ctx, consts, ut.greens_kl(ctx, consts, conf_meas,
+                                                  *m.greens_at))
+                m.push(registry.states[k], m.measure_fn(
+                    utg=utgs[m.greens_at], greens=G_phys, conf=conf_meas))
+        comb = [(k, m) for k, m in items if m.kind == "combined"]
+        if comb:
+            accs = self._measure_combined(comb, G_meas, G_phys, conf_meas)
+            for k, m in comb:
+                m.push(registry.states[k], accs[k])
+
+    def _measure_combined(self, comb, G_meas, G_phys, conf_meas):
+        """One combined-iterator pass over all chains for the measurements
+        of kind "combined": those with combined_acc_shapes sum their raw
+        contributions in the Green's dtype and reduce them once afterwards
+        (combined_finish_fn), the rest sum theirs in float64; every sum is
+        then weighted by delta_tau (the τ integral)."""
+        ctx = self.ctx
+        C = conf_meas.shape[0]
+        acc0 = {}
+        for k, m in comb:
+            shapes, dtype = ((m.combined_acc_shapes, ctx.dtype)
+                             if m.combined_acc_shapes is not None
+                             else (m.obs_shapes, torch.float64))
+            acc0[k] = {n: torch.zeros((C,) + tuple(s), dtype=dtype,
+                                      device=ctx.device)
+                       for n, s in shapes.items()}
+
+        def step_fn(acc, G0l, Gl0, Gll):
+            out = {}
+            for k, m in comb:
+                contrib = m.measure_fn(G00=G_phys, G0l=G0l, Gl0=Gl0, Gll=Gll)
+                out[k] = {n: acc[k][n] + contrib[n] for n in contrib}
+            return out
+
+        acc = ut.combined_greens_apply(ctx, self.consts, conf_meas,
+                                       G_meas.to(ctx.dtype), acc0, step_fn)
+        dtau = self.parameters.delta_tau
+        out = {}
+        for k, m in comb:
+            a = (m.combined_finish_fn(acc[k])
+                 if m.combined_finish_fn is not None else acc[k])
+            out[k] = {n: v * dtau for n, v in a.items()}
+        return out
 
     def _drain_counters(self):
         """Accumulate the per-chain device counters into host Python ints and
@@ -273,6 +351,20 @@ class DQMC:
             print(f"[DQMC] {a.propagation_error.count} propagation "
                   f"instabilities > {self.ctx.prop_err_threshold:g} "
                   f"(max {a.propagation_error.max:.2e})")
+
+    # ---------------------------------------------------------------- greens
+    def greens(self, slice_idx: int = 0, l: int = None):
+        """Physical Green's function (C, F, N, N), recomputed from the current
+        configurations: ``greens()`` / ``greens(slice)`` the equal-time G at
+        a slice, ``greens(k, l)`` the time-displaced G(kΔτ ← lΔτ) for
+        0 ≤ k, l ≤ slices."""
+        conf = self.state["conf"]
+        if l is None:
+            G = core.greens_from_scratch(self.ctx, self.consts, conf,
+                                         slice_idx)
+        else:
+            G = ut.greens_kl(self.ctx, self.consts, conf, slice_idx, l)
+        return core.unwrap_greens(self.ctx, self.consts, G)
 
     def replay(self, configurations=None, verbose: bool = False):
         """Measurements over recorded configurations (the JAX package's

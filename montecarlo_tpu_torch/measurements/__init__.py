@@ -1,13 +1,17 @@
 from .core import Measurement, MeasurementRegistry, ObservableResult
 from .dqmc_measurements import (
     CombinedGreensIterator, Greens, GreensAt, boson_energy_measurement,
-    charge_density, charge_density_correlation, greens_measurement,
-    magnetization, occupation, pairing, pairing_correlation, sign_measurement,
-    spin_density, spin_density_correlation)
+    charge_density, charge_density_correlation,
+    charge_density_susceptibility, current_current_susceptibility,
+    greens_measurement, magnetization, occupation, pairing,
+    pairing_correlation, pairing_susceptibility, sign_measurement,
+    spin_density, spin_density_correlation, spin_density_susceptibility)
 
 __all__ = ["Measurement", "MeasurementRegistry", "ObservableResult",
            "CombinedGreensIterator", "Greens", "GreensAt",
            "boson_energy_measurement", "charge_density",
-           "charge_density_correlation", "greens_measurement",
+           "charge_density_correlation", "charge_density_susceptibility",
+           "current_current_susceptibility", "greens_measurement",
            "magnetization", "occupation", "pairing", "pairing_correlation",
-           "sign_measurement", "spin_density", "spin_density_correlation"]
+           "pairing_susceptibility", "sign_measurement", "spin_density",
+           "spin_density_correlation", "spin_density_susceptibility"]

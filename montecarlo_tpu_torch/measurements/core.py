@@ -1,12 +1,13 @@
 """Generic measurement engine (counterpart of
 montecarlo_tpu/measurements/core.py).
 
-A measurement is a named bundle of a ``measure_fn(greens=..., conf=...,
-phase=...) -> {obs_name: (C, *obs_shape) tensor}``, one LogBinner state per
-observable
+A measurement is a named bundle of a ``measure_fn`` returning
+{obs_name: (C, *obs_shape) tensor}, one LogBinner state per observable
 (batched over chains) and an optional ``finish_fn`` deriving observables from
-the binner statistics at the end of a run. Only equal-time measurements
-(``kind="equal"``) are ported.
+the binner statistics at the end of a run. Its ``kind`` says which Green's
+functions the driver hands it: the equal-time G, a time-displaced G(k, l)
+(``greens_at``), or the (G00, G0l, Gl0, Gll) of every slice of the combined
+iterator (``combined``, the susceptibilities).
 """
 
 from __future__ import annotations
@@ -20,16 +21,32 @@ import torch
 from ..utils.binner import LogBinner
 
 
+KINDS = ("equal", "greens_at", "combined")
+
+
 @dataclass
 class Measurement:
     """One measurement: a kernel plus per-observable logarithmic binners.
 
     obs_shapes maps observable name -> per-chain shape (without the chain
-    axis); measure_fn(greens=G_phys (C, F, N, N), conf=(C, N, M),
-    phase=(C,) complex weight phase of a complex session, else None) returns
-    {name: tensor of shape (C, *obs_shape)}. finish_fn(stats, context) ->
-    {name: value} may derive additional observables. dtype is the binners'
-    accumulator type: float64, or complex128 for complex values."""
+    axis); measure_fn returns {name: tensor of shape (C, *obs_shape)}, every
+    Green's function physical (unwrapped) with shape (C, F, N, N):
+
+      kind "equal"      measure_fn(greens=G, conf=(C, N, M), phase=(C,)
+                        complex weight phase of a complex session, else None)
+      kind "greens_at"  measure_fn(utg=G(k, l), greens=G, conf=conf), with
+                        greens_at = (k, l)
+      kind "combined"   measure_fn(G00=G, G0l=, Gl0=, Gll=) is a step
+                        function; the driver sums its contributions over
+                        l = 1..M and multiplies the sum by delta_tau
+
+    combined_acc_shapes (combined): when set, the driver sums the raw
+    contributions of these per-chain shapes in the Green's dtype and applies
+    combined_finish_fn(acc) once after the iteration (the direction binning
+    out of the τ loop); else it sums measure_fn's obs_shapes contributions
+    in float64. finish_fn(stats, context) -> {name: value} may derive
+    additional observables. dtype is the binners' accumulator type: float64,
+    or complex128 for complex values."""
 
     name: str
     obs_shapes: Dict[str, Tuple[int, ...]]
@@ -37,13 +54,15 @@ class Measurement:
     finish_fn: Optional[Callable] = None
     dtype: Any = torch.float64
     kind: str = "equal"
+    greens_at: Optional[Tuple[int, int]] = None
+    combined_acc_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+    combined_finish_fn: Optional[Callable] = None
     binners: Dict[str, LogBinner] = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.kind != "equal":
-            raise NotImplementedError(
-                f"measurements of kind {self.kind!r} are not ported to "
-                "montecarlo_tpu_torch yet (ROADMAP Queue 1 item 1)")
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown measurement kind {self.kind!r} (one of "
+                             f"{', '.join(KINDS)})")
 
     def bind(self, n_chains: int, device):
         """Create the binners and their empty states for a chain batch."""

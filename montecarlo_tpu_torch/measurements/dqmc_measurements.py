@@ -1,8 +1,10 @@
-"""Standard equal-time DQMC observables via Wick's theorem (counterpart of
-montecarlo_tpu/measurements/dqmc_measurements.py): the Green's function,
-occupation, sign, HS-field energy, and the charge, spin and pairing
-correlations binned by distance. The time-displaced measurements
-(susceptibilities, ``greens_at``) are ROADMAP Queue 1 item 1 and raise.
+"""Standard DQMC observables via Wick's theorem (counterpart of
+montecarlo_tpu/measurements/dqmc_measurements.py): the Green's function
+(equal-time, or time-displaced with ``greens_at``), occupation, sign,
+HS-field energy, the charge, spin and pairing correlations binned by
+distance, and the τ-integrated charge, spin, pairing and current-current
+susceptibilities (kind "combined": step functions of the combined
+iterator, ``dqmc/unequal_time.py``).
 
 Green's functions carry a chain and a flavor-block axis: (C, F, N, N).
 G[:, up] = G[:, 0], G[:, down] = G[:, F-1]: the attractive model (F = 1)
@@ -28,8 +30,8 @@ class Greens:
 
 
 class GreensAt:
-    """Marker factory: the measurement needs G(k, l) (time-displaced, not
-    ported: ROADMAP Queue 1 item 1)."""
+    """Marker factory: the measurement needs G(k, l). Use
+    greens_measurement(mc, model, greens_at=(k, l))."""
 
     def __init__(self, k, l):
         self.kl = (int(k), int(l))
@@ -37,13 +39,7 @@ class GreensAt:
 
 class CombinedGreensIterator:
     """Marker: the measurement integrates over (G(0,l), G(l,0), G(l,l))
-    (susceptibilities, not ported: ROADMAP Queue 1 item 1)."""
-
-
-def _time_displaced(what):
-    return NotImplementedError(
-        f"{what} (time-displaced) is not ported to montecarlo_tpu_torch yet "
-        "(ROADMAP Queue 1 item 1)")
+    (the susceptibilities, Measurement.kind "combined")."""
 
 
 def _session_eltype(mc):
@@ -150,18 +146,61 @@ class _OnDevice:
         return self.cache[key]
 
 
+# ------------------------------------------------- time-displaced kernel mats
+def cdc4_matrix(G00, G0l, Gl0, Gll):
+    """Charge density susceptibility step kernel, (C, N, N)."""
+    Gu0, Gd0 = _blocks(G00)
+    GuL, GdL = _blocks(Gll)
+    du, dd = 1.0 - _diag(GuL), 1.0 - _diag(GdL)
+    eu, ed = 1.0 - _diag(Gu0), 1.0 - _diag(Gd0)
+    nn = (du + dd)[:, :, None] * (eu + ed)[:, None, :]
+    G0lu, G0ld = _blocks(G0l)
+    Gl0u, Gl0d = _blocks(Gl0)
+    return nn - G0lu.mT * Gl0u - G0ld.mT * Gl0d
+
+
+def sdc_x4_matrix(G00, G0l, Gl0, Gll):
+    """Spin density susceptibility step kernel, x (and y: the same for a
+    block-diagonal G), (C, N, N)."""
+    G0lu, G0ld = _blocks(G0l)
+    Gl0u, Gl0d = _blocks(Gl0)
+    return -(G0lu.mT * Gl0d + G0ld.mT * Gl0u)
+
+
+sdc_y4_matrix = sdc_x4_matrix
+
+
+def sdc_z4_matrix(G00, G0l, Gl0, Gll):
+    """Spin density susceptibility step kernel, z, (C, N, N)."""
+    GuL, GdL = _blocks(Gll)
+    Gu0, Gd0 = _blocks(G00)
+    du, dd = 1.0 - _diag(GuL), 1.0 - _diag(GdL)
+    eu, ed = 1.0 - _diag(Gu0), 1.0 - _diag(Gd0)
+    nn = (du - dd)[:, :, None] * (eu - ed)[:, None, :]
+    G0lu, G0ld = _blocks(G0l)
+    Gl0u, Gl0d = _blocks(Gl0)
+    return nn - G0lu.mT * Gl0u - G0ld.mT * Gl0d
+
+
 # ----------------------------------------------------------- measurements
 def greens_measurement(mc, model, greens_at=None, **kwargs) -> Measurement:
-    """Full equal-time Green's function, shape (F, N, N) per chain."""
-    if greens_at is not None:
-        raise _time_displaced("greens_at")
+    """Full equal-time Green's function, shape (F, N, N) per chain; with
+    ``greens_at=(k, l)`` the time-displaced G(k·dtau ← l·dtau)."""
     F, N = model.nflavors, len(model.lattice)
+    eltype = _session_eltype(mc)
+    if greens_at is None:
+        def measure(greens, **_):
+            return {"greens": greens}
 
-    def measure(greens, **_):
-        return {"greens": greens}
+        return Measurement("greens", {"greens": (F, N, N)}, measure,
+                           dtype=eltype)
 
-    return Measurement("greens", {"greens": (F, N, N)}, measure,
-                       dtype=_session_eltype(mc))
+    def measure_at(utg, **_):
+        return {"greens": utg}
+
+    return Measurement(f"greens_at_{greens_at}", {"greens": (F, N, N)},
+                       measure_at, kind="greens_at", dtype=eltype,
+                       greens_at=(int(greens_at[0]), int(greens_at[1])))
 
 
 def occupation(mc, model, **kwargs) -> Measurement:
@@ -246,6 +285,140 @@ def magnetization(mc, model, dir: str, **kwargs) -> Measurement:
                        dtype=_session_eltype(mc))
 
 
+def charge_density_susceptibility(mc, model, **kwargs) -> Measurement:
+    """τ-integrated ⟨n_i(τ) n_j(0)⟩ binned by distance, (n_dirs,) per
+    chain."""
+    return _by_distance_susceptibility(mc, model, "cds", cdc4_matrix)
+
+
+def spin_density_susceptibility(mc, model, dir: str, **kwargs) -> Measurement:
+    """τ-integrated ⟨S^a_i(τ) S^a_j(0)⟩, a = x/y/z, binned by distance,
+    (n_dirs,) per chain."""
+    fn = {"x": sdc_x4_matrix, "y": sdc_y4_matrix, "z": sdc_z4_matrix}[dir]
+    return _by_distance_susceptibility(mc, model, f"sds_{dir}", fn)
+
+
+def _by_distance_susceptibility(mc, model, name, matrix4_fn) -> Measurement:
+    lat = model.lattice
+    N = len(lat)
+    P = _OnDevice(_dir_onehot(lat))
+
+    def step(G00, G0l, Gl0, Gll, **_):
+        return {name: matrix4_fn(G00, G0l, Gl0, Gll)}
+
+    def finish(acc):
+        return {name: _bin_by_dir(acc[name], P.like(acc[name]), N)}
+
+    return Measurement(name, {name: (lat.n_dirs,)}, step, kind="combined",
+                       dtype=_session_eltype(mc),
+                       combined_acc_shapes={name: (N, N)},
+                       combined_finish_fn=finish)
+
+
+def pairing_susceptibility(mc, model, K: int = None, **kwargs) -> Measurement:
+    """τ-integrated pairing susceptibility, (n_dirs, K, K) per chain: the
+    step kernel Gl0_up[s1, s2]·Gl0_dn[t1, t2], t_i the site at direction k_i
+    from s_i."""
+    lat = model.lattice
+    N = len(lat)
+    if K is None:
+        K = 1 + lat.coordination
+    S = _OnDevice(_selection_matrices(lat, K))
+    P = _OnDevice(_dir_onehot(lat))
+
+    def step(G00, G0l, Gl0, Gll, **_):
+        Gl0u, Gl0d = _blocks(Gl0)
+        Sk = S.like(Gl0u)
+        # Gl0d[t1(s1,k1), t2(s2,k2)] = (S_{k1} Gl0d S_{k2}ᵀ)[s1, s2]
+        B = torch.einsum("kab,cbd->ckad", Sk, Gl0d)
+        Cq = torch.einsum("ckad,qbd->ckqab", B, Sk)
+        return {"ps": Gl0u[:, None, None] * Cq}          # (C, K, K, N, N)
+
+    def finish(acc):
+        binned = _bin_by_dir(acc["ps"], P.like(acc["ps"]), N)
+        return {"ps": torch.movedim(binned, -1, 1)}       # (C, n_dirs, K, K)
+
+    return Measurement("pairing_susceptibility", {"ps": (lat.n_dirs, K, K)},
+                       step, kind="combined", dtype=_session_eltype(mc),
+                       combined_acc_shapes={"ps": (K, K, N, N)},
+                       combined_finish_fn=finish)
+
+
+def current_current_susceptibility(mc, model, K: int = None,
+                                   **kwargs) -> Measurement:
+    """τ-integrated current-current correlation, (n_dirs, K) per chain,
+    binned by (dir12, dir) with synced bond directions.
+
+    With t_i the site at direction k from s_i and the bond current
+    j_b(s) = T[s,t]·G_b[t,s] - T[t,s]·G_b[s,t], the step kernel is
+      Σ_{b1,b2} j_{b1,l}(s1)·j_{b2,0}(s2)
+      + Σ_b [ T[t1,s1]T[t2,s2]·(-G0l_b[s2,t1])·Gl0_b[s1,t2]
+            - T[s1,t1]T[t2,s2]·(-G0l_b[s2,s1])·Gl0_b[t1,t2]
+            - T[t1,s1]T[s2,t2]·(-G0l_b[t2,t1])·Gl0_b[s1,s2]
+            + T[s1,t1]T[s2,t2]·(-G0l_b[t2,s1])·Gl0_b[t1,s2] ]
+    with every gather a product by the one-hot selection matrices S_k."""
+    lat = model.lattice
+    N = len(lat)
+    if K is None:
+        K = 1 + lat.coordination
+    S = _OnDevice(_selection_matrices(lat, K))
+    P = _OnDevice(_dir_onehot(lat))
+    trg, mask = lat.target_by_direction(K)
+    trg = np.where(mask, trg, 0)
+    T_host = np.asarray(model.hopping_matrix())
+    # per direction k the hopping along and against the bond, (K, N)
+    T_st = _OnDevice(np.stack([T_host[np.arange(N), trg[:, k]]
+                               for k in range(K)], 0))      # T[s, t(s,k)]
+    T_ts = _OnDevice(np.stack([T_host[trg[:, k], np.arange(N)]
+                               for k in range(K)], 0))      # T[t(s,k), s]
+
+    def _dedup(G):
+        """(distinct flavor blocks, multiplicity): F = 1 has G_up ≡ G_dn."""
+        if G.shape[1] == 1:
+            return [G[:, 0]], 2.0
+        return [G[:, 0], G[:, -1]], 1.0
+
+    def step(G00, G0l, Gl0, Gll, **_):
+        Sk, tst, tts = S.like(Gl0), T_st.like(Gl0), T_ts.like(Gl0)
+
+        def j_density(G):
+            bs, mult = _dedup(G)
+            total = 0.0
+            for Gb in bs:
+                d1 = torch.einsum("ksa,cas->cks", Sk, Gb)   # Gb[t(s,k), s]
+                d2 = torch.einsum("csa,ksa->cks", Gb, Sk)   # Gb[s, t(s,k)]
+                total = total + (tst * d1 - tts * d2)
+            return mult * total                              # (C, K, N)
+
+        jl, j0 = j_density(Gll), j_density(G00)
+        Kmat = jl[..., :, None] * j0[..., None, :]           # (C, K, N, N)
+        b0l, mult = _dedup(G0l)
+        bl0, _ = _dedup(Gl0)
+        for G0b, Gl0b in zip(b0l, bl0):
+            G0T = G0b.mT
+            A1 = torch.einsum("kab,cbd->ckad", Sk, G0T)      # G0l[s2, t1]
+            A3 = torch.einsum("ckab,kdb->ckad", A1, Sk)      # G0l[t2, t1]
+            B1 = torch.einsum("cab,kdb->ckad", G0T, Sk)      # G0l[t2, s1]
+            A4 = torch.einsum("kab,cbd->ckad", Sk, Gl0b)     # Gl0[t1, s2]
+            A5 = torch.einsum("ckab,kdb->ckad", A4, Sk)      # Gl0[t1, t2]
+            B2 = torch.einsum("cab,kdb->ckad", Gl0b, Sk)     # Gl0[s1, t2]
+            Kmat = Kmat + mult * (
+                (tts[:, :, None] * tts[:, None, :]) * (-A1) * B2
+                - (tst[:, :, None] * tts[:, None, :]) * (-G0T)[:, None] * A5
+                - (tts[:, :, None] * tst[:, None, :]) * (-A3) * Gl0b[:, None]
+                + (tst[:, :, None] * tst[:, None, :]) * (-B1) * A4)
+        return {"ccs": Kmat}
+
+    def finish(acc):
+        return {"ccs": _bin_by_dir(acc["ccs"], P.like(acc["ccs"]), N).mT}
+
+    return Measurement("current_current_susceptibility",
+                       {"ccs": (lat.n_dirs, K)}, step, kind="combined",
+                       dtype=_session_eltype(mc),
+                       combined_acc_shapes={"ccs": (K, N, N)},
+                       combined_finish_fn=finish)
+
+
 def pairing_correlation(mc, model, K: int = None, **kwargs) -> Measurement:
     """s/extended-s-wave pairing correlation, (n_dirs, K, K) per chain:
     P[dir12, k1, k2] = 1/N Σ_{(s1,s2)∈dir12} G_up[s1,s2]·G_dn[t1,t2],
@@ -272,24 +445,24 @@ def pairing_correlation(mc, model, K: int = None, **kwargs) -> Measurement:
 
 
 def charge_density(mc, model, greens_iterator=Greens, **kwargs):
-    """Charge density correlation for the equal-time Green's function; the
-    susceptibility (any other iterator) raises."""
+    """Charge density correlation for the equal-time Green's function, the
+    susceptibility for any other iterator."""
     if greens_iterator is Greens:
         return charge_density_correlation(mc, model, **kwargs)
-    raise _time_displaced("charge_density_susceptibility")
+    return charge_density_susceptibility(mc, model, **kwargs)
 
 
 def spin_density(mc, model, dir, greens_iterator=Greens, **kwargs):
-    """Spin density correlation for the equal-time Green's function; the
-    susceptibility (any other iterator) raises."""
+    """Spin density correlation for the equal-time Green's function, the
+    susceptibility for any other iterator."""
     if greens_iterator is Greens:
         return spin_density_correlation(mc, model, dir, **kwargs)
-    raise _time_displaced("spin_density_susceptibility")
+    return spin_density_susceptibility(mc, model, dir, **kwargs)
 
 
 def pairing(mc, model, greens_iterator=Greens, **kwargs):
-    """Pairing correlation for the equal-time Green's function; the
-    susceptibility (any other iterator) raises."""
+    """Pairing correlation for the equal-time Green's function, the
+    susceptibility for any other iterator."""
     if greens_iterator is Greens:
         return pairing_correlation(mc, model, **kwargs)
-    raise _time_displaced("pairing_susceptibility")
+    return pairing_susceptibility(mc, model, **kwargs)

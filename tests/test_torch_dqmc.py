@@ -217,17 +217,25 @@ def test_make_context_rejects_unported_options(kw):
     (16, 1, torch.complex64, None),
     (100, 1, torch.complex64, "item 4"), (128, 1, torch.complex64, None),
     (256, 1, torch.complex64, None), (12, 1, torch.complex64, "item 4"),
-    (64, 1, torch.complex128, "item 4"), (16, 2, torch.complex128, "item 4")])
+    (64, 1, torch.complex128, "item 4"), (16, 2, torch.complex128, "item 4"),
+    (112, 2, torch.complex64, None), (120, 2, torch.complex64, "item 4"),
+    (128, 2, torch.complex64, "item 4")])
 def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
     """A complex CUDA session runs K8 + K10 at 8 | N <= 128 in complex64
-    and K9 beyond (here rank-1 blocks); 8 ∤ N and complex128 wait for the
+    (F = 2 to N = 119: flavor 1 in shared memory past N = 64) and K9
+    beyond (here rank-1 blocks); 8 ∤ N and complex128 wait for the
     library routes of ROADMAP item 4 (complex128 runs the plain path,
-    use_kernels=False)."""
+    use_kernels=False). The complex64 refusal states K8's register layout
+    and its F = 2 limit."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}") as e:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
+    if dtype == torch.complex64:
+        assert ("K8 with G of one chain over the block's registers and "
+                "flavor 1 in shared memory at F = 2 past N = 64, so F = 2 "
+                "stops at N = 119") in str(e.value), str(e.value)
 
 
 def test_cuda_session_without_cuda_raises():
@@ -497,10 +505,12 @@ def test_measurement_shapes_match_jax(repulsive):
 
 def test_unported_entry_points_raise():
     tm = _models(2)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdm.greens_measurement(None, tm, greens_at=(1, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Measurement("x", {"x": ()}, lambda **_: {}, kind="combined")
+    # the time-displaced kinds are ported; an unknown kind is refused
+    assert tdm.greens_measurement(None, tm, greens_at=(1, 0)).kind == "greens_at"
+    assert Measurement("x", {"x": ()}, lambda **_: {},
+                       kind="combined").kind == "combined"
+    with pytest.raises(ValueError, match="unknown measurement kind"):
+        Measurement("x", {"x": ()}, lambda **_: {}, kind="unequal")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmc.DQMC(tm, beta=1.0, device="cpu", recorder=object())
     sim = tmc.DQMC(tm, beta=1.0, n_chains=2, device="cpu")

@@ -260,11 +260,26 @@ F32, F64 = torch.float32, torch.float64
     (130, 1, F32, F32, "item 4"),     # 4 does not divide N past 128: no K6
     (64, 3, F64, F64, "item 4")])     # no site sweep for F = 3
 def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
+    """Each refusal names its item and states the limits of the kernels
+    that refuse: the float32 QR's K2/K3 at 8 | N <= 64 and K4 to 128."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, udtype)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}") as e:
         tcore._check_cuda_kernels(N, F, 0, dtype, udtype)
+    text = _REFUSAL_TEXT.get((N, F, dtype))
+    if text is not None:
+        assert text in str(e.value), str(e.value)
+
+
+# the kernel limits each refusal states, by (N, F, stack dtype)
+_REFUSAL_TEXT = {
+    (100, 1, F32): "K2/K3 take 8 | N <= 64, K4 8 | N <= 128, K7 8 | N > 128",
+    (9, 2, F32): "K2/K3 take 8 | N <= 64, K4 8 | N <= 128, K7 8 | N > 128",
+    (130, 1, F32): "K1 takes N <= 128, K6 4 | N beyond",
+    (72, 1, F64): "K11 takes 8 | N <= 64",
+    (256, 1, F64): "K11 takes 8 | N <= 64",
+    (12, 1, F64): "K11 takes 8 | N <= 64"}
 
 
 # ---------------------------------------------------------------------------

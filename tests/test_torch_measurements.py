@@ -187,16 +187,27 @@ def test_pairing_masks_missing_targets():
 
 
 def test_time_displaced_dispatch_raises():
-    tm = _models(2, True)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        tdm.charge_density(None, tm, greens_iterator=tdm.CombinedGreensIterator)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        tdm.spin_density(None, tm, "z",
-                         greens_iterator=tdm.CombinedGreensIterator)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        tdm.pairing(None, tm, greens_iterator=tdm.GreensAt(1, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        tdm.greens_measurement(None, tm, greens_at=(1, 0))
+    """The dispatchers give the susceptibilities for any iterator but
+    Greens, and greens_measurement the time-displaced G with greens_at,
+    as the JAX package's (no refusal is left: the time-displaced path is
+    ported; tests/test_torch_unequal_time.py holds its values)."""
+    jm, tm = _models(2, True)
+    it_t, it_j = tdm.CombinedGreensIterator, jdm.CombinedGreensIterator
+    for tf, jf in ((lambda m: tdm.charge_density(None, m, greens_iterator=it_t),
+                    lambda m: jdm.charge_density(None, m, greens_iterator=it_j)),
+                   (lambda m: tdm.spin_density(None, m, "z",
+                                               greens_iterator=it_t),
+                    lambda m: jdm.spin_density(None, m, "z",
+                                               greens_iterator=it_j)),
+                   (lambda m: tdm.pairing(None, m, greens_iterator=it_t),
+                    lambda m: jdm.pairing(None, m, greens_iterator=it_j)),
+                   (lambda m: tdm.greens_measurement(None, m,
+                                                     greens_at=(1, 0)),
+                    lambda m: jdm.greens_measurement(None, m,
+                                                     greens_at=(1, 0)))):
+        t, j = tf(tm), jf(jm)
+        assert (t.name, t.kind, t.obs_shapes, t.greens_at) == (
+            j.name, j.kind, j.obs_shapes, j.greens_at)
     assert tdm.GreensAt(2, 1).kl == (2, 1)
 
 
@@ -212,6 +223,9 @@ def test_energy_boson_matches_jax():
 
 def test_root_exports_the_factories():
     for name in ("charge_density_correlation", "spin_density_correlation",
+                 "charge_density_susceptibility",
+                 "spin_density_susceptibility", "pairing_susceptibility",
+                 "current_current_susceptibility",
                  "magnetization", "pairing_correlation",
                  "boson_energy_measurement", "charge_density",
                  "spin_density", "pairing", "Greens", "GreensAt",

@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [headline] [l16] [complex] [f64] [mixed]
                             [repulsive] [complex16] [chain128] [colscaled]
-                            [fusewrap] [colscaled_wy] [single]
+                            [fusewrap] [colscaled_wy] [single] [refresh]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -29,6 +29,8 @@ Runs each named configuration of chip_smoke.py (default: headline):
   colscaled_wy  colscaled with qr_wy=True (K1; K14 with Q assembled
             outside in place of K4)
   single    the headline with one chain (K12, K2, K3)
+  refresh   the headline model at safe_mult 5 with g_refresh=True (bench.py's
+            refresh row: K1, K2, and K3 at every slice)
 
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
@@ -125,7 +127,8 @@ SHARES = {"K1": ("site_sweep_tiled_f32",),
                                  "cusolver")}
 F32 = {"dtype": "float32"}
 CS = {**F32, "stab_method": "qr_colscaled"}
-# name: (model, safe_mult, chains, time the plain path, DQMC's keywords:
+# name: (model, safe_mult (None: the conservative mode's,
+# validation.REFRESH_SM), chains, time the plain path, DQMC's keywords:
 # dtypes by name ({} for the default, float64), the modes)
 CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                         True, F32),
@@ -149,7 +152,9 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                         True, {**F32, "fuse_wrap": True}),
            "colscaled_wy": (smoke.headline_model, smoke.SAFE_MULT,
                             smoke.CHAINS, True, {**CS, "qr_wy": True}),
-           "single": (smoke.headline_model, smoke.SAFE_MULT, 1, True, F32)}
+           "single": (smoke.headline_model, smoke.SAFE_MULT, 1, True, F32),
+           "refresh": (smoke.headline_model, None, smoke.CHAINS, True,
+                       {**F32, "g_refresh": True})}
 
 
 def smi():
@@ -168,6 +173,8 @@ def profile_config(name):
     from montecarlo_tpu_torch.ops.linalg import calculate_greens
 
     model, safe_mult, chains, plain, session = CONFIGS[name]
+    if safe_mult is None:
+        from montecarlo_tpu_torch.validation import REFRESH_SM as safe_mult
     session = {k: getattr(torch, v) if k.endswith("dtype") else v
                for k, v in session.items()}
     sim = DQMC(model(), beta=smoke.BETA, delta_tau=smoke.DTAU,

@@ -60,6 +60,31 @@ failure and prints no result line then):
   4l. single  the headline with one chain (1 + 1 sweeps): K12 on every
               slice visit, K2, K3; its occupation is printed, not held (one
               chain's few sweeps need not average to 0.5)
+  4m. refresh bench.py's refresh row: the headline model, float32, 256
+              chains, safe_mult 5, g_refresh (G recomputed at every slice),
+              1 + 2 sweeps: K1 per slice visit, K2 per stack extension, K3
+              2M + 1 per pair (core.pair_udt_launches); prop_err_n 2M per
+              chain and pair; wall and device ms per pair beside the
+              headline's
+  4n. refresh_complex the complex run's settings with g_refresh: K8, K10;
+              <s> within PHASE_TOL of 1
+  4o. checkerboard the headline with checkerboard=True (K1, K2, K3), 1 + 2
+              sweeps; the session's hopping operators against a fresh
+              assemble_dense_operator on the CPU (TOL_CB_OPS) and max|B_cb -
+              B_dense| of one slice below TOL_CB_TROTTER
+  4p. libqr   L = 10 (N = 100: 8 does not divide N, the library QR) in
+              float32 (K1), float64 (K1-f64; drift max below 1e-6) and
+              complex64 (pure gauge, safe_mult 5: K8; <s> within
+              PHASE_TOL_LIBQR of 1), 64 chains, 1 + 1
+              sweeps: each run's QR route (linalg.qr_route), its library-QR
+              calls (counted as the kernels' launches) and the wall and
+              device ms of one call at its shape. K1, K1-f64 and K8 at N =
+              100 are rows of their own in the kernels line, each held
+              against its plain version at (64, 1, 100, 100) in phase 1
+  Every run of phase 4 holds its launches to the schedule: one site sweep
+  per slice visit, one QR of the session's route (qr_route) per stack
+  extension and Green's recomputation, the library QR's calls as
+  "library_qr".
   5. paths    the kernel path against the plain path (use_kernels=False)
               from the same state and uniforms: the headline's first slice
               visit at its safe_mult=10 and one whole sweep_pair at
@@ -73,9 +98,18 @@ failure and prints no result line then):
               pair at safe_mult=1; f64: the whole pair at safe_mult=10;
               complex16: the first visit at safe_mult=5; chain128: the
               first visit at safe_mult=5 and the whole pair at
-              safe_mult=1
-  5b. phase   a second witness for the phase statistics of the complex and
-              the complex16 runs (complex16: its first 16 chains): one sweep
+              safe_mult=1; refresh: the first visit at safe_mult=5 and the
+              whole pair at safe_mult=1, and refresh against the wrap mode
+              in float64 at safe_mult 5 on the f64 run's first 64 chains
+              from one state and one set of uniforms (accept sequences
+              equal; G_meas within TOL_REFRESH_WRAP, which both modes
+              recompute from the same stacks at the pair's end, so the
+              accept sequences carry the check); libqr: the first visit of
+              each run (the same library QR on both paths, so the
+              decisions must agree in every chain) and f64's whole pair
+  5b. phase   a second witness for the phase statistics of the complex,
+              complex16 and libqr complex64 runs (complex16: its first 16
+              chains): one sweep
               pair from each run's final configuration with the same
               uniforms on the kernel path, the kernel path over complex128
               stacks, the plain path and the plain path in complex128, each
@@ -211,6 +245,33 @@ MIN_CONF_AGREE_CX_FIRST = 0.95
 # susceptibilities and two greens_at (1 + 2 sweeps); the gate's pooled run
 # (seeds (123, 321), 8 chains each, 2 + 2 sweeps)
 TD_CHAINS = 64
+# phase 4p (libqr): L = 10 (N = 100, 8 does not divide N: the library QR
+# beside K1, K1-f64 and K8), 64 chains, 1 + 1 sweeps
+LIBQR_L, LIBQR_CHAINS = 10, 64
+# ... its complex64 run's |<s> - 1|: with the library QR and complex64
+# stacks at N = 100 a pair's per-chain phase error read 4.95e-3 in the
+# mean (max 2.76e-2), K8 and its plain version alike (bit-equal), and
+# 3.72e-4 over complex128 stacks, so the stabilization's rounding sets it
+# (phase 5b on this run; K10 at N = 64: 1.35e-3); the run's 64 chains
+# read 1.49e-3 after 1 + 1 sweeps (an H100 80GB HBM3 at 700 W). 1e-2
+# catches a kernel that biases the phases beyond twice the per-chain mean
+# error; 5b holds the kernel path's imaginary share to the plain path's
+PHASE_TOL_LIBQR = 1e-2
+# phase 4o (checkerboard): the session's four hopping operators (and the
+# update dtype's copies) against assemble_dense_operator's on the CPU, cast
+# alike (the CPU tests hold that to the JAX package's within 1e-14)
+TOL_CB_OPS = 1e-6
+# ... and max|B_cb - B_dense| of one slice: the Trotter error read 3.26e-4
+# on an H100 80GB HBM3 at 700 W; a dropped hopping group or swapped half
+# and full coefficients moves B by about dtau |t| = 0.1
+TOL_CB_TROTTER = 1e-2
+# phase 5, refresh against wrap in float64 from one state and one set of
+# uniforms (tests/test_g_refresh.py's test_refresh_matches_wrap_f64): the
+# accept sequences equal, G_meas within this. Both modes recompute G_meas
+# from the same stacks at the pair's end, so once the accept sequences are
+# equal it reads 0 by construction: the accept sequences test refresh's
+# per-slice G
+TOL_REFRESH_WRAP = 1e-9
 TD_KL_PAIRS = ((1, 0), (7, 3), (5, 5), (2, 7), (1, 3), (10, 0))
 TD_GREENS_AT = ((50, 0), (20, 70))
 TD_THERM, TD_SWEEPS = 1, 2
@@ -264,6 +325,14 @@ KERNEL_INFO = {
     # K10 at N = 128 (chain128), a row of its own
     "qr_cx_128": ("montecarlo_tpu_torch/csrc/qr_cx.cu",
                   "montecarlo_tpu/ops/pallas_qr.py:706"),
+    # K1, K1-f64 and K8 at N = 100 (libqr: padded rows, beside the library
+    # QR), rows of their own
+    "site_sweep_100": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
+                       "montecarlo_tpu/ops/pallas_site_sweep.py:191"),
+    "site_sweep_f64_100": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
+                           "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_cx_100": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
+                          "montecarlo_tpu/ops/pallas_site_sweep.py:1274"),
     "qr_f32": ("montecarlo_tpu_torch/csrc/udt_qr.cu",
                "montecarlo_tpu/ops/pallas_qr.py:52"),
     "qr_f64": ("montecarlo_tpu_torch/csrc/qr_f64.cu",
@@ -388,9 +457,11 @@ def sweep_bound(C, F, N, n_acc, complex_=False, fp64=False, wrap=False):
 
 
 def ab_modes(ctx):
-    """The A/B modes a session runs, each with a leading space: " fuse_wrap",
-    " qr_wy", both or none."""
-    return "".join(f" {m}" for m in ("fuse_wrap", "qr_wy") if getattr(ctx, m))
+    """The A/B modes and session switches a session runs, each with a
+    leading space (" fuse_wrap", " qr_wy", " g_refresh", " checkerboard"),
+    or none."""
+    return "".join(f" {m}" for m in ("fuse_wrap", "qr_wy", "g_refresh",
+                                     "checkerboard") if getattr(ctx, m))
 
 
 def phase_device():
@@ -492,6 +563,19 @@ def f64_sweep_inputs(repulsive=False, chains=F64_CHAINS):
     import torch
     return slice_inputs(headline_model(repulsive), chains, 9,
                         dtype=torch.float64)
+
+
+def libqr_sweep_inputs(kind):
+    """Inputs of the libqr runs' site sweeps at (LIBQR_CHAINS, 1, N, N),
+    N = LIBQR_L**2 = 100 (``slice_inputs``): kind "f32" (K1) and "f64"
+    (K1-f64) at the headline's model, "c64" (K8) at the complex one."""
+    import torch
+    if kind == "c64":
+        return slice_inputs(complex_model(L=LIBQR_L), LIBQR_CHAINS, 24,
+                            safe_mult=CPLX_SM)
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    return slice_inputs(headline_model(L=LIBQR_L), LIBQR_CHAINS, 24,
+                        dtype=dtype)
 
 
 def wrap_inputs(repulsive=False, chains=CHAINS):
@@ -1026,6 +1110,31 @@ def phase_parity():
         raise AssertionError("site_sweep_f64's negative-weight magnitudes "
                              "disagree with the plain version's")
 
+    # ---- K1, K1-f64 and K8 at the libqr runs' shape (64, 1, 100, 100),
+    # padded rows: K1 and K8 bit for bit, K1-f64 within TOL_G64 (as at
+    # N = 64); rows of their own in the kernels line
+    for kname, fn, plain, kind, tol in (
+            ("site_sweep_100", ss.site_sweep, ss.site_sweep_plain, "f32",
+             0.0),
+            ("site_sweep_f64_100", ss.site_sweep_f64, ss.site_sweep_plain,
+             "f64", TOL_G64),
+            ("site_sweep_cx_100", sscx.site_sweep_cx,
+             sscx.site_sweep_cx_plain, "c64", 0.0)):
+        G, sigma, u, kw, ctx = libqr_sweep_inputs(kind)
+        out_k = fn(G, sigma, u, **kw)
+        err = check_sweep(kname, out_k, plain(G, sigma, u, **kw),
+                          tuple(G.shape), relative=False, tol=tol)
+        results[kname] = dict(
+            max_abs_err=err,
+            ms=1e3 * timed(lambda: fn(G, sigma, u, **kw), 50),
+            plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 5),
+            library_ms=None,
+            **sweep_bound(LIBQR_CHAINS, ctx.F, ctx.N, out_k[2].sum().item(),
+                          complex_=kind == "c64", fp64=kind == "f64"))
+        dev = device_ms(lambda: fn(G, sigma, u, **kw))
+        if dev is not None:
+            results[kname]["device_ms"] = dev
+
     parity_delayed(results)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
 
@@ -1180,7 +1289,7 @@ def sweep_kernel(ctx, chains):
 
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                 complex_=False, session=None, repulsive=False, dims=2,
-                phase_tol=PHASE_TOL, hold_occ=True):
+                phase_tol=PHASE_TOL, hold_occ=True, safe_mult=None):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
     with pure-gauge Peierls phases at safe_mult=5: K8, K10; at 16x16: K9
@@ -1192,19 +1301,28 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     (K1, K14) ones, the one-chain one (K12, K2, K3; hold_occ False: its
     occupation is printed, not held), or the repulsive one (K5, K2, K3),
     which also measures the z spin correlations and magnetization and is
-    held to its anchors (``repulsive_anchors``)."""
+    held to its anchors (``repulsive_anchors``); session may also hold
+    g_refresh and checkerboard (refresh, refresh_complex, checkerboard) and
+    L = 10 takes the library QR (libqr). safe_mult None: the complex row's
+    CPLX_SM for complex hopping, else the headline's. The library QR's calls
+    (``linalg._library_qr.launches``) are counted as "library_qr" beside the
+    kernels' launches."""
     import torch
     from montecarlo_tpu_torch import (DQMC, magnetization,
                                       spin_density_correlation)
+    from montecarlo_tpu_torch.dqmc import core
     from montecarlo_tpu_torch.ops import KERNELS
-    for fn in KERNELS.values():
+    from montecarlo_tpu_torch.ops.linalg import _library_qr, qr_route
+    for fn in (*KERNELS.values(), _library_qr):
         fn.launches = 0
     session = dict(dtype=torch.float32) if session is None else session
     model = (complex_model(L=L, dims=dims) if complex_
              else headline_model(repulsive=repulsive, L=L))
-    sim = DQMC(model, beta=BETA, delta_tau=DTAU,
-               safe_mult=CPLX_SM if complex_ else SAFE_MULT, n_chains=chains,
-               measure_rate=1, seed=0, device=DEVICE, **session)
+    if safe_mult is None:
+        safe_mult = CPLX_SM if complex_ else SAFE_MULT
+    sim = DQMC(model, beta=BETA, delta_tau=DTAU, safe_mult=safe_mult,
+               n_chains=chains, measure_rate=1, seed=0, device=DEVICE,
+               **session)
     if repulsive:
         sim["sdc_z"] = spin_density_correlation(sim, model, "z")
         sim["m_z"] = magnetization(sim, model, "z")
@@ -1214,32 +1332,32 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     torch.cuda.synchronize()
     dur = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches["library_qr"] = _library_qr.launches
 
     ctx = sim.ctx
     n_pairs = therm + sweeps
-    expected = dict.fromkeys(KERNELS, 0)
+    expected = dict.fromkeys(launches, 0)
     # one site sweep per slice visit (under fuse_wrap K13 for every visit
-    # but the measurement point's); every extend and Green's recomputation
-    # runs one unfused QR (or, fused, one K2 per extend and one K3 per
-    # recomputation)
+    # but the measurement point's); every stack extension and Green's
+    # recomputation (pair_udt_launches; init_state: n_seg extensions and
+    # one G) runs one QR of the session's route: fused, one K2 per
+    # extension and one K3 per recomputation
     if ctx.fuse_wrap:
         expected["site_sweep_wrap"] = (2 * ctx.M - 1) * n_pairs
         expected[sweep_kernel(ctx, chains)] = n_pairs
     else:
         expected[sweep_kernel(ctx, chains)] = 2 * ctx.M * n_pairs
-    n_qr = 4 * ctx.n_seg * n_pairs + ctx.n_seg + 1
-    if ctx.is_complex:       # past N = 128 the library QR, as the JAX package
-        expected.update(qr_cx=n_qr if ctx.N <= 128 else 0)
-    elif ctx.dtype == torch.float64:
-        expected.update(qr_f64=n_qr)
-    elif ctx.stab_method == "qr_colscaled":
-        expected["qr_vtau" if ctx.qr_wy else "qr_f32"] = n_qr
-    elif ctx.N <= 128:
-        expected.update(udt_qr=2 * ctx.n_seg * n_pairs + ctx.n_seg,
-                        udt_qr_solve=2 * ctx.n_seg * n_pairs + 1)
+    n_udt, n_greens = core.pair_udt_launches(ctx)
+    n_udt, n_greens = n_udt * n_pairs + ctx.n_seg, n_greens * n_pairs + 1
+    route = qr_route(ctx.N, ctx.dtype)
+    if route == "K2/K3" and ctx.stab_method == "qr":
+        expected.update(udt_qr=n_udt, udt_qr_solve=n_greens)
     else:
-        expected.update(qr_blocked=n_qr)
-    log(f"[{tag}] launches {launches}, expected {expected}")
+        expected[{"K7": "qr_blocked", "K11": "qr_f64", "K10": "qr_cx",
+                  "library": "library_qr"}.get(
+            route, "qr_vtau" if ctx.qr_wy else "qr_f32")] = n_udt + n_greens
+    log(f"[{tag}] QR route {route}; launches {launches}, expected "
+        f"{expected}")
     if launches != expected:
         raise AssertionError("kernel launch counts differ from the path's")
     if not bool(torch.isfinite(sim.state["G"]).all()):
@@ -1378,6 +1496,184 @@ def compare_paths(ctx_k, consts, state, seed, whole_pair=True):
     return share_first, same.float().mean().item()
 
 
+def pair_times(sim):
+    """Wall and device ms of one sweep pair of a run's session from its
+    final state (its generator's uniforms), and the busy share."""
+    from montecarlo_tpu_torch.dqmc import core
+    pair = lambda: core.sweep_pair(sim.ctx, sim.consts, sim.state,
+                                   generator=sim.generator)
+    wall, dev = 1e3 * timed(pair, 2), device_ms(pair, reps=2)
+    busy = "not measured" if dev is None else f"{dev / wall:.3f}"
+    return f"wall {wall:.2f} ms, device {ms_text(dev)}, busy {busy}"
+
+
+def phase_refresh(sim):
+    """4m refresh: bench.py's refresh row (the headline model, float32, 256
+    chains, the conservative mode's safe_mult validation.REFRESH_SM = 5,
+    g_refresh, 1 + 2 sweeps): K1 per slice visit, K2 per stack extension,
+    K3 per slice (2M + 1 per pair); prop_err_n = 2M per chain and pair; the
+    wall and device ms per pair beside the headline's (sim, phase 4)."""
+    import torch
+    from montecarlo_tpu_torch.validation import REFRESH_SM
+    simr, launches, _ = phase_slice(
+        therm=X_THERM, sweeps=X_SWEEPS, tag="refresh", safe_mult=REFRESH_SM,
+        session=dict(dtype=torch.float32, g_refresh=True))
+    a, M = simr.analysis, simr.ctx.M
+    n_checks = 2 * M * CHAINS * (X_THERM + X_SWEEPS)
+    log(f"[refresh] drift max {a.propagation_error.max:.3e}, mean "
+        f"{a.prop_err_mean:.3e}, prop_err_n {a.prop_err_n} (2M per chain "
+        f"and pair: {n_checks}); per sweep pair of {CHAINS} chains: refresh "
+        f"(safe_mult {REFRESH_SM}) {pair_times(simr)}; headline (safe_mult "
+        f"{SAFE_MULT}, wrap) {pair_times(sim)}")
+    if a.prop_err_n != n_checks:
+        raise AssertionError(f"refresh drift checks {a.prop_err_n}, "
+                             f"expected {n_checks}")
+    return simr, launches
+
+
+def phase_checkerboard(sim):
+    """4o checkerboard: the headline with checkerboard=True (K1, K2, K3),
+    1 + 2 sweeps; the session's hopping operators on the card against
+    assemble_dense_operator's on the CPU (TOL_CB_OPS), and max|B_cb -
+    B_dense| of one slice on the card (TOL_CB_TROTTER, well inside the
+    2 dtau Trotter envelope of tests/test_checkerboard.py)."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc.checkerboard import assemble_dense_operator
+    simc, launches, _ = phase_slice(
+        therm=X_THERM, sweeps=X_SWEEPS, tag="checkerboard",
+        session=dict(dtype=torch.float32, checkerboard=True))
+    ctx, consts, model = simc.ctx, simc.consts, simc.model
+    T = model.hopping_matrix()
+    ops = {}
+    for dt, names in ((DTAU, ("eT2", "eT2inv")),
+                      (0.5 * DTAU, ("eThalf", "eThalfinv"))):
+        ops.update(zip(names, assemble_dense_operator(model.lattice, T, dt)))
+    ops.update(eT2_u=ops["eT2"], eT2inv_u=ops["eT2inv"])
+    dops = max((consts[k].cpu().double() - v).abs().max().item()
+               for k, v in ops.items())
+    sigma = simc.state["conf"][:, :, 0]
+    N = ctx.N
+    eye = torch.eye(N, device=DEVICE).expand(CHAINS, 1, N, N)
+    dB = (core.mult_B_left(ctx, consts, sigma, eye)
+          - core.mult_B_left(sim.ctx, sim.consts, sigma, eye)).abs().max()
+    log(f"[checkerboard] {sorted(ops)} on the card against "
+        f"assemble_dense_operator on the CPU: max|d| {dops:.3e} (limit "
+        f"{TOL_CB_OPS}); max|B_cb - B_dense| of slice 0 over {CHAINS} chains: "
+        f"{dB.item():.4e} (limit {TOL_CB_TROTTER})")
+    if not dops <= TOL_CB_OPS:
+        raise AssertionError(f"checkerboard session operators {dops} off "
+                             "the assembled ones")
+    if not dB.item() < TOL_CB_TROTTER:
+        raise AssertionError(f"checkerboard slice matrix {dB.item()} off "
+                             f"the dense one by {TOL_CB_TROTTER} or more")
+    return launches
+
+
+def phase_libqr():
+    """4p libqr: L = 10 (N = 100) in float32 (K1), float64 (K1-f64) and
+    complex64 (pure gauge, safe_mult 5: K8; <s> within PHASE_TOL_LIBQR of
+    1), 64 chains, 1 + 1 sweeps, each QR on the library route (qr_route),
+    as the JAX package runs XLA's QR where 8 does not divide N. Prints each
+    run's route, its library-QR calls per pair and the wall and device ms
+    of one call at its shape. Returns {tag: (sim, launches)}."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.ops.linalg import (_library_qr, _prescale_pivot,
+                                                 qr_route)
+    out = {}
+    for tag, session, complex_ in (
+            ("libqr_f32", dict(dtype=torch.float32), False),
+            ("libqr_f64", {}, False),
+            ("libqr_c64", dict(dtype=torch.float32), True)):
+        simq, launches, _ = phase_slice(
+            LIBQR_L, LIBQR_CHAINS, 1, 1, tag=tag, complex_=complex_,
+            session=session, phase_tol=PHASE_TOL_LIBQR)
+        ctx = simq.ctx
+        gen = torch.Generator(device=DEVICE).manual_seed(23)
+        A = _prescale_pivot(graded(gen, LIBQR_CHAINS * ctx.F, ctx.N,
+                                   dtype=ctx.dtype))[0]
+        call = lambda: _library_qr(A)
+        per_pair = sum(core.pair_udt_launches(ctx))
+        log(f"[{tag}] route {qr_route(ctx.N, ctx.dtype)}: library QR "
+            f"{launches['library_qr']} calls in the run, {per_pair} per "
+            f"pair; one call at ({LIBQR_CHAINS}, {ctx.N}, {ctx.N}) "
+            f"{str(ctx.dtype)[6:]}: wall {1e3 * timed(call, 5):.4f} ms, "
+            f"device {ms_text(device_ms(call, reps=5))}")
+        out[tag] = simq, launches
+    return out
+
+
+def phase_paths_libqr(runs):
+    """Phase 5 for the libqr runs (phase_libqr's {tag: (sim, launches)}):
+    the kernel path against the plain path from each run's final state.
+    Both paths take the same library QR at N = 100, so the first slice
+    visit starts from the same G and only the site sweep differs (K1 and
+    K8 bit-equal to their plain versions, K1-f64 to rounding): its
+    decisions must agree in every chain. float64 also holds the whole pair
+    to MIN_CONF_AGREE_F64, as the f64 run at N = 64."""
+    for tag, seed in (("libqr_f32", 25), ("libqr_f64", 26),
+                      ("libqr_c64", 27)):
+        s = runs[tag][0]
+        first, whole = compare_paths(s.ctx, s.consts, s.state, seed,
+                                     whole_pair=tag == "libqr_f64")
+        if not first == 1.0:
+            raise AssertionError(f"{tag}: kernel and plain paths agree on the "
+                                 f"first slice visit in only {first:.4f} of "
+                                 "the chains")
+        if whole is not None and not whole >= MIN_CONF_AGREE_F64:
+            raise AssertionError(f"{tag}: kernel and plain paths agree in "
+                                 f"only {whole:.3f} of the chains")
+
+
+def phase_paths_refresh(simr, sim64):
+    """Phase 5 for the conservative mode: the refresh kernel path against
+    its plain path (the first slice visit at the run's safe_mult 5, and the
+    whole pair at safe_mult 1 on the first SM1_PATH_CHAINS chains), and the
+    refresh mode against the wrap mode in float64 at safe_mult 5 from one
+    state and one set of uniforms (the f64 run's first chains): the accept
+    sequences equal and G_meas within TOL_REFRESH_WRAP."""
+    import torch
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
+    from montecarlo_tpu_torch.validation import REFRESH_SM
+    first, _ = compare_paths(simr.ctx, simr.consts, simr.state, 21,
+                             whole_pair=False)
+    if not first >= MIN_CONF_AGREE:
+        raise AssertionError(f"refresh kernel and plain paths agree on the "
+                             f"first slice visit in only {first:.3f} of the "
+                             "chains")
+    for sm, dtype in ((1, torch.float32), (REFRESH_SM, torch.float64)):
+        params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=sm)
+        ctx, consts = core.make_context(headline_model(), params, dtype=dtype,
+                                        device=DEVICE, g_refresh=True)
+        src = simr if dtype == torch.float32 else sim64
+        state = core.init_state(ctx, consts,
+                                src.state["conf"][:SM1_PATH_CHAINS])
+        if dtype == torch.float32:
+            _, whole = compare_paths(ctx, consts, state, 22)
+            if not whole >= MIN_CONF_AGREE:
+                raise AssertionError(f"refresh kernel and plain paths agree "
+                                     f"in only {whole:.3f} of the chains at "
+                                     "safe_mult=1")
+            continue
+        gen = torch.Generator(device=DEVICE).manual_seed(23)
+        u = torch.rand(SM1_PATH_CHAINS, 2 * ctx.M, ctx.N, generator=gen,
+                       device=DEVICE, dtype=torch.float64)
+        wrap = dataclasses.replace(ctx, g_refresh=False)
+        sr, Gr, cr = core.sweep_pair(ctx, consts, state, u=u)
+        sw, Gw, cw = core.sweep_pair(wrap, consts, state, u=u)
+        same = (cr == cw).flatten(1).all(1).float().mean().item()
+        dG = (Gr - Gw).abs().max().item()
+        log(f"[paths] refresh against wrap, float64, safe_mult {sm}, "
+            f"{SM1_PATH_CHAINS} chains, one pair: accept sequences equal in "
+            f"{same:.4f} of the chains, max|G_meas diff| {dG:.3e}; drift max "
+            f"refresh {sr['prop_err_max'].max().item():.3e}, wrap "
+            f"{sw['prop_err_max'].max().item():.3e}")
+        if not (same == 1.0 and dG <= TOL_REFRESH_WRAP):
+            raise AssertionError("refresh and wrap modes part in float64")
+
+
 def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
                 simfw, simwy):
     """The kernel path against the plain path.
@@ -1477,7 +1773,8 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
 def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
     """One complex sweep pair at safe_mult=5 from a complex run's final
     configuration (its first chains, where given; the complex run: K8, K10;
-    complex16: K9, the library QR), with the same uniforms, on the kernel
+    complex16: K9, the library QR; libqr's complex64 run at N = 100: K8,
+    the library QR), with the same uniforms, on the kernel
     path, the kernel path with complex128 stacks (the site sweep kernel and
     the wraps in complex64, the QR and the Green's recomputation in
     complex128), the plain path (use_kernels=False) and the plain path in
@@ -1887,23 +2184,42 @@ def main():
     _, launches1, _ = phase_slice(chains=1, therm=1, sweeps=1, tag="single",
                                   hold_occ=False)
     mark("runs")
+    simref, launchesref = phase_refresh(sim)
+    mark("refresh")
+    _, launchesrefcx, _ = phase_slice(
+        therm=CPLX_THERM, sweeps=CPLX_SWEEPS, tag="refresh_complex",
+        complex_=True, session=dict(dtype=torch.float32, g_refresh=True))
+    mark("refresh_complex")
+    launchescb = phase_checkerboard(sim)
+    mark("checkerboard")
+    libqr = phase_libqr()
+    mark("libqr")
     runs = (launches, launches16, launchescx, launches64, launchesmx,
             launchescs, launchesrep, launchescx16, launchesch, launchesfw,
-            launcheswy, launches1)
+            launcheswy, launches1, launchesref, launchesrefcx, launchescb,
+            *(lq for _, lq in libqr.values()))
     launches = {k: sum(r[k] for r in runs) for k in launches}
     # qr_cx's and site_sweep_cx's launches by shape: the chain128 run's at
-    # N = 128
+    # N = 128; the site sweeps' at N = 100: the libqr runs'
     for k in ("qr_cx", "site_sweep_cx"):
         launches[f"{k}_128"] = launchesch[k]
         launches[k] -= launchesch[k]
+    for k in ("site_sweep", "site_sweep_f64", "site_sweep_cx"):
+        launches[f"{k}_100"] = sum(lq[k] for _, lq in libqr.values())
+        launches[k] -= launches[f"{k}_100"]
     phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
                 simfw, simwy)
+    phase_paths_refresh(simref, sim64)
+    phase_paths_libqr(libqr)
     mark("paths")
     phase_witness(simcx, complex_model())
     mark("witness complex")
     phase_witness(simcx16, complex_model(L=L16), PHASE_TOL_CX16,
                   CX16_WITNESS_CHAINS)
     mark("witness complex16")
+    phase_witness(libqr["libqr_c64"][0], complex_model(L=LIBQR_L),
+                  PHASE_TOL_LIBQR)
+    mark("witness libqr complex64")
     launchestd = phase_timedisp(sim)
     for k in launches:
         launches[k] += launchestd.get(k, 0)

@@ -25,12 +25,14 @@ Two A/B modes of the JAX package come as make_context keywords:
 fuse_wrap (MC_TPU_FUSE_WRAP=1: the slice's wrap fused into the site sweep,
 kernel K13) and qr_wy (MC_TPU_QR_WY=1: the float32 QR emitting its
 reflectors, kernel K14, with Q assembled outside); each raises where its
-kernel takes no part of the session. The slice multiplies from either
-side (B, B^{-1}, B^†, B^{-†}), ``udt_of_product`` and
-``greens_from_scratch`` serve the time-displaced path
-(``unequal_time.py``).
-g_refresh and checkerboard raise NotImplementedError naming their ROADMAP
-item; the retired stab_method "cholqr" raises as well.
+kernel takes no part of the session. The session switches of the JAX
+package: g_refresh (the conservative mode: G recomputed from deferred
+factor carries at every slice, ``sweep_pair`` → ``_pair_refresh``) and
+checkerboard (the assembled checkerboard operator in place of exp(-dtau T),
+``checkerboard.py``). The slice multiplies from either side (B, B^{-1},
+B^†, B^{-†}), ``udt_of_product`` and ``greens_from_scratch`` serve the
+time-displaced path (``unequal_time.py``). The retired stab_method
+"cholqr" raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,14 +44,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops import qr_blocked as _qr_blocked
-from ..ops import qr_cx as _qr_cx
-from ..ops import qr_householder as _qrh
 from ..ops import site_sweep_cx as _sscx
 from ..ops import site_sweep_delayed as _ssd
 from ..ops import site_sweep_delayed_cx as _ssdcx
-from ..ops.linalg import (CX_QR_MAX_N, FUSED_MAX_N, calculate_greens,
-                          permute_rows, scatter_columns, udt_dirty,
+from ..ops.linalg import (calculate_greens, calculate_greens_inv,
+                          permute_rows, qr_route, scatter_columns, udt_dirty,
                           udt_dirty_colscaled)
 from ..ops.site_sweep import (MAX_N, empty_neg, neg_push, pair_supports,
                               site_sweep, site_sweep_f64, site_sweep_pair,
@@ -94,6 +93,10 @@ class DQMCContext:
     # the float32 QR of K4's route as K14 + the WY assembly of Q, on the
     # kernel path
     qr_wy: bool = False
+    # the conservative mode: G recomputed at every slice (``_pair_refresh``)
+    g_refresh: bool = False
+    # the hopping exponentials are the assembled checkerboard operators
+    checkerboard: bool = False
 
     @property
     def greens_udt_fn(self):
@@ -149,7 +152,14 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
     MC_TPU_QR_WY A/B modes (``_ab_modes`` says where they apply; elsewhere
     they raise ValueError). Both act on the kernel path only: with
     use_kernels=False the session runs the plain unfused path, as the JAX
-    package's with use_pallas=False.
+    package's with use_pallas=False. g_refresh runs ``_pair_refresh`` in
+    every sweep pair (never fused: with fuse_wrap it raises ValueError,
+    where the JAX package falls back to the unfused loop silently).
+    checkerboard=True swaps the four hopping exponentials (and the update
+    dtype's copies) for the assembled checkerboard operators
+    (``checkerboard.assemble_dense_operator``: float64, complex128 for
+    complex hopping, cast to the session dtypes); the hot path is
+    unchanged.
 
     Complex hopping (Peierls phases) promotes the session to complex:
     float32 to complex64 and float64 to complex128 (dtype and update_dtype);
@@ -160,7 +170,7 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
       hopping: T; eT2_u, eT2inv_u: exp(∓ dtau T) in the update dtype.
     The exponentials are computed in numpy through eigh exactly as the JAX
     package computes them, so the constants are bit-identical to the JAX
-    package's.
+    package's (the checkerboard operators agree with its to rounding).
 
     Also turns TF32 off for float32 matmuls process-wide
     (torch.backends.cuda.matmul.allow_tf32 = False, float32 matmul precision
@@ -177,10 +187,6 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         dtype = _COMPLEX.get(dtype, dtype)
         if update_dtype is not None:
             update_dtype = _COMPLEX.get(update_dtype, update_dtype)
-    if g_refresh:
-        raise _not_ported("g_refresh", "Queue 1 item 5")
-    if checkerboard:
-        raise _not_ported("checkerboard", "Queue 1 item 6")
     if stab_method == "cholqr":
         raise NotImplementedError(
             "stab_method='cholqr' was retired in the JAX package for drift "
@@ -190,20 +196,28 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
                          "'qr_colscaled')")
     delay = _delay(N, delay)
     udtype = dtype if update_dtype is None else update_dtype
-    _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy)
+    _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy,
+              g_refresh)
     if device.type == "cuda" and use_kernels:
         _check_cuda_kernels(N, model.nflavors, delay, dtype, udtype)
 
     dtau = params.delta_tau
-    w, V = np.linalg.eigh(T)
-    expm = lambda c: (V * np.exp(c * w)[None, :]) @ V.conj().T
+    if checkerboard:
+        from .checkerboard import assemble_dense_operator
+        eT2, eT2inv = assemble_dense_operator(model.lattice, T, dtau)
+        eThalf, eThalfinv = assemble_dense_operator(model.lattice, T,
+                                                    0.5 * dtau)
+    else:
+        w, V = np.linalg.eigh(T)
+        expm = lambda c: (V * np.exp(c * w)[None, :]) @ V.conj().T
+        eT2, eT2inv = expm(-dtau), expm(dtau)
+        eThalf, eThalfinv = expm(-0.5 * dtau), expm(0.5 * dtau)
     mk = lambda a, dt: torch.as_tensor(a).to(device=device, dtype=dt)
-    eT2, eT2inv = expm(-dtau), expm(dtau)
     consts = {
         "eT2": mk(eT2, dtype),
         "eT2inv": mk(eT2inv, dtype),
-        "eThalf": mk(expm(-0.5 * dtau), dtype),
-        "eThalfinv": mk(expm(0.5 * dtau), dtype),
+        "eThalf": mk(eThalf, dtype),
+        "eThalfinv": mk(eThalfinv, dtype),
         "hopping": mk(T, dtype),
         "eT2_u": mk(eT2, udtype),
         "eT2inv_u": mk(eT2inv, udtype),
@@ -222,6 +236,7 @@ def make_context(model, params, dtype=torch.float64, update_dtype=None,
         prop_err_threshold=1.0 if mixed else 1e-7,
         use_kernels=bool(use_kernels), delay=delay, stab_method=stab_method,
         fuse_wrap=bool(fuse_wrap), qr_wy=bool(qr_wy),
+        g_refresh=bool(g_refresh), checkerboard=bool(checkerboard),
     )
     return ctx, consts
 
@@ -238,13 +253,15 @@ def _delay(N, delay):
     return 0 if k <= 1 else k
 
 
-def _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy):
+def _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy,
+              g_refresh=False):
     """Raise ValueError where an A/B mode would not engage. fuse_wrap: the
     JAX package's rule (core.py::_fuse_wrap_enabled): real hopping, float32
     updates, N <= 128 and delay <= 1 (where K13 takes G of one chain in
-    shared memory). qr_wy: a float32 QR on K4's route, i.e. real float32
-    stacks at N <= 128 that the fused K2/K3 do not take (stab_method
-    "qr_colscaled", or N > 64)."""
+    shared memory), and not under g_refresh, whose slice loop never wraps
+    on the propagation path. qr_wy: a float32 QR on K4's route
+    (``qr_route``), i.e. real float32 stacks at 8 | N <= 128 that the fused
+    K2/K3 do not take (stab_method "qr_colscaled", or N > 64)."""
     if fuse_wrap and (dtype.is_complex or udtype != torch.float32
                       or N > MAX_N or delay > 1):
         raise ValueError(
@@ -252,67 +269,59 @@ def _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy):
             f"{MAX_N} and delay <= 1 (K13's rule, the JAX package's "
             f"MC_TPU_FUSE_WRAP); this session has {str(udtype)[6:]} "
             f"updates, N={N}, delay={delay}")
-    if qr_wy and (dtype != torch.float32 or N > MAX_N or (
-            stab_method == "qr" and N <= FUSED_MAX_N)):
+    if fuse_wrap and g_refresh:
+        raise ValueError(
+            "fuse_wrap=True and g_refresh=True: the refresh loop recomputes "
+            "G at every slice and never runs K13 (the JAX package's refresh "
+            "loop never fuses)")
+    route = qr_route(N, dtype)
+    if qr_wy and not (route == "K4" or (
+            route == "K2/K3" and stab_method == "qr_colscaled")):
         raise ValueError(
             f"qr_wy=True needs a float32 QR on K4's route: real float32 "
-            f"stacks at N <= {MAX_N}, with stab_method='qr_colscaled' or "
-            f"N > {FUSED_MAX_N} (the fused K2/K3 take N <= {FUSED_MAX_N}); "
-            f"this session has {str(dtype)[6:]} stacks, N={N}, "
-            f"stab_method={stab_method!r}")
+            f"stacks at 8 | N <= {MAX_N}, with stab_method='qr_colscaled' "
+            f"or N > 64 (the fused K2/K3 take 8 | N <= 64); this session "
+            f"has {str(dtype)[6:]} stacks, N={N}, stab_method="
+            f"{stab_method!r}: QR route {route}")
 
 
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
-    """Raise unless a kernel takes every shape of a CUDA session, for either
-    stabilization. Real sessions: the site sweep (N <= 128: K5 for float32
-    updates with F = 2 at even N, else K1 in the update dtype; K6 beyond in
-    float32; K5 takes every shape K1 takes at even N) and the QR of the
-    stack dtype: float32 K2/K3 for 8 | N <= 64, K4 for 8 | N <= 128 and K7
-    for 8 | N > 128, float64 K11 for 8 | N <= 64 (float64 stacks with
-    float32 or float64 updates). Complex64 updates at 8 | N: K8 up to
-    N = 128 (G of one chain over the block's registers, flavor 1 in shared
-    memory at F = 2 past N = 64, so F = 2 stops at N = 119), K9 in blocks of
-    max(delay, 1) sites beyond (its buffers in shared memory: not F = 2 at
-    N = 256, delay 32); the QR of complex64 stacks is K10 up to N = 128 and
-    the library QR beyond, that of complex128 stacks the library QR, as in
-    the JAX package (XLA's QR where no Pallas kernel takes the shape)."""
+    """Raise unless a hand site-sweep kernel takes the updates of a CUDA
+    session; every QR shape has a route (``qr_route``: a kernel, or the
+    library QR where the JAX package runs XLA's QR). Real sessions: N <= 128
+    K5 for float32 updates with F = 2 at even N, else K1 in the update
+    dtype (float32 or float64; K5 takes every shape K1 takes at even N);
+    past N = 128 K6 for float32 updates at 4 | N, in blocks of
+    max(delay, 1) sites with its buffers in shared memory. Complex64
+    updates: K8 up to N = 128 (G of one chain over the block's registers,
+    flavor 1 in shared memory at F = 2 past N = 64, so F = 2 stops at
+    N = 119), K9 at 8 | N beyond (its buffers in shared memory: not F = 2
+    at N = 256, delay 32). Complex128 updates have no kernel. The JAX
+    package runs its XLA site loop where these refuse (ROADMAP Queue 1
+    item 4)."""
+    dk = max(delay, 1)
     if dtype.is_complex or udtype.is_complex:
         if udtype != torch.complex64:
             raise _not_ported("CUDA kernels for complex128 updates "
                               "(use_kernels=False runs the plain path)",
                               "Queue 1 item 4")
-        dk = max(delay, 1)
-        qr_ok = dtype == torch.complex128 or _qr_cx.kernel_supports(N)
-        if not (N % 8 == 0 and (
-                _sscx.kernel_supports(N, F) and qr_ok
-                if N <= CX_QR_MAX_N else _ssdcx.kernel_supports(N, F, dk))):
+        if not (_sscx.kernel_supports(N, F) if N <= MAX_N
+                else _ssdcx.kernel_supports(N, F, dk)):
             raise _not_ported(
-                f"the complex64 kernels for N={N}, F={F}, delay={delay} (K8 "
-                "and K10 take 8 | N <= 128, K8 with G of one chain over the "
+                f"the complex64 site sweep for N={N}, F={F}, delay={delay} "
+                "(K8 takes N <= 128, K8 with G of one chain over the "
                 "block's registers and flavor 1 in shared memory at F = 2 "
                 "past N = 64, so F = 2 stops at N = 119; K9 8 | N beyond "
                 "with its buffers in shared memory; elsewhere the JAX "
-                "package runs XLA's loop or QR)",
+                "package runs its XLA site loop)",
                 "Queue 1 item 4")
         return
-    f64 = dtype == torch.float64
-    if f64 and not _qrh.kernel_supports(N, torch.float64):
+    if not (site_sweep_supports(N, F, udtype) if N <= MAX_N else (
+            udtype == torch.float32 and _ssd.kernel_supports(N, F, dk))):
         raise _not_ported(
-            f"the float64 QR for N={N} (K11 takes 8 | N <= 64; beyond, the "
-            "JAX package runs XLA's float64 QR)", "Queue 1 item 4")
-    if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
-            else _ssd.kernel_supports(N, F, max(delay, 1))):
-        raise _not_ported(f"the site sweep for N={N}, F={F}, delay={delay} "
-                          f"(K1 takes N <= {MAX_N}, K6 4 | N beyond with its "
-                          "buffers in shared memory, both F <= 2)",
-                          "Queue 1 item 4")
-    if f64:
-        return
-    if not (_qrh.kernel_supports(N) or _qr_blocked.kernel_supports(N)):
-        raise _not_ported(
-            f"the float32 QR for N={N} (K2/K3 take 8 | N <= 64, K4 "
-            "8 | N <= 128, K7 8 | N > 128; for other N the JAX package runs "
-            "XLA's QR)",
+            f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
+            f"{delay} (K1 takes N <= {MAX_N}, K6 4 | N beyond in float32 "
+            "only, with its buffers in shared memory, both F <= 2)",
             "Queue 1 item 4")
 
 
@@ -768,26 +777,27 @@ def _track_prop_err(ctx, perr, G, G_re):
 
 def sweep_pair(ctx, consts, state, u=None, generator=None):
     """One full [down sweep; up sweep] pass over imaginary time, updating every
-    site of every slice twice, for every chain.
+    site of every slice twice, for every chain: ``_pair_wrap`` (G carried
+    from slice to slice by wraps, recomputed at the stack boundaries) or,
+    under ctx.g_refresh, ``_pair_refresh`` (G recomputed at every slice).
 
     u: (C, 2M, N) uniforms in the update dtype, one row per slice visit in
     visit order (down sweep l = M-1..0, then up sweep l = 0..M-1) — the order
-    in which the JAX package splits its per-chain key. Drawn from
-    ``generator`` when not given.
+    in which the JAX package splits its per-chain key, in either mode.
+    Drawn from ``generator`` when not given.
 
     Returns (state, G_meas, conf_meas): the new state (the input state is not
     modified) and the effective G and HS field at the measurement point
     (after the slice-0 site updates of the up sweep). Complex sessions keep
     the running weight phase at that point in state["phase_meas"]."""
     C = state["conf"].shape[0]
-    M, N, sm, n_seg = ctx.M, ctx.N, ctx.sm, ctx.n_seg
+    M, N = ctx.M, ctx.N
     if u is None:
         u = torch.rand((C, 2 * M, N), generator=generator, device=ctx.device,
                        dtype=ctx.urdtype)
     u = u.transpose(0, 1).contiguous()         # (2M, C, N): one row per visit
     conf = state["conf"].clone()
-    S_U, S_D, S_T = (state[k].clone() for k in ("S_U", "S_D", "S_T"))
-    G = state["G"]
+    S = tuple(state[k].clone() for k in ("S_U", "S_D", "S_T"))
     # Metropolis statistics: acc, neg_prob, the negative weights'
     # magnitudes and, complex, the phase problem's
     ls = {k: state[k] for k in ("acc", "neg_prob") + NEG_KEYS + (
@@ -812,6 +822,34 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
             ls.update(_track_negative(ls, neg))
         visit += 1
         return G
+
+    def snapshot(G):
+        """G, conf and the running phase at the measurement point."""
+        return G, conf.clone(), ls.get("ls_phase")
+
+    pair = _pair_refresh if ctx.g_refresh else _pair_wrap
+    G, (G_meas, conf_meas, phase_meas) = pair(
+        ctx, consts, conf, S, state["G"], sweep, snapshot, perr)
+
+    new = dict(state)
+    new.update(perr)
+    new.update(ls)
+    new.update(conf=conf, S_U=S[0], S_D=S[1], S_T=S[2], G=G,
+               prop=state["prop"] + 2 * M * N)
+    if ctx.is_complex:
+        new["phase_meas"] = phase_meas
+    return new, G_meas, conf_meas
+
+
+def _pair_wrap(ctx, consts, conf, S, G, sweep, snapshot, perr):
+    """The sweep pair of the wrap mode on conf (C, N, M) and the stack S =
+    (S_U, S_D, S_T), both updated in place: G wrapped from slice to slice
+    and recomputed from the stack at every boundary, where the drift
+    monitor compares the two. sweep(G, l, direction) visits slice l,
+    snapshot(G) takes the measurement point. Returns (G at the end, the
+    snapshot)."""
+    C, sm, n_seg = conf.shape[0], ctx.sm, ctx.n_seg
+    S_U, S_D, S_T = S
 
     def recompute(G, lU, lD, lT, rU, rD, rT):
         G_re = calculate_greens(lU, lD, lT, rU, rD, rT, ctx.use_kernels,
@@ -841,7 +879,7 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
                          ctx.greens_udt_fn).to(ctx.udtype)   # G_eff(0)
     S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
     G = sweep(G, 0)
-    G_meas, conf_meas, phase_meas = G, conf.clone(), ls.get("ls_phase")
+    meas = snapshot(G)
     G = wrap_up(ctx, consts, conf[:, :, 0], G)             # updated sigma
     for l in range(1, sm):
         G = sweep(G, l, +1)              # wrap up with the updated sigma
@@ -853,15 +891,130 @@ def sweep_pair(ctx, consts, state, u=None, generator=None):
             G = sweep(G, l, +1)
         lU, lD, lT = extend_left(ctx, consts, conf, j, lU, lD, lT)
     S_U[:, n_seg], S_D[:, n_seg], S_T[:, n_seg] = lU, lD, lT
+    return G, meas
 
-    new = dict(state)
-    new.update(perr)
-    new.update(ls)
-    new.update(conf=conf, S_U=S_U, S_D=S_D, S_T=S_T, G=G,
-               prop=state["prop"] + 2 * M * N)
-    if ctx.is_complex:
-        new["phase_meas"] = phase_meas
-    return new, G_meas, conf_meas
+
+def pair_udt_launches(ctx):
+    """(udt, greens): the ``udt_dirty`` calls of the stack extensions and
+    the Green's recomputations (``calculate_greens``,
+    ``calculate_greens_inv``) of one sweep pair, from the schedule alone:
+    2·n_seg extensions in either mode; 2·n_seg recomputations in the wrap
+    mode (one per boundary, G_eff(0) among them) and 2M + 1 under
+    g_refresh (every slice's G but the up sweep's slice 0, G_eff(0) and the
+    closing G_eff(M)). On the card in float32 at 8 | N <= 64 with
+    stab_method "qr" they are K2's and K3's launches; either mode runs one
+    site sweep per slice visit, 2M per pair."""
+    greens = 2 * ctx.M + 1 if ctx.g_refresh else 2 * ctx.n_seg
+    return 2 * ctx.n_seg, greens
+
+
+def _pair_refresh(ctx, consts, conf, S, G_prev, sweep, snapshot, perr):
+    """The sweep pair of the conservative mode (the JAX package's
+    sweep_pair_refresh, dqmc/core.py:901): the same stack bookkeeping and
+    measurement point as ``_pair_wrap``, but G at every slice is recomputed
+    by ``calculate_greens_inv`` from factor carries (``_slices_refresh``),
+    reseeded at each stack boundary as (U^H, D, T) of the clean stack
+    entries; no wrap carries G. The drift monitor compares every slice's G
+    with one wrap of the previous slice's post-update G (G_prev, seeded
+    from the state's G_eff(M)), so prop_err_n counts 2M per pair. Returns
+    (the recomputed G_eff(M), the snapshot)."""
+    C, sm, n_seg = conf.shape[0], ctx.sm, ctx.n_seg
+    S_U, S_D, S_T = S
+    iU, iD, iT = _identity_udt(ctx, C)
+
+    # ---- down sweep: the left carry from slot j+1 (read before the slot
+    # takes the right product), the right carry from the extended product
+    rU, rD, rT = iU, iD, iT
+    for j in range(n_seg - 1, -1, -1):
+        lU, lD, lT = (x[:, j + 1].clone() for x in S)
+        if j != n_seg - 1:
+            rU, rD, rT = extend_right(ctx, consts, conf, j + 1, rU, rD, rT)
+        S_U[:, j + 1], S_D[:, j + 1], S_T[:, j + 1] = rU, rD, rT
+        G_prev = _slices_refresh(
+            ctx, consts, conf, range(j * sm + sm - 1, j * sm - 1, -1), -1,
+            [lU.mH, lD, lT], [rU.mH, rD, rT], G_prev, sweep, perr)
+    rU, rD, rT = extend_right(ctx, consts, conf, 0, rU, rD, rT)
+    S_U[:, 0], S_D[:, 0], S_T[:, 0] = rU, rD, rT
+
+    # ---- up sweep; slice 0 peeled (the measurement point)
+    G = calculate_greens(iU, iD, iT, rU, rD, rT, ctx.use_kernels,
+                         ctx.greens_udt_fn).to(ctx.udtype)   # G_eff(0)
+    if ctx.check_propagation_error:
+        # the down sweep's post-update G of slice 0 is G_eff(0): no wrap
+        _track_prop_err(ctx, perr, G, G_prev)
+    S_U[:, 0], S_D[:, 0], S_T[:, 0] = iU, iD, iT
+    sigma_old = conf[:, :, 0].clone()
+    G = sweep(G, 0)
+    meas = snapshot(G)
+    sigma = conf[:, :, 0]
+    lcar = [mult_B_inv_right(ctx, consts, sigma, iU), iD, iT]
+    rcar = [mult_B_dagger_right(ctx, consts, sigma_old, rU.mH), rD, rT]
+    G_prev = (wrap_up(ctx, consts, sigma, G) if ctx.check_propagation_error
+              else G)
+    G_prev = _slices_refresh(ctx, consts, conf, range(1, sm), +1, lcar, rcar,
+                             G_prev, sweep, perr)
+    lU, lD, lT = extend_left(ctx, consts, conf, 0, iU, iD, iT)
+    for j in range(1, n_seg):
+        rU, rD, rT = (x[:, j].clone() for x in S)
+        S_U[:, j], S_D[:, j], S_T[:, j] = lU, lD, lT
+        G_prev = _slices_refresh(
+            ctx, consts, conf, range(j * sm, j * sm + sm), +1,
+            [lU.mH, lD, lT], [rU.mH, rD, rT], G_prev, sweep, perr)
+        lU, lD, lT = extend_left(ctx, consts, conf, j, lU, lD, lT)
+    S_U[:, n_seg], S_D[:, n_seg], S_T[:, n_seg] = lU, lD, lT
+    # the clean turnaround G_eff(M): the state's G, and the next pair's
+    # first G_prev
+    G = calculate_greens(lU, lD, lT, iU, iD, iT, ctx.use_kernels,
+                         ctx.greens_udt_fn).to(ctx.udtype)
+    return G, meas
+
+
+def _slices_refresh(ctx, consts, conf, slices, direction, lcar, rcar,
+                    G_prev, sweep, perr):
+    """The slice loop of the conservative mode (the JAX package's
+    _scan_slices_refresh, dqmc/core.py:838), over the slices in visit
+    order. lcar = [Ulinv, Dl, Tl] carries the left product L(l) =
+    B_{l-1}...B_0 through the explicit inverse of its U factor (not unitary
+    between boundaries; D and T stay the boundary's), rcar likewise the
+    right product R(l) = B_l^†...B_{M-1}^†; both lists are updated in
+    place.
+
+    direction -1 (down): entering slice l the carries cover L(l+1), R(l+1):
+      remove B_l from L (Ulinv·B_l), prepend B_l^† with the old sigma to R
+      (Urinv·B_l^{-†}), compute G(l), sweep the slice, then correct R's
+      Hirsch factor to the new sigma: B_l^†(new)·B_l^†(old)^{-1} is the
+      diagonal eV(sigma_new - sigma_old), so Urinv's columns scale by
+      eV(sigma_old - sigma_new).
+    direction +1 (up): the carries cover L(l), R(l): compute G(l), sweep,
+      then remove B_l^†(old sigma) from R (Urinv·B_l^†) and add B_l(new
+      sigma) to L (Ulinv·B_l^{-1}).
+    G(l) is compared with the wrap of the previous slice's post-update G
+    (wrap down for -1; the up loop carries it wrapped). Returns the last
+    slice's post-update G, wrapped up when direction is +1 and the drift
+    monitor is on."""
+    cpe = ctx.check_propagation_error
+    for l in slices:
+        sigma_old = conf[:, :, l].clone()
+        if direction < 0:
+            lcar[0] = mult_B_right(ctx, consts, sigma_old, lcar[0])
+            rcar[0] = mult_B_invdag_right(ctx, consts, sigma_old, rcar[0])
+        G = calculate_greens_inv(*lcar, *rcar, ctx.use_kernels,
+                                 ctx.greens_udt_fn).to(ctx.udtype)
+        if cpe:
+            G_wrap = (wrap_down(ctx, consts, sigma_old, G_prev)
+                      if direction < 0 else G_prev)
+            _track_prop_err(ctx, perr, G, G_wrap)
+        G = sweep(G, l)
+        sigma = conf[:, :, l]
+        if direction < 0:
+            corr = eV_diag(ctx, sigma_old - sigma)         # (C, F, N)
+            rcar[0] = rcar[0] * corr[..., None, :]
+            G_prev = G
+        else:
+            rcar[0] = mult_B_dagger_right(ctx, consts, sigma_old, rcar[0])
+            lcar[0] = mult_B_inv_right(ctx, consts, sigma, lcar[0])
+            G_prev = wrap_up(ctx, consts, sigma, G) if cpe else G
+    return G_prev
 
 
 def unwrap_greens(ctx, consts, G_eff):

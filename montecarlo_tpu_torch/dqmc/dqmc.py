@@ -90,7 +90,9 @@ class DQMC:
     plain site sweep and the library QR/solve on either device. device
     defaults to "cuda" and raises when CUDA is absent (pass device="cpu").
     fuse_wrap and qr_wy are the JAX package's MC_TPU_FUSE_WRAP and
-    MC_TPU_QR_WY A/B modes on the kernel path (core.make_context).
+    MC_TPU_QR_WY A/B modes on the kernel path; g_refresh runs the
+    conservative mode (G recomputed at every slice) and checkerboard the
+    checkerboard hopping operator (core.make_context).
 
     seed may be a sequence: each seed's own generator draws the initial
     configuration and every sweep's uniforms of its block of n_chains

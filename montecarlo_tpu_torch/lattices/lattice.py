@@ -2,8 +2,9 @@
 
 Counterpart of montecarlo_tpu/lattices/lattice.py, restricted to what the
 DQMC engine and its equal-time measurements read: site count, bonds, the
-neighbor table, and the binning of site pairs by their minimal periodic
-displacement. Site numbering, bond order and direction bins are the JAX
+neighbor table, the binning of site pairs by their minimal periodic
+displacement, and the greedy colorings of bonds (checkerboard groups) and
+sites. Site numbering, bond order and direction bins are the JAX
 package's, so hopping matrices and binned observables agree bit for bit.
 """
 
@@ -119,6 +120,42 @@ class Lattice:
 
     def lattice_vectors(self) -> np.ndarray:
         return self.cell_vectors
+
+    # --------------------------------------------------------- checkerboard
+    @cached_property
+    def checkerboard_groups(self) -> List[np.ndarray]:
+        """Greedy edge coloring of the bond list into groups of
+        vertex-disjoint bonds, in bond order: a list of (n_g, 2) int32
+        arrays of (src, trg)."""
+        bonds = [(int(s), int(t)) for (s, t, _ty) in self.bonds]
+        used = np.zeros(len(bonds), dtype=bool)
+        groups = []
+        while not used.all():
+            sites_used = np.zeros(self.n_sites, dtype=bool)
+            group = []
+            for bid, (src, trg) in enumerate(bonds):
+                if used[bid] or sites_used[src] or sites_used[trg]:
+                    continue
+                used[bid] = sites_used[src] = sites_used[trg] = True
+                group.append((src, trg))
+            groups.append(np.array(group, dtype=np.int32))
+        return groups
+
+    @cached_property
+    def site_colors(self) -> List[np.ndarray]:
+        """Greedy coloring of the sites in index order (no two neighbors
+        share a color; a square lattice of even L gets two): a list of
+        int32 site arrays, one per color."""
+        color = -np.ones(self.n_sites, dtype=np.int64)
+        for i in range(self.n_sites):
+            used = {color[j] for j in self.neighbor_table[i]
+                    if j >= 0 and color[j] >= 0}
+            c = 0
+            while c in used:
+                c += 1
+            color[i] = c
+        return [np.where(color == c)[0].astype(np.int32)
+                for c in range(color.max() + 1)]
 
     # ------------------------------------------------------ direction binning
     @cached_property

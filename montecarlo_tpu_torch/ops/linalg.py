@@ -8,23 +8,27 @@ pivot so that triangular solves stay cheap. ``udt_dirty_colscaled`` is the
 per-column-scaled variant of stab_method="qr_colscaled".
 
 Two paths, chosen by ``use_kernels``:
-  * kernel path (True), routed by dtype and N as the JAX package routes it:
-    - float32, N <= 64: the fused kernels of ops/qr.py — K2 inside
-      ``udt_dirty``, K3 (QR + triangular solve) inside ``calculate_greens``
-      — whose flushed-mode rule is R_jj = +floor;
-    - float32 at 64 < N <= 128, and float32 inside ``udt_dirty_colscaled``:
-      the unfused QR K4 (ops/qr_householder.py), or with ``qr_wy`` K14
-      (the reflectors V and tau) and Q assembled outside in WY form, the
-      JAX package's MC_TPU_QR_WY route;
-    - float64 at N <= 128: the float64 QR K11 (ops/qr_householder.py);
-    - N > 128: the blocked QR K7 (ops/qr_blocked.py);
-    - complex (Peierls sessions): the complex QR K10 (ops/qr_cx.py) for
-      complex64 at N <= 128 and, as in the JAX package
-      (pallas_qr.maybe_qr), the library QR beyond and for complex128;
+  * kernel path (True), routed by ``qr_route(N, dtype)`` as the JAX
+    package routes it (pallas_qr.qr_supported / maybe_qr / df_qr_ok):
+    - "K2/K3", float32 at 8 | N <= 64: the fused kernels of ops/qr.py —
+      K2 inside ``udt_dirty``, K3 (QR + triangular solve) inside
+      ``calculate_greens`` and ``calculate_greens_inv`` — whose flushed-mode
+      rule is R_jj = +floor; the unfused QR of ``udt_dirty_colscaled`` is
+      K4 there;
+    - "K4", float32 at 8 | N <= 128 past 64: the unfused QR K4
+      (ops/qr_householder.py), or with ``qr_wy`` K14 (the reflectors V and
+      tau) and Q assembled outside in WY form, the JAX package's
+      MC_TPU_QR_WY route;
+    - "K7", float32 at 8 | N > 128: the blocked QR K7 (ops/qr_blocked.py);
+    - "K11", float64 at 8 | N <= 64: the float64 QR K11;
+    - "K10", complex64 at 8 | N <= 128: the complex QR K10 (ops/qr_cx.py);
+    - "library" for every other shape (8 ∤ N, float64 past N = 64,
+      complex64 past N = 128, complex128): ``torch.linalg.qr``, where the
+      JAX package runs XLA's QR;
     every unfused QR is followed by the unfused udt_dirty postscale, and
-    ``calculate_greens`` by ``rdiv_dirty`` (the JAX package has no fused
-    solve for them). The CUDA kernels take 8 | N (K11: N <= 64); on the CPU
-    each route runs its kernel's plain version at any N;
+    the Green's functions by ``rdiv_dirty`` (the JAX package has no fused
+    solve for them). The route is the same on every device: on the CPU a
+    kernel's route runs its plain version;
   * library path (False): ``torch.linalg.qr`` + the udt_dirty postscale and
     ``torch.linalg.solve_triangular``.
 The unfused postscale's flushed-mode rule is |diag| < 0.5 → 1; both rules
@@ -36,16 +40,39 @@ from __future__ import annotations
 
 import torch
 
+from . import qr as _qr_fused
+from . import qr_blocked as _qr_blocked
+from . import qr_cx as _qr_cx
+from . import qr_householder as _qrh
 from .qr import F32_FLOOR, udt_qr, udt_qr_solve
-from .qr_blocked import MIN_N as BLOCKED_MIN_N
 from .qr_blocked import qr_blocked
 from .qr_cx import qr_cx
 from .qr_householder import qr_f32, qr_f64, qr_wy as _qr_wy
 
-# the fused K2/K3 take float32 up to this N
-FUSED_MAX_N = 64
-# K10 takes complex up to this N; the JAX package runs XLA's QR beyond
-CX_QR_MAX_N = 128
+
+def qr_route(N: int, dtype) -> str:
+    """The kernel path's QR of an (N, N) matrix of dtype, chosen by shape:
+    "K2/K3" (float32, 8 | N <= 64: the fused UDT and UDT + solve of
+    ``udt_dirty`` and the Green's functions), "K4" (float32, 8 | N <= 128),
+    "K7" (float32, 8 | N > 128 within one block's shared memory), "K11"
+    (float64, 8 | N <= 64), "K10" (complex64, 8 | N <= 128) or "library"
+    (``torch.linalg.qr``; every other shape, as the JAX package runs XLA's
+    QR where no Pallas kernel takes it: pallas_qr.py:1222 qr_supported,
+    :1247 maybe_qr, :1540 df_qr_ok)."""
+    if dtype == torch.float32:
+        if _qr_fused.kernel_supports(N):
+            return "K2/K3"
+        if _qrh.kernel_supports(N, torch.float32):
+            return "K4"
+        if _qr_blocked.kernel_supports(N):
+            return "K7"
+    elif dtype == torch.float64:
+        if _qrh.kernel_supports(N, torch.float64):
+            return "K11"
+    elif dtype == torch.complex64:
+        if _qr_cx.kernel_supports(N):
+            return "K10"
+    return "library"
 
 
 def argsort_desc(v):
@@ -95,9 +122,9 @@ def _prescale_pivot(A):
 
 
 def _fused(A, use_kernels):
-    """True where the fused kernels K2/K3 take A: real float32, N <= 64."""
-    return (use_kernels and A.dtype == torch.float32
-            and A.shape[-1] <= FUSED_MAX_N)
+    """True where the fused kernels K2/K3 take A: the kernel path at
+    ``qr_route`` "K2/K3" (float32, 8 | N <= 64)."""
+    return use_kernels and qr_route(A.shape[-1], A.dtype) == "K2/K3"
 
 
 def udt_dirty(A, use_kernels=True, qr_wy=False):
@@ -142,21 +169,15 @@ def udt_dirty_colscaled(A, use_kernels=True, qr_wy=False):
 
 def _qr(A, use_kernels, qr_wy=False):
     """(Q, R) of A (..., n, n) without floor or postscale: on the kernel path
-    K10 (complex64, n <= 128), K7 (n > 128), K11 (float64) or K4 (float32;
-    with qr_wy K14 and the WY assembly of Q), else the library QR (and for
-    complex64 past n = 128 and complex128, as the JAX package)."""
+    the unfused QR of ``qr_route``: K4 on the "K2/K3" and "K4" routes (with
+    qr_wy K14 and the WY assembly of Q), K7, K11, K10, or the library QR;
+    the library QR off the kernel path."""
     shape, n = A.shape, A.shape[-1]
-    if not use_kernels or (A.is_complex() and (
-            n > CX_QR_MAX_N or A.dtype != torch.complex64)):
+    route = qr_route(n, A.dtype) if use_kernels else "library"
+    if route == "library":
         return _library_qr(A)
-    if A.is_complex():
-        qr = qr_cx
-    elif n >= BLOCKED_MIN_N:
-        qr = qr_blocked
-    elif A.dtype == torch.float64:
-        qr = qr_f64
-    else:
-        qr = _qr_wy if qr_wy else qr_f32
+    qr = {"K7": qr_blocked, "K11": qr_f64, "K10": qr_cx}.get(
+        route, _qr_wy if qr_wy else qr_f32)
     Q, R = qr(A.reshape(-1, n, n))
     return Q.reshape(shape), R.reshape(shape)
 
@@ -169,7 +190,10 @@ def _library_qr(A):
     those of A. cuSOLVER's complex64 QR returns non-finite factors on a CUDA
     device when some columns lie ~30 decades below the largest (measured on
     an H100; its float32 QR and LAPACK's do not), which the graded DQMC
-    products reach at beta = 10."""
+    products reach at beta = 10. ``_library_qr.launches`` counts the calls
+    on a CUDA tensor, as the kernel wrappers count their launches."""
+    if A.device.type == "cuda":
+        _library_qr.launches += 1
     if not A.is_complex():
         return torch.linalg.qr(A)
     top = A.abs().amax(dim=-2, keepdim=True)
@@ -177,6 +201,9 @@ def _library_qr(A):
     s = torch.exp2(torch.ceil(torch.log2(top)))
     Q, R = torch.linalg.qr(A / s)
     return Q, R * s
+
+
+_library_qr.launches = 0
 
 
 def _postscale(R):
@@ -210,22 +237,40 @@ def calculate_greens(Ul, Dl, Tl, Ur, Dr, Tr, use_kernels=True,
     where every factor of M is bounded by ~1, so all intermediates stay
     within ~e^{beta·W}. One interior UDT of M by udt_fn (``udt_dirty`` when
     None; ``udt_dirty_colscaled`` for stab_method="qr_colscaled"): for
-    ``udt_dirty`` in float32 at N <= 64 on the kernel path its QR and the
-    triangular solve run fused in kernel K3, otherwise udt_fn is followed by
-    ``rdiv_dirty``."""
+    ``udt_dirty`` on the "K2/K3" route its QR and the triangular solve run
+    fused in kernel K3, otherwise udt_fn is followed by ``rdiv_dirty``.
+    For unitary Ul, Ur this is ``calculate_greens_inv`` of Ul^H, Ur^H, the
+    same operations on the same values."""
+    return calculate_greens_inv(Ul.mH, Dl, Tl, Ur.mH, Dr, Tr, use_kernels,
+                                udt_fn)
+
+
+def calculate_greens_inv(Ulinv, Dl, Tl, Urinv, Dr, Tr, use_kernels=True,
+                         udt_fn=None):
+    """``calculate_greens`` through the explicit inverses Ulinv = Ul^{-1},
+    Urinv = Ur^{-1} of possibly non-unitary factors (the JAX package's
+    calculate_greens_inv, ops/linalg.py:358):
+
+      G = Ur^{-H}·Drp^{-1}·M^{-1}·Dlp^{-1}·Ul^{-1},
+      M = Dlp^{-1}·(Ul^{-1}·Ur^{-H})·Drp^{-1} + Dlm·(Tl Tr^H)·Drm.
+
+    The g_refresh mode's carries accumulate raw B multiplications between
+    stack boundaries and their inverses beside them, so Ulinv and Urinv are
+    not unitary there. K3 takes Ur^{-H} / Drp as its right-hand side."""
     Dlp, Dlm = Dl.clamp_min(1.0), Dl.clamp_max(1.0)
     Drp, Drm = Dr.clamp_min(1.0), Dr.clamp_max(1.0)
+    Urdaginv = Urinv.mH
     X = Tl @ Tr.mH
-    M = (Ul.mH @ Ur) / Dlp[..., :, None] / Drp[..., None, :]
+    M = (Ulinv @ Urdaginv) / Dlp[..., :, None] / Drp[..., None, :]
     M = M + (Dlm[..., :, None] * X) * Drm[..., None, :]
-    Zpre = Ur / Drp[..., None, :]
+    Zpre = Urdaginv / Drp[..., None, :]
     if udt_fn in (None, udt_dirty) and _fused(M, use_kernels):
         u, Z = _fused_greens_solve(M, Zpre)
     else:
         u, d, r, piv = (udt_fn or udt_dirty)(M, use_kernels)
         Z = rdiv_dirty(Zpre, r, piv) / d[..., None, :]
     W = u.mH / Dlp[..., None, :]
-    return Z @ (W @ Ul.mH)
+    return Z @ (W @ Ulinv)
 
 
 def _fused_greens_solve(M, Zpre):

@@ -19,10 +19,14 @@ the kernel route and the device; each records when and from which code it
 was derived (``derived_at``).
 
     python3 -m montecarlo_tpu_torch.validation headline [--refuse-cache]
+    python3 -m montecarlo_tpu_torch.validation refresh [--refuse-cache]
 
-runs the headline gate (``PROTOCOL``: 8x8, beta = 10, U = 4, float32, 64
-chains x seeds (123, 321), 300 + 100 sweeps, safe_mult 10 against 1,
-kernels on both sides) on the card and prints its result as one JSON line.
+run a gate of ``GATES`` on the card and print its result as one JSON line:
+the headline gate (``PROTOCOL``: 8x8, beta = 10, U = 4, float32, 64 chains
+x seeds (123, 321), 300 + 100 sweeps, safe_mult 10 against 1, kernels on
+both sides) or the conservative gate (bench.py's refresh_gate: the same
+protocol with the candidate at safe_mult ``REFRESH_SM`` under g_refresh,
+against the headline's anchor, the same cache key).
 """
 
 from __future__ import annotations
@@ -55,6 +59,12 @@ PROTOCOL = dict(L=8, beta=10.0, U=4.0, mu=0.0, dtype="float32", n_chains=64,
 # the fields a candidate run may change without touching the anchor
 CANDIDATE_FIELDS = ("sweeps", "thermalization", "seeds", "n_chains")
 ANCHOR_VERSION = 1
+# the conservative mode's safe_mult (bench.py's REFRESH_SM)
+REFRESH_SM = 5
+# the gates of the command line: each one's cross_sm_check keywords beside
+# the protocol (its candidate mode); all share the safe_mult=1 anchor
+GATES = {"headline": {},
+         "refresh": dict(safe_mult=REFRESH_SM, g_refresh=True)}
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -317,26 +327,27 @@ def cross_sm_check(safe_mult: int = 10, anchor_sm: int = 1,
     }
 
 
-def _headline(argv):
-    """The headline gate on the card, its result as one JSON line."""
+def _gate(name, argv):
+    """The gate GATES[name] on the card, its result as one JSON line."""
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(prog="python3 -m montecarlo_tpu_torch."
-                                 "validation headline")
+                                 f"validation {name}")
     ap.add_argument("--refuse-cache", action="store_true",
                     help="derive the anchor live even if it is cached")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
-    res = cross_sm_check(refuse_cache=args.refuse_cache)
+    res = cross_sm_check(refuse_cache=args.refuse_cache, **GATES[name])
     res = {k: v for k, v in res.items() if not k.startswith("_")}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    res.update(wall_s=time.perf_counter() - t0,
+    res.update(gate=name, wall_s=time.perf_counter() - t0,
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               source_digest=source_digest(),
                protocol={k: (list(v) if isinstance(v, tuple) else v)
                          for k, v in PROTOCOL.items()})
     line = json.dumps(res)
@@ -349,11 +360,12 @@ def _headline(argv):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] != "headline":
-        print("usage: python3 -m montecarlo_tpu_torch.validation headline "
-              "[--refuse-cache] [--out FILE]", file=sys.stderr)
+    if not argv or argv[0] not in GATES:
+        print("usage: python3 -m montecarlo_tpu_torch.validation "
+              f"{{{','.join(GATES)}}} [--refuse-cache] [--out FILE]",
+              file=sys.stderr)
         return 2
-    return _headline(argv[1:])
+    return _gate(argv[0], argv[1:])
 
 
 if __name__ == "__main__":

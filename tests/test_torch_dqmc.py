@@ -202,31 +202,38 @@ def test_make_context_pins_full_float32_matmuls():
         torch.set_float32_matmul_precision(old[1])
 
 
-@pytest.mark.parametrize("kw", [
-    dict(g_refresh=True), dict(checkerboard=True), dict(stab_method="cholqr")])
-def test_make_context_rejects_unported_options(kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(fuse_wrap=True, g_refresh=True, dtype=F32), ValueError,
+     "g_refresh=True"),
+    (dict(qr_wy=True, L=3, dtype=F32, stab_method="qr_colscaled"),
+     ValueError, "QR route library"),
+    (dict(stab_method="cholqr"), NotImplementedError, "ROADMAP")])
+def test_make_context_rejects_unported_options(kw, exc, match):
+    """What make_context refuses: fuse_wrap under g_refresh (the refresh
+    loop never runs K13), qr_wy where no float32 QR is on K4's route
+    (8 does not divide N = 9: the library QR) and the retired cholqr."""
     kw = dict(kw)
     L = kw.pop("L", 2)
     model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         tcore.make_context(model, TParams(beta=1.0), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("N,F,dtype,item", [
     (64, 1, torch.complex64, None), (64, 2, torch.complex64, None),
     (16, 1, torch.complex64, None),
-    (100, 1, torch.complex64, "item 4"), (128, 1, torch.complex64, None),
-    (256, 1, torch.complex64, None), (12, 1, torch.complex64, "item 4"),
+    (100, 1, torch.complex64, None), (128, 1, torch.complex64, None),
+    (256, 1, torch.complex64, None), (12, 1, torch.complex64, None),
     (64, 1, torch.complex128, "item 4"), (16, 2, torch.complex128, "item 4"),
     (112, 2, torch.complex64, None), (120, 2, torch.complex64, "item 4"),
     (128, 2, torch.complex64, "item 4")])
 def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
-    """A complex CUDA session runs K8 + K10 at 8 | N <= 128 in complex64
-    (F = 2 to N = 119: flavor 1 in shared memory past N = 64) and K9
-    beyond (here rank-1 blocks); 8 ∤ N and complex128 wait for the
-    library routes of ROADMAP item 4 (complex128 runs the plain path,
-    use_kernels=False). The complex64 refusal states K8's register layout
-    and its F = 2 limit."""
+    """A complex CUDA session runs K8 at N <= 128 in complex64 (F = 2 to
+    N = 119: flavor 1 in shared memory past N = 64), with K10 at 8 | N and
+    the library QR at 8 ∤ N (N = 100, 12), and K9 beyond (here rank-1
+    blocks); complex128 updates wait for ROADMAP item 4 (they run the plain
+    path, use_kernels=False). The complex64 refusal states K8's register
+    layout and its F = 2 limit."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
         return

@@ -251,17 +251,18 @@ F32, F64 = torch.float32, torch.float64
     (64, 1, F32, F32, None),      # float32 (both stabilizations): K1 + K2-K4
     (72, 1, F32, F32, None),      # 64 < N <= 128: K1 + K4
     (128, 2, F32, F32, None),
-    (72, 1, F64, F64, "item 4"),     # float64 beyond N = 64: XLA's QR in JAX
-    (256, 1, F64, F64, "item 4"),
-    (12, 1, F64, F64, "item 4"),     # 8 does not divide N
+    (72, 1, F64, F64, None),      # float64 beyond N = 64: the library QR
+    (256, 1, F64, F64, "item 4"),     # no float64 site sweep past N = 128
+    (12, 1, F64, F64, None),      # 8 does not divide N: the library QR
     (64, 1, F32, F64, None),      # float64 updates over float32 stacks
-    (100, 1, F32, F32, "item 4"),     # 8 does not divide N: XLA's QR in JAX
-    (9, 2, F32, F32, "item 4"),
+    (100, 1, F32, F32, None),     # 8 does not divide N: the library QR
+    (9, 2, F32, F32, None),
     (130, 1, F32, F32, "item 4"),     # 4 does not divide N past 128: no K6
     (64, 3, F64, F64, "item 4")])     # no site sweep for F = 3
 def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
-    """Each refusal names its item and states the limits of the kernels
-    that refuse: the float32 QR's K2/K3 at 8 | N <= 64 and K4 to 128."""
+    """Every QR shape has a route (a kernel, or the library QR where the
+    JAX package runs XLA's); each refusal names its item and states the
+    limits of the site-sweep kernels that refuse."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, udtype)
         return
@@ -272,14 +273,55 @@ def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
         assert text in str(e.value), str(e.value)
 
 
-# the kernel limits each refusal states, by (N, F, stack dtype)
+# the site-sweep limits each refusal states, by (N, F, stack dtype)
 _REFUSAL_TEXT = {
-    (100, 1, F32): "K2/K3 take 8 | N <= 64, K4 8 | N <= 128, K7 8 | N > 128",
-    (9, 2, F32): "K2/K3 take 8 | N <= 64, K4 8 | N <= 128, K7 8 | N > 128",
-    (130, 1, F32): "K1 takes N <= 128, K6 4 | N beyond",
-    (72, 1, F64): "K11 takes 8 | N <= 64",
-    (256, 1, F64): "K11 takes 8 | N <= 64",
-    (12, 1, F64): "K11 takes 8 | N <= 64"}
+    (130, 1, F32): "K1 takes N <= 128, K6 4 | N beyond in float32 only",
+    (256, 1, F64): "K1 takes N <= 128, K6 4 | N beyond in float32 only",
+    (64, 3, F64): "both F <= 2"}
+
+
+C64, C128 = torch.complex64, torch.complex128
+
+
+@pytest.mark.parametrize("N,dtype,route", [
+    (64, F32, "K2/K3"), (16, F32, "K2/K3"), (36, F32, "library"),
+    (4, F32, "library"), (72, F32, "K4"), (128, F32, "K4"),
+    (100, F32, "library"), (136, F32, "K7"), (256, F32, "K7"),
+    (132, F32, "library"), (64, F64, "K11"), (12, F64, "library"),
+    (72, F64, "library"), (128, F64, "library"), (64, C64, "K10"),
+    (128, C64, "K10"), (100, C64, "library"), (256, C64, "library"),
+    (64, C128, "library")])
+def test_qr_route(N, dtype, route):
+    """One table decides every QR shape (the JAX package's qr_supported,
+    maybe_qr and df_qr_ok): a hand kernel where one takes the shape, the
+    library QR elsewhere. _fused follows it: K2/K3 only at 8 | N <= 64 in
+    float32 (not at N = 36), and _qr calls the route's QR."""
+    assert tl.qr_route(N, dtype) == route
+    A = torch.zeros(1, N, N, dtype=dtype)
+    assert tl._fused(A, True) == (route == "K2/K3")
+    assert not tl._fused(A, False)
+
+
+def test_qr_calls_the_routes_qr(monkeypatch):
+    """_qr on the kernel path: K4 for float32 at N = 16 and 72, the library
+    QR at N = 36 and 100 (8 ∤ N) and for float64 at N = 72; K11 at N = 16."""
+    calls = []
+    for name in ("qr_f32", "qr_f64", "_library_qr"):
+        fn = getattr(tl, name)
+
+        def spy(A, _f=fn, _n=name):
+            calls.append(_n)
+            return _f(A)
+        monkeypatch.setattr(tl, name, spy)
+    for N, dtype, name in ((16, F32, "qr_f32"), (72, F32, "qr_f32"),
+                           (36, F32, "_library_qr"),
+                           (100, F32, "_library_qr"), (16, F64, "qr_f64"),
+                           (72, F64, "_library_qr")):
+        calls.clear()
+        A = graded(N, 1, N, float64=dtype == F64)[0]
+        Q, R = tl._qr(A, True)
+        assert calls == [name], (N, dtype)
+        assert (Q @ R - A).abs().max() <= 1e-4 * A.abs().max()
 
 
 # ---------------------------------------------------------------------------

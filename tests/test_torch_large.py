@@ -38,16 +38,17 @@ def test_make_context_delay_matches_jax(L, delay):
 def test_cuda_kernel_routes():
     """Which shapes a float32 CUDA kernel session takes (checked without a
     card): K1 + K2/K3 for 8 | N <= 64, K1 + K4 for 64 < N <= 128 with 8 | N,
-    K6 + K7 for 8 | N > 128 at F <= 2; no kernel where 8 does not divide N
-    (N = 100, 9, 132: the JAX package runs XLA's QR there, Queue 1 item 4)
-    or for float64 beyond N = 64."""
+    K6 + K7 for 8 | N > 128 at F <= 2, and the site-sweep kernel with the
+    library QR where 8 does not divide N (N = 100, 9; 132 with K6), as the
+    JAX package runs XLA's QR there; no site sweep for F = 3, for K6's
+    buffers at N = 1024 or for float64 beyond N = 128."""
     ok = lambda *a: tcore._check_cuda_kernels(*a, torch.float32,
                                               torch.float32)
     for N, F, delay in ((64, 1, 0), (16, 2, 0), (144, 1, 0), (144, 2, 24),
-                        (256, 1, 32), (256, 2, 32), (72, 1, 0), (128, 2, 0)):
+                        (256, 1, 32), (256, 2, 32), (72, 1, 0), (128, 2, 0),
+                        (100, 1, 0), (9, 1, 0), (132, 1, 0)):
         ok(N, F, delay)
-    for N, F, delay, item in ((100, 1, 0, "item 4"), (9, 1, 0, "item 4"),
-                              (132, 1, 0, "item 4"), (256, 3, 32, "item 4"),
+    for N, F, delay, item in ((256, 3, 32, "item 4"),
                               (1024, 2, 32, "item 4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             ok(N, F, delay)

@@ -140,6 +140,42 @@ def test_anchor_key_from_one_defaults_table(tmp_path, monkeypatch):
         v.protocol(lattice=8)
 
 
+@pytest.mark.parametrize("argv,kw", [
+    (["refresh", "--refuse-cache"],
+     dict(refuse_cache=True, safe_mult=v.REFRESH_SM, g_refresh=True)),
+    (["refresh"], dict(refuse_cache=False, safe_mult=5, g_refresh=True)),
+    (["headline"], dict(refuse_cache=False))])
+def test_gate_command_line(monkeypatch, capsys, tmp_path, argv, kw):
+    """python3 -m montecarlo_tpu_torch.validation {headline,refresh}: each
+    gate calls cross_sm_check with its GATES keywords (refresh: bench.py's
+    REFRESH_SM = 5 under g_refresh) and the protocol from PROTOCOL alone,
+    so both gates share the anchor's cache key; it prints one JSON line
+    with the gate's name, the protocol and the source digest, writes it to
+    --out, and exits 1 where the gate fails. An unknown gate exits 2."""
+    seen = []
+
+    def fake_check(**k):
+        seen.append(k)
+        return {"ok": k.get("g_refresh", False), "z": {}, "_anchor_pool": {}}
+    monkeypatch.setattr(v, "cross_sm_check", fake_check)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "card")
+    monkeypatch.setattr(v.subprocess, "run", lambda *a, **k: type(
+        "R", (), {"stdout": "card, 700.00 W\n"})())
+    out = tmp_path / "gate.json"
+    rc = v.main(argv + ["--out", str(out)])
+    assert seen == [kw]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["gate"] == argv[0] and rc == (0 if line["ok"] else 1)
+    assert line["protocol"]["seeds"] == list(v.PROTOCOL["seeds"])
+    assert line["source_digest"] == v.source_digest()
+    assert json.loads(out.read_text()) == line
+    assert "_anchor_pool" not in line
+    # no gate touches a field of the anchor's key: one anchor for both
+    assert not set(v.GATES[argv[0]]) & (set(v.PROTOCOL) | {
+        "anchor_sm", "use_kernels", "anchor_use_kernels", "device"})
+    assert v.main(["wrap"]) == 2
+
+
 def _run(seed, n_chains=2):
     sim = tmc.DQMC(tmc.HubbardModelAttractive(dims=2, L=2, U=4.0, mu=0.3),
                    n_chains=n_chains, seed=seed, beta=1.0, safe_mult=5,

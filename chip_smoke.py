@@ -27,7 +27,11 @@ failure and prints no result line then):
               at WAVE_CHAINS chains (more than one wave of clusters), each
               case printing the layout cluster_plan gave it, and every
               layout of theirs that fits timed and held against the
-              plan's ([layouts] lines)
+              plan's ([layouts] lines); K17 (the Ising checkerboard sweep)
+              at bench.py's ising_flips shape (262,144 chains of the 8x8),
+              at the 3x3 (four color classes) and on the cubic L = 4, and K18 (one
+              Wolff BFS level) at the Wolff run's shape a few levels into
+              the clusters, each bit for bit and REPEATS launches more
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -136,6 +140,23 @@ failure and prints no result line then):
               compare_pools of the pool with itself passes (the statistical
               gate is `python3 -m montecarlo_tpu_torch.validation
               headline`, not a smoke phase)
+
+  7. classical the Ising flavor and the checkpoints, through MC(...).run(),
+              save, resume and replay: (a) ising, bench.py's ising_flips
+              row (8x8, beta 0.44, 262,144 chains, no measurements, 20 +
+              100 sweeps): K17 once per sweep, acceptance, spin flips/s;
+              (b) wolff, 8x8 at beta = 1/IsingTc, 4096 chains, a global
+              move every 2 sweeps (50 + 100): acc_global > 0, <|m|> in
+              (0.3, 0.8), K18 once per BFS level the host loop ran, levels
+              (host syncs) per move; (c) enum, the 3x3 (four color
+              classes) at beta 0.3, 64 chains, 200 + 800 sweeps: E and M
+              within max(4 sigma, 0.05) of exact enumeration; (d) io, an MC
+              run saved at sweep 30 and resumed to 60 bit-equal in conf to
+              an uninterrupted one, the f64 DQMC configuration 1 + 1 sweeps
+              against 1 saved + 1 resumed (conf in every chain, last_sweep,
+              the observables' means), and a headline-width float32 run
+              with ConfigRecorder replayed (K2, K3 per recorded field as
+              greens_from_scratch schedules them, occupation near 0.5)
 
 Each phase ends with a [time] line: the seconds since the script started.
 
@@ -299,6 +320,34 @@ TOL_TD_KL = 1e-2
 # max|Q diag(d) R - A| / max|A| and max|Q^T Q - I|, measured 8.1e-7 and
 # 1.7e-6 (its plain version 1.0e-6 and 2.0e-6)
 TOL_TD_REC = 1e-5
+# phase 7 (classical) and K17/K18 in phase 3: bench.py's ising_flips row
+# (bench.py:352-366: 8x8 square, beta 0.44, 262,144 chains, no
+# measurements), 20 + 100 sweeps; the Wolff run at beta = 1/IsingTc (4096
+# chains, a global move every 2 sweeps, 50 + 100 sweeps; tests/
+# test_ising_mc.py's test_wolff_accelerates_near_tc with more chains); the
+# 3x3 run against exact enumeration (test_ising_vs_exact_enumeration at
+# beta 0.3: 64 chains, 200 + 800 sweeps)
+ISING_L, ISING_BETA, ISING_CHAINS, ISING_THERM, ISING_SWEEPS = (
+    8, 0.44, 262144, 20, 100)
+WOLFF_CHAINS, WOLFF_THERM, WOLFF_SWEEPS, WOLFF_RATE = 4096, 50, 100, 2
+# <|m|> of the Wolff run: tests/test_ising_mc.py's window (the JAX package
+# reads 0.782 on the CPU at 32 chains)
+WOLFF_M_RANGE = (0.3, 0.8)
+ENUM_L, ENUM_BETA, ENUM_CHAINS, ENUM_THERM, ENUM_SWEEPS = 3, 0.3, 64, 200, 800
+# E and M within max(4 sigma, 0.05) of exact enumeration (the JAX test's)
+ENUM_SIGMAS, ENUM_ABS = 4.0, 0.05
+# K17 also at the 3x3 (an odd L: the greedy site coloring gives four
+# classes) and on the cubic L = 4 (z = 6), K18
+# at the Wolff run's shape a few BFS levels into the clusters, each at this
+# many chains
+ISING_SMALL_CHAINS = 4096
+WOLFF_PARITY_LEVELS = 3
+# 7d: an MC run saved at sweep 30 and resumed to 60 against an
+# uninterrupted one (8x8, Wolff moves every 3 sweeps, default
+# measurements); the f64 DQMC configuration saved after 1 sweep and resumed
+# for 1 more; a headline-width float32 DQMC run (1 + 2 sweeps) recording
+# every measured sweep, then replayed
+IO_MC_CHAINS, IO_MC_SPLIT, IO_MC_SWEEPS, IO_MC_RATE = 1024, 30, 60, 3
 DEVICE = "cuda"
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 and FP64
 # FLOP/s outside the tensor cores
@@ -353,6 +402,12 @@ KERNEL_INFO = {
     # K1's launch for one chain
     "site_sweep_single": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
                           "montecarlo_tpu/ops/pallas_site_sweep.py:51"),
+    # no TPU kernel: the JAX package's XLA Metropolis sweep and Wolff BFS
+    # body inside its jitted scan
+    "ising_sweep": ("montecarlo_tpu_torch/csrc/ising.cu",
+                    "montecarlo_tpu/models/ising.py:88"),
+    "wolff_step": ("montecarlo_tpu_torch/csrc/ising.cu",
+                   "montecarlo_tpu/models/ising.py:131"),
 }
 
 
@@ -409,6 +464,16 @@ def device_ms(fn, reps=20, tries=3):
 def ms_text(ms):
     """A time in ms for a log line, or "not measured"."""
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def zero_launches(**extra):
+    """Set every kernel's launch count, and those of the counted functions in
+    extra (name=function), to 0; returns a function that reads them."""
+    from montecarlo_tpu_torch.ops import KERNELS
+    counted = {**KERNELS, **extra}
+    for fn in counted.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in counted.items()}
 
 
 def bound(nbytes, flops, fp64=False):
@@ -1136,6 +1201,7 @@ def phase_parity():
             results[kname]["device_ms"] = dev
 
     parity_delayed(results)
+    parity_ising(results)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
 
     # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
@@ -1239,6 +1305,119 @@ def parity_delayed(results):
     results["site_sweep_delayed_cx"]["max_abs_err"] = err
 
 
+def ising_sweep_bound(C, tabs):
+    """K17's bound: each spin read and written once (1 byte each), its
+    float64 uniform read once, the per-chain int64 count read and written,
+    the tables read once; z + 3 integer operations per site (the neighbor
+    sum, the product, the compare, the flip) at the FP32 issue rate."""
+    N, z = tabs.N, tabs.z
+    nbytes = (C * N * (1 + 8 + 1) + 16 * C
+              + 4 * (N * z + N + len(tabs.bounds)) + 8 * (z + 1))
+    return bound(nbytes, C * N * (z + 3))
+
+
+def wolff_step_bound(C, tabs, n_front):
+    """K18's bound for one level whose frontier holds n_front sites (over all
+    chains): conf, in_cluster and frontier read, the new in_cluster and
+    frontier written (5 bytes per site), the seed spins and the reverse
+    table read, and the float64 uniforms of the frontier's bonds (8z bytes
+    per frontier site; no other uniform decides a bond); a compare per site
+    and a compare and an OR per frontier bond."""
+    N, z = tabs.N, tabs.z
+    nbytes = (5 * C * N + 8 * z * n_front + 4 * tabs.rev.numel() + C + 4)
+    return bound(nbytes, C * N + 2 * z * n_front)
+
+
+def parity_ising(results):
+    """K17 against its plain version (conf and counts bit for bit) at
+    bench.py's ising_flips shape (262,144 chains of the 8x8), at the 3x3
+    (four color classes) and on the cubic L = 4, and K18 against its plain version
+    (cluster, frontier and flag bit for bit) at the Wolff run's shape a few
+    BFS levels into the clusters; each relaunched REPEATS times, bit-equal
+    to the first; the bench shape's and K18's times and bounds into
+    results."""
+    import torch
+    from montecarlo_tpu_torch import IsingModel, IsingTc, SquareLattice
+    from montecarlo_tpu_torch.ops import ising as kis
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    f64 = dict(device=DEVICE, dtype=torch.float64)
+    for tag, model, C, beta in (
+            ("8x8", IsingModel(dims=2, L=ISING_L), ISING_CHAINS, ISING_BETA),
+            ("3x3", IsingModel(l=SquareLattice(3)),
+             ISING_SMALL_CHAINS, ISING_BETA),
+            ("cubic L=4", IsingModel(dims=3, L=4), ISING_SMALL_CHAINS,
+             ISING_BETA)):
+        tabs = kis.make_tables(model.lattice, beta, DEVICE)
+        conf = model.rand_conf(gen, C, DEVICE)
+        u = torch.rand(C, tabs.N, generator=gen, **f64)
+        zero = lambda: torch.zeros(C, dtype=torch.int64, device=DEVICE)
+        sweep = lambda: kis.ising_sweep(conf, u, tabs, zero())
+        out_k = sweep()
+        out_p = kis.ising_sweep_plain(conf, u, tabs, zero())
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(out_k, out_p)]
+        err = max((out_k[0].int() - out_p[0].int()).abs().max().item(),
+                  (out_k[1] - out_p[1]).abs().max().item())
+        acc = out_p[1].sum().item() / (C * tabs.N)
+        log(f"[parity] ising_sweep {tag} ({C}, {tabs.N}), z={tabs.z}, "
+            f"{len(tabs.bounds) - 1} color classes: conf and counts equal "
+            f"{same}, acceptance {acc:.4f}")
+        if not all(same):
+            raise AssertionError(f"ising_sweep disagrees with plain ({tag})")
+        repeats_equal(f"ising_sweep {tag}", sweep)
+        if tag == "8x8":
+            results["ising_sweep"] = dict(
+                max_abs_err=float(err),
+                ms=1e3 * timed(sweep, 50),
+                plain_ms=1e3 * timed(lambda: kis.ising_sweep_plain(
+                    conf, u, tabs, zero()), 5),
+                library_ms=None, **ising_sweep_bound(C, tabs))
+            dev = device_ms(lambda: kis.ising_sweep(conf, u, tabs,
+                                                    out_k[1]))
+            if dev is not None:
+                results["ising_sweep"]["device_ms"] = dev
+
+    # ---- K18 at the Wolff run's shape, WOLFF_PARITY_LEVELS levels into
+    # the clusters (plain levels from random seeds), then one level
+    model = IsingModel(dims=2, L=ISING_L)
+    C, N, z = WOLFF_CHAINS, len(model.lattice), model.lattice.coordination
+    tabs = kis.make_tables(model.lattice, 1.0 / IsingTc, DEVICE)
+    conf = model.rand_conf(gen, C, DEVICE)
+    seeds = torch.randint(0, N, (C,), generator=gen, device=DEVICE)
+    inc = torch.zeros(C, N, dtype=torch.bool, device=DEVICE)
+    inc[torch.arange(C, device=DEVICE), seeds] = True
+    spin = conf.gather(1, seeds[:, None]).contiguous()
+    front = inc
+    for _ in range(WOLFF_PARITY_LEVELS):
+        inc, front, _ = kis.wolff_step_plain(
+            conf, inc, front, spin, torch.rand(C, N, z, generator=gen, **f64),
+            tabs)
+    u = torch.rand(C, N, z, generator=gen, **f64)
+    step = lambda: kis.wolff_step(conf, inc, front, spin, u, tabs)
+    out_k = step()
+    out_p = kis.wolff_step_plain(conf, inc, front, spin, u, tabs)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(out_k, out_p)]
+    log(f"[parity] wolff_step ({C}, {N}, {z}) after "
+        f"{WOLFF_PARITY_LEVELS} levels: {int(inc.sum())} sites in clusters, "
+        f"{int(front.sum())} on the frontier, {int(out_p[1].sum())} added; "
+        f"cluster, frontier and flag equal {same}")
+    if not all(same):
+        raise AssertionError("wolff_step disagrees with plain")
+    repeats_equal("wolff_step", step)
+    err = max((a.int() - b.int()).abs().max().item()
+              for a, b in zip(out_k, out_p))
+    results["wolff_step"] = dict(
+        max_abs_err=float(err), ms=1e3 * timed(step, 50),
+        plain_ms=1e3 * timed(lambda: kis.wolff_step_plain(
+            conf, inc, front, spin, u, tabs), 5),
+        library_ms=None,
+        **wolff_step_bound(C, tabs, int(front.sum())))
+    dev = device_ms(step)
+    if dev is not None:
+        results["wolff_step"]["device_ms"] = dev
+
+
 def time_layouts(mod, G, sigma, u, kw):
     """Every layout of K6 or K9 (mod) that fits this shape, held against the
     layout cluster_plan picks (decisions identical, G within TOL_G of its
@@ -1311,10 +1490,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     from montecarlo_tpu_torch import (DQMC, magnetization,
                                       spin_density_correlation)
     from montecarlo_tpu_torch.dqmc import core
-    from montecarlo_tpu_torch.ops import KERNELS
     from montecarlo_tpu_torch.ops.linalg import _library_qr, qr_route
-    for fn in (*KERNELS.values(), _library_qr):
-        fn.launches = 0
+    read = zero_launches(library_qr=_library_qr)
     session = dict(dtype=torch.float32) if session is None else session
     model = (complex_model(L=L, dims=dims) if complex_
              else headline_model(repulsive=repulsive, L=L))
@@ -1331,8 +1508,7 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     sim.run(thermalization=therm, sweeps=sweeps, verbose=False)
     torch.cuda.synchronize()
     dur = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
-    launches["library_qr"] = _library_qr.launches
+    launches = read()
 
     ctx = sim.ctx
     n_pairs = therm + sweeps
@@ -2048,11 +2224,10 @@ def td_run():
             KERNELS[k].launches - b for k, b in zip(names, before)]))
 
     sim._measure_all = counted
-    for fn in KERNELS.values():
-        fn.launches = 0
+    read = zero_launches()
     sim.run(thermalization=TD_THERM, sweeps=TD_SWEEPS, verbose=False)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = read()
     ctx = sim.ctx
     n_udt, n_greens = ut.combined_udt_launches(ctx)
     n_udt += sum(ut.greens_kl_udts(ctx, *kl) for kl in TD_GREENS_AT)
@@ -2135,6 +2310,229 @@ def phase_timedisp(sim):
     launches = td_run()
     td_gate()
     return launches
+
+
+def classical_ising():
+    """(7a) bench.py's ising_flips row through MC(...).run(): K17 once per
+    sweep and nothing else; acceptance, energy per site and spin flips/s
+    (attempted flips of the measured sweeps over their wall seconds)."""
+    import torch
+    import montecarlo_tpu_torch as mt
+    read = zero_launches()
+    sim = mt.MC(mt.IsingModel(dims=2, L=ISING_L), beta=ISING_BETA,
+                n_chains=ISING_CHAINS, seed=0, measurements={},
+                device=DEVICE)
+    sim.run(thermalization=ISING_THERM, sweeps=0, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(thermalization=ISING_THERM, sweeps=ISING_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    dur = time.perf_counter() - t0
+    launches = read()
+    N = len(sim.model.lattice)
+    flips = ISING_SWEEPS * ISING_CHAINS * N / dur
+    e = float(sim.model.make_energy_fn()(sim.conf).mean()) / N
+    acc = sim.analysis.acc_rate
+    log(f"[ising] 8x8 beta={ISING_BETA} {ISING_CHAINS} chains, "
+        f"{ISING_THERM} + {ISING_SWEEPS} sweeps: ising_sweep launches "
+        f"{launches['ising_sweep']}; acceptance {acc:.5f}; e {e:.5f}; "
+        f"{ISING_SWEEPS} sweeps in {dur:.4f} s = {flips:.4e} spin flips/s")
+    expected = dict.fromkeys(launches, 0)
+    expected["ising_sweep"] = ISING_THERM + ISING_SWEEPS
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    vals = torch.unique(sim.conf).tolist()
+    if not (0.0 < acc < 1.0 and -2.0 < e < 0.0 and vals == [-1, 1]):
+        raise AssertionError(f"acceptance {acc}, e {e}, spins {vals}")
+    return launches
+
+
+def classical_wolff():
+    """(7b) Wolff moves at beta = 1/IsingTc through MC(...).run(): clusters
+    flip (acc_global > 0), <|m|> in WOLFF_M_RANGE; K18 launched once per BFS
+    level the host loop ran (one flag read, a host synchronization, each)."""
+    import torch
+    import montecarlo_tpu_torch as mt
+    read = zero_launches()
+    sim = mt.MC(mt.IsingModel(dims=2, L=ISING_L), beta=1.0 / mt.IsingTc,
+                n_chains=WOLFF_CHAINS, seed=1, global_moves=True,
+                global_rate=WOLFF_RATE, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(thermalization=WOLFF_THERM, sweeps=WOLFF_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    dur = time.perf_counter() - t0
+    launches = read()
+    a = sim.analysis
+    moves = (WOLFF_THERM + WOLFF_SWEEPS) // WOLFF_RATE
+    m = float(sim.observables()["Magn"]["m"].mean)
+    log(f"[wolff] 8x8 beta=1/Tc {WOLFF_CHAINS} chains, {WOLFF_THERM} + "
+        f"{WOLFF_SWEEPS} sweeps, a global move every {WOLFF_RATE}: launches "
+        f"ising_sweep {launches['ising_sweep']}, wolff_step "
+        f"{launches['wolff_step']}; {moves} moves, {a.levels_global} BFS "
+        f"levels = {a.levels_global / moves:.2f} levels (host syncs) per "
+        f"move; acc_global {a.acc_global} of {a.prop_global}; local "
+        f"acceptance {a.acc_rate:.5f}; <|m|> {m:.5f}; {dur:.3f} s")
+    expected = dict.fromkeys(launches, 0)
+    expected.update(ising_sweep=WOLFF_THERM + WOLFF_SWEEPS,
+                    wolff_step=a.levels_global)
+    if launches != expected or a.prop_global != moves * WOLFF_CHAINS:
+        raise AssertionError(f"launches {launches}, expected {expected}; "
+                             f"prop_global {a.prop_global}")
+    lo, hi = WOLFF_M_RANGE
+    if not (a.acc_global > 0 and lo < m < hi):
+        raise AssertionError(f"acc_global {a.acc_global}, <|m|> {m}")
+    return launches
+
+
+def exact_ising(L, beta):
+    """Exact <E> and <|M|> of the periodic L x L Ising model by enumeration
+    of its 2^(L*L) states (tests/test_ising_mc.py::exact_ising_3x3)."""
+    import itertools
+    import numpy as np
+    from montecarlo_tpu_torch import SquareLattice
+    bonds = SquareLattice(L).bonds[:, :2]
+    s = np.array(list(itertools.product([-1, 1], repeat=L * L)))
+    E = -np.sum(s[:, bonds[:, 0]] * s[:, bonds[:, 1]], axis=1)
+    M = np.abs(s.sum(axis=1))
+    w = np.exp(-beta * (E - E.min()))
+    return (E * w).sum() / w.sum(), (M * w).sum() / w.sum()
+
+
+def classical_enum():
+    """(7c) the 3x3 (four color classes) at beta 0.3 through
+    MC(...).run(): E and M within max(4 sigma, 0.05) of exact
+    enumeration."""
+    import montecarlo_tpu_torch as mt
+    read = zero_launches()
+    sim = mt.MC(mt.IsingModel(dims=2, L=ENUM_L), beta=ENUM_BETA,
+                n_chains=ENUM_CHAINS, seed=42, device=DEVICE)
+    sim.run(thermalization=ENUM_THERM, sweeps=ENUM_SWEEPS, verbose=False)
+    launches = read()
+    obs = sim.observables()
+    E, M = obs["Energy"]["E"], obs["Magn"]["M"]
+    E_x, M_x = exact_ising(ENUM_L, ENUM_BETA)
+    log(f"[enum] 3x3 beta={ENUM_BETA} {ENUM_CHAINS} chains, {ENUM_THERM} + "
+        f"{ENUM_SWEEPS} sweeps ({len(sim.model.lattice.site_colors)} color "
+        f"classes): E {E.mean:.5f} +- {E.std_error:.5f} (exact {E_x:.5f}), "
+        f"M {M.mean:.5f} +- {M.std_error:.5f} (exact {M_x:.5f}); "
+        f"ising_sweep launches {launches['ising_sweep']}")
+    if launches["ising_sweep"] != ENUM_THERM + ENUM_SWEEPS:
+        raise AssertionError(f"launches {launches}")
+    for name, r, x in (("E", E, E_x), ("M", M, M_x)):
+        if not abs(r.mean - x) < max(ENUM_SIGMAS * r.std_error, ENUM_ABS):
+            raise AssertionError(f"{name} {r.mean} +- {r.std_error} against "
+                                 f"exact {x}")
+    return launches
+
+
+def classical_io(tmp):
+    """(7d) checkpoints on the card: an MC run saved at sweep IO_MC_SPLIT
+    and resumed to IO_MC_SWEEPS, bit-equal in conf (and its binner means)
+    to an uninterrupted one; the f64 DQMC configuration saved after one
+    sweep and resumed for one more, bit-equal in conf in every chain, with
+    last_sweep and the observables' means equal; a headline-width float32
+    run with ConfigRecorder, replayed: K2 and K3 per recorded field as
+    greens_from_scratch schedules them (n_seg and 1), the replayed
+    occupation finite and within OCC_TOL of 0.5. Returns the kernels'
+    launches of its runs (the recorded run's excepted), summed."""
+    import numpy as np
+    import torch
+    import montecarlo_tpu_torch as mt
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def mc():
+        return mt.MC(mt.IsingModel(dims=2, L=ISING_L), beta=ISING_BETA,
+                     n_chains=IO_MC_CHAINS, seed=5, global_moves=True,
+                     global_rate=IO_MC_RATE, device=DEVICE)
+
+    read = zero_launches()
+    full = mc()
+    full.run(sweeps=IO_MC_SWEEPS, verbose=False, chunk=IO_MC_SPLIT)
+    part = mc()
+    part.run(sweeps=IO_MC_SPLIT, verbose=False, chunk=IO_MC_SPLIT)
+    fn = mt.save(str(tmp / "mc.mctorch"), part)
+    ok, part2 = mt.resume(fn, device=DEVICE, sweeps=IO_MC_SWEEPS,
+                          verbose=False, chunk=IO_MC_SPLIT)
+    add(read())
+    same = torch.equal(full.conf, part2.conf)
+    e_same = all(np.array_equal(full[k][n].mean, part2[k][n].mean)
+                 for k, n in (("Energy", "E"), ("Magn", "M")))
+    log(f"[io] MC {IO_MC_CHAINS} chains, saved at {IO_MC_SPLIT}, resumed to "
+        f"{part2.last_sweep}: conf bit-equal to the uninterrupted run "
+        f"{same}, binner means equal {e_same}; levels "
+        f"{full.analysis.levels_global} / {part2.analysis.levels_global}")
+    if not (ok and same and e_same and part2.last_sweep == IO_MC_SWEEPS):
+        raise AssertionError("the resumed MC run differs")
+
+    def dqmc(chains=F64_CHAINS, **kw):
+        return mt.DQMC(headline_model(), beta=BETA, delta_tau=DTAU,
+                       safe_mult=SAFE_MULT, n_chains=chains,
+                       measure_rate=1, seed=6, device=DEVICE, **kw)
+
+    read = zero_launches()
+    full = dqmc()
+    full.run(thermalization=1, sweeps=1, verbose=False)
+    part = dqmc()
+    part.run(thermalization=1, sweeps=0, verbose=False)
+    fn = mt.save(str(tmp / "dqmc.mctorch"), part)
+    ok, part2 = mt.resume(fn, device=DEVICE, thermalization=1, sweeps=1,
+                          verbose=False)
+    add(read())
+    per_chain = (full.state["conf"] == part2.state["conf"]).flatten(
+        1).all(1)
+    occ = [np.asarray(s.observables()["occ"]["occ"].mean) for s in
+           (full, part2)]
+    grn = [np.asarray(s.observables()["greens"]["greens"].mean) for s in
+           (full, part2)]
+    log(f"[io] DQMC float64 8x8 {F64_CHAINS} chains, 1 + 1 sweeps against "
+        f"1 saved + 1 resumed: conf bit-equal in {int(per_chain.sum())} of "
+        f"{F64_CHAINS} chains, last_sweep {full.last_sweep} / "
+        f"{part2.last_sweep}, occ means equal "
+        f"{np.array_equal(*occ)}, greens means equal "
+        f"{np.array_equal(*grn)}")
+    if not (ok and bool(per_chain.all()) and part2.last_sweep ==
+            full.last_sweep and np.array_equal(*occ)
+            and np.array_equal(*grn)):
+        raise AssertionError("the resumed float64 DQMC run differs")
+
+    sim = dqmc(CHAINS, dtype=torch.float32,
+               recorder=mt.ConfigRecorder(rate=1))
+    sim.run(thermalization=X_THERM, sweeps=X_SWEEPS, verbose=False)
+    read = zero_launches()
+    sim.replay()
+    launches = read()
+    add(launches)
+    n_rec, n_seg = len(sim.configs), sim.ctx.n_seg
+    occ = float(sim.observables()["occ"]["occ"].mean.mean())
+    log(f"[io] replay of {n_rec} recorded fields ({CHAINS} chains, "
+        f"float32): udt_qr {launches['udt_qr']}, udt_qr_solve "
+        f"{launches['udt_qr_solve']} (schedule {n_rec} x ({n_seg}, 1)); "
+        f"occupation {occ:.5f}")
+    if not (n_rec == X_SWEEPS and launches["udt_qr"] == n_rec * n_seg
+            and launches["udt_qr_solve"] == n_rec
+            and math.isfinite(occ) and abs(occ - 0.5) <= OCC_TOL):
+        raise AssertionError("replay's launches or occupation are off")
+    return totals
+
+
+def phase_classical(mark):
+    """Phase 7: the classical flavor and the checkpoints, each part ending
+    with mark(tag); returns the kernels' launches of its runs, summed."""
+    import tempfile
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, fn in (("ising", classical_ising),
+                        ("wolff", classical_wolff), ("enum", classical_enum),
+                        ("io", lambda: classical_io(Path(tmp)))):
+            for k, v in fn().items():
+                totals[k] = totals.get(k, 0) + v
+            mark(tag)
+    return totals
 
 
 def main():
@@ -2224,6 +2622,9 @@ def main():
     for k in launches:
         launches[k] += launchestd.get(k, 0)
     mark("timedisp")
+    launchescl = phase_classical(mark)
+    for k in launches:
+        launches[k] += launchescl.get(k, 0)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

@@ -5,7 +5,11 @@ measurements pushed into device-side binners: equal-time ones from the G at
 the measurement point, time-displaced ones from ``unequal_time.greens_kl``
 (``greens_at``) and from one pass of the combined iterator over all chains
 (``combined``, the susceptibilities). The per-chain device counters are
-drained into host integers after every chunk of sweeps.
+drained into host integers after every chunk of sweeps. A recorder keeps a
+host copy of every rate-th measurement-stage configuration (``replay``
+measures them again); ``state_dict`` / ``load_state`` carry the source
+state of a checkpoint (``io.checkpoint``), from which the stacks are
+rebuilt.
 """
 
 from __future__ import annotations
@@ -16,13 +20,16 @@ import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from . import core
 from . import unequal_time as ut
 from .parameters import DQMCParameters
+from ..io.checkpoint import SaveSchedule, common_state, restore_common
+from ..io.recorder import Discarder
 from ..measurements.core import MeasurementRegistry
-from ..utils.host import resolve_device
+from ..utils.host import generator_state, resolve_device, set_generator_state
 
 
 @dataclass
@@ -111,10 +118,6 @@ class DQMC:
                  thermalization_measurements: Optional[Dict] = None,
                  recorder=None, recording_rate: int = None,
                  last_sweep: int = 0, **params):
-        if recorder is not None or recording_rate is not None:
-            raise NotImplementedError(
-                "configuration recorders are not ported to montecarlo_tpu_torch "
-                "yet (ROADMAP Queue 1 item 8)")
         self.device = resolve_device(device)
         self.model = model
         self.parameters = self.p = DQMCParameters(**params)
@@ -137,6 +140,10 @@ class DQMC:
                           for g in self.generators])
         self.n_chains *= len(seeds)
         self.state = core.init_state(self.ctx, self.consts, conf)
+
+        self.configs = recorder if recorder is not None else Discarder()
+        if recording_rate is not None:
+            self.configs.rate = recording_rate
 
         self.measurements = MeasurementRegistry()
         self.thermalization_measurements = MeasurementRegistry()
@@ -165,8 +172,7 @@ class DQMC:
         """Rebuild every measurement's binners, empty, and restart the sweep
         count; the chain state is kept."""
         for registry in (self.measurements, self.thermalization_measurements):
-            for k, meas in registry.measurements.items():
-                registry.states[k] = meas.bind(self.n_chains, self.device)
+            registry.rebind(self.n_chains, self.device)
         self.last_sweep = 0
         return self
 
@@ -189,21 +195,26 @@ class DQMC:
     # ------------------------------------------------------------------- run
     def run(self, sweeps: int = None, thermalization: int = None,
             verbose: bool = True, safe_before: float = None,
-            safe_every: float = None, filename: str = None,
-            chunk: int = 16) -> bool:
+            safe_every: float = None, grace_period: float = 60.0,
+            filename: str = None, chunk: int = 16) -> bool:
         """Run thermalization + measurement sweeps. One sweep = one full
         [down; up] pass over imaginary time (2*slices*N site updates per
         chain). Measurements are taken every measure_rate sweeps (sweeps
-        counted from 1); counters are drained every ``chunk`` sweeps."""
-        if safe_before is not None or safe_every is not None or filename:
-            raise NotImplementedError(
-                "checkpointing is not ported to montecarlo_tpu_torch yet "
-                "(ROADMAP Queue 1 item 8)")
+        counted from 1); the recorder sees every measurement-stage sweep
+        (``configs.rate`` picks); counters are drained every ``chunk``
+        sweeps.
+
+        safe_before: an absolute wall-clock deadline (time.time() seconds):
+        when the next two chunks and grace_period would pass it, a
+        resumable checkpoint is written to ``filename`` and run returns
+        False. safe_every: a period in seconds between checkpoints."""
         p = self.parameters
         sweeps = sweeps if sweeps is not None else p.sweeps
         thermalization = (thermalization if thermalization is not None
                           else p.thermalization)
         total = sweeps + thermalization
+        record = not isinstance(self.configs, Discarder)
+        saves = SaveSchedule(safe_before, safe_every, grace_period)
         i = self.last_sweep
         while i < total:
             in_th = i < thermalization
@@ -216,7 +227,13 @@ class DQMC:
                 self.state, G_meas, conf_meas = core.sweep_pair(
                     self.ctx, self.consts, self.state, u=self._uniforms())
                 if registry.measurements and sweep_idx % p.measure_rate == 0:
-                    self._measure_all(registry, G_meas, conf_meas)
+                    self._measure_all(registry, G_meas, conf_meas,
+                                      self.state.get("phase_meas"))
+                if (record and not in_th
+                        and sweep_idx % self.configs.rate == 0):
+                    # the configuration at the sweep's end, to the host
+                    self.configs.push(sweep_idx,
+                                      self.state["conf"].cpu().numpy())
             self._drain_counters()      # reads device values: synchronizes
             dur = time.perf_counter() - t0
             self.analysis.sweep_duration = dur / n
@@ -227,6 +244,8 @@ class DQMC:
                       f"acc={self.analysis.acc_rate:.3f}  "
                       f"({dur / n * 1e3:.1f} ms/sweep)  "
                       f"prop_err_max={self.analysis.propagation_error.max:.2e}")
+            if saves.after_chunk(self, dur, filename, verbose):
+                return False
         if verbose and not p.silent:
             self._report_errors()
         return True
@@ -240,16 +259,16 @@ class DQMC:
                                      dtype=self.ctx.urdtype)
                           for g in self.generators])
 
-    def _measure_all(self, registry, G_meas, conf_meas):
+    def _measure_all(self, registry, G_meas, conf_meas, phase=None):
         """Push every measurement of a stage, grouped by the Green's
         functions it needs so that each is computed once: the equal-time
         ones from the physical G at the measurement point, each distinct
         G(k, l) of the ``greens_at`` ones from ``ut.greens_kl``, and the
-        ``combined`` ones from one pass of the combined iterator."""
+        ``combined`` ones from one pass of the combined iterator. phase:
+        the configuration-weight phase (C,) of a complex session."""
         ctx, consts = self.ctx, self.consts
         items = registry.measurements.items()
         G_phys = core.unwrap_greens(ctx, consts, G_meas)
-        phase = self.state.get("phase_meas")
         for k, m in items:
             if m.kind == "equal":
                 m.push(registry.states[k], m.measure_fn(
@@ -368,15 +387,81 @@ class DQMC:
             G = ut.greens_kl(self.ctx, self.consts, conf, slice_idx, l)
         return core.unwrap_greens(self.ctx, self.consts, G)
 
-    def replay(self, configurations=None, verbose: bool = False):
-        """Measurements over recorded configurations (the JAX package's
-        DQMC.replay)."""
-        raise NotImplementedError(
-            "replay is not ported to montecarlo_tpu_torch yet "
-            "(ROADMAP Queue 1 item 8)")
+    def replay(self, configurations=None, verbose: bool = False) -> bool:
+        """Measure every recorded HS field again (default: the recorder's),
+        into fresh binners: G_eff(0) of each field from scratch
+        (``core.greens_from_scratch``, n_seg UDTs and one Green's solve:
+        K2 and K3 on the float32 kernel route) and, for a complex session,
+        its weight phase, then the measurement pass."""
+        configurations = (configurations if configurations is not None
+                          else self.configs)
+        ctx, consts, registry = self.ctx, self.consts, self.measurements
+        registry.rebind(self.n_chains, self.device)
+        for conf in configurations:
+            conf = torch.as_tensor(np.asarray(conf)).to(self.device)
+            G = core.greens_from_scratch(ctx, consts, conf, 0)
+            phase = (core.phase_from_conf(ctx, consts, conf)
+                     if ctx.is_complex else None)
+            self._measure_all(registry, G, conf, phase)
+        return True
 
     # ------------------------------------------------------------ observables
     def observables(self, stage: str = "ME"):
         registry = (self.measurements if stage == "ME"
                     else self.thermalization_measurements)
         return registry.observables(context=self)
+
+    # ------------------------------------------------------------ persistence
+    def state_dict(self):
+        """The session's source state: parameters, numeric switches, the
+        field, each seed's generator, the recorder, the binner states and
+        the analysis. The stacks and G are derived and not saved."""
+        ctx = self.ctx
+        return {
+            "type": "DQMC",
+            "parameters": {k: v for k, v in self.parameters.as_dict().items()
+                           if k != "warn_round"},
+            # every switch of the session's numerics, so that a float32
+            # checkpoint resumes float32 on the same route
+            "numerics": {
+                "dtype": str(ctx.dtype),
+                "update_dtype": (None if ctx.update_dtype is None
+                                 else str(ctx.update_dtype)),
+                "stab_method": ctx.stab_method,
+                "use_kernels": ctx.use_kernels,
+                "delay": ctx.delay,
+                "checkerboard": ctx.checkerboard,
+                "g_refresh": ctx.g_refresh,
+                "fuse_wrap": ctx.fuse_wrap,
+                "qr_wy": ctx.qr_wy,
+            },
+            "conf": self.state["conf"].cpu().numpy(),
+            "rng": [generator_state(g) for g in self.generators],
+            **common_state(self),
+        }
+
+    def load_state(self, state):
+        """Restore a ``state_dict``: the stacks and G are rebuilt from the
+        field by ``core.init_state`` (the counters start fresh), each
+        generator's state is restored (ValueError when it was saved on
+        another device type), then the recorder, binner states and
+        analysis."""
+        conf = torch.as_tensor(np.asarray(state["conf"]))
+        if (tuple(conf.shape) != tuple(self.state["conf"].shape)
+                or len(state["rng"]) != len(self.generators)):
+            raise ValueError(
+                f"checkpoint conf {tuple(conf.shape)} with "
+                f"{len(state['rng'])} generators does not match this "
+                f"simulation's {tuple(self.state['conf'].shape)} with "
+                f"{len(self.generators)}")
+        for g, saved in zip(self.generators, state["rng"]):
+            set_generator_state(g, saved)
+        self.parameters = self.p = DQMCParameters(**state["parameters"])
+        self.state = core.init_state(self.ctx, self.consts,
+                                     conf.to(self.device))
+        restore_common(self, state)
+        an = dict(state["analysis"])
+        for k in ("negative_probability", "imaginary_probability",
+                  "propagation_error"):
+            an[k] = MagnitudeStats(**an[k])
+        self.analysis = self.a = DQMCAnalysis(**an)

@@ -1,4 +1,6 @@
 from .lattice import Lattice, UnitCell
-from .library import Chain, SquareLattice, choose_lattice
+from .library import (Chain, CubicLattice, GenericLattice, Honeycomb,
+                      SquareLattice, TriangularLattice, choose_lattice)
 
-__all__ = ["Chain", "Lattice", "UnitCell", "SquareLattice", "choose_lattice"]
+__all__ = ["Chain", "CubicLattice", "GenericLattice", "Honeycomb", "Lattice",
+           "SquareLattice", "TriangularLattice", "UnitCell", "choose_lattice"]

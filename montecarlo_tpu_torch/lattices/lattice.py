@@ -1,11 +1,12 @@
 """Bravais lattices with a basis (numpy only).
 
 Counterpart of montecarlo_tpu/lattices/lattice.py, restricted to what the
-DQMC engine and its equal-time measurements read: site count, bonds, the
+engines, their measurements and checkpoints read: site count, bonds, the
 neighbor table, the binning of site pairs by their minimal periodic
-displacement, and the greedy colorings of bonds (checkerboard groups) and
-sites. Site numbering, bond order and direction bins are the JAX
-package's, so hopping matrices and binned observables agree bit for bit.
+displacement, the greedy colorings of bonds (checkerboard groups) and
+sites, and ``state_dict``. Site numbering, bond order and direction bins
+are the JAX package's, so hopping matrices and binned observables agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -120,6 +121,29 @@ class Lattice:
 
     def lattice_vectors(self) -> np.ndarray:
         return self.cell_vectors
+
+    def state_dict(self):
+        """What rebuilds the lattice: the unit cell and the shape
+        (``Lattice(UnitCell(...), shape)``), the JAX package's layout."""
+        uc = self.unitcell
+        return {
+            "name": uc.name,
+            "primitive_vectors": np.asarray(uc.primitive_vectors),
+            "basis": np.asarray(uc.basis),
+            "bonds": [[a, b, list(off), t] for (a, b, off, t) in uc.bonds],
+            "shape": list(self.shape),
+        }
+
+    @classmethod
+    def from_state(cls, state):
+        """The lattice of a ``state_dict``."""
+        uc = UnitCell(
+            name=state["name"],
+            primitive_vectors=np.asarray(state["primitive_vectors"]),
+            basis=np.asarray(state["basis"]),
+            bonds=tuple((int(a), int(b), tuple(int(o) for o in off), int(t))
+                        for (a, b, off, t) in state["bonds"]))
+        return cls(uc, tuple(state["shape"]))
 
     # --------------------------------------------------------- checkerboard
     @cached_property

@@ -12,6 +12,7 @@ iterator (``combined``, the susceptibilities).
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -136,9 +137,34 @@ class MeasurementRegistry:
         self.measurements[key] = meas
         self.states[key] = meas.bind(n_chains, device)
 
+    def rebind(self, n_chains: int, device):
+        """Give every measurement empty binners."""
+        for k, meas in self.measurements.items():
+            self.states[k] = meas.bind(n_chains, device)
+
     def remove(self, key: str):
         self.measurements.pop(key, None)
         self.states.pop(key, None)
+
+    def host_states(self):
+        """numpy copies of every binner state (for a checkpoint)."""
+        return {k: {n: LogBinner.to_host(st) for n, st in states.items()}
+                for k, states in self.states.items()}
+
+    def restore_states(self, saved: Dict, what: str = "", device="cpu"):
+        """Load checkpointed binner states (``host_states``) onto device. A
+        saved key with no matching measurement warns instead of vanishing
+        silently."""
+        for k, st in saved.items():
+            if k in self.states:
+                self.states[k] = {n: LogBinner.from_host(s, device)
+                                  for n, s in st.items()}
+            else:
+                warnings.warn(
+                    f"checkpoint carries {what} state for measurement {k!r} "
+                    "but the rebuilt simulation has no such measurement: its "
+                    "accumulated data is dropped. Re-add the measurement via "
+                    "mc[key] = ... before load_state/resume to keep it.")
 
     def __getitem__(self, key) -> Dict[str, ObservableResult]:
         meas = self.measurements[key]

@@ -1,0 +1,142 @@
+"""Ising model (counterpart of montecarlo_tpu/models/ising.py).
+
+H = - sum_<i,j> s_i s_j (J = 1). Configurations are (C, N) int8 ±1
+tensors, batched over chains. The two moves run on hand-written kernels
+(``ops/ising.py``):
+
+* the Metropolis sweep, checkerboard-colored: the sites of one color class
+  of ``Lattice.site_colors`` have no bond between them, so one class is
+  decided at once, classes in order (kernel K17, one launch per sweep);
+* the Wolff cluster move as a batched breadth-first search, one level per
+  launch of kernel K18, driven by a host loop that reads one flag per level
+  to stop (the JAX package's lax.while_loop): one host synchronization per
+  BFS level.
+
+The moves take their random numbers as arguments (the sweep its uniforms,
+the cluster move its seeds and a callable drawing each level's uniforms),
+so a caller can feed them the JAX package's stream; ``mc.MC`` draws them
+from the session's ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from .base import Model
+from ..lattices.lattice import Lattice
+from ..lattices.library import choose_lattice
+from ..ops import ising as kising
+
+#: Exact critical temperature of the 2D Ising model
+IsingTc = 2.0 / math.log(1.0 + math.sqrt(2.0))
+
+
+class IsingModel(Model):
+    """Ising model on a chain, square or cubic lattice (dims and L) or any
+    lattice of even coordination (l). A lattice whose neighbor table is
+    padded with -1 raises ValueError (``ops.ising.check_table``)."""
+
+    def __init__(self, dims: int = None, L: int = None, l: Lattice = None,
+                 **kwargs):
+        if l is None:
+            if dims is None or L is None:
+                raise ValueError("IsingModel requires either l=lattice or "
+                                 "dims and L")
+            l = choose_lattice(dims, L)
+        kising.check_table(l.neighbor_table)
+        self.lattice = l
+
+    def parameters(self) -> Dict:
+        return {"dims": self.lattice.dim, "L": self.lattice.shape[0]}
+
+    def __repr__(self):
+        return f"IsingModel({len(self.lattice)} sites)"
+
+    def rand_conf(self, generator: torch.Generator, n_chains: int,
+                  device=None) -> torch.Tensor:
+        """Random ±1 spins, (C, N) int8, drawn from ``generator`` (which
+        must live on ``device``; default: the generator's device)."""
+        device = generator.device if device is None else device
+        bits = torch.randint(0, 2, (n_chains, len(self.lattice)),
+                             generator=generator, device=device,
+                             dtype=torch.int8)
+        return 2 * bits - 1
+
+    def make_energy_fn(self):
+        """E(conf) per chain, (C,) float64: -sum over bonds s_src s_trg."""
+        bonds = torch.as_tensor(self.lattice.bonds[:, :2]).long()
+        on = {}                         # the bond list on each device
+
+        def energy(conf):
+            b = on.get(conf.device)
+            if b is None:
+                b = on[conf.device] = bonds.to(conf.device)
+            s = conf.to(torch.float64)
+            return -(s[:, b[:, 0]] * s[:, b[:, 1]]).sum(dim=1)
+
+        return energy
+
+    def make_magnetization_fn(self):
+        """|M|(conf) per chain, (C,) float64."""
+        def magnetization(conf):
+            return conf.to(torch.float64).sum(dim=1).abs()
+
+        return magnetization
+
+    def make_sweep_fn(self, beta: float, device, use_kernels: bool = True):
+        """One checkerboard Metropolis sweep over all sites:
+        sweep(conf, u, acc) -> (conf, acc) with u (C, N) float64 in class
+        order (``ops.ising.ising_sweep_plain``) and acc (C,) int64, to which
+        each chain's accepted count is added in place. K17 on CUDA
+        tensors (use_kernels=False: its plain version on any device)."""
+        tabs = kising.make_tables(self.lattice, beta, device)
+        step = kising.ising_sweep if use_kernels else kising.ising_sweep_plain
+
+        def sweep(conf, u, acc):
+            return step(conf, u, tabs, acc)
+
+        return sweep
+
+    def make_global_move_fn(self, beta: float, device,
+                            use_kernels: bool = True):
+        """The Wolff cluster move of every chain as a batched BFS:
+        global_move(conf, seeds, draw) -> (flipped conf, cluster sizes (C,),
+        levels). seeds (C,) are the clusters' first sites; draw() returns
+        the next level's uniforms (C, N, z) float64. Each level is one K18
+        launch on CUDA tensors (use_kernels=False: its plain version) and
+        one host read of its flag, until no chain's frontier has a site;
+        every candidate bond is tried at most once."""
+        tabs = kising.make_tables(self.lattice, beta, device)
+        step = kising.wolff_step if use_kernels else kising.wolff_step_plain
+        N = len(self.lattice)
+
+        def global_move(conf, seeds, draw):
+            C = conf.shape[0]
+            in_cluster = torch.zeros(C, N, dtype=torch.bool,
+                                     device=conf.device)
+            in_cluster[torch.arange(C, device=conf.device), seeds] = True
+            seed_spin = conf.gather(1, seeds.long()[:, None])
+            frontier = in_cluster
+            # one zeroed flag per level: a search ends within N levels
+            flags = torch.zeros(N + 1, dtype=torch.int32, device=conf.device)
+            levels = 0
+            while True:
+                in_cluster, frontier, flag = step(
+                    conf, in_cluster, frontier, seed_spin, draw(), tabs,
+                    flags[levels:levels + 1])
+                levels += 1
+                if not flag.item():          # one host synchronization
+                    break
+            flipped = torch.where(in_cluster, -conf, conf)
+            return flipped, in_cluster.sum(dim=1), levels
+
+        return global_move
+
+    def default_measurements(self, mc):
+        from ..measurements.ising import (IsingEnergyMeasurement,
+                                          IsingMagnetizationMeasurement)
+        return {"Energy": IsingEnergyMeasurement(mc, self),
+                "Magn": IsingMagnetizationMeasurement(mc, self)}

@@ -6,9 +6,11 @@ site_sweep_wrap (K13), udt_qr (K2), udt_qr_solve (K3), the unfused
 Householder QR qr_f32 (K4) and qr_f64 (K11) and the one emitting its
 reflectors qr_vtau (K14), site_sweep_delayed (K6) and qr_blocked (K7) for
 N > 128, and for complex hopping site_sweep_cx (K8) and qr_cx (K10) for
-N <= 128 and site_sweep_delayed_cx (K9) beyond."""
+N <= 128 and site_sweep_delayed_cx (K9) beyond; for the Ising model the
+checkerboard Metropolis sweep ising_sweep (K17) and the Wolff BFS level
+wolff_step (K18)."""
 
-from . import (qr, qr_blocked, qr_cx, qr_householder, site_sweep,
+from . import (ising, qr, qr_blocked, qr_cx, qr_householder, site_sweep,
                site_sweep_cx, site_sweep_delayed, site_sweep_delayed_cx)
 
 # the kernel wrappers, each with its plain-integer launch count `.launches`
@@ -25,8 +27,10 @@ KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "site_sweep_delayed_cx": site_sweep_delayed_cx.site_sweep_delayed_cx,
            "site_sweep_wrap": site_sweep.site_sweep_wrap,
            "qr_vtau": qr_householder.qr_vtau,
-           "site_sweep_single": site_sweep.site_sweep_single}
+           "site_sweep_single": site_sweep.site_sweep_single,
+           "ising_sweep": ising.ising_sweep,
+           "wolff_step": ising.wolff_step}
 
-__all__ = ["KERNELS", "qr", "qr_blocked", "qr_cx", "qr_householder",
+__all__ = ["KERNELS", "ising", "qr", "qr_blocked", "qr_cx", "qr_householder",
            "site_sweep", "site_sweep_cx", "site_sweep_delayed",
            "site_sweep_delayed_cx"]

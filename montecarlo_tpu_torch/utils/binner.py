@@ -68,6 +68,22 @@ class LogBinner:
             state["has_pending"][k] = False
         return state
 
+    # ---------------------------------------------------------- checkpoints
+    DEVICE_KEYS = ("total", "sumsq", "pending")
+
+    @staticmethod
+    def to_host(state):
+        """A numpy copy of a state (for a checkpoint)."""
+        return {k: v.cpu().numpy() if torch.is_tensor(v) else np.array(v)
+                for k, v in state.items()}
+
+    @staticmethod
+    def from_host(state, device):
+        """The state of a ``to_host`` copy, its sums on ``device``."""
+        return {k: (torch.from_numpy(np.array(v)).to(device)
+                    if k in LogBinner.DEVICE_KEYS else np.array(v))
+                for k, v in state.items()}
+
     # ------------------------------------------------------------ statistics
     @staticmethod
     def _normalized(state):

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,25 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def generator_state(generator: torch.Generator) -> dict:
+    """A generator's state for a checkpoint: the device type it draws on and
+    ``get_state()`` as a numpy uint8 array."""
+    return {"device": generator.device.type,
+            "state": generator.get_state().numpy().copy()}
+
+
+def set_generator_state(generator: torch.Generator, saved: dict):
+    """Restore ``generator_state``'s copy into generator. A state saved on
+    another device type raises ValueError: the stream of one device does not
+    continue on another, and reseeding would change the run."""
+    if saved["device"] != generator.device.type:
+        raise ValueError(
+            f"the checkpoint's random generators draw on {saved['device']!r} "
+            f"but this simulation runs on {generator.device.type!r}: load "
+            f"it with device={saved['device']!r} (a generator's stream does "
+            "not carry over between devices, and reseeding would change the "
+            "run)")
+    generator.set_state(torch.from_numpy(
+        np.asarray(saved["state"], dtype=np.uint8).copy()))

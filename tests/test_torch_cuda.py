@@ -1021,3 +1021,73 @@ def test_site_sweep_tiled_shapes_bit_equal(cuda, cx, F, N):
         out_k = ss.site_sweep(G, sigma, u, **kw)
         out_p = ss.site_sweep_plain(G, sigma, u, **kw)[:4]
     _equal_outputs(out_k, out_p)
+
+
+# ---------------------------------------------------------------------------
+# the classical flavor: K17 and K18, MC and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims,L", [(2, 8), (2, 3), (3, 4), (1, 5)])
+def test_ising_sweep_kernel_matches_plain(cuda, dims, L):
+    """K17 against its plain version: conf and the per-chain counts bit for
+    bit, on two, three and four color classes."""
+    from montecarlo_tpu_torch.ops import ising as kis
+    model = tmc.IsingModel(dims=dims, L=L)
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    tabs = kis.make_tables(model.lattice, 0.44, cuda)
+    conf = model.rand_conf(gen, 1000, cuda)
+    u = torch.rand(1000, tabs.N, generator=gen, device=cuda,
+                   dtype=torch.float64)
+    zero = lambda: torch.zeros(1000, dtype=torch.int64, device=cuda)
+    n0 = kis.ising_sweep.launches
+    out_k = kis.ising_sweep(conf, u, tabs, zero())
+    assert kis.ising_sweep.launches == n0 + 1
+    out_p = kis.ising_sweep_plain(conf, u, tabs, zero())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+
+
+def test_wolff_step_kernel_matches_plain(cuda):
+    """K18 against its plain version a few levels into the clusters:
+    cluster, frontier and flag bit for bit."""
+    from montecarlo_tpu_torch.ops import ising as kis
+    model = tmc.IsingModel(dims=2, L=8)
+    C, N, z = 512, 64, 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tabs = kis.make_tables(model.lattice, 1.0 / tmc.IsingTc, cuda)
+    conf = model.rand_conf(gen, C, cuda)
+    seeds = torch.randint(0, N, (C,), generator=gen, device=cuda)
+    inc = torch.zeros(C, N, dtype=torch.bool, device=cuda)
+    inc[torch.arange(C, device=cuda), seeds] = True
+    spin = conf.gather(1, seeds[:, None]).contiguous()
+    front = inc
+    for _ in range(4):
+        u = torch.rand(C, N, z, generator=gen, device=cuda,
+                       dtype=torch.float64)
+        out_k = kis.wolff_step(conf, inc, front, spin, u, tabs)
+        out_p = kis.wolff_step_plain(conf, inc, front, spin, u, tabs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+        inc, front = out_p[0], out_p[1]
+
+
+def test_mc_run_launches_k17_and_k18(cuda):
+    """MC.run on the card: one K17 per sweep, one K18 per BFS level."""
+    from montecarlo_tpu_torch.ops import ising as kis
+    kis.ising_sweep.launches = kis.wolff_step.launches = 0
+    sim = tmc.MC(tmc.IsingModel(dims=2, L=8), beta=1.0 / tmc.IsingTc,
+                 n_chains=256, global_moves=True, global_rate=2, device=cuda)
+    sim.run(thermalization=4, sweeps=6, verbose=False)
+    assert kis.ising_sweep.launches == 10
+    assert kis.wolff_step.launches == sim.analysis.levels_global > 0
+
+
+def test_cpu_checkpoint_refused_on_cuda(cuda, tmp_path):
+    """A checkpoint whose generator drew on the CPU does not load on the
+    card: never silently reseeded."""
+    sim = tmc.MC(tmc.IsingModel(dims=2, L=4), beta=0.4, n_chains=4,
+                 device="cpu")
+    sim.run(sweeps=3, verbose=False)
+    fn = tmc.save(str(tmp_path / "cpu.mctorch"), sim)
+    with pytest.raises(ValueError, match="draw on 'cpu'"):
+        tmc.load(fn, device="cuda")

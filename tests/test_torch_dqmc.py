@@ -119,10 +119,17 @@ def test_square_lattice_tables_identical(L):
 
 
 def test_unported_lattices_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_lattice(3, 4)
+    """dims=3 takes the cubic lattice (ported with the classical flavor),
+    as the JAX package's; dims=4 has no default; a checkpoint of an ALPS
+    lattice names ROADMAP Queue 1 item 9, which ports them."""
+    np.testing.assert_array_equal(t_lattice(3, 4).neighbor_table,
+                                  j_lattice(3, 4).neighbor_table)
     with pytest.raises(ValueError):
         t_lattice(4, 4)
+    from montecarlo_tpu_torch.io.checkpoint import _reconstruct_model
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        _reconstruct_model({"type": "HubbardModelAttractive",
+                            "parameters": {}, "lattice": {"kind": "arbitrary"}})
 
 
 @pytest.mark.parametrize("repulsive", [False, True])
@@ -518,13 +525,14 @@ def test_unported_entry_points_raise():
                        kind="combined").kind == "combined"
     with pytest.raises(ValueError, match="unknown measurement kind"):
         Measurement("x", {"x": ()}, lambda **_: {}, kind="unequal")
+    # recorders, checkpoints and replay are ported (tests/
+    # test_torch_fileio.py): a recorder is taken, replay of nothing measures
+    # nothing, and a retired stabilization still names the ROADMAP
+    sim = tmc.DQMC(tm, beta=1.0, n_chains=2, device="cpu",
+                   recorder=tmc.ConfigRecorder(rate=1))
+    assert sim.replay() and sim.observables()["occ"]["occ"].count == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmc.DQMC(tm, beta=1.0, device="cpu", recorder=object())
-    sim = tmc.DQMC(tm, beta=1.0, n_chains=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run(sweeps=1, thermalization=0, filename="x.jld2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.replay()
+        tmc.DQMC(tm, beta=1.0, n_chains=2, device="cpu", stab_method="cholqr")
 
 
 def test_dqmc_item_access_and_reset():

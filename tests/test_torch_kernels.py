@@ -706,7 +706,8 @@ def test_wrappers_raise_off_cpu_without_kernel():
                             "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
                             "site_sweep_f64", "site_sweep_pair",
                             "site_sweep_delayed_cx", "site_sweep_wrap",
-                            "qr_vtau", "site_sweep_single"}
+                            "qr_vtau", "site_sweep_single", "ising_sweep",
+                            "wolff_step"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -719,7 +720,7 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     objects into the shared library under the ignored build directory."""
     out = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "qr_blocked.cu", "qr_cx.cu", "qr_f64.cu", "site_sweep.cu",
+        "ising.cu", "qr_blocked.cu", "qr_cx.cu", "qr_f64.cu", "site_sweep.cu",
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
     assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
@@ -746,7 +747,8 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "qr_cx_c64_stamps", "qr_blocked_f32_stamps",
         "site_sweep_f32_stamps", "site_sweep_cx_c64_stamps",
         "udt_qr_f32_stamps", "udt_qr_solve_f32_stamps", "qr_f64_stamps",
-        "site_sweep_wrap_f32_stamps", "qr_f32_stamps"}
+        "site_sweep_wrap_f32_stamps", "qr_f32_stamps", "ising_sweep_i8",
+        "wolff_step_u8"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

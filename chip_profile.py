@@ -59,6 +59,17 @@ the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
 
+    python3 chip_profile.py timers [TRACE]
+
+runs the headline through DQMC.run (1 + 2 sweeps) with the timers on
+(montecarlo_tpu_torch.utils.timing) under torch.profiler, and prints each
+timed section (dqmc_block: one per chunk of sweeps), as the profiler saw its
+record_function range, with its wall and the device time of the device
+events inside it, then print_timer's tree; the chrome trace, which shows
+the sections over the kernels, goes to TRACE (default
+chiprun_out/timers_trace.json.gz; gzipped when the name ends in .gz). Each
+section is also an NVTX range.
+
     python3 chip_profile.py ptxas [SOURCE ...]
 
 compiles the named csrc/ sources (default: site_sweep.cu and
@@ -471,8 +482,68 @@ def ptxas(names):
                           f"{line.split('ptxas info    :')[-1].strip()}")
 
 
+def timers(trace):
+    """The headline through DQMC.run with the timers on, under the
+    profiler: each timed section's wall and the device time inside it."""
+    import io
+    from pathlib import Path
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from montecarlo_tpu_torch.utils import timing
+    warm, _ = smoke.item9_session(seed=10)        # builds, first launches
+    warm.run(thermalization=1, sweeps=0, verbose=False)
+    sim, _ = smoke.item9_session(seed=10)
+    timing.reset_timer()
+    timing.enable_benchmarks()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim.run(thermalization=smoke.ITEM9_THERM,
+                    sweeps=smoke.ITEM9_SWEEPS, verbose=False)
+            torch.cuda.synchronize()
+    finally:
+        timing.disable_benchmarks()
+    events = prof.events()
+    # the profiler also draws each record_function range on the device's
+    # timeline (a gpu_user_annotation under the section's name): not work
+    names = set(timing.timer_data())
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name not in names]
+    sections = [e for e in events if e.name == "dqmc_block"
+                and e.device_type == DeviceType.CPU]
+    if not dev or not sections:
+        raise SystemExit("chip_profile: the profiler recorded no device "
+                         "events or no timed section")
+    for i, sec in enumerate(sections):
+        r = sec.time_range
+        inside = [e for e in dev if r.start <= e.time_range.start
+                  and e.time_range.end <= r.end]
+        us = sum(e.time_range.elapsed_us() for e in inside)
+        print(f"[timers] {sec.name} #{i}: wall {r.elapsed_us() / 1e3:.3f} ms,"
+              f" device {us / 1e3:.3f} ms in {len(inside)} device events "
+              f"(busy share {us / r.elapsed_us():.3f})")
+    buf = io.StringIO()
+    timing.print_timer(buf)
+    for line in buf.getvalue().splitlines():
+        print(f"[timers] print_timer: {line}")
+    timing.reset_timer()
+    Path(trace).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    print(f"[timers] chrome trace: {trace}", flush=True)
+
+
 def main(argv):
     import torch
+    if argv[:1] == ["timers"]:
+        if not torch.cuda.is_available():
+            print("chip_profile: needs one NVIDIA GPU", file=sys.stderr)
+            return 1
+        smoke.import_port()
+        print("smi", smi(), flush=True)
+        timers(argv[1] if len(argv) > 1
+               else "chiprun_out/timers_trace.json.gz")
+        return 0
     if argv[:1] == ["ptxas"]:
         smoke.import_port()
         ptxas(argv[1:])

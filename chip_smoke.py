@@ -158,6 +158,25 @@ failure and prints no result line then):
               with ConfigRecorder replayed (K2, K3 per recorded field as
               greens_from_scratch schedules them, occupation near 0.5)
 
+  8. item9   ALPS lattices, custom measurements, post-processing and the
+              timers at the headline (256 chains, float32, 1 + 2 sweeps):
+              (a) alps, the 8x8 written as an ALPS GRAPH file and run on
+              ALPSLattice(file) and on SquareLattice(8) with one seed: conf
+              and G bit-equal, K1, K2 and K3 launches equal; the ALPS
+              session saved and loaded, conf bit-equal; (b) custom, a custom
+              CDC (EachSitePairByDistance), PC (selection_matrices,
+              EachLocalQuadByDistance(4)), CDS (CombinedGreensIterator) and
+              GreensAt(50, 0) beside the shipped ones, float64 binner means
+              within TOL_CUSTOM relative; K2/K3 per measurement pass
+              against the schedule; wall and device ms per measured sweep
+              with and without the custom set; (c) postproc, S(q) of the
+              CDC mean over reciprocal_discretization (64 q points), S(q =
+              0) within TOL_SQ0 of uniform_fourier, the PC's s-wave
+              apply_symmetry finite; (d) timers, enable_benchmarks():
+              dqmc_block counted once per chunk, its total in (0, the wall
+              around run], print_timer's lines, and the wall of the run
+              with the timers off and on, in turns
+
 Each phase ends with a [time] line: the seconds since the script started.
 
 The last line of standard output is
@@ -348,6 +367,18 @@ WOLFF_PARITY_LEVELS = 3
 # for 1 more; a headline-width float32 DQMC run (1 + 2 sweeps) recording
 # every measured sweep, then replayed
 IO_MC_CHAINS, IO_MC_SPLIT, IO_MC_SWEEPS, IO_MC_RATE = 1024, 30, 60, 3
+# phase 8 (item9): headline sessions of 1 + 2 sweeps: on an ALPS file of
+# the 8x8 and on SquareLattice(8) with one seed (8a); custom measurements
+# beside the shipped ones (8b: CDC, PC with K = 4, CDS and G(k, l) at
+# ITEM9_GREENS_AT); the timers (8d: two runs with the timers off and two
+# with them on, in turns)
+ITEM9_THERM, ITEM9_SWEEPS, ITEM9_K = 1, 2, 4
+ITEM9_GREENS_AT = (50, 0)
+# a custom measurement's float64 binner mean against the shipped one's,
+# max|a - b| / max|b|: the same float32 kernel arithmetic in both
+TOL_CUSTOM = 1e-6
+# S(q = 0) against uniform_fourier: both sum the same float64 values
+TOL_SQ0 = 1e-10
 DEVICE = "cuda"
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 and FP64
 # FLOP/s outside the tensor cores
@@ -2535,6 +2566,291 @@ def phase_classical(mark):
     return totals
 
 
+def alps_xml(lat):
+    """A lattice as an ALPS GRAPH document (1-based ids, edges in bond
+    order, vertex coordinates and bond vectors), as tests/test_alps.py
+    writes one."""
+    lines = [f'<GRAPH vertices="{lat.n_sites}" dimension="{lat.dim}">']
+    for i, p in enumerate(lat.positions):
+        lines.append(f'  <VERTEX id="{i + 1}"><COORDINATE>'
+                     f'{" ".join(map(str, p))}</COORDINATE></VERTEX>')
+    for b, (s, t, ty) in enumerate(lat.bonds):
+        d = lat.positions[t] - lat.positions[s]
+        lines.append(f'  <EDGE source="{s + 1}" target="{t + 1}" id="{b + 1}" '
+                     f'type="{ty}" vector="{" ".join(map(str, d))}"/>')
+    lines.append("</GRAPH>")
+    return "\n".join(lines)
+
+
+def item9_session(lattice=None, seed=8):
+    """A headline session (float32, 256 chains) on ``lattice`` (default
+    SquareLattice(L))."""
+    import torch
+    import montecarlo_tpu_torch as mt
+    lattice = lattice if lattice is not None else mt.SquareLattice(L)
+    model = mt.HubbardModelAttractive(l=lattice, U=U, mu=MU)
+    return mt.DQMC(model, beta=BETA, delta_tau=DTAU, safe_mult=SAFE_MULT,
+                   n_chains=CHAINS, measure_rate=1, seed=seed, device=DEVICE,
+                   dtype=torch.float32), model
+
+
+def item9_run(sim, read):
+    """sim.run(ITEM9_THERM, ITEM9_SWEEPS): (read(), the launches since the
+    counts were set to 0 before the session was built, and the run's wall
+    seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(thermalization=ITEM9_THERM, sweeps=ITEM9_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    return read(), time.perf_counter() - t0
+
+
+def item9_alps(tmp, smi):
+    """(8a) the headline on an ALPS file of the 8x8 and on SquareLattice(8)
+    with one seed: conf and G bit-equal, the launches equal (K1, K2 and K3
+    launched); the ALPS session saved and loaded on the card, conf
+    bit-equal. Returns both runs' launches, summed."""
+    import torch
+    import montecarlo_tpu_torch as mt
+    fn = tmp / "square8.xml"
+    fn.write_text(alps_xml(mt.SquareLattice(L)))
+    runs = {}
+    for tag, lat in (("alps", mt.ALPSLattice(str(fn))),
+                     ("native", mt.SquareLattice(L))):
+        read = zero_launches()
+        sim, _ = item9_session(lat)
+        runs[tag] = (sim, *item9_run(sim, read))
+    (sa, la, wa), (sn, ln, wn) = runs["alps"], runs["native"]
+    same_conf = torch.equal(sa.state["conf"], sn.state["conf"])
+    same_g = torch.equal(sa.state["G"], sn.state["G"])
+    k123 = {k: la[k] for k in ("site_sweep", "udt_qr", "udt_qr_solve")}
+    log(f"[item9] alps: 8x8 from {fn.name} ({len(sa.model.lattice)} sites, "
+        f"{sa.model.lattice.n_bonds} bonds) against SquareLattice({L}), "
+        f"seed 8, {ITEM9_THERM} + {ITEM9_SWEEPS} sweeps, {CHAINS} chains: "
+        f"conf bit-equal {same_conf}, G bit-equal {same_g}; K1, K2, K3 "
+        f"{k123} (native {[ln[k] for k in k123]}); wall {wa:.3f} s / "
+        f"{wn:.3f} s ({smi})")
+    if not (same_conf and same_g and la == ln and all(k123.values())):
+        raise AssertionError("the ALPS headline differs from the native one")
+    ck = mt.save(str(tmp / "alps.mctorch"), sa)
+    back = mt.load(ck, device=DEVICE)
+    ok = (isinstance(back.model.lattice, mt.ArbitraryLattice)
+          and torch.equal(back.state["conf"], sa.state["conf"])
+          and (back.model.lattice.bonds == sa.model.lattice.bonds).all())
+    log(f"[item9] alps: saved and loaded: {back.model.lattice!r}, conf "
+        f"bit-equal {ok}")
+    if not ok:
+        raise AssertionError("the loaded ALPS session differs")
+    return {k: la[k] + ln[k] for k in la}
+
+
+def _pc_kernel(S_np):
+    """The shipped pairing correlation as a batch-first quad kernel."""
+    import torch
+
+    def kernel(G):
+        Gu, Gd = G[:, 0], G[:, -1]
+        S = torch.as_tensor(S_np).to(device=Gu.device, dtype=Gu.dtype)
+        B = torch.einsum("kab,cbd->ckad", S, Gd)
+        return Gu[:, None, None] * torch.einsum("ckad,qbd->ckqab", B, S)
+    return kernel
+
+
+def item9_custom(smi):
+    """(8b) custom CDC, PC, CDS and GreensAt measurements beside the shipped
+    ones on one headline session: float64 binner means within TOL_CUSTOM
+    relative; K2/K3 per measurement pass against the schedule; wall and
+    device ms of a measurement pass with and without the custom set.
+    Returns (launches, CDC mean, PC mean, the lattice)."""
+    import numpy as np
+    import torch
+    import montecarlo_tpu_torch as mt
+    from montecarlo_tpu_torch.dqmc import core
+    from montecarlo_tpu_torch.dqmc import unequal_time as ut
+    from montecarlo_tpu_torch.measurements import MeasurementRegistry
+    from montecarlo_tpu_torch.measurements import dqmc_measurements as dm
+    from montecarlo_tpu_torch.ops import KERNELS
+    read = zero_launches()
+    sim, model = item9_session(seed=9)
+    lat = model.lattice
+    shipped = {
+        "CDC": (dm.charge_density_correlation(sim, model), "cdc"),
+        "PC": (dm.pairing_correlation(sim, model, K=ITEM9_K), "pc"),
+        "CDS": (dm.charge_density_susceptibility(sim, model), "cds"),
+        "GAT": (dm.greens_measurement(sim, model,
+                                      greens_at=ITEM9_GREENS_AT), "greens")}
+    custom = {
+        "CDC": mt.custom_measurement(
+            sim, model, dm.cdc_matrix, name="cdc",
+            lattice_iterator=mt.EachSitePairByDistance()),
+        "PC": mt.custom_measurement(
+            sim, model, _pc_kernel(mt.selection_matrices(lat, ITEM9_K)),
+            name="pc", lattice_iterator=mt.EachLocalQuadByDistance(ITEM9_K)),
+        "CDS": mt.custom_measurement(
+            sim, model, dm.cdc4_matrix, name="cds",
+            greens_iterator=mt.CombinedGreensIterator),
+        "GAT": mt.custom_measurement(
+            sim, model, lambda G: G[:, 0], name="greens",
+            greens_iterator=mt.GreensAt(*ITEM9_GREENS_AT),
+            lattice_iterator=mt.EachSitePair())}
+    for k, (m, _) in shipped.items():
+        sim[k] = m
+        sim[f"{k}_custom"] = custom[k]
+    names = ("udt_qr", "udt_qr_solve")
+    passes, measure_all = [], sim._measure_all
+
+    def counted(*args):
+        before = [KERNELS[k].launches for k in names]
+        measure_all(*args)
+        passes.append([KERNELS[k].launches - b for k, b in zip(names, before)])
+
+    sim._measure_all = counted
+    launches, wall = item9_run(sim, read)
+    sim._measure_all = measure_all
+    ctx = sim.ctx
+    n_udt, n_greens = ut.combined_udt_launches(ctx)
+    schedule = [n_udt + ut.greens_kl_udts(ctx, *ITEM9_GREENS_AT), n_greens]
+    log(f"[item9] custom: {CHAINS} chains, {ITEM9_THERM} + {ITEM9_SWEEPS} "
+        f"sweeps in {wall:.3f} s; K2, K3 per measurement pass {passes}, "
+        f"schedule {schedule} (one combined pass and one G{ITEM9_GREENS_AT} "
+        f"serve the shipped and the custom measurements)")
+    if not (len(passes) == ITEM9_SWEEPS
+            and all(c == schedule for c in passes)):
+        raise AssertionError("K2/K3 launches of the measurement pass differ "
+                             "from the schedule's")
+    obs = sim.observables()
+    N = len(lat)
+    errs = {}
+    for k, (_, name) in shipped.items():
+        ref = np.asarray(obs[k][name].mean)
+        got = np.asarray(obs[f"{k}_custom"][name].mean)
+        if k == "GAT":           # EachSitePair stores G_up / N
+            ref, got = ref[0], got * N
+        if not (np.isfinite(ref).all() and got.shape == ref.shape):
+            raise AssertionError(f"{k}: shapes {got.shape}, {ref.shape} or "
+                                 "non-finite values")
+        errs[k] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"[item9] custom against shipped, max|a - b| / max|b| of the "
+        f"float64 binner means: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (limit {TOL_CUSTOM})")
+    if not max(errs.values()) <= TOL_CUSTOM:
+        raise AssertionError("a custom measurement differs from its shipped "
+                             "counterpart")
+    # one measurement pass with and without the custom set, wall and device
+    shipped_only = MeasurementRegistry()
+    for k, (m, _) in shipped.items():
+        shipped_only.add(k, m, sim.n_chains, sim.device)
+    conf = sim.state["conf"]
+    G = core.greens_from_scratch(ctx, sim.consts, conf, 0)
+    times = {}
+    for tag, reg in (("shipped", shipped_only), ("with custom",
+                                                 sim.measurements)):
+        fn = lambda reg=reg: measure_all(reg, G, conf)
+        times[tag] = (1e3 * timed(fn, 1), device_ms(fn, reps=1))
+    log(f"[item9] measurement pass per measured sweep ({CHAINS} chains; "
+        f"{smi}): "
+        + "; ".join(f"{t}: wall {w:.1f} ms, device {ms_text(d)}"
+                    for t, (w, d) in times.items()))
+    return (launches, np.asarray(obs["CDC"]["cdc"].mean),
+            np.asarray(obs["PC"]["pc"].mean), lat)
+
+
+def item9_postproc(cdc, pc, lat):
+    """(8c) S(q) of the CDC mean over the 8x8's reciprocal grid: 64 q
+    points, S(q = 0) within TOL_SQ0 of uniform_fourier; the PC's s-wave
+    apply_symmetry finite."""
+    import numpy as np
+    import montecarlo_tpu_torch as mt
+    from montecarlo_tpu_torch.measurements.postprocessing import (
+        reciprocal_discretization)
+    qs = reciprocal_discretization(lat)
+    S = mt.structure_factor(qs, lat.directions, cdc)
+    q0 = int(np.argmin(np.linalg.norm(qs, axis=1)))
+    uf = mt.uniform_fourier(cdc)
+    swave = mt.apply_symmetry(pc, (1.0,))
+    err = abs(S[q0] - uf)
+    log(f"[item9] postproc: S(q) at {len(qs)} q points, S(0) "
+        f"{S[q0].real:.9f}{S[q0].imag:+.1e}i, uniform_fourier {uf:.9f} "
+        f"(|diff| {err:.2e}); S(pi, pi) "
+        f"{S[int(np.argmin(np.linalg.norm(qs - np.pi, axis=1)))].real:.6f}; "
+        f"PC s-wave {np.round(swave[:4].real, 6).tolist()}...")
+    if not (len(qs) == L * L and S.shape == (L * L,) and err <= TOL_SQ0
+            and np.isfinite(S).all() and np.isfinite(swave).all()):
+        raise AssertionError("S(q) or the s-wave PC are off")
+
+
+def item9_timers(smi):
+    """(8d) the headline with the timers off and on, in turns (off, on, on,
+    off): dqmc_block counted once per chunk in each timed run, its total in
+    (0, the wall around run]; print_timer's lines. Returns the runs'
+    launches, summed."""
+    import io
+    from montecarlo_tpu_torch.utils import timing
+    totals, walls = {}, {"off": [], "on": []}
+    chunks = 2                    # thermalization and measurement stages
+    try:
+        for mode in ("off", "on", "on", "off"):
+            timing.reset_timer()
+            (timing.enable_benchmarks if mode == "on"
+             else timing.disable_benchmarks)()
+            read = zero_launches()
+            sim, _ = item9_session(seed=10)
+            launches, wall = item9_run(sim, read)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            walls[mode].append(wall)
+            data = timing.timer_data()
+            if mode == "off":
+                if data:
+                    raise AssertionError(f"disabled timers recorded {data}")
+                continue
+            block = data["dqmc_block"]
+            log(f"[item9] timers: dqmc_block x{block['count']}, "
+                f"{1e3 * block['total_s']:.3f} ms of {1e3 * wall:.3f} ms "
+                "around run")
+            if not (block["count"] == chunks
+                    and 0 < block["total_s"] <= wall):
+                raise AssertionError("dqmc_block's count or total is off")
+            buf = io.StringIO()
+            timing.print_timer(buf)
+            for line in buf.getvalue().splitlines():
+                log(f"[item9] print_timer: {line}")
+    finally:
+        timing.disable_benchmarks()
+        timing.reset_timer()
+    log(f"[item9] timers: wall of {ITEM9_THERM} + {ITEM9_SWEEPS} sweeps, "
+        f"timers off {', '.join(f'{w:.3f}' for w in walls['off'])} s, on "
+        f"{', '.join(f'{w:.3f}' for w in walls['on'])} s (order off, on, "
+        f"on, off; {smi})")
+    return totals
+
+
+def phase_item9(mark, smi):
+    """Phase 8: ALPS lattices, custom measurements, post-processing and the
+    timers at the headline, each part ending with mark(tag); returns the
+    kernels' launches of its runs, summed."""
+    import tempfile
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        add(item9_alps(Path(tmp), smi))
+    mark("item9 alps")
+    launches, cdc, pc, lat = item9_custom(smi)
+    add(launches)
+    mark("item9 custom")
+    item9_postproc(cdc, pc, lat)
+    mark("item9 postproc")
+    add(item9_timers(smi))
+    mark("item9 timers")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2625,6 +2941,9 @@ def main():
     launchescl = phase_classical(mark)
     for k in launches:
         launches[k] += launchescl.get(k, 0)
+    launches9 = phase_item9(mark, smi)
+    for k in launches:
+        launches[k] += launches9.get(k, 0)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

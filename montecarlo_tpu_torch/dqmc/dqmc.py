@@ -5,7 +5,8 @@ measurements pushed into device-side binners: equal-time ones from the G at
 the measurement point, time-displaced ones from ``unequal_time.greens_kl``
 (``greens_at``) and from one pass of the combined iterator over all chains
 (``combined``, the susceptibilities). The per-chain device counters are
-drained into host integers after every chunk of sweeps. A recorder keeps a
+drained into host integers after every chunk of sweeps, each chunk a
+``timer("dqmc_block")`` section (``utils.timing``). A recorder keeps a
 host copy of every rate-th measurement-stage configuration (``replay``
 measures them again); ``state_dict`` / ``load_state`` carry the source
 state of a checkpoint (``io.checkpoint``), from which the stacks are
@@ -30,6 +31,7 @@ from ..io.checkpoint import SaveSchedule, common_state, restore_common
 from ..io.recorder import Discarder
 from ..measurements.core import MeasurementRegistry
 from ..utils.host import generator_state, resolve_device, set_generator_state
+from ..utils.timing import timer
 
 
 @dataclass
@@ -223,17 +225,20 @@ class DQMC:
             limit = thermalization if in_th else total
             n = min(chunk, limit - i)
             t0 = time.perf_counter()
-            for sweep_idx in range(i + 1, i + n + 1):
-                self.state, G_meas, conf_meas = core.sweep_pair(
-                    self.ctx, self.consts, self.state, u=self._uniforms())
-                if registry.measurements and sweep_idx % p.measure_rate == 0:
-                    self._measure_all(registry, G_meas, conf_meas,
-                                      self.state.get("phase_meas"))
-                if (record and not in_th
-                        and sweep_idx % self.configs.rate == 0):
-                    # the configuration at the sweep's end, to the host
-                    self.configs.push(sweep_idx,
-                                      self.state["conf"].cpu().numpy())
+            with timer("dqmc_block", self.device):
+                for sweep_idx in range(i + 1, i + n + 1):
+                    self.state, G_meas, conf_meas = core.sweep_pair(
+                        self.ctx, self.consts, self.state,
+                        u=self._uniforms())
+                    if (registry.measurements
+                            and sweep_idx % p.measure_rate == 0):
+                        self._measure_all(registry, G_meas, conf_meas,
+                                          self.state.get("phase_meas"))
+                    if (record and not in_th
+                            and sweep_idx % self.configs.rate == 0):
+                        # the configuration at the sweep's end, to the host
+                        self.configs.push(sweep_idx,
+                                          self.state["conf"].cpu().numpy())
             self._drain_counters()      # reads device values: synchronizes
             dur = time.perf_counter() - t0
             self.analysis.sweep_duration = dur / n

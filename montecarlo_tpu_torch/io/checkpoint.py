@@ -136,20 +136,19 @@ def restore_common(sim, state):
 
 def _reconstruct_model(model_info):
     """The model of a checkpoint: its class from this package's models, its
-    parameters, and its lattice rebuilt from the lattice's state_dict."""
+    parameters, and its lattice rebuilt from the lattice's state_dict (an
+    ``ArbitraryLattice`` for kind "arbitrary", else a ``Lattice``), never
+    from the parameters' dims and L."""
     from .. import models
-    from ..lattices.lattice import Lattice
+    from ..lattices import ArbitraryLattice, Lattice
 
     cls = getattr(models, model_info["type"])
     params = dict(model_info["parameters"])
     lat = model_info.get("lattice")
     if lat is not None:
-        if lat.get("kind") == "arbitrary":
-            raise NotImplementedError(
-                "checkpoints of ALPS (arbitrary) lattices: lattices/alps.py "
-                "is not ported to montecarlo_tpu_torch yet (ROADMAP Queue 1 "
-                "item 9)")
-        params["l"] = Lattice.from_state(lat)
+        params["l"] = (ArbitraryLattice.from_state(lat)
+                       if lat.get("kind") == "arbitrary"
+                       else Lattice.from_state(lat))
         params.pop("L", None)
         params.pop("dims", None)
     return cls(**params)

@@ -4,9 +4,14 @@ Counterpart of montecarlo_tpu/lattices/lattice.py, restricted to what the
 engines, their measurements and checkpoints read: site count, bonds, the
 neighbor table, the binning of site pairs by their minimal periodic
 displacement, the greedy colorings of bonds (checkerboard groups) and
-sites, and ``state_dict``. Site numbering, bond order and direction bins
-are the JAX package's, so hopping matrices and binned observables agree
-bit for bit.
+sites, ``reciprocal_vectors`` and ``state_dict``. Site numbering, bond
+order and direction bins are the JAX package's, so hopping matrices and
+binned observables agree bit for bit.
+
+Everything derived from the bond list lives in ``BondLattice``, which both
+the Bravais ``Lattice`` and the bond-list ``alps.ArbitraryLattice`` extend
+(the JAX package lends ``Lattice``'s methods to its ``ArbitraryLattice``
+one by one instead).
 """
 
 from __future__ import annotations
@@ -35,65 +40,13 @@ class UnitCell:
     bonds: Tuple[Tuple[int, int, Tuple[int, ...], int], ...]
 
 
-class Lattice:
-    """A finite periodic lattice with static index tables.
+class BondLattice:
+    """What a lattice derives from its bond list and site positions.
 
-    Attributes (all host numpy):
-      n_sites         total number of sites N
-      positions       (N, dim) cartesian positions
-      cell_vectors    (dim, dim) periodicity vectors L_i * a_i
-      neighbor_table  (N, z_max) int32 directed neighbors, -1 padded
-      bonds           (n_bonds, 3) int32 (src, trg, type), each undirected
-                      bond once
-    """
-
-    def __init__(self, unitcell: UnitCell, shape: Sequence[int]):
-        uc = unitcell
-        self.unitcell = uc
-        self.shape = tuple(int(s) for s in shape)
-        dim = uc.primitive_vectors.shape[0]
-        if len(self.shape) != dim:
-            raise ValueError("shape must have one extent per dimension")
-        self.dim = dim
-        nb = uc.basis.shape[0]
-        self.n_basis = nb
-
-        # site index = basis + nb * (c_0 + L_0 * (c_1 + L_1 * (...)))
-        cells = itertools.product(*[range(L) for L in reversed(self.shape)])
-        cells = [tuple(reversed(c)) for c in cells]
-        self._cells = np.array(sorted(cells, key=self._cell_rank), dtype=np.int64)
-        self.n_cells = len(self._cells)
-        self.n_sites = self.n_cells * nb
-
-        A = uc.primitive_vectors
-        self.positions = np.zeros((self.n_sites, dim))
-        for ci, c in enumerate(self._cells):
-            for b in range(nb):
-                self.positions[nb * ci + b] = c @ A + uc.basis[b]
-        self.cell_vectors = (np.array(self.shape)[:, None] * A).astype(float)
-
-        self._build_bonds()
-        self._build_neighbor_table()
-
-    def _cell_rank(self, c) -> int:
-        rank = 0
-        for L, x in zip(reversed(self.shape), reversed(c)):
-            rank = rank * L + x
-        return rank
-
-    def site_index(self, cell, basis: int = 0) -> int:
-        c = tuple(int(x) % L for x, L in zip(cell, self.shape))
-        return self.n_basis * self._cell_rank(c) + basis
-
-    def _build_bonds(self):
-        bonds = []
-        for ci, c in enumerate(self._cells):
-            for (b_from, b_to, off, btype) in self.unitcell.bonds:
-                src = self.n_basis * ci + b_from
-                trg = self.site_index(np.array(c) + np.array(off), b_to)
-                bonds.append((src, trg, btype))
-        self.bonds = np.array(bonds, dtype=np.int32).reshape(-1, 3)
-        self.n_bonds = len(self.bonds)
+    A subclass sets n_sites, bonds ((n_bonds, 3) int32 (src, trg, type),
+    each undirected bond once), dim, shape, positions ((N, dim) or None)
+    and cell_vectors ((dim, dim) periodicity vectors or None), then calls
+    ``_build_neighbor_table``."""
 
     def _build_neighbor_table(self):
         nbrs: List[List[int]] = [[] for _ in range(self.n_sites)]
@@ -111,6 +64,10 @@ class Lattice:
     def __len__(self):
         return self.n_sites
 
+    @property
+    def size(self):
+        return self.shape
+
     def neighbors(self, directed: bool = True) -> np.ndarray:
         """(n, 2) array of (src, trg) pairs; directed=True lists both
         orientations of every bond."""
@@ -121,29 +78,6 @@ class Lattice:
 
     def lattice_vectors(self) -> np.ndarray:
         return self.cell_vectors
-
-    def state_dict(self):
-        """What rebuilds the lattice: the unit cell and the shape
-        (``Lattice(UnitCell(...), shape)``), the JAX package's layout."""
-        uc = self.unitcell
-        return {
-            "name": uc.name,
-            "primitive_vectors": np.asarray(uc.primitive_vectors),
-            "basis": np.asarray(uc.basis),
-            "bonds": [[a, b, list(off), t] for (a, b, off, t) in uc.bonds],
-            "shape": list(self.shape),
-        }
-
-    @classmethod
-    def from_state(cls, state):
-        """The lattice of a ``state_dict``."""
-        uc = UnitCell(
-            name=state["name"],
-            primitive_vectors=np.asarray(state["primitive_vectors"]),
-            basis=np.asarray(state["basis"]),
-            bonds=tuple((int(a), int(b), tuple(int(o) for o in off), int(t))
-                        for (a, b, off, t) in state["bonds"]))
-        return cls(uc, tuple(state["shape"]))
 
     # --------------------------------------------------------- checkerboard
     @cached_property
@@ -215,6 +149,94 @@ class Lattice:
                 if d < K:
                     trg[src, d] = t
         return trg, trg >= 0
+
+
+class Lattice(BondLattice):
+    """A finite periodic lattice with static index tables.
+
+    Attributes (all host numpy):
+      n_sites         total number of sites N
+      positions       (N, dim) cartesian positions
+      cell_vectors    (dim, dim) periodicity vectors L_i * a_i
+      neighbor_table  (N, z_max) int32 directed neighbors, -1 padded
+      bonds           (n_bonds, 3) int32 (src, trg, type), each undirected
+                      bond once
+    """
+
+    def __init__(self, unitcell: UnitCell, shape: Sequence[int]):
+        uc = unitcell
+        self.unitcell = uc
+        self.shape = tuple(int(s) for s in shape)
+        dim = uc.primitive_vectors.shape[0]
+        if len(self.shape) != dim:
+            raise ValueError("shape must have one extent per dimension")
+        self.dim = dim
+        nb = uc.basis.shape[0]
+        self.n_basis = nb
+
+        # site index = basis + nb * (c_0 + L_0 * (c_1 + L_1 * (...)))
+        cells = itertools.product(*[range(L) for L in reversed(self.shape)])
+        cells = [tuple(reversed(c)) for c in cells]
+        self._cells = np.array(sorted(cells, key=self._cell_rank), dtype=np.int64)
+        self.n_cells = len(self._cells)
+        self.n_sites = self.n_cells * nb
+
+        A = uc.primitive_vectors
+        self.positions = np.zeros((self.n_sites, dim))
+        for ci, c in enumerate(self._cells):
+            for b in range(nb):
+                self.positions[nb * ci + b] = c @ A + uc.basis[b]
+        self.cell_vectors = (np.array(self.shape)[:, None] * A).astype(float)
+
+        self._build_bonds()
+        self._build_neighbor_table()
+
+    def _cell_rank(self, c) -> int:
+        rank = 0
+        for L, x in zip(reversed(self.shape), reversed(c)):
+            rank = rank * L + x
+        return rank
+
+    def site_index(self, cell, basis: int = 0) -> int:
+        c = tuple(int(x) % L for x, L in zip(cell, self.shape))
+        return self.n_basis * self._cell_rank(c) + basis
+
+    def _build_bonds(self):
+        bonds = []
+        for ci, c in enumerate(self._cells):
+            for (b_from, b_to, off, btype) in self.unitcell.bonds:
+                src = self.n_basis * ci + b_from
+                trg = self.site_index(np.array(c) + np.array(off), b_to)
+                bonds.append((src, trg, btype))
+        self.bonds = np.array(bonds, dtype=np.int32).reshape(-1, 3)
+        self.n_bonds = len(self.bonds)
+
+    def reciprocal_vectors(self) -> np.ndarray:
+        """Reciprocal primitive vectors 2π (A⁻¹)ᵀ, one per row."""
+        return 2 * np.pi * np.linalg.inv(self.unitcell.primitive_vectors).T
+
+    def state_dict(self):
+        """What rebuilds the lattice: the unit cell and the shape
+        (``Lattice(UnitCell(...), shape)``), the JAX package's layout."""
+        uc = self.unitcell
+        return {
+            "name": uc.name,
+            "primitive_vectors": np.asarray(uc.primitive_vectors),
+            "basis": np.asarray(uc.basis),
+            "bonds": [[a, b, list(off), t] for (a, b, off, t) in uc.bonds],
+            "shape": list(self.shape),
+        }
+
+    @classmethod
+    def from_state(cls, state):
+        """The lattice of a ``state_dict``."""
+        uc = UnitCell(
+            name=state["name"],
+            primitive_vectors=np.asarray(state["primitive_vectors"]),
+            basis=np.asarray(state["basis"]),
+            bonds=tuple((int(a), int(b), tuple(int(o) for o in off), int(t))
+                        for (a, b, off, t) in state["bonds"]))
+        return cls(uc, tuple(state["shape"]))
 
 
 def _directed_norm(v: np.ndarray, eps: float = 1e-6) -> float:

@@ -7,8 +7,9 @@ never changes the stream), runs the model's Metropolis sweep (one K17
 launch), on the global-move schedule the Wolff move (one K18 launch and one
 host read per BFS level), and on the measurement schedule pushes the
 measurements into device-side binners. The counters stay on the device
-and are drained into host integers once per chunk of sweeps; a recorder
-copies each recorded configuration to the host.
+and are drained into host integers once per chunk of sweeps, each chunk a
+``timer("mc_block")`` section (``utils.timing``); a recorder copies each
+recorded configuration to the host.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..io.checkpoint import SaveSchedule, common_state, restore_common
 from ..io.recorder import Discarder
 from ..measurements.core import MeasurementRegistry
 from ..utils.host import generator_state, resolve_device, set_generator_state
+from ..utils.timing import timer
 
 
 @dataclass
@@ -180,22 +182,26 @@ class MC:
             acc_l = torch.zeros(C, dtype=torch.int64, device=dev)
             acc_g = torch.zeros((), dtype=torch.int64, device=dev)
             n_global = 0
-            for sweep_idx in range(i + 1, i + n + 1):
-                self.conf, acc_l = sweep_fn(self.conf, self._uniforms((C, N)),
-                                            acc_l)
-                if global_fn is not None and sweep_idx % p.global_rate == 0:
-                    self.conf, size, levels = global_fn(
-                        self.conf, self._seed_sites(N),
-                        lambda: self._uniforms((C, N, z)))
-                    acc_g += (size > 1).sum()
-                    n_global += 1
-                    self.analysis.levels_global += levels
-                if registry.measurements and sweep_idx % p.measure_rate == 0:
-                    for k, m in registry.measurements.items():
-                        m.push(registry.states[k], m.measure_fn(self.conf))
-                if (record and not in_th
-                        and sweep_idx % self.configs.rate == 0):
-                    self.configs.push(sweep_idx, self.conf.cpu().numpy())
+            with timer("mc_block", dev):
+                for sweep_idx in range(i + 1, i + n + 1):
+                    self.conf, acc_l = sweep_fn(
+                        self.conf, self._uniforms((C, N)), acc_l)
+                    if (global_fn is not None
+                            and sweep_idx % p.global_rate == 0):
+                        self.conf, size, levels = global_fn(
+                            self.conf, self._seed_sites(N),
+                            lambda: self._uniforms((C, N, z)))
+                        acc_g += (size > 1).sum()
+                        n_global += 1
+                        self.analysis.levels_global += levels
+                    if (registry.measurements
+                            and sweep_idx % p.measure_rate == 0):
+                        for k, m in registry.measurements.items():
+                            m.push(registry.states[k],
+                                   m.measure_fn(self.conf))
+                    if (record and not in_th
+                            and sweep_idx % self.configs.rate == 0):
+                        self.configs.push(sweep_idx, self.conf.cpu().numpy())
             acc_local, acc_global = torch.stack(
                 [acc_l.sum(), acc_g]).tolist()   # synchronizes
             dur = time.perf_counter() - t0

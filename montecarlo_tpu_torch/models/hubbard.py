@@ -61,7 +61,10 @@ class _HubbardBase(Model):
         p = {"t": self.t, "U": self.U, "mu": self.mu}
         if self.peierls is not None:
             p["peierls"] = np.asarray(self.peierls)
-        p.update(dims=self.lattice.dim, L=self.lattice.shape[0])
+        if hasattr(self.lattice, "unitcell"):
+            # a Bravais lattice's extent; an ArbitraryLattice has none (a
+            # checkpoint rebuilds the lattice from its state either way)
+            p.update(dims=self.lattice.dim, L=self.lattice.shape[0])
         return p
 
     def rand_conf(self, generator: torch.Generator, n_chains: int,

@@ -121,15 +121,21 @@ def test_square_lattice_tables_identical(L):
 def test_unported_lattices_raise():
     """dims=3 takes the cubic lattice (ported with the classical flavor),
     as the JAX package's; dims=4 has no default; a checkpoint of an ALPS
-    lattice names ROADMAP Queue 1 item 9, which ports them."""
+    (arbitrary) lattice rebuilds the model on an ArbitraryLattice from the
+    lattice's state, not from the saved dims and L."""
     np.testing.assert_array_equal(t_lattice(3, 4).neighbor_table,
                                   j_lattice(3, 4).neighbor_table)
     with pytest.raises(ValueError):
         t_lattice(4, 4)
     from montecarlo_tpu_torch.io.checkpoint import _reconstruct_model
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        _reconstruct_model({"type": "HubbardModelAttractive",
-                            "parameters": {}, "lattice": {"kind": "arbitrary"}})
+    from montecarlo_tpu_torch.lattices import ArbitraryLattice
+    ring = ArbitraryLattice(n_sites=3, bonds=[[0, 1, 0], [1, 2, 0],
+                                              [2, 0, 0]])
+    model = _reconstruct_model({"type": "HubbardModelAttractive",
+                                "parameters": {"U": 2.0, "dims": 1, "L": 3},
+                                "lattice": ring.state_dict()})
+    assert isinstance(model.lattice, ArbitraryLattice)
+    np.testing.assert_array_equal(model.lattice.bonds, ring.bonds)
 
 
 @pytest.mark.parametrize("repulsive", [False, True])

@@ -358,10 +358,18 @@ def test_generator_device_mismatch_refused(tmp_path, flavor):
 
 
 def test_alps_lattice_checkpoint_names_item_9():
+    """The model of a checkpoint on an ALPS (arbitrary) lattice, which
+    ROADMAP Queue 1 item 9 ported: rebuilt on an ArbitraryLattice with the
+    saved bonds, whatever the saved dims and L say."""
+    from montecarlo_tpu_torch.lattices import ArbitraryLattice
+    ring = ArbitraryLattice(n_sites=4, bonds=[[0, 1, 0], [1, 2, 0],
+                                              [2, 3, 0], [3, 0, 0]])
     info = {"type": "IsingModel", "parameters": {"dims": 2, "L": 3},
-            "lattice": {"kind": "arbitrary"}}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        checkpoint._reconstruct_model(info)
+            "lattice": ring.state_dict()}
+    model = checkpoint._reconstruct_model(info)
+    assert isinstance(model.lattice, ArbitraryLattice)
+    np.testing.assert_array_equal(model.lattice.bonds, ring.bonds)
+    assert len(model.lattice) == 4
 
 
 def test_foreign_file_refused(tmp_path):

@@ -266,7 +266,7 @@ def child(root, save, prefixes):
                           "ms": statistics.median(times), "batches": times,
                           "device_ms": _smoke().device_ms(fn, CALLS)}),
               flush=True)
-        outputs[name] = [t.cpu() for t in fn()]
+        outputs[name] = [t.cpu() for t in fn() if t is not None]
     torch.save(outputs, save)
 
 

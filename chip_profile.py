@@ -4,6 +4,7 @@
     python3 chip_profile.py [headline] [l16] [complex] [f64] [mixed]
                             [repulsive] [complex16] [chain128] [colscaled]
                             [fusewrap] [colscaled_wy] [single] [refresh]
+                            [l16_f64] [complex_c128] [complex16_c128]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -31,6 +32,12 @@ Runs each named configuration of chip_smoke.py (default: headline):
   single    the headline with one chain (K12, K2, K3)
   refresh   the headline model at safe_mult 5 with g_refresh=True (bench.py's
             refresh row: K1, K2, and K3 at every slice)
+  l16_f64   l16 in DQMC's default float64 (bench.py's l16 row under
+            BENCH_DTYPE=float64: kernel K6-f64 and the library QR)
+  complex_c128  complex in the default float64, i.e. complex128 (kernel
+            K8-c128 and the library QR)
+  complex16_c128  complex16 in complex128 (kernel K9-c128 and the library
+            QR)
 
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
@@ -93,8 +100,9 @@ The configurations' runs print for each
            the device busy share of the profiled span, and the device time
            per sweep pair against the unprofiled wall time per sweep pair,
            and the shares of the device time of K1, K2, K3, K4, K6, K7,
-           K8, K9, K10, K11, K13, K14, the GEMMs and the library complex QR
-           (cuSOLVER's kernels)
+           K8, K9, K10, K11, K13, K14, K6-f64, K8-c128, K9-c128 (K6, K8 and
+           K9 count both precisions), the GEMMs and the library QR
+           (cuSOLVER's kernels, real or complex)
 
 with nvidia-smi's name, power limit, SM clock and power draw before and
 after. Needs CUDA; builds the kernels like chip_smoke.py.
@@ -134,8 +142,13 @@ SHARES = {"K1": ("site_sweep_tiled_f32",),
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
           "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_tiled_cx",),
           "K10": ("qr_cx_kernel",), "K7": ("qr_blocked_kernel",),
-          "library complex QR": ("geqr", "orgqr", "ungqr", "larf",
-                                 "cusolver")}
+          # the float64 and complex128 instances ("a&b": both in the name)
+          "K6-f64": ("site_sweep_delayed_cluster<double",
+                     "site_sweep_delayed_slab<double"),
+          "K8-c128": ("site_sweep_tiled_cx&double",),
+          "K9-c128": ("site_sweep_delayed_cx_cluster<double",
+                      "site_sweep_delayed_cx_slab<double"),
+          "library QR": ("geqr", "orgqr", "ungqr", "larf", "cusolver")}
 F32 = {"dtype": "float32"}
 CS = {**F32, "stab_method": "qr_colscaled"}
 # name: (model, safe_mult (None: the conservative mode's,
@@ -165,7 +178,13 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
                             smoke.CHAINS, True, {**CS, "qr_wy": True}),
            "single": (smoke.headline_model, smoke.SAFE_MULT, 1, True, F32),
            "refresh": (smoke.headline_model, None, smoke.CHAINS, True,
-                       {**F32, "g_refresh": True})}
+                       {**F32, "g_refresh": True}),
+           "l16_f64": (lambda: smoke.headline_model(L=smoke.L16),
+                       smoke.SAFE_MULT, smoke.L16_CHAINS, False, {}),
+           "complex_c128": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS,
+                            True, {}),
+           "complex16_c128": (lambda: smoke.complex_model(L=smoke.L16),
+                              smoke.CPLX_SM, smoke.L16_CHAINS, False, {})}
 
 
 def smi():
@@ -262,7 +281,8 @@ def profile_config(name):
                                  key=lambda kv: -kv[1][0])[:20]:
         print(f"[device] {us / 1e3:9.3f} ms {n:6d}x  {kname[:90]}")
     shares = {label: sum(us for k, (us, _) in per_name.items()
-                         if any(f in k.lower() for f in frags)) / total_us
+                         if any(all(p in k.lower() for p in f.split("&"))
+                                for f in frags)) / total_us
               for label, frags in SHARES.items()}
     print("[device] shares of the device time: " + ", ".join(
         f"{k} {v:.3f}" for k, v in shares.items()))

@@ -31,7 +31,14 @@ failure and prints no result line then):
               at bench.py's ising_flips shape (262,144 chains of the 8x8),
               at the 3x3 (four color classes) and on the cubic L = 4, and K18 (one
               Wolff BFS level) at the Wolff run's shape a few levels into
-              the clusters, each bit for bit and REPEATS launches more
+              the clusters, each bit for bit and REPEATS launches more;
+              K6-f64 at (64, 1, 256, 256) and (32, 2, 256, 256) with
+              dk = 32 and at (64, 1, 144, 144) with dk = 1, K8-c128 at
+              (256, 1, 64, 64), (256, 2, 64, 64) and (256, 1, 128, 128),
+              K9-c128 at (64, 1, 256, 256) with dk = 32: decisions
+              identical, max|dG| within TOL_G_FP64 (each line says whether
+              G is bit-equal), REPEATS launches more; K6-f64's negative-
+              weight magnitudes on random F = 2 G
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -85,6 +92,15 @@ failure and prints no result line then):
               device ms of one call at its shape. K1, K1-f64 and K8 at N =
               100 are rows of their own in the kernels line, each held
               against its plain version at (64, 1, 100, 100) in phase 1
+  4q. l16_f64, complex_c128, complex16_c128: DQMC's default dtype
+              (float64; complex128 for the Peierls models), 1 + 1 sweeps:
+              bench.py's l16 row under BENCH_DTYPE=float64 (16x16, safe_mult
+              10, 64 chains, delay 32: K6-f64, the library QR; drift max
+              below 1e-6, acceptance in (0.3, 0.95)), the complex row's
+              model (8x8, safe_mult 5, 256 chains: K8-c128, the library
+              QR) and complex16's (64 chains, delay 32: K9-c128, the
+              library QR); the complex runs' <s> within PHASE_TOL of 1 with
+              no imaginary probability
   Every run of phase 4 holds its launches to the schedule: one site sweep
   per slice visit, one QR of the session's route (qr_route) per stack
   extension and Green's recomputation, the library QR's calls as
@@ -110,15 +126,19 @@ failure and prints no result line then):
               recompute from the same stacks at the pair's end, so the
               accept sequences carry the check); libqr: the first visit of
               each run (the same library QR on both paths, so the
-              decisions must agree in every chain) and f64's whole pair
+              decisions must agree in every chain) and f64's whole pair;
+              l16_f64, complex_c128 and complex16_c128: the first visit,
+              agreeing in every chain
   5b. phase   a second witness for the phase statistics of the complex,
               complex16 and libqr complex64 runs (complex16: its first 16
               chains): one sweep
               pair from each run's final configuration with the same
               uniforms on the kernel path, the kernel path over complex128
-              stacks, the plain path and the plain path in complex128, each
-              with its imaginary-probability count, max |Im det|, drift and
-              <s>
+              stacks, the plain path, the kernel path in complex128
+              (K8-c128, K9-c128) and, but for complex16, the plain path in
+              complex128 (both complex128 paths must end in the same
+              configuration), each with its imaginary-probability count,
+              max |Im det|, drift and <s>
 
   6. timedisp the time-displaced path at the headline's width (8x8,
               beta=10, float32): (a) one combined_greens_apply on the
@@ -189,9 +209,10 @@ work: the larger of the bytes it must move (each input read once, each
 output written once) over the HBM rate and the least FP32 operations that
 compute its function on these inputs (for the site sweeps: the rank-1
 updates of the accepted sites of this run; for the QRs: Householder with Q
-accumulated backward) over the FP32 (FP64 for the float64 kernels) rate
-outside the tensor cores, the published peaks of one H100 SXM (NVIDIA's
-data sheet: 3.35 TB/s, 67 TFLOP/s FP32, 34 TFLOP/s FP64).
+accumulated backward) over the peak rate of their type, the published
+peaks of one H100 SXM (NVIDIA's data sheet: 3.35 TB/s; 67 TFLOP/s FP32
+outside the tensor cores, since TF32 would lose precision; 67 TFLOP/s
+FP64 on the tensor cores, which keep full IEEE double precision).
 """
 
 from __future__ import annotations
@@ -255,6 +276,20 @@ TOL_G64, TOL_QR64, TOL_ORTH64 = 1e-13, 1e-12, 1e-13
 # K1-f64's negative-weight log-magnitudes against its plain version's: the
 # same float64 operations in the same order, log10 from two libraries
 TOL_NEG64 = 1e-12
+# K6-f64, K8-c128 and K9-c128 against their plain versions: max|dG| (every
+# operation a __d*_rn intrinsic in the plain version's order, bit-equal in
+# practice; the printed lines say whether it was)
+TOL_G_FP64 = 1e-10
+# the float64 and complex128 runs through DQMC.run at the default dtype:
+# l16_f64 (bench.py's l16 row under BENCH_DTYPE=float64: 16x16, safe_mult
+# 10, 64 chains, delay 32; K6-f64 and the library float64 QR),
+# complex_c128 (the complex row's model in complex128: 8x8, safe_mult 5,
+# 256 chains; K8-c128 and the library complex128 QR) and complex16_c128
+# (the same model at 16x16, 64 chains, delay 32; K9-c128 and the library
+# QR). bench.py's float64 sanity bounds the acceptance of l16_f64
+# (bench.py:534-535)
+F64_ACC_RANGE = (0.3, 0.95)
+FP64_THERM, FP64_SWEEPS = 1, 1
 # bench.py's f64 criterion: max window-end drift (reference alarm 1e-7 per
 # stabilization, stack.jl:530-550)
 F64_DRIFT_MAX = 1e-6
@@ -380,9 +415,10 @@ TOL_CUSTOM = 1e-6
 # S(q = 0) against uniform_fourier: both sum the same float64 values
 TOL_SQ0 = 1e-10
 DEVICE = "cuda"
-# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 and FP64
-# FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, FP32_FLOP_PER_S, FP64_FLOP_PER_S = 3.35e12, 67e12, 34e12
+# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s outside
+# the tensor cores (TF32 is not float32) and FP64 FLOP/s on the tensor
+# cores (DMMA rounds as IEEE double; 34e12 outside them)
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, FP64_FLOP_PER_S = 3.35e12, 67e12, 67e12
 
 KERNEL_INFO = {
     "site_sweep": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
@@ -433,6 +469,16 @@ KERNEL_INFO = {
     # K1's launch for one chain
     "site_sweep_single": ("montecarlo_tpu_torch/csrc/site_sweep.cu",
                           "montecarlo_tpu/ops/pallas_site_sweep.py:51"),
+    # no TPU kernel: the JAX package's float64 XLA delayed loop (at dk = 1
+    # its rank-1 loop, :560) and its complex128 rank-1 and delayed loops
+    "site_sweep_delayed_f64": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed.cu",
+        "montecarlo_tpu/dqmc/core.py:595"),
+    "site_sweep_cx_c128": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
+                           "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_delayed_cx_c128": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
+        "montecarlo_tpu/dqmc/core.py:595"),
     # no TPU kernel: the JAX package's XLA Metropolis sweep and Wolff BFS
     # body inside its jitted scan
     "ising_sweep": ("montecarlo_tpu_torch/csrc/ising.cu",
@@ -536,10 +582,11 @@ def sweep_bound(C, F, N, n_acc, complex_=False, fp64=False, wrap=False):
     accept flags and complex detratios (K8); n_acc accepted sites each
     update G (2 operations per element, 8 complex), the work of the
     sequential rank-1 sweep (the delayed sweep computes the same function,
-    so its slab work is not counted). fp64: G and u in float64. wrap (K13):
+    so its slab work is not counted). fp64: G and u in float64 (complex
+    G: complex128). wrap (K13):
     the two (N, N) wrap operands read once, and the wrap's two products,
     4 N^3 operations per flavor block."""
-    el = 8 if complex_ or fp64 else 4
+    el = (8 if complex_ else 4) * (2 if fp64 else 1)
     nbytes = 2 * C * F * N * N * el + C * N * (1 + 1 + (8 if fp64 else 4)) + (
         C * N * (1 + el) if complex_ else 2 * C * 4)
     per_acc = F * ((8 * N * N + 7 * N + 8) if complex_
@@ -1232,6 +1279,7 @@ def phase_parity():
             results[kname]["device_ms"] = dev
 
     parity_delayed(results)
+    parity_fp64(results)
     parity_ising(results)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
 
@@ -1334,6 +1382,115 @@ def parity_delayed(results):
     for dk in (kw["dk"], kw["dk"] // 2):
         err = max(err, time_layouts(ssdcx, G, sigma, u, {**kw, "dk": dk}))
     results["site_sweep_delayed_cx"]["max_abs_err"] = err
+
+
+def fp64_row(results, kname, fn, plain, shapes):
+    """A float64 or complex128 site sweep (fn) against its plain version on
+    each (label, inputs, keywords) of shapes: decisions identical, max|dG|
+    within TOL_G_FP64 (and whether it is bit-equal), REPEATS launches more
+    bit-equal to the first; the first shape's times, device time and bound
+    into results[kname]."""
+    import torch
+    errs = []
+    for i, (label, (G, sigma, u, kw, ctx)) in enumerate(shapes):
+        call = lambda: fn(G, sigma, u, **kw)
+        out_k, out_p = call(), plain(G, sigma, u, **kw)
+        err = check_sweep(f"{kname} {label}", out_k, out_p, tuple(G.shape),
+                          relative=False, tol=TOL_G_FP64)
+        log(f"[parity] {kname} {label} {tuple(G.shape)}: G bit-equal to the "
+            f"plain version's {torch.equal(out_k[0], out_p[0])}")
+        repeats_equal(f"{kname} {label} {tuple(G.shape)}", call)
+        errs.append(err)
+        if i == 0:
+            results[kname] = dict(
+                ms=1e3 * timed(call, 20),
+                plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 3),
+                library_ms=None,
+                **sweep_bound(G.shape[0], ctx.F, ctx.N,
+                              out_k[2].sum().item(),
+                              complex_=G.is_complex(), fp64=True))
+            dev = device_ms(call)
+            if dev is not None:
+                results[kname]["device_ms"] = dev
+    results[kname]["max_abs_err"] = max(errs)
+
+
+def parity_fp64(results):
+    """K6-f64, K8-c128 and K9-c128 against their plain versions at the
+    float64 and complex128 runs' shapes, on plain-path init_state Green's
+    functions at beta=10 (``slice_inputs``): K6-f64 at (64, 1, 256, 256) and
+    (32, 2, 256, 256) with dk = 32 (l16_f64's model; F = 2 in two column
+    passes) and at (64, 1, 144, 144) with dk = 1; K8-c128 at (256, 1, 64,
+    64) and (256, 2, 64, 64) (complex_c128's model) and at (256, 1, 128,
+    128) (the 128-site chain: the imaginary plane in shared memory); K9-c128
+    at (64, 1, 256, 256) with dk = 32 (complex16_c128's). Then K6-f64's
+    negative-weight magnitudes on random F = 2 Green's functions whose
+    diagonal leaves [0, 1]."""
+    import torch
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+    from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+    from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    f64 = dict(dtype=torch.float64)
+
+    def with_dk(inputs, dk):
+        G, sigma, u, kw, ctx = inputs
+        return G, sigma, u, dict(kw, dk=dk), ctx
+
+    def layout(mod, inputs, dtype):
+        ctx, dk = inputs[4], inputs[3]["dk"]
+        return f"dk={dk} [{mod.layout(ctx.N, ctx.F, dk, dtype=dtype)}]"
+
+    k6 = [with_dk(slice_inputs(headline_model(False, L16), L16_CHAINS, 5,
+                               **f64), 32),
+          with_dk(slice_inputs(headline_model(True, L16), L16_F2_CHAINS, 6,
+                               **f64), 32),
+          with_dk(slice_inputs(headline_model(False, 12), L16_CHAINS, 7,
+                               **f64), 1)]
+    fp64_row(results, "site_sweep_delayed_f64", ssd.site_sweep_delayed_f64,
+             ssd.site_sweep_delayed_plain,
+             [(layout(ssd, x, torch.float64), x) for x in k6])
+    cx = dict(safe_mult=CPLX_SM, **f64)
+    k8 = [slice_inputs(complex_model(False), CHAINS, 1, **cx),
+          slice_inputs(complex_model(True), CHAINS, 2, **cx),
+          slice_inputs(complex_model(L=CHAIN_L, dims=1), CHAINS, 3, **cx)]
+    fp64_row(results, "site_sweep_cx_c128", sscx.site_sweep_cx_c128,
+             sscx.site_sweep_cx_plain,
+             [(f"[{sscx.layout(x[4].N, x[4].F, torch.complex128)}]", x)
+              for x in k8])
+    k9 = [with_dk(slice_inputs(complex_model(L=L16), L16_CHAINS, 13, **cx),
+                  32)]
+    fp64_row(results, "site_sweep_delayed_cx_c128",
+             ssdcx.site_sweep_delayed_cx_c128,
+             ssdcx.site_sweep_delayed_cx_plain,
+             [(layout(ssdcx, x, torch.complex128), x) for x in k9])
+
+    # K6-f64's negative-weight magnitudes: random F = 2 G at N = 256
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    C, Nn = L16_F2_CHAINS, L16 * L16
+    dev = dict(device=DEVICE, dtype=torch.float64)
+    Gn = 0.5 * torch.eye(Nn, **dev) + 0.8 / math.sqrt(Nn) * torch.randn(
+        C, 2, Nn, Nn, generator=gen, **dev) + torch.diag_embed(
+            0.8 * torch.randn(C, 2, Nn, generator=gen, **dev))
+    sn = (2 * torch.randint(0, 2, (C, Nn), generator=gen, device=DEVICE)
+          - 1).to(torch.int8)
+    un = torch.rand(C, Nn, generator=gen, **dev)
+    kwn = dict(lamb=k6[0][3]["lamb"], signs=(1.0, -1.0), det_power=1,
+               use_boson=False, dk=32)
+    out_k = ssd.site_sweep_delayed_f64(Gn, sn, un, **kwn)
+    out_p = ssd.site_sweep_delayed_plain(Gn, sn, un, **kwn)
+    check_sweep("site_sweep_delayed_f64 on random G", out_k, out_p,
+                tuple(Gn.shape), relative=False, tol=TOL_G_FP64)
+    has = out_p[3] > 0
+    dneg = ((out_k[4][has] - out_p[4][has]).abs().max().item()
+            if has.any() else math.inf)
+    log(f"[parity] site_sweep_delayed_f64 negative detratios "
+        f"{int(out_p[3].sum())} in {int(has.sum())} of {C} chains; log10 "
+        f"magnitudes (min, max, sum) max|d| {dneg:.3e}, bit-equal "
+        f"{torch.equal(out_k[4], out_p[4])}")
+    if not (dneg <= TOL_NEG64
+            and torch.equal(out_k[4][~has], out_p[4][~has])):
+        raise AssertionError("site_sweep_delayed_f64's negative-weight "
+                             "magnitudes disagree with the plain version's")
 
 
 def ising_sweep_bound(C, tabs):
@@ -1464,7 +1621,7 @@ def time_layouts(mod, G, sigma, u, kw):
             continue
         out = mod.launch(G, sigma, u, cs, **kw)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out[1:], ref[1:])):
+        if not all(torch.equal(a, b) for a, b in zip(out[1:4], ref[1:4])):
             raise AssertionError(f"{mod.__name__}: {cs} blocks per chain "
                                  f"decide otherwise than {plan}")
         worst = max(worst, (out[0] - ref[0]).abs().max().item())
@@ -1482,14 +1639,17 @@ def time_layouts(mod, G, sigma, u, kw):
 
 def sweep_kernel(ctx, chains):
     """The site-sweep kernel a session's main path launches (besides K13
-    under fuse_wrap): K8 for complex G (K9 past N = 128), K6 past N = 128,
-    K1 in float64 for float64 updates, K5 for float32 updates with F >= 2
-    at even N, else K1 (K12 for one chain)."""
+    under fuse_wrap): K8 for complex G (K9 past N = 128; K8-c128 and
+    K9-c128 for complex128 updates), K6 past N = 128 (K6-f64 for float64
+    updates), K1 in float64 for float64 updates, K5 for float32 updates
+    with F >= 2 at even N, else K1 (K12 for one chain)."""
     import torch
     if ctx.is_complex:
-        return "site_sweep_cx" if ctx.N <= 128 else "site_sweep_delayed_cx"
+        name = "site_sweep_cx" if ctx.N <= 128 else "site_sweep_delayed_cx"
+        return name + ("_c128" if ctx.udtype == torch.complex128 else "")
     if ctx.N > 128:
-        return "site_sweep_delayed"
+        return "site_sweep_delayed" + (
+            "_f64" if ctx.udtype == torch.float64 else "")
     if ctx.udtype == torch.float64:
         return "site_sweep_f64"
     if ctx.F >= 2 and ctx.N % 2 == 0:
@@ -1499,7 +1659,8 @@ def sweep_kernel(ctx, chains):
 
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                 complex_=False, session=None, repulsive=False, dims=2,
-                phase_tol=PHASE_TOL, hold_occ=True, safe_mult=None):
+                phase_tol=PHASE_TOL, hold_occ=True, safe_mult=None,
+                acc_range=(0.05, 0.95), no_imag=False):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
     with pure-gauge Peierls phases at safe_mult=5: K8, K10; at 16x16: K9
@@ -1513,8 +1674,12 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     which also measures the z spin correlations and magnetization and is
     held to its anchors (``repulsive_anchors``); session may also hold
     g_refresh and checkerboard (refresh, refresh_complex, checkerboard) and
-    L = 10 takes the library QR (libqr). safe_mult None: the complex row's
-    CPLX_SM for complex hopping, else the headline's. The library QR's calls
+    L = 10 takes the library QR (libqr); session {} (DQMC's default dtype,
+    float64) at L16 runs K6-f64 (l16_f64), with complex_ K8-c128
+    (complex_c128) and at L16 K9-c128 (complex16_c128), each beside the
+    library QR. safe_mult None: the complex row's CPLX_SM for complex
+    hopping, else the headline's. acc_range bounds the acceptance; no_imag
+    holds a complex run to no imaginary probability. The library QR's calls
     (``linalg._library_qr.launches``) are counted as "library_qr" beside the
     kernels' launches."""
     import torch
@@ -1586,8 +1751,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     if ctx.udtype == torch.float64 and not drift[0] < F64_DRIFT_MAX:
         raise AssertionError(f"float64 drift max {drift[0]} not below "
                              f"bench.py's {F64_DRIFT_MAX}")
-    if not 0.05 < acc < 0.95:
-        raise AssertionError(f"acceptance {acc} outside (0.05, 0.95)")
+    if not acc_range[0] < acc < acc_range[1]:
+        raise AssertionError(f"acceptance {acc} outside {acc_range}")
     if hold_occ and not abs(occ - 0.5) <= OCC_TOL:
         raise AssertionError(f"occupation {occ} not within 0.5 +- {OCC_TOL}")
     if repulsive:
@@ -1604,6 +1769,9 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                 and abs(a.avg_phase - 1) < phase_tol):
             raise AssertionError(f"average phase {sign} (sign), {a.avg_phase} "
                                  f"(running) not within 1 +- {phase_tol}")
+        if no_imag and a.imaginary_probability.count:
+            raise AssertionError(f"{a.imaginary_probability.count} imaginary "
+                                 "probabilities")
     return sim, launches, rate
 
 
@@ -1977,20 +2145,41 @@ def phase_paths(sim, sim16, simcx, sim64, simcs, simrep, simcx16, simch,
                              "safe_mult=1")
 
 
-def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
+def phase_paths_fp64(runs):
+    """The float64 and complex128 runs' kernel paths (K6-f64, K8-c128,
+    K9-c128 beside the library QR) against their plain paths
+    (sweep_slice_delayed or the plain rank-1 sweep, the same library QR)
+    from each run's final state and the same uniforms: the first slice
+    visit's decisions agree on every chain."""
+    for s, seed in runs:
+        first, _ = compare_paths(s.ctx, s.consts, s.state, seed,
+                                 whole_pair=False)
+        if first != 1.0:
+            raise AssertionError(
+                f"kernel and plain paths ({str(s.ctx.udtype)[6:]}, N="
+                f"{s.ctx.N}) agree on the first slice visit in only "
+                f"{first:.4f} of the chains")
+
+
+def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None,
+                  plain_c128=True):
     """One complex sweep pair at safe_mult=5 from a complex run's final
     configuration (its first chains, where given; the complex run: K8, K10;
     complex16: K9, the library QR; libqr's complex64 run at N = 100: K8,
     the library QR), with the same uniforms, on the kernel
     path, the kernel path with complex128 stacks (the site sweep kernel and
     the wraps in complex64, the QR and the Green's recomputation in
-    complex128), the plain path (use_kernels=False) and the plain path in
-    complex128, each from its own fresh init_state. A pure gauge keeps
-    every weight real, so in complex128 no proposal may count as an
-    imaginary probability and the running phase must stay 1 to 1e-9: what
-    the complex64 paths read there is float32 rounding, which the kernel
-    and the plain path must read alike. The complex128 stacks tell the
-    rounding of the stabilization (QR, recomputation) from that of the
+    complex128), the plain path (use_kernels=False), the kernel path in
+    complex128 (K8-c128 or K9-c128 with the library QR) and, with
+    plain_c128, the plain path in complex128 (its per-site launches take
+    most of a minute at complex16's N = 256, which runs without it), each
+    from its own fresh init_state. A pure gauge keeps every weight real, so
+    in complex128 no proposal may count as an imaginary probability and the
+    running phase must stay 1 to 1e-9; the two complex128 paths must end
+    the pair in the same configuration in MIN_CONF_AGREE_F64 of the chains.
+    What the complex64 paths read there is float32 rounding, which the
+    kernel and the plain path must read alike. The complex128 stacks tell
+    the rounding of the stabilization (QR, recomputation) from that of the
     updates (site sweep, wraps)."""
     import torch
     from montecarlo_tpu_torch.dqmc import core
@@ -2001,13 +2190,15 @@ def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
     u = torch.rand(C, 2 * M, N, generator=gen, device=DEVICE)
     params = DQMCParameters(beta=BETA, delta_tau=DTAU, safe_mult=CPLX_SM)
     f32, f64 = torch.float32, torch.float64
-    out = {}
-    for name, session, use_kernels in (
-            ("kernel complex64", dict(dtype=f32), True),
+    out, conf_out = {}, {}
+    arms = [("kernel complex64", dict(dtype=f32), True),
             ("kernel complex64 over complex128 stacks",
              dict(dtype=f64, update_dtype=f32), True),
             ("plain complex64", dict(dtype=f32), False),
-            ("plain complex128", dict(dtype=f64), False)):
+            ("kernel complex128", dict(dtype=f64), True)]
+    if plain_c128:
+        arms.append(("plain complex128", dict(dtype=f64), False))
+    for name, session, use_kernels in arms:
         t0 = time.perf_counter()
         ctx, consts = core.make_context(model, params, device=DEVICE,
                                         use_kernels=use_kernels, **session)
@@ -2025,7 +2216,7 @@ def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
                  chain_dev=(s["ls_phase"] - 1).abs().max().item(),
                  chain_mean=(s["ls_phase"] - 1).abs().mean().item(),
                  acc=s["acc"].sum().item() / (C * 2 * M * N))
-        out[name] = r
+        out[name], conf_out[name] = r, s["conf"]
         torch.cuda.synchronize()
         log(f"[phase] N={N} {name} ({time.perf_counter() - t0:.1f} s): "
             f"imaginary probabilities {n_imag} of "
@@ -2034,12 +2225,24 @@ def phase_witness(simcx, model, phase_tol=PHASE_TOL, chains=None):
             f"{r['drift_mean']:.3e}; |<s> - 1| {r['s_dev']:.3e} over "
             f"{C} chains, |phase - 1| max {r['chain_dev']:.3e}, mean "
             f"{r['chain_mean']:.3e} over chains; acceptance {r['acc']:.4f}")
-    k, x, p, d = (out[n] for n in (
+    k, x, p = (out[n] for n in (
         "kernel complex64", "kernel complex64 over complex128 stacks",
-        "plain complex64", "plain complex128"))
-    if not (d["share"] == 0 and d["s_dev"] < 1e-9 and d["chain_dev"] < 1e-9):
-        raise AssertionError("complex128 plain path reads a non-real weight "
-                             "for a pure gauge")
+        "plain complex64"))
+    for name in ("kernel complex128", "plain complex128")[:1 + plain_c128]:
+        d = out[name]
+        if not (d["share"] == 0 and d["s_dev"] < 1e-9
+                and d["chain_dev"] < 1e-9):
+            raise AssertionError(f"{name} path reads a non-real weight for a "
+                                 "pure gauge")
+    if plain_c128:
+        agree = (conf_out["kernel complex128"]
+                 == conf_out["plain complex128"]).flatten(1).all(1)
+        agree = agree.float().mean().item()
+        log(f"[phase] N={N} complex128 kernel and plain paths end the pair "
+            f"in the same configuration in {agree:.4f} of {C} chains")
+        if not agree >= MIN_CONF_AGREE_F64:
+            raise AssertionError(f"complex128 kernel and plain paths agree "
+                                 f"in only {agree:.4f} of the chains")
     if not all(r["s_dev"] < phase_tol for r in (k, x, p)):
         raise AssertionError(f"<s> off 1 by {k['s_dev']} (kernel), "
                              f"{x['s_dev']} (kernel over complex128 stacks), "
@@ -2898,6 +3101,18 @@ def main():
     _, launches1, _ = phase_slice(chains=1, therm=1, sweeps=1, tag="single",
                                   hold_occ=False)
     mark("runs")
+    # the default dtype's float64 and complex128 sessions (session {}):
+    # K6-f64, K8-c128, K9-c128, each beside the library QR
+    sim16f, launches16f, _ = phase_slice(
+        L16, L16_CHAINS, FP64_THERM, FP64_SWEEPS, tag="l16_f64", session={},
+        acc_range=F64_ACC_RANGE)
+    simcx128, launchescx128, _ = phase_slice(
+        therm=FP64_THERM, sweeps=FP64_SWEEPS, tag="complex_c128",
+        complex_=True, session={}, no_imag=True)
+    simcx16c, launchescx16c, _ = phase_slice(
+        L16, L16_CHAINS, FP64_THERM, FP64_SWEEPS, tag="complex16_c128",
+        complex_=True, session={}, no_imag=True)
+    mark("fp64 runs")
     simref, launchesref = phase_refresh(sim)
     mark("refresh")
     _, launchesrefcx, _ = phase_slice(
@@ -2911,6 +3126,7 @@ def main():
     runs = (launches, launches16, launchescx, launches64, launchesmx,
             launchescs, launchesrep, launchescx16, launchesch, launchesfw,
             launcheswy, launches1, launchesref, launchesrefcx, launchescb,
+            launches16f, launchescx128, launchescx16c,
             *(lq for _, lq in libqr.values()))
     launches = {k: sum(r[k] for r in runs) for k in launches}
     # qr_cx's and site_sweep_cx's launches by shape: the chain128 run's at
@@ -2925,11 +3141,12 @@ def main():
                 simfw, simwy)
     phase_paths_refresh(simref, sim64)
     phase_paths_libqr(libqr)
+    phase_paths_fp64(((sim16f, 31), (simcx128, 32), (simcx16c, 33)))
     mark("paths")
     phase_witness(simcx, complex_model())
     mark("witness complex")
     phase_witness(simcx16, complex_model(L=L16), PHASE_TOL_CX16,
-                  CX16_WITNESS_CHAINS)
+                  CX16_WITNESS_CHAINS, plain_c128=False)
     mark("witness complex16")
     phase_witness(libqr["libqr_c64"][0], complex_model(L=LIBQR_L),
                   PHASE_TOL_LIBQR)

@@ -104,12 +104,12 @@ site_sweep_tiled_f64(const double* __restrict__ G_in,
                      int* __restrict__ nneg_out, double* __restrict__ neg_out,
                      int N, double lamb, double sign0, double sign1,
                      int det_power, int use_boson) {
-  constexpr int FR = tiled::flavors_in_registers<false, F, Gm::NP, double>();
+  constexpr int QR = tiled::planes_in_registers<false, F, Gm::NP, double>();
   extern __shared__ __align__(16) double smem_tiled64[];
   const int c = blockIdx.x;
   const size_t base = (size_t)c * F * N * N;
   phase_clock::Clock clk;
-  tiled::sweep_chain<false, F, FR, Gm>(
+  tiled::sweep_chain<false, F, QR, Gm>(
       smem_tiled64, G_in + base, G_out + base, sigma_in + (size_t)c * N,
       sigma_out + (size_t)c * N, u + (size_t)c * N, acc_out + c,
       nneg_out + c, nullptr, nullptr, neg_out + 3 * (size_t)c, N, lamb,
@@ -221,14 +221,14 @@ extern "C" int site_sweep_f64(const double* G_in, double* G_out,
     if (F == 1)
       return launch<tiled::smem_bytes<
                         false, 1,
-                        tiled::flavors_in_registers<false, 1, NP, double>(),
+                        tiled::planes_in_registers<false, 1, NP, double>(),
                         NP, double>(),
                     Gm>(site_sweep_tiled_f64<1, Gm>, C, st, G_in, G_out,
                         sigma_in, sigma_out, u, acc, nneg, neg, N, lamb,
                         sign0, sign1, det_power, use_boson);
     return launch<tiled::smem_bytes<
                       false, 2,
-                      tiled::flavors_in_registers<false, 2, NP, double>(), NP,
+                      tiled::planes_in_registers<false, 2, NP, double>(), NP,
                       double>(),
                   Gm>(site_sweep_tiled_f64<2, Gm>, C, st, G_in, G_out,
                       sigma_in, sigma_out, u, acc, nneg, neg, N, lamb, sign0,

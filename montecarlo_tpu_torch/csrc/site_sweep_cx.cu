@@ -24,15 +24,31 @@
 // chain, the SM's FP32 issue rate (128 per cycle): about 1,000 cycles per
 // site with one chain per SM.
 //
-// Design: K1's float32 loop (site_sweep_tiled.cuh) on two float32 planes:
-// one block per chain, G spread over the block's registers, only row i and
-// column i staged in shared memory, one block barrier per site, sigma and u
-// in shared memory; the accept flags and det of the sites gather in shared
+// Design: K1's loop (site_sweep_tiled.cuh) on two planes: one block per
+// chain, G spread over the block's registers, only row i and column i
+// staged in shared memory, one block barrier per site, sigma and u in
+// shared memory; the accept flags and det of the sites gather in shared
 // memory and go out after the loop. G of 256 chains at N = 128 (32 MB) fits
 // neither the card's register files (33 MB, with nothing else in them) nor
 // its shared memory (29 MB), so at N = 128 the chains run in two waves of
 // one block per SM; at F = 2 past N = 64 flavor 1 lives in shared memory,
 // private to each thread. 256 threads per chain.
+//
+// The complex128 instance (site_sweep_cx_c128, kernel K8-c128) runs the same
+// loop on tiles of doubles, with the __d*_rn operations. It replaces the XLA
+// site loop the JAX package runs for complex128 updates
+// (montecarlo_tpu/dqmc/core.py::sweep_slice, the rank-1 lax.fori_loop):
+// there is no TPU kernel for it, since Mosaic takes neither float64 nor
+// complex128. Its plain version is site_sweep_cx_plain in complex128. G
+// of one chain is 64 KB per plane at N = 64 and F = 2 (four planes: 128
+// registers of each of the 256 threads, as K1-f64 at N = 128) and 128 KB
+// per plane at N = 128: at F = 1 past N = 64 the real plane stays in
+// registers and the imaginary plane lives in shared memory private to each
+// thread (tiled::planes_in_registers), 140 KB per block; F = 2 past N = 64
+// would need three planes there (384 KB) and is refused. What bounds it:
+// as in complex64, the site chain at N = 64 and the FP64 issue rate of the
+// updates at N = 128 (8 FP64 operations per complex element and accepted
+// site, 64 FP64 operations per cycle and SM).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,48 +64,79 @@ namespace {
 __device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
 #endif
 
+// G, det: interleaved (re, im) pairs of T; u: T
 template <int F, class Gm>
 __global__ void __launch_bounds__(Gm::NT)
-site_sweep_tiled_cx(const float2* __restrict__ G_in,
-                    float2* __restrict__ G_out,
+site_sweep_tiled_cx(const typename Gm::T* __restrict__ G_in,
+                    typename Gm::T* __restrict__ G_out,
                     const int8_t* __restrict__ sigma_in,
                     int8_t* __restrict__ sigma_out,
-                    const float* __restrict__ u,
+                    const typename Gm::T* __restrict__ u,
                     uint8_t* __restrict__ accept_out,
-                    float2* __restrict__ det_out, int N, float lamb,
-                    float sign0, float sign1, int det_power, int use_boson) {
-  constexpr int FR = tiled::flavors_in_registers<true, F, Gm::NP>();
-  extern __shared__ __align__(16) float smem_tiled[];
+                    typename Gm::T* __restrict__ det_out, int N,
+                    typename Gm::T lamb, typename Gm::T sign0,
+                    typename Gm::T sign1, int det_power, int use_boson) {
+  using T = typename Gm::T;
+  constexpr int QR = tiled::planes_in_registers<true, F, Gm::NP, T>();
+  extern __shared__ __align__(16) unsigned char smem_cx[];
   const int c = blockIdx.x;
-  const size_t base = (size_t)c * F * N * N;
+  const size_t base = 2 * (size_t)c * F * N * N;
   phase_clock::Clock clk;
-  tiled::sweep_chain<true, F, FR, Gm>(
-      smem_tiled, reinterpret_cast<const float*>(G_in + base),
-      reinterpret_cast<float*>(G_out + base), sigma_in + (size_t)c * N,
-      sigma_out + (size_t)c * N, u + (size_t)c * N, nullptr, nullptr,
-      accept_out + (size_t)c * N,
-      reinterpret_cast<float*>(det_out + (size_t)c * N), nullptr, N, lamb,
-      sign0, sign1, det_power, use_boson, clk);
+  tiled::sweep_chain<true, F, QR, Gm>(
+      reinterpret_cast<T*>(smem_cx), G_in + base, G_out + base,
+      sigma_in + (size_t)c * N, sigma_out + (size_t)c * N, u + (size_t)c * N,
+      nullptr, nullptr, accept_out + (size_t)c * N, det_out + 2 * (size_t)c * N,
+      nullptr, N, lamb, sign0, sign1, det_power, use_boson, clk);
 #ifdef MC_PHASE_STAMPS
   if (threadIdx.x == 0) clk.store(g_stamps, c);
 #endif
 }
 
 template <int F, class Gm>
-int launch(const float2* G_in, float2* G_out, const int8_t* sigma_in,
-           int8_t* sigma_out, const float* u, uint8_t* accept, float2* det,
-           int C, int N, float lamb, float sign0, float sign1, int det_power,
-           int use_boson, cudaStream_t stream) {
+int launch(const typename Gm::T* G_in, typename Gm::T* G_out,
+           const int8_t* sigma_in, int8_t* sigma_out,
+           const typename Gm::T* u, uint8_t* accept, typename Gm::T* det,
+           int C, int N, typename Gm::T lamb, typename Gm::T sign0,
+           typename Gm::T sign1, int det_power, int use_boson,
+           cudaStream_t stream) {
+  using T = typename Gm::T;
   constexpr int smem = tiled::smem_bytes<
-      true, F, tiled::flavors_in_registers<true, F, Gm::NP>(), Gm::NP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_tiled_cx<F, Gm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  site_sweep_tiled_cx<F, Gm><<<C, Gm::NT, smem, stream>>>(
-      G_in, G_out, sigma_in, sigma_out, u, accept, det, N, lamb, sign0,
-      sign1, det_power, use_boson);
-  return (int)cudaGetLastError();
+      true, F, tiled::planes_in_registers<true, F, Gm::NP, T>(), Gm::NP, T>();
+  // complex128 at F = 2 past N = 64: three planes in shared memory
+  if constexpr (smem > 232448) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        site_sweep_tiled_cx<F, Gm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    site_sweep_tiled_cx<F, Gm><<<C, Gm::NT, smem, stream>>>(
+        G_in, G_out, sigma_in, sigma_out, u, accept, det, N, lamb, sign0,
+        sign1, det_power, use_boson);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <class T>
+int launch_cx(const void* G_in, void* G_out, const int8_t* sigma_in,
+              int8_t* sigma_out, const T* u, uint8_t* accept, void* det,
+              int C, int F, int N, T lamb, T sign0, T sign1, int det_power,
+              int use_boson, void* stream) {
+  if (C == 0) return 0;
+  if (N < 1 || N > 128 || F < 1 || F > 2 || det_power < 1 || det_power > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const T* gi = (const T*)G_in;
+  T* go = (T*)G_out;
+  T* dt = (T*)det;
+  return tiled::with_layout<T>(N, [&](auto gm) {
+    using Gm = decltype(gm);
+    if (F == 1)
+      return launch<1, Gm>(gi, go, sigma_in, sigma_out, u, accept, dt, C, N,
+                           lamb, sign0, sign1, det_power, use_boson, st);
+    return launch<2, Gm>(gi, go, sigma_in, sigma_out, u, accept, dt, C, N,
+                         lamb, sign0, sign1, det_power, use_boson, st);
+  });
 }
 
 }  // namespace
@@ -103,24 +150,27 @@ extern "C" int site_sweep_cx_c64(const void* G_in, void* G_out,
                                  int C, int F, int N, float lamb, float sign0,
                                  float sign1, int det_power, int use_boson,
                                  void* stream) {
-  if (C == 0) return 0;
-  if (N < 1 || N > 128 || F < 1 || F > 2 || det_power < 1 || det_power > 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return tiled::with_layout(N, [&](auto gm) {
-    using Gm = decltype(gm);
-    if (F == 1)
-      return launch<1, Gm>(
-          (const float2*)G_in, (float2*)G_out, sigma_in, sigma_out, u, accept,
-          (float2*)det, C, N, lamb, sign0, sign1, det_power, use_boson, st);
-    return launch<2, Gm>(
-        (const float2*)G_in, (float2*)G_out, sigma_in, sigma_out, u, accept,
-        (float2*)det, C, N, lamb, sign0, sign1, det_power, use_boson, st);
-  });
+  return launch_cx<float>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
+                          C, F, N, lamb, sign0, sign1, det_power, use_boson,
+                          stream);
 }
 
-// Phase stamps of the last launch's first n_blocks blocks (kPhases cycle sums
-// each) into dst on the host: a build with -DMC_PHASE_STAMPS only.
+// K8-c128: G and det complex128, u float64. N <= 128 at F = 1, N <= 64 at
+// F = 2 (the layout's shared memory refuses the rest), det_power in {1, 2}.
+extern "C" int site_sweep_cx_c128(const void* G_in, void* G_out,
+                                  const int8_t* sigma_in, int8_t* sigma_out,
+                                  const double* u, uint8_t* accept, void* det,
+                                  int C, int F, int N, double lamb,
+                                  double sign0, double sign1, int det_power,
+                                  int use_boson, void* stream) {
+  return launch_cx<double>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
+                           C, F, N, lamb, sign0, sign1, det_power, use_boson,
+                           stream);
+}
+
+// Phase stamps of the last launch (complex64 or complex128) of the first
+// n_blocks blocks (kPhases cycle sums each) into dst on the host: a build
+// with -DMC_PHASE_STAMPS only.
 extern "C" int site_sweep_cx_c64_stamps(void* dst, int n_blocks,
                                         void* stream) {
 #ifdef MC_PHASE_STAMPS

@@ -48,16 +48,39 @@
 // rank-1 sweep would. No tensor cores. The TPU kernel's chains-on-sublanes
 // layout and its transposed copies of G are Mosaic workarounds and are not
 // carried over: columns are read from G itself.
+//
+// The complex128 instance (site_sweep_delayed_cx_c128, kernel K9-c128) runs
+// both layouts on double planes with the __d*_rn operations. It replaces
+// the XLA loop the JAX package runs for complex128 updates past N = 128
+// (montecarlo_tpu/dqmc/core.py::sweep_slice_delayed, and at DK = 1 the
+// rank-1 lax.fori_loop of sweep_slice): Mosaic takes no complex128, so there
+// is no TPU kernel for it. What bounds it: the folds' 8 N^2 FP64 operations
+// per accepted site and chain, behind the site chain. Every buffer takes
+// twice the bytes, so the cluster layout runs its b vectors in P column
+// passes, as K6-f64 does (csrc/site_sweep_delayed.cu): per pass b over N/P
+// columns, a cluster barrier, the fold of those columns of the own rows. At
+// N = 256, F = 1 and DK = 32: clusters of 2 blocks in 2 passes, 225,568
+// bytes per block.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "phase_clock.cuh"
+#include "site_sweep_tiled.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using tiled::add_rn;
+using tiled::div_rn;
+using tiled::exp_;
+using tiled::ld4;
+using tiled::mul_rn;
+using tiled::st4;
+using tiled::sub_rn;
+using tiled::V4;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -70,60 +93,87 @@ constexpr int kWarps = kThreads / 32;
 __device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
 #endif
 
-// g -= a * b on the (re, im) planes, in K8's order
-__device__ __forceinline__ void cfold(float& gr, float& gi, float ar, float ai,
-                                      float br, float bi) {
-  gr = __fsub_rn(gr, __fsub_rn(__fmul_rn(ar, br), __fmul_rn(ai, bi)));
-  gi = __fsub_rn(gi, __fadd_rn(__fmul_rn(ar, bi), __fmul_rn(ai, br)));
+// One complex element of G as a (re, im) pair of T
+template <class T>
+struct Cplx;
+template <>
+struct Cplx<float> {
+  using type = float2;
+  __device__ static __forceinline__ float2 make(float r, float i) {
+    return make_float2(r, i);
+  }
+};
+template <>
+struct Cplx<double> {
+  using type = double2;
+  __device__ static __forceinline__ double2 make(double r, double i) {
+    return make_double2(r, i);
+  }
+};
+
+// 2 consecutive elements of T in one access
+template <class T>
+__device__ __forceinline__ typename Cplx<T>::type ld2(const T* p) {
+  return *reinterpret_cast<const typename Cplx<T>::type*>(p);
 }
 
-template <int F>
+// g -= a * b on the (re, im) planes, in K8's order
+template <class T>
+__device__ __forceinline__ void cfold(T& gr, T& gi, T ar, T ai, T br, T bi) {
+  gr = sub_rn(gr, sub_rn(mul_rn(ar, br), mul_rn(ai, bi)));
+  gi = sub_rn(gi, add_rn(mul_rn(ar, bi), mul_rn(ai, br)));
+}
+
+template <class T, int F>
 __global__ void __launch_bounds__(kThreads)
-site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
-                             float2* __restrict__ G_out,
-                             const int8_t* __restrict__ sigma_in,
-                             int8_t* __restrict__ sigma_out,
-                             const float* __restrict__ u,
-                             uint8_t* __restrict__ accept_out,
-                             float2* __restrict__ det_out,
-                             float* __restrict__ scratch, int C, int N,
-                             int DK, float lamb, float sign0, float sign1,
-                             int det_power, int use_boson) {
-  extern __shared__ __align__(16) float smem[];
+site_sweep_delayed_cx_slab(const typename Cplx<T>::type* __restrict__ G_in,
+                           typename Cplx<T>::type* __restrict__ G_out,
+                           const int8_t* __restrict__ sigma_in,
+                           int8_t* __restrict__ sigma_out,
+                           const T* __restrict__ u,
+                           uint8_t* __restrict__ accept_out,
+                           typename Cplx<T>::type* __restrict__ det_out,
+                           T* __restrict__ scratch, int C, int N, int DK,
+                           T lamb, T sign0, T sign1, int det_power,
+                           int use_boson) {
+  using C2 = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_slab[];
+  T* smem = reinterpret_cast<T*>(smem_slab);
   const int LDC = N + 1;
   const int RS = F * DK * N, CS = F * DK * LDC;
-  float* Rr = smem;           // row slab [f][s][n] at (f*DK + s)*N + n
-  float* Ri = Rr + RS;
-  float* Cr = Ri + RS;        // column slab [f][s][r] at (f*DK + s)*LDC + r
-  float* Ci = Cr + CS;
-  float* yr_s = Ci + CS;      // [f][r]: y of the current site
-  float* yi_s = yr_s + F * N;
-  float* br_s = yi_s + F * N;  // [f][n]: G[i, :] of the current site
-  float* bi_s = br_s + F * N;
+  T* Rr = smem;           // row slab [f][s][n] at (f*DK + s)*N + n
+  T* Ri = Rr + RS;
+  T* Cr = Ri + RS;        // column slab [f][s][r] at (f*DK + s)*LDC + r
+  T* Ci = Cr + CS;
+  T* yr_s = Ci + CS;      // [f][r]: y of the current site
+  T* yi_s = yr_s + F * N;
+  T* br_s = yi_s + F * N;  // [f][n]: G[i, :] of the current site
+  T* bi_s = br_s + F * N;
   const int c = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const size_t gbase = (size_t)c * F * N * N;
-  // scratch: four planes (y re, y im, b re, b im) of [C][f][k][N] floats
+  // scratch: four planes (y re, y im, b re, b im) of [C][f][k][N] elements
   const size_t plane = (size_t)C * F * DK * N;
-  float* Ayr = scratch + (size_t)c * F * DK * N;
-  float* Ayi = Ayr + plane;
-  float* Abr = Ayi + plane;
-  float* Abi = Abr + plane;
-  float2* Gc = G_out + gbase;
+  T* Ayr = scratch + (size_t)c * F * DK * N;
+  T* Ayi = Ayr + plane;
+  T* Abr = Ayi + plane;
+  T* Abi = Abr + plane;
+  C2* Gc = G_out + gbase;
+  const T one = 1, zero = 0;
 
   phase_clock::Clock clk;
   if (tid == 0) clk.start();
-  const float neg2lamb = -2.f * lamb;
+  const T neg2lamb = T(-2) * lamb;
   for (int i0 = 0; i0 < N; i0 += DK) {
-    const float2* src = i0 == 0 ? G_in + gbase : Gc;  // G before this block
+    const C2* src = i0 == 0 ? G_in + gbase : Gc;  // G before this block
     for (int e = tid; e < F * DK * N; e += nth) {
       const int f = e / (DK * N), rem = e - f * DK * N;
       const int s = rem / N, n = rem - s * N;
-      const float2 g = src[(size_t)(f * N + i0 + s) * N + n];
+      const C2 g = src[(size_t)(f * N + i0 + s) * N + n];
       Rr[e] = g.x;
       Ri[e] = g.y;
       // column slab: consecutive threads read consecutive columns of a row
       const int cs = rem % DK, cr = rem / DK;
-      const float2 h = src[(size_t)(f * N + cr) * N + i0 + cs];
+      const C2 h = src[(size_t)(f * N + cr) * N + i0 + cs];
       Cr[(f * DK + cs) * LDC + cr] = h.x;
       Ci[(f * DK + cs) * LDC + cr] = h.y;
     }
@@ -134,38 +184,36 @@ site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
     for (int t = 0; t < DK; ++t) {
       const int i = i0 + t;
       const int8_t s8 = sigma_in[c * N + i];
-      const float dEb = __fmul_rn(neg2lamb, (float)s8);
-      float delta[F], rr[F], ri[F];
-      float pr = 0.f, pi = 0.f;
+      const T dEb = mul_rn(neg2lamb, (T)s8);
+      T delta[F], rr[F], ri[F];
+      T pr = zero, pi = zero;
       for (int f = 0; f < F; ++f) {
-        const float sg = f == 0 ? sign0 : sign1;
-        delta[f] = __fsub_rn(expf(__fmul_rn(sg, dEb)), 1.f);
-        const float gr = Rr[(f * DK + t) * N + i];
-        const float gi = Ri[(f * DK + t) * N + i];
-        rr[f] = __fadd_rn(1.f, __fmul_rn(delta[f], __fsub_rn(1.f, gr)));
-        ri[f] = -__fmul_rn(delta[f], gi);
+        const T sg = f == 0 ? sign0 : sign1;
+        delta[f] = sub_rn(exp_(mul_rn(sg, dEb)), one);
+        const T gr = Rr[(f * DK + t) * N + i];
+        const T gi = Ri[(f * DK + t) * N + i];
+        rr[f] = add_rn(one, mul_rn(delta[f], sub_rn(one, gr)));
+        ri[f] = -mul_rn(delta[f], gi);
         if (f == 0) {
           pr = rr[0];
           pi = ri[0];
         } else {
-          const float npr =
-              __fsub_rn(__fmul_rn(pr, rr[f]), __fmul_rn(pi, ri[f]));
-          const float npi =
-              __fadd_rn(__fmul_rn(pr, ri[f]), __fmul_rn(pi, rr[f]));
+          const T npr = sub_rn(mul_rn(pr, rr[f]), mul_rn(pi, ri[f]));
+          const T npi = add_rn(mul_rn(pr, ri[f]), mul_rn(pi, rr[f]));
           pr = npr;
           pi = npi;
         }
       }
-      float dre = pr, dim = pi;
+      T dre = pr, dim = pi;
       if (det_power == 2) {
-        dre = __fsub_rn(__fmul_rn(pr, pr), __fmul_rn(pi, pi));
-        dim = __fmul_rn(__fmul_rn(2.f, pr), pi);
+        dre = sub_rn(mul_rn(pr, pr), mul_rn(pi, pi));
+        dim = mul_rn(mul_rn(T(2), pr), pi);
       }
-      const float w = use_boson ? expf(-dEb) : 1.f;
-      const bool accept = u[c * N + i] < __fmul_rn(w, dre);
+      const T w = use_boson ? exp_(-dEb) : one;
+      const bool accept = u[c * N + i] < mul_rn(w, dre);
       if (tid == 0) {
         accept_out[c * N + i] = accept;
-        det_out[c * N + i] = make_float2(dre, dim);
+        det_out[c * N + i] = Cplx<T>::make(dre, dim);
         sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
       }
       if (tid == 0) clk.lap(1);
@@ -173,20 +221,20 @@ site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
       for (int e = tid; e < F * N; e += nth) {
         const int f = e / N, n = e - f * N;
         // constant indices keep delta/r in registers
-        const float d = f == 0 ? delta[0] : delta[F - 1];
-        const float r_re = f == 0 ? rr[0] : rr[F - 1];
-        const float r_im = f == 0 ? ri[0] : ri[F - 1];
-        const float inv = __fdiv_rn(
-            1.f, __fadd_rn(__fmul_rn(r_re, r_re), __fmul_rn(r_im, r_im)));
-        const float xr = __fmul_rn(__fmul_rn(d, r_re), inv);
-        const float xi = -__fmul_rn(__fmul_rn(d, r_im), inv);
+        const T d = f == 0 ? delta[0] : delta[F - 1];
+        const T r_re = f == 0 ? rr[0] : rr[F - 1];
+        const T r_im = f == 0 ? ri[0] : ri[F - 1];
+        const T inv =
+            div_rn(one, add_rn(mul_rn(r_re, r_re), mul_rn(r_im, r_im)));
+        const T xr = mul_rn(mul_rn(d, r_re), inv);
+        const T xi = -mul_rn(mul_rn(d, r_im), inv);
         const int ci = (f * DK + t) * LDC + n;
-        const float igr = __fsub_rn(n == i ? 1.f : 0.f, Cr[ci]);
-        const float igi = -Ci[ci];
-        const float yr = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
-        const float yi = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
-        const float br = Rr[(f * DK + t) * N + n];
-        const float bi = Ri[(f * DK + t) * N + n];
+        const T igr = sub_rn(n == i ? one : zero, Cr[ci]);
+        const T igi = -Ci[ci];
+        const T yr = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+        const T yi = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
+        const T br = Rr[(f * DK + t) * N + n];
+        const T bi = Ri[(f * DK + t) * N + n];
         yr_s[e] = yr;
         yi_s[e] = yi;
         br_s[e] = br;
@@ -218,10 +266,10 @@ site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
     // block fold G -= sum_k y_k (x) b_k, in slot order; the first block also
     // moves G from G_in to G_out when it accepted nothing
     if (k > 0 || i0 == 0) {
-      float* Syr = smem;  // [k][r], reuses the slab memory
-      float* Syi = Syr + k * N;
-      float* Sbr = Syi + k * N;  // [k][n]
-      float* Sbi = Sbr + k * N;
+      T* Syr = smem;  // [k][r], reuses the slab memory
+      T* Syi = Syr + k * N;
+      T* Sbr = Syi + k * N;  // [k][n]
+      T* Sbi = Sbr + k * N;
       const int NR = N / 4, NC = N / 2;  // tiles of 4 rows x 2 columns
       for (int f = 0; f < F; ++f) {
         __syncthreads();
@@ -233,34 +281,28 @@ site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
           Sbi[e] = Abi[fo + e];
         }
         __syncthreads();
-        const float2* Sf = src + (size_t)f * N * N;
-        float2* Df = Gc + (size_t)f * N * N;
+        const T* Sf = reinterpret_cast<const T*>(src + (size_t)f * N * N);
+        T* Df = reinterpret_cast<T*>(Gc + (size_t)f * N * N);
         for (int e = tid; e < NR * NC; e += nth) {
           const int rt = e / NC, ct = e - rt * NC;
           // g[q] = (re, im) of G[4rt+q, 2ct] and of G[4rt+q, 2ct+1]
-          float4 g[4];
+          V4<T> g[4];
           for (int q = 0; q < 4; ++q)
-            g[q] = *reinterpret_cast<const float4*>(
-                &Sf[(size_t)(4 * rt + q) * N + 2 * ct]);
+            g[q] = ld4(&Sf[2 * ((size_t)(4 * rt + q) * N + 2 * ct)]);
           for (int p = 0; p < k; ++p) {
-            const float4 ar =
-                *reinterpret_cast<const float4*>(&Syr[p * N + 4 * rt]);
-            const float4 ai =
-                *reinterpret_cast<const float4*>(&Syi[p * N + 4 * rt]);
-            const float2 br =
-                *reinterpret_cast<const float2*>(&Sbr[p * N + 2 * ct]);
-            const float2 bi =
-                *reinterpret_cast<const float2*>(&Sbi[p * N + 2 * ct]);
-            const float yr[4] = {ar.x, ar.y, ar.z, ar.w};
-            const float yi[4] = {ai.x, ai.y, ai.z, ai.w};
+            const V4<T> ar = ld4(&Syr[p * N + 4 * rt]);
+            const V4<T> ai = ld4(&Syi[p * N + 4 * rt]);
+            const auto br = ld2(&Sbr[p * N + 2 * ct]);
+            const auto bi = ld2(&Sbi[p * N + 2 * ct]);
+            const T yr[4] = {ar.x, ar.y, ar.z, ar.w};
+            const T yi[4] = {ai.x, ai.y, ai.z, ai.w};
             for (int q = 0; q < 4; ++q) {
               cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
               cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
             }
           }
           for (int q = 0; q < 4; ++q)
-            *reinterpret_cast<float4*>(&Df[(size_t)(4 * rt + q) * N + 2 * ct]) =
-                g[q];
+            st4(&Df[2 * ((size_t)(4 * rt + q) * N + 2 * ct)], g[q]);
         }
       }
     }
@@ -276,44 +318,43 @@ site_sweep_delayed_cx_slab(const float2* __restrict__ G_in,
 constexpr int kChunk = 8;
 
 // Row length of the staged tables: the slots of one site in a row, padded
-// to float4 loads and offset by 4 floats per row, so that a warp's float4
-// loads of 8 rows fall in distinct banks
+// to 4-element loads and offset by 4 elements per row, so that a warp's
+// float4 loads of 8 rows fall in distinct banks
 __host__ __device__ inline int staged_ld(int DK) {
   return (DK + 3) / 4 * 4 + 4;
 }
 
-// Shared memory of site_sweep_delayed_cx_cluster in floats: re and im planes
-// of b
-// [f][k][n], y [f][k][r], the staged y
-// and b of the block's sites by site, YT [f][s][k] = y_k[i0+s] and BT
-// [f][s][k] = b_k[i0+s], their entries at the slots' sites Y2 [f][k'][k] =
-// y_k'[i_k] and B2 [f][k'][k] = b_k'[i_k], the diagonal block at the
-// block's start D0 [f][s][s'] (rows of DK+1), its current diagonal [f][s]
-// and x [f][k]; u [i], delta
-// [f][i] and the boson weight [i] of flipping each site, the slots' sites
-// and their count (ints) and sigma [i] (int8).
-// ops/site_sweep_delayed_cx.py::smem_bytes mirrors it.
-__host__ __device__ inline size_t cluster_smem_floats(int F, int CS, int N,
-                                                      int DK) {
-  const size_t RQ = N / CS;
-  return 2 * (size_t)F * DK * N +
-         2 * F * DK * RQ + 4 * (size_t)F * DK * staged_ld(DK) +
-         4 * (size_t)F * DK * DK + 2 * (size_t)F * DK * (DK + 1) + 4 * F * DK +
-         (F + 2) * N + DK + 4 + (N + 3) / 4;
+// Shared memory of site_sweep_delayed_cx_cluster in elements of T: re and
+// im planes of b over the N/P columns of one pass [f][k][n], y [f][k][r],
+// the staged y and b of the block's sites by site, YT [f][s][k] = y_k[i0+s]
+// and BT [f][s][k] = b_k[i0+s], their entries at the slots' sites Y2
+// [f][k'][k] = y_k'[i_k] and B2 [f][k'][k] = b_k'[i_k], the diagonal block
+// at the block's start D0 [f][s][s'] (rows of DK+1), its current diagonal
+// [f][s] and x [f][k]; u [i], delta [f][i] and the boson weight [i] of
+// flipping each site, the slots' sites and their count (ints) and sigma [i]
+// (int8). ops/site_sweep_delayed_cx.py::smem_bytes mirrors it.
+__host__ __device__ inline size_t cluster_smem_elems(int F, int CS, int N,
+                                                     int DK, int P) {
+  const size_t RQ = N / CS, NCH = N / P;
+  return 2 * (size_t)F * DK * NCH + 2 * F * DK * RQ +
+         4 * (size_t)F * DK * staged_ld(DK) + 4 * (size_t)F * DK * DK +
+         2 * (size_t)F * DK * (DK + 1) + 4 * F * DK + (F + 2) * N + DK + 4 +
+         (N + 3) / 4;
 }
 
 // v -= a[0] b[0], v -= a[1] b[1], ... in that order for kp < k, each
 // complex product in K8's order (a, b: 16-byte aligned re and im planes)
-__device__ __forceinline__ void creplay(float& vr, float& vi, const float* ar,
-                                        const float* ai, const float* br,
-                                        const float* bi, int k) {
+template <class T>
+__device__ __forceinline__ void creplay(T& vr, T& vi, const T* ar,
+                                        const T* ai, const T* br,
+                                        const T* bi, int k) {
   int kp = 0;
 #pragma unroll 2
   for (; kp + 4 <= k; kp += 4) {
-    const float4 xr = *reinterpret_cast<const float4*>(ar + kp);
-    const float4 xi = *reinterpret_cast<const float4*>(ai + kp);
-    const float4 yr = *reinterpret_cast<const float4*>(br + kp);
-    const float4 yi = *reinterpret_cast<const float4*>(bi + kp);
+    const V4<T> xr = ld4(ar + kp);
+    const V4<T> xi = ld4(ai + kp);
+    const V4<T> yr = ld4(br + kp);
+    const V4<T> yi = ld4(bi + kp);
     cfold(vr, vi, xr.x, xi.x, yr.x, yi.x);
     cfold(vr, vi, xr.y, xi.y, yr.y, yi.y);
     cfold(vr, vi, xr.z, xi.z, yr.z, yi.z);
@@ -322,48 +363,55 @@ __device__ __forceinline__ void creplay(float& vr, float& vi, const float* ar,
   for (; kp < k; ++kp) cfold(vr, vi, ar[kp], ai[kp], br[kp], bi[kp]);
 }
 
-template <int F, int CS>
+template <class T, int F, int CS>
 __global__ void __launch_bounds__(kThreads)
-site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
-               const int8_t* __restrict__ sigma_in,
-               int8_t* __restrict__ sigma_out, const float* __restrict__ u,
-               uint8_t* __restrict__ accept_out, float2* __restrict__ det_out,
-               int N, int DK, float lamb, float sign0, float sign1,
-               int det_power, int use_boson) {
-  extern __shared__ __align__(16) float smem[];
+site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
+                              typename Cplx<T>::type* G_out,
+                              const int8_t* __restrict__ sigma_in,
+                              int8_t* __restrict__ sigma_out,
+                              const T* __restrict__ u,
+                              uint8_t* __restrict__ accept_out,
+                              typename Cplx<T>::type* __restrict__ det_out,
+                              int N, int DK, int P, T lamb, T sign0, T sign1,
+                              int det_power, int use_boson) {
+  using C2 = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_cluster[];
+  T* smem = reinterpret_cast<T*>(smem_cluster);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int c = blockIdx.x / CS;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int RQ = N / CS, r0 = rank * RQ, LDD = DK + 1, DD = DK * DK;
+  const int NCH = N / P;  // columns of one pass
   const int LDT = staged_ld(DK), TP = F * DK * LDT;  // a table's plane
   const size_t NN = (size_t)N * N, gbase = (size_t)c * F * NN;
-  float* Br = smem;                               // [f][k][n]
-  float* Bi = Br + F * DK * N;
-  float* Ar = Bi + F * DK * N;                    // [f][k][r], r local
-  float* Ai = Ar + F * DK * RQ;
-  float* YT = Ai + F * DK * RQ;                   // [f][s][k], re then im
-  float* BT = YT + 2 * TP;                        // [f][s][k], re then im
-  float* Y2r = BT + 2 * TP;                       // [f][k'][k]
-  float* Y2i = Y2r + F * DD;
-  float* B2r = Y2i + F * DD;                      // [f][k'][k]
-  float* B2i = B2r + F * DD;
-  float* D0r = B2i + F * DD;                      // [f][s][s']
-  float* D0i = D0r + F * DK * LDD;
-  float* dgr = D0i + F * DK * LDD;                // [f][s]: G[i0+s][i0+s]
-  float* dgi = dgr + F * DK;
-  float* Xr = dgi + F * DK;                       // [f][k]
-  float* Xi = Xr + F * DK;
-  float* us = Xi + F * DK;                        // [i]
-  float* dl = us + N;                             // [f][i]
-  float* wg = dl + F * N;                         // [i]
-  int* ts = reinterpret_cast<int*>(wg + N);       // [k]: the slot's t
+  const T one = 1, zero = 0;
+  T* Br = smem;                               // [f][k][n - pass start]
+  T* Bi = Br + F * DK * NCH;
+  T* Ar = Bi + F * DK * NCH;                  // [f][k][r], r local
+  T* Ai = Ar + F * DK * RQ;
+  T* YT = Ai + F * DK * RQ;                   // [f][s][k], re then im
+  T* BT = YT + 2 * TP;                        // [f][s][k], re then im
+  T* Y2r = BT + 2 * TP;                       // [f][k'][k]
+  T* Y2i = Y2r + F * DD;
+  T* B2r = Y2i + F * DD;                      // [f][k'][k]
+  T* B2i = B2r + F * DD;
+  T* D0r = B2i + F * DD;                      // [f][s][s']
+  T* D0i = D0r + F * DK * LDD;
+  T* dgr = D0i + F * DK * LDD;                // [f][s]: G[i0+s][i0+s]
+  T* dgi = dgr + F * DK;
+  T* Xr = dgi + F * DK;                       // [f][k]
+  T* Xi = Xr + F * DK;
+  T* us = Xi + F * DK;                        // [i]
+  T* dl = us + N;                             // [f][i]
+  T* wg = dl + F * N;                         // [i]
+  int* ts = reinterpret_cast<int*>(wg + N);   // [k]: the slot's t
   int* kcount = ts + DK;
   int8_t* ss = reinterpret_cast<int8_t*>(kcount + 4);  // [i]
 
   // row r of flavor f of this chain's G, in G_out
-  auto row = [&](int f, int r) -> float2* {
+  auto row = [&](int f, int r) -> C2* {
     return G_out + gbase + f * NN + (size_t)r * N;
   };
 
@@ -371,23 +419,21 @@ site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
   if (tid == 0) clk.start();
   // each site's flip terms, which depend on its own sigma only (a site is
   // decided once per slice): delta_f = exp(sign_f dEb) - 1, w = exp(-dEb)
-  const float neg2lamb = -2.f * lamb;
+  const T neg2lamb = T(-2) * lamb;
   for (int i = tid; i < N; i += nth) {
     const int8_t s8 = sigma_in[(size_t)c * N + i];
-    const float dEb = __fmul_rn(neg2lamb, (float)s8);
+    const T dEb = mul_rn(neg2lamb, (T)s8);
     us[i] = u[(size_t)c * N + i];
     ss[i] = s8;
 #pragma unroll
     for (int f = 0; f < F; ++f)
-      dl[f * N + i] =
-          __fsub_rn(expf(__fmul_rn(f == 0 ? sign0 : sign1, dEb)), 1.f);
-    wg[i] = use_boson ? expf(-dEb) : 1.f;
+      dl[f * N + i] = sub_rn(exp_(mul_rn(f == 0 ? sign0 : sign1, dEb)), one);
+    wg[i] = use_boson ? exp_(-dEb) : one;
   }
   for (int f = 0; f < F; ++f) {  // G_in's own rows into G_out
-    const float4* src = reinterpret_cast<const float4*>(
-        G_in + gbase + f * NN + (size_t)r0 * N);
-    float4* dst = reinterpret_cast<float4*>(row(f, r0));
-    for (int e = tid; e < RQ * N / 2; e += nth) dst[e] = src[e];
+    const C2* src = G_in + gbase + f * NN + (size_t)r0 * N;
+    C2* dst = row(f, r0);
+    for (int e = tid; e < RQ * N; e += nth) dst[e] = src[e];
   }
   if (tid == 0) clk.lap(0);
   cluster.sync();
@@ -397,9 +443,9 @@ site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
     // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK]
     for (int f = 0; f < F; ++f)
       for (int s = warp; s < DK; s += kWarps) {
-        const float2* src = row(f, i0 + s) + i0;
+        const C2* src = row(f, i0 + s) + i0;
         for (int s2 = lane; s2 < DK; s2 += 32) {
-          const float2 g = src[s2];
+          const C2 g = src[s2];
           D0r[(f * DK + s) * LDD + s2] = g.x;
           D0i[(f * DK + s) * LDD + s2] = g.y;
         }
@@ -423,65 +469,60 @@ site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
       for (int t = 0; t < DK; ++t) {
         const int i = i0 + t;
         const int8_t s8 = ss[i];
-        float delta[F], rr[F], ri[F];
-        float pr = 0.f, pi = 0.f;
+        T delta[F], rr[F], ri[F];
+        T pr = zero, pi = zero;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
           delta[f] = dl[f * N + i];
-          const float gr = dgr[f * DK + t], gi = dgi[f * DK + t];
-          rr[f] = __fadd_rn(1.f, __fmul_rn(delta[f], __fsub_rn(1.f, gr)));
-          ri[f] = -__fmul_rn(delta[f], gi);
+          const T gr = dgr[f * DK + t], gi = dgi[f * DK + t];
+          rr[f] = add_rn(one, mul_rn(delta[f], sub_rn(one, gr)));
+          ri[f] = -mul_rn(delta[f], gi);
           if (f == 0) {
             pr = rr[0];
             pi = ri[0];
           } else {
-            const float npr =
-                __fsub_rn(__fmul_rn(pr, rr[f]), __fmul_rn(pi, ri[f]));
-            const float npi =
-                __fadd_rn(__fmul_rn(pr, ri[f]), __fmul_rn(pi, rr[f]));
+            const T npr = sub_rn(mul_rn(pr, rr[f]), mul_rn(pi, ri[f]));
+            const T npi = add_rn(mul_rn(pr, ri[f]), mul_rn(pi, rr[f]));
             pr = npr;
             pi = npi;
           }
         }
-        float dre = pr, dim = pi;
+        T dre = pr, dim = pi;
         if (det_power == 2) {
-          dre = __fsub_rn(__fmul_rn(pr, pr), __fmul_rn(pi, pi));
-          dim = __fmul_rn(__fmul_rn(2.f, pr), pi);
+          dre = sub_rn(mul_rn(pr, pr), mul_rn(pi, pi));
+          dim = mul_rn(mul_rn(T(2), pr), pi);
         }
-        const bool accept = us[i] < __fmul_rn(wg[i], dre);
+        const bool accept = us[i] < mul_rn(wg[i], dre);
         if (rank == 0 && lane == 0) {
           const size_t o = (size_t)c * N + i;
           accept_out[o] = accept;
-          det_out[o] = make_float2(dre, dim);
+          det_out[o] = Cplx<T>::make(dre, dim);
           sigma_out[o] = accept ? (int8_t)(-s8) : s8;
         }
         if (!accept) continue;  // warp-uniform
         // stage y[i0+s] = x (delta_st - G[i0+s][i]), b[i0+s] = G[i][i0+s]
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-          const float inv = __fdiv_rn(
-              1.f, __fadd_rn(__fmul_rn(rr[f], rr[f]), __fmul_rn(ri[f], ri[f])));
-          const float xr = __fmul_rn(__fmul_rn(delta[f], rr[f]), inv);
-          const float xi = -__fmul_rn(__fmul_rn(delta[f], ri[f]), inv);
+          const T inv = div_rn(
+              one, add_rn(mul_rn(rr[f], rr[f]), mul_rn(ri[f], ri[f])));
+          const T xr = mul_rn(mul_rn(delta[f], rr[f]), inv);
+          const T xi = -mul_rn(mul_rn(delta[f], ri[f]), inv);
           const int ft = (f * DK + t) * LDT;
           for (int s = lane; s < DK; s += 32) {
             const int fs = (f * DK + s) * LDT;
             const int dc = (f * DK + s) * LDD + t, dr = (f * DK + t) * LDD + s;
-            float cvr = D0r[dc], cvi = D0i[dc], rvr = D0r[dr], rvi = D0i[dr];
+            T cvr = D0r[dc], cvi = D0i[dc], rvr = D0r[dr], rvi = D0i[dr];
             creplay(cvr, cvi, YT + fs, YT + TP + fs, BT + ft, BT + TP + ft, k);
             creplay(rvr, rvi, YT + ft, YT + TP + ft, BT + fs, BT + TP + fs, k);
-            const float igr = __fsub_rn(s == t ? 1.f : 0.f, cvr);
-            const float igi = -cvi;
-            const float yr = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
-            const float yi = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
+            const T igr = sub_rn(s == t ? one : zero, cvr);
+            const T igi = -cvi;
+            const T yr = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+            const T yi = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
             YT[fs + k] = yr;
             YT[TP + fs + k] = yi;
             BT[fs + k] = rvr;
             BT[TP + fs + k] = rvi;
             cfold(dgr[f * DK + s], dgi[f * DK + s], yr, yi, rvr, rvi);
-            const size_t b = (size_t)(f * DK + k) * N + i0 + s;
-            Br[b] = rvr;
-            Bi[b] = rvi;
           }
           if (lane == 0) {
             Xr[f * DK + k] = xr;
@@ -512,129 +553,140 @@ site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
     if (tid == 0) clk.lap(3);
     if (K == 0) continue;  // cluster-uniform: nothing to fold
 
-    // 3. replay the slots: items [0, F N) form b_k[n] = G[i_k][n] - sum
-    // y_k'[i_k] b_k'[n] outside the block's columns (the decisions staged
-    // those), items [F N, F N + F RQ) y_k over the own rows from G[r][i_k] -
-    // sum y_k'[r] b_k'[i_k]. Each value takes its subtractions in slot
-    // order, as the slab updates apply them; kChunk slots at a time in
-    // registers.
-    for (int item = tid; item < F * (N + RQ); item += nth) {
-      const bool is_b = item < F * N;
-      const int e = is_b ? item : item - F * N;
-      const int f = is_b ? (F == 2 && e >= N) : (F == 2 && e >= RQ);
-      const int j0 = e - f * (is_b ? N : RQ);  // column n, or local row
-      if (is_b && (unsigned)(j0 - i0) < (unsigned)DK) continue;
-      const float* cfr = (is_b ? Y2r : B2r) + f * DD;
-      const float* cfi = (is_b ? Y2i : B2i) + f * DD;
-      const size_t ob = is_b ? (size_t)f * DK * N + j0
-                             : (size_t)f * DK * RQ + j0;
-      float* outr = (is_b ? Br : Ar) + ob;
-      float* outi = (is_b ? Bi : Ai) + ob;
-      const size_t ostride = is_b ? N : RQ;
-      const float2* g = is_b ? nullptr : row(f, r0 + j0);
-      for (int c0 = 0; c0 < K; c0 += kChunk) {
-        float vr[kChunk], vi[kChunk];
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const int k = c0 + j < K ? c0 + j : K - 1;
-          const float2 h = is_b ? row(f, i0 + ts[k])[j0] : g[i0 + ts[k]];
-          vr[j] = h.x;
-          vi[j] = h.y;
+    for (int pass = 0; pass < P; ++pass) {
+      const int c0 = pass * NCH;  // the pass's first column
+      // 3. replay the slots: items [0, F NCH) form b_k[n] = G[i_k][n] - sum
+      // y_k'[i_k] b_k'[n] at the pass's columns outside the block (the
+      // decisions staged those), items [F NCH, F NCH + F RQ) in the first
+      // pass y_k over the own rows from G[r][i_k] - sum y_k'[r] b_k'[i_k].
+      // Each value takes its subtractions in slot order, as the slab updates
+      // apply them; kChunk slots at a time in registers.
+      const int nb = F * NCH, items = nb + (pass == 0 ? F * RQ : 0);
+      for (int item = tid; item < items; item += nth) {
+        const bool is_b = item < nb;
+        const int e = is_b ? item : item - nb;
+        const int f = is_b ? (F == 2 && e >= NCH) : (F == 2 && e >= RQ);
+        const int j0 = e - f * (is_b ? NCH : RQ);  // pass column, local row
+        const int n = c0 + j0;                     // b: the column
+        const size_t ob = is_b ? (size_t)f * DK * NCH + j0
+                               : (size_t)f * DK * RQ + j0;
+        T* outr = (is_b ? Br : Ar) + ob;
+        T* outi = (is_b ? Bi : Ai) + ob;
+        const size_t ostride = is_b ? NCH : RQ;
+        if (is_b && (unsigned)(n - i0) < (unsigned)DK) {
+          const int st = (f * DK + n - i0) * LDT;
+          for (int k = 0; k < K; ++k) {
+            outr[k * ostride] = BT[st + k];
+            outi[k * ostride] = BT[TP + st + k];
+          }
+          continue;
         }
-        // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
-#pragma unroll 4
-        for (int kp = 0; kp < c0; ++kp) {
-          const float fr = outr[kp * ostride], fi = outi[kp * ostride];
-          const float* cr = cfr + kp * DK + c0;
-          const float* ci = cfi + kp * DK + c0;
+        const T* cfr = (is_b ? Y2r : B2r) + f * DD;
+        const T* cfi = (is_b ? Y2i : B2i) + f * DD;
+        const C2* g = is_b ? nullptr : row(f, r0 + j0);
+        for (int cb = 0; cb < K; cb += kChunk) {
+          T vr[kChunk], vi[kChunk];
 #pragma unroll
           for (int j = 0; j < kChunk; ++j) {
-            if (is_b)
-              cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
-            else
-              cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
+            const int k = cb + j < K ? cb + j : K - 1;
+            const C2 h = is_b ? row(f, i0 + ts[k])[n] : g[i0 + ts[k]];
+            vr[j] = h.x;
+            vi[j] = h.y;
           }
-        }
+          // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
+#pragma unroll 4
+          for (int kp = 0; kp < cb; ++kp) {
+            const T fr = outr[kp * ostride], fi = outi[kp * ostride];
+            const T* cr = cfr + kp * DK + cb;
+            const T* ci = cfi + kp * DK + cb;
 #pragma unroll
-        for (int jp = 0; jp < kChunk; ++jp) {
-          if (c0 + jp < K) {
-            if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
-              const int k = c0 + jp;
-              const float xr = Xr[f * DK + k], xi = Xi[f * DK + k];
-              const float igr = __fsub_rn(
-                  r0 + j0 == i0 + ts[k] ? 1.f : 0.f, vr[jp]);
-              const float igi = -vi[jp];
-              vr[jp] = __fsub_rn(__fmul_rn(xr, igr), __fmul_rn(xi, igi));
-              vi[jp] = __fadd_rn(__fmul_rn(xr, igi), __fmul_rn(xi, igr));
-            }
-            const float* cr = cfr + (c0 + jp) * DK + c0;
-            const float* ci = cfi + (c0 + jp) * DK + c0;
-#pragma unroll
-            for (int j = jp + 1; j < kChunk; ++j) {
+            for (int j = 0; j < kChunk; ++j) {
               if (is_b)
-                cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+                cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
               else
-                cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+                cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
             }
           }
-        }
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j)
-          if (c0 + j < K) {
-            outr[(c0 + j) * ostride] = vr[j];
-            outi[(c0 + j) * ostride] = vi[j];
+          for (int jp = 0; jp < kChunk; ++jp) {
+            if (cb + jp < K) {
+              if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
+                const int k = cb + jp;
+                const T xr = Xr[f * DK + k], xi = Xi[f * DK + k];
+                const T igr =
+                    sub_rn(r0 + j0 == i0 + ts[k] ? one : zero, vr[jp]);
+                const T igi = -vi[jp];
+                vr[jp] = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+                vi[jp] = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
+              }
+              const T* cr = cfr + (cb + jp) * DK + cb;
+              const T* ci = cfi + (cb + jp) * DK + cb;
+#pragma unroll
+              for (int j = jp + 1; j < kChunk; ++j) {
+                if (is_b)
+                  cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+                else
+                  cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+              }
+            }
           }
+#pragma unroll
+          for (int j = 0; j < kChunk; ++j)
+            if (cb + j < K) {
+              outr[(cb + j) * ostride] = vr[j];
+              outi[(cb + j) * ostride] = vi[j];
+            }
+        }
       }
-    }
-    __syncthreads();
-    if (tid == 0) clk.lap(4);
-    cluster.sync();  // every block has read the rows of this block
-    if (tid == 0) clk.lap(1);
+      __syncthreads();
+      if (tid == 0) clk.lap(4);
+      cluster.sync();  // every block has read the pass's columns of the rows
+      if (tid == 0) clk.lap(1);
 
-    // 4. fold the own rows: G -= y_k (x) b_k in slot order, tiles of 4
-    // rows x 2 complex columns
-    // (each thread loads its next tile before folding this one)
-    const int NC = N / 2, tiles = (RQ / 4) * NC;
-    for (int f = 0; f < F; ++f) {
-      auto tile = [&](int e) {
-        return row(f, r0 + 4 * (e / NC)) + 2 * (e % NC);
-      };
-      float4 next[4];
-      if (tid < tiles)
-        for (int q = 0; q < 4; ++q)
-          next[q] = *reinterpret_cast<const float4*>(tile(tid) + (size_t)q * N);
-      for (int e = tid; e < tiles; e += nth) {
-        const int rt = e / NC, ct = e - rt * NC;
-        float2* g0 = row(f, r0 + 4 * rt) + 2 * ct;
-        // g[q] = (re, im) of G[4rt+q][2ct] and of G[4rt+q][2ct+1]
-        float4 g[4];
-        for (int q = 0; q < 4; ++q) g[q] = next[q];
-        if (e + nth < tiles)
+      // 4. fold the pass's columns of the own rows: G -= y_k (x) b_k in slot
+      // order, tiles of 4 rows x 2 complex columns (each thread loads its
+      // next tile before folding this one)
+      const int NC = NCH / 2, tiles = (RQ / 4) * NC;
+      for (int f = 0; f < F; ++f) {
+        auto tile = [&](int e) {
+          return reinterpret_cast<T*>(row(f, r0 + 4 * (e / NC)) + c0 +
+                                      2 * (e % NC));
+        };
+        V4<T> next[4];
+        if (tid < tiles)
           for (int q = 0; q < 4; ++q)
-            next[q] = *reinterpret_cast<const float4*>(tile(e + nth) +
-                                                       (size_t)q * N);
-        const size_t ao = (size_t)f * DK * RQ + 4 * rt;
-        const size_t bo = (size_t)f * DK * N + 2 * ct;
-        for (int p = 0; p < K; ++p) {
-          const float4 ar = *reinterpret_cast<const float4*>(Ar + ao + p * RQ);
-          const float4 ai = *reinterpret_cast<const float4*>(Ai + ao + p * RQ);
-          const float2 br =
-              *reinterpret_cast<const float2*>(Br + bo + (size_t)p * N);
-          const float2 bi =
-              *reinterpret_cast<const float2*>(Bi + bo + (size_t)p * N);
-          const float yr[4] = {ar.x, ar.y, ar.z, ar.w};
-          const float yi[4] = {ai.x, ai.y, ai.z, ai.w};
+            next[q] = ld4(tile(tid) + 2 * (size_t)q * N);
+        for (int e = tid; e < tiles; e += nth) {
+          const int rt = e / NC, ct = e - rt * NC;
+          T* g0 = tile(e);
+          // g[q] = (re, im) of G[4rt+q][c0+2ct] and of G[4rt+q][c0+2ct+1]
+          V4<T> g[4];
+          for (int q = 0; q < 4; ++q) g[q] = next[q];
+          if (e + nth < tiles)
+            for (int q = 0; q < 4; ++q)
+              next[q] = ld4(tile(e + nth) + 2 * (size_t)q * N);
+          const size_t ao = (size_t)f * DK * RQ + 4 * rt;
+          const size_t bo = (size_t)f * DK * NCH + 2 * ct;
+          for (int p = 0; p < K; ++p) {
+            const V4<T> ar = ld4(Ar + ao + p * RQ);
+            const V4<T> ai = ld4(Ai + ao + p * RQ);
+            const auto br = ld2(Br + bo + (size_t)p * NCH);
+            const auto bi = ld2(Bi + bo + (size_t)p * NCH);
+            const T yr[4] = {ar.x, ar.y, ar.z, ar.w};
+            const T yi[4] = {ai.x, ai.y, ai.z, ai.w};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
-            cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+            for (int q = 0; q < 4; ++q) {
+              cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
+              cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+            }
           }
+          for (int q = 0; q < 4; ++q) st4(g0 + 2 * (size_t)q * N, g[q]);
         }
-        for (int q = 0; q < 4; ++q)
-          *reinterpret_cast<float4*>(g0 + (size_t)q * N) = g[q];
       }
+      if (tid == 0) clk.lap(5);
+      // the next pass rewrites b, which this pass's fold reads
+      if (pass + 1 < P) __syncthreads();
     }
-    if (tid == 0) clk.lap(5);
     cluster.sync();  // the folded rows, before the next diagonal block
     if (tid == 0) clk.lap(1);
   }
@@ -645,36 +697,36 @@ site_sweep_delayed_cx_cluster(const float2* __restrict__ G_in, float2* G_out,
 #endif
 }
 
-template <int F>
-int launch_slab(const float2* G_in, float2* G_out, const int8_t* sigma_in,
-                int8_t* sigma_out, const float* u, uint8_t* accept,
-                float2* det, float* scratch, int C, int N, int DK, float lamb,
-                float sign0, float sign1, int det_power, int use_boson,
+template <class T, int F>
+int launch_slab(const typename Cplx<T>::type* G_in,
+                typename Cplx<T>::type* G_out, const int8_t* sigma_in,
+                int8_t* sigma_out, const T* u, uint8_t* accept,
+                typename Cplx<T>::type* det, T* scratch, int C, int N, int DK,
+                T lamb, T sign0, T sign1, int det_power, int use_boson,
                 cudaStream_t stream) {
   const size_t smem =
-      (size_t)(2 * F * DK * N + 2 * F * DK * (N + 1) + 4 * F * N) *
-      sizeof(float);
+      (size_t)(2 * F * DK * N + 2 * F * DK * (N + 1) + 4 * F * N) * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_delayed_cx_slab<F>,
+      site_sweep_delayed_cx_slab<T, F>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  site_sweep_delayed_cx_slab<F><<<C, kThreads, smem, stream>>>(
+  site_sweep_delayed_cx_slab<T, F><<<C, kThreads, smem, stream>>>(
       G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, N, DK,
       lamb, sign0, sign1, det_power, use_boson);
   return (int)cudaGetLastError();
 }
 
-// The launch configuration of site_sweep_delayed_cx_cluster<F, CS> for C
-// chains, with its shared memory allowed; returns the cudaError_t of that
-// setting.
-template <int F, int CS>
-int cluster_config(int C, int N, int DK, cudaStream_t stream,
+// The launch configuration of site_sweep_delayed_cx_cluster<T, F, CS> for C
+// chains and P column passes, with its shared memory allowed; returns the
+// cudaError_t of that setting.
+template <class T, int F, int CS>
+int cluster_config(int C, int N, int DK, int P, cudaStream_t stream,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t smem = cluster_smem_floats(F, CS, N, DK) * sizeof(float);
+  const size_t smem = cluster_smem_elems(F, CS, N, DK, P) * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      site_sweep_delayed_cx_cluster<F, CS>,
+      site_sweep_delayed_cx_cluster<T, F, CS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   *cfg = cudaLaunchConfig_t{};
@@ -691,38 +743,86 @@ int cluster_config(int C, int N, int DK, cudaStream_t stream,
   return 0;
 }
 
-template <int F, int CS>
-int launch_cluster(const float2* G_in, float2* G_out, const int8_t* sigma_in,
-                   int8_t* sigma_out, const float* u, uint8_t* accept,
-                   float2* det, int C, int N, int DK, float lamb, float sign0,
-                   float sign1, int det_power, int use_boson,
+template <class T, int F, int CS>
+int launch_cluster(const typename Cplx<T>::type* G_in,
+                   typename Cplx<T>::type* G_out, const int8_t* sigma_in,
+                   int8_t* sigma_out, const T* u, uint8_t* accept,
+                   typename Cplx<T>::type* det, int C, int N, int DK, int P,
+                   T lamb, T sign0, T sign1, int det_power, int use_boson,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int err = cluster_config<F, CS>(C, N, DK, stream, &cfg, &attr);
+  int err = cluster_config<T, F, CS>(C, N, DK, P, stream, &cfg, &attr);
   if (err) return err;
-  err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cx_cluster<F, CS>,
+  err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cx_cluster<T, F, CS>,
                                 G_in, G_out, sigma_in, sigma_out, u, accept,
-                                det, N, DK, lamb, sign0, sign1, det_power,
+                                det, N, DK, P, lamb, sign0, sign1, det_power,
                                 use_boson);
   return err ? err : (int)cudaGetLastError();
 }
 
-template <int F, int CS>
-int max_clusters(int N, int DK, int* out) {
+template <class T, int F, int CS>
+int max_clusters(int N, int DK, int P, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int err = cluster_config<F, CS>(1, N, DK, 0, &cfg, &attr);
+  int err = cluster_config<T, F, CS>(1, N, DK, P, 0, &cfg, &attr);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveClusters(
-      out, (void*)site_sweep_delayed_cx_cluster<F, CS>, &cfg);
+      out, (void*)site_sweep_delayed_cx_cluster<T, F, CS>, &cfg);
 }
 
 // The layouts that ops/site_sweep_delayed_cx.py::cluster_plan can pick
 #define MC_K9_LAYOUTS(X) X(1, 2) X(1, 4) X(2, 2) X(2, 4)
 
-bool valid_cluster(int N, int DK, int CS) {
-  return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && DK >= 1 && N % DK == 0;
+bool valid_cluster(int N, int DK, int CS, int P) {
+  return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && P >= 1 &&
+         N % (4 * P) == 0 && DK >= 1 && N % DK == 0;
+}
+
+template <class T>
+int sweep(const void* G_in, void* G_out, const int8_t* sigma_in,
+          int8_t* sigma_out, const T* u, uint8_t* accept, void* det,
+          T* scratch, int C, int F, int N, int DK, int CS, int P, T lamb,
+          T sign0, T sign1, int det_power, int use_boson, void* stream) {
+  using C2 = typename Cplx<T>::type;
+  if (C == 0) return 0;
+  if (N < 8 || N % 8 || DK < 1 || N % DK || det_power < 1 || det_power > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const C2* gi = (const C2*)G_in;
+  C2* go = (C2*)G_out;
+  C2* dt = (C2*)det;
+  if (CS == 1) {
+    if (F == 1)
+      return launch_slab<T, 1>(gi, go, sigma_in, sigma_out, u, accept, dt,
+                               scratch, C, N, DK, lamb, sign0, sign1,
+                               det_power, use_boson, st);
+    if (F == 2)
+      return launch_slab<T, 2>(gi, go, sigma_in, sigma_out, u, accept, dt,
+                               scratch, C, N, DK, lamb, sign0, sign1,
+                               det_power, use_boson, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+#define MC_K9_LAUNCH(f, cs)                                                  \
+  if (F == f && CS == cs)                                                    \
+    return launch_cluster<T, f, cs>(gi, go, sigma_in, sigma_out, u, accept,  \
+                                    dt, C, N, DK, P, lamb, sign0, sign1,     \
+                                    det_power, use_boson, st);
+  MC_K9_LAYOUTS(MC_K9_LAUNCH)
+#undef MC_K9_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class T>
+int query(int F, int N, int DK, int CS, int P, int* out) {
+  *out = 0;
+  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+#define MC_K9_QUERY(f, cs) \
+  if (F == f && CS == cs) return max_clusters<T, f, cs>(N, DK, P, out);
+  MC_K9_LAYOUTS(MC_K9_QUERY)
+#undef MC_K9_QUERY
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -731,7 +831,8 @@ bool valid_cluster(int N, int DK, int CS) {
 // (interleaved re, im), accept one byte per site, det complex64 (C, N).
 // 8 | N, DK | N, F in {1, 2}, det_power 1 or 2. CS = 1:
 // site_sweep_delayed_cx_slab, scratch holds 4 * C * F * DK * N floats;
-// CS = 2 or 4 (4 CS | N): site_sweep_delayed_cx_cluster, scratch unused.
+// CS = 2 or 4 (4 CS | N): site_sweep_delayed_cx_cluster in one column pass,
+// scratch unused.
 extern "C" int site_sweep_delayed_cx_c64(const void* G_in, void* G_out,
                                          const int8_t* sigma_in,
                                          int8_t* sigma_out, const float* u,
@@ -741,50 +842,43 @@ extern "C" int site_sweep_delayed_cx_c64(const void* G_in, void* G_out,
                                          float sign0, float sign1,
                                          int det_power, int use_boson,
                                          void* stream) {
-  if (C == 0) return 0;
-  if (N < 8 || N % 8 || DK < 1 || N % DK || det_power < 1 || det_power > 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float2* gi = (const float2*)G_in;
-  float2* go = (float2*)G_out;
-  float2* dt = (float2*)det;
-  if (CS == 1) {
-    if (F == 1)
-      return launch_slab<1>(gi, go, sigma_in, sigma_out, u, accept, dt,
-                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
-                            use_boson, st);
-    if (F == 2)
-      return launch_slab<2>(gi, go, sigma_in, sigma_out, u, accept, dt,
-                            scratch, C, N, DK, lamb, sign0, sign1, det_power,
-                            use_boson, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
-#define MC_K9_LAUNCH(f, cs)                                              \
-  if (F == f && CS == cs)                                                  \
-    return launch_cluster<f, cs>(gi, go, sigma_in, sigma_out, u, accept,   \
-                                 dt, C, N, DK, lamb, sign0, sign1,          \
-                                 det_power, use_boson, st);
-  MC_K9_LAYOUTS(MC_K9_LAUNCH)
-#undef MC_K9_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return sweep<float>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
+                      scratch, C, F, N, DK, CS, 1, lamb, sign0, sign1,
+                      det_power, use_boson, stream);
+}
+
+// K9-c128: as site_sweep_delayed_cx_c64 with G and det complex128, u and
+// scratch float64, and the cluster layout's P column passes (4 P | N).
+extern "C" int site_sweep_delayed_cx_c128(const void* G_in, void* G_out,
+                                          const int8_t* sigma_in,
+                                          int8_t* sigma_out, const double* u,
+                                          uint8_t* accept, void* det,
+                                          double* scratch, int C, int F,
+                                          int N, int DK, int CS, int P,
+                                          double lamb, double sign0,
+                                          double sign1, int det_power,
+                                          int use_boson, void* stream) {
+  return sweep<double>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
+                       scratch, C, F, N, DK, CS, P, lamb, sign0, sign1,
+                       det_power, use_boson, stream);
 }
 
 // The most clusters of the layout (CS > 1) that the card runs at once, into
 // *out; returns the cudaError_t of the query.
 extern "C" int site_sweep_delayed_cx_c64_max_clusters(int F, int N, int DK,
                                                       int CS, int* out) {
-  *out = 0;
-  if (!valid_cluster(N, DK, CS)) return (int)cudaErrorInvalidValue;
-#define MC_K9_QUERY(f, cs) \
-  if (F == f && CS == cs) return max_clusters<f, cs>(N, DK, out);
-  MC_K9_LAYOUTS(MC_K9_QUERY)
-#undef MC_K9_QUERY
-  return (int)cudaErrorInvalidValue;
+  return query<float>(F, N, DK, CS, 1, out);
+}
+
+extern "C" int site_sweep_delayed_cx_c128_max_clusters(int F, int N, int DK,
+                                                       int CS, int P,
+                                                       int* out) {
+  return query<double>(F, N, DK, CS, P, out);
 }
 
 // Phase stamps of the last launch's first n_blocks blocks (kPhases cycle
-// sums each) into dst on the host: a build with -DMC_PHASE_STAMPS only.
+// sums each) into dst on the host: a build with -DMC_PHASE_STAMPS only. The
+// complex64 and complex128 kernels share one buffer.
 extern "C" int site_sweep_delayed_cx_c64_stamps(void* dst, int n_blocks,
                                                 void* stream) {
 #ifdef MC_PHASE_STAMPS
@@ -793,4 +887,9 @@ extern "C" int site_sweep_delayed_cx_c64_stamps(void* dst, int n_blocks,
   (void)dst, (void)n_blocks, (void)stream;
   return (int)cudaErrorNotSupported;
 #endif
+}
+
+extern "C" int site_sweep_delayed_cx_c128_stamps(void* dst, int n_blocks,
+                                                 void* stream) {
+  return site_sweep_delayed_cx_c64_stamps(dst, n_blocks, stream);
 }

@@ -9,12 +9,14 @@
 // tid % TC) owns the RT rows row(ty, k) and the CT columns col(tx, j), in
 // chunks of up to 16 bytes of consecutive indices (4 floats or 2 doubles:
 // vector reads and writes of the staged vectors without bank conflicts,
-// vector loads and stores of G). Its RT x CT elements of each flavor
-// f < FR live in registers; the flavors FR..F-1 (F = 2 past NP = 64 in
-// complex64 and in float64, whose G does not fit a register file) live in
-// shared memory private to the thread, element e at priv[e*NT + tid], so
-// consecutive threads touch consecutive words. Padded rows and columns
-// start at 0 and are never written back.
+// vector loads and stores of G). G's planes are numbered q = f*NV + v
+// (flavor f, plane v: complex has a real and an imaginary plane). The
+// thread's RT x CT elements of each plane q < QR live in registers; the
+// planes QR..F*NV-1 (F = 2 past NP = 64 in complex64 and in float64, the
+// imaginary plane of complex128 at F = 1 past NP = 64: G that does not fit
+// a register file) live in shared memory private to the thread, element e
+// at priv[e*NT + tid], so consecutive threads touch consecutive words.
+// Padded rows and columns start at 0 and are never written back.
 //
 // One block barrier per site (sweep_chain). Only row i and column i of
 // every flavor go through shared memory, staged in a double buffer: the
@@ -95,6 +97,35 @@ __device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float log10_(float x) { return log10f(x); }
 __device__ __forceinline__ double log10_(double x) { return log10(x); }
 
+// 4 consecutive elements of T, moved with 16-byte accesses (one float4, or
+// two double2): the delayed sweeps' (K6, K9) register tiles and replays
+template <class T>
+struct V4 {
+  T x, y, z, w;
+};
+
+template <class T>
+__device__ __forceinline__ V4<T> ld4(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    return {t.x, t.y, t.z, t.w};
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    return {a.x, a.y, b.x, b.y};
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void st4(T* p, const V4<T>& v) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v.x, v.y, v.z, v.w);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v.x, v.y);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v.z, v.w);
+  }
+}
+
 // A block of TR x TC threads, each owning RT rows and CT columns of the
 // NP x NP padded G of element type T (NP = TR*RT = TC*CT).
 template <int TR_, int TC_, int RT_, int CT_, class T_ = float>
@@ -127,27 +158,28 @@ int with_layout(int N, Fn&& fn) {
   return fn(Geom<16, 16, 8, 8, T>{});
 }
 
-// Flavors in registers: all but one where the tiles of every flavor would
-// take a thread more than 128 registers of with_layout's 256 threads
-// (complex64 and float64 at F = 2 past NP = 64: 256 KB of G at NP = 128,
-// as large as a register file)
+// Planes in registers: every plane where the tiles of all of them take a
+// thread at most 128 registers of with_layout's 256 threads, else as many
+// whole planes as 128 registers hold (complex64 and float64 at F = 2 past
+// NP = 64: flavor 0; complex128 at F = 1 past NP = 64: the real plane; G
+// of 256 KB at NP = 128, as large as a register file)
 template <bool CX, int F, int NP, class T = float>
-__host__ __device__ constexpr int flavors_in_registers() {
-  return F * (CX ? 2 : 1) * (int)(sizeof(T) / 4) * (NP * NP / 256) > 128
-             ? 1
-             : F;
+__host__ __device__ constexpr int planes_in_registers() {
+  constexpr int words = (int)(sizeof(T) / 4) * (NP * NP / 256);  // a plane
+  constexpr int planes = F * (CX ? 2 : 1);
+  return planes * words <= 128 ? planes : 128 / words;
 }
 
 // Shared memory of one block, in bytes: the staging double buffer (row and
 // column of every flavor and plane, for S sites: K5 stages two), u, the
-// complex det per site, the thread-private flavors FR..F-1 (all of them
+// complex det per site, the thread-private planes QR..F*NV-1 (all of them
 // elements of T), and sigma in and out (complex: the accept flags).
 // ops/site_sweep.py::tiled_smem_bytes mirrors it.
-template <bool CX, int F, int FR, int NP, class T = float, int S = 1>
+template <bool CX, int F, int QR, int NP, class T = float, int S = 1>
 __host__ __device__ constexpr int smem_bytes() {
   constexpr int NV = CX ? 2 : 1;
   return (int)sizeof(T) * (2 * 2 * S * NV * F * NP + NP + (CX ? 2 * NP : 0) +
-                           (F - FR) * NV * NP * NP) +
+                           (F * NV - QR) * NP * NP) +
          NP * (CX ? 3 : 2);
 }
 
@@ -209,15 +241,16 @@ __device__ __forceinline__ void st_span(T* p, const T* v) {
 }
 
 // A thread's elements of G: plane v (complex: 0 real, 1 imaginary) of
-// flavor f at tile position (k, j).
-template <int NV, int F, int FR, class Gm>
+// flavor f at tile position (k, j); planes q = f*NV + v < QR in registers.
+template <int NV, int F, int QR, class Gm>
 struct Tile {
   using T = typename Gm::T;
-  T r[FR][NV][Gm::RT][Gm::CT];
-  T* s;  // the thread's first private element of flavors FR..F-1
+  T r[QR][Gm::RT][Gm::CT];
+  T* s;  // the thread's first private element of planes QR..F*NV-1
   __device__ __forceinline__ T& at(int f, int v, int k, int j) {
-    if (f < FR) return r[f][v][k][j];
-    return s[((((f - FR) * NV + v) * Gm::RT + k) * Gm::CT + j) * Gm::NT];
+    const int q = f * NV + v;
+    if (q < QR) return r[q][k][j];
+    return s[(((q - QR) * Gm::RT + k) * Gm::CT + j) * Gm::NT];
   }
 };
 
@@ -240,8 +273,8 @@ struct Stage {
 // s of the staging buffer st. A thread finds whether it owns row n from its
 // ty alone (column n: its tx), and which of its rows that is by unrolled
 // compare-and-select.
-template <int NV, int F, int FR, class Gm, class St>
-__device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g, const St& st,
+template <int NV, int F, int QR, class Gm, class St>
+__device__ __forceinline__ void publish(Tile<NV, F, QR, Gm>& g, const St& st,
                                         int n, int ty, int tx, int s = 0) {
   using T = typename Gm::T;
   constexpr int RT = Gm::RT, CT = Gm::CT;
@@ -290,8 +323,8 @@ __device__ __forceinline__ void publish(Tile<NV, F, FR, Gm>& g, const St& st,
 // The thread's tiles of G (F x N x N at G_in, NV interleaved planes) into
 // g, padded rows and columns 0; whole: N keeps every chunk whole and
 // aligned, so chunks move with vector loads
-template <int NV, int F, int FR, class Gm>
-__device__ __forceinline__ void load_tile(Tile<NV, F, FR, Gm>& g,
+template <int NV, int F, int QR, class Gm>
+__device__ __forceinline__ void load_tile(Tile<NV, F, QR, Gm>& g,
                                           const typename Gm::T* __restrict__
                                               G_in,
                                           int N, bool whole, int ty, int tx) {
@@ -325,8 +358,8 @@ __device__ __forceinline__ void load_tile(Tile<NV, F, FR, Gm>& g,
 }
 
 // The thread's tiles of g out to G_out, padded rows and columns left out
-template <int NV, int F, int FR, class Gm>
-__device__ __forceinline__ void store_tile(Tile<NV, F, FR, Gm>& g,
+template <int NV, int F, int QR, class Gm>
+__device__ __forceinline__ void store_tile(Tile<NV, F, QR, Gm>& g,
                                            typename Gm::T* __restrict__ G_out,
                                            int N, bool whole, int ty, int tx) {
   using T = typename Gm::T;
@@ -464,10 +497,11 @@ struct NoWrap {
 // also folds log10(max(|det|, 1e-38)) of the negative detratios, in site
 // order, into their min, max and sum at neg_out[0..2], as the JAX package's
 // XLA loop does (_push_mag). Complex (K8): accept_out and det_out at its N
-// accept flags and complex detratios. Thread 0 laps clk: 0 load,
-// 1 decision, 2 update, 3 publish, 4 barrier, 5 store (a wrap: 6 and 7).
-// wrap (K13) runs before or after the loop.
-template <bool CX, int F, int FR, class Gm, class Wrap = NoWrap>
+// accept flags and complex detratios. QR planes of G in registers
+// (planes_in_registers). Thread 0 laps clk: 0 load, 1 decision, 2 update,
+// 3 publish, 4 barrier, 5 store (a wrap: 6 and 7). wrap (K13) runs before
+// or after the loop.
+template <bool CX, int F, int QR, class Gm, class Wrap = NoWrap>
 __device__ __forceinline__ void sweep_chain(
     typename Gm::T* smem, const typename Gm::T* __restrict__ G_in,
     typename Gm::T* __restrict__ G_out, const int8_t* __restrict__ sigma_in,
@@ -482,12 +516,14 @@ __device__ __forceinline__ void sweep_chain(
   constexpr int NP = Gm::NP, NT = Gm::NT, RT = Gm::RT, CT = Gm::CT;
   constexpr int WR = Gm::WR, WC = Gm::WC;
   using St = Stage<T, NV, F, NP>;
-  static_assert(FR >= 1 && FR <= F, "layout");
+  static_assert(QR >= 1 && QR <= F * NV, "layout");
+  // flavors whose planes all live in registers
+  constexpr int FR = QR / NV;
   const int tid = threadIdx.x, ty = tid / Gm::TC, tx = tid % Gm::TC;
   T* u_s = smem + 2 * St::SIZE;
   T* det_s = u_s + NP;  // complex: (re, im) per site
   T* priv = det_s + (CX ? 2 * NP : 0);
-  int8_t* sig_s = reinterpret_cast<int8_t*>(priv + (F - FR) * NV * NP * NP);
+  int8_t* sig_s = reinterpret_cast<int8_t*>(priv + (F * NV - QR) * NP * NP);
   int8_t* sig_o = sig_s + NP;
   uint8_t* acc_s = reinterpret_cast<uint8_t*>(sig_o + NP);
   auto stage = [&](int i) { return St{smem + (i & 1) * St::SIZE}; };
@@ -497,7 +533,7 @@ __device__ __forceinline__ void sweep_chain(
                      (uintptr_t)G_out % 16 == 0;
 
   if (tid == 0) clk.start();
-  Tile<NV, F, FR, Gm> g;
+  Tile<NV, F, QR, Gm> g;
   g.s = priv + tid;
   load_tile(g, G_in, N, whole, ty, tx);
   for (int a = tid; a < N; a += NT) {

@@ -187,7 +187,7 @@ struct TiledWrap {
     __syncthreads();  // s written
 #pragma unroll
     for (int f = 0; f < F; ++f)
-      flavor(g.r[f][0], s, __fmul_rn(lamb, f == 0 ? sign0 : sign1), clk, t0);
+      flavor(g.r[f], s, __fmul_rn(lamb, f == 0 ? sign0 : sign1), clk, t0);
   }
 
   template <class TileT>

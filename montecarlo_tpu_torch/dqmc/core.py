@@ -78,7 +78,8 @@ class DQMCContext:
     update_dtype: torch.dtype = None
     prop_err_threshold: float = 1e-7
     # hand-written kernels on CUDA (K1-K5 and K11 for N <= 128, K6 and K7
-    # beyond; complex: K8 and K10 for N <= 128, K9 beyond), their plain
+    # beyond, K6-f64 in float64; complex: K8 and K10 for N <= 128, K9
+    # beyond, K8-c128 and K9-c128 in complex128), their plain
     # versions on CPU; False runs the plain site sweeps and the library
     # QR/solve on any device
     use_kernels: bool = True
@@ -291,38 +292,38 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     library QR where the JAX package runs XLA's QR). Real sessions: N <= 128
     K5 for float32 updates with F = 2 at even N, else K1 in the update
     dtype (float32 or float64; K5 takes every shape K1 takes at even N);
-    past N = 128 K6 for float32 updates at 4 | N, in blocks of
-    max(delay, 1) sites with its buffers in shared memory. Complex64
-    updates: K8 up to N = 128 (G of one chain over the block's registers,
-    flavor 1 in shared memory at F = 2 past N = 64, so F = 2 stops at
-    N = 119), K9 at 8 | N beyond (its buffers in shared memory: not F = 2
-    at N = 256, delay 32). Complex128 updates have no kernel. The JAX
-    package runs its XLA site loop where these refuse (ROADMAP Queue 1
-    item 4)."""
+    past N = 128 K6 (float32) or K6-f64 (float64) at 4 | N, in blocks of
+    max(delay, 1) sites with its buffers in shared memory (float64 at
+    N = 256, delay 32: F = 2 in two column passes). Complex64 updates: K8
+    up to N = 128 (G of one chain over the block's registers, flavor 1 in
+    shared memory at F = 2 past N = 64, so F = 2 stops at N = 119), K9 at
+    8 | N beyond (its buffers in shared memory: not F = 2 at N = 256,
+    delay 32). Complex128 updates: K8-c128 up to N = 128 at F = 1 (the
+    imaginary plane in shared memory past N = 64) and N = 64 at F = 2, K9-
+    c128 at 8 | N beyond (N = 256: F = 1 to delay 32, F = 2 to delay 16).
+    The JAX package runs its XLA site loop where these refuse (ROADMAP
+    Queue 1 item 4)."""
     dk = max(delay, 1)
     if dtype.is_complex or udtype.is_complex:
-        if udtype != torch.complex64:
-            raise _not_ported("CUDA kernels for complex128 updates "
-                              "(use_kernels=False runs the plain path)",
-                              "Queue 1 item 4")
-        if not (_sscx.kernel_supports(N, F) if N <= MAX_N
-                else _ssdcx.kernel_supports(N, F, dk)):
+        if not (_sscx.kernel_supports(N, F, udtype) if N <= MAX_N
+                else _ssdcx.kernel_supports(N, F, dk, udtype)):
             raise _not_ported(
-                f"the complex64 site sweep for N={N}, F={F}, delay={delay} "
-                "(K8 takes N <= 128, K8 with G of one chain over the "
-                "block's registers and flavor 1 in shared memory at F = 2 "
-                "past N = 64, so F = 2 stops at N = 119; K9 8 | N beyond "
-                "with its buffers in shared memory; elsewhere the JAX "
-                "package runs its XLA site loop)",
-                "Queue 1 item 4")
+                f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
+                f"{delay} (complex64: K8 takes N <= 128, K8 with G of one "
+                "chain over the block's registers and flavor 1 in shared "
+                "memory at F = 2 past N = 64, so F = 2 stops at N = 119; "
+                "complex128: K8-c128 takes N <= 128 at F = 1 and N <= 64 at "
+                "F = 2; K9 and K9-c128 8 | N beyond with their buffers in "
+                "shared memory; elsewhere the JAX package runs its XLA site "
+                "loop)", "Queue 1 item 4")
         return
-    if not (site_sweep_supports(N, F, udtype) if N <= MAX_N else (
-            udtype == torch.float32 and _ssd.kernel_supports(N, F, dk))):
+    if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
+            else _ssd.kernel_supports(N, F, dk, udtype)):
         raise _not_ported(
             f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
-            f"{delay} (K1 takes N <= {MAX_N}, K6 4 | N beyond in float32 "
-            "only, with its buffers in shared memory, both F <= 2)",
-            "Queue 1 item 4")
+            f"{delay} (K1 takes N <= {MAX_N}, K6 and K6-f64 4 | N beyond in "
+            "float32 and float64, with their buffers in shared memory; both "
+            "F <= 2)", "Queue 1 item 4")
 
 
 # ---------------------------------------------------------------------------
@@ -454,35 +455,41 @@ def sweep_slice(ctx, G, sigma, u):
     route; the inputs are not modified. neg is the per-chain (C, 3) min, max
     and sum of log10|detratio| over the negative proposals
     (``site_sweep.neg_push``) where the route records them, None where it
-    keeps the count alone (K1 and K5 in float32, K6: the Pallas kernels'
-    rule). Complex sessions return (G, sigma, accept (C, N), det (C, N),
-    None) instead: every site's accept flag and complex detratio, for
-    ``_track_detratio_batch``, which folds the statistics itself.
+    keeps the count alone (K1 and K5 in float32, K6 in float32: the Pallas
+    kernels' rule). Complex sessions return (G, sigma, accept (C, N), det
+    (C, N), None) instead: every site's accept flag and complex detratio,
+    for ``_track_detratio_batch``, which folds the statistics itself.
 
     Dispatch as in the JAX engine: the kernel path runs, for N <= 128, K5
     (two sites at a time) for float32 G with F >= 2 at even N and K1
     (rank-1, float32 or float64 as G) otherwise (for one float32 chain
-    through its one-chain entry K12), and K8 for complex G;
-    beyond, K6 (delayed, blocks of max(delay, 1) sites) and K9 (its
-    complex instance); the plain path runs ``sweep_slice_delayed`` when
-    delay > 1, else the plain version of the rank-1 kernel (K1's, or K8's
-    for complex G)."""
+    through its one-chain entry K12), and K8 for complex64 G, K8-c128 for
+    complex128 G; beyond, K6 (delayed, blocks of max(delay, 1) sites) for
+    float32 G, K6-f64 for float64 G, and K9 and K9-c128 (the complex
+    instances); the plain path runs ``sweep_slice_delayed`` when delay > 1,
+    else the plain version of the rank-1 kernel (K1's, or K8's for complex
+    G)."""
     sigma, u = sigma.contiguous(), u.contiguous()
     kw = dict(lamb=ctx.lamb, signs=ctx.signs, det_power=ctx.det_power,
               use_boson=ctx.use_boson)
     dk = max(ctx.delay, 1)
     if G.is_complex():
         if ctx.use_kernels:
+            c128 = G.dtype == torch.complex128
             if ctx.N <= MAX_N:
-                return (*_sscx.site_sweep_cx(G, sigma, u, **kw), None)
-            return (*_ssdcx.site_sweep_delayed_cx(G, sigma, u, dk=dk, **kw),
-                    None)
+                fn = _sscx.site_sweep_cx_c128 if c128 else _sscx.site_sweep_cx
+                return (*fn(G, sigma, u, **kw), None)
+            fn = (_ssdcx.site_sweep_delayed_cx_c128 if c128
+                  else _ssdcx.site_sweep_delayed_cx)
+            return (*fn(G, sigma, u, dk=dk, **kw), None)
         if ctx.delay > 1:
             return sweep_slice_delayed(ctx, G, sigma, u)
         return (*_sscx.site_sweep_cx_plain(G, sigma, u, **kw), None)
     if ctx.use_kernels:
         if ctx.N > MAX_N:
-            return (*_ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw), None)
+            fn = (_ssd.site_sweep_delayed_f64 if G.dtype == torch.float64
+                  else _ssd.site_sweep_delayed)
+            return fn(G, sigma, u, dk=dk, **kw)
         if G.dtype == torch.float64:
             return site_sweep_f64(G, sigma, u, **kw)
         if ctx.F >= 2 and pair_supports(ctx.N, ctx.F, G.dtype):

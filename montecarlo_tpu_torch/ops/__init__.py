@@ -6,7 +6,9 @@ site_sweep_wrap (K13), udt_qr (K2), udt_qr_solve (K3), the unfused
 Householder QR qr_f32 (K4) and qr_f64 (K11) and the one emitting its
 reflectors qr_vtau (K14), site_sweep_delayed (K6) and qr_blocked (K7) for
 N > 128, and for complex hopping site_sweep_cx (K8) and qr_cx (K10) for
-N <= 128 and site_sweep_delayed_cx (K9) beyond; for the Ising model the
+N <= 128 and site_sweep_delayed_cx (K9) beyond; their float64 and
+complex128 instances site_sweep_delayed_f64 (K6-f64), site_sweep_cx_c128
+(K8-c128) and site_sweep_delayed_cx_c128 (K9-c128); for the Ising model the
 checkerboard Metropolis sweep ising_sweep (K17) and the Wolff BFS level
 wolff_step (K18)."""
 
@@ -28,6 +30,10 @@ KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "site_sweep_wrap": site_sweep.site_sweep_wrap,
            "qr_vtau": qr_householder.qr_vtau,
            "site_sweep_single": site_sweep.site_sweep_single,
+           "site_sweep_delayed_f64": site_sweep_delayed.site_sweep_delayed_f64,
+           "site_sweep_cx_c128": site_sweep_cx.site_sweep_cx_c128,
+           "site_sweep_delayed_cx_c128":
+               site_sweep_delayed_cx.site_sweep_delayed_cx_c128,
            "ising_sweep": ising.ising_sweep,
            "wolff_step": ising.wolff_step}
 

@@ -67,14 +67,23 @@ SIGNATURES = {
     # CS, lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_delayed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _F, _F, _F, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, scratch, C, F, N,
+    # DK, CS, P (column passes), lamb, sign0, sign1, det_power, use_boson,
+    # stream
+    "site_sweep_delayed_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
     # F, N, DK, CS, out (int*): the cluster layout's occupancy
     "site_sweep_delayed_f32_max_clusters": (_I, _I, _I, _I, _P),
+    # F, N, DK, CS, P, out (int*)
+    "site_sweep_delayed_f64_max_clusters": (_I, _I, _I, _I, _I, _P),
     # A, Q, R, work, B, N, CS, stream
     "qr_blocked_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, F, N,
     # lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _F, _F, _I, _I, _P),
+    "site_sweep_cx_c128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _D, _D, _D, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_cx_c64": (_P, _P, _P, _I, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N, DK,
@@ -82,6 +91,10 @@ SIGNATURES = {
     "site_sweep_delayed_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _F, _F, _I, _I, _P),
     "site_sweep_delayed_cx_c64_max_clusters": (_I, _I, _I, _I, _P),
+    # ... CS, P (column passes), lamb, ...: complex128
+    "site_sweep_delayed_cx_c128": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
+    "site_sweep_delayed_cx_c128_max_clusters": (_I, _I, _I, _I, _I, _P),
     # conf_in, conf_out, u, table, order, offsets, thr, acc, C, N, z,
     # n_classes, stream
     "ising_sweep_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -92,6 +105,8 @@ SIGNATURES = {
     # dst (host), n_blocks, stream: the phase stamps of the last launch
     "site_sweep_delayed_f32_stamps": (_P, _I, _P),
     "site_sweep_delayed_cx_c64_stamps": (_P, _I, _P),
+    "site_sweep_delayed_f64_stamps": (_P, _I, _P),
+    "site_sweep_delayed_cx_c128_stamps": (_P, _I, _P),
     "qr_cx_c64_stamps": (_P, _I, _P),
     "qr_blocked_f32_stamps": (_P, _I, _P),
     "site_sweep_f32_stamps": (_P, _I, _P),

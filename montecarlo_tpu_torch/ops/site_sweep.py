@@ -66,15 +66,17 @@ def padded(N: int) -> int:
     return 32 if N <= 32 else 64 if N <= 64 else 128
 
 
-def _flavors_in_registers(N: int, F: int, complex_: bool,
-                          dtype=torch.float32) -> int:
-    """Flavors of G in registers: all but flavor 1 where every flavor's
-    tiles would take a thread more than 128 registers (complex64 and
-    float64 at F = 2 past NP = 64; csrc/site_sweep_tiled.cuh::
-    flavors_in_registers)."""
-    words = (F * (2 if complex_ else 1) * (dtype.itemsize // 4)
-             * (padded(N) ** 2 // THREADS))
-    return 1 if words > 128 else F
+def _planes_in_registers(N: int, F: int, complex_: bool,
+                         dtype=torch.float32) -> int:
+    """Planes of G in registers (flavor f, plane v: q = f * NV + v; complex
+    has two planes per flavor): all where their tiles take a thread at most
+    128 registers, else as many whole planes as 128 registers hold
+    (complex64 and float64 at F = 2 past NP = 64: flavor 0; complex128 at
+    F = 1 past NP = 64: the real plane; csrc/site_sweep_tiled.cuh::
+    planes_in_registers). dtype: the real element type."""
+    words = (dtype.itemsize // 4) * (padded(N) ** 2 // THREADS)
+    planes = F * (2 if complex_ else 1)
+    return planes if planes * words <= 128 else 128 // words
 
 
 def tiled_smem_bytes(N: int, F: int, complex_: bool = False,
@@ -82,23 +84,30 @@ def tiled_smem_bytes(N: int, F: int, complex_: bool = False,
     """Shared memory of one block of K1 (complex_: K8; sites=2: K5), as
     csrc/site_sweep_tiled.cuh::smem_bytes counts it: the staging double
     buffer of row and column per flavor, plane and staged site, u, the
-    complex det per site, the flavors kept in shared memory (complex64 and
-    float64 F = 2 past NP = 64: flavor 1, NP x NP elements per plane), all
-    of them elements of dtype, then sigma in and out and the complex accept
-    flags."""
+    complex det per site, the planes kept in shared memory (complex64 and
+    float64 F = 2 past NP = 64: flavor 1; complex128 F = 1 past NP = 64:
+    the imaginary plane; NP x NP elements each), all of them elements of
+    dtype (the real element type), then sigma in and out and the complex
+    accept flags."""
     NP, nv, el = padded(N), 2 if complex_ else 1, dtype.itemsize
-    fr = _flavors_in_registers(N, F, complex_, dtype)
+    qr = _planes_in_registers(N, F, complex_, dtype)
     return (el * (4 * sites * nv * F * NP + NP + (2 * NP if complex_ else 0)
-                  + (F - fr) * nv * NP * NP) + NP * (3 if complex_ else 2))
+                  + (F * nv - qr) * NP * NP) + NP * (3 if complex_ else 2))
 
 
 def layout(N: int, F: int, complex_: bool = False,
            dtype=torch.float32) -> str:
     """K1's (complex_: K8's) layout at this shape, in words."""
     NP, threads = padded(N), THREADS
-    where = ("flavor 0 in registers, flavor 1 in shared memory"
-             if _flavors_in_registers(N, F, complex_, dtype) < F
-             else "G in registers")
+    nv = 2 if complex_ else 1
+    qr = _planes_in_registers(N, F, complex_, dtype)
+    where = ("G in registers" if qr == F * nv
+             else "flavor 0 in registers, flavor 1 in shared memory"
+             if qr == nv else
+             "the real plane in registers, the imaginary plane in shared "
+             "memory" if F == 1 else
+             f"{qr} of {F * nv} planes in registers, the rest in shared "
+             "memory")
     return (f"one block of {threads} threads per chain, "
             f"{NP * NP // threads} elements of each {NP} x {NP} flavor per "
             f"thread, {where}, {tiled_smem_bytes(N, F, complex_, dtype)} "

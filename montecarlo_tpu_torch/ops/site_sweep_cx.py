@@ -21,6 +21,10 @@ flag and det are returned for the phase-problem statistics
 (``dqmc.core._track_detratio_batch``). The complex arithmetic is written
 out on the real and imaginary planes in the Pallas kernel's op order, never
 through torch's complex division, which rounds differently.
+
+``site_sweep_cx_c128`` is the same kernel in complex128 (K8-c128): it
+replaces the rank-1 XLA loop the JAX package runs for complex128 updates
+(``montecarlo_tpu/dqmc/core.py::sweep_slice``), which has no TPU kernel.
 """
 
 from __future__ import annotations
@@ -31,22 +35,32 @@ from . import _build
 from .site_sweep import MAX_N, PHASES, tiled_smem_bytes
 from .site_sweep import layout as _layout
 
-# F = 2 stops here: the layout with flavor 1 in shared memory would take
-# N = 128, but the complex sessions' route table keeps the shapes it had
+# complex64 F = 2 stops here: the layout with flavor 1 in shared memory
+# would take N = 128, but the complex sessions' route table keeps the shapes
+# it had
 MAX_N_F2 = 119
+# the real element type of each complex dtype the kernel takes
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
-def kernel_supports(N: int, F: int) -> bool:
-    """Shapes the CUDA kernel takes: N <= 128 at F = 1, N <= 119 at F = 2
-    (``MAX_N_F2``), G of one chain over the block's registers (flavor 1 in
-    shared memory at F = 2 past N = 64)."""
-    return (1 <= N <= (MAX_N if F == 1 else MAX_N_F2) and F in (1, 2)
-            and tiled_smem_bytes(N, F, True) <= _build.SMEM_PER_BLOCK)
+def kernel_supports(N: int, F: int, dtype=torch.complex64) -> bool:
+    """Shapes the CUDA kernel takes. complex64: N <= 128 at F = 1,
+    N <= 119 at F = 2 (``MAX_N_F2``), G of one chain over the block's
+    registers (flavor 1 in shared memory at F = 2 past N = 64).
+    complex128: N <= 128 at F = 1 (the imaginary plane in shared memory
+    past N = 64), N <= 64 at F = 2 (all four planes in registers; past 64
+    three planes would take 384 KB of shared memory)."""
+    if dtype not in _REAL:
+        return False
+    top = MAX_N if F == 1 or dtype == torch.complex128 else MAX_N_F2
+    return (1 <= N <= top and F in (1, 2)
+            and tiled_smem_bytes(N, F, True, _REAL[dtype])
+            <= _build.SMEM_PER_BLOCK)
 
 
-def layout(N: int, F: int) -> str:
+def layout(N: int, F: int, dtype=torch.complex64) -> str:
     """K8's layout at this shape, in words."""
-    return _layout(N, F, complex_=True)
+    return _layout(N, F, complex_=True, dtype=_REAL[dtype])
 
 
 def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
@@ -103,54 +117,74 @@ def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
 
 
 def site_sweep_cx(G, sigma, u, *, lamb, signs, det_power, use_boson):
-    """Complex site sweep of one time slice for every chain: the CUDA kernel
-    for a CUDA tensor, ``site_sweep_cx_plain`` for a CPU tensor. Same arguments and results as
-    ``site_sweep_cx_plain``; on CUDA, G must be complex64 (C, F, N, N)
-    within ``kernel_supports``, sigma int8 (C, N) and u float32 (C, N), all
-    contiguous on one device."""
-    kw = dict(lamb=lamb, signs=signs, det_power=det_power, use_boson=use_boson)
+    """Complex site sweep of one time slice for every chain: the complex64
+    CUDA kernel for a CUDA tensor, ``site_sweep_cx_plain`` for a CPU tensor.
+    Same arguments and results as ``site_sweep_cx_plain``; on CUDA, G must
+    be complex64 (C, F, N, N) within ``kernel_supports``, sigma int8 (C, N)
+    and u float32 (C, N), all contiguous on one device."""
+    return _sweep(site_sweep_cx, torch.complex64, G, sigma, u, lamb=lamb,
+                  signs=signs, det_power=det_power, use_boson=use_boson)
+
+
+def site_sweep_cx_c128(G, sigma, u, *, lamb, signs, det_power, use_boson):
+    """``site_sweep_cx`` in complex128 (K8-c128): the complex128 CUDA kernel
+    for a CUDA tensor (G complex128, u float64, ``kernel_supports(N, F,
+    torch.complex128)``), ``site_sweep_cx_plain`` for a CPU tensor."""
+    return _sweep(site_sweep_cx_c128, torch.complex128, G, sigma, u,
+                  lamb=lamb, signs=signs, det_power=det_power,
+                  use_boson=use_boson)
+
+
+def _sweep(fn, dtype, G, sigma, u, **kw):
     if G.device.type == "cpu":
         return site_sweep_cx_plain(G, sigma, u, **kw)
-    C, F, N = _check(G, sigma, u, signs, det_power)
+    C, F, N = _check(fn.__name__, dtype, G, sigma, u, kw["signs"],
+                     kw["det_power"])
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     accept = torch.empty(C, N, dtype=torch.bool, device=G.device)
     det = torch.empty(C, N, dtype=G.dtype, device=G.device)
+    entry = ("site_sweep_cx_c128" if dtype == torch.complex128
+             else "site_sweep_cx_c64")
     with torch.cuda.device(G.device):
-        code = _build.load().site_sweep_cx_c64(
+        code = getattr(_build.load(), entry)(
             G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
-            det.data_ptr(), C, F, N, float(lamb), float(signs[0]),
-            float(signs[-1]), int(det_power), int(bool(use_boson)),
+            det.data_ptr(), C, F, N, float(kw["lamb"]),
+            float(kw["signs"][0]), float(kw["signs"][-1]),
+            int(kw["det_power"]), int(bool(kw["use_boson"])),
             torch.cuda.current_stream().cuda_stream)
-    _build.check_launch("site_sweep_cx", code)
-    site_sweep_cx.launches += 1
+    _build.check_launch(fn.__name__, code)
+    fn.launches += 1
     return G_out, sigma_out, accept, det
 
 
 site_sweep_cx.launches = 0
+site_sweep_cx_c128.launches = 0
 
 
-def _check(G, sigma, u, signs, det_power):
+def _check(name, dtype, G, sigma, u, signs, det_power):
     if G.device.type != "cuda":
-        raise ValueError(f"site_sweep_cx: no kernel for device {G.device}")
-    if G.dtype != torch.complex64 or u.dtype != torch.float32:
-        raise ValueError("site_sweep_cx: the CUDA kernel takes complex64 G "
-                         "and float32 u")
+        raise ValueError(f"{name}: no kernel for device {G.device}")
+    if G.dtype != dtype or u.dtype != _REAL[dtype]:
+        raise ValueError(f"{name}: the CUDA kernel takes {str(dtype)[6:]} G "
+                         f"and {str(_REAL[dtype])[6:]} u")
     if sigma.dtype != torch.int8:
-        raise ValueError("site_sweep_cx: sigma must be int8")
+        raise ValueError(f"{name}: sigma must be int8")
     if G.dim() != 4 or G.shape[2] != G.shape[3]:
-        raise ValueError(f"site_sweep_cx: G must be (C, F, N, N), got "
+        raise ValueError(f"{name}: G must be (C, F, N, N), got "
                          f"{tuple(G.shape)}")
     C, F, N, _ = G.shape
-    if not kernel_supports(N, F) or len(signs) != F or det_power not in (1, 2):
-        raise ValueError(f"site_sweep_cx: no CUDA kernel for N={N}, F={F} "
-                         f"(N <= {MAX_N} at F = 1, N <= {MAX_N_F2} at F = 2; "
+    if (not kernel_supports(N, F, dtype) or len(signs) != F
+            or det_power not in (1, 2)):
+        f2 = 64 if dtype == torch.complex128 else MAX_N_F2
+        raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F} "
+                         f"(N <= {MAX_N} at F = 1, N <= {f2} at F = 2; "
                          "det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
-        raise ValueError("site_sweep_cx: sigma and u must be (C, N)")
+        raise ValueError(f"{name}: sigma and u must be (C, N)")
     for t in (G, sigma, u):
         if t.device != G.device or not t.is_contiguous():
-            raise ValueError("site_sweep_cx: tensors must be contiguous on one "
+            raise ValueError(f"{name}: tensors must be contiguous on one "
                              "device")
     return C, F, N

@@ -24,6 +24,14 @@ On the card, ``cluster_plan`` picks the kernel's layout from the shape: one
 thread-block cluster of CS = 2 or 4 blocks per chain, each block folding N/CS
 rows of G, or, where the cluster's buffers do not fit, one block per chain
 with the slabs above.
+
+``site_sweep_delayed_cx_c128`` is the same kernel in complex128 (K9-c128):
+it replaces the XLA loops the JAX package runs for complex128 updates past
+N = 128 (``montecarlo_tpu/dqmc/core.py::sweep_slice_delayed``, and at
+dk = 1 the rank-1 loop of ``sweep_slice``), which have no TPU kernel. Its
+buffers take twice the bytes, so its cluster layout may form the b vectors
+in ``column_passes`` passes over N/P columns each, as K6-f64's
+(``ops/site_sweep_delayed.py``).
 """
 
 from __future__ import annotations
@@ -49,72 +57,117 @@ PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
                       "decisions", "y and b vectors", "fold")}
 
 
-def smem_bytes(N: int, F: int, dk: int, cs: int = 1) -> int:
-    """Shared memory of one block. cs = 1 (site_sweep_delayed_cx_slab): the
-    row and column slabs of every flavor as two float32 planes (column rows
-    padded to N+1) and the staged y and row vectors of one site, both
-    planes. cs > 1 (site_sweep_delayed_cx_cluster): re and im planes of b
-    of every slot over all N columns, y over the block's N/cs rows, the
-    staged y and b of the block's sites by site (rows padded to
-    staged_ld(dk)), their dk x dk entries at the slots' sites, the diagonal
-    block (rows of dk + 1), its current diagonal and x; u, each site's
-    delta and boson weight, the slots' sites and sigma, as
-    csrc/site_sweep_delayed_cx.cu::cluster_smem_floats counts them."""
+# the column passes of the cluster layout, in the order column_passes tries
+# them, per dtype of G: complex64 keeps one pass (its layout as measured),
+# complex128 buffers take twice the bytes
+PASSES = {torch.complex64: (1,), torch.complex128: (1, 2, 4)}
+
+
+def _smem(N, F, dk, cs, el, passes):
     if cs == 1:
-        return 4 * (2 * F * dk * N + 2 * F * dk * (N + 1) + 4 * F * N)
-    rq = N // cs
-    return 4 * (2 * F * dk * N + 2 * F * dk * rq + 4 * F * dk * staged_ld(dk)
-                + 4 * F * dk * dk + 2 * F * dk * (dk + 1) + 4 * F * dk
-                + (F + 2) * N + dk + 4 + (N + 3) // 4)
+        return el * (2 * F * dk * N + 2 * F * dk * (N + 1) + 4 * F * N)
+    rq, nch = N // cs, N // passes
+    return el * (2 * F * dk * nch + 2 * F * dk * rq
+                 + 4 * F * dk * staged_ld(dk) + 4 * F * dk * dk
+                 + 2 * F * dk * (dk + 1) + 4 * F * dk + (F + 2) * N + dk + 4
+                 + (N + 3) // 4)
+
+
+def column_passes(N: int, F: int, dk: int, cs: int,
+                  dtype=torch.complex64):
+    """The cluster layout's column passes P at this shape: the fewest of
+    PASSES[dtype] with 4 P | N whose buffers fit one block's shared memory
+    (1 for the slab layout, cs = 1); None where none does."""
+    if cs == 1:
+        return 1
+    el = dtype.itemsize // 2
+    for p in PASSES[dtype]:
+        if (N % (4 * p) == 0
+                and _smem(N, F, dk, cs, el, p) <= _build.SMEM_PER_BLOCK):
+            return p
+    return None
+
+
+def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
+               dtype=torch.complex64) -> int:
+    """Shared memory of one block, real planes of dtype's precision. cs = 1
+    (site_sweep_delayed_cx_slab): the row and column slabs of every flavor
+    as two planes (column rows padded to N+1) and the staged y and row
+    vectors of one site, both planes. cs > 1 (site_sweep_delayed_cx_cluster,
+    in ``column_passes`` passes P, or the most of PASSES[dtype] where none
+    fits): re and im planes of b of every slot over N/P columns, y over the
+    block's N/cs rows, the staged y and b of the block's sites by site (rows
+    padded to staged_ld(dk)), their dk x dk entries at the slots' sites, the
+    diagonal block (rows of dk + 1), its current diagonal and x; u, each
+    site's delta and boson weight, the slots' sites and sigma, as
+    csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts them."""
+    p = column_passes(N, F, dk, cs, dtype) or PASSES[dtype][-1]
+    return _smem(N, F, dk, cs, dtype.itemsize // 2, p)
 
 
 def staged_ld(dk: int) -> int:
-    """Row length of the kernel's staged tables: dk padded to float4 loads,
-    plus 4 floats, so that 8 rows' float4 loads fall in distinct banks."""
+    """Row length of the kernel's staged tables: dk padded to 4-element
+    loads, plus 4 elements, so that 8 rows' float4 loads fall in distinct
+    banks."""
     return (dk + 3) // 4 * 4 + 4
 
 
-def fits(N: int, F: int, dk: int, cs: int) -> bool:
+def fits(N: int, F: int, dk: int, cs: int, dtype=torch.complex64) -> bool:
     """Whether the layout of cs blocks per chain (1: the slab layout) takes
-    this shape: its block shared memory within the card's, and for a
-    cluster 4 * cs | N (whole 4-row tiles per block)."""
-    return (smem_bytes(N, F, dk, cs) <= _build.SMEM_PER_BLOCK
-            and (cs == 1 or N % (4 * cs) == 0))
+    this shape: its block shared memory within the card's (in some column
+    passes), and for a cluster 4 * cs | N (whole 4-row tiles per block)."""
+    if cs == 1:
+        return smem_bytes(N, F, dk, 1, dtype) <= _build.SMEM_PER_BLOCK
+    return (N % (4 * cs) == 0
+            and column_passes(N, F, dk, cs, dtype) is not None)
 
 
-def cluster_plan(N: int, F: int, dk: int) -> int:
+def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
     """CS, the blocks per chain: the first of CLUSTER_SIZES that fits; 1,
     the one-block slab layout, where none does."""
     for cs in CLUSTER_SIZES:
-        if fits(N, F, dk, cs):
+        if fits(N, F, dk, cs, dtype):
             return cs
     return 1
 
 
-def layout(N: int, F: int, dk: int, cs: int = None) -> str:
+def layout(N: int, F: int, dk: int, cs: int = None,
+           dtype=torch.complex64) -> str:
     """The kernel's layout at this shape (or with cs blocks), in words."""
-    cs = cs or cluster_plan(N, F, dk)
+    cs = cs or cluster_plan(N, F, dk, dtype)
     if cs == 1:
         return "slab: one block of 512 threads per chain"
+    p = column_passes(N, F, dk, cs, dtype)
     return (f"cluster of {cs} blocks of 512 threads per chain, {N // cs} "
-            f"rows each, {smem_bytes(N, F, dk, cs)} bytes per block")
+            f"rows each, {p} column pass{'es' if p > 1 else ''}, "
+            f"{smem_bytes(N, F, dk, cs, dtype)} bytes per block")
 
 
-def kernel_supports(N: int, F: int, dk: int) -> bool:
-    """Shapes the CUDA kernel takes: N > 128 with 8 | N, F in {1, 2},
-    dk | N, and the layout's buffers within one block's shared memory (at
-    N = 256: F = 1 to dk = 32, F = 2 to dk = 16)."""
-    return (N >= MIN_N and N % 8 == 0 and F in (1, 2) and 1 <= dk
-            and N % dk == 0 and fits(N, F, dk, cluster_plan(N, F, dk)))
+def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
+    """Shapes the CUDA kernel takes, complex64 or complex128: N > 128 with
+    8 | N, F in {1, 2}, dk | N, and the layout's buffers within one block's
+    shared memory (at N = 256: complex64 F = 1 to dk = 32, F = 2 to
+    dk = 16; complex128 F = 1 to dk = 32 in clusters of 2 blocks and two
+    column passes, F = 2 to dk = 16)."""
+    return (dtype in PASSES and N >= MIN_N and N % 8 == 0 and F in (1, 2)
+            and 1 <= dk and N % dk == 0
+            and fits(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
 
 
 @functools.cache
-def max_clusters(F: int, N: int, dk: int, cs: int) -> int:
+def max_clusters(F: int, N: int, dk: int, cs: int,
+                 dtype=torch.complex64) -> int:
     """The most clusters of cs blocks the card runs at once (one query per
     shape and process)."""
     out = ctypes.c_int(0)
-    code = _build.load().site_sweep_delayed_cx_c64_max_clusters(
-        F, N, dk, cs, ctypes.addressof(out))
+    lib = _build.load()
+    if dtype == torch.complex128:
+        code = lib.site_sweep_delayed_cx_c128_max_clusters(
+            F, N, dk, cs, column_passes(N, F, dk, cs, dtype),
+            ctypes.addressof(out))
+    else:
+        code = lib.site_sweep_delayed_cx_c64_max_clusters(
+            F, N, dk, cs, ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed_cx (occupancy query)", code)
     return out.value
 
@@ -199,77 +252,106 @@ def site_sweep_delayed_cx_plain(G, sigma, u, *, dk, lamb, signs, det_power,
 def site_sweep_delayed_cx(G, sigma, u, *, dk, lamb, signs, det_power,
                           use_boson):
     """Delayed complex site sweep of one time slice for every chain: the
-    CUDA kernel for a CUDA tensor, in the layout ``cluster_plan`` picks,
-    ``site_sweep_delayed_cx_plain`` for a CPU tensor. Same arguments and
-    results as ``site_sweep_delayed_cx_plain``; on CUDA, G must be complex64
-    (C, F, N, N) with ``kernel_supports(N, F, dk)``, sigma int8 (C, N) and u
-    float32 (C, N), all contiguous on one device."""
-    kw = dict(dk=dk, lamb=lamb, signs=signs, det_power=det_power,
-              use_boson=use_boson)
+    complex64 CUDA kernel for a CUDA tensor, in the layout ``cluster_plan``
+    picks, ``site_sweep_delayed_cx_plain`` for a CPU tensor. Same arguments
+    and results as ``site_sweep_delayed_cx_plain``; on CUDA, G must be
+    complex64 (C, F, N, N) with ``kernel_supports(N, F, dk)``, sigma int8
+    (C, N) and u float32 (C, N), all contiguous on one device."""
+    return _sweep(site_sweep_delayed_cx, torch.complex64, G, sigma, u, dk=dk,
+                  lamb=lamb, signs=signs, det_power=det_power,
+                  use_boson=use_boson)
+
+
+def site_sweep_delayed_cx_c128(G, sigma, u, *, dk, lamb, signs, det_power,
+                               use_boson):
+    """``site_sweep_delayed_cx`` in complex128 (K9-c128): the complex128
+    CUDA kernel for a CUDA tensor (G complex128, u float64,
+    ``kernel_supports(N, F, dk, torch.complex128)``),
+    ``site_sweep_delayed_cx_plain`` for a CPU tensor."""
+    return _sweep(site_sweep_delayed_cx_c128, torch.complex128, G, sigma, u,
+                  dk=dk, lamb=lamb, signs=signs, det_power=det_power,
+                  use_boson=use_boson)
+
+
+def _sweep(fn, dtype, G, sigma, u, **kw):
     if G.device.type == "cpu":
         return site_sweep_delayed_cx_plain(G, sigma, u, **kw)
-    C, F, N = _check(G, sigma, u, signs, dk, det_power)
-    return launch(G, sigma, u, cluster_plan(N, F, dk), **kw)
+    _check(G, sigma, u, kw["signs"], kw["dk"], kw["det_power"], dtype)
+    C, F, N, _ = G.shape
+    return launch(G, sigma, u, cluster_plan(N, F, kw["dk"], dtype), **kw)
 
 
 def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
-    """One launch of the CUDA kernel with cs blocks per chain
+    """One launch of the CUDA kernel of G's dtype with cs blocks per chain
     (``cluster_plan``'s, or another that fits, to time two layouts against
-    each other); counted in ``site_sweep_delayed_cx.launches``."""
-    C, F, N = _check(G, sigma, u, signs, dk, det_power)
-    if not fits(N, F, dk, cs):
+    each other), in ``column_passes`` passes; counted in
+    ``site_sweep_delayed_cx.launches`` (complex64) or
+    ``site_sweep_delayed_cx_c128.launches`` (complex128)."""
+    c128 = G.dtype == torch.complex128
+    C, F, N = _check(G, sigma, u, signs, dk, det_power, G.dtype)
+    if not fits(N, F, dk, cs, G.dtype):
         raise ValueError(
             f"site_sweep_delayed_cx: {cs} blocks per chain do not take "
-            f"N={N}, F={F}, dk={dk} ({smem_bytes(N, F, dk, cs)} bytes of "
-            "shared memory per block)")
+            f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
+            f"({smem_bytes(N, F, dk, cs, G.dtype)} bytes of shared memory "
+            "per block)")
+    passes = column_passes(N, F, dk, cs, G.dtype)
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     accept = torch.empty(C, N, dtype=torch.bool, device=G.device)
     det = torch.empty(C, N, dtype=G.dtype, device=G.device)
     # slab layout: the accepted sites' y and row vectors of one block, re
     # and im planes
-    scratch = (torch.empty(4, C, F, dk, N, dtype=torch.float32,
-                           device=G.device) if cs == 1 else None)
-    with torch.cuda.device(G.device):
-        if cs > 1 and max_clusters(F, N, dk, cs) < 1:
-            raise RuntimeError(
-                f"site_sweep_delayed_cx: the card cannot run a cluster of {cs}"
-                f" blocks with {smem_bytes(N, F, dk, cs)} bytes of shared "
-                "memory each")
-        code = _build.load().site_sweep_delayed_cx_c64(
-            G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
+    scratch = (torch.empty(4, C, F, dk, N, dtype=u.dtype, device=G.device)
+               if cs == 1 else None)
+    lib = _build.load()
+    head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
             det.data_ptr(), 0 if scratch is None else scratch.data_ptr(), C,
-            F, N, int(dk), cs, float(lamb), float(signs[0]),
-            float(signs[-1]), int(det_power), int(bool(use_boson)),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch("site_sweep_delayed_cx", code)
-    site_sweep_delayed_cx.launches += 1
+            F, N, int(dk), cs)
+    tail = (float(lamb), float(signs[0]), float(signs[-1]), int(det_power),
+            int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(G.device):
+        if cs > 1 and max_clusters(F, N, dk, cs, G.dtype) < 1:
+            raise RuntimeError(
+                f"site_sweep_delayed_cx: the card cannot run a cluster of {cs}"
+                f" blocks with {smem_bytes(N, F, dk, cs, G.dtype)} bytes of "
+                "shared memory each")
+        if c128:
+            code = lib.site_sweep_delayed_cx_c128(*head, passes, *tail)
+        else:
+            code = lib.site_sweep_delayed_cx_c64(*head, *tail)
+    fn = site_sweep_delayed_cx_c128 if c128 else site_sweep_delayed_cx
+    _build.check_launch(fn.__name__, code)
+    fn.launches += 1
     return G_out, sigma_out, accept, det
 
 
 site_sweep_delayed_cx.launches = 0
+site_sweep_delayed_cx_c128.launches = 0
 
 
-def _check(G, sigma, u, signs, dk, det_power):
-    name = "site_sweep_delayed_cx"
+def _check(G, sigma, u, signs, dk, det_power, dtype):
+    name = ("site_sweep_delayed_cx_c128" if dtype == torch.complex128
+            else "site_sweep_delayed_cx")
+    rd = {torch.complex64: torch.float32, torch.complex128: torch.float64}
     if G.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {G.device}")
-    if G.dtype != torch.complex64 or u.dtype != torch.float32:
-        raise ValueError(f"{name}: the CUDA kernel takes complex64 G and "
-                         "float32 u")
+    if dtype not in rd or G.dtype != dtype or u.dtype != rd[dtype]:
+        raise ValueError(f"{name}: the CUDA kernel takes {str(dtype)[6:]} G "
+                         f"and {str(rd.get(dtype))[6:]} u")
     if sigma.dtype != torch.int8:
         raise ValueError(f"{name}: sigma must be int8")
     if G.dim() != 4 or G.shape[2] != G.shape[3]:
         raise ValueError(f"{name}: G must be (C, F, N, N), got {tuple(G.shape)}")
     C, F, N, _ = G.shape
-    if (not kernel_supports(N, F, dk) or len(signs) != F
+    if (not kernel_supports(N, F, dk, dtype) or len(signs) != F
             or det_power not in (1, 2)):
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
                          f"(N >= {MIN_N}, 8 | N, F in (1, 2), dk | N, "
-                         f"{smem_bytes(N, F, dk)} of {_build.SMEM_PER_BLOCK} "
-                         "bytes of shared memory in the slab layout; "
-                         "det_power 1 or 2)")
+                         f"{smem_bytes(N, F, dk, 1, dtype)} of "
+                         f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
+                         "the slab layout; det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
         raise ValueError(f"{name}: sigma and u must be (C, N)")
     for t in (G, sigma, u):

@@ -141,8 +141,9 @@ def test_site_sweep_delayed_kernel_matches_plain(cuda, model, N, dk):
     assert ssd.site_sweep_delayed.launches == n0 + 1
     out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(out_k[1:], out_p[1:]):
+    for a, b in zip(out_k[1:4], out_p[1:4]):
         assert torch.equal(a, b.to(a.dtype))
+    assert out_k[4] is None
     assert 0 < out_k[2].sum().item() < 8 * N
     _close(out_k[0], out_p[0], 1e-5)
 
@@ -175,8 +176,9 @@ def test_site_sweep_delayed_layouts_match_plain(cuda, chains, model, N, dk,
     assert ssd.site_sweep_delayed.launches == n0 + 1
     out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(out_k[1:], out_p[1:]):
+    for a, b in zip(out_k[1:4], out_p[1:4]):
         assert torch.equal(a, b.to(a.dtype))
+    assert out_k[4] is None
     assert 0 < out_k[2].sum().item() < chains * N
     _close(out_k[0], out_p[0], 1e-5)
 
@@ -631,37 +633,55 @@ def test_wrappers_check_inputs(cuda):
 
 
 def test_cuda_session_rejects_shapes_without_kernels(cuda):
+    """What a CUDA session takes and what it still refuses (ROADMAP Queue 1
+    item 4): every QR shape has a route (8 does not divide N: the library
+    QR beside K1, K1-f64 or K8), float64 past N = 128 runs K6-f64 and
+    complex128 K8-c128 or K9-c128; 4 does not divide N past 128 (K6), F = 2
+    in complex64 at N = 128 and in complex128 past N = 64 are refused."""
     params = DQMCParameters(beta=1.0)
-    model = lambda L: tmc.HubbardModelAttractive(dims=2, L=L, U=4.0)
+    model = lambda L, dims=2, cls=tmc.HubbardModelAttractive, **kw: cls(
+        dims=dims, L=L, U=4.0, **kw)
     f32 = dict(dtype=torch.float32, device="cuda")
-    for L in (10, 3):       # N=100 and N=9: 8 does not divide N
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-            core.make_context(model(L), params, **f32)
+    for L in (10, 3):       # N=100 and N=9: K1 and the library QR
+        ctx, _ = core.make_context(model(L), params, **f32)
+        assert ctx.use_kernels
     for L in (12, 16):      # K6 and K7: N=144 rank-1 blocks, N=256 delay 32
         ctx, _ = core.make_context(model(L), params, **f32)
         assert ctx.use_kernels and ctx.delay == (32 if L == 16 else 0)
-    # float64 (the default dtype) and mixed: K11 with K1 in float64 or
-    # float32 at 8 | N <= 64; float64 beyond N = 64 raises
-    for kw in (dict(), dict(update_dtype=torch.float32),
-               dict(stab_method="qr_colscaled")):
-        ctx, _ = core.make_context(model(4), params, device="cuda", **kw)
+    # float64 (the default dtype) and mixed: K1 in float64 or float32 with
+    # K11 at 8 | N <= 64, the library QR beyond; K6-f64 past N = 128
+    for L, kw in ((4, dict()), (4, dict(update_dtype=torch.float32)),
+                  (4, dict(stab_method="qr_colscaled")), (9, dict()),
+                  (12, dict()), (16, dict())):
+        ctx, _ = core.make_context(model(L), params, device="cuda", **kw)
         assert ctx.use_kernels and ctx.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        core.make_context(model(9), params, device="cuda")    # N=81
+    for m in (model(130, dims=1),
+              model(130, dims=1, cls=tmc.HubbardModelRepulsive)):
+        for kw in (f32, dict(device="cuda")):   # 4 does not divide N = 130
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue 1 item 4"):
+                core.make_context(m, params, **kw)
     ctx, _ = core.make_context(model(4), params, device="cuda",
                                use_kernels=False)
     assert ctx.device.type == "cuda" and not ctx.use_kernels
-    # complex hopping in complex64 at 8 | N: K8 + K10 to N = 128 (the
-    # 128-site chain), K9 + the library QR beyond (16x16, delay 32)
-    cx = lambda L, dims=2: tmc.HubbardModelAttractive(
-        dims=dims, L=L, U=4.0, peierls=flux_theta(L ** dims))
-    for m in (cx(8), cx(128, dims=1), cx(16)):
+    # complex hopping in complex64: K8 + K10 to N = 128 (the 128-site
+    # chain), K8 + the library QR at 8 ∤ N, K9 + the library QR beyond
+    # (16x16, delay 32)
+    cx = lambda L, dims=2, **kw: model(L, dims, peierls=flux_theta(L ** dims),
+                                       **kw)
+    for m in (cx(8), cx(128, dims=1), cx(16), cx(10)):
         ctx, _ = core.make_context(m, params, **f32)
         assert ctx.dtype == torch.complex64 and ctx.use_kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        core.make_context(cx(10), params, **f32)
-    with pytest.raises(NotImplementedError, match="complex128"):
-        core.make_context(cx(4), params, device="cuda")
+    rep = dict(cls=tmc.HubbardModelRepulsive)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        core.make_context(cx(128, dims=1, **rep), params, **f32)
+    # complex128 (the default dtype's promotion): K8-c128 to N = 128 at F = 1
+    # and N = 64 at F = 2, K9-c128 beyond, each with the library QR
+    for m in (cx(4), cx(8), cx(8, **rep), cx(128, dims=1), cx(16)):
+        ctx, _ = core.make_context(m, params, device="cuda")
+        assert ctx.dtype == ctx.udtype == torch.complex128 and ctx.use_kernels
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        core.make_context(cx(72, dims=1, **rep), params, device="cuda")
     # complex128 stacks over complex64 updates: K9 and the library QR
     ctx, _ = core.make_context(cx(16), params, device="cuda",
                                update_dtype=torch.float32)
@@ -1091,3 +1111,150 @@ def test_cpu_checkpoint_refused_on_cuda(cuda, tmp_path):
     fn = tmc.save(str(tmp_path / "cpu.mctorch"), sim)
     with pytest.raises(ValueError, match="draw on 'cpu'"):
         tmc.load(fn, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the float64 and complex128 site sweeps: K6-f64, K8-c128, K9-c128
+# ---------------------------------------------------------------------------
+
+def _f64_inputs(cuda, seed, C, F, N, spread=0.0):
+    """sweep_inputs in float64 on the card, each diagonal entry of G moved
+    by spread * N(0, 1) (spread 0.8 leaves [0, 1]: r_up r_dn < 0 happens
+    at F = 2, so there are negative weights to record)."""
+    G, sigma, u = sweep_inputs(seed, C, F, N)
+    d = np.random.default_rng(seed + 9).normal(size=(C, F, N)) * spread
+    G = G.astype(np.float64) + d[..., None] * np.eye(N)
+    return (torch.from_numpy(G).to(cuda), torch.from_numpy(sigma).to(cuda),
+            torch.from_numpy(u.astype(np.float64)).to(cuda))
+
+
+@pytest.mark.parametrize("model,C,N,dk,spread", [
+    ("attractive", 64, 256, 32, 0.0), ("repulsive", 32, 256, 32, 0.8),
+    ("attractive", 64, 144, 1, 0.0), ("repulsive", 16, 144, 1, 0.8)])
+def test_site_sweep_delayed_f64_kernel_matches_plain(cuda, model, C, N, dk,
+                                                     spread):
+    """K6-f64 at its parity shapes (the 16x16 F = 2 in two column passes):
+    sigma, acc and nneg identical to its plain version's, G within 1e-10
+    (bit-equal in practice), the negative weights' log10 magnitudes equal;
+    counted in site_sweep_delayed_f64.launches alone."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = _f64_inputs(cuda, N + dk, C, F, N, spread)
+    n0, n1 = (ssd.site_sweep_delayed_f64.launches,
+              ssd.site_sweep_delayed.launches)
+    out_k = ssd.site_sweep_delayed_f64(G, sigma, u, dk=dk, **kw)
+    assert (ssd.site_sweep_delayed_f64.launches,
+            ssd.site_sweep_delayed.launches) == (n0 + 1, n1)
+    out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:4], out_p[1:4]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < out_k[2].sum().item() < C * N
+    assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-10
+    assert torch.equal(out_k[4], out_p[4])
+    if spread:
+        assert out_k[3].sum().item() > 0
+
+
+@pytest.mark.parametrize("model,C,N", [("attractive", 256, 64),
+                                       ("repulsive", 256, 64),
+                                       ("attractive", 256, 128),
+                                       ("attractive", 16, 20)])
+def test_site_sweep_cx_c128_kernel_matches_plain(cuda, model, C, N):
+    """K8-c128 at its parity shapes and its largest N (F = 1 at N = 128:
+    the imaginary plane in shared memory): sigma, accept and det identical
+    to its plain version's, G within 1e-10 (bit-equal in practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = cx_sweep_inputs(N + 3, C, F, N)
+    G, sigma = (torch.from_numpy(x).to(cuda) for x in
+                (G.astype(np.complex128), sigma))
+    u = torch.from_numpy(u.astype(np.float64)).to(cuda)
+    n0, n1 = sscx.site_sweep_cx_c128.launches, sscx.site_sweep_cx.launches
+    out_k = sscx.site_sweep_cx_c128(G, sigma, u, **kw)
+    assert (sscx.site_sweep_cx_c128.launches,
+            sscx.site_sweep_cx.launches) == (n0 + 1, n1)
+    out_p = sscx.site_sweep_cx_plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b)
+    assert 0 < out_k[2].sum().item() < C * N
+    assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-10
+
+
+@pytest.mark.parametrize("model,C,N,dk", [("attractive", 64, 256, 32),
+                                          ("attractive", 8, 144, 1),
+                                          ("repulsive", 8, 256, 16)])
+def test_site_sweep_delayed_cx_c128_kernel_matches_plain(cuda, model, C, N,
+                                                         dk):
+    """K9-c128 (complex16: clusters of 2 blocks in two column passes):
+    sigma, accept and det identical to its plain version's, G within
+    1e-10 (bit-equal in practice)."""
+    kw = dict(lamb=LAMB, **MODELS[model])
+    F = len(kw["signs"])
+    G, sigma, u = cx_sweep_inputs(N + dk, C, F, N)
+    G, sigma = (torch.from_numpy(x).to(cuda) for x in
+                (G.astype(np.complex128), sigma))
+    u = torch.from_numpy(u.astype(np.float64)).to(cuda)
+    n0 = ssdcx.site_sweep_delayed_cx_c128.launches
+    out_k = ssdcx.site_sweep_delayed_cx_c128(G, sigma, u, dk=dk, **kw)
+    assert ssdcx.site_sweep_delayed_cx_c128.launches == n0 + 1
+    out_p = ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, dk=dk, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b)
+    assert 0 < out_k[2].sum().item() < C * N
+    assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-10
+
+
+def test_fp64_wrappers_check_inputs(cuda):
+    """The new wrappers refuse what their kernels do not take."""
+    kw = dict(lamb=LAMB, **MODELS["attractive"])
+    f64 = dict(device=cuda, dtype=torch.float64)
+    s = torch.ones(2, 256, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="float64"):
+        ssd.site_sweep_delayed_f64(torch.zeros(2, 1, 256, 256, device=cuda),
+                                   s, torch.zeros(2, 256, device=cuda),
+                                   dk=32, **kw)
+    with pytest.raises(ValueError, match="N=256, F=1, dk=24"):
+        ssd.site_sweep_delayed_f64(torch.zeros(2, 1, 256, 256, **f64), s,
+                                   torch.zeros(2, 256, **f64), dk=24, **kw)
+    c128 = dict(device=cuda, dtype=torch.complex128)
+    with pytest.raises(ValueError, match="N=72, F=2"):
+        sscx.site_sweep_cx_c128(
+            torch.zeros(2, 2, 72, 72, **c128),
+            torch.ones(2, 72, device=cuda, dtype=torch.int8),
+            torch.zeros(2, 72, **f64), lamb=LAMB, **MODELS["repulsive"])
+    with pytest.raises(ValueError, match="complex128"):
+        ssdcx.site_sweep_delayed_cx_c128(
+            torch.zeros(2, 1, 256, 256, device=cuda, dtype=torch.complex64),
+            s, torch.zeros(2, 256, device=cuda), dk=32, **kw)
+
+
+def test_default_dtype_sessions_run_the_fp64_kernels(cuda):
+    """DQMC(model) at the default dtype on the card: a complex-hopping
+    session builds with use_kernels=True and runs K8-c128 (8x8) and K9-c128
+    (12x12, rank-1 blocks), a 12x12 real one K6-f64, one launch per slice
+    visit and none of the float32 / complex64 sweeps."""
+    params = DQMCParameters(beta=0.5, safe_mult=5)
+    for L, peierls, name, mod in (
+            (4, True, "site_sweep_cx_c128", sscx),
+            (12, True, "site_sweep_delayed_cx_c128", ssdcx),
+            (12, False, "site_sweep_delayed_f64", ssd)):
+        theta = flux_theta(L * L) if peierls else None
+        model = tmc.HubbardModelAttractive(dims=2, L=L, U=4.0,
+                                           peierls=theta)
+        sim = tmc.DQMC(model, beta=0.5, safe_mult=5, n_chains=4,
+                       measurements={})
+        assert sim.ctx.use_kernels and sim.ctx.udtype in (torch.float64,
+                                                          torch.complex128)
+        fn = getattr(mod, name)
+        n0 = fn.launches
+        others = (ssd.site_sweep_delayed.launches, sscx.site_sweep_cx.launches,
+                  ssdcx.site_sweep_delayed_cx.launches)
+        sim.run(thermalization=0, sweeps=1, verbose=False)
+        assert fn.launches - n0 == 2 * sim.ctx.M == 2 * params.slices
+        assert others == (ssd.site_sweep_delayed.launches,
+                          sscx.site_sweep_cx.launches,
+                          ssdcx.site_sweep_delayed_cx.launches)
+        assert bool(torch.isfinite(sim.state["G"]).all())

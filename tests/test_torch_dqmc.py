@@ -237,16 +237,16 @@ def test_make_context_rejects_unported_options(kw, exc, match):
     (16, 1, torch.complex64, None),
     (100, 1, torch.complex64, None), (128, 1, torch.complex64, None),
     (256, 1, torch.complex64, None), (12, 1, torch.complex64, None),
-    (64, 1, torch.complex128, "item 4"), (16, 2, torch.complex128, "item 4"),
+    (64, 1, torch.complex128, None), (16, 2, torch.complex128, None),
     (112, 2, torch.complex64, None), (120, 2, torch.complex64, "item 4"),
     (128, 2, torch.complex64, "item 4")])
 def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
     """A complex CUDA session runs K8 at N <= 128 in complex64 (F = 2 to
     N = 119: flavor 1 in shared memory past N = 64), with K10 at 8 | N and
     the library QR at 8 ∤ N (N = 100, 12), and K9 beyond (here rank-1
-    blocks); complex128 updates wait for ROADMAP item 4 (they run the plain
-    path, use_kernels=False). The complex64 refusal states K8's register
-    layout and its F = 2 limit."""
+    blocks); complex128 updates run K8-c128 (N <= 128 at F = 1, N <= 64 at
+    F = 2). The complex64 refusal states K8's register layout and its
+    F = 2 limit."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
         return

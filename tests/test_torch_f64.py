@@ -252,7 +252,7 @@ F32, F64 = torch.float32, torch.float64
     (72, 1, F32, F32, None),      # 64 < N <= 128: K1 + K4
     (128, 2, F32, F32, None),
     (72, 1, F64, F64, None),      # float64 beyond N = 64: the library QR
-    (256, 1, F64, F64, "item 4"),     # no float64 site sweep past N = 128
+    (256, 1, F64, F64, None),     # float64 past N = 128: K6-f64 + library QR
     (12, 1, F64, F64, None),      # 8 does not divide N: the library QR
     (64, 1, F32, F64, None),      # float64 updates over float32 stacks
     (100, 1, F32, F32, None),     # 8 does not divide N: the library QR
@@ -275,8 +275,10 @@ def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
 
 # the site-sweep limits each refusal states, by (N, F, stack dtype)
 _REFUSAL_TEXT = {
-    (130, 1, F32): "K1 takes N <= 128, K6 4 | N beyond in float32 only",
-    (256, 1, F64): "K1 takes N <= 128, K6 4 | N beyond in float32 only",
+    (130, 1, F32): "K1 takes N <= 128, K6 and K6-f64 4 | N beyond in "
+                   "float32 and float64",
+    (256, 1, F64): "K1 takes N <= 128, K6 and K6-f64 4 | N beyond in "
+                   "float32 and float64",
     (64, 3, F64): "both F <= 2"}
 
 

@@ -1,0 +1,256 @@
+"""The float64 and complex128 site sweeps of the PyTorch/CUDA port
+(montecarlo_tpu_torch) past the float32 kernels' limits: kernel K6-f64 (the
+delayed sweep in float64, N > 128), K8-c128 and K9-c128 (the complex sweeps
+in complex128), on the CPU through their plain versions. Their CUDA route
+table (which sessions run on the card, and the refusals left), the layouts'
+shared-memory counts at float64 and complex128, the dispatch of
+core.sweep_slice, and the float64 delayed sweep's negative-weight
+statistics against the JAX package's XLA loop (test_torch_fp64_runs.py runs
+DQMC sessions at the new routes' settings against the JAX package).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from montecarlo_tpu.dqmc import core as jcore
+
+from montecarlo_tpu_torch.dqmc import core as tcore
+from montecarlo_tpu_torch.ops import _build
+from montecarlo_tpu_torch.ops import site_sweep as ss
+from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+from test_torch_dqmc import _contexts
+
+F32, F64 = torch.float32, torch.float64
+C64, C128 = torch.complex64, torch.complex128
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,F,delay,dtype,udtype", [
+    (256, 1, 32, F64, F64),      # the 16x16 attractive model: K6-f64
+    (256, 2, 32, F64, F64),      # ... repulsive: two column passes
+    (144, 1, 0, F64, F64),       # 12x12, rank-1: K6-f64 at dk = 1
+    (144, 2, 0, F64, F64),
+    (144, 1, 24, F64, F64),
+    (256, 1, 32, F64, F32),      # float32 updates over float64 stacks: K6
+    (64, 1, 0, C128, C128),      # the 8x8 Peierls model: K8-c128
+    (64, 2, 0, C128, C128),      # ... repulsive, all four planes in registers
+    (128, 1, 0, C128, C128),     # the imaginary plane in shared memory
+    (100, 1, 0, C128, C128),     # 8 does not divide N: the library QR
+    (16, 2, 0, C128, C128),
+    (256, 1, 32, C128, C128),    # complex16: K9-c128, two column passes
+    (144, 1, 0, C128, C128),
+    (256, 2, 16, C128, C128)])
+def test_check_cuda_kernels_fp64_routes(N, F, delay, dtype, udtype):
+    """A CUDA session in float64 past N = 128 and in complex128 runs a hand
+    site sweep (K6-f64, K8-c128, K9-c128): no refusal."""
+    tcore._check_cuda_kernels(N, F, delay, dtype, udtype)
+
+
+@pytest.mark.parametrize("N,F,delay,dtype,text", [
+    (130, 1, 0, F64, "K6 and K6-f64 4 | N beyond in float32 and float64"),
+    (256, 3, 32, F64, "both F <= 2"),
+    (256, 2, 64, F64, "with their buffers in shared memory"),
+    (128, 2, 0, C128, "K8-c128 takes N <= 128 at F = 1 and N <= 64 at F = 2"),
+    (72, 2, 0, C128, "K8-c128 takes N <= 128 at F = 1 and N <= 64 at F = 2"),
+    (256, 2, 32, C128, "K9 and K9-c128 8 | N beyond with their buffers in "
+                       "shared memory"),
+    (132, 1, 0, C128, "K9 and K9-c128 8 | N beyond"),
+    (64, 3, 0, C128, "K8-c128 takes N <= 128 at F = 1")])
+def test_check_cuda_kernels_fp64_refusals(N, F, delay, dtype, text):
+    """Each refusal left names ROADMAP Queue 1 item 4 and states the limits
+    of the kernels that refuse."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 4") as e:
+        tcore._check_cuda_kernels(N, F, delay, dtype, dtype)
+    assert text in str(e.value), str(e.value)
+
+
+# ---------------------------------------------------------------------------
+# the layouts at float64 and complex128 byte counts
+# ---------------------------------------------------------------------------
+
+def _k6_cluster_bytes(N, F, dk, cs, passes, el):
+    """csrc/site_sweep_delayed.cu::cluster_smem_elems by hand: b over N/P
+    columns, a over N/cs rows, the two staged tables (rows of dk padded to
+    4, plus 4), A2 and B2, the diagonal block (rows of dk + 1), its
+    diagonal and x, u, delta and the boson weight, the slots' sites and
+    count, sigma."""
+    ld = (dk + 3) // 4 * 4 + 4
+    return el * (F * dk * (N // passes) + F * dk * (N // cs) + 2 * F * dk * ld
+                 + 2 * F * dk * dk + F * dk * (dk + 1) + 2 * F * dk
+                 + (F + 2) * N + dk + 4 + (N + 3) // 4)
+
+
+@pytest.mark.parametrize("N,F,dk,dtype,cs,passes", [
+    (256, 1, 32, F64, 2, 1), (256, 2, 32, F64, 2, 2), (144, 1, 1, F64, 2, 1),
+    (144, 2, 1, F64, 2, 1), (144, 2, 24, F64, 2, 1), (256, 1, 32, F32, 2, 1),
+    (256, 2, 32, F32, 2, 1)])
+def test_k6_f64_layouts(N, F, dk, dtype, cs, passes):
+    """K6's cluster_plan and column passes count bytes per element: in
+    float64 the 16x16 F = 1 still runs one pass, F = 2 two (227,616 bytes,
+    within one block's 232,448), and float32 keeps its one-pass layouts."""
+    el = dtype.itemsize
+    assert ssd.cluster_plan(N, F, dk, dtype) == cs
+    assert ssd.column_passes(N, F, dk, cs, dtype) == passes
+    assert ssd.smem_bytes(N, F, dk, cs, dtype) == _k6_cluster_bytes(
+        N, F, dk, cs, passes, el) <= _build.SMEM_PER_BLOCK
+    assert ssd.fits(N, F, dk, cs, dtype) and ssd.kernel_supports(N, F, dk,
+                                                                 dtype)
+    # the same shape in one pass of twice the bytes does not fit where it
+    # takes two
+    one = _k6_cluster_bytes(N, F, dk, cs, 1, el)
+    assert (one <= _build.SMEM_PER_BLOCK) == (passes == 1)
+
+
+def test_k6_f64_refused_shapes():
+    """float64 K6-f64 takes 4 | N past 128 only, F <= 2, and not the
+    buffers of dk = 64 at F = 2 (neither layout fits)."""
+    assert ssd.kernel_supports(132, 1, 1, F64)          # slab layout
+    assert ssd.cluster_plan(132, 1, 1, F64) == 1
+    assert not ssd.kernel_supports(130, 1, 1, F64)
+    assert not ssd.kernel_supports(128, 1, 32, F64)     # K1-f64's range
+    assert not ssd.kernel_supports(256, 3, 32, F64)
+    assert not ssd.kernel_supports(256, 2, 64, F64)
+    assert not ssd.fits(256, 2, 32, 1, F64)             # the slab's 270 KB
+    assert not ssd.kernel_supports(256, 1, 32, C128)
+
+
+@pytest.mark.parametrize("N,F,dk,cs,passes,ok", [
+    (256, 1, 32, 2, 2, True), (256, 2, 16, 2, 2, True),
+    (256, 2, 8, 2, 1, True), (144, 2, 24, 2, 2, True),
+    (144, 1, 1, 2, 1, True), (256, 2, 32, 1, 1, False)])
+def test_k9_c128_layouts(N, F, dk, cs, passes, ok):
+    """K9-c128's plan at complex128 byte counts: two float64 planes of every
+    buffer; complex16 (F = 1, dk = 32) in clusters of 2 blocks and two
+    column passes (225,568 bytes); F = 2 at dk = 32 fits no layout."""
+    assert ssdcx.kernel_supports(N, F, dk, C128) == ok
+    assert ssdcx.cluster_plan(N, F, dk, C128) == cs
+    if not ok:
+        assert ssdcx.smem_bytes(N, F, dk, 1, C128) > _build.SMEM_PER_BLOCK
+        return
+    assert ssdcx.column_passes(N, F, dk, cs, C128) == passes
+    ld = (dk + 3) // 4 * 4 + 4
+    want = 8 * (2 * F * dk * (N // passes) + 2 * F * dk * (N // cs)
+                + 4 * F * dk * ld + 4 * F * dk * dk + 2 * F * dk * (dk + 1)
+                + 4 * F * dk + (F + 2) * N + dk + 4 + (N + 3) // 4)
+    assert ssdcx.smem_bytes(N, F, dk, cs, C128) == want
+    assert want <= _build.SMEM_PER_BLOCK
+    # complex64 keeps one pass at every shape it took
+    if ssdcx.kernel_supports(N, F, dk, C64):
+        assert ssdcx.column_passes(N, F, dk, ssdcx.cluster_plan(N, F, dk),
+                                   C64) == 1
+
+
+@pytest.mark.parametrize("N,F,ok,smem,where", [
+    (64, 1, True, 8 * (4 * 2 * 64 + 64 + 128) + 3 * 64, "G in registers"),
+    (64, 2, True, 8 * (4 * 4 * 64 + 64 + 128) + 3 * 64, "G in registers"),
+    (128, 1, True, 8 * (4 * 2 * 128 + 128 + 256 + 128 * 128) + 3 * 128,
+     "the real plane in registers, the imaginary plane in shared memory"),
+    (100, 1, True, 8 * (4 * 2 * 128 + 128 + 256 + 128 * 128) + 3 * 128,
+     "the imaginary plane in shared memory"),
+    (16, 2, True, 8 * (4 * 4 * 32 + 32 + 64) + 3 * 32, "G in registers"),
+    (72, 2, False, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
+     None)])
+def test_k8_c128_layouts(N, F, ok, smem, where):
+    """K8-c128 on the tiled layout (csrc/site_sweep_tiled.cuh) with double
+    planes: at N <= 64 every plane in registers (F = 2: 128 registers a
+    thread, as K1-f64 at N = 128); at F = 1 past 64 the imaginary plane in
+    shared memory; F = 2 past 64 would need three planes there."""
+    assert sscx.kernel_supports(N, F, C128) == ok
+    assert ss.tiled_smem_bytes(N, F, True, F64) == smem
+    if ok:
+        assert where in sscx.layout(N, F, C128)
+    # complex64 and float64 keep their layouts: flavor 1 in shared memory
+    # at F = 2 past 64, all in registers below
+    assert ("flavor 1 in shared memory" in ss.layout(N, 2, True)) == (N > 64)
+    assert ("flavor 1 in shared memory"
+            in ss.layout(N, 2, dtype=F64)) == (N > 64)
+
+
+# ---------------------------------------------------------------------------
+# sweep_slice's dispatch and the float64 delayed sweep's statistics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,dtype,kernel,n_out", [
+    (144, F64, "site_sweep_delayed_f64", 5),
+    (16, C128, "site_sweep_cx_c128", 4),
+    (144, C128, "site_sweep_delayed_cx_c128", 4),
+    (144, F32, "site_sweep_delayed", 5),
+    (16, C64, "site_sweep_cx", 4)])
+def test_sweep_slice_dispatch(monkeypatch, N, dtype, kernel, n_out):
+    """On the kernel path sweep_slice calls K6-f64 for float64 G past
+    N = 128 (and passes on the negative-weight statistics that K6 and
+    K6-f64 return fifth), K8-c128 and
+    K9-c128 for complex128 G, and the float32 / complex64 kernels
+    otherwise, once per slice."""
+    mods = {"site_sweep_delayed_f64": ssd, "site_sweep_delayed": ssd,
+            "site_sweep_cx_c128": sscx, "site_sweep_cx": sscx,
+            "site_sweep_delayed_cx_c128": ssdcx,
+            "site_sweep_delayed_cx": ssdcx}
+    calls = []
+    for name, mod in mods.items():
+        def spy(G, *a, _n=name, **kw):
+            calls.append(_n)
+            return tuple(f"{_n}[{i}]" for i in range(n_out))
+        monkeypatch.setattr(mod, name, spy)
+    ctx = tcore.DQMCContext(
+        N=N, M=10, sm=5, F=1, lamb=0.5, det_power=2, use_boson=True,
+        dtype=dtype, signs=(1.0,), device=torch.device("cpu"),
+        delay=8 if N > 128 else 0)
+    G = torch.zeros(2, 1, N, N, dtype=dtype)
+    out = tcore.sweep_slice(ctx, G, torch.ones(2, N, dtype=torch.int8),
+                            torch.zeros(2, N, dtype=ctx.urdtype))
+    assert calls == [kernel]
+    assert out[:4] == tuple(f"{kernel}[{i}]" for i in range(4))
+    assert out[4] == (f"{kernel}[4]" if n_out == 5 else None)
+
+
+def test_site_sweep_delayed_f64_negative_magnitudes_match_jax():
+    """K6-f64's plain version (its CPU route) on repulsive-sign F = 2
+    inputs whose diagonal leaves [0, 1], where r_up r_dn < 0 happens,
+    against the JAX package's XLA delayed sweep in blocks of 8: decisions
+    and counts identical, G to 1e-12, the negative weights' log10
+    magnitudes (min, max, sum per chain) to 1e-12; the float32 wrapper
+    returns None for them."""
+    (jctx, _), (tctx, _) = _contexts(1.0, 5, "f64", use_kernels=False,
+                                     delay=8, repulsive=True)
+    kw = dict(lamb=tctx.lamb, signs=tctx.signs, det_power=tctx.det_power,
+              use_boson=tctx.use_boson)
+    rng = np.random.default_rng(81)
+    C, N = 3, tctx.N
+    G = (0.5 * np.eye(N) + 0.8 / np.sqrt(N) * rng.normal(size=(C, 2, N, N))
+         + np.einsum("cfn,nm->cfnm", 0.8 * rng.normal(size=(C, 2, N)),
+                     np.eye(N)))
+    sigma = rng.choice(np.array([-1, 1], np.int8), size=(C, N))
+    u = rng.uniform(size=(C, N))
+
+    def jax_sweep(G, s, u):
+        G, s, ls = jcore.sweep_slice_delayed(jctx, G, s, u,
+                                             jcore.init_local_stats(jctx))
+        return G, s, ls["acc"], ls["nneg"], jnp.stack(
+            [ls["neg_min"], ls["neg_max"], ls["neg_sum"]], -1)
+
+    Gj, sj, aj, nj, negj = jax.jit(jax.vmap(jax_sweep))(
+        jnp.asarray(G), jnp.asarray(sigma), jnp.asarray(u))
+    Gt, st, at, nt, negt = ssd.site_sweep_delayed_f64(
+        torch.from_numpy(G), torch.from_numpy(sigma), torch.from_numpy(u),
+        dk=8, **kw)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert nt.sum() > 0
+    np.testing.assert_allclose(negt.numpy(), np.asarray(negj), rtol=1e-12,
+                               atol=1e-12)
+    assert np.max(np.abs(Gt.numpy() - np.asarray(Gj))) <= 1e-12
+    out32 = ssd.site_sweep_delayed(torch.from_numpy(G).float(),
+                                   torch.from_numpy(sigma),
+                                   torch.from_numpy(u).float(), dk=8, **kw)
+    assert len(out32) == 5 and out32[4] is None

@@ -337,8 +337,9 @@ def _same_sweep(out_t, out_j, N):
     XLA's CPU compiler, which may fuse a product and a difference into one
     FMA where the port rounds twice, so G differs at the 1e-6 level (the
     JAX package holds its delayed kernel to 1e-4 against its per-site one)."""
-    Gt, st, at, nt = out_t
+    Gt, st, at, nt, negt = out_t
     Gj, sj, aj, nj = out_j
+    assert negt is None
     assert st.dtype == torch.int8
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
@@ -701,13 +702,31 @@ def test_wrappers_raise_off_cpu_without_kernel():
         ssdcx.site_sweep_delayed_cx(
             G, torch.empty(2, 136, dtype=torch.int8, **m),
             torch.empty(2, 136, **m), dk=8, lamb=LAMB, **MODELS["attractive"])
+    f64 = dict(dtype=torch.float64, **m)
+    s136 = torch.empty(2, 136, dtype=torch.int8, **m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ssd.site_sweep_delayed_f64(torch.empty(2, 1, 136, 136, **f64), s136,
+                                   torch.empty(2, 136, **f64), dk=8,
+                                   lamb=LAMB, **MODELS["attractive"])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        sscx.site_sweep_cx_c128(
+            torch.empty(2, 1, 16, 16, dtype=torch.complex128, **m),
+            torch.empty(2, 16, dtype=torch.int8, **m),
+            torch.empty(2, 16, **f64), lamb=LAMB, **MODELS["attractive"])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ssdcx.site_sweep_delayed_cx_c128(
+            torch.empty(2, 1, 136, 136, dtype=torch.complex128, **m), s136,
+            torch.empty(2, 136, **f64), dk=8, lamb=LAMB,
+            **MODELS["attractive"])
     assert set(KERNELS) == {"site_sweep", "udt_qr", "udt_qr_solve",
                             "site_sweep_delayed", "qr_blocked",
                             "site_sweep_cx", "qr_cx", "qr_f32", "qr_f64",
                             "site_sweep_f64", "site_sweep_pair",
                             "site_sweep_delayed_cx", "site_sweep_wrap",
                             "qr_vtau", "site_sweep_single", "ising_sweep",
-                            "wolff_step"}
+                            "wolff_step", "site_sweep_delayed_f64",
+                            "site_sweep_cx_c128",
+                            "site_sweep_delayed_cx_c128"}
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -748,7 +767,11 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_f32_stamps", "site_sweep_cx_c64_stamps",
         "udt_qr_f32_stamps", "udt_qr_solve_f32_stamps", "qr_f64_stamps",
         "site_sweep_wrap_f32_stamps", "qr_f32_stamps", "ising_sweep_i8",
-        "wolff_step_u8"}
+        "wolff_step_u8", "site_sweep_delayed_f64",
+        "site_sweep_delayed_f64_max_clusters", "site_sweep_delayed_f64_stamps",
+        "site_sweep_cx_c128", "site_sweep_delayed_cx_c128",
+        "site_sweep_delayed_cx_c128_max_clusters",
+        "site_sweep_delayed_cx_c128_stamps"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -40,8 +40,8 @@ def test_cuda_kernel_routes():
     card): K1 + K2/K3 for 8 | N <= 64, K1 + K4 for 64 < N <= 128 with 8 | N,
     K6 + K7 for 8 | N > 128 at F <= 2, and the site-sweep kernel with the
     library QR where 8 does not divide N (N = 100, 9; 132 with K6), as the
-    JAX package runs XLA's QR there; no site sweep for F = 3, for K6's
-    buffers at N = 1024 or for float64 beyond N = 128."""
+    JAX package runs XLA's QR there; no site sweep for F = 3 or for K6's
+    buffers at N = 1024; float64 beyond N = 128 runs K6-f64."""
     ok = lambda *a: tcore._check_cuda_kernels(*a, torch.float32,
                                               torch.float32)
     for N, F, delay in ((64, 1, 0), (16, 2, 0), (144, 1, 0), (144, 2, 24),
@@ -52,8 +52,7 @@ def test_cuda_kernel_routes():
                               (1024, 2, 32, "item 4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             ok(N, F, delay)
-    with pytest.raises(NotImplementedError, match="float64"):
-        tcore._check_cuda_kernels(256, 1, 32, torch.float64, torch.float64)
+    tcore._check_cuda_kernels(256, 1, 32, torch.float64, torch.float64)
 
 
 @pytest.mark.parametrize("repulsive", [False, True])

@@ -198,12 +198,12 @@ C64, C128 = torch.complex64, torch.complex128
 
 @pytest.mark.parametrize("N,stacks,updates,item", [
     (256, C128, C64, None), (128, C128, C64, None), (64, C128, C64, None),
-    (100, C128, C64, None), (64, C64, C128, "item 4")])
+    (100, C128, C64, None), (64, C64, C128, None)])
 def test_check_cuda_kernels_complex128_stacks(N, stacks, updates, item):
     """complex128 stacks over complex64 updates run the complex64 site
     sweep kernels (K8 to N = 128, at 8 ∤ N too, K9 beyond) with the
     library QR, as the JAX package runs its Pallas sweep with XLA's QR;
-    complex128 updates keep raising."""
+    complex128 updates over complex64 stacks run K8-c128."""
     if item is None:
         tcore._check_cuda_kernels(N, 1, 0, stacks, updates)
         return

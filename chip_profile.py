@@ -5,6 +5,8 @@
                             [repulsive] [complex16] [chain128] [colscaled]
                             [fusewrap] [colscaled_wy] [single] [refresh]
                             [l16_f64] [complex_c128] [complex16_c128]
+                            [l15_f64] [flux14_c128] [rep_flux10_c128]
+                            [rep_flux16_c128]
 
 Runs each named configuration of chip_smoke.py (default: headline):
 
@@ -38,6 +40,17 @@ Runs each named configuration of chip_smoke.py (default: headline):
             K8-c128 and the library QR)
   complex16_c128  complex16 in complex128 (kernel K9-c128 and the library
             QR)
+  l15_f64   15x15 attractive in float64, 64 chains (K6-f64 on G padded to
+            232, rank-1 blocks, and the library QR)
+  flux14_c128  14x14 attractive with the complex row's pure-gauge phases in
+            complex128, 64 chains (K9-c128 on G padded to 200 and the
+            library QR)
+  rep_flux10_c128  10x10 repulsive with those phases in complex128, 256
+            chains (K8-c128 at F = 2, a cluster of 2 blocks per chain, and
+            the library QR)
+  rep_flux16_c128  16x16 repulsive with those phases in complex128, 64
+            chains, delay 32 (K9-c128 at F = 2 in two flavor stages and the
+            library QR)
 
 Compare a mode with its base configuration in one call (headline fusewrap,
 colscaled colscaled_wy): two calls may land on two cards.
@@ -184,7 +197,17 @@ CONFIGS = {"headline": (smoke.headline_model, smoke.SAFE_MULT, smoke.CHAINS,
            "complex_c128": (smoke.complex_model, smoke.CPLX_SM, smoke.CHAINS,
                             True, {}),
            "complex16_c128": (lambda: smoke.complex_model(L=smoke.L16),
-                              smoke.CPLX_SM, smoke.L16_CHAINS, False, {})}
+                              smoke.CPLX_SM, smoke.L16_CHAINS, False, {}),
+           "l15_f64": (lambda: smoke.headline_model(L=15), smoke.SAFE_MULT,
+                       smoke.ITEM4_CHAINS, False, {}),
+           "flux14_c128": (lambda: smoke.complex_model(L=14), smoke.CPLX_SM,
+                           smoke.ITEM4_CHAINS, False, {}),
+           "rep_flux10_c128": (lambda: smoke.complex_model(True, 10),
+                               smoke.CPLX_SM, smoke.ITEM4_REP10_CHAINS,
+                               False, {}),
+           "rep_flux16_c128": (lambda: smoke.complex_model(True, smoke.L16),
+                               smoke.CPLX_SM, smoke.ITEM4_CHAINS, False,
+                               {})}
 
 
 def smi():

@@ -38,7 +38,17 @@ failure and prints no result line then):
               K9-c128 at (64, 1, 256, 256) with dk = 32: decisions
               identical, max|dG| within TOL_G_FP64 (each line says whether
               G is bit-equal), REPEATS launches more; K6-f64's negative-
-              weight magnitudes on random F = 2 G
+              weight magnitudes on random F = 2 G; the shapes of ROADMAP
+              Queue 1 item 4 in both precisions, each bit-equal to its
+              plain version with REPEATS launches more and its wall,
+              device and plain ms and bound printed: K6 and K6-f64 at
+              (64, 1, 169, 169) (G padded to 176), K6-f64 at (64, 1, 225,
+              225), K9 and K9-c128 at (64, 1, 196, 196) (G padded to 200),
+              K8 and K8-c128 at F = 2, N = 100 (256 chains) and N = 128
+              (complex128: a cluster of 2 blocks per chain), K9 and K9-c128
+              at (64, 2, 256, 256) with dk = 32 (complex128 in two flavor
+              stages); the four shapes of the 4r runs are rows of their
+              own in the kernels line
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -101,6 +111,20 @@ failure and prints no result line then):
               QR) and complex16's (64 chains, delay 32: K9-c128, the
               library QR); the complex runs' <s> within PHASE_TOL of 1 with
               no imaginary probability
+  4r. l15_f64, flux14_c128, rep_flux10_c128, rep_flux16_c128: item 4's
+              sessions at the default dtype, 1 + 1 sweeps, each with its
+              chain-sweeps/s beside the card's name and power limit:
+              15x15 attractive, 64 chains (K6-f64 on G padded to 232; drift
+              max below 1e-6); 14x14 attractive with the complex row's
+              pure-gauge phases, 64 chains (K9-c128 on G padded to 200);
+              10x10 repulsive with them, 256 chains (K8-c128 at F = 2 on
+              clusters of 2 blocks); 16x16 repulsive with them, 64 chains,
+              delay 32 (K9-c128 at F = 2 in two flavor stages); each beside
+              the library QR, the complex runs' <s> within PHASE_TOL_C128 of
+              1 with no imaginary probability, the repulsive runs held to
+              the repulsive anchors; after each run its first slice visit
+              on the kernel path against the plain path, agreeing in every
+              chain
   Every run of phase 4 holds its launches to the schedule: one site sweep
   per slice visit, one QR of the session's route (qr_route) per stack
   extension and Green's recomputation, the library QR's calls as
@@ -128,7 +152,8 @@ failure and prints no result line then):
               each run (the same library QR on both paths, so the
               decisions must agree in every chain) and f64's whole pair;
               l16_f64, complex_c128 and complex16_c128: the first visit,
-              agreeing in every chain
+              agreeing in every chain (the four 4r runs' right after
+              each run, in phase 4r)
   5b. phase   a second witness for the phase statistics of the complex,
               complex16 and libqr complex64 runs (complex16: its first 16
               chains): one sweep
@@ -290,6 +315,16 @@ TOL_G_FP64 = 1e-10
 # (bench.py:534-535)
 F64_ACC_RANGE = (0.3, 0.95)
 FP64_THERM, FP64_SWEEPS = 1, 1
+# the item 4 runs (phase 4r) at the default dtype, 1 + 1 sweeps: l15_f64
+# (15x15 attractive, 64 chains: K6-f64 on G padded to 232), flux14_c128
+# (14x14 attractive with the complex row's pure-gauge phases, 64 chains:
+# K9-c128 on G padded to 200), rep_flux10_c128 (10x10 repulsive with
+# them, 256 chains: K8-c128 at F = 2 on clusters of 2 blocks) and
+# rep_flux16_c128 (16x16 repulsive with them, 64 chains, delay auto 32:
+# K9-c128 at F = 2 in two flavor stages); the complex128 runs' |<s> - 1|
+# (complex16_c128 read 3.8e-13 on an H100 80GB HBM3 at 700 W)
+ITEM4_CHAINS, ITEM4_REP10_CHAINS = 64, 256
+PHASE_TOL_C128 = 1e-9
 # bench.py's f64 criterion: max window-end drift (reference alarm 1e-7 per
 # stabilization, stack.jl:530-550)
 F64_DRIFT_MAX = 1e-6
@@ -477,6 +512,22 @@ KERNEL_INFO = {
     "site_sweep_cx_c128": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
                            "montecarlo_tpu/dqmc/core.py:560"),
     "site_sweep_delayed_cx_c128": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
+        "montecarlo_tpu/dqmc/core.py:595"),
+    # the shapes of the item 4 runs (phase 4r), rows of their own: K6-f64
+    # at N = 225 (G padded to 232; at dk = 1 the JAX package's rank-1
+    # loop), K9-c128 at N = 196 (G padded to 200), K8-c128 at F = 2, N = 100
+    # (a cluster of 2 blocks per chain) and K9-c128 at F = 2, N = 256,
+    # dk = 32 (two flavor stages)
+    "site_sweep_delayed_f64_225": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed.cu",
+        "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_delayed_cx_c128_196": (
+        "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
+        "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_cx_c128_f2_100": ("montecarlo_tpu_torch/csrc/site_sweep_cx.cu",
+                                  "montecarlo_tpu/dqmc/core.py:560"),
+    "site_sweep_delayed_cx_c128_f2": (
         "montecarlo_tpu_torch/csrc/site_sweep_delayed_cx.cu",
         "montecarlo_tpu/dqmc/core.py:595"),
     # no TPU kernel: the JAX package's XLA Metropolis sweep and Wolff BFS
@@ -1280,6 +1331,7 @@ def phase_parity():
 
     parity_delayed(results)
     parity_fp64(results)
+    parity_item4(results)
     parity_ising(results)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
 
@@ -1493,6 +1545,125 @@ def parity_fp64(results):
                              "magnitudes disagree with the plain version's")
 
 
+def item4_row(label, fn, plain, inputs, layout):
+    """One of item 4's site-sweep shapes (fn, on slice_inputs' inputs)
+    against its plain version: decisions and G bit-equal (K6-f64: its
+    negative-weight magnitudes too), REPEATS launches more bit-equal to the
+    first; its wall, device and plain ms and its bound, printed. Returns
+    the kernels line's fields."""
+    import torch
+    G, sigma, u, kw, ctx = inputs
+    call = lambda: tuple(x for x in fn(G, sigma, u, **kw) if x is not None)
+    out_k, out_p = fn(G, sigma, u, **kw), plain(G, sigma, u, **kw)
+    shape = tuple(G.shape)
+    err = check_sweep(f"{label} [{layout}]", out_k, out_p, shape,
+                      relative=False, tol=0.0)
+    same = torch.equal(out_k[0], out_p[0]) and all(
+        torch.equal(a, b) for a, b in zip(out_k[4:], out_p[4:])
+        if a is not None)
+    log(f"[parity] {label} {shape}: G bit-equal to the plain version's "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{label} is not bit-equal to its plain version")
+    repeats_equal(f"{label} {shape}", call)
+    row = dict(max_abs_err=err, ms=1e3 * timed(call, 20),
+               plain_ms=1e3 * timed(lambda: plain(G, sigma, u, **kw), 3),
+               library_ms=None,
+               **sweep_bound(shape[0], ctx.F, ctx.N, out_k[2].sum().item(),
+                             complex_=G.is_complex(),
+                             fp64=G.dtype in (torch.float64,
+                                              torch.complex128)))
+    dev = device_ms(call)
+    if dev is not None:
+        row["device_ms"] = dev
+    log(f"[parity] {label} {shape}: kernel {row['ms']:.4f} ms wall, "
+        f"{ms_text(dev)} device, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
+
+
+def parity_item4(results):
+    """The site sweeps of ROADMAP Queue 1 item 4's shapes against their
+    plain versions, in both precisions, on plain-path init_state Green's
+    functions at beta=10 (``slice_inputs``): K6 and K6-f64 at
+    (64, 1, 169, 169) (4 does not divide N: G padded to 176), K6-f64 also
+    at (64, 1, 225, 225) (l15_f64's); K9 and K9-c128 at (64, 1, 196, 196)
+    (8 does not divide N: G padded to 200; flux14_c128's); K8 and K8-c128
+    at F = 2, N = 100 (256 chains, rep_flux10_c128's; complex128: a
+    cluster of 2 blocks per chain) and N = 128 (the 128-site ring, 64
+    chains); K9 and K9-c128 at (64, 2, 256, 256) with dk = 32
+    (rep_flux16_c128's; complex64 in two column passes, complex128 in
+    clusters of 4 blocks, two flavor stages). The float32 and complex64
+    shapes' errors join their kernels' rows; the four complex128 and
+    float64 shapes of the runs get rows of their own."""
+    import torch
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+    from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+    from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    f32, f64 = dict(dtype=torch.float32), dict(dtype=torch.float64)
+
+    def real(L, seed, dtype, chains=ITEM4_CHAINS):
+        G, sigma, u, kw, ctx = slice_inputs(headline_model(False, L), chains,
+                                            seed, **dtype)
+        return G, sigma, u, dict(kw, dk=max(ctx.delay, 1)), ctx
+
+    def cx(repulsive, L, seed, dtype, chains=ITEM4_CHAINS, dims=2):
+        G, sigma, u, kw, ctx = slice_inputs(
+            complex_model(repulsive, L, dims), chains, seed,
+            safe_mult=CPLX_SM, **dtype)
+        if ctx.N > 128:
+            kw = dict(kw, dk=max(ctx.delay, 1))
+        return G, sigma, u, kw, ctx
+
+    def lay(mod, x, dtype):
+        ctx = x[4]
+        if "dk" in x[3]:
+            return mod.layout(ctx.N, ctx.F, x[3]["dk"], dtype=dtype)
+        return mod.layout(ctx.N, ctx.F, dtype)
+
+    C64, C128 = torch.complex64, torch.complex128
+    F32, F64 = torch.float32, torch.float64
+    # (row: None joins the kernel's own row, label, wrapper, plain, inputs,
+    # module, dtype)
+    rows = [
+        (None, "site_sweep_delayed", ssd.site_sweep_delayed,
+         ssd.site_sweep_delayed_plain, real(13, 41, f32), ssd, F32),
+        (None, "site_sweep_delayed_f64", ssd.site_sweep_delayed_f64,
+         ssd.site_sweep_delayed_plain, real(13, 42, f64), ssd, F64),
+        ("site_sweep_delayed_f64_225", "site_sweep_delayed_f64",
+         ssd.site_sweep_delayed_f64, ssd.site_sweep_delayed_plain,
+         real(15, 43, f64), ssd, F64),
+        (None, "site_sweep_delayed_cx", ssdcx.site_sweep_delayed_cx,
+         ssdcx.site_sweep_delayed_cx_plain, cx(False, 14, 44, f32), ssdcx,
+         C64),
+        ("site_sweep_delayed_cx_c128_196", "site_sweep_delayed_cx_c128",
+         ssdcx.site_sweep_delayed_cx_c128, ssdcx.site_sweep_delayed_cx_plain,
+         cx(False, 14, 45, f64), ssdcx, C128),
+        (None, "site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
+         cx(True, 10, 46, f32, ITEM4_REP10_CHAINS), sscx, C64),
+        (None, "site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
+         cx(True, CHAIN_L, 47, f32, dims=1), sscx, C64),
+        ("site_sweep_cx_c128_f2_100", "site_sweep_cx_c128",
+         sscx.site_sweep_cx_c128, sscx.site_sweep_cx_plain,
+         cx(True, 10, 48, f64, ITEM4_REP10_CHAINS), sscx, C128),
+        (None, "site_sweep_cx_c128", sscx.site_sweep_cx_c128,
+         sscx.site_sweep_cx_plain, cx(True, CHAIN_L, 49, f64, dims=1), sscx,
+         C128),
+        (None, "site_sweep_delayed_cx", ssdcx.site_sweep_delayed_cx,
+         ssdcx.site_sweep_delayed_cx_plain, cx(True, L16, 50, f32), ssdcx,
+         C64),
+        ("site_sweep_delayed_cx_c128_f2", "site_sweep_delayed_cx_c128",
+         ssdcx.site_sweep_delayed_cx_c128, ssdcx.site_sweep_delayed_cx_plain,
+         cx(True, L16, 51, f64), ssdcx, C128)]
+    for row, label, fn, plain, x, mod, dtype in rows:
+        r = item4_row(label, fn, plain, x, lay(mod, x, dtype))
+        if row is not None:
+            results[row] = r
+        else:
+            results[label]["max_abs_err"] = max(
+                results[label]["max_abs_err"], r["max_abs_err"])
+
+
 def ising_sweep_bound(C, tabs):
     """K17's bound: each spin read and written once (1 byte each), its
     float64 uniform read once, the per-chain int64 count read and written,
@@ -1660,7 +1831,7 @@ def sweep_kernel(ctx, chains):
 def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
                 complex_=False, session=None, repulsive=False, dims=2,
                 phase_tol=PHASE_TOL, hold_occ=True, safe_mult=None,
-                acc_range=(0.05, 0.95), no_imag=False):
+                acc_range=(0.05, 0.95), no_imag=False, smi=None):
     """A simulation through DQMC(...).run(), with launch counts: the
     headline (8x8: K1-K3), the 16x16 one (K6, K7), the complex one (8x8
     with pure-gauge Peierls phases at safe_mult=5: K8, K10; at 16x16: K9
@@ -1677,11 +1848,15 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     L = 10 takes the library QR (libqr); session {} (DQMC's default dtype,
     float64) at L16 runs K6-f64 (l16_f64), with complex_ K8-c128
     (complex_c128) and at L16 K9-c128 (complex16_c128), each beside the
-    library QR. safe_mult None: the complex row's CPLX_SM for complex
+    library QR; the item 4 runs (phase 4r) take session {} at L = 15 (K6-
+    f64 on padded G), with complex_ at L = 14 (K9-c128 on padded G) and with
+    complex_ and repulsive at L = 10 (K8-c128 at F = 2) and L16 (K9-c128 at
+    F = 2). safe_mult None: the complex row's CPLX_SM for complex
     hopping, else the headline's. acc_range bounds the acceptance; no_imag
     holds a complex run to no imaginary probability. The library QR's calls
     (``linalg._library_qr.launches``) are counted as "library_qr" beside the
-    kernels' launches."""
+    kernels' launches. smi (nvidia-smi's name and power limit) goes into the
+    chain-sweeps/s line where given."""
     import torch
     from montecarlo_tpu_torch import (DQMC, magnetization,
                                       spin_density_correlation)
@@ -1689,7 +1864,7 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
     from montecarlo_tpu_torch.ops.linalg import _library_qr, qr_route
     read = zero_launches(library_qr=_library_qr)
     session = dict(dtype=torch.float32) if session is None else session
-    model = (complex_model(L=L, dims=dims) if complex_
+    model = (complex_model(repulsive, L, dims) if complex_
              else headline_model(repulsive=repulsive, L=L))
     if safe_mult is None:
         safe_mult = CPLX_SM if complex_ else SAFE_MULT
@@ -1742,7 +1917,8 @@ def phase_slice(L=L, chains=CHAINS, therm=THERM, sweeps=SWEEPS, tag="slice",
         f"{str(ctx.udtype)[6:]} stab {ctx.stab_method}{ab_modes(ctx)}: "
         f"{n_pairs} sweeps "
         f"in {dur:.3f} s = {rate:.1f} "
-        f"chain-sweeps/s; acceptance {acc:.4f}; occ {occ:.5f}; "
+        f"chain-sweeps/s{f' ({smi})' if smi else ''}; acceptance "
+        f"{acc:.4f}; occ {occ:.5f}; "
         f"prop_err_max {sim.analysis.propagation_error.max:.3e}, mean "
         f"{sim.analysis.prop_err_mean:.3e}")
     drift = (sim.analysis.propagation_error.max, sim.analysis.prop_err_mean)
@@ -1782,12 +1958,13 @@ def repulsive_anchors(sim, tag):
     n_dn)^2>) above its U=0 value 0.5. The nearest-neighbor z correlation
     and the negative-detratio count are printed, not held: three sweeps
     need not show antiferromagnetic order, and at half filling the exact
-    detratio is >= 0."""
+    detratio is >= 0. A complex run's observables are held by their real
+    parts (a pure gauge keeps the weights real)."""
     import numpy as np
     obs = sim.observables()
-    occ_f = np.mean(obs["occ"]["occ"].mean, axis=-1)          # (F,)
-    mz = float(np.mean(obs["m_z"]["m_z"].mean))
-    sdc = obs["sdc_z"]["sdc_z"].mean                           # (n_dirs,)
+    occ_f = np.real(np.mean(obs["occ"]["occ"].mean, axis=-1))  # (F,)
+    mz = float(np.real(np.mean(obs["m_z"]["m_z"].mean)))
+    sdc = np.real(obs["sdc_z"]["sdc_z"].mean)                  # (n_dirs,)
     dirs = sim.model.lattice.directions
     nn = np.isclose(np.linalg.norm(dirs, axis=-1), 1.0)
     moment, sdc_nn = float(sdc[0]), float(np.mean(sdc[nn]))
@@ -3113,6 +3290,27 @@ def main():
         L16, L16_CHAINS, FP64_THERM, FP64_SWEEPS, tag="complex16_c128",
         complex_=True, session={}, no_imag=True)
     mark("fp64 runs")
+    # item 4's sessions at the default dtype: K6-f64 and K9-c128 on padded
+    # G, K8-c128 and K9-c128 at F = 2; each run's first slice visit against
+    # the plain path right after it, and its state dropped (the card holds
+    # every other run's until phase 5)
+    item4 = dict(therm=FP64_THERM, sweeps=FP64_SWEEPS, session={}, smi=smi)
+    cx4 = dict(item4, complex_=True, no_imag=True, phase_tol=PHASE_TOL_C128)
+    item4_launches = []
+    for seed, (L4, chains, tag, kw) in enumerate((
+            (15, ITEM4_CHAINS, "l15_f64", item4),
+            (14, ITEM4_CHAINS, "flux14_c128", cx4),
+            (10, ITEM4_REP10_CHAINS, "rep_flux10_c128",
+             dict(cx4, repulsive=True)),
+            (L16, ITEM4_CHAINS, "rep_flux16_c128",
+             dict(cx4, repulsive=True))), start=34):
+        s4, l4, _ = phase_slice(L4, chains, tag=tag, **kw)
+        phase_paths_fp64(((s4, seed),))
+        item4_launches.append(l4)
+        del s4
+        torch.cuda.empty_cache()
+    launches15, launchesf14, launchesr10, launchesr16 = item4_launches
+    mark("item4 runs")
     simref, launchesref = phase_refresh(sim)
     mark("refresh")
     _, launchesrefcx, _ = phase_slice(
@@ -3126,9 +3324,21 @@ def main():
     runs = (launches, launches16, launchescx, launches64, launchesmx,
             launchescs, launchesrep, launchescx16, launchesch, launchesfw,
             launcheswy, launches1, launchesref, launchesrefcx, launchescb,
-            launches16f, launchescx128, launchescx16c,
+            launches16f, launchescx128, launchescx16c, launches15,
+            launchesf14, launchesr10, launchesr16,
             *(lq for _, lq in libqr.values()))
     launches = {k: sum(r[k] for r in runs) for k in launches}
+    # the item 4 runs' site sweeps: rows of their own
+    for k, run, kernel in (
+            ("site_sweep_delayed_f64_225", launches15,
+             "site_sweep_delayed_f64"),
+            ("site_sweep_delayed_cx_c128_196", launchesf14,
+             "site_sweep_delayed_cx_c128"),
+            ("site_sweep_cx_c128_f2_100", launchesr10, "site_sweep_cx_c128"),
+            ("site_sweep_delayed_cx_c128_f2", launchesr16,
+             "site_sweep_delayed_cx_c128")):
+        launches[k] = run[kernel]
+        launches[kernel] -= run[kernel]
     # qr_cx's and site_sweep_cx's launches by shape: the chain128 run's at
     # N = 128; the site sweeps' at N = 100: the libqr runs'
     for k in ("qr_cx", "site_sweep_cx"):

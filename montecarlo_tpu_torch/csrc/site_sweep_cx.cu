@@ -44,17 +44,29 @@
 // registers of each of the 256 threads, as K1-f64 at N = 128) and 128 KB
 // per plane at N = 128: at F = 1 past N = 64 the real plane stays in
 // registers and the imaginary plane lives in shared memory private to each
-// thread (tiled::planes_in_registers), 140 KB per block; F = 2 past N = 64
-// would need three planes there (384 KB) and is refused. What bounds it:
-// as in complex64, the site chain at N = 64 and the FP64 issue rate of the
-// updates at N = 128 (8 FP64 operations per complex element and accepted
-// site, 64 FP64 operations per cycle and SM).
+// thread (tiled::planes_in_registers), 140 KB per block. At F = 2 past
+// N = 64 one block would need three planes there (384 KB): the chain runs
+// on a cluster of 2 blocks, one flavor each (site_sweep_tiled_cx_flavors),
+// each block holding its flavor as the F = 1 layout does. The flavors meet
+// only in the decision, det = (r_0 r_1)^det_power: the owner of G_f[i, i]
+// writes it into the other block's shared memory when it publishes row i
+// (tiled::publish_diag), the barrier of every site is a cluster barrier,
+// and both blocks decide from the same two entries in the same operations,
+// so the kernel is bit-equal to the plain version as the one-block layout
+// is. What bounds it: as in complex64, the site chain at N = 64 and the
+// FP64 issue rate of the updates at N = 128 (8 FP64 operations per complex
+// element and accepted site, 64 FP64 operations per cycle and SM); at F = 2
+// past 64 each flavor has an SM of its own, behind a cluster barrier per
+// site.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "phase_clock.cuh"
 #include "site_sweep_tiled.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -92,6 +104,83 @@ site_sweep_tiled_cx(const typename Gm::T* __restrict__ G_in,
 #endif
 }
 
+// The two flavors of a chain on a cluster of 2 blocks (tiled::sweep_chain's
+// Xch): block rank holds flavor rank. local: this block's slots for the
+// other flavor's G[n, n], by n & 1 and plane; remote: the other block's.
+template <class T>
+struct FlavorPair {
+  static constexpr bool kPair = true;
+  T* remote;
+  const T* local;
+  int rank;
+  __device__ __forceinline__ void start() const { cg::this_cluster().sync(); }
+  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
+  __device__ __forceinline__ bool writer() const { return rank == 0; }
+};
+
+// K8 at F = 2 on a cluster of 2 blocks, block rank owning flavor rank of
+// chain blockIdx.x / 2
+template <class Gm>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(Gm::NT)
+site_sweep_tiled_cx_flavors(const typename Gm::T* __restrict__ G_in,
+                            typename Gm::T* __restrict__ G_out,
+                            const int8_t* __restrict__ sigma_in,
+                            int8_t* __restrict__ sigma_out,
+                            const typename Gm::T* __restrict__ u,
+                            uint8_t* __restrict__ accept_out,
+                            typename Gm::T* __restrict__ det_out, int N,
+                            typename Gm::T lamb, typename Gm::T sign0,
+                            typename Gm::T sign1, int det_power,
+                            int use_boson) {
+  using T = typename Gm::T;
+  constexpr int QR = tiled::planes_in_registers<true, 1, Gm::NP, T>();
+  extern __shared__ __align__(16) unsigned char smem_cx[];
+  __shared__ __align__(16) T diag[4];  // the other flavor's G[n, n]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / 2;
+  const size_t base = 2 * ((size_t)c * 2 + rank) * N * N;
+  const FlavorPair<T> xch{cluster.map_shared_rank(diag, rank ^ 1), diag,
+                          rank};
+  phase_clock::Clock clk;
+  tiled::sweep_chain<true, 1, QR, Gm, tiled::NoWrap, FlavorPair<T>>(
+      reinterpret_cast<T*>(smem_cx), G_in + base, G_out + base,
+      sigma_in + (size_t)c * N, sigma_out + (size_t)c * N, u + (size_t)c * N,
+      nullptr, nullptr, accept_out + (size_t)c * N, det_out + 2 * (size_t)c * N,
+      nullptr, N, lamb, sign0, sign1, det_power, use_boson, clk,
+      tiled::NoWrap{}, xch);
+#ifdef MC_PHASE_STAMPS
+  if (threadIdx.x == 0) clk.store(g_stamps, blockIdx.x);
+#endif
+}
+
+// Shared memory of one block of the one-block layout at F flavors
+template <int F, class Gm>
+constexpr int block_smem() {
+  using T = typename Gm::T;
+  return tiled::smem_bytes<
+      true, F, tiled::planes_in_registers<true, F, Gm::NP, T>(), Gm::NP, T>();
+}
+
+template <class Gm>
+int launch_flavors(const typename Gm::T* G_in, typename Gm::T* G_out,
+                   const int8_t* sigma_in, int8_t* sigma_out,
+                   const typename Gm::T* u, uint8_t* accept,
+                   typename Gm::T* det, int C, int N, typename Gm::T lamb,
+                   typename Gm::T sign0, typename Gm::T sign1, int det_power,
+                   int use_boson, cudaStream_t stream) {
+  constexpr int smem = block_smem<1, Gm>();
+  static_assert(smem <= 232448, "one flavor a block fits");
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_tiled_cx_flavors<Gm>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  site_sweep_tiled_cx_flavors<Gm><<<2 * C, Gm::NT, smem, stream>>>(
+      G_in, G_out, sigma_in, sigma_out, u, accept, det, N, lamb, sign0,
+      sign1, det_power, use_boson);
+  return (int)cudaGetLastError();
+}
+
 template <int F, class Gm>
 int launch(const typename Gm::T* G_in, typename Gm::T* G_out,
            const int8_t* sigma_in, int8_t* sigma_out,
@@ -99,12 +188,12 @@ int launch(const typename Gm::T* G_in, typename Gm::T* G_out,
            int C, int N, typename Gm::T lamb, typename Gm::T sign0,
            typename Gm::T sign1, int det_power, int use_boson,
            cudaStream_t stream) {
-  using T = typename Gm::T;
-  constexpr int smem = tiled::smem_bytes<
-      true, F, tiled::planes_in_registers<true, F, Gm::NP, T>(), Gm::NP, T>();
-  // complex128 at F = 2 past N = 64: three planes in shared memory
+  constexpr int smem = block_smem<F, Gm>();
+  // complex128 at F = 2 past N = 64: one flavor a block
   if constexpr (smem > 232448) {
-    return (int)cudaErrorInvalidValue;
+    return launch_flavors<Gm>(G_in, G_out, sigma_in, sigma_out, u, accept,
+                              det, C, N, lamb, sign0, sign1, det_power,
+                              use_boson, stream);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
         site_sweep_tiled_cx<F, Gm>,
@@ -155,8 +244,8 @@ extern "C" int site_sweep_cx_c64(const void* G_in, void* G_out,
                           stream);
 }
 
-// K8-c128: G and det complex128, u float64. N <= 128 at F = 1, N <= 64 at
-// F = 2 (the layout's shared memory refuses the rest), det_power in {1, 2}.
+// K8-c128: G and det complex128, u float64. N <= 128, F in {1, 2} (F = 2
+// past N = 64: a cluster of 2 blocks per chain), det_power in {1, 2}.
 extern "C" int site_sweep_cx_c128(const void* G_in, void* G_out,
                                   const int8_t* sigma_in, int8_t* sigma_out,
                                   const double* u, uint8_t* accept, void* det,

@@ -81,6 +81,16 @@
 // and DK = 32 F = 1 runs one pass and F = 2 two (227,616 bytes per block).
 // The 4 x 4 register tiles of the fold move as two double2 per row, so the
 // rule stays 4 | N (4 P | N and 4 CS | N in a cluster).
+//
+// Sites and storage. N is G's row length in memory and NS <= N the number
+// of sites the sweep visits: sigma and u hold NS entries per chain and the
+// blocks of DK sites cover [0, NS). Where 4 does not divide the lattice's
+// sites, ops/site_sweep_delayed.py pads G with zero rows and columns to a
+// multiple of 8 (N) and passes the lattice's sites as NS. A pad row or
+// column is never visited, so every slot's a and b are 0 there (0 - 0 times
+// a finite x), and a real entry G[r][n] takes the same subtractions in the
+// same slot order as without the pad: the kernel stays bit-equal to the
+// plain version on the unpadded G.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -156,8 +166,9 @@ site_sweep_delayed_slab(const T* __restrict__ G_in, T* __restrict__ G_out,
                         int8_t* __restrict__ sigma_out,
                         const T* __restrict__ u, int* __restrict__ acc_out,
                         int* __restrict__ nneg_out, T* __restrict__ neg_out,
-                        T* __restrict__ scratch, int C, int N, int DK, T lamb,
-                        T sign0, T sign1, int det_power, int use_boson) {
+                        T* __restrict__ scratch, int C, int N, int NS, int DK,
+                        T lamb, T sign0, T sign1, int det_power,
+                        int use_boson) {
   extern __shared__ __align__(16) unsigned char smem_slab[];
   T* smem = reinterpret_cast<T*>(smem_slab);
   const int LDC = N + 1;
@@ -177,7 +188,7 @@ site_sweep_delayed_slab(const T* __restrict__ G_in, T* __restrict__ G_out,
   const T neg2lamb = T(-2) * lamb;
   int acc = 0, nneg = 0;
   NegStats<T> negs;
-  for (int i0 = 0; i0 < N; i0 += DK) {
+  for (int i0 = 0; i0 < NS; i0 += DK) {
     const T* src = i0 == 0 ? G_in + gbase : Gc;  // G before this block
     for (int e = tid; e < F * DK * N; e += nth) {
       const int f = e / (DK * N), rem = e - f * DK * N;
@@ -193,7 +204,7 @@ site_sweep_delayed_slab(const T* __restrict__ G_in, T* __restrict__ G_out,
     int k = 0;  // accepted sites of this block (the same in every thread)
     for (int t = 0; t < DK; ++t) {
       const int i = i0 + t;
-      const int8_t s8 = sigma_in[c * N + i];
+      const int8_t s8 = sigma_in[c * NS + i];
       const T dEb = mul_rn(neg2lamb, (T)s8);
       T delta[F], r[F];
       T rprod = one;
@@ -207,12 +218,12 @@ site_sweep_delayed_slab(const T* __restrict__ G_in, T* __restrict__ G_out,
       T det = rprod;
       for (int q = 1; q < det_power; ++q) det = mul_rn(det, rprod);
       const T w = use_boson ? exp_(-dEb) : one;
-      const bool accept = u[c * N + i] < mul_rn(w, det);
+      const bool accept = u[c * NS + i] < mul_rn(w, det);
       if (tid == 0) {
         acc += accept;
         nneg += det < zero;
         if (kRecordNeg<T>) negs.push(det);
-        sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
+        sigma_out[c * NS + i] = accept ? (int8_t)(-s8) : s8;
       }
       if (tid == 0) clk.lap(1);
       if (!accept) continue;  // block-uniform: every thread decided the same
@@ -351,8 +362,8 @@ site_sweep_delayed_cluster(const T* __restrict__ G_in, T* G_out,
                            int8_t* __restrict__ sigma_out,
                            const T* __restrict__ u, int* __restrict__ acc_out,
                            int* __restrict__ nneg_out, T* __restrict__ neg_out,
-                           int N, int DK, int passes, T lamb, T sign0,
-                           T sign1, int det_power, int use_boson) {
+                           int N, int NS, int DK, int passes, T lamb,
+                           T sign0, T sign1, int det_power, int use_boson) {
   extern __shared__ __align__(16) unsigned char smem_cluster[];
   T* smem = reinterpret_cast<T*>(smem_cluster);
   cg::cluster_group cluster = cg::this_cluster();
@@ -393,10 +404,10 @@ site_sweep_delayed_cluster(const T* __restrict__ G_in, T* G_out,
   // each site's flip terms, which depend on its own sigma only (a site is
   // decided once per slice): delta_f = exp(sign_f dEb) - 1, w = exp(-dEb)
   const T neg2lamb = T(-2) * lamb;
-  for (int i = tid; i < N; i += nth) {
-    const int8_t s8 = sigma_in[(size_t)c * N + i];
+  for (int i = tid; i < NS; i += nth) {
+    const int8_t s8 = sigma_in[(size_t)c * NS + i];
     const T dEb = mul_rn(neg2lamb, (T)s8);
-    us[i] = u[(size_t)c * N + i];
+    us[i] = u[(size_t)c * NS + i];
     ss[i] = s8;
 #pragma unroll
     for (int f = 0; f < F; ++f)
@@ -414,7 +425,7 @@ site_sweep_delayed_cluster(const T* __restrict__ G_in, T* G_out,
 
   int acc = 0, nneg = 0;  // the counts, kept by thread 0 of rank 0
   NegStats<T> negs;
-  for (int i0 = 0; i0 < N; i0 += DK) {
+  for (int i0 = 0; i0 < NS; i0 += DK) {
     // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK]
     for (int f = 0; f < F; ++f)
       for (int s = warp; s < DK; s += kWarps) {
@@ -455,7 +466,7 @@ site_sweep_delayed_cluster(const T* __restrict__ G_in, T* G_out,
           acc += accept;
           nneg += det < zero;
           if (kRecordNeg<T>) negs.push(det);
-          sigma_out[(size_t)c * N + i] = accept ? (int8_t)(-s8) : s8;
+          sigma_out[(size_t)c * NS + i] = accept ? (int8_t)(-s8) : s8;
         }
         if (!accept) continue;  // warp-uniform
         // stage a[i0+s] = x (delta_st - G[i0+s][i]), b[i0+s] = G[i][i0+s]
@@ -609,8 +620,8 @@ site_sweep_delayed_cluster(const T* __restrict__ G_in, T* G_out,
 template <class T, int F>
 int launch_slab(const T* G_in, T* G_out, const int8_t* sigma_in,
                 int8_t* sigma_out, const T* u, int* acc, int* nneg, T* neg,
-                T* scratch, int C, int N, int DK, T lamb, T sign0, T sign1,
-                int det_power, int use_boson, cudaStream_t stream) {
+                T* scratch, int C, int N, int NS, int DK, T lamb, T sign0,
+                T sign1, int det_power, int use_boson, cudaStream_t stream) {
   const size_t smem =
       (size_t)(F * DK * N + F * DK * (N + 1) + 2 * F * N) * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
@@ -619,8 +630,8 @@ int launch_slab(const T* G_in, T* G_out, const int8_t* sigma_in,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   site_sweep_delayed_slab<T, F><<<C, kThreads, smem, stream>>>(
-      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, scratch, C, N, DK,
-      lamb, sign0, sign1, det_power, use_boson);
+      G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, scratch, C, N, NS,
+      DK, lamb, sign0, sign1, det_power, use_boson);
   return (int)cudaGetLastError();
 }
 
@@ -653,15 +664,15 @@ int cluster_config(int C, int N, int DK, int P, cudaStream_t stream,
 template <class T, int F, int CS>
 int launch_cluster(const T* G_in, T* G_out, const int8_t* sigma_in,
                    int8_t* sigma_out, const T* u, int* acc, int* nneg, T* neg,
-                   int C, int N, int DK, int P, T lamb, T sign0, T sign1,
-                   int det_power, int use_boson, cudaStream_t stream) {
+                   int C, int N, int NS, int DK, int P, T lamb, T sign0,
+                   T sign1, int det_power, int use_boson, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int err = cluster_config<T, F, CS>(C, N, DK, P, stream, &cfg, &attr);
   if (err) return err;
   err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cluster<T, F, CS>,
                                 G_in, G_out, sigma_in, sigma_out, u, acc,
-                                nneg, neg, N, DK, P, lamb, sign0, sign1,
+                                nneg, neg, N, NS, DK, P, lamb, sign0, sign1,
                                 det_power, use_boson);
   return err ? err : (int)cudaGetLastError();
 }
@@ -679,35 +690,36 @@ int max_clusters(int N, int DK, int P, int* out) {
 // The layouts that ops/site_sweep_delayed.py::cluster_plan can pick
 #define MC_K6_LAYOUTS(X) X(1, 2) X(1, 4) X(2, 2) X(2, 4)
 
-bool valid_cluster(int N, int DK, int CS, int P) {
+bool valid_cluster(int N, int CS, int P) {
   return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && P >= 1 &&
-         N % (4 * P) == 0 && DK >= 1 && N % DK == 0;
+         N % (4 * P) == 0;
 }
 
 template <class T>
 int sweep(const T* G_in, T* G_out, const int8_t* sigma_in, int8_t* sigma_out,
           const T* u, int* acc, int* nneg, T* neg, T* scratch, int C, int F,
-          int N, int DK, int CS, int P, T lamb, T sign0, T sign1,
+          int N, int NS, int DK, int CS, int P, T lamb, T sign0, T sign1,
           int det_power, int use_boson, void* stream) {
   if (C == 0) return 0;
-  if (N < 4 || N % 4 || DK < 1 || N % DK) return (int)cudaErrorInvalidValue;
+  if (N < 4 || N % 4 || NS < 1 || NS > N || DK < 1 || NS % DK)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (CS == 1) {
     if (F == 1)
       return launch_slab<T, 1>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
-                               neg, scratch, C, N, DK, lamb, sign0, sign1,
+                               neg, scratch, C, N, NS, DK, lamb, sign0, sign1,
                                det_power, use_boson, st);
     if (F == 2)
       return launch_slab<T, 2>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
-                               neg, scratch, C, N, DK, lamb, sign0, sign1,
+                               neg, scratch, C, N, NS, DK, lamb, sign0, sign1,
                                det_power, use_boson, st);
     return (int)cudaErrorInvalidValue;
   }
-  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+  if (!valid_cluster(N, CS, P)) return (int)cudaErrorInvalidValue;
 #define MC_K6_LAUNCH(f, cs)                                                  \
   if (F == f && CS == cs)                                                    \
     return launch_cluster<T, f, cs>(G_in, G_out, sigma_in, sigma_out, u, acc, \
-                                    nneg, neg, C, N, DK, P, lamb, sign0,      \
+                                    nneg, neg, C, N, NS, DK, P, lamb, sign0,  \
                                     sign1, det_power, use_boson, st);
   MC_K6_LAYOUTS(MC_K6_LAUNCH)
 #undef MC_K6_LAUNCH
@@ -717,7 +729,7 @@ int sweep(const T* G_in, T* G_out, const int8_t* sigma_in, int8_t* sigma_out,
 template <class T>
 int query(int F, int N, int DK, int CS, int P, int* out) {
   *out = 0;
-  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+  if (!valid_cluster(N, CS, P) || DK < 1) return (int)cudaErrorInvalidValue;
 #define MC_K6_QUERY(f, cs) \
   if (F == f && CS == cs) return max_clusters<T, f, cs>(N, DK, P, out);
   MC_K6_LAYOUTS(MC_K6_QUERY)
@@ -727,20 +739,22 @@ int query(int F, int N, int DK, int CS, int P, int* out) {
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success). 4 | N, DK | N,
-// F in {1, 2}. CS = 1: site_sweep_delayed_slab, scratch holds
-// 2 * C * F * DK * N floats; CS = 2 or 4 (4 CS | N):
-// site_sweep_delayed_cluster in one column pass, scratch unused.
+// Returns the cudaError_t of the launch (0 = success). G is (C, F, N, N)
+// with 4 | N, sigma and u (C, NS) with NS <= N sites (the rest of G: zero
+// pad rows and columns), DK | NS, F in {1, 2}. CS = 1:
+// site_sweep_delayed_slab, scratch holds 2 * C * F * DK * N floats; CS = 2
+// or 4 (4 CS | N): site_sweep_delayed_cluster in one column pass, scratch
+// unused.
 extern "C" int site_sweep_delayed_f32(const float* G_in, float* G_out,
                                       const int8_t* sigma_in,
                                       int8_t* sigma_out, const float* u,
                                       int* acc, int* nneg, float* scratch,
-                                      int C, int F, int N, int DK, int CS,
-                                      float lamb, float sign0, float sign1,
-                                      int det_power, int use_boson,
-                                      void* stream) {
+                                      int C, int F, int N, int NS, int DK,
+                                      int CS, float lamb, float sign0,
+                                      float sign1, int det_power,
+                                      int use_boson, void* stream) {
   return sweep<float>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, nullptr,
-                      scratch, C, F, N, DK, CS, 1, lamb, sign0, sign1,
+                      scratch, C, F, N, NS, DK, CS, 1, lamb, sign0, sign1,
                       det_power, use_boson, stream);
 }
 
@@ -752,12 +766,12 @@ extern "C" int site_sweep_delayed_f64(const double* G_in, double* G_out,
                                       int8_t* sigma_out, const double* u,
                                       int* acc, int* nneg, double* neg,
                                       double* scratch, int C, int F, int N,
-                                      int DK, int CS, int P, double lamb,
-                                      double sign0, double sign1,
+                                      int NS, int DK, int CS, int P,
+                                      double lamb, double sign0, double sign1,
                                       int det_power, int use_boson,
                                       void* stream) {
   return sweep<double>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
-                       scratch, C, F, N, DK, CS, P, lamb, sign0, sign1,
+                       scratch, C, F, N, NS, DK, CS, P, lamb, sign0, sign1,
                        det_power, use_boson, stream);
 }
 

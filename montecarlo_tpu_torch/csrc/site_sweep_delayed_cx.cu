@@ -61,6 +61,23 @@
 // columns, a cluster barrier, the fold of those columns of the own rows. At
 // N = 256, F = 1 and DK = 32: clusters of 2 blocks in 2 passes, 225,568
 // bytes per block.
+//
+// Flavor stages. The decisions need every flavor's diagonal block and
+// staged tables, but the two flavors' folds never meet: flavor f's y and b
+// update G_f only. Where the fold's buffers of both flavors do not fit
+// (complex128 at F = 2, N = 256, DK = 32: the 16x16 repulsive model in a
+// flux), the cluster layout replays and folds in S = 2 stages of one
+// flavor each, its y, b and Y2, B2 buffers holding one flavor, so G_f
+// takes the same subtractions in the same slot order and the kernel stays
+// bit-equal. complex64 runs that shape in one stage and two column passes;
+// complex128 in clusters of 4 blocks, 2 stages and 4 passes (216,896
+// bytes per block).
+//
+// Sites and storage, as in K6 (csrc/site_sweep_delayed.cu): N is G's row
+// length in memory, NS <= N the sites the sweep visits; where 8 does not
+// divide the lattice's sites, ops/site_sweep_delayed_cx.py pads G with zero
+// rows and columns to a multiple of 8, which the sweep never visits, and
+// every real entry stays the plain version's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -133,8 +150,8 @@ site_sweep_delayed_cx_slab(const typename Cplx<T>::type* __restrict__ G_in,
                            const T* __restrict__ u,
                            uint8_t* __restrict__ accept_out,
                            typename Cplx<T>::type* __restrict__ det_out,
-                           T* __restrict__ scratch, int C, int N, int DK,
-                           T lamb, T sign0, T sign1, int det_power,
+                           T* __restrict__ scratch, int C, int N, int NS,
+                           int DK, T lamb, T sign0, T sign1, int det_power,
                            int use_boson) {
   using C2 = typename Cplx<T>::type;
   extern __shared__ __align__(16) unsigned char smem_slab[];
@@ -163,7 +180,7 @@ site_sweep_delayed_cx_slab(const typename Cplx<T>::type* __restrict__ G_in,
   phase_clock::Clock clk;
   if (tid == 0) clk.start();
   const T neg2lamb = T(-2) * lamb;
-  for (int i0 = 0; i0 < N; i0 += DK) {
+  for (int i0 = 0; i0 < NS; i0 += DK) {
     const C2* src = i0 == 0 ? G_in + gbase : Gc;  // G before this block
     for (int e = tid; e < F * DK * N; e += nth) {
       const int f = e / (DK * N), rem = e - f * DK * N;
@@ -183,7 +200,7 @@ site_sweep_delayed_cx_slab(const typename Cplx<T>::type* __restrict__ G_in,
     int k = 0;  // accepted sites of this block (the same in every thread)
     for (int t = 0; t < DK; ++t) {
       const int i = i0 + t;
-      const int8_t s8 = sigma_in[c * N + i];
+      const int8_t s8 = sigma_in[c * NS + i];
       const T dEb = mul_rn(neg2lamb, (T)s8);
       T delta[F], rr[F], ri[F];
       T pr = zero, pi = zero;
@@ -210,11 +227,11 @@ site_sweep_delayed_cx_slab(const typename Cplx<T>::type* __restrict__ G_in,
         dim = mul_rn(mul_rn(T(2), pr), pi);
       }
       const T w = use_boson ? exp_(-dEb) : one;
-      const bool accept = u[c * N + i] < mul_rn(w, dre);
+      const bool accept = u[c * NS + i] < mul_rn(w, dre);
       if (tid == 0) {
-        accept_out[c * N + i] = accept;
-        det_out[c * N + i] = Cplx<T>::make(dre, dim);
-        sigma_out[c * N + i] = accept ? (int8_t)(-s8) : s8;
+        accept_out[c * NS + i] = accept;
+        det_out[c * NS + i] = Cplx<T>::make(dre, dim);
+        sigma_out[c * NS + i] = accept ? (int8_t)(-s8) : s8;
       }
       if (tid == 0) clk.lap(1);
       if (!accept) continue;  // block-uniform: every thread decided the same
@@ -324,20 +341,21 @@ __host__ __device__ inline int staged_ld(int DK) {
   return (DK + 3) / 4 * 4 + 4;
 }
 
-// Shared memory of site_sweep_delayed_cx_cluster in elements of T: re and
-// im planes of b over the N/P columns of one pass [f][k][n], y [f][k][r],
-// the staged y and b of the block's sites by site, YT [f][s][k] = y_k[i0+s]
-// and BT [f][s][k] = b_k[i0+s], their entries at the slots' sites Y2
-// [f][k'][k] = y_k'[i_k] and B2 [f][k'][k] = b_k'[i_k], the diagonal block
-// at the block's start D0 [f][s][s'] (rows of DK+1), its current diagonal
-// [f][s] and x [f][k]; u [i], delta [f][i] and the boson weight [i] of
-// flipping each site, the slots' sites and their count (ints) and sigma [i]
-// (int8). ops/site_sweep_delayed_cx.py::smem_bytes mirrors it.
+// Shared memory of site_sweep_delayed_cx_cluster in elements of T, with
+// FS = F / S flavors per stage: re and im planes of b over the N/P columns
+// of one pass [fs][k][n], y [fs][k][r], the staged y and b of the block's
+// sites by site, YT [f][s][k] = y_k[i0+s] and BT [f][s][k] = b_k[i0+s],
+// their entries at the slots' sites Y2 [fs][k'][k] = y_k'[i_k] and B2
+// [fs][k'][k] = b_k'[i_k], the diagonal block at the block's start D0
+// [f][s][s'] (rows of DK+1), its current diagonal [f][s] and x [f][k]; u
+// [i], delta [f][i] and the boson weight [i] of flipping each site, the
+// slots' sites and their count (ints) and sigma [i] (int8).
+// ops/site_sweep_delayed_cx.py::smem_bytes mirrors it.
 __host__ __device__ inline size_t cluster_smem_elems(int F, int CS, int N,
-                                                     int DK, int P) {
-  const size_t RQ = N / CS, NCH = N / P;
-  return 2 * (size_t)F * DK * NCH + 2 * F * DK * RQ +
-         4 * (size_t)F * DK * staged_ld(DK) + 4 * (size_t)F * DK * DK +
+                                                     int DK, int P, int S) {
+  const size_t RQ = N / CS, NCH = N / P, FS = F / S;
+  return 2 * FS * DK * NCH + 2 * FS * DK * RQ +
+         4 * (size_t)F * DK * staged_ld(DK) + 4 * FS * DK * DK +
          2 * (size_t)F * DK * (DK + 1) + 4 * F * DK + (F + 2) * N + DK + 4 +
          (N + 3) / 4;
 }
@@ -372,8 +390,9 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
                               const T* __restrict__ u,
                               uint8_t* __restrict__ accept_out,
                               typename Cplx<T>::type* __restrict__ det_out,
-                              int N, int DK, int P, T lamb, T sign0, T sign1,
-                              int det_power, int use_boson) {
+                              int N, int NS, int DK, int P, int S, T lamb,
+                              T sign0, T sign1, int det_power,
+                              int use_boson) {
   using C2 = typename Cplx<T>::type;
   extern __shared__ __align__(16) unsigned char smem_cluster[];
   T* smem = reinterpret_cast<T*>(smem_cluster);
@@ -384,20 +403,21 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
   const int lane = tid & 31, warp = tid >> 5;
   const int RQ = N / CS, r0 = rank * RQ, LDD = DK + 1, DD = DK * DK;
   const int NCH = N / P;  // columns of one pass
+  const int FS = F / S;   // flavors of one stage
   const int LDT = staged_ld(DK), TP = F * DK * LDT;  // a table's plane
   const size_t NN = (size_t)N * N, gbase = (size_t)c * F * NN;
   const T one = 1, zero = 0;
-  T* Br = smem;                               // [f][k][n - pass start]
-  T* Bi = Br + F * DK * NCH;
-  T* Ar = Bi + F * DK * NCH;                  // [f][k][r], r local
-  T* Ai = Ar + F * DK * RQ;
-  T* YT = Ai + F * DK * RQ;                   // [f][s][k], re then im
+  T* Br = smem;                               // [fs][k][n - pass start]
+  T* Bi = Br + FS * DK * NCH;
+  T* Ar = Bi + FS * DK * NCH;                 // [fs][k][r], r local
+  T* Ai = Ar + FS * DK * RQ;
+  T* YT = Ai + FS * DK * RQ;                  // [f][s][k], re then im
   T* BT = YT + 2 * TP;                        // [f][s][k], re then im
-  T* Y2r = BT + 2 * TP;                       // [f][k'][k]
-  T* Y2i = Y2r + F * DD;
-  T* B2r = Y2i + F * DD;                      // [f][k'][k]
-  T* B2i = B2r + F * DD;
-  T* D0r = B2i + F * DD;                      // [f][s][s']
+  T* Y2r = BT + 2 * TP;                       // [fs][k'][k]
+  T* Y2i = Y2r + FS * DD;
+  T* B2r = Y2i + FS * DD;                     // [fs][k'][k]
+  T* B2i = B2r + FS * DD;
+  T* D0r = B2i + FS * DD;                     // [f][s][s']
   T* D0i = D0r + F * DK * LDD;
   T* dgr = D0i + F * DK * LDD;                // [f][s]: G[i0+s][i0+s]
   T* dgi = dgr + F * DK;
@@ -420,10 +440,10 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
   // each site's flip terms, which depend on its own sigma only (a site is
   // decided once per slice): delta_f = exp(sign_f dEb) - 1, w = exp(-dEb)
   const T neg2lamb = T(-2) * lamb;
-  for (int i = tid; i < N; i += nth) {
-    const int8_t s8 = sigma_in[(size_t)c * N + i];
+  for (int i = tid; i < NS; i += nth) {
+    const int8_t s8 = sigma_in[(size_t)c * NS + i];
     const T dEb = mul_rn(neg2lamb, (T)s8);
-    us[i] = u[(size_t)c * N + i];
+    us[i] = u[(size_t)c * NS + i];
     ss[i] = s8;
 #pragma unroll
     for (int f = 0; f < F; ++f)
@@ -439,7 +459,7 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
   cluster.sync();
   if (tid == 0) clk.lap(1);
 
-  for (int i0 = 0; i0 < N; i0 += DK) {
+  for (int i0 = 0; i0 < NS; i0 += DK) {
     // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK]
     for (int f = 0; f < F; ++f)
       for (int s = warp; s < DK; s += kWarps) {
@@ -494,7 +514,7 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
         }
         const bool accept = us[i] < mul_rn(wg[i], dre);
         if (rank == 0 && lane == 0) {
-          const size_t o = (size_t)c * N + i;
+          const size_t o = (size_t)c * NS + i;
           accept_out[o] = accept;
           det_out[o] = Cplx<T>::make(dre, dim);
           sigma_out[o] = accept ? (int8_t)(-s8) : s8;
@@ -537,155 +557,163 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
     }
     __syncthreads();
     const int K = *kcount;
-    // the staged values at the slots' sites: Y2[k'][k] = y_k'[i_k],
-    // B2[k'][k] = b_k'[i_k]
-    for (int f = 0; f < F; ++f)
-      for (int e = tid; e < K * K; e += nth) {
-        const int kp = e / K, k = e - kp * K;
-        const int o = f * DD + kp * DK + k;
-        const int st = (f * DK + ts[k]) * LDT + kp;
-        Y2r[o] = YT[st];
-        Y2i[o] = YT[TP + st];
-        B2r[o] = BT[st];
-        B2i[o] = BT[TP + st];
-      }
-    __syncthreads();
     if (tid == 0) clk.lap(3);
     if (K == 0) continue;  // cluster-uniform: nothing to fold
 
-    for (int pass = 0; pass < P; ++pass) {
-      const int c0 = pass * NCH;  // the pass's first column
-      // 3. replay the slots: items [0, F NCH) form b_k[n] = G[i_k][n] - sum
-      // y_k'[i_k] b_k'[n] at the pass's columns outside the block (the
-      // decisions staged those), items [F NCH, F NCH + F RQ) in the first
-      // pass y_k over the own rows from G[r][i_k] - sum y_k'[r] b_k'[i_k].
-      // Each value takes its subtractions in slot order, as the slab updates
-      // apply them; kChunk slots at a time in registers.
-      const int nb = F * NCH, items = nb + (pass == 0 ? F * RQ : 0);
-      for (int item = tid; item < items; item += nth) {
-        const bool is_b = item < nb;
-        const int e = is_b ? item : item - nb;
-        const int f = is_b ? (F == 2 && e >= NCH) : (F == 2 && e >= RQ);
-        const int j0 = e - f * (is_b ? NCH : RQ);  // pass column, local row
-        const int n = c0 + j0;                     // b: the column
-        const size_t ob = is_b ? (size_t)f * DK * NCH + j0
-                               : (size_t)f * DK * RQ + j0;
-        T* outr = (is_b ? Br : Ar) + ob;
-        T* outi = (is_b ? Bi : Ai) + ob;
-        const size_t ostride = is_b ? NCH : RQ;
-        if (is_b && (unsigned)(n - i0) < (unsigned)DK) {
-          const int st = (f * DK + n - i0) * LDT;
-          for (int k = 0; k < K; ++k) {
-            outr[k * ostride] = BT[st + k];
-            outi[k * ostride] = BT[TP + st + k];
-          }
-          continue;
+    // the flavors' replays and folds, FS flavors [f0, f0 + FS) per stage
+    for (int f0 = 0; f0 < F; f0 += FS) {
+      // the staged values at the slots' sites: Y2[k'][k] = y_k'[i_k],
+      // B2[k'][k] = b_k'[i_k] (the previous stage's replay read them before
+      // its cluster barriers)
+      for (int fl = 0; fl < FS; ++fl)
+        for (int e = tid; e < K * K; e += nth) {
+          const int kp = e / K, k = e - kp * K;
+          const int o = fl * DD + kp * DK + k;
+          const int st = ((f0 + fl) * DK + ts[k]) * LDT + kp;
+          Y2r[o] = YT[st];
+          Y2i[o] = YT[TP + st];
+          B2r[o] = BT[st];
+          B2i[o] = BT[TP + st];
         }
-        const T* cfr = (is_b ? Y2r : B2r) + f * DD;
-        const T* cfi = (is_b ? Y2i : B2i) + f * DD;
-        const C2* g = is_b ? nullptr : row(f, r0 + j0);
-        for (int cb = 0; cb < K; cb += kChunk) {
-          T vr[kChunk], vi[kChunk];
-#pragma unroll
-          for (int j = 0; j < kChunk; ++j) {
-            const int k = cb + j < K ? cb + j : K - 1;
-            const C2 h = is_b ? row(f, i0 + ts[k])[n] : g[i0 + ts[k]];
-            vr[j] = h.x;
-            vi[j] = h.y;
+      __syncthreads();
+
+      for (int pass = 0; pass < P; ++pass) {
+        const int c0 = pass * NCH;  // the pass's first column
+        // 3. replay the slots: items [0, FS NCH) form b_k[n] = G[i_k][n] -
+        // sum y_k'[i_k] b_k'[n] at the pass's columns outside the block (the
+        // decisions staged those), items [FS NCH, FS NCH + FS RQ) in the
+        // first pass y_k over the own rows from G[r][i_k] - sum y_k'[r]
+        // b_k'[i_k]. Each value takes its subtractions in slot order, as the
+        // slab updates apply them; kChunk slots at a time in registers.
+        const int nb = FS * NCH, items = nb + (pass == 0 ? FS * RQ : 0);
+        for (int item = tid; item < items; item += nth) {
+          const bool is_b = item < nb;
+          const int e = is_b ? item : item - nb;
+          const int fl = is_b ? (FS == 2 && e >= NCH) : (FS == 2 && e >= RQ);
+          const int f = f0 + fl;
+          const int j0 = e - fl * (is_b ? NCH : RQ);  // pass column, local row
+          const int n = c0 + j0;                      // b: the column
+          const size_t ob = is_b ? (size_t)fl * DK * NCH + j0
+                                 : (size_t)fl * DK * RQ + j0;
+          T* outr = (is_b ? Br : Ar) + ob;
+          T* outi = (is_b ? Bi : Ai) + ob;
+          const size_t ostride = is_b ? NCH : RQ;
+          if (is_b && (unsigned)(n - i0) < (unsigned)DK) {
+            const int st = (f * DK + n - i0) * LDT;
+            for (int k = 0; k < K; ++k) {
+              outr[k * ostride] = BT[st + k];
+              outi[k * ostride] = BT[TP + st + k];
+            }
+            continue;
           }
-          // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
-#pragma unroll 4
-          for (int kp = 0; kp < cb; ++kp) {
-            const T fr = outr[kp * ostride], fi = outi[kp * ostride];
-            const T* cr = cfr + kp * DK + cb;
-            const T* ci = cfi + kp * DK + cb;
+          const T* cfr = (is_b ? Y2r : B2r) + fl * DD;
+          const T* cfi = (is_b ? Y2i : B2i) + fl * DD;
+          const C2* g = is_b ? nullptr : row(f, r0 + j0);
+          for (int cb = 0; cb < K; cb += kChunk) {
+            T vr[kChunk], vi[kChunk];
 #pragma unroll
             for (int j = 0; j < kChunk; ++j) {
-              if (is_b)
-                cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
-              else
-                cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
+              const int k = cb + j < K ? cb + j : K - 1;
+              const C2 h = is_b ? row(f, i0 + ts[k])[n] : g[i0 + ts[k]];
+              vr[j] = h.x;
+              vi[j] = h.y;
             }
-          }
+            // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
+#pragma unroll 4
+            for (int kp = 0; kp < cb; ++kp) {
+              const T fr = outr[kp * ostride], fi = outi[kp * ostride];
+              const T* cr = cfr + kp * DK + cb;
+              const T* ci = cfi + kp * DK + cb;
 #pragma unroll
-          for (int jp = 0; jp < kChunk; ++jp) {
-            if (cb + jp < K) {
-              if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
-                const int k = cb + jp;
-                const T xr = Xr[f * DK + k], xi = Xi[f * DK + k];
-                const T igr =
-                    sub_rn(r0 + j0 == i0 + ts[k] ? one : zero, vr[jp]);
-                const T igi = -vi[jp];
-                vr[jp] = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
-                vi[jp] = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
-              }
-              const T* cr = cfr + (cb + jp) * DK + cb;
-              const T* ci = cfi + (cb + jp) * DK + cb;
-#pragma unroll
-              for (int j = jp + 1; j < kChunk; ++j) {
+              for (int j = 0; j < kChunk; ++j) {
                 if (is_b)
-                  cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+                  cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
                 else
-                  cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+                  cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
               }
             }
-          }
 #pragma unroll
-          for (int j = 0; j < kChunk; ++j)
-            if (cb + j < K) {
-              outr[(cb + j) * ostride] = vr[j];
-              outi[(cb + j) * ostride] = vi[j];
+            for (int jp = 0; jp < kChunk; ++jp) {
+              if (cb + jp < K) {
+                if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
+                  const int k = cb + jp;
+                  const T xr = Xr[f * DK + k], xi = Xi[f * DK + k];
+                  const T igr =
+                      sub_rn(r0 + j0 == i0 + ts[k] ? one : zero, vr[jp]);
+                  const T igi = -vi[jp];
+                  vr[jp] = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+                  vi[jp] = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
+                }
+                const T* cr = cfr + (cb + jp) * DK + cb;
+                const T* ci = cfi + (cb + jp) * DK + cb;
+#pragma unroll
+                for (int j = jp + 1; j < kChunk; ++j) {
+                  if (is_b)
+                    cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+                  else
+                    cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+                }
+              }
             }
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (cb + j < K) {
+                outr[(cb + j) * ostride] = vr[j];
+                outi[(cb + j) * ostride] = vi[j];
+              }
+          }
         }
-      }
-      __syncthreads();
-      if (tid == 0) clk.lap(4);
-      cluster.sync();  // every block has read the pass's columns of the rows
-      if (tid == 0) clk.lap(1);
+        __syncthreads();
+        if (tid == 0) clk.lap(4);
+        cluster.sync();  // every block has read the pass's columns of the rows
+        if (tid == 0) clk.lap(1);
 
-      // 4. fold the pass's columns of the own rows: G -= y_k (x) b_k in slot
-      // order, tiles of 4 rows x 2 complex columns (each thread loads its
-      // next tile before folding this one)
-      const int NC = NCH / 2, tiles = (RQ / 4) * NC;
-      for (int f = 0; f < F; ++f) {
-        auto tile = [&](int e) {
-          return reinterpret_cast<T*>(row(f, r0 + 4 * (e / NC)) + c0 +
-                                      2 * (e % NC));
-        };
-        V4<T> next[4];
-        if (tid < tiles)
-          for (int q = 0; q < 4; ++q)
-            next[q] = ld4(tile(tid) + 2 * (size_t)q * N);
-        for (int e = tid; e < tiles; e += nth) {
-          const int rt = e / NC, ct = e - rt * NC;
-          T* g0 = tile(e);
-          // g[q] = (re, im) of G[4rt+q][c0+2ct] and of G[4rt+q][c0+2ct+1]
-          V4<T> g[4];
-          for (int q = 0; q < 4; ++q) g[q] = next[q];
-          if (e + nth < tiles)
+        // 4. fold the pass's columns of the own rows: G -= y_k (x) b_k in
+        // slot order, tiles of 4 rows x 2 complex columns (each thread loads
+        // its next tile before folding this one)
+        const int NC = NCH / 2, tiles = (RQ / 4) * NC;
+        for (int fl = 0; fl < FS; ++fl) {
+          const int f = f0 + fl;
+          auto tile = [&](int e) {
+            return reinterpret_cast<T*>(row(f, r0 + 4 * (e / NC)) + c0 +
+                                        2 * (e % NC));
+          };
+          V4<T> next[4];
+          if (tid < tiles)
             for (int q = 0; q < 4; ++q)
-              next[q] = ld4(tile(e + nth) + 2 * (size_t)q * N);
-          const size_t ao = (size_t)f * DK * RQ + 4 * rt;
-          const size_t bo = (size_t)f * DK * NCH + 2 * ct;
-          for (int p = 0; p < K; ++p) {
-            const V4<T> ar = ld4(Ar + ao + p * RQ);
-            const V4<T> ai = ld4(Ai + ao + p * RQ);
-            const auto br = ld2(Br + bo + (size_t)p * NCH);
-            const auto bi = ld2(Bi + bo + (size_t)p * NCH);
-            const T yr[4] = {ar.x, ar.y, ar.z, ar.w};
-            const T yi[4] = {ai.x, ai.y, ai.z, ai.w};
+              next[q] = ld4(tile(tid) + 2 * (size_t)q * N);
+          for (int e = tid; e < tiles; e += nth) {
+            const int rt = e / NC, ct = e - rt * NC;
+            T* g0 = tile(e);
+            // g[q] = (re, im) of G[4rt+q][c0+2ct] and of G[4rt+q][c0+2ct+1]
+            V4<T> g[4];
+            for (int q = 0; q < 4; ++q) g[q] = next[q];
+            if (e + nth < tiles)
+              for (int q = 0; q < 4; ++q)
+                next[q] = ld4(tile(e + nth) + 2 * (size_t)q * N);
+            const size_t ao = (size_t)fl * DK * RQ + 4 * rt;
+            const size_t bo = (size_t)fl * DK * NCH + 2 * ct;
+            for (int p = 0; p < K; ++p) {
+              const V4<T> ar = ld4(Ar + ao + p * RQ);
+              const V4<T> ai = ld4(Ai + ao + p * RQ);
+              const auto br = ld2(Br + bo + (size_t)p * NCH);
+              const auto bi = ld2(Bi + bo + (size_t)p * NCH);
+              const T yr[4] = {ar.x, ar.y, ar.z, ar.w};
+              const T yi[4] = {ai.x, ai.y, ai.z, ai.w};
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
-              cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+              for (int q = 0; q < 4; ++q) {
+                cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
+                cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+              }
             }
+            for (int q = 0; q < 4; ++q) st4(g0 + 2 * (size_t)q * N, g[q]);
           }
-          for (int q = 0; q < 4; ++q) st4(g0 + 2 * (size_t)q * N, g[q]);
         }
+        if (tid == 0) clk.lap(5);
+        // the next pass or stage rewrites b (and the next stage y, Y2 and
+        // B2), which this pass's fold reads
+        if (pass + 1 < P || f0 + FS < F) __syncthreads();
       }
-      if (tid == 0) clk.lap(5);
-      // the next pass rewrites b, which this pass's fold reads
-      if (pass + 1 < P) __syncthreads();
     }
     cluster.sync();  // the folded rows, before the next diagonal block
     if (tid == 0) clk.lap(1);
@@ -701,9 +729,9 @@ template <class T, int F>
 int launch_slab(const typename Cplx<T>::type* G_in,
                 typename Cplx<T>::type* G_out, const int8_t* sigma_in,
                 int8_t* sigma_out, const T* u, uint8_t* accept,
-                typename Cplx<T>::type* det, T* scratch, int C, int N, int DK,
-                T lamb, T sign0, T sign1, int det_power, int use_boson,
-                cudaStream_t stream) {
+                typename Cplx<T>::type* det, T* scratch, int C, int N, int NS,
+                int DK, T lamb, T sign0, T sign1, int det_power,
+                int use_boson, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * F * DK * N + 2 * F * DK * (N + 1) + 4 * F * N) * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
@@ -712,18 +740,18 @@ int launch_slab(const typename Cplx<T>::type* G_in,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   site_sweep_delayed_cx_slab<T, F><<<C, kThreads, smem, stream>>>(
-      G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, N, DK,
+      G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, N, NS, DK,
       lamb, sign0, sign1, det_power, use_boson);
   return (int)cudaGetLastError();
 }
 
 // The launch configuration of site_sweep_delayed_cx_cluster<T, F, CS> for C
-// chains and P column passes, with its shared memory allowed; returns the
-// cudaError_t of that setting.
+// chains, P column passes and S flavor stages, with its shared memory
+// allowed; returns the cudaError_t of that setting.
 template <class T, int F, int CS>
-int cluster_config(int C, int N, int DK, int P, cudaStream_t stream,
+int cluster_config(int C, int N, int DK, int P, int S, cudaStream_t stream,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t smem = cluster_smem_elems(F, CS, N, DK, P) * sizeof(T);
+  const size_t smem = cluster_smem_elems(F, CS, N, DK, P, S) * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       site_sweep_delayed_cx_cluster<T, F, CS>,
@@ -747,25 +775,25 @@ template <class T, int F, int CS>
 int launch_cluster(const typename Cplx<T>::type* G_in,
                    typename Cplx<T>::type* G_out, const int8_t* sigma_in,
                    int8_t* sigma_out, const T* u, uint8_t* accept,
-                   typename Cplx<T>::type* det, int C, int N, int DK, int P,
-                   T lamb, T sign0, T sign1, int det_power, int use_boson,
-                   cudaStream_t stream) {
+                   typename Cplx<T>::type* det, int C, int N, int NS, int DK,
+                   int P, int S, T lamb, T sign0, T sign1, int det_power,
+                   int use_boson, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int err = cluster_config<T, F, CS>(C, N, DK, P, stream, &cfg, &attr);
+  int err = cluster_config<T, F, CS>(C, N, DK, P, S, stream, &cfg, &attr);
   if (err) return err;
   err = (int)cudaLaunchKernelEx(&cfg, site_sweep_delayed_cx_cluster<T, F, CS>,
                                 G_in, G_out, sigma_in, sigma_out, u, accept,
-                                det, N, DK, P, lamb, sign0, sign1, det_power,
-                                use_boson);
+                                det, N, NS, DK, P, S, lamb, sign0, sign1,
+                                det_power, use_boson);
   return err ? err : (int)cudaGetLastError();
 }
 
 template <class T, int F, int CS>
-int max_clusters(int N, int DK, int P, int* out) {
+int max_clusters(int N, int DK, int P, int S, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int err = cluster_config<T, F, CS>(1, N, DK, P, 0, &cfg, &attr);
+  int err = cluster_config<T, F, CS>(1, N, DK, P, S, 0, &cfg, &attr);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveClusters(
       out, (void*)site_sweep_delayed_cx_cluster<T, F, CS>, &cfg);
@@ -774,19 +802,23 @@ int max_clusters(int N, int DK, int P, int* out) {
 // The layouts that ops/site_sweep_delayed_cx.py::cluster_plan can pick
 #define MC_K9_LAYOUTS(X) X(1, 2) X(1, 4) X(2, 2) X(2, 4)
 
-bool valid_cluster(int N, int DK, int CS, int P) {
+// A cluster layout's shape: whole 4-row tiles per block and per pass, one
+// or F flavor stages
+bool valid_cluster(int F, int N, int CS, int P, int S) {
   return (CS == 2 || CS == 4) && N % (4 * CS) == 0 && P >= 1 &&
-         N % (4 * P) == 0 && DK >= 1 && N % DK == 0;
+         N % (4 * P) == 0 && (S == 1 || S == F);
 }
 
 template <class T>
 int sweep(const void* G_in, void* G_out, const int8_t* sigma_in,
           int8_t* sigma_out, const T* u, uint8_t* accept, void* det,
-          T* scratch, int C, int F, int N, int DK, int CS, int P, T lamb,
-          T sign0, T sign1, int det_power, int use_boson, void* stream) {
+          T* scratch, int C, int F, int N, int NS, int DK, int CS, int P,
+          int S, T lamb, T sign0, T sign1, int det_power, int use_boson,
+          void* stream) {
   using C2 = typename Cplx<T>::type;
   if (C == 0) return 0;
-  if (N < 8 || N % 8 || DK < 1 || N % DK || det_power < 1 || det_power > 2)
+  if (N < 8 || N % 8 || NS < 1 || NS > N || DK < 1 || NS % DK ||
+      det_power < 1 || det_power > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const C2* gi = (const C2*)G_in;
@@ -795,31 +827,32 @@ int sweep(const void* G_in, void* G_out, const int8_t* sigma_in,
   if (CS == 1) {
     if (F == 1)
       return launch_slab<T, 1>(gi, go, sigma_in, sigma_out, u, accept, dt,
-                               scratch, C, N, DK, lamb, sign0, sign1,
+                               scratch, C, N, NS, DK, lamb, sign0, sign1,
                                det_power, use_boson, st);
     if (F == 2)
       return launch_slab<T, 2>(gi, go, sigma_in, sigma_out, u, accept, dt,
-                               scratch, C, N, DK, lamb, sign0, sign1,
+                               scratch, C, N, NS, DK, lamb, sign0, sign1,
                                det_power, use_boson, st);
     return (int)cudaErrorInvalidValue;
   }
-  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+  if (!valid_cluster(F, N, CS, P, S)) return (int)cudaErrorInvalidValue;
 #define MC_K9_LAUNCH(f, cs)                                                  \
   if (F == f && CS == cs)                                                    \
     return launch_cluster<T, f, cs>(gi, go, sigma_in, sigma_out, u, accept,  \
-                                    dt, C, N, DK, P, lamb, sign0, sign1,     \
-                                    det_power, use_boson, st);
+                                    dt, C, N, NS, DK, P, S, lamb, sign0,     \
+                                    sign1, det_power, use_boson, st);
   MC_K9_LAYOUTS(MC_K9_LAUNCH)
 #undef MC_K9_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 template <class T>
-int query(int F, int N, int DK, int CS, int P, int* out) {
+int query(int F, int N, int DK, int CS, int P, int S, int* out) {
   *out = 0;
-  if (!valid_cluster(N, DK, CS, P)) return (int)cudaErrorInvalidValue;
+  if (!valid_cluster(F, N, CS, P, S) || DK < 1)
+    return (int)cudaErrorInvalidValue;
 #define MC_K9_QUERY(f, cs) \
-  if (F == f && CS == cs) return max_clusters<T, f, cs>(N, DK, P, out);
+  if (F == f && CS == cs) return max_clusters<T, f, cs>(N, DK, P, S, out);
   MC_K9_LAYOUTS(MC_K9_QUERY)
 #undef MC_K9_QUERY
   return (int)cudaErrorInvalidValue;
@@ -828,52 +861,55 @@ int query(int F, int N, int DK, int CS, int P, int* out) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). G is complex64
-// (interleaved re, im), accept one byte per site, det complex64 (C, N).
-// 8 | N, DK | N, F in {1, 2}, det_power 1 or 2. CS = 1:
-// site_sweep_delayed_cx_slab, scratch holds 4 * C * F * DK * N floats;
-// CS = 2 or 4 (4 CS | N): site_sweep_delayed_cx_cluster in one column pass,
-// scratch unused.
+// (interleaved re, im) (C, F, N, N) with 8 | N; sigma, u, accept (one byte
+// per site) and det (complex64) hold NS <= N sites per chain (the rest of
+// G: zero pad rows and columns). DK | NS, F in {1, 2}, det_power 1 or 2.
+// CS = 1: site_sweep_delayed_cx_slab, scratch holds 4 * C * F * DK * N
+// floats; CS = 2 or 4 (4 CS | N): site_sweep_delayed_cx_cluster in P column
+// passes (4 P | N) and S flavor stages (1 or F), scratch unused.
 extern "C" int site_sweep_delayed_cx_c64(const void* G_in, void* G_out,
                                          const int8_t* sigma_in,
                                          int8_t* sigma_out, const float* u,
                                          uint8_t* accept, void* det,
                                          float* scratch, int C, int F, int N,
-                                         int DK, int CS, float lamb,
-                                         float sign0, float sign1,
+                                         int NS, int DK, int CS, int P, int S,
+                                         float lamb, float sign0, float sign1,
                                          int det_power, int use_boson,
                                          void* stream) {
   return sweep<float>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
-                      scratch, C, F, N, DK, CS, 1, lamb, sign0, sign1,
+                      scratch, C, F, N, NS, DK, CS, P, S, lamb, sign0, sign1,
                       det_power, use_boson, stream);
 }
 
 // K9-c128: as site_sweep_delayed_cx_c64 with G and det complex128, u and
-// scratch float64, and the cluster layout's P column passes (4 P | N).
+// scratch float64.
 extern "C" int site_sweep_delayed_cx_c128(const void* G_in, void* G_out,
                                           const int8_t* sigma_in,
                                           int8_t* sigma_out, const double* u,
                                           uint8_t* accept, void* det,
                                           double* scratch, int C, int F,
-                                          int N, int DK, int CS, int P,
-                                          double lamb, double sign0,
-                                          double sign1, int det_power,
-                                          int use_boson, void* stream) {
+                                          int N, int NS, int DK, int CS,
+                                          int P, int S, double lamb,
+                                          double sign0, double sign1,
+                                          int det_power, int use_boson,
+                                          void* stream) {
   return sweep<double>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
-                       scratch, C, F, N, DK, CS, P, lamb, sign0, sign1,
+                       scratch, C, F, N, NS, DK, CS, P, S, lamb, sign0, sign1,
                        det_power, use_boson, stream);
 }
 
 // The most clusters of the layout (CS > 1) that the card runs at once, into
 // *out; returns the cudaError_t of the query.
 extern "C" int site_sweep_delayed_cx_c64_max_clusters(int F, int N, int DK,
-                                                      int CS, int* out) {
-  return query<float>(F, N, DK, CS, 1, out);
+                                                      int CS, int P, int S,
+                                                      int* out) {
+  return query<float>(F, N, DK, CS, P, S, out);
 }
 
 extern "C" int site_sweep_delayed_cx_c128_max_clusters(int F, int N, int DK,
-                                                       int CS, int P,
+                                                       int CS, int P, int S,
                                                        int* out) {
-  return query<double>(F, N, DK, CS, P, out);
+  return query<double>(F, N, DK, CS, P, S, out);
 }
 
 // Phase stamps of the last launch's first n_blocks blocks (kPhases cycle

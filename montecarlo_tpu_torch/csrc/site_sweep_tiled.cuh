@@ -54,6 +54,14 @@
 //
 // A wrap (K13) gets the thread tiles of G before the loop and after it,
 // with sigma in and out in shared memory: sweep_chain's Wrap argument.
+//
+// The flavors of a chain may also live in two blocks of a cluster, one
+// flavor each (K8-c128 at F = 2 past NP = 64, site_sweep_cx.cu: G of 512 KB
+// at NP = 128 fits no SM): sweep_chain's Xch argument. The flavors meet
+// only in the decision, det = (r_0 r_1)^det_power, so the owner of G_f[n, n]
+// also writes it into the peer block's shared memory when it publishes row
+// n, the site's barrier is a cluster barrier, and both blocks take the same
+// decision from the same two diagonal entries in the same operations.
 
 #pragma once
 
@@ -476,6 +484,35 @@ struct Decision {
   }
 };
 
+// G_f[n, n] (every plane) of the thread that owns it into dst[0..NV-1]
+template <int NV, int F, int QR, class Gm>
+__device__ __forceinline__ void publish_diag(Tile<NV, F, QR, Gm>& g,
+                                             typename Gm::T* dst, int n,
+                                             int ty, int tx, int f = 0) {
+  constexpr int WR = Gm::WR, WC = Gm::WC;
+  constexpr int SR = Gm::TR * WR, SC = Gm::TC * WC;
+  if ((n % SR) / WR != ty || (n % SC) / WC != tx) return;
+  const int kn = n / SR * WR + n % WR, jn = n / SC * WC + n % WC;
+#pragma unroll
+  for (int k = 0; k < Gm::RT; ++k)
+    if (k == kn) {
+#pragma unroll
+      for (int j = 0; j < Gm::CT; ++j)
+        if (j == jn) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) dst[v] = g.at(f, v, k, j);
+        }
+    }
+}
+
+// Every flavor of the chain in one block (K1, K8, K13): the site's barrier
+// is the block's, and every block writes its chain's results.
+struct Solo {
+  static constexpr bool kPair = false;
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ bool writer() const { return true; }
+};
+
 // No wrap around the site loop (K1, K8). A wrap's before(g, sigma, clk)
 // runs on the tiles of G after the load, with sigma_in in shared memory (no
 // barrier yet after its writes), and after(g, sigma, clk) after the site
@@ -500,8 +537,13 @@ struct NoWrap {
 // accept flags and complex detratios. QR planes of G in registers
 // (planes_in_registers). Thread 0 laps clk: 0 load, 1 decision, 2 update,
 // 3 publish, 4 barrier, 5 store (a wrap: 6 and 7). wrap (K13) runs before
-// or after the loop.
-template <bool CX, int F, int QR, class Gm, class Wrap = NoWrap>
+// or after the loop. xch: Solo, or a flavor pair (kPair: F = 1 here, the
+// block's flavor xch.rank of the two, xch.start() and sync() cluster-wide,
+// the peer's G_f[n, n] at xch.local[(n & 1) * NV ...] after the barrier
+// that follows its publish into xch.remote; only xch.writer() writes
+// sigma_out, accept_out and det_out).
+template <bool CX, int F, int QR, class Gm, class Wrap = NoWrap,
+          class Xch = Solo>
 __device__ __forceinline__ void sweep_chain(
     typename Gm::T* smem, const typename Gm::T* __restrict__ G_in,
     typename Gm::T* __restrict__ G_out, const int8_t* __restrict__ sigma_in,
@@ -510,13 +552,17 @@ __device__ __forceinline__ void sweep_chain(
     uint8_t* __restrict__ accept_out, typename Gm::T* __restrict__ det_out,
     typename Gm::T* __restrict__ neg_out, int N, typename Gm::T lamb,
     typename Gm::T sign0, typename Gm::T sign1, int det_power,
-    int use_boson, phase_clock::Clock& clk, const Wrap& wrap = Wrap{}) {
+    int use_boson, phase_clock::Clock& clk, const Wrap& wrap = Wrap{},
+    const Xch& xch = Xch{}) {
   using T = typename Gm::T;
   constexpr int NV = CX ? 2 : 1;
   constexpr int NP = Gm::NP, NT = Gm::NT, RT = Gm::RT, CT = Gm::CT;
   constexpr int WR = Gm::WR, WC = Gm::WC;
   using St = Stage<T, NV, F, NP>;
   static_assert(QR >= 1 && QR <= F * NV, "layout");
+  static_assert(!Xch::kPair || F == 1, "a flavor pair: one flavor a block");
+  // the flavors of the decision
+  constexpr int FD = Xch::kPair ? 2 : F;
   // flavors whose planes all live in registers
   constexpr int FR = QR / NV;
   const int tid = threadIdx.x, ty = tid / Gm::TC, tx = tid % Gm::TC;
@@ -541,13 +587,17 @@ __device__ __forceinline__ void sweep_chain(
     u_s[a] = u[a];
   }
   wrap.before(g, sig_s, clk);
+  if constexpr (Xch::kPair) {
+    xch.start();  // the peer block runs before its shared memory is written
+    publish_diag(g, xch.remote, 0, ty, tx);
+  }
   publish(g, stage(0), 0, ty, tx);
-  const Decision<CX, F, T> decide(lamb, sign0, sign1, use_boson);
+  const Decision<CX, FD, T> decide(lamb, sign0, sign1, use_boson);
   int acc = 0, nneg = 0;  // thread 0's counts
   // thread 0's negative-detratio magnitudes (neg_out): min, max, sum
   T neg_min = T(INFINITY), neg_max = T(-INFINITY), neg_sum = T(0);
   if (tid == 0) clk.lap(0);
-  __syncthreads();
+  xch.sync();
   if (tid == 0) clk.lap(4);
 
   for (int i = 0; i < N; ++i) {
@@ -570,15 +620,35 @@ __device__ __forceinline__ void sweep_chain(
     };
 #pragma unroll
     for (int f = 0; f < FR; ++f) load_staged(f);
-    // site i from G_f[i, i] in the staged row: the same decision in every
+    // site i from G_f[i, i] in the staged row (a flavor pair: the own
+    // flavor's, and the peer's from xch.local): the same decision in every
     // thread
-    T gii[F][NV], x[F][NV], det[NV];
+    T gii[FD][NV], xd[FD][NV], det[NV], x[F][NV];
+    if constexpr (Xch::kPair) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const T own = sb.row(v, 0)[i], peer = xch.local[(i & 1) * NV + v];
+        gii[0][v] = xch.rank == 0 ? own : peer;
+        gii[1][v] = xch.rank == 0 ? peer : own;
+      }
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) gii[f][v] = sb.row(v, f)[i];
+    }
+    const int8_t s8 = sig_s[i];
+    const bool accept = decide(gii, s8, u_s[i], det_power, xd, det);
+    // x of the block's own flavors
 #pragma unroll
     for (int f = 0; f < F; ++f)
 #pragma unroll
-      for (int v = 0; v < NV; ++v) gii[f][v] = sb.row(v, f)[i];
-    const int8_t s8 = sig_s[i];
-    const bool accept = decide(gii, s8, u_s[i], det_power, x, det);
+      for (int v = 0; v < NV; ++v) {
+        if constexpr (Xch::kPair)
+          x[f][v] = xch.rank == 0 ? xd[0][v] : xd[FD - 1][v];
+        else
+          x[f][v] = xd[f][v];
+      }
     if (tid == 0) {
       sig_o[i] = accept ? (int8_t)(-s8) : s8;
       if constexpr (CX) {
@@ -642,15 +712,19 @@ __device__ __forceinline__ void sweep_chain(
       }
     }
     if (tid == 0) clk.lap(2);
-    if (i + 1 < N) publish(g, stage(i + 1), i + 1, ty, tx);
+    if (i + 1 < N) {
+      publish(g, stage(i + 1), i + 1, ty, tx);
+      if constexpr (Xch::kPair)
+        publish_diag(g, xch.remote + ((i + 1) & 1) * NV, i + 1, ty, tx);
+    }
     if (tid == 0) clk.lap(3);
-    __syncthreads();
+    xch.sync();
     if (tid == 0) clk.lap(4);
   }
   wrap.after(g, sig_o, clk);
 
   store_tile(g, G_out, N, whole, ty, tx);
-  for (int a = tid; a < N; a += NT) {
+  for (int a = tid; a < N && xch.writer(); a += NT) {
     sigma_out[a] = sig_o[a];
     if constexpr (CX) {
       accept_out[a] = acc_s[a];

@@ -292,37 +292,36 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     library QR where the JAX package runs XLA's QR). Real sessions: N <= 128
     K5 for float32 updates with F = 2 at even N, else K1 in the update
     dtype (float32 or float64; K5 takes every shape K1 takes at even N);
-    past N = 128 K6 (float32) or K6-f64 (float64) at 4 | N, in blocks of
-    max(delay, 1) sites with its buffers in shared memory (float64 at
-    N = 256, delay 32: F = 2 in two column passes). Complex64 updates: K8
+    past N = 128 K6 (float32) or K6-f64 (float64) in blocks of max(delay, 1)
+    sites, G padded to a multiple of 8 where 4 does not divide N, with its
+    buffers in shared memory (float64 at N = 256, delay 32: F = 2 in two
+    column passes; delay 64 at F = 2 fits no layout). Complex64 updates: K8
     up to N = 128 (G of one chain over the block's registers, flavor 1 in
-    shared memory at F = 2 past N = 64, so F = 2 stops at N = 119), K9 at
-    8 | N beyond (its buffers in shared memory: not F = 2 at N = 256,
-    delay 32). Complex128 updates: K8-c128 up to N = 128 at F = 1 (the
-    imaginary plane in shared memory past N = 64) and N = 64 at F = 2, K9-
-    c128 at 8 | N beyond (N = 256: F = 1 to delay 32, F = 2 to delay 16).
-    The JAX package runs its XLA site loop where these refuse (ROADMAP
-    Queue 1 item 4)."""
+    shared memory at F = 2 past N = 64), K9 beyond (G padded to a multiple
+    of 8 where 8 does not divide N; F = 2 at N = 256, delay 32 in two column
+    passes). Complex128 updates: K8-c128 up to N = 128 (at F = 2 past
+    N = 64 a cluster of 2 blocks per chain, one flavor each), K9-c128 beyond
+    (F = 2 at N = 256, delay 32: clusters of 4 blocks, two flavor stages and
+    four column passes). Every kernel takes F <= 2. The JAX package runs its
+    XLA site loop where these refuse (ROADMAP Queue 1 item 4)."""
     dk = max(delay, 1)
     if dtype.is_complex or udtype.is_complex:
         if not (_sscx.kernel_supports(N, F, udtype) if N <= MAX_N
                 else _ssdcx.kernel_supports(N, F, dk, udtype)):
             raise _not_ported(
                 f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
-                f"{delay} (complex64: K8 takes N <= 128, K8 with G of one "
-                "chain over the block's registers and flavor 1 in shared "
-                "memory at F = 2 past N = 64, so F = 2 stops at N = 119; "
-                "complex128: K8-c128 takes N <= 128 at F = 1 and N <= 64 at "
-                "F = 2; K9 and K9-c128 8 | N beyond with their buffers in "
-                "shared memory; elsewhere the JAX package runs its XLA site "
-                "loop)", "Queue 1 item 4")
+                f"{delay} (K8 and K8-c128 take N <= {MAX_N}, K9 and K9-c128 "
+                "beyond with their buffers in shared memory, G padded to a "
+                "multiple of 8; all F <= 2; elsewhere the JAX package runs "
+                "its XLA site loop)", "Queue 1 item 4")
         return
     if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
             else _ssd.kernel_supports(N, F, dk, udtype)):
         raise _not_ported(
             f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
-            f"{delay} (K1 takes N <= {MAX_N}, K6 and K6-f64 4 | N beyond in "
-            "float32 and float64, with their buffers in shared memory; both "
+            f"{delay} (K1 takes N <= {MAX_N}, K6 and K6-f64 beyond in "
+            "float32 and float64, with their buffers in shared memory, G "
+            "padded to a multiple of 8 where 4 does not divide N; both "
             "F <= 2)", "Queue 1 item 4")
 
 

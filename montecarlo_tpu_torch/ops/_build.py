@@ -63,15 +63,16 @@ SIGNATURES = {
     "udt_qr_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # A, Z, mx, Q, X, B, N, stream
     "udt_qr_solve_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch, C, F, N, DK,
-    # CS, lamb, sign0, sign1, det_power, use_boson, stream
+    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, scratch, C, F, N (G's
+    # row length), NS (sites), DK, CS, lamb, sign0, sign1, det_power,
+    # use_boson, stream
     "site_sweep_delayed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _F, _F, _I, _I, _P),
+                               _I, _I, _I, _F, _F, _F, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, scratch, C, F, N,
-    # DK, CS, P (column passes), lamb, sign0, sign1, det_power, use_boson,
-    # stream
+    # NS, DK, CS, P (column passes), lamb, sign0, sign1, det_power,
+    # use_boson, stream
     "site_sweep_delayed_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
     # F, N, DK, CS, out (int*): the cluster layout's occupancy
     "site_sweep_delayed_f32_max_clusters": (_I, _I, _I, _I, _P),
     # F, N, DK, CS, P, out (int*)
@@ -86,15 +87,20 @@ SIGNATURES = {
                            _D, _D, _D, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_cx_c64": (_P, _P, _P, _I, _I, _I, _P),
-    # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N, DK,
-    # CS, lamb, sign0, sign1, det_power, use_boson, stream
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N (G's
+    # row length), NS (sites), DK, CS, P (column passes), S (flavor stages),
+    # lamb, sign0, sign1, det_power, use_boson, stream
     "site_sweep_delayed_cx_c64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _F, _F, _F, _I, _I, _P),
-    "site_sweep_delayed_cx_c64_max_clusters": (_I, _I, _I, _I, _P),
-    # ... CS, P (column passes), lamb, ...: complex128
+                                  _I, _I, _I, _I, _I, _F, _F, _F, _I, _I,
+                                  _P),
+    # F, N, DK, CS, P, S, out (int*)
+    "site_sweep_delayed_cx_c64_max_clusters": (_I, _I, _I, _I, _I, _I, _P),
+    # ... complex128
     "site_sweep_delayed_cx_c128": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
-    "site_sweep_delayed_cx_c128_max_clusters": (_I, _I, _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _I, _I, _D, _D, _D, _I,
+                                   _I, _P),
+    "site_sweep_delayed_cx_c128_max_clusters": (_I, _I, _I, _I, _I, _I,
+                                                _P),
     # conf_in, conf_out, u, table, order, offsets, thr, acc, C, N, z,
     # n_classes, stream
     "ising_sweep_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -25,6 +25,10 @@ through torch's complex division, which rounds differently.
 ``site_sweep_cx_c128`` is the same kernel in complex128 (K8-c128): it
 replaces the rank-1 XLA loop the JAX package runs for complex128 updates
 (``montecarlo_tpu/dqmc/core.py::sweep_slice``), which has no TPU kernel.
+At F = 2 past N = 64 (the repulsive model in a flux, 9 x 9 to 11 x 11) one
+chain's G fits no SM, so each chain runs on a cluster of 2 blocks, one
+flavor each, which exchange the diagonal entry of every site
+(``flavor_pair``).
 """
 
 from __future__ import annotations
@@ -35,31 +39,43 @@ from . import _build
 from .site_sweep import MAX_N, PHASES, tiled_smem_bytes
 from .site_sweep import layout as _layout
 
-# complex64 F = 2 stops here: the layout with flavor 1 in shared memory
-# would take N = 128, but the complex sessions' route table keeps the shapes
-# it had
-MAX_N_F2 = 119
 # the real element type of each complex dtype the kernel takes
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
+def flavor_pair(N: int, F: int, dtype=torch.complex64) -> bool:
+    """Whether a chain runs on a cluster of 2 blocks, one flavor each:
+    F = 2 where one block's layout would exceed its shared memory
+    (complex128 past N = 64: three planes of 128 KB)."""
+    return (F == 2 and dtype in _REAL
+            and tiled_smem_bytes(N, 2, True, _REAL[dtype])
+            > _build.SMEM_PER_BLOCK)
+
+
+def smem_bytes(N: int, F: int, dtype=torch.complex64) -> int:
+    """Shared memory of one block (``tiled_smem_bytes``; a flavor pair's
+    blocks hold one flavor each)."""
+    f = 1 if flavor_pair(N, F, dtype) else F
+    return tiled_smem_bytes(N, f, True, _REAL[dtype])
+
+
 def kernel_supports(N: int, F: int, dtype=torch.complex64) -> bool:
-    """Shapes the CUDA kernel takes. complex64: N <= 128 at F = 1,
-    N <= 119 at F = 2 (``MAX_N_F2``), G of one chain over the block's
-    registers (flavor 1 in shared memory at F = 2 past N = 64).
-    complex128: N <= 128 at F = 1 (the imaginary plane in shared memory
-    past N = 64), N <= 64 at F = 2 (all four planes in registers; past 64
-    three planes would take 384 KB of shared memory)."""
-    if dtype not in _REAL:
-        return False
-    top = MAX_N if F == 1 or dtype == torch.complex128 else MAX_N_F2
-    return (1 <= N <= top and F in (1, 2)
-            and tiled_smem_bytes(N, F, True, _REAL[dtype])
-            <= _build.SMEM_PER_BLOCK)
+    """Shapes the CUDA kernel takes: N <= 128, F in {1, 2}, complex64 or
+    complex128. G of one chain over the block's registers; complex64 at
+    F = 2 past N = 64: flavor 1 in shared memory (141,184 bytes at N = 128);
+    complex128 at F = 1 past N = 64: the imaginary plane in shared memory,
+    and at F = 2 past N = 64 a cluster of 2 blocks per chain, one flavor
+    each in the F = 1 layout (``flavor_pair``)."""
+    return (dtype in _REAL and 1 <= N <= MAX_N and F in (1, 2)
+            and smem_bytes(N, F, dtype) <= _build.SMEM_PER_BLOCK)
 
 
 def layout(N: int, F: int, dtype=torch.complex64) -> str:
     """K8's layout at this shape, in words."""
+    if flavor_pair(N, F, dtype):
+        return ("a cluster of 2 blocks per chain, one flavor each, the "
+                "diagonal entry of every site exchanged: "
+                + _layout(N, 1, complex_=True, dtype=_REAL[dtype]))
     return _layout(N, F, complex_=True, dtype=_REAL[dtype])
 
 
@@ -177,10 +193,8 @@ def _check(name, dtype, G, sigma, u, signs, det_power):
     C, F, N, _ = G.shape
     if (not kernel_supports(N, F, dtype) or len(signs) != F
             or det_power not in (1, 2)):
-        f2 = 64 if dtype == torch.complex128 else MAX_N_F2
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F} "
-                         f"(N <= {MAX_N} at F = 1, N <= {f2} at F = 2; "
-                         "det_power 1 or 2)")
+                         f"(N <= {MAX_N}, F in (1, 2); det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):
         raise ValueError(f"{name}: sigma and u must be (C, N)")
     for t in (G, sigma, u):

@@ -32,6 +32,14 @@ returns the negative detratios' log10 magnitudes as those loops record
 them (``site_sweep.neg_push``). Its buffers take twice the bytes, so its
 cluster layout may form the b vectors in ``column_passes`` passes over
 N/P columns each.
+
+The kernel's 4 x 4 register tiles take 4 | N. Where 4 does not divide N
+(13 x 13, 15 x 15, rings of 130 or 150 sites) the wrappers pad G with zero
+rows and columns to ``padded(N)``, a multiple of 8, and the kernel visits
+the N lattice sites only; the pad's entries stay 0 and never enter a real
+one, so the result is the plain version's on the unpadded G. Filling the
+padded copy, copying G into it and slicing the result back move G three
+more times besides the kernel's own traffic.
 """
 
 from __future__ import annotations
@@ -63,7 +71,15 @@ PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
 PASSES = {torch.float32: (1,), torch.float64: (1, 2, 4)}
 
 
+def padded(N: int) -> int:
+    """G's row length on the card: N where 4 | N, else N padded with zero
+    rows and columns to a multiple of 8 (whole 4-row tiles in each block of
+    a cluster of 2)."""
+    return N if N % 4 == 0 else (N + 7) // 8 * 8
+
+
 def _smem(N, F, dk, cs, el, passes):
+    N = padded(N)
     if cs == 1:
         return el * (2 * F * dk * N + F * dk + 2 * F * N)
     rq, nch = N // cs, N // passes
@@ -76,12 +92,13 @@ def _smem(N, F, dk, cs, el, passes):
 def column_passes(N: int, F: int, dk: int, cs: int,
                   dtype=torch.float32):
     """The cluster layout's column passes P at this shape: the fewest of
-    PASSES[dtype] with 4 P | N whose buffers fit one block's shared memory
-    (1 for the slab layout, cs = 1); None where none does."""
+    PASSES[dtype] with 4 P | padded(N) whose buffers fit one block's shared
+    memory (1 for the slab layout, cs = 1); None where none does."""
     if cs == 1:
         return 1
     for p in PASSES[dtype]:
-        if (N % (4 * p) == 0 and _smem(N, F, dk, cs, dtype.itemsize, p)
+        if (padded(N) % (4 * p) == 0
+                and _smem(N, F, dk, cs, dtype.itemsize, p)
                 <= _build.SMEM_PER_BLOCK):
             return p
     return None
@@ -89,7 +106,8 @@ def column_passes(N: int, F: int, dk: int, cs: int,
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
                dtype=torch.float32) -> int:
-    """Shared memory of one block, elements of dtype. cs = 1
+    """Shared memory of one block, elements of dtype, at G's row length
+    on the card (``padded(N)``). cs = 1
     (site_sweep_delayed_slab): the row and column slabs of every flavor and
     the staged a, b vectors of one site. cs > 1 (site_sweep_delayed_cluster,
     in ``column_passes`` passes P, or the most of PASSES[dtype] where none
@@ -113,10 +131,11 @@ def staged_ld(dk: int) -> int:
 def fits(N: int, F: int, dk: int, cs: int, dtype=torch.float32) -> bool:
     """Whether the layout of cs blocks per chain (1: the slab layout) takes
     this shape: its block shared memory within the card's (in some column
-    passes), and for a cluster 4 * cs | N (whole 4-row tiles per block)."""
+    passes), and for a cluster 4 * cs | padded(N) (whole 4-row tiles per
+    block)."""
     if cs == 1:
         return smem_bytes(N, F, dk, 1, dtype) <= _build.SMEM_PER_BLOCK
-    return (N % (4 * cs) == 0
+    return (padded(N) % (4 * cs) == 0
             and column_passes(N, F, dk, cs, dtype) is not None)
 
 
@@ -133,21 +152,24 @@ def layout(N: int, F: int, dk: int, cs: int = None,
            dtype=torch.float32) -> str:
     """The kernel's layout at this shape (or with cs blocks), in words."""
     cs = cs or cluster_plan(N, F, dk, dtype)
+    pad = (f"G padded to {padded(N)} x {padded(N)}, "
+           if padded(N) != N else "")
     if cs == 1:
-        return "slab: one block of 512 threads per chain"
+        return f"{pad}slab: one block of 512 threads per chain"
     p = column_passes(N, F, dk, cs, dtype)
-    return (f"cluster of {cs} blocks of 512 threads per chain, {N // cs} "
-            f"rows each, {p} column pass{'es' if p > 1 else ''}, "
+    return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
+            f"{padded(N) // cs} rows each, {p} column "
+            f"pass{'es' if p > 1 else ''}, "
             f"{smem_bytes(N, F, dk, cs, dtype)} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.float32) -> bool:
-    """Shapes the CUDA kernel takes, float32 or float64: N > 128 with 4 | N
-    (4 x 4 register tiles of the fold: float4 rows, or two double2),
-    F in {1, 2}, dk | N, and the layout's buffers within one block's shared
-    memory (float64 at N = 256, dk = 32: clusters of 2 blocks, F = 2 in two
-    column passes)."""
-    return (dtype in PASSES and N >= MIN_N and N % 4 == 0 and F in (1, 2)
+    """Shapes the CUDA kernel takes, float32 or float64: N > 128 (G
+    padded to a multiple of 8 where 4 does not divide N: the fold's 4 x 4
+    register tiles), F in {1, 2}, dk | N, and the layout's buffers within
+    one block's shared memory (float64 at N = 256, dk = 32: clusters of 2
+    blocks, F = 2 in two column passes)."""
+    return (dtype in PASSES and N >= MIN_N and F in (1, 2)
             and 1 <= dk and N % dk == 0
             and fits(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
 
@@ -161,11 +183,11 @@ def max_clusters(F: int, N: int, dk: int, cs: int,
     lib = _build.load()
     if dtype == torch.float64:
         code = lib.site_sweep_delayed_f64_max_clusters(
-            F, N, dk, cs, column_passes(N, F, dk, cs, dtype),
+            F, padded(N), dk, cs, column_passes(N, F, dk, cs, dtype),
             ctypes.addressof(out))
     else:
         code = lib.site_sweep_delayed_f32_max_clusters(
-            F, N, dk, cs, ctypes.addressof(out))
+            F, padded(N), dk, cs, ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed (occupancy query)", code)
     return out.value
 
@@ -262,7 +284,8 @@ def site_sweep_delayed_f64(G, sigma, u, *, dk, lamb, signs, det_power,
 def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
     """One launch of the CUDA kernel of G's dtype with cs blocks per chain
     (``cluster_plan``'s, or another that fits, to time two layouts against
-    each other), in ``column_passes`` passes; counted in the launches of
+    each other), in ``column_passes`` passes, on G padded to ``padded(N)``
+    where 4 does not divide N; counted in the launches of
     ``site_sweep_delayed`` or ``site_sweep_delayed_f64``. Returns (G, sigma,
     acc, nneg, neg), neg None in float32."""
     f64 = G.dtype == torch.float64
@@ -274,6 +297,11 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
             f"({smem_bytes(N, F, dk, cs, G.dtype)} bytes of shared memory "
             "per block)")
     passes = column_passes(N, F, dk, cs, G.dtype)
+    NP = padded(N)
+    if NP != N:
+        Gp = G.new_zeros(C, F, NP, NP)
+        Gp[:, :, :N, :N] = G
+        G = Gp
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     acc = torch.empty(C, dtype=torch.int32, device=G.device)
@@ -281,7 +309,7 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
     neg = torch.empty(C, 3, dtype=G.dtype, device=G.device) if f64 else None
     # slab layout: the accepted sites' a and b vectors of one block, per
     # chain and flavor
-    scratch = (torch.empty(2, C, F, dk, N, dtype=G.dtype, device=G.device)
+    scratch = (torch.empty(2, C, F, dk, NP, dtype=G.dtype, device=G.device)
                if cs == 1 else None)
     lib = _build.load()
     head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
@@ -298,14 +326,16 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
                 "shared memory each")
         if f64:
             code = lib.site_sweep_delayed_f64(
-                *head, neg.data_ptr(), scr, C, F, N, int(dk), cs, passes,
+                *head, neg.data_ptr(), scr, C, F, NP, N, int(dk), cs, passes,
                 *tail)
         else:
-            code = lib.site_sweep_delayed_f32(*head, scr, C, F, N, int(dk),
-                                              cs, *tail)
+            code = lib.site_sweep_delayed_f32(*head, scr, C, F, NP, N,
+                                              int(dk), cs, *tail)
     wrapper = site_sweep_delayed_f64 if f64 else site_sweep_delayed
     _build.check_launch(wrapper.__name__, code)
     wrapper.launches += 1
+    if NP != N:
+        G_out = G_out[:, :, :N, :N].contiguous()
     return G_out, sigma_out, acc, nneg, neg
 
 
@@ -328,7 +358,7 @@ def _check(G, sigma, u, signs, dk, dtype):
     C, F, N, _ = G.shape
     if not kernel_supports(N, F, dk, dtype) or len(signs) != F:
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
-                         f"(N >= {MIN_N}, 4 | N, F in (1, 2), dk | N, "
+                         f"(N >= {MIN_N}, F in (1, 2), dk | N, "
                          f"{smem_bytes(N, F, dk, 1, dtype)} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout)")

@@ -30,8 +30,17 @@ it replaces the XLA loops the JAX package runs for complex128 updates past
 N = 128 (``montecarlo_tpu/dqmc/core.py::sweep_slice_delayed``, and at
 dk = 1 the rank-1 loop of ``sweep_slice``), which have no TPU kernel. Its
 buffers take twice the bytes, so its cluster layout may form the b vectors
-in ``column_passes`` passes over N/P columns each, as K6-f64's
-(``ops/site_sweep_delayed.py``).
+in column passes over N/P columns each, as K6-f64's
+(``ops/site_sweep_delayed.py``), and at F = 2 replay and fold one flavor
+at a time (flavor stages; ``plan`` picks both): complex128 at F = 2,
+N = 256, dk = 32 (the 16x16 repulsive model in a flux at its default
+delay) fits only so.
+
+The kernel takes 8 | N. Elsewhere (13 x 13, 14 x 14, 15 x 15, rings of 130
+sites) the wrappers pad G with zero rows and columns to ``padded(N)``, which
+the sweep never visits; the result is the plain version's on the unpadded
+G. Filling the padded copy, copying G into it and slicing the result back
+move G three more times besides the kernel's own traffic.
 """
 
 from __future__ import annotations
@@ -57,52 +66,66 @@ PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
                       "decisions", "y and b vectors", "fold")}
 
 
-# the column passes of the cluster layout, in the order column_passes tries
-# them, per dtype of G: complex64 keeps one pass (its layout as measured),
-# complex128 buffers take twice the bytes
-PASSES = {torch.complex64: (1,), torch.complex128: (1, 2, 4)}
+# the column passes of the cluster layout, in the order ``plan`` tries them,
+# per dtype of G: complex64 keeps one pass where it fits (its layout as
+# measured) and takes two at F = 2, N = 256, dk = 32; complex128 buffers
+# take twice the bytes
+PASSES = {torch.complex64: (1, 2), torch.complex128: (1, 2, 4)}
 
 
-def _smem(N, F, dk, cs, el, passes):
+def padded(N: int) -> int:
+    """G's row length on the card: N where 8 | N, else N padded with zero
+    rows and columns to a multiple of 8, which the sweep never visits."""
+    return (N + 7) // 8 * 8
+
+
+def _smem(N, F, dk, cs, el, passes, stages=1):
+    N, fs = padded(N), F // stages
     if cs == 1:
         return el * (2 * F * dk * N + 2 * F * dk * (N + 1) + 4 * F * N)
     rq, nch = N // cs, N // passes
-    return el * (2 * F * dk * nch + 2 * F * dk * rq
-                 + 4 * F * dk * staged_ld(dk) + 4 * F * dk * dk
+    return el * (2 * fs * dk * nch + 2 * fs * dk * rq
+                 + 4 * F * dk * staged_ld(dk) + 4 * fs * dk * dk
                  + 2 * F * dk * (dk + 1) + 4 * F * dk + (F + 2) * N + dk + 4
                  + (N + 3) // 4)
 
 
-def column_passes(N: int, F: int, dk: int, cs: int,
-                  dtype=torch.complex64):
-    """The cluster layout's column passes P at this shape: the fewest of
-    PASSES[dtype] with 4 P | N whose buffers fit one block's shared memory
-    (1 for the slab layout, cs = 1); None where none does."""
+def plan(N: int, F: int, dk: int, cs: int, dtype=torch.complex64):
+    """The cluster layout's (P, S) at this shape: column passes P and flavor
+    stages S (1, or F: the replays and folds one flavor at a time), the
+    first whose buffers fit one block's shared memory with 4 P | padded(N),
+    one stage before F stages and the fewest passes first; (1, 1) for the
+    slab layout (cs = 1); None where none fits."""
     if cs == 1:
-        return 1
+        return 1, 1
     el = dtype.itemsize // 2
-    for p in PASSES[dtype]:
-        if (N % (4 * p) == 0
-                and _smem(N, F, dk, cs, el, p) <= _build.SMEM_PER_BLOCK):
-            return p
+    for stages in sorted({1, F}):
+        for p in PASSES[dtype]:
+            if (padded(N) % (4 * p) == 0
+                    and _smem(N, F, dk, cs, el, p, stages)
+                    <= _build.SMEM_PER_BLOCK):
+                return p, stages
     return None
 
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
                dtype=torch.complex64) -> int:
-    """Shared memory of one block, real planes of dtype's precision. cs = 1
+    """Shared memory of one block, real planes of dtype's precision, at G's
+    row length on the card (``padded(N)``). cs = 1
     (site_sweep_delayed_cx_slab): the row and column slabs of every flavor
     as two planes (column rows padded to N+1) and the staged y and row
     vectors of one site, both planes. cs > 1 (site_sweep_delayed_cx_cluster,
-    in ``column_passes`` passes P, or the most of PASSES[dtype] where none
-    fits): re and im planes of b of every slot over N/P columns, y over the
-    block's N/cs rows, the staged y and b of the block's sites by site (rows
-    padded to staged_ld(dk)), their dk x dk entries at the slots' sites, the
-    diagonal block (rows of dk + 1), its current diagonal and x; u, each
-    site's delta and boson weight, the slots' sites and sigma, as
-    csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts them."""
-    p = column_passes(N, F, dk, cs, dtype) or PASSES[dtype][-1]
-    return _smem(N, F, dk, cs, dtype.itemsize // 2, p)
+    in ``plan``'s P column passes and S flavor stages, or the most passes
+    of PASSES[dtype] in F stages where none fits): re and im planes of b of
+    every slot of a stage's flavors over N/P columns, y over the block's
+    N/cs rows, the staged y and b of the block's sites by site (rows padded
+    to staged_ld(dk)), their dk x dk entries at the slots' sites (a
+    stage's flavors), the diagonal block (rows of dk + 1), its current
+    diagonal and x; u, each site's delta and boson weight, the slots' sites
+    and sigma, as csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts
+    them."""
+    p, stages = plan(N, F, dk, cs, dtype) or (PASSES[dtype][-1], F)
+    return _smem(N, F, dk, cs, dtype.itemsize // 2, p, stages)
 
 
 def staged_ld(dk: int) -> int:
@@ -115,11 +138,12 @@ def staged_ld(dk: int) -> int:
 def fits(N: int, F: int, dk: int, cs: int, dtype=torch.complex64) -> bool:
     """Whether the layout of cs blocks per chain (1: the slab layout) takes
     this shape: its block shared memory within the card's (in some column
-    passes), and for a cluster 4 * cs | N (whole 4-row tiles per block)."""
+    passes and flavor stages), and for a cluster 4 * cs | padded(N) (whole
+    4-row tiles per block)."""
     if cs == 1:
         return smem_bytes(N, F, dk, 1, dtype) <= _build.SMEM_PER_BLOCK
-    return (N % (4 * cs) == 0
-            and column_passes(N, F, dk, cs, dtype) is not None)
+    return (padded(N) % (4 * cs) == 0
+            and plan(N, F, dk, cs, dtype) is not None)
 
 
 def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
@@ -135,21 +159,26 @@ def layout(N: int, F: int, dk: int, cs: int = None,
            dtype=torch.complex64) -> str:
     """The kernel's layout at this shape (or with cs blocks), in words."""
     cs = cs or cluster_plan(N, F, dk, dtype)
+    pad = (f"G padded to {padded(N)} x {padded(N)}, "
+           if padded(N) != N else "")
     if cs == 1:
-        return "slab: one block of 512 threads per chain"
-    p = column_passes(N, F, dk, cs, dtype)
-    return (f"cluster of {cs} blocks of 512 threads per chain, {N // cs} "
-            f"rows each, {p} column pass{'es' if p > 1 else ''}, "
+        return f"{pad}slab: one block of 512 threads per chain"
+    p, stages = plan(N, F, dk, cs, dtype)
+    st = f", {stages} flavor stages" if stages > 1 else ""
+    return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
+            f"{padded(N) // cs} rows each, {p} column "
+            f"pass{'es' if p > 1 else ''}{st}, "
             f"{smem_bytes(N, F, dk, cs, dtype)} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
-    """Shapes the CUDA kernel takes, complex64 or complex128: N > 128 with
-    8 | N, F in {1, 2}, dk | N, and the layout's buffers within one block's
-    shared memory (at N = 256: complex64 F = 1 to dk = 32, F = 2 to
-    dk = 16; complex128 F = 1 to dk = 32 in clusters of 2 blocks and two
-    column passes, F = 2 to dk = 16)."""
-    return (dtype in PASSES and N >= MIN_N and N % 8 == 0 and F in (1, 2)
+    """Shapes the CUDA kernel takes, complex64 or complex128: N > 128 (G
+    padded to a multiple of 8 where 8 does not divide N), F in {1, 2},
+    dk | N, and the layout's buffers within one block's shared memory (at
+    N = 256, dk = 32: complex64 F = 1 in one column pass, F = 2 in two;
+    complex128 F = 1 in clusters of 2 blocks and two column passes, F = 2
+    in clusters of 4 blocks, two flavor stages and four passes)."""
+    return (dtype in PASSES and N >= MIN_N and F in (1, 2)
             and 1 <= dk and N % dk == 0
             and fits(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
 
@@ -160,14 +189,11 @@ def max_clusters(F: int, N: int, dk: int, cs: int,
     """The most clusters of cs blocks the card runs at once (one query per
     shape and process)."""
     out = ctypes.c_int(0)
-    lib = _build.load()
-    if dtype == torch.complex128:
-        code = lib.site_sweep_delayed_cx_c128_max_clusters(
-            F, N, dk, cs, column_passes(N, F, dk, cs, dtype),
-            ctypes.addressof(out))
-    else:
-        code = lib.site_sweep_delayed_cx_c64_max_clusters(
-            F, N, dk, cs, ctypes.addressof(out))
+    fn = (_build.load().site_sweep_delayed_cx_c128_max_clusters
+          if dtype == torch.complex128
+          else _build.load().site_sweep_delayed_cx_c64_max_clusters)
+    code = fn(F, padded(N), dk, cs, *plan(N, F, dk, cs, dtype),
+              ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed_cx (occupancy query)", code)
     return out.value
 
@@ -284,7 +310,8 @@ def _sweep(fn, dtype, G, sigma, u, **kw):
 def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
     """One launch of the CUDA kernel of G's dtype with cs blocks per chain
     (``cluster_plan``'s, or another that fits, to time two layouts against
-    each other), in ``column_passes`` passes; counted in
+    each other), in ``plan``'s column passes and flavor stages, on G padded
+    to ``padded(N)`` where 8 does not divide N; counted in
     ``site_sweep_delayed_cx.launches`` (complex64) or
     ``site_sweep_delayed_cx_c128.launches`` (complex128)."""
     c128 = G.dtype == torch.complex128
@@ -295,20 +322,25 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
             f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
             f"({smem_bytes(N, F, dk, cs, G.dtype)} bytes of shared memory "
             "per block)")
-    passes = column_passes(N, F, dk, cs, G.dtype)
+    passes, stages = plan(N, F, dk, cs, G.dtype)
+    NP = padded(N)
+    if NP != N:
+        Gp = G.new_zeros(C, F, NP, NP)
+        Gp[:, :, :N, :N] = G
+        G = Gp
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     accept = torch.empty(C, N, dtype=torch.bool, device=G.device)
     det = torch.empty(C, N, dtype=G.dtype, device=G.device)
     # slab layout: the accepted sites' y and row vectors of one block, re
     # and im planes
-    scratch = (torch.empty(4, C, F, dk, N, dtype=u.dtype, device=G.device)
+    scratch = (torch.empty(4, C, F, dk, NP, dtype=u.dtype, device=G.device)
                if cs == 1 else None)
     lib = _build.load()
     head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
             det.data_ptr(), 0 if scratch is None else scratch.data_ptr(), C,
-            F, N, int(dk), cs)
+            F, NP, N, int(dk), cs, passes, stages)
     tail = (float(lamb), float(signs[0]), float(signs[-1]), int(det_power),
             int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(G.device):
@@ -318,12 +350,14 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
                 f" blocks with {smem_bytes(N, F, dk, cs, G.dtype)} bytes of "
                 "shared memory each")
         if c128:
-            code = lib.site_sweep_delayed_cx_c128(*head, passes, *tail)
+            code = lib.site_sweep_delayed_cx_c128(*head, *tail)
         else:
             code = lib.site_sweep_delayed_cx_c64(*head, *tail)
     fn = site_sweep_delayed_cx_c128 if c128 else site_sweep_delayed_cx
     _build.check_launch(fn.__name__, code)
     fn.launches += 1
+    if NP != N:
+        G_out = G_out[:, :, :N, :N].contiguous()
     return G_out, sigma_out, accept, det
 
 
@@ -348,7 +382,7 @@ def _check(G, sigma, u, signs, dk, det_power, dtype):
     if (not kernel_supports(N, F, dk, dtype) or len(signs) != F
             or det_power not in (1, 2)):
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
-                         f"(N >= {MIN_N}, 8 | N, F in (1, 2), dk | N, "
+                         f"(N >= {MIN_N}, F in (1, 2), dk | N, "
                          f"{smem_bytes(N, F, dk, 1, dtype)} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout; det_power 1 or 2)")

@@ -216,7 +216,8 @@ def test_site_sweep_cx_plain_is_gauge_rotated_k1():
 def test_site_sweep_cx_kernel_shapes():
     assert sscx.kernel_supports(64, 1) and sscx.kernel_supports(64, 2)
     assert sscx.kernel_supports(128, 1) and sscx.kernel_supports(119, 2)
-    assert not sscx.kernel_supports(128, 2)       # 264 KB of shared memory
+    assert sscx.kernel_supports(128, 2)           # flavor 1 in shared memory
+    assert sscx.smem_bytes(128, 2) == 141184
     assert not sscx.kernel_supports(129, 1) and not sscx.kernel_supports(64, 3)
 
 

@@ -127,11 +127,14 @@ def test_repulsive_session_launches_k5(cuda):
 
 @pytest.mark.parametrize("model,N,dk", [
     ("attractive", 256, 32), ("repulsive", 256, 32), ("attractive", 144, 24),
-    ("attractive", 144, 1), ("repulsive", 136, 8)])
+    ("attractive", 144, 1), ("repulsive", 136, 8),
+    # 4 does not divide N: G padded to a multiple of 8
+    ("attractive", 169, 1), ("repulsive", 130, 1), ("attractive", 225, 15)])
 def test_site_sweep_delayed_kernel_matches_plain(cuda, model, N, dk):
     """Decisions identical; G equal to 1e-5 of its largest entry (the kernel
     rounds every decision, slab and fold operation as the plain version
-    does and folds in the same order, so it is bit-equal in practice)."""
+    does and folds in the same order, so it is bit-equal in practice; the
+    zero pad rows and columns never enter a real entry)."""
     kw = dict(lamb=LAMB, **MODELS[model])
     F = len(kw["signs"])
     G, sigma, u = (torch.from_numpy(x).to(cuda)
@@ -316,7 +319,11 @@ def test_qr_cx_kernel_zero_and_subnormal_columns(cuda):
 @pytest.mark.parametrize("model,N,dk", [
     ("attractive", 256, 1), ("attractive", 256, 8), ("attractive", 256, 32),
     ("attractive", 144, 1), ("attractive", 144, 8), ("attractive", 144, 16),
-    ("repulsive", 144, 8)])
+    ("repulsive", 144, 8),
+    # 8 does not divide N (G padded), and F = 2 at N = 256, dk = 32 (two
+    # column passes)
+    ("attractive", 196, 1), ("repulsive", 132, 1), ("attractive", 225, 1),
+    ("repulsive", 256, 32)])
 def test_site_sweep_delayed_cx_kernel_matches_plain(cuda, model, N, dk):
     """Complex64 K9: sigma, accept and det identical to its plain version's
     and to K8's plain rank-1 sweep on the same inputs (the same Markov
@@ -586,18 +593,18 @@ def test_wrappers_check_inputs(cuda):
         sscx.site_sweep_cx(torch.zeros(2, 1, 16, 16, device=cuda,
                                        dtype=torch.complex128), s, u,
                            lamb=LAMB, **MODELS["attractive"])
-    with pytest.raises(ValueError, match="N=128, F=2"):
-        sscx.site_sweep_cx(torch.zeros(2, 2, 128, 128, **c64),
-                           torch.ones(2, 128, device=cuda, dtype=torch.int8),
-                           torch.zeros(2, 128, device=cuda), lamb=LAMB,
+    with pytest.raises(ValueError, match="N=129, F=2"):
+        sscx.site_sweep_cx(torch.zeros(2, 2, 129, 129, **c64),
+                           torch.ones(2, 129, device=cuda, dtype=torch.int8),
+                           torch.zeros(2, 129, device=cuda), lamb=LAMB,
                            **MODELS["repulsive"])
     with pytest.raises(ValueError, match="N=136"):
         qcx.qr_cx(torch.zeros(2, 136, 136, **c64))
-    with pytest.raises(ValueError, match="N=256, F=2, dk=32"):
+    with pytest.raises(ValueError, match="N=256, F=2, dk=128"):
         ssdcx.site_sweep_delayed_cx(
             torch.zeros(2, 2, 256, 256, **c64),
             torch.ones(2, 256, device=cuda, dtype=torch.int8),
-            torch.zeros(2, 256, device=cuda), dk=32, lamb=LAMB,
+            torch.zeros(2, 256, device=cuda), dk=128, lamb=LAMB,
             **MODELS["repulsive"])
     with pytest.raises(ValueError, match="complex64"):
         qcx.qr_cx(torch.zeros(2, 16, 16, device=cuda))
@@ -636,8 +643,9 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     """What a CUDA session takes and what it still refuses (ROADMAP Queue 1
     item 4): every QR shape has a route (8 does not divide N: the library
     QR beside K1, K1-f64 or K8), float64 past N = 128 runs K6-f64 and
-    complex128 K8-c128 or K9-c128; 4 does not divide N past 128 (K6), F = 2
-    in complex64 at N = 128 and in complex128 past N = 64 are refused."""
+    complex128 K8-c128 or K9-c128, also where 4 does not divide N past 128
+    (G padded), F = 2 in complex64 at N = 128 and in complex128 past
+    N = 64; float64 F = 2 at N = 256 with delay 64 is refused."""
     params = DQMCParameters(beta=1.0)
     model = lambda L, dims=2, cls=tmc.HubbardModelAttractive, **kw: cls(
         dims=dims, L=L, U=4.0, **kw)
@@ -658,9 +666,11 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     for m in (model(130, dims=1),
               model(130, dims=1, cls=tmc.HubbardModelRepulsive)):
         for kw in (f32, dict(device="cuda")):   # 4 does not divide N = 130
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 item 4"):
-                core.make_context(m, params, **kw)
+            ctx, _ = core.make_context(m, params, **kw)
+            assert ctx.use_kernels and ctx.N == 130
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        core.make_context(model(16, cls=tmc.HubbardModelRepulsive), params,
+                          device="cuda", delay=64)
     ctx, _ = core.make_context(model(4), params, device="cuda",
                                use_kernels=False)
     assert ctx.device.type == "cuda" and not ctx.use_kernels
@@ -673,15 +683,16 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
         ctx, _ = core.make_context(m, params, **f32)
         assert ctx.dtype == torch.complex64 and ctx.use_kernels
     rep = dict(cls=tmc.HubbardModelRepulsive)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        core.make_context(cx(128, dims=1, **rep), params, **f32)
-    # complex128 (the default dtype's promotion): K8-c128 to N = 128 at F = 1
-    # and N = 64 at F = 2, K9-c128 beyond, each with the library QR
-    for m in (cx(4), cx(8), cx(8, **rep), cx(128, dims=1), cx(16)):
+    ctx, _ = core.make_context(cx(128, dims=1, **rep), params, **f32)
+    assert ctx.dtype == torch.complex64 and ctx.use_kernels and ctx.F == 2
+    # complex128 (the default dtype's promotion): K8-c128 to N = 128 (F = 2
+    # past N = 64 on a cluster of two blocks), K9-c128 beyond (8 ∤ N: G
+    # padded; the 16x16 repulsive model at delay 32 in two flavor stages),
+    # each with the library QR
+    for m in (cx(4), cx(8), cx(8, **rep), cx(128, dims=1), cx(16),
+              cx(72, dims=1, **rep), cx(10, **rep), cx(14), cx(16, **rep)):
         ctx, _ = core.make_context(m, params, device="cuda")
         assert ctx.dtype == ctx.udtype == torch.complex128 and ctx.use_kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        core.make_context(cx(72, dims=1, **rep), params, device="cuda")
     # complex128 stacks over complex64 updates: K9 and the library QR
     ctx, _ = core.make_context(cx(16), params, device="cuda",
                                update_dtype=torch.float32)
@@ -1009,7 +1020,8 @@ def test_site_sweep_single_tiled_bit_equal(cuda, N):
 @pytest.mark.parametrize("det_power,use_boson", [(1, False), (1, True),
                                                  (2, False), (2, True)])
 @pytest.mark.parametrize("C,F,N", [(256, 1, 64), (256, 1, 128), (3, 2, 119),
-                                   (5, 1, 100), (7, 2, 9)])
+                                   (5, 1, 100), (7, 2, 9), (3, 2, 120),
+                                   (64, 2, 128)])
 def test_site_sweep_cx_tiled_bit_equal(cuda, C, F, N, det_power, use_boson):
     """K8 at its plan's layout: G, sigma, the accept flags and the complex
     detratios equal to the plain version's (tolerance 0.0)."""
@@ -1130,7 +1142,10 @@ def _f64_inputs(cuda, seed, C, F, N, spread=0.0):
 
 @pytest.mark.parametrize("model,C,N,dk,spread", [
     ("attractive", 64, 256, 32, 0.0), ("repulsive", 32, 256, 32, 0.8),
-    ("attractive", 64, 144, 1, 0.0), ("repulsive", 16, 144, 1, 0.8)])
+    ("attractive", 64, 144, 1, 0.0), ("repulsive", 16, 144, 1, 0.8),
+    # 4 does not divide N: G padded to a multiple of 8
+    ("attractive", 64, 169, 1, 0.0), ("repulsive", 16, 225, 1, 0.8),
+    ("repulsive", 8, 289, 17, 0.8)])
 def test_site_sweep_delayed_f64_kernel_matches_plain(cuda, model, C, N, dk,
                                                      spread):
     """K6-f64 at its parity shapes (the 16x16 F = 2 in two column passes):
@@ -1159,10 +1174,14 @@ def test_site_sweep_delayed_f64_kernel_matches_plain(cuda, model, C, N, dk,
 @pytest.mark.parametrize("model,C,N", [("attractive", 256, 64),
                                        ("repulsive", 256, 64),
                                        ("attractive", 256, 128),
-                                       ("attractive", 16, 20)])
+                                       ("attractive", 16, 20),
+                                       ("repulsive", 256, 100),
+                                       ("repulsive", 64, 128),
+                                       ("repulsive", 16, 65)])
 def test_site_sweep_cx_c128_kernel_matches_plain(cuda, model, C, N):
     """K8-c128 at its parity shapes and its largest N (F = 1 at N = 128:
-    the imaginary plane in shared memory): sigma, accept and det identical
+    the imaginary plane in shared memory; F = 2 past N = 64: a cluster of
+    two blocks per chain, one flavor each): sigma, accept and det identical
     to its plain version's, G within 1e-10 (bit-equal in practice)."""
     kw = dict(lamb=LAMB, **MODELS[model])
     F = len(kw["signs"])
@@ -1184,12 +1203,17 @@ def test_site_sweep_cx_c128_kernel_matches_plain(cuda, model, C, N):
 
 @pytest.mark.parametrize("model,C,N,dk", [("attractive", 64, 256, 32),
                                           ("attractive", 8, 144, 1),
-                                          ("repulsive", 8, 256, 16)])
+                                          ("repulsive", 8, 256, 16),
+                                          ("attractive", 64, 196, 1),
+                                          ("repulsive", 8, 169, 1),
+                                          ("repulsive", 64, 256, 32)])
 def test_site_sweep_delayed_cx_c128_kernel_matches_plain(cuda, model, C, N,
                                                          dk):
-    """K9-c128 (complex16: clusters of 2 blocks in two column passes):
-    sigma, accept and det identical to its plain version's, G within
-    1e-10 (bit-equal in practice)."""
+    """K9-c128 (complex16: clusters of 2 blocks in two column passes; 8
+    does not divide N: G padded; the 16x16 repulsive model at dk = 32:
+    clusters of 4 blocks in two flavor stages and four passes): sigma,
+    accept and det identical to its plain version's, G within 1e-10
+    (bit-equal in practice)."""
     kw = dict(lamb=LAMB, **MODELS[model])
     F = len(kw["signs"])
     G, sigma, u = cx_sweep_inputs(N + dk, C, F, N)
@@ -1220,11 +1244,11 @@ def test_fp64_wrappers_check_inputs(cuda):
         ssd.site_sweep_delayed_f64(torch.zeros(2, 1, 256, 256, **f64), s,
                                    torch.zeros(2, 256, **f64), dk=24, **kw)
     c128 = dict(device=cuda, dtype=torch.complex128)
-    with pytest.raises(ValueError, match="N=72, F=2"):
+    with pytest.raises(ValueError, match="N=129, F=2"):
         sscx.site_sweep_cx_c128(
-            torch.zeros(2, 2, 72, 72, **c128),
-            torch.ones(2, 72, device=cuda, dtype=torch.int8),
-            torch.zeros(2, 72, **f64), lamb=LAMB, **MODELS["repulsive"])
+            torch.zeros(2, 2, 129, 129, **c128),
+            torch.ones(2, 129, device=cuda, dtype=torch.int8),
+            torch.zeros(2, 129, **f64), lamb=LAMB, **MODELS["repulsive"])
     with pytest.raises(ValueError, match="complex128"):
         ssdcx.site_sweep_delayed_cx_c128(
             torch.zeros(2, 1, 256, 256, device=cuda, dtype=torch.complex64),

@@ -238,24 +238,22 @@ def test_make_context_rejects_unported_options(kw, exc, match):
     (100, 1, torch.complex64, None), (128, 1, torch.complex64, None),
     (256, 1, torch.complex64, None), (12, 1, torch.complex64, None),
     (64, 1, torch.complex128, None), (16, 2, torch.complex128, None),
-    (112, 2, torch.complex64, None), (120, 2, torch.complex64, "item 4"),
-    (128, 2, torch.complex64, "item 4")])
+    (112, 2, torch.complex64, None), (120, 2, torch.complex64, None),
+    (128, 2, torch.complex64, None), (64, 3, torch.complex64, "item 4")])
 def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
     """A complex CUDA session runs K8 at N <= 128 in complex64 (F = 2 to
-    N = 119: flavor 1 in shared memory past N = 64), with K10 at 8 | N and
+    N = 128: flavor 1 in shared memory past N = 64), with K10 at 8 | N and
     the library QR at 8 ∤ N (N = 100, 12), and K9 beyond (here rank-1
-    blocks); complex128 updates run K8-c128 (N <= 128 at F = 1, N <= 64 at
-    F = 2). The complex64 refusal states K8's register layout and its
-    F = 2 limit."""
+    blocks); complex128 updates run K8-c128. The refusal left (F = 3)
+    states the complex kernels' limits."""
     if item is None:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}") as e:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
-    if dtype == torch.complex64:
-        assert ("K8 with G of one chain over the block's registers and "
-                "flavor 1 in shared memory at F = 2 past N = 64, so F = 2 "
-                "stops at N = 119") in str(e.value), str(e.value)
+    assert ("K8 and K8-c128 take N <= 128, K9 and K9-c128 beyond with their "
+            "buffers in shared memory, G padded to a multiple of 8; all "
+            "F <= 2") in str(e.value), str(e.value)
 
 
 def test_cuda_session_without_cuda_raises():

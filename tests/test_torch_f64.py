@@ -257,7 +257,7 @@ F32, F64 = torch.float32, torch.float64
     (64, 1, F32, F64, None),      # float64 updates over float32 stacks
     (100, 1, F32, F32, None),     # 8 does not divide N: the library QR
     (9, 2, F32, F32, None),
-    (130, 1, F32, F32, "item 4"),     # 4 does not divide N past 128: no K6
+    (130, 1, F32, F32, None),     # 4 does not divide N: K6 on padded G
     (64, 3, F64, F64, "item 4")])     # no site sweep for F = 3
 def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
     """Every QR shape has a route (a kernel, or the library QR where the
@@ -275,11 +275,9 @@ def test_check_cuda_kernels_real_routes(N, F, dtype, udtype, item):
 
 # the site-sweep limits each refusal states, by (N, F, stack dtype)
 _REFUSAL_TEXT = {
-    (130, 1, F32): "K1 takes N <= 128, K6 and K6-f64 4 | N beyond in "
-                   "float32 and float64",
-    (256, 1, F64): "K1 takes N <= 128, K6 and K6-f64 4 | N beyond in "
-                   "float32 and float64",
-    (64, 3, F64): "both F <= 2"}
+    (64, 3, F64): "K1 takes N <= 128, K6 and K6-f64 beyond in float32 and "
+                  "float64, with their buffers in shared memory, G padded "
+                  "to a multiple of 8 where 4 does not divide N; both F <= 2"}
 
 
 C64, C128 = torch.complex64, torch.complex128

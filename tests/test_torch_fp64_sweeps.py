@@ -47,7 +47,12 @@ C64, C128 = torch.complex64, torch.complex128
     (16, 2, 0, C128, C128),
     (256, 1, 32, C128, C128),    # complex16: K9-c128, two column passes
     (144, 1, 0, C128, C128),
-    (256, 2, 16, C128, C128)])
+    (256, 2, 16, C128, C128),
+    (130, 1, 0, F64, F64),       # 4 does not divide N: K6-f64 on padded G
+    (128, 2, 0, C128, C128),     # K8-c128 on a cluster of 2 blocks
+    (72, 2, 0, C128, C128),
+    (256, 2, 32, C128, C128),    # K9-c128 in two flavor stages
+    (132, 1, 0, C128, C128)])    # 8 does not divide N: K9-c128 on padded G
 def test_check_cuda_kernels_fp64_routes(N, F, delay, dtype, udtype):
     """A CUDA session in float64 past N = 128 and in complex128 runs a hand
     site sweep (K6-f64, K8-c128, K9-c128): no refusal."""
@@ -55,18 +60,16 @@ def test_check_cuda_kernels_fp64_routes(N, F, delay, dtype, udtype):
 
 
 @pytest.mark.parametrize("N,F,delay,dtype,text", [
-    (130, 1, 0, F64, "K6 and K6-f64 4 | N beyond in float32 and float64"),
     (256, 3, 32, F64, "both F <= 2"),
     (256, 2, 64, F64, "with their buffers in shared memory"),
-    (128, 2, 0, C128, "K8-c128 takes N <= 128 at F = 1 and N <= 64 at F = 2"),
-    (72, 2, 0, C128, "K8-c128 takes N <= 128 at F = 1 and N <= 64 at F = 2"),
-    (256, 2, 32, C128, "K9 and K9-c128 8 | N beyond with their buffers in "
-                       "shared memory"),
-    (132, 1, 0, C128, "K9 and K9-c128 8 | N beyond"),
-    (64, 3, 0, C128, "K8-c128 takes N <= 128 at F = 1")])
+    (64, 3, 0, C128, "K8 and K8-c128 take N <= 128"),
+    (256, 3, 32, C128, "all F <= 2"),
+    (256, 2, 128, C128, "K9 and K9-c128 beyond with their buffers in "
+                        "shared memory")])
 def test_check_cuda_kernels_fp64_refusals(N, F, delay, dtype, text):
-    """Each refusal left names ROADMAP Queue 1 item 4 and states the limits
-    of the kernels that refuse."""
+    """Each refusal left (F = 3, which no model of the JAX package has;
+    buffers that no layout fits at a delay above the default) names ROADMAP
+    Queue 1 item 4 and states the limits of the kernels that refuse."""
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 item 4") as e:
         tcore._check_cuda_kernels(N, F, delay, dtype, dtype)
@@ -111,11 +114,14 @@ def test_k6_f64_layouts(N, F, dk, dtype, cs, passes):
 
 
 def test_k6_f64_refused_shapes():
-    """float64 K6-f64 takes 4 | N past 128 only, F <= 2, and not the
-    buffers of dk = 64 at F = 2 (neither layout fits)."""
+    """float64 K6-f64 takes N past 128 (G padded to a multiple of 8 where 4
+    does not divide N), F <= 2, and not the buffers of dk = 64 at F = 2
+    (neither layout fits)."""
     assert ssd.kernel_supports(132, 1, 1, F64)          # slab layout
     assert ssd.cluster_plan(132, 1, 1, F64) == 1
-    assert not ssd.kernel_supports(130, 1, 1, F64)
+    assert ssd.kernel_supports(130, 1, 1, F64)          # padded to 136
+    assert ssd.cluster_plan(130, 1, 1, F64) == 2
+    assert not ssd.kernel_supports(130, 1, 4, F64)      # dk | N
     assert not ssd.kernel_supports(128, 1, 32, F64)     # K1-f64's range
     assert not ssd.kernel_supports(256, 3, 32, F64)
     assert not ssd.kernel_supports(256, 2, 64, F64)
@@ -126,27 +132,81 @@ def test_k6_f64_refused_shapes():
 @pytest.mark.parametrize("N,F,dk,cs,passes,ok", [
     (256, 1, 32, 2, 2, True), (256, 2, 16, 2, 2, True),
     (256, 2, 8, 2, 1, True), (144, 2, 24, 2, 2, True),
-    (144, 1, 1, 2, 1, True), (256, 2, 32, 1, 1, False)])
+    (144, 1, 1, 2, 1, True), (256, 2, 32, 4, 4, True),
+    (256, 2, 64, 1, 1, False)])
 def test_k9_c128_layouts(N, F, dk, cs, passes, ok):
     """K9-c128's plan at complex128 byte counts: two float64 planes of every
     buffer; complex16 (F = 1, dk = 32) in clusters of 2 blocks and two
-    column passes (225,568 bytes); F = 2 at dk = 32 fits no layout."""
+    column passes (225,568 bytes); F = 2 at dk = 32 in clusters of 4
+    blocks, two flavor stages and four passes (216,864 bytes); F = 2 at
+    dk = 64 fits no layout."""
     assert ssdcx.kernel_supports(N, F, dk, C128) == ok
     assert ssdcx.cluster_plan(N, F, dk, C128) == cs
     if not ok:
         assert ssdcx.smem_bytes(N, F, dk, 1, C128) > _build.SMEM_PER_BLOCK
         return
-    assert ssdcx.column_passes(N, F, dk, cs, C128) == passes
-    ld = (dk + 3) // 4 * 4 + 4
-    want = 8 * (2 * F * dk * (N // passes) + 2 * F * dk * (N // cs)
-                + 4 * F * dk * ld + 4 * F * dk * dk + 2 * F * dk * (dk + 1)
+    stages = 2 if (F, dk) == (2, 32) else 1
+    assert ssdcx.plan(N, F, dk, cs, C128) == (passes, stages)
+    fs, ld = F // stages, (dk + 3) // 4 * 4 + 4
+    want = 8 * (2 * fs * dk * (N // passes) + 2 * fs * dk * (N // cs)
+                + 4 * F * dk * ld + 4 * fs * dk * dk + 2 * F * dk * (dk + 1)
                 + 4 * F * dk + (F + 2) * N + dk + 4 + (N + 3) // 4)
     assert ssdcx.smem_bytes(N, F, dk, cs, C128) == want
     assert want <= _build.SMEM_PER_BLOCK
-    # complex64 keeps one pass at every shape it took
+    # complex64 keeps one pass at every shape it took before, and runs
+    # F = 2 at dk = 32 in two
     if ssdcx.kernel_supports(N, F, dk, C64):
-        assert ssdcx.column_passes(N, F, dk, ssdcx.cluster_plan(N, F, dk),
-                                   C64) == 1
+        cs64 = ssdcx.cluster_plan(N, F, dk)
+        assert ssdcx.plan(N, F, dk, cs64, C64) == (
+            (2, 1) if (N, F, dk) == (256, 2, 32) else (1, 1))
+
+
+@pytest.mark.parametrize("N,F,dk,dtype,NP", [
+    (169, 1, 1, F64, 176), (225, 2, 1, F64, 232), (130, 2, 1, F32, 136),
+    (289, 2, 17, F64, 296), (250, 1, 1, F64, 256), (225, 1, 15, F32, 232)])
+def test_k6_padded_layouts(N, F, dk, dtype, NP):
+    """K6 and K6-f64 where 4 does not divide N: G padded with zero rows and
+    columns to NP, a multiple of 8, in clusters of 2 blocks of NP / 2 rows
+    and one column pass; the shared memory counted at NP."""
+    assert ssd.padded(N) == NP and ssd.padded(NP) == NP
+    assert ssd.kernel_supports(N, F, dk, dtype)
+    assert ssd.cluster_plan(N, F, dk, dtype) == 2
+    assert ssd.column_passes(N, F, dk, 2, dtype) == 1
+    assert ssd.smem_bytes(N, F, dk, 2, dtype) == _k6_cluster_bytes(
+        NP, F, dk, 2, 1, dtype.itemsize) <= _build.SMEM_PER_BLOCK
+    assert ssd.layout(N, F, dk, dtype=dtype).startswith(
+        f"G padded to {NP} x {NP}, cluster of 2 blocks")
+
+
+@pytest.mark.parametrize("N,F,dk,dtype,NP,cs,passes,stages", [
+    (196, 1, 1, C128, 200, 2, 1, 1), (169, 2, 1, C128, 176, 2, 1, 1),
+    (132, 1, 1, C64, 136, 2, 1, 1), (225, 2, 1, C64, 232, 2, 1, 1),
+    (256, 2, 32, C64, 256, 2, 2, 1), (256, 2, 32, C128, 256, 4, 4, 2)])
+def test_k9_new_layouts(N, F, dk, dtype, NP, cs, passes, stages):
+    """K9 and K9-c128 where 8 does not divide N (G padded to NP) and the
+    16x16 repulsive model in a flux at delay 32: complex64 in two column
+    passes (223,120 bytes), complex128 in clusters of 4 blocks, four passes
+    and two flavor stages (216,864 bytes); each count by hand, with the
+    fold's buffers of one stage's flavors."""
+    el, fs, ld = dtype.itemsize // 2, F // stages, (dk + 3) // 4 * 4 + 4
+    assert ssdcx.padded(N) == NP and ssdcx.kernel_supports(N, F, dk, dtype)
+    assert ssdcx.cluster_plan(N, F, dk, dtype) == cs
+    assert ssdcx.plan(N, F, dk, cs, dtype) == (passes, stages)
+    want = el * (2 * fs * dk * (NP // passes) + 2 * fs * dk * (NP // cs)
+                 + 4 * F * dk * ld + 4 * fs * dk * dk
+                 + 2 * F * dk * (dk + 1) + 4 * F * dk + (F + 2) * NP + dk
+                 + 4 + (NP + 3) // 4)
+    assert ssdcx.smem_bytes(N, F, dk, cs, dtype) == want
+    assert want <= _build.SMEM_PER_BLOCK
+    # one stage of both flavors, or fewer passes, would not fit
+    if stages > 1:
+        assert ssdcx._smem(N, F, dk, cs, el, passes, 1) > \
+            _build.SMEM_PER_BLOCK
+    if passes > 1:
+        assert ssdcx._smem(N, F, dk, cs, el, passes // 2, stages) > \
+            _build.SMEM_PER_BLOCK
+    assert (f"G padded to {NP} x {NP}" in ssdcx.layout(N, F, dk, dtype=dtype)
+            ) == (NP != N)
 
 
 @pytest.mark.parametrize("N,F,ok,smem,where", [
@@ -157,15 +217,25 @@ def test_k9_c128_layouts(N, F, dk, cs, passes, ok):
     (100, 1, True, 8 * (4 * 2 * 128 + 128 + 256 + 128 * 128) + 3 * 128,
      "the imaginary plane in shared memory"),
     (16, 2, True, 8 * (4 * 4 * 32 + 32 + 64) + 3 * 32, "G in registers"),
-    (72, 2, False, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
+    (72, 2, True, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
+     "a cluster of 2 blocks per chain, one flavor each"),
+    (128, 2, True, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
+     "the imaginary plane in shared memory"),
+    (129, 2, False, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
      None)])
 def test_k8_c128_layouts(N, F, ok, smem, where):
     """K8-c128 on the tiled layout (csrc/site_sweep_tiled.cuh) with double
     planes: at N <= 64 every plane in registers (F = 2: 128 registers a
     thread, as K1-f64 at N = 128); at F = 1 past 64 the imaginary plane in
-    shared memory; F = 2 past 64 would need three planes there."""
+    shared memory; F = 2 past 64 would need three planes there (smem, one
+    block's count), so each chain runs on a cluster of two blocks, one
+    flavor each in the F = 1 layout (142,720 bytes a block)."""
     assert sscx.kernel_supports(N, F, C128) == ok
     assert ss.tiled_smem_bytes(N, F, True, F64) == smem
+    pair = sscx.flavor_pair(N, F, C128)
+    assert pair == (F == 2 and N > 64)
+    assert sscx.smem_bytes(N, F, C128) == (
+        ss.tiled_smem_bytes(N, 1, True, F64) if pair else smem)
     if ok:
         assert where in sscx.layout(N, F, C128)
     # complex64 and float64 keep their layouts: flavor 1 in shared memory

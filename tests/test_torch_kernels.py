@@ -397,7 +397,7 @@ def test_site_sweep_delayed_kernel_shapes():
 # layout
 CLUSTER_PLANS = {
     # (N, dk):  K6 F=1, K6 F=2, K9 F=1, K9 F=2
-    (256, 32): (2, 2, 2, None),
+    (256, 32): (2, 2, 2, 2),
     (256, 16): (2, 2, 2, 2),
     (256, 8): (2, 2, 2, 2),
     (256, 1): (2, 2, 2, 2),
@@ -416,7 +416,7 @@ CLUSTER_PLANS = {
 def test_cluster_plan_layouts(kernel, F, N, dk):
     """K6's and K9's layout at each shape, and its block's shared memory
     within the card's: a cluster of two blocks per chain, each folding N/2
-    rows; complex64 F = 2 at N = 256 past dk = 16 fits no layout."""
+    rows (complex64 F = 2 at N = 256, dk = 32 in two column passes)."""
     mod = ssd if kernel == "K6" else ssdcx
     want = CLUSTER_PLANS[N, dk][2 * (kernel == "K9") + F - 1]
     assert mod.kernel_supports(N, F, dk) == (want is not None)

@@ -125,9 +125,12 @@ def test_site_sweep_delayed_cx_kernel_shapes():
     assert ssdcx.kernel_supports(144, 1, 1)
     assert ssdcx.kernel_supports(144, 2, 8)
     assert ssdcx.kernel_supports(256, 2, 16)
-    assert not ssdcx.kernel_supports(256, 2, 32)    # 271 KB of shared memory
+    assert ssdcx.kernel_supports(256, 2, 32)        # two column passes
+    assert ssdcx.plan(256, 2, 32, 2) == (2, 1)     # passes, flavor stages
+    assert not ssdcx.kernel_supports(256, 2, 128)   # no layout fits
     assert not ssdcx.kernel_supports(128, 1, 1)     # K8's range
-    assert not ssdcx.kernel_supports(260, 1, 4)     # 8 does not divide N
+    assert ssdcx.kernel_supports(260, 1, 4)         # 8 ∤ N: G padded to 264
+    assert ssdcx.padded(260) == 264
     assert not ssdcx.kernel_supports(256, 1, 24)    # dk does not divide N
     with pytest.raises(ValueError, match="dk=24"):
         ssdcx.site_sweep_delayed_cx_plain(
@@ -229,48 +232,6 @@ def test_complex_qr_route(monkeypatch, N, dtype, kernel):
     assert bool(calls) == kernel
     ref = (qcx.qr_cx if kernel else linalg._library_qr)(A.to(dtype))
     assert torch.equal(Q, ref[0]) and torch.equal(R, ref[1])
-
-
-@pytest.fixture(scope="module")
-def jax_pair_cx_n144():
-    """One complex128 sweep pair of the JAX package's XLA path at 12x12
-    (N = 144) on a flux pattern, beta = 1, safe_mult = 5 (two
-    stabilization windows), 2 chains, delay 16: the initial state, the
-    uniforms and the result."""
-    (jctx, jconsts), _ = _contexts(flux_theta(144), 1.0, 5, delay=16, L=12)
-    assert jctx.delay == 16
-    _, s0 = _jax_init(jctx, jconsts, 2, 140)
-    u = _jax_uniforms(s0["key"], 2 * jctx.M, jctx.N, jnp.float64)
-    s1, Gm, _ = jcore.jitted_vmapped("sweep_pair", jctx, jconsts)(s0)
-    return _np(s0), u, _np(s1), np.asarray(Gm)
-
-
-@pytest.mark.parametrize("use_kernels", [True, False])
-def test_sweep_pair_complex_n144_matches_jax(jax_pair_cx_n144, use_kernels):
-    """The whole complex N > 128 route in complex128 at delay 16: the kernel
-    path (K9 in blocks of 16 through its plain version, the library QR past
-    N = 128 as in the JAX package) and the plain path (the complex
-    sweep_slice_delayed) against the JAX package's XLA path. Every decision
-    identical; G, G_meas, the running phase and the log-magnitude
-    statistics within 1e-9."""
-    s0, u, sj, Gmj = jax_pair_cx_n144
-    _, (tctx, tconsts) = _contexts(flux_theta(144), 1.0, 5, delay=16, L=12,
-                                   use_kernels=use_kernels)
-    assert tctx.N == 144 and tctx.dtype == torch.complex128
-    st, Gmt, _ = tcore.sweep_pair(tctx, tconsts, interop.state_from_numpy(s0),
-                                  u=torch.from_numpy(u))
-    st = interop.state_to_numpy(st)
-    for k in ("conf", "acc", "neg_prob", "prop", "ls_imag_count"):
-        np.testing.assert_array_equal(st[k], sj[k], err_msg=k)
-    assert 0 < st["acc"].sum() < 2 * tctx.M * tctx.N * 2
-    assert st["ls_imag_count"].sum() > 0
-    assert _rel(st["G"], sj["G"]) <= 1e-9
-    assert _rel(Gmt.numpy(), Gmj) <= 1e-9
-    for k in ("ls_phase", "phase_meas"):
-        assert np.max(np.abs(st[k] - sj[k])) <= 1e-9, k
-    for k in tcore.NEG_KEYS + tcore.CX_COUNTER_KEYS[1:]:
-        np.testing.assert_allclose(st[k], sj[k], rtol=1e-9, atol=1e-9,
-                                   err_msg=k)
 
 
 # ---------------------------------------------------------------------------

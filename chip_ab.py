@@ -26,6 +26,12 @@ largest difference). Needs CUDA.
                        configurations' Green's functions, dk = 32), made by
                        this checkout's chip_smoke.py from each checkout's
                        port
+  site_sweep_delayed_f64 (64, 1, 225, 225)      K6-f64 at dk = 1 and
+  site_sweep_delayed_cx_c128 (64, 1, 196, 196)  K9-c128 at dk = 1 and at
+  site_sweep_delayed_cx_c128 (64, 2, 256, 256)  F = 2, dk = 32 on the
+                       l15_f64, flux14_c128 and rep_flux16_c128 runs'
+                       inputs (chip_smoke.py's fp64_run_inputs), in the
+                       layout each checkout's plan picks
   site_sweep (256, 1, 64, 64)       K1 on the headline's inputs, K8 on the
   site_sweep_cx (256, 1, 64, 64)    complex configuration's and on
   site_sweep_cx (256, 1, 128, 128)  chain128's, made the same way
@@ -135,6 +141,21 @@ def _delayed(complex_):
     return make
 
 
+def _fp64_run(run):
+    """K6-f64 or K9-c128 on phase 3's inputs of an item 4 run
+    (chip_smoke.py's fp64_run_inputs), through the wrapper: the layout the
+    checkout's plan picks."""
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+        from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+        G, sigma, u, kw = _smoke().fp64_run_inputs(run)
+        fn = (ssd.site_sweep_delayed_f64 if G.dtype == torch.float64
+              else ssdcx.site_sweep_delayed_cx_c128)
+        return lambda: fn(G, sigma, u, **kw)
+    return make
+
+
 def _udt(B, solve):
     def make():
         import torch
@@ -191,6 +212,11 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "qr_blocked (64, 256, 256)": _qr(64, 256, False),
          "site_sweep_delayed (64, 1, 256, 256)": _delayed(False),
          "site_sweep_delayed_cx (64, 1, 256, 256)": _delayed(True),
+         "site_sweep_delayed_f64 (64, 1, 225, 225)": _fp64_run("l15_f64"),
+         "site_sweep_delayed_cx_c128 (64, 1, 196, 196)":
+             _fp64_run("flux14_c128"),
+         "site_sweep_delayed_cx_c128 (64, 2, 256, 256)":
+             _fp64_run("rep_flux16_c128"),
          "site_sweep (256, 1, 64, 64)": _sweep(False),
          "site_sweep_cx (256, 1, 64, 64)": _sweep(True),
          "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1),

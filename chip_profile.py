@@ -57,6 +57,7 @@ colscaled colscaled_wy): two calls may land on two cards.
 
     python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
                                    [K11] [K13] [K1-f64] [K5] [K4] [K14]
+                                   [K6-f64] [K9-c128]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -74,7 +75,10 @@ headline's inputs with the session's wrap operands, K1 in float64 at
 64) on the repulsive configuration's (and K1 in float32 on the same
 inputs beside it), K4 at (256, 64, 64) and (64, 128, 128) and K14 at
 (256, 64, 64) and (256, 128, 128) on graded, prescaled, pivoted float32
-matrices: the mean over
+matrices, K6-f64 at (64, 1, 225, 225) on l15_f64's inputs and K9-c128 at
+(64, 1, 196, 196) and (64, 2, 256, 256) on flux14_c128's and
+rep_flux16_c128's (chip_smoke.py's phase 3 rows: the rank-1 layout's
+phases and the flavor layout's, with SM cycles per site): the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -134,7 +138,7 @@ from chip_smoke import timed
 PAIRS = 5
 # the kernels that `stamps` times
 STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13",
-           "K1-f64", "K5", "K4", "K14")
+           "K1-f64", "K5", "K4", "K14", "K6-f64", "K9-c128")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
           # K1-f64 and K5 under their former names too, for A/B runs
@@ -152,15 +156,19 @@ SHARES = {"K1": ("site_sweep_tiled_f32",),
                   "qr_kernel<float, true>"),
           "K11": ("qr_f64_kernel", "qr_kernel<double"),
           "GEMMs": ("gemm",),
-          "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab"),
-          "K9": ("site_sweep_delayed_cx",), "K8": ("site_sweep_tiled_cx",),
+          "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab",
+                 "rank1::sweep<false"),
+          "K9": ("site_sweep_delayed_cx", "rank1::sweep<true"),
+          "K8": ("site_sweep_tiled_cx",),
           "K10": ("qr_cx_kernel",), "K7": ("qr_blocked_kernel",),
           # the float64 and complex128 instances ("a&b": both in the name)
           "K6-f64": ("site_sweep_delayed_cluster<double",
-                     "site_sweep_delayed_slab<double"),
+                     "site_sweep_delayed_slab<double", "rank1::sweep<false"),
           "K8-c128": ("site_sweep_tiled_cx&double",),
           "K9-c128": ("site_sweep_delayed_cx_cluster<double",
-                      "site_sweep_delayed_cx_slab<double"),
+                      "site_sweep_delayed_cx_slab<double",
+                      "site_sweep_delayed_cx_flavors<double",
+                      "rank1::sweep<true"),
           "library QR": ("geqr", "orgqr", "ungqr", "larf", "cusolver")}
 F32 = {"dtype": "float32"}
 CS = {**F32, "stab_method": "qr_colscaled"}
@@ -329,7 +337,7 @@ def _stamp_rows(readout, blocks):
     return rows
 
 
-def _print_stamps(head, label, rows, names, ms):
+def _print_stamps(head, label, rows, names, ms, sites=None):
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm",
          "--format=csv,noheader,nounits"], capture_output=True,
@@ -340,9 +348,12 @@ def _print_stamps(head, label, rows, names, ms):
           f"max {total.max()} = {total.max() / mhz:.1f} us", flush=True)
     for p, name in enumerate(names):
         c = rows[:, p]
+        per_site = (f", {c.mean() / sites:.0f} cycles per site"
+                    if sites else "")
         print(f"[stamps] {label} phase {p} {name}: mean {c.mean():.0f} "
               f"cycles ({c.mean() / total.mean():.3f} of the block), "
-              f"{c.mean() / mhz:.1f} us; min {c.min()}, max {c.max()}")
+              f"{c.mean() / mhz:.1f} us{per_site}; min {c.min()}, max "
+              f"{c.max()}")
 
 
 def qr_input(B, N, complex_):
@@ -473,6 +484,30 @@ def stamps(which):
         _print_stamps(f"{head} {tuple(G.shape)} {str(G.dtype)[6:]}, {n_acc} "
                       f"of {C * N} sites accepted, {C} blocks", head,
                       _stamp_rows("site_sweep_f32", C), ss.PHASES, ms)
+    # K6-f64 and K9-c128 at the item 4 runs' shapes on their session inputs
+    # (chip_smoke.py's phase 3 rows): the rank-1 layout at dk = 1 (l15_f64,
+    # flux14_c128) and the flavor layout at F = 2, dk = 32 (rep_flux16_c128)
+    for label, run, readout in (
+            ("K6-f64", "l15_f64", "site_sweep_delayed_f64"),
+            ("K9-c128", "flux14_c128", "site_sweep_delayed_cx_c128"),
+            ("K9-c128", "rep_flux16_c128", "site_sweep_delayed_cx_c128")):
+        if label not in which:
+            continue
+        G, sigma, u, kw = smoke.fp64_run_inputs(run)
+        mod = ssd if label == "K6-f64" else ssdcx
+        C, F, N, _ = G.shape
+        kind, cs = mod.plan_layout(N, F, kw["dk"], G.dtype)
+        fn = (ssd.site_sweep_delayed_f64 if label == "K6-f64"
+              else ssdcx.site_sweep_delayed_cx_c128)
+        call = lambda: fn(G, sigma, u, **kw)
+        ms = 1e3 * timed(call, 20)
+        n_acc = int((call()[1] != sigma).sum())
+        where = mod.layout(N, F, kw["dk"], dtype=G.dtype)
+        _print_stamps(f"{label} {run} {tuple(G.shape)} {str(G.dtype)[6:]} "
+                      f"dk={kw['dk']}, {n_acc} of {C * N} sites accepted, "
+                      f"{C * cs} blocks ({where})", f"{label} {run}",
+                      _stamp_rows(readout, C * cs), mod.PHASES[kind], ms,
+                      sites=N)
     if "K13" in which:
         # the fusewrap run's shape, each direction: one block per chain
         G, sigma, u, kw, ops, _, _ = smoke.wrap_inputs()

@@ -46,8 +46,12 @@ failure and prints no result line then):
               225), K9 and K9-c128 at (64, 1, 196, 196) (G padded to 200),
               K8 and K8-c128 at F = 2, N = 100 (256 chains) and N = 128
               (complex128: a cluster of 2 blocks per chain), K9 and K9-c128
-              at (64, 2, 256, 256) with dk = 32 (complex128 in two flavor
-              stages); the four shapes of the 4r runs are rows of their
+              at (64, 2, 256, 256) with dk = 32 (complex128 in the flavor
+              layout: a cluster of 2 blocks per chain, one flavor each);
+              K6-f64 and K9-c128 at dk = 1 run the rank-1 layout (G on
+              chip), and the three redesigned rows also time the delayed
+              layout they replaced ([layouts] lines, in turns); the four
+              shapes of the 4r runs are rows of their
               own in the kernels line
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
@@ -1582,6 +1586,34 @@ def item4_row(label, fn, plain, inputs, layout):
     return row
 
 
+def fp64_run_inputs(run):
+    """(G, sigma, u, keywords) of phase 3's row of an item 4 run, as
+    parity_item4 makes them (its seeds): l15_f64 (64, 1, 225, 225) float64,
+    flux14_c128 (64, 1, 196, 196) and rep_flux16_c128 (64, 2, 256, 256)
+    complex128, at the session's delay (dk = max(delay, 1)); for
+    chip_profile.py's stamps and chip_ab.py's cases."""
+    import torch
+    f64 = dict(dtype=torch.float64)
+    if run == "l15_f64":
+        x = slice_inputs(headline_model(False, 15), ITEM4_CHAINS, 43, **f64)
+    elif run == "flux14_c128":
+        x = slice_inputs(complex_model(False, 14), ITEM4_CHAINS, 45,
+                         safe_mult=CPLX_SM, **f64)
+    elif run == "rep_flux16_c128":
+        x = slice_inputs(complex_model(True, L16), ITEM4_CHAINS, 51,
+                         safe_mult=CPLX_SM, **f64)
+    else:
+        raise ValueError(f"fp64_run_inputs: no run {run!r}")
+    G, sigma, u, kw, ctx = x
+    return G, sigma, u, dict(kw, dk=max(ctx.delay, 1))
+
+
+# phase 3's rows whose shapes run the layouts redesigned for the card: the
+# rank-1 layout (K6-f64, K9-c128 at dk = 1) and K9-c128's flavor layout
+REDESIGNED = ("site_sweep_delayed_f64_225", "site_sweep_delayed_cx_c128_196",
+              "site_sweep_delayed_cx_c128_f2")
+
+
 def parity_item4(results):
     """The site sweeps of ROADMAP Queue 1 item 4's shapes against their
     plain versions, in both precisions, on plain-path init_state Green's
@@ -1592,10 +1624,12 @@ def parity_item4(results):
     at F = 2, N = 100 (256 chains, rep_flux10_c128's; complex128: a
     cluster of 2 blocks per chain) and N = 128 (the 128-site ring, 64
     chains); K9 and K9-c128 at (64, 2, 256, 256) with dk = 32
-    (rep_flux16_c128's; complex64 in two column passes, complex128 in
-    clusters of 4 blocks, two flavor stages). The float32 and complex64
-    shapes' errors join their kernels' rows; the four complex128 and
-    float64 shapes of the runs get rows of their own."""
+    (rep_flux16_c128's; complex64 in two column passes, complex128 in the
+    flavor layout). The float32 and complex64 shapes' errors join their
+    kernels' rows; the four complex128 and float64 shapes of the runs get
+    rows of their own. K6-f64 and K9-c128 at dk = 1 run the rank-1 layout;
+    the REDESIGNED rows also time, in turns, the delayed layouts that
+    still fit (time_layouts)."""
     import torch
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -1657,6 +1691,9 @@ def parity_item4(results):
          cx(True, L16, 51, f64), ssdcx, C128)]
     for row, label, fn, plain, x, mod, dtype in rows:
         r = item4_row(label, fn, plain, x, lay(mod, x, dtype))
+        if row in REDESIGNED:
+            # the redesigned layout against the delayed one it replaced
+            time_layouts(mod, *x[:4])
         if row is not None:
             results[row] = r
         else:
@@ -1778,31 +1815,45 @@ def parity_ising(results):
 
 
 def time_layouts(mod, G, sigma, u, kw):
-    """Every layout of K6 or K9 (mod) that fits this shape, held against the
-    layout cluster_plan picks (decisions identical, G within TOL_G of its
-    largest entry) and timed; returns the largest max|dG|."""
+    """Every layout of K6 or K9 (mod) that fits this shape in G's dtype (the
+    rank-1 layout of the FP64 instances at dk = 1 and K9-c128's flavor
+    layout where the plan takes them, then the delayed layouts: clusters
+    and the slab), held against the layout the plan picks (decisions
+    identical, G within TOL_G of its largest entry) and timed in turns
+    (the plan's layout first and last); returns the largest max|dG|."""
     import torch
     C, F, N, _ = G.shape
-    dk = kw["dk"]
-    plan = mod.cluster_plan(N, F, dk)
-    ref = mod.launch(G, sigma, u, plan, **kw)
-    worst, times = 0.0, []
-    for cs in (*mod.CLUSTER_SIZES, 1):
-        if not mod.fits(N, F, dk, cs):
-            continue
-        out = mod.launch(G, sigma, u, cs, **kw)
+    dk, dtype = kw["dk"], G.dtype
+    kind, plan_cs = mod.plan_layout(N, F, dk, dtype)
+    ref = mod.launch(G, sigma, u, plan_cs, kind=kind, **kw)
+    layouts = [(kind, plan_cs)] if kind in ("rank1", "flavors") else []
+    layouts += [("cluster" if cs > 1 else "slab", cs)
+                for cs in (*mod.CLUSTER_SIZES, 1)
+                if mod.fits(N, F, dk, cs, dtype)]
+    worst, ms = 0.0, {}
+    for k, cs in layouts + layouts[:1]:
+        call = lambda: mod.launch(G, sigma, u, cs, kind=k, **kw)
+        out = call()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(out[1:4], ref[1:4])):
-            raise AssertionError(f"{mod.__name__}: {cs} blocks per chain "
-                                 f"decide otherwise than {plan}")
+            raise AssertionError(f"{mod.__name__}: the {k} layout with {cs} "
+                                 f"blocks per chain decides otherwise than "
+                                 f"the plan's {kind}")
         worst = max(worst, (out[0] - ref[0]).abs().max().item())
-        at_once = (f", {mod.max_clusters(F, N, dk, cs)} clusters at once"
-                   if cs > 1 else "")
-        ms = 1e3 * timed(lambda: mod.launch(G, sigma, u, cs, **kw), 20)
-        times.append(f"CS={cs} {ms:.4f} ms{at_once}")
+        ms.setdefault((k, cs), []).append(1e3 * timed(call, 20))
+    times = []
+    for k, cs in layouts:
+        at_once = (mod.rank1_max_clusters(F, N) if k == "rank1"
+                   else mod.flavors_max_clusters(N, dk) if k == "flavors"
+                   else mod.max_clusters(F, N, dk, cs, dtype) if cs > 1
+                   else None)
+        times.append(f"{k} CS={cs} "
+                     + ", ".join(f"{t:.4f}" for t in ms[(k, cs)]) + " ms"
+                     + (f" ({at_once} clusters at once)" if at_once else ""))
     name = mod.__name__.rsplit(".", 1)[-1]
-    log(f"[layouts] {name} {tuple(G.shape)} dk={dk}, cluster_plan CS={plan}: "
-        + "; ".join(times) + f"; max|dG| against the plan's {worst:.3e}")
+    log(f"[layouts] {name} {tuple(G.shape)} {str(dtype)[6:]} dk={dk}, plan "
+        f"{kind} CS={plan_cs}: " + "; ".join(times)
+        + f"; max|dG| against the plan's {worst:.3e}")
     if worst > TOL_G * ref[0].abs().max().item():
         raise AssertionError(f"{name}: the layouts' G disagree")
     return worst

@@ -82,6 +82,18 @@
 // The 4 x 4 register tiles of the fold move as two double2 per row, so the
 // rule stays 4 | N (4 P | N and 4 CS | N in a cluster).
 //
+// At DK = 1 the float64 instance runs the rank-1 layout instead
+// (csrc/site_sweep_rank1.cuh, site_sweep_delayed_f64_rank1): the JAX
+// package's delay rule gives DK = 1 for 129 <= N < 256, where the cluster
+// layout's two cluster barriers, diagonal block and L2 pass over the own
+// rows per accepted site took 17-23 us a site (0.5% of the bound). The
+// rank-1 layout keeps each chain's G on chip (16 rows a thread in
+// registers, the rest in shared memory) in a cluster of 2 blocks (F = 2:
+// 4), and signals once per site: 0.85 ms of device time against 4.06 at
+// (64, 1, 225, 225) on an H100 (PERF.md). What bounds it: the site chain (a
+// cluster barrier, the decision and the next row's fold and publication
+// per site) and the fold's shared-memory traffic behind it.
+//
 // Sites and storage. N is G's row length in memory and NS <= N the number
 // of sites the sweep visits: sigma and u hold NS entries per chain and the
 // blocks of DK sites cover [0, NS). Where 4 does not divide the lattice's
@@ -97,6 +109,7 @@
 #include <stdint.h>
 
 #include "phase_clock.cuh"
+#include "site_sweep_rank1.cuh"
 #include "site_sweep_tiled.cuh"
 
 namespace cg = cooperative_groups;
@@ -773,6 +786,37 @@ extern "C" int site_sweep_delayed_f64(const double* G_in, double* G_out,
   return sweep<double>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg,
                        scratch, C, F, N, NS, DK, CS, P, lamb, sign0, sign1,
                        det_power, use_boson, stream);
+}
+
+// K6-f64 at DK = 1 in the rank-1 layout (csrc/site_sweep_rank1.cuh): G of
+// row length N (C, F, N, N) on chip in clusters of CS blocks of TR x N/2
+// threads; sigma and u hold NS <= N sites; acc, nneg and neg as
+// site_sweep_delayed_f64's.
+extern "C" int site_sweep_delayed_f64_rank1(const double* G_in, double* G_out,
+                                            const int8_t* sigma_in,
+                                            int8_t* sigma_out, const double* u,
+                                            int* acc, int* nneg, double* neg,
+                                            int C, int F, int N, int NS,
+                                            int CS, int TR, double lamb,
+                                            double sign0, double sign1,
+                                            int det_power, int use_boson,
+                                            void* stream) {
+  long long* stamps = nullptr;
+#ifdef MC_PHASE_STAMPS
+  void* p = nullptr;
+  if (cudaGetSymbolAddress(&p, g_stamps) == cudaSuccess)
+    stamps = (long long*)p;
+#endif
+  return rank1::launch<false>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
+                              neg, nullptr, nullptr, stamps, C, F, N, NS, CS,
+                              TR, lamb, sign0, sign1, det_power, use_boson,
+                              (cudaStream_t)stream);
+}
+
+// The most clusters of the rank-1 layout the card runs at once, into *out
+extern "C" int site_sweep_delayed_f64_rank1_max_clusters(int F, int N, int CS,
+                                                         int TR, int* out) {
+  return rank1::max_clusters<false>(F, N, CS, TR, out);
 }
 
 // The most clusters of the layout (CS > 1) that the card runs at once, into

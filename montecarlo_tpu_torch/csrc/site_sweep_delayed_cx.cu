@@ -73,6 +73,20 @@
 // complex128 in clusters of 4 blocks, 2 stages and 4 passes (216,896
 // bytes per block).
 //
+// The flavor layout (site_sweep_delayed_cx_flavors, complex128 at F = 2
+// where the cluster layout needs two flavor stages: the repulsive 16x16 in
+// a flux at delay 32) replaces the stages there: a cluster of 2 blocks per
+// chain, one flavor each, which exchange each site's r_f over distributed
+// shared memory and replay and fold their own flavor in 2 row and 2 column
+// passes. 64 chains take 128 blocks, one wave, where the stages' clusters
+// of 4 took two: 2.42 ms of device time against 5.74-5.98 at (64, 2,
+// 256, 256) on an H100 (PERF.md). What bounds it: the fold's 8 N^2 FP64
+// operations per accepted site and chain and G's traffic through L2 and
+// HBM (2 MB a chain, once per block of sites each way), behind the
+// decision chain.
+// At DK = 1 the complex128 instance runs the rank-1 layout
+// (csrc/site_sweep_rank1.cuh; K6-f64's).
+//
 // Sites and storage, as in K6 (csrc/site_sweep_delayed.cu): N is G's row
 // length in memory, NS <= N the sites the sweep visits; where 8 does not
 // divide the lattice's sites, ops/site_sweep_delayed_cx.py pads G with zero
@@ -84,6 +98,7 @@
 #include <stdint.h>
 
 #include "phase_clock.cuh"
+#include "site_sweep_rank1.cuh"
 #include "site_sweep_tiled.cuh"
 
 namespace cg = cooperative_groups;
@@ -725,6 +740,372 @@ site_sweep_delayed_cx_cluster(const typename Cplx<T>::type* __restrict__ G_in,
 #endif
 }
 
+// Shared memory of site_sweep_delayed_cx_flavors in bytes: re and im planes
+// of b over the N/P columns of a column pass [k][n], y over the N/R rows of
+// a row pass [k][r], the staged y and b of the block's sites by site YT, BT
+// [s][k], their entries at the slots' sites Y2, B2 [k'][k], the diagonal
+// block D0 [s][s'] (rows of DK+1), its current diagonal and x [k], u, delta,
+// the boson weight and the peer flavor's r (re, im) per site (elements of
+// T); the slots' sites, their count and the peer's flags per site (ints);
+// sigma (int8). ops/site_sweep_delayed_cx.py::flavors_smem mirrors it.
+__host__ __device__ inline size_t flavors_smem_bytes(int N, int DK, int P,
+                                                     int R, size_t el) {
+  const size_t NCH = N / P, RR = N / R;
+  return el * (2 * DK * NCH + 2 * DK * RR + 4 * (size_t)DK * staged_ld(DK) +
+               4 * (size_t)DK * DK + 2 * (size_t)DK * (DK + 1) + 4 * DK +
+               5 * (size_t)N) +
+         4 * ((size_t)DK + 4 + N) + N;
+}
+
+__device__ __forceinline__ void flag_release(int* remote, int v) {
+  asm volatile("st.release.cluster.u32 [%0], %1;\n" ::"l"(remote), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int flag_acquire(const int* local) {
+  int v;
+  asm volatile("ld.acquire.cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(local)
+               : "memory");
+  return v;
+}
+
+// The two flavors of a chain in a cluster of two blocks (F = 2), block f
+// holding flavor f (K9-c128 at F = 2 past what one stage of
+// site_sweep_delayed_cx_cluster fits: the repulsive 16x16 in a flux at
+// delay 32). The flavors meet only in the decision, det = (r_0 r_1)^p: per
+// site, warp 0 of each block computes r of its flavor from its diagonal
+// block, writes it into the peer block's shared memory with a release flag
+// (one slot per site, so no slot is written twice), and reads the peer's;
+// both blocks then take the same decision in the same operations. Each
+// block replays and folds its own flavor's G (all N rows, in G_out) in R
+// row passes of N/R rows and P column passes of N/P columns: per row pass y
+// over its rows, per (row, column) pass b over the pass's columns and the
+// fold of that tile. The row pass that holds the block's sites comes last:
+// every b reads the sites' rows before any fold touches them, and every y
+// its rows' site columns before any fold of those rows. Each value takes
+// the subtractions of site_sweep_delayed_cx_cluster in the same slot order,
+// so the layout is bit-equal to it and to the plain version. No cluster
+// barrier after the setup; 64 chains take 128 blocks, one wave.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+site_sweep_delayed_cx_flavors(const typename Cplx<T>::type* __restrict__ G_in,
+                              typename Cplx<T>::type* G_out,
+                              const int8_t* __restrict__ sigma_in,
+                              int8_t* __restrict__ sigma_out,
+                              const T* __restrict__ u,
+                              uint8_t* __restrict__ accept_out,
+                              typename Cplx<T>::type* __restrict__ det_out,
+                              int N, int NS, int DK, int P, int R, T lamb,
+                              T sign0, T sign1, int det_power,
+                              int use_boson) {
+  using C2 = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_flavors[];
+  T* smem = reinterpret_cast<T*>(smem_flavors);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int fb = (int)cluster.block_rank();  // the block's flavor
+  const int c = blockIdx.x / 2;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int LDD = DK + 1, DD = DK * DK;
+  const int NCH = N / P, RR = N / R;  // columns, rows of a pass
+  const int LDT = staged_ld(DK), TP = DK * LDT;  // a table's plane
+  const size_t NN = (size_t)N * N, gbase = ((size_t)c * 2 + fb) * NN;
+  const T one = 1, zero = 0;
+  T* Br = smem;                 // [k][n - pass start]
+  T* Bi = Br + DK * NCH;
+  T* Ar = Bi + DK * NCH;        // [k][r - pass start]
+  T* Ai = Ar + DK * RR;
+  T* YT = Ai + DK * RR;         // [s][k], re then im
+  T* BT = YT + 2 * TP;          // [s][k], re then im
+  T* Y2r = BT + 2 * TP;         // [k'][k]
+  T* Y2i = Y2r + DD;
+  T* B2r = Y2i + DD;            // [k'][k]
+  T* B2i = B2r + DD;
+  T* D0r = B2i + DD;            // [s][s']
+  T* D0i = D0r + DK * LDD;
+  T* dgr = D0i + DK * LDD;      // [s]: G[i0+s][i0+s]
+  T* dgi = dgr + DK;
+  T* Xr = dgi + DK;             // [k]
+  T* Xi = Xr + DK;
+  T* us = Xi + DK;              // [i]
+  T* dl = us + N;               // [i]: the flavor's delta
+  T* wg = dl + N;               // [i]
+  T* pv = wg + N;               // [i][re, im]: the peer flavor's r
+  int* ts = reinterpret_cast<int*>(pv + 2 * N);  // [k]: the slot's t
+  int* kcount = ts + DK;
+  int* flag = kcount + 4;                        // [i]: the peer's r is in
+  int8_t* ss = reinterpret_cast<int8_t*>(flag + N);  // [i]
+  T* pv_peer = cluster.map_shared_rank(pv, fb ^ 1);
+  int* flag_peer = cluster.map_shared_rank(flag, fb ^ 1);
+
+  // row r of this flavor of this chain's G, in G_out
+  auto row = [&](int r) -> C2* { return G_out + gbase + (size_t)r * N; };
+
+  phase_clock::Clock clk;
+  if (tid == 0) clk.start();
+  const T neg2lamb = T(-2) * lamb;
+  const T sg = fb == 0 ? sign0 : sign1;
+  for (int i = tid; i < NS; i += nth) {
+    const int8_t s8 = sigma_in[(size_t)c * NS + i];
+    const T dEb = mul_rn(neg2lamb, (T)s8);
+    us[i] = u[(size_t)c * NS + i];
+    ss[i] = s8;
+    dl[i] = sub_rn(exp_(mul_rn(sg, dEb)), one);
+    wg[i] = use_boson ? exp_(-dEb) : one;
+    flag[i] = 0;
+  }
+  {  // G_in's flavor into G_out
+    const C2* src = G_in + gbase;
+    C2* dst = row(0);
+    for (size_t e = tid; e < NN; e += nth) dst[e] = src[e];
+  }
+  if (tid == 0) clk.lap(0);
+  cluster.sync();  // both blocks run, their flags are clear, G_out is set
+  if (tid == 0) clk.lap(1);
+
+  for (int i0 = 0; i0 < NS; i0 += DK) {
+    // 1. the diagonal block D0 = G[i0:i0+DK, i0:i0+DK] of the flavor
+    for (int s = warp; s < DK; s += kWarps) {
+      const C2* src = row(i0 + s) + i0;
+      for (int s2 = lane; s2 < DK; s2 += 32) {
+        const C2 g = src[s2];
+        D0r[s * LDD + s2] = g.x;
+        D0i[s * LDD + s2] = g.y;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) clk.lap(2);
+
+    // 2. the DK decisions, by warp 0, as site_sweep_delayed_cx_cluster's
+    // with the peer flavor's r read from pv
+    if (warp == 0) {
+      for (int s = lane; s < DK; s += 32) {
+        dgr[s] = D0r[s * LDD + s];
+        dgi[s] = D0i[s * LDD + s];
+      }
+      __syncwarp();
+      int k = 0;  // accepted slots (the same in every lane)
+      for (int t = 0; t < DK; ++t) {
+        const int i = i0 + t;
+        const int8_t s8 = ss[i];
+        const T delta = dl[i];
+        const T rr = add_rn(one, mul_rn(delta, sub_rn(one, dgr[t])));
+        const T ri = -mul_rn(delta, dgi[t]);
+        if (lane == 0) {
+          pv_peer[2 * i] = rr;
+          pv_peer[2 * i + 1] = ri;
+          flag_release(flag_peer + i, 1);
+        }
+        while (flag_acquire(flag + i) == 0) {
+        }
+        const T qr = pv[2 * i], qi = pv[2 * i + 1];
+        // r_0 r_1 in flavor order
+        const T r0r = fb == 0 ? rr : qr, r0i = fb == 0 ? ri : qi;
+        const T r1r = fb == 0 ? qr : rr, r1i = fb == 0 ? qi : ri;
+        const T pr = sub_rn(mul_rn(r0r, r1r), mul_rn(r0i, r1i));
+        const T pi = add_rn(mul_rn(r0r, r1i), mul_rn(r0i, r1r));
+        T dre = pr, dim = pi;
+        if (det_power == 2) {
+          dre = sub_rn(mul_rn(pr, pr), mul_rn(pi, pi));
+          dim = mul_rn(mul_rn(T(2), pr), pi);
+        }
+        const bool accept = us[i] < mul_rn(wg[i], dre);
+        if (fb == 0 && lane == 0) {
+          const size_t o = (size_t)c * NS + i;
+          accept_out[o] = accept;
+          det_out[o] = Cplx<T>::make(dre, dim);
+          sigma_out[o] = accept ? (int8_t)(-s8) : s8;
+        }
+        if (!accept) continue;  // warp-uniform
+        // stage y[i0+s] = x (delta_st - G[i0+s][i]), b[i0+s] = G[i][i0+s]
+        const T inv = div_rn(one, add_rn(mul_rn(rr, rr), mul_rn(ri, ri)));
+        const T xr = mul_rn(mul_rn(delta, rr), inv);
+        const T xi = -mul_rn(mul_rn(delta, ri), inv);
+        const int ft = t * LDT;
+        for (int s = lane; s < DK; s += 32) {
+          const int fs = s * LDT;
+          const int dc = s * LDD + t, dr = t * LDD + s;
+          T cvr = D0r[dc], cvi = D0i[dc], rvr = D0r[dr], rvi = D0i[dr];
+          creplay(cvr, cvi, YT + fs, YT + TP + fs, BT + ft, BT + TP + ft, k);
+          creplay(rvr, rvi, YT + ft, YT + TP + ft, BT + fs, BT + TP + fs, k);
+          const T igr = sub_rn(s == t ? one : zero, cvr);
+          const T igi = -cvi;
+          const T yr = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+          const T yi = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
+          YT[fs + k] = yr;
+          YT[TP + fs + k] = yi;
+          BT[fs + k] = rvr;
+          BT[TP + fs + k] = rvi;
+          cfold(dgr[s], dgi[s], yr, yi, rvr, rvi);
+        }
+        if (lane == 0) {
+          Xr[k] = xr;
+          Xi[k] = xi;
+          ts[k] = t;
+        }
+        ++k;
+        __syncwarp();
+      }
+      if (lane == 0) *kcount = k;
+    }
+    __syncthreads();
+    const int K = *kcount;
+    if (tid == 0) clk.lap(3);
+    if (K == 0) continue;  // block-uniform: nothing to fold
+
+    // the staged values at the slots' sites: Y2[k'][k] = y_k'[i_k],
+    // B2[k'][k] = b_k'[i_k]
+    for (int e = tid; e < K * K; e += nth) {
+      const int kp = e / K, k = e - kp * K;
+      const int o = kp * DK + k, st = ts[k] * LDT + kp;
+      Y2r[o] = YT[st];
+      Y2i[o] = YT[TP + st];
+      B2r[o] = BT[st];
+      B2i[o] = BT[TP + st];
+    }
+    __syncthreads();
+
+    const int site_pass = i0 / RR;
+    for (int rp = 0; rp < R; ++rp) {
+      // the row passes in turn, the one that holds the sites last
+      const int rho = rp < site_pass ? rp : (rp + 1 < R ? rp + 1 : site_pass);
+      const int q0 = rho * RR;  // the pass's first row
+      for (int pass = 0; pass < P; ++pass) {
+        const int c0 = pass * NCH;  // the pass's first column
+        // 3. replay the slots: items [0, NCH) form b_k[n] at the pass's
+        // columns outside the block (the decisions staged those), items
+        // [NCH, NCH + RR) in the first column pass y_k over the row pass's
+        // rows, as site_sweep_delayed_cx_cluster forms them
+        const int nb = NCH, items = nb + (pass == 0 ? RR : 0);
+        for (int item = tid; item < items; item += nth) {
+          const bool is_b = item < nb;
+          const int j0 = is_b ? item : item - nb;  // pass column, pass row
+          const int n = c0 + j0;                   // b: the column
+          T* outr = (is_b ? Br : Ar) + j0;
+          T* outi = (is_b ? Bi : Ai) + j0;
+          const size_t ostride = is_b ? NCH : RR;
+          if (is_b && (unsigned)(n - i0) < (unsigned)DK) {
+            const int st = (n - i0) * LDT;
+            for (int k = 0; k < K; ++k) {
+              outr[k * ostride] = BT[st + k];
+              outi[k * ostride] = BT[TP + st + k];
+            }
+            continue;
+          }
+          const T* cfr = is_b ? Y2r : B2r;
+          const T* cfi = is_b ? Y2i : B2i;
+          const C2* g = is_b ? nullptr : row(q0 + j0);
+          for (int cb = 0; cb < K; cb += kChunk) {
+            T vr[kChunk], vi[kChunk];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) {
+              const int k = cb + j < K ? cb + j : K - 1;
+              const C2 h = is_b ? row(i0 + ts[k])[n] : g[i0 + ts[k]];
+              vr[j] = h.x;
+              vi[j] = h.y;
+            }
+            // b: v -= y2 * b_k'; y: v -= y_k' * b2 (K8's operand order)
+#pragma unroll 4
+            for (int kp = 0; kp < cb; ++kp) {
+              const T fr = outr[kp * ostride], fi = outi[kp * ostride];
+              const T* cr = cfr + kp * DK + cb;
+              const T* ci = cfi + kp * DK + cb;
+#pragma unroll
+              for (int j = 0; j < kChunk; ++j) {
+                if (is_b)
+                  cfold(vr[j], vi[j], cr[j], ci[j], fr, fi);
+                else
+                  cfold(vr[j], vi[j], fr, fi, cr[j], ci[j]);
+              }
+            }
+#pragma unroll
+            for (int jp = 0; jp < kChunk; ++jp) {
+              if (cb + jp < K) {
+                if (!is_b) {  // y_k = x_k (delta_{r i_k} - v_k)
+                  const int k = cb + jp;
+                  const T xr = Xr[k], xi = Xi[k];
+                  const T igr =
+                      sub_rn(q0 + j0 == i0 + ts[k] ? one : zero, vr[jp]);
+                  const T igi = -vi[jp];
+                  vr[jp] = sub_rn(mul_rn(xr, igr), mul_rn(xi, igi));
+                  vi[jp] = add_rn(mul_rn(xr, igi), mul_rn(xi, igr));
+                }
+                const T* cr = cfr + (cb + jp) * DK + cb;
+                const T* ci = cfi + (cb + jp) * DK + cb;
+#pragma unroll
+                for (int j = jp + 1; j < kChunk; ++j) {
+                  if (is_b)
+                    cfold(vr[j], vi[j], cr[j], ci[j], vr[jp], vi[jp]);
+                  else
+                    cfold(vr[j], vi[j], vr[jp], vi[jp], cr[j], ci[j]);
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (cb + j < K) {
+                outr[(cb + j) * ostride] = vr[j];
+                outi[(cb + j) * ostride] = vi[j];
+              }
+          }
+        }
+        __syncthreads();
+        if (tid == 0) clk.lap(4);
+
+        // 4. fold the tile (the row pass's rows, the column pass's
+        // columns): G -= y_k (x) b_k in slot order, tiles of 4 rows x 2
+        // complex columns (each thread loads its next tile before folding
+        // this one)
+        const int NC = NCH / 2, tiles = (RR / 4) * NC;
+        auto tile = [&](int e) {
+          return reinterpret_cast<T*>(row(q0 + 4 * (e / NC)) + c0 +
+                                      2 * (e % NC));
+        };
+        V4<T> next[4];
+        if (tid < tiles)
+          for (int q = 0; q < 4; ++q)
+            next[q] = ld4(tile(tid) + 2 * (size_t)q * N);
+        for (int e = tid; e < tiles; e += nth) {
+          const int rt = e / NC, ct = e - rt * NC;
+          T* g0 = tile(e);
+          // g[q] = (re, im) of G[q0+4rt+q][c0+2ct] and of [..][c0+2ct+1]
+          V4<T> g[4];
+          for (int q = 0; q < 4; ++q) g[q] = next[q];
+          if (e + nth < tiles)
+            for (int q = 0; q < 4; ++q)
+              next[q] = ld4(tile(e + nth) + 2 * (size_t)q * N);
+          const size_t ao = 4 * rt, bo = 2 * ct;
+          for (int p = 0; p < K; ++p) {
+            const V4<T> ar = ld4(Ar + ao + p * RR);
+            const V4<T> ai = ld4(Ai + ao + p * RR);
+            const auto br = ld2(Br + bo + (size_t)p * NCH);
+            const auto bi = ld2(Bi + bo + (size_t)p * NCH);
+            const T yr[4] = {ar.x, ar.y, ar.z, ar.w};
+            const T yi[4] = {ai.x, ai.y, ai.z, ai.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              cfold(g[q].x, g[q].y, yr[q], yi[q], br.x, bi.x);
+              cfold(g[q].z, g[q].w, yr[q], yi[q], br.y, bi.y);
+            }
+          }
+          for (int q = 0; q < 4; ++q) st4(g0 + 2 * (size_t)q * N, g[q]);
+        }
+        if (tid == 0) clk.lap(5);
+        // the next pass rewrites b (and the next row pass y), which this
+        // fold reads; the next block of sites reads the folded rows
+        __syncthreads();
+      }
+    }
+  }
+
+  if (tid == 0) clk.lap(0);
+#ifdef MC_PHASE_STAMPS
+  if (tid == 0) clk.store(g_stamps, blockIdx.x);
+#endif
+}
+
 template <class T, int F>
 int launch_slab(const typename Cplx<T>::type* G_in,
                 typename Cplx<T>::type* G_out, const int8_t* sigma_in,
@@ -797,6 +1178,38 @@ int max_clusters(int N, int DK, int P, int S, int* out) {
   if (err) return err;
   return (int)cudaOccupancyMaxActiveClusters(
       out, (void*)site_sweep_delayed_cx_cluster<T, F, CS>, &cfg);
+}
+
+// The launch configuration of site_sweep_delayed_cx_flavors<T> for C chains
+// (clusters of 2 blocks, one flavor each), P column and R row passes, with
+// its shared memory allowed; returns the cudaError_t of that setting.
+bool valid_flavors(int N, int DK, int P, int R) {
+  return P >= 1 && R >= 1 && N % P == 0 && N % R == 0 && (N / P) % 2 == 0 &&
+         (N / R) % 4 == 0 && (R == 1 || (N / R) % DK == 0);
+}
+
+template <class T>
+int flavors_config(int C, int N, int DK, int P, int R, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (!valid_flavors(N, DK, P, R) || DK < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = flavors_smem_bytes(N, DK, P, R, sizeof(T));
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      site_sweep_delayed_cx_flavors<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(2 * C);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
 }
 
 // The layouts that ops/site_sweep_delayed_cx.py::cluster_plan can pick
@@ -896,6 +1309,72 @@ extern "C" int site_sweep_delayed_cx_c128(const void* G_in, void* G_out,
   return sweep<double>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
                        scratch, C, F, N, NS, DK, CS, P, S, lamb, sign0, sign1,
                        det_power, use_boson, stream);
+}
+
+// K9-c128 at F = 2 on clusters of two blocks, one flavor each
+// (site_sweep_delayed_cx_flavors): G complex128 (C, 2, N, N), N % P and
+// N % R zero, (N/R) % DK zero where R > 1; sigma, u, accept and det hold
+// NS <= N sites per chain.
+extern "C" int site_sweep_delayed_cx_c128_flavors(
+    const void* G_in, void* G_out, const int8_t* sigma_in, int8_t* sigma_out,
+    const double* u, uint8_t* accept, void* det, int C, int N, int NS, int DK,
+    int P, int R, double lamb, double sign0, double sign1, int det_power,
+    int use_boson, void* stream) {
+  using C2 = Cplx<double>::type;
+  if (C == 0) return 0;
+  if (N < 8 || NS < 1 || NS > N || DK < 1 || NS % DK || det_power < 1 ||
+      det_power > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = flavors_config<double>(C, N, DK, P, R, (cudaStream_t)stream, &cfg,
+                                   &attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(
+      &cfg, site_sweep_delayed_cx_flavors<double>, (const C2*)G_in,
+      (C2*)G_out, sigma_in, sigma_out, u, accept, (C2*)det, N, NS, DK, P, R,
+      lamb, sign0, sign1, det_power, use_boson);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The most clusters of the flavor layout the card runs at once, into *out
+extern "C" int site_sweep_delayed_cx_c128_flavors_max_clusters(int N, int DK,
+                                                               int P, int R,
+                                                               int* out) {
+  *out = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int err = flavors_config<double>(1, N, DK, P, R, 0, &cfg, &attr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (void*)site_sweep_delayed_cx_flavors<double>, &cfg);
+}
+
+// K9-c128 at DK = 1 in the rank-1 layout (csrc/site_sweep_rank1.cuh): G
+// complex128 (C, F, N, N) on chip in clusters of CS blocks of TR x N
+// threads; sigma, u, accept and det hold NS <= N sites per chain.
+extern "C" int site_sweep_delayed_cx_c128_rank1(
+    const void* G_in, void* G_out, const int8_t* sigma_in, int8_t* sigma_out,
+    const double* u, uint8_t* accept, void* det, int C, int F, int N, int NS,
+    int CS, int TR, double lamb, double sign0, double sign1, int det_power,
+    int use_boson, void* stream) {
+  long long* stamps = nullptr;
+#ifdef MC_PHASE_STAMPS
+  void* p = nullptr;
+  if (cudaGetSymbolAddress(&p, g_stamps) == cudaSuccess)
+    stamps = (long long*)p;
+#endif
+  return rank1::launch<true>(G_in, G_out, sigma_in, sigma_out, u, nullptr,
+                             nullptr, nullptr, accept, det, stamps, C, F, N,
+                             NS, CS, TR, lamb, sign0, sign1, det_power,
+                             use_boson, (cudaStream_t)stream);
+}
+
+// The most clusters of the rank-1 layout the card runs at once, into *out
+extern "C" int site_sweep_delayed_cx_c128_rank1_max_clusters(int F, int N,
+                                                             int CS, int TR,
+                                                             int* out) {
+  return rank1::max_clusters<true>(F, N, CS, TR, out);
 }
 
 // The most clusters of the layout (CS > 1) that the card runs at once, into

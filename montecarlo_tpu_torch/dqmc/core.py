@@ -289,21 +289,24 @@ def _ab_modes(N, delay, dtype, udtype, stab_method, fuse_wrap, qr_wy,
 def _check_cuda_kernels(N, F, delay, dtype, udtype):
     """Raise unless a hand site-sweep kernel takes the updates of a CUDA
     session; every QR shape has a route (``qr_route``: a kernel, or the
-    library QR where the JAX package runs XLA's QR). Real sessions: N <= 128
-    K5 for float32 updates with F = 2 at even N, else K1 in the update
+    library QR where the JAX package runs XLA's QR). Real sessions: N <=
+    128 K5 for float32 updates with F = 2 at even N, else K1 in the update
     dtype (float32 or float64; K5 takes every shape K1 takes at even N);
-    past N = 128 K6 (float32) or K6-f64 (float64) in blocks of max(delay, 1)
-    sites, G padded to a multiple of 8 where 4 does not divide N, with its
-    buffers in shared memory (float64 at N = 256, delay 32: F = 2 in two
-    column passes; delay 64 at F = 2 fits no layout). Complex64 updates: K8
-    up to N = 128 (G of one chain over the block's registers, flavor 1 in
-    shared memory at F = 2 past N = 64), K9 beyond (G padded to a multiple
-    of 8 where 8 does not divide N; F = 2 at N = 256, delay 32 in two column
-    passes). Complex128 updates: K8-c128 up to N = 128 (at F = 2 past
-    N = 64 a cluster of 2 blocks per chain, one flavor each), K9-c128 beyond
-    (F = 2 at N = 256, delay 32: clusters of 4 blocks, two flavor stages and
-    four column passes). Every kernel takes F <= 2. The JAX package runs its
-    XLA site loop where these refuse (ROADMAP Queue 1 item 4)."""
+    past N = 128 K6 (float32) or K6-f64 (float64) in blocks of max(delay,
+    1) sites, G padded to a multiple of 8 where 4 does not divide N, with
+    its buffers in shared memory (float64 at N = 256, delay 32: F = 2 in
+    two column passes; delay 64 at F = 2 fits no layout; float64 at delay
+    <= 1: the rank-1 layout, G on chip in a cluster of 2 or 4 blocks).
+    Complex64 updates: K8 up to N = 128 (G of one chain over the block's
+    registers, flavor 1 in shared memory at F = 2 past N = 64), K9 beyond
+    (G padded to a multiple of 8 where 8 does not divide N; F = 2 at N =
+    256, delay 32 in two column passes). Complex128 updates: K8-c128 up to
+    N = 128 (at F = 2 past N = 64 a cluster of 2 blocks per chain, one
+    flavor each), K9-c128 beyond (at delay <= 1 the rank-1 layout where it
+    fits: F = 1 at every N, F = 2 to N = 192; F = 2 at N = 256, delay 32: a
+    cluster of 2 blocks per chain, one flavor each, in two row and two
+    column passes). Every kernel takes F <= 2. The JAX package runs its XLA
+    site loop where these refuse (ROADMAP Queue 1 item 4)."""
     dk = max(delay, 1)
     if dtype.is_complex or udtype.is_complex:
         if not (_sscx.kernel_supports(N, F, udtype) if N <= MAX_N

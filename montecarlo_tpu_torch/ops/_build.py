@@ -73,6 +73,13 @@ SIGNATURES = {
     # use_boson, stream
     "site_sweep_delayed_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, acc, nneg, neg, C, F, N, NS, CS,
+    # TR (thread rows), lamb, sign0, sign1, det_power, use_boson, stream:
+    # the rank-1 layout at dk = 1
+    "site_sweep_delayed_f64_rank1": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _D, _D, _D, _I, _I, _P),
+    # F, N, CS, TR, out (int*)
+    "site_sweep_delayed_f64_rank1_max_clusters": (_I, _I, _I, _I, _P),
     # F, N, DK, CS, out (int*): the cluster layout's occupancy
     "site_sweep_delayed_f32_max_clusters": (_I, _I, _I, _I, _P),
     # F, N, DK, CS, P, out (int*)
@@ -101,6 +108,20 @@ SIGNATURES = {
                                    _I, _P),
     "site_sweep_delayed_cx_c128_max_clusters": (_I, _I, _I, _I, _I, _I,
                                                 _P),
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, F, N, NS, CS, TR,
+    # lamb, sign0, sign1, det_power, use_boson, stream
+    "site_sweep_delayed_cx_c128_rank1": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _I, _D, _D, _D, _I, _I,
+                                         _P),
+    "site_sweep_delayed_cx_c128_rank1_max_clusters": (_I, _I, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, N, NS, DK, P
+    # (column passes), R (row passes), lamb, sign0, sign1, det_power,
+    # use_boson, stream: K9-c128 at F = 2, one flavor a block
+    "site_sweep_delayed_cx_c128_flavors": (_P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _D, _D, _D,
+                                           _I, _I, _P),
+    # N, DK, P, R, out (int*)
+    "site_sweep_delayed_cx_c128_flavors_max_clusters": (_I, _I, _I, _I, _P),
     # conf_in, conf_out, u, table, order, offsets, thr, acc, C, N, z,
     # n_classes, stream
     "ising_sweep_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

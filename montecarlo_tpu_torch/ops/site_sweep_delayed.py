@@ -22,7 +22,10 @@ Markov chain is the rank-1 sweep's; G is the rank-1 sweep's up to rounding.
 On the card, ``cluster_plan`` picks the kernel's layout from the shape: one
 thread-block cluster of CS = 2 or 4 blocks per chain, each block folding N/CS
 rows of G, or, where the cluster's buffers do not fit, one block per chain
-with the slabs above.
+with the slabs above. At dk = 1 in float64 it picks the rank-1 layout
+(``rank1_plan``, ``csrc/site_sweep_rank1.cuh``) wherever that fits: G on
+chip for the whole launch, a cluster of CS blocks per chain, one cluster
+barrier per site.
 
 ``site_sweep_delayed_f64`` is the same kernel in float64 (K6-f64): it
 replaces the XLA loops the JAX package runs for float64 updates past
@@ -62,13 +65,77 @@ CLUSTER_SIZES = (2, 4)
 PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
                    "fold"),
           "cluster": ("setup and copy", "cluster barriers", "diagonal block",
-                      "decisions", "a and b vectors", "fold")}
+                      "decisions", "a and b vectors", "fold"),
+          # csrc/site_sweep_rank1.cuh (float64, dk = 1)
+          "rank1": ("load and store", "signal wait", "decision",
+                    "next row and column", "fold of the rest")}
 
 
 # the column passes of the cluster layout, in the order column_passes tries
 # them, per element type: the float32 kernel keeps one pass (its layout as
 # measured), float64 buffers take twice the bytes
 PASSES = {torch.float32: (1,), torch.float64: (1, 2, 4)}
+
+
+# the rank-1 layout at dk = 1 (csrc/site_sweep_rank1.cuh): the element types
+# it is built for, its cluster sizes per F in the order rank1_plan tries them
+# (F = 2 takes clusters of 4: its build with clusters of 2 never finished a
+# launch on an H100, PERF.md), and its most threads a block
+RANK1_DTYPES = (torch.float64,)
+RANK1_SIZES = {1: (2, 4), 2: (4,)}
+RANK1_MAX_THREADS = 512
+
+
+def rank1_regs(F: int) -> int:
+    """Rows of G per flavor that a thread of the rank-1 layout keeps in
+    registers (csrc/site_sweep_rank1.cuh::reg_rows)."""
+    return 16 // F
+
+
+def rank1_smem(NP: int, F: int, cs: int, tr: int, cx: bool = False) -> int:
+    """Shared memory of one block of the rank-1 layout in bytes, G of row
+    length NP in clusters of cs blocks of tr thread rows: the rows of G
+    beyond the registers', the row double buffer, the column and
+    coefficient double buffers (16-byte units: two real columns or one
+    complex128 element), u and sigma, and in float64 each site's
+    detratio and new sigma (csrc/site_sweep_rank1.cuh::smem_bytes)."""
+    rq, ur = NP // cs, (NP if cx else NP // 2)
+    rs = rq // tr - rank1_regs(F)
+    return (16 * (F * rs * tr * ur + 2 * F * ur + 4 * F * rq)
+            + (9 if cx else 18) * NP)
+
+
+def rank1_geometry(NP: int, F: int, cx: bool = False):
+    """(cs, tr) of the rank-1 layout for G of row length NP: the first of
+    RANK1_SIZES[F], and in it the most thread rows tr (tr | NP / cs), whose
+    blocks of tr x (units a row) threads hold at least rank1_regs(F) rows
+    each and fit one block's shared memory (rank1_smem) with at most
+    RANK1_MAX_THREADS threads; None where none does."""
+    ur = NP if cx else NP // 2
+    if F not in (1, 2) or (not cx and NP % 2):
+        return None
+    for cs in RANK1_SIZES[F]:
+        if NP % cs:
+            continue
+        rq, best = NP // cs, None
+        for tr in range(1, rq + 1):
+            if (rq % tr == 0 and tr * ur <= RANK1_MAX_THREADS
+                    and rq // tr >= rank1_regs(F)
+                    and rank1_smem(NP, F, cs, tr, cx)
+                    <= _build.SMEM_PER_BLOCK):
+                best = tr
+        if best is not None:
+            return cs, best
+    return None
+
+
+def rank1_plan(N: int, F: int, dk: int, dtype=torch.float32):
+    """(cs, tr) of the rank-1 layout where the plan takes it: dk = 1, N past
+    128, float64, and a geometry that fits (``rank1_geometry`` at
+    ``padded(N)``); else None."""
+    if dk != 1 or dtype not in RANK1_DTYPES or N < MIN_N:
+        return None
+    return rank1_geometry(padded(N), F)
 
 
 def padded(N: int) -> int:
@@ -105,9 +172,12 @@ def column_passes(N: int, F: int, dk: int, cs: int,
 
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
-               dtype=torch.float32) -> int:
-    """Shared memory of one block, elements of dtype, at G's row length
-    on the card (``padded(N)``). cs = 1
+               dtype=torch.float32, kind=None) -> int:
+    """Shared memory of one block in bytes at G's row length on the card
+    (``padded(N)``): of the layout kind ("rank1", "cluster" or "slab"), or
+    where kind is None of the plan's layout if it has cs blocks, else of
+    the delayed layouts. The rank-1 layout's is ``rank1_smem``; the delayed
+    layouts' in elements of dtype: cs = 1
     (site_sweep_delayed_slab): the row and column slabs of every flavor and
     the staged a, b vectors of one site. cs > 1 (site_sweep_delayed_cluster,
     in ``column_passes`` passes P, or the most of PASSES[dtype] where none
@@ -117,6 +187,8 @@ def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
     block (rows of dk + 1) and its current diagonal, x, u, each site's delta
     and boson weight, the slots' sites and sigma, as
     csrc/site_sweep_delayed.cu::cluster_smem_elems counts them."""
+    if _kind(N, F, dk, cs, dtype, kind) == "rank1":
+        return rank1_smem(padded(N), F, *rank1_plan(N, F, dk, dtype))
     p = column_passes(N, F, dk, cs, dtype) or PASSES[dtype][-1]
     return _smem(N, F, dk, cs, dtype.itemsize, p)
 
@@ -134,33 +206,71 @@ def fits(N: int, F: int, dk: int, cs: int, dtype=torch.float32) -> bool:
     passes), and for a cluster 4 * cs | padded(N) (whole 4-row tiles per
     block)."""
     if cs == 1:
-        return smem_bytes(N, F, dk, 1, dtype) <= _build.SMEM_PER_BLOCK
+        return smem_bytes(N, F, dk, 1, dtype, "slab") <= _build.SMEM_PER_BLOCK
     return (padded(N) % (4 * cs) == 0
             and column_passes(N, F, dk, cs, dtype) is not None)
 
 
-def cluster_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
-    """CS, the blocks per chain: the first of CLUSTER_SIZES that fits; 1,
-    the one-block slab layout, where none does."""
+def delayed_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
+    """CS of the delayed layouts alone: the first of CLUSTER_SIZES that
+    fits; 1, the one-block slab layout, where none does."""
     for cs in CLUSTER_SIZES:
         if fits(N, F, dk, cs, dtype):
             return cs
     return 1
 
 
+def plan_layout(N: int, F: int, dk: int, dtype=torch.float32):
+    """The layout the wrappers launch at this shape: ("rank1", CS) where
+    ``rank1_plan`` takes it, else ("cluster", CS) or ("slab", 1) as
+    ``delayed_plan`` picks."""
+    r1 = rank1_plan(N, F, dk, dtype)
+    if r1 is not None:
+        return "rank1", r1[0]
+    cs = delayed_plan(N, F, dk, dtype)
+    return ("cluster" if cs > 1 else "slab"), cs
+
+
+def cluster_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
+    """CS, the blocks per chain of ``plan_layout``'s layout (1: the
+    one-block slab layout)."""
+    return plan_layout(N, F, dk, dtype)[1]
+
+
+def _kind(N, F, dk, cs, dtype, kind):
+    """kind, or where it is None the plan's layout if cs is None or the
+    plan's blocks per chain, else the delayed layout with cs blocks."""
+    if kind is not None:
+        return kind
+    plan_kind, plan_cs = plan_layout(N, F, dk, dtype)
+    if cs in (None, plan_cs):
+        return plan_kind
+    return "cluster" if cs > 1 else "slab"
+
+
 def layout(N: int, F: int, dk: int, cs: int = None,
-           dtype=torch.float32) -> str:
-    """The kernel's layout at this shape (or with cs blocks), in words."""
-    cs = cs or cluster_plan(N, F, dk, dtype)
+           dtype=torch.float32, kind=None) -> str:
+    """The kernel's layout in words: the plan's at this shape, or the one
+    of kind ("rank1", "cluster", "slab"), or the delayed layout with cs
+    blocks."""
+    kind = _kind(N, F, dk, cs, dtype, kind)
     pad = (f"G padded to {padded(N)} x {padded(N)}, "
            if padded(N) != N else "")
+    if kind == "rank1":
+        cs, tr = rank1_plan(N, F, dk, dtype)
+        NP = padded(N)
+        return (f"{pad}rank-1: cluster of {cs} blocks of {tr * NP // 2} "
+                f"threads per chain, {NP // cs} rows each on chip "
+                f"({rank1_regs(F)} rows a thread in registers), "
+                f"{rank1_smem(NP, F, cs, tr)} bytes per block")
+    cs = cs or delayed_plan(N, F, dk, dtype)
     if cs == 1:
         return f"{pad}slab: one block of 512 threads per chain"
     p = column_passes(N, F, dk, cs, dtype)
     return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
             f"{padded(N) // cs} rows each, {p} column "
             f"pass{'es' if p > 1 else ''}, "
-            f"{smem_bytes(N, F, dk, cs, dtype)} bytes per block")
+            f"{smem_bytes(N, F, dk, cs, dtype, 'cluster')} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.float32) -> bool:
@@ -168,10 +278,13 @@ def kernel_supports(N: int, F: int, dk: int, dtype=torch.float32) -> bool:
     padded to a multiple of 8 where 4 does not divide N: the fold's 4 x 4
     register tiles), F in {1, 2}, dk | N, and the layout's buffers within
     one block's shared memory (float64 at N = 256, dk = 32: clusters of 2
-    blocks, F = 2 in two column passes)."""
-    return (dtype in PASSES and N >= MIN_N and F in (1, 2)
-            and 1 <= dk and N % dk == 0
-            and fits(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
+    blocks, F = 2 in two column passes), or the rank-1 layout's (float64
+    at dk = 1)."""
+    if not (dtype in PASSES and N >= MIN_N and F in (1, 2)
+            and 1 <= dk and N % dk == 0):
+        return False
+    return (rank1_plan(N, F, dk, dtype) is not None
+            or fits(N, F, dk, delayed_plan(N, F, dk, dtype), dtype))
 
 
 @functools.cache
@@ -189,6 +302,19 @@ def max_clusters(F: int, N: int, dk: int, cs: int,
         code = lib.site_sweep_delayed_f32_max_clusters(
             F, padded(N), dk, cs, ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed (occupancy query)", code)
+    return out.value
+
+
+@functools.cache
+def rank1_max_clusters(F: int, N: int) -> int:
+    """The most clusters of the float64 rank-1 layout at this shape (dk =
+    1) that the card runs at once."""
+    out = ctypes.c_int(0)
+    cs, tr = rank1_plan(N, F, 1, torch.float64)
+    code = _build.load().site_sweep_delayed_f64_rank1_max_clusters(
+        F, padded(N), cs, tr, ctypes.addressof(out))
+    _build.check_launch("site_sweep_delayed_f64 (rank-1 occupancy query)",
+                        code)
     return out.value
 
 
@@ -278,25 +404,35 @@ def site_sweep_delayed_f64(G, sigma, u, *, dk, lamb, signs, det_power,
         return site_sweep_delayed_plain(G, sigma, u, **kw)
     _check(G, sigma, u, signs, dk, torch.float64)
     C, F, N, _ = G.shape
-    return launch(G, sigma, u, cluster_plan(N, F, dk, torch.float64), **kw)
+    kind, cs = plan_layout(N, F, dk, torch.float64)
+    return launch(G, sigma, u, cs, kind=kind, **kw)
 
 
-def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
-    """One launch of the CUDA kernel of G's dtype with cs blocks per chain
-    (``cluster_plan``'s, or another that fits, to time two layouts against
-    each other), in ``column_passes`` passes, on G padded to ``padded(N)``
-    where 4 does not divide N; counted in the launches of
-    ``site_sweep_delayed`` or ``site_sweep_delayed_f64``. Returns (G, sigma,
-    acc, nneg, neg), neg None in float32."""
+def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
+           kind=None):
+    """One launch of the CUDA kernel of G's dtype: the rank-1 layout (kind
+    "rank1": ``rank1_plan``'s, cs unused), or the delayed layout with cs
+    blocks per chain (``delayed_plan``'s, or another that fits, to time two
+    layouts against each other) in ``column_passes`` passes; on G padded
+    to ``padded(N)`` where 4 does not divide N; counted in the launches of
+    ``site_sweep_delayed`` or ``site_sweep_delayed_f64``. Returns (G,
+    sigma, acc, nneg, neg), neg None in float32."""
     f64 = G.dtype == torch.float64
     C, F, N = _check(G, sigma, u, signs, dk, G.dtype)
-    if not fits(N, F, dk, cs, G.dtype):
+    rank1 = kind == "rank1"
+    if rank1:
+        plan = rank1_plan(N, F, dk, G.dtype)
+        if plan is None:
+            raise ValueError(
+                f"site_sweep_delayed: the rank-1 layout does not take N={N}, "
+                f"F={F}, dk={dk} in {str(G.dtype)[6:]}")
+        cs, tr = plan
+    elif not fits(N, F, dk, cs, G.dtype):
         raise ValueError(
             f"site_sweep_delayed: {cs} blocks per chain do not take "
             f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
-            f"({smem_bytes(N, F, dk, cs, G.dtype)} bytes of shared memory "
-            "per block)")
-    passes = column_passes(N, F, dk, cs, G.dtype)
+            f"({smem_bytes(N, F, dk, cs, G.dtype, 'cluster')} bytes of "
+            "shared memory per block)")
     NP = padded(N)
     if NP != N:
         Gp = G.new_zeros(C, F, NP, NP)
@@ -319,15 +455,21 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
             int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
     scr = 0 if scratch is None else scratch.data_ptr()
     with torch.cuda.device(G.device):
-        if cs > 1 and max_clusters(F, N, dk, cs, G.dtype) < 1:
+        at_once = (rank1_max_clusters(F, N) if rank1
+                   else max_clusters(F, N, dk, cs, G.dtype) if cs > 1
+                   else 1)
+        if at_once < 1:
             raise RuntimeError(
                 f"site_sweep_delayed: the card cannot run a cluster of {cs} "
-                f"blocks with {smem_bytes(N, F, dk, cs, G.dtype)} bytes of "
-                "shared memory each")
-        if f64:
+                f"blocks with {smem_bytes(N, F, dk, cs, G.dtype, kind)} bytes "
+                "of shared memory each")
+        if rank1:
+            code = lib.site_sweep_delayed_f64_rank1(
+                *head, neg.data_ptr(), C, F, NP, N, cs, tr, *tail)
+        elif f64:
             code = lib.site_sweep_delayed_f64(
-                *head, neg.data_ptr(), scr, C, F, NP, N, int(dk), cs, passes,
-                *tail)
+                *head, neg.data_ptr(), scr, C, F, NP, N, int(dk), cs,
+                column_passes(N, F, dk, cs, G.dtype), *tail)
         else:
             code = lib.site_sweep_delayed_f32(*head, scr, C, F, NP, N,
                                               int(dk), cs, *tail)
@@ -359,7 +501,7 @@ def _check(G, sigma, u, signs, dk, dtype):
     if not kernel_supports(N, F, dk, dtype) or len(signs) != F:
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
                          f"(N >= {MIN_N}, F in (1, 2), dk | N, "
-                         f"{smem_bytes(N, F, dk, 1, dtype)} of "
+                         f"{smem_bytes(N, F, dk, 1, dtype, 'slab')} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):

@@ -23,7 +23,9 @@ in K8's order.
 On the card, ``cluster_plan`` picks the kernel's layout from the shape: one
 thread-block cluster of CS = 2 or 4 blocks per chain, each block folding N/CS
 rows of G, or, where the cluster's buffers do not fit, one block per chain
-with the slabs above.
+with the slabs above. At dk = 1 in complex128 it picks the rank-1 layout
+(``rank1_plan``, ``csrc/site_sweep_rank1.cuh``, K6-f64's) wherever that
+fits: G on chip for the whole launch, one cluster barrier per site.
 
 ``site_sweep_delayed_cx_c128`` is the same kernel in complex128 (K9-c128):
 it replaces the XLA loops the JAX package runs for complex128 updates past
@@ -52,6 +54,7 @@ import torch
 
 from . import _build
 from .site_sweep import MAX_N
+from .site_sweep_delayed import rank1_geometry, rank1_regs, rank1_smem
 
 MIN_N = MAX_N + 1        # K8 (ops/site_sweep_cx.py) takes N <= 128
 # the cluster sizes (blocks per chain) in the order cluster_plan tries
@@ -63,7 +66,14 @@ CLUSTER_SIZES = (2, 4)
 PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
                    "fold"),
           "cluster": ("setup and copy", "cluster barriers", "diagonal block",
-                      "decisions", "y and b vectors", "fold")}
+                      "decisions", "y and b vectors", "fold"),
+          # csrc/site_sweep_rank1.cuh (complex128, dk = 1)
+          "rank1": ("load and store", "signal wait", "decision",
+                    "next row and column", "fold of the rest"),
+          # site_sweep_delayed_cx_flavors (complex128, F = 2)
+          "flavors": ("setup and copy", "cluster barrier", "diagonal block",
+                      "decisions and flavor exchange", "y and b vectors",
+                      "fold")}
 
 
 # the column passes of the cluster layout, in the order ``plan`` tries them,
@@ -71,6 +81,60 @@ PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
 # measured) and takes two at F = 2, N = 256, dk = 32; complex128 buffers
 # take twice the bytes
 PASSES = {torch.complex64: (1, 2), torch.complex128: (1, 2, 4)}
+
+
+# the rank-1 layout at dk = 1 (csrc/site_sweep_rank1.cuh): the types of G it
+# is built for
+RANK1_DTYPES = (torch.complex128,)
+
+
+def rank1_plan(N: int, F: int, dk: int, dtype=torch.complex64):
+    """(cs, tr) of the rank-1 layout where the plan takes it: dk = 1, N past
+    128, complex128, and a geometry that fits (``site_sweep_delayed.
+    rank1_geometry`` at ``padded(N)``, a 16-byte unit per element); else
+    None."""
+    if dk != 1 or dtype not in RANK1_DTYPES or N < MIN_N:
+        return None
+    return rank1_geometry(padded(N), F, cx=True)
+
+
+# the flavor layout of complex128 at F = 2 (site_sweep_delayed_cx_flavors):
+# its (column passes, row passes) in the order flavors_plan tries them
+FLAVOR_PASSES = ((1, 1), (2, 1), (1, 2), (2, 2))
+
+
+def flavors_smem(N: int, dk: int, p: int, r: int) -> int:
+    """Shared memory of one block of the flavor layout in bytes (complex128,
+    G of row length padded(N)): re and im planes of b over N/p columns and
+    y over N/r rows, the staged tables, their entries at the slots' sites,
+    the diagonal block, its diagonal and x; u, delta, the boson weight and
+    the peer flavor's r per site; the slots' sites, their count and a flag
+    per site; sigma (csrc/site_sweep_delayed_cx.cu::flavors_smem_bytes)."""
+    N = padded(N)
+    return (8 * (2 * dk * (N // p) + 2 * dk * (N // r) + 4 * dk * staged_ld(dk)
+                 + 4 * dk * dk + 2 * dk * (dk + 1) + 4 * dk + 5 * N)
+            + 4 * (dk + 4 + N) + N)
+
+
+def flavors_plan(N: int, F: int, dk: int, dtype=torch.complex64):
+    """(P, R) of the flavor layout where the plan takes it: complex128 at
+    F = 2 past N = 128 wherever the delayed cluster layout would need two
+    flavor stages (or fits not at all): the first of FLAVOR_PASSES with
+    whole passes (2 | N/P, 4 | N/R, dk | N/R where R > 1) whose buffers fit
+    one block's shared memory; else None."""
+    if (dtype != torch.complex128 or F != 2 or N < MIN_N or dk < 1
+            or N % dk or dk == 1):
+        return None
+    cs = delayed_plan(N, F, dk, dtype)
+    if cs > 1 and plan(N, F, dk, cs, dtype)[1] == 1:
+        return None
+    NP = padded(N)
+    for p, r in FLAVOR_PASSES:
+        if (NP % p == 0 and (NP // p) % 2 == 0 and NP % r == 0
+                and (NP // r) % 4 == 0 and (r == 1 or (NP // r) % dk == 0)
+                and flavors_smem(N, dk, p, r) <= _build.SMEM_PER_BLOCK):
+            return p, r
+    return None
 
 
 def padded(N: int) -> int:
@@ -109,9 +173,13 @@ def plan(N: int, F: int, dk: int, cs: int, dtype=torch.complex64):
 
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
-               dtype=torch.complex64) -> int:
-    """Shared memory of one block, real planes of dtype's precision, at G's
-    row length on the card (``padded(N)``). cs = 1
+               dtype=torch.complex64, kind=None) -> int:
+    """Shared memory of one block in bytes at G's row length on the card
+    (``padded(N)``): of the layout kind ("rank1", "flavors", "cluster" or
+    "slab"), or where kind is None of the plan's layout if it has cs
+    blocks, else of the delayed layouts. The rank-1 layout's is
+    ``rank1_smem``, the flavor layout's ``flavors_smem``; the delayed
+    layouts' in real planes of dtype's precision: cs = 1
     (site_sweep_delayed_cx_slab): the row and column slabs of every flavor
     as two planes (column rows padded to N+1) and the staged y and row
     vectors of one site, both planes. cs > 1 (site_sweep_delayed_cx_cluster,
@@ -124,6 +192,12 @@ def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
     diagonal and x; u, each site's delta and boson weight, the slots' sites
     and sigma, as csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts
     them."""
+    kind = _kind(N, F, dk, cs, dtype, kind)
+    if kind == "rank1":
+        return rank1_smem(padded(N), F, *rank1_plan(N, F, dk, dtype),
+                          cx=True)
+    if kind == "flavors":
+        return flavors_smem(N, dk, *flavors_plan(N, F, dk, dtype))
     p, stages = plan(N, F, dk, cs, dtype) or (PASSES[dtype][-1], F)
     return _smem(N, F, dk, cs, dtype.itemsize // 2, p, stages)
 
@@ -141,26 +215,73 @@ def fits(N: int, F: int, dk: int, cs: int, dtype=torch.complex64) -> bool:
     passes and flavor stages), and for a cluster 4 * cs | padded(N) (whole
     4-row tiles per block)."""
     if cs == 1:
-        return smem_bytes(N, F, dk, 1, dtype) <= _build.SMEM_PER_BLOCK
+        return smem_bytes(N, F, dk, 1, dtype, "slab") <= _build.SMEM_PER_BLOCK
     return (padded(N) % (4 * cs) == 0
             and plan(N, F, dk, cs, dtype) is not None)
 
 
-def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
-    """CS, the blocks per chain: the first of CLUSTER_SIZES that fits; 1,
-    the one-block slab layout, where none does."""
+def delayed_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
+    """CS of the delayed layouts alone: the first of CLUSTER_SIZES that
+    fits; 1, the one-block slab layout, where none does."""
     for cs in CLUSTER_SIZES:
         if fits(N, F, dk, cs, dtype):
             return cs
     return 1
 
 
+def plan_layout(N: int, F: int, dk: int, dtype=torch.complex64):
+    """The layout the wrappers launch at this shape: ("rank1", CS) where
+    ``rank1_plan`` takes it, ("flavors", 2) where ``flavors_plan`` does,
+    else ("cluster", CS) or ("slab", 1) as ``delayed_plan`` picks."""
+    r1 = rank1_plan(N, F, dk, dtype)
+    if r1 is not None:
+        return "rank1", r1[0]
+    if flavors_plan(N, F, dk, dtype) is not None:
+        return "flavors", 2
+    cs = delayed_plan(N, F, dk, dtype)
+    return ("cluster" if cs > 1 else "slab"), cs
+
+
+def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
+    """CS, the blocks per chain of ``plan_layout``'s layout (1: the
+    one-block slab layout)."""
+    return plan_layout(N, F, dk, dtype)[1]
+
+
+def _kind(N, F, dk, cs, dtype, kind):
+    """kind, or where it is None the plan's layout if cs is None or the
+    plan's blocks per chain, else the delayed layout with cs blocks."""
+    if kind is not None:
+        return kind
+    plan_kind, plan_cs = plan_layout(N, F, dk, dtype)
+    if cs in (None, plan_cs):
+        return plan_kind
+    return "cluster" if cs > 1 else "slab"
+
+
 def layout(N: int, F: int, dk: int, cs: int = None,
-           dtype=torch.complex64) -> str:
-    """The kernel's layout at this shape (or with cs blocks), in words."""
-    cs = cs or cluster_plan(N, F, dk, dtype)
+           dtype=torch.complex64, kind=None) -> str:
+    """The kernel's layout in words: the plan's at this shape, or the one
+    of kind ("rank1", "flavors", "cluster", "slab"), or the delayed layout
+    with cs blocks."""
+    kind = _kind(N, F, dk, cs, dtype, kind)
     pad = (f"G padded to {padded(N)} x {padded(N)}, "
            if padded(N) != N else "")
+    if kind == "flavors":
+        p, r = flavors_plan(N, F, dk, dtype)
+        return (f"{pad}flavors: cluster of 2 blocks of 512 threads per "
+                f"chain, one flavor each, {r} row pass"
+                f"{'es' if r > 1 else ''} and {p} column "
+                f"pass{'es' if p > 1 else ''}, "
+                f"{flavors_smem(N, dk, p, r)} bytes per block")
+    if kind == "rank1":
+        cs, tr = rank1_plan(N, F, dk, dtype)
+        NP = padded(N)
+        return (f"{pad}rank-1: cluster of {cs} blocks of {tr * NP} "
+                f"threads per chain, {NP // cs} rows each on chip "
+                f"({rank1_regs(F)} rows a thread in registers), "
+                f"{rank1_smem(NP, F, cs, tr, cx=True)} bytes per block")
+    cs = cs or delayed_plan(N, F, dk, dtype)
     if cs == 1:
         return f"{pad}slab: one block of 512 threads per chain"
     p, stages = plan(N, F, dk, cs, dtype)
@@ -168,7 +289,7 @@ def layout(N: int, F: int, dk: int, cs: int = None,
     return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
             f"{padded(N) // cs} rows each, {p} column "
             f"pass{'es' if p > 1 else ''}{st}, "
-            f"{smem_bytes(N, F, dk, cs, dtype)} bytes per block")
+            f"{smem_bytes(N, F, dk, cs, dtype, 'cluster')} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
@@ -177,10 +298,14 @@ def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
     dk | N, and the layout's buffers within one block's shared memory (at
     N = 256, dk = 32: complex64 F = 1 in one column pass, F = 2 in two;
     complex128 F = 1 in clusters of 2 blocks and two column passes, F = 2
-    in clusters of 4 blocks, two flavor stages and four passes)."""
-    return (dtype in PASSES and N >= MIN_N and F in (1, 2)
-            and 1 <= dk and N % dk == 0
-            and fits(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
+    in clusters of 4 blocks, two flavor stages and four passes), or the
+    rank-1 layout's (complex128 at dk = 1)."""
+    if not (dtype in PASSES and N >= MIN_N and F in (1, 2)
+            and 1 <= dk and N % dk == 0):
+        return False
+    return (rank1_plan(N, F, dk, dtype) is not None
+            or flavors_plan(N, F, dk, dtype) is not None
+            or fits(N, F, dk, delayed_plan(N, F, dk, dtype), dtype))
 
 
 @functools.cache
@@ -195,6 +320,32 @@ def max_clusters(F: int, N: int, dk: int, cs: int,
     code = fn(F, padded(N), dk, cs, *plan(N, F, dk, cs, dtype),
               ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed_cx (occupancy query)", code)
+    return out.value
+
+
+@functools.cache
+def rank1_max_clusters(F: int, N: int) -> int:
+    """The most clusters of the complex128 rank-1 layout at this shape (dk =
+    1) that the card runs at once."""
+    out = ctypes.c_int(0)
+    cs, tr = rank1_plan(N, F, 1, torch.complex128)
+    code = _build.load().site_sweep_delayed_cx_c128_rank1_max_clusters(
+        F, padded(N), cs, tr, ctypes.addressof(out))
+    _build.check_launch("site_sweep_delayed_cx_c128 (rank-1 occupancy query)",
+                        code)
+    return out.value
+
+
+@functools.cache
+def flavors_max_clusters(N: int, dk: int) -> int:
+    """The most clusters of the complex128 flavor layout at this shape that
+    the card runs at once."""
+    out = ctypes.c_int(0)
+    p, r = flavors_plan(N, 2, dk, torch.complex128)
+    code = _build.load().site_sweep_delayed_cx_c128_flavors_max_clusters(
+        padded(N), dk, p, r, ctypes.addressof(out))
+    _build.check_launch("site_sweep_delayed_cx_c128 (flavor occupancy query)",
+                        code)
     return out.value
 
 
@@ -304,25 +455,35 @@ def _sweep(fn, dtype, G, sigma, u, **kw):
         return site_sweep_delayed_cx_plain(G, sigma, u, **kw)
     _check(G, sigma, u, kw["signs"], kw["dk"], kw["det_power"], dtype)
     C, F, N, _ = G.shape
-    return launch(G, sigma, u, cluster_plan(N, F, kw["dk"], dtype), **kw)
+    kind, cs = plan_layout(N, F, kw["dk"], dtype)
+    return launch(G, sigma, u, cs, kind=kind, **kw)
 
 
-def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
-    """One launch of the CUDA kernel of G's dtype with cs blocks per chain
-    (``cluster_plan``'s, or another that fits, to time two layouts against
-    each other), in ``plan``'s column passes and flavor stages, on G padded
+def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
+           kind=None):
+    """One launch of the CUDA kernel of G's dtype: the rank-1 layout (kind
+    "rank1": ``rank1_plan``'s, cs unused), the flavor layout ("flavors":
+    ``flavors_plan``'s), or the delayed layout with cs blocks per chain
+    (``delayed_plan``'s, or another that fits, to time two layouts against
+    each other) in ``plan``'s column passes and flavor stages; on G padded
     to ``padded(N)`` where 8 does not divide N; counted in
     ``site_sweep_delayed_cx.launches`` (complex64) or
     ``site_sweep_delayed_cx_c128.launches`` (complex128)."""
     c128 = G.dtype == torch.complex128
     C, F, N = _check(G, sigma, u, signs, dk, det_power, G.dtype)
-    if not fits(N, F, dk, cs, G.dtype):
+    fp64_layout = {"rank1": rank1_plan, "flavors": flavors_plan}.get(kind)
+    if fp64_layout is not None:
+        geometry = fp64_layout(N, F, dk, G.dtype)
+        if geometry is None:
+            raise ValueError(
+                f"site_sweep_delayed_cx: the {kind} layout does not take "
+                f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]}")
+    elif not fits(N, F, dk, cs, G.dtype):
         raise ValueError(
             f"site_sweep_delayed_cx: {cs} blocks per chain do not take "
             f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
-            f"({smem_bytes(N, F, dk, cs, G.dtype)} bytes of shared memory "
-            "per block)")
-    passes, stages = plan(N, F, dk, cs, G.dtype)
+            f"({smem_bytes(N, F, dk, cs, G.dtype, 'cluster')} bytes of "
+            "shared memory per block)")
     NP = padded(N)
     if NP != N:
         Gp = G.new_zeros(C, F, NP, NP)
@@ -335,24 +496,35 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson):
     # slab layout: the accepted sites' y and row vectors of one block, re
     # and im planes
     scratch = (torch.empty(4, C, F, dk, NP, dtype=u.dtype, device=G.device)
-               if cs == 1 else None)
+               if cs == 1 and fp64_layout is None else None)
     lib = _build.load()
     head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
-            det.data_ptr(), 0 if scratch is None else scratch.data_ptr(), C,
-            F, NP, N, int(dk), cs, passes, stages)
+            det.data_ptr())
     tail = (float(lamb), float(signs[0]), float(signs[-1]), int(det_power),
             int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(G.device):
-        if cs > 1 and max_clusters(F, N, dk, cs, G.dtype) < 1:
+        at_once = (rank1_max_clusters(F, N) if kind == "rank1"
+                   else flavors_max_clusters(N, dk) if kind == "flavors"
+                   else max_clusters(F, N, dk, cs, G.dtype) if cs > 1
+                   else 1)
+        if at_once < 1:
             raise RuntimeError(
-                f"site_sweep_delayed_cx: the card cannot run a cluster of {cs}"
-                f" blocks with {smem_bytes(N, F, dk, cs, G.dtype)} bytes of "
-                "shared memory each")
-        if c128:
-            code = lib.site_sweep_delayed_cx_c128(*head, *tail)
+                f"site_sweep_delayed_cx: the card cannot run the layout's "
+                f"clusters ({smem_bytes(N, F, dk, cs, G.dtype, kind)} bytes "
+                "of shared memory a block)")
+        if kind == "rank1":
+            code = lib.site_sweep_delayed_cx_c128_rank1(
+                *head, C, F, NP, N, *geometry, *tail)
+        elif kind == "flavors":
+            code = lib.site_sweep_delayed_cx_c128_flavors(
+                *head, C, NP, N, dk, *geometry, *tail)
         else:
-            code = lib.site_sweep_delayed_cx_c64(*head, *tail)
+            passes, stages = plan(N, F, dk, cs, G.dtype)
+            fn = (lib.site_sweep_delayed_cx_c128 if c128
+                  else lib.site_sweep_delayed_cx_c64)
+            code = fn(*head, 0 if scratch is None else scratch.data_ptr(), C,
+                      F, NP, N, int(dk), cs, passes, stages, *tail)
     fn = site_sweep_delayed_cx_c128 if c128 else site_sweep_delayed_cx
     _build.check_launch(fn.__name__, code)
     fn.launches += 1
@@ -383,7 +555,7 @@ def _check(G, sigma, u, signs, dk, det_power, dtype):
             or det_power not in (1, 2)):
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
                          f"(N >= {MIN_N}, F in (1, 2), dk | N, "
-                         f"{smem_bytes(N, F, dk, 1, dtype)} of "
+                         f"{smem_bytes(N, F, dk, 1, dtype, 'slab')} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout; det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):

@@ -1231,6 +1231,61 @@ def test_site_sweep_delayed_cx_c128_kernel_matches_plain(cuda, model, C, N,
     assert (out_k[0] - out_p[0]).abs().max().item() <= 1e-10
 
 
+# the layouts of the FP64 instances redesigned for the card: (kind, model,
+# chains, N, dk, diagonal spread): the rank-1 layout of K6-f64 and K9-c128
+# at dk = 1 (l15_f64's, the 13x13's, F = 2, flux14_c128's, and N = 130 and
+# 250, whose padded rows and columns the sweep never visits) and K9-c128's
+# flavor layout at F = 2, N = 256, dk = 32 (rep_flux16_c128's)
+REDESIGNED = [
+    ("f64", "attractive", 64, 225, 1, 0.0), ("f64", "attractive", 64, 169, 1,
+                                             0.0),
+    ("f64", "repulsive", 64, 144, 1, 0.8), ("f64", "attractive", 8, 130, 1,
+                                            0.0),
+    ("f64", "repulsive", 8, 250, 1, 0.8), ("c128", "attractive", 64, 196, 1,
+                                           0.0),
+    ("c128", "repulsive", 64, 144, 1, 0.0), ("c128", "repulsive", 64, 256,
+                                             32, 0.0),
+    ("c128", "attractive", 8, 250, 1, 0.0), ("c128", "repulsive", 8, 130, 1,
+                                             0.0)]
+
+
+@pytest.mark.parametrize("kind,model,C,N,dk,spread", REDESIGNED)
+def test_fp64_redesigned_layouts_bit_equal(cuda, kind, model, C, N, dk,
+                                           spread):
+    """The rank-1 and flavor layouts against the unchanged plain versions:
+    G bit-equal (max|dG| 0), sigma, the counts or accept flags and
+    detratios, and K6-f64's negative-weight magnitudes identical; 50
+    relaunches bit-equal to the first; the wrapper runs the plan's layout
+    and counts one launch."""
+    kw = dict(lamb=LAMB, dk=dk, **MODELS[model])
+    F = len(kw["signs"])
+    if kind == "f64":
+        G, sigma, u = _f64_inputs(cuda, N + dk + 7, C, F, N, spread)
+        mod, fn = ssd, ssd.site_sweep_delayed_f64
+        plain, dtype = ssd.site_sweep_delayed_plain, torch.float64
+    else:
+        G, sigma, u = cx_sweep_inputs(N + dk + 7, C, F, N)
+        G, sigma = (torch.from_numpy(x).to(cuda) for x in
+                    (G.astype(np.complex128), sigma))
+        u = torch.from_numpy(u.astype(np.float64)).to(cuda)
+        mod, fn = ssdcx, ssdcx.site_sweep_delayed_cx_c128
+        plain, dtype = ssdcx.site_sweep_delayed_cx_plain, torch.complex128
+    assert mod.plan_layout(N, F, dk, dtype)[0] == (
+        "rank1" if dk == 1 else "flavors")
+    n0 = fn.launches
+    out_k = fn(G, sigma, u, **kw)
+    assert fn.launches == n0 + 1
+    out_p = plain(G, sigma, u, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k[0], out_p[0])
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b.to(a.dtype))
+    assert 0 < (out_k[1] != sigma).sum().item() < C * N
+    for _ in range(50):
+        again = fn(G, sigma, u, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+
+
 def test_fp64_wrappers_check_inputs(cuda):
     """The new wrappers refuse what their kernels do not take."""
     kw = dict(lamb=LAMB, **MODELS["attractive"])

@@ -743,6 +743,7 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
     assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
+                                                  "site_sweep_rank1.cuh",
                                                   "site_sweep_tiled.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
@@ -771,7 +772,14 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_f64_max_clusters", "site_sweep_delayed_f64_stamps",
         "site_sweep_cx_c128", "site_sweep_delayed_cx_c128",
         "site_sweep_delayed_cx_c128_max_clusters",
-        "site_sweep_delayed_cx_c128_stamps"}
+        "site_sweep_delayed_cx_c128_stamps",
+        # the rank-1 layouts at dk = 1 and K9-c128's flavor layout
+        "site_sweep_delayed_f64_rank1",
+        "site_sweep_delayed_f64_rank1_max_clusters",
+        "site_sweep_delayed_cx_c128_rank1",
+        "site_sweep_delayed_cx_c128_rank1_max_clusters",
+        "site_sweep_delayed_cx_c128_flavors",
+        "site_sweep_delayed_cx_c128_flavors_max_clusters"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

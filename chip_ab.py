@@ -32,6 +32,12 @@ largest difference). Needs CUDA.
                        l15_f64, flux14_c128 and rep_flux16_c128 runs'
                        inputs (chip_smoke.py's fp64_run_inputs), in the
                        layout each checkout's plan picks
+  site_sweep_delayed_cx_c128 (64, 2, 196, 196)  K9-c128 at F = 2, dk = 1
+                       (the repulsive 14x14 in a flux, rep_flux14_c128)
+  site_sweep_delayed_f64 (16, 1, 225, 225)      the same four shapes at
+  site_sweep_delayed_cx_c128 (16, 1, 196, 196)  16 chains, DQMC's
+  site_sweep_delayed_cx_c128 (16, 2, 256, 256)  default chain count
+  site_sweep_delayed_cx_c128 (16, 2, 196, 196)
   site_sweep (256, 1, 64, 64)       K1 on the headline's inputs, K8 on the
   site_sweep_cx (256, 1, 64, 64)    complex configuration's and on
   site_sweep_cx (256, 1, 128, 128)  chain128's, made the same way
@@ -141,15 +147,15 @@ def _delayed(complex_):
     return make
 
 
-def _fp64_run(run):
+def _fp64_run(run, chains=64):
     """K6-f64 or K9-c128 on phase 3's inputs of an item 4 run
-    (chip_smoke.py's fp64_run_inputs), through the wrapper: the layout the
-    checkout's plan picks."""
+    (chip_smoke.py's fp64_run_inputs) at chains chains, through the
+    wrapper: the layout the checkout's plan picks."""
     def make():
         import torch
         from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
         from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
-        G, sigma, u, kw = _smoke().fp64_run_inputs(run)
+        G, sigma, u, kw, _ = _smoke().fp64_run_inputs(run, chains)
         fn = (ssd.site_sweep_delayed_f64 if G.dtype == torch.float64
               else ssdcx.site_sweep_delayed_cx_c128)
         return lambda: fn(G, sigma, u, **kw)
@@ -217,6 +223,15 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
              _fp64_run("flux14_c128"),
          "site_sweep_delayed_cx_c128 (64, 2, 256, 256)":
              _fp64_run("rep_flux16_c128"),
+         "site_sweep_delayed_cx_c128 (64, 2, 196, 196)":
+             _fp64_run("rep_flux14_c128"),
+         "site_sweep_delayed_f64 (16, 1, 225, 225)": _fp64_run("l15_f64", 16),
+         "site_sweep_delayed_cx_c128 (16, 1, 196, 196)":
+             _fp64_run("flux14_c128", 16),
+         "site_sweep_delayed_cx_c128 (16, 2, 256, 256)":
+             _fp64_run("rep_flux16_c128", 16),
+         "site_sweep_delayed_cx_c128 (16, 2, 196, 196)":
+             _fp64_run("rep_flux14_c128", 16),
          "site_sweep (256, 1, 64, 64)": _sweep(False),
          "site_sweep_cx (256, 1, 64, 64)": _sweep(True),
          "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1),

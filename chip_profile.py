@@ -404,15 +404,15 @@ def stamps(which):
         G, sigma, u, kw, ctx, _ = smoke.delayed_inputs(complex_=cx)
         C, F, N, _ = G.shape
         dk = kw["dk"]
-        cs = mod.cluster_plan(N, F, dk)
-        call = lambda: mod.launch(G, sigma, u, cs, **kw)
+        lay = mod.plan_layout(N, F, dk, G.dtype, C)
+        call = lambda: mod.launch(G, sigma, u, lay, **kw)
         ms = 1e3 * timed(call, 20)
         n_acc = int(call()[2].sum())
-        rows = _stamp_rows(readout, C * cs)
+        rows = _stamp_rows(readout, C * lay.cs)
         _print_stamps(f"{label} {tuple(G.shape)} {str(G.dtype)[6:]} dk={dk}, "
-                      f"{n_acc} of {C * N} sites accepted, {C * cs} blocks "
-                      f"({mod.layout(N, F, dk, cs)})", label, rows,
-                      mod.PHASES["slab" if cs == 1 else "cluster"], ms)
+                      f"{n_acc} of {C * N} sites accepted, {C * lay.cs} "
+                      f"blocks ({mod.layout(N, F, dk, lay)})", label, rows,
+                      mod.PHASES[lay.kind], ms)
     for label, mod, fn, readout, shape, cx in (
             ("K10", qcx, qcx.qr_cx, "qr_cx_c64", (256, 64), True),
             ("K10", qcx, qcx.qr_cx, "qr_cx_c64", (256, 128), True),
@@ -486,27 +486,30 @@ def stamps(which):
                       _stamp_rows("site_sweep_f32", C), ss.PHASES, ms)
     # K6-f64 and K9-c128 at the item 4 runs' shapes on their session inputs
     # (chip_smoke.py's phase 3 rows): the rank-1 layout at dk = 1 (l15_f64,
-    # flux14_c128) and the flavor layout at F = 2, dk = 32 (rep_flux16_c128)
+    # flux14_c128, and in clusters of 8 rep_flux14_c128) and the flavor
+    # layout at F = 2, dk = 32 (rep_flux16_c128)
     for label, run, readout in (
             ("K6-f64", "l15_f64", "site_sweep_delayed_f64"),
             ("K9-c128", "flux14_c128", "site_sweep_delayed_cx_c128"),
+            ("K9-c128", "rep_flux14_c128", "site_sweep_delayed_cx_c128"),
             ("K9-c128", "rep_flux16_c128", "site_sweep_delayed_cx_c128")):
         if label not in which:
             continue
-        G, sigma, u, kw = smoke.fp64_run_inputs(run)
+        G, sigma, u, kw, _ = smoke.fp64_run_inputs(run)
         mod = ssd if label == "K6-f64" else ssdcx
         C, F, N, _ = G.shape
-        kind, cs = mod.plan_layout(N, F, kw["dk"], G.dtype)
+        lay = mod.plan_layout(N, F, kw["dk"], G.dtype, C)
         fn = (ssd.site_sweep_delayed_f64 if label == "K6-f64"
               else ssdcx.site_sweep_delayed_cx_c128)
         call = lambda: fn(G, sigma, u, **kw)
         ms = 1e3 * timed(call, 20)
         n_acc = int((call()[1] != sigma).sum())
-        where = mod.layout(N, F, kw["dk"], dtype=G.dtype)
+        where = mod.layout(N, F, kw["dk"], lay, G.dtype)
         _print_stamps(f"{label} {run} {tuple(G.shape)} {str(G.dtype)[6:]} "
                       f"dk={kw['dk']}, {n_acc} of {C * N} sites accepted, "
-                      f"{C * cs} blocks ({where})", f"{label} {run}",
-                      _stamp_rows(readout, C * cs), mod.PHASES[kind], ms,
+                      f"{C * lay.cs} blocks ({where})", f"{label} {run}",
+                      _stamp_rows(readout, C * lay.cs), mod.PHASES[lay.kind],
+                      ms,
                       sites=N)
     if "K13" in which:
         # the fusewrap run's shape, each direction: one block per chain

@@ -123,7 +123,7 @@ failure and prints no result line then):
               pure-gauge phases, 64 chains (K9-c128 on G padded to 200);
               10x10 repulsive with them, 256 chains (K8-c128 at F = 2 on
               clusters of 2 blocks); 16x16 repulsive with them, 64 chains,
-              delay 32 (K9-c128 at F = 2 in two flavor stages); each beside
+              delay 32 (K9-c128 at F = 2 in the flavor layout); each beside
               the library QR, the complex runs' <s> within PHASE_TOL_C128 of
               1 with no imaginary probability, the repulsive runs held to
               the repulsive anchors; after each run its first slice visit
@@ -325,7 +325,7 @@ FP64_THERM, FP64_SWEEPS = 1, 1
 # K9-c128 on G padded to 200), rep_flux10_c128 (10x10 repulsive with
 # them, 256 chains: K8-c128 at F = 2 on clusters of 2 blocks) and
 # rep_flux16_c128 (16x16 repulsive with them, 64 chains, delay auto 32:
-# K9-c128 at F = 2 in two flavor stages); the complex128 runs' |<s> - 1|
+# K9-c128 at F = 2 in the flavor layout); the complex128 runs' |<s> - 1|
 # (complex16_c128 read 3.8e-13 on an H100 80GB HBM3 at 700 W)
 ITEM4_CHAINS, ITEM4_REP10_CHAINS = 64, 256
 PHASE_TOL_C128 = 1e-9
@@ -522,7 +522,7 @@ KERNEL_INFO = {
     # at N = 225 (G padded to 232; at dk = 1 the JAX package's rank-1
     # loop), K9-c128 at N = 196 (G padded to 200), K8-c128 at F = 2, N = 100
     # (a cluster of 2 blocks per chain) and K9-c128 at F = 2, N = 256,
-    # dk = 32 (two flavor stages)
+    # dk = 32 (64 chains: the flavor layout)
     "site_sweep_delayed_f64_225": (
         "montecarlo_tpu_torch/csrc/site_sweep_delayed.cu",
         "montecarlo_tpu/dqmc/core.py:560"),
@@ -1412,7 +1412,7 @@ def parity_delayed(results):
     G, sigma, u, kw, ctx, gen = delayed_inputs(complex_=True)
     out_k = ssdcx.site_sweep_delayed_cx(G, sigma, u, **kw)
     shape = tuple(G.shape)
-    where = ssdcx.layout(ctx.N, ctx.F, kw["dk"])
+    where = ssdcx.layout(ctx.N, ctx.F, kw["dk"], chains=shape[0])
     err = check_sweep(f"site_sweep_delayed_cx dk={kw['dk']} [{where}]", out_k,
                       ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, **kw),
                       shape, relative=True)
@@ -1494,7 +1494,8 @@ def parity_fp64(results):
 
     def layout(mod, inputs, dtype):
         ctx, dk = inputs[4], inputs[3]["dk"]
-        return f"dk={dk} [{mod.layout(ctx.N, ctx.F, dk, dtype=dtype)}]"
+        return (f"dk={dk} [{mod.layout(ctx.N, ctx.F, dk, dtype=dtype,
+                                        chains=inputs[0].shape[0])}]")
 
     k6 = [with_dk(slice_inputs(headline_model(False, L16), L16_CHAINS, 5,
                                **f64), 32),
@@ -1586,26 +1587,31 @@ def item4_row(label, fn, plain, inputs, layout):
     return row
 
 
-def fp64_run_inputs(run):
-    """(G, sigma, u, keywords) of phase 3's row of an item 4 run, as
-    parity_item4 makes them (its seeds): l15_f64 (64, 1, 225, 225) float64,
-    flux14_c128 (64, 1, 196, 196) and rep_flux16_c128 (64, 2, 256, 256)
-    complex128, at the session's delay (dk = max(delay, 1)); for
+def fp64_run_inputs(run, chains=ITEM4_CHAINS):
+    """(G, sigma, u, keywords, ctx) of phase 3's row of an item 4 run (its
+    seed): l15_f64 (64, 1, 225, 225) float64, flux14_c128 (64, 1, 196, 196)
+    and rep_flux16_c128 (64, 2, 256, 256) complex128, and of the repulsive
+    14x14 in a flux, rep_flux14_c128 (64, 2, 196, 196: the rank-1 layout in
+    clusters of 8; no run of its own), at the session's delay (dk =
+    max(delay, 1)) and the given chains; for parity_item4,
     chip_profile.py's stamps and chip_ab.py's cases."""
     import torch
     f64 = dict(dtype=torch.float64)
     if run == "l15_f64":
-        x = slice_inputs(headline_model(False, 15), ITEM4_CHAINS, 43, **f64)
+        x = slice_inputs(headline_model(False, 15), chains, 43, **f64)
     elif run == "flux14_c128":
-        x = slice_inputs(complex_model(False, 14), ITEM4_CHAINS, 45,
+        x = slice_inputs(complex_model(False, 14), chains, 45,
                          safe_mult=CPLX_SM, **f64)
     elif run == "rep_flux16_c128":
-        x = slice_inputs(complex_model(True, L16), ITEM4_CHAINS, 51,
+        x = slice_inputs(complex_model(True, L16), chains, 51,
+                         safe_mult=CPLX_SM, **f64)
+    elif run == "rep_flux14_c128":
+        x = slice_inputs(complex_model(True, 14), chains, 52,
                          safe_mult=CPLX_SM, **f64)
     else:
         raise ValueError(f"fp64_run_inputs: no run {run!r}")
     G, sigma, u, kw, ctx = x
-    return G, sigma, u, dict(kw, dk=max(ctx.delay, 1))
+    return G, sigma, u, dict(kw, dk=max(ctx.delay, 1)), ctx
 
 
 # phase 3's rows whose shapes run the layouts redesigned for the card: the
@@ -1625,11 +1631,13 @@ def parity_item4(results):
     cluster of 2 blocks per chain) and N = 128 (the 128-site ring, 64
     chains); K9 and K9-c128 at (64, 2, 256, 256) with dk = 32
     (rep_flux16_c128's; complex64 in two column passes, complex128 in the
-    flavor layout). The float32 and complex64 shapes' errors join their
-    kernels' rows; the four complex128 and float64 shapes of the runs get
-    rows of their own. K6-f64 and K9-c128 at dk = 1 run the rank-1 layout;
-    the REDESIGNED rows also time, in turns, the delayed layouts that
-    still fit (time_layouts)."""
+    flavor layout), and K9-c128 at (64, 2, 196, 196) at dk = 1 (the
+    repulsive 14x14 in a flux: the rank-1 layout in clusters of 8). The
+    float32 and complex64 shapes' errors join their kernels' rows, as does
+    the last; the four complex128 and float64 shapes of the runs get rows
+    of their own. K6-f64 and K9-c128 at dk = 1 run the rank-1 layout; the
+    REDESIGNED rows and the last shape also time, in turns, the other
+    layouts that fit (time_layouts)."""
     import torch
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -1652,11 +1660,13 @@ def parity_item4(results):
     def lay(mod, x, dtype):
         ctx = x[4]
         if "dk" in x[3]:
-            return mod.layout(ctx.N, ctx.F, x[3]["dk"], dtype=dtype)
+            return mod.layout(ctx.N, ctx.F, x[3]["dk"], dtype=dtype,
+                              chains=x[0].shape[0])
         return mod.layout(ctx.N, ctx.F, dtype)
 
     C64, C128 = torch.complex64, torch.complex128
     F32, F64 = torch.float32, torch.float64
+    rep14 = fp64_run_inputs("rep_flux14_c128")
     # (row: None joins the kernel's own row, label, wrapper, plain, inputs,
     # module, dtype)
     rows = [
@@ -1666,13 +1676,13 @@ def parity_item4(results):
          ssd.site_sweep_delayed_plain, real(13, 42, f64), ssd, F64),
         ("site_sweep_delayed_f64_225", "site_sweep_delayed_f64",
          ssd.site_sweep_delayed_f64, ssd.site_sweep_delayed_plain,
-         real(15, 43, f64), ssd, F64),
+         fp64_run_inputs("l15_f64"), ssd, F64),
         (None, "site_sweep_delayed_cx", ssdcx.site_sweep_delayed_cx,
          ssdcx.site_sweep_delayed_cx_plain, cx(False, 14, 44, f32), ssdcx,
          C64),
         ("site_sweep_delayed_cx_c128_196", "site_sweep_delayed_cx_c128",
          ssdcx.site_sweep_delayed_cx_c128, ssdcx.site_sweep_delayed_cx_plain,
-         cx(False, 14, 45, f64), ssdcx, C128),
+         fp64_run_inputs("flux14_c128"), ssdcx, C128),
         (None, "site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
          cx(True, 10, 46, f32, ITEM4_REP10_CHAINS), sscx, C64),
         (None, "site_sweep_cx", sscx.site_sweep_cx, sscx.site_sweep_cx_plain,
@@ -1688,10 +1698,12 @@ def parity_item4(results):
          C64),
         ("site_sweep_delayed_cx_c128_f2", "site_sweep_delayed_cx_c128",
          ssdcx.site_sweep_delayed_cx_c128, ssdcx.site_sweep_delayed_cx_plain,
-         cx(True, L16, 51, f64), ssdcx, C128)]
+         fp64_run_inputs("rep_flux16_c128"), ssdcx, C128),
+        (None, "site_sweep_delayed_cx_c128", ssdcx.site_sweep_delayed_cx_c128,
+         ssdcx.site_sweep_delayed_cx_plain, rep14, ssdcx, C128)]
     for row, label, fn, plain, x, mod, dtype in rows:
         r = item4_row(label, fn, plain, x, lay(mod, x, dtype))
-        if row in REDESIGNED:
+        if row in REDESIGNED or x is rep14:
             # the redesigned layout against the delayed one it replaced
             time_layouts(mod, *x[:4])
         if row is not None:
@@ -1815,44 +1827,38 @@ def parity_ising(results):
 
 
 def time_layouts(mod, G, sigma, u, kw):
-    """Every layout of K6 or K9 (mod) that fits this shape in G's dtype (the
-    rank-1 layout of the FP64 instances at dk = 1 and K9-c128's flavor
-    layout where the plan takes them, then the delayed layouts: clusters
-    and the slab), held against the layout the plan picks (decisions
-    identical, G within TOL_G of its largest entry) and timed in turns
-    (the plan's layout first and last); returns the largest max|dG|."""
+    """Every layout of K6 or K9 (mod) that takes this shape in G's dtype
+    (``mod.layouts``: the plan's first, then the delayed layouts that fit),
+    held against the plan's (decisions identical, G within TOL_G of its
+    largest entry) and timed in turns (the plan's layout first and last);
+    returns the largest max|dG|."""
     import torch
     C, F, N, _ = G.shape
     dk, dtype = kw["dk"], G.dtype
-    kind, plan_cs = mod.plan_layout(N, F, dk, dtype)
-    ref = mod.launch(G, sigma, u, plan_cs, kind=kind, **kw)
-    layouts = [(kind, plan_cs)] if kind in ("rank1", "flavors") else []
-    layouts += [("cluster" if cs > 1 else "slab", cs)
-                for cs in (*mod.CLUSTER_SIZES, 1)
-                if mod.fits(N, F, dk, cs, dtype)]
+    lays = mod.layouts(N, F, dk, dtype, C)
+    plan = lays[0]
+    ref = mod.launch(G, sigma, u, plan, **kw)
     worst, ms = 0.0, {}
-    for k, cs in layouts + layouts[:1]:
-        call = lambda: mod.launch(G, sigma, u, cs, kind=k, **kw)
+    for lay in lays + lays[:1]:
+        call = lambda: mod.launch(G, sigma, u, lay, **kw)
         out = call()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(out[1:4], ref[1:4])):
-            raise AssertionError(f"{mod.__name__}: the {k} layout with {cs} "
-                                 f"blocks per chain decides otherwise than "
-                                 f"the plan's {kind}")
+            raise AssertionError(f"{mod.__name__}: the {lay.kind} layout "
+                                 f"with {lay.cs} blocks per chain decides "
+                                 f"otherwise than the plan's {plan.kind}")
         worst = max(worst, (out[0] - ref[0]).abs().max().item())
-        ms.setdefault((k, cs), []).append(1e3 * timed(call, 20))
+        ms.setdefault(lay, []).append(1e3 * timed(call, 20))
     times = []
-    for k, cs in layouts:
-        at_once = (mod.rank1_max_clusters(F, N) if k == "rank1"
-                   else mod.flavors_max_clusters(N, dk) if k == "flavors"
-                   else mod.max_clusters(F, N, dk, cs, dtype) if cs > 1
-                   else None)
-        times.append(f"{k} CS={cs} "
-                     + ", ".join(f"{t:.4f}" for t in ms[(k, cs)]) + " ms"
-                     + (f" ({at_once} clusters at once)" if at_once else ""))
+    for lay in lays:
+        at_once = mod.max_clusters(N, F, dk, lay, dtype)
+        times.append(f"{lay.kind} CS={lay.cs} "
+                     + ", ".join(f"{t:.4f}" for t in ms[lay]) + " ms"
+                     + (f" ({at_once} clusters at once)"
+                        if lay.kind != "slab" else ""))
     name = mod.__name__.rsplit(".", 1)[-1]
     log(f"[layouts] {name} {tuple(G.shape)} {str(dtype)[6:]} dk={dk}, plan "
-        f"{kind} CS={plan_cs}: " + "; ".join(times)
+        f"{plan.kind} CS={plan.cs}: " + "; ".join(times)
         + f"; max|dG| against the plan's {worst:.3e}")
     if worst > TOL_G * ref[0].abs().max().item():
         raise AssertionError(f"{name}: the layouts' G disagree")

@@ -18,7 +18,8 @@
 // itself moves once each way.
 //
 // Design: G stays on chip for the whole launch. One thread-block cluster of
-// CS = 2 or 4 blocks per chain (F = 2: 4); block q owns rows [q RQ,
+// CS = 2 or 4 blocks per chain (F = 2: 4, or 8 where 4 do not hold G, as
+// complex128 past N = 192); block q owns rows [q RQ,
 // (q+1) RQ) of every flavor, RQ = NP / CS. A 16-byte unit is 2 columns of
 // a real row or one complex element; a row holds UR units. The block's
 // NT = TR x UR threads each own one unit column u = tid % UR at the rows
@@ -35,9 +36,13 @@
 //     a thread), the TR threads of column i+1's unit copy it at their rows
 //     into colb[b^1], and the UR threads of row i+1 in its owner block fold
 //     that row and write it into rowb[b^1] of every block of the cluster
-//     (distributed shared memory); after one block barrier a thread a row
-//     folds column i+1 in colb[b^1] in the fold's operations. On reject the
-//     owners copy row and column i+1 as they are;
+//     (distributed shared memory). On reject the owners copy row and column
+//     i+1 as they are. Then one block barrier, taken at every site, and on
+//     accept a thread a row folds column i+1 in colb[b^1] in the fold's
+//     operations. (Taken inside the accept branch only, that barrier
+//     stalled a build with F = 2 and clusters of 2 at every geometry tried
+//     on an H100; taken at every site, every build ran bit-equal,
+//     PERF.md.);
 //  4. arrive on the cluster barrier (release): the one signal per site;
 //  5. on accept every thread folds its rows (the row owners all but row
 //     i+1) while the barrier's other arrivals come in: the fold overlaps the
@@ -56,8 +61,8 @@
 // sites visited; zero pad rows and columns (ops/site_sweep_delayed.py::
 // padded, site_sweep_delayed_cx.py::padded) are never visited, every slot's
 // a and b are 0 there, and every real entry takes the plain version's
-// subtractions. ops/site_sweep_delayed.py::rank1_plan and
-// site_sweep_delayed_cx.py::rank1_plan pick CS and TR; smem_bytes here and
+// subtractions. ops/site_sweep_delayed.py::rank1_layout and
+// site_sweep_delayed_cx.py::rank1_layout pick CS and TR; smem_bytes here and
 // there agree.
 
 #pragma once
@@ -95,14 +100,13 @@ __host__ __device__ inline size_t smem_bytes(bool cx, int F, int NP, int CS,
 }
 
 // Whether (CS, TR) lays out a G of row length NP: clusters of 2 or 4
-// blocks at F = 1, of 4 at F = 2 (the F = 2 build with clusters of 2 never
-// finished a launch on an H100 at any geometry tried, PERF.md), whole
-// units, rows and thread rows per block, at most kMaxThreads threads, at
-// least the register rows per thread, and the shared memory within one
-// block's
+// blocks at F = 1, of 4 or 8 at F = 2 (clusters of 2 ran slower than 4
+// there on an H100 at 16 and 64 chains, PERF.md), whole units, rows and
+// thread rows per block, at most kMaxThreads threads, at least the register
+// rows per thread, and the shared memory within one block's
 __host__ inline bool valid(bool cx, int F, int NP, int CS, int TR) {
   if (F < 1 || F > 2 || TR < 1 || NP < 1) return false;
-  if (CS != 4 && (CS != 2 || F != 1)) return false;
+  if (F == 1 ? CS != 2 && CS != 4 : CS != 4 && CS != 8) return false;
   if (NP % CS || (!cx && NP % 2)) return false;
   const int RQ = NP / CS, UR = cx ? NP : NP / 2;
   if (RQ % TR) return false;
@@ -328,25 +332,25 @@ sweep(const double2* __restrict__ G_in, double2* __restrict__ G_out,
             rowb_at[p][((b ^ 1) * F + f) * UR + uu] = v;
         }
       }
-      __syncthreads();  // ab[b], column n as it was
-      if (more) {  // column n folded, in the fold's operations
-        const int un = CX ? n : n >> 1;
-        for (int e = tid; e < F * RQ; e += NT) {
-          const int f = F == 2 && e >= RQ, lr = e - f * RQ;
-          U* cn = colb + ((b ^ 1) * F + f) * RQ + lr;
-          const U a = ab[(b * F + f) * RQ + lr];
-          const U bn = rowb[(b * F + f) * UR + un];
-          U g = *cn;
-          if constexpr (CX)
-            fold(g, a, bn);
-          else
-            g.x = sub_rn(g.x, mul_rn(a.x, (n & 1) ? bn.y : bn.x));
-          *cn = g;
-        }
-      }
     } else if (more) {
       publish_column(n);
       publish_row(n);
+    }
+    __syncthreads();  // ab[b], column n as it was (at every site)
+    if (accept && more) {  // column n folded, in the fold's operations
+      const int un = CX ? n : n >> 1;
+      for (int e = tid; e < F * RQ; e += NT) {
+        const int f = F == 2 && e >= RQ, lr = e - f * RQ;
+        U* cn = colb + ((b ^ 1) * F + f) * RQ + lr;
+        const U a = ab[(b * F + f) * RQ + lr];
+        const U bn = rowb[(b * F + f) * UR + un];
+        U g = *cn;
+        if constexpr (CX)
+          fold(g, a, bn);
+        else
+          g.x = sub_rn(g.x, mul_rn(a.x, (n & 1) ? bn.y : bn.x));
+        *cn = g;
+      }
     }
     if (tid == 0) clk.lap(3);
     // 4. the site's signal
@@ -467,6 +471,7 @@ int launch(const void* G_in, void* G_out, const int8_t* sigma_in,
   MC_RANK1_LAUNCH(1, 2)
   MC_RANK1_LAUNCH(1, 4)
   MC_RANK1_LAUNCH(2, 4)
+  MC_RANK1_LAUNCH(2, 8)
 #undef MC_RANK1_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -487,6 +492,7 @@ int max_clusters(int F, int NP, int CS, int TR, int* out) {
   MC_RANK1_QUERY(1, 2)
   MC_RANK1_QUERY(1, 4)
   MC_RANK1_QUERY(2, 4)
+  MC_RANK1_QUERY(2, 8)
 #undef MC_RANK1_QUERY
   return (int)cudaErrorInvalidValue;
 }

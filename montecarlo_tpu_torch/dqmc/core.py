@@ -296,14 +296,15 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     1) sites, G padded to a multiple of 8 where 4 does not divide N, with
     its buffers in shared memory (float64 at N = 256, delay 32: F = 2 in
     two column passes; delay 64 at F = 2 fits no layout; float64 at delay
-    <= 1: the rank-1 layout, G on chip in a cluster of 2 or 4 blocks).
+    <= 1: the rank-1 layout, G on chip in a cluster of 2, 4 or 8 blocks).
     Complex64 updates: K8 up to N = 128 (G of one chain over the block's
     registers, flavor 1 in shared memory at F = 2 past N = 64), K9 beyond
     (G padded to a multiple of 8 where 8 does not divide N; F = 2 at N =
     256, delay 32 in two column passes). Complex128 updates: K8-c128 up to
     N = 128 (at F = 2 past N = 64 a cluster of 2 blocks per chain, one
-    flavor each), K9-c128 beyond (at delay <= 1 the rank-1 layout where it
-    fits: F = 1 at every N, F = 2 to N = 192; F = 2 at N = 256, delay 32: a
+    flavor each), K9-c128 beyond (at delay <= 1 the rank-1 layout, F = 2
+    past N = 192 in clusters of 8 blocks; F = 2 at N = 256, delay 32:
+    clusters of 4 blocks in two flavor stages up to 30 chains, past that a
     cluster of 2 blocks per chain, one flavor each, in two row and two
     column passes). Every kernel takes F <= 2. The JAX package runs its XLA
     site loop where these refuse (ROADMAP Queue 1 item 4)."""

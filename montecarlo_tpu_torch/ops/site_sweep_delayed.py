@@ -19,13 +19,13 @@ G -= a_0 ⊗ b_0, G -= a_1 ⊗ b_1, ... in slot order, each product rounded and
 then subtracted. A rejected site's term is zero and changes nothing. The
 Markov chain is the rank-1 sweep's; G is the rank-1 sweep's up to rounding.
 
-On the card, ``cluster_plan`` picks the kernel's layout from the shape: one
-thread-block cluster of CS = 2 or 4 blocks per chain, each block folding N/CS
-rows of G, or, where the cluster's buffers do not fit, one block per chain
-with the slabs above. At dk = 1 in float64 it picks the rank-1 layout
-(``rank1_plan``, ``csrc/site_sweep_rank1.cuh``) wherever that fits: G on
-chip for the whole launch, a cluster of CS blocks per chain, one cluster
-barrier per site.
+On the card, ``plan_layout`` picks the kernel's layout (a ``Layout``) from
+the shape: one thread-block cluster of CS = 2 or 4 blocks per chain, each
+block folding N/CS rows of G (``cluster_plan``'s CS), or, where the
+cluster's buffers do not fit, one block per chain with the slabs above. At
+dk = 1 in float64 it picks the rank-1 layout (``rank1_layout``,
+``csrc/site_sweep_rank1.cuh``) wherever that fits: G on chip for the whole
+launch, a cluster of CS blocks per chain, one cluster barrier per site.
 
 ``site_sweep_delayed_f64`` is the same kernel in float64 (K6-f64): it
 replaces the XLA loops the JAX package runs for float64 updates past
@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -78,11 +79,11 @@ PASSES = {torch.float32: (1,), torch.float64: (1, 2, 4)}
 
 
 # the rank-1 layout at dk = 1 (csrc/site_sweep_rank1.cuh): the element types
-# it is built for, its cluster sizes per F in the order rank1_plan tries them
-# (F = 2 takes clusters of 4: its build with clusters of 2 never finished a
-# launch on an H100, PERF.md), and its most threads a block
+# it is built for, its cluster sizes per F in the order rank1_geometry tries
+# them (F = 2: clusters of 4, and of 8 where 4 do not hold G, as complex128
+# past N = 192), and its most threads a block
 RANK1_DTYPES = (torch.float64,)
-RANK1_SIZES = {1: (2, 4), 2: (4,)}
+RANK1_SIZES = {1: (2, 4), 2: (4, 8)}
 RANK1_MAX_THREADS = 512
 
 
@@ -129,13 +130,31 @@ def rank1_geometry(NP: int, F: int, cx: bool = False):
     return None
 
 
-def rank1_plan(N: int, F: int, dk: int, dtype=torch.float32):
-    """(cs, tr) of the rank-1 layout where the plan takes it: dk = 1, N past
-    128, float64, and a geometry that fits (``rank1_geometry`` at
+class Layout(NamedTuple):
+    """One layout of K6 or K9 at one shape (``plan_layout``, ``layouts``):
+    its kind ("rank1", "flavors", "cluster" or "slab"), the blocks per chain
+    CS, the kind's geometry (rank1: the thread rows (TR,); flavors: the
+    column and row passes (P, R); cluster: the column passes (P,), in K9
+    (P, S) with the flavor stages S; slab: ()) and the shared memory of one
+    block in bytes."""
+    kind: str
+    cs: int
+    geometry: tuple
+    smem: int
+
+
+def rank1_layout(N: int, F: int, dk: int, dtype=torch.float32):
+    """The rank-1 layout where the plan takes it: dk = 1, N past 128,
+    float64, and a geometry that fits (``rank1_geometry`` at
     ``padded(N)``); else None."""
     if dk != 1 or dtype not in RANK1_DTYPES or N < MIN_N:
         return None
-    return rank1_geometry(padded(N), F)
+    NP = padded(N)
+    geometry = rank1_geometry(NP, F)
+    if geometry is None:
+        return None
+    cs, tr = geometry
+    return Layout("rank1", cs, (tr,), rank1_smem(NP, F, cs, tr))
 
 
 def padded(N: int) -> int:
@@ -172,12 +191,9 @@ def column_passes(N: int, F: int, dk: int, cs: int,
 
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
-               dtype=torch.float32, kind=None) -> int:
-    """Shared memory of one block in bytes at G's row length on the card
-    (``padded(N)``): of the layout kind ("rank1", "cluster" or "slab"), or
-    where kind is None of the plan's layout if it has cs blocks, else of
-    the delayed layouts. The rank-1 layout's is ``rank1_smem``; the delayed
-    layouts' in elements of dtype: cs = 1
+               dtype=torch.float32) -> int:
+    """Shared memory of one block of the delayed layouts in bytes, in
+    elements of dtype at G's row length on the card (``padded(N)``): cs = 1
     (site_sweep_delayed_slab): the row and column slabs of every flavor and
     the staged a, b vectors of one site. cs > 1 (site_sweep_delayed_cluster,
     in ``column_passes`` passes P, or the most of PASSES[dtype] where none
@@ -186,9 +202,8 @@ def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
     staged_ld(dk)), their dk x dk entries at the slots' sites, the diagonal
     block (rows of dk + 1) and its current diagonal, x, u, each site's delta
     and boson weight, the slots' sites and sigma, as
-    csrc/site_sweep_delayed.cu::cluster_smem_elems counts them."""
-    if _kind(N, F, dk, cs, dtype, kind) == "rank1":
-        return rank1_smem(padded(N), F, *rank1_plan(N, F, dk, dtype))
+    csrc/site_sweep_delayed.cu::cluster_smem_elems counts them. The rank-1
+    layout's is ``rank1_smem``."""
     p = column_passes(N, F, dk, cs, dtype) or PASSES[dtype][-1]
     return _smem(N, F, dk, cs, dtype.itemsize, p)
 
@@ -200,77 +215,77 @@ def staged_ld(dk: int) -> int:
     return (dk + 3) // 4 * 4 + 4
 
 
-def fits(N: int, F: int, dk: int, cs: int, dtype=torch.float32) -> bool:
-    """Whether the layout of cs blocks per chain (1: the slab layout) takes
-    this shape: its block shared memory within the card's (in some column
-    passes), and for a cluster 4 * cs | padded(N) (whole 4-row tiles per
-    block)."""
+def cluster_layout(N: int, F: int, dk: int, cs: int,
+                   dtype=torch.float32):
+    """The delayed layout with cs blocks per chain where it takes this
+    shape, else None: cs = 1 the slab layout, its block shared memory within
+    the card's; cs > 1 the cluster layout, 4 cs | padded(N) (whole 4-row
+    tiles per block) in ``column_passes`` passes."""
     if cs == 1:
-        return smem_bytes(N, F, dk, 1, dtype, "slab") <= _build.SMEM_PER_BLOCK
-    return (padded(N) % (4 * cs) == 0
-            and column_passes(N, F, dk, cs, dtype) is not None)
+        smem = smem_bytes(N, F, dk, 1, dtype)
+        return (Layout("slab", 1, (), smem)
+                if smem <= _build.SMEM_PER_BLOCK else None)
+    p = column_passes(N, F, dk, cs, dtype)
+    if padded(N) % (4 * cs) or p is None:
+        return None
+    return Layout("cluster", cs, (p,), smem_bytes(N, F, dk, cs, dtype))
 
 
-def delayed_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
-    """CS of the delayed layouts alone: the first of CLUSTER_SIZES that
-    fits; 1, the one-block slab layout, where none does."""
+def fits(N: int, F: int, dk: int, cs: int, dtype=torch.float32) -> bool:
+    """Whether the delayed layout of cs blocks per chain (1: the slab
+    layout) takes this shape (``cluster_layout``)."""
+    return cluster_layout(N, F, dk, cs, dtype) is not None
+
+
+def cluster_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
+    """CS of the delayed layouts: the first of CLUSTER_SIZES that fits; 1,
+    the one-block slab layout, where none does."""
     for cs in CLUSTER_SIZES:
         if fits(N, F, dk, cs, dtype):
             return cs
     return 1
 
 
-def plan_layout(N: int, F: int, dk: int, dtype=torch.float32):
-    """The layout the wrappers launch at this shape: ("rank1", CS) where
-    ``rank1_plan`` takes it, else ("cluster", CS) or ("slab", 1) as
-    ``delayed_plan`` picks."""
-    r1 = rank1_plan(N, F, dk, dtype)
-    if r1 is not None:
-        return "rank1", r1[0]
-    cs = delayed_plan(N, F, dk, dtype)
-    return ("cluster" if cs > 1 else "slab"), cs
+def plan_layout(N: int, F: int, dk: int, dtype=torch.float32,
+                chains: int = None):
+    """The ``Layout`` the wrappers launch at this shape: ``rank1_layout``'s
+    where it takes the shape, else the delayed layout of ``cluster_plan``'s
+    CS; None where none fits. K6's choice is the same at every chain count
+    (chains; K9's is not: ``site_sweep_delayed_cx.plan_layout``)."""
+    return (rank1_layout(N, F, dk, dtype)
+            or cluster_layout(N, F, dk, cluster_plan(N, F, dk, dtype), dtype))
 
 
-def cluster_plan(N: int, F: int, dk: int, dtype=torch.float32) -> int:
-    """CS, the blocks per chain of ``plan_layout``'s layout (1: the
-    one-block slab layout)."""
-    return plan_layout(N, F, dk, dtype)[1]
+def layouts(N: int, F: int, dk: int, dtype=torch.float32,
+            chains: int = None) -> list:
+    """Every layout that takes this shape, the plan's first (to time them
+    against each other): the rank-1 layout where the plan takes it, then the
+    delayed layouts, clusters before the slab (at every chain count)."""
+    plan = plan_layout(N, F, dk, dtype)
+    others = [cluster_layout(N, F, dk, cs, dtype)
+              for cs in (*CLUSTER_SIZES, 1)]
+    return [plan] * (plan is not None) + [
+        lay for lay in others if lay is not None and lay != plan]
 
 
-def _kind(N, F, dk, cs, dtype, kind):
-    """kind, or where it is None the plan's layout if cs is None or the
-    plan's blocks per chain, else the delayed layout with cs blocks."""
-    if kind is not None:
-        return kind
-    plan_kind, plan_cs = plan_layout(N, F, dk, dtype)
-    if cs in (None, plan_cs):
-        return plan_kind
-    return "cluster" if cs > 1 else "slab"
-
-
-def layout(N: int, F: int, dk: int, cs: int = None,
-           dtype=torch.float32, kind=None) -> str:
-    """The kernel's layout in words: the plan's at this shape, or the one
-    of kind ("rank1", "cluster", "slab"), or the delayed layout with cs
-    blocks."""
-    kind = _kind(N, F, dk, cs, dtype, kind)
+def layout(N: int, F: int, dk: int, lay: Layout = None,
+           dtype=torch.float32, chains: int = None) -> str:
+    """A layout in words: lay, or the plan's at this shape."""
+    lay = lay or plan_layout(N, F, dk, dtype)
     pad = (f"G padded to {padded(N)} x {padded(N)}, "
            if padded(N) != N else "")
-    if kind == "rank1":
-        cs, tr = rank1_plan(N, F, dk, dtype)
+    if lay.kind == "rank1":
         NP = padded(N)
-        return (f"{pad}rank-1: cluster of {cs} blocks of {tr * NP // 2} "
-                f"threads per chain, {NP // cs} rows each on chip "
-                f"({rank1_regs(F)} rows a thread in registers), "
-                f"{rank1_smem(NP, F, cs, tr)} bytes per block")
-    cs = cs or delayed_plan(N, F, dk, dtype)
-    if cs == 1:
+        return (f"{pad}rank-1: cluster of {lay.cs} blocks of "
+                f"{lay.geometry[0] * NP // 2} threads per chain, "
+                f"{NP // lay.cs} rows each on chip ({rank1_regs(F)} rows a "
+                f"thread in registers), {lay.smem} bytes per block")
+    if lay.kind == "slab":
         return f"{pad}slab: one block of 512 threads per chain"
-    p = column_passes(N, F, dk, cs, dtype)
-    return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
-            f"{padded(N) // cs} rows each, {p} column "
-            f"pass{'es' if p > 1 else ''}, "
-            f"{smem_bytes(N, F, dk, cs, dtype, 'cluster')} bytes per block")
+    p = lay.geometry[0]
+    return (f"{pad}cluster of {lay.cs} blocks of 512 threads per chain, "
+            f"{padded(N) // lay.cs} rows each, {p} column "
+            f"pass{'es' if p > 1 else ''}, {lay.smem} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.float32) -> bool:
@@ -283,38 +298,29 @@ def kernel_supports(N: int, F: int, dk: int, dtype=torch.float32) -> bool:
     if not (dtype in PASSES and N >= MIN_N and F in (1, 2)
             and 1 <= dk and N % dk == 0):
         return False
-    return (rank1_plan(N, F, dk, dtype) is not None
-            or fits(N, F, dk, delayed_plan(N, F, dk, dtype), dtype))
+    return plan_layout(N, F, dk, dtype) is not None
 
 
 @functools.cache
-def max_clusters(F: int, N: int, dk: int, cs: int,
+def max_clusters(N: int, F: int, dk: int, lay: Layout,
                  dtype=torch.float32) -> int:
-    """The most clusters of cs blocks the card runs at once (one query per
-    shape and process)."""
+    """The most clusters of lay (a cluster or the rank-1 layout) that the
+    card runs at once; 1 for the slab layout (one query per shape and
+    process)."""
+    if lay.kind == "slab":
+        return 1
     out = ctypes.c_int(0)
     lib = _build.load()
-    if dtype == torch.float64:
+    if lay.kind == "rank1":
+        code = lib.site_sweep_delayed_f64_rank1_max_clusters(
+            F, padded(N), lay.cs, *lay.geometry, ctypes.addressof(out))
+    elif dtype == torch.float64:
         code = lib.site_sweep_delayed_f64_max_clusters(
-            F, padded(N), dk, cs, column_passes(N, F, dk, cs, dtype),
-            ctypes.addressof(out))
+            F, padded(N), dk, lay.cs, *lay.geometry, ctypes.addressof(out))
     else:
         code = lib.site_sweep_delayed_f32_max_clusters(
-            F, padded(N), dk, cs, ctypes.addressof(out))
+            F, padded(N), dk, lay.cs, ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed (occupancy query)", code)
-    return out.value
-
-
-@functools.cache
-def rank1_max_clusters(F: int, N: int) -> int:
-    """The most clusters of the float64 rank-1 layout at this shape (dk =
-    1) that the card runs at once."""
-    out = ctypes.c_int(0)
-    cs, tr = rank1_plan(N, F, 1, torch.float64)
-    code = _build.load().site_sweep_delayed_f64_rank1_max_clusters(
-        F, padded(N), cs, tr, ctypes.addressof(out))
-    _build.check_launch("site_sweep_delayed_f64 (rank-1 occupancy query)",
-                        code)
     return out.value
 
 
@@ -389,7 +395,7 @@ def site_sweep_delayed(G, sigma, u, *, dk, lamb, signs, det_power, use_boson):
         return (*site_sweep_delayed_plain(G, sigma, u, **kw)[:4], None)
     _check(G, sigma, u, signs, dk, torch.float32)
     C, F, N, _ = G.shape
-    return launch(G, sigma, u, cluster_plan(N, F, dk), **kw)
+    return launch(G, sigma, u, plan_layout(N, F, dk), **kw)
 
 
 def site_sweep_delayed_f64(G, sigma, u, *, dk, lamb, signs, det_power,
@@ -404,35 +410,22 @@ def site_sweep_delayed_f64(G, sigma, u, *, dk, lamb, signs, det_power,
         return site_sweep_delayed_plain(G, sigma, u, **kw)
     _check(G, sigma, u, signs, dk, torch.float64)
     C, F, N, _ = G.shape
-    kind, cs = plan_layout(N, F, dk, torch.float64)
-    return launch(G, sigma, u, cs, kind=kind, **kw)
+    return launch(G, sigma, u, plan_layout(N, F, dk, torch.float64), **kw)
 
 
-def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
-           kind=None):
-    """One launch of the CUDA kernel of G's dtype: the rank-1 layout (kind
-    "rank1": ``rank1_plan``'s, cs unused), or the delayed layout with cs
-    blocks per chain (``delayed_plan``'s, or another that fits, to time two
-    layouts against each other) in ``column_passes`` passes; on G padded
-    to ``padded(N)`` where 4 does not divide N; counted in the launches of
-    ``site_sweep_delayed`` or ``site_sweep_delayed_f64``. Returns (G,
-    sigma, acc, nneg, neg), neg None in float32."""
+def launch(G, sigma, u, lay, *, dk, lamb, signs, det_power, use_boson):
+    """One launch of the CUDA kernel of G's dtype in the ``Layout`` lay:
+    ``plan_layout``'s, or another of ``layouts`` at this shape, to time
+    two layouts against each other; on G padded to ``padded(N)`` where 4
+    does not divide N; counted in the launches of ``site_sweep_delayed`` or
+    ``site_sweep_delayed_f64``. Returns (G, sigma, acc, nneg, neg), neg
+    None in float32."""
     f64 = G.dtype == torch.float64
     C, F, N = _check(G, sigma, u, signs, dk, G.dtype)
-    rank1 = kind == "rank1"
-    if rank1:
-        plan = rank1_plan(N, F, dk, G.dtype)
-        if plan is None:
-            raise ValueError(
-                f"site_sweep_delayed: the rank-1 layout does not take N={N}, "
-                f"F={F}, dk={dk} in {str(G.dtype)[6:]}")
-        cs, tr = plan
-    elif not fits(N, F, dk, cs, G.dtype):
+    if lay not in layouts(N, F, dk, G.dtype):
         raise ValueError(
-            f"site_sweep_delayed: {cs} blocks per chain do not take "
-            f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
-            f"({smem_bytes(N, F, dk, cs, G.dtype, 'cluster')} bytes of "
-            "shared memory per block)")
+            f"site_sweep_delayed: the layout {lay} does not take N={N}, "
+            f"F={F}, dk={dk} in {str(G.dtype)[6:]}")
     NP = padded(N)
     if NP != N:
         Gp = G.new_zeros(C, F, NP, NP)
@@ -446,7 +439,7 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
     # slab layout: the accepted sites' a and b vectors of one block, per
     # chain and flavor
     scratch = (torch.empty(2, C, F, dk, NP, dtype=G.dtype, device=G.device)
-               if cs == 1 else None)
+               if lay.kind == "slab" else None)
     lib = _build.load()
     head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), acc.data_ptr(),
@@ -455,24 +448,22 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
             int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
     scr = 0 if scratch is None else scratch.data_ptr()
     with torch.cuda.device(G.device):
-        at_once = (rank1_max_clusters(F, N) if rank1
-                   else max_clusters(F, N, dk, cs, G.dtype) if cs > 1
-                   else 1)
-        if at_once < 1:
+        if max_clusters(N, F, dk, lay, G.dtype) < 1:
             raise RuntimeError(
-                f"site_sweep_delayed: the card cannot run a cluster of {cs} "
-                f"blocks with {smem_bytes(N, F, dk, cs, G.dtype, kind)} bytes "
-                "of shared memory each")
-        if rank1:
+                f"site_sweep_delayed: the card cannot run a cluster of "
+                f"{lay.cs} blocks with {lay.smem} bytes of shared memory "
+                "each")
+        if lay.kind == "rank1":
             code = lib.site_sweep_delayed_f64_rank1(
-                *head, neg.data_ptr(), C, F, NP, N, cs, tr, *tail)
+                *head, neg.data_ptr(), C, F, NP, N, lay.cs, *lay.geometry,
+                *tail)
         elif f64:
             code = lib.site_sweep_delayed_f64(
-                *head, neg.data_ptr(), scr, C, F, NP, N, int(dk), cs,
-                column_passes(N, F, dk, cs, G.dtype), *tail)
+                *head, neg.data_ptr(), scr, C, F, NP, N, int(dk), lay.cs,
+                *(lay.geometry or (1,)), *tail)
         else:
             code = lib.site_sweep_delayed_f32(*head, scr, C, F, NP, N,
-                                              int(dk), cs, *tail)
+                                              int(dk), lay.cs, *tail)
     wrapper = site_sweep_delayed_f64 if f64 else site_sweep_delayed
     _build.check_launch(wrapper.__name__, code)
     wrapper.launches += 1
@@ -501,7 +492,7 @@ def _check(G, sigma, u, signs, dk, dtype):
     if not kernel_supports(N, F, dk, dtype) or len(signs) != F:
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
                          f"(N >= {MIN_N}, F in (1, 2), dk | N, "
-                         f"{smem_bytes(N, F, dk, 1, dtype, 'slab')} of "
+                         f"{smem_bytes(N, F, dk, 1, dtype)} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):

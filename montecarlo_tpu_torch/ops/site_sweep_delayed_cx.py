@@ -20,12 +20,13 @@ rounded on the real and imaginary planes as K8 rounds it and then
 subtracted. So the Markov chain is K8's, and every value is K8's operation
 in K8's order.
 
-On the card, ``cluster_plan`` picks the kernel's layout from the shape: one
-thread-block cluster of CS = 2 or 4 blocks per chain, each block folding N/CS
-rows of G, or, where the cluster's buffers do not fit, one block per chain
-with the slabs above. At dk = 1 in complex128 it picks the rank-1 layout
-(``rank1_plan``, ``csrc/site_sweep_rank1.cuh``, K6-f64's) wherever that
-fits: G on chip for the whole launch, one cluster barrier per site.
+On the card, ``plan_layout`` picks the kernel's layout (a ``Layout``) from
+the shape: one thread-block cluster of CS = 2 or 4 blocks per chain, each
+block folding N/CS rows of G (``cluster_plan``'s CS), or, where the
+cluster's buffers do not fit, one block per chain with the slabs above. At
+dk = 1 in complex128 it picks the rank-1 layout (``rank1_layout``,
+``csrc/site_sweep_rank1.cuh``, K6-f64's) wherever that fits: G on chip for
+the whole launch, one cluster barrier per site.
 
 ``site_sweep_delayed_cx_c128`` is the same kernel in complex128 (K9-c128):
 it replaces the XLA loops the JAX package runs for complex128 updates past
@@ -36,7 +37,8 @@ in column passes over N/P columns each, as K6-f64's
 (``ops/site_sweep_delayed.py``), and at F = 2 replay and fold one flavor
 at a time (flavor stages; ``plan`` picks both): complex128 at F = 2,
 N = 256, dk = 32 (the 16x16 repulsive model in a flux at its default
-delay) fits only so.
+delay) fits a cluster only so, and past one wave of those clusters runs
+the flavor layout (``flavors_layout``: one flavor a block) instead.
 
 The kernel takes 8 | N. Elsewhere (13 x 13, 14 x 14, 15 x 15, rings of 130
 sites) the wrappers pad G with zero rows and columns to ``padded(N)``, which
@@ -54,13 +56,15 @@ import torch
 
 from . import _build
 from .site_sweep import MAX_N
-from .site_sweep_delayed import rank1_geometry, rank1_regs, rank1_smem
+from .site_sweep_delayed import (Layout, rank1_geometry, rank1_regs,
+                                 rank1_smem)
 
 MIN_N = MAX_N + 1        # K8 (ops/site_sweep_cx.py) takes N <= 128
 # the cluster sizes (blocks per chain) in the order cluster_plan tries
-# them: clusters of 2 blocks of up to ~150 KB of shared memory run 66 at
-# once on an H100, clusters of 4 only 30
+# them, and how many clusters of each an H100 runs at once (its occupancy
+# query at up to ~217 KB a block: clusters of 2 blocks 66, of 4 only 30)
 CLUSTER_SIZES = (2, 4)
+CLUSTERS_AT_ONCE = {2: 66, 4: 30}
 # the phases that a build with -DMC_PHASE_STAMPS times (chip_profile.py),
 # per kernel of csrc/site_sweep_delayed_cx.cu
 PHASES = {"slab": ("slab load", "decisions", "staging and slab update",
@@ -88,18 +92,23 @@ PASSES = {torch.complex64: (1, 2), torch.complex128: (1, 2, 4)}
 RANK1_DTYPES = (torch.complex128,)
 
 
-def rank1_plan(N: int, F: int, dk: int, dtype=torch.complex64):
-    """(cs, tr) of the rank-1 layout where the plan takes it: dk = 1, N past
-    128, complex128, and a geometry that fits (``site_sweep_delayed.
+def rank1_layout(N: int, F: int, dk: int, dtype=torch.complex64):
+    """The rank-1 layout where the plan takes it: dk = 1, N past 128,
+    complex128, and a geometry that fits (``site_sweep_delayed.
     rank1_geometry`` at ``padded(N)``, a 16-byte unit per element); else
     None."""
     if dk != 1 or dtype not in RANK1_DTYPES or N < MIN_N:
         return None
-    return rank1_geometry(padded(N), F, cx=True)
+    NP = padded(N)
+    geometry = rank1_geometry(NP, F, cx=True)
+    if geometry is None:
+        return None
+    cs, tr = geometry
+    return Layout("rank1", cs, (tr,), rank1_smem(NP, F, cs, tr, cx=True))
 
 
 # the flavor layout of complex128 at F = 2 (site_sweep_delayed_cx_flavors):
-# its (column passes, row passes) in the order flavors_plan tries them
+# its (column passes, row passes) in the order flavors_layout tries them
 FLAVOR_PASSES = ((1, 1), (2, 1), (1, 2), (2, 2))
 
 
@@ -116,16 +125,16 @@ def flavors_smem(N: int, dk: int, p: int, r: int) -> int:
             + 4 * (dk + 4 + N) + N)
 
 
-def flavors_plan(N: int, F: int, dk: int, dtype=torch.complex64):
-    """(P, R) of the flavor layout where the plan takes it: complex128 at
-    F = 2 past N = 128 wherever the delayed cluster layout would need two
-    flavor stages (or fits not at all): the first of FLAVOR_PASSES with
+def flavors_layout(N: int, F: int, dk: int, dtype=torch.complex64):
+    """The flavor layout where the plan takes it: complex128 at F = 2 past
+    N = 128 wherever the delayed cluster layout would need two flavor
+    stages (or fits not at all), in the first (P, R) of FLAVOR_PASSES with
     whole passes (2 | N/P, 4 | N/R, dk | N/R where R > 1) whose buffers fit
     one block's shared memory; else None."""
     if (dtype != torch.complex128 or F != 2 or N < MIN_N or dk < 1
             or N % dk or dk == 1):
         return None
-    cs = delayed_plan(N, F, dk, dtype)
+    cs = cluster_plan(N, F, dk, dtype)
     if cs > 1 and plan(N, F, dk, cs, dtype)[1] == 1:
         return None
     NP = padded(N)
@@ -133,7 +142,7 @@ def flavors_plan(N: int, F: int, dk: int, dtype=torch.complex64):
         if (NP % p == 0 and (NP // p) % 2 == 0 and NP % r == 0
                 and (NP // r) % 4 == 0 and (r == 1 or (NP // r) % dk == 0)
                 and flavors_smem(N, dk, p, r) <= _build.SMEM_PER_BLOCK):
-            return p, r
+            return Layout("flavors", 2, (p, r), flavors_smem(N, dk, p, r))
     return None
 
 
@@ -173,31 +182,23 @@ def plan(N: int, F: int, dk: int, cs: int, dtype=torch.complex64):
 
 
 def smem_bytes(N: int, F: int, dk: int, cs: int = 1,
-               dtype=torch.complex64, kind=None) -> int:
-    """Shared memory of one block in bytes at G's row length on the card
-    (``padded(N)``): of the layout kind ("rank1", "flavors", "cluster" or
-    "slab"), or where kind is None of the plan's layout if it has cs
-    blocks, else of the delayed layouts. The rank-1 layout's is
-    ``rank1_smem``, the flavor layout's ``flavors_smem``; the delayed
-    layouts' in real planes of dtype's precision: cs = 1
-    (site_sweep_delayed_cx_slab): the row and column slabs of every flavor
-    as two planes (column rows padded to N+1) and the staged y and row
-    vectors of one site, both planes. cs > 1 (site_sweep_delayed_cx_cluster,
-    in ``plan``'s P column passes and S flavor stages, or the most passes
-    of PASSES[dtype] in F stages where none fits): re and im planes of b of
-    every slot of a stage's flavors over N/P columns, y over the block's
-    N/cs rows, the staged y and b of the block's sites by site (rows padded
-    to staged_ld(dk)), their dk x dk entries at the slots' sites (a
-    stage's flavors), the diagonal block (rows of dk + 1), its current
-    diagonal and x; u, each site's delta and boson weight, the slots' sites
-    and sigma, as csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts
-    them."""
-    kind = _kind(N, F, dk, cs, dtype, kind)
-    if kind == "rank1":
-        return rank1_smem(padded(N), F, *rank1_plan(N, F, dk, dtype),
-                          cx=True)
-    if kind == "flavors":
-        return flavors_smem(N, dk, *flavors_plan(N, F, dk, dtype))
+               dtype=torch.complex64) -> int:
+    """Shared memory of one block of the delayed layouts in bytes, in real
+    planes of dtype's precision at G's row length on the card
+    (``padded(N)``): cs = 1 (site_sweep_delayed_cx_slab): the row and
+    column slabs of every flavor as two planes (column rows padded to N+1)
+    and the staged y and row vectors of one site, both planes. cs > 1
+    (site_sweep_delayed_cx_cluster, in ``plan``'s P column passes and S
+    flavor stages, or the most passes of PASSES[dtype] in F stages where
+    none fits): re and im planes of b of every slot of a stage's flavors
+    over N/P columns, y over the block's N/cs rows, the staged y and b of
+    the block's sites by site (rows padded to staged_ld(dk)), their dk x dk
+    entries at the slots' sites (a stage's flavors), the diagonal block
+    (rows of dk + 1), its current diagonal and x; u, each site's delta and
+    boson weight, the slots' sites and sigma, as
+    csrc/site_sweep_delayed_cx.cu::cluster_smem_elems counts them. The
+    rank-1 layout's is ``rank1_smem``, the flavor layout's
+    ``flavors_smem``."""
     p, stages = plan(N, F, dk, cs, dtype) or (PASSES[dtype][-1], F)
     return _smem(N, F, dk, cs, dtype.itemsize // 2, p, stages)
 
@@ -209,87 +210,101 @@ def staged_ld(dk: int) -> int:
     return (dk + 3) // 4 * 4 + 4
 
 
-def fits(N: int, F: int, dk: int, cs: int, dtype=torch.complex64) -> bool:
-    """Whether the layout of cs blocks per chain (1: the slab layout) takes
-    this shape: its block shared memory within the card's (in some column
-    passes and flavor stages), and for a cluster 4 * cs | padded(N) (whole
-    4-row tiles per block)."""
+def cluster_layout(N: int, F: int, dk: int, cs: int,
+                   dtype=torch.complex64):
+    """The delayed layout with cs blocks per chain where it takes this
+    shape, else None: cs = 1 the slab layout, its block shared memory
+    within the card's; cs > 1 the cluster layout, 4 cs | padded(N) (whole
+    4-row tiles per block) in ``plan``'s column passes and flavor
+    stages."""
     if cs == 1:
-        return smem_bytes(N, F, dk, 1, dtype, "slab") <= _build.SMEM_PER_BLOCK
-    return (padded(N) % (4 * cs) == 0
-            and plan(N, F, dk, cs, dtype) is not None)
+        smem = smem_bytes(N, F, dk, 1, dtype)
+        return (Layout("slab", 1, (), smem)
+                if smem <= _build.SMEM_PER_BLOCK else None)
+    geometry = plan(N, F, dk, cs, dtype)
+    if padded(N) % (4 * cs) or geometry is None:
+        return None
+    return Layout("cluster", cs, geometry, smem_bytes(N, F, dk, cs, dtype))
 
 
-def delayed_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
-    """CS of the delayed layouts alone: the first of CLUSTER_SIZES that
-    fits; 1, the one-block slab layout, where none does."""
+def fits(N: int, F: int, dk: int, cs: int, dtype=torch.complex64) -> bool:
+    """Whether the delayed layout of cs blocks per chain (1: the slab
+    layout) takes this shape (``cluster_layout``)."""
+    return cluster_layout(N, F, dk, cs, dtype) is not None
+
+
+def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
+    """CS of the delayed layouts: the first of CLUSTER_SIZES that fits; 1,
+    the one-block slab layout, where none does."""
     for cs in CLUSTER_SIZES:
         if fits(N, F, dk, cs, dtype):
             return cs
     return 1
 
 
-def plan_layout(N: int, F: int, dk: int, dtype=torch.complex64):
-    """The layout the wrappers launch at this shape: ("rank1", CS) where
-    ``rank1_plan`` takes it, ("flavors", 2) where ``flavors_plan`` does,
-    else ("cluster", CS) or ("slab", 1) as ``delayed_plan`` picks."""
-    r1 = rank1_plan(N, F, dk, dtype)
+def plan_layout(N: int, F: int, dk: int, dtype, chains: int):
+    """The ``Layout`` the wrappers launch for chains chains at this shape:
+    ``rank1_layout``'s where it takes the shape; where ``flavors_layout``
+    does, the delayed layout in clusters of 4 if it fits, the chains'
+    clusters run in one wave (chains <= CLUSTERS_AT_ONCE[4]) and the
+    flavor layout needs two row passes, else the flavor layout; else the
+    delayed layout of ``cluster_plan``'s CS; None where none fits. On an
+    H100 (complex128 F = 2, dk = 32; chip_layouts.py, PERF.md) the
+    clusters of 4 took 2.16-2.17 ms at N = 256 and 29-30 chains against
+    the flavor layout's 2.31-2.32 (3.71-3.73 against 2.32-2.33 at 31),
+    1.07-1.10 against 1.29-1.32 at N = 192, and 0.81-0.83 against
+    0.79-0.82 at N = 160, where the flavor layout takes one row pass."""
+    r1 = rank1_layout(N, F, dk, dtype)
     if r1 is not None:
-        return "rank1", r1[0]
-    if flavors_plan(N, F, dk, dtype) is not None:
-        return "flavors", 2
-    cs = delayed_plan(N, F, dk, dtype)
-    return ("cluster" if cs > 1 else "slab"), cs
+        return r1
+    flavors = flavors_layout(N, F, dk, dtype)
+    if flavors is not None:
+        four = cluster_layout(N, F, dk, 4, dtype)
+        one_wave = (four is not None and chains <= CLUSTERS_AT_ONCE[4]
+                    and flavors.geometry[1] > 1)
+        return four if one_wave else flavors
+    return cluster_layout(N, F, dk, cluster_plan(N, F, dk, dtype), dtype)
 
 
-def cluster_plan(N: int, F: int, dk: int, dtype=torch.complex64) -> int:
-    """CS, the blocks per chain of ``plan_layout``'s layout (1: the
-    one-block slab layout)."""
-    return plan_layout(N, F, dk, dtype)[1]
+def layouts(N: int, F: int, dk: int, dtype, chains: int) -> list:
+    """Every layout that takes this shape, the plan's for chains chains
+    first (to time them against each other): the rank-1 or flavor layout
+    where they take it, then the delayed layouts, clusters before the
+    slab."""
+    plan_ = plan_layout(N, F, dk, dtype, chains)
+    others = [rank1_layout(N, F, dk, dtype), flavors_layout(N, F, dk, dtype),
+              *(cluster_layout(N, F, dk, cs, dtype)
+                for cs in (*CLUSTER_SIZES, 1))]
+    return [plan_] * (plan_ is not None) + [
+        lay for lay in others if lay is not None and lay != plan_]
 
 
-def _kind(N, F, dk, cs, dtype, kind):
-    """kind, or where it is None the plan's layout if cs is None or the
-    plan's blocks per chain, else the delayed layout with cs blocks."""
-    if kind is not None:
-        return kind
-    plan_kind, plan_cs = plan_layout(N, F, dk, dtype)
-    if cs in (None, plan_cs):
-        return plan_kind
-    return "cluster" if cs > 1 else "slab"
-
-
-def layout(N: int, F: int, dk: int, cs: int = None,
-           dtype=torch.complex64, kind=None) -> str:
-    """The kernel's layout in words: the plan's at this shape, or the one
-    of kind ("rank1", "flavors", "cluster", "slab"), or the delayed layout
-    with cs blocks."""
-    kind = _kind(N, F, dk, cs, dtype, kind)
+def layout(N: int, F: int, dk: int, lay: Layout = None,
+           dtype=torch.complex64, chains: int = None) -> str:
+    """A layout in words: lay, or the plan's for chains chains at this
+    shape."""
+    lay = lay or plan_layout(N, F, dk, dtype, chains)
     pad = (f"G padded to {padded(N)} x {padded(N)}, "
            if padded(N) != N else "")
-    if kind == "flavors":
-        p, r = flavors_plan(N, F, dk, dtype)
+    if lay.kind == "flavors":
+        p, r = lay.geometry
         return (f"{pad}flavors: cluster of 2 blocks of 512 threads per "
                 f"chain, one flavor each, {r} row pass"
                 f"{'es' if r > 1 else ''} and {p} column "
-                f"pass{'es' if p > 1 else ''}, "
-                f"{flavors_smem(N, dk, p, r)} bytes per block")
-    if kind == "rank1":
-        cs, tr = rank1_plan(N, F, dk, dtype)
+                f"pass{'es' if p > 1 else ''}, {lay.smem} bytes per block")
+    if lay.kind == "rank1":
         NP = padded(N)
-        return (f"{pad}rank-1: cluster of {cs} blocks of {tr * NP} "
-                f"threads per chain, {NP // cs} rows each on chip "
-                f"({rank1_regs(F)} rows a thread in registers), "
-                f"{rank1_smem(NP, F, cs, tr, cx=True)} bytes per block")
-    cs = cs or delayed_plan(N, F, dk, dtype)
-    if cs == 1:
+        return (f"{pad}rank-1: cluster of {lay.cs} blocks of "
+                f"{lay.geometry[0] * NP} threads per chain, {NP // lay.cs} "
+                f"rows each on chip ({rank1_regs(F)} rows a thread in "
+                f"registers), {lay.smem} bytes per block")
+    if lay.kind == "slab":
         return f"{pad}slab: one block of 512 threads per chain"
-    p, stages = plan(N, F, dk, cs, dtype)
+    p, stages = lay.geometry
     st = f", {stages} flavor stages" if stages > 1 else ""
-    return (f"{pad}cluster of {cs} blocks of 512 threads per chain, "
-            f"{padded(N) // cs} rows each, {p} column "
-            f"pass{'es' if p > 1 else ''}{st}, "
-            f"{smem_bytes(N, F, dk, cs, dtype, 'cluster')} bytes per block")
+    return (f"{pad}cluster of {lay.cs} blocks of 512 threads per chain, "
+            f"{padded(N) // lay.cs} rows each, {p} column "
+            f"pass{'es' if p > 1 else ''}{st}, {lay.smem} bytes per block")
 
 
 def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
@@ -298,54 +313,40 @@ def kernel_supports(N: int, F: int, dk: int, dtype=torch.complex64) -> bool:
     dk | N, and the layout's buffers within one block's shared memory (at
     N = 256, dk = 32: complex64 F = 1 in one column pass, F = 2 in two;
     complex128 F = 1 in clusters of 2 blocks and two column passes, F = 2
-    in clusters of 4 blocks, two flavor stages and four passes), or the
-    rank-1 layout's (complex128 at dk = 1)."""
+    in the flavor layout), or the rank-1 layout's (complex128 at dk =
+    1)."""
     if not (dtype in PASSES and N >= MIN_N and F in (1, 2)
             and 1 <= dk and N % dk == 0):
         return False
-    return (rank1_plan(N, F, dk, dtype) is not None
-            or flavors_plan(N, F, dk, dtype) is not None
-            or fits(N, F, dk, delayed_plan(N, F, dk, dtype), dtype))
+    return bool(rank1_layout(N, F, dk, dtype)
+                or flavors_layout(N, F, dk, dtype)
+                or cluster_layout(N, F, dk, cluster_plan(N, F, dk, dtype),
+                                  dtype))
 
 
 @functools.cache
-def max_clusters(F: int, N: int, dk: int, cs: int,
+def max_clusters(N: int, F: int, dk: int, lay: Layout,
                  dtype=torch.complex64) -> int:
-    """The most clusters of cs blocks the card runs at once (one query per
-    shape and process)."""
+    """The most clusters of lay (a cluster, the rank-1 or the flavor
+    layout) that the card runs at once; 1 for the slab layout (one query
+    per shape and process)."""
+    if lay.kind == "slab":
+        return 1
     out = ctypes.c_int(0)
-    fn = (_build.load().site_sweep_delayed_cx_c128_max_clusters
-          if dtype == torch.complex128
-          else _build.load().site_sweep_delayed_cx_c64_max_clusters)
-    code = fn(F, padded(N), dk, cs, *plan(N, F, dk, cs, dtype),
-              ctypes.addressof(out))
+    lib = _build.load()
+    if lay.kind == "rank1":
+        code = lib.site_sweep_delayed_cx_c128_rank1_max_clusters(
+            F, padded(N), lay.cs, *lay.geometry, ctypes.addressof(out))
+    elif lay.kind == "flavors":
+        code = lib.site_sweep_delayed_cx_c128_flavors_max_clusters(
+            padded(N), dk, *lay.geometry, ctypes.addressof(out))
+    else:
+        fn = (lib.site_sweep_delayed_cx_c128_max_clusters
+              if dtype == torch.complex128
+              else lib.site_sweep_delayed_cx_c64_max_clusters)
+        code = fn(F, padded(N), dk, lay.cs, *lay.geometry,
+                  ctypes.addressof(out))
     _build.check_launch("site_sweep_delayed_cx (occupancy query)", code)
-    return out.value
-
-
-@functools.cache
-def rank1_max_clusters(F: int, N: int) -> int:
-    """The most clusters of the complex128 rank-1 layout at this shape (dk =
-    1) that the card runs at once."""
-    out = ctypes.c_int(0)
-    cs, tr = rank1_plan(N, F, 1, torch.complex128)
-    code = _build.load().site_sweep_delayed_cx_c128_rank1_max_clusters(
-        F, padded(N), cs, tr, ctypes.addressof(out))
-    _build.check_launch("site_sweep_delayed_cx_c128 (rank-1 occupancy query)",
-                        code)
-    return out.value
-
-
-@functools.cache
-def flavors_max_clusters(N: int, dk: int) -> int:
-    """The most clusters of the complex128 flavor layout at this shape that
-    the card runs at once."""
-    out = ctypes.c_int(0)
-    p, r = flavors_plan(N, 2, dk, torch.complex128)
-    code = _build.load().site_sweep_delayed_cx_c128_flavors_max_clusters(
-        padded(N), dk, p, r, ctypes.addressof(out))
-    _build.check_launch("site_sweep_delayed_cx_c128 (flavor occupancy query)",
-                        code)
     return out.value
 
 
@@ -455,35 +456,21 @@ def _sweep(fn, dtype, G, sigma, u, **kw):
         return site_sweep_delayed_cx_plain(G, sigma, u, **kw)
     _check(G, sigma, u, kw["signs"], kw["dk"], kw["det_power"], dtype)
     C, F, N, _ = G.shape
-    kind, cs = plan_layout(N, F, kw["dk"], dtype)
-    return launch(G, sigma, u, cs, kind=kind, **kw)
+    return launch(G, sigma, u, plan_layout(N, F, kw["dk"], dtype, C), **kw)
 
 
-def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
-           kind=None):
-    """One launch of the CUDA kernel of G's dtype: the rank-1 layout (kind
-    "rank1": ``rank1_plan``'s, cs unused), the flavor layout ("flavors":
-    ``flavors_plan``'s), or the delayed layout with cs blocks per chain
-    (``delayed_plan``'s, or another that fits, to time two layouts against
-    each other) in ``plan``'s column passes and flavor stages; on G padded
-    to ``padded(N)`` where 8 does not divide N; counted in
-    ``site_sweep_delayed_cx.launches`` (complex64) or
-    ``site_sweep_delayed_cx_c128.launches`` (complex128)."""
+def launch(G, sigma, u, lay, *, dk, lamb, signs, det_power, use_boson):
+    """One launch of the CUDA kernel of G's dtype in the ``Layout`` lay:
+    ``plan_layout``'s, or another of ``layouts`` at this shape, to time two
+    layouts against each other; on G padded to ``padded(N)`` where 8 does
+    not divide N; counted in ``site_sweep_delayed_cx.launches``
+    (complex64) or ``site_sweep_delayed_cx_c128.launches`` (complex128)."""
     c128 = G.dtype == torch.complex128
     C, F, N = _check(G, sigma, u, signs, dk, det_power, G.dtype)
-    fp64_layout = {"rank1": rank1_plan, "flavors": flavors_plan}.get(kind)
-    if fp64_layout is not None:
-        geometry = fp64_layout(N, F, dk, G.dtype)
-        if geometry is None:
-            raise ValueError(
-                f"site_sweep_delayed_cx: the {kind} layout does not take "
-                f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]}")
-    elif not fits(N, F, dk, cs, G.dtype):
+    if lay not in layouts(N, F, dk, G.dtype, C):
         raise ValueError(
-            f"site_sweep_delayed_cx: {cs} blocks per chain do not take "
-            f"N={N}, F={F}, dk={dk} in {str(G.dtype)[6:]} "
-            f"({smem_bytes(N, F, dk, cs, G.dtype, 'cluster')} bytes of "
-            "shared memory per block)")
+            f"site_sweep_delayed_cx: the layout {lay} does not take N={N}, "
+            f"F={F}, dk={dk} in {str(G.dtype)[6:]}")
     NP = padded(N)
     if NP != N:
         Gp = G.new_zeros(C, F, NP, NP)
@@ -496,7 +483,7 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
     # slab layout: the accepted sites' y and row vectors of one block, re
     # and im planes
     scratch = (torch.empty(4, C, F, dk, NP, dtype=u.dtype, device=G.device)
-               if cs == 1 and fp64_layout is None else None)
+               if lay.kind == "slab" else None)
     lib = _build.load()
     head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
@@ -504,27 +491,22 @@ def launch(G, sigma, u, cs, *, dk, lamb, signs, det_power, use_boson,
     tail = (float(lamb), float(signs[0]), float(signs[-1]), int(det_power),
             int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(G.device):
-        at_once = (rank1_max_clusters(F, N) if kind == "rank1"
-                   else flavors_max_clusters(N, dk) if kind == "flavors"
-                   else max_clusters(F, N, dk, cs, G.dtype) if cs > 1
-                   else 1)
-        if at_once < 1:
+        if max_clusters(N, F, dk, lay, G.dtype) < 1:
             raise RuntimeError(
                 f"site_sweep_delayed_cx: the card cannot run the layout's "
-                f"clusters ({smem_bytes(N, F, dk, cs, G.dtype, kind)} bytes "
-                "of shared memory a block)")
-        if kind == "rank1":
+                f"clusters ({lay.smem} bytes of shared memory a block)")
+        if lay.kind == "rank1":
             code = lib.site_sweep_delayed_cx_c128_rank1(
-                *head, C, F, NP, N, *geometry, *tail)
-        elif kind == "flavors":
+                *head, C, F, NP, N, lay.cs, *lay.geometry, *tail)
+        elif lay.kind == "flavors":
             code = lib.site_sweep_delayed_cx_c128_flavors(
-                *head, C, NP, N, dk, *geometry, *tail)
+                *head, C, NP, N, dk, *lay.geometry, *tail)
         else:
-            passes, stages = plan(N, F, dk, cs, G.dtype)
             fn = (lib.site_sweep_delayed_cx_c128 if c128
                   else lib.site_sweep_delayed_cx_c64)
             code = fn(*head, 0 if scratch is None else scratch.data_ptr(), C,
-                      F, NP, N, int(dk), cs, passes, stages, *tail)
+                      F, NP, N, int(dk), lay.cs, *(lay.geometry or (1, 1)),
+                      *tail)
     fn = site_sweep_delayed_cx_c128 if c128 else site_sweep_delayed_cx
     _build.check_launch(fn.__name__, code)
     fn.launches += 1
@@ -555,7 +537,7 @@ def _check(G, sigma, u, signs, dk, det_power, dtype):
             or det_power not in (1, 2)):
         raise ValueError(f"{name}: no CUDA kernel for N={N}, F={F}, dk={dk} "
                          f"(N >= {MIN_N}, F in (1, 2), dk | N, "
-                         f"{smem_bytes(N, F, dk, 1, dtype, 'slab')} of "
+                         f"{smem_bytes(N, F, dk, 1, dtype)} of "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory in "
                          "the slab layout; det_power 1 or 2)")
     if tuple(sigma.shape) != (C, N) or tuple(u.shape) != (C, N):

@@ -175,7 +175,8 @@ def test_site_sweep_delayed_layouts_match_plain(cuda, chains, model, N, dk,
                    for x in sweep_inputs(N + dk + chains, chains, F, N))
     n0 = ssd.site_sweep_delayed.launches
     out_k = (ssd.site_sweep_delayed(G, sigma, u, dk=dk, **kw) if cs is None
-             else ssd.launch(G, sigma, u, cs, dk=dk, **kw))
+             else ssd.launch(G, sigma, u, ssd.cluster_layout(N, F, dk, cs),
+                             dk=dk, **kw))
     assert ssd.site_sweep_delayed.launches == n0 + 1
     out_p = ssd.site_sweep_delayed_plain(G, sigma, u, dk=dk, **kw)
     torch.cuda.synchronize()
@@ -366,7 +367,9 @@ def test_site_sweep_delayed_cx_layouts_match_plain(cuda, chains, model, N, dk,
                    for x in cx_sweep_inputs(N + dk + chains, chains, F, N))
     n0 = ssdcx.site_sweep_delayed_cx.launches
     out_k = (ssdcx.site_sweep_delayed_cx(G, sigma, u, dk=dk, **kw)
-             if cs is None else ssdcx.launch(G, sigma, u, cs, dk=dk, **kw))
+             if cs is None else ssdcx.launch(
+                 G, sigma, u, ssdcx.cluster_layout(N, F, dk, cs), dk=dk,
+                 **kw))
     assert ssdcx.site_sweep_delayed_cx.launches == n0 + 1
     out_p = ssdcx.site_sweep_delayed_cx_plain(G, sigma, u, dk=dk, **kw)
     torch.cuda.synchronize()
@@ -1235,7 +1238,12 @@ def test_site_sweep_delayed_cx_c128_kernel_matches_plain(cuda, model, C, N,
 # chains, N, dk, diagonal spread): the rank-1 layout of K6-f64 and K9-c128
 # at dk = 1 (l15_f64's, the 13x13's, F = 2, flux14_c128's, and N = 130 and
 # 250, whose padded rows and columns the sweep never visits) and K9-c128's
-# flavor layout at F = 2, N = 256, dk = 32 (rep_flux16_c128's)
+# flavor layout at F = 2, N = 256, dk = 32 (rep_flux16_c128's), and at 16
+# chains (DQMC's default) the clusters of 4 in two flavor stages that the
+# plan keeps there; K9-c128 and K6-f64 at F = 2 in clusters of 8 (the
+# repulsive 14x14 and 15x15 in a flux, N = 250, and 17x17 in float64); the
+# flavor layout in one row and column pass (N = 130, dk = 26) and past
+# one wave of clusters of 4 at N = 192
 REDESIGNED = [
     ("f64", "attractive", 64, 225, 1, 0.0), ("f64", "attractive", 64, 169, 1,
                                              0.0),
@@ -1246,13 +1254,21 @@ REDESIGNED = [
     ("c128", "repulsive", 64, 144, 1, 0.0), ("c128", "repulsive", 64, 256,
                                              32, 0.0),
     ("c128", "attractive", 8, 250, 1, 0.0), ("c128", "repulsive", 8, 130, 1,
-                                             0.0)]
+                                             0.0),
+    ("c128", "repulsive", 16, 256, 32, 0.0),
+    ("c128", "repulsive", 64, 196, 1, 0.0), ("c128", "repulsive", 8, 225, 1,
+                                             0.0),
+    ("c128", "repulsive", 8, 250, 1, 0.0), ("f64", "repulsive", 8, 289, 1,
+                                            0.8),
+    ("c128", "repulsive", 8, 130, 26, 0.0), ("c128", "repulsive", 40, 192,
+                                             32, 0.0)]
 
 
 @pytest.mark.parametrize("kind,model,C,N,dk,spread", REDESIGNED)
 def test_fp64_redesigned_layouts_bit_equal(cuda, kind, model, C, N, dk,
                                            spread):
-    """The rank-1 and flavor layouts against the unchanged plain versions:
+    """The rank-1, flavor and two-stage layouts against the unchanged plain
+    versions:
     G bit-equal (max|dG| 0), sigma, the counts or accept flags and
     detratios, and K6-f64's negative-weight magnitudes identical; 50
     relaunches bit-equal to the first; the wrapper runs the plan's layout
@@ -1270,8 +1286,10 @@ def test_fp64_redesigned_layouts_bit_equal(cuda, kind, model, C, N, dk,
         u = torch.from_numpy(u.astype(np.float64)).to(cuda)
         mod, fn = ssdcx, ssdcx.site_sweep_delayed_cx_c128
         plain, dtype = ssdcx.site_sweep_delayed_cx_plain, torch.complex128
-    assert mod.plan_layout(N, F, dk, dtype)[0] == (
-        "rank1" if dk == 1 else "flavors")
+    one_row = dk > 1 and ssdcx.flavors_layout(N, F, dk, dtype).geometry[1] < 2
+    assert mod.plan_layout(N, F, dk, dtype, C).kind == (
+        "rank1" if dk == 1 else "flavors" if C > 30 or one_row
+        else "cluster")
     n0 = fn.launches
     out_k = fn(G, sigma, u, **kw)
     assert fn.launches == n0 + 1

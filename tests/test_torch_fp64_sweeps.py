@@ -101,23 +101,25 @@ def test_k6_f64_layouts(N, F, dk, dtype, cs, passes):
     element: in float64 the 16x16 F = 1 still runs one pass, F = 2 two
     (227,616 bytes, within one block's 232,448), and float32 keeps its
     one-pass layouts. Float64 at dk = 1 runs the rank-1 layout in clusters
-    of the same size (tests/test_torch_rank1_layouts.py); the delayed layout
-    stays launchable there for A/B timing."""
+    of the same size or of 4 (tests/test_torch_rank1_layouts.py); the
+    delayed layout stays among ``layouts`` there for A/B timing."""
     el = dtype.itemsize
     rank1 = dk == 1 and dtype == F64
-    kind, plan_cs = ssd.plan_layout(N, F, dk, dtype)
-    assert kind == ("rank1" if rank1 else "cluster")
-    assert ssd.cluster_plan(N, F, dk, dtype) == plan_cs
-    assert ssd.delayed_plan(N, F, dk, dtype) == cs
+    lay = ssd.plan_layout(N, F, dk, dtype)
+    assert lay.kind == ("rank1" if rank1 else "cluster")
+    assert ssd.cluster_plan(N, F, dk, dtype) == cs
+    cluster = ssd.cluster_layout(N, F, dk, cs, dtype)
     if rank1:
-        r1 = ssd.rank1_plan(N, F, dk, dtype)
-        assert plan_cs == r1[0] == (2 if F == 1 else 4)
-        assert ssd.smem_bytes(N, F, dk, plan_cs, dtype) == ssd.rank1_smem(
-            N, F, *r1) <= _build.SMEM_PER_BLOCK
+        r1 = ssd.rank1_layout(N, F, dk, dtype)
+        assert lay == r1 and r1.cs == (2 if F == 1 else 4)
+        assert r1.smem == ssd.rank1_smem(N, F, r1.cs, *r1.geometry) <= \
+            _build.SMEM_PER_BLOCK
+        assert ssd.layouts(N, F, dk, dtype)[:2] == [r1, cluster]
     else:
-        assert plan_cs == cs
+        assert lay == cluster
     assert ssd.column_passes(N, F, dk, cs, dtype) == passes
-    assert ssd.smem_bytes(N, F, dk, cs, dtype, "cluster") == \
+    assert cluster.geometry == (passes,)
+    assert ssd.smem_bytes(N, F, dk, cs, dtype) == cluster.smem == \
         _k6_cluster_bytes(N, F, dk, cs, passes, el) <= _build.SMEM_PER_BLOCK
     assert ssd.fits(N, F, dk, cs, dtype) and ssd.kernel_supports(N, F, dk,
                                                                  dtype)
@@ -133,11 +135,11 @@ def test_k6_f64_refused_shapes():
     (no layout fits). At dk = 1 the rank-1 layout takes N = 132 (where the
     delayed layouts have only the slab) and N = 130 in clusters of 2."""
     assert ssd.kernel_supports(132, 1, 1, F64)          # rank-1 layout
-    assert ssd.delayed_plan(132, 1, 1, F64) == 1        # the slab's
-    assert ssd.plan_layout(132, 1, 1, F64) == ("rank1", 2)
+    assert ssd.cluster_plan(132, 1, 1, F64) == 1        # the slab's
+    assert ssd.plan_layout(132, 1, 1, F64)[:2] == ("rank1", 2)
     assert ssd.kernel_supports(130, 1, 1, F64)          # padded to 136
     assert ssd.cluster_plan(130, 1, 1, F64) == 2
-    assert ssd.plan_layout(130, 1, 1, F64) == ("rank1", 2)
+    assert ssd.plan_layout(130, 1, 1, F64)[:2] == ("rank1", 2)
     assert not ssd.kernel_supports(130, 1, 4, F64)      # dk | N
     assert not ssd.kernel_supports(128, 1, 32, F64)     # K1-f64's range
     assert not ssd.kernel_supports(256, 3, 32, F64)
@@ -159,12 +161,13 @@ def test_k9_c128_layouts(N, F, dk, cs, passes, ok):
     dk = 64 fits no layout."""
     assert ssdcx.kernel_supports(N, F, dk, C128) == ok
     # the delayed layouts' plan; where the plan runs the rank-1 layout (dk
-    # = 1) or the flavor layout (F = 2 at dk = 32) instead, that layout's
-    # own (tests/test_torch_rank1_layouts.py)
-    assert ssdcx.delayed_plan(N, F, dk, C128) == cs
+    # = 1) or, for 64 chains, the flavor layout (F = 2 at dk = 32) instead,
+    # that layout's own (tests/test_torch_rank1_layouts.py)
+    assert ssdcx.cluster_plan(N, F, dk, C128) == cs
     kind = ("rank1" if dk == 1 else "flavors" if (F, dk) == (2, 32)
-            else "cluster" if ok else "slab")
-    assert ssdcx.plan_layout(N, F, dk, C128)[0] == kind
+            else "cluster" if ok else None)
+    lay = ssdcx.plan_layout(N, F, dk, C128, 64)
+    assert (lay and lay.kind) == kind
     if not ok:
         assert ssdcx.smem_bytes(N, F, dk, 1, C128) > _build.SMEM_PER_BLOCK
         return
@@ -174,7 +177,8 @@ def test_k9_c128_layouts(N, F, dk, cs, passes, ok):
     want = 8 * (2 * fs * dk * (N // passes) + 2 * fs * dk * (N // cs)
                 + 4 * F * dk * ld + 4 * fs * dk * dk + 2 * F * dk * (dk + 1)
                 + 4 * F * dk + (F + 2) * N + dk + 4 + (N + 3) // 4)
-    assert ssdcx.smem_bytes(N, F, dk, cs, C128, "cluster") == want
+    assert ssdcx.smem_bytes(N, F, dk, cs, C128) == want
+    assert ssdcx.cluster_layout(N, F, dk, cs, C128).smem == want
     assert want <= _build.SMEM_PER_BLOCK
     # complex64 keeps one pass at every shape it took before, and runs
     # F = 2 at dk = 32 in two
@@ -195,20 +199,21 @@ def test_k6_padded_layouts(N, F, dk, dtype, NP):
     F = 2 past N = 200 of 4); the delayed layout stays launchable there."""
     assert ssd.padded(N) == NP and ssd.padded(NP) == NP
     assert ssd.kernel_supports(N, F, dk, dtype)
-    assert ssd.delayed_plan(N, F, dk, dtype) == 2
+    assert ssd.cluster_plan(N, F, dk, dtype) == 2
     assert ssd.column_passes(N, F, dk, 2, dtype) == 1
-    assert ssd.smem_bytes(N, F, dk, 2, dtype, "cluster") == \
+    cluster = ssd.cluster_layout(N, F, dk, 2, dtype)
+    assert ssd.smem_bytes(N, F, dk, 2, dtype) == cluster.smem == \
         _k6_cluster_bytes(NP, F, dk, 2, 1, dtype.itemsize) <= \
         _build.SMEM_PER_BLOCK
-    assert ssd.layout(N, F, dk, 2, dtype=dtype, kind="cluster").startswith(
+    assert ssd.layout(N, F, dk, cluster, dtype).startswith(
         f"G padded to {NP} x {NP}, cluster of 2 blocks")
     if dk == 1 and dtype == F64:
-        cs, tr = ssd.rank1_plan(N, F, dk, dtype)
-        assert ssd.plan_layout(N, F, dk, dtype) == ("rank1", cs)
+        r1 = ssd.rank1_layout(N, F, dk, dtype)
+        assert ssd.plan_layout(N, F, dk, dtype) == r1
         assert ssd.layout(N, F, dk, dtype=dtype).startswith(
-            f"G padded to {NP} x {NP}, rank-1: cluster of {cs} blocks")
+            f"G padded to {NP} x {NP}, rank-1: cluster of {r1.cs} blocks")
     else:
-        assert ssd.plan_layout(N, F, dk, dtype) == ("cluster", 2)
+        assert ssd.plan_layout(N, F, dk, dtype) == cluster
 
 
 @pytest.mark.parametrize("N,F,dk,dtype,NP,cs,passes,stages", [
@@ -224,19 +229,20 @@ def test_k9_new_layouts(N, F, dk, dtype, NP, cs, passes, stages):
     el, fs, ld = dtype.itemsize // 2, F // stages, (dk + 3) // 4 * 4 + 4
     assert ssdcx.padded(N) == NP and ssdcx.kernel_supports(N, F, dk, dtype)
     # the delayed layouts' plan; complex128 runs the rank-1 layout at dk = 1
-    # and the flavor layout at F = 2, dk = 32 instead
-    # (tests/test_torch_rank1_layouts.py), the delayed one stays
-    # launchable for A/B timing
-    assert ssdcx.delayed_plan(N, F, dk, dtype) == cs
+    # and, past one wave of its clusters (64 chains), the flavor layout at
+    # F = 2, dk = 32 instead (tests/test_torch_rank1_layouts.py); the
+    # delayed one stays among ``layouts`` for A/B timing
+    assert ssdcx.cluster_plan(N, F, dk, dtype) == cs
     kind = ("rank1" if dtype == C128 and dk == 1 else "flavors"
             if stages > 1 else "cluster")
-    assert ssdcx.plan_layout(N, F, dk, dtype)[0] == kind
+    assert ssdcx.plan_layout(N, F, dk, dtype, 64).kind == kind
     assert ssdcx.plan(N, F, dk, cs, dtype) == (passes, stages)
     want = el * (2 * fs * dk * (NP // passes) + 2 * fs * dk * (NP // cs)
                  + 4 * F * dk * ld + 4 * fs * dk * dk
                  + 2 * F * dk * (dk + 1) + 4 * F * dk + (F + 2) * NP + dk
                  + 4 + (NP + 3) // 4)
-    assert ssdcx.smem_bytes(N, F, dk, cs, dtype, "cluster") == want
+    cluster = ssdcx.cluster_layout(N, F, dk, cs, dtype)
+    assert ssdcx.smem_bytes(N, F, dk, cs, dtype) == cluster.smem == want
     assert want <= _build.SMEM_PER_BLOCK
     # one stage of both flavors, or fewer passes, would not fit
     if stages > 1:
@@ -245,9 +251,9 @@ def test_k9_new_layouts(N, F, dk, dtype, NP, cs, passes, stages):
     if passes > 1:
         assert ssdcx._smem(N, F, dk, cs, el, passes // 2, stages) > \
             _build.SMEM_PER_BLOCK
-    assert (f"G padded to {NP} x {NP}" in ssdcx.layout(N, F, dk, dtype=dtype)
-            ) == (NP != N)
-    assert ssdcx.layout(N, F, dk, cs, dtype=dtype, kind="cluster").count(
+    assert (f"G padded to {NP} x {NP}" in ssdcx.layout(
+        N, F, dk, dtype=dtype, chains=64)) == (NP != N)
+    assert ssdcx.layout(N, F, dk, cluster, dtype).count(
         f"cluster of {cs} blocks") == 1
 
 

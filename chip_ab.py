@@ -34,6 +34,9 @@ largest difference). Needs CUDA.
                        layout each checkout's plan picks
   site_sweep_delayed_cx_c128 (64, 2, 196, 196)  K9-c128 at F = 2, dk = 1
                        (the repulsive 14x14 in a flux, rep_flux14_c128)
+  site_sweep_delayed_f64 (64, 2, 144, 144)  K6-f64 at F = 2, dk = 1 (the
+                       repulsive 12x12 in float64, the rank-1 layout in
+                       clusters of 4)
   site_sweep_delayed_f64 (16, 1, 225, 225)      the same four shapes at
   site_sweep_delayed_cx_c128 (16, 1, 196, 196)  16 chains, DQMC's
   site_sweep_delayed_cx_c128 (16, 2, 256, 256)  default chain count
@@ -41,6 +44,13 @@ largest difference). Needs CUDA.
   site_sweep (256, 1, 64, 64)       K1 on the headline's inputs, K8 on the
   site_sweep_cx (256, 1, 64, 64)    complex configuration's and on
   site_sweep_cx (256, 1, 128, 128)  chain128's, made the same way
+  site_sweep_cx_c128 (256, 2, 100, 100)  K8-c128 on chip_smoke.py's
+  site_sweep_cx_c128 (64, 2, 128, 128)   k8_c128_inputs: rep_flux10_c128,
+  site_sweep_cx_c128 (256, 1, 100, 100)  the repulsive 128-site ring, the
+  site_sweep_cx_c128 (256, 1, 128, 128)  attractive 10x10 and chain128
+  site_sweep_cx_c128 (256, 1, 64, 64)    in complex128, and the complex
+  site_sweep_cx_c128 (256, 2, 64, 64)    row's 8x8 at F = 1 and 2, in the
+                       layout each checkout's plan picks
   udt_qr (256, 64, 64)        the fused UDT K2 and K3 at the headline's
   udt_qr_solve (256, 64, 64)  shape and at the repulsive model's (B = 512:
   udt_qr (512, 64, 64)        two flavors), on chip_smoke.py's graded,
@@ -118,6 +128,14 @@ def _sweep(complex_, **where):
     return make
 
 
+def _k8_c128(case):
+    def make():
+        from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
+        G, sigma, u, kw, _ = _smoke().k8_c128_inputs(case)
+        return lambda: sscx.site_sweep_cx_c128(G, sigma, u, **kw)
+    return make
+
+
 def _f64_sweep(repulsive, chains):
     def make():
         from montecarlo_tpu_torch.ops import site_sweep as ss
@@ -159,6 +177,19 @@ def _fp64_run(run, chains=64):
         fn = (ssd.site_sweep_delayed_f64 if G.dtype == torch.float64
               else ssdcx.site_sweep_delayed_cx_c128)
         return lambda: fn(G, sigma, u, **kw)
+    return make
+
+
+def _f64_rep12():
+    """K6-f64 at F = 2, dk = 1 on the repulsive 12x12's float64 inputs
+    (chip_smoke.py's slice_inputs), through the wrapper."""
+    def make():
+        import torch
+        from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
+        smoke = _smoke()
+        G, sigma, u, kw, _ = smoke.slice_inputs(
+            smoke.headline_model(True, 12), 64, 44, dtype=torch.float64)
+        return lambda: ssd.site_sweep_delayed_f64(G, sigma, u, dk=1, **kw)
     return make
 
 
@@ -225,6 +256,7 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
              _fp64_run("rep_flux16_c128"),
          "site_sweep_delayed_cx_c128 (64, 2, 196, 196)":
              _fp64_run("rep_flux14_c128"),
+         "site_sweep_delayed_f64 (64, 2, 144, 144)": _f64_rep12(),
          "site_sweep_delayed_f64 (16, 1, 225, 225)": _fp64_run("l15_f64", 16),
          "site_sweep_delayed_cx_c128 (16, 1, 196, 196)":
              _fp64_run("flux14_c128", 16),
@@ -235,6 +267,13 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "site_sweep (256, 1, 64, 64)": _sweep(False),
          "site_sweep_cx (256, 1, 64, 64)": _sweep(True),
          "site_sweep_cx (256, 1, 128, 128)": _sweep(True, L=128, dims=1),
+         "site_sweep_cx_c128 (256, 2, 100, 100)": _k8_c128("rep_flux10_c128"),
+         "site_sweep_cx_c128 (64, 2, 128, 128)":
+             _k8_c128("rep_chain128_c128"),
+         "site_sweep_cx_c128 (256, 1, 100, 100)": _k8_c128("flux10_c128"),
+         "site_sweep_cx_c128 (256, 1, 128, 128)": _k8_c128("chain128_c128"),
+         "site_sweep_cx_c128 (256, 1, 64, 64)": _k8_c128("complex_c128"),
+         "site_sweep_cx_c128 (256, 2, 64, 64)": _k8_c128("rep_complex_c128"),
          "udt_qr (256, 64, 64)": _udt(256, False),
          "udt_qr_solve (256, 64, 64)": _udt(256, True),
          "udt_qr (512, 64, 64)": _udt(512, False),

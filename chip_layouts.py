@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Time every layout of K6-f64 or K9-c128 that takes a shape against each
-other, in turns, at several chain counts, on one NVIDIA GPU.
+"""Time every layout of K6-f64, K8-c128 or K9-c128 that takes a shape
+against each other, in turns, at several chain counts, on one NVIDIA GPU.
 
     python3 chip_layouts.py CASE[:CHAINS[,CHAINS...]] [...]
 
 CASE is an item 4 run of chip_smoke.py (``fp64_run_inputs``: l15_f64,
-flux14_c128, rep_flux16_c128, rep_flux14_c128; its seed and delay) or a
+flux14_c128, rep_flux16_c128, rep_flux14_c128; its seed and delay), a
 repulsive ring in a flux at delay 32 in complex128 (ring160_c128,
 ring192_c128: the shapes where both the flavor layout and clusters of 4 in
-two flavor stages fit). CHAINS defaults to 64; the inputs are made once at
-the largest count and sliced. For each chain count it runs every layout of
+two flavor stages fit) or one of K8-c128's cases (``K8_C128_CASES``:
+rep_flux10_c128, rep_chain128_c128, flux10_c128, chain128_c128,
+complex_c128, rep_complex_c128) or a ring of L sites in complex128 with
+the complex row's phases for K8-c128 (k8_ringL attractive, F = 1;
+k8_rep_ringL repulsive, F = 2; L <= 128). CHAINS defaults to 64; the
+inputs are made once at the largest count and sliced. For each chain count it runs every layout of
 ``mod.layouts`` (the plan's first), checks that all give bit-equal outputs,
 and prints one JSON line: the plan's layout, each layout's synchronised ms
 per call (CUDA events over 20 calls, in the order plan, others, others
@@ -31,8 +35,18 @@ def inputs(case, chains):
     import torch
 
     import chip_smoke as smoke
+    from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
     from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
+    if case in smoke.K8_C128_CASES:
+        G, sigma, u, kw, _ = smoke.k8_c128_inputs(case, chains)
+        return G, sigma, u, kw, sscx
+    if case.startswith("k8_"):
+        L = int(case.rsplit("ring", 1)[1])
+        G, sigma, u, kw, _ = smoke.slice_inputs(
+            smoke.complex_model(case.startswith("k8_rep"), L, 1), chains, L,
+            safe_mult=smoke.CPLX_SM, dtype=torch.float64)
+        return G, sigma, u, kw, sscx
     if case.startswith("ring"):
         L = int(case[4:].split("_")[0])
         G, sigma, u, kw, _ = smoke.slice_inputs(
@@ -58,13 +72,22 @@ def ms_per_call(call):
     return start.elapsed_time(end) / REPS
 
 
+def at_once(mod, N, F, kw, lay, dtype):
+    """How many clusters of lay the card runs at once (1: one block per
+    chain)."""
+    if "dk" not in kw:            # K8-c128: the one-block or rank-1 layout
+        return mod.max_clusters(N, F, lay) if lay.kind == "rank1" else 1
+    return mod.max_clusters(N, F, kw["dk"], lay, dtype)
+
+
 def run(case, counts):
     import torch
     G0, s0, u0, kw, mod = inputs(case, max(counts))
     C0, F, N, _ = G0.shape
     for C in counts:
         G, sigma, u = (x[:C].contiguous() for x in (G0, s0, u0))
-        lays = mod.layouts(N, F, kw["dk"], G.dtype, C)
+        lays = (mod.layouts(N, F, kw["dk"], G.dtype, C) if "dk" in kw
+                else mod.layouts(N, F, G.dtype, C))
         calls = [lambda lay=lay: mod.launch(G, sigma, u, lay, **kw)
                  for lay in lays]
         outs = [call() for call in calls]
@@ -75,14 +98,13 @@ def run(case, counts):
         for i in order + order[::-1]:
             ms[i].append(ms_per_call(calls[i]))
         print(json.dumps({
-            "case": case, "shape": [C, F, N, N], "dk": kw["dk"],
+            "case": case, "shape": [C, F, N, N], "dk": kw.get("dk", 1),
             "plan": f"{lays[0].kind} CS={lays[0].cs}",
             "bit_equal": same,
             "layouts": [{"layout": f"{lay.kind} CS={lay.cs} "
                                    f"{list(lay.geometry)}",
                          "ms": ms[i],
-                         "at_once": mod.max_clusters(N, F, kw["dk"], lay,
-                                                     G.dtype)}
+                         "at_once": at_once(mod, N, F, kw, lay, G.dtype)}
                         for i, lay in enumerate(lays)]}), flush=True)
         if not same:
             raise SystemExit(f"chip_layouts: the layouts of {case} at {C} "

@@ -46,7 +46,7 @@ Runs each named configuration of chip_smoke.py (default: headline):
             complex128, 64 chains (K9-c128 on G padded to 200 and the
             library QR)
   rep_flux10_c128  10x10 repulsive with those phases in complex128, 256
-            chains (K8-c128 at F = 2, a cluster of 2 blocks per chain, and
+            chains (K8-c128 at F = 2 in the rank-1 layout, and
             the library QR)
   rep_flux16_c128  16x16 repulsive with those phases in complex128, 64
             chains, delay 32 (K9-c128 at F = 2 in two flavor stages and the
@@ -57,7 +57,7 @@ colscaled colscaled_wy): two calls may land on two cards.
 
     python3 chip_profile.py stamps [K1] [K8] [K6] [K9] [K10] [K7] [K2] [K3]
                                    [K11] [K13] [K1-f64] [K5] [K4] [K14]
-                                   [K6-f64] [K9-c128]
+                                   [K6-f64] [K9-c128] [K8-c128]
 
 instead builds the kernels with -DMC_PHASE_STAMPS (csrc/phase_clock.cuh)
 into a build directory of their own and prints where one launch of each
@@ -78,7 +78,11 @@ inputs beside it), K4 at (256, 64, 64) and (64, 128, 128) and K14 at
 matrices, K6-f64 at (64, 1, 225, 225) on l15_f64's inputs and K9-c128 at
 (64, 1, 196, 196) and (64, 2, 256, 256) on flux14_c128's and
 rep_flux16_c128's (chip_smoke.py's phase 3 rows: the rank-1 layout's
-phases and the flavor layout's, with SM cycles per site): the mean over
+phases and the flavor layout's, with SM cycles per site), K8-c128 at
+(256, 2, 100, 100), (64, 2, 128, 128) and (256, 1, 100, 100) on
+chip_smoke.py's k8_c128_inputs (rep_flux10_c128, the repulsive 128-site
+ring, the attractive 10x10; the layout the checkout's plan picks, in an
+older checkout the one-block layout or its flavor pair): the mean over
 the launch's blocks of each phase that the kernel stamps, its share, and
 its microseconds at the SM clock nvidia-smi reads after the launch, beside
 the launch's mean synchronised time.
@@ -138,7 +142,7 @@ from chip_smoke import timed
 PAIRS = 5
 # the kernels that `stamps` times
 STAMPED = ("K1", "K8", "K6", "K9", "K10", "K7", "K2", "K3", "K11", "K13",
-           "K1-f64", "K5", "K4", "K14", "K6-f64", "K9-c128")
+           "K1-f64", "K5", "K4", "K14", "K6-f64", "K9-c128", "K8-c128")
 # device-time shares printed for every configuration: kernel name fragments
 SHARES = {"K1": ("site_sweep_tiled_f32",),
           # K1-f64 and K5 under their former names too, for A/B runs
@@ -156,19 +160,23 @@ SHARES = {"K1": ("site_sweep_tiled_f32",),
                   "qr_kernel<float, true>"),
           "K11": ("qr_f64_kernel", "qr_kernel<double"),
           "GEMMs": ("gemm",),
+          # the rank-1 layout's instances under their kernel's number (in
+          # older checkouts rank1::sweep<false or <true)
           "K6": ("site_sweep_delayed_cluster", "site_sweep_delayed_slab",
-                 "rank1::sweep<false"),
-          "K9": ("site_sweep_delayed_cx", "rank1::sweep<true"),
-          "K8": ("site_sweep_tiled_cx",),
+                 "rank1::sweep<6", "rank1::sweep<false"),
+          "K9": ("site_sweep_delayed_cx", "rank1::sweep<9",
+                 "rank1::sweep<true"),
+          "K8": ("site_sweep_tiled_cx", "rank1::sweep<8"),
           "K10": ("qr_cx_kernel",), "K7": ("qr_blocked_kernel",),
           # the float64 and complex128 instances ("a&b": both in the name)
           "K6-f64": ("site_sweep_delayed_cluster<double",
-                     "site_sweep_delayed_slab<double", "rank1::sweep<false"),
-          "K8-c128": ("site_sweep_tiled_cx&double",),
+                     "site_sweep_delayed_slab<double", "rank1::sweep<6",
+                     "rank1::sweep<false"),
+          "K8-c128": ("site_sweep_tiled_cx&double", "rank1::sweep<8"),
           "K9-c128": ("site_sweep_delayed_cx_cluster<double",
                       "site_sweep_delayed_cx_slab<double",
                       "site_sweep_delayed_cx_flavors<double",
-                      "rank1::sweep<true"),
+                      "rank1::sweep<9", "rank1::sweep<true"),
           "library QR": ("geqr", "orgqr", "ungqr", "larf", "cusolver")}
 F32 = {"dtype": "float32"}
 CS = {**F32, "stab_method": "qr_colscaled"}
@@ -511,6 +519,27 @@ def stamps(which):
                       _stamp_rows(readout, C * lay.cs), mod.PHASES[lay.kind],
                       ms,
                       sites=N)
+    if "K8-c128" in which:
+        # K8-c128 past N = 64 on the inputs of the runs its shapes come from
+        for case in ("rep_flux10_c128", "rep_chain128_c128", "flux10_c128"):
+            G, sigma, u, kw, _ = smoke.k8_c128_inputs(case)
+            C, F, N, _ = G.shape
+            if hasattr(sscx, "plan_layout"):
+                lay = sscx.plan_layout(N, F, G.dtype, C)
+                blocks, where = C * lay.cs, sscx.layout(N, F, G.dtype, lay)
+                phases = (ssdcx.PHASES["rank1"] if lay.kind == "rank1"
+                          else ss.PHASES)
+            else:   # an older checkout: one block per chain or flavor
+                blocks = C * (2 if F == 2 else 1)
+                where, phases = sscx.layout(N, F, G.dtype), ss.PHASES
+            call = lambda: sscx.site_sweep_cx_c128(G, sigma, u, **kw)
+            ms = 1e3 * timed(call, 20)
+            n_acc = int(call()[2].sum())
+            _print_stamps(f"K8-c128 {case} {tuple(G.shape)} complex128, "
+                          f"{n_acc} of {C * N} sites accepted, {blocks} "
+                          f"blocks ({where})", f"K8-c128 {case}",
+                          _stamp_rows("site_sweep_cx_c64", blocks), phases,
+                          ms, sites=N)
     if "K13" in which:
         # the fusewrap run's shape, each direction: one block per chain
         G, sigma, u, kw, ops, _, _ = smoke.wrap_inputs()

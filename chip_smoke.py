@@ -44,14 +44,15 @@ failure and prints no result line then):
               device and plain ms and bound printed: K6 and K6-f64 at
               (64, 1, 169, 169) (G padded to 176), K6-f64 at (64, 1, 225,
               225), K9 and K9-c128 at (64, 1, 196, 196) (G padded to 200),
-              K8 and K8-c128 at F = 2, N = 100 (256 chains) and N = 128
-              (complex128: a cluster of 2 blocks per chain), K9 and K9-c128
+              K8 and K8-c128 at F = 2, N = 100 (256 chains) and N = 128,
+              K8-c128 also at F = 1, N = 100 (256 chains), K9 and K9-c128
               at (64, 2, 256, 256) with dk = 32 (complex128 in the flavor
               layout: a cluster of 2 blocks per chain, one flavor each);
-              K6-f64 and K9-c128 at dk = 1 run the rank-1 layout (G on
-              chip), and the three redesigned rows also time the delayed
-              layout they replaced ([layouts] lines, in turns); the four
-              shapes of the 4r runs are rows of their
+              K6-f64 and K9-c128 at dk = 1 and K8-c128 past N = 64 run the
+              rank-1 layout (G on chip; K8-c128's every row in registers),
+              and the four redesigned rows and K8-c128 at F = 2, N = 128
+              also time the other layouts that fit ([layouts] lines, in
+              turns); the four shapes of the 4r runs are rows of their
               own in the kernels line
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
@@ -121,8 +122,8 @@ failure and prints no result line then):
               15x15 attractive, 64 chains (K6-f64 on G padded to 232; drift
               max below 1e-6); 14x14 attractive with the complex row's
               pure-gauge phases, 64 chains (K9-c128 on G padded to 200);
-              10x10 repulsive with them, 256 chains (K8-c128 at F = 2 on
-              clusters of 2 blocks); 16x16 repulsive with them, 64 chains,
+              10x10 repulsive with them, 256 chains (K8-c128 at F = 2 in
+              the rank-1 layout); 16x16 repulsive with them, 64 chains,
               delay 32 (K9-c128 at F = 2 in the flavor layout); each beside
               the library QR, the complex runs' <s> within PHASE_TOL_C128 of
               1 with no imaginary probability, the repulsive runs held to
@@ -323,7 +324,7 @@ FP64_THERM, FP64_SWEEPS = 1, 1
 # (15x15 attractive, 64 chains: K6-f64 on G padded to 232), flux14_c128
 # (14x14 attractive with the complex row's pure-gauge phases, 64 chains:
 # K9-c128 on G padded to 200), rep_flux10_c128 (10x10 repulsive with
-# them, 256 chains: K8-c128 at F = 2 on clusters of 2 blocks) and
+# them, 256 chains: K8-c128 at F = 2 in the rank-1 layout) and
 # rep_flux16_c128 (16x16 repulsive with them, 64 chains, delay auto 32:
 # K9-c128 at F = 2 in the flavor layout); the complex128 runs' |<s> - 1|
 # (complex16_c128 read 3.8e-13 on an H100 80GB HBM3 at 700 W)
@@ -521,7 +522,7 @@ KERNEL_INFO = {
     # the shapes of the item 4 runs (phase 4r), rows of their own: K6-f64
     # at N = 225 (G padded to 232; at dk = 1 the JAX package's rank-1
     # loop), K9-c128 at N = 196 (G padded to 200), K8-c128 at F = 2, N = 100
-    # (a cluster of 2 blocks per chain) and K9-c128 at F = 2, N = 256,
+    # (the rank-1 layout) and K9-c128 at F = 2, N = 256,
     # dk = 32 (64 chains: the flavor layout)
     "site_sweep_delayed_f64_225": (
         "montecarlo_tpu_torch/csrc/site_sweep_delayed.cu",
@@ -1614,10 +1615,35 @@ def fp64_run_inputs(run, chains=ITEM4_CHAINS):
     return G, sigma, u, dict(kw, dk=max(ctx.delay, 1)), ctx
 
 
+# K8-c128's shapes with the inputs of the runs they come from (phase 3's
+# seeds; slice_inputs in complex128): case -> (repulsive, L, dims, seed,
+# chains). rep_flux10_c128 (256, 2, 100, 100), the 128-site ring's
+# repulsive model (64, 2, 128, 128), the attractive 10x10 in the same
+# phases (256, 1, 100, 100), chain128 (256, 1, 128, 128) and the complex
+# row's 8x8 (256, 1|2, 64, 64)
+K8_C128_CASES = {"rep_flux10_c128": (True, 10, 2, 48, ITEM4_REP10_CHAINS),
+                 "rep_chain128_c128": (True, CHAIN_L, 1, 49, ITEM4_CHAINS),
+                 "flux10_c128": (False, 10, 2, 53, ITEM4_REP10_CHAINS),
+                 "chain128_c128": (False, CHAIN_L, 1, 3, CHAINS),
+                 "complex_c128": (False, L, 2, 1, CHAINS),
+                 "rep_complex_c128": (True, L, 2, 2, CHAINS)}
+
+
+def k8_c128_inputs(case, chains=None):
+    """(G, sigma, u, keywords, ctx) of K8-c128 at one of K8_C128_CASES, at
+    its chain count or the given one; for parity_item4, parity_fp64,
+    chip_profile.py's stamps, chip_layouts.py and chip_ab.py."""
+    import torch
+    repulsive, L_, dims, seed, n = K8_C128_CASES[case]
+    return slice_inputs(complex_model(repulsive, L_, dims), chains or n, seed,
+                        safe_mult=CPLX_SM, dtype=torch.float64)
+
+
 # phase 3's rows whose shapes run the layouts redesigned for the card: the
-# rank-1 layout (K6-f64, K9-c128 at dk = 1) and K9-c128's flavor layout
+# rank-1 layout (K6-f64, K9-c128 at dk = 1; K8-c128 past N = 64) and
+# K9-c128's flavor layout
 REDESIGNED = ("site_sweep_delayed_f64_225", "site_sweep_delayed_cx_c128_196",
-              "site_sweep_delayed_cx_c128_f2")
+              "site_sweep_delayed_cx_c128_f2", "site_sweep_cx_c128_f2_100")
 
 
 def parity_item4(results):
@@ -1627,17 +1653,20 @@ def parity_item4(results):
     (64, 1, 169, 169) (4 does not divide N: G padded to 176), K6-f64 also
     at (64, 1, 225, 225) (l15_f64's); K9 and K9-c128 at (64, 1, 196, 196)
     (8 does not divide N: G padded to 200; flux14_c128's); K8 and K8-c128
-    at F = 2, N = 100 (256 chains, rep_flux10_c128's; complex128: a
-    cluster of 2 blocks per chain) and N = 128 (the 128-site ring, 64
-    chains); K9 and K9-c128 at (64, 2, 256, 256) with dk = 32
+    at F = 2, N = 100 (256 chains, rep_flux10_c128's) and N = 128 (the
+    128-site ring, 64 chains), K8-c128 also at F = 1, N = 100 (the
+    attractive 10x10 in the same phases, 256 chains; complex128 past
+    N = 64: the rank-1 layout, ``k8_c128_inputs``); K9 and K9-c128 at
+    (64, 2, 256, 256) with dk = 32
     (rep_flux16_c128's; complex64 in two column passes, complex128 in the
     flavor layout), and K9-c128 at (64, 2, 196, 196) at dk = 1 (the
     repulsive 14x14 in a flux: the rank-1 layout in clusters of 8). The
     float32 and complex64 shapes' errors join their kernels' rows, as does
     the last; the four complex128 and float64 shapes of the runs get rows
-    of their own. K6-f64 and K9-c128 at dk = 1 run the rank-1 layout; the
-    REDESIGNED rows and the last shape also time, in turns, the other
-    layouts that fit (time_layouts)."""
+    of their own. K6-f64 and K9-c128 at dk = 1 and K8-c128 past N = 64 run
+    the rank-1 layout; the REDESIGNED rows, K8-c128 at F = 2, N = 128 and
+    the last shape also time, in turns, the other layouts that fit
+    (time_layouts)."""
     import torch
     from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
     from montecarlo_tpu_torch.ops import site_sweep_delayed as ssd
@@ -1667,6 +1696,7 @@ def parity_item4(results):
     C64, C128 = torch.complex64, torch.complex128
     F32, F64 = torch.float32, torch.float64
     rep14 = fp64_run_inputs("rep_flux14_c128")
+    rep128 = k8_c128_inputs("rep_chain128_c128")
     # (row: None joins the kernel's own row, label, wrapper, plain, inputs,
     # module, dtype)
     rows = [
@@ -1689,9 +1719,11 @@ def parity_item4(results):
          cx(True, CHAIN_L, 47, f32, dims=1), sscx, C64),
         ("site_sweep_cx_c128_f2_100", "site_sweep_cx_c128",
          sscx.site_sweep_cx_c128, sscx.site_sweep_cx_plain,
-         cx(True, 10, 48, f64, ITEM4_REP10_CHAINS), sscx, C128),
+         k8_c128_inputs("rep_flux10_c128"), sscx, C128),
         (None, "site_sweep_cx_c128", sscx.site_sweep_cx_c128,
-         sscx.site_sweep_cx_plain, cx(True, CHAIN_L, 49, f64, dims=1), sscx,
+         sscx.site_sweep_cx_plain, rep128, sscx, C128),
+        (None, "site_sweep_cx_c128", sscx.site_sweep_cx_c128,
+         sscx.site_sweep_cx_plain, k8_c128_inputs("flux10_c128"), sscx,
          C128),
         (None, "site_sweep_delayed_cx", ssdcx.site_sweep_delayed_cx,
          ssdcx.site_sweep_delayed_cx_plain, cx(True, L16, 50, f32), ssdcx,
@@ -1703,7 +1735,7 @@ def parity_item4(results):
          ssdcx.site_sweep_delayed_cx_plain, rep14, ssdcx, C128)]
     for row, label, fn, plain, x, mod, dtype in rows:
         r = item4_row(label, fn, plain, x, lay(mod, x, dtype))
-        if row in REDESIGNED or x is rep14:
+        if row in REDESIGNED or x is rep14 or x is rep128:
             # the redesigned layout against the delayed one it replaced
             time_layouts(mod, *x[:4])
         if row is not None:
@@ -1827,15 +1859,22 @@ def parity_ising(results):
 
 
 def time_layouts(mod, G, sigma, u, kw):
-    """Every layout of K6 or K9 (mod) that takes this shape in G's dtype
-    (``mod.layouts``: the plan's first, then the delayed layouts that fit),
+    """Every layout of K6, K9 or K8 (mod) that takes this shape in G's
+    dtype (``mod.layouts``: the plan's first, then the others that fit),
     held against the plan's (decisions identical, G within TOL_G of its
     largest entry) and timed in turns (the plan's layout first and last);
     returns the largest max|dG|."""
     import torch
     C, F, N, _ = G.shape
-    dk, dtype = kw["dk"], G.dtype
-    lays = mod.layouts(N, F, dk, dtype, C)
+    dk, dtype = kw.get("dk"), G.dtype
+    if dk is None:          # K8: the one-block or the rank-1 layout
+        lays = mod.layouts(N, F, dtype, C)
+        at_once = lambda lay: (mod.max_clusters(N, F, lay)
+                               if lay.kind == "rank1" else None)
+    else:
+        lays = mod.layouts(N, F, dk, dtype, C)
+        at_once = lambda lay: (mod.max_clusters(N, F, dk, lay, dtype)
+                               if lay.kind != "slab" else None)
     plan = lays[0]
     ref = mod.launch(G, sigma, u, plan, **kw)
     worst, ms = 0.0, {}
@@ -1851,14 +1890,13 @@ def time_layouts(mod, G, sigma, u, kw):
         ms.setdefault(lay, []).append(1e3 * timed(call, 20))
     times = []
     for lay in lays:
-        at_once = mod.max_clusters(N, F, dk, lay, dtype)
-        times.append(f"{lay.kind} CS={lay.cs} "
+        times.append(f"{lay.kind} CS={lay.cs} {list(lay.geometry)} "
                      + ", ".join(f"{t:.4f}" for t in ms[lay]) + " ms"
-                     + (f" ({at_once} clusters at once)"
-                        if lay.kind != "slab" else ""))
+                     + (f" ({at_once(lay)} clusters at once)"
+                        if at_once(lay) is not None else ""))
     name = mod.__name__.rsplit(".", 1)[-1]
-    log(f"[layouts] {name} {tuple(G.shape)} {str(dtype)[6:]} dk={dk}, plan "
-        f"{plan.kind} CS={plan.cs}: " + "; ".join(times)
+    log(f"[layouts] {name} {tuple(G.shape)} {str(dtype)[6:]} dk={dk or 1}, "
+        f"plan {plan.kind} CS={plan.cs}: " + "; ".join(times)
         + f"; max|dG| against the plan's {worst:.3e}")
     if worst > TOL_G * ref[0].abs().max().item():
         raise AssertionError(f"{name}: the layouts' G disagree")

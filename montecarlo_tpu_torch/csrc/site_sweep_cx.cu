@@ -58,12 +58,20 @@
 // element and accepted site, 64 FP64 operations per cycle and SM); at F = 2
 // past 64 each flavor has an SM of its own, behind a cluster barrier per
 // site.
+//
+// Past N = 64 the wrapper (ops/site_sweep_cx.py::plan_layout) takes the
+// rank-1 layout (site_sweep_rank1.cuh, site_sweep_cx_c128_rank1) where it
+// ran faster on an H100: G padded on chip only to a multiple of 8 (no
+// padding to 128), one block per chain or a cluster of 2, the rows of G
+// beyond the register rows in shared memory, one cluster barrier per site
+// and the next row sent by st.async (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "phase_clock.cuh"
+#include "site_sweep_rank1.cuh"
 #include "site_sweep_tiled.cuh"
 
 namespace cg = cooperative_groups;
@@ -71,8 +79,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 #ifdef MC_PHASE_STAMPS
-// site_sweep_tiled_cx's phases (thread 0 of each block), as
-// tiled::sweep_chain laps them
+// the phases of site_sweep_tiled_cx (thread 0 of each block), as
+// tiled::sweep_chain laps them, or of the rank-1 layout's blocks
 __device__ long long g_stamps[phase_clock::kMaxBlocks * phase_clock::kPhases];
 #endif
 
@@ -255,6 +263,42 @@ extern "C" int site_sweep_cx_c128(const void* G_in, void* G_out,
   return launch_cx<double>(G_in, G_out, sigma_in, sigma_out, u, accept, det,
                            C, F, N, lamb, sign0, sign1, det_power, use_boson,
                            stream);
+}
+
+// K8-c128's instances of the rank-1 layout (F, CS, KR) that the plan takes
+// past N = 64 (ops/site_sweep_cx.py::RANK1_BUILDS): one block per chain
+// with 20 (F = 1) or 11 (F = 2) register rows a thread and flavor, or a
+// cluster of 2 with 16 or 10
+using K8Rank1 = rank1::List<rank1::Inst<1, 1, 20>, rank1::Inst<1, 2, 16>,
+                            rank1::Inst<2, 1, 11>, rank1::Inst<2, 2, 10>>;
+
+// K8-c128 past N = 64 in the rank-1 layout (csrc/site_sweep_rank1.cuh): G
+// complex128 (C, F, N, N) as it is, on chip at row length NP (N padded to
+// a multiple of 8) in clusters of CS blocks of TR x NP threads holding KR
+// rows a thread and flavor in registers, the rest in shared memory; sigma,
+// u, accept and det (C, N). Returns the cudaError_t of the launch.
+extern "C" int site_sweep_cx_c128_rank1(
+    const void* G_in, void* G_out, const int8_t* sigma_in, int8_t* sigma_out,
+    const double* u, uint8_t* accept, void* det, int C, int F, int N, int NP,
+    int CS, int TR, int KR, double lamb, double sign0, double sign1,
+    int det_power, int use_boson, void* stream) {
+  long long* stamps = nullptr;
+#ifdef MC_PHASE_STAMPS
+  void* p = nullptr;
+  if (cudaGetSymbolAddress(&p, g_stamps) == cudaSuccess)
+    stamps = (long long*)p;
+#endif
+  return rank1::launch<8>(K8Rank1{}, G_in, G_out, sigma_in, sigma_out, u,
+                             nullptr, nullptr, nullptr, accept, det, stamps,
+                             C, F, NP, N, N, CS, TR, KR, lamb, sign0, sign1,
+                             det_power, use_boson, (cudaStream_t)stream);
+}
+
+// The most clusters of that layout the card runs at once, into *out
+extern "C" int site_sweep_cx_c128_rank1_max_clusters(int F, int NP, int CS,
+                                                     int TR, int KR,
+                                                     int* out) {
+  return rank1::max_clusters<8>(K8Rank1{}, F, NP, CS, TR, KR, out);
 }
 
 // Phase stamps of the last launch (complex64 or complex128) of the first

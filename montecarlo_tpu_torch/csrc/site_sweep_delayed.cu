@@ -807,16 +807,20 @@ extern "C" int site_sweep_delayed_f64_rank1(const double* G_in, double* G_out,
   if (cudaGetSymbolAddress(&p, g_stamps) == cudaSuccess)
     stamps = (long long*)p;
 #endif
-  return rank1::launch<false>(G_in, G_out, sigma_in, sigma_out, u, acc, nneg,
-                              neg, nullptr, nullptr, stamps, C, F, N, NS, CS,
-                              TR, lamb, sign0, sign1, det_power, use_boson,
-                              (cudaStream_t)stream);
+  if (F < 1 || F > 2) return (int)cudaErrorInvalidValue;
+  return rank1::launch<6>(rank1::Delayed{}, G_in, G_out, sigma_in,
+                              sigma_out, u, acc, nneg, neg, nullptr, nullptr,
+                              stamps, C, F, N, NS, N, CS, TR,
+                              rank1::reg_rows(F), lamb, sign0, sign1,
+                              det_power, use_boson, (cudaStream_t)stream);
 }
 
 // The most clusters of the rank-1 layout the card runs at once, into *out
 extern "C" int site_sweep_delayed_f64_rank1_max_clusters(int F, int N, int CS,
                                                          int TR, int* out) {
-  return rank1::max_clusters<false>(F, N, CS, TR, out);
+  if (F < 1 || F > 2) return (int)cudaErrorInvalidValue;
+  return rank1::max_clusters<6>(rank1::Delayed{}, F, N, CS, TR,
+                                    rank1::reg_rows(F), out);
 }
 
 // The most clusters of the layout (CS > 1) that the card runs at once, into

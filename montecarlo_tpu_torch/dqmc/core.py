@@ -301,9 +301,13 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
     registers, flavor 1 in shared memory at F = 2 past N = 64), K9 beyond
     (G padded to a multiple of 8 where 8 does not divide N; F = 2 at N =
     256, delay 32 in two column passes). Complex128 updates: K8-c128 up to
-    N = 128 (at F = 2 past N = 64 a cluster of 2 blocks per chain, one
-    flavor each), K9-c128 beyond (at delay <= 1 the rank-1 layout, F = 2
-    past N = 192 in clusters of 8 blocks; F = 2 at N = 256, delay 32:
+    N = 128 (past N = 64 the rank-1 layout, G on chip in one block or a
+    cluster of 2 per chain, where it ran faster: F = 2 to N = 104, F = 1 to
+    N = 88 and with few chains to 128; else the one-block layout, the
+    imaginary plane in shared memory, at F = 2 a cluster of 2 blocks per
+    chain, one flavor each), K9-c128 beyond (at delay <= 1 the rank-1
+    layout, F = 2 past N = 192 in clusters of 8 blocks; F = 2 at N = 256,
+    delay 32:
     clusters of 4 blocks in two flavor stages up to 30 chains, past that a
     cluster of 2 blocks per chain, one flavor each, in two row and two
     column passes). Every kernel takes F <= 2. The JAX package runs its XLA
@@ -314,10 +318,11 @@ def _check_cuda_kernels(N, F, delay, dtype, udtype):
                 else _ssdcx.kernel_supports(N, F, dk, udtype)):
             raise _not_ported(
                 f"the {str(udtype)[6:]} site sweep for N={N}, F={F}, delay="
-                f"{delay} (K8 and K8-c128 take N <= {MAX_N}, K9 and K9-c128 "
-                "beyond with their buffers in shared memory, G padded to a "
-                "multiple of 8; all F <= 2; elsewhere the JAX package runs "
-                "its XLA site loop)", "Queue 1 item 4")
+                f"{delay} (K8 and K8-c128 take N <= {MAX_N}, K8-c128 past 64 "
+                "in the rank-1 layout; K9 and K9-c128 beyond with their "
+                "buffers in shared memory, G padded to a multiple of 8; all "
+                "F <= 2; elsewhere the JAX package runs its XLA site loop)",
+                "Queue 1 item 4")
         return
     if not (site_sweep_supports(N, F, udtype) if N <= MAX_N
             else _ssd.kernel_supports(N, F, dk, udtype)):

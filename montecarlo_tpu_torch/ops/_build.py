@@ -92,6 +92,13 @@ SIGNATURES = {
                           _F, _F, _F, _I, _I, _P),
     "site_sweep_cx_c128": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _D, _D, _D, _I, _I, _P),
+    # G_in, G_out, sigma_in, sigma_out, u, accept, det, C, F, N, NP (the
+    # layout's row length), CS, TR (thread rows), KR (register rows), lamb,
+    # sign0, sign1, det_power, use_boson, stream: K8-c128 past N = 64
+    "site_sweep_cx_c128_rank1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _D, _D, _D, _I, _I, _P),
+    # F, NP, CS, TR, KR, out (int*)
+    "site_sweep_cx_c128_rank1_max_clusters": (_I, _I, _I, _I, _I, _P),
     # A, Q, R, B, N, stream
     "qr_cx_c64": (_P, _P, _P, _I, _I, _I, _P),
     # G_in, G_out, sigma_in, sigma_out, u, accept, det, scratch, C, F, N (G's

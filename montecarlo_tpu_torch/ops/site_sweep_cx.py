@@ -25,58 +25,180 @@ through torch's complex division, which rounds differently.
 ``site_sweep_cx_c128`` is the same kernel in complex128 (K8-c128): it
 replaces the rank-1 XLA loop the JAX package runs for complex128 updates
 (``montecarlo_tpu/dqmc/core.py::sweep_slice``), which has no TPU kernel.
-At F = 2 past N = 64 (the repulsive model in a flux, 9 x 9 to 11 x 11) one
+Its one-block layout pads G to 32, 64 or 128; at F = 1 past N = 64 the
+imaginary plane lives in shared memory, and at F = 2 past N = 64 one
 chain's G fits no SM, so each chain runs on a cluster of 2 blocks, one
 flavor each, which exchange the diagonal entry of every site
-(``flavor_pair``).
+(``flavor_pair``). Past N = 64 the plan (``plan_layout``) takes the rank-1
+layout of ``csrc/site_sweep_rank1.cuh`` (K6-f64's and K9-c128's at dk = 1)
+where it ran faster on an H100: G padded on chip only to a multiple of 8,
+one block per chain or a cluster of 2 (``rank1_layouts``). ``layouts``
+lists every layout that takes a shape and ``launch`` runs any of them, to
+time them against each other (chip_layouts.py).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .site_sweep import MAX_N, PHASES, tiled_smem_bytes
 from .site_sweep import layout as _layout
+from .site_sweep_delayed import Layout, rank1_smem
+from .site_sweep_delayed_cx import padded
 
 # the real element type of each complex dtype the kernel takes
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+# K8-c128's built instances of the rank-1 layout (csrc/site_sweep_cx.cu::
+# K8Rank1): (F, blocks per chain CS, register rows per flavor KR)
+RANK1_BUILDS = ((1, 1, 20), (1, 2, 16), (2, 1, 11), (2, 2, 10))
+# the plan's bounds (plan_layout): the rank-1 layout at F = 2 up to
+# RANK1_MAX_N; one block per chain up to ONE_BLOCK_MAX_N where the chains
+# fill more than one wave of clusters of 2 (CLUSTERS_AT_ONCE, an H100's
+# occupancy query at up to 217 KB a block)
+RANK1_MAX_N, ONE_BLOCK_MAX_N, CLUSTERS_AT_ONCE = 104, 88, 66
+
+
+def rank1_max_threads(F: int, kr: int) -> int:
+    """Threads a block of the rank-1 instance (F, kr) may have (csrc/
+    site_sweep_rank1.cuh::max_threads): as many whole warps as 65,536
+    registers hold at 4 F kr registers of G and 48 more a thread, at most
+    512."""
+    return min(65536 // (4 * F * kr + 48) // 32 * 32, 512)
+
+
+@functools.cache
+def rank1_layouts(N: int, F: int) -> tuple:
+    """Every rank-1 layout of K8-c128 at this shape: for each built (CS, KR)
+    at this F, the most thread rows TR (TR | NP / CS) whose TR x NP threads
+    the instance's cap takes, NP = ``padded(N)``, where one block's shared
+    memory holds the rows past the KR register rows. Layout geometry:
+    (TR, KR); one computation per shape and process."""
+    NP, out = padded(N), []
+    for f, cs, kr in RANK1_BUILDS:
+        if f != F or NP % cs:
+            continue
+        rq = NP // cs
+        trs = [tr for tr in range(1, rq + 1)
+               if rq % tr == 0 and tr * NP <= rank1_max_threads(F, kr)]
+        if not trs:
+            continue
+        tr = max(trs)
+        smem = rank1_smem(NP, F, cs, tr, cx=True, kr=kr)
+        if smem <= _build.SMEM_PER_BLOCK:
+            out.append(Layout("rank1", cs, (tr, kr), smem))
+    return tuple(out)
 
 
 def flavor_pair(N: int, F: int, dtype=torch.complex64) -> bool:
-    """Whether a chain runs on a cluster of 2 blocks, one flavor each:
-    F = 2 where one block's layout would exceed its shared memory
-    (complex128 past N = 64: three planes of 128 KB)."""
+    """Whether the one-block layout runs a chain on a cluster of 2 blocks,
+    one flavor each: F = 2 where one block's layout would exceed its shared
+    memory (complex128 past N = 64: three planes of 128 KB)."""
     return (F == 2 and dtype in _REAL
             and tiled_smem_bytes(N, 2, True, _REAL[dtype])
             > _build.SMEM_PER_BLOCK)
 
 
+def tiled_layout(N: int, F: int, dtype=torch.complex64):
+    """K8's one-block layout (``site_sweep.tiled_smem_bytes``, G padded to
+    32, 64 or 128) where it takes the shape: complex64 up to N = 128 (F = 2
+    past 64: flavor 1 in shared memory), complex128 up to N = 128 (F = 1
+    past 64: the imaginary plane in shared memory; F = 2 past 64: the
+    flavor pair, kind "flavors"); else None."""
+    if dtype not in _REAL or not 1 <= N <= MAX_N or F not in (1, 2):
+        return None
+    pair = flavor_pair(N, F, dtype)
+    smem = smem_bytes(N, F, dtype)
+    if smem > _build.SMEM_PER_BLOCK:
+        return None
+    return Layout("flavors" if pair else "tiled", 2 if pair else 1, (), smem)
+
+
+@functools.cache
+def plan_layout(N: int, F: int, dtype=torch.complex64, chains: int = None):
+    """The ``Layout`` the wrappers launch for chains chains at this shape.
+    Complex128 past N = 64 takes the rank-1 layout where it ran faster on
+    an H100 (chip_layouts.py, PERF.md): with more chains than one wave of
+    clusters of 2 (CLUSTERS_AT_ONCE), one block per chain up to
+    ONE_BLOCK_MAX_N (F = 1: 20 register rows, F = 2: 11), then at F = 2
+    clusters of 2 up to RANK1_MAX_N; with fewer chains clusters of 2 (F = 1:
+    16 register rows, F = 2: 10) up to 128 at F = 1 and RANK1_MAX_N at
+    F = 2. Elsewhere the one-block layout (``tiled_layout``; F = 2 past 64
+    its flavor pair), and None where no layout takes the shape."""
+    if dtype == torch.complex128 and F in (1, 2) and 64 < N <= MAX_N:
+        wide = chains is None or chains > CLUSTERS_AT_ONCE
+        cs = (1 if wide and padded(N) <= ONE_BLOCK_MAX_N else
+              2 if F == 1 and not wide or F == 2 and N <= RANK1_MAX_N
+              else None)
+        for lay in rank1_layouts(N, F):
+            if lay.cs == cs:
+                return lay
+    return tiled_layout(N, F, dtype)
+
+
+@functools.cache
+def layouts(N: int, F: int, dtype=torch.complex64,
+            chains: int = None) -> tuple:
+    """Every layout that takes this shape, the plan's first (to time them
+    against each other): complex128 has the rank-1 layouts beside the
+    one-block layout. One computation per shape, chain count and process:
+    the wrappers check every launch's layout against it."""
+    plan = plan_layout(N, F, dtype, chains)
+    others = [tiled_layout(N, F, dtype)]
+    if dtype == torch.complex128 and 1 <= N <= MAX_N and F in (1, 2):
+        others += rank1_layouts(N, F)
+    return tuple([plan] * (plan is not None) + [
+        lay for lay in others if lay is not None and lay != plan])
+
+
 def smem_bytes(N: int, F: int, dtype=torch.complex64) -> int:
-    """Shared memory of one block (``tiled_smem_bytes``; a flavor pair's
-    blocks hold one flavor each)."""
+    """Shared memory of one block of the one-block layout in bytes
+    (``tiled_smem_bytes``; a flavor pair's blocks hold one flavor each)."""
     f = 1 if flavor_pair(N, F, dtype) else F
     return tiled_smem_bytes(N, f, True, _REAL[dtype])
 
 
 def kernel_supports(N: int, F: int, dtype=torch.complex64) -> bool:
     """Shapes the CUDA kernel takes: N <= 128, F in {1, 2}, complex64 or
-    complex128. G of one chain over the block's registers; complex64 at
-    F = 2 past N = 64: flavor 1 in shared memory (141,184 bytes at N = 128);
-    complex128 at F = 1 past N = 64: the imaginary plane in shared memory,
-    and at F = 2 past N = 64 a cluster of 2 blocks per chain, one flavor
-    each in the F = 1 layout (``flavor_pair``)."""
+    complex128 (``plan_layout``)."""
     return (dtype in _REAL and 1 <= N <= MAX_N and F in (1, 2)
-            and smem_bytes(N, F, dtype) <= _build.SMEM_PER_BLOCK)
+            and plan_layout(N, F, dtype) is not None)
 
 
-def layout(N: int, F: int, dtype=torch.complex64) -> str:
-    """K8's layout at this shape, in words."""
-    if flavor_pair(N, F, dtype):
+def layout(N: int, F: int, dtype=torch.complex64, lay: Layout = None) -> str:
+    """A layout of K8 in words: lay, or the plan's at this shape."""
+    lay = lay or plan_layout(N, F, dtype)
+    if lay.kind == "tiled":
+        return _layout(N, F, complex_=True, dtype=_REAL[dtype])
+    if lay.kind == "flavors":
         return ("a cluster of 2 blocks per chain, one flavor each, the "
                 "diagonal entry of every site exchanged: "
                 + _layout(N, 1, complex_=True, dtype=_REAL[dtype]))
-    return _layout(N, F, complex_=True, dtype=_REAL[dtype])
+    NP, (tr, kr) = padded(N), lay.geometry
+    rows = NP // lay.cs // tr
+    pad = f"G padded to {NP} x {NP} on chip, " if NP != N else ""
+    where = ("every row of G in registers" if rows <= kr else
+             f"{min(rows, kr)} of {rows} rows a thread and flavor in "
+             "registers, the rest in shared memory")
+    blocks = ("one block" if lay.cs == 1 else
+              f"a cluster of {lay.cs} blocks")
+    return (f"{pad}rank-1: {blocks} of {tr * NP} threads per chain, "
+            f"{NP // lay.cs} rows a block, {where}, {lay.smem} bytes per "
+            "block")
+
+
+@functools.cache
+def max_clusters(N: int, F: int, lay: Layout) -> int:
+    """The most clusters of the rank-1 layout lay that the card runs at
+    once (one query per shape and process)."""
+    out = ctypes.c_int(0)
+    code = _build.load().site_sweep_cx_c128_rank1_max_clusters(
+        F, padded(N), lay.cs, *lay.geometry, ctypes.addressof(out))
+    _build.check_launch("site_sweep_cx_c128 (occupancy query)", code)
+    return out.value
 
 
 def site_sweep_cx_plain(G, sigma, u, *, lamb, signs, det_power, use_boson):
@@ -156,20 +278,41 @@ def _sweep(fn, dtype, G, sigma, u, **kw):
         return site_sweep_cx_plain(G, sigma, u, **kw)
     C, F, N = _check(fn.__name__, dtype, G, sigma, u, kw["signs"],
                      kw["det_power"])
+    return launch(G, sigma, u, plan_layout(N, F, dtype, C), **kw)
+
+
+def launch(G, sigma, u, lay, *, lamb, signs, det_power, use_boson):
+    """One launch of the CUDA kernel of G's dtype in the ``Layout`` lay:
+    ``plan_layout``'s, or another of ``layouts`` at this shape, to time two
+    layouts against each other; counted in ``site_sweep_cx.launches``
+    (complex64) or ``site_sweep_cx_c128.launches`` (complex128)."""
+    c128 = G.dtype == torch.complex128
+    fn = site_sweep_cx_c128 if c128 else site_sweep_cx
+    C, F, N = _check(fn.__name__, G.dtype, G, sigma, u, signs, det_power)
+    if lay not in layouts(N, F, G.dtype, C):
+        raise ValueError(f"{fn.__name__}: the layout {lay} does not take "
+                         f"N={N}, F={F} in {str(G.dtype)[6:]}")
     G_out = torch.empty_like(G)
     sigma_out = torch.empty_like(sigma)
     accept = torch.empty(C, N, dtype=torch.bool, device=G.device)
     det = torch.empty(C, N, dtype=G.dtype, device=G.device)
-    entry = ("site_sweep_cx_c128" if dtype == torch.complex128
-             else "site_sweep_cx_c64")
-    with torch.cuda.device(G.device):
-        code = getattr(_build.load(), entry)(
-            G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
+    head = (G.data_ptr(), G_out.data_ptr(), sigma.data_ptr(),
             sigma_out.data_ptr(), u.data_ptr(), accept.data_ptr(),
-            det.data_ptr(), C, F, N, float(kw["lamb"]),
-            float(kw["signs"][0]), float(kw["signs"][-1]),
-            int(kw["det_power"]), int(bool(kw["use_boson"])),
-            torch.cuda.current_stream().cuda_stream)
+            det.data_ptr(), C, F, N)
+    tail = (float(lamb), float(signs[0]), float(signs[-1]), int(det_power),
+            int(bool(use_boson)), torch.cuda.current_stream().cuda_stream)
+    lib = _build.load()
+    with torch.cuda.device(G.device):
+        if lay.kind == "rank1":
+            if max_clusters(N, F, lay) < 1:
+                raise RuntimeError(
+                    f"{fn.__name__}: the card cannot run the layout's "
+                    f"clusters ({lay.smem} bytes of shared memory a block)")
+            code = lib.site_sweep_cx_c128_rank1(
+                *head, padded(N), lay.cs, *lay.geometry, *tail)
+        else:
+            entry = lib.site_sweep_cx_c128 if c128 else lib.site_sweep_cx_c64
+            code = entry(*head, *tail)
     _build.check_launch(fn.__name__, code)
     fn.launches += 1
     return G_out, sigma_out, accept, det

@@ -93,15 +93,17 @@ def rank1_regs(F: int) -> int:
     return 16 // F
 
 
-def rank1_smem(NP: int, F: int, cs: int, tr: int, cx: bool = False) -> int:
+def rank1_smem(NP: int, F: int, cs: int, tr: int, cx: bool = False,
+               kr: int = None) -> int:
     """Shared memory of one block of the rank-1 layout in bytes, G of row
     length NP in clusters of cs blocks of tr thread rows: the rows of G
-    beyond the registers', the row double buffer, the column and
-    coefficient double buffers (16-byte units: two real columns or one
-    complex128 element), u and sigma, and in float64 each site's
-    detratio and new sigma (csrc/site_sweep_rank1.cuh::smem_bytes)."""
+    beyond the kr register rows (default ``rank1_regs(F)``), the row double
+    buffer, the column and coefficient double buffers (16-byte units: two
+    real columns or one complex128 element), u and sigma, and in float64
+    each site's detratio and new sigma (csrc/site_sweep_rank1.cuh::
+    smem_bytes)."""
     rq, ur = NP // cs, (NP if cx else NP // 2)
-    rs = rq // tr - rank1_regs(F)
+    rs = max(rq // tr - (rank1_regs(F) if kr is None else kr), 0)
     return (16 * (F * rs * tr * ur + 2 * F * ur + 4 * F * rq)
             + (9 if cx else 18) * NP)
 

@@ -688,8 +688,8 @@ def test_cuda_session_rejects_shapes_without_kernels(cuda):
     rep = dict(cls=tmc.HubbardModelRepulsive)
     ctx, _ = core.make_context(cx(128, dims=1, **rep), params, **f32)
     assert ctx.dtype == torch.complex64 and ctx.use_kernels and ctx.F == 2
-    # complex128 (the default dtype's promotion): K8-c128 to N = 128 (F = 2
-    # past N = 64 on a cluster of two blocks), K9-c128 beyond (8 ∤ N: G
+    # complex128 (the default dtype's promotion): K8-c128 to N = 128 (past
+    # N = 64 the rank-1 layout where it ran faster), K9-c128 beyond (8 ∤ N: G
     # padded; the 16x16 repulsive model at delay 32 in two flavor stages),
     # each with the library QR
     for m in (cx(4), cx(8), cx(8, **rep), cx(128, dims=1), cx(16),
@@ -1182,10 +1182,12 @@ def test_site_sweep_delayed_f64_kernel_matches_plain(cuda, model, C, N, dk,
                                        ("repulsive", 64, 128),
                                        ("repulsive", 16, 65)])
 def test_site_sweep_cx_c128_kernel_matches_plain(cuda, model, C, N):
-    """K8-c128 at its parity shapes and its largest N (F = 1 at N = 128:
-    the imaginary plane in shared memory; F = 2 past N = 64: a cluster of
-    two blocks per chain, one flavor each): sigma, accept and det identical
-    to its plain version's, G within 1e-10 (bit-equal in practice)."""
+    """K8-c128 at its parity shapes and its largest N (past N = 64 the
+    plan's layout: the rank-1 layout where it ran faster, else the
+    one-block layout, at F = 1 the imaginary plane in shared memory, at
+    F = 2 a cluster of two blocks per chain, one flavor each): sigma,
+    accept and det identical to its plain version's, G within 1e-10
+    (bit-equal in practice)."""
     kw = dict(lamb=LAMB, **MODELS[model])
     F = len(kw["signs"])
     G, sigma, u = cx_sweep_inputs(N + 3, C, F, N)

@@ -251,9 +251,10 @@ def test_check_cuda_kernels_complex_routes(N, F, dtype, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}") as e:
         tcore._check_cuda_kernels(N, F, 0, dtype, dtype)
-    assert ("K8 and K8-c128 take N <= 128, K9 and K9-c128 beyond with their "
-            "buffers in shared memory, G padded to a multiple of 8; all "
-            "F <= 2") in str(e.value), str(e.value)
+    assert ("K8 and K8-c128 take N <= 128, K8-c128 past 64 in the rank-1 "
+            "layout; K9 and K9-c128 beyond with their buffers in shared "
+            "memory, G padded to a multiple of 8; all F <= 2") \
+        in str(e.value), str(e.value)
 
 
 def test_cuda_session_without_cuda_raises():

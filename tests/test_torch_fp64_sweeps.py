@@ -49,7 +49,7 @@ C64, C128 = torch.complex64, torch.complex128
     (144, 1, 0, C128, C128),
     (256, 2, 16, C128, C128),
     (130, 1, 0, F64, F64),       # 4 does not divide N: K6-f64 on padded G
-    (128, 2, 0, C128, C128),     # K8-c128 on a cluster of 2 blocks
+    (128, 2, 0, C128, C128),     # K8-c128 in the rank-1 layout
     (72, 2, 0, C128, C128),
     (256, 2, 32, C128, C128),    # K9-c128 in two flavor stages
     (132, 1, 0, C128, C128)])    # 8 does not divide N: K9-c128 on padded G
@@ -266,18 +266,29 @@ def test_k9_new_layouts(N, F, dk, dtype, NP, cs, passes, stages):
      "the imaginary plane in shared memory"),
     (16, 2, True, 8 * (4 * 4 * 32 + 32 + 64) + 3 * 32, "G in registers"),
     (72, 2, True, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
-     "a cluster of 2 blocks per chain, one flavor each"),
+     "rank-1: one block of 432 threads per chain, 72 rows a block"),
     (128, 2, True, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
      "the imaginary plane in shared memory"),
     (129, 2, False, 8 * (4 * 4 * 128 + 128 + 256 + 3 * 128 * 128) + 3 * 128,
-     None)])
+     None)], ids=[
+    "64-1-True-5824-G in registers", "64-2-True-9920-G in registers",
+    "128-1-True-142720-the real plane in registers, the imaginary plane in "
+    "shared memory",
+    "100-1-True-142720-the imaginary plane in shared memory",
+    "16-2-True-4960-G in registers",
+    "72-2-True-413056-a cluster of 2 blocks per chain, one flavor each",
+    "128-2-True-413056-the imaginary plane in shared memory",
+    "129-2-False-413056-None"])
 def test_k8_c128_layouts(N, F, ok, smem, where):
     """K8-c128 on the tiled layout (csrc/site_sweep_tiled.cuh) with double
     planes: at N <= 64 every plane in registers (F = 2: 128 registers a
     thread, as K1-f64 at N = 128); at F = 1 past 64 the imaginary plane in
     shared memory; F = 2 past 64 would need three planes there (smem, one
-    block's count), so each chain runs on a cluster of two blocks, one
-    flavor each in the F = 1 layout (142,720 bytes a block)."""
+    block's count), so the one-block layout runs each chain on a cluster of
+    two blocks, one flavor each in the F = 1 layout (142,720 bytes a
+    block), which the plan keeps past N = 104; up to 104 the plan takes the
+    rank-1 layout (csrc/site_sweep_rank1.cuh), which ran faster there on an
+    H100 (PERF.md; the ids keep the one-block layout's words)."""
     assert sscx.kernel_supports(N, F, C128) == ok
     assert ss.tiled_smem_bytes(N, F, True, F64) == smem
     pair = sscx.flavor_pair(N, F, C128)
@@ -286,6 +297,8 @@ def test_k8_c128_layouts(N, F, ok, smem, where):
         ss.tiled_smem_bytes(N, 1, True, F64) if pair else smem)
     if ok:
         assert where in sscx.layout(N, F, C128)
+        assert (sscx.plan_layout(N, F, C128).kind == "rank1") == (
+            F == 2 and 64 < N <= sscx.RANK1_MAX_N)
     # complex64 and float64 keep their layouts: flavor 1 in shared memory
     # at F = 2 past 64, all in registers below
     assert ("flavor 1 in shared memory" in ss.layout(N, 2, True)) == (N > 64)

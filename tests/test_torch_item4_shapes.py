@@ -2,8 +2,8 @@
 took on (montecarlo_tpu_torch): a ring of 130 sites in float64 (K6-f64 on G
 padded to a multiple of 8, since 4 does not divide N), a ring of 132 sites
 in complex128 with a flux (K9-c128 on padded G: 8 does not divide N), the
-10x10 repulsive model in a flux (K8-c128 at F = 2 on a cluster of two
-blocks) and one slice of the 16x16 repulsive model in a flux at its
+10x10 repulsive model in a flux (K8-c128 at F = 2 in the rank-1 layout,
+G of a chain on chip in a cluster of two blocks) and one slice of the 16x16 repulsive model in a flux at its
 default delay 32 (K9-c128 in two flavor stages). On the CPU each runs
 through its kernel's plain version, held against the JAX package's XLA
 path from the same state and uniforms.
@@ -51,7 +51,7 @@ def _pair(repulsive, **kw):
 @pytest.mark.parametrize("repulsive,dims,L,flux,dtype,F", [
     (False, 1, 130, False, F64, 1),      # K6-f64, G padded to 136
     (False, 1, 132, True, C128, 1),      # K9-c128, G padded to 136
-    (True, 2, 10, True, C128, 2)])       # K8-c128 on a cluster of 2 blocks
+    (True, 2, 10, True, C128, 2)])       # K8-c128 in the rank-1 layout
 def test_item4_session_matches_jax(repulsive, dims, L, flux, dtype, F):
     """DQMC at the default dtype on the CPU through DQMC.run against two
     XLA sweep pairs of the JAX package from the same state and uniforms:

@@ -779,7 +779,9 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_cx_c128_rank1",
         "site_sweep_delayed_cx_c128_rank1_max_clusters",
         "site_sweep_delayed_cx_c128_flavors",
-        "site_sweep_delayed_cx_c128_flavors_max_clusters"}
+        "site_sweep_delayed_cx_c128_flavors_max_clusters",
+        # K8-c128 past N = 64 in the rank-1 layout
+        "site_sweep_cx_c128_rank1", "site_sweep_cx_c128_rank1_max_clusters"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -146,12 +146,17 @@ def test_rank1_budgets(F, cx):
 
 def test_rank1_header_agrees():
     """csrc/site_sweep_rank1.cuh's constants and byte count are the ones the
-    plan uses: 512 threads at most, 16 / F register rows, the same sums."""
+    plan uses: 512 threads at most, 16 / F register rows, the same sums.
+    The bound on threads is max_threads(F, KR), which gives the delayed
+    sweeps' instances (KR = 16 / F: 64 registers of G) all 512."""
     src = (CSRC / "site_sweep_rank1.cuh").read_text()
     assert re.search(r"constexpr int kMaxThreads = (\d+);", src).group(1) \
         == str(ssd.RANK1_MAX_THREADS)
     assert "return 16 / F;" in src
-    assert "__launch_bounds__(kMaxThreads)" in src
+    assert "__launch_bounds__(max_threads(F, KR))" in src
+    assert "65536 / (4 * F * KR + 48) / 32 * 32 < kMaxThreads" in src
+    assert all(65536 // (4 * F * ssd.rank1_regs(F) + 48) // 32 * 32
+               >= ssd.RANK1_MAX_THREADS for F in (1, 2))
     assert ("16 * ((size_t)F * RS * NT + 2 * (size_t)F * UR + "
             "4 * (size_t)F * RQ)") in src
     assert "(cx ? 9 : 18) * (size_t)NP" in src

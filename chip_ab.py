@@ -76,6 +76,18 @@ largest difference). Needs CUDA.
   site_sweep on K5's inputs (256, 2, 64, 64)  same inputs (chip_smoke.py's
   site_sweep on K5's inputs (256, 1, 64, 64)  pair_sweep_inputs)
 
+  ising_sweep (262144, 64)       K17 at bench.py's ising_flips shape (the
+  ising_sweep (4096, 9)          8x8), at the 3x3 (four color classes), on
+  ising_sweep (4096, 64) z=6     the cubic L = 4 and at the 32x32, on
+  ising_sweep (4096, 1024)       uniforms and spins from a seeded generator
+  wolff_move (4096, 64)          one Wolff move of chip_smoke.py's Wolff run
+                       (4096 chains of the 8x8 at beta = 1/IsingTc, 20 sweeps
+                       in), the same move at every call (the session's
+                       generator reset first), through the checkout's own
+                       MC session and move function: wall and device ms a
+                       move, and the host synchronizations of one move
+                       (torch's sync debug mode)
+
 The prefix site_sweep selects every site-sweep case; site_sweep_f64,
 site_sweep_pair and "site_sweep on" select those of K1-f64, K5 and K1
 beside K5.
@@ -244,6 +256,53 @@ def _wrap(direction):
     return make
 
 
+def _ising(C, dims, L):
+    """K17 on uniforms and spins from a seeded generator."""
+    def make():
+        import torch
+        import montecarlo_tpu_torch as mt
+        from montecarlo_tpu_torch.ops import ising as kis
+        model = mt.IsingModel(dims=dims, L=L)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        tabs = kis.make_tables(model.lattice, 0.44, "cuda")
+        conf = model.rand_conf(gen, C, "cuda")
+        u = torch.rand(C, tabs.N, generator=gen, device="cuda",
+                       dtype=torch.float64)
+        acc = torch.zeros(C, dtype=torch.int64, device="cuda")
+        return lambda: kis.ising_sweep(conf, u, tabs, acc.zero_())
+    return make
+
+
+def _wolff_move():
+    """One Wolff move of chip_smoke.py's Wolff run 20 sweeps in, the same
+    move at every call, through the checkout's own MC session: its move
+    function and level draws (one draw per level on the parent, a batch of
+    levels handed back in part on a checkout with _level_uniforms)."""
+    def make():
+        import montecarlo_tpu_torch as mt
+        sim = mt.MC(mt.IsingModel(dims=2, L=8), beta=1.0 / mt.IsingTc,
+                    n_chains=4096, seed=1, global_moves=True, global_rate=2,
+                    device="cuda")
+        sim.run(thermalization=20, sweeps=0, verbose=False)
+        _, move = sim._moves()
+        C, N = sim.conf.shape
+        z = sim.model.lattice.coordination
+        if hasattr(sim, "_level_uniforms"):
+            draw = lambda k: sim._level_uniforms((C, N, z), k)
+        else:
+            draw = lambda: sim._uniforms((C, N, z))
+        state = sim.generator.get_state()
+
+        def fn():
+            sim.generator.set_state(state)
+            flipped, size, _ = move(sim.conf, sim._seed_sites(N), draw)
+            return flipped, size
+
+        fn.count_syncs = True
+        return fn
+    return make
+
+
 CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "qr_cx (256, 128, 128)": _qr(256, 128, True),
          "qr_blocked (64, 256, 256)": _qr(64, 256, False),
@@ -292,7 +351,12 @@ CASES = {"qr_cx (256, 64, 64)": _qr(256, 64, True),
          "site_sweep on K5's inputs (256, 2, 64, 64)": _pair_sweep(True,
                                                                    False),
          "site_sweep on K5's inputs (256, 1, 64, 64)": _pair_sweep(False,
-                                                                   False)}
+                                                                   False),
+         "ising_sweep (262144, 64)": _ising(262144, 2, 8),
+         "ising_sweep (4096, 9)": _ising(4096, 2, 3),
+         "ising_sweep (4096, 64) z=6": _ising(4096, 3, 4),
+         "ising_sweep (4096, 1024)": _ising(4096, 2, 32),
+         "wolff_move (4096, 64)": _wolff_move()}
 
 
 def selected(prefixes):
@@ -342,10 +406,12 @@ def child(root, save, prefixes):
             times.append(start.elapsed_time(end) / CALLS)
         # device time per call: the kernels' own time, without the host's
         # between launches (None where the profiler saw no device event)
-        print(json.dumps({"root": str(root), "case": name,
-                          "ms": statistics.median(times), "batches": times,
-                          "device_ms": _smoke().device_ms(fn, CALLS)}),
-              flush=True)
+        line = {"root": str(root), "case": name,
+                "ms": statistics.median(times), "batches": times,
+                "device_ms": _smoke().device_ms(fn, CALLS)}
+        if getattr(fn, "count_syncs", False):
+            line["host_syncs"] = _smoke().count_syncs(fn)[1]
+        print(json.dumps(line), flush=True)
         outputs[name] = [t.cpu() for t in fn() if t is not None]
     torch.save(outputs, save)
 
@@ -384,10 +450,13 @@ def main(argv):
         outs = {t: torch.load(f) for t, f in saved.items()}
     for name in selected(argv[2:]):
         for key, what in (("ms", "per call"),
-                          ("device_ms", "device per call")):
+                          ("device_ms", "device per call"),
+                          ("host_syncs", "host synchronizations per call")):
             ms = {t: [r[key] for tt, r in runs
-                      if tt == t and r["case"] == name]
+                      if tt == t and r["case"] == name and key in r]
                   for t in ("parent", "change")}
+            if not ms["parent"]:
+                continue
             print(f"[ab] {name}: parent {ms['parent']} ms, change "
                   f"{ms['change']} ms {what} (order parent, change, change, "
                   "parent)")

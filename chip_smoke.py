@@ -29,9 +29,13 @@ failure and prints no result line then):
               layout of theirs that fits timed and held against the
               plan's ([layouts] lines); K17 (the Ising checkerboard sweep)
               at bench.py's ising_flips shape (262,144 chains of the 8x8),
-              at the 3x3 (four color classes) and on the cubic L = 4, and K18 (one
-              Wolff BFS level) at the Wolff run's shape a few levels into
-              the clusters, each bit for bit and REPEATS launches more;
+              at the 3x3 (four color classes), on the cubic L = 4 and at
+              the 32x32 (N = 1024), and K18 (a batch of Wolff BFS levels)
+              through a whole move from seeds at the Wolff run's shape
+              against the move on its plain version from the same stream,
+              then as one launch holding the whole search, each bit for bit
+              and REPEATS launches more, with the move's bound, its time a
+              level and the levels' torch.rand bytes;
               K6-f64 at (64, 1, 256, 256) and (32, 2, 256, 256) with
               dk = 32 and at (64, 1, 144, 144) with dk = 1, K8-c128 at
               (256, 1, 64, 64), (256, 2, 64, 64) and (256, 1, 128, 128),
@@ -197,10 +201,14 @@ failure and prints no result line then):
               100 sweeps): K17 once per sweep, acceptance, spin flips/s;
               (b) wolff, 8x8 at beta = 1/IsingTc, 4096 chains, a global
               move every 2 sweeps (50 + 100): acc_global > 0, <|m|> in
-              (0.3, 0.8), K18 once per BFS level the host loop ran, levels
-              (host syncs) per move; (c) enum, the 3x3 (four color
-              classes) at beta 0.3, 64 chains, 200 + 800 sweeps: E and M
-              within max(4 sigma, 0.05) of exact enumeration; (d) io, an MC
+              (0.3, 0.8), K18 once per batch of BFS levels, levels and
+              batches per move; the same run at one level a batch
+              bit-equal in conf, counters and generator; moves alone from
+              each run's state: wall ms, levels and host synchronizations
+              per move (torch's sync debug mode: one a batch); (c) enum,
+              the 3x3 (four color classes) at beta 0.3, 64 chains, 200 +
+              800 sweeps: E and M within max(4 sigma, 0.05) of exact
+              enumeration; (d) io, an MC
               run saved at sweep 30 and resumed to 60 bit-equal in conf to
               an uninterrupted one, the f64 DQMC configuration 1 + 1 sweeps
               against 1 saved + 1 resumed (conf in every chain, last_sweep,
@@ -247,6 +255,7 @@ FP64 on the tensor cores, which keep full IEEE double precision).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -431,11 +440,19 @@ ENUM_L, ENUM_BETA, ENUM_CHAINS, ENUM_THERM, ENUM_SWEEPS = 3, 0.3, 64, 200, 800
 # E and M within max(4 sigma, 0.05) of exact enumeration (the JAX test's)
 ENUM_SIGMAS, ENUM_ABS = 4.0, 0.05
 # K17 also at the 3x3 (an odd L: the greedy site coloring gives four
-# classes) and on the cubic L = 4 (z = 6), K18
-# at the Wolff run's shape a few BFS levels into the clusters, each at this
-# many chains
-ISING_SMALL_CHAINS = 4096
-WOLFF_PARITY_LEVELS = 3
+# classes), on the cubic L = 4 (z = 6) and at the 32x32 (N = 1024, the
+# shared-memory layout), each at this many chains; K18 through a whole
+# move at the Wolff run's shape, its levels drawn from a generator with
+# this seed
+ISING_SMALL_CHAINS, ISING_LARGE_L = 4096, 32
+# bytes written between timed calls to leave none of a call's inputs in
+# the card's L2 (50 MB on the H100)
+L2_OVERWRITE_BYTES = 256 << 20
+WOLFF_PARITY_SEED = 24
+# 7b: Wolff moves timed alone from the run's final state (wall per move,
+# batched and level by level), and moves under torch's sync debug mode
+# (host synchronizations per move)
+WOLFF_TIMED_MOVES, WOLFF_SYNC_MOVES = 20, 4
 # 7d: an MC run saved at sweep 30 and resumed to 60 against an
 # uninterrupted one (8x8, Wolff moves every 3 sweeps, default
 # measurements); the f64 DQMC configuration saved after 1 sweep and resumed
@@ -573,25 +590,57 @@ def timed(fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
-def device_ms(fn, reps=20, tries=3):
-    """Mean device time per call of fn() in ms: the device events of reps
-    calls under torch.profiler, summed (no host time between launches);
-    None where the profiler recorded no device event in tries attempts (it
-    now and then returns an empty trace)."""
+def device_ms(fn, reps=20, tries=3, only=None):
+    """Mean device time per call of fn() in ms from torch.profiler's device
+    events of reps calls (no host time between launches; only: of the
+    kernels whose name holds that string); None where the profiler
+    recorded no such event in tries attempts.
+
+    Late in a long process the profiler drops some device events (seen on
+    the H100: 15 of 20 launches of K17 recorded, each of the right length),
+    so a plain sum over reps reads low. The trace is taken after a warm-up
+    step, and each kernel's count must be a multiple of reps; where it is
+    not in any attempt, a call's time is each kernel's mean time over the
+    events recorded times its launches per call (its count over reps,
+    rounded up), and the loss is logged."""
+    from collections import defaultdict
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def once():
+        fn()
+        torch.cuda.synchronize()
+
+    once()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            once()                          # warm-up step: not recorded
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
-            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
-    return None
+            prof.step()
+        times = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (only is None
+                                                     or only in e.name):
+                times[e.name].append(e.time_range.elapsed_us())
+        if times and all(len(t) % reps == 0 for t in times.values()):
+            return sum(map(sum, times.values())) / reps / 1e3
+    if not times:
+        return None
+    got = sum(map(len, times.values()))
+    per_call = {k: math.ceil(len(t) / reps) for k, t in times.items()}
+    ms = sum(per_call[k] * sum(t) / len(t) for k, t in times.items()) / 1e3
+    log(f"[profiler] {reps * sum(per_call.values()) - got} of "
+        f"{reps * sum(per_call.values())} device events lost in each of "
+        f"{tries} traces: {ms:.4f} ms a call from each kernel's mean (the "
+        f"recorded events' sum over {reps} calls: "
+        f"{sum(map(sum, times.values())) / reps / 1e3:.4f} ms)")
+    return ms
 
 
 def ms_text(ms):
@@ -1351,6 +1400,12 @@ def phase_parity():
                                        B * householder_flops(N)))
     degenerate_columns("qr_blocked", qb.qr_blocked, Ap, 1e-35, TOL_QR, TOL_QR)
     for name, r in results.items():
+        if r.get("device_ms", math.inf) < r["bound_ms"]:
+            # below the least time the card could take: a measurement fault
+            r["device_ms_below_bound"] = r.pop("device_ms")
+            log(f"[check] {name}: the profiler's device time "
+                f"{r['device_ms_below_bound']:.4f} ms is below the bound "
+                f"{r['bound_ms']:.5f} ms; not recorded as its device time")
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         dev = (f" ({ms_text(r['device_ms'])} device)" if "device_ms" in r
@@ -1756,28 +1811,34 @@ def ising_sweep_bound(C, tabs):
     return bound(nbytes, C * N * (z + 3))
 
 
-def wolff_step_bound(C, tabs, n_front):
-    """K18's bound for one level whose frontier holds n_front sites (over all
-    chains): conf, in_cluster and frontier read, the new in_cluster and
-    frontier written (5 bytes per site), the seed spins and the reverse
-    table read, and the float64 uniforms of the frontier's bonds (8z bytes
-    per frontier site; no other uniform decides a bond); a compare per site
-    and a compare and an OR per frontier bond."""
+def wolff_move_bound(C, tabs, cluster_sites):
+    """K18's bound for a whole Wolff move (the per-level bound of the
+    level-by-level kernel it replaced): conf, the seed spins, the cluster
+    and frontier read once and written once, the status, the reverse
+    table, and the float64 uniforms of the frontier's bonds, 8z bytes per
+    site that joins a cluster (each site is on the frontier once; no other
+    uniform decides a bond); a compare and an OR per frontier bond. The
+    batch's torch.rand writes are the stream's, not K18's (counted apart)."""
     N, z = tabs.N, tabs.z
-    nbytes = (5 * C * N + 8 * z * n_front + 4 * tabs.rev.numel() + C + 4)
-    return bound(nbytes, C * N + 2 * z * n_front)
+    nbytes = (C * N + C + 4 * C * N + 8 + 4 * tabs.rev.numel()
+              + 8 * z * cluster_sites)
+    return bound(nbytes, 2 * z * cluster_sites)
 
 
 def parity_ising(results):
     """K17 against its plain version (conf and counts bit for bit) at
     bench.py's ising_flips shape (262,144 chains of the 8x8), at the 3x3
-    (four color classes) and on the cubic L = 4, and K18 against its plain version
-    (cluster, frontier and flag bit for bit) at the Wolff run's shape a few
-    BFS levels into the clusters; each relaunched REPEATS times, bit-equal
-    to the first; the bench shape's and K18's times and bounds into
-    results."""
+    (four color classes), on the cubic L = 4 and at the 32x32 (N = 1024:
+    the shared-memory layout); K18 through a whole Wolff move from seeds at
+    the Wolff run's shape, against the move on its plain version from the
+    same stream (flipped conf, cluster sizes, levels and the generator's
+    state after the move equal), then one launch on a batch holding the
+    whole search against its plain version; each relaunched REPEATS times,
+    bit-equal to the first; the bench shape's and K18's times and bounds
+    into results."""
     import torch
     from montecarlo_tpu_torch import IsingModel, IsingTc, SquareLattice
+    from montecarlo_tpu_torch.mc.mc import level_uniforms
     from montecarlo_tpu_torch.ops import ising as kis
     gen = torch.Generator(device=DEVICE).manual_seed(18)
     f64 = dict(device=DEVICE, dtype=torch.float64)
@@ -1786,7 +1847,9 @@ def parity_ising(results):
             ("3x3", IsingModel(l=SquareLattice(3)),
              ISING_SMALL_CHAINS, ISING_BETA),
             ("cubic L=4", IsingModel(dims=3, L=4), ISING_SMALL_CHAINS,
-             ISING_BETA)):
+             ISING_BETA),
+            ("32x32", IsingModel(dims=2, L=ISING_LARGE_L),
+             ISING_SMALL_CHAINS, ISING_BETA)):
         tabs = kis.make_tables(model.lattice, beta, DEVICE)
         conf = model.rand_conf(gen, C, DEVICE)
         u = torch.rand(C, tabs.N, generator=gen, **f64)
@@ -1799,49 +1862,77 @@ def parity_ising(results):
         err = max((out_k[0].int() - out_p[0].int()).abs().max().item(),
                   (out_k[1] - out_p[1]).abs().max().item())
         acc = out_p[1].sum().item() / (C * tabs.N)
+        dev = device_ms(lambda: kis.ising_sweep(conf, u, tabs, out_k[1]))
         log(f"[parity] ising_sweep {tag} ({C}, {tabs.N}), z={tabs.z}, "
             f"{len(tabs.bounds) - 1} color classes: conf and counts equal "
-            f"{same}, acceptance {acc:.4f}")
+            f"{same}, acceptance {acc:.4f}; device {ms_text(dev)}, bound "
+            f"{ising_sweep_bound(C, tabs)['bound_ms']:.5f} ms")
         if not all(same):
             raise AssertionError(f"ising_sweep disagrees with plain ({tag})")
         repeats_equal(f"ising_sweep {tag}", sweep)
         if tag == "8x8":
+            read = device_ms(lambda: u.sum())
+            log(f"[parity] ising_sweep 8x8: torch's u.sum() reads the "
+                f"sweep's {u.numel() * 8 / 1e6:.1f} MB of uniforms in "
+                f"{ms_text(read)} (device)")
+            # the same with the card's 50 MB L2 written over before each
+            # call: none of the sweep's inputs left in it from the last
+            over = torch.empty(L2_OVERWRITE_BYTES, dtype=torch.uint8,
+                               device=DEVICE)
+            cold = device_ms(lambda: (over.zero_(), kis.ising_sweep(
+                conf, u, tabs, out_k[1])), only="ising_sweep")
+            log(f"[parity] ising_sweep 8x8 with {L2_OVERWRITE_BYTES >> 20} "
+                f"MB written over before each call: device {ms_text(cold)}")
+            del over
             results["ising_sweep"] = dict(
                 max_abs_err=float(err),
                 ms=1e3 * timed(sweep, 50),
                 plain_ms=1e3 * timed(lambda: kis.ising_sweep_plain(
                     conf, u, tabs, zero()), 5),
                 library_ms=None, **ising_sweep_bound(C, tabs))
-            dev = device_ms(lambda: kis.ising_sweep(conf, u, tabs,
-                                                    out_k[1]))
             if dev is not None:
                 results["ising_sweep"]["device_ms"] = dev
 
-    # ---- K18 at the Wolff run's shape, WOLFF_PARITY_LEVELS levels into
-    # the clusters (plain levels from random seeds), then one level
+    # ---- K18: a whole move from seeds at the Wolff run's shape, on the
+    # kernel and on its plain version, each drawing its levels from a
+    # generator seeded alike
     model = IsingModel(dims=2, L=ISING_L)
     C, N, z = WOLFF_CHAINS, len(model.lattice), model.lattice.coordination
     tabs = kis.make_tables(model.lattice, 1.0 / IsingTc, DEVICE)
     conf = model.rand_conf(gen, C, DEVICE)
     seeds = torch.randint(0, N, (C,), generator=gen, device=DEVICE)
-    inc = torch.zeros(C, N, dtype=torch.bool, device=DEVICE)
-    inc[torch.arange(C, device=DEVICE), seeds] = True
-    spin = conf.gather(1, seeds[:, None]).contiguous()
-    front = inc
-    for _ in range(WOLFF_PARITY_LEVELS):
-        inc, front, _ = kis.wolff_step_plain(
-            conf, inc, front, spin, torch.rand(C, N, z, generator=gen, **f64),
-            tabs)
-    u = torch.rand(C, N, z, generator=gen, **f64)
-    step = lambda: kis.wolff_step(conf, inc, front, spin, u, tabs)
+    moves = []
+    for use in (True, False):
+        g = torch.Generator(device=DEVICE).manual_seed(WOLFF_PARITY_SEED)
+        move = model.make_global_move_fn(1.0 / IsingTc, DEVICE,
+                                         use_kernels=use)
+        out = move(conf, seeds, lambda k: level_uniforms(g, (C, N, z), k))
+        moves.append((*out, g.get_state(), move.batches))
+    torch.cuda.synchronize()
+    (fk, sk, lk, gk, bk), (fp, sp, lp, gp, _) = moves
+    same = [torch.equal(fk, fp), torch.equal(sk, sp), lk == lp,
+            torch.equal(gk, gp)]
+    log(f"[parity] wolff_step: a move of {C} chains of the 8x8 from seeds, "
+        f"{lk} levels in {bk} launch(es) against {lp} plain levels: flipped "
+        f"conf, sizes, levels and the stream after it equal {same}; "
+        f"{int(sk.sum())} sites in clusters")
+    if not all(same):
+        raise AssertionError("wolff_step's move disagrees with plain")
+    # one launch on a batch holding the whole search (the move's levels)
+    g = torch.Generator(device=DEVICE).manual_seed(WOLFF_PARITY_SEED)
+    u, _ = level_uniforms(g, (C, N, z), lk)
+    inc = torch.zeros(C, N, dtype=torch.bool, device=DEVICE).scatter_(
+        1, seeds[:, None], True)
+    spin = conf.gather(1, seeds[:, None])
+    step = lambda: kis.wolff_step(conf, inc, inc, spin, u, tabs)
     out_k = step()
-    out_p = kis.wolff_step_plain(conf, inc, front, spin, u, tabs)
+    out_p = kis.wolff_step_plain(conf, inc, inc, spin, u, tabs)
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(out_k, out_p)]
-    log(f"[parity] wolff_step ({C}, {N}, {z}) after "
-        f"{WOLFF_PARITY_LEVELS} levels: {int(inc.sum())} sites in clusters, "
-        f"{int(front.sum())} on the frontier, {int(out_p[1].sum())} added; "
-        f"cluster, frontier and flag equal {same}")
+    same.append(torch.equal(torch.where(out_k[0], -conf, conf), fk))
+    log(f"[parity] wolff_step one launch of {lk} levels ({C}, {N}, {z}): "
+        f"cluster, frontier, status {out_k[2].tolist()} and the move's "
+        f"flipped conf equal {same}")
     if not all(same):
         raise AssertionError("wolff_step disagrees with plain")
     repeats_equal("wolff_step", step)
@@ -1850,12 +1941,19 @@ def parity_ising(results):
     results["wolff_step"] = dict(
         max_abs_err=float(err), ms=1e3 * timed(step, 50),
         plain_ms=1e3 * timed(lambda: kis.wolff_step_plain(
-            conf, inc, front, spin, u, tabs), 5),
+            conf, inc, inc, spin, u, tabs), 5),
         library_ms=None,
-        **wolff_step_bound(C, tabs, int(front.sum())))
+        **wolff_move_bound(C, tabs, int(sk.sum())))
     dev = device_ms(step)
     if dev is not None:
         results["wolff_step"]["device_ms"] = dev
+    rand_bytes = 8 * lk * C * N * z
+    log(f"[parity] wolff_step per move: device {ms_text(dev)} for {lk} "
+        f"levels = {ms_text(None if dev is None else dev / lk)} a level "
+        f"(each a dependent gather of the frontier's uniforms); byte bound "
+        f"{results['wolff_step']['bound_ms']:.5f} ms; the levels' torch.rand "
+        f"writes {rand_bytes / 1e6:.1f} MB = "
+        f"{1e3 * rand_bytes / HBM_BYTES_PER_S:.5f} ms at the HBM rate")
 
 
 def time_layouts(mod, G, sigma, u, kw):
@@ -2853,41 +2951,149 @@ def classical_ising():
     return launches
 
 
-def classical_wolff():
-    """(7b) Wolff moves at beta = 1/IsingTc through MC(...).run(): clusters
-    flip (acc_global > 0), <|m|> in WOLFF_M_RANGE; K18 launched once per BFS
-    level the host loop ran (one flag read, a host synchronization, each)."""
-    import torch
+def wolff_session():
+    """The Wolff run's session: 8x8 at beta = 1/IsingTc, WOLFF_CHAINS
+    chains, a global move every WOLFF_RATE sweeps."""
     import montecarlo_tpu_torch as mt
-    read = zero_launches()
-    sim = mt.MC(mt.IsingModel(dims=2, L=ISING_L), beta=1.0 / mt.IsingTc,
-                n_chains=WOLFF_CHAINS, seed=1, global_moves=True,
-                global_rate=WOLFF_RATE, device=DEVICE)
+    return mt.MC(mt.IsingModel(dims=2, L=ISING_L), beta=1.0 / mt.IsingTc,
+                 n_chains=WOLFF_CHAINS, seed=1, global_moves=True,
+                 global_rate=WOLFF_RATE, device=DEVICE)
+
+
+@contextlib.contextmanager
+def fixed_batch(levels):
+    """Wolff moves run in batches of this many BFS levels (None: the
+    model's rule): the move reads models.ising.batch_levels at each batch."""
+    from montecarlo_tpu_torch.models import ising
+    rule = ising.batch_levels
+    if levels is not None:
+        ising.batch_levels = lambda *_: levels
+    try:
+        yield
+    finally:
+        ising.batch_levels = rule
+
+
+def count_syncs(fn):
+    """fn()'s result and the host synchronizations it made (torch's sync
+    debug mode: one warning each)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def wolff_moves(sim):
+    """Wolff moves alone from sim's state, on its stream: wall ms per move
+    over WOLFF_TIMED_MOVES moves, their levels per move, and the host
+    synchronizations per move over WOLFF_SYNC_MOVES more (count_syncs),
+    and the batches (host reads) per move of those."""
+    import torch
+    _, move = sim._moves()
+    C, N = sim.conf.shape
+    z = sim.model.lattice.coordination
+    draw = lambda k: sim._level_uniforms((C, N, z), k)
+    conf, levels = sim.conf, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(thermalization=WOLFF_THERM, sweeps=WOLFF_SWEEPS, verbose=False)
+    for _ in range(WOLFF_TIMED_MOVES):
+        conf, _, n = move(conf, sim._seed_sites(N), draw)
+        levels += n
     torch.cuda.synchronize()
-    dur = time.perf_counter() - t0
-    launches = read()
-    a = sim.analysis
+    wall = 1e3 * (time.perf_counter() - t0) / WOLFF_TIMED_MOVES
+    batches = move.batches
+
+    def more():
+        c = conf
+        for _ in range(WOLFF_SYNC_MOVES):
+            c, _, _ = move(c, sim._seed_sites(N), draw)
+
+    _, syncs = count_syncs(more)
+    return (wall, levels / WOLFF_TIMED_MOVES, syncs / WOLFF_SYNC_MOVES,
+            (move.batches - batches) / WOLFF_SYNC_MOVES)
+
+
+def classical_wolff():
+    """(7b) Wolff moves at beta = 1/IsingTc through MC(...).run(): clusters
+    flip (acc_global > 0), <|m|> in WOLFF_M_RANGE; K18 launched once per
+    batch of BFS levels (one host read each); the same run at one level a
+    batch (fixed_batch(1), the level-by-level loop) from the same seed
+    bit-equal in conf and counters; then moves alone from each run's state:
+    wall ms, levels and host synchronizations per move."""
+    import torch
+    batching = {"batched": None, "level by level": 1}
+    runs = {}
+    for tag, lb in batching.items():
+        read = zero_launches()
+        sim = wolff_session()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fixed_batch(lb):
+            sim.run(thermalization=WOLFF_THERM, sweeps=WOLFF_SWEEPS,
+                    verbose=False)
+        torch.cuda.synchronize()
+        runs[tag] = (sim, read(), time.perf_counter() - t0,
+                     sim._moves()[1].batches)
+    (sim, launches, dur, batches), (sim1, launches1, dur1, batches1) = (
+        runs["batched"], runs["level by level"])
+    a, a1 = sim.analysis, sim1.analysis
     moves = (WOLFF_THERM + WOLFF_SWEEPS) // WOLFF_RATE
     m = float(sim.observables()["Magn"]["m"].mean)
     log(f"[wolff] 8x8 beta=1/Tc {WOLFF_CHAINS} chains, {WOLFF_THERM} + "
         f"{WOLFF_SWEEPS} sweeps, a global move every {WOLFF_RATE}: launches "
         f"ising_sweep {launches['ising_sweep']}, wolff_step "
         f"{launches['wolff_step']}; {moves} moves, {a.levels_global} BFS "
-        f"levels = {a.levels_global / moves:.2f} levels (host syncs) per "
-        f"move; acc_global {a.acc_global} of {a.prop_global}; local "
-        f"acceptance {a.acc_rate:.5f}; <|m|> {m:.5f}; {dur:.3f} s")
+        f"levels = {a.levels_global / moves:.2f} levels per move in "
+        f"{batches / moves:.2f} batches (launches, host reads) per move; "
+        f"acc_global {a.acc_global} of {a.prop_global}; local acceptance "
+        f"{a.acc_rate:.5f}; <|m|> {m:.5f}; {dur:.3f} s (one level a batch: "
+        f"{batches1} launches, {dur1:.3f} s)")
+    fields = ("acc_local", "prop_local", "acc_global", "prop_global",
+              "levels_global")
+    same = (torch.equal(sim.conf, sim1.conf)
+            and all(getattr(a, f) == getattr(a1, f) for f in fields)
+            and torch.equal(sim.generator.get_state(),
+                            sim1.generator.get_state()))
+    log(f"[wolff] batched run bit-equal to one level a batch (conf, "
+        f"counters, the generator after the run): {same}")
     expected = dict.fromkeys(launches, 0)
     expected.update(ising_sweep=WOLFF_THERM + WOLFF_SWEEPS,
-                    wolff_step=a.levels_global)
-    if launches != expected or a.prop_global != moves * WOLFF_CHAINS:
-        raise AssertionError(f"launches {launches}, expected {expected}; "
-                             f"prop_global {a.prop_global}")
+                    wolff_step=batches)
+    expected1 = dict(expected, wolff_step=a1.levels_global)
+    if (launches != expected or launches1 != expected1
+            or batches1 != a1.levels_global
+            or a.prop_global != moves * WOLFF_CHAINS):
+        raise AssertionError(f"launches {launches} / {launches1}, expected "
+                             f"{expected} / {expected1}; prop_global "
+                             f"{a.prop_global}")
+    if not same:
+        raise AssertionError("the batched Wolff run differs from the "
+                             "level-by-level run")
     lo, hi = WOLFF_M_RANGE
     if not (a.acc_global > 0 and lo < m < hi):
         raise AssertionError(f"acc_global {a.acc_global}, <|m|> {m}")
+    per_move = {}
+    for tag, r in runs.items():
+        with fixed_batch(batching[tag]):
+            per_move[tag] = wolff_moves(r[0])
+    for tag, (wall, levels, syncs, reads) in per_move.items():
+        log(f"[wolff] moves alone, {tag}: {wall:.4f} ms wall a move, "
+            f"{levels:.2f} levels a move, {syncs:.2f} host synchronizations "
+            f"a move (sync debug mode) for {reads:.2f} batches a move")
+    # each batch's one status read is the move's only synchronization (the
+    # generator's state is read and set on the host)
+    if any(syncs != reads for _, _, syncs, reads in per_move.values()):
+        raise AssertionError("a Wolff move synchronizes other than once a "
+                             "batch")
+    # the level-by-level run is the batched run's reference: its launches
+    # are checked above and not counted as the main path's
     return launches
 
 

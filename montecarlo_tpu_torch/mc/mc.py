@@ -5,7 +5,8 @@ independent chain. ``run`` is a Python loop over sweeps: each sweep draws
 its uniforms from the session's ``torch.Generator`` (so the chunk size
 never changes the stream), runs the model's Metropolis sweep (one K17
 launch), on the global-move schedule the Wolff move (one K18 launch and one
-host read per BFS level), and on the measurement schedule pushes the
+host read per batch of BFS levels, the stream rewound to just after the
+levels the search used), and on the measurement schedule pushes the
 measurements into device-side binners. The counters stay on the device
 and are drained into host integers once per chunk of sweeps, each chunk a
 ``timer("mc_block")`` section (``utils.timing``); a recorder copies each
@@ -29,6 +30,24 @@ from ..utils.host import generator_state, resolve_device, set_generator_state
 from ..utils.timing import timer
 
 
+def level_uniforms(generator, shape, k):
+    """k BFS levels' float64 uniforms from generator, stacked (k, *shape):
+    k draws of torch.rand(shape), and rewind(used), which sets the
+    generator to its state after the used-th of them (0 <= used <= k). A
+    CUDA generator's state past its seed is its Philox offset, read and set
+    on the host: no synchronization, and cheaper than the whole state."""
+    if generator.device.type == "cuda":
+        get, put = generator.get_offset, generator.set_offset
+    else:
+        get, put = generator.get_state, generator.set_state
+    u = torch.empty((k, *shape), dtype=torch.float64, device=generator.device)
+    states = [get()]
+    for level in u:
+        level.uniform_(generator=generator)  # the numbers of torch.rand
+        states.append(get())
+    return u, lambda used: put(states[used])
+
+
 @dataclass
 class MCParameters:
     """The run's schedule (``T`` in MC's keywords becomes beta = 1/T)."""
@@ -50,8 +69,9 @@ class MCAnalysis:
     """Acceptance bookkeeping: local (Metropolis) proposals and acceptances
     counted per site, global (Wolff) ones per chain and move, a global move
     accepted where its cluster has more than one site; levels_global counts
-    the BFS levels of all global moves (each one K18 launch and one host
-    synchronization)."""
+    the BFS levels of all global moves (each one draw of (C, N, z)
+    uniforms; K18 runs them in batches, one launch and one host
+    synchronization a batch)."""
 
     acc_rate: float = 0.0
     prop_local: int = 0
@@ -190,7 +210,7 @@ class MC:
                             and sweep_idx % p.global_rate == 0):
                         self.conf, size, levels = global_fn(
                             self.conf, self._seed_sites(N),
-                            lambda: self._uniforms((C, N, z)))
+                            lambda k: self._level_uniforms((C, N, z), k))
                         acc_g += (size > 1).sum()
                         n_global += 1
                         self.analysis.levels_global += levels
@@ -232,6 +252,11 @@ class MC:
         sweep (class order), (C, N, z) for a BFS level."""
         return torch.rand(shape, generator=self.generator, device=self.device,
                           dtype=torch.float64)
+
+    def _level_uniforms(self, shape, k):
+        """The next k BFS levels' uniforms from the session's stream
+        (``level_uniforms``)."""
+        return level_uniforms(self.generator, shape, k)
 
     def _seed_sites(self, N):
         """The next global move's first sites, (C,) in [0, N)."""

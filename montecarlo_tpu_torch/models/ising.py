@@ -7,15 +7,16 @@ tensors, batched over chains. The two moves run on hand-written kernels
 * the Metropolis sweep, checkerboard-colored: the sites of one color class
   of ``Lattice.site_colors`` have no bond between them, so one class is
   decided at once, classes in order (kernel K17, one launch per sweep);
-* the Wolff cluster move as a batched breadth-first search, one level per
-  launch of kernel K18, driven by a host loop that reads one flag per level
-  to stop (the JAX package's lax.while_loop): one host synchronization per
-  BFS level.
+* the Wolff cluster move as a batched breadth-first search (the JAX
+  package's lax.while_loop), run in batches of levels: one launch of kernel
+  K18 runs a batch, and the host reads its status once (one host
+  synchronization a batch) to learn whether another batch is needed.
 
 The moves take their random numbers as arguments (the sweep its uniforms,
-the cluster move its seeds and a callable drawing each level's uniforms),
-so a caller can feed them the JAX package's stream; ``mc.MC`` draws them
-from the session's ``torch.Generator``.
+the cluster move its seeds and a callable drawing a batch of levels'
+uniforms and taking back those the search did not use), so a caller can
+feed them the JAX package's stream; ``mc.MC`` draws them from the session's
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,25 @@ from ..ops import ising as kising
 
 #: Exact critical temperature of the 2D Ising model
 IsingTc = 2.0 / math.log(1.0 + math.sqrt(2.0))
+
+#: The most bytes the float64 uniforms of one batch of Wolff levels take
+BATCH_BYTES = 512 << 20
+
+
+def batch_levels(last, done, C, N, z):
+    """The levels of the Wolff move's next batch. The cap is N + 1 (a
+    search ends within N levels) and the levels whose uniforms fit in
+    BATCH_BYTES (at least one). The first batch of a move takes the
+    previous move's level count plus an eighth plus 2 (the cap on a
+    session's first move, last None); a later batch of the same move a
+    quarter of that, at least 2. done: the levels the move has run. A
+    level drawn and handed back costs its torch.rand; a batch too short,
+    one more host read."""
+    cap = max(1, min(N + 1, BATCH_BYTES // max(1, 8 * C * N * z)))
+    if last is None:
+        return cap
+    first = min(cap, last + last // 8 + 2)
+    return first if done == 0 else min(cap, max(2, first // 4))
 
 
 class IsingModel(Model):
@@ -104,35 +124,48 @@ class IsingModel(Model):
                             use_kernels: bool = True):
         """The Wolff cluster move of every chain as a batched BFS:
         global_move(conf, seeds, draw) -> (flipped conf, cluster sizes (C,),
-        levels). seeds (C,) are the clusters' first sites; draw() returns
-        the next level's uniforms (C, N, z) float64. Each level is one K18
-        launch on CUDA tensors (use_kernels=False: its plain version) and
-        one host read of its flag, until no chain's frontier has a site;
-        every candidate bond is tried at most once."""
+        levels). seeds (C,) are the clusters' first sites; draw(k) returns
+        the next k levels' uniforms stacked (k, C, N, z) float64 and a
+        function rewind(used) that leaves the stream just after the
+        used-th of them. The search runs in batches of levels
+        (``batch_levels``' choice from the previous move's level count),
+        each one K18 launch on CUDA tensors
+        (use_kernels=False: its plain version) and one host read of its
+        status, until no chain's frontier has a site; then the unused
+        levels are handed back, so a move consumes exactly ``levels`` draws
+        (the JAX loop's body runs) whatever the batch size. Every candidate
+        bond is tried at most once. ``global_move.batches`` counts the
+        batches run (the host reads)."""
         tabs = kising.make_tables(self.lattice, beta, device)
         step = kising.wolff_step if use_kernels else kising.wolff_step_plain
-        N = len(self.lattice)
+        N, z = tabs.N, tabs.z
+        last = [None]                    # the previous move's level count
 
         def global_move(conf, seeds, draw):
             C = conf.shape[0]
+            seeds = seeds.long()[:, None]
             in_cluster = torch.zeros(C, N, dtype=torch.bool,
-                                     device=conf.device)
-            in_cluster[torch.arange(C, device=conf.device), seeds] = True
-            seed_spin = conf.gather(1, seeds.long()[:, None])
+                                     device=conf.device).scatter_(1, seeds,
+                                                                  True)
+            seed_spin = conf.gather(1, seeds)
             frontier = in_cluster
-            # one zeroed flag per level: a search ends within N levels
-            flags = torch.zeros(N + 1, dtype=torch.int32, device=conf.device)
             levels = 0
             while True:
-                in_cluster, frontier, flag = step(
-                    conf, in_cluster, frontier, seed_spin, draw(), tabs,
-                    flags[levels:levels + 1])
-                levels += 1
-                if not flag.item():          # one host synchronization
+                k = batch_levels(last[0], levels, C, N, z)
+                u, rewind = draw(k)
+                in_cluster, frontier, status = step(
+                    conf, in_cluster, frontier, seed_spin, u, tabs)
+                ran, left = status.tolist()    # one host synchronization
+                global_move.batches += 1
+                levels += ran
+                if not left:
+                    rewind(ran)
                     break
+            last[0] = levels
             flipped = torch.where(in_cluster, -conf, conf)
             return flipped, in_cluster.sum(dim=1), levels
 
+        global_move.batches = 0
         return global_move
 
     def default_measurements(self, mc):

@@ -129,13 +129,14 @@ SIGNATURES = {
                                            _I, _I, _P),
     # N, DK, P, R, out (int*)
     "site_sweep_delayed_cx_c128_flavors_max_clusters": (_I, _I, _I, _I, _P),
-    # conf_in, conf_out, u, table, order, offsets, thr, acc, C, N, z,
-    # n_classes, stream
-    "ising_sweep_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # conf_in, conf_out, u, table, order, offsets, masks, thr, acc, C, N,
+    # z, n_classes, split (two classes of 32 and N - 32 positions), stream
+    "ising_sweep_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _P),
     # conf, in_cluster, frontier, seed_spin, u, rev, in_out, front_out,
-    # flag, p_add, C, N, z, zr, stream
-    "wolff_step_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _D, _I, _I, _I,
-                      _I, _P),
+    # scratch, status, p_add, C, N, z, zr, Lb (levels), stream
+    "wolff_step_u8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _D, _I, _I,
+                      _I, _I, _I, _P),
     # dst (host), n_blocks, stream: the phase stamps of the last launch
     "site_sweep_delayed_f32_stamps": (_P, _I, _P),
     "site_sweep_delayed_cx_c64_stamps": (_P, _I, _P),

@@ -1,5 +1,6 @@
 """The Ising model's moves: the checkerboard Metropolis sweep (kernel K17)
-and one level of the Wolff cluster's breadth-first search (kernel K18).
+and a batch of levels of the Wolff cluster's breadth-first search (kernel
+K18).
 
 ``ising_sweep`` and ``wolff_step`` launch the CUDA kernels of
 ``csrc/ising.cu`` on CUDA tensors; on CPU tensors they run
@@ -11,10 +12,12 @@ float64 DQMC site loop, for which the port has K1-f64.
 
 The static data both take (``IsingTables``) is built once per lattice,
 device and beta: the neighbor table (N, z) int32, the color classes as one
-site order (N,) with class offsets, the acceptance thresholds thr[h] =
-exp(-2 beta h) for h = 0..z in float64 (computed once on the host, so the
-kernel and the plain version compare the same numbers), and for K18 the
-reverse table rev[t] = the flat bond indices i*z + k with table[i, k] = t.
+site order (N,) with class offsets, for N <= 64 each class position's
+neighbors as a bit mask over class positions (K17's tile layout), the
+acceptance thresholds thr[h] = exp(-2 beta h) for h = 0..z in float64
+(computed once on the host, so the kernel and the plain version compare
+the same numbers), and for K18 the reverse table rev[t] = the flat bond
+indices i*z + k with table[i, k] = t.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ class IsingTables:
     order: torch.Tensor     # (N,) int32: the color classes' sites in order
     offsets: torch.Tensor   # (n_classes + 1,) int32 class boundaries in order
     bounds: tuple           # the same offsets as Python ints
+    masks: torch.Tensor     # (N,) int64 neighbor masks (K17), or None
     thr: torch.Tensor       # (z + 1,) float64: exp(-2 beta h), h = 0..z
     rev: torch.Tensor       # (N, zr) int32 reverse table, -1 padded
     p_add: float            # Wolff bond probability 1 - exp(-2 beta)
@@ -47,6 +51,29 @@ class IsingTables:
     @property
     def z(self):
         return self.table.shape[1]
+
+
+#: K17's tile layout holds a chain's spins as a 64-bit mask up to this
+#: many sites; K18's register layout its cluster and frontier, where at
+#: most REG_BONDS bonds lead onto a site
+REG_SITES, REG_BONDS = 64, 8
+
+
+def neighbor_masks(table, order):
+    """(N,) int64 for N <= REG_SITES, in class positions: bit r of masks[p]
+    is set when site order[r] neighbors site order[p], so with bit r of up
+    the spin of site order[r] up, the neighbor sum of position p is
+    2 popc(up & masks[p]) - z. None where a site lists a neighbor twice
+    (the 2x2), which K17 sweeps in its shared-memory layout."""
+    N = len(order)
+    counts = np.zeros((N, N), np.int64)          # [p, site]
+    for p, i in enumerate(order):
+        np.add.at(counts[p], table[i], 1)
+    if counts.max(initial=0) > 1:
+        return None
+    weights = np.left_shift(np.uint64(1), np.arange(N, dtype=np.uint64))
+    return (counts[:, order] * weights).sum(axis=1,
+                                            dtype=np.uint64).view(np.int64)
 
 
 def check_table(table):
@@ -80,9 +107,11 @@ def make_tables(lattice, beta: float, device) -> IsingTables:
     for t, x in enumerate(ins):
         rev[t, :len(x)] = x
     dev = lambda a: torch.from_numpy(a).to(device)
+    masks = neighbor_masks(table, order) if N <= REG_SITES else None
+    masks = None if masks is None else dev(masks)
     return IsingTables(table=dev(table), order=dev(order),
                        offsets=dev(offsets), bounds=tuple(int(o) for o in offsets),
-                       thr=dev(thr), rev=dev(rev),
+                       masks=masks, thr=dev(thr), rev=dev(rev),
                        p_add=1.0 - math.exp(-2.0 * beta))
 
 
@@ -123,8 +152,10 @@ def ising_sweep(conf, u, tabs: IsingTables, acc):
         code = _build.load().ising_sweep_i8(
             conf.data_ptr(), out.data_ptr(), u.data_ptr(),
             tabs.table.data_ptr(), tabs.order.data_ptr(),
-            tabs.offsets.data_ptr(), tabs.thr.data_ptr(), acc.data_ptr(),
-            C, N, tabs.z, len(tabs.bounds) - 1,
+            tabs.offsets.data_ptr(),
+            0 if tabs.masks is None else tabs.masks.data_ptr(),
+            tabs.thr.data_ptr(), acc.data_ptr(), C, N, tabs.z,
+            len(tabs.bounds) - 1, int(tabs.bounds[1:] == (32, N)),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("ising_sweep", code)
     ising_sweep.launches += 1
@@ -132,66 +163,104 @@ def ising_sweep(conf, u, tabs: IsingTables, acc):
 
 
 # ------------------------------------------------------------------ K18
-def wolff_step_plain(conf, in_cluster, frontier, seed_spin, u,
-                     tabs: IsingTables, flag=None):
+def wolff_level(conf, in_cluster, frontier, seed_spin, u, table, p_add):
     """One level of the Wolff cluster's breadth-first search (the body of
     the JAX package's lax.while_loop): bond (i, k) activates table[i, k]
     when i is on the frontier, the neighbor has the seed's spin and is not
     yet in the cluster, and u[c, i, k] < p_add; the targets are OR-ed
-    together (a scatter with max, as JAX's .at[].max).
-
-    conf (C, N) int8, in_cluster and frontier (C, N) bool, seed_spin (C, 1)
-    int8, u (C, N, z) float64. Returns (in_cluster, frontier, flag): the
-    new cluster and frontier, and flag, a (1,) int32 tensor, 1 when the new
-    frontier is not empty (given flag is set in place)."""
-    table = tabs.table.long()
+    together (a scatter with max, as JAX's .at[].max). table (N, z) int64,
+    u (C, N, z). Returns the new (in_cluster, frontier)."""
     try_add = (frontier[:, :, None] & (conf[:, table] == seed_spin[:, :, None])
-               & ~in_cluster[:, table] & (u < tabs.p_add))
+               & ~in_cluster[:, table] & (u < p_add))
     C, N = conf.shape
     new = torch.zeros(C, N, dtype=torch.uint8, device=conf.device)
     new.scatter_reduce_(1, table.reshape(1, -1).expand(C, -1),
                         try_add.reshape(C, -1).to(torch.uint8), "amax")
     new_frontier = new.bool() & ~in_cluster
-    any_left = new_frontier.any().to(torch.int32).reshape(1)
-    if flag is None:
-        flag = any_left
+    return in_cluster | new_frontier, new_frontier
+
+
+def wolff_step_plain(conf, in_cluster, frontier, seed_spin, u,
+                     tabs: IsingTables, status=None):
+    """Up to Lb BFS levels of the Wolff clusters, levels in order over the
+    stacked uniforms u (Lb, C, N, z) float64 (level ell reads u[ell]); a
+    level runs while some chain's frontier holds a site (a host check: on
+    the card only the tests and chip_smoke.py call this version).
+
+    conf (C, N) int8, in_cluster and frontier (C, N) bool, seed_spin (C, 1)
+    int8. Returns (in_cluster, frontier, status): the cluster and frontier
+    after the batch, and status (2,) int32, the levels run (the JAX loop's
+    body runs) and 1 when a frontier is left (given status is set in
+    place)."""
+    table = tabs.table.long()
+    ran = 0
+    for level in u:
+        if not bool(frontier.any()):
+            break
+        in_cluster, frontier = wolff_level(conf, in_cluster, frontier,
+                                           seed_spin, level, table,
+                                           tabs.p_add)
+        ran += 1
+    out = torch.tensor([ran, int(bool(frontier.any()))], dtype=torch.int32,
+                       device=conf.device)
+    if status is None:
+        status = out
     else:
-        flag.copy_(any_left)
-    return in_cluster | new_frontier, new_frontier, flag
+        status.copy_(out)
+    return in_cluster, frontier, status
+
+
+def wolff_scratch(N, zr):
+    """Whether K18 keeps a chain's state in device memory (a (C, N) uint8
+    scratch buffer): in the block layout (N > REG_SITES or more than
+    REG_BONDS bonds onto a site) where its 4N bytes exceed a block's shared
+    memory."""
+    return (N > REG_SITES or zr > REG_BONDS) and 4 * N > _build.SMEM_PER_BLOCK
 
 
 def wolff_step(conf, in_cluster, frontier, seed_spin, u, tabs: IsingTables,
-               flag=None):
-    """One BFS level of the Wolff cluster: K18 for a CUDA tensor,
-    ``wolff_step_plain`` for a CPU tensor. Same arguments and results; on
-    CUDA conf int8 (C, N), in_cluster and frontier bool (C, N), seed_spin
-    int8 (C, 1), u float64 (C, N, z), all contiguous on the tables' device;
-    flag, where given, a zeroed int32 tensor of one element that K18 sets
-    to 1 when the new frontier is not empty (a fresh one otherwise)."""
+               status=None):
+    """A batch of Lb BFS levels of the Wolff clusters: one K18 launch for a
+    CUDA tensor, ``wolff_step_plain`` for a CPU tensor. Same arguments and
+    results; on CUDA conf int8 (C, N), in_cluster and frontier bool (C, N),
+    seed_spin int8 (C, 1), u float64 (Lb, C, N, z), all contiguous on the
+    tables' device; status, where given, two zeroed int32 (a fresh pair
+    otherwise), which K18 sets to the levels run and whether a frontier is
+    left."""
     if conf.device.type == "cpu":
         return wolff_step_plain(conf, in_cluster, frontier, seed_spin, u,
-                                tabs, flag)
+                                tabs, status)
     C, N = _check("wolff_step", conf, tabs, (in_cluster, torch.bool, 2),
-                  (frontier, torch.bool, 2), (seed_spin, torch.int8, 2),
-                  (u, torch.float64, 3))
-    if tuple(u.shape) != (C, N, tabs.z) or tuple(seed_spin.shape) != (C, 1):
-        raise ValueError("wolff_step: u must be (C, N, z), seed_spin (C, 1)")
-    if flag is None:
-        flag = torch.zeros(1, dtype=torch.int32, device=conf.device)
-    elif flag.dtype != torch.int32 or flag.numel() != 1:
-        raise ValueError("wolff_step: flag must be one int32")
+                  (frontier, torch.bool, 2), (seed_spin, torch.int8, 2))
+    if (u.dtype != torch.float64 or u.dim() != 4 or u.shape[0] < 1
+            or tuple(u.shape[1:]) != (C, N, tabs.z)
+            or tuple(seed_spin.shape) != (C, 1)):
+        raise ValueError("wolff_step: u must be float64 (Lb, C, N, z) with "
+                         "Lb >= 1, seed_spin (C, 1)")
+    if u.device != conf.device or not u.is_contiguous():
+        raise ValueError("wolff_step: tensors must be contiguous on one "
+                         "device")
+    if status is None:
+        status = torch.zeros(2, dtype=torch.int32, device=conf.device)
+    elif (status.dtype != torch.int32 or status.numel() != 2
+          or status.device != conf.device):
+        raise ValueError("wolff_step: status must be two int32 on the card")
     in_out = torch.empty_like(in_cluster)
     front_out = torch.empty_like(frontier)
+    zr = tabs.rev.shape[1]
+    scratch = (torch.empty(C, N, dtype=torch.uint8, device=conf.device)
+               if wolff_scratch(N, zr) else None)
     with torch.cuda.device(conf.device):
         code = _build.load().wolff_step_u8(
             conf.data_ptr(), in_cluster.data_ptr(), frontier.data_ptr(),
             seed_spin.data_ptr(), u.data_ptr(), tabs.rev.data_ptr(),
-            in_out.data_ptr(), front_out.data_ptr(), flag.data_ptr(),
-            float(tabs.p_add), C, N, tabs.z, tabs.rev.shape[1],
+            in_out.data_ptr(), front_out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), status.data_ptr(),
+            float(tabs.p_add), C, N, tabs.z, zr, u.shape[0],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("wolff_step", code)
     wolff_step.launches += 1
-    return in_out, front_out, flag
+    return in_out, front_out, status
 
 
 ising_sweep.launches = 0

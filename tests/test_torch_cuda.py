@@ -1062,10 +1062,14 @@ def test_site_sweep_tiled_shapes_bit_equal(cuda, cx, F, N):
 # the classical flavor: K17 and K18, MC and checkpoints on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dims,L", [(2, 8), (2, 3), (3, 4), (1, 5)])
+@pytest.mark.parametrize("dims,L", [(2, 8), (2, 3), (3, 4), (1, 5), (2, 32),
+                                    (2, 4), (2, 6), (2, 2)])
 def test_ising_sweep_kernel_matches_plain(cuda, dims, L):
     """K17 against its plain version: conf and the per-chain counts bit for
-    bit, on two, three and four color classes."""
+    bit, on two, three and four color classes, in the tile layout (16 | N:
+    the 8x8, 4x4 and cubic L = 4) and the shared-memory layout (the 32x32,
+    and the 3x3, Chain(5), the 6x6 and the 2x2, where 16 does not divide N;
+    the 2x2 lists each neighbor twice)."""
     from montecarlo_tpu_torch.ops import ising as kis
     model = tmc.IsingModel(dims=dims, L=L)
     gen = torch.Generator(device=cuda).manual_seed(L)
@@ -1082,39 +1086,69 @@ def test_ising_sweep_kernel_matches_plain(cuda, dims, L):
     assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
 
 
-def test_wolff_step_kernel_matches_plain(cuda):
-    """K18 against its plain version a few levels into the clusters:
-    cluster, frontier and flag bit for bit."""
+@pytest.mark.parametrize("dims,L,C", [(2, 8, 512), (2, 32, 64), (3, 4, 256),
+                                      (2, 2, 100)])
+def test_wolff_step_kernel_matches_plain(cuda, dims, L, C):
+    """K18 against its plain version from seeds, in batches of 1, 3 and
+    N + 1 levels until no frontier is left: cluster, frontier and status
+    bit for bit after every batch (the register layout at N <= 64, the
+    block layout at the 32x32)."""
     from montecarlo_tpu_torch.ops import ising as kis
-    model = tmc.IsingModel(dims=2, L=8)
-    C, N, z = 512, 64, 4
+    model = tmc.IsingModel(dims=dims, L=L)
+    N, z = len(model.lattice), model.lattice.coordination
     gen = torch.Generator(device=cuda).manual_seed(3)
     tabs = kis.make_tables(model.lattice, 1.0 / tmc.IsingTc, cuda)
     conf = model.rand_conf(gen, C, cuda)
     seeds = torch.randint(0, N, (C,), generator=gen, device=cuda)
-    inc = torch.zeros(C, N, dtype=torch.bool, device=cuda)
-    inc[torch.arange(C, device=cuda), seeds] = True
-    spin = conf.gather(1, seeds[:, None]).contiguous()
-    front = inc
-    for _ in range(4):
-        u = torch.rand(C, N, z, generator=gen, device=cuda,
-                       dtype=torch.float64)
-        out_k = kis.wolff_step(conf, inc, front, spin, u, tabs)
-        out_p = kis.wolff_step_plain(conf, inc, front, spin, u, tabs)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-        inc, front = out_p[0], out_p[1]
+    inc0 = torch.zeros(C, N, dtype=torch.bool, device=cuda).scatter_(
+        1, seeds[:, None], True)
+    spin = conf.gather(1, seeds[:, None])
+    for Lb in (1, 3, N + 1):
+        inc, front, left = inc0, inc0, 1
+        while left:
+            u = torch.rand(Lb, C, N, z, generator=gen, device=cuda,
+                           dtype=torch.float64)
+            out_k = kis.wolff_step(conf, inc, front, spin, u, tabs)
+            out_p = kis.wolff_step_plain(conf, inc, front, spin, u, tabs)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+            inc, front, status = out_p
+            left = status.tolist()[1]
 
 
 def test_mc_run_launches_k17_and_k18(cuda):
-    """MC.run on the card: one K17 per sweep, one K18 per BFS level."""
+    """MC.run on the card: one K17 per sweep, one K18 per batch of BFS
+    levels (the move's count of host reads)."""
     from montecarlo_tpu_torch.ops import ising as kis
     kis.ising_sweep.launches = kis.wolff_step.launches = 0
     sim = tmc.MC(tmc.IsingModel(dims=2, L=8), beta=1.0 / tmc.IsingTc,
                  n_chains=256, global_moves=True, global_rate=2, device=cuda)
     sim.run(thermalization=4, sweeps=6, verbose=False)
     assert kis.ising_sweep.launches == 10
-    assert kis.wolff_step.launches == sim.analysis.levels_global > 0
+    assert kis.wolff_step.launches == sim._moves()[1].batches > 0
+    assert sim.analysis.levels_global >= kis.wolff_step.launches
+
+
+def test_mc_wolff_run_independent_of_batch_on_cuda(cuda, monkeypatch):
+    """MC.run with Wolff moves on the card at the default batch size, one
+    level a batch and N + 1 levels (batch_levels fixed; the move reads it
+    at each batch): the same conf, counters and generator state (the
+    stream rewound to the levels used)."""
+    from montecarlo_tpu_torch.models import ising as tising
+    rule, out = tising.batch_levels, []
+    for lb in (None, 1, 65):
+        monkeypatch.setattr(tising, "batch_levels",
+                            rule if lb is None else lambda *a: lb)
+        sim = tmc.MC(tmc.IsingModel(dims=2, L=8), beta=1.0 / tmc.IsingTc,
+                     n_chains=512, seed=4, global_moves=True, global_rate=2,
+                     device=cuda)
+        sim.run(thermalization=6, sweeps=10, verbose=False)
+        a = sim.analysis
+        out.append((sim.conf.cpu(), sim.generator.get_state(), a.acc_local,
+                    a.acc_global, a.levels_global))
+    for o in out[1:]:
+        assert torch.equal(o[0], out[0][0]) and torch.equal(o[1], out[0][1])
+        assert o[2:] == out[0][2:]
 
 
 def test_cpu_checkpoint_refused_on_cuda(cuda, tmp_path):

@@ -18,6 +18,7 @@ import pytest
 import montecarlo_tpu_torch as mt
 
 from ed_oracle import EDSolution
+from torch_port_inputs import one_torch_thread  # noqa: F401
 
 ATOL = 2 * 0.1 ** 2  # 2*dtau^2
 BETA = 1.0

@@ -18,7 +18,7 @@ from test_torch_complex import _models as _cx_models
 from test_torch_complex import _rel as _rel_cx
 from test_torch_dqmc import (_assert_stacks_close, _contexts, _jax_init,
                              _jax_uniforms, _np, _rel)
-from torch_port_inputs import flux_theta
+from torch_port_inputs import flux_theta, one_torch_thread  # noqa: F401
 
 F64, C128 = torch.float64, torch.complex128
 # the port's float64 and complex128 paths take every operation of the XLA

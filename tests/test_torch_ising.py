@@ -7,7 +7,9 @@ test replays the JAX package's key order with jax.random and hands the same
 numbers to both sides: a sweep splits the key once per color class and
 draws (C, n_c) float64 uniforms per class (the port takes them concatenated
 in class order); a Wolff move splits once for the seeds (randint) and once
-per BFS level for (C, N, z) float64 uniforms.
+per BFS level for (C, N, z) float64 uniforms (the port draws a batch of
+levels and hands back those the search did not use: JaxStream.levels
+rewinds the key to the one after the last level used).
 
 Tolerances: spins, accepted counts, clusters and cluster sizes are integers
 and must be equal; energies and magnetizations exact; binner means of a
@@ -30,8 +32,10 @@ from montecarlo_tpu.lattices import library as jlib
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch.lattices import library as tlib
 from montecarlo_tpu_torch.ops import ising as kis
+from torch_port_inputs import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
+
 # every lattice of the classical path, one of each coloring: Chain(5) has
 # three color classes, Square(3) four, Square(2) lists each neighbor twice
 LATTICES = [("Chain", 5), ("SquareLattice", 2), ("SquareLattice", 3),
@@ -70,6 +74,19 @@ class JaxStream:
                  for idx in self.colors], axis=1))
         return torch.from_numpy(np.asarray(jax.random.uniform(
             self._split(), shape, jnp.float64)))
+
+    def levels(self, shape, k):
+        """k BFS levels' uniforms stacked (k, *shape), and rewind(used),
+        which sets the key to the one after the used-th level's split."""
+        keys, draws = [self.key], []
+        for _ in range(k):
+            draws.append(self.uniforms(shape))
+            keys.append(self.key)
+
+        def rewind(used):
+            self.key = keys[used]
+
+        return torch.stack(draws), rewind
 
     def seeds(self, N):
         return torch.from_numpy(np.array(jax.random.randint(
@@ -120,7 +137,7 @@ def test_sweep_accumulates_counts_in_place():
 
 @pytest.mark.parametrize("ctor,L", LATTICES, ids=IDS)
 def test_global_move_matches_jax(ctor, L):
-    """The Wolff move (K18's plain version level by level) against
+    """The Wolff move (K18's plain version in batches of levels) against
     make_global_move_fn on the same seeds and per-level uniforms: clusters,
     flipped conf and cluster sizes equal, and the same number of levels
     drawn."""
@@ -136,7 +153,7 @@ def test_global_move_matches_jax(ctor, L):
         flipped, key, size = jmove(jnp.asarray(conf), key)
         tflipped, tsize, levels = tmove(
             torch.from_numpy(conf), stream.seeds(N),
-            lambda: stream.uniforms((C, N, tm.lattice.coordination)))
+            lambda k: stream.levels((C, N, tm.lattice.coordination), k))
         np.testing.assert_array_equal(tflipped.numpy(), np.asarray(flipped))
         np.testing.assert_array_equal(tsize.numpy(), np.asarray(size))
         assert np.array_equal(np.asarray(stream.key), np.asarray(key))
@@ -165,7 +182,8 @@ def _wolff_gather(conf, inc, front, spin, u, tabs):
 @pytest.mark.parametrize("ctor,L", LATTICES, ids=IDS)
 def test_wolff_step_reverse_table(ctor, L):
     """The reverse table K18 gathers through gives the plain version's
-    scatter result, level after level, from random seeds."""
+    scatter result, level after level (batches of one level), from random
+    seeds."""
     _, tm = _models(ctor, L)
     C, N, z = 8, len(tm.lattice), tm.lattice.coordination
     tabs = kis.make_tables(tm.lattice, 0.5, CPU)
@@ -178,14 +196,14 @@ def test_wolff_step_reverse_table(ctor, L):
     front = inc
     for _ in range(4):
         u = torch.from_numpy(rng.random((C, N, z)))
-        new_inc, new_front, flag = kis.wolff_step(conf, inc, front, spin, u,
-                                                  tabs)
+        new_inc, new_front, flag = kis.wolff_step(conf, inc, front, spin,
+                                                  u[None], tabs)
         g_inc, g_front = _wolff_gather(conf.numpy(), inc.numpy(),
                                        front.numpy(), spin.numpy(),
                                        u.numpy(), tabs)
         np.testing.assert_array_equal(new_inc.numpy(), g_inc)
         np.testing.assert_array_equal(new_front.numpy(), g_front)
-        assert int(flag) == int(g_front.any())
+        assert flag.tolist() == [int(front.any()), int(g_front.any())]
         inc, front = new_inc, new_front
 
 
@@ -217,6 +235,7 @@ def test_mc_run_matches_jax(global_moves):
     tm.conf = torch.from_numpy(np.asarray(jm.conf))
     stream = JaxStream(jm.key, tm.model.lattice.site_colors, 8)
     tm._uniforms, tm._seed_sites = stream.uniforms, stream.seeds
+    tm._level_uniforms = stream.levels
     run = dict(thermalization=4, sweeps=8, verbose=False, chunk=4)
     assert jm.run(**run) and tm.run(**run)
     np.testing.assert_array_equal(tm.conf.numpy(), np.asarray(jm.conf))

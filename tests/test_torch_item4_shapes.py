@@ -26,21 +26,10 @@ from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters as TParams
 from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
 from test_torch_complex import _rel as _rel_cx
 from test_torch_fp64_runs import TOL_RUN, _run_against_jax
-from torch_port_inputs import cx_sweep_inputs, flux_theta
+from torch_port_inputs import (cx_sweep_inputs, flux_theta,  # noqa: F401
+                               one_torch_thread)
 
 F64, C128 = torch.float64, torch.complex128
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The plain sweeps run hundreds of thousands of small tensor
-    operations, which gain nothing from intra-op threads and slow down
-    many times over when those threads compete with other test processes
-    for the same cores: one thread per test here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(repulsive, **kw):

@@ -23,22 +23,12 @@ import torch
 from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops import site_sweep_cx as sscx
 from montecarlo_tpu_torch.ops import site_sweep_delayed_cx as ssdcx
-from torch_port_inputs import LAMB, MODELS, cx_sweep_inputs
+from torch_port_inputs import (LAMB, MODELS, cx_sweep_inputs,  # noqa: F401
+                               one_torch_thread)
 
 C128 = torch.complex128
 CSRC = Path(sscx.__file__).resolve().parent.parent / "csrc"
 MODEL = {1: "attractive", 2: "repulsive"}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The plain sweeps run thousands of small tensor operations, which
-    gain nothing from intra-op threads and slow down when those threads
-    compete with other test processes for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(N, C, F, device="cpu"):

@@ -18,7 +18,7 @@ from montecarlo_tpu_torch.dqmc import core as tcore
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters as TParams
 from test_torch_dqmc import (_assert_stacks_close, _contexts, _jax_init,
                              _jax_uniforms, _models, _np, _rel)
-from torch_port_inputs import sweep_inputs
+from torch_port_inputs import one_torch_thread, sweep_inputs  # noqa: F401
 
 
 @pytest.mark.parametrize("L,delay", [(4, 8), (12, 32), (16, None), (8, None),

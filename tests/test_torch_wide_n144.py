@@ -16,7 +16,7 @@ from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.dqmc import core as tcore
 from test_torch_dqmc import _jax_init, _jax_uniforms, _np
 from test_torch_wide import _contexts, _rel
-from torch_port_inputs import flux_theta
+from torch_port_inputs import flux_theta, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,23 @@ tests (test_torch_cuda.py) run where JAX is not installed."""
 import math
 
 import numpy as np
+import pytest
 import torch
 
 from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test, for a test module that imports this
+    fixture: the port's plain CPU paths run many small tensor operations,
+    which gain nothing from intra-op threads and slow down many times over
+    when those threads compete with other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LAMB = math.acosh(math.exp(0.5 * 4.0 * 0.1))   # Hirsch lambda at U=4, dtau=0.1
 MODELS = {"attractive": dict(signs=(1.0,), det_power=2, use_boson=True),

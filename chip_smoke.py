@@ -235,6 +235,24 @@ failure and prints no result line then):
               around run], print_timer's lines, and the wall of the run
               with the timers off and on, in turns
 
+  9. chains  chain sharding (montecarlo_tpu_torch.parallel): each session
+              once in this process, then (a) the headline (256 chains,
+              float32, 1 + 2 sweeps) on a one-rank NCCL mesh here, bit-
+              identical, and cross_chain_mean's NCCL all-reduce of its
+              occupation equal to the plain mean; (b) CH_RANKS ranks of this
+              card over gloo (parallel.launch.spawn; NCCL refuses two ranks
+              on one GPU), each running its block of the headline, of the
+              10x10 attractive model in the complex row's flux in
+              complex128 (128 chains, 1 + 1 sweeps: a rank's 64 chains take
+              K8-c128's rank-1 layout, one process's 128 the tiles) and of
+              Ising 8x8 at beta 0.44 with Wolff moves (4096 chains, 10 + 20
+              sweeps): every rank's configuration, G, counters and
+              observables bit-identical to one process's, each session's
+              kernels launched in every rank; (c) the wall seconds and
+              chain-sweeps/s of one process and of the ranks (two processes
+              on one card: not a scaling number). Its launches are on its
+              own lines, not in the kernels line
+
 Each phase ends with a [time] line: the seconds since the script started.
 
 The last line of standard output is
@@ -471,6 +489,19 @@ ITEM9_GREENS_AT = (50, 0)
 TOL_CUSTOM = 1e-6
 # S(q = 0) against uniform_fourier: both sum the same float64 values
 TOL_SQ0 = 1e-10
+# phase 9 (chains): sessions sharded over ranks, each held bit for bit to
+# the same session in this process: the headline (1 + 2 sweeps, seed
+# CH_SEED) on a one-rank NCCL mesh here (9a) and, with the others, on
+# CH_RANKS ranks of one card over gloo (9b; NCCL refuses two ranks on one
+# GPU): the 10x10 attractive model in the complex row's flux in complex128
+# at CH_FLUX_CHAINS chains, 1 + 1 sweeps (a rank's 64 chains are within
+# ops/site_sweep_cx.py's CLUSTERS_AT_ONCE = 66, so plan_layout gives its
+# K8-c128 the rank-1 layout, the 128 chains of one process the tiles), and
+# Ising 8x8 at beta CH_ISING_BETA with a Wolff move every 2 sweeps
+CH_RANKS, CH_SEED = 2, 9
+CH_FLUX_L, CH_FLUX_CHAINS = 10, 128
+CH_ISING_CHAINS, CH_ISING_BETA, CH_ISING_THERM, CH_ISING_SWEEPS = (
+    4096, 0.44, 10, 20)
 DEVICE = "cuda"
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s outside
 # the tensor cores (TF32 is not float32) and FP64 FLOP/s on the tensor
@@ -3532,6 +3563,118 @@ def phase_item9(mark, smi):
     return totals
 
 
+def chains_sessions():
+    """Phase 9's sessions: {tag: (a picklable factory of the session, the
+    kernels its run must launch, chain-sweeps of its run)}."""
+    import functools
+    import torch
+    import montecarlo_tpu_torch as mt
+    dqmc = functools.partial(mt.DQMC, beta=BETA, delta_tau=DTAU,
+                             measure_rate=1, seed=CH_SEED, device=DEVICE)
+    return {
+        "headline": (functools.partial(
+            dqmc, headline_model(), safe_mult=SAFE_MULT, n_chains=CHAINS,
+            dtype=torch.float32, thermalization=1, sweeps=2),
+            ("site_sweep", "udt_qr", "udt_qr_solve"), CHAINS * 3),
+        "flux10_c128": (functools.partial(
+            dqmc, complex_model(L=CH_FLUX_L), safe_mult=CPLX_SM,
+            n_chains=CH_FLUX_CHAINS, thermalization=1, sweeps=1),
+            ("site_sweep_cx_c128",), CH_FLUX_CHAINS * 2),
+        "ising": (functools.partial(
+            mt.MC, mt.IsingModel(dims=2, L=L), beta=CH_ISING_BETA,
+            n_chains=CH_ISING_CHAINS, seed=CH_SEED, global_moves=True,
+            global_rate=2, thermalization=CH_ISING_THERM,
+            sweeps=CH_ISING_SWEEPS, device=DEVICE),
+            ("ising_sweep", "wolff_step"),
+            CH_ISING_CHAINS * (CH_ISING_THERM + CH_ISING_SWEEPS)),
+    }
+
+
+def chains_check(tag, got, ref, kernels, launches, where):
+    """Hold a sharded run's result to the one-process run's bit for bit and
+    its launches to the session's kernels."""
+    from montecarlo_tpu_torch.parallel.launch import differences
+    diff = differences(got, ref)
+    missing = [k for k in kernels if not launches.get(k)]
+    log(f"[chains] {tag} {where}: "
+        f"{'bit-identical to one process' if not diff else f'differs at {diff[:8]}'}"
+        f"; launches {({k: launches.get(k, 0) for k in kernels})}")
+    if diff:
+        raise AssertionError(f"{tag} {where} differs from one process at "
+                             f"{diff}")
+    if missing:
+        raise AssertionError(f"{tag} {where} launched no {missing}")
+
+
+def phase_chains(smi):
+    """Phase 9: chain sharding (montecarlo_tpu_torch.parallel). Each
+    session once in this process (the reference, timed); (a) the headline
+    on a one-rank NCCL mesh here, bit-identical, and cross_chain_mean of its
+    occupation (an NCCL all-reduce) equal to the plain sum; (b) every
+    session on CH_RANKS ranks of this card over gloo (parallel.launch.spawn:
+    the kernels were built in phase 1, which every rank loads), each rank's
+    result bit-identical, each session's kernels launched in each rank;
+    (c) the wall seconds and chain-sweeps/s of one process and of the
+    ranks (two processes sharing one card: not a scaling number). Any
+    rank's exception or a mismatch fails the phase."""
+    import torch
+    import torch.distributed as dist
+    from montecarlo_tpu_torch.parallel import chain_mesh, cross_chain_mean
+    from montecarlo_tpu_torch.parallel import launch
+    sessions = chains_sessions()
+    ref, one_s = {}, {}
+    for tag, (make, _, _) in sessions.items():
+        sim = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(verbose=False)
+        torch.cuda.synchronize()
+        one_s[tag] = time.perf_counter() - t0
+        ref[tag] = launch.session_result(sim)
+        del sim
+    make, kernels, _ = sessions["headline"]
+    read = zero_launches()
+    mesh = chain_mesh(device=DEVICE, backend="nccl")
+    try:
+        got = launch.run_sharded(mesh, make)
+        launches = read()
+        occ = 1.0 - torch.from_numpy(got["G"]).to(DEVICE).diagonal(
+            dim1=-2, dim2=-1).reshape(CHAINS, -1).double()
+        mean, plain = cross_chain_mean(occ, mesh), occ.sum(0) / CHAINS
+        backend = dist.get_backend(mesh.get_group())
+    finally:
+        dist.destroy_process_group()
+    chains_check("headline", got, ref["headline"], kernels, launches,
+                 f"one-rank {backend} mesh")
+    if not torch.equal(mean, plain):
+        raise AssertionError("cross_chain_mean on one rank differs from the "
+                             "plain mean")
+    from montecarlo_tpu_torch.ops.site_sweep_cx import plan_layout
+    lay = [plan_layout(CH_FLUX_L ** 2, 1, torch.complex128, c)
+           for c in (CH_FLUX_CHAINS, CH_FLUX_CHAINS // CH_RANKS)]
+    log(f"[chains] flux10_c128's K8-c128 layout: {lay[0].kind} (clusters "
+        f"of {lay[0].cs}) at {CH_FLUX_CHAINS} chains in one process, "
+        f"{lay[1].kind} (clusters of {lay[1].cs}) at a rank's "
+        f"{CH_FLUX_CHAINS // CH_RANKS}")
+    jobs = [(launch.run_sharded, (make,)) for make, _, _ in sessions.values()]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(launch.run_jobs, CH_RANKS, jobs, device=DEVICE,
+                         backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for i, (tag, (_, kernels, chain_sweeps)) in enumerate(sessions.items()):
+        for r, res in enumerate(ranks):
+            chains_check(tag, res[i], ref[tag], kernels, res[i]["launches"],
+                         f"rank {r} of {CH_RANKS} (gloo, one card)")
+        sh = max(res[i]["seconds"] for res in ranks)
+        log(f"[chains] {tag}: one process {one_s[tag]:.3f} s = "
+            f"{chain_sweeps / one_s[tag]:.1f} chain-sweeps/s; {CH_RANKS} "
+            f"ranks on one card {sh:.3f} s = {chain_sweeps / sh:.1f} "
+            f"chain-sweeps/s (slowest rank's run; two processes share the "
+            f"card: not scaling) ({smi})")
+    log(f"[chains] {CH_RANKS} ranks spawned, built, ran and joined in "
+        f"{spawn_s:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3672,6 +3815,8 @@ def main():
     launches9 = phase_item9(mark, smi)
     for k in launches:
         launches[k] += launches9.get(k, 0)
+    phase_chains(smi)
+    mark("chains")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

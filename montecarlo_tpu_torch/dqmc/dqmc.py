@@ -10,7 +10,11 @@ drained into host integers after every chunk of sweeps, each chunk a
 host copy of every rate-th measurement-stage configuration (``replay``
 measures them again); ``state_dict`` / ``load_state`` carry the source
 state of a checkpoint (``io.checkpoint``), from which the stacks are
-rebuilt.
+rebuilt. ``shard`` (``parallel.mesh.ChainSharding``) says which chains
+the process holds: all of them, or on a session sharded over ranks
+(``parallel.shard_simulation``) one block, which draws every chain's
+uniforms and keeps its block's, and gathers the counters, the recorded
+configurations, the binners it reports and the checkpoint's arrays.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .parameters import DQMCParameters
 from ..io.checkpoint import SaveSchedule, common_state, restore_common
 from ..io.recorder import Discarder
 from ..measurements.core import MeasurementRegistry
+from ..parallel.mesh import ChainSharding, stage_registry
 from ..utils.host import generator_state, resolve_device, set_generator_state
 from ..utils.timing import timer
 
@@ -126,6 +131,7 @@ class DQMC:
         self.analysis = self.a = DQMCAnalysis()
         self.n_chains = int(n_chains)
         self.last_sweep = int(last_sweep)
+        self.shard = ChainSharding()        # parallel.shard_simulation's
         self.ctx, self.consts = core.make_context(
             model, self.parameters, dtype, update_dtype=update_dtype,
             device=self.device, use_kernels=use_kernels,
@@ -174,20 +180,21 @@ class DQMC:
         """Rebuild every measurement's binners, empty, and restart the sweep
         count; the chain state is kept."""
         for registry in (self.measurements, self.thermalization_measurements):
-            registry.rebind(self.n_chains, self.device)
+            registry.rebind(self.conf.shape[0], self.device)
         self.last_sweep = 0
         return self
 
     def __setitem__(self, key, measurement):
         """sim[key] = measurement: add a measurement (empty binners)."""
-        self.measurements.add(key, measurement, self.n_chains, self.device)
+        self.measurements.add(key, measurement, self.conf.shape[0],
+                              self.device)
 
     def __delitem__(self, key):
         self.measurements.remove(key)
 
     def __getitem__(self, key):
         """The observable results of measurement ``key``."""
-        return self.measurements[key]
+        return stage_registry(self)[key]
 
     def __repr__(self):
         p = self.parameters
@@ -217,6 +224,7 @@ class DQMC:
         total = sweeps + thermalization
         record = not isinstance(self.configs, Discarder)
         saves = SaveSchedule(safe_before, safe_every, grace_period)
+        verbose = verbose and self.shard.rank == 0
         i = self.last_sweep
         while i < total:
             in_th = i < thermalization
@@ -237,8 +245,8 @@ class DQMC:
                     if (record and not in_th
                             and sweep_idx % self.configs.rate == 0):
                         # the configuration at the sweep's end, to the host
-                        self.configs.push(sweep_idx,
-                                          self.state["conf"].cpu().numpy())
+                        self.configs.push(sweep_idx, self.shard.gather(
+                            [self.state["conf"]])[0].cpu().numpy())
             self._drain_counters()      # reads device values: synchronizes
             dur = time.perf_counter() - t0
             self.analysis.sweep_duration = dur / n
@@ -257,12 +265,15 @@ class DQMC:
 
     def _uniforms(self):
         """One sweep pair's uniforms (C, 2M, N): each seed's generator draws
-        its block's."""
+        its block's. A sharded session draws every chain's, as one process
+        does, and keeps its block's: the generators' streams stay those of
+        the unsharded session."""
         C = self.n_chains // len(self.generators)
         shape = (C, 2 * self.ctx.M, self.ctx.N)
-        return torch.cat([torch.rand(shape, generator=g, device=self.device,
-                                     dtype=self.ctx.urdtype)
-                          for g in self.generators])
+        u = torch.cat([torch.rand(shape, generator=g, device=self.device,
+                                  dtype=self.ctx.urdtype)
+                       for g in self.generators])
+        return self.shard.take(u)
 
     def _measure_all(self, registry, G_meas, conf_meas, phase=None):
         """Push every measurement of a stage, grouped by the Green's
@@ -331,9 +342,14 @@ class DQMC:
         """Accumulate the per-chain device counters into host Python ints and
         reset them, with the negative weights' magnitudes; complex sessions
         also fold in the phase-problem statistics and read the average
-        weight phase (the running phase itself is not reset)."""
+        weight phase (the running phase itself is not reset). A sharded
+        session gathers every chain's counters first (one collective) and
+        reduces them as one process does."""
         st = self.state
-        host = {k: st[k].cpu() for k in core.counter_keys(self.ctx)}
+        keys = core.counter_keys(self.ctx) + (
+            ("ls_phase",) if self.ctx.is_complex else ())
+        full = dict(zip(keys, self.shard.gather([st[k] for k in keys])))
+        host = {k: full[k].cpu() for k in core.counter_keys(self.ctx)}
         a = self.analysis
         a.prop_local += int(host["prop"].sum())
         a.acc_local += int(host["acc"].sum())
@@ -345,7 +361,7 @@ class DQMC:
             a.imaginary_probability.absorb_device(
                 host["ls_imag_min"].min(), host["ls_imag_max"].max(),
                 host["ls_imag_sum"].sum(), host["ls_imag_count"].sum())
-            a.avg_phase = complex(st["ls_phase"].mean().item())
+            a.avg_phase = complex(full["ls_phase"].mean().item())
         a.propagation_error.max = max(a.propagation_error.max,
                                       float(host["prop_err_max"].max()))
         a.propagation_error.count += int(host["prop_err_count"].sum())
@@ -353,7 +369,8 @@ class DQMC:
         a.prop_err_n += int(host["prop_err_n"].sum())
         a.prop_err_hist = [x + int(y) for x, y in
                            zip(a.prop_err_hist, host["prop_err_hist"].sum(0))]
-        self.state = {**st, **core.fresh_counters(self.ctx, self.n_chains)}
+        self.state = {**st, **core.fresh_counters(self.ctx,
+                                                  self.conf.shape[0])}
 
     def _report_errors(self):
         a = self.analysis
@@ -401,9 +418,10 @@ class DQMC:
         configurations = (configurations if configurations is not None
                           else self.configs)
         ctx, consts, registry = self.ctx, self.consts, self.measurements
-        registry.rebind(self.n_chains, self.device)
+        registry.rebind(self.conf.shape[0], self.device)
         for conf in configurations:
-            conf = torch.as_tensor(np.asarray(conf)).to(self.device)
+            conf = self.shard.take(torch.as_tensor(np.asarray(conf)).to(
+                self.device))
             G = core.greens_from_scratch(ctx, consts, conf, 0)
             phase = (core.phase_from_conf(ctx, consts, conf)
                      if ctx.is_complex else None)
@@ -412,15 +430,17 @@ class DQMC:
 
     # ------------------------------------------------------------ observables
     def observables(self, stage: str = "ME"):
-        registry = (self.measurements if stage == "ME"
-                    else self.thermalization_measurements)
-        return registry.observables(context=self)
+        """Every observable of a stage ("ME" measurement, else
+        thermalization); a sharded session's over every chain."""
+        return stage_registry(self, stage).observables(context=self)
 
     # ------------------------------------------------------------ persistence
     def state_dict(self):
         """The session's source state: parameters, numeric switches, the
         field, each seed's generator, the recorder, the binner states and
-        the analysis. The stacks and G are derived and not saved."""
+        the analysis. The stacks and G are derived and not saved. A sharded
+        session's (a collective) holds every chain, as the unsharded
+        session's does."""
         ctx = self.ctx
         return {
             "type": "DQMC",
@@ -440,7 +460,7 @@ class DQMC:
                 "fuse_wrap": ctx.fuse_wrap,
                 "qr_wy": ctx.qr_wy,
             },
-            "conf": self.state["conf"].cpu().numpy(),
+            "conf": self.shard.gather([self.state["conf"]])[0].cpu().numpy(),
             "rng": [generator_state(g) for g in self.generators],
             **common_state(self),
         }

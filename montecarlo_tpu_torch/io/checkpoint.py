@@ -14,6 +14,12 @@ beside the device type it draws on (``utils.host.generator_state``). The
 save protocol: rename (x_1, x_2, ...) or overwrite with a backup that is
 removed once the new file is in place. Load only files this package wrote:
 unpickling runs code.
+
+A session sharded over ranks (``parallel.shard_simulation``) saves the
+gathered arrays of every chain: every rank calls ``save`` (a collective),
+rank 0 writes one file, equal array for array to the unsharded session's
+at the same sweep, and the other ranks wait for it. ``load`` returns an
+unsharded session, to be sharded again.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 import torch
 
 from .recorder import recorder_from_state
+from ..parallel.mesh import stage_registry
 
 VERSION = 1
 PACKAGE = "montecarlo_tpu_torch"
@@ -39,7 +46,27 @@ def save(filename: str, mc, overwrite: bool = False, rename: bool = True,
     An existing file is kept: rename=True writes base_1.ext, base_2.ext, ...
     instead, rename=False raises FileExistsError. overwrite=True replaces it;
     with backup=True the old file is moved aside until the new one is
-    written, and put back if the write fails."""
+    written, and put back if the write fails. On a sharded session every
+    rank calls it: rank 0 writes, with its file name, and every rank returns
+    that name or raises when rank 0's write failed."""
+    payload = {"VERSION": VERSION, "package": PACKAGE,
+               "type": type(mc).__name__, "state": mc.state_dict()}
+    name = error = None
+    if mc.shard.rank == 0:
+        try:
+            name = _write(filename, payload, overwrite, rename, backup)
+        except Exception as e:  # every rank must learn of it, then raise
+            error = e
+    name, failed = mc.shard.decide([name, repr(error) if error else None])
+    if error is not None:
+        raise error
+    if failed is not None:
+        raise RuntimeError(f"rank 0 failed to save {filename}: {failed}")
+    return name
+
+
+def _write(filename, payload, overwrite, rename, backup) -> str:
+    """``save``'s file protocol for one payload."""
     if os.path.exists(filename) and not overwrite:
         if not rename:
             raise FileExistsError(filename)
@@ -48,9 +75,6 @@ def save(filename: str, mc, overwrite: bool = False, rename: bool = True,
         while os.path.exists(f"{base}_{i}{ext}"):
             i += 1
         filename = f"{base}_{i}{ext}"
-
-    payload = {"VERSION": VERSION, "package": PACKAGE,
-               "type": type(mc).__name__, "state": mc.state_dict()}
 
     backup_name = None
     if os.path.exists(filename) and overwrite and backup:
@@ -86,13 +110,17 @@ class SaveSchedule:
     def after_chunk(self, mc, seconds, filename=None, verbose=False) -> bool:
         """Save mc if a save is due after a chunk of ``seconds``, to
         filename (default <type>_checkpoint_<unix time>.mctorch),
-        overwriting it. True when the deadline stops the run."""
+        overwriting it. True when the deadline stops the run. The ranks of a
+        sharded session take rank 0's decision (save is a collective)."""
         self.max_chunk = max(self.max_chunk, seconds)
         now = time.time()
         stop = (self.safe_before is not None and now + 2 * self.max_chunk
                 + self.grace_period > self.safe_before)
-        if stop or (self.safe_every is not None
-                    and now - self.last_save > self.safe_every):
+        due = stop or (self.safe_every is not None
+                       and now - self.last_save > self.safe_every)
+        if self.safe_before is not None or self.safe_every is not None:
+            stop, due = mc.shard.decide([stop, due])
+        if due:
             kind = type(mc).__name__
             filename = (filename or
                         f"{kind.lower()}_checkpoint_{int(now)}.mctorch")
@@ -105,15 +133,15 @@ class SaveSchedule:
 
 def common_state(sim):
     """The part of a ``state_dict`` both flavors share: n_chains,
-    last_sweep, the recorder, both stages' binner states, the analysis and
-    the model (its type, parameters and lattice)."""
+    last_sweep, the recorder, both stages' binner states (every chain's on
+    a sharded session), the analysis and the model (its type, parameters
+    and lattice)."""
     return {
         "n_chains": sim.n_chains,
         "last_sweep": sim.last_sweep,
         "configs": sim.configs.state_dict(),
-        "measurement_states": sim.measurements.host_states(),
-        "th_measurement_states":
-            sim.thermalization_measurements.host_states(),
+        "measurement_states": stage_registry(sim, "ME").host_states(),
+        "th_measurement_states": stage_registry(sim, "TH").host_states(),
         "analysis": dataclasses.asdict(sim.analysis),
         "model": {
             "type": type(sim.model).__name__,

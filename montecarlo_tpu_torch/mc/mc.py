@@ -10,7 +10,13 @@ levels the search used), and on the measurement schedule pushes the
 measurements into device-side binners. The counters stay on the device
 and are drained into host integers once per chunk of sweeps, each chunk a
 ``timer("mc_block")`` section (``utils.timing``); a recorder copies each
-recorded configuration to the host.
+recorded configuration to the host. ``shard``
+(``parallel.mesh.ChainSharding``) says which chains the process holds: all
+of them, or on a session sharded over ranks (``parallel.shard_simulation``)
+one block, which draws every chain's random numbers and keeps its block's,
+ends each batch of a Wolff search on the maximum over ranks, sums the
+counters over ranks and gathers the recorded configurations, the binners
+it reports and the checkpoint's arrays.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from ..io.checkpoint import SaveSchedule, common_state, restore_common
 from ..io.recorder import Discarder
 from ..measurements.core import MeasurementRegistry
+from ..parallel.mesh import ChainSharding, stage_registry
 from ..utils.host import generator_state, resolve_device, set_generator_state
 from ..utils.timing import timer
 
@@ -107,6 +114,7 @@ class MC:
         self.n_chains = int(n_chains)
         self.last_sweep = int(last_sweep)
         self.use_kernels = bool(use_kernels)
+        self.shard = ChainSharding()        # parallel.shard_simulation's
         # one generator draws the initial configuration and every sweep's
         # random numbers: the same seed gives the same run
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -132,20 +140,21 @@ class MC:
         """Rebuild every measurement's binners, empty, and restart the sweep
         count; the chain state is kept."""
         for registry in (self.measurements, self.thermalization_measurements):
-            registry.rebind(self.n_chains, self.device)
+            registry.rebind(self.conf.shape[0], self.device)
         self.last_sweep = 0
         return self
 
     def __setitem__(self, key, measurement):
         """mc[key] = measurement: add a measurement (empty binners)."""
-        self.measurements.add(key, measurement, self.n_chains, self.device)
+        self.measurements.add(key, measurement, self.conf.shape[0],
+                              self.device)
 
     def __delitem__(self, key):
         self.measurements.remove(key)
 
     def __getitem__(self, key):
         """The observable results of measurement ``key``."""
-        return self.measurements[key]
+        return stage_registry(self)[key]
 
     def __repr__(self):
         return (f"MC simulation of {self.model!r} (beta={self.parameters.beta}, "
@@ -156,11 +165,12 @@ class MC:
         """(sweep, global move or None) of the current parameters, built
         once per beta and schedule."""
         p = self.parameters
-        key = (p.beta, p.global_moves)
+        key = (p.beta, p.global_moves, self.shard)
         if self._moves_at is None or self._moves_at[0] != key:
             kw = dict(device=self.device, use_kernels=self.use_kernels)
             sweep = self.model.make_sweep_fn(p.beta, **kw)
-            glob = (self.model.make_global_move_fn(p.beta, **kw)
+            glob = (self.model.make_global_move_fn(p.beta, shard=self.shard,
+                                                   **kw)
                     if p.global_moves else None)
             self._moves_at = (key, sweep, glob)
         return self._moves_at[1:]
@@ -190,6 +200,7 @@ class MC:
         dev = self.device
         record = not isinstance(self.configs, Discarder)
         saves = SaveSchedule(safe_before, safe_every, grace_period)
+        verbose = verbose and self.shard.rank == 0
 
         i = self.last_sweep
         while i < total:
@@ -221,14 +232,15 @@ class MC:
                                    m.measure_fn(self.conf))
                     if (record and not in_th
                             and sweep_idx % self.configs.rate == 0):
-                        self.configs.push(sweep_idx, self.conf.cpu().numpy())
-            acc_local, acc_global = torch.stack(
-                [acc_l.sum(), acc_g]).tolist()   # synchronizes
+                        self.configs.push(sweep_idx, self.shard.gather(
+                            [self.conf])[0].cpu().numpy())
+            acc_local, acc_global = self.shard.all_sum(torch.stack(
+                [acc_l.sum(), acc_g])).tolist()   # synchronizes
             dur = time.perf_counter() - t0
             a = self.analysis
-            a.prop_local += n * C * N
+            a.prop_local += n * self.n_chains * N
             a.acc_local += acc_local
-            a.prop_global += n_global * C
+            a.prop_global += n_global * self.n_chains
             a.acc_global += acc_global
             i += n
             self.last_sweep = i
@@ -249,19 +261,25 @@ class MC:
 
     def _uniforms(self, shape):
         """The next float64 uniforms of the session's stream: (C, N) for a
-        sweep (class order), (C, N, z) for a BFS level."""
-        return torch.rand(shape, generator=self.generator, device=self.device,
-                          dtype=torch.float64)
+        sweep (class order), (C, N, z) for a BFS level. Here and below a
+        sharded session draws every chain's numbers, as one process does,
+        and keeps its block's."""
+        return self.shard.take(torch.rand(
+            (self.n_chains, *shape[1:]), generator=self.generator,
+            device=self.device, dtype=torch.float64))
 
     def _level_uniforms(self, shape, k):
         """The next k BFS levels' uniforms from the session's stream
-        (``level_uniforms``)."""
-        return level_uniforms(self.generator, shape, k)
+        (``level_uniforms``), shape (C, N, z)."""
+        u, rewind = level_uniforms(self.generator,
+                                   (self.n_chains, *shape[1:]), k)
+        return self.shard.take(u, axis=1), rewind
 
     def _seed_sites(self, N):
         """The next global move's first sites, (C,) in [0, N)."""
-        return torch.randint(0, N, (self.n_chains,), generator=self.generator,
-                             device=self.device)
+        return self.shard.take(torch.randint(
+            0, N, (self.n_chains,), generator=self.generator,
+            device=self.device))
 
     # --------------------------------------------------------------- replay
     def replay(self, configurations=None, verbose: bool = False) -> bool:
@@ -270,18 +288,19 @@ class MC:
         configurations = (configurations if configurations is not None
                           else self.configs)
         registry = self.measurements
-        registry.rebind(self.n_chains, self.device)
+        registry.rebind(self.conf.shape[0], self.device)
         for conf in configurations:
-            conf = torch.as_tensor(np.asarray(conf)).to(self.device)
+            conf = self.shard.take(torch.as_tensor(np.asarray(conf)).to(
+                self.device))
             for k, m in registry.measurements.items():
                 m.push(registry.states[k], m.measure_fn(conf))
         return True
 
     # ---------------------------------------------------------- observables
     def observables(self, stage: str = "ME"):
-        registry = (self.measurements if stage == "ME"
-                    else self.thermalization_measurements)
-        return registry.observables(context=self)
+        """Every observable of a stage ("ME" measurement, else
+        thermalization); a sharded session's over every chain."""
+        return stage_registry(self, stage).observables(context=self)
 
     # ---------------------------------------------------------- persistence
     def state_dict(self):
@@ -289,7 +308,7 @@ class MC:
             "type": "MC",
             "parameters": self.parameters.as_dict(),
             "use_kernels": self.use_kernels,
-            "conf": self.conf.cpu().numpy(),
+            "conf": self.shard.gather([self.conf])[0].cpu().numpy(),
             "rng": [generator_state(self.generator)],
             **common_state(self),
         }

@@ -146,6 +146,26 @@ class MeasurementRegistry:
         self.measurements.pop(key, None)
         self.states.pop(key, None)
 
+    def gathered(self, shard):
+        """This registry with every binner's sums over all chains: the
+        device sums (level axis first, chains second) of every rank
+        concatenated along the chain axis (one collective: every rank
+        calls it; an unsharded session's shard hands the sums back as they
+        are); the host counts, shared by all chains, as they are."""
+        where = [(k, n, f) for k, states in self.states.items()
+                 for n in states for f in LogBinner.DEVICE_KEYS]
+        if not where:
+            return self
+        full = shard.gather([self.states[k][n][f] for k, n, f in where],
+                            axis=1)
+        out = MeasurementRegistry()
+        out.measurements = self.measurements
+        out.states = {k: {n: dict(st) for n, st in states.items()}
+                      for k, states in self.states.items()}
+        for (k, n, f), t in zip(where, full):
+            out.states[k][n][f] = t
+        return out
+
     def host_states(self):
         """numpy copies of every binner state (for a checkpoint)."""
         return {k: {n: LogBinner.to_host(st) for n, st in states.items()}

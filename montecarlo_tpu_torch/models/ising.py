@@ -30,6 +30,7 @@ from .base import Model
 from ..lattices.lattice import Lattice
 from ..lattices.library import choose_lattice
 from ..ops import ising as kising
+from ..parallel.mesh import ChainSharding
 
 #: Exact critical temperature of the 2D Ising model
 IsingTc = 2.0 / math.log(1.0 + math.sqrt(2.0))
@@ -121,7 +122,8 @@ class IsingModel(Model):
         return sweep
 
     def make_global_move_fn(self, beta: float, device,
-                            use_kernels: bool = True):
+                            use_kernels: bool = True,
+                            shard: ChainSharding = None):
         """The Wolff cluster move of every chain as a batched BFS:
         global_move(conf, seeds, draw) -> (flipped conf, cluster sizes (C,),
         levels). seeds (C,) are the clusters' first sites; draw(k) returns
@@ -135,7 +137,14 @@ class IsingModel(Model):
         levels are handed back, so a move consumes exactly ``levels`` draws
         (the JAX loop's body runs) whatever the batch size. Every candidate
         bond is tried at most once. ``global_move.batches`` counts the
-        batches run (the host reads)."""
+        batches run (the host reads). shard (``parallel.chain_sharding``;
+        by default one process's, every chain): conf holds this rank's block
+        of the session's chains, draw(k) its block of every chain's levels;
+        a batch's status is the maximum over ranks (one all-reduce after the
+        host read a batch takes), so every rank runs and hands back the
+        levels one process would, and the batch size is that of the whole
+        session."""
+        shard = shard or ChainSharding()
         tabs = kising.make_tables(self.lattice, beta, device)
         step = kising.wolff_step if use_kernels else kising.wolff_step_plain
         N, z = tabs.N, tabs.z
@@ -151,11 +160,12 @@ class IsingModel(Model):
             frontier = in_cluster
             levels = 0
             while True:
-                k = batch_levels(last[0], levels, C, N, z)
+                k = batch_levels(last[0], levels, C * shard.size, N, z)
                 u, rewind = draw(k)
                 in_cluster, frontier, status = step(
                     conf, in_cluster, frontier, seed_spin, u, tabs)
-                ran, left = status.tolist()    # one host synchronization
+                # a search ends when no chain of any rank has a frontier
+                ran, left = shard.all_max(status).tolist()   # one host sync
                 global_move.batches += 1
                 levels += ran
                 if not left:

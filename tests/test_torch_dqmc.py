@@ -611,7 +611,10 @@ def test_interop_roundtrip():
 
 def test_port_never_imports_jax():
     code = ("import sys, montecarlo_tpu_torch, montecarlo_tpu_torch.interop, "
-            "montecarlo_tpu_torch.ops.linalg, montecarlo_tpu_torch.ops._build; "
+            "montecarlo_tpu_torch.ops.linalg, montecarlo_tpu_torch.ops._build, "
+            "montecarlo_tpu_torch.parallel, "
+            "montecarlo_tpu_torch.parallel.launch, "
+            "montecarlo_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'montecarlo_tpu.'))] + "
             "(['montecarlo_tpu'] if 'montecarlo_tpu' in sys.modules else []); "

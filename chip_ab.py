@@ -446,7 +446,8 @@ def main(argv):
                                  timeout=900, cwd=root)
             print(out.stdout, end="", flush=True)
             runs += [(tag, json.loads(line))
-                     for line in out.stdout.splitlines()]
+                     for line in out.stdout.splitlines()
+                     if line.startswith("{")]    # not the log lines
         outs = {t: torch.load(f) for t, f in saved.items()}
     for name in selected(argv[2:]):
         for key, what in (("ms", "per call"),

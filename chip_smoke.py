@@ -57,7 +57,21 @@ failure and prints no result line then):
               and the four redesigned rows and K8-c128 at F = 2, N = 128
               also time the other layouts that fit ([layouts] lines, in
               turns); the four shapes of the 4r runs are rows of their
-              own in the kernels line
+              own in the kernels line; K15 (qr_r: R without Q;
+              qr_backward: Q formed backward) and K16 (qr_kcol at KC = 1,
+              2 and 4 reflectors per block barrier) at the A/B scripts'
+              (256, 64, 64), each within TOL_QR of its plain version,
+              REPEATS launches more and on zero and subnormal columns, R
+              (and K16's Q) bit-equal to K4's, the backward Q orthogonal;
+              the library call is torch.linalg.qr (mode "r" for qr_r)
+  3b. ab      the slice of K15 and K16: the entry points
+              montecarlo_tpu_torch.ab.q_backward_ab and qr_step_shape_ab,
+              each through its run() at the scripts' anchor shape (256, 64,
+              64) with AB_CALLS calls an arm, every kernel count set to 0
+              just before and read just after ([ab] lines: each arm's
+              median ms per call in two turns beside nvidia-smi's name and
+              power limit, the backward arm's |QR - A|, |Q - Q_fwd|,
+              |Q^T Q - I|, K16 bit-equal across KC and to K4)
   4. slice    DQMC(...).run() through the public entry point at the headline
               configuration (8x8 attractive Hubbard, beta=10, 256 chains,
               float32), counting each kernel's launches during the run
@@ -467,6 +481,8 @@ ISING_SMALL_CHAINS, ISING_LARGE_L = 4096, 32
 # the card's L2 (50 MB on the H100)
 L2_OVERWRITE_BYTES = 256 << 20
 WOLFF_PARITY_SEED = 24
+# phase 3b: calls an arm of the A/B entry points (their own default is 200)
+AB_CALLS = 50
 # 7b: Wolff moves timed alone from the run's final state (wall per move,
 # batched and level by level), and moves under torch's sync debug mode
 # (host synchronizations per move)
@@ -589,6 +605,14 @@ KERNEL_INFO = {
                     "montecarlo_tpu/models/ising.py:88"),
     "wolff_step": ("montecarlo_tpu_torch/csrc/ising.cu",
                    "montecarlo_tpu/models/ising.py:131"),
+    # the A/B variants of the fused QR's column loop (K15, K16), in the TPU
+    # A/B scripts of benchmarks/; their launches are phase 3b's
+    "qr_r": ("montecarlo_tpu_torch/csrc/qr_ab.cu",
+             "benchmarks/q_backward_ab.py:59"),
+    "qr_backward": ("montecarlo_tpu_torch/csrc/qr_ab.cu",
+                    "benchmarks/q_backward_ab.py:74"),
+    "qr_kcol": ("montecarlo_tpu_torch/csrc/qr_ab.cu",
+                "benchmarks/qr_step_shape_ab.py:58"),
 }
 
 
@@ -1418,6 +1442,7 @@ def phase_parity():
     parity_fp64(results)
     parity_item4(results)
     parity_ising(results)
+    parity_qr_ab(results)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
 
     # ---- K7 at (64, 256, 256) on graded, prescaled, pivoted input
@@ -1445,6 +1470,72 @@ def phase_parity():
             f"{r['plain_ms']:.4f} ms per call, library call {lib}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
+
+
+def parity_qr_ab(results):
+    """K15 and K16 at the A/B scripts' shape (256, 64, 64) on graded,
+    prescaled, pivoted float32 matrices, each against its plain version on
+    the card (Q and R within TOL_QR of their largest entries, R exactly
+    upper triangular) and REPEATS launches more, each bit-equal to the
+    first, then on zero and subnormal columns: K15-noq's R, K15-backward's
+    R and K16's Q and R at KC = 1, 2 and 4 bit-equal to K4's kernel, and
+    the backward Q orthogonal to TOL_QR. The kernels-line row of qr_kcol is
+    KC = 4's, with every KC's times beside it (device: torch.profiler)."""
+    import torch
+    from montecarlo_tpu_torch.ops import qr_ab as qab
+    from montecarlo_tpu_torch.ops import qr_householder as qh
+    from montecarlo_tpu_torch.ops.linalg import _prescale_pivot
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    B, N = CHAINS, L * L
+    Ap, _, _ = _prescale_pivot(graded(gen, B, N))
+    Ap = Ap.contiguous()
+    Q4, R4 = qh.qr_f32(Ap)
+    torch.cuda.synchronize()
+    eye = torch.eye(N, device=DEVICE, dtype=torch.float64)
+    with_q = bound(3 * B * N * N * 4, B * householder_flops(N))
+    rows = {
+        # qr_r's R in both places of qr_parity's (Q, R)
+        "qr_r": (lambda A: (qab.qr_r(A),) * 2,
+                 lambda A: (qab.householder_r_plain(A),) * 2,
+                 lambda A: torch.linalg.qr(A, mode="r"),
+                 bound(2 * B * N * N * 4,
+                       B * householder_flops(N, with_q=False))),
+        "qr_backward": (qab.qr_backward, qab.householder_qr_backward_plain,
+                        torch.linalg.qr, with_q)}
+    for k in qab.COLS_PER_STEP:
+        rows[f"qr_kcol KC={k}"] = (
+            lambda A, k=k: qab.qr_kcol(A, k),
+            lambda A, k=k: qab.householder_qr_kcol_plain(A, k),
+            torch.linalg.qr, with_q)
+    for name, (kernel, plain, library, bnd) in rows.items():
+        r = qr_parity(name, kernel, plain, Ap, library=library)
+        r.update(bnd)
+        dev = device_ms(lambda: kernel(Ap), only="qr_")
+        if dev is not None:
+            r["device_ms"] = dev
+        out = kernel(Ap)
+        same = torch.equal(out[1], R4) and (
+            name in ("qr_r", "qr_backward") or torch.equal(out[0], Q4))
+        orth = (out[0].double().mT @ out[0].double() - eye).abs().max().item()
+        repeats_equal(f"{name} {tuple(Ap.shape)}", lambda: kernel(Ap))
+        log(f"[parity] {name} ({B}, {N}, {N}): "
+            + ("R" if name in ("qr_r", "qr_backward") else "Q and R")
+            + f" bit-equal to K4's (qr_f32) {same}"
+            + ("" if name == "qr_r" else f", max|Q^T Q - I| {orth:.3e}")
+            + f"; kernel {r['ms']:.4f} ms ({ms_text(r.get('device_ms'))} "
+            f"device), plain {r['plain_ms']:.4f} ms, library call "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+        if not (same and (name == "qr_r" or orth <= TOL_QR)):
+            raise AssertionError(f"{name} is not bit-equal to K4 or its Q "
+                                 "is not orthogonal")
+        if name != "qr_r":
+            degenerate_columns(name, kernel, Ap, 1e-35, TOL_QR, TOL_QR)
+        results[name] = r
+    kcol = {k: results.pop(f"qr_kcol KC={k}") for k in qab.COLS_PER_STEP}
+    results["qr_kcol"] = dict(kcol[4], by_kc={
+        k: {key: r.get(key) for key in ("ms", "device_ms")}
+        for k, r in kcol.items()})
 
 
 def parity_delayed(results):
@@ -3606,6 +3697,24 @@ def chains_check(tag, got, ref, kernels, launches, where):
         raise AssertionError(f"{tag} {where} launched no {missing}")
 
 
+def phase_ab(smi):
+    """Phase 3b: the A/B entry points (montecarlo_tpu_torch.ab), the path of
+    K15 and K16, each run once through its run() with AB_CALLS calls an
+    arm, its lines logged as [ab] lines. Every kernel count is set to 0
+    just before and read just after; returns the counts."""
+    from montecarlo_tpu_torch.ab import q_backward_ab, qr_step_shape_ab
+    read = zero_launches()
+    for mod in (q_backward_ab, qr_step_shape_ab):
+        mod.run(AB_CALLS, smi, lambda line: log(f"[ab] {line}"))
+    launches = read()
+    log("[ab] launches: " + ", ".join(f"{k} {v}" for k, v in
+                                      launches.items() if v))
+    for k in ("qr_r", "qr_backward", "qr_kcol"):
+        if not launches[k]:
+            raise AssertionError(f"phase 3b launched no {k}")
+    return launches
+
+
 def phase_chains(smi):
     """Phase 9: chain sharding (montecarlo_tpu_torch.parallel). Each
     session once in this process (the reference, timed); (a) the headline
@@ -3690,6 +3799,8 @@ def main():
     mark("build")
     parity = phase_parity()
     mark("parity")
+    launches_ab = phase_ab(smi)
+    mark("ab")
     sim, launches, _ = phase_slice()
     sim16, launches16, _ = phase_slice(L16, L16_CHAINS, L16_THERM,
                                        L16_SWEEPS, tag="l16")
@@ -3817,6 +3928,9 @@ def main():
         launches[k] += launches9.get(k, 0)
     phase_chains(smi)
     mark("chains")
+    # K15's and K16's launches are those of their path, phase 3b
+    for k in ("qr_r", "qr_backward", "qr_kcol"):
+        launches[k] += launches_ab[k]
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **parity[k])
                for k, (src, rep) in KERNEL_INFO.items()]

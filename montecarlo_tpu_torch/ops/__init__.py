@@ -10,10 +10,13 @@ N <= 128 and site_sweep_delayed_cx (K9) beyond; their float64 and
 complex128 instances site_sweep_delayed_f64 (K6-f64), site_sweep_cx_c128
 (K8-c128) and site_sweep_delayed_cx_c128 (K9-c128); for the Ising model the
 checkerboard Metropolis sweep ising_sweep (K17) and the Wolff BFS level
-wolff_step (K18)."""
+wolff_step (K18); the A/B variants of the fused QR's column loop qr_r and
+qr_backward (K15: R without Q, and Q formed backward) and qr_kcol (K16:
+several columns per block barrier)."""
 
-from . import (ising, qr, qr_blocked, qr_cx, qr_householder, site_sweep,
-               site_sweep_cx, site_sweep_delayed, site_sweep_delayed_cx)
+from . import (ising, qr, qr_ab, qr_blocked, qr_cx, qr_householder,
+               site_sweep, site_sweep_cx, site_sweep_delayed,
+               site_sweep_delayed_cx)
 
 # the kernel wrappers, each with its plain-integer launch count `.launches`
 KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
@@ -35,8 +38,11 @@ KERNELS = {"site_sweep": site_sweep.site_sweep, "udt_qr": qr.udt_qr,
            "site_sweep_delayed_cx_c128":
                site_sweep_delayed_cx.site_sweep_delayed_cx_c128,
            "ising_sweep": ising.ising_sweep,
-           "wolff_step": ising.wolff_step}
+           "wolff_step": ising.wolff_step,
+           "qr_r": qr_ab.qr_r,
+           "qr_backward": qr_ab.qr_backward,
+           "qr_kcol": qr_ab.qr_kcol}
 
-__all__ = ["KERNELS", "ising", "qr", "qr_blocked", "qr_cx", "qr_householder",
-           "site_sweep", "site_sweep_cx", "site_sweep_delayed",
+__all__ = ["KERNELS", "ising", "qr", "qr_ab", "qr_blocked", "qr_cx",
+           "qr_householder", "site_sweep", "site_sweep_cx", "site_sweep_delayed",
            "site_sweep_delayed_cx"]

@@ -59,6 +59,12 @@ SIGNATURES = {
     "qr_f64": (_P, _P, _P, _I, _I, _P),
     # A, V, tau, R, B, N, stream
     "qr_vtau_f32": (_P, _P, _P, _P, _I, _I, _P),
+    # A, R, B, N, stream (K15-noq)
+    "qr_r_f32": (_P, _P, _I, _I, _P),
+    # A, Q, R, B, N, stream (K15-backward)
+    "qr_backward_f32": (_P, _P, _P, _I, _I, _P),
+    # A, Q, R, B, N, KC (reflectors per block barrier), stream (K16)
+    "qr_kcol_f32": (_P, _P, _P, _I, _I, _I, _P),
     # A, mx, Q, Rs, d, B, N, stream
     "udt_qr_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # A, Z, mx, Q, X, B, N, stream

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -24,6 +26,16 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def nvidia_smi() -> str:
+    """nvidia-smi's name and power limit of the first card, as
+    ``--query-gpu=name,power.limit --format=csv,noheader`` prints them ("" where
+    it lists no card): every time the port reports stands beside them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0] if out else ""
 
 
 def generator_state(generator: torch.Generator) -> dict:

@@ -333,6 +333,8 @@ def _gate(name, argv):
 
     import torch
 
+    from .utils import host
+
     ap = argparse.ArgumentParser(prog="python3 -m montecarlo_tpu_torch."
                                  f"validation {name}")
     ap.add_argument("--refuse-cache", action="store_true",
@@ -342,9 +344,7 @@ def _gate(name, argv):
     t0 = time.perf_counter()
     res = cross_sm_check(refuse_cache=args.refuse_cache, **GATES[name])
     res = {k: v for k, v in res.items() if not k.startswith("_")}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = host.nvidia_smi()
     res.update(gate=name, wall_s=time.perf_counter() - t0,
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                source_digest=source_digest(),

@@ -16,7 +16,7 @@ import torch
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch.dqmc import core
 from montecarlo_tpu_torch.dqmc.parameters import DQMCParameters
-from montecarlo_tpu_torch.ops import qr, qr_blocked as qb
+from montecarlo_tpu_torch.ops import qr, qr_ab as qab, qr_blocked as qb
 from montecarlo_tpu_torch.ops import qr_cx as qcx
 from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
@@ -1391,3 +1391,64 @@ def test_default_dtype_sessions_run_the_fp64_kernels(cuda):
                           sscx.site_sweep_cx.launches,
                           ssdcx.site_sweep_delayed_cx.launches)
         assert bool(torch.isfinite(sim.state["G"]).all())
+
+
+@pytest.mark.parametrize("N", range(8, 65, 8))
+def test_qr_ab_kernels_match_plain_and_k4(cuda, N):
+    """K15 and K16 at every 8 | N <= 64 (each N an instantiation of its own)
+    on graded, prescaled, pivoted input: K15-noq's and K15-backward's R and
+    K16's Q and R at KC = 1, 2 and 4 bit-equal to K4's kernel (the same
+    operations on every column); R within 1e-5 of the plain versions; the
+    backward Q within 1e-5 of its plain version's largest entry and
+    orthogonal to 1e-5; one launch each (KC = 1's counted as K4's)."""
+    Ap, _ = (t.to(cuda) for t in graded(N + 5, 32, N))
+    fns = (qab.qr_r, qab.qr_backward, qab.qr_kcol, qh.qr_f32)
+    n0 = [fn.launches for fn in fns]
+    Q4, R4 = qh.qr_f32(Ap)
+    R = qab.qr_r(Ap)
+    Qb, Rb = qab.qr_backward(Ap)
+    assert torch.equal(R, R4) and torch.equal(Rb, R4)
+    _close(R, qab.householder_r_plain(Ap), 1e-5)
+    Qp, Rp = qab.householder_qr_backward_plain(Ap)
+    _close(Qb, Qp, 1e-5)
+    _close(Rb, Rp, 1e-5)
+    eye = torch.eye(N, device=cuda, dtype=torch.float64)
+    assert (Qb.double().mT @ Qb.double() - eye).abs().max().item() <= 1e-5
+    for k in qab.COLS_PER_STEP:
+        Qk, Rk = qab.qr_kcol(Ap, k)
+        assert torch.equal(Qk, Q4) and torch.equal(Rk, R4), k
+    # qr_kcol at KC = 1 launches K4's kernel and counts it as K4's
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("N", [16, 64])
+def test_qr_ab_kernels_zero_and_subnormal_columns(cuda, N):
+    """Zero columns and a subnormal v.v: tau = 0, finite outputs, R's block
+    zero, the backward Q orthogonal; K16 bit-equal to K4 there too."""
+    Ap, _ = (t.to(cuda) for t in graded(5, 4, N, decades=2.0))
+    Ap[:, :, -4:] = 0.0
+    Ap[:, :, 1] = Ap[:, :, 1] * 1e-35
+    Q4, R4 = qh.qr_f32(Ap)
+    Qb, Rb = qab.qr_backward(Ap)
+    assert bool(torch.isfinite(Qb).all()) and torch.equal(Rb, R4)
+    assert torch.equal(R4[:, -4:, -4:], torch.zeros_like(R4[:, -4:, -4:]))
+    eye = torch.eye(N, device=cuda, dtype=torch.float64)
+    assert (Qb.double().mT @ Qb.double() - eye).abs().max().item() < 1e-5
+    assert torch.equal(qab.qr_r(Ap), R4)
+    for k in (2, 4):
+        assert all(map(torch.equal, qab.qr_kcol(Ap, k), (Q4, R4)))
+
+
+def test_qr_ab_wrappers_check_inputs(cuda):
+    """On the card the wrappers refuse what the kernels do not take:
+    non-contiguous A, N outside 8 | N <= 64, float64, k outside 1, 2, 4."""
+    A = torch.zeros(2, 16, 16, device=cuda)
+    for fn in (qab.qr_r, qab.qr_backward, lambda A: qab.qr_kcol(A, 4)):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(A.mT)
+        with pytest.raises(ValueError, match="8 [|] N <= 64"):
+            fn(torch.zeros(2, 72, 72, device=cuda))
+        with pytest.raises(ValueError, match="float32"):
+            fn(A.double())
+    with pytest.raises(ValueError, match="k must be"):
+        qab.qr_kcol(A, 3)

@@ -23,6 +23,7 @@ import torch
 from montecarlo_tpu.ops import pallas_qr
 from montecarlo_tpu.ops import pallas_site_sweep as pss
 from montecarlo_tpu_torch.ops import KERNELS, _build, qr, qr_blocked as qb
+from montecarlo_tpu_torch.ops import qr_ab as qab
 from montecarlo_tpu_torch.ops import qr_cx as qcx
 from montecarlo_tpu_torch.ops import qr_householder as qh
 from montecarlo_tpu_torch.ops import site_sweep as ss
@@ -726,7 +727,12 @@ def test_wrappers_raise_off_cpu_without_kernel():
                             "qr_vtau", "site_sweep_single", "ising_sweep",
                             "wolff_step", "site_sweep_delayed_f64",
                             "site_sweep_cx_c128",
-                            "site_sweep_delayed_cx_c128"}
+                            "site_sweep_delayed_cx_c128", "qr_r",
+                            "qr_backward", "qr_kcol"}
+    A = torch.empty(2, 16, 16, **m)
+    for fn in (qab.qr_r, qab.qr_backward, lambda A: qab.qr_kcol(A, 2)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            fn(A)
     assert all(fn.launches == 0 for fn in KERNELS.values())
 
 
@@ -739,12 +745,13 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
     objects into the shared library under the ignored build directory."""
     out = _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "ising.cu", "qr_blocked.cu", "qr_cx.cu", "qr_f64.cu", "site_sweep.cu",
-        "site_sweep_cx.cu", "site_sweep_delayed.cu",
+        "ising.cu", "qr_ab.cu", "qr_blocked.cu", "qr_cx.cu", "qr_f64.cu",
+        "site_sweep.cu", "site_sweep_cx.cu", "site_sweep_delayed.cu",
         "site_sweep_delayed_cx.cu", "site_sweep_wrap.cu", "udt_qr.cu"]
     assert [p.name for p in _build.headers()] == ["phase_clock.cuh",
                                                   "site_sweep_rank1.cuh",
-                                                  "site_sweep_tiled.cuh"]
+                                                  "site_sweep_tiled.cuh",
+                                                  "udt_qr_loop.cuh"]
     for src in _build.sources():
         cmd = _build.compile_command("nvcc", src, tmp_path / "k.o")
         assert cmd[0] == "nvcc" and str(src) in cmd
@@ -781,7 +788,9 @@ def test_build_command_targets_sm90a_into_ignored_dir(tmp_path):
         "site_sweep_delayed_cx_c128_flavors",
         "site_sweep_delayed_cx_c128_flavors_max_clusters",
         # K8-c128 past N = 64 in the rank-1 layout
-        "site_sweep_cx_c128_rank1", "site_sweep_cx_c128_rank1_max_clusters"}
+        "site_sweep_cx_c128_rank1", "site_sweep_cx_c128_rank1_max_clusters",
+        # K15 and K16
+        "qr_r_f32", "qr_backward_f32", "qr_kcol_f32"}
     assert out.parent == _build.PACKAGE_DIR / "_build"
     # the build directory is listed in .gitignore
     root = _build.PACKAGE_DIR.parent

@@ -51,8 +51,10 @@ def test_chip_profile_names_k2_k3(solve, label):
 
 
 def test_udt_stamp_phases_fit_the_phase_clock():
-    """csrc/udt_qr.cu laps phases 0..len(PHASES)-1, within kPhases."""
-    src = (ROOT / "montecarlo_tpu_torch/csrc/udt_qr.cu").read_text()
+    """csrc/udt_qr.cu and the loop it shares, csrc/udt_qr_loop.cuh, lap
+    phases 0..len(PHASES)-1, within kPhases."""
+    src = "".join((ROOT / "montecarlo_tpu_torch/csrc" / f).read_text()
+                  for f in ("udt_qr.cu", "udt_qr_loop.cuh"))
     header = (ROOT / "montecarlo_tpu_torch/csrc/phase_clock.cuh").read_text()
     k_phases = int(re.search(r"kPhases = (\d+);", header).group(1))
     laps = {int(p) for p in re.findall(r"clk\.lap\((\d+)\)", src)}
